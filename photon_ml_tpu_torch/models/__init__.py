@@ -1,0 +1,5 @@
+from photon_ml_tpu_torch.models.glm import (  # noqa: F401
+    Coefficients,
+    GeneralizedLinearModel,
+    model_for_task,
+)
