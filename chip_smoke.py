@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense GLM training path on one CUDA card.
+"""Drive the PyTorch port's dense and high-dimensional sparse GLM training
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,8 @@ Run from the root of a checkout. It builds the CUDA kernels from
 ``photon_ml_tpu_torch/csrc`` and prints one JSON line per phase:
 
 1. device: the card's name and power limit;
-2. build: the kernels compiled with nvcc for sm_90a;
+2. build: the kernels compiled with nvcc for sm_90a (one nvcc per source,
+   started together), with the spill lines of each source's report;
 3. parity: K1 (fused value+gradient) and K2 (fused Hessian-vector) against
    their plain PyTorch versions on the card, at the headline shape
    (n = 2^20, d = 512, bfloat16 X), config B's (n = 2^20, d = 256, float32)
@@ -23,7 +25,25 @@ Run from the root of a checkout. It builds the CUDA kernels from
    iterations);
 6. agreement: A and B again with the kernels vetoed
    (``PHOTON_DISABLE_FUSED=1``), held to |dAUC| <= 0.005, relative
-   d(objective) <= 1e-3 and, for B, relative dRMSE <= 1e-4.
+   d(objective) <= 1e-3 and, for B, relative dRMSE <= 1e-4;
+7. parity_k3: K3 (the sparse kernel) against its plain version in all
+   three directions (margins, gradient, squared gradient) on every storage
+   rung, at config A2's shape (n = 2^19, d = 2^17, 32 nonzeros a row), a
+   ragged one, one with duplicate (row, column) pairs and one whose
+   columns follow a power law (a few columns hold tens of thousands of
+   nonzeros); f32 within rtol = atol = 1e-5, bf16 / int8 within
+   1e-5 x max|plain|; and K3 repeats bitwise at A2;
+8. timing_k3: each direction at A2 on each rung, beside its plain version,
+   cuSPARSE (``torch.sparse_csr_tensor @ src``) on the same matrix, the
+   bytes per nonzero and the least time the card could take;
+9. main_a2: config A2 (logistic, L-BFGS 30 iterations, lambda = 1, SIMPLE
+   variances), generated on the card as bench.py generates it, through
+   ``optimize_batch_layout`` (which must pick the sparse kernel's layout)
+   and ``train_glm``; train AUC >= 0.98 x the AUC of the true weights;
+10. agreement_a2: the same solve on the gather/scatter ``SparseBatch``
+   (|dAUC| <= 1e-3, relative d(objective) <= 1e-4), and on the bf16 and
+   int8 rungs against f32 (|dAUC| <= 0.005 / 0.01, relative d(loss) <=
+   1e-3 / 5e-3).
 
 Every check that fails raises, and the script exits non-zero with no
 result. Its last lines are the kernel table as one JSON object, the line
@@ -42,14 +62,16 @@ import time
 
 import torch
 
+from photon_ml_tpu_torch.cli.train_glm import _hbm_budget_bytes
 from photon_ml_tpu_torch.config import OptimizerConfig
 from photon_ml_tpu_torch.data.synthetic import synthetic_glm_data
 from photon_ml_tpu_torch.evaluation import auc_roc, rmse
 from photon_ml_tpu_torch.ops import _cuda, fused
-from photon_ml_tpu_torch.ops.batch import DenseBatch
+from photon_ml_tpu_torch.ops import sparse_tiled as st
+from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, optimize_batch_layout
 from photon_ml_tpu_torch.ops.losses import LOSSES
 from photon_ml_tpu_torch.supervised.training import train_glm
-from photon_ml_tpu_torch.types import OptimizerType, TaskType
+from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
 
 N = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -65,6 +87,13 @@ KERNEL_ROWS = {
         replaces="photon_ml_tpu/ops/fused.py:246 (_hvp_kernel, launched at :299)",
     ),
 }
+K3_ROW = dict(
+    source="photon_ml_tpu_torch/csrc/sparse_tiled.cu",
+    replaces="photon_ml_tpu/ops/sparse_tiled.py:509 (_tile_kernel_seg, launched at :830)",
+)
+K4_REPLACES = "photon_ml_tpu/ops/sparse_tiled.py:654 (_tile_kernel, launched at :830)"
+# config A2 (bench.py bench_a2_sparse_highdim): n, d, nonzeros a row
+A2 = (1 << 19, 1 << 17, 32)
 
 
 def emit(phase: str, **fields) -> None:
@@ -258,16 +287,21 @@ def headline_problem(dev):
     return batch, intercept, val
 
 
+def launch_counts() -> dict:
+    return {**fused.launch_counts, **{f"sparse_{k}": v for k, v in st.launch_counts.items()}}
+
+
 def solve(batch, task, config, weights, dev, **kw):
-    """``train_glm`` with the launch counts zeroed just before it and read
-    just after; returns (result, wall seconds, launches)."""
+    """``train_glm`` with every kernel's launch count zeroed just before it
+    and read just after; returns (result, wall seconds, launches)."""
     fused.reset_launch_counts()
+    st.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = train_glm(batch, task, optimizer_config=config, regularization_weights=weights,
                        device=dev, **kw)
     torch.cuda.synchronize()
-    return result, time.perf_counter() - t0, dict(fused.launch_counts)
+    return result, time.perf_counter() - t0, launch_counts()
 
 
 def _record(t, wall, launches, **metrics) -> dict:
@@ -315,6 +349,210 @@ def run_b(dev) -> dict:
     train_rmse = float(rmse(result.models[1.0].score(batch), batch.labels))
     return _record(result.trackers[1.0], wall, launches, train_rmse=train_rmse)
 
+# ---------------------------------------------------------------------------
+# phases 7-10: K3 and the high-dimensional sparse path (config A2)
+# ---------------------------------------------------------------------------
+def sparse_problem(dev, n, d, k, seed, kind="uniform"):
+    """A padded-sparse logistic problem generated on the card as bench.py's
+    ``_make_sparse_problem`` generates A2: indices uniform in [0, d), values
+    N(0, 1), true weights N(0, 1)·0.3, y ~ Bernoulli(sigmoid(Σ val·w_true)),
+    offsets 0 and weights 1. ``kind`` "duplicates" repeats the first half
+    of each row's indices in its second half; "skewed" draws columns as
+    floor(d·u²), so column j is drawn with probability about
+    (sqrt(j + 1) − sqrt(j)) / sqrt(d): column 0 holds some 46 thousand of
+    A2's 2^24 nonzeros. Returns (batch, w_true)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "skewed":
+        u = torch.rand((n, k), generator=gen, device=dev)
+        idx = (u * u * d).long().clamp_max(d - 1)
+    else:
+        idx = torch.randint(0, d, (n, k), generator=gen, device=dev)
+    if kind == "duplicates":
+        idx[:, k // 2:] = idx[:, : k - k // 2]
+    val = torch.randn((n, k), generator=gen, device=dev)
+    w_true = torch.randn(d, generator=gen, device=dev) * 0.3
+    m = torch.sum(val * w_true[idx], dim=-1)
+    y = (torch.rand(n, generator=gen, device=dev) < torch.sigmoid(m)).float()
+    batch = SparseBatch(indices=idx, values=val, labels=y, offsets=torch.zeros(n, device=dev),
+                        weights=torch.ones(n, device=dev), num_features=d)
+    return batch, w_true
+
+
+def timed_tiling(batch, rung):
+    """``tile_sparse_batch`` on one storage rung (``PHOTON_KERNEL_DTYPE``,
+    restored after); returns (tiled batch, seconds)."""
+    prev = os.environ.get("PHOTON_KERNEL_DTYPE")
+    os.environ["PHOTON_KERNEL_DTYPE"] = rung
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiled = st.tile_sparse_batch(batch)
+        torch.cuda.synchronize()
+    finally:
+        if prev is None:
+            del os.environ["PHOTON_KERNEL_DTYPE"]
+        else:
+            os.environ["PHOTON_KERNEL_DTYPE"] = prev
+    return tiled, time.perf_counter() - t0
+
+
+def k3_directions(tiled, w, r):
+    """(layout, source, square) of each direction."""
+    return {"matvec": (tiled.m, w, False), "rmatvec": (tiled.g, r, False),
+            "rmatvec_sq": (tiled.g, r, True)}
+
+
+def parity_k3(dev) -> dict:
+    """K3 against its plain version; returns the A2 f32 errors per direction."""
+    n, d, k = A2
+    shapes = [("a2", n, d, "uniform"), ("ragged", n - 37, d + 13, "uniform"),
+              ("duplicates", n, d, "duplicates"), ("skewed", n, d, "skewed")]
+    a2_err = {}
+    for name, n_s, d_s, kind in shapes:
+        batch, _ = sparse_problem(dev, n_s, d_s, k, seed=n_s + d_s, kind=kind)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        w = torch.randn(d_s, generator=gen, device=dev)
+        r = torch.randn(n_s, generator=gen, device=dev)
+        for rung in st.KERNEL_DTYPES:
+            tiled, build_s = timed_tiling(batch, rung)
+            errs, bad = {}, []
+            for direction, (lay, src, square) in k3_directions(tiled, w, r).items():
+                got = st.sparse_apply(lay, src, square=square, direction=direction)
+                ref = st.tiled_apply_reference(lay, src, square=square)
+                torch.cuda.synchronize()
+                if rung == "f32":
+                    ok, err = close(got, ref, 1e-5, 1e-5)
+                else:
+                    ok, err = close(got, ref, 0.0, 1e-5 * float(ref.abs().max()))
+                errs[direction] = err
+                if not ok:
+                    bad.append(direction)
+                if name == "a2" and rung == "f32":
+                    a2_err[direction] = err
+            lens = tiled.g.offsets[1:] - tiled.g.offsets[:-1]
+            emit("parity_k3", shape=name, n=n_s, d=d_s, k=k, rung=rung, nnz=tiled.m.nnz,
+                 max_column_nnz=int(lens.max()), layout_build_s=build_s, max_abs_err=errs,
+                 ok=not bad)
+            if bad:
+                raise AssertionError(f"K3 disagrees with its plain version: {name} {rung}: {bad}")
+            if name == "a2" and rung == "f32":
+                for direction, (lay, src, square) in k3_directions(tiled, w, r).items():
+                    a = st.sparse_apply(lay, src, square=square, direction=direction)
+                    b = st.sparse_apply(lay, src, square=square, direction=direction)
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"K3 is not bitwise repeatable ({direction})")
+                emit("parity_k3_bitwise", shape=name, rung=rung, ok=True)
+            del tiled
+        del batch
+        torch.cuda.empty_cache()
+    return a2_err
+
+
+def timing_k3(dev) -> dict:
+    """Each direction at A2 on each rung; returns the f32 rows by direction."""
+    n, d, k = A2
+    batch, _ = sparse_problem(dev, n, d, k, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    w = torch.randn(d, generator=gen, device=dev)
+    # the gradient direction's source at the scale the solve gives it
+    r = torch.sigmoid(torch.randn(n, generator=gen, device=dev)) - batch.labels
+    rows = {}
+    for rung in st.KERNEL_DTYPES:
+        tiled, build_s = timed_tiling(batch, rung)
+        for direction, (lay, src, square) in k3_directions(tiled, w, r).items():
+            run = lambda: st.sparse_apply(lay, src, square=square, direction=direction)  # noqa: E731
+            plain = lambda: st.tiled_apply_reference(lay, src, square=square)  # noqa: E731
+            csr = torch.sparse_csr_tensor(
+                lay.offsets, lay.read.long(), st.decoded_values(lay, square),
+                size=(lay.write_len, lay.read_len), check_invariants=False,
+            )
+            operand = st.source_operand(lay, src)
+            library = lambda: csr @ operand  # noqa: E731
+            got, ref, lib_out = run(), plain(), library()
+            torch.cuda.synchronize()
+            err = float((got.double() - ref.double()).abs().max())
+            lib_err = float((lib_out.double() - ref.double()).abs().max())
+            ms = cuda_ms(run, 20)
+            plain_ms = cuda_ms(plain, 3)
+            library_ms = cuda_ms(library, 20)
+            ms_again = cuda_ms(run, 20)
+            # streams read once, the source read once, the output written once
+            nbytes = lay.stream_bytes() + 4 * lay.read_len + 4 * lay.write_len
+            flops = 2.0 * lay.nnz * (2 if square else 1)
+            bound_ms, bound_by = _bound(nbytes, flops)
+            rec = dict(direction=direction, rung=rung, n=n, d=d, nnz=lay.nnz, ms=ms,
+                       ms_again=ms_again, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       stream_bytes_per_nnz=lay.stream_bytes() / lay.nnz,
+                       reference_bytes_per_nnz={"f32": 12, "bf16": 6, "int8": 4}[rung],
+                       max_abs_err=err, library_max_abs_err=lib_err, hbm_share=bound_ms / ms,
+                       layout_build_s=build_s)
+            emit("timing_k3", **rec)
+            if rung == "f32":
+                rows[direction] = rec
+            del csr
+        del tiled
+        torch.cuda.empty_cache()
+    return rows
+
+
+def a2_solve(batch, dev, **kw) -> tuple:
+    return solve(batch, TaskType.LOGISTIC_REGRESSION,
+                 OptimizerConfig(max_iterations=30, tolerance=0.0), [1.0], dev, **kw)
+
+
+def run_a2(dev):
+    """The A2 main path; returns (record, raw batch, w_true)."""
+    n, d, k = A2
+    batch, w_true = sparse_problem(dev, n, d, k, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiled = optimize_batch_layout(batch, hbm_budget_bytes=_hbm_budget_bytes(dev))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not isinstance(tiled, st.TiledSparseBatch) or tiled.storage != "f32":
+        raise AssertionError(f"A2 did not take the sparse kernel's f32 layout: {type(tiled)}")
+    a2_solve(tiled, dev)  # warm-up: first-call costs stay out of the timed solve
+    result, wall, launches = a2_solve(
+        tiled, dev, variance_computation=VarianceComputationType.SIMPLE
+    )
+    model = result.models[1.0]
+    auc = float(auc_roc(model.score(tiled), batch.labels))
+    auc_true = float(auc_roc(batch.matvec(w_true), batch.labels))
+    rec = _record(result.trackers[1.0], wall, launches, train_auc=auc, auc_true_weights=auc_true,
+                  quality_ok=auc >= 0.98 * auc_true, layout_build_s=build_s, n=n, d=d,
+                  nnz=tiled.m.nnz,
+                  variances_finite=bool(torch.isfinite(model.coefficients.variances).all()))
+    return rec, batch, model
+
+
+def agreement_a2(batch, a2: dict, model_f32, dev) -> dict:
+    result, wall, launches = a2_solve(batch, dev)  # gather / index_add_, no kernel
+    if any(launches.values()):
+        raise AssertionError(f"the untiled solve launched a kernel: {launches}")
+    t = result.trackers[1.0]
+    auc_f32 = float(auc_roc(model_f32.score(batch), batch.labels))
+    untiled = _record(t, wall, launches,
+                      train_auc=float(auc_roc(result.models[1.0].score(batch), batch.labels)))
+    out = dict(untiled=untiled,
+               d_auc=abs(a2["train_auc"] - untiled["train_auc"]),
+               rel_d_objective=abs(a2["objective"] - untiled["objective"]) / abs(untiled["objective"]),
+               rungs={})
+    for rung in ("bf16", "int8"):
+        tiled, build_s = timed_tiling(batch, rung)
+        res, wall, launches = a2_solve(tiled, dev)
+        tr = res.trackers[1.0]
+        auc = float(auc_roc(res.models[1.0].score(batch), batch.labels))
+        out["rungs"][rung] = dict(
+            **_record(tr, wall, launches, train_auc=auc), layout_build_s=build_s,
+            d_auc=abs(auc - auc_f32),
+            rel_d_loss=abs(float(tr.value) - a2["objective"]) / abs(a2["objective"]),
+        )
+        del tiled
+        torch.cuda.empty_cache()
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -328,12 +566,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = _cuda.build()
-    log = lib.with_suffix(".log").read_text()
-    spills = sum(1 for line in log.splitlines() if "spill" in line and " 0 bytes spill" not in line)
+    spills = {
+        src.name: sum(1 for line in _cuda.log_path(lib, src).read_text().splitlines()
+                      if "spill" in line and " 0 bytes spill" not in line)
+        for src in _cuda.SOURCES
+    }
     emit("build", seconds=time.perf_counter() - t0, library=lib.name, spill_lines=spills)
 
     parity(dev)
+    k3_err = parity_k3(dev)
     rows = timing(dev)
+    k3_rows = timing_k3(dev)
 
     # main path A: the headline solve, then the sweep
     batch, intercept, val = headline_problem(dev)
@@ -376,6 +619,28 @@ def main() -> int:
             and agree["b_rel_d_objective"] <= 1e-3 and agree["b_rel_d_rmse"] <= 1e-4):
         raise AssertionError("fused and unfused solves disagree")
 
+    # main path A2: the high-dimensional sparse solve on K3, f32 rung
+    os.environ["PHOTON_KERNEL_DTYPE"] = "f32"
+    try:
+        a2, a2_batch, a2_model = run_a2(dev)
+        emit("main_a2", **a2)
+        k3 = {d: a2["launches"][f"sparse_{d}"] for d in st.DIRECTIONS}
+        if min(k3.values()) == 0 or k3["matvec"] < a2["objective_passes"]:
+            raise AssertionError(f"main path A2 did not run on K3 in all directions: {k3}")
+        if not (a2["quality_ok"] and a2["variances_finite"]):
+            raise AssertionError(f"A2 solve quality: AUC {a2['train_auc']} against "
+                                 f"{a2['auc_true_weights']} for the true weights")
+        agree_a2 = agreement_a2(a2_batch, a2, a2_model, dev)
+    finally:
+        del os.environ["PHOTON_KERNEL_DTYPE"]
+    emit("agreement_a2", **agree_a2)
+    gates = {"bf16": (0.005, 1e-3), "int8": (0.01, 5e-3)}
+    if not (agree_a2["d_auc"] <= 1e-3 and agree_a2["rel_d_objective"] <= 1e-4 and all(
+        agree_a2["rungs"][r]["d_auc"] <= auc_tol and agree_a2["rungs"][r]["rel_d_loss"] <= loss_tol
+        for r, (auc_tol, loss_tol) in gates.items()
+    )):
+        raise AssertionError("the A2 solves disagree")
+
     launches = {  # over the main path's three solves: A, the sweep and B
         k: a["launches"][k] + sweep["launches"][k] + b["launches"][k] for k in KERNEL_ROWS
     }
@@ -385,6 +650,16 @@ def main() -> int:
              bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"])
         for kernel, rec in rows.items()
     ]
+    k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over main_a2
+        dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW, launches=k3[direction],
+             max_abs_err=k3_err[direction], ms=rec["ms"], plain_ms=rec["plain_ms"],
+             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"])
+        for direction, rec in k3_rows.items()
+    ]
+    # K4, the reference's per-group variant of the same function, runs as K3
+    k4 = dict(k3_kernels[0], name="_tile_kernel (K4), closed by sparse_apply[matvec] (K3)",
+              replaces=K4_REPLACES)
+    kernels += k3_kernels + [k4]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ import torch
 from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.models import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.normalization import NormalizationContext
-from photon_ml_tpu_torch.ops.batch import DenseBatch, dense_batch_from_arrays
+from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, dense_batch_from_arrays
 from photon_ml_tpu_torch.types import TaskType
 
 
@@ -53,3 +53,34 @@ def dense_batch_from_numpy(
     """X stored in ``dtype`` (float32 or bfloat16); a bfloat16 JAX array is
     passed as ``np.asarray(X.astype(jnp.float32))``, which is exact."""
     return dense_batch_from_arrays(X, labels, offsets, weights, dtype, resolve_device(device))
+
+
+def sparse_batch_from_numpy(
+    indices: np.ndarray,
+    values: np.ndarray,
+    labels: np.ndarray,
+    offsets: np.ndarray | None = None,
+    weights: np.ndarray | None = None,
+    *,
+    num_features: int,
+    device=None,
+) -> SparseBatch:
+    """A padded-sparse batch from (n, k) feature indices and values (the
+    JAX ``SparseBatch``'s arrays); absent offsets are 0 and absent weights
+    1. Indices are checked against ``num_features`` here, on the host."""
+    dev = resolve_device(device)
+    idx = np.asarray(indices, np.int64)
+    val = np.asarray(values, np.float32)
+    if idx.ndim != 2 or idx.shape != val.shape:
+        raise ValueError(f"indices {idx.shape} and values {val.shape} must be one (n, k) shape")
+    if idx.size and (idx.min() < 0 or idx.max() >= num_features):
+        raise ValueError(f"feature index out of range [0, {num_features})")
+    n = idx.shape[0]
+    return SparseBatch(
+        indices=torch.as_tensor(idx, device=dev),
+        values=_f32(val, dev),
+        labels=_f32(labels, dev),
+        offsets=torch.zeros(n, device=dev) if offsets is None else _f32(offsets, dev),
+        weights=torch.ones(n, device=dev) if weights is None else _f32(weights, dev),
+        num_features=int(num_features),
+    )

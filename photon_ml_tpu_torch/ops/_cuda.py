@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. At first use they are
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+Every source under ``csrc/`` has a plain C interface. At first use each is
+compiled with ``nvcc`` for ``sm_90a`` into an object, all at once in
+parallel, and the objects are linked into one shared library under
 ``photon_ml_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
-of the source so an edited kernel is rebuilt, and loaded with ``ctypes``.
-Nothing here runs at import: the CPU test suite imports every module on a
-machine with no ``nvcc``.
+of all the sources and flags so editing any of them rebuilds it, and
+loaded with ``ctypes``. Nothing here runs at import: the CPU test suite
+imports every module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_glm.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -41,32 +42,58 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfused_glm_{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libphoton_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def log_path(library: Path, source: Path) -> Path:
+    """``nvcc``'s report for one source (registers, shared memory and
+    spills per kernel), kept beside the library."""
+    return library.with_name(f"{library.stem}.{source.stem}.log")
 
 
 def build() -> Path:
-    """Compile the kernels unless a library built from this exact source
-    exists. ``nvcc``'s report (registers, shared memory, spills per
-    kernel) is kept beside the library as ``.log``."""
+    """Compile the kernels unless a library built from these exact sources
+    exists: one ``nvcc -c`` per source, all started together, then one
+    link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    procs: list[subprocess.Popen] = []
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        nvcc = _nvcc()
+        objects = [tmp / f"{src.stem}.o" for src in SOURCES]
+        logs = [tmp / f"{src.stem}.log" for src in SOURCES]
+        for src, obj, log in zip(SOURCES, objects, logs):
+            with open(log, "w") as f:  # the child keeps its own descriptor
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=f, stderr=subprocess.STDOUT,
+                ))
+        codes = [p.wait() for p in procs]
+        for src, code, log in zip(SOURCES, codes, logs):
+            if code != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{log.read_text()}")
+        linked = tmp / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(linked), *map(str, objects)],
             capture_output=True, text=True,
         )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
+        for src, log in zip(SOURCES, logs):
+            os.replace(log, log_path(out, src))
+        os.replace(linked, out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for p in procs:  # none outlives the build, whatever failed
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -82,5 +109,9 @@ def load() -> ctypes.CDLL:
         # X, x_bf16, y, off, wt, u, v, sc, n, d, loss, max_grid, part, out, stream
         lib.photon_fused_hvp.argtypes = [p, i, p, p, p, p, p, p, ll, i, i, i, p, p, p]
         lib.photon_fused_hvp.restype = i
+        # offsets, read, values, storage, scale, scale_ws, scale_rs, src,
+        # write_len, square, out, stream
+        lib.photon_sparse_apply.argtypes = [p, p, p, i, p, ll, ll, p, ll, i, p, p]
+        lib.photon_sparse_apply.restype = i
         _lib = lib
     return _lib

@@ -5,6 +5,8 @@
   bfloat16 and products accumulate in float32, as in the reference.
 - ``SparseBatch``: padded per-row ``(n, k)`` (index, value) pairs; padding
   uses index 0 with value 0, which contributes exactly 0.
+- ``TiledSparseBatch`` (``ops/sparse_tiled.py``): high-dimensional sparse
+  data in the sparse kernel's per-direction layouts.
 
 Padded rows carry weight 0; the objective forces zero-weight rows to
 contribute exactly 0 (a select, not a multiply), so padding may hold any
@@ -17,6 +19,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from photon_ml_tpu_torch.ops.sparse_tiled import (
+    TiledSparseBatch,
+    supports_tiling,
+    tile_sparse_batch,
+)
 
 Tensor = torch.Tensor
 
@@ -98,7 +106,7 @@ class SparseBatch:
         return self._scatter(self.values * self.values * r[:, None])
 
 
-Batch = DenseBatch | SparseBatch
+Batch = DenseBatch | SparseBatch | TiledSparseBatch
 
 
 def densify(batch: SparseBatch, dtype=torch.float32) -> DenseBatch:
@@ -130,38 +138,17 @@ def maybe_densify(
     return densify(batch, dtype)
 
 
-# The reference's tile-COO gate (``sparse_tiled.supports_tiling``): a
-# genuinely sparse, high-dimensional problem within the chunk economy.
-_TILE_MIN_FEATURES = 4096
-_TILE_MAX_FEATURES = 1 << 23
-_TILE_MIN_ROWS = 1024
-_TILE_MAX_ROWS = 1 << 25
-
-
-def supports_tiling(batch: Batch) -> bool:
-    return (
-        isinstance(batch, SparseBatch)
-        and _TILE_MIN_FEATURES <= batch.num_features <= _TILE_MAX_FEATURES
-        and _TILE_MIN_ROWS <= batch.num_rows <= _TILE_MAX_ROWS
-        and bool(torch.any(batch.values != 0))
-    )
-
-
 def optimize_batch_layout(
     batch: Batch, hbm_budget_bytes: float = 6e9, dtype=torch.float32
 ) -> Batch:
-    """Densify when the dense matrix fits the budget. Where the reference
-    re-blocks high-dimensional sparse data into its tile-COO kernels, the
-    port raises: that kernel (K3, ``ops/sparse_tiled.py``
-    ``_tile_kernel_seg``) is not ported yet, and running the plain
-    gather/scatter path in its place would hide that."""
+    """The ingest layout decision for a single-device GLM solve: densify
+    when the dense matrix fits ``hbm_budget_bytes``; otherwise build the
+    sparse kernel's layouts (``TiledSparseBatch``, K3) for genuinely
+    high-dimensional sparse data (``supports_tiling``); leave everything
+    else unchanged."""
     out = maybe_densify(batch, hbm_budget_bytes, dtype)
     if supports_tiling(out):
-        raise NotImplementedError(
-            "high-dimensional sparse data routes to the tile-COO sparse kernel "
-            "(K3, photon_ml_tpu/ops/sparse_tiled.py _tile_kernel_seg), which "
-            "the port does not have yet"
-        )
+        return tile_sparse_batch(out)
     return out
 
 

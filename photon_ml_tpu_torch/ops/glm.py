@@ -8,7 +8,9 @@ With ``fused`` set on a dense batch, ``value_and_grad`` and ``hvp`` run the
 one-pass kernels K1 / K2 (``ops/fused.py``): on a CUDA batch they launch
 the CUDA kernels or raise; on a CPU batch they run the kernels' plain
 versions. Every other contract, and the unfused branch, is plain torch with
-``torch.matmul`` for X@u and Xᵀr (the reference leaves those to XLA).
+``torch.matmul`` for X@u and Xᵀr (the reference leaves those to XLA); on a
+``TiledSparseBatch`` the batch's ``matvec`` / ``rmatvec`` / ``rmatvec_sq``
+run the sparse kernel K3 (``ops/sparse_tiled.py``).
 The multi-device reduction (``axis_name``) waits for the multi-GPU slice.
 """
 
@@ -21,7 +23,7 @@ import torch
 
 from photon_ml_tpu_torch._device import check_device
 from photon_ml_tpu_torch.normalization import NormalizationContext, no_normalization
-from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch
+from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch, TiledSparseBatch
 from photon_ml_tpu_torch.ops.fused import fused_hvp, fused_value_grad, supports_fused
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.types import VarianceComputationType
@@ -102,8 +104,10 @@ class GLMObjective:
     def one_pass_value_grad(self) -> bool:
         """Line-search policy hint: evaluate value_and_grad at every trial
         point. True when the fused kernel makes value_and_grad cost one X
-        read anyway."""
-        return self.fused
+        read anyway, or on a ``TiledSparseBatch``, where a trial of margins
+        and gradient (two sparse passes) beats a margins-only trial plus a
+        margins-and-gradient pass at acceptance (three)."""
+        return self.fused or isinstance(self.batch, TiledSparseBatch)
 
     def value(self, w: Tensor) -> Tensor:
         m = self.margins(w)

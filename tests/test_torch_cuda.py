@@ -1,9 +1,13 @@
-"""K1 / K2 on the card: each CUDA kernel against its plain PyTorch version
-on the same CUDA tensors, at small shapes over every loss, storage type,
-aux-input combination and load layout (16-byte rows and unaligned rows).
-Skipped without a card; run on one with
+"""K1 / K2 / K3 on the card: each CUDA kernel against its plain PyTorch
+version on the same CUDA tensors, at small shapes: K1 / K2 over every loss,
+storage type, aux-input combination and load layout (16-byte rows and
+unaligned rows); K3 (the sparse kernel) over every storage rung and all
+three directions. Skipped without a card; run on one with
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest sets up JAX, which these tests do
+not use.)
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import pytest
 import torch
 
 from photon_ml_tpu_torch.ops import fused
+from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.losses import LOSSES
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +116,103 @@ def test_objective_on_cuda_uses_the_kernels(dev):
     torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(obj.hvp(w, w), plain.hvp(w, w), rtol=1e-4, atol=1e-4)
     assert fused.launch_counts == {"fused_value_grad": 1, "fused_hvp": 1}
+
+
+# ---------------------------------------------------------------------------
+# K3: the sparse kernel
+# ---------------------------------------------------------------------------
+def _sparse_batch(dev, n, d, k, seed=0, skew=False):
+    from photon_ml_tpu_torch.ops.batch import SparseBatch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    u = torch.rand((n, k), generator=g, **f32)
+    idx = ((u * u if skew else u) * d).long().clamp_max(d - 1)
+    val = torch.randn((n, k), generator=g, **f32)
+    val[torch.rand((n, k), generator=g, **f32) < 0.1] = 0.0
+    return SparseBatch(indices=idx, values=val, labels=torch.zeros(n, **f32),
+                       offsets=torch.zeros(n, **f32), weights=torch.ones(n, **f32), num_features=d)
+
+
+SPARSE_SHAPES = {"square": (5000, 4096, 7, False), "ragged": (3001, 4109, 5, False),
+                 "skewed": (4000, 8192, 16, True), "tiny": (3, 2, 1, False)}
+
+
+@pytest.mark.parametrize("shape", list(SPARSE_SHAPES))
+@pytest.mark.parametrize("rung", st.KERNEL_DTYPES)
+def test_sparse_kernel_matches_plain_version(dev, monkeypatch, rung, shape):
+    n, d, k, skew = SPARSE_SHAPES[shape]
+    batch = _sparse_batch(dev, n, d, k, skew=skew)
+    monkeypatch.setenv("PHOTON_KERNEL_DTYPE", rung)
+    tiled = st.tile_sparse_batch(batch)
+    assert tiled.storage == rung
+    g = torch.Generator(device=dev).manual_seed(1)
+    w = torch.randn(d, generator=g, device=dev)
+    r = torch.randn(n, generator=g, device=dev)
+    st.reset_launch_counts()
+    got = {"matvec": tiled.matvec(w), "rmatvec": tiled.rmatvec(r), "rmatvec_sq": tiled.rmatvec_sq(r)}
+    ref = {
+        "matvec": st.tiled_apply_reference(tiled.m, w),
+        "rmatvec": st.tiled_apply_reference(tiled.g, r),
+        "rmatvec_sq": st.tiled_apply_reference(tiled.g, r, square=True),
+    }
+    torch.cuda.synchronize()
+    assert st.launch_counts == {"matvec": 1, "rmatvec": 1, "rmatvec_sq": 1}
+    for key in st.DIRECTIONS:
+        if rung == "f32":
+            torch.testing.assert_close(got[key], ref[key], rtol=1e-5, atol=1e-5)
+        else:
+            scale = float(ref[key].abs().max()) or 1.0
+            torch.testing.assert_close(got[key], ref[key], rtol=0.0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("rung", st.KERNEL_DTYPES)
+def test_sparse_kernel_repeats_bitwise(dev, monkeypatch, rung):
+    monkeypatch.setenv("PHOTON_KERNEL_DTYPE", rung)
+    tiled = st.tile_sparse_batch(_sparse_batch(dev, 20_000, 5000, 9, skew=True))
+    r = torch.randn(20_000, device=dev)
+    w = torch.randn(5000, device=dev)
+    assert torch.equal(tiled.rmatvec(r), tiled.rmatvec(r))
+    assert torch.equal(tiled.rmatvec_sq(r), tiled.rmatvec_sq(r))
+    assert torch.equal(tiled.matvec(w), tiled.matvec(w))
+
+
+def test_sparse_kernel_refuses_a_wrong_source(dev):
+    tiled = st.tile_sparse_batch(_sparse_batch(dev, 100, 50, 3))
+    with pytest.raises(ValueError, match="source"):
+        tiled.matvec(torch.randn(49, device=dev))
+
+
+def test_objective_on_cuda_tiled_batch_uses_the_sparse_kernel(dev, monkeypatch):
+    monkeypatch.delenv("PHOTON_KERNEL_DTYPE", raising=False)
+    from photon_ml_tpu_torch.ops.glm import compute_variances, make_objective
+    from photon_ml_tpu_torch.types import VarianceComputationType
+
+    batch = _sparse_batch(dev, 6000, 4096, 6)
+    batch = type(batch)(indices=batch.indices, values=batch.values,
+                        labels=(torch.rand(6000, device=dev) < 0.5).float(), offsets=batch.offsets,
+                        weights=batch.weights, num_features=batch.num_features)
+    obj = make_objective(st.tile_sparse_batch(batch), LOSSES["logistic"], l2_weight=1.0)
+    plain = make_objective(batch, LOSSES["logistic"], l2_weight=1.0)
+    assert obj.one_pass_value_grad and not obj.fused
+    w = 0.05 * torch.randn(4096, device=dev)
+    st.reset_launch_counts()
+    f1, g1 = obj.value_and_grad(w)
+    var = compute_variances(obj, w, VarianceComputationType.SIMPLE)
+    f0, g0 = plain.value_and_grad(w)
+    torch.testing.assert_close(f1, f0, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(var, compute_variances(plain, w, VarianceComputationType.SIMPLE),
+                               rtol=1e-4, atol=0.0)
+    v = torch.randn(4096, device=dev)
+    torch.testing.assert_close(obj.hvp(w, v), plain.hvp(w, v), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(model_score(obj, w), model_score(plain, w), rtol=1e-5, atol=1e-5)
+    # value_and_grad: margins + gradient; hessian_diag: margins + both
+    # gradient directions; hvp: margins twice + gradient; scoring: margins
+    assert st.launch_counts == {"matvec": 5, "rmatvec": 3, "rmatvec_sq": 1}
+
+
+def model_score(obj, w):
+    from photon_ml_tpu_torch.models import Coefficients, GeneralizedLinearModel
+
+    return GeneralizedLinearModel(Coefficients(w)).score(obj.batch)

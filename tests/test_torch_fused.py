@@ -209,7 +209,7 @@ def test_constant_hints_follow_the_data():
 def test_kernel_source_agrees_with_the_wrappers():
     from photon_ml_tpu_torch.ops import _cuda
 
-    src = _cuda.SOURCE.read_text()
+    src = next(p for p in _cuda.SOURCES if p.name == "fused_glm.cu").read_text()
     for loss in TLOSSES.values():
         enum = {"logistic": "kLogistic", "squared": "kSquared", "poisson": "kPoisson",
                 "smoothed_hinge": "kSmoothedHinge"}[loss.name]

@@ -235,6 +235,8 @@ def test_bf16_matvec_rounds_the_vector_like_the_reference():
 
 
 def test_high_dimensional_sparse_layout_is_refused_until_k3_lands():
+    # K3 has landed: the shapes the reference tiles now get the port's
+    # sparse-kernel layout instead of NotImplementedError
     n, d, k = 1024, 8192, 2
     rng = np.random.default_rng(0)
     batch = tbatch_mod.SparseBatch(
@@ -242,8 +244,10 @@ def test_high_dimensional_sparse_layout_is_refused_until_k3_lands():
         values=torch.ones((n, k)), labels=torch.zeros(n), offsets=torch.zeros(n),
         weights=torch.ones(n), num_features=d,
     )
-    with pytest.raises(NotImplementedError, match="K3"):
-        tbatch_mod.optimize_batch_layout(batch, hbm_budget_bytes=1.0)
+    out = tbatch_mod.optimize_batch_layout(batch, hbm_budget_bytes=1.0)
+    assert isinstance(out, tbatch_mod.TiledSparseBatch)
+    w = torch.as_tensor(rng.normal(size=d).astype(np.float32))
+    _close(out.matvec(w), batch.matvec(w), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("sparse", [False, True])

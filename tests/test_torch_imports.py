@@ -68,6 +68,7 @@ def test_import_port_loads_no_jax():
         "import sys, photon_ml_tpu_torch\n"
         "import photon_ml_tpu_torch.supervised.training, photon_ml_tpu_torch.cli.train_glm\n"
         "import photon_ml_tpu_torch.convert, photon_ml_tpu_torch.data.synthetic\n"
+        "import photon_ml_tpu_torch.ops.sparse_tiled, photon_ml_tpu_torch.ops._cuda\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'photon_ml_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -87,7 +88,7 @@ def test_import_sets_float32_matmul_precision():
 
 def _entry_calls(tmp_path):
     from photon_ml_tpu_torch.cli.train_glm import run
-    from photon_ml_tpu_torch.convert import dense_batch_from_numpy
+    from photon_ml_tpu_torch.convert import dense_batch_from_numpy, sparse_batch_from_numpy
     from photon_ml_tpu_torch.data.synthetic import synthetic_glm_data
     from photon_ml_tpu_torch.ops.glm import make_objective
     from photon_ml_tpu_torch.ops.losses import logistic_loss
@@ -109,12 +110,19 @@ def _entry_calls(tmp_path):
         "dense_batch_from_numpy": lambda **kw: dense_batch_from_numpy(
             np.ones((2, 2), np.float32), np.ones(2, np.float32), **kw
         ),
+        "sparse_batch_from_numpy": lambda **kw: sparse_batch_from_numpy(
+            np.zeros((2, 1), np.int64), np.ones((2, 1), np.float32), np.ones(2, np.float32),
+            num_features=3, **kw
+        ),
     }
 
 
 @pytest.mark.parametrize(
     "name",
-    ["synthetic_glm_data", "make_objective", "train_glm", "cli.run", "dense_batch_from_numpy"],
+    [
+        "synthetic_glm_data", "make_objective", "train_glm", "cli.run", "dense_batch_from_numpy",
+        "sparse_batch_from_numpy",
+    ],
 )
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
