@@ -35,7 +35,13 @@ Run from the root of a checkout. It builds the CUDA kernels from
    1e-5 x max|plain|; and K3 repeats bitwise at A2;
 8. timing_k3: each direction at A2 on each rung, beside its plain version,
    cuSPARSE (``torch.sparse_csr_tensor @ src``) on the same matrix, the
-   bytes per nonzero and the least time the card could take;
+   bytes per nonzero, the kernel's tile metadata and carry bytes and the
+   least time the card could take; then on f32 the power-law shape (with
+   its heaviest column's count) and A2 with every read index set to 0
+   (``timing_k3_streams_only``: the streams without the gathers' spread),
+   after ``gather_floor``: 2^24 random gathers alone from a source of A2's
+   sizes, from a probe built here, each K3 row's least time on this
+   layout beside its bytes bound;
 9. main_a2: config A2 (logistic, L-BFGS 30 iterations, lambda = 1, SIMPLE
    variances), generated on the card as bench.py generates it, through
    ``optimize_batch_layout`` (which must pick the sparse kernel's layout)
@@ -43,7 +49,7 @@ Run from the root of a checkout. It builds the CUDA kernels from
 10. agreement_a2: the same solve on the gather/scatter ``SparseBatch``
    (|dAUC| <= 1e-3, relative d(objective) <= 1e-4), and on the bf16 and
    int8 rungs against f32 (|dAUC| <= 0.005 / 0.01, relative d(loss) <=
-   1e-3 / 5e-3).
+   1e-3 / 5e-3), each timed after a warm-up solve.
 
 Every check that fails raises, and the script exits non-zero with no
 result. Its last lines are the kernel table as one JSON object, the line
@@ -59,6 +65,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import torch
 
@@ -448,51 +455,145 @@ def parity_k3(dev) -> dict:
     return a2_err
 
 
-def timing_k3(dev) -> dict:
-    """Each direction at A2 on each rung; returns the f32 rows by direction."""
+GATHER_PROBE = r"""
+// 2^24 random float gathers and nothing else: indices from a hash, one sum
+// per thread. Measures how fast the card serves K3's gathers alone.
+__device__ unsigned mix(unsigned x) {
+  x ^= x >> 16; x *= 0x7feb352dU; x ^= x >> 15; x *= 0x846ca68bU; return x ^ (x >> 16);
+}
+__global__ void probe(const float* __restrict__ src, unsigned mask, long long n, float* out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x * 8;
+  float acc = 0.f;
+  for (long long k = i * 8; k < n; k += step) {
+    float x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = __ldg(src + (mix((unsigned)(k + j)) & mask));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc += x[j];
+  }
+  out[i] = acc;
+}
+extern "C" int photon_gather_probe(const float* src, unsigned mask, long long n, float* out,
+                                   int blocks, void* stream) {
+  probe<<<blocks, 256, 0, (cudaStream_t)stream>>>(src, mask, n, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def gather_floor(dev) -> dict:
+    """The time of 2^24 random gathers from a float32 source of A2's two
+    sizes (d and n entries) with no stream beside them, from a probe built
+    here: the least time K3 could take at A2 on this layout, whatever it
+    streams. Returns {read_len: ms}."""
+    import ctypes
+    import tempfile
+    from pathlib import Path
+
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        cu, so = Path(tmp) / "gather_probe.cu", Path(tmp) / "libgather_probe.so"
+        cu.write_text(GATHER_PROBE)
+        subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", str(so), str(cu)], check=True, timeout=300)
+        lib = ctypes.CDLL(str(so))
+    lib.photon_gather_probe.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_longlong,
+                                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     n, d, k = A2
-    batch, _ = sparse_problem(dev, n, d, k, seed=1)
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(blocks * 256, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    floors = {}
+    for read_len in (d, n):  # powers of two: the index is a hash under a mask
+        src = torch.randn(read_len, device=dev)
+
+        def run():
+            if lib.photon_gather_probe(src.data_ptr(), read_len - 1, n * k, out.data_ptr(), blocks,
+                                       stream):
+                raise RuntimeError("the gather probe did not launch")
+
+        floors[read_len] = cuda_ms(run, 20)
+        emit("gather_floor", read_len=read_len, source_bytes=4 * read_len, gathers=n * k,
+             ms=floors[read_len], ms_again=cuda_ms(run, 20))
+    return floors
+
+
+def time_k3(lay, src, square, direction, *, plain=True, library=True) -> dict:
+    """One direction of K3 on one layout: the kernel twice (``ms``,
+    ``ms_again``), beside its plain version and cuSPARSE on the same CSR
+    (``library``), and the least time the card could take."""
+    run = lambda: st.sparse_apply(lay, src, square=square, direction=direction)  # noqa: E731
+    ref = st.tiled_apply_reference(lay, src, square=square)
+    got = run()
+    torch.cuda.synchronize()
+    rec = dict(direction=direction, nnz=lay.nnz,
+               max_abs_err=float((got.double() - ref.double()).abs().max()))
+    del got, ref
+    rec["ms"] = cuda_ms(run, 20)
+    if plain:
+        rec["plain_ms"] = cuda_ms(lambda: st.tiled_apply_reference(lay, src, square=square), 3)
+    if library:
+        csr = torch.sparse_csr_tensor(
+            lay.offsets, lay.read.long(), st.decoded_values(lay, square),
+            size=(lay.write_len, lay.read_len), check_invariants=False,
+        )
+        operand = st.source_operand(lay, src)
+        lib_out = csr @ operand
+        torch.cuda.synchronize()
+        rec["library_max_abs_err"] = float(
+            (lib_out.double() - st.tiled_apply_reference(lay, src, square=square).double()).abs().max())
+        rec["library_ms"] = cuda_ms(lambda: csr @ operand, 20)
+        del csr, lib_out
+    rec["ms_again"] = cuda_ms(run, 20)
+    # streams read once, the source read once, the output written once
+    nbytes = lay.stream_bytes() + 4 * lay.read_len + 4 * lay.write_len
+    flops = 2.0 * lay.nnz * (2 if square else 1)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    tile_meta, carry = lay.tile_bytes()
+    rec.update(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               stream_bytes_per_nnz=lay.stream_bytes() / lay.nnz,
+               tile_meta_bytes=tile_meta, carry_bytes=carry, hbm_share=bound_ms / rec["ms"])
+    return rec
+
+
+def timing_k3(dev, floors: dict) -> dict:
+    """Each direction at A2 on each rung; then, on f32, A2 with every read
+    index set to 0 (each gather hits one L2 sector: the streams' time
+    alone) and the power-law shape of ``parity_k3``. Each row carries the
+    gather floor of its source's size (``floors``, from ``gather_floor``).
+    Returns the A2 f32 rows by direction."""
+    n, d, k = A2
     gen = torch.Generator(device=dev).manual_seed(8)
     w = torch.randn(d, generator=gen, device=dev)
-    # the gradient direction's source at the scale the solve gives it
-    r = torch.sigmoid(torch.randn(n, generator=gen, device=dev)) - batch.labels
     rows = {}
-    for rung in st.KERNEL_DTYPES:
-        tiled, build_s = timed_tiling(batch, rung)
-        for direction, (lay, src, square) in k3_directions(tiled, w, r).items():
-            run = lambda: st.sparse_apply(lay, src, square=square, direction=direction)  # noqa: E731
-            plain = lambda: st.tiled_apply_reference(lay, src, square=square)  # noqa: E731
-            csr = torch.sparse_csr_tensor(
-                lay.offsets, lay.read.long(), st.decoded_values(lay, square),
-                size=(lay.write_len, lay.read_len), check_invariants=False,
-            )
-            operand = st.source_operand(lay, src)
-            library = lambda: csr @ operand  # noqa: E731
-            got, ref, lib_out = run(), plain(), library()
-            torch.cuda.synchronize()
-            err = float((got.double() - ref.double()).abs().max())
-            lib_err = float((lib_out.double() - ref.double()).abs().max())
-            ms = cuda_ms(run, 20)
-            plain_ms = cuda_ms(plain, 3)
-            library_ms = cuda_ms(library, 20)
-            ms_again = cuda_ms(run, 20)
-            # streams read once, the source read once, the output written once
-            nbytes = lay.stream_bytes() + 4 * lay.read_len + 4 * lay.write_len
-            flops = 2.0 * lay.nnz * (2 if square else 1)
-            bound_ms, bound_by = _bound(nbytes, flops)
-            rec = dict(direction=direction, rung=rung, n=n, d=d, nnz=lay.nnz, ms=ms,
-                       ms_again=ms_again, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                       stream_bytes_per_nnz=lay.stream_bytes() / lay.nnz,
-                       reference_bytes_per_nnz={"f32": 12, "bf16": 6, "int8": 4}[rung],
-                       max_abs_err=err, library_max_abs_err=lib_err, hbm_share=bound_ms / ms,
-                       layout_build_s=build_s)
-            emit("timing_k3", **rec)
-            if rung == "f32":
-                rows[direction] = rec
-            del csr
-        del tiled
-        torch.cuda.empty_cache()
+    for shape in ("a2", "skewed"):
+        batch, _ = sparse_problem(dev, n, d, k, seed=1 if shape == "a2" else n + d, kind=(
+            "uniform" if shape == "a2" else "skewed"))
+        # the gradient direction's source at the scale the solve gives it
+        r = torch.sigmoid(torch.randn(n, generator=gen, device=dev)) - batch.labels
+        for rung in st.KERNEL_DTYPES if shape == "a2" else ("f32",):
+            tiled, build_s = timed_tiling(batch, rung)
+            lens = tiled.g.offsets[1:] - tiled.g.offsets[:-1]
+            for direction, (lay, src, square) in k3_directions(tiled, w, r).items():
+                rec = dict(shape=shape, rung=rung, n=n, d=d, max_column_nnz=int(lens.max()),
+                           **time_k3(lay, src, square, direction), layout_build_s=build_s,
+                           reference_bytes_per_nnz={"f32": 12, "bf16": 6, "int8": 4}[rung])
+                rec["gather_floor_ms"] = floors[lay.read_len]
+                rec["gather_floor_share"] = floors[lay.read_len] / rec["ms"]
+                emit("timing_k3", **rec)
+                if shape == "a2" and rung == "f32":
+                    rows[direction] = rec
+            if shape == "a2" and rung == "f32":
+                for direction, (lay, src, square) in k3_directions(tiled, w, r).items():
+                    zero = torch.zeros(lay.num_tiles * st.TILE_NNZ, dtype=torch.int32, device=dev)
+                    rec = time_k3(replace(lay, read=zero[: lay.nnz]), src, square, direction,
+                                  plain=False, library=False)
+                    emit("timing_k3_streams_only", shape=shape, rung=rung, **rec,
+                         share_of_gathered=rec["ms"] / rows[direction]["ms"])
+            del tiled
+            torch.cuda.empty_cache()
+        del batch
     return rows
 
 
@@ -527,6 +628,9 @@ def run_a2(dev):
 
 
 def agreement_a2(batch, a2: dict, model_f32, dev) -> dict:
+    """The A2 solve without K3 and on the reduced rungs, each after a
+    warm-up solve that keeps first-call costs out of its wall time."""
+    a2_solve(batch, dev)
     result, wall, launches = a2_solve(batch, dev)  # gather / index_add_, no kernel
     if any(launches.values()):
         raise AssertionError(f"the untiled solve launched a kernel: {launches}")
@@ -540,6 +644,7 @@ def agreement_a2(batch, a2: dict, model_f32, dev) -> dict:
                rungs={})
     for rung in ("bf16", "int8"):
         tiled, build_s = timed_tiling(batch, rung)
+        a2_solve(tiled, dev)
         res, wall, launches = a2_solve(tiled, dev)
         tr = res.trackers[1.0]
         auc = float(auc_roc(res.models[1.0].score(batch), batch.labels))
@@ -576,7 +681,7 @@ def main() -> int:
     parity(dev)
     k3_err = parity_k3(dev)
     rows = timing(dev)
-    k3_rows = timing_k3(dev)
+    k3_rows = timing_k3(dev, gather_floor(dev))
 
     # main path A: the headline solve, then the sweep
     batch, intercept, val = headline_problem(dev)

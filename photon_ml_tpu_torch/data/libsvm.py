@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.ops.batch import SparseBatch, dense_batch_from_arrays
 
 
@@ -64,11 +65,13 @@ def to_padded_sparse(
     num_features: int | None = None,
     add_intercept: bool = True,
     pad_to_multiple: int = 8,
-    device="cpu",
+    device=None,
 ) -> tuple[SparseBatch, int | None]:
     """Pack ragged rows into fixed-width (n, k) index/value tensors; k is
     the largest row nnz (+1 for the intercept), padded entries are (0, 0.0).
+    The batch lies on ``device`` (CUDA unless asked; raises without it).
     Returns (batch, intercept_index)."""
+    device = resolve_device(device)
     n = len(rows_idx)
     _, d, intercept_index = _feature_dim(rows_idx, num_features, add_intercept)
     k = max((len(r) for r in rows_idx), default=0) + (1 if add_intercept else 0)
@@ -101,11 +104,13 @@ def read_libsvm(
     dense: bool = False,
     add_intercept: bool = True,
     zero_based: bool = False,
-    device="cpu",
+    device=None,
 ):
-    """Read a LIBSVM file into a batch on ``device``. Returns (batch,
-    intercept_index). ``dense=True`` materializes the (n, d) matrix;
-    otherwise rows stay padded (n, k) pairs."""
+    """Read a LIBSVM file into a batch on ``device`` (CUDA unless asked;
+    raises without it). Returns (batch, intercept_index). ``dense=True``
+    materializes the (n, d) matrix; otherwise rows stay padded (n, k)
+    pairs."""
+    device = resolve_device(device)
     labels, rows_idx, rows_val = parse_libsvm(path, zero_based=zero_based)
     if not dense:
         return to_padded_sparse(

@@ -27,8 +27,10 @@ class FeatureSummary:
     count: int
 
     def normalization(
-        self, norm_type: NormalizationType, intercept_index: int | None = None, device="cpu"
+        self, norm_type: NormalizationType, intercept_index: int | None = None, device=None
     ) -> NormalizationContext:
+        """The context of these statistics on ``device`` (CUDA unless asked;
+        raises without it)."""
         return build_normalization(
             norm_type, self.mean, self.variance, self.max_magnitude, intercept_index,
             device=device,

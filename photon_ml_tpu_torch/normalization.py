@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.types import NormalizationType
 
 Tensor = torch.Tensor
@@ -88,8 +89,11 @@ def require_intercept_for_shifts(norm: NormalizationContext | None) -> None:
 
 
 def no_normalization(
-    num_features: int, intercept_index: int | None = None, device="cpu"
+    num_features: int, intercept_index: int | None = None, device=None
 ) -> NormalizationContext:
+    """The identity context on ``device`` (CUDA unless asked; raises
+    without it)."""
+    device = resolve_device(device)
     return NormalizationContext(
         factors=torch.ones(num_features, dtype=torch.float32, device=device),
         shifts=torch.zeros(num_features, dtype=torch.float32, device=device),
@@ -103,12 +107,14 @@ def build_normalization(
     variances: np.ndarray,
     max_magnitudes: np.ndarray,
     intercept_index: int | None = None,
-    device="cpu",
+    device=None,
 ) -> NormalizationContext:
     """Context from feature statistics (the reference's four modes):
     NONE identity; SCALE_WITH_STANDARD_DEVIATION factor 1/std;
     SCALE_WITH_MAX_MAGNITUDE factor 1/max|x|; STANDARDIZATION factor 1/std
-    and shift mean. Zero std / zero max give factor 1."""
+    and shift mean. Zero std / zero max give factor 1. The context lies on
+    ``device`` (CUDA unless asked; raises without it)."""
+    device = resolve_device(device)
     d = means.shape[0]
     ones = np.ones(d, np.float32)
     zeros = np.zeros(d, np.float32)

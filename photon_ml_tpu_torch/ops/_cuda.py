@@ -109,9 +109,9 @@ def load() -> ctypes.CDLL:
         # X, x_bf16, y, off, wt, u, v, sc, n, d, loss, max_grid, part, out, stream
         lib.photon_fused_hvp.argtypes = [p, i, p, p, p, p, p, p, ll, i, i, i, p, p, p]
         lib.photon_fused_hvp.restype = i
-        # offsets, read, values, storage, scale, scale_ws, scale_rs, src,
-        # write_len, square, out, stream
-        lib.photon_sparse_apply.argtypes = [p, p, p, i, p, ll, ll, p, ll, i, p, p]
+        # offsets, read, values, storage, scale, scale_ld, src, read_len,
+        # write_len, nnz, tile_write, carry, square, out, stream
+        lib.photon_sparse_apply.argtypes = [p, p, p, i, p, ll, p, ll, ll, ll, p, p, i, p, p]
         lib.photon_sparse_apply.restype = i
         _lib = lib
     return _lib

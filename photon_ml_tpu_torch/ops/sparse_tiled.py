@@ -18,6 +18,15 @@ sorted by write index and then by read index (a stable sort, so duplicate
 slots are dropped, as the reference drops its padding. Outputs have
 exactly (n,) and (d,) entries: nothing is padded to a slab.
 
+The kernel cuts each direction's nonzeros into tiles of ``TILE_NNZ``; the
+layout carries, per tile, the first write index whose nonzeros begin at or
+after the tile's first position (``tile_write``, one ``torch.searchsorted``
+over the offsets), and pads the streams' storage so the kernel's bulk
+copies stay in bounds: read indices and values to whole tiles (zeros),
+offsets to two entries past ``write_len`` rounded to an even count, and
+each int8 scale row to a multiple of four floats. The layout's tensors are
+views of the stream's logical length.
+
 Rungs (``PHOTON_KERNEL_DTYPE``, read when the layout is built; the
 reference's storage ladder): they change storage only, and every rung
 accumulates in float32.
@@ -50,6 +59,7 @@ Tensor = torch.Tensor
 
 SLAB = 1024  # a cell side of the int8 rung's scale table (the reference's slab)
 _SLAB_SHIFT = 10
+TILE_NNZ = 512  # nonzeros a kernel tile takes: ``kTileNnz`` in csrc/sparse_tiled.cu
 
 KERNEL_DTYPE = "f32"  # storage rung: "f32" | "bf16" | "int8"
 KERNEL_DTYPES = ("f32", "bf16", "int8")
@@ -116,25 +126,30 @@ def supports_tiling(batch) -> bool:
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class SparseLayout:
-    """One direction's CSR by write index.
+    """One direction's CSR by write index, cut into kernel tiles.
 
-    ``scale`` is the int8 rung's (row-slabs, column-slabs) float32 table,
-    shared by both directions; a nonzero at (write, read) takes
-    ``scale.view(-1)[(write >> 10) * scale_strides[0] + (read >> 10) *
-    scale_strides[1]]``. None on the other rungs."""
+    ``scale`` is the int8 rung's float32 table of this direction,
+    write-major: a nonzero at (write, read) takes ``scale[write >> 10,
+    read >> 10]``. None on the other rungs. ``tile_write[t]`` is the first
+    write index whose nonzeros begin at or after position ``t·TILE_NNZ``,
+    and ``tile_write[num_tiles]`` the first past the last nonzero."""
 
     offsets: Tensor  # (write_len + 1,) int64
     read: Tensor  # (nnz,) int32
     values: Tensor  # (nnz,) float32 | bfloat16 | int8
+    tile_write: Tensor  # (num_tiles + 1,) int64
     write_len: int
     read_len: int
     storage: str
     scale: Tensor | None = None
-    scale_strides: tuple[int, int] = (0, 0)
 
     @property
     def nnz(self) -> int:
         return self.read.shape[0]
+
+    @property
+    def num_tiles(self) -> int:
+        return -(-self.nnz // TILE_NNZ)
 
     def stream_bytes(self) -> int:
         """Bytes the kernel streams besides the source and output vectors:
@@ -145,21 +160,51 @@ class SparseLayout:
             + self.values.numel() * self.values.element_size() + scale
         )
 
+    def tile_bytes(self) -> tuple[int, int]:
+        """(per-tile metadata the kernel reads, carry traffic it writes and
+        reads back): bytes beyond ``stream_bytes``."""
+        return self.tile_write.numel() * 8, 2 * 2 * self.num_tiles * 8
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _padded(t: Tensor, length: int, fill=0) -> Tensor:
+    """``t`` at the front of fresh storage of ``length`` elements (the rest
+    ``fill``), returned as a view of ``t``'s own length."""
+    buf = torch.full((length,), fill, dtype=t.dtype, device=t.device)
+    buf[: t.numel()] = t
+    return buf[: t.numel()]
+
+
+def _scale_rows(table: Tensor) -> Tensor:
+    """A (write slabs, read slabs) table whose rows start 16 bytes apart:
+    a view of the logical width over rows padded to four floats."""
+    rows, cols = table.shape
+    buf = torch.ones((rows, _round_up(cols, 4)), dtype=table.dtype, device=table.device)
+    buf[:, :cols] = table
+    return buf[:, :cols]
+
 
 def _csr(write: Tensor, read: Tensor, values: Tensor, write_len: int, read_len: int,
-         storage: str, scale, scale_strides) -> SparseLayout:
+         storage: str, scale) -> SparseLayout:
     order = torch.argsort(write * read_len + read, stable=True)
-    offsets = torch.zeros(write_len + 1, dtype=torch.int64, device=write.device)
-    offsets[1:] = torch.cumsum(torch.bincount(write, minlength=write_len), 0)
+    nnz = write.numel()
+    stream_len = _round_up(nnz, TILE_NNZ)
+    offsets = torch.zeros(_round_up(write_len + 3, 2), dtype=torch.int64, device=write.device)
+    offsets[1 : write_len + 1] = torch.cumsum(torch.bincount(write, minlength=write_len), 0)
+    offsets = offsets[: write_len + 1]
+    starts = torch.arange(0, stream_len + 1, TILE_NNZ, dtype=torch.int64, device=write.device)
     return SparseLayout(
         offsets=offsets,
-        read=read[order].to(torch.int32),
-        values=values[order].contiguous(),
+        read=_padded(read[order].to(torch.int32), stream_len),
+        values=_padded(values[order], stream_len),
+        tile_write=torch.searchsorted(offsets, starts.clamp_max(nnz)),
         write_len=write_len,
         read_len=read_len,
         storage=storage,
         scale=scale,
-        scale_strides=scale_strides,
     )
 
 
@@ -232,16 +277,15 @@ def tile_sparse_batch(batch) -> TiledSparseBatch:
     if cols.numel() and (int(cols.min()) < 0 or int(cols.max()) >= d):
         raise ValueError(f"feature index out of range [0, {d})")
 
-    scale, m_strides, g_strides = None, (0, 0), (0, 0)
+    m_scale = g_scale = None
     if storage == "int8":
-        stored, scale = _quantize_int8(rows, cols, vals, n, d)
-        n_cs = scale.shape[1]
-        m_strides, g_strides = (n_cs, 1), (1, n_cs)
+        stored, table = _quantize_int8(rows, cols, vals, n, d)
+        m_scale, g_scale = _scale_rows(table), _scale_rows(table.T)
     else:
         stored = vals.to(_VALUE_DTYPE[storage])
     return TiledSparseBatch(
-        m=_csr(rows, cols, stored, n, d, storage, scale, m_strides),
-        g=_csr(cols, rows, stored, d, n, storage, scale, g_strides),
+        m=_csr(rows, cols, stored, n, d, storage, m_scale),
+        g=_csr(cols, rows, stored, d, n, storage, g_scale),
         labels=batch.labels,
         offsets=batch.offsets,
         weights=batch.weights,
@@ -262,9 +306,7 @@ def decoded_values(layout: SparseLayout, square: bool = False) -> Tensor:
     dequantized by its cell's scale), squared when ``square``."""
     v = layout.values.to(torch.float32)
     if layout.storage == "int8":
-        sw, sr = layout.scale_strides
-        cell = (_write_ids(layout) >> _SLAB_SHIFT) * sw + (layout.read.long() >> _SLAB_SHIFT) * sr
-        v = v * layout.scale.reshape(-1)[cell]
+        v = v * layout.scale[_write_ids(layout) >> _SLAB_SHIFT, layout.read.long() >> _SLAB_SHIFT]
     return v * v if square else v
 
 
@@ -292,6 +334,29 @@ def _ptr(t: Tensor | None):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
+def _room(t: Tensor) -> int:
+    """Elements of ``t``'s storage from its first element on."""
+    return t.untyped_storage().nbytes() // t.element_size() - t.storage_offset()
+
+
+def _check_kernel_layout(layout: SparseLayout) -> None:
+    """Raise unless the layout carries the tiles and storage padding the
+    kernel's bulk copies read (``tile_sparse_batch`` builds both)."""
+    stream_len = layout.num_tiles * TILE_NNZ
+    ok = (
+        layout.tile_write.shape == (layout.num_tiles + 1,)
+        and _room(layout.read) >= stream_len and _room(layout.values) >= stream_len
+        and _room(layout.offsets) >= _round_up(layout.write_len + 3, 2)
+        and all(t.is_contiguous() for t in (layout.offsets, layout.read, layout.values,
+                                            layout.tile_write))
+    )
+    if layout.scale is not None:
+        ok = ok and layout.scale.stride(1) == 1 and layout.scale.stride(0) % 4 == 0
+    if not ok:
+        raise ValueError("the layout lacks the kernel's tiles or padding; build it "
+                         "with tile_sparse_batch")
+
+
 def sparse_apply(layout: SparseLayout, src: Tensor, square: bool = False,
                  direction: str = "matvec") -> Tensor:
     """K3 over one layout: (write_len,) float32 from a (read_len,) source.
@@ -307,16 +372,20 @@ def sparse_apply(layout: SparseLayout, src: Tensor, square: bool = False,
             f"source must be a ({layout.read_len},) tensor on {layout.read.device}; "
             f"got {tuple(src.shape)} on {src.device}"
         )
+    _check_kernel_layout(layout)
+    if layout.storage != "f32":  # the operand the reduced rungs multiply, half the gathers' bytes
+        src = src.to(torch.bfloat16)
     from photon_ml_tpu_torch.ops import _cuda
 
     lib = _cuda.load()
     out = torch.empty(layout.write_len, dtype=torch.float32, device=src.device)
-    sw, sr = layout.scale_strides
+    carry = torch.empty(2 * layout.num_tiles, dtype=torch.float64, device=src.device)
+    scale_ld = 0 if layout.scale is None else layout.scale.stride(0)
     rc = lib.photon_sparse_apply(
         _ptr(layout.offsets), _ptr(layout.read), _ptr(layout.values),
-        _STORAGE_ID[layout.storage], _ptr(layout.scale), sw, sr, _ptr(src),
-        layout.write_len, int(square), _ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(src.device).cuda_stream),
+        _STORAGE_ID[layout.storage], _ptr(layout.scale), scale_ld, _ptr(src), layout.read_len,
+        layout.write_len, layout.nnz, _ptr(layout.tile_write), _ptr(carry), int(square),
+        _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(src.device).cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"sparse_apply kernel launch failed: cudaError {rc}")

@@ -121,31 +121,43 @@ def test_objective_on_cuda_uses_the_kernels(dev):
 # ---------------------------------------------------------------------------
 # K3: the sparse kernel
 # ---------------------------------------------------------------------------
-def _sparse_batch(dev, n, d, k, seed=0, skew=False):
+def _sparse_batch(dev, n, d, k, seed=0, skew=False, hot=False):
+    """Uniform columns, or drawn as floor(d·u²) with ``skew``; ``hot`` puts
+    every row's first slot in column 3, a write list of the gradient layout
+    that spans several of the kernel's tiles."""
     from photon_ml_tpu_torch.ops.batch import SparseBatch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     f32 = dict(dtype=torch.float32, device=dev)
     u = torch.rand((n, k), generator=g, **f32)
     idx = ((u * u if skew else u) * d).long().clamp_max(d - 1)
+    if hot:
+        idx[:, 0] = 3
     val = torch.randn((n, k), generator=g, **f32)
     val[torch.rand((n, k), generator=g, **f32) < 0.1] = 0.0
     return SparseBatch(indices=idx, values=val, labels=torch.zeros(n, **f32),
                        offsets=torch.zeros(n, **f32), weights=torch.ones(n, **f32), num_features=d)
 
 
-SPARSE_SHAPES = {"square": (5000, 4096, 7, False), "ragged": (3001, 4109, 5, False),
-                 "skewed": (4000, 8192, 16, True), "tiny": (3, 2, 1, False)}
+SPARSE_SHAPES = {"square": (5000, 4096, 7, {}), "ragged": (3001, 4109, 5, {}),
+                 "skewed": (4000, 8192, 16, {"skew": True}), "tiny": (3, 2, 1, {}),
+                 "hot_column": (20_000, 4096, 4, {"hot": True}),
+                 # gradient tiles span thousands of mostly empty columns and the
+                 # int8 margins' scale rows hold 4096 floats: both overflow the
+                 # kernel's stage buffers and are read from global memory
+                 "very_wide": (3000, 1 << 22, 4, {})}
 
 
 @pytest.mark.parametrize("shape", list(SPARSE_SHAPES))
 @pytest.mark.parametrize("rung", st.KERNEL_DTYPES)
 def test_sparse_kernel_matches_plain_version(dev, monkeypatch, rung, shape):
-    n, d, k, skew = SPARSE_SHAPES[shape]
-    batch = _sparse_batch(dev, n, d, k, skew=skew)
+    n, d, k, kind = SPARSE_SHAPES[shape]
+    batch = _sparse_batch(dev, n, d, k, **kind)
     monkeypatch.setenv("PHOTON_KERNEL_DTYPE", rung)
     tiled = st.tile_sparse_batch(batch)
     assert tiled.storage == rung
+    if shape == "hot_column":  # column 3's nonzeros span several tiles
+        assert int(tiled.g.offsets[4] - tiled.g.offsets[3]) > 3 * st.TILE_NNZ
     g = torch.Generator(device=dev).manual_seed(1)
     w = torch.randn(d, generator=g, device=dev)
     r = torch.randn(n, generator=g, device=dev)
@@ -175,6 +187,17 @@ def test_sparse_kernel_repeats_bitwise(dev, monkeypatch, rung):
     assert torch.equal(tiled.rmatvec(r), tiled.rmatvec(r))
     assert torch.equal(tiled.rmatvec_sq(r), tiled.rmatvec_sq(r))
     assert torch.equal(tiled.matvec(w), tiled.matvec(w))
+
+
+def test_sparse_kernel_without_nonzeros_stores_zeros(dev):
+    batch = _sparse_batch(dev, 1500, 4096, 3)
+    batch = type(batch)(indices=batch.indices, values=torch.zeros_like(batch.values),
+                        labels=batch.labels, offsets=batch.offsets, weights=batch.weights,
+                        num_features=batch.num_features)
+    tiled = st.tile_sparse_batch(batch)
+    assert tiled.m.nnz == 0 and tiled.m.num_tiles == 0
+    assert torch.equal(tiled.matvec(torch.randn(4096, device=dev)), torch.zeros(1500, device=dev))
+    assert torch.equal(tiled.rmatvec(torch.randn(1500, device=dev)), torch.zeros(4096, device=dev))
 
 
 def test_sparse_kernel_refuses_a_wrong_source(dev):

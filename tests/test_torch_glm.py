@@ -169,7 +169,7 @@ def test_build_normalization_and_space_maps(norm_type):
     d = X.shape[1]
     stats = (X.mean(0), X.var(0), np.abs(X).max(0))
     jn = jax_build_normalization(JNorm(norm_type.value), *stats, intercept_index=d - 1)
-    tn = build_normalization(norm_type, *stats, intercept_index=d - 1)
+    tn = build_normalization(norm_type, *stats, intercept_index=d - 1, device="cpu")
     _close(tn.factors, jn.factors, rtol=0, atol=0)
     _close(tn.shifts, jn.shifts, rtol=0, atol=0)
     w = np.random.default_rng(1).normal(size=d).astype(np.float32)
@@ -184,7 +184,8 @@ def test_build_normalization_and_space_maps(norm_type):
 
 def test_shifts_need_an_intercept():
     X, *_ = _problem(TaskType.LINEAR_REGRESSION)
-    norm = build_normalization(NormalizationType.STANDARDIZATION, X.mean(0), X.var(0), X.max(0))
+    norm = build_normalization(NormalizationType.STANDARDIZATION, X.mean(0), X.var(0), X.max(0),
+                               device="cpu")
     with pytest.raises(ValueError, match="intercept"):
         require_intercept_for_shifts(norm)
     require_intercept_for_shifts(None)

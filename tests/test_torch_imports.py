@@ -89,11 +89,14 @@ def test_import_sets_float32_matmul_precision():
 def _entry_calls(tmp_path):
     from photon_ml_tpu_torch.cli.train_glm import run
     from photon_ml_tpu_torch.convert import dense_batch_from_numpy, sparse_batch_from_numpy
+    from photon_ml_tpu_torch.data.libsvm import read_libsvm, to_padded_sparse
+    from photon_ml_tpu_torch.data.summary import summarize
     from photon_ml_tpu_torch.data.synthetic import synthetic_glm_data
+    from photon_ml_tpu_torch.normalization import build_normalization, no_normalization
     from photon_ml_tpu_torch.ops.glm import make_objective
     from photon_ml_tpu_torch.ops.losses import logistic_loss
     from photon_ml_tpu_torch.supervised.training import train_glm
-    from photon_ml_tpu_torch.types import TaskType
+    from photon_ml_tpu_torch.types import NormalizationType, TaskType
 
     rng = np.random.default_rng(0)
     cpu_batch = dense_batch_from_numpy(
@@ -102,6 +105,8 @@ def _entry_calls(tmp_path):
     data = tmp_path / "d.libsvm"
     data.write_text("1 1:0.5\n-1 2:1.5\n")
     task = TaskType.LOGISTIC_REGRESSION
+    stats = (np.zeros(3), np.ones(3), np.ones(3))
+    summary = summarize(cpu_batch)
     return {
         "synthetic_glm_data": lambda **kw: synthetic_glm_data(rng, 8, 3, **kw),
         "make_objective": lambda **kw: make_objective(cpu_batch, logistic_loss, **kw),
@@ -114,6 +119,18 @@ def _entry_calls(tmp_path):
             np.zeros((2, 1), np.int64), np.ones((2, 1), np.float32), np.ones(2, np.float32),
             num_features=3, **kw
         ),
+        "read_libsvm": lambda **kw: read_libsvm(str(data), **kw),
+        "to_padded_sparse": lambda **kw: to_padded_sparse(
+            np.ones(2, np.float32), [np.array([0]), np.array([1])],
+            [np.ones(1, np.float32), np.ones(1, np.float32)], **kw
+        ),
+        "no_normalization": lambda **kw: no_normalization(3, **kw),
+        "build_normalization": lambda **kw: build_normalization(
+            NormalizationType.SCALE_WITH_STANDARD_DEVIATION, *stats, **kw
+        ),
+        "FeatureSummary.normalization": lambda **kw: summary.normalization(
+            NormalizationType.STANDARDIZATION, intercept_index=None, **kw
+        ),
     }
 
 
@@ -121,7 +138,8 @@ def _entry_calls(tmp_path):
     "name",
     [
         "synthetic_glm_data", "make_objective", "train_glm", "cli.run", "dense_batch_from_numpy",
-        "sparse_batch_from_numpy",
+        "sparse_batch_from_numpy", "read_libsvm", "to_padded_sparse", "no_normalization",
+        "build_normalization", "FeatureSummary.normalization",
     ],
 )
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch, name):

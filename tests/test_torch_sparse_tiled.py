@@ -177,6 +177,7 @@ def test_kernel_source_agrees_with_the_wrapper():
         enum = {"f32": "kF32", "bf16": "kBf16", "int8": "kInt8"}[storage]
         assert re.search(rf"\b{enum} = {sid}\b", src)
     assert re.search(rf"kSlabShift = {st._SLAB_SHIFT};", src) and st.SLAB == 1 << st._SLAB_SHIFT
+    assert re.search(rf"kTileNnz = {st.TILE_NNZ};", src)
     # no atomic call: one plain store per output, so results repeat bitwise
     assert re.search(r"\batomic\w*\s*\(", src) is None
     # every source feeds the library's name, so editing either rebuilds it
@@ -407,3 +408,208 @@ def test_optimize_batch_layout_decision():
                                np.asarray(jb.matvec(jnp.asarray(w))), rtol=F32_TOL, atol=F32_TOL)
     # within budget the same data densifies, as in the reference
     assert isinstance(optimize_batch_layout(big, hbm_budget_bytes=1e9), DenseBatch)
+
+
+# ---------------------------------------------------------------------------
+# 8. the kernel's tiles: metadata and a model of its schedule
+# ---------------------------------------------------------------------------
+T = st.TILE_NNZ
+ITEMS = 8  # ``kItems`` in csrc/sparse_tiled.cu: nonzeros a thread walks
+THREADS = T // ITEMS
+
+
+def _layout(counts, seed=0, read_len=50):
+    """A gradient-style layout whose write index i holds counts[i] nonzeros
+    (0 makes it empty), through the builder ``tile_sparse_batch`` uses."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int64)
+    write = torch.as_tensor(np.repeat(np.arange(len(counts)), counts))
+    read = torch.as_tensor(rng.integers(0, read_len, size=int(counts.sum())))
+    vals = torch.as_tensor(rng.normal(size=int(counts.sum())).astype(np.float32))
+    return st._csr(write, read, vals, len(counts), read_len, "f32", None)
+
+
+def _kernel_model(lay, src):
+    """The kernel's schedule on the CPU, step by step: per tile, each
+    thread's run walks its write indices from a binary search in the
+    offsets slice [wf, wn]; pieces that cross threads join in a segmented
+    scan; pieces that cross tiles go through the two carry slots and the
+    second kernel. Returns (out, stores per write index)."""
+    off = lay.offsets.tolist()
+    tw = lay.tile_write.tolist()
+    nnz, n_tiles = lay.nnz, lay.num_tiles
+    prod = (lay.values.double() * src.double()[lay.read.long()]).tolist()
+    out = np.full(lay.write_len, np.nan)
+    stores = np.zeros(lay.write_len, np.int64)
+    carry = [None] * (2 * n_tiles)
+
+    def store(w, v):
+        out[w] = v
+        stores[w] += 1
+
+    for t in range(n_tiles):
+        wf, wn = max(tw[t] - 1, 0), tw[t + 1]
+        assert wn - wf + 1 <= lay.write_len + 1
+        s0, e = t * T, min((t + 1) * T, nnz)
+        threads = []
+        for tid in range(THREADS):
+            k0 = s0 + tid * ITEMS
+            k1 = min(k0 + ITEMS, e)
+            if k0 >= e:
+                threads.append(None)
+                continue
+            lo, hi = wf, wn
+            assert off[lo] <= k0
+            while lo < hi:
+                mid = lo + (hi - lo + 1) // 2
+                lo, hi = (mid, hi) if off[mid] <= k0 else (lo, mid - 1)
+            w_first = lo
+            head_open = off[w_first] < k0
+            if not head_open:
+                lo, hi = wf, w_first
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    lo, hi = (mid + 1, hi) if off[mid] < k0 else (lo, mid)
+                for q in range(lo, w_first):
+                    store(q, 0.0)
+            st_ = dict(w_first=w_first, head_open=head_open, head=None, tail_open=False, k1=k1)
+
+            def finish(wi, acc, st_=st_):
+                if wi == st_["w_first"] and st_["head_open"]:
+                    st_["head"] = acc
+                else:
+                    store(wi, acc)
+
+            w, acc = w_first, 0.0
+            end = off[w + 1]
+            for k in range(k0, k1):
+                while end <= k:
+                    finish(w, acc)
+                    acc, w = 0.0, w + 1
+                    end = off[w + 1]
+                acc += prod[k]
+            if end == k1:
+                finish(w, acc)
+                flag, val = 1, 0.0
+            else:
+                st_["tail_open"] = True
+                flag, val = int(not (w == w_first and head_open)), acc
+            st_.update(w=w, flag=flag, val=val)
+            threads.append(st_)
+        incl, run = [], 0.0  # the segmented scan, in thread order
+        for th in threads:
+            if th is not None:
+                run = th["val"] if th["flag"] else run + th["val"]
+            incl.append(run)
+        for tid, th in enumerate(threads):
+            if th is None:
+                continue
+            excl = incl[tid - 1] if tid else 0.0
+            if th["head"] is not None:
+                if off[th["w_first"]] >= s0:
+                    store(th["w_first"], excl + th["head"])
+                else:
+                    assert carry[2 * t] is None
+                    carry[2 * t] = excl + th["head"]
+            if th["tail_open"] and th["k1"] == e:
+                slot = 2 * t + 1 if off[th["w"]] >= s0 else 2 * t
+                assert carry[slot] is None
+                carry[slot] = incl[tid]
+    # the second kernel: boundaries, then the empties past the last nonzero
+    for b in range(1, n_tiles):
+        pos, first = b * T, tw[b]
+        if off[first] == pos:
+            continue
+        w = first - 1
+        if off[w] < pos - T:
+            continue
+        total, j = carry[2 * (b - 1) + 1], b
+        while True:
+            total += carry[2 * j]
+            if off[w + 1] <= (j + 1) * T:
+                break
+            j += 1
+        store(w, total)
+    for w in range(tw[n_tiles], lay.write_len):
+        store(w, 0.0)
+    return out, stores
+
+
+def _long_column():
+    # write index 2 spans four tiles; empties sit on both of its sides
+    return [3, 0, 3 * T + 17, 0, 0, 5] + [7] * 300
+
+
+def _edge_empties():
+    # rows of 8: every tile edge falls between rows, and two empty rows sit
+    # on each edge, as does a run of empties past the last nonzero
+    counts = []
+    for t in range(3):
+        counts += [8] * (T // 8) + [0, 0]
+    return counts + [0] * 5
+
+
+TILING_CASES = {
+    "whole_tiles": lambda: [16] * (2 * T // 16),
+    "one_past_whole": lambda: [16] * (2 * T // 16) + [1],
+    "under_one_tile": lambda: [3, 0, 5, 7, 0],
+    "span_three_tiles": _long_column,
+    "empties_on_tile_edges": _edge_empties,
+    "no_nonzeros": lambda: [0] * 9,
+    "tile_edge_inside_a_run": lambda: [T - 3, 10, 0, T + 6, 1],
+}
+
+
+def test_kernel_model_constants_match_the_source():
+    from photon_ml_tpu_torch.ops import _cuda
+
+    src = _cuda.SOURCES[1].read_text()
+    assert f"kItems = {ITEMS};" in src and f"kThreads = {THREADS};" in src
+
+
+@pytest.mark.parametrize("case", list(TILING_CASES))
+def test_tile_write_agrees_with_direct_search(case):
+    lay = _layout(TILING_CASES[case]())
+    off = lay.offsets.tolist()
+    nnz = lay.nnz
+    assert lay.num_tiles == -(-nnz // T)
+    starts = [min(t * T, nnz) for t in range(lay.num_tiles + 1)]
+    direct = [next(w for w in range(lay.write_len + 1) if off[w] >= p) for p in starts]
+    assert lay.tile_write.tolist() == direct
+    assert lay.tile_write.dtype == torch.int64
+    # the storage padding the bulk copies read past the logical streams
+    assert st._room(lay.read) >= lay.num_tiles * T and st._room(lay.values) >= lay.num_tiles * T
+    assert st._room(lay.offsets) >= lay.write_len + 3
+    st._check_kernel_layout(lay)
+
+
+@pytest.mark.parametrize("case", list(TILING_CASES))
+def test_kernel_schedule_model_matches_plain_version(case):
+    """Every write index is stored exactly once and the model's sums match
+    the plain version: a fault in the tile arithmetic, the carry slots or
+    the empties would show here, not only on the card."""
+    lay = _layout(TILING_CASES[case](), seed=1)
+    src = torch.as_tensor(np.random.default_rng(2).normal(size=lay.read_len).astype(np.float32))
+    got, stores = _kernel_model(lay, src)
+    assert (stores == 1).all(), np.nonzero(stores != 1)[0][:10]
+    ref = st.tiled_apply_reference(lay, src).numpy()
+    np.testing.assert_allclose(got.astype(np.float32), ref, rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_layout_check_refuses_unpadded_streams():
+    lay = _layout([16] * 200)
+    from dataclasses import replace
+
+    with pytest.raises(ValueError, match="tile_sparse_batch"):
+        st._check_kernel_layout(replace(lay, read=lay.read.clone()))
+    with pytest.raises(ValueError, match="tile_sparse_batch"):
+        st._check_kernel_layout(replace(lay, tile_write=lay.tile_write[:-1]))
+
+
+def test_int8_scale_tables_are_write_major_with_aligned_rows(monkeypatch):
+    _, tb = SHAPES["ragged"]()
+    tiled = _tile(monkeypatch, tb, "int8")
+    assert torch.equal(tiled.g.scale, tiled.m.scale.T)
+    for lay in (tiled.m, tiled.g):
+        assert lay.scale.stride(1) == 1 and lay.scale.stride(0) % 4 == 0
+        st._check_kernel_layout(lay)

@@ -182,13 +182,13 @@ def test_read_libsvm_matches_reference(tmp_path):
     path.write_text("+1 1:0.5 3:2.0 3:1.0\n-1 2:-1.5\n# comment\n+1 4:0.25\n")
     for dense in (False, True):
         jb, ji = jax_read_libsvm(str(path), dense=dense)
-        tb, ti = read_libsvm(str(path), dense=dense)
+        tb, ti = read_libsvm(str(path), dense=dense, device="cpu")
         assert ti == ji
         w = np.arange(1, 6, dtype=np.float32)
         np.testing.assert_allclose(tb.matvec(torch.as_tensor(w)).numpy(), np.asarray(jb.matvec(jnp.asarray(w))))
         np.testing.assert_array_equal(tb.labels.numpy(), np.asarray(jb.labels))
     with pytest.raises(ValueError, match="out of range"):
-        read_libsvm(str(path), num_features=2)
+        read_libsvm(str(path), num_features=2, device="cpu")
 
 
 @pytest.mark.parametrize("task", list(TaskType))
