@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's dense and high-dimensional sparse GLM training
-paths on one CUDA card.
+paths and its GAME mixed-effect training path on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -49,10 +49,32 @@ Run from the root of a checkout. It builds the CUDA kernels from
 10. agreement_a2: the same solve on the gather/scatter ``SparseBatch``
    (|dAUC| <= 1e-3, relative d(objective) <= 1e-4), and on the bf16 and
    int8 rungs against f32 (|dAUC| <= 0.005 / 0.01, relative d(loss) <=
-   1e-3 / 5e-3), each timed after a warm-up solve.
+   1e-3 / 5e-3), each timed after a warm-up solve;
+11. main_d: config D (bench.py ``bench_d_game_fixed``: logistic, n = 2^18,
+   64 features and an intercept, the fixed coordinate alone, L-BFGS 20
+   iterations at tolerance 1e-7) through ``GameEstimator.fit`` for one
+   outer iteration; its coefficients equal ``train_glm``'s on the same
+   batch within atol 1e-4, and K1's launches equal the objective passes;
+12. main_e: config E's widths at MovieLens-20M depth (20,000,263 rows,
+   138,493 users and 27,278 items with 8 features each, Zipf skew 1.5,
+   generated on the card): fixed (L-BFGS 20 iterations, no
+   regularization), per-user and per-item random effects (damped Newton
+   20 iterations, L2 1, capacity ladder merged toward 8 buckets at 0.5
+   padding) through ``GameEstimator.fit``, 2 warm-up outer iterations and
+   4 timed ones; wall per outer iteration and per coordinate visit, the
+   buckets and their Newton iterations, K1's launches against the fixed
+   effect's objective passes, train AUC >= 0.95 x the generating model's;
+   then K1 alone at that shape (20,000,263 x 65, float32) beside its plain
+   version and its bound;
+13. agreement_e: config E at bench.py's own shape (n = 2^18, 20,000 users
+   and 4,000 items), 4 outer iterations on K1 and again with the kernels
+   vetoed (which must launch none): |dAUC| <= 0.005 and relative d(training
+   log-loss) <= 1e-3.
 
 Every check that fails raises, and the script exits non-zero with no
-result. Its last lines are the kernel table as one JSON object, the line
+result. Its last lines are the kernel table as one JSON object (K1's
+``launches`` adds up its launches on the main paths A, the sweep, B, D and
+E, which ``launches_by_path`` lists one by one), the line
 ``nvidia-smi --query-gpu=name,power.limit`` prints, and
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without CUDA or outside a checkout of the repository.
@@ -67,18 +89,32 @@ import sys
 import time
 from dataclasses import replace
 
+import numpy as np
 import torch
 
-from photon_ml_tpu_torch.cli.train_glm import _hbm_budget_bytes
-from photon_ml_tpu_torch.config import OptimizerConfig
-from photon_ml_tpu_torch.data.synthetic import synthetic_glm_data
-from photon_ml_tpu_torch.evaluation import auc_roc, rmse
+from photon_ml_tpu_torch.config import (
+    FixedEffectCoordinateConfig,
+    GameTrainingConfig,
+    OptimizationConfig,
+    OptimizerConfig,
+    RandomEffectCoordinateConfig,
+    RegularizationContext,
+)
+from photon_ml_tpu_torch.data.synthetic import synthetic_game_data, synthetic_glm_data
+from photon_ml_tpu_torch.estimators import GameEstimator
+from photon_ml_tpu_torch.evaluation import auc_roc, make_evaluator, rmse
+from photon_ml_tpu_torch.game.data import capacity_classes, make_game_batch
 from photon_ml_tpu_torch.ops import _cuda, fused
 from photon_ml_tpu_torch.ops import sparse_tiled as st
-from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, optimize_batch_layout
+from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
 from photon_ml_tpu_torch.ops.losses import LOSSES
 from photon_ml_tpu_torch.supervised.training import train_glm
-from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
+from photon_ml_tpu_torch.types import (
+    OptimizerType,
+    RegularizationType,
+    TaskType,
+    VarianceComputationType,
+)
 
 N = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -101,6 +137,12 @@ K3_ROW = dict(
 K4_REPLACES = "photon_ml_tpu/ops/sparse_tiled.py:654 (_tile_kernel, launched at :830)"
 # config A2 (bench.py bench_a2_sparse_highdim): n, d, nonzeros a row
 A2 = (1 << 19, 1 << 17, 32)
+# GAME (bench.py _game_setup): 64 fixed features and an intercept; config E's
+# effects at bench.py's depth and at MovieLens-20M's (GroupLens: 20,000,263
+# ratings, 138,493 users, 27,278 movies)
+D_FIXED = 64
+E_BENCH = (1 << 18, {"userId": (20_000, 8), "itemId": (4_000, 8)})
+E_ML20M = (20_000_263, {"userId": (138_493, 8), "itemId": (27_278, 8)})
 
 
 def emit(phase: str, **fields) -> None:
@@ -608,7 +650,7 @@ def run_a2(dev):
     batch, w_true = sparse_problem(dev, n, d, k, seed=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tiled = optimize_batch_layout(batch, hbm_budget_bytes=_hbm_budget_bytes(dev))
+    tiled = optimize_batch_layout(batch, hbm_budget_bytes=hbm_budget_bytes(dev))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     if not isinstance(tiled, st.TiledSparseBatch) or tiled.storage != "f32":
@@ -657,6 +699,253 @@ def agreement_a2(batch, a2: dict, model_f32, dev) -> dict:
         torch.cuda.empty_cache()
     return out
 
+
+# ---------------------------------------------------------------------------
+# phases 11-13: GAME (configs D and E)
+# ---------------------------------------------------------------------------
+def game_problem(dev, n: int, effects: dict, seed: int):
+    """``synthetic_game_data`` drawn on the card (the reference's
+    distributions) as a ``GameBatch``: shard "global" (64 features and the
+    intercept) and, per effect, shard "per_<effect>" keyed by its id column.
+    Returns (batch, data)."""
+    data = synthetic_game_data(seed, n, D_FIXED, effects, device=dev)
+    features = {"global": data.X, **{f"per_{k}": data.entity_X[k] for k in effects}}
+    return make_game_batch(data.y, features, id_tags=data.entity_ids, device=dev), data
+
+
+def game_config(effects: dict, iterations: int) -> GameTrainingConfig:
+    """bench.py's ``_game_setup``: the fixed effect unregularized on L-BFGS,
+    each random effect on damped Newton with L2 1 and the ladder merged
+    toward 8 buckets at 0.5 padding; 20 iterations at tolerance 1e-7."""
+    fixed = OptimizationConfig(optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-7))
+    per_entity = OptimizationConfig(
+        optimizer=OptimizerConfig(optimizer_type=OptimizerType.NEWTON_CHOLESKY,
+                                  max_iterations=20, tolerance=1e-7),
+        regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0,
+    )
+    return GameTrainingConfig(
+        task_type=TaskType.LOGISTIC_REGRESSION,
+        coordinate_update_sequence=("fixed", *(f"per_{k}" for k in effects)),
+        coordinate_descent_iterations=iterations,
+        fixed_effect_coordinates={"fixed": FixedEffectCoordinateConfig("global", fixed)},
+        random_effect_coordinates={
+            f"per_{k}": RandomEffectCoordinateConfig(
+                random_effect_type=k, feature_shard_id=f"per_{k}", optimization=per_entity,
+                bucket_target_count=8, bucket_max_padded_ratio=0.5,
+            )
+            for k in effects
+        },
+    )
+
+
+def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None) -> dict:
+    """``GameEstimator.fit`` and ``select_best`` with every kernel's launch
+    count zeroed just before and read just after. The estimator's logger
+    marks the end of the host ingest and of every coordinate visit (each
+    mark synchronizes the card, then calls ``on_mark``), which times the
+    visits and the outer iterations."""
+    marks = []
+
+    def mark(msg: str) -> None:
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), msg))
+        if on_mark is not None:
+            on_mark()
+
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = GameEstimator(config, intercept_indices={"global": D_FIXED}, logger=mark, device=dev)
+    best = est.select_best(est.fit(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    visits, prev = [], marks[0][0]
+    for t, msg in marks[1:]:
+        it, cid = msg.split(":")[0].removeprefix("iter ").split(" coordinate ")
+        visits.append(dict(iteration=int(it), coordinate=cid, wall_s=t - prev))
+        prev = t
+    iters = [sum(v["wall_s"] for v in visits if v["iteration"] == i)
+             for i in range(config.coordinate_descent_iterations)]
+    fixed = best.descent.trackers["fixed"]
+    return dict(best=best, wall_s=wall, ingest_s=marks[0][0] - t0, visits=visits,
+                iteration_wall_s=iters, launches=launch_counts(),
+                fixed_objective_passes=sum(t.objective_passes for t in fixed),
+                fixed_iterations=[t.iterations for t in fixed])
+
+
+def game_quality(fit: dict, batch, data) -> dict:
+    """Train AUC and log-loss of the fitted model beside the generating
+    model's AUC."""
+    score = fit["best"].model.score(batch)
+    gen = data.X @ data.w_fixed
+    for k, ids in data.entity_ids.items():
+        gen = gen + torch.einsum("nd,nd->n", data.entity_X[k], data.w_entity[k][ids])
+    auc, auc_true = float(auc_roc(score, batch.labels)), float(auc_roc(gen, batch.labels))
+    loss = make_evaluator("LOGISTIC_LOSS")(score, batch.labels)
+    return dict(train_auc=auc, auc_generating_model=auc_true, train_log_loss=loss,
+                quality_ok=auc >= 0.95 * auc_true)
+
+
+def bucket_report(fit: dict, batch, effects: dict) -> dict:
+    """Per random effect: the bucket capacities and lanes (the ladder the
+    estimator built, recomputed from the entity counts), the padded slots
+    over the active rows, and each bucket's Newton iterations at the last
+    visit (max and mean over its lanes)."""
+    out = {}
+    for k in effects:
+        counts = np.bincount(batch.id_tags[k].cpu().numpy())
+        caps, lanes = capacity_classes(counts, None, 8, 0.5)
+        tracker = fit["best"].descent.trackers[f"per_{k}"][-1]
+        newton = [dict(lanes=len(ids), max=int(it.max()), mean=float(it.double().mean()))
+                  for ids, _, it, _ in tracker.diag_refs]
+        out[k] = dict(entities=len(counts), capacities=list(caps), lanes=list(lanes),
+                      padded_over_active=sum(c * p for c, p in zip(caps, lanes)) / int(counts.sum()),
+                      largest_entity_rows=int(counts.max()), newton_last_visit=newton,
+                      newton_readbacks_last_visit=sum(b["max"] + 1 for b in newton))
+    return out
+
+
+def _game_record(fit: dict, warmup: int = 0) -> dict:
+    timed = fit["iteration_wall_s"][warmup:]
+    per_visit = {}
+    for v in fit["visits"]:
+        if v["iteration"] >= warmup:
+            per_visit.setdefault(v["coordinate"], []).append(v["wall_s"])
+    return dict(wall_s=fit["wall_s"], ingest_s=fit["ingest_s"],
+                iteration_wall_s=fit["iteration_wall_s"],
+                timed_wall_s_per_outer_iteration=sum(timed) / len(timed),
+                timed_wall_s_per_visit={c: sum(w) / len(w) for c, w in per_visit.items()},
+                launches=fit["launches"], fixed_objective_passes=fit["fixed_objective_passes"],
+                fixed_iterations=fit["fixed_iterations"])
+
+
+def run_d(dev) -> dict:
+    """Config D through the estimator, against ``train_glm`` on the same
+    batch and optimizer configuration."""
+    batch, data = game_problem(dev, 1 << 18, {}, seed=4)
+    fit_game(batch, game_config({}, 1), dev)  # warm-up: first-call costs stay out
+    fit = fit_game(batch, game_config({}, 1), dev)
+    w = fit["best"].model["fixed"].model.coefficients.means
+    ref = train_glm(batch.batch_for("global"), TaskType.LOGISTIC_REGRESSION,
+                    optimizer_config=OptimizerConfig(max_iterations=20, tolerance=1e-7),
+                    intercept_index=D_FIXED, device=dev)
+    ref_t = ref.trackers[0.0]
+    rec = dict(_game_record(fit), n=batch.num_rows, d=D_FIXED + 1,
+               max_abs_diff_vs_train_glm=float((w - ref.models[0.0].coefficients.means).abs().max()),
+               train_glm_iterations=ref_t.iterations, train_glm_objective_passes=ref_t.objective_passes,
+               **game_quality(fit, batch, data))
+    return rec
+
+
+def k1_at(X, offsets, labels, dev) -> dict:
+    """K1 alone at a main-path shape (logistic, offsets read, weights 1
+    and not read): card time, plain version, bound."""
+    loss = LOSSES["logistic"]
+    n, d = X.shape
+    gen = torch.Generator(device=dev).manual_seed(11)
+    u = 0.5 * torch.randn(d, generator=gen, device=dev) / d**0.5
+    c = torch.tensor(0.1, device=dev)
+    run = lambda: fused.fused_value_grad(X, labels, offsets, None, u, c, loss=loss)  # noqa: E731
+    plain = lambda: fused.fused_value_grad_reference(X, labels, offsets, None, u, c, loss=loss)  # noqa: E731
+    got, ref = run(), plain()
+    err = float((got[1].double() - ref[1].double()).abs().max())
+    rtol_v, tol = TOL["float32"]
+    ok = close(got[0], ref[0], rtol_v, 0.0)[0] and close(got[1], ref[1], tol, tol)[0]
+    del got, ref
+    nbytes = n * d * X.element_size() + 8 * n + 4 * d + 4 * (d + 2)
+    bound_ms, bound_by = _bound(nbytes, 4.0 * n * d)
+    rec = dict(n=n, d=d, dtype=str(X.dtype), ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 2),
+               ms_again=cuda_ms(run, 10), bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               max_abs_err=err, ok=ok)
+    rec["hbm_share"] = bound_ms / rec["ms"]
+    return rec
+
+
+def run_e(dev) -> dict:
+    """Config E's widths at MovieLens-20M depth: 6 outer iterations in one
+    fit, the first 2 a warm-up and the last 4 timed."""
+    n, effects = E_ML20M
+    batch, data = game_problem(dev, n, effects, seed=4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fit = fit_game(batch, game_config(effects, 6), dev)
+    rec = dict(_game_record(fit, warmup=2), n=n, effects={k: list(v) for k, v in effects.items()},
+               buckets=bucket_report(fit, batch, effects), **game_quality(fit, batch, data),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        bool(torch.zeros(1, device=dev).all())
+    rec["readback_round_trip_s"] = (time.perf_counter() - t0) / 100
+    del fit
+    torch.cuda.empty_cache()
+    rec["profile"] = profile_e(batch, effects, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rec["k1"] = k1_at(batch.features["global"].X, 0.1 * torch.randn(n, generator=gen, device=dev),
+                      batch.labels, dev)
+    return rec
+
+
+def profile_e(batch, effects: dict, dev) -> dict:
+    """``torch.profiler`` over config E's second outer iteration (a fit of
+    2; the profiler steps at every visit mark, so it records exactly the
+    three visits of iteration 1): the card's busy share of that window's
+    wall time (kernel time summed over the window, one stream), the kernel
+    launches, and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # steps: 0 the ingest, 1-3 iteration 0's visits, 4-6 iteration 1's
+    with profile(activities=acts, schedule=schedule(wait=3, warmup=1, active=3, repeat=1)) as prof:
+        fit = fit_game(batch, game_config(effects, 2), dev, on_mark=prof.step)
+    window = sum(v["wall_s"] for v in fit["visits"] if v["iteration"] == 1)
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
+    # kernels (and copies) are the entries of device type CUDA; a CPU op's
+    # own device column repeats the time of the kernels it launched, and the
+    # profiler's step annotations span the whole window
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+              and not e.key.startswith("ProfilerStep")]
+    busy_s = sum(dev_us(e) for e in events) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:12]
+    return dict(window_wall_s=window, device_busy_s=busy_s,
+                device_busy_share=busy_s / window if window else None,
+                device_ops=sum(e.count for e in events),
+                top_device_ops=[dict(name=e.key[:90], device_ms=dev_us(e) / 1e3, count=e.count)
+                                for e in top])
+
+
+def agreement_e(dev) -> dict:
+    """Config E at bench.py's shape on K1, then with the kernels vetoed."""
+    n, effects = E_BENCH
+    batch, data = game_problem(dev, n, effects, seed=4)
+    config = game_config(effects, 4)
+    runs = {}
+    for arm in ("fused", "unfused"):
+        if arm == "unfused":
+            os.environ["PHOTON_DISABLE_FUSED"] = "1"
+        try:
+            fit_game(batch, config, dev)  # warm-up
+            fit = fit_game(batch, config, dev)
+        finally:
+            os.environ.pop("PHOTON_DISABLE_FUSED", None)
+        runs[arm] = dict(_game_record(fit), **game_quality(fit, batch, data))
+    f, u = runs["fused"], runs["unfused"]
+    return dict(n=n, effects={k: list(v) for k, v in effects.items()}, **runs,
+                d_auc=abs(f["train_auc"] - u["train_auc"]),
+                rel_d_log_loss=abs(f["train_log_loss"] - u["train_log_loss"]) / u["train_log_loss"])
+
+
+def _check_game_launches(phase: str, rec: dict) -> None:
+    """Every fixed-effect objective pass ran on K1, and nothing else
+    launched a kernel."""
+    launches = rec["launches"]
+    others = {k: v for k, v in launches.items() if k != "fused_value_grad" and v}
+    if launches["fused_value_grad"] != rec["fixed_objective_passes"] or not launches[
+        "fused_value_grad"
+    ] or others:
+        raise AssertionError(f"{phase}: K1 launches {launches} against "
+                             f"{rec['fixed_objective_passes']} fixed-effect objective passes")
 
 
 def main() -> int:
@@ -746,15 +1035,43 @@ def main() -> int:
     )):
         raise AssertionError("the A2 solves disagree")
 
-    launches = {  # over the main path's three solves: A, the sweep and B
-        k: a["launches"][k] + sweep["launches"][k] + b["launches"][k] for k in KERNEL_ROWS
+    # GAME: config D, config E at MovieLens-20M depth, config E's agreement
+    d_rec = run_d(dev)
+    emit("main_d", **d_rec)
+    _check_game_launches("main_d", d_rec)
+    if not d_rec["max_abs_diff_vs_train_glm"] <= 1e-4:
+        raise AssertionError(f"config D differs from train_glm: {d_rec['max_abs_diff_vs_train_glm']}")
+    e_rec = run_e(dev)
+    emit("main_e", **e_rec)
+    _check_game_launches("main_e", e_rec)
+    if not (e_rec["quality_ok"] and e_rec["k1"]["ok"]):
+        raise AssertionError(f"config E: AUC {e_rec['train_auc']} against "
+                             f"{e_rec['auc_generating_model']}; K1 ok {e_rec['k1']['ok']}")
+    agree_e = agreement_e(dev)
+    emit("agreement_e", **agree_e)
+    _check_game_launches("agreement_e", agree_e["fused"])
+    if any(agree_e["unfused"]["launches"].values()):
+        raise AssertionError(f"the vetoed GAME run launched a kernel: {agree_e['unfused']['launches']}")
+    if not (agree_e["d_auc"] <= 0.005 and agree_e["rel_d_log_loss"] <= 1e-3):
+        raise AssertionError("the GAME runs with and without K1 disagree")
+
+    # launches over the main path: A, the sweep and B, then D and E (each
+    # path counted from 0 just before it ran)
+    by_path = {
+        k: {"main_a": a["launches"][k], "main_a_sweep": sweep["launches"][k],
+            "main_b": b["launches"][k], "main_d": d_rec["launches"][k],
+            "main_e": e_rec["launches"][k]}
+        for k in KERNEL_ROWS
     }
     kernels = [
-        dict(name=kernel, route="cuda", **KERNEL_ROWS[kernel], launches=launches[kernel],
+        dict(name=kernel, route="cuda", **KERNEL_ROWS[kernel],
+             launches=sum(by_path[kernel].values()), launches_by_path=by_path[kernel],
              max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
              bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"])
         for kernel, rec in rows.items()
     ]
+    kernels[0]["at_main_e_shape"] = {k: e_rec["k1"][k] for k in ("n", "d", "ms", "plain_ms", "bound_ms",
+                                                                  "bound_by", "max_abs_err")}
     k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over main_a2
         dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW, launches=k3[direction],
              max_abs_err=k3_err[direction], ms=rec["ms"], plain_ms=rec["plain_ms"],

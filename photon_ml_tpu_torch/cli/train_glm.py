@@ -20,12 +20,11 @@ import argparse
 import json
 import os
 
-import torch
-
 from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.config import OptimizerConfig, RegularizationContext
 from photon_ml_tpu_torch.data.libsvm import read_libsvm
 from photon_ml_tpu_torch.data.summary import summarize
+from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes as _hbm_budget_bytes
 from photon_ml_tpu_torch.ops.batch import optimize_batch_layout
 from photon_ml_tpu_torch.supervised.training import train_glm
 from photon_ml_tpu_torch.types import (
@@ -35,14 +34,6 @@ from photon_ml_tpu_torch.types import (
     TaskType,
     VarianceComputationType,
 )
-
-def _hbm_budget_bytes(dev: torch.device) -> float:
-    """Bytes the dense training matrix may take: three quarters of the
-    card's memory (room for the optimizer's state and scratch), or 8 GB on
-    the CPU; the reference's ``device_hbm_budget_bytes`` policy."""
-    if dev.type == "cuda":
-        return 0.75 * torch.cuda.get_device_properties(dev).total_memory
-    return 8e9
 
 
 def run(

@@ -84,3 +84,57 @@ def sparse_batch_from_numpy(
         weights=torch.ones(n, device=dev) if weights is None else _f32(weights, dev),
         num_features=int(num_features),
     )
+
+
+def game_batch_from_numpy(
+    labels: np.ndarray,
+    features: dict,
+    id_tags: dict | None = None,
+    offsets: np.ndarray | None = None,
+    weights: np.ndarray | None = None,
+    device=None,
+):
+    """A ``GameBatch`` from the JAX ``GameBatch``'s columns: each shard a
+    2-D dense array, or a padded-sparse shard as a dict with ``indices``,
+    ``values`` and ``num_features``; entity-id columns as integer arrays."""
+    from photon_ml_tpu_torch.game.data import SparseFeatures, make_game_batch
+
+    dev = resolve_device(device)
+    feats = {}
+    for sid, f in features.items():
+        if isinstance(f, dict):
+            feats[sid] = SparseFeatures(
+                torch.as_tensor(np.asarray(f["indices"], np.int64), device=dev),
+                _f32(f["values"], dev), int(f["num_features"]),
+            )
+        else:
+            feats[sid] = np.asarray(f, np.float32)
+    return make_game_batch(labels, feats, id_tags, offsets, weights, device=dev)
+
+
+def game_model_from_numpy(models: dict, task: TaskType | str, device=None):
+    """A ``GameModel`` from per-coordinate coefficient arrays. Each entry
+    of ``models`` (coordinate id → dict) is a fixed effect, with
+    ``feature_shard_id``, ``means`` (d,) and ``variances``, or a random
+    effect, with ``feature_shard_id``, ``random_effect_type``,
+    ``coefficients`` (E, d) and ``variances``; absent variances are None."""
+    from photon_ml_tpu_torch.game.models import FixedEffectModel, GameModel, RandomEffectModel
+
+    dev = resolve_device(device)
+    task = TaskType(getattr(task, "value", task))
+    out = {}
+    for cid, m in models.items():
+        var = m.get("variances")
+        var = None if var is None else _f32(var, dev)
+        if "random_effect_type" in m:
+            out[cid] = RandomEffectModel(
+                coefficients=_f32(m["coefficients"], dev), variances=var,
+                random_effect_type=m["random_effect_type"],
+                feature_shard_id=m["feature_shard_id"], task_type=task,
+            )
+        else:
+            out[cid] = FixedEffectModel(
+                model=GeneralizedLinearModel(Coefficients(_f32(m["means"], dev), var), task),
+                feature_shard_id=m["feature_shard_id"],
+            )
+    return GameModel(models=out, task_type=task)

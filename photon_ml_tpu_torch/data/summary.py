@@ -1,6 +1,6 @@
-"""Feature summarization feeding normalization (port of ``summarize`` in
-``photon_ml_tpu/data/summary.py``; the streamed ``summarize_chunks`` waits
-for the out-of-core slice)."""
+"""Feature summarization feeding normalization (port of ``summarize`` and
+``shard_normalization_context`` in ``photon_ml_tpu/data/summary.py``; the
+streamed ``summarize_chunks`` waits for the out-of-core slice)."""
 
 from __future__ import annotations
 
@@ -67,3 +67,26 @@ def summarize(batch: Batch) -> FeatureSummary:
         num_nonzeros=host((Xa != 0).sum(0)).astype(np.int64),
         count=int(Xa.shape[0]),
     )
+
+
+def shard_normalization_context(
+    summary: FeatureSummary,
+    norm_type: NormalizationType,
+    shard_id: str,
+    intercept_index: int | None,
+    log=None,
+    device=None,
+) -> NormalizationContext:
+    """The GAME trainers' per-shard context policy: a shard without an
+    intercept cannot absorb the shift on the output model, so
+    STANDARDIZATION degrades to scale-only there (and says so through
+    ``log``). The context lies on ``device`` (CUDA unless asked)."""
+    if intercept_index is None and norm_type is NormalizationType.STANDARDIZATION:
+        norm_type = NormalizationType.SCALE_WITH_STANDARD_DEVIATION
+        if log is not None:
+            log(
+                f"shard {shard_id!r} has no intercept: STANDARDIZATION degraded to "
+                "SCALE_WITH_STANDARD_DEVIATION (shifts need an intercept to absorb "
+                "on the output model)"
+            )
+    return summary.normalization(norm_type, intercept_index, device=device)

@@ -1,6 +1,8 @@
-"""Synthetic GLM problems (port of ``photon_ml_tpu/data/synthetic.py``)."""
+"""Synthetic GLM and GAME problems (port of ``photon_ml_tpu/data/synthetic.py``)."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -75,3 +77,102 @@ def synthetic_glm_data(
         weights=torch.ones((n,), **f32),
     )
     return batch, intercept_index, w_true
+
+
+@dataclass(frozen=True)
+class GameSyntheticData:
+    """A GLMix dataset: the fixed shard ``X`` (n, d_fixed + 1) with the
+    intercept column last, labels ``y``, and per effect the entity id of
+    every row (``entity_ids[name]``, (n,)), that effect's feature shard
+    (``entity_X[name]``, (n, d_re)) and its generating coefficients
+    (``w_entity[name]``, (num_entities, d_re)). Numpy arrays when drawn
+    from a numpy ``Generator``, tensors on the device when drawn from a
+    seed."""
+
+    X: np.ndarray | torch.Tensor
+    y: np.ndarray | torch.Tensor
+    entity_ids: dict
+    entity_X: dict
+    w_fixed: np.ndarray | torch.Tensor
+    w_entity: dict
+    intercept_index: int
+
+
+def synthetic_game_data(
+    rng: np.random.Generator | int,
+    n: int,
+    d_fixed: int,
+    effects: dict[str, tuple[int, int]],
+    task: TaskType = TaskType.LOGISTIC_REGRESSION,
+    entity_scale: float = 1.0,
+    skew: float = 1.5,
+    dtype=np.float32,
+    device=None,
+) -> GameSyntheticData:
+    """GLMix data: margin = X·w_fixed + Σ_e w_e[entity_e(i)]·x_e(i).
+
+    ``effects`` maps effect name → (num_entities, d_re). Entity j of an
+    effect is drawn with probability ∝ (j + 1)^-skew, so entity sizes follow
+    a power law. X and the entity shards are N(0, 1), w_fixed N(0, 0.25),
+    each effect's coefficients N(0, entity_scale²); labels come from the
+    task's model at the margin.
+
+    A numpy ``Generator`` draws on the host exactly as the reference does
+    (the same arrays, bit for bit, from the same generator state; ``device``
+    is ignored). An int seed draws the same distributions on ``device``
+    (CUDA unless the caller asks for another) with a ``torch.Generator``:
+    a host draw at MovieLens-20M depth would first build a 10 GB float64
+    matrix."""
+    if isinstance(rng, np.random.Generator):
+        return _game_data_numpy(rng, n, d_fixed, effects, task, entity_scale, skew, dtype)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(rng))
+    f32 = dict(dtype=torch.float32, device=dev)
+    X = torch.randn((n, d_fixed + 1), generator=gen, **f32)
+    X[:, d_fixed] = 1.0
+    w_fixed = torch.randn((d_fixed + 1,), generator=gen, **f32) * 0.5
+    margin = X @ w_fixed
+    entity_ids, entity_X, w_entity = {}, {}, {}
+    for name, (num_entities, d_re) in effects.items():
+        p = 1.0 / torch.arange(1, num_entities + 1, dtype=torch.float64, device=dev) ** skew
+        cdf = torch.cumsum(p / p.sum(), 0)
+        u = torch.rand((n,), generator=gen, dtype=torch.float64, device=dev)
+        ids = torch.searchsorted(cdf, u, right=True).clamp_max_(num_entities - 1)
+        Xe = torch.randn((n, d_re), generator=gen, **f32)
+        We = torch.randn((num_entities, d_re), generator=gen, **f32) * entity_scale
+        margin += torch.einsum("nd,nd->n", Xe, We[ids])
+        entity_ids[name], entity_X[name], w_entity[name] = ids, Xe, We
+    if task is TaskType.LOGISTIC_REGRESSION:
+        y = (torch.rand((n,), generator=gen, **f32) < torch.sigmoid(margin)).float()
+    elif task is TaskType.LINEAR_REGRESSION:
+        y = margin + 0.1 * torch.randn((n,), generator=gen, **f32)
+    elif task is TaskType.POISSON_REGRESSION:
+        y = torch.poisson(torch.exp(torch.clamp(margin, -10, 3)), generator=gen)
+    else:  # pragma: no cover
+        raise ValueError(task)
+    return GameSyntheticData(X, y, entity_ids, entity_X, w_fixed, w_entity, d_fixed)
+
+
+def _game_data_numpy(rng, n, d_fixed, effects, task, entity_scale, skew, dtype):
+    X = rng.normal(size=(n, d_fixed)).astype(dtype)
+    X = np.concatenate([X, np.ones((n, 1), dtype)], axis=1)
+    w_fixed = (rng.normal(size=d_fixed + 1) * 0.5).astype(dtype)
+    margin = X @ w_fixed
+    entity_ids, entity_X, w_entity = {}, {}, {}
+    for name, (num_entities, d_re) in effects.items():
+        probs = 1.0 / np.arange(1, num_entities + 1) ** skew
+        probs /= probs.sum()
+        ids = rng.choice(num_entities, size=n, p=probs).astype(np.int32)
+        Xe = rng.normal(size=(n, d_re)).astype(dtype)
+        We = (rng.normal(size=(num_entities, d_re)) * entity_scale).astype(dtype)
+        margin = margin + np.sum(We[ids] * Xe, axis=1)
+        entity_ids[name], entity_X[name], w_entity[name] = ids, Xe, We
+    if task is TaskType.LOGISTIC_REGRESSION:
+        y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margin))).astype(dtype)
+    elif task is TaskType.LINEAR_REGRESSION:
+        y = (margin + rng.normal(scale=0.1, size=n)).astype(dtype)
+    elif task is TaskType.POISSON_REGRESSION:
+        y = rng.poisson(np.exp(np.clip(margin, -10, 3))).astype(dtype)
+    else:  # pragma: no cover
+        raise ValueError(task)
+    return GameSyntheticData(X, y, entity_ids, entity_X, w_fixed, w_entity, d_fixed)

@@ -3,7 +3,7 @@
 Scalar metrics on tensors of any device: the exact rank-sum AUC with
 average ranks for ties, RMSE, and the per-loss mean losses. The grouped
 (per-entity) evaluators, ``MULTI_AUC(tag)`` and ``PRECISION_AT_K(k,tag)``,
-and the histogram ``BUCKETED_AUC`` wait for the GAME slice;
+and the histogram ``BUCKETED_AUC`` are not ported yet (ROADMAP queue 1);
 ``make_evaluator`` rejects them by name.
 """
 
@@ -127,8 +127,8 @@ def make_evaluator(spec: str) -> Evaluator:
         return Evaluator(name=spec.upper(), larger_is_better=larger, _fn=fn)
     if _LATER_EVALUATORS.fullmatch(spec):
         raise NotImplementedError(
-            f"evaluator {spec!r} (grouped or bucketed) is not ported yet; "
-            "it comes with the GAME slice"
+            f"evaluator {spec!r} (grouped or bucketed) is not ported yet "
+            "(ROADMAP queue 1)"
         )
     raise ValueError(f"unknown evaluator spec: {spec!r}")
 
@@ -148,7 +148,10 @@ class EvaluationResults:
         return self.metrics[name]
 
 
-def evaluate_all(specs, scores, labels, weights=None) -> EvaluationResults:
+def evaluate_all(specs, scores, labels, weights=None, group_ids=None) -> EvaluationResults:
+    """Every evaluator of ``specs`` on raw scores. ``group_ids`` (tag →
+    (n,) entity ids) is what the grouped evaluators will read; the scalar
+    ones ignore it, and ``make_evaluator`` still refuses the grouped ones."""
     evs = [make_evaluator(s) if isinstance(s, str) else s for s in specs]
     metrics = {e.name: e(scores, labels, weights) for e in evs}
     return EvaluationResults(metrics=metrics, primary_name=evs[0].name if evs else None)

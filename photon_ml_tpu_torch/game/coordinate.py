@@ -1,0 +1,248 @@
+"""Per-coordinate train and score units (port of the eager path of
+``photon_ml_tpu/game/coordinate.py``). A coordinate binds one effect's
+data view and optimization problem; coordinate descent drives it through
+residual offsets with ``train(offsets, initial)`` and ``score(model)``.
+
+- ``FixedEffectCoordinate`` solves one GLM over every row of its shard
+  through ``make_objective`` and ``select_minimize_fn``: a dense float32
+  shard on the card runs its objective passes on K1 (``auto_fused``).
+- ``RandomEffectCoordinate`` solves every entity's GLM over the prepared
+  buckets (``game/random_effect.py``), gathered once and reused.
+
+The reference's one-launch fused visit, its mesh-sharded solves, the
+random projector and the per-entity subspace projection are not ported
+(ROADMAP queue 1 item 10a).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Protocol
+
+import torch
+
+from photon_ml_tpu_torch.config import OptimizationConfig
+from photon_ml_tpu_torch.game.data import EntityBuckets, EntityGrouping, GameBatch
+from photon_ml_tpu_torch.game.models import FixedEffectModel, GameSubModel, RandomEffectModel
+from photon_ml_tpu_torch.game.random_effect import (
+    RandomEffectTrainingResult,
+    prepare_buckets,
+    train_prepared,
+)
+from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_ml_tpu_torch.normalization import NormalizationContext, require_intercept_for_shifts
+from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes, optimize_batch_layout
+from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_objective
+from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.optim.common import OptimizationResult, select_minimize_fn
+from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
+
+Tensor = torch.Tensor
+
+
+class Coordinate(Protocol):
+    """The contract coordinate descent drives."""
+
+    coordinate_id: str
+
+    def train(self, offsets: Tensor, initial: GameSubModel | None) -> tuple[GameSubModel, Any]: ...
+
+    def score(self, model: GameSubModel) -> Tensor: ...
+
+
+def _require_prior_l2(config: OptimizationConfig) -> None:
+    """The MAP prior's pull is λ₂·(1/variance): refuse a zero L2 weight,
+    which would silently train unanchored."""
+    if config.regularization.l2_weight(config.regularization_weight) <= 0.0:
+        raise ValueError(
+            "incremental training (prior_model) requires a positive L2 "
+            "regularization weight: the prior's pull is l2_weight * (1/prior_variance)"
+        )
+
+
+@dataclass(frozen=True)
+class FixedEffectCoordinate:
+    """One GLM over every row of a feature shard. ``train_rows`` /
+    ``train_weight_scale`` down-sample the training rows (scoring sees
+    every row). ``prior_model`` (incremental training) is held fixed as a
+    Gaussian MAP prior across every descent iteration."""
+
+    coordinate_id: str
+    batch: GameBatch
+    feature_shard_id: str
+    config: OptimizationConfig
+    task_type: TaskType
+    intercept_index: int | None = None
+    normalization: NormalizationContext | None = None
+    variance_computation: VarianceComputationType = VarianceComputationType.NONE
+    train_rows: Tensor | None = None
+    train_weight_scale: Tensor | None = None
+    prior_model: FixedEffectModel | None = None
+
+    def __post_init__(self):
+        require_intercept_for_shifts(self.normalization)
+
+    def _training_batch(self, offsets: Tensor):
+        shard = self.batch.features[self.feature_shard_id]
+        if self.train_rows is None:
+            batch = shard.to_batch(self.batch.labels, offsets, self.batch.weights)
+            opt = self._optimized_layout(batch)
+            # the cached layout depends on the features only: re-bind this
+            # visit's residual offsets onto it
+            return batch if opt is None else dataclasses.replace(opt, offsets=offsets)
+        rows = self.train_rows
+        w = self.batch.weights[rows]
+        if self.train_weight_scale is not None:
+            w = w * self.train_weight_scale
+        return shard.take(rows).to_batch(self.batch.labels[rows], offsets[rows], w)
+
+    def _optimized_layout(self, batch):
+        """The ingest layout decision (densify a narrow sparse shard, or the
+        sparse kernel's layout for a high-dimensional one), made once per
+        coordinate; None when the shard's own layout is the right one."""
+        cached = self.__dict__.get("_layout_cached", False)
+        if cached is False:
+            out = optimize_batch_layout(batch, hbm_budget_bytes=hbm_budget_bytes(batch.device))
+            cached = None if out is batch else out
+            object.__setattr__(self, "_layout_cached", cached)
+        return cached
+
+    def train(
+        self, offsets: Tensor, initial: GameSubModel | None = None
+    ) -> tuple[FixedEffectModel, OptimizationResult]:
+        dev = self.batch.device
+        train_batch = self._training_batch(offsets)
+        norm = self.normalization
+        prior = None
+        if self.prior_model is not None:
+            _require_prior_l2(self.config)
+            coef = self.prior_model.model.coefficients
+            prior = GaussianPrior.from_coefficients(
+                coef.means.to(dev), None if coef.variances is None else coef.variances.to(dev),
+                None if norm is None else norm.to(dev),
+            )
+        if initial is not None:
+            w0 = torch.as_tensor(initial.model.coefficients.means, dtype=torch.float32, device=dev)
+            if norm is not None:
+                w0 = norm.to(dev).model_from_original_space(w0)
+        else:
+            w0 = torch.zeros((train_batch.num_features,), dtype=torch.float32, device=dev)
+
+        opt = self.config
+        loss = loss_for_task(self.task_type)
+        l1 = opt.regularization.l1_weight(opt.regularization_weight)
+        l2 = opt.regularization.l2_weight(opt.regularization_weight)
+        minimize_fn, extra = select_minimize_fn(opt.optimizer, l1)
+        obj = make_objective(
+            train_batch, loss, l2_weight=l2, norm=norm, intercept_index=self.intercept_index,
+            prior=prior, device=dev,
+        )
+        result = minimize_fn(obj, w0, opt.optimizer, **extra)
+        w = result.w
+        variances = compute_variances(obj, w, self.variance_computation)
+        if norm is not None:
+            norm = norm.to(dev)
+            w, _ = norm.model_to_original_space(w)
+            if variances is not None:
+                variances = norm.factors**2 * variances
+        model = FixedEffectModel(
+            model=GeneralizedLinearModel(Coefficients(w, variances), self.task_type),
+            feature_shard_id=self.feature_shard_id,
+        )
+        return model, result
+
+    def score(self, model: FixedEffectModel) -> Tensor:
+        opt = self.__dict__.get("_layout_cached")
+        if opt is not None:
+            # margins over the same shard ride the optimized layout
+            return opt.matvec(model.model.coefficients.means)
+        return model.score(self.batch)
+
+
+@dataclass(frozen=True)
+class RandomEffectCoordinate:
+    """Per-entity GLMs over one feature shard and entity column. The
+    grouping and bucketing come in built; the buckets' static tensors are
+    gathered on the device at the first ``train`` and reused by every
+    visit and, through ``with_config``, every grid entry."""
+
+    coordinate_id: str
+    batch: GameBatch
+    feature_shard_id: str
+    random_effect_type: str
+    config: OptimizationConfig
+    grouping: EntityGrouping
+    buckets: EntityBuckets
+    task_type: TaskType
+    num_entities: int
+    intercept_index: int | None = None
+    normalization: NormalizationContext | None = None
+    variance_computation: VarianceComputationType = VarianceComputationType.NONE
+    prior_model: RandomEffectModel | None = None
+
+    def __post_init__(self):
+        require_intercept_for_shifts(self.normalization)
+
+    @property
+    def _prepared(self):
+        cached = self.__dict__.get("_prepared_cache")
+        if cached is None:
+            cached = prepare_buckets(
+                self.batch.features[self.feature_shard_id], self.batch.labels,
+                self.batch.weights, self.buckets,
+            )
+            object.__setattr__(self, "_prepared_cache", cached)
+        return cached
+
+    def with_config(self, config: OptimizationConfig) -> "RandomEffectCoordinate":
+        """A copy bound to another optimization config that shares the
+        prepared bucket tensors (they depend on the data alone)."""
+        new = dataclasses.replace(self, config=config)
+        cached = self.__dict__.get("_prepared_cache")
+        if cached is not None:
+            object.__setattr__(new, "_prepared_cache", cached)
+        return new
+
+    def train(
+        self, offsets: Tensor, initial: GameSubModel | None = None
+    ) -> tuple[RandomEffectModel, RandomEffectTrainingResult]:
+        opt = self.config
+        W0 = prior_W = prior_V = None
+        if initial is not None:
+            W0 = initial.coefficients
+            if W0.shape[0] != self.num_entities:
+                raise ValueError(f"warm-start entity count {W0.shape[0]} != {self.num_entities}")
+        if self.prior_model is not None:
+            _require_prior_l2(self.config)
+            prior_W, prior_V = self.prior_model.coefficients, self.prior_model.variances
+            if prior_W.shape[0] != self.num_entities:
+                raise ValueError(f"prior entity count {prior_W.shape[0]} != {self.num_entities}")
+        norm = self.normalization
+        result = train_prepared(
+            self._prepared,
+            offsets,
+            self.batch.features[self.feature_shard_id].num_features,
+            self.num_entities,
+            loss_for_task(self.task_type),
+            opt.optimizer,
+            l2_weight=opt.regularization.l2_weight(opt.regularization_weight),
+            l1_weight=opt.regularization.l1_weight(opt.regularization_weight),
+            intercept_index=self.intercept_index,
+            initial_coefficients=W0,
+            variance_computation=self.variance_computation,
+            norm=None if norm is None else norm.to(offsets.device),
+            prior_coefficients=prior_W,
+            prior_variances=prior_V,
+        )
+        model = RandomEffectModel(
+            coefficients=result.coefficients,
+            variances=result.variances,
+            random_effect_type=self.random_effect_type,
+            feature_shard_id=self.feature_shard_id,
+            task_type=self.task_type,
+        )
+        return model, result
+
+    def score(self, model: RandomEffectModel) -> Tensor:
+        return model.score(self.batch)

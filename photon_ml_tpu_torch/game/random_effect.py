@@ -1,0 +1,331 @@
+"""Per-entity random-effect training over entity lanes (port of the
+knob-off schedule of ``photon_ml_tpu/game/random_effect.py``).
+
+Each bucket of ``game/data.py`` is k entities padded to one capacity C;
+``prepare_buckets`` gathers its static tensors once, on the device, into a
+(k, C, d) ``DenseBatch``. Every coordinate-descent visit then gathers only
+the residual offsets for the bucket's rows and solves all k entity GLMs
+together: ``optim/newton.py`` steps the lanes in lockstep on a
+``LaneGLMObjective`` (the reference vmaps the same solve over the lane),
+and the solutions are scattered back into the (E, d) coefficient matrix.
+One bucket step per bucket.
+
+Only NEWTON_CHOLESKY runs over entity lanes here. L-BFGS, OWL-QN and TRON
+over lanes (the reference gets them from ``jax.vmap``) and sparse
+random-effect shards (Newton needs the dense Hessian) raise
+``NotImplementedError``: ROADMAP queue 1 item 10a. So do the mesh,
+projection, compaction and fusion schedules of the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch._device import check_device
+from photon_ml_tpu_torch.config import OptimizerConfig
+from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets, Features
+from photon_ml_tpu_torch.normalization import NormalizationContext
+from photon_ml_tpu_torch.ops.batch import DenseBatch
+from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_lane_objective
+from photon_ml_tpu_torch.ops.losses import PointwiseLoss
+from photon_ml_tpu_torch.optim.newton import newton_minimize
+from photon_ml_tpu_torch.types import OptimizerType, VarianceComputationType
+
+Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class RandomEffectTrainingResult:
+    """Per-entity models as one (E, d) coefficient matrix (and (E, d)
+    variances when asked for). Entities with no active rows keep their
+    warm-start row (zeros for a cold start).
+
+    Per-entity diagnostics stay on the device (``diag_refs``: per bucket the
+    host entity ids and the (k,) final objective, iterations and reason)
+    until ``loss_values`` / ``iterations`` / ``converged`` first reads them,
+    in one transfer."""
+
+    coefficients: Tensor | None
+    variances: Tensor | None
+    diag_refs: tuple = ()
+    num_entities: int = 0
+
+    def _materialize(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        cached = self.__dict__.get("_diag_cache")
+        if cached is None:
+            if self.__dict__.get("_released"):
+                raise RuntimeError(
+                    "per-entity diagnostics were released for this iteration's "
+                    "tracker (coordinate descent keeps them only for each "
+                    "coordinate's latest visit); read tracker.loss_values before "
+                    "the next visit if you need per-iteration history"
+                )
+            loss_values = np.full((self.num_entities,), np.nan, np.float64)
+            iterations = np.zeros((self.num_entities,), np.int64)
+            converged = np.zeros((self.num_entities,), bool)
+            if self.diag_refs:
+                flat = torch.cat(
+                    [torch.stack([f.double(), it.double(), r.double()]) for _, f, it, r in self.diag_refs],
+                    dim=1,
+                ).cpu().numpy()
+                ids = np.concatenate([e for e, *_ in self.diag_refs])
+                loss_values[ids] = flat[0]
+                iterations[ids] = flat[1].astype(np.int64)
+                converged[ids] = flat[2] != 0  # != MAX_ITERATIONS
+            cached = (loss_values, iterations, converged)
+            object.__setattr__(self, "_diag_cache", cached)
+        return cached
+
+    @property
+    def loss_values(self) -> np.ndarray:
+        """(E,) final per-entity objective (NaN if untrained)."""
+        return self._materialize()[0]
+
+    @property
+    def iterations(self) -> np.ndarray:
+        """(E,) solver iterations (0 if untrained)."""
+        return self._materialize()[1]
+
+    @property
+    def converged(self) -> np.ndarray:
+        """(E,) per-entity convergence."""
+        return self._materialize()[2]
+
+    def release_device_diagnostics(self) -> None:
+        """Drop the device references without reading them (coordinate
+        descent calls this on a coordinate's previous visit); values already
+        read stay readable."""
+        object.__setattr__(self, "_released", True)
+        object.__setattr__(self, "diag_refs", ())
+        object.__setattr__(self, "coefficients", None)
+        object.__setattr__(self, "variances", None)
+
+
+@dataclass(frozen=True)
+class PreparedBucket:
+    """One bucket's static tensors on the device, built once: descent
+    visits change only the offsets."""
+
+    entity_ids: np.ndarray  # (k,) entity ids (host)
+    ids: Tensor  # (k,) the same ids on the device (the (E, d) scatter key)
+    static: DenseBatch  # (k, C, d) features, (k, C) labels / weights, zero offsets
+    row_idx: Tensor  # (k, C) int64 row indices, padding clipped to 0
+    mask: Tensor  # (k, C) 1.0 where the slot holds a real row
+
+    @property
+    def num_real(self) -> int:
+        return len(self.entity_ids)
+
+    @property
+    def capacity(self) -> int:
+        return self.row_idx.shape[1]
+
+
+def _sparse_refused() -> NotImplementedError:
+    return NotImplementedError(
+        "sparse random-effect shards wait for ROADMAP queue 1 item 10a: "
+        "NEWTON_CHOLESKY needs the dense Hessian, and L-BFGS / OWL-QN / TRON "
+        "over entity lanes are not ported yet"
+    )
+
+
+def prepare_buckets(
+    features: Features,
+    labels: Tensor,
+    weights: Tensor,
+    buckets: EntityBuckets,
+) -> list[PreparedBucket]:
+    """Gather every bucket's static tensors on the features' device with
+    index operations (one upload of the padded row-index matrix per bucket;
+    the rows themselves never leave the device). Padded slots get weight 0
+    and zeroed features."""
+    if not isinstance(features, DenseFeatures):
+        raise _sparse_refused()
+    dev = features.X.device
+    prepared = []
+    for ent_ids, rows in zip(buckets.entity_ids, buckets.row_indices):
+        raw = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+        mask = (raw >= 0).to(torch.float32)
+        idx = torch.clamp_min(raw, 0)
+        static = DenseBatch(
+            X=features.X[idx].float() * mask.unsqueeze(-1),
+            labels=labels[idx] * mask,
+            offsets=torch.zeros_like(mask),
+            weights=weights[idx] * mask,
+        )
+        prepared.append(
+            PreparedBucket(
+                entity_ids=np.asarray(ent_ids),
+                ids=torch.as_tensor(ent_ids, dtype=torch.int64, device=dev),
+                static=static,
+                row_idx=idx,
+                mask=mask,
+            )
+        )
+    return prepared
+
+
+def train_random_effects(
+    features: Features,
+    labels,
+    offsets,
+    weights,
+    buckets: EntityBuckets,
+    num_entities: int,
+    loss: PointwiseLoss,
+    config: OptimizerConfig,
+    l2_weight: float = 0.0,
+    l1_weight: float = 0.0,
+    intercept_index: int | None = None,
+    initial_coefficients: Tensor | None = None,
+    variance_computation: VarianceComputationType = VarianceComputationType.NONE,
+    norm: NormalizationContext | None = None,
+    prior_coefficients: Tensor | None = None,
+    prior_variances: Tensor | None = None,
+    device=None,
+) -> RandomEffectTrainingResult:
+    """Train every entity's GLM; returns the (E, d) coefficient matrix.
+    Runs on ``device`` (CUDA unless the caller asks for another), which
+    must hold ``features``; the per-row columns (numpy or tensors) are put
+    there."""
+    feats_dev = (features.X if isinstance(features, DenseFeatures) else features.values).device
+    dev = check_device(feats_dev, device)
+
+    def col(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    prepared = prepare_buckets(features, col(labels), col(weights), buckets)
+    return train_prepared(
+        prepared, col(offsets), features.num_features, num_entities, loss, config,
+        l2_weight=l2_weight, l1_weight=l1_weight, intercept_index=intercept_index,
+        initial_coefficients=initial_coefficients, variance_computation=variance_computation,
+        norm=norm, prior_coefficients=prior_coefficients, prior_variances=prior_variances,
+    )
+
+
+def _check_lane_solver(config: OptimizerConfig, l1_weight: float) -> None:
+    if config.optimizer_type is not OptimizerType.NEWTON_CHOLESKY:
+        raise NotImplementedError(
+            f"{config.optimizer_type.value}"
+            f"{' (OWL-QN under L1)' if l1_weight > 0 else ''} over entity lanes waits for "
+            "ROADMAP queue 1 item 10a; random effects train with NEWTON_CHOLESKY"
+        )
+    if l1_weight > 0.0:
+        raise ValueError(
+            "NEWTON_CHOLESKY does not support L1 regularization "
+            "(non-smooth; use LBFGS, which routes through OWL-QN)"
+        )
+
+
+def train_prepared(
+    prepared: list[PreparedBucket],
+    offsets: Tensor,
+    num_features: int,
+    num_entities: int,
+    loss: PointwiseLoss,
+    config: OptimizerConfig,
+    l2_weight: float = 0.0,
+    l1_weight: float = 0.0,
+    intercept_index: int | None = None,
+    initial_coefficients: Tensor | None = None,
+    variance_computation: VarianceComputationType = VarianceComputationType.NONE,
+    norm: NormalizationContext | None = None,
+    prior_coefficients: Tensor | None = None,
+    prior_variances: Tensor | None = None,
+) -> RandomEffectTrainingResult:
+    """Solve every prepared bucket against the current (n,) residual
+    ``offsets``, one bucket step per bucket. ``norm`` (shared by all
+    entities) applies inside each objective; warm starts and priors arrive
+    in the original feature space and the coefficients leave in it.
+    ``prior_coefficients`` / ``prior_variances`` are (E, d) per-entity
+    Gaussian MAP priors."""
+    _check_lane_solver(config, l1_weight)
+    dev = offsets.device
+    d, E = num_features, num_entities
+    if initial_coefficients is None:
+        W = torch.zeros((E, d), dtype=torch.float32, device=dev)
+    else:
+        # a copy: W is written in place bucket by bucket
+        W = torch.as_tensor(initial_coefficients, dtype=torch.float32, device=dev).clone()
+        if norm is not None:
+            W = norm.model_from_original_space(W)
+    prior_mu = prior_var = None
+    if prior_coefficients is not None:
+        # the per-entity MAP prior arrives in the original feature space too
+        prior = GaussianPrior.from_coefficients(
+            torch.as_tensor(prior_coefficients, device=dev),
+            None if prior_variances is None else torch.as_tensor(prior_variances, device=dev),
+            norm,
+        )
+        prior_mu, prior_var = prior.means, prior.variances
+    compute_variance = variance_computation is not VarianceComputationType.NONE
+    V = torch.zeros((E, d), dtype=torch.float32, device=dev) if compute_variance else None
+    l2 = torch.as_tensor(l2_weight, dtype=torch.float32, device=dev)
+
+    diag = []
+    for pb in prepared:
+        f_k, it_k, reason_k = _bucket_step(
+            W, V, offsets, pb, l2, norm, prior_mu, prior_var, loss=loss, config=config,
+            intercept_index=intercept_index, variance_computation=variance_computation,
+        )
+        diag.append((pb.entity_ids, f_k, it_k, reason_k))
+    if norm is not None:
+        W = norm.model_to_original_space(W)[0]
+        if V is not None:
+            V = norm.factors**2 * V
+    return RandomEffectTrainingResult(
+        coefficients=W, variances=V, diag_refs=tuple(diag), num_entities=E
+    )
+
+
+def _extract_lanes(M: Tensor | None, ids: Tensor) -> Tensor | None:
+    """One bucket's rows of an (E, d) matrix (the warm-start / prior lanes)."""
+    return None if M is None else M[ids]
+
+
+def _scatter_lanes(W: Tensor, V: Tensor | None, ids: Tensor, w_b: Tensor, var_b: Tensor | None) -> None:
+    """Write a solved bucket's lanes back into the (E, d) matrices."""
+    W[ids] = w_b
+    if V is not None:
+        V[ids] = var_b
+
+
+def _bucket_step(
+    W: Tensor,
+    V: Tensor | None,
+    offsets: Tensor,
+    pb: PreparedBucket,
+    l2_weight: Tensor,
+    norm: NormalizationContext | None,
+    prior_mu: Tensor | None,
+    prior_var: Tensor | None,
+    *,
+    loss: PointwiseLoss,
+    config: OptimizerConfig,
+    intercept_index: int | None,
+    variance_computation: VarianceComputationType,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """One bucket: gather its rows' residual offsets, extract the warm-start
+    and prior lanes, solve the k lanes together, and scatter the solutions
+    (and variances) into W (and V) in place. Returns the lanes' (k,) final
+    objective, iterations and reason."""
+    batch = dataclasses.replace(pb.static, offsets=offsets[pb.row_idx] * pb.mask)
+    obj = make_lane_objective(
+        batch, loss, l2_weight=l2_weight, norm=norm, intercept_index=intercept_index,
+        prior_mean=_extract_lanes(prior_mu, pb.ids), prior_variances=_extract_lanes(prior_var, pb.ids),
+    )
+    res = newton_minimize(obj, _extract_lanes(W, pb.ids), config)
+    var = compute_variances(obj, res.w, variance_computation)
+    _scatter_lanes(W, V, pb.ids, res.w, var)
+    return res.value, res.iterations, res.reason
+
+
+def random_effect_scores(features: Features, entity_ids: Tensor, W: Tensor) -> Tensor:
+    """Per-row scores w_{e(i)}·x_i: one gather and a row-wise dot."""
+    if isinstance(features, DenseFeatures):
+        return torch.einsum("nd,nd->n", features.X.float(), W[entity_ids])
+    return torch.sum(features.values * W[entity_ids[:, None], features.indices], dim=-1)

@@ -54,23 +54,24 @@ class NormalizationContext:
         """Trained (normalized-space) coefficients → original-feature
         coefficients f ⊙ w and the intercept correction -s·(f ⊙ w), folded
         into the intercept when there is one. Returns (coefficients,
-        intercept_delta)."""
+        intercept_delta). ``w`` may be (d,) or a stack of rows (E, d)."""
         u = self.factors * w
-        delta = -torch.dot(self.shifts, u)
+        delta = -torch.sum(self.shifts * u, dim=-1)
         if self.intercept_index is not None:
             u = u.clone()
-            u[self.intercept_index] += delta
+            u[..., self.intercept_index] += delta
             delta = torch.zeros_like(delta)
         return u, delta
 
     def model_from_original_space(self, w_orig: Tensor) -> Tensor:
         """Inverse of ``model_to_original_space`` (delta folded into the
-        intercept): used to warm-start from a saved model."""
+        intercept): used to warm-start from a saved model. ``w_orig`` may be
+        (d,) or (E, d)."""
         w = w_orig / self.factors
         if self.intercept_index is not None:
-            correction = torch.dot(self.shifts, self.factors * w)
+            correction = torch.sum(self.shifts * (self.factors * w), dim=-1)
             w = w.clone()
-            w[self.intercept_index] = w_orig[self.intercept_index] + correction
+            w[..., self.intercept_index] = w_orig[..., self.intercept_index] + correction
         return w
 
 

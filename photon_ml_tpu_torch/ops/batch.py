@@ -138,6 +138,15 @@ def maybe_densify(
     return densify(batch, dtype)
 
 
+def hbm_budget_bytes(dev: torch.device) -> float:
+    """Bytes a dense training matrix may take: three quarters of the card's
+    memory (room for the optimizer's state and scratch), or 8 GB on the
+    CPU; the reference's ``device_hbm_budget_bytes`` policy."""
+    if dev.type == "cuda":
+        return 0.75 * torch.cuda.get_device_properties(dev).total_memory
+    return 8e9
+
+
 def optimize_batch_layout(
     batch: Batch, hbm_budget_bytes: float = 6e9, dtype=torch.float32
 ) -> Batch:

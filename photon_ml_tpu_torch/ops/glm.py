@@ -259,19 +259,17 @@ class GaussianPrior:
         return cls(means=mu, variances=var)
 
 
-def compute_variances(
-    obj: GLMObjective, w: Tensor, variance_type: VarianceComputationType
-) -> Tensor | None:
+def compute_variances(obj, w: Tensor, variance_type: VarianceComputationType) -> Tensor | None:
     """Coefficient variances from the Hessian at the optimum: SIMPLE
-    inverts its diagonal, FULL takes the diagonal of its inverse."""
+    inverts its diagonal, FULL takes the diagonal of its inverse. For a
+    ``LaneGLMObjective`` every lane's, (k, d)."""
     if variance_type is VarianceComputationType.NONE:
         return None
     if variance_type is VarianceComputationType.SIMPLE:
         return 1.0 / torch.clamp_min(obj.hessian_diag(w), 1e-12)
     H = obj.hessian(w)
-    d = H.shape[0]
-    Hinv = torch.linalg.inv(H + 1e-9 * torch.eye(d, dtype=H.dtype, device=H.device))
-    return torch.diagonal(Hinv)
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    return torch.diagonal(torch.linalg.inv(H + 1e-9 * eye), dim1=-2, dim2=-1)
 
 
 def make_objective(
@@ -347,3 +345,199 @@ def _constant_hints(batch: Batch) -> tuple[bool, bool]:
     the check is two reductions and two host reads per objective, against
     the many passes over X that the solve then makes without those arrays."""
     return bool(torch.all(batch.offsets == 0.0)), bool(torch.all(batch.weights == 1.0))
+
+
+# ---------------------------------------------------------------------------
+# lane-batched objective: k independent GLMs of one geometry
+# ---------------------------------------------------------------------------
+def _bmv(X: Tensor, v: Tensor) -> Tensor:
+    """(k, C, d) @ (k, d) → (k, C)."""
+    return torch.bmm(X, v.unsqueeze(-1)).squeeze(-1)
+
+
+def _bmtv(X: Tensor, r: Tensor) -> Tensor:
+    """(k, C, d)ᵀ @ (k, C) → (k, d)."""
+    return torch.bmm(X.transpose(1, 2), r.unsqueeze(-1)).squeeze(-1)
+
+
+@dataclass(frozen=True)
+class LaneGLMObjective:
+    """k GLM objectives of one (C, d) geometry evaluated together: the
+    reference's ``make_objective`` under ``jax.vmap`` over an entity lane,
+    with batched products (``torch.bmm``) in place of the vmapped matvecs.
+
+      batch — a ``DenseBatch`` whose X is (k, C, d) float32 and whose
+              labels / offsets / weights are (k, C); padded slots carry
+              weight 0 (and zeroed features), so they stay inert.
+      norm  — one ``NormalizationContext`` shared by every lane, or None
+              for the identity (the same values as the identity context:
+              x − 0 and x·1 are exact).
+      l2_weight, reg_mask — as ``GLMObjective`` (the intercept unregularized).
+      prior_mean / prior_precision — optional (k, d) per-lane Gaussian prior.
+
+    Values are (k,), gradients (k, d), Hessians (k, d, d). The margin API
+    (``margins``, ``direction_margins``, ``value_and_grad_from_margins``,
+    ``hessian_from_margins``, ``ray_values_from_margins``) is what
+    ``optim/newton.py`` runs on."""
+
+    batch: DenseBatch
+    norm: NormalizationContext | None
+    l2_weight: Tensor
+    reg_mask: Tensor
+    loss: PointwiseLoss
+    prior_mean: Tensor | None = None
+    prior_precision: Tensor | None = None
+
+    @property
+    def num_lanes(self) -> int:
+        return self.batch.X.shape[0]
+
+    def _weighted(self, x: Tensor) -> Tensor:
+        w = self.batch.weights
+        return torch.where(w != 0.0, w * x, torch.zeros_like(x))
+
+    def _effective(self, w: Tensor) -> tuple[Tensor, Tensor | None]:
+        if self.norm is None:
+            return w, None
+        u = self.norm.factors * w
+        return u, torch.sum(self.norm.shifts * u, dim=-1)
+
+    def _design(self) -> Tensor:
+        """The normalized design Z = (X − s)·f (X itself for the identity)."""
+        X = self.batch.X
+        if self.norm is None:
+            return X
+        return (X - self.norm.shifts) * self.norm.factors
+
+    def _to_model_space(self, g_raw: Tensor, r_sum: Tensor) -> Tensor:
+        if self.norm is None:
+            return g_raw
+        return self.norm.factors * (g_raw - self.norm.shifts * r_sum.unsqueeze(-1))
+
+    # -- regularizer ----------------------------------------------------------
+    def _delta(self, w: Tensor) -> Tensor:
+        return w if self.prior_mean is None else w - self.prior_mean
+
+    def _prec(self, like: Tensor) -> Tensor:
+        return reg_curvature(like, self.prior_mean, self.prior_precision)
+
+    def _reg_value(self, w: Tensor) -> Tensor:
+        delta = self._delta(w)
+        return 0.5 * self.l2_weight * torch.sum(self.reg_mask * self._prec(w) * delta * delta, dim=-1)
+
+    def _reg_grad(self, w: Tensor) -> Tensor:
+        return self.l2_weight * self.reg_mask * reg_delta(w, self.prior_mean, self.prior_precision)
+
+    # -- margin API -----------------------------------------------------------
+    def margins(self, w: Tensor) -> Tensor:
+        return self.direction_margins(w) + self.batch.offsets
+
+    def direction_margins(self, p: Tensor) -> Tensor:
+        u, c = self._effective(p)
+        m = _bmv(self.batch.X, u)
+        return m if c is None else m - c.unsqueeze(-1)
+
+    def value_and_grad_from_margins(self, m: Tensor, w: Tensor) -> tuple[Tensor, Tensor]:
+        y = self.batch.labels
+        val = torch.sum(self._weighted(self.loss.value(m, y)), dim=-1)
+        r = self._weighted(self.loss.d1(m, y))
+        g = self._to_model_space(_bmtv(self.batch.X, r), torch.sum(r, dim=-1))
+        return val + self._reg_value(w), g + self._reg_grad(w)
+
+    def hessian_from_margins(self, m: Tensor, w: Tensor) -> Tensor:
+        """Zᵀ diag(weight·l'') Z per lane by one batched product (never a
+        (k, C, d, d) temporary), plus the regularizer's diagonal."""
+        d2 = self._weighted(self.loss.d2(m, self.batch.labels))
+        Z = self._design()
+        h = torch.bmm(Z.transpose(1, 2), d2.unsqueeze(-1) * Z)
+        reg = self.l2_weight * self.reg_mask * self._prec(self.reg_mask)
+        return h + torch.diag_embed(reg.expand(h.shape[:-1]))
+
+    def ray_values_from_margins(
+        self, m: Tensor, dm: Tensor, w: Tensor, p: Tensor, ts: Tensor
+    ) -> Tensor:
+        """(k, K): every lane's objective at w + t·p for each of the K
+        steps in ``ts``, from stored margins (no matvec)."""
+        y = self.batch.labels
+        data = torch.stack(
+            [torch.sum(self._weighted(self.loss.value(m + t * dm, y)), dim=-1) for t in ts], dim=-1
+        )
+        delta, prec = self._delta(w), self._prec(w)
+        q0 = torch.sum(self.reg_mask * prec * delta * delta, dim=-1, keepdim=True)
+        q1 = torch.sum(self.reg_mask * prec * delta * p, dim=-1, keepdim=True)
+        q2 = torch.sum(self.reg_mask * prec * p * p, dim=-1, keepdim=True)
+        return data + 0.5 * self.l2_weight * (q0 + 2.0 * ts * q1 + ts * ts * q2)
+
+    # -- whole-point contracts ------------------------------------------------
+    def value_and_grad(self, w: Tensor) -> tuple[Tensor, Tensor]:
+        return self.value_and_grad_from_margins(self.margins(w), w)
+
+    def hessian(self, w: Tensor) -> Tensor:
+        return self.hessian_from_margins(self.margins(w), w)
+
+    def hessian_diag(self, w: Tensor) -> Tensor:
+        """diag(H) = f² [Σ d2 x² − 2 s Σ d2 x + s² Σ d2] + λ₂·mask per lane."""
+        d2 = self._weighted(self.loss.d2(self.margins(w), self.batch.labels))
+        X = self.batch.X
+        sq = _bmtv(X * X, d2)
+        if self.norm is None:
+            diag = sq
+        else:
+            f, s = self.norm.factors, self.norm.shifts
+            lin, tot = _bmtv(X, d2), torch.sum(d2, dim=-1, keepdim=True)
+            diag = f * f * (sq - 2.0 * s * lin + s * s * tot)
+        return diag + self.l2_weight * self.reg_mask * self._prec(diag)
+
+
+def make_lane_objective(
+    batch: DenseBatch,
+    loss: PointwiseLoss,
+    l2_weight: float | Tensor = 0.0,
+    norm: NormalizationContext | None = None,
+    intercept_index: int | None = None,
+    prior_mean: Tensor | None = None,
+    prior_variances: Tensor | None = None,
+) -> LaneGLMObjective:
+    """A ``LaneGLMObjective`` on the batch's device; ``intercept_index`` is
+    excluded from L2, and prior variances become precisions as
+    ``GaussianPrior.precisions`` makes them."""
+    if not isinstance(batch, DenseBatch) or batch.X.dim() != 3:
+        raise NotImplementedError(
+            "lane-batched objectives take a dense (k, C, d) batch; sparse random-effect "
+            "shards under NEWTON_CHOLESKY wait for ROADMAP queue 1 item 10a"
+        )
+    dev = batch.X.device
+    d = batch.X.shape[-1]
+    mask = torch.ones(d, dtype=torch.float32, device=dev)
+    if intercept_index is not None:
+        mask[intercept_index] = 0.0
+    prec = None
+    if prior_mean is not None and prior_variances is not None:
+        prec = GaussianPrior(means=prior_mean, variances=prior_variances).precisions
+    return LaneGLMObjective(
+        batch=batch,
+        norm=None if norm is None else norm.to(dev),
+        l2_weight=torch.as_tensor(l2_weight, dtype=torch.float32, device=dev),
+        reg_mask=mask,
+        loss=loss,
+        prior_mean=prior_mean,
+        prior_precision=prec,
+    )
+
+
+def lanes_of(obj: GLMObjective) -> LaneGLMObjective:
+    """A one-lane view of a dense single-GLM objective (no copy of X)."""
+    b = obj.batch
+    if not isinstance(b, DenseBatch):
+        raise NotImplementedError(
+            "NEWTON_CHOLESKY needs the full Hessian, which takes a DenseBatch"
+        )
+    one = DenseBatch(
+        X=b.X.float().unsqueeze(0), labels=b.labels.unsqueeze(0),
+        offsets=b.offsets.unsqueeze(0), weights=b.weights.unsqueeze(0),
+    )
+    return LaneGLMObjective(
+        batch=one, norm=obj.norm, l2_weight=obj.l2_weight, reg_mask=obj.reg_mask, loss=obj.loss,
+        prior_mean=None if obj.prior_mean is None else obj.prior_mean.unsqueeze(0),
+        prior_precision=None if obj.prior_precision is None else obj.prior_precision.unsqueeze(0),
+    )

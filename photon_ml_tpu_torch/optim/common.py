@@ -1,7 +1,7 @@
 """Shared optimizer machinery (port of ``photon_ml_tpu/optim/common.py``):
 convergence reasons, the result record, the relative gradient test and the
 optimizer-selection rule. The chunked and host-streamed entry points wait
-for the GAME and out-of-core slices."""
+for the lane-compaction and out-of-core slices."""
 
 from __future__ import annotations
 
@@ -55,13 +55,21 @@ def grad_converged(g_norm: Tensor, g0_norm: Tensor, tolerance: float) -> bool:
 
 
 def select_minimize_fn(config: OptimizerConfig, l1_weight: float = 0.0) -> tuple[Callable, dict]:
-    """The optimizer-selection rule: TRON if configured (rejecting L1, as
-    the reference does), else OWL-QN when L1 is active, else L-BFGS.
-    Returns (fn, extra_kwargs); ``fn(objective, w0, config, **extra)``
-    runs the solve."""
+    """The optimizer-selection rule: NEWTON_CHOLESKY or TRON if configured
+    (each rejecting L1, as the reference does), else OWL-QN when L1 is
+    active, else L-BFGS. Returns (fn, extra_kwargs);
+    ``fn(objective, w0, config, **extra)`` runs the solve."""
     from photon_ml_tpu_torch.optim.lbfgs import lbfgs_minimize, owlqn_minimize
+    from photon_ml_tpu_torch.optim.newton import newton_minimize
     from photon_ml_tpu_torch.optim.tron import tron_minimize
 
+    if config.optimizer_type is OptimizerType.NEWTON_CHOLESKY:
+        if l1_weight > 0.0:
+            raise ValueError(
+                "NEWTON_CHOLESKY does not support L1 regularization "
+                "(non-smooth; use LBFGS, which routes through OWL-QN)"
+            )
+        return newton_minimize, {}
     if config.optimizer_type is OptimizerType.TRON:
         if l1_weight > 0.0:
             raise ValueError("TRON does not support L1 regularization (reference parity)")

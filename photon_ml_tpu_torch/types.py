@@ -25,11 +25,12 @@ class TaskType(enum.Enum):
 
 class OptimizerType(enum.Enum):
     """LBFGS or TRON; OWL-QN is selected implicitly when L1 is active.
-    NEWTON_CHOLESKY (the JAX package's small-d solver) waits for the GAME
-    slice."""
+    NEWTON_CHOLESKY is exact damped Newton for small-d dense problems
+    (``optim/newton.py``), the per-entity random-effect solver."""
 
     LBFGS = "LBFGS"
     TRON = "TRON"
+    NEWTON_CHOLESKY = "NEWTON_CHOLESKY"
 
 
 class RegularizationType(enum.Enum):
@@ -50,3 +51,17 @@ class VarianceComputationType(enum.Enum):
     NONE = "NONE"
     SIMPLE = "SIMPLE"  # inverse of Hessian diagonal
     FULL = "FULL"  # diagonal of inverse full Hessian
+
+
+class DataValidationType(enum.Enum):
+    """Pre-training data checks: every row, a sample of rows, or none."""
+
+    VALIDATE_FULL = "VALIDATE_FULL"
+    VALIDATE_SAMPLE = "VALIDATE_SAMPLE"
+    VALIDATE_DISABLED = "VALIDATE_DISABLED"
+
+
+class ModelOutputMode(enum.Enum):
+    NONE = "NONE"
+    BEST = "BEST"
+    ALL = "ALL"

@@ -239,3 +239,90 @@ def model_score(obj, w):
     from photon_ml_tpu_torch.models import Coefficients, GeneralizedLinearModel
 
     return GeneralizedLinearModel(Coefficients(w)).score(obj.batch)
+
+
+# ---------------------------------------------------------------------------
+# GAME: the fixed effect on K1, the random effects' lane-batched Newton
+# ---------------------------------------------------------------------------
+def _game_batches(dev, n=3000, effects=(("userId", 40, 4), ("itemId", 15, 4))):
+    from photon_ml_tpu_torch.convert import game_batch_from_numpy
+    from photon_ml_tpu_torch.data.synthetic import synthetic_game_data
+
+    data = synthetic_game_data(np.random.default_rng(9), n, 12,
+                               {k: (e, d) for k, e, d in effects})
+    feats = {"global": data.X, **{f"per_{k}": data.entity_X[k] for k, _, _ in effects}}
+    return data, [game_batch_from_numpy(data.y, feats, id_tags=data.entity_ids, device=dv)
+                  for dv in (dev, "cpu")]
+
+
+def _game_config(effects):
+    from photon_ml_tpu_torch import config as c
+    from photon_ml_tpu_torch.types import OptimizerType, RegularizationType
+
+    # Newton at the logistic tolerance of the CPU parity tests: below it a
+    # lane's stopping rule turns on float32 rounding, which differs between
+    # the card's products and the CPU's (ROADMAP queue 3)
+    newton = c.OptimizationConfig(
+        optimizer=c.OptimizerConfig(optimizer_type=OptimizerType.NEWTON_CHOLESKY,
+                                    max_iterations=20, tolerance=1e-3),
+        regularization=c.RegularizationContext(RegularizationType.L2), regularization_weight=1.0)
+    return c.GameTrainingConfig(
+        coordinate_update_sequence=("fixed", *(f"per_{k}" for k in effects)),
+        coordinate_descent_iterations=2,
+        fixed_effect_coordinates={"fixed": c.FixedEffectCoordinateConfig(
+            "global", c.OptimizationConfig(optimizer=c.OptimizerConfig(max_iterations=20,
+                                                                        tolerance=1e-7)))},
+        random_effect_coordinates={
+            f"per_{k}": c.RandomEffectCoordinateConfig(k, f"per_{k}", newton, bucket_target_count=8,
+                                                       bucket_max_padded_ratio=0.5)
+            for k in effects
+        },
+    )
+
+
+def test_game_fit_on_the_card_runs_the_fixed_effect_on_k1(dev):
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.transformers import GameTransformer
+
+    data, (gpu, cpu) = _game_batches(dev)
+    cfg = _game_config(("userId", "itemId"))
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    got = GameEstimator(cfg, intercept_indices={"global": data.intercept_index}).fit(gpu)[0]
+    passes = sum(t.objective_passes for t in got.descent.trackers["fixed"])
+    assert fused.launch_counts == {"fused_value_grad": passes, "fused_hvp": 0} and passes > 0
+    assert not any(st.launch_counts.values())
+    ref = GameEstimator(cfg, intercept_indices={"global": data.intercept_index},
+                        device="cpu").fit(cpu)[0]
+    for cid, sub in ref.model.models.items():
+        torch.testing.assert_close(got.model[cid].coefficient_means.cpu(), sub.coefficient_means,
+                                   rtol=0.0, atol=1e-3)
+    scores = GameTransformer(got.model).transform(gpu)
+    assert scores.device.type == "cuda"
+    torch.testing.assert_close(scores.cpu(), GameTransformer(ref.model, device="cpu").transform(cpu),
+                               rtol=0.0, atol=1e-3)
+
+
+def test_random_effects_on_the_card_match_the_cpu(dev):
+    from photon_ml_tpu_torch.config import OptimizerConfig
+    from photon_ml_tpu_torch.game.data import bucket_entities, group_by_entity
+    from photon_ml_tpu_torch.game.random_effect import train_random_effects
+    from photon_ml_tpu_torch.types import OptimizerType, VarianceComputationType
+
+    data, (gpu, cpu) = _game_batches(dev)
+    ids = data.entity_ids["userId"]
+    buckets = bucket_entities(group_by_entity(ids))
+    cfg = OptimizerConfig(optimizer_type=OptimizerType.NEWTON_CHOLESKY, max_iterations=20,
+                          tolerance=1e-3)
+    out = []
+    for b in (gpu, cpu):
+        out.append(train_random_effects(
+            b.features["per_userId"], b.labels, b.offsets, b.weights, buckets, int(ids.max()) + 1,
+            LOSSES["logistic"], cfg, l2_weight=1.0,
+            variance_computation=VarianceComputationType.SIMPLE, device=b.device,
+        ))
+    got, ref = out
+    assert got.coefficients.device.type == "cuda"
+    torch.testing.assert_close(got.coefficients.cpu(), ref.coefficients, rtol=0.0, atol=1e-4)
+    torch.testing.assert_close(got.variances.cpu(), ref.variances, rtol=1e-3, atol=1e-5)
+    assert np.all(np.abs(got.iterations - ref.iterations) <= 1)
