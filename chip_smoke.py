@@ -12,12 +12,17 @@ Run from the root of a checkout. It builds the CUDA kernels from
    started together), with the spill lines of each source's report;
 3. parity: K1 (fused value+gradient) and K2 (fused Hessian-vector) against
    their plain PyTorch versions on the card, at the headline shape
-   (n = 2^20, d = 512, bfloat16 X), config B's (n = 2^20, d = 256, float32)
-   and a ragged one (n = 2^20 - 37, d = 124, both storage types), over all
-   four losses, with and without offsets and weights (zero-weight rows
-   included); then each kernel's time at the shape the main path gives it,
-   beside its plain version, one PyTorch-library computation of the same
-   function, and the least time the card could take;
+   (n = 2^20, d = 512, bfloat16 X), config B's (n = 2^20, d = 256, float32),
+   a ragged one (n = 2^20 - 37, d = 124, both storage types) and GAME's
+   width (n = 2^20, d = 65, float32; n = 2^20 - 37, d = 65, bfloat16), over
+   all four losses, with and without offsets and weights (zero-weight rows
+   included), with each line naming K1's layout; K1 repeats bitwise at the
+   headline and at d = 65; then each kernel's time at the shape the main
+   path gives it, beside its plain version, one PyTorch-library computation
+   of the same function, and the least time the card could take; then
+   ``timing_k1_layouts``: K1 in both of its layouts at d = 65, 124, 128 and
+   256 (n = 2^20, both storage types), each with its device time from
+   ``torch.profiler``;
 4. main_a: ``train_glm`` on the headline logistic problem (L-BFGS, 30
    iterations, lambda = 1), then a warm-started 3-lambda sweep with
    validation at the same width;
@@ -55,6 +60,9 @@ Run from the root of a checkout. It builds the CUDA kernels from
    iterations at tolerance 1e-7) through ``GameEstimator.fit`` for one
    outer iteration; its coefficients equal ``train_glm``'s on the same
    batch within atol 1e-4, and K1's launches equal the objective passes;
+   then K1 alone at D's shape (2^18 x 65, float32, offsets not read), in
+   both layouts, beside its plain version, the library yardstick and its
+   bound;
 12. main_e: config E's widths at MovieLens-20M depth (20,000,263 rows,
    138,493 users and 27,278 items with 8 features each, Zipf skew 1.5,
    generated on the card): fixed (L-BFGS 20 iterations, no
@@ -64,8 +72,8 @@ Run from the root of a checkout. It builds the CUDA kernels from
    4 timed ones; wall per outer iteration and per coordinate visit, the
    buckets and their Newton iterations, K1's launches against the fixed
    effect's objective passes, train AUC >= 0.95 x the generating model's;
-   then K1 alone at that shape (20,000,263 x 65, float32) beside its plain
-   version and its bound;
+   then K1 alone at that shape (20,000,263 x 65, float32, offsets read) as
+   at D's; K1 must take its tiles layout at both shapes;
 13. agreement_e: config E at bench.py's own shape (n = 2^18, 20,000 users
    and 4,000 items), 4 outer iterations on K1 and again with the kernels
    vetoed (which must launch none): |dAUC| <= 0.005 and relative d(training
@@ -74,7 +82,8 @@ Run from the root of a checkout. It builds the CUDA kernels from
 Every check that fails raises, and the script exits non-zero with no
 result. Its last lines are the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D and
-E, which ``launches_by_path`` lists one by one), the line
+E, which ``launches_by_path`` lists one by one; ``at_main_d_shape`` and
+``at_main_e_shape`` give its times at GAME's widths), the line
 ``nvidia-smi --query-gpu=name,power.limit`` prints, and
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without CUDA or outside a checkout of the repository.
@@ -171,6 +180,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` per call: the time of every kernel it launches,
+    summed by ``torch.profiler`` over ``reps`` calls after one warm-up call.
+    Beside ``cuda_ms`` (events around back-to-back calls) it says how much
+    of a call's time the card works and how much it waits on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    return us / 1e3 / reps
+
+
 def close(got, ref, rtol: float, atol: float) -> tuple[bool, float]:
     """(every element within atol + rtol·|ref|, max |got − ref|)."""
     err = (got.double() - ref.double()).abs()
@@ -205,6 +232,9 @@ def parity(dev) -> None:
         ("config_b", N, 256, torch.float32),
         ("ragged_f32", N - 37, 124, torch.float32),
         ("ragged_bf16", N - 37, 124, torch.bfloat16),
+        # GAME's fixed-effect width, and narrow bf16 with a partial last tile
+        ("game_e", N, D_FIXED + 1, torch.float32),
+        ("narrow_bf16", N - 37, D_FIXED + 1, torch.bfloat16),
     ]
     for name, n, d, dtype in shapes:
         gen = torch.Generator(device=dev).manual_seed(n + d)
@@ -232,19 +262,27 @@ def parity(dev) -> None:
                     "q_sum": close(kh[1], ph[1], tol, tol),
                 }
                 emit("parity", shape=name, n=n, d=d, dtype=str(dtype), loss=loss_name, aux=aux,
+                     k1_layout=k1_layout(X, y, o, w),
                      max_abs_err={k: e for k, (_, e) in checks.items()},
                      ok=all(ok for ok, _ in checks.values()))
                 bad = [k for k, (ok, _) in checks.items() if not ok]
                 if bad:
                     raise AssertionError(f"kernel disagrees with its plain version: {name} "
                                          f"{loss_name} aux={aux}: {bad}")
-        if name == "headline":
+        if name in ("headline", "game_e"):
             a = fused.fused_value_grad(X, y, off, wt, u, c, loss=loss)
             b = fused.fused_value_grad(X, y, off, wt, u, c, loss=loss)
             if not all(torch.equal(p, q) for p, q in zip(a, b)):
-                raise AssertionError("K1 is not bitwise repeatable")
+                raise AssertionError(f"K1 is not bitwise repeatable at {name}")
+            emit("parity_k1_bitwise", shape=name, k1_layout=k1_layout(X, y, off, wt), ok=True)
         del X
         torch.cuda.empty_cache()
+
+
+def k1_layout(X, labels, offsets, weights) -> str:
+    """The layout K1 takes on these inputs (``fused.vg_plan``)."""
+    aligned = fused.inputs_aligned(X, labels, offsets, weights)
+    return fused.vg_plan(X.shape[1], X.dtype, aligned).layout
 
 
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -274,12 +312,7 @@ def timing(dev) -> dict:
         if kernel == "fused_value_grad":
             run = lambda: fused.fused_value_grad(X, y, None, None, u, c, loss=loss)  # noqa: E731
             plain = lambda: fused.fused_value_grad_reference(X, y, None, None, u, c, loss=loss)  # noqa: E731
-
-            def library():
-                m = (X @ u.to(dtype)).float() - c
-                r = loss.d1(m, y)
-                return loss.value(m, y).sum(), X.T @ r.to(dtype), r.sum()
-
+            library = k1_library(X, y, None, u, c, loss)
             # X, labels and u read once; gradient, value and r-sum written once
             nbytes = N * d * itemsize + 4 * N + 4 * d + 4 * (d + 2)
             flops = 4.0 * N * d
@@ -314,6 +347,73 @@ def timing(dev) -> dict:
         del X
         torch.cuda.empty_cache()
     return rows
+
+
+def k1_library(X, labels, offsets, u, c, loss):
+    """One PyTorch computation of K1's function: cuBLAS X @ u, the
+    elementwise loss, cuBLAS Xᵀ @ r (a yardstick; the port never calls it)."""
+    def run():
+        m = (X @ u.to(X.dtype)).float() - c
+        if offsets is not None:
+            m = m + offsets
+        r = loss.d1(m, labels)
+        return loss.value(m, labels).sum(), X.T @ r.to(X.dtype), r.sum()
+    return run
+
+
+def k1_time(X, labels, offsets, u, c, loss, reps: int = 20) -> dict:
+    """K1 on these inputs in each of its layouts that can run (``ms_rows``,
+    ``ms_tiles``; the rule's first, twice; ``device_ms_*`` of each, and
+    ``device_ms`` of the rule's), its plain version, the library yardstick
+    and the least time the card could take (X, labels, offsets and u read
+    once, the d + 2 results written once)."""
+    n, d = X.shape
+    layout = k1_layout(X, labels, offsets, None)
+    others = [k for k in fused.LAYOUTS if k != layout and (
+        k == "rows" or fused.tile_plan(d, X.dtype) is not None)]
+    in_layout = lambda k: lambda: fused.fused_value_grad_in_layout(  # noqa: E731
+        X, labels, offsets, None, u, c, loss=loss, layout=k)
+    plain = lambda: fused.fused_value_grad_reference(X, labels, offsets, None, u, c, loss=loss)  # noqa: E731
+    got, ref = fused.fused_value_grad(X, labels, offsets, None, u, c, loss=loss), plain()
+    torch.cuda.synchronize()
+    rtol_v, tol = TOL[str(X.dtype).removeprefix("torch.")]
+    ok = close(got[0], ref[0], rtol_v, 0.0)[0] and close(got[1], ref[1], tol, tol)[0]
+    rec = dict(n=n, d=d, dtype=str(X.dtype), layout=layout,
+               max_abs_err=float((got[1].double() - ref[1].double()).abs().max()), ok=ok)
+    del got, ref
+    rec["ms"] = cuda_ms(in_layout(layout), reps)
+    for k in others:
+        rec[f"ms_{k}"] = cuda_ms(in_layout(k), reps)
+    rec["ms_again"] = cuda_ms(in_layout(layout), reps)
+    rec[f"ms_{layout}"] = rec["ms"]
+    for k in (layout, *others):
+        rec[f"device_ms_{k}"] = device_ms(in_layout(k), reps)
+    rec["device_ms"] = rec[f"device_ms_{layout}"]
+    rec["plain_ms"] = cuda_ms(plain, 2)
+    rec["library_ms"] = cuda_ms(k1_library(X, labels, offsets, u, c, loss), reps)
+    nbytes = n * d * X.element_size() + 4 * n * (1 + (offsets is not None)) + 4 * d + 4 * (d + 2)
+    rec["bytes"] = nbytes
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 4.0 * n * d)
+    rec["hbm_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def timing_k1_layouts(dev) -> None:
+    """K1 at n = 2^20 (logistic, no offsets or weights) at the widths where
+    its two layouts cross, in both storage types: each layout's time beside
+    the rule's choice."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (65, 124, 128, 256):
+            gen = torch.Generator(device=dev).manual_seed(100 + d)
+            X = torch.randn((N, d), generator=gen, device=dev).to(dtype)
+            y = _labels(gen, "logistic", N, dev)
+            u = 0.5 * torch.randn(d, generator=gen, device=dev) / d**0.5
+            rec = k1_time(X, y, None, u, torch.tensor(0.1, device=dev), LOSSES["logistic"])
+            emit("timing_k1_layouts", **rec)
+            if not rec["ok"]:
+                raise AssertionError(f"K1 disagrees with its plain version at d = {d} {dtype}")
+            del X
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -835,31 +935,17 @@ def run_d(dev) -> dict:
                max_abs_diff_vs_train_glm=float((w - ref.models[0.0].coefficients.means).abs().max()),
                train_glm_iterations=ref_t.iterations, train_glm_objective_passes=ref_t.objective_passes,
                **game_quality(fit, batch, data))
+    rec["k1"] = k1_at(batch.features["global"].X, None, batch.labels, dev)
     return rec
 
 
 def k1_at(X, offsets, labels, dev) -> dict:
-    """K1 alone at a main-path shape (logistic, offsets read, weights 1
-    and not read): card time, plain version, bound."""
-    loss = LOSSES["logistic"]
-    n, d = X.shape
+    """K1 alone at a main-path shape (logistic, weights 1 and not read,
+    offsets read where given): ``k1_time``'s record."""
     gen = torch.Generator(device=dev).manual_seed(11)
+    d = X.shape[1]
     u = 0.5 * torch.randn(d, generator=gen, device=dev) / d**0.5
-    c = torch.tensor(0.1, device=dev)
-    run = lambda: fused.fused_value_grad(X, labels, offsets, None, u, c, loss=loss)  # noqa: E731
-    plain = lambda: fused.fused_value_grad_reference(X, labels, offsets, None, u, c, loss=loss)  # noqa: E731
-    got, ref = run(), plain()
-    err = float((got[1].double() - ref[1].double()).abs().max())
-    rtol_v, tol = TOL["float32"]
-    ok = close(got[0], ref[0], rtol_v, 0.0)[0] and close(got[1], ref[1], tol, tol)[0]
-    del got, ref
-    nbytes = n * d * X.element_size() + 8 * n + 4 * d + 4 * (d + 2)
-    bound_ms, bound_by = _bound(nbytes, 4.0 * n * d)
-    rec = dict(n=n, d=d, dtype=str(X.dtype), ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 2),
-               ms_again=cuda_ms(run, 10), bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-               max_abs_err=err, ok=ok)
-    rec["hbm_share"] = bound_ms / rec["ms"]
-    return rec
+    return k1_time(X, labels, offsets, u, torch.tensor(0.1, device=dev), LOSSES["logistic"], reps=10)
 
 
 def run_e(dev) -> dict:
@@ -970,6 +1056,7 @@ def main() -> int:
     parity(dev)
     k3_err = parity_k3(dev)
     rows = timing(dev)
+    timing_k1_layouts(dev)
     k3_rows = timing_k3(dev, gather_floor(dev))
 
     # main path A: the headline solve, then the sweep
@@ -1044,7 +1131,9 @@ def main() -> int:
     e_rec = run_e(dev)
     emit("main_e", **e_rec)
     _check_game_launches("main_e", e_rec)
-    if not (e_rec["quality_ok"] and e_rec["k1"]["ok"]):
+    if not (d_rec["k1"]["ok"] and d_rec["k1"]["layout"] == "tiles"):
+        raise AssertionError(f"K1 at D's shape: {d_rec['k1']}")
+    if not (e_rec["quality_ok"] and e_rec["k1"]["ok"] and e_rec["k1"]["layout"] == "tiles"):
         raise AssertionError(f"config E: AUC {e_rec['train_auc']} against "
                              f"{e_rec['auc_generating_model']}; K1 ok {e_rec['k1']['ok']}")
     agree_e = agreement_e(dev)
@@ -1070,8 +1159,10 @@ def main() -> int:
              bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"])
         for kernel, rec in rows.items()
     ]
-    kernels[0]["at_main_e_shape"] = {k: e_rec["k1"][k] for k in ("n", "d", "ms", "plain_ms", "bound_ms",
-                                                                  "bound_by", "max_abs_err")}
+    at_shape_keys = ("n", "d", "layout", "ms", "ms_rows", "ms_tiles", "device_ms", "plain_ms",
+                     "library_ms", "bound_ms", "bound_by", "hbm_share", "max_abs_err")
+    kernels[0]["at_main_e_shape"] = {k: e_rec["k1"][k] for k in at_shape_keys}
+    kernels[0]["at_main_d_shape"] = {k: d_rec["k1"][k] for k in at_shape_keys}
     k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over main_a2
         dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW, launches=k3[direction],
              max_abs_err=k3_err[direction], ms=rec["ms"], plain_ms=rec["plain_ms"],

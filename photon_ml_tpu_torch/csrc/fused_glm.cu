@@ -15,19 +15,50 @@
 // under a fifth of that time.
 //
 // What the design does about the bound: X is read exactly once per
-// evaluation, with streaming (evict-first) loads, and nothing per row goes
-// back to device memory. A warp owns one row at a time: its lanes load the
-// row in 16-byte vectors where the row is 16-byte aligned (lane l holds
-// vectors l, l + 32, ...; scalars otherwise), form the margin dot (and, in
-// K2, the dot with v from the same registers), reduce it with a butterfly
-// so every lane holds the same bits, apply the loss in registers, and add
-// r * x (or q * x) into per-lane column accumulators. Where a lane holds at
-// most 16 columns, each warp loads two rows before it reduces either, to
-// keep more bytes in flight. Neither the margins nor r / q are ever stored.
+// evaluation, as data first to evict from L2, and nothing per row goes back
+// to device memory. K1 has two layouts, chosen by shape and alignment only
+// (`vg_launch`); K2 has the first.
 //
-// Determinism and accuracy: no float atomics. Each warp keeps compensated
-// (Kahan) float32 sums over its rows; the warps of a block add theirs in
-// warp order into float64 slots, each block writes its own row of a
+// Rows layout (`vg_kernel`, `hvp_kernel`): a warp owns one row at a time:
+// its lanes load the row in 16-byte vectors where the row is 16-byte aligned
+// (lane l holds vectors l, l + 32, ...; scalars otherwise), form the margin
+// dot (and, in K2, the dot with v from the same registers), reduce it with a
+// butterfly so every lane holds the same bits, apply the loss in registers,
+// and add r * x (or q * x) into per-lane column accumulators. Where a lane
+// holds at most 16 columns, each warp loads two rows before it reduces
+// either, to keep more bytes in flight. Neither the margins nor r / q are
+// ever stored. At the headline and config B this reaches 60% and 85% of
+// the bytes bound. On narrow rows it is bound by instruction issue instead:
+// at d = 65 float32 (GAME's fixed effect) a 260-byte row is not 16-byte
+// aligned, each lane runs 8 predicated scalar columns of which 65 of 256
+// exist, and the butterfly and the loss run 32 times a row -- about 100
+// warp instructions a row against some 74 issue slots a row at the bound.
+//
+// Tiles layout (`vg_tiles_kernel`, K1 only; d <= kTilesMaxFeatures* and X,
+// labels, offsets and weights 16-byte aligned): a block walks over tiles of
+// R consecutive rows (`tile_plan`). R rows of X are contiguous whatever d
+// is, so one bulk copy (cp.async.bulk, completing on an mbarrier) brings a
+// tile's X rows into a stage of a ring in shared memory, and three more its
+// labels, offsets and weights; R is a multiple of 32, so every copy starts
+// 16-byte aligned. Thread 0 keeps the ring's other stages in flight while
+// the block computes on one. One thread per row forms the margin from the
+// staged row and u (in shared memory), evaluates the loss once and leaves r
+// in shared memory; a row read at a stride of d words would put a warp on
+// one bank at even d, so each thread starts its dot at a rotated column.
+// Then P = kThreads / d partitions of d threads each sum their column over
+// every P-th row of the tile, reading consecutive words. That is about 20
+// warp instructions a row at d = 65 float32, so the copies, not issue,
+// bound it. A partial last tile comes in by plain loads.
+//
+// Determinism and accuracy: no float atomics. Rows layout: each warp keeps
+// compensated (Kahan) float32 sums over its rows; the warps of a block add
+// theirs in warp order into float64 slots. Tiles layout: each row thread
+// keeps compensated value and r sums over its rows; each column owner sums
+// a tile's rows in plain float32 (at most R / P terms, 75 at d = 65
+// float32; bfloat16 in two interleaved partial sums) and adds that to its
+// compensated sum over tiles; the block adds
+// the owners' sums in partition order and the scalars by a fixed tree into
+// float64 slots. Either way each block writes its own row of a
 // (grid, C) float64 partial array (C = d + 2 for K1: gradient, value,
 // r-sum; C = d + 1 for K2: Hv, q-sum), and a second kernel sums each
 // column over the blocks in float64 with a fixed-shape tree, rounding once
@@ -42,9 +73,9 @@
 // the transposed product, accumulating in float32 (products of two bfloat16
 // values are exact in float32) -- the places the reference rounds.
 //
-// Masking: rows >= n are never loaded; where weights are given, a zero
-// weight makes the row contribute exactly 0 through a select, so a Poisson
-// exp overflow on a padded row cannot become NaN. A null `off` / `wt`
+// Masking: rows >= n are never loaded or copied; where weights are given, a
+// zero weight makes the row contribute exactly 0 through a select, so a
+// Poisson exp overflow on a padded row cannot become NaN. A null `off` / `wt`
 // pointer means offsets 0 / weights 1 and the array is not read.
 
 #include <cuda_bf16.h>
@@ -52,6 +83,8 @@
 
 #include <cstdint>
 #include <type_traits>
+
+#include "ring.cuh"
 
 namespace {
 
@@ -410,19 +443,253 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (threadIdx.x == 0) out[j] = static_cast<float>(s[0]);
 }
 
+// ---------------------------------------------------------------------------
+// K1, tiles layout (narrow rows)
+// ---------------------------------------------------------------------------
+
+// Must agree with `VgPlan` / `vg_plan` in ops/fused.py.
+enum VgLayout { kLayoutAuto = -1, kLayoutRows = 0, kLayoutTiles = 1 };
+// The widest rows the tiles layout takes by the rule, per storage type.
+// Measured at n = 2^20 on an H100 (PERF.md): float32 tiles beat rows at
+// d = 65 and 124 and lose at 128 (16-byte rows, where the rows layout loads
+// vectors) and 256; bfloat16 tiles win at 65, 124 and 128 and lose at 256.
+constexpr int kTilesMaxFeaturesF32 = 124;
+constexpr int kTilesMaxFeaturesBf16 = 128;
+constexpr int kStageBytes = 65536;   // a stage holds at most this: a tile's X rows and row data
+constexpr int kTileMaxRows = 1024;   // rows a tile holds at most
+constexpr int kRingBytes = 204800;   // the ring's stages, X and row data together
+constexpr int kMaxStages = 4;
+constexpr int kAuxBytesPerRow = 12;  // a row's label, offset and weight in a stage
+
+struct TilePlan {
+  int rows = 0;        // a tile: whole multiples of 32 (of kThreads past kThreads)
+  int stages = 0;      // the ring; the layout needs at least 2
+  int partitions = 0;  // threads that own one column each: partitions x d <= kThreads
+  int rotation = 0;    // thread t's dot starts at column (t * rotation) mod d
+  int stage_bytes = 0;
+  int smem = 0;        // dynamic shared memory of a block
+};
+
+// Rows per tile: as many as fit a stage of kStageBytes with their label,
+// offset and weight, rounded down to a multiple of 32, so every tile starts
+// 16-byte aligned whatever d is (32 rows of 2-byte elements are 64 bytes),
+// and the ring holds at least three stages. Rotation: a thread reads its
+// row at a stride of d elements, so at even d (float32) gcd(d, 32) threads
+// of a warp share a bank; starting thread t at column t * rotation makes
+// the words the warp reads at one step t * (d + rotation) (float32) or
+// t * (d + rotation) / 2 (bfloat16) apart, an odd number of words: 32
+// distinct banks, except near the wrap past column d - 1.
+inline TilePlan tile_plan(int d, int itemsize) {
+  TilePlan p;
+  if (d < 1 || d > kThreads) return p;
+  const int row_bytes = d * itemsize;
+  int rows = kStageBytes / (row_bytes + kAuxBytesPerRow) / 32 * 32;
+  if (rows > kTileMaxRows) rows = kTileMaxRows;
+  if (rows > kThreads) rows = rows / kThreads * kThreads;
+  if (rows < 32) return p;
+  p.rows = rows;
+  p.stage_bytes = rows * (row_bytes + kAuxBytesPerRow);
+  p.stages = kRingBytes / p.stage_bytes < kMaxStages ? kRingBytes / p.stage_bytes : kMaxStages;
+  p.partitions = kThreads / d;
+  p.rotation = itemsize == 4 ? (d % 2 == 0 ? 1 : 0) : ((2 - d) % 4 + 4) % 4;
+  // ring, mbarriers, the block's doubles, its slots, the tile's r, u
+  p.smem = p.stages * p.stage_bytes + 8 * p.stages + 8 * kThreads + 8 * (d + 2) + 4 * rows +
+           (row_bytes + 15) / 16 * 16;
+  return p;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_float(float v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// K1 on narrow rows. A block walks over tiles of R consecutive rows (tile t
+// = blockIdx.x + i * gridDim.x for its i-th), each brought into a ring
+// stage by bulk copies of its X rows, labels, offsets and weights (all
+// contiguous). One thread per row forms the margin from the staged row and
+// u in shared memory, evaluates the loss once and leaves r in shared
+// memory; then thread t = p * d + j sums column j over the tile's rows p,
+// p + P, ... (a warp reads consecutive words: no bank conflicts) in float32
+// and adds that to its compensated accumulator. A partial last tile comes
+// in by plain loads. part: (gridDim.x, d + 2) float64 as in vg_kernel.
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads, 1)
+    vg_tiles_kernel(const T* __restrict__ X, const float* __restrict__ y,
+                    const float* __restrict__ off, const float* __restrict__ wt,
+                    const float* __restrict__ u, const float* __restrict__ sc, long long n, int d,
+                    int R, int S, int P, int rotation, int stage_bytes,
+                    double* __restrict__ part) {
+  using namespace photon_ring;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(128) char smem[];
+  const int tid = threadIdx.x;
+  const uint32_t bar0 = smem_addr(smem + S * stage_bytes);
+  double* red = reinterpret_cast<double*>(smem + S * stage_bytes + 8 * S);
+  double* slots = red + kThreads;
+  float* rbuf = reinterpret_cast<float*>(slots + d + 2);
+  T* us = reinterpret_cast<T*>(rbuf + R);
+  const int xbytes = R * d * static_cast<int>(sizeof(T));  // X bytes of a whole tile
+  const long long num_tiles = (n + R - 1) / R;
+  const long long G = gridDim.x;
+  const long long count = blockIdx.x < num_tiles ? (num_tiles - 1 - blockIdx.x) / G + 1 : 0;
+
+  for (int j = tid; j < d; j += kThreads) us[j] = from_float<T>(u[j]);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bar0 + 8 * s, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const uint64_t policy = evict_first_policy();
+  // Thread 0 fills stage s with whole tile t; the partial last tile is not
+  // issued (the block has no tile after it, so its stage's phase never
+  // matters again).
+  auto issue = [&](int s, long long t) {
+    if ((t + 1) * R > n) return;
+    char* st = smem + s * stage_bytes;
+    const uint32_t bar = bar0 + 8 * s;
+    const uint32_t ab = 4u * R;
+    mbar_expect_tx(bar, xbytes + ab * (1 + (off != nullptr) + (wt != nullptr)));
+    bulk_load(st, X + t * R * d, xbytes, bar, policy);
+    bulk_load(st + xbytes, y + t * R, ab, bar, policy);
+    if (off != nullptr) bulk_load(st + xbytes + ab, off + t * R, ab, bar, policy);
+    if (wt != nullptr) bulk_load(st + xbytes + 2 * ab, wt + t * R, ab, bar, policy);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < S && i < count; ++i) issue(i, blockIdx.x + i * G);
+  }
+
+  const float c = sc[0];
+  float sums[2] = {0.f, 0.f}, comps[2] = {0.f, 0.f};  // value and r, compensated
+  const int owner_p = tid / d;  // this thread's partition; it owns column tid - owner_p * d
+  const bool owner = owner_p < P;
+  float acc = 0.f, cmp = 0.f;
+  const int c0 = (tid * rotation) % d;
+  const int split = d - c0;  // the dot's steps before it wraps to column 0
+
+  for (long long i = 0; i < count; ++i) {
+    const int s = static_cast<int>(i % S);
+    const long long t = blockIdx.x + i * G;
+    const int rows = static_cast<int>(n - t * R < R ? n - t * R : R);
+    char* st = smem + s * stage_bytes;
+    T* xs = reinterpret_cast<T*>(st);
+    float* ys = reinterpret_cast<float*>(st + xbytes);
+    float* os = ys + R;
+    float* ws = os + R;
+    if (rows == R) {
+      mbar_wait(bar0 + 8 * s, static_cast<uint32_t>((i / S) & 1));
+    } else {  // the partial last tile, by plain loads
+      const T* xg = X + t * R * d;
+      for (int e = tid; e < rows * d; e += kThreads) xs[e] = xg[e];
+      for (int q = tid; q < rows; q += kThreads) {
+        ys[q] = y[t * R + q];
+        if (off != nullptr) os[q] = off[t * R + q];
+        if (wt != nullptr) ws[q] = wt[t * R + q];
+      }
+      __syncthreads();
+    }
+
+    // margins and loss, one thread per row: columns c0, ..., d - 1, 0, ...,
+    // c0 - 1, each column's index computed from j alone and four partial
+    // sums, so no dependence runs from one column to the next but the sum
+    for (int q = tid; q < rows; q += kThreads) {
+      const T* xr = xs + q * d;
+      auto dot_term = [&](int j, float acc) {
+        const int col = j < split ? c0 + j : j - split;
+        return fmaf(to_float(xr[col]), to_float(us[col]), acc);
+      };
+      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+      int j = 0;
+      for (; j + 4 <= d; j += 4) {
+        p0 = dot_term(j, p0);
+        p1 = dot_term(j + 1, p1);
+        p2 = dot_term(j + 2, p2);
+        p3 = dot_term(j + 3, p3);
+      }
+      for (; j < d; ++j) p0 = dot_term(j, p0);
+      float m = ((p0 + p1) + (p2 + p3)) - c;
+      if (off != nullptr) m += os[q];
+      const float yi = ys[q];
+      float lv = Loss<L>::value(m, yi);
+      float r = Loss<L>::d1(m, yi);
+      if (wt != nullptr) {
+        const float w = ws[q];
+        lv = w != 0.f ? w * lv : 0.f;
+        r = w != 0.f ? w * r : 0.f;
+      }
+      kahan_fma(sums[0], comps[0], lv, 1.f);
+      kahan_fma(sums[1], comps[1], r, 1.f);
+      rbuf[q] = kBf16 ? round_bf16(r) : r;
+    }
+    __syncthreads();
+
+    // X^T r: column tid - owner_p * d over rows owner_p, owner_p + P, ...
+    // bfloat16 in two partial sums (rows owner_p + 2kP and owner_p +
+    // (2k + 1)P), float32 in one: each the faster on the card
+    if (owner) {
+      const T* xp = xs + tid;  // row owner_p's element of this column
+      const int step = P * d;
+      int q = owner_p;
+      float a0 = 0.f, a1 = 0.f;
+      if constexpr (kBf16) {
+#pragma unroll 2
+        for (; q + P < rows; q += 2 * P, xp += 2 * step) {
+          a0 = fmaf(rbuf[q], to_float(xp[0]), a0);
+          a1 = fmaf(rbuf[q + P], to_float(xp[step]), a1);
+        }
+      }
+#pragma unroll 4
+      for (; q < rows; q += P, xp += step) a0 = fmaf(rbuf[q], to_float(*xp), a0);
+      kahan_fma(acc, cmp, a0 + a1, 1.f);
+    }
+    __syncthreads();  // stage s and r are free again
+    if (tid == 0 && i + S < count) issue(s, t + S * G);
+  }
+
+  // The block's sums into its float64 slots, in a fixed order: each column
+  // over its partitions in order, each scalar by a fixed tree.
+  if (owner) red[tid] = static_cast<double>(acc) - cmp;
+  __syncthreads();
+  for (int j = tid; j < d; j += kThreads) {
+    double v = 0.0;
+    for (int p = 0; p < P; ++p) v += red[p * d + j];
+    slots[j] = v;
+  }
+  for (int k = 0; k < 2; ++k) {
+    __syncthreads();
+    red[tid] = static_cast<double>(sums[k]) - comps[k];
+    __syncthreads();
+    for (int o = kThreads / 2; o > 0; o >>= 1) {
+      if (tid < o) red[tid] += red[tid + o];
+      __syncthreads();
+    }
+    if (tid == 0) slots[d + k] = red[0];
+  }
+  __syncthreads();
+  write_block_partial(slots, d + 2, part);
+}
+
 // Rows per warp at least this many before another block is added, so small
 // problems run on few blocks.
 constexpr long long kMinRowsPerWarp = 16;
+constexpr long long kMinRowsPerBlock = kWarps * kMinRowsPerWarp;
 
+// The blocks that fill the card (as resident blocks allow), at most `need`
+// and `max_grid`.
 template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, size_t smem, long long n, int max_grid, int* grid) {
+cudaError_t grid_for(Kernel kernel, size_t smem, long long need, int max_grid, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return e;
   long long g = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const long long need = (n + kWarps * kMinRowsPerWarp - 1) / (kWarps * kMinRowsPerWarp);
   if (need < g) g = need;
   if (max_grid < g) g = max_grid;
   *grid = static_cast<int>(g < 1 ? 1 : g);
@@ -437,9 +704,42 @@ struct VgOp {
     auto kernel = vg_kernel<T, L, VEC, NV>;
     const size_t smem = sizeof(double) * (d + 2);
     int grid = 0;
-    cudaError_t e = grid_for(kernel, smem, n, max_grid, &grid);
+    const long long need = (n + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
+    cudaError_t e = grid_for(kernel, smem, need, max_grid, &grid);
     if (e != cudaSuccess) return e;
     kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(X), y, off, wt, u, sc, n, d, part);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    reduce_partials<<<d + 2, kReduceThreads, 0, stream>>>(part, grid, d + 2, out);
+    return cudaGetLastError();
+  }
+};
+
+template <typename T, int L>
+struct VgTilesOp {
+  static cudaError_t run(const void* X, const float* y, const float* off, const float* wt,
+                         const float* u, const float* sc, long long n, int d, int max_grid,
+                         double* part, float* out, cudaStream_t stream) {
+    const TilePlan p = tile_plan(d, sizeof(T));
+    auto kernel = vg_tiles_kernel<T, L>;
+    // once per instantiation: the most dynamic shared memory the card lets
+    // a block have (setting it on every call would cost host time per call)
+    static const cudaError_t attr = [kernel] {
+      int dev = 0, most = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      return err;
+    }();
+    cudaError_t e = attr;
+    int grid = 0;
+    if (e == cudaSuccess) e = grid_for(kernel, p.smem, (n + p.rows - 1) / p.rows, max_grid, &grid);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, p.smem, stream>>>(static_cast<const T*>(X), y, off, wt, u, sc, n, d,
+                                               p.rows, p.stages, p.partitions, p.rotation,
+                                               p.stage_bytes, part);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     reduce_partials<<<d + 2, kReduceThreads, 0, stream>>>(part, grid, d + 2, out);
@@ -455,7 +755,8 @@ struct HvpOp {
     auto kernel = hvp_kernel<T, L, VEC, NV>;
     const size_t smem = sizeof(double) * (d + 1);
     int grid = 0;
-    cudaError_t e = grid_for(kernel, smem, n, max_grid, &grid);
+    const long long need = (n + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
+    cudaError_t e = grid_for(kernel, smem, need, max_grid, &grid);
     if (e != cudaSuccess) return e;
     kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(X), y, off, wt, u, v, sc, n, d,
                                              part);
@@ -513,17 +814,69 @@ cudaError_t dispatch(int x_bf16, int loss, const void* X, int d, A... args) {
   return by_loss<Op, float>(loss, X, d, X, args...);
 }
 
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+// K1's layout: `layout` as asked, or by the rule (kLayoutAuto): the tiles
+// layout where its bulk copies can run (X, labels, offsets and weights
+// 16-byte aligned, two stages fit) and d is at most the storage type's
+// kTilesMaxFeatures*, else the rows layout (vg_kernel).
+template <typename T, int L>
+cudaError_t vg_launch(int layout, const void* X, const float* y, const float* off,
+                      const float* wt, const float* u, const float* sc, long long n, int d,
+                      int max_grid, double* part, float* out, cudaStream_t stream) {
+  constexpr int kTilesMax =
+      std::is_same<T, float>::value ? kTilesMaxFeaturesF32 : kTilesMaxFeaturesBf16;
+  const bool tiles_ok = tile_plan(d, sizeof(T)).stages >= 2 && aligned16(X) && aligned16(y) &&
+                        (off == nullptr || aligned16(off)) && (wt == nullptr || aligned16(wt));
+  if (layout == kLayoutAuto) layout = tiles_ok && d <= kTilesMax ? kLayoutTiles : kLayoutRows;
+  if (layout == kLayoutTiles) {
+    if (!tiles_ok) return cudaErrorInvalidValue;
+    return VgTilesOp<T, L>::run(X, y, off, wt, u, sc, n, d, max_grid, part, out, stream);
+  }
+  if (layout != kLayoutRows) return cudaErrorInvalidValue;
+  return by_layout<VgOp, T, L>(X, d, X, y, off, wt, u, sc, n, d, max_grid, part, out, stream);
+}
+
+template <typename T, typename... A>
+cudaError_t vg_by_loss(int loss, A... args) {
+  switch (loss) {
+    case kLogistic: return vg_launch<T, kLogistic>(args...);
+    case kSquared: return vg_launch<T, kSquared>(args...);
+    case kPoisson: return vg_launch<T, kPoisson>(args...);
+    case kSmoothedHinge: return vg_launch<T, kSmoothedHinge>(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns the cudaError_t of the launches (0 on success). `part` holds at
-// least max_grid * (d + 2) floats, `out` d + 2: [X^T r | value | r-sum].
+// K1 in a given layout (VgLayout: -1 by the rule, 0 rows, 1 tiles; a layout
+// that cannot run on these pointers and shapes is refused). Returns the
+// cudaError_t of the launches (0 on success). `part` holds at least
+// max_grid * (d + 2) doubles, `out` d + 2 floats: [X^T r | value | r-sum].
+int photon_fused_vg_layout(const void* X, int x_bf16, const float* y, const float* off,
+                           const float* wt, const float* u, const float* sc, long long n, int d,
+                           int loss, int max_grid, double* part, float* out, void* stream,
+                           int layout) {
+  if (d < 1 || d > kMaxFeatures) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return static_cast<int>(vg_by_loss<__nv_bfloat16>(loss, layout, X, y, off, wt, u, sc, n, d,
+                                                      max_grid, part, out, st));
+  return static_cast<int>(
+      vg_by_loss<float>(loss, layout, X, y, off, wt, u, sc, n, d, max_grid, part, out, st));
+}
+
+// K1 in the layout the rule picks.
 int photon_fused_vg(const void* X, int x_bf16, const float* y, const float* off,
                     const float* wt, const float* u, const float* sc, long long n, int d,
                     int loss, int max_grid, double* part, float* out, void* stream) {
-  return static_cast<int>(dispatch<VgOp>(x_bf16, loss, X, d, y, off, wt, u, sc, n, d, max_grid,
-                                         part, out, static_cast<cudaStream_t>(stream)));
+  return photon_fused_vg_layout(X, x_bf16, y, off, wt, u, sc, n, d, loss, max_grid, part, out,
+                                stream, kLayoutAuto);
 }
 
 // `part` holds at least max_grid * (d + 1) floats, `out` d + 1: [X^T q | q-sum].

@@ -91,7 +91,17 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "ring.cuh"
+
 namespace {
+
+using photon_ring::bulk_load;
+using photon_ring::evict_first_policy;
+using photon_ring::mbar_expect_tx;
+using photon_ring::mbar_fence_init;
+using photon_ring::mbar_init;
+using photon_ring::mbar_wait;
+using photon_ring::smem_addr;
 
 constexpr int kThreads = 64;  // a block
 constexpr int kWarps = kThreads / 32;
@@ -164,53 +174,6 @@ struct Stage {
 template <int S>
 constexpr int smem_bytes() {
   return kStages * (Stage<S>::kBytes + 8) + kWarps * 8 + kWarps * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One-dimensional TMA copy of `bytes` (a multiple of 16, both addresses
-// 16-byte aligned) from global to shared memory, completing on `bar`. The
-// streams are read once: they go into L2 as first to evict, so they do
-// not push the gathered source out of it.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar,
-                                          uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
 }
 
 // The write indices a tile may touch: its offsets slice covers [wf, wn].
@@ -441,7 +404,7 @@ __global__ void __launch_bounds__(kThreads)
   int* warp_flag = reinterpret_cast<int*>(warp_val + kWarps);
   if (threadIdx.x == 0) {
     for (int q = 0; q < kStages; ++q) mbar_init(bar0 + 8 * q, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 

@@ -4,7 +4,8 @@ Every source under ``csrc/`` has a plain C interface. At first use each is
 compiled with ``nvcc`` for ``sm_90a`` into an object, all at once in
 parallel, and the objects are linked into one shared library under
 ``photon_ml_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
-of all the sources and flags so editing any of them rebuilds it, and
+of all the sources, the headers they include (``csrc/*.cuh``) and the
+flags, so editing any of them rebuilds it, and
 loaded with ``ctypes``. Nothing here runs at import: the CPU test suite
 imports every module on a machine with no ``nvcc``.
 """
@@ -21,6 +22,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,7 +45,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libphoton_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -106,6 +108,9 @@ def load() -> ctypes.CDLL:
         # X, x_bf16, y, off, wt, u, sc, n, d, loss, max_grid, part, out, stream
         lib.photon_fused_vg.argtypes = [p, i, p, p, p, p, p, ll, i, i, i, p, p, p]
         lib.photon_fused_vg.restype = i
+        # the same, then the layout (-1 by the rule, 0 rows, 1 tiles)
+        lib.photon_fused_vg_layout.argtypes = [p, i, p, p, p, p, p, ll, i, i, i, p, p, p, i]
+        lib.photon_fused_vg_layout.restype = i
         # X, x_bf16, y, off, wt, u, v, sc, n, d, loss, max_grid, part, out, stream
         lib.photon_fused_hvp.argtypes = [p, i, p, p, p, p, p, p, ll, i, i, i, p, p, p]
         lib.photon_fused_hvp.restype = i

@@ -9,9 +9,20 @@ says how they work.
 Bound on an H100 SXM: each reads X once and everything else is O(n + d),
 so each is bound by the bytes of X over 3.35 TB/s: 0.32 ms for the
 headline X (n = 2^20, d = 512, bfloat16: 1 GiB) and 0.32 ms for config B's
-X (n = 2^20, d = 256, float32: 1 GiB). The design reads X exactly once per
-evaluation and keeps margins and r / q in registers, never in device
-memory.
+X (n = 2^20, d = 256, float32: 1 GiB), 1.6 ms for GAME's fixed effect at
+MovieLens-20M depth (20,000,263 x 65, float32). The design reads X exactly
+once per evaluation and keeps margins and r / q on the chip, never in
+device memory.
+
+K1 has two layouts, picked by shape and alignment alone (``vg_plan``
+mirrors the kernel's rule): "rows", a warp per row with the row in
+registers, which runs the headline and config B near their bound and K2
+everywhere; and "tiles", for rows of at most ``TILES_MAX_FEATURES``
+columns (GAME's 65), where a warp per row would spend its issue slots on
+empty lanes and a 32-lane butterfly per row. The tiles layout stages row
+tiles in shared memory by bulk asynchronous copies on a ring, gives each
+row one thread for its margin and loss and each column a fixed set of
+threads for Xᵀr; ``tile_plan`` gives its geometry.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version
 (``fused_value_grad_reference`` / ``fused_hvp_reference``: the same row
@@ -27,6 +38,8 @@ integers; ``reset_launch_counts`` zeroes them).
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +55,77 @@ MAX_FEATURES = 1024
 _MAX_BLOCKS_PER_SM = 8
 
 launch_counts: dict[str, int] = {"fused_value_grad": 0, "fused_hvp": 0}
+
+# K1's two layouts (``VgLayout`` in csrc/fused_glm.cu): "rows", a warp per
+# row (``vg_kernel``), and "tiles", row tiles staged in shared memory with
+# one thread per row (``vg_tiles_kernel``). The rule takes "tiles" where
+# ``tile_plan`` gives a ring of two stages or more, X, labels, offsets and
+# weights are 16-byte aligned, and d is at most TILES_MAX_FEATURES for the
+# storage type (``kTilesMaxFeatures*``); "rows" everywhere else.
+LAYOUTS = {"rows": 0, "tiles": 1}
+TILES_MAX_FEATURES = {torch.float32: 124, torch.bfloat16: 128}
+# The tiles layout's geometry, as csrc/fused_glm.cu's constants of the same
+# names: a block of _THREADS threads; a stage (a tile's X rows and each
+# row's label, offset and weight) holds at most _STAGE_BYTES and
+# _TILE_MAX_ROWS rows; the ring at most _MAX_STAGES stages in _RING_BYTES.
+_THREADS = 256
+_STAGE_BYTES = 65536
+_TILE_MAX_ROWS = 1024
+_RING_BYTES = 204800
+_MAX_STAGES = 4
+_AUX_BYTES_PER_ROW = 12
+
+
+class VgPlan(NamedTuple):
+    """K1's layout for one shape, and for "tiles" the geometry the kernel
+    uses (``tile_plan`` in csrc/fused_glm.cu): rows per tile, ring stages,
+    column partitions (each of the partitions x d owning threads sums one
+    column over every partitions-th row of a tile), the dot's column
+    rotation per thread, bytes per stage and the block's shared memory."""
+
+    layout: str
+    rows: int = 0
+    stages: int = 0
+    partitions: int = 0
+    rotation: int = 0
+    stage_bytes: int = 0
+    smem_bytes: int = 0
+
+
+def tile_plan(d: int, dtype) -> VgPlan | None:
+    """The tiles layout's geometry at width d, or None where it has none
+    (d > 256, or fewer than two stages fit)."""
+    if not 1 <= d <= _THREADS:
+        return None
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    row_bytes = d * itemsize
+    rows = min(_STAGE_BYTES // (row_bytes + _AUX_BYTES_PER_ROW) // 32 * 32, _TILE_MAX_ROWS)
+    if rows > _THREADS:
+        rows = rows // _THREADS * _THREADS
+    if rows < 32:
+        return None
+    stage = rows * (row_bytes + _AUX_BYTES_PER_ROW)
+    stages = min(_RING_BYTES // stage, _MAX_STAGES)
+    if stages < 2:
+        return None
+    rotation = (1 if d % 2 == 0 else 0) if itemsize == 4 else (2 - d) % 4
+    smem = (stages * stage + 8 * stages + 8 * _THREADS + 8 * (d + 2) + 4 * rows
+            + math.ceil(row_bytes / 16) * 16)
+    return VgPlan("tiles", rows, stages, _THREADS // d, rotation, stage, smem)
+
+
+def vg_plan(d: int, dtype, aligned: bool = True) -> VgPlan:
+    """The layout K1 takes at width d for this storage type, by the rule
+    above; ``aligned``: X, labels, offsets and weights 16-byte aligned."""
+    plan = tile_plan(d, dtype)
+    if plan is not None and aligned and d <= TILES_MAX_FEATURES[dtype]:
+        return plan
+    return VgPlan("rows")
+
+
+def inputs_aligned(*tensors: Tensor | None) -> bool:
+    """Every tensor given starts on a 16-byte boundary (None is skipped)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def reset_launch_counts() -> None:
@@ -153,8 +237,20 @@ def _as_f32(t: Tensor | None) -> Tensor | None:
 def fused_value_grad(X, labels, offsets, weights, u, c, *, loss: PointwiseLoss):
     """One X-read (Σᵢ wᵢ·l(mᵢ, yᵢ), Xᵀr, Σᵢ rᵢ) with r = w·l'(m, y) and
     m = X@u + offsets − c. ``offsets=None`` means 0 and ``weights=None``
-    means 1 (the kernel then reads neither array). Returns float32
-    (value, grad, r_sum)."""
+    means 1 (the kernel then reads neither array). K1 takes the layout
+    ``vg_plan`` names. Returns float32 (value, grad, r_sum)."""
+    return _value_grad(X, labels, offsets, weights, u, c, loss, None)
+
+
+def fused_value_grad_in_layout(X, labels, offsets, weights, u, c, *, loss: PointwiseLoss,
+                               layout: str):
+    """``fused_value_grad`` with K1 in the layout named ("rows" or
+    "tiles"), whatever the rule would pick: for comparing the two layouts.
+    A layout that cannot run on these inputs raises."""
+    return _value_grad(X, labels, offsets, weights, u, c, loss, LAYOUTS[layout])
+
+
+def _value_grad(X, labels, offsets, weights, u, c, loss, layout: int | None):
     if X.device.type == "cpu":
         return fused_value_grad_reference(X, labels, offsets, weights, u, c, loss=loss)
     if X.device.type != "cuda":
@@ -169,11 +265,15 @@ def fused_value_grad(X, labels, offsets, weights, u, c, *, loss: PointwiseLoss):
     max_grid = _max_grid(X.device)
     part = torch.empty((max_grid, d + 2), dtype=torch.float64, device=X.device)
     out = torch.empty(d + 2, dtype=torch.float32, device=X.device)
-    rc = lib.photon_fused_vg(
+    args = (
         _ptr(X), int(X.dtype == torch.bfloat16), _ptr(labels), _ptr(offsets),
         _ptr(weights), _ptr(u), _ptr(sc), n, d, loss.kernel_id, max_grid,
         _ptr(part), _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
     )
+    if layout is None:  # the layout the rule picks
+        rc = lib.photon_fused_vg(*args)
+    else:
+        rc = lib.photon_fused_vg_layout(*args, layout)
     _raise_on(rc, "fused_value_grad")
     launch_counts["fused_value_grad"] += 1
     return out[d], out[:d], out[d + 1]

@@ -1,7 +1,8 @@
 """K1 / K2 / K3 on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, at small shapes: K1 / K2 over every loss,
 storage type, aux-input combination and load layout (16-byte rows and
-unaligned rows); K3 (the sparse kernel) over every storage rung and all
+unaligned rows), K1 in both of its layouts (a warp per row, and row tiles
+staged in shared memory) over many tiles and a partial last one; K3 (the sparse kernel) over every storage rung and all
 three directions. Skipped without a card; run on one with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -58,7 +59,7 @@ def _inputs(dev, n, d, dtype, loss, aux, seed=0):
 
 @pytest.mark.parametrize("aux", [False, True], ids=["no_aux", "aux"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [1, 37, 124, 128, 256, 512, 1000, 1024])
+@pytest.mark.parametrize("d", [1, 37, 64, 65, 124, 128, 256, 512, 1000, 1024])
 @pytest.mark.parametrize("loss", list(LOSSES))
 def test_kernels_match_plain_versions(dev, loss, d, dtype, aux):
     n = 2053
@@ -79,12 +80,58 @@ def test_kernels_match_plain_versions(dev, loss, d, dtype, aux):
     torch.testing.assert_close(got_h[1], ref_h[1], rtol=rg, atol=rg)
 
 
-def test_results_repeat_bitwise(dev):
-    X, y, off, wt, u, v = _inputs(dev, 100_003, 256, torch.float32, "logistic", True)
+@pytest.mark.parametrize("d", [256, 65])
+def test_results_repeat_bitwise(dev, d):
+    X, y, off, wt, u, v = _inputs(dev, 100_003, d, torch.float32, "logistic", True)
     a = fused.fused_value_grad(X, y, off, wt, u, 0.1, loss=LOSSES["logistic"])
     b = fused.fused_value_grad(X, y, off, wt, u, 0.1, loss=LOSSES["logistic"])
     for x, z in zip(a, b):
         assert torch.equal(x, z)
+
+
+@pytest.mark.parametrize("layout", list(fused.LAYOUTS))
+@pytest.mark.parametrize("aux", [False, True], ids=["no_aux", "aux"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [1, 8, 64, 65, 124, 128, 256])
+def test_k1_layouts_over_many_tiles(dev, d, dtype, aux, layout):
+    """Both K1 layouts at n = 100,003: hundreds of tiles, the last one
+    partial, every width the tiles layout takes."""
+    X, y, off, wt, u, _ = _inputs(dev, 100_003, d, dtype, "logistic", aux)
+    rv, rg = TOL[dtype]
+    loss = LOSSES["logistic"]
+    fused.reset_launch_counts()
+    got = fused.fused_value_grad_in_layout(X, y, off, wt, u, 0.2, loss=loss, layout=layout)
+    ref = fused.fused_value_grad_reference(X, y, off, wt, u, 0.2, loss=loss)
+    torch.cuda.synchronize()
+    assert fused.launch_counts["fused_value_grad"] == 1
+    torch.testing.assert_close(got[0], ref[0], rtol=rv, atol=0.0)
+    torch.testing.assert_close(got[1], ref[1], rtol=rg, atol=rg)
+    torch.testing.assert_close(got[2], ref[2], rtol=rg, atol=rg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [65, 128, 256, 512])
+def test_k1_takes_the_layout_vg_plan_names(dev, d, dtype):
+    """The kernel's rule and ``vg_plan`` agree: the rule's result equals,
+    bit for bit, the result of the layout ``vg_plan`` names."""
+    X, y, off, wt, u, _ = _inputs(dev, 5000, d, dtype, "poisson", True)
+    layout = fused.vg_plan(d, dtype, fused.inputs_aligned(X, y, off, wt)).layout
+    a = fused.fused_value_grad(X, y, off, wt, u, 0.0, loss=LOSSES["poisson"])
+    b = fused.fused_value_grad_in_layout(X, y, off, wt, u, 0.0, loss=LOSSES["poisson"], layout=layout)
+    for x, z in zip(a, b):
+        assert torch.equal(x, z)
+
+
+def test_unaligned_labels_refuse_the_tiles_layout(dev):
+    X, y, off, _, u, _ = _inputs(dev, 3000, 65, torch.float32, "squared", True)
+    yv = torch.cat([torch.zeros(1, device=dev), y])[1:]  # 4 bytes past a 16-byte boundary
+    assert fused.vg_plan(65, torch.float32, fused.inputs_aligned(X, yv, off)).layout == "rows"
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        fused.fused_value_grad_in_layout(X, yv, off, None, u, 0.0, loss=LOSSES["squared"],
+                                         layout="tiles")
+    got = fused.fused_value_grad(X, yv, off, None, u, 0.0, loss=LOSSES["squared"])
+    ref = fused.fused_value_grad_reference(X, yv, off, None, u, 0.0, loss=LOSSES["squared"])
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-4)
 
 
 def test_unaligned_view_takes_the_scalar_layout(dev):

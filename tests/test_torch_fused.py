@@ -6,6 +6,7 @@ kernels themselves run only on the card (``chip_smoke.py`` and
 
 from __future__ import annotations
 
+import math
 import os
 import re
 
@@ -94,11 +95,13 @@ def test_plain_kernels_match_pallas(loss, n, with_aux, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("loss", ["logistic", "poisson"])
-def test_fused_objective_at_d124_matches_unfused_reference(loss, dtype):
-    """d = 124 (a9a's 123 features + intercept) is off the Pallas gate
-    (d % 128 != 0), so the JAX package answers through its unfused
-    objective; the port's fused objective must agree with it."""
-    n, d = 300, 124
+@pytest.mark.parametrize("d", [124, 65])
+def test_fused_objective_at_d124_matches_unfused_reference(d, loss, dtype):
+    """d = 124 (a9a's 123 features + intercept) and d = 65 (GAME's fixed
+    effect: 64 features + intercept) are off the Pallas gate (d % 128 !=
+    0), so the JAX package answers through its unfused objective; the
+    port's fused objective must agree with it."""
+    n = 300
     X, y, off, wt, u, v, _, _ = _case(11, n, d, loss, with_aux=True)
     assert tfused.supports_fused(n, d, torch.float32) and not jfused.supports_fused(n, d, jnp.float32)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -206,6 +209,134 @@ def test_constant_hints_follow_the_data():
     assert (obj.offsets_zero, obj.weights_one) == (False, True)
 
 
+# ---------------------------------------------------------------------------
+# K1's tiles layout: the plan the kernel and ops/fused.py share
+# ---------------------------------------------------------------------------
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_tile_plan_keeps_tiles_aligned_and_in_shared_memory(dtype):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for d in range(1, 257):
+        plan = tfused.tile_plan(d, dtype)
+        assert plan is not None and plan.layout == "tiles"
+        assert plan.rows % 32 == 0 and 32 <= plan.rows <= 1024
+        # every tile's X rows, labels, offsets and weights start 16-byte aligned
+        assert plan.rows * d * itemsize % 16 == 0 and plan.rows * 4 % 16 == 0
+        assert plan.stage_bytes == plan.rows * (d * itemsize + 12) <= 65536
+        assert 3 <= plan.stages <= 4 and plan.stages * plan.stage_bytes <= 204800
+        assert plan.smem_bytes <= 232_448  # a block's shared memory on an H100
+    assert tfused.tile_plan(257, dtype) is None
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_tile_plan_owns_each_column_once_per_partition(dtype):
+    for d in (1, 2, 7, 64, 65, 124, 128, 129, 200, 256):
+        plan = tfused.tile_plan(d, dtype)
+        assert plan.partitions * d <= 256 < (plan.partitions + 1) * d
+        owners = [(t // d, t % d) for t in range(plan.partitions * d)]
+        for p in range(plan.partitions):
+            assert sorted(j for q, j in owners if q == p) == list(range(d))
+
+
+def _worst_bank_conflict(d: int, itemsize: int, rotation: int) -> list[int]:
+    """For each step j of the margin dot: the most distinct 4-byte words a
+    warp's 32 threads (rows t = 0..31 of a tile) read from one bank."""
+    worst = []
+    for j in range(d):
+        words_by_bank: dict[int, set] = {}
+        for t in range(32):
+            col = (t * rotation + j) % d
+            word = (t * d + col) * itemsize // 4
+            words_by_bank.setdefault(word % 32, set()).add(word)
+        worst.append(max(len(w) for w in words_by_bank.values()))
+    return worst
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 65, 124, 128])
+def test_tile_plan_rotation_avoids_bank_conflicts(d, dtype):
+    plan = tfused.tile_plan(d, dtype)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    mean = {r: sum(_worst_bank_conflict(d, itemsize, r)) / d for r in range(4)}
+    assert max(_worst_bank_conflict(d, itemsize, plan.rotation)) <= 2
+    assert mean[plan.rotation] == min(mean.values()) <= 1.5
+    if itemsize == 4:  # without the rotation gcd(d, 32) rows share each bank
+        assert max(_worst_bank_conflict(d, itemsize, 0)) == math.gcd(d, 32)
+
+
+def test_vg_plan_keeps_the_glm_shapes_on_the_rows_layout():
+    assert tfused.vg_plan(512, torch.bfloat16).layout == "rows"  # the headline
+    assert tfused.vg_plan(256, torch.float32).layout == "rows"  # config B
+    assert tfused.vg_plan(65, torch.float32).layout == "tiles"  # GAME's fixed effect
+    assert tfused.vg_plan(65, torch.float32, aligned=False).layout == "rows"
+    for dtype, widest in tfused.TILES_MAX_FEATURES.items():
+        assert tfused.vg_plan(widest, dtype).layout == "tiles"
+        assert tfused.vg_plan(widest + 1, dtype).layout == "rows"
+
+
+def test_inputs_aligned():
+    x = torch.zeros(64)
+    assert tfused.inputs_aligned(x, None, x[4:])
+    assert not tfused.inputs_aligned(x, x[1:])
+
+
+def _tiles_model(X, y, off, wt, u, c, loss, plan, grid):
+    """The tiles kernel's schedule in float64: block b takes tiles b,
+    b + grid, ...; thread t dots row t of a tile from column
+    (t * rotation) mod d around; owner t = p * d + j sums column j over
+    the tile's rows p, p + P, ...; the blocks' sums are added at the end.
+    Every row and column must be counted exactly once."""
+    n, d = X.shape
+    R, P = plan.rows, plan.partitions
+    xd, ud = X.double(), u.to(X.dtype).double()
+    value = r_sum = 0.0
+    grad = torch.zeros(d, dtype=torch.float64)
+    num_tiles = -(-n // R)
+    for b in range(grid):
+        for t in range(b, num_tiles, grid):
+            rows = min(R, n - t * R)
+            tile = xd[t * R: t * R + rows]
+            m = torch.zeros(rows, dtype=torch.float64)
+            for q in range(rows):
+                cols = [(q % 256 * plan.rotation + j) % d for j in range(d)]
+                assert sorted(cols) == list(range(d))
+                m[q] = float((tile[q, cols] * ud[cols]).sum())
+            m = m.float() - c
+            if off is not None:
+                m = m + off[t * R: t * R + rows]
+            lv, r = loss.value(m, y[t * R: t * R + rows]), loss.d1(m, y[t * R: t * R + rows])
+            if wt is not None:
+                w = wt[t * R: t * R + rows]
+                lv, r = torch.where(w != 0, w * lv, 0.0), torch.where(w != 0, w * r, 0.0)
+            value += float(lv.double().sum())
+            r_sum += float(r.double().sum())
+            rb = r.to(X.dtype).double()
+            for owner in range(P * d):
+                p, j = divmod(owner, d)
+                grad[j] += float((rb[p::P] * tile[p::P, j]).sum())
+    return torch.tensor(value).float(), grad.float(), torch.tensor(r_sum).float()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [5, 64, 65])
+def test_tiles_schedule_model_matches_the_plain_version(d, dtype):
+    """The schedule of ``vg_tiles_kernel`` with the plan ``tile_plan``
+    gives, over three blocks and a partial last tile, the plain version's
+    sums: each row's margin and each column's sum take every element once."""
+    tdt = getattr(torch, dtype)
+    plan = tfused.tile_plan(d, tdt)
+    n = 2 * plan.rows + 37
+    X, y, off, wt, u, *_ = _case(d, n, d, "logistic", with_aux=True)
+    args = (_torch(X, tdt), _torch(y), _torch(off), _torch(wt), _torch(u), 0.3)
+    got = _tiles_model(*args, TLOSSES["logistic"], plan, grid=3)
+    ref = tfused.fused_value_grad_reference(*args, loss=TLOSSES["logistic"])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=1e-6)
+
+
 def test_kernel_source_agrees_with_the_wrappers():
     from photon_ml_tpu_torch.ops import _cuda
 
@@ -218,3 +349,29 @@ def test_kernel_source_agrees_with_the_wrappers():
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
     assert "atomicAdd" not in src  # deterministic per-block partials only
     assert os.path.basename(_cuda.BUILD_DIR) == "_build"
+    # K1's layouts and the tiles layout's geometry
+    for name, layout_id in (("kLayoutRows", 0), ("kLayoutTiles", 1)):
+        assert tfused.LAYOUTS[name.removeprefix("kLayout").lower()] == layout_id
+        assert re.search(rf"\b{name} = {layout_id}\b", src)
+    assert re.search(r"\bkLayoutAuto = -1\b", src)
+    constants = {
+        "kTilesMaxFeaturesF32": tfused.TILES_MAX_FEATURES[torch.float32],
+        "kTilesMaxFeaturesBf16": tfused.TILES_MAX_FEATURES[torch.bfloat16],
+        "kStageBytes": tfused._STAGE_BYTES, "kTileMaxRows": tfused._TILE_MAX_ROWS,
+        "kRingBytes": tfused._RING_BYTES, "kMaxStages": tfused._MAX_STAGES,
+        "kAuxBytesPerRow": tfused._AUX_BYTES_PER_ROW, "kWarps": tfused._THREADS // 32,
+    }
+    for name, value in constants.items():
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert '#include "ring.cuh"' in src
+
+
+def test_kernel_headers_feed_the_library_name(monkeypatch, tmp_path):
+    from photon_ml_tpu_torch.ops import _cuda
+
+    assert [h.name for h in _cuda.HEADERS] == ["ring.cuh"]
+    before = _cuda.library_path()
+    edited = tmp_path / "ring.cuh"
+    edited.write_text(_cuda.HEADERS[0].read_text() + "\n// edited\n")
+    monkeypatch.setattr(_cuda, "HEADERS", (edited,))
+    assert _cuda.library_path() != before
