@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's dense and high-dimensional sparse GLM training
-paths and its GAME mixed-effect training path on one CUDA card.
+paths and its GAME mixed-effect training path (random effects on damped
+Newton and on the default lane solvers) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -77,12 +78,37 @@ Run from the root of a checkout. It builds the CUDA kernels from
 13. agreement_e: config E at bench.py's own shape (n = 2^18, 20,000 users
    and 4,000 items), 4 outer iterations on K1 and again with the kernels
    vetoed (which must launch none): |dAUC| <= 0.005 and relative d(training
-   log-loss) <= 1e-3.
+   log-loss) <= 1e-3;
+14. main_e_lbfgs: main_e's batch and schedule with the random effects on
+   lane-batched L-BFGS (the default solver type, at the fixed effect's
+   20 iterations and tolerance 1e-7, L2 1): wall per outer iteration and
+   per visit, each visit's read-backs (host reads of a CUDA tensor's
+   value), per bucket the lanes, capacity, lane iterations and line-search
+   steps, the peak memory, the profile of its second outer iteration (as
+   main_e's); train AUC >= 0.95 x the generating model's,
+   and against main_e's Newton fit |dAUC| <= 0.005 and relative d(training
+   log-loss) <= 1e-3;
+15. agreement_e_solvers: config E at bench.py's shape, 4 outer iterations
+   with the random effects on (a) L-BFGS, (b) TRON, (c) OWL-QN through
+   ELASTIC_NET (alpha 0.5, weight 1) and (d) L-BFGS over the per-user
+   shard handed over as SparseFeatures (8 nonzeros a row, the same
+   values). (a) and (b) against agreement_e's Newton fit: |dAUC| <= 0.005,
+   relative d log-loss <= 1e-3; (c) train AUC >= 0.95 x the generating
+   model's, its exact zeros reported; (d) against (a): |dAUC| and relative
+   d log-loss <= 1e-4 and coefficients within atol 2e-3 / rtol 1e-2 (a
+   lane near a float32 stopping threshold meets it one iteration apart
+   under another summation order: about 5e-4); for 16 entities per effect
+   in each variant, the last visit's lane solution against the port's
+   single-GLM solver on that entity's rows with the visit's residual
+   offsets and warm start, atol 2e-3 / rtol 1e-2; in (a) the validation
+   metrics MULTI_AUC(userId), PRECISION_AT_K(5,userId) and BUCKETED_AUC,
+   computed on the card, against the numpy host versions (|d| <= 1e-6)
+   and the exact AUC (|d| <= 1e-4).
 
 Every check that fails raises, and the script exits non-zero with no
 result. Its last lines are the kernel table as one JSON object (K1's
-``launches`` adds up its launches on the main paths A, the sweep, B, D and
-E, which ``launches_by_path`` lists one by one; ``at_main_d_shape`` and
+``launches`` adds up its launches on the main paths A, the sweep, B, D, E
+and E on L-BFGS, which ``launches_by_path`` lists one by one; ``at_main_d_shape`` and
 ``at_main_e_shape`` give its times at GAME's widths), the line
 ``nvidia-smi --query-gpu=name,power.limit`` prints, and
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
@@ -96,6 +122,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 
 import numpy as np
@@ -111,12 +138,21 @@ from photon_ml_tpu_torch.config import (
 )
 from photon_ml_tpu_torch.data.synthetic import synthetic_game_data, synthetic_glm_data
 from photon_ml_tpu_torch.estimators import GameEstimator
-from photon_ml_tpu_torch.evaluation import auc_roc, make_evaluator, rmse
-from photon_ml_tpu_torch.game.data import capacity_classes, make_game_batch
+from photon_ml_tpu_torch.evaluation import (
+    auc_roc,
+    grouped_auc,
+    grouped_precision_at_k,
+    make_evaluator,
+    rmse,
+)
+from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
+from photon_ml_tpu_torch.game.data import SparseFeatures, capacity_classes, make_game_batch
 from photon_ml_tpu_torch.ops import _cuda, fused
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
+from photon_ml_tpu_torch.ops.glm import make_objective
 from photon_ml_tpu_torch.ops.losses import LOSSES
+from photon_ml_tpu_torch.optim import select_minimize_fn
 from photon_ml_tpu_torch.supervised.training import train_glm
 from photon_ml_tpu_torch.types import (
     OptimizerType,
@@ -813,15 +849,22 @@ def game_problem(dev, n: int, effects: dict, seed: int):
     return make_game_batch(data.y, features, id_tags=data.entity_ids, device=dev), data
 
 
-def game_config(effects: dict, iterations: int) -> GameTrainingConfig:
+def game_config(effects: dict, iterations: int, re_solver: str = "NEWTON_CHOLESKY",
+                re_regularization: RegularizationType = RegularizationType.L2,
+                evaluators: tuple = ()) -> GameTrainingConfig:
     """bench.py's ``_game_setup``: the fixed effect unregularized on L-BFGS,
     each random effect on damped Newton with L2 1 and the ladder merged
-    toward 8 buckets at 0.5 padding; 20 iterations at tolerance 1e-7."""
+    toward 8 buckets at 0.5 padding; 20 iterations at tolerance 1e-7.
+    ``re_solver`` swaps the random effects' optimizer (LBFGS: the fixed
+    effect's ``OptimizerConfig``, the default type) and
+    ``re_regularization`` their regularization (ELASTIC_NET: α 0.5, weight
+    1, so OWL-QN under LBFGS)."""
     fixed = OptimizationConfig(optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-7))
     per_entity = OptimizationConfig(
-        optimizer=OptimizerConfig(optimizer_type=OptimizerType.NEWTON_CHOLESKY,
+        optimizer=OptimizerConfig(optimizer_type=OptimizerType(re_solver),
                                   max_iterations=20, tolerance=1e-7),
-        regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0,
+        regularization=RegularizationContext(re_regularization, alpha=0.5),
+        regularization_weight=1.0,
     )
     return GameTrainingConfig(
         task_type=TaskType.LOGISTIC_REGRESSION,
@@ -835,20 +878,72 @@ def game_config(effects: dict, iterations: int) -> GameTrainingConfig:
             )
             for k in effects
         },
+        evaluators=evaluators,
     )
 
 
-def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None) -> dict:
+_SCALAR_READS = ("__bool__", "__float__", "__int__", "item")
+
+
+@contextmanager
+def counting_readbacks():
+    """Counts the host's reads of a CUDA tensor's value (``bool``,
+    ``float``, ``int``, ``item``: each a round trip that waits for the
+    card) while active; yields a one-element list holding the count."""
+    count = [0]
+    saved = {name: (name in torch.Tensor.__dict__, getattr(torch.Tensor, name))
+             for name in _SCALAR_READS}
+
+    def counted(fn):
+        def read(self, *args, **kwargs):
+            if self.is_cuda:
+                count[0] += 1
+            return fn(self, *args, **kwargs)
+        return read
+
+    for name, (_, fn) in saved.items():
+        setattr(torch.Tensor, name, counted(fn))
+    try:
+        yield count
+    finally:
+        for name, (own, fn) in saved.items():
+            if own:
+                setattr(torch.Tensor, name, fn)
+            else:
+                delattr(torch.Tensor, name)
+
+
+@contextmanager
+def recording_visits():
+    """Keeps, per random-effect coordinate, the residual offsets and the
+    warm-start coefficients of its latest visit (the inputs of the lane
+    solutions it returned)."""
+    seen = {}
+    train = RandomEffectCoordinate.train
+
+    def recorded(self, offsets, initial=None):
+        seen[self.coordinate_id] = (offsets, None if initial is None else initial.coefficients)
+        return train(self, offsets, initial)
+
+    RandomEffectCoordinate.train = recorded
+    try:
+        yield seen
+    finally:
+        RandomEffectCoordinate.train = train
+
+
+def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None, validation=None) -> dict:
     """``GameEstimator.fit`` and ``select_best`` with every kernel's launch
     count zeroed just before and read just after. The estimator's logger
     marks the end of the host ingest and of every coordinate visit (each
     mark synchronizes the card, then calls ``on_mark``), which times the
-    visits and the outer iterations."""
+    visits and the outer iterations and counts each visit's read-backs
+    (``counting_readbacks``)."""
     marks = []
 
     def mark(msg: str) -> None:
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), msg))
+        marks.append((time.perf_counter(), msg, reads[0]))
         if on_mark is not None:
             on_mark()
 
@@ -856,15 +951,19 @@ def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None) -> dict:
     st.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    est = GameEstimator(config, intercept_indices={"global": D_FIXED}, logger=mark, device=dev)
-    best = est.select_best(est.fit(batch))
+    with counting_readbacks() as reads:
+        est = GameEstimator(config, intercept_indices={"global": D_FIXED}, logger=mark, device=dev)
+        best = est.select_best(est.fit(batch, validation_batch=validation))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    visits, prev = [], marks[0][0]
-    for t, msg in marks[1:]:
+    visits, prev, prev_reads = [], marks[0][0], marks[0][2]
+    for t, msg, n_reads in marks[1:]:
+        if not msg.startswith("iter "):
+            continue  # the grid entry's closing validation line
         it, cid = msg.split(":")[0].removeprefix("iter ").split(" coordinate ")
-        visits.append(dict(iteration=int(it), coordinate=cid, wall_s=t - prev))
-        prev = t
+        visits.append(dict(iteration=int(it), coordinate=cid, wall_s=t - prev,
+                           readbacks=n_reads - prev_reads))
+        prev, prev_reads = t, n_reads
     iters = [sum(v["wall_s"] for v in visits if v["iteration"] == i)
              for i in range(config.coordinate_descent_iterations)]
     fixed = best.descent.trackers["fixed"]
@@ -887,35 +986,46 @@ def game_quality(fit: dict, batch, data) -> dict:
                 quality_ok=auc >= 0.95 * auc_true)
 
 
-def bucket_report(fit: dict, batch, effects: dict) -> dict:
+def bucket_report(fit: dict, batch, effects: dict, solver: str = "newton") -> dict:
     """Per random effect: the bucket capacities and lanes (the ladder the
     estimator built, recomputed from the entity counts), the padded slots
-    over the active rows, and each bucket's Newton iterations at the last
-    visit (max and mean over its lanes)."""
+    over the active rows, and each bucket's solver iterations at the last
+    visit (max and mean over its lanes). For Newton, the read-backs its
+    loop makes (one per iteration and one to stop); for L-BFGS, the
+    line-search steps over the bucket's lanes (each lane's objective
+    passes less 1 + 2 per iteration): their sum and the most of one lane."""
     out = {}
     for k in effects:
         counts = np.bincount(batch.id_tags[k].cpu().numpy())
         caps, lanes = capacity_classes(counts, None, 8, 0.5)
         tracker = fit["best"].descent.trackers[f"per_{k}"][-1]
-        newton = [dict(lanes=len(ids), max=int(it.max()), mean=float(it.double().mean()))
-                  for ids, _, it, _ in tracker.diag_refs]
+        rows = []
+        for ids, _, it, _, passes in tracker.diag_refs:
+            row = dict(lanes=len(ids), max=int(it.max()), mean=float(it.double().mean()))
+            if solver == "lbfgs":
+                ls = passes - 1 - 2 * it
+                row.update(line_search_steps=int(ls.sum()), line_search_steps_max_lane=int(ls.max()))
+            rows.append(row)
         out[k] = dict(entities=len(counts), capacities=list(caps), lanes=list(lanes),
                       padded_over_active=sum(c * p for c, p in zip(caps, lanes)) / int(counts.sum()),
-                      largest_entity_rows=int(counts.max()), newton_last_visit=newton,
-                      newton_readbacks_last_visit=sum(b["max"] + 1 for b in newton))
+                      largest_entity_rows=int(counts.max()), **{f"{solver}_last_visit": rows})
+        if solver == "newton":
+            out[k]["newton_readbacks_last_visit"] = sum(b["max"] + 1 for b in rows)
     return out
 
 
 def _game_record(fit: dict, warmup: int = 0) -> dict:
     timed = fit["iteration_wall_s"][warmup:]
-    per_visit = {}
+    per_visit, reads = {}, {}
     for v in fit["visits"]:
         if v["iteration"] >= warmup:
             per_visit.setdefault(v["coordinate"], []).append(v["wall_s"])
+            reads.setdefault(v["coordinate"], []).append(v["readbacks"])
     return dict(wall_s=fit["wall_s"], ingest_s=fit["ingest_s"],
                 iteration_wall_s=fit["iteration_wall_s"],
                 timed_wall_s_per_outer_iteration=sum(timed) / len(timed),
                 timed_wall_s_per_visit={c: sum(w) / len(w) for c, w in per_visit.items()},
+                timed_readbacks_per_visit={c: sum(r) / len(r) for c, r in reads.items()},
                 launches=fit["launches"], fixed_objective_passes=fit["fixed_objective_passes"],
                 fixed_iterations=fit["fixed_iterations"])
 
@@ -948,9 +1058,10 @@ def k1_at(X, offsets, labels, dev) -> dict:
     return k1_time(X, labels, offsets, u, torch.tensor(0.1, device=dev), LOSSES["logistic"], reps=10)
 
 
-def run_e(dev) -> dict:
+def run_e(dev) -> tuple[dict, object, object]:
     """Config E's widths at MovieLens-20M depth: 6 outer iterations in one
-    fit, the first 2 a warm-up and the last 4 timed."""
+    fit, the first 2 a warm-up and the last 4 timed. Returns the record and
+    the generated batch and data (``run_e_lbfgs`` reuses them)."""
     n, effects = E_ML20M
     batch, data = game_problem(dev, n, effects, seed=4)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -969,10 +1080,36 @@ def run_e(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(12)
     rec["k1"] = k1_at(batch.features["global"].X, 0.1 * torch.randn(n, generator=gen, device=dev),
                       batch.labels, dev)
+    return rec, batch, data
+
+
+def run_e_lbfgs(dev, batch, data, newton: dict) -> dict:
+    """``main_e``'s path (the same batch and schedule) with the random
+    effects on L-BFGS, the default solver type, at the fixed effect's
+    ``OptimizerConfig`` (20 iterations, tolerance 1e-7) with L2 1; held to
+    ``main_e``'s Newton fit (``newton``), which solves the same L2
+    problems."""
+    n, effects = E_ML20M
+    torch.cuda.reset_peak_memory_stats(dev)
+    fit = fit_game(batch, game_config(effects, 6, re_solver="LBFGS"), dev)
+    rec = dict(_game_record(fit, warmup=2), n=n, effects={k: list(v) for k, v in effects.items()},
+               buckets=bucket_report(fit, batch, effects, solver="lbfgs"),
+               **game_quality(fit, batch, data),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    rec.update(
+        newton_train_auc=newton["train_auc"], newton_train_log_loss=newton["train_log_loss"],
+        d_auc_vs_newton=abs(rec["train_auc"] - newton["train_auc"]),
+        rel_d_log_loss_vs_newton=abs(rec["train_log_loss"] - newton["train_log_loss"])
+        / newton["train_log_loss"],
+        newton_timed_wall_s_per_outer_iteration=newton["timed_wall_s_per_outer_iteration"],
+    )
+    del fit
+    torch.cuda.empty_cache()
+    rec["profile"] = profile_e(batch, effects, dev, re_solver="LBFGS")
     return rec
 
 
-def profile_e(batch, effects: dict, dev) -> dict:
+def profile_e(batch, effects: dict, dev, re_solver: str = "NEWTON_CHOLESKY") -> dict:
     """``torch.profiler`` over config E's second outer iteration (a fit of
     2; the profiler steps at every visit mark, so it records exactly the
     three visits of iteration 1): the card's busy share of that window's
@@ -983,7 +1120,7 @@ def profile_e(batch, effects: dict, dev) -> dict:
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     # steps: 0 the ingest, 1-3 iteration 0's visits, 4-6 iteration 1's
     with profile(activities=acts, schedule=schedule(wait=3, warmup=1, active=3, repeat=1)) as prof:
-        fit = fit_game(batch, game_config(effects, 2), dev, on_mark=prof.step)
+        fit = fit_game(batch, game_config(effects, 2, re_solver=re_solver), dev, on_mark=prof.step)
     window = sum(v["wall_s"] for v in fit["visits"] if v["iteration"] == 1)
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
     # kernels (and copies) are the entries of device type CUDA; a CPU op's
@@ -1020,6 +1157,124 @@ def agreement_e(dev) -> dict:
     return dict(n=n, effects={k: list(v) for k, v in effects.items()}, **runs,
                 d_auc=abs(f["train_auc"] - u["train_auc"]),
                 rel_d_log_loss=abs(f["train_log_loss"] - u["train_log_loss"]) / u["train_log_loss"])
+
+
+# the random-effect solver variants of agreement_e_solvers: (optimizer,
+# regularization, per-user shard handed over as SparseFeatures)
+SOLVER_VARIANTS = {
+    "lbfgs": ("LBFGS", RegularizationType.L2, False),
+    "tron": ("TRON", RegularizationType.L2, False),
+    "owlqn": ("LBFGS", RegularizationType.ELASTIC_NET, False),
+    "lbfgs_sparse": ("LBFGS", RegularizationType.L2, True),
+}
+GROUPED_EVALUATORS = ("MULTI_AUC(userId)", "PRECISION_AT_K(5,userId)", "BUCKETED_AUC")
+
+
+def sparse_shard(batch, shard: str):
+    """The batch with one dense shard handed over as ``SparseFeatures``:
+    every row's d columns as d nonzeros, the same values."""
+    X = batch.features[shard].X
+    n, d = X.shape
+    idx = torch.arange(d, device=X.device).expand(n, d).contiguous()
+    return replace(batch, features={**batch.features, shard: SparseFeatures(idx, X, d)})
+
+
+def lanes_vs_single(batch, X, tag: str, lane_W, visit, opt: OptimizationConfig, dev,
+                    count: int = 16) -> dict:
+    """The lane solutions of a random effect's last visit (``lane_W``)
+    against the port's single-GLM solver (``select_minimize_fn``'s, as the
+    coordinate picks it) on each of ``count`` entities' rows (spread over
+    the entities' row counts, the largest included), with that visit's
+    residual offsets and warm start; atol 2e-3 / rtol 1e-2."""
+    offsets, W0 = visit
+    ids = batch.id_tags[tag]
+    counts = torch.bincount(ids)
+    present = torch.nonzero(counts).squeeze(1)
+    by_rows = present[torch.argsort(counts[present], stable=True)]
+    picks = by_rows[torch.linspace(0, len(by_rows) - 1, count, device=dev).round().long()]
+    l1 = opt.regularization.l1_weight(opt.regularization_weight)
+    l2 = opt.regularization.l2_weight(opt.regularization_weight)
+    fn, extra = select_minimize_fn(opt.optimizer, l1)
+    worst, ok = 0.0, True
+    for e in picks.tolist():
+        rows = torch.nonzero(ids == e).squeeze(1)
+        b = DenseBatch(X=X[rows], labels=batch.labels[rows], offsets=offsets[rows],
+                       weights=batch.weights[rows])
+        obj = make_objective(b, LOSSES["logistic"], l2_weight=l2, fused=False, device=dev)
+        w0 = torch.zeros(X.shape[1], device=dev) if W0 is None else W0[e]
+        w = fn(obj, w0, opt.optimizer, **extra).w
+        worst = max(worst, float((lane_W[e] - w).abs().max()))
+        ok = ok and bool(torch.allclose(lane_W[e], w, rtol=1e-2, atol=2e-3))
+    return dict(entities=len(picks), rows_min=int(counts[picks].min()),
+                rows_max=int(counts[picks].max()), max_abs_diff=worst, ok=ok)
+
+
+def agreement_e_solvers(dev, newton: dict) -> dict:
+    """Config E at bench.py's shape with the random effects on L-BFGS,
+    TRON, OWL-QN (ELASTIC_NET) and L-BFGS over a sparse per-user shard, 4
+    outer iterations each; against ``agreement_e``'s Newton fit of the
+    same shape (``newton``), the dense L-BFGS fit, the single-GLM solvers
+    and, for the L-BFGS fit, the grouped validation metrics' host
+    versions."""
+    n, effects = E_BENCH
+    batch, data = game_problem(dev, n, effects, seed=4)
+    runs, models = {}, {}
+    for name, (solver, reg, sparse) in SOLVER_VARIANTS.items():
+        vbatch = sparse_shard(batch, "per_userId") if sparse else batch
+        evaluators = GROUPED_EVALUATORS if name == "lbfgs" else ()
+        config = game_config(effects, 4, re_solver=solver, re_regularization=reg,
+                             evaluators=evaluators)
+        with recording_visits() as visits:
+            fit = fit_game(vbatch, config, dev, validation=batch if evaluators else None)
+        best = fit["best"]
+        rec = dict(_game_record(fit), **game_quality(fit, batch, data))
+        _check_game_launches(f"agreement_e_solvers[{name}]", rec)
+        rec["lanes_vs_single"] = {
+            k: lanes_vs_single(batch, batch.features[f"per_{k}"].X, k,
+                               best.model[f"per_{k}"].coefficients, visits[f"per_{k}"],
+                               config.coordinate_config(f"per_{k}").optimization, dev)
+            for k in effects
+        }
+        # coefficients of the entities that have rows
+        W = {k: best.model[f"per_{k}"].coefficients[torch.bincount(batch.id_tags[k]) > 0]
+             for k in effects}
+        rec["exact_zeros"] = {k: int((w == 0).sum()) for k, w in W.items()}
+        rec["coefficients"] = {k: int(w.numel()) for k, w in W.items()}
+        if evaluators:
+            score = best.model.score(batch)
+            host = (score.cpu().numpy(), batch.labels.cpu().numpy(),
+                    batch.id_tags["userId"].cpu().numpy())
+            card = best.evaluation.metrics
+            rec["evaluators"] = dict(
+                card=dict(card), multi_auc_host=grouped_auc(*host),
+                precision_at_5_host=grouped_precision_at_k(*host, 5),
+                auc=float(auc_roc(score, batch.labels)))
+        runs[name] = rec
+        models[name] = best.model
+    for name in ("lbfgs", "tron"):
+        runs[name]["d_auc_vs_newton"] = abs(runs[name]["train_auc"] - newton["train_auc"])
+        runs[name]["rel_d_log_loss_vs_newton"] = abs(
+            runs[name]["train_log_loss"] - newton["train_log_loss"]) / newton["train_log_loss"]
+    # the sparse shard against the dense one: the same problems, solved to
+    # the same float32 stopping rules, which a lane near a threshold meets
+    # one iteration apart under another summation order
+    sp, de = runs["lbfgs_sparse"], runs["lbfgs"]
+    sp["max_abs_diff_vs_dense"] = max(
+        float((models["lbfgs_sparse"][cid].coefficient_means
+               - models["lbfgs"][cid].coefficient_means).abs().max())
+        for cid in models["lbfgs"].models)
+    sp["close_to_dense"] = all(
+        bool(torch.allclose(models["lbfgs_sparse"][cid].coefficient_means,
+                            models["lbfgs"][cid].coefficient_means, rtol=1e-2, atol=2e-3))
+        for cid in models["lbfgs"].models)
+    sp["d_auc_vs_dense"] = abs(sp["train_auc"] - de["train_auc"])
+    sp["rel_d_log_loss_vs_dense"] = abs(sp["train_log_loss"] - de["train_log_loss"]) / de["train_log_loss"]
+    ev = runs["lbfgs"]["evaluators"]
+    ev.update(d_multi_auc=abs(ev["card"]["MULTI_AUC(userId)"] - ev["multi_auc_host"]),
+              d_precision_at_5=abs(ev["card"]["PRECISION_AT_K(5,userId)"] - ev["precision_at_5_host"]),
+              d_bucketed_auc=abs(ev["card"]["BUCKETED_AUC"] - ev["auc"]))
+    return dict(n=n, effects={k: list(v) for k, v in effects.items()}, newton=dict(
+        train_auc=newton["train_auc"], train_log_loss=newton["train_log_loss"]), **runs)
 
 
 def _check_game_launches(phase: str, rec: dict) -> None:
@@ -1128,7 +1383,7 @@ def main() -> int:
     _check_game_launches("main_d", d_rec)
     if not d_rec["max_abs_diff_vs_train_glm"] <= 1e-4:
         raise AssertionError(f"config D differs from train_glm: {d_rec['max_abs_diff_vs_train_glm']}")
-    e_rec = run_e(dev)
+    e_rec, e_batch, e_data = run_e(dev)
     emit("main_e", **e_rec)
     _check_game_launches("main_e", e_rec)
     if not (d_rec["k1"]["ok"] and d_rec["k1"]["layout"] == "tiles"):
@@ -1144,12 +1399,44 @@ def main() -> int:
     if not (agree_e["d_auc"] <= 0.005 and agree_e["rel_d_log_loss"] <= 1e-3):
         raise AssertionError("the GAME runs with and without K1 disagree")
 
-    # launches over the main path: A, the sweep and B, then D and E (each
-    # path counted from 0 just before it ran)
+    # config E at MovieLens-20M depth with the random effects on L-BFGS,
+    # on main_e's batch; then the lane solvers' agreement at bench depth
+    e_lbfgs = run_e_lbfgs(dev, e_batch, e_data, e_rec)
+    del e_batch, e_data
+    torch.cuda.empty_cache()
+    emit("main_e_lbfgs", **e_lbfgs)
+    _check_game_launches("main_e_lbfgs", e_lbfgs)
+    if not (e_lbfgs["quality_ok"] and e_lbfgs["d_auc_vs_newton"] <= 0.005
+            and e_lbfgs["rel_d_log_loss_vs_newton"] <= 1e-3):
+        raise AssertionError(f"config E on L-BFGS: AUC {e_lbfgs['train_auc']} (Newton "
+                             f"{e_rec['train_auc']}, generating {e_lbfgs['auc_generating_model']}), "
+                             f"relative d log-loss {e_lbfgs['rel_d_log_loss_vs_newton']}")
+    solvers = agreement_e_solvers(dev, agree_e["fused"])
+    emit("agreement_e_solvers", **solvers)
+    ev = solvers["lbfgs"]["evaluators"]
+    failed = [name for name, ok in (
+        ("lbfgs_vs_newton", solvers["lbfgs"]["d_auc_vs_newton"] <= 0.005
+         and solvers["lbfgs"]["rel_d_log_loss_vs_newton"] <= 1e-3),
+        ("tron_vs_newton", solvers["tron"]["d_auc_vs_newton"] <= 0.005
+         and solvers["tron"]["rel_d_log_loss_vs_newton"] <= 1e-3),
+        ("sparse_vs_dense", solvers["lbfgs_sparse"]["close_to_dense"]
+         and solvers["lbfgs_sparse"]["d_auc_vs_dense"] <= 1e-4
+         and solvers["lbfgs_sparse"]["rel_d_log_loss_vs_dense"] <= 1e-4),
+        ("owlqn_quality", solvers["owlqn"]["quality_ok"]),
+        ("lanes_vs_single", all(r["ok"] for v in SOLVER_VARIANTS
+                                for r in solvers[v]["lanes_vs_single"].values())),
+        ("evaluators", ev["d_multi_auc"] <= 1e-6 and ev["d_precision_at_5"] <= 1e-6
+         and ev["d_bucketed_auc"] <= 1e-4),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"agreement_e_solvers failed: {failed}")
+
+    # launches over the main path: A, the sweep and B, then D, E and E on
+    # L-BFGS (each path counted from 0 just before it ran)
     by_path = {
         k: {"main_a": a["launches"][k], "main_a_sweep": sweep["launches"][k],
             "main_b": b["launches"][k], "main_d": d_rec["launches"][k],
-            "main_e": e_rec["launches"][k]}
+            "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k]}
         for k in KERNEL_ROWS
     }
     kernels = [

@@ -136,8 +136,9 @@ def main(argv: list[str] | None = None) -> None:
         "--normalization", default="NONE", choices=[n.value for n in NormalizationType]
     )
     p.add_argument(
-        "--variance-computation", default="NONE",
+        "--variance", "--variance-computation", dest="variance", default="NONE",
         choices=[v.value for v in VarianceComputationType],
+        help="the reference's spelling; --variance-computation is kept as an alias",
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output-dir", required=True)
@@ -154,7 +155,7 @@ def main(argv: list[str] | None = None) -> None:
         max_iterations=args.max_iterations,
         tolerance=args.tolerance,
         normalization=NormalizationType(args.normalization),
-        variance_computation=VarianceComputationType(args.variance_computation),
+        variance_computation=VarianceComputationType(args.variance),
         device=args.device,
     )
 

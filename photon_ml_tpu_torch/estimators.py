@@ -6,7 +6,7 @@ validation, per-shard normalization statistics, entity grouping and
 bucketing) is done once per ``fit`` and shared by every grid entry; the
 random-effect coordinates' bucket tensors are gathered on the device once
 and shared too. Checkpoints and their fingerprints wait (ROADMAP queue 1
-item 10a).
+item 10a.4).
 """
 
 from __future__ import annotations
@@ -132,7 +132,7 @@ class GameEstimator:
             if cfg.features_to_samples_ratio_upper_bound is not None or cfg.random_projection_dim is not None:
                 raise NotImplementedError(
                     f"coordinate {cid!r}: per-entity subspace and random projection wait for "
-                    "ROADMAP queue 1 item 10a (game/projector.py)"
+                    "ROADMAP queue 1 item 10a.5 (game/projector.py)"
                 )
             ids = batch.id_tags[cfg.random_effect_type].cpu().numpy()
             num_entities = int(ids.max()) + 1 if len(ids) else 0

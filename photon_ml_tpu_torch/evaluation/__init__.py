@@ -4,6 +4,13 @@ from photon_ml_tpu_torch.evaluation.evaluators import (  # noqa: F401
     Evaluator,
     auc_roc,
     evaluate_all,
+    grouped_auc,
+    grouped_precision_at_k,
     make_evaluator,
     rmse,
+)
+from photon_ml_tpu_torch.evaluation.scalable import (  # noqa: F401
+    bucketed_auc,
+    grouped_auc_device,
+    grouped_precision_at_k_device,
 )

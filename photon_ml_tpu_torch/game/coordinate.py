@@ -7,11 +7,13 @@ residual offsets with ``train(offsets, initial)`` and ``score(model)``.
   through ``make_objective`` and ``select_minimize_fn``: a dense float32
   shard on the card runs its objective passes on K1 (``auto_fused``).
 - ``RandomEffectCoordinate`` solves every entity's GLM over the prepared
-  buckets (``game/random_effect.py``), gathered once and reused.
+  buckets (``game/random_effect.py``), gathered once and reused, with the
+  solver ``select_minimize_fn`` picks from its optimizer config and the
+  L1 part of its regularization (L-BFGS, OWL-QN, TRON or Newton).
 
-The reference's one-launch fused visit, its mesh-sharded solves, the
-random projector and the per-entity subspace projection are not ported
-(ROADMAP queue 1 item 10a).
+The reference's one-launch fused visit (ROADMAP queue 1 item 10a.6), its
+mesh-sharded solves (item 12), the random projector and the per-entity
+subspace projection (item 10a.5) are not ported.
 """
 
 from __future__ import annotations

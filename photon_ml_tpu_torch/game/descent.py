@@ -7,7 +7,8 @@ score into the total. A coordinate that is in ``initial_model`` but not in
 the update sequence is locked: it keeps contributing its score. With a
 validation batch and evaluators, the evolving model is evaluated after
 every visit. The reference's one-program fused outer iteration,
-checkpoint / resume and degrade-in-place wait (ROADMAP queue 1 item 10a).
+checkpoint / resume and degrade-in-place wait (ROADMAP queue 1 items 10a.4
+and 10a.6).
 """
 
 from __future__ import annotations

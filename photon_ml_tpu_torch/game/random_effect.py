@@ -2,19 +2,21 @@
 knob-off schedule of ``photon_ml_tpu/game/random_effect.py``).
 
 Each bucket of ``game/data.py`` is k entities padded to one capacity C;
-``prepare_buckets`` gathers its static tensors once, on the device, into a
-(k, C, d) ``DenseBatch``. Every coordinate-descent visit then gathers only
-the residual offsets for the bucket's rows and solves all k entity GLMs
-together: ``optim/newton.py`` steps the lanes in lockstep on a
-``LaneGLMObjective`` (the reference vmaps the same solve over the lane),
-and the solutions are scattered back into the (E, d) coefficient matrix.
-One bucket step per bucket.
+``prepare_buckets`` gathers its static tensors once, on the device: a
+(k, C, d) ``DenseBatch`` for a dense shard, a (k, C, nnz) ``SparseBatch``
+for a sparse one. Every coordinate-descent visit then gathers only the
+residual offsets for the bucket's rows and solves all k entity GLMs
+together on a ``LaneGLMObjective`` with the solver that
+``select_minimize_fn`` picks, as the reference does: L-BFGS by default,
+OWL-QN under an L1 weight, TRON or damped Newton when configured. Each
+solver steps the lanes in lock step (the reference vmaps the same solve
+over the lane), and the solutions are scattered back into the (E, d)
+coefficient matrix. One bucket step per bucket.
 
-Only NEWTON_CHOLESKY runs over entity lanes here. L-BFGS, OWL-QN and TRON
-over lanes (the reference gets them from ``jax.vmap``) and sparse
-random-effect shards (Newton needs the dense Hessian) raise
-``NotImplementedError``: ROADMAP queue 1 item 10a. So do the mesh,
-projection, compaction and fusion schedules of the reference.
+Newton and FULL variances need the full Hessian, so they take dense
+shards only and raise the reference's message on a sparse one. The mesh,
+projection, compaction and fusion schedules of the reference are not
+ported.
 """
 
 from __future__ import annotations
@@ -29,11 +31,11 @@ from photon_ml_tpu_torch._device import check_device
 from photon_ml_tpu_torch.config import OptimizerConfig
 from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets, Features
 from photon_ml_tpu_torch.normalization import NormalizationContext
-from photon_ml_tpu_torch.ops.batch import DenseBatch
+from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_lane_objective
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
-from photon_ml_tpu_torch.optim.newton import newton_minimize
-from photon_ml_tpu_torch.types import OptimizerType, VarianceComputationType
+from photon_ml_tpu_torch.optim.common import select_minimize_fn
+from photon_ml_tpu_torch.types import VarianceComputationType
 
 Tensor = torch.Tensor
 
@@ -45,16 +47,17 @@ class RandomEffectTrainingResult:
     warm-start row (zeros for a cold start).
 
     Per-entity diagnostics stay on the device (``diag_refs``: per bucket the
-    host entity ids and the (k,) final objective, iterations and reason)
-    until ``loss_values`` / ``iterations`` / ``converged`` first reads them,
-    in one transfer."""
+    host entity ids and the (k,) final objective, iterations, reason and
+    objective passes) until ``loss_values`` / ``iterations`` /
+    ``converged`` / ``objective_passes`` first reads them, in one
+    transfer."""
 
     coefficients: Tensor | None
     variances: Tensor | None
     diag_refs: tuple = ()
     num_entities: int = 0
 
-    def _materialize(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def _materialize(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         cached = self.__dict__.get("_diag_cache")
         if cached is None:
             if self.__dict__.get("_released"):
@@ -67,16 +70,17 @@ class RandomEffectTrainingResult:
             loss_values = np.full((self.num_entities,), np.nan, np.float64)
             iterations = np.zeros((self.num_entities,), np.int64)
             converged = np.zeros((self.num_entities,), bool)
+            passes = np.zeros((self.num_entities,), np.int64)
             if self.diag_refs:
                 flat = torch.cat(
-                    [torch.stack([f.double(), it.double(), r.double()]) for _, f, it, r in self.diag_refs],
-                    dim=1,
+                    [torch.stack([v.double() for v in lane]) for _, *lane in self.diag_refs], dim=1,
                 ).cpu().numpy()
                 ids = np.concatenate([e for e, *_ in self.diag_refs])
                 loss_values[ids] = flat[0]
                 iterations[ids] = flat[1].astype(np.int64)
                 converged[ids] = flat[2] != 0  # != MAX_ITERATIONS
-            cached = (loss_values, iterations, converged)
+                passes[ids] = flat[3].astype(np.int64)
+            cached = (loss_values, iterations, converged, passes)
             object.__setattr__(self, "_diag_cache", cached)
         return cached
 
@@ -95,6 +99,11 @@ class RandomEffectTrainingResult:
         """(E,) per-entity convergence."""
         return self._materialize()[2]
 
+    @property
+    def objective_passes(self) -> np.ndarray:
+        """(E,) the solver's objective passes (0 if untrained)."""
+        return self._materialize()[3]
+
     def release_device_diagnostics(self) -> None:
         """Drop the device references without reading them (coordinate
         descent calls this on a coordinate's previous visit); values already
@@ -112,7 +121,7 @@ class PreparedBucket:
 
     entity_ids: np.ndarray  # (k,) entity ids (host)
     ids: Tensor  # (k,) the same ids on the device (the (E, d) scatter key)
-    static: DenseBatch  # (k, C, d) features, (k, C) labels / weights, zero offsets
+    static: DenseBatch | SparseBatch  # (k, C, d) or (k, C, nnz) features, (k, C) columns
     row_idx: Tensor  # (k, C) int64 row indices, padding clipped to 0
     mask: Tensor  # (k, C) 1.0 where the slot holds a real row
 
@@ -125,14 +134,6 @@ class PreparedBucket:
         return self.row_idx.shape[1]
 
 
-def _sparse_refused() -> NotImplementedError:
-    return NotImplementedError(
-        "sparse random-effect shards wait for ROADMAP queue 1 item 10a: "
-        "NEWTON_CHOLESKY needs the dense Hessian, and L-BFGS / OWL-QN / TRON "
-        "over entity lanes are not ported yet"
-    )
-
-
 def prepare_buckets(
     features: Features,
     labels: Tensor,
@@ -142,21 +143,25 @@ def prepare_buckets(
     """Gather every bucket's static tensors on the features' device with
     index operations (one upload of the padded row-index matrix per bucket;
     the rows themselves never leave the device). Padded slots get weight 0
-    and zeroed features."""
-    if not isinstance(features, DenseFeatures):
-        raise _sparse_refused()
-    dev = features.X.device
+    and zeroed feature values (a sparse slot keeps row 0's indices, as the
+    reference's ``gather_bucket`` does: its values are 0)."""
+    dense = isinstance(features, DenseFeatures)
+    dev = (features.X if dense else features.values).device
     prepared = []
     for ent_ids, rows in zip(buckets.entity_ids, buckets.row_indices):
         raw = torch.as_tensor(rows, dtype=torch.int64, device=dev)
         mask = (raw >= 0).to(torch.float32)
         idx = torch.clamp_min(raw, 0)
-        static = DenseBatch(
-            X=features.X[idx].float() * mask.unsqueeze(-1),
-            labels=labels[idx] * mask,
-            offsets=torch.zeros_like(mask),
-            weights=weights[idx] * mask,
-        )
+        columns = dict(labels=labels[idx] * mask, offsets=torch.zeros_like(mask),
+                       weights=weights[idx] * mask)
+        if dense:
+            static = DenseBatch(X=features.X[idx].float() * mask.unsqueeze(-1), **columns)
+        else:
+            static = SparseBatch(
+                indices=features.indices[idx].long(),
+                values=features.values[idx].float() * mask.unsqueeze(-1),
+                num_features=features.num_features, **columns,
+            )
         prepared.append(
             PreparedBucket(
                 entity_ids=np.asarray(ent_ids),
@@ -207,20 +212,6 @@ def train_random_effects(
     )
 
 
-def _check_lane_solver(config: OptimizerConfig, l1_weight: float) -> None:
-    if config.optimizer_type is not OptimizerType.NEWTON_CHOLESKY:
-        raise NotImplementedError(
-            f"{config.optimizer_type.value}"
-            f"{' (OWL-QN under L1)' if l1_weight > 0 else ''} over entity lanes waits for "
-            "ROADMAP queue 1 item 10a; random effects train with NEWTON_CHOLESKY"
-        )
-    if l1_weight > 0.0:
-        raise ValueError(
-            "NEWTON_CHOLESKY does not support L1 regularization "
-            "(non-smooth; use LBFGS, which routes through OWL-QN)"
-        )
-
-
 def train_prepared(
     prepared: list[PreparedBucket],
     offsets: Tensor,
@@ -242,8 +233,9 @@ def train_prepared(
     entities) applies inside each objective; warm starts and priors arrive
     in the original feature space and the coefficients leave in it.
     ``prior_coefficients`` / ``prior_variances`` are (E, d) per-entity
-    Gaussian MAP priors."""
-    _check_lane_solver(config, l1_weight)
+    Gaussian MAP priors. The solver is ``select_minimize_fn(config,
+    l1_weight)``'s, over each bucket's lanes."""
+    minimize_fn, extra = select_minimize_fn(config, l1_weight)
     dev = offsets.device
     d, E = num_features, num_entities
     if initial_coefficients is None:
@@ -268,11 +260,11 @@ def train_prepared(
 
     diag = []
     for pb in prepared:
-        f_k, it_k, reason_k = _bucket_step(
+        diag.append((pb.entity_ids, *_bucket_step(
             W, V, offsets, pb, l2, norm, prior_mu, prior_var, loss=loss, config=config,
             intercept_index=intercept_index, variance_computation=variance_computation,
-        )
-        diag.append((pb.entity_ids, f_k, it_k, reason_k))
+            minimize_fn=minimize_fn, minimize_kwargs=extra,
+        )))
     if norm is not None:
         W = norm.model_to_original_space(W)[0]
         if V is not None:
@@ -308,20 +300,22 @@ def _bucket_step(
     config: OptimizerConfig,
     intercept_index: int | None,
     variance_computation: VarianceComputationType,
-) -> tuple[Tensor, Tensor, Tensor]:
+    minimize_fn,
+    minimize_kwargs: dict,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """One bucket: gather its rows' residual offsets, extract the warm-start
     and prior lanes, solve the k lanes together, and scatter the solutions
     (and variances) into W (and V) in place. Returns the lanes' (k,) final
-    objective, iterations and reason."""
+    objective, iterations, reason and objective passes."""
     batch = dataclasses.replace(pb.static, offsets=offsets[pb.row_idx] * pb.mask)
     obj = make_lane_objective(
         batch, loss, l2_weight=l2_weight, norm=norm, intercept_index=intercept_index,
         prior_mean=_extract_lanes(prior_mu, pb.ids), prior_variances=_extract_lanes(prior_var, pb.ids),
     )
-    res = newton_minimize(obj, _extract_lanes(W, pb.ids), config)
+    res = minimize_fn(obj, _extract_lanes(W, pb.ids), config, **minimize_kwargs)
     var = compute_variances(obj, res.w, variance_computation)
     _scatter_lanes(W, V, pb.ids, res.w, var)
-    return res.value, res.iterations, res.reason
+    return res.value, res.iterations, res.reason, res.objective_passes
 
 
 def random_effect_scores(features: Features, entity_ids: Tensor, W: Tensor) -> Tensor:

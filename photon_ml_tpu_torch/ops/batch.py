@@ -40,7 +40,12 @@ def _mm(A: Tensor, v: Tensor) -> Tensor:
 
 @dataclass(frozen=True)
 class DenseBatch:
-    """X: (n, d) float32 or bfloat16; labels/offsets/weights: (n,) float32."""
+    """X: (n, d) float32 or bfloat16; labels/offsets/weights: (n,) float32.
+
+    With a leading lane axis (X (L, C, d) float32, the rest (L, C): a
+    random-effect bucket of L entities) the products are batched over the
+    lanes (``torch.bmm``): ``matvec`` takes (L, d) and gives (L, C),
+    ``rmatvec`` / ``rmatvec_sq`` take (L, C) and give (L, d)."""
 
     X: Tensor
     labels: Tensor
@@ -61,21 +66,34 @@ class DenseBatch:
 
     def matvec(self, w: Tensor) -> Tensor:
         """Margins X @ w."""
+        if self.X.dim() == 3:
+            return torch.bmm(self.X, w.unsqueeze(-1)).squeeze(-1)
         return _mm(self.X, w)
 
     def rmatvec(self, r: Tensor) -> Tensor:
         """Gradient contraction Xᵀ @ r."""
+        if self.X.dim() == 3:
+            return torch.bmm(self.X.transpose(1, 2), r.unsqueeze(-1)).squeeze(-1)
         return _mm(self.X.T, r)
 
     def rmatvec_sq(self, r: Tensor) -> Tensor:
         """(X ⊙ X)ᵀ @ r — Hessian diagonal: Σ_i r_i x_ij²."""
-        return _mm((self.X * self.X).T, r)
+        sq = self.X * self.X
+        if sq.dim() == 3:
+            return torch.bmm(sq.transpose(1, 2), r.unsqueeze(-1)).squeeze(-1)
+        return _mm(sq.T, r)
 
 
 @dataclass(frozen=True)
 class SparseBatch:
     """indices: (n, k) int64 feature ids padded with 0; values: (n, k)
-    float padded with 0.0; ``num_features`` is the feature dimension d."""
+    float padded with 0.0; ``num_features`` is the feature dimension d.
+
+    With a leading lane axis (indices and values (L, C, k), labels /
+    offsets / weights (L, C): a random-effect bucket of L entities) the
+    products run per lane: ``matvec`` takes (L, d) coefficients and gives
+    (L, C) margins, ``rmatvec`` / ``rmatvec_sq`` take (L, C) and give
+    (L, d). A padded slot carries value 0 and weight 0."""
 
     indices: Tensor
     values: Tensor
@@ -93,17 +111,26 @@ class SparseBatch:
         return self.values.device
 
     def matvec(self, w: Tensor) -> Tensor:
+        if self.indices.dim() == 3:
+            lanes = self.indices.shape[0]
+            picked = torch.gather(w, 1, self.indices.reshape(lanes, -1)).view_as(self.values)
+            return torch.sum(self.values * picked, dim=-1)
         return torch.sum(self.values * w[self.indices], dim=-1)
 
     def _scatter(self, contrib: Tensor) -> Tensor:
+        if self.indices.dim() == 3:
+            lanes = self.indices.shape[0]
+            out = torch.zeros((lanes, self.num_features), dtype=contrib.dtype,
+                              device=contrib.device)
+            return out.scatter_add_(1, self.indices.reshape(lanes, -1), contrib.reshape(lanes, -1))
         out = torch.zeros(self.num_features, dtype=contrib.dtype, device=contrib.device)
         return out.index_add_(0, self.indices.reshape(-1), contrib.reshape(-1))
 
     def rmatvec(self, r: Tensor) -> Tensor:
-        return self._scatter(self.values * r[:, None])
+        return self._scatter(self.values * r.unsqueeze(-1))
 
     def rmatvec_sq(self, r: Tensor) -> Tensor:
-        return self._scatter(self.values * self.values * r[:, None])
+        return self._scatter(self.values * self.values * r.unsqueeze(-1))
 
 
 Batch = DenseBatch | SparseBatch | TiledSparseBatch

@@ -23,12 +23,16 @@ import torch
 
 from photon_ml_tpu_torch._device import check_device
 from photon_ml_tpu_torch.normalization import NormalizationContext, no_normalization
-from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch, TiledSparseBatch
+from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch, SparseBatch, TiledSparseBatch
 from photon_ml_tpu_torch.ops.fused import fused_hvp, fused_value_grad, supports_fused
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.types import VarianceComputationType
 
 Tensor = torch.Tensor
+
+# The reference's message for the contracts that need the full Hessian
+# (Newton's solve, FULL variances).
+FULL_HESSIAN_NEEDS_DENSE = "full Hessian requires a DenseBatch; use hessian_diag or hvp"
 
 
 def reg_delta(w: Tensor, prior_mean, prior_precision) -> Tensor:
@@ -134,9 +138,7 @@ class GLMObjective:
 
     def hessian_from_margins(self, m: Tensor, w: Tensor) -> Tensor:
         if not isinstance(self.batch, DenseBatch):
-            raise NotImplementedError(
-                "full Hessian requires a DenseBatch; use hessian_diag or hvp"
-            )
+            raise NotImplementedError(FULL_HESSIAN_NEEDS_DENSE)
         d2 = self._weighted(self.loss.d2(m, self.batch.labels))
         Z = (self.batch.X.float() - self.norm.shifts) * self.norm.factors
         h = Z.T @ (d2[:, None] * Z)
@@ -350,25 +352,17 @@ def _constant_hints(batch: Batch) -> tuple[bool, bool]:
 # ---------------------------------------------------------------------------
 # lane-batched objective: k independent GLMs of one geometry
 # ---------------------------------------------------------------------------
-def _bmv(X: Tensor, v: Tensor) -> Tensor:
-    """(k, C, d) @ (k, d) → (k, C)."""
-    return torch.bmm(X, v.unsqueeze(-1)).squeeze(-1)
-
-
-def _bmtv(X: Tensor, r: Tensor) -> Tensor:
-    """(k, C, d)ᵀ @ (k, C) → (k, d)."""
-    return torch.bmm(X.transpose(1, 2), r.unsqueeze(-1)).squeeze(-1)
-
-
 @dataclass(frozen=True)
 class LaneGLMObjective:
     """k GLM objectives of one (C, d) geometry evaluated together: the
     reference's ``make_objective`` under ``jax.vmap`` over an entity lane,
-    with batched products (``torch.bmm``) in place of the vmapped matvecs.
+    with batched products in place of the vmapped matvecs.
 
-      batch — a ``DenseBatch`` whose X is (k, C, d) float32 and whose
-              labels / offsets / weights are (k, C); padded slots carry
-              weight 0 (and zeroed features), so they stay inert.
+      batch — a ``DenseBatch`` whose X is (k, C, d) float32, or a
+              ``SparseBatch`` whose indices and values are (k, C, nnz):
+              their products run per lane. Labels / offsets / weights are
+              (k, C). Padded slots carry weight 0 (and zeroed feature
+              values), so they stay inert.
       norm  — one ``NormalizationContext`` shared by every lane, or None
               for the identity (the same values as the identity context:
               x − 0 and x·1 are exact).
@@ -376,11 +370,14 @@ class LaneGLMObjective:
       prior_mean / prior_precision — optional (k, d) per-lane Gaussian prior.
 
     Values are (k,), gradients (k, d), Hessians (k, d, d). The margin API
-    (``margins``, ``direction_margins``, ``value_and_grad_from_margins``,
-    ``hessian_from_margins``, ``ray_values_from_margins``) is what
-    ``optim/newton.py`` runs on."""
+    (``margins``, ``direction_margins``, ``value_from_margins``,
+    ``value_and_grad_from_margins``, ``hvp_from_margins``,
+    ``hessian_from_margins``, ``ray_values_from_margins``) is what the lane
+    solvers run on; each contract is one pair of batched products at most.
+    The full Hessian, and so Newton and FULL variances, needs a dense
+    batch, as in the reference."""
 
-    batch: DenseBatch
+    batch: DenseBatch | SparseBatch
     norm: NormalizationContext | None
     l2_weight: Tensor
     reg_mask: Tensor
@@ -390,7 +387,11 @@ class LaneGLMObjective:
 
     @property
     def num_lanes(self) -> int:
-        return self.batch.X.shape[0]
+        return self.batch.labels.shape[0]
+
+    @property
+    def dense(self) -> bool:
+        return isinstance(self.batch, DenseBatch)
 
     def _weighted(self, x: Tensor) -> Tensor:
         w = self.batch.weights
@@ -404,6 +405,8 @@ class LaneGLMObjective:
 
     def _design(self) -> Tensor:
         """The normalized design Z = (X − s)·f (X itself for the identity)."""
+        if not self.dense:
+            raise NotImplementedError(FULL_HESSIAN_NEEDS_DENSE)
         X = self.batch.X
         if self.norm is None:
             return X
@@ -434,21 +437,34 @@ class LaneGLMObjective:
 
     def direction_margins(self, p: Tensor) -> Tensor:
         u, c = self._effective(p)
-        m = _bmv(self.batch.X, u)
+        m = self.batch.matvec(u)
         return m if c is None else m - c.unsqueeze(-1)
+
+    def value_from_margins(self, m: Tensor, w: Tensor) -> Tensor:
+        """(k,): every lane's objective from its margins (no product)."""
+        val = torch.sum(self._weighted(self.loss.value(m, self.batch.labels)), dim=-1)
+        return val + self._reg_value(w)
 
     def value_and_grad_from_margins(self, m: Tensor, w: Tensor) -> tuple[Tensor, Tensor]:
         y = self.batch.labels
         val = torch.sum(self._weighted(self.loss.value(m, y)), dim=-1)
         r = self._weighted(self.loss.d1(m, y))
-        g = self._to_model_space(_bmtv(self.batch.X, r), torch.sum(r, dim=-1))
+        g = self._to_model_space(self.batch.rmatvec(r), torch.sum(r, dim=-1))
         return val + self._reg_value(w), g + self._reg_grad(w)
+
+    def hvp_from_margins(self, m: Tensor, v: Tensor) -> Tensor:
+        """(k, d) Gauss-Newton H·v at the point whose margins are m: one
+        product forward (Z·v) and one back (Zᵀq), plus the regularizer's."""
+        d2 = self._weighted(self.loss.d2(m, self.batch.labels))
+        q = d2 * self.direction_margins(v)
+        hv = self._to_model_space(self.batch.rmatvec(q), torch.sum(q, dim=-1))
+        return hv + self.l2_weight * self.reg_mask * self._prec(v) * v
 
     def hessian_from_margins(self, m: Tensor, w: Tensor) -> Tensor:
         """Zᵀ diag(weight·l'') Z per lane by one batched product (never a
         (k, C, d, d) temporary), plus the regularizer's diagonal."""
-        d2 = self._weighted(self.loss.d2(m, self.batch.labels))
         Z = self._design()
+        d2 = self._weighted(self.loss.d2(m, self.batch.labels))
         h = torch.bmm(Z.transpose(1, 2), d2.unsqueeze(-1) * Z)
         reg = self.l2_weight * self.reg_mask * self._prec(self.reg_mask)
         return h + torch.diag_embed(reg.expand(h.shape[:-1]))
@@ -469,8 +485,14 @@ class LaneGLMObjective:
         return data + 0.5 * self.l2_weight * (q0 + 2.0 * ts * q1 + ts * ts * q2)
 
     # -- whole-point contracts ------------------------------------------------
+    def value(self, w: Tensor) -> Tensor:
+        return self.value_from_margins(self.margins(w), w)
+
     def value_and_grad(self, w: Tensor) -> tuple[Tensor, Tensor]:
         return self.value_and_grad_from_margins(self.margins(w), w)
+
+    def hvp(self, w: Tensor, v: Tensor) -> Tensor:
+        return self.hvp_from_margins(self.margins(w), v)
 
     def hessian(self, w: Tensor) -> Tensor:
         return self.hessian_from_margins(self.margins(w), w)
@@ -478,19 +500,18 @@ class LaneGLMObjective:
     def hessian_diag(self, w: Tensor) -> Tensor:
         """diag(H) = f² [Σ d2 x² − 2 s Σ d2 x + s² Σ d2] + λ₂·mask per lane."""
         d2 = self._weighted(self.loss.d2(self.margins(w), self.batch.labels))
-        X = self.batch.X
-        sq = _bmtv(X * X, d2)
+        sq = self.batch.rmatvec_sq(d2)
         if self.norm is None:
             diag = sq
         else:
             f, s = self.norm.factors, self.norm.shifts
-            lin, tot = _bmtv(X, d2), torch.sum(d2, dim=-1, keepdim=True)
+            lin, tot = self.batch.rmatvec(d2), torch.sum(d2, dim=-1, keepdim=True)
             diag = f * f * (sq - 2.0 * s * lin + s * s * tot)
         return diag + self.l2_weight * self.reg_mask * self._prec(diag)
 
 
 def make_lane_objective(
-    batch: DenseBatch,
+    batch: DenseBatch | SparseBatch,
     loss: PointwiseLoss,
     l2_weight: float | Tensor = 0.0,
     norm: NormalizationContext | None = None,
@@ -501,13 +522,16 @@ def make_lane_objective(
     """A ``LaneGLMObjective`` on the batch's device; ``intercept_index`` is
     excluded from L2, and prior variances become precisions as
     ``GaussianPrior.precisions`` makes them."""
-    if not isinstance(batch, DenseBatch) or batch.X.dim() != 3:
-        raise NotImplementedError(
-            "lane-batched objectives take a dense (k, C, d) batch; sparse random-effect "
-            "shards under NEWTON_CHOLESKY wait for ROADMAP queue 1 item 10a"
+    lanes_shape = (
+        isinstance(batch, DenseBatch) and batch.X.dim() == 3
+        or isinstance(batch, SparseBatch) and batch.indices.dim() == 3
+    )
+    if not lanes_shape:
+        raise ValueError(
+            "lane-batched objectives take a (k, C, d) DenseBatch or a (k, C, nnz) SparseBatch"
         )
-    dev = batch.X.device
-    d = batch.X.shape[-1]
+    dev = batch.device
+    d = batch.num_features
     mask = torch.ones(d, dtype=torch.float32, device=dev)
     if intercept_index is not None:
         mask[intercept_index] = 0.0

@@ -31,7 +31,7 @@ from typing import Any
 import torch
 
 from photon_ml_tpu_torch.config import OptimizerConfig
-from photon_ml_tpu_torch.ops.glm import LaneGLMObjective, lanes_of
+from photon_ml_tpu_torch.ops.glm import FULL_HESSIAN_NEEDS_DENSE, LaneGLMObjective, lanes_of
 from photon_ml_tpu_torch.optim.common import ConvergenceReason, OptimizationResult
 
 Tensor = torch.Tensor
@@ -57,6 +57,8 @@ def newton_minimize(objective: Any, w0: Tensor, config: OptimizerConfig) -> Opti
         )
     if not isinstance(objective, LaneGLMObjective):
         raise TypeError("a (k, d) start needs a LaneGLMObjective")
+    if not objective.dense:
+        raise NotImplementedError(FULL_HESSIAN_NEEDS_DENSE)
     return _newton_lanes(objective, w0, config)
 
 

@@ -373,3 +373,60 @@ def test_random_effects_on_the_card_match_the_cpu(dev):
     torch.testing.assert_close(got.coefficients.cpu(), ref.coefficients, rtol=0.0, atol=1e-4)
     torch.testing.assert_close(got.variances.cpu(), ref.variances, rtol=1e-3, atol=1e-5)
     assert np.all(np.abs(got.iterations - ref.iterations) <= 1)
+
+
+@pytest.mark.parametrize("solver,l1,sparse", [("LBFGS", 0.0, False), ("TRON", 0.0, False),
+                                              ("LBFGS", 0.5, False), ("LBFGS", 0.0, True)],
+                         ids=["lbfgs", "tron", "owlqn", "lbfgs_sparse"])
+def test_lane_solvers_on_the_card_match_the_cpu(dev, solver, l1, sparse):
+    """L-BFGS, TRON and OWL-QN over entity lanes, and a sparse shard,
+    solve on the card as on the CPU (the solvers run on the bucket
+    tensors' device; no kernel of the port runs in them)."""
+    from photon_ml_tpu_torch.config import OptimizerConfig
+    from photon_ml_tpu_torch.game.data import SparseFeatures, bucket_entities, group_by_entity
+    from photon_ml_tpu_torch.game.random_effect import train_random_effects
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    data, (gpu, cpu) = _game_batches(dev)
+    ids = data.entity_ids["userId"]
+    buckets = bucket_entities(group_by_entity(ids))
+    cfg = OptimizerConfig(optimizer_type=OptimizerType(solver), max_iterations=50, tolerance=1e-3)
+    out = []
+    for b in (gpu, cpu):
+        feats = b.features["per_userId"]
+        if sparse:
+            d = feats.X.shape[1]
+            feats = SparseFeatures(torch.arange(d, device=b.device).repeat(feats.X.shape[0], 1),
+                                   feats.X, d)
+        fused.reset_launch_counts()
+        out.append(train_random_effects(
+            feats, b.labels, b.offsets, b.weights, buckets, int(ids.max()) + 1, LOSSES["logistic"],
+            cfg, l2_weight=1.0, l1_weight=l1, device=b.device,
+        ))
+        assert not any(fused.launch_counts.values())
+    got, ref = out
+    assert got.coefficients.device.type == "cuda"
+    torch.testing.assert_close(got.coefficients.cpu(), ref.coefficients, rtol=0.0, atol=1e-4)
+    assert np.all(np.abs(got.iterations - ref.iterations) <= 1)
+
+
+def test_device_evaluators_on_the_card_match_the_cpu(dev):
+    """MULTI_AUC, PRECISION_AT_K and BUCKETED_AUC on CUDA scores against
+    the same evaluators on the CPU and the numpy host versions."""
+    from photon_ml_tpu_torch.evaluation import grouped_auc, grouped_precision_at_k, make_evaluator
+
+    rng = np.random.default_rng(3)
+    n = 20_000
+    s = (np.round(rng.normal(size=n) * 8) / 8).astype(np.float32)  # ties
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-s))).astype(np.float32)
+    g = rng.integers(-1, 500, size=n)
+    keep = g >= 0
+    host = {"MULTI_AUC(u)": grouped_auc(s[keep], y[keep], g[keep]),
+            "PRECISION_AT_K(5,u)": grouped_precision_at_k(s[keep], y[keep], g[keep], 5)}
+    for spec in ("MULTI_AUC(u)", "PRECISION_AT_K(5,u)", "BUCKETED_AUC"):
+        ev = make_evaluator(spec)
+        on = [ev(torch.as_tensor(s, device=d), torch.as_tensor(y, device=d), None,
+                 {"u": torch.as_tensor(g, device=d)}) for d in (dev, torch.device("cpu"))]
+        assert on[0] == pytest.approx(on[1], abs=1e-9), spec
+        if spec in host:
+            assert on[0] == pytest.approx(host[spec], abs=1e-6), spec

@@ -2,8 +2,8 @@
 buckets, lane-batched damped Newton, scatter into the (E, d) matrix)
 against the JAX package's on the same buckets, at atol 1e-4; warm starts
 that keep untrained entities, per-entity diagnostics, priors,
-normalization, variances, scoring with out-of-range ids, and the solvers
-and shards the port refuses."""
+normalization, variances, scoring with out-of-range ids; L-BFGS, TRON and
+OWL-QN over lanes and sparse shards, and what Newton refuses."""
 
 from __future__ import annotations
 
@@ -206,14 +206,17 @@ def test_diagnostics_release():
 
 @pytest.mark.parametrize("solver,l1", [("LBFGS", 0.0), ("TRON", 0.0), ("LBFGS", 0.5)])
 def test_refuses_other_lane_solvers(solver, l1):
-    ids, X, y, off, wt = _problem(TaskType.LINEAR_REGRESSION, seed=8, n=60, d=3, E=5)
+    """L-BFGS, TRON and OWL-QN (LBFGS under an L1 weight) over entity
+    lanes train as the reference's do; Newton still refuses L1. Logistic:
+    on the linear problem of this seed, entity 3 (3 rows) under OWL-QN
+    turns on the sign of an intercept pseudo-gradient of ±5e-8, and TRON's
+    stopping tests on float32 rounding (ROADMAP queue 3)."""
+    task = TaskType.LOGISTIC_REGRESSION
+    ids, X, y, off, wt = _problem(task, seed=8, n=60, d=3, E=5)
+    jres, tres = _train_both(task, ids, X, y, off, wt, 5, config=dict(optimizer_type=solver),
+                             l2_weight=1.0, l1_weight=l1, intercept_index=2)
+    _assert_results_agree(jres, tres)
     b = tdata.bucket_entities(tdata.group_by_entity(ids))
-    with pytest.raises(NotImplementedError, match="item 10a"):
-        train_random_effects(
-            tdata.DenseFeatures(X=torch.as_tensor(X)), y, off, wt, b, 5,
-            loss_for_task(TaskType.LINEAR_REGRESSION),
-            OptimizerConfig(optimizer_type=OptimizerType(solver)), l1_weight=l1, device="cpu",
-        )
     with pytest.raises(ValueError, match="L1"):
         train_random_effects(
             tdata.DenseFeatures(X=torch.as_tensor(X)), y, off, wt, b, 5,
@@ -224,14 +227,26 @@ def test_refuses_other_lane_solvers(solver, l1):
 
 
 def test_refuses_sparse_shards_and_a_missing_card():
-    ids = np.array([0, 0, 1, 1], np.int32)
+    """A sparse shard trains under L-BFGS to the dense shard's solution;
+    Newton and FULL variances on it raise the reference's message."""
+    ids = np.array([0, 0, 0, 1, 1, 1], np.int32)
     b = tdata.bucket_entities(tdata.group_by_entity(ids))
-    sparse = tdata.SparseFeatures(torch.zeros((4, 2), dtype=torch.int64), torch.ones((4, 2)), 3)
-    args = (np.zeros(4), np.zeros(4), np.ones(4), b, 2, loss_for_task(TaskType.LINEAR_REGRESSION),
-            OptimizerConfig(optimizer_type=OptimizerType.NEWTON_CHOLESKY))
-    with pytest.raises(NotImplementedError, match="item 10a"):
-        train_random_effects(sparse, *args, device="cpu")
-    dense = tdata.DenseFeatures(X=torch.ones((4, 3)))
+    rng = np.random.default_rng(9)
+    X = rng.normal(size=(6, 3)).astype(np.float32)
+    sparse = tdata.SparseFeatures(torch.arange(3).repeat(6, 1), torch.as_tensor(X), 3)
+    dense = tdata.DenseFeatures(X=torch.as_tensor(X))
+    y = rng.normal(size=6).astype(np.float32)
+    args = (y, np.zeros(6), np.ones(6), b, 2, loss_for_task(TaskType.LINEAR_REGRESSION))
+    lbfgs = OptimizerConfig(tolerance=1e-6)
+    got = train_random_effects(sparse, *args, lbfgs, l2_weight=0.5, device="cpu")
+    want = train_random_effects(dense, *args, lbfgs, l2_weight=0.5, device="cpu")
+    np.testing.assert_allclose(got.coefficients.numpy(), want.coefficients.numpy(), atol=1e-5)
+    newton = OptimizerConfig(optimizer_type=OptimizerType.NEWTON_CHOLESKY)
+    with pytest.raises(NotImplementedError, match="full Hessian requires a DenseBatch"):
+        train_random_effects(sparse, *args, newton, device="cpu")
+    with pytest.raises(NotImplementedError, match="full Hessian requires a DenseBatch"):
+        train_random_effects(sparse, *args, lbfgs, device="cpu",
+                             variance_computation=VarianceComputationType.FULL)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            train_random_effects(dense, *args)
+            train_random_effects(dense, *args, newton)

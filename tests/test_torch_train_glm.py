@@ -169,6 +169,36 @@ def test_cli_twin_writes_the_reference_report(tmp_path, optimizer):
     assert (tmp_path / "port" / "_stage").read_text() == "VALIDATED"
 
 
+def test_cli_variance_flag_and_its_alias(tmp_path, monkeypatch):
+    """The reference's ``--variance SIMPLE`` and the port's older
+    ``--variance-computation SIMPLE`` both reach the solve as SIMPLE and
+    write the same report."""
+    from photon_ml_tpu_torch.cli import train_glm as cli_mod
+
+    rng = np.random.default_rng(22)
+    X = rng.normal(size=(120, 5)).astype(np.float32)
+    y = (rng.uniform(size=120) < 1 / (1 + np.exp(-X @ rng.normal(size=5)))).astype(np.float32)
+    train = tmp_path / "train.libsvm"
+    _write_libsvm(train, X, y, rng)
+    seen = []
+    real_run = cli_mod.run
+
+    def spy(*args, **kw):
+        seen.append(kw["variance_computation"])
+        return real_run(*args, **kw)
+
+    monkeypatch.setattr(cli_mod, "run", spy)
+    reports = []
+    for flag in ("--variance", "--variance-computation"):
+        out = tmp_path / flag.strip("-")
+        cli_main(["--task", "LOGISTIC_REGRESSION", "--train-data", str(train), "--weights", "1.0",
+                  "--max-iterations", "30", "--tolerance", "1e-3", flag, "SIMPLE",
+                  "--device", "cpu", "--output-dir", str(out)])
+        reports.append(json.loads((out / "report.json").read_text()))
+    assert seen == [VarianceComputationType.SIMPLE] * 2
+    assert reports[0] == reports[1]
+
+
 def test_cli_rejects_avro(tmp_path):
     with pytest.raises(ValueError, match="Avro"):
         cli_main(["--task", "LOGISTIC_REGRESSION", "--train-data", "x.avro", "--format", "avro",
