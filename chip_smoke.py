@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's dense and high-dimensional sparse GLM training
-paths and its GAME mixed-effect training path (random effects on damped
-Newton and on the default lane solvers) on one CUDA card.
+paths, its GAME mixed-effect training path (random effects on damped
+Newton and on the default lane solvers) and its GAME train and score
+drivers on Avro files on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -103,13 +104,34 @@ Run from the root of a checkout. It builds the CUDA kernels from
    offsets and warm start, atol 2e-3 / rtol 1e-2; in (a) the validation
    metrics MULTI_AUC(userId), PRECISION_AT_K(5,userId) and BUCKETED_AUC,
    computed on the card, against the numpy host versions (|d| <= 1e-6)
-   and the exact AUC (|d| <= 1e-4).
+   and the exact AUC (|d| <= 1e-4);
+16. main_game_cli: config E at its bench depth (64 global features, 8 per
+   user and 8 per item, 20,000 users and 4,000 items, Zipf 1.5; 2^18
+   training and 2^16 validation rows), generated on the card and written as Avro part
+   files (two each) with the port's codec, then driven as a user drives
+   them: ``cli.train.main`` (the fixed effect on L-BFGS over the grid
+   lambda in {0.1, 1}, the random effects on L-BFGS, 20 iterations at
+   1e-7, L2 1; 2 outer iterations; AUC and MULTI_AUC(userId); output mode
+   ALL), which must write every file the reference writes and run the fixed
+   effect on K1's tiles layout, one launch per objective pass; its best
+   model equal to ``GameEstimator.fit`` on the same arrays within atol
+   1e-5; a rerun at 3 outer iterations that logs its resume at outer
+   iteration 2 for each grid entry and equals a fresh 3-iteration fit
+   (rtol 1e-4, atol 1e-5); ``cli.score.main`` on the validation files,
+   whose scores equal the loaded model's in-memory scores (atol 1e-5) and
+   whose AUC equals the training run's best entry (1e-6); and
+   ``cli.train_glm --format avro`` (3 lambda) equal to ``train_glm`` on
+   the same batch (atol 1e-5). It prints the codec's write time and the
+   driver's read time per record, each driver stage's seconds, K1's launches and the peak
+   memory; the files live in a scratch directory of the checkout, removed
+   at the end.
 
 Every check that fails raises, and the script exits non-zero with no
 result. Its last lines are the kernel table as one JSON object (K1's
-``launches`` adds up its launches on the main paths A, the sweep, B, D, E
-and E on L-BFGS, which ``launches_by_path`` lists one by one; ``at_main_d_shape`` and
-``at_main_e_shape`` give its times at GAME's widths), the line
+``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
+E on L-BFGS and the GAME driver, which ``launches_by_path`` lists one by
+one; ``at_main_d_shape`` and ``at_main_e_shape`` give its times at GAME's
+widths), the line
 ``nvidia-smi --query-gpu=name,power.limit`` prints, and
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without CUDA or outside a checkout of the repository.
@@ -119,8 +141,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from dataclasses import replace
@@ -128,7 +152,11 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.cli import score as cli_score
+from photon_ml_tpu_torch.cli import train as cli_train
+from photon_ml_tpu_torch.cli import train_glm as cli_train_glm
 from photon_ml_tpu_torch.config import (
+    FeatureShardConfig,
     FixedEffectCoordinateConfig,
     GameTrainingConfig,
     OptimizationConfig,
@@ -136,6 +164,7 @@ from photon_ml_tpu_torch.config import (
     RandomEffectCoordinateConfig,
     RegularizationContext,
 )
+from photon_ml_tpu_torch.data.index_map import IndexMap
 from photon_ml_tpu_torch.data.synthetic import synthetic_game_data, synthetic_glm_data
 from photon_ml_tpu_torch.estimators import GameEstimator
 from photon_ml_tpu_torch.evaluation import (
@@ -147,6 +176,10 @@ from photon_ml_tpu_torch.evaluation import (
 )
 from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
 from photon_ml_tpu_torch.game.data import SparseFeatures, capacity_classes, make_game_batch
+from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
+from photon_ml_tpu_torch.io.model_io import load_game_model, load_glm
+from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.ops import _cuda, fused
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
@@ -154,13 +187,16 @@ from photon_ml_tpu_torch.ops.glm import make_objective
 from photon_ml_tpu_torch.ops.losses import LOSSES
 from photon_ml_tpu_torch.optim import select_minimize_fn
 from photon_ml_tpu_torch.supervised.training import train_glm
+from photon_ml_tpu_torch.transformers import GameTransformer
 from photon_ml_tpu_torch.types import (
+    ModelOutputMode,
     OptimizerType,
     RegularizationType,
     TaskType,
     VarianceComputationType,
 )
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 N = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1277,6 +1313,294 @@ def agreement_e_solvers(dev, newton: dict) -> dict:
         train_auc=newton["train_auc"], train_log_loss=newton["train_log_loss"]), **runs)
 
 
+# config E at its bench depth (64 global features and an intercept, 8 per user
+# and 8 per item, 20,000 users and 4,000 items, Zipf 1.5), with a quarter as
+# many validation rows, in Avro part files: the Python codec, not the card,
+# keeps the depth below ML-20M's
+GAME_CLI = dict(train=E_BENCH[0], val=E_BENCH[0] // 4, parts=2, effects=E_BENCH[1])
+GAME_CLI_BAGS = {"userId": "userFeatures", "itemId": "itemFeatures"}
+GAME_CLI_EVALUATORS = ("AUC", "MULTI_AUC(userId)")
+RESUME_LINE = "resuming coordinate descent from checkpoint at outer iteration 2"
+
+
+def game_cli_config(effects: dict, iterations: int) -> GameTrainingConfig:
+    """The GAME driver's configuration: the fixed effect on L-BFGS (20
+    iterations at 1e-7, L2 over the grid λ ∈ {0.1, 1}), each random effect
+    on the default L-BFGS at the same settings with L2 1 and E's bucket
+    ladder; validated by AUC and MULTI_AUC(userId); every grid entry's
+    model written (output mode ALL)."""
+    l2 = RegularizationContext(RegularizationType.L2)
+    opt = OptimizerConfig(max_iterations=20, tolerance=1e-7)
+    return GameTrainingConfig(
+        task_type=TaskType.LOGISTIC_REGRESSION,
+        coordinate_update_sequence=("fixed", *(f"per_{k}" for k in effects)),
+        coordinate_descent_iterations=iterations,
+        fixed_effect_coordinates={"fixed": FixedEffectCoordinateConfig(
+            "global", OptimizationConfig(optimizer=opt, regularization=l2))},
+        random_effect_coordinates={
+            f"per_{k}": RandomEffectCoordinateConfig(
+                random_effect_type=k, feature_shard_id=f"per_{k}",
+                optimization=OptimizationConfig(optimizer=opt, regularization=l2,
+                                                regularization_weight=1.0),
+                bucket_target_count=8, bucket_max_padded_ratio=0.5,
+            )
+            for k in effects
+        },
+        feature_shards={
+            "global": FeatureShardConfig(feature_bags=("features",), has_intercept=True),
+            **{f"per_{k}": FeatureShardConfig(feature_bags=(GAME_CLI_BAGS[k],), has_intercept=False)
+               for k in effects},
+        },
+        evaluators=GAME_CLI_EVALUATORS,
+        output_mode=ModelOutputMode.ALL,
+        regularization_weight_grid={"fixed": (0.1, 1.0)},
+    )
+
+
+def game_cli_records(host: dict, rows: range):
+    """``TrainingExampleAvro`` records of ``rows``: the global bag (the 64
+    features; the reader adds the intercept), one bag per effect and the
+    entity ids as metadata tags. Values are float32, so they cross the file
+    exactly."""
+    X, y = host["X"], host["y"]
+    for i in rows:
+        rec = {"uid": i, "response": y[i], "offset": None, "weight": None,
+               "features": [{"name": "g", "term": str(j), "value": v}
+                            for j, v in enumerate(X[i][:D_FIXED])],
+               "metadataMap": {k: f"{k}_{host['ids'][k][i]}" for k in GAME_CLI_BAGS}}
+        for k, bag in GAME_CLI_BAGS.items():
+            rec[bag] = [{"name": k, "term": str(j), "value": v} for j, v in enumerate(host["Xe"][k][i])]
+        yield rec
+
+
+def first_seen(ids: np.ndarray, n_train: int) -> np.ndarray:
+    """Entity ids renumbered as the Avro reader numbers them: in order of
+    first appearance in the training rows; ids absent from them become -1."""
+    uniq, first = np.unique(ids[:n_train], return_index=True)
+    rank = np.empty(len(uniq), np.int64)
+    rank[np.argsort(first)] = np.arange(len(uniq))
+    pos = np.clip(np.searchsorted(uniq, ids), 0, len(uniq) - 1)
+    return np.where(uniq[pos] == ids, rank[pos], -1)
+
+
+@contextmanager
+def recording_fits():
+    """Keeps each ``GameEstimator.fit``'s training batch and results."""
+    seen = []
+    fit = GameEstimator.fit
+
+    def recorded(self, batch, *args, **kwargs):
+        results = fit(self, batch, *args, **kwargs)
+        seen.append((batch, results))
+        return results
+
+    GameEstimator.fit = recorded
+    try:
+        yield seen
+    finally:
+        GameEstimator.fit = fit
+
+
+@contextmanager
+def stage_times(*modules):
+    """Seconds of each ``timed`` stage the drivers of ``modules`` log, the
+    card synchronized at its end."""
+    times = {}
+    saved = [(m, m.timed) for m in modules]
+
+    @contextmanager
+    def recording(logger, stage):
+        t0 = time.perf_counter()
+        with saved[0][1](logger, stage):
+            yield
+            torch.cuda.synchronize()
+        times[stage] = times.get(stage, 0.0) + time.perf_counter() - t0
+
+    for m, _ in saved:
+        m.timed = recording
+    try:
+        yield times
+    finally:
+        for m, fn in saved:
+            m.timed = fn
+
+
+def _max_diff(a: GameModel, b: GameModel) -> float:
+    return max(float((a[c].coefficient_means - b[c].coefficient_means.to(a[c].coefficient_means.device))
+                     .abs().max()) for c in a.models)
+
+
+def _close(a: GameModel, b: GameModel, rtol: float, atol: float) -> bool:
+    return all(torch.allclose(a[c].coefficient_means, b[c].coefficient_means, rtol=rtol, atol=atol)
+               for c in a.models)
+
+
+def run_game_cli(dev, work: str, sizes: dict = GAME_CLI) -> dict:
+    """The GAME train then score drivers on Avro part files, as a user runs
+    them (``cli.train.main``, ``cli.score.main``, ``cli.train_glm.main``),
+    each held to the library on the same arrays and the same card."""
+    effects, n_tr, n_va = sizes["effects"], sizes["train"], sizes["val"]
+    data = synthetic_game_data(7, n_tr + n_va, D_FIXED, effects, device=dev)
+    host = dict(X=data.X.cpu().numpy(), y=data.y.cpu().numpy().tolist(),
+                ids={k: v.cpu().numpy() for k, v in data.entity_ids.items()},
+                Xe={k: v.cpu().numpy() for k, v in data.entity_X.items()})
+    X_rows, Xe_rows = host["X"].tolist(), {k: v.tolist() for k, v in host["Xe"].items()}
+    schema = json.loads(json.dumps(TRAINING_EXAMPLE_SCHEMA))
+    for bag in GAME_CLI_BAGS.values():
+        schema["fields"].insert(5, {"name": bag, "type": {"type": "array", "items": "NameTermValueAvro"},
+                                    "default": []})
+    t0 = time.perf_counter()
+    for split, lo, n in (("train", 0, n_tr), ("val", n_tr, n_va)):
+        step = n // sizes["parts"]
+        for p in range(sizes["parts"]):
+            write_avro_file(os.path.join(work, split, f"part-{p:05d}.avro"), schema,
+                            game_cli_records(dict(host, X=X_rows, Xe=Xe_rows),
+                                             range(lo + p * step, lo + (p + 1) * step)))
+    write_s = time.perf_counter() - t0
+    avro_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(work) for f in fs)
+
+    # the same rows as arrays, entities numbered as the reader numbers them
+    ids = {k: first_seen(v, n_tr) for k, v in host["ids"].items()}
+    feats = {"global": data.X, **{f"per_{k}": data.entity_X[k] for k in effects}}
+    arrays = [make_game_batch(data.y[rows], {s: f[rows] for s, f in feats.items()},
+                              id_tags={k: v[rows] for k, v in ids.items()}, device=dev)
+              for rows in (slice(0, n_tr), slice(n_tr, None))]
+    gen_margin = data.X[n_tr:] @ data.w_fixed
+    for k, v in data.entity_ids.items():
+        gen_margin = gen_margin + torch.einsum("nd,nd->n", data.entity_X[k][n_tr:], data.w_entity[k][v[n_tr:]])
+    del data, feats
+
+    out = os.path.join(work, "out")
+    argv = lambda cfg: ["--config", cfg, "--train-data", os.path.join(work, "train"),  # noqa: E731
+                        "--validation-data", os.path.join(work, "val"), "--output-dir", out,
+                        "--device", dev.type]
+    cfg_paths = {}
+    for it in (2, 3):
+        cfg_paths[it] = os.path.join(work, f"config-{it}.json")
+        with open(cfg_paths[it], "w") as f:
+            json.dump(game_cli_config(effects, it).to_dict(), f)
+
+    # the driver, 2 outer iterations; K1's launches counted from 0
+    torch.cuda.reset_peak_memory_stats()
+    with recording_fits() as fits, stage_times(cli_train) as train_stages:
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_train.main(argv(cfg_paths[2]))
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    batch, results = fits[0]
+    fixed_passes = sum(t.objective_passes for r in results for t in r.descent.trackers["fixed"])
+    layout = k1_layout(batch.features["global"].X, batch.labels, batch.offsets, batch.weights)
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics2 = json.load(f)
+    maps = {fn[:-4]: IndexMap.load(os.path.join(out, "index-maps", fn))
+            for fn in os.listdir(os.path.join(out, "index-maps"))}
+    with open(os.path.join(out, "entity-maps.json")) as f:
+        ent = json.load(f)
+    entity_ids = {f"per_{k}": ent[k] for k in effects}
+
+    def load_best():
+        return load_game_model(os.path.join(out, "best"), index_maps=maps, entity_ids=entity_ids,
+                               device=dev)
+
+    driver2 = load_best()
+    files = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs)
+    expected = ["best/metadata.json", "entity-maps.json", "metrics.json", "photon.log",
+                "checkpoints/config-0000/ckpt.npz", "checkpoints/config-0001/ckpt.npz",
+                "models/0000/metadata.json", "models/0001/metadata.json",
+                *[f"index-maps/{s}.npz" for s in ("global", *(f"per_{k}" for k in effects))],
+                *[f"{m}/random-effect/per_{k}/coefficients/part-00000.avro"
+                  for m in ("best", "models/0000", "models/0001") for k in effects],
+                *[f"{m}/fixed-effect/fixed/coefficients/part-00000.avro"
+                  for m in ("best", "models/0000", "models/0001")]]
+    outputs_ok = (set(expected) <= set(files) and set(metrics2) == {"results", "best_index"}
+                  and all(set(r["metrics"]) == set(GAME_CLI_EVALUATORS) for r in metrics2["results"])
+                  and len(metrics2["results"]) == 2)
+
+    # the library on the same arrays, the same card
+    def library(iterations: int):
+        est = GameEstimator(game_cli_config(effects, iterations), intercept_indices={"global": D_FIXED},
+                            device=dev)
+        res = est.fit(arrays[0], validation_batch=arrays[1])
+        return res, est.select_best(res)
+
+    t0 = time.perf_counter()
+    lib2_results, lib2 = library(2)
+    torch.cuda.synchronize()
+    library_fit_s = time.perf_counter() - t0
+
+    # resume: 3 outer iterations into the same directory, against a fresh run
+    with stage_times(cli_train) as resume_stages:
+        cli_train.main(argv(cfg_paths[3]))
+    with open(os.path.join(out, "photon.log")) as f:
+        resumed_lines = f.read().count(RESUME_LINE)
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics3 = json.load(f)
+    driver3 = load_best()
+    lib3_results, lib3 = library(3)
+
+    # score the validation files with that directory
+    score_out = os.path.join(work, "scores")
+    with stage_times(cli_score) as score_stages:
+        cli_score.main(["--model-dir", out, "--data", os.path.join(work, "val"), "--output-dir", score_out,
+                        "--evaluators", *GAME_CLI_EVALUATORS, "--config", cfg_paths[3],
+                        "--device", dev.type])
+    _, recs = read_avro_file(os.path.join(score_out, "scores", "part-00000.avro"))
+    file_scores = torch.tensor([r["predictionScore"] for r in recs], dtype=torch.float64)
+    in_memory = GameTransformer(driver3, device=dev).transform(arrays[1]).double().cpu()
+    with open(os.path.join(score_out, "metrics.json")) as f:
+        score_metrics = json.load(f)
+    best3 = metrics3["results"][metrics3["best_index"]]["metrics"]
+
+    # the GLM twin on the training files' global shard, 3 λ
+    glm_out = os.path.join(work, "glm")
+    fused.reset_launch_counts()
+    with stage_times(cli_train_glm) as glm_stages:
+        cli_train_glm.main(["--task", "LOGISTIC_REGRESSION", "--format", "avro", "--train-data",
+                            os.path.join(work, "train"), "--weights", "0.1", "1", "10",
+                            "--max-iterations", "20", "--tolerance", "1e-7", "--device", dev.type,
+                            "--output-dir", glm_out])
+    glm_launches = launch_counts()
+    twin = load_glm(os.path.join(glm_out, "best", "model.avro"), index_map=maps["global"], device=dev)
+    ref = train_glm(arrays[0].batch_for("global"), TaskType.LOGISTIC_REGRESSION,
+                    optimizer_config=OptimizerConfig(max_iterations=20, tolerance=1e-7),
+                    regularization=RegularizationContext(RegularizationType.L2),
+                    regularization_weights=[0.1, 1.0, 10.0], intercept_index=D_FIXED, device=dev)
+
+    val_labels = arrays[1].labels
+    rows = n_tr + n_va
+    return dict(
+        rows_train=n_tr, rows_validation=n_va, entities={k: len(ent[k]) for k in effects},
+        avro_bytes=avro_bytes, write_s=write_s, write_ms_per_record=1e3 * write_s / rows,
+        train_wall_s=train_wall, train_stages_s=train_stages,
+        read_ms_per_record=1e3 * train_stages["read training data"] / n_tr,
+        ingest_share=(train_stages["read training data"] + train_stages["read validation data"]) / train_wall,
+        library_fit_s=library_fit_s, resume_stages_s=resume_stages, score_stages_s=score_stages,
+        glm_stages_s=glm_stages, launches=launches, fixed_objective_passes=fixed_passes,
+        k1_layout=layout, glm_launches=glm_launches, peak_memory_bytes=peak,
+        outputs_ok=outputs_ok, best_index=metrics2["best_index"],
+        validation_metrics={i: r["metrics"] for i, r in enumerate(metrics2["results"])},
+        auc_generating_model=float(auc_roc(gen_margin, val_labels)),
+        max_abs_diff_driver_vs_library=_max_diff(driver2, lib2.model),
+        library_best_index=next(i for i, r in enumerate(lib2_results) if r is lib2),
+        resumed_lines=resumed_lines,
+        resume_ok=_close(driver3, lib3.model, 1e-4, 1e-5)
+        and metrics3["best_index"] == next(i for i, r in enumerate(lib3_results) if r is lib3),
+        max_abs_diff_resumed_vs_fresh=_max_diff(driver3, lib3.model),
+        scores_rows=len(recs), scores_finite=bool(torch.isfinite(file_scores).all()),
+        max_abs_diff_scores_file_vs_memory=float((file_scores - in_memory).abs().max()),
+        score_auc=score_metrics["AUC"], train_best_auc=best3["AUC"],
+        score_multi_auc=score_metrics["MULTI_AUC(userId)"],
+        d_auc_score_vs_train=abs(score_metrics["AUC"] - best3["AUC"]),
+        max_abs_diff_glm_twin_vs_train_glm=float(
+            (twin.coefficients.means - ref.best_model.coefficients.means).abs().max()),
+    )
+
+
 def _check_game_launches(phase: str, rec: dict) -> None:
     """Every fixed-effect objective pass ran on K1, and nothing else
     launched a kernel."""
@@ -1431,12 +1755,37 @@ def main() -> int:
     if failed:
         raise AssertionError(f"agreement_e_solvers failed: {failed}")
 
-    # launches over the main path: A, the sweep and B, then D, E and E on
-    # L-BFGS (each path counted from 0 just before it ran)
+    # main path GAME CLI: the train and score drivers on Avro part files
+    work = tempfile.mkdtemp(prefix="_game_cli-", dir=ROOT)
+    try:
+        cli = run_game_cli(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("main_game_cli", **cli)
+    _check_game_launches("main_game_cli", cli)
+    best_auc = cli["validation_metrics"][cli["best_index"]]["AUC"]
+    failed = [name for name, ok in (
+        ("outputs", cli["outputs_ok"]),
+        ("k1_tiles", cli["k1_layout"] == "tiles"),
+        ("driver_vs_library", cli["max_abs_diff_driver_vs_library"] <= 1e-5
+         and cli["best_index"] == cli["library_best_index"]),
+        ("resume", cli["resumed_lines"] == 2 and cli["resume_ok"]),
+        ("scores", cli["scores_rows"] == GAME_CLI["val"] and cli["scores_finite"]
+         and cli["max_abs_diff_scores_file_vs_memory"] <= 1e-5 and cli["d_auc_score_vs_train"] <= 1e-6),
+        ("glm_twin", cli["max_abs_diff_glm_twin_vs_train_glm"] <= 1e-5
+         and cli["glm_launches"]["fused_value_grad"] > 0),
+        ("quality", best_auc >= 0.9 * cli["auc_generating_model"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_game_cli failed: {failed}")
+
+    # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS
+    # and the GAME driver (each path counted from 0 just before it ran)
     by_path = {
         k: {"main_a": a["launches"][k], "main_a_sweep": sweep["launches"][k],
             "main_b": b["launches"][k], "main_d": d_rec["launches"][k],
-            "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k]}
+            "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k],
+            "main_game_cli": cli["launches"][k]}
         for k in KERNEL_ROWS
     }
     kernels = [

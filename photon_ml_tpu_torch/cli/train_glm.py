@@ -1,12 +1,15 @@
 """Single-GLM training command (port of ``photon_ml_tpu/cli/train_glm.py``
-``run`` on its in-memory LIBSVM path).
+``run`` on its in-memory path, LIBSVM or Avro input).
 
 Trains one GLM per regularization weight (ascending, warm-started),
-validates each, selects the best, and writes ``report.json`` with the
-reference's keys, advancing ``_stage`` through INIT, PROCESSED, TRAINED
-and VALIDATED. Avro input (``--format avro``) and the Avro model files the
-reference writes wait for a later slice: the command rejects Avro input,
-and the trained models stay in the returned result.
+validates each, selects the best, and writes the reference's files:
+``models/lambda-<λ>/model.avro`` per weight, ``best/model.avro`` and
+``report.json``, advancing ``_stage`` through INIT, PROCESSED, TRAINED and
+VALIDATED. Avro input trains on the ``global`` shard of ``AvroDataReader``
+(the ``features`` bag with an intercept), and its model files name the real
+features; LIBSVM models name them ``f<index>``. ``--summarize-features``,
+``--validate``, ``--prior-model`` and ``--diagnostics`` wait for ROADMAP
+queue 1 item 10b.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_glm \\
@@ -24,9 +27,12 @@ from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.config import OptimizerConfig, RegularizationContext
 from photon_ml_tpu_torch.data.libsvm import read_libsvm
 from photon_ml_tpu_torch.data.summary import summarize
+from photon_ml_tpu_torch.io.data_reader import AvroDataReader
+from photon_ml_tpu_torch.io.model_io import save_glm
 from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes as _hbm_budget_bytes
 from photon_ml_tpu_torch.ops.batch import optimize_batch_layout
 from photon_ml_tpu_torch.supervised.training import train_glm
+from photon_ml_tpu_torch.utils import PhotonLogger, timed
 from photon_ml_tpu_torch.types import (
     NormalizationType,
     OptimizerType,
@@ -50,52 +56,80 @@ def run(
     normalization: NormalizationType = NormalizationType.NONE,
     variance_computation: VarianceComputationType = VarianceComputationType.NONE,
     device=None,
+    logger: PhotonLogger | None = None,
 ):
-    if data_format != "libsvm":
-        raise ValueError(
-            f"--format {data_format}: the port reads LIBSVM only; Avro input "
-            "and Avro model output come with a later slice"
-        )
-    if len(train_data) != 1 or (validation_data and len(validation_data) != 1):
+    if data_format not in ("libsvm", "avro"):
+        raise ValueError(f"unknown --format {data_format!r}")
+    if data_format == "libsvm" and (
+        len(train_data) != 1 or (validation_data and len(validation_data) != 1)
+    ):
         raise ValueError("libsvm input takes exactly one file")
     dev = resolve_device(device)
+    logger = logger or PhotonLogger(output_dir)
     stage_file = os.path.join(output_dir, "_stage")
 
     def advance(stage: str) -> None:
         os.makedirs(output_dir, exist_ok=True)
         with open(stage_file, "w") as f:
             f.write(stage)
+        logger.info(f"stage → {stage}")
 
     advance("INIT")
-    batch, intercept_index = read_libsvm(train_data[0], device=dev)
+    imap = None
+    with timed(logger, "read training data"):
+        if data_format == "avro":
+            train_ds = AvroDataReader().read(train_data, device=dev)
+            sid = next(iter(train_ds.index_maps))
+            batch, intercept_index = train_ds.batch.batch_for(sid), train_ds.intercept_indices[sid]
+            imap = train_ds.index_maps[sid]
+        else:
+            batch, intercept_index = read_libsvm(train_data[0], device=dev)
     norm_context = None
     if normalization is not NormalizationType.NONE:
-        norm_context = summarize(batch).normalization(normalization, intercept_index, device=dev)
+        with timed(logger, "summarize features"):
+            norm_context = summarize(batch).normalization(normalization, intercept_index, device=dev)
     advance("PROCESSED")
 
     val_batch = None
     if validation_data:
-        # pin the validation feature space to the training one
-        d_raw = batch.num_features - (1 if intercept_index is not None else 0)
-        val_batch, _ = read_libsvm(validation_data[0], num_features=d_raw, device=dev)
+        with timed(logger, "read validation data"):
+            if data_format == "avro":
+                val_ds = AvroDataReader().read(validation_data, index_maps=train_ds.index_maps,
+                                               device=dev)
+                val_batch = val_ds.batch.batch_for(sid)
+            else:
+                # pin the validation feature space to the training one
+                d_raw = batch.num_features - (1 if intercept_index is not None else 0)
+                val_batch, _ = read_libsvm(validation_data[0], num_features=d_raw, device=dev)
 
     # layout decision after the summary (which reads the raw rows)
-    batch = optimize_batch_layout(batch, hbm_budget_bytes=_hbm_budget_bytes(dev))
-    result = train_glm(
-        batch,
-        task,
-        optimizer_config=OptimizerConfig(
-            optimizer_type=optimizer, max_iterations=max_iterations, tolerance=tolerance
-        ),
-        regularization=RegularizationContext(regularization),
-        regularization_weights=list(weights),
-        normalization=norm_context,
-        intercept_index=intercept_index,
-        validation_batch=val_batch,
-        variance_computation=variance_computation,
-        device=dev,
-    )
+    with timed(logger, "optimize batch layout"):
+        batch = optimize_batch_layout(batch, hbm_budget_bytes=_hbm_budget_bytes(dev))
+    with timed(logger, "train"):
+        result = train_glm(
+            batch,
+            task,
+            optimizer_config=OptimizerConfig(
+                optimizer_type=optimizer, max_iterations=max_iterations, tolerance=tolerance
+            ),
+            regularization=RegularizationContext(regularization),
+            regularization_weights=list(weights),
+            normalization=norm_context,
+            intercept_index=intercept_index,
+            validation_batch=val_batch,
+            variance_computation=variance_computation,
+            device=dev,
+        )
     advance("TRAINED")
+
+    with timed(logger, "write models"):
+        for lam, model in result.models.items():
+            save_glm(
+                model, os.path.join(output_dir, "models", f"lambda-{lam:g}", "model.avro"),
+                index_map=imap, model_id=f"lambda-{lam:g}",
+            )
+        save_glm(result.best_model, os.path.join(output_dir, "best", "model.avro"), index_map=imap,
+                 model_id="best")
 
     report = {
         "task": task.value,
@@ -120,7 +154,7 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--validation-data", nargs="*", default=None)
     p.add_argument(
         "--format", default="libsvm", choices=["libsvm", "avro"],
-        help="input format; avro is rejected until a later slice ports it",
+        help="input format: a LIBSVM file, or Avro files or directories of part files",
     )
     p.add_argument(
         "--regularization", default="L2", choices=[r.value for r in RegularizationType]

@@ -5,20 +5,26 @@ Everything that does not depend on the optimization configuration (data
 validation, per-shard normalization statistics, entity grouping and
 bucketing) is done once per ``fit`` and shared by every grid entry; the
 random-effect coordinates' bucket tensors are gathered on the device once
-and shared too. Checkpoints and their fingerprints wait (ROADMAP queue 1
-item 10a.4).
+and shared too. With ``checkpoint_dir`` each grid entry checkpoints its
+descent under ``config-NNNN/``, fingerprinted by the reference's recipe
+(the same string for the same configuration and data), so either package
+resumes the other's checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
+import json
 from dataclasses import dataclass
 from typing import Callable, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch._device import check_device
+from photon_ml_tpu_torch.checkpoint import batch_digest
 from photon_ml_tpu_torch.config import (
     GameTrainingConfig,
     OptimizationConfig,
@@ -85,6 +91,58 @@ def build_configuration_grid(config: GameTrainingConfig) -> list[dict[str, Optim
         else:
             axes.append([base])
     return [dict(zip(cids, combo)) for combo in itertools.product(*axes)]
+
+
+# GameTrainingConfig fields that do not change the optimization trajectory:
+# left out of the checkpoint fingerprint, so a rerun that only extends the
+# iterations (resume and extend), or changes the evaluators or the output
+# mode, still resumes
+_NON_TRAJECTORY_CONFIG_FIELDS = (
+    "coordinate_descent_iterations",
+    "evaluators",
+    "output_mode",
+    "hyperparameter_tuning_iters",
+    "model_input_dir",  # the warm-start model itself is hashed by value
+)
+
+
+def _fingerprint_base(
+    config: GameTrainingConfig,
+    batch: GameBatch,
+    seed: int,
+    initial_model: GameModel | None,
+) -> dict:
+    """The part of the checkpoint fingerprint that every grid entry shares:
+    the trajectory-affecting config fields, the seed, a hash of the
+    warm-start coefficients and a cheap signature of the data."""
+    warm = None
+    if initial_model is not None:
+        warm = {
+            cid: hashlib.sha256(
+                np.ascontiguousarray(sub.coefficient_means.detach().cpu().numpy()).tobytes()
+            ).hexdigest()
+            for cid, sub in sorted(initial_model.models.items())
+        }
+    cfg_dict = config.to_dict()
+    for key in _NON_TRAJECTORY_CONFIG_FIELDS:
+        cfg_dict.pop(key, None)
+    return {
+        "training_config": cfg_dict,
+        "seed": seed,
+        "initial_model": warm,
+        "data": {
+            "num_rows": batch.num_rows,
+            "digest": batch_digest(batch.labels, batch.weights),
+            "shards": {sid: feats.num_features for sid, feats in sorted(batch.features.items())},
+        },
+    }
+
+
+def _fit_fingerprint(base: dict, configuration: GameOptimizationConfiguration) -> str:
+    """One grid entry's fingerprint: the shared base and its own
+    per-coordinate optimization configs."""
+    payload = dict(base, configuration={cid: oc.to_dict() for cid, oc in configuration.items()})
+    return hashlib.sha256(json.dumps(payload, sort_keys=True, default=str).encode()).hexdigest()
 
 
 class GameEstimator:
@@ -207,11 +265,14 @@ class GameEstimator:
         validation_batch: GameBatch | None = None,
         configurations: Sequence[GameOptimizationConfiguration] | None = None,
         initial_model: GameModel | None = None,
+        checkpoint_dir: str | None = None,
     ) -> list[GameResult]:
         """One GAME model per grid configuration (default: the
         ``regularization_weight_grid`` cross-product). ``initial_model``
         warm-starts every entry and, with ``incremental``, is each
-        coordinate's Gaussian MAP prior."""
+        coordinate's Gaussian MAP prior. ``checkpoint_dir`` checkpoints entry
+        i's descent after every outer iteration under
+        ``checkpoint_dir/config-{i:04d}`` and resumes from what is there."""
         check_device(batch.device, self.device)
         if validation_batch is not None:
             check_device(validation_batch.device, self.device)
@@ -225,6 +286,10 @@ class GameEstimator:
         norm_contexts = self._normalization_contexts(batch)
         entity_layouts = self._entity_layouts(batch)
         specs = self._evaluator_specs()
+        fingerprint_base = (
+            None if checkpoint_dir is None
+            else _fingerprint_base(cfg, batch, self.seed, initial_model)
+        )
         results: list[GameResult] = []
         re_cache: dict[str, RandomEffectCoordinate] = {}
         for i, configuration in enumerate(configurations):
@@ -240,6 +305,11 @@ class GameEstimator:
             cd_result = descent.run(
                 cfg.coordinate_update_sequence, cfg.coordinate_descent_iterations,
                 initial_model=initial_model,
+                checkpoint_dir=None if checkpoint_dir is None else f"{checkpoint_dir}/config-{i:04d}",
+                checkpoint_fingerprint=(
+                    None if fingerprint_base is None
+                    else _fit_fingerprint(fingerprint_base, configuration)
+                ),
             )
             evaluation = None
             if validation_batch is not None:

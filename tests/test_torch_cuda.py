@@ -430,3 +430,73 @@ def test_device_evaluators_on_the_card_match_the_cpu(dev):
         assert on[0] == pytest.approx(on[1], abs=1e-9), spec
         if spec in host:
             assert on[0] == pytest.approx(host[spec], abs=1e-6), spec
+
+
+def test_game_drivers_on_the_card_match_the_cpu(dev, tmp_path):
+    """The GAME train then score drivers on Avro files, on the card and on
+    the CPU: the same metrics.json keys and best index, metrics within 1e-3,
+    the best model and the scores within the Newton card tolerance (1e-3),
+    and the fixed effect's passes on K1."""
+    import json
+
+    from photon_ml_tpu_torch import config as c
+    from photon_ml_tpu_torch.cli import score, train
+    from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+    from photon_ml_tpu_torch.types import ModelOutputMode
+
+    rng = np.random.default_rng(5)
+    n, users = 3000, 40
+    X = rng.normal(size=(n, 4)).astype(np.float32)
+    U = rng.normal(size=(n, 2)).astype(np.float32)
+    ids = rng.integers(0, users, size=n)
+    w_user = rng.normal(size=(users, 2))
+    y = rng.uniform(size=n) < 1 / (1 + np.exp(-(X @ rng.normal(size=4) + np.einsum("nd,nd->n", U, w_user[ids]))))
+    schema = json.loads(json.dumps(TRAINING_EXAMPLE_SCHEMA))
+    schema["fields"].insert(5, {"name": "userFeatures", "type": {"type": "array", "items": "NameTermValueAvro"},
+                                "default": []})
+
+    def write(path, rows):
+        write_avro_file(str(path), schema, [{
+            "uid": f"s{i}", "response": float(y[i]),
+            "features": [{"name": "g", "term": str(j), "value": float(X[i, j])} for j in range(4)],
+            "userFeatures": [{"name": "u", "term": str(j), "value": float(U[i, j])} for j in range(2)],
+            "metadataMap": {"userId": f"user_{ids[i]}"},
+        } for i in rows])
+
+    write(tmp_path / "train.avro", range(0, 2400))
+    write(tmp_path / "val.avro", range(2400, n))
+    doc = _game_config(("userId",)).to_dict()
+    # L2 on the fixed effect, so that the grid's two entries differ
+    doc["fixed_effect_coordinates"]["fixed"]["optimization"]["regularization"]["regularization_type"] = "L2"
+    cfg = c.parse_config(dict(
+        doc,
+        feature_shards={"global": {"feature_bags": ["features"], "has_intercept": True},
+                        "per_userId": {"feature_bags": ["userFeatures"], "has_intercept": False}},
+        evaluators=["AUC", "MULTI_AUC(userId)"], output_mode=ModelOutputMode.ALL.value,
+        regularization_weight_grid={"fixed": [0.1, 10.0]},
+    ))
+    out = {}
+    for where in ("cuda", "cpu"):
+        fused.reset_launch_counts()
+        train.run(cfg, [str(tmp_path / "train.avro")], str(tmp_path / where),
+                  validation_data=[str(tmp_path / "val.avro")], device=where)
+        launches = dict(fused.launch_counts)
+        scores, metrics = score.run(str(tmp_path / where), [str(tmp_path / "val.avro")],
+                                    str(tmp_path / f"score-{where}"), evaluators=["AUC"],
+                                    feature_shards=dict(cfg.feature_shards), device=where)
+        out[where] = dict(launches=launches, scores=scores.cpu(), metrics=metrics,
+                          train=json.loads((tmp_path / where / "metrics.json").read_text()),
+                          file=read_avro_file(str(tmp_path / f"score-{where}" / "scores" / "part-00000.avro"))[1])
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu["launches"]["fused_value_grad"] > 0 and gpu["launches"]["fused_hvp"] == 0
+    assert not any(cpu["launches"].values())
+    assert gpu["train"]["best_index"] == cpu["train"]["best_index"]
+    for g, r in zip(gpu["train"]["results"], cpu["train"]["results"]):
+        assert g["configuration"] == r["configuration"] and g["metrics"].keys() == r["metrics"].keys()
+        for k, v in r["metrics"].items():
+            assert abs(g["metrics"][k] - v) <= 1e-3
+    torch.testing.assert_close(gpu["scores"], cpu["scores"], rtol=0.0, atol=1e-3)
+    assert [r["uid"] for r in gpu["file"]] == [r["uid"] for r in cpu["file"]]
+    np.testing.assert_allclose([r["predictionScore"] for r in gpu["file"]], gpu["scores"].numpy(), atol=1e-6)
+    assert abs(gpu["metrics"]["AUC"] - cpu["metrics"]["AUC"]) <= 1e-3

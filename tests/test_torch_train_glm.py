@@ -200,9 +200,13 @@ def test_cli_variance_flag_and_its_alias(tmp_path, monkeypatch):
 
 
 def test_cli_rejects_avro(tmp_path):
-    with pytest.raises(ValueError, match="Avro"):
-        cli_main(["--task", "LOGISTIC_REGRESSION", "--train-data", "x.avro", "--format", "avro",
-                  "--device", "cpu", "--output-dir", str(tmp_path)])
+    """``--format avro`` reads Avro now; what it rejects is a file that is not
+    an Avro container, with the reader's error."""
+    bad = tmp_path / "x.avro"
+    bad.write_bytes(b"1 1:0.5\n")
+    with pytest.raises(ValueError, match="not an Avro container"):
+        cli_main(["--task", "LOGISTIC_REGRESSION", "--train-data", str(bad), "--format", "avro",
+                  "--device", "cpu", "--output-dir", str(tmp_path / "out")])
 
 
 def test_read_libsvm_matches_reference(tmp_path):
@@ -253,3 +257,79 @@ def test_synthetic_data_from_a_seed_is_reproducible():
     assert ia == 5 and a.X.dtype == torch.bfloat16 and a.X.shape == (64, 6)
     assert torch.equal(a.X, b.X) and torch.equal(a.labels, b.labels) and torch.equal(wa, wb)
     assert bool((a.X[:, 5] == 1).all()) and bool((a.labels >= 0).all())
+
+
+def _write_avro_glm(path, X, y):
+    from photon_ml_tpu.io.avro import write_avro_file as ref_write
+    from photon_ml_tpu.io.schemas import TRAINING_EXAMPLE_SCHEMA
+
+    recs = [
+        {"uid": f"r{i}", "response": float(label), "offset": None, "weight": None,
+         "features": [{"name": "x", "term": str(j), "value": float(row[j])} for j in range(len(row))
+                      if row[j] != 0.0],
+         "metadataMap": None}
+        for i, (row, label) in enumerate(zip(X, y))
+    ]
+    ref_write(str(path), TRAINING_EXAMPLE_SCHEMA, recs)
+
+
+def _model_files(root):
+    import os
+
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs if f.endswith(".avro"))
+
+
+@pytest.mark.parametrize("fmt", ["avro", "libsvm"])
+def test_cli_twin_writes_the_reference_model_files(tmp_path, fmt):
+    """``--format avro`` (the ``global`` shard of the Avro reader) and LIBSVM:
+    the per-λ and best model files of the reference, by layout and records,
+    with coefficients within atol 1e-4."""
+    from photon_ml_tpu.io.avro import read_avro_file as ref_read
+    from photon_ml_tpu.io.model_io import load_glm as ref_load_glm
+    from photon_ml_tpu_torch.io.model_io import load_glm
+
+    rng = np.random.default_rng(23)
+    X = rng.normal(size=(200, 6)).astype(np.float32)
+    X[rng.uniform(size=X.shape) < 0.2] = 0.0
+    y = (rng.uniform(size=200) < 1 / (1 + np.exp(-X @ rng.normal(size=6)))).astype(np.float32)
+    ext = "avro" if fmt == "avro" else "libsvm"
+    train, val = tmp_path / f"train.{ext}", tmp_path / f"val.{ext}"
+    if fmt == "avro":
+        _write_avro_glm(train, X[:150], y[:150])
+        _write_avro_glm(val, X[150:], y[150:])
+    else:
+        _write_libsvm(train, X[:150], y[:150], rng)
+        _write_libsvm(val, X[150:], y[150:], rng)
+    jax_run(JTask.LOGISTIC_REGRESSION, [str(train)], str(tmp_path / "jax"), data_format=fmt,
+            validation_data=[str(val)], weights=[0.1, 1.0, 10.0], max_iterations=60, tolerance=1e-3)
+    cli_main(["--task", "LOGISTIC_REGRESSION", "--train-data", str(train), "--format", fmt,
+              "--validation-data", str(val), "--weights", "0.1", "1.0", "10.0",
+              "--max-iterations", "60", "--tolerance", "1e-3", "--device", "cpu",
+              "--output-dir", str(tmp_path / "port")])
+    files = _model_files(tmp_path / "jax")
+    assert _model_files(tmp_path / "port") == files
+    assert files == ["best/model.avro", "models/lambda-0.1/model.avro", "models/lambda-1/model.avro",
+                     "models/lambda-10/model.avro"]
+    ref = json.loads((tmp_path / "jax" / "report.json").read_text())
+    assert json.loads((tmp_path / "port" / "report.json").read_text())["best_weight"] == ref["best_weight"]
+    for f in files:
+        got = ref_read(str(tmp_path / "port" / f))[1][0]
+        want = ref_read(str(tmp_path / "jax" / f))[1][0]
+        assert {k: got[k] for k in ("modelId", "modelClass", "lossFunction", "variances")} == \
+            {k: want[k] for k in ("modelId", "modelClass", "lossFunction", "variances")}
+        assert [(r["name"], r["term"]) for r in got["means"]] == [(r["name"], r["term"]) for r in want["means"]]
+        np.testing.assert_allclose([r["value"] for r in got["means"]], [r["value"] for r in want["means"]],
+                                   atol=1e-4)
+    # the port's loader reads the reference's best model as the reference does
+    d = len(ref_read(str(tmp_path / "jax" / "best" / "model.avro"))[1][0]["means"])
+    if fmt == "libsvm":
+        np.testing.assert_array_equal(
+            load_glm(str(tmp_path / "jax" / "best" / "model.avro"), num_features=d, device="cpu")
+            .coefficients.means.numpy(),
+            np.asarray(ref_load_glm(str(tmp_path / "jax" / "best" / "model.avro"), num_features=d)
+                       .coefficients.means),
+        )
+    if fmt == "avro":
+        names = {r["name"] for r in ref_read(str(tmp_path / "port" / "best" / "model.avro"))[1][0]["means"]}
+        assert names == {"x", "(INTERCEPT)"}
