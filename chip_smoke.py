@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's dense and high-dimensional sparse GLM training
 paths, its GAME mixed-effect training path (random effects on damped
-Newton and on the default lane solvers) and its GAME train and score
-drivers on Avro files on one CUDA card.
+Newton, on the default lane solvers and in per-entity subspaces and random
+projections) and its GAME train and score drivers on Avro files, read by
+the native columnar decoder, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,8 @@ Run from the root of a checkout. It builds the CUDA kernels from
 
 1. device: the card's name and power limit;
 2. build: the kernels compiled with nvcc for sm_90a (one nvcc per source,
-   started together), with the spill lines of each source's report;
+   started together), with the spill lines of each source's report, and
+   beside them the native Avro decoder with g++;
 3. parity: K1 (fused value+gradient) and K2 (fused Hessian-vector) against
    their plain PyTorch versions on the card, at the headline shape
    (n = 2^20, d = 512, bfloat16 X), config B's (n = 2^20, d = 256, float32),
@@ -105,32 +107,51 @@ Run from the root of a checkout. It builds the CUDA kernels from
    metrics MULTI_AUC(userId), PRECISION_AT_K(5,userId) and BUCKETED_AUC,
    computed on the card, against the numpy host versions (|d| <= 1e-6)
    and the exact AUC (|d| <= 1e-4);
+15b. main_e_projected: main_e_lbfgs's batch and schedule with each user in
+   the subspace of its ceil(capacity / 4) most frequent columns and the
+   items over a shared random projection to 4 of their 8 columns: wall per
+   outer iteration and per visit, each bucket's solve width, the peak
+   memory; train AUC >= 0.95 x the generating model's (its difference from
+   main_e_lbfgs reported, not gated); the stored original-space item
+   coefficients score as (XP)·w_p of the lane solutions on the card, within
+   1e-5 x the largest score;
 16. main_game_cli: config E at its bench depth (64 global features, 8 per
    user and 8 per item, 20,000 users and 4,000 items, Zipf 1.5; 2^18
-   training and 2^16 validation rows), generated on the card and written as Avro part
-   files (two each) with the port's codec, then driven as a user drives
-   them: ``cli.train.main`` (the fixed effect on L-BFGS over the grid
-   lambda in {0.1, 1}, the random effects on L-BFGS, 20 iterations at
-   1e-7, L2 1; 2 outer iterations; AUC and MULTI_AUC(userId); output mode
-   ALL), which must write every file the reference writes and run the fixed
-   effect on K1's tiles layout, one launch per objective pass; its best
-   model equal to ``GameEstimator.fit`` on the same arrays within atol
-   1e-5; a rerun at 3 outer iterations that logs its resume at outer
-   iteration 2 for each grid entry and equals a fresh 3-iteration fit
-   (rtol 1e-4, atol 1e-5); ``cli.score.main`` on the validation files,
-   whose scores equal the loaded model's in-memory scores (atol 1e-5) and
-   whose AUC equals the training run's best entry (1e-6); and
-   ``cli.train_glm --format avro`` (3 lambda) equal to ``train_glm`` on
-   the same batch (atol 1e-5). It prints the codec's write time and the
-   driver's read time per record, each driver stage's seconds, K1's launches and the peak
-   memory; the files live in a scratch directory of the checkout, removed
-   at the end.
+   training and 2^16 validation rows), generated on the card and written as
+   Avro part files (two each) with the port's codec; one training part read
+   on the host by the native decoder and by the Python codec (its plain
+   version), equal bit for bit, each with its ms a record; then the drivers
+   driven as a user drives them, every read on the native decoder:
+   ``cli.train.main`` (the fixed effect on L-BFGS over the grid lambda in
+   {0.1, 1}, the random effects on L-BFGS, 20 iterations at 1e-7, L2 1; 2
+   outer iterations; AUC and MULTI_AUC(userId); output mode ALL), which must
+   write every file the reference writes and run the fixed effect on K1's
+   tiles layout, one launch per objective pass; its best model equal to
+   ``GameEstimator.fit`` on the same arrays within atol 1e-5; a rerun at 3
+   outer iterations that logs its resume at outer iteration 2 for each grid
+   entry and equals a fresh 3-iteration fit (rtol 1e-4, atol 1e-5);
+   ``cli.score.main`` on the validation files, whose scores equal the loaded
+   model's in-memory scores (atol 1e-5) and whose AUC equals the training
+   run's best entry (1e-6); and ``cli.train_glm --format avro`` (3 lambda)
+   equal to ``train_glm`` on the same batch (atol 1e-5). It prints the
+   codec's write time and the driver's read time per record, each driver
+   stage's seconds, K1's launches and the peak memory;
+17. main_game_cli_full: the train driver again over the same files with
+   main_e_projected's projectors, 4 hyperparameter-tuning refits after the
+   grid and ``--diagnostics``: the six configurations, the best index and
+   the best model (atol 1e-5) equal to ``GameEstimator.fit`` plus
+   ``tune_game_hyperparameters`` on the same arrays and card, the report
+   files written, K1's launches equal to the fixed-effect passes of all six
+   fits; then the GLM twin with ``--summarize-features``, ``--validate
+   VALIDATE_FULL``, ``--diagnostics`` and ``--prior-model`` (phase 16's twin
+   model), equal to ``train_glm`` with the same prior (atol 1e-5). The files
+   live in a scratch directory of the checkout, removed at the end.
 
 Every check that fails raises, and the script exits non-zero with no
 result. Its last lines are the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
-E on L-BFGS and the GAME driver, which ``launches_by_path`` lists one by
-one; ``at_main_d_shape`` and ``at_main_e_shape`` give its times at GAME's
+E on L-BFGS, E projected and the GAME drivers, which ``launches_by_path``
+lists one by one; ``at_main_d_shape`` and ``at_main_e_shape`` give its times at GAME's
 widths), the line
 ``nvidia-smi --query-gpu=name,power.limit`` prints, and
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
@@ -146,8 +167,9 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
-from dataclasses import replace
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -174,12 +196,17 @@ from photon_ml_tpu_torch.evaluation import (
     make_evaluator,
     rmse,
 )
+from photon_ml_tpu_torch.game import coordinate as game_coordinate
 from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
 from photon_ml_tpu_torch.game.data import SparseFeatures, capacity_classes, make_game_batch
 from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.game.projector import RandomProjector
+from photon_ml_tpu_torch.hyperparameter.tuning import tune_game_hyperparameters
 from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
+from photon_ml_tpu_torch.io.data_reader import AvroDataReader
 from photon_ml_tpu_torch.io.model_io import load_game_model, load_glm
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+from photon_ml_tpu_torch.native import build as native_build
 from photon_ml_tpu_torch.ops import _cuda, fused
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
@@ -1323,12 +1350,16 @@ GAME_CLI_EVALUATORS = ("AUC", "MULTI_AUC(userId)")
 RESUME_LINE = "resuming coordinate descent from checkpoint at outer iteration 2"
 
 
-def game_cli_config(effects: dict, iterations: int) -> GameTrainingConfig:
+def game_cli_config(effects: dict, iterations: int, projections: dict | None = None,
+                    tuning_iters: int = 0) -> GameTrainingConfig:
     """The GAME driver's configuration: the fixed effect on L-BFGS (20
     iterations at 1e-7, L2 over the grid λ ∈ {0.1, 1}), each random effect
     on the default L-BFGS at the same settings with L2 1 and E's bucket
     ladder; validated by AUC and MULTI_AUC(userId); every grid entry's
-    model written (output mode ALL)."""
+    model written (output mode ALL). ``projections`` (id tag → projector
+    fields of its random effect) and ``tuning_iters`` (the Bayesian search's
+    refits after the grid) add the options of ``main_game_cli_full``."""
+    projections = projections or {}
     l2 = RegularizationContext(RegularizationType.L2)
     opt = OptimizerConfig(max_iterations=20, tolerance=1e-7)
     return GameTrainingConfig(
@@ -1342,7 +1373,7 @@ def game_cli_config(effects: dict, iterations: int) -> GameTrainingConfig:
                 random_effect_type=k, feature_shard_id=f"per_{k}",
                 optimization=OptimizationConfig(optimizer=opt, regularization=l2,
                                                 regularization_weight=1.0),
-                bucket_target_count=8, bucket_max_padded_ratio=0.5,
+                bucket_target_count=8, bucket_max_padded_ratio=0.5, **projections.get(k, {}),
             )
             for k in effects
         },
@@ -1354,6 +1385,7 @@ def game_cli_config(effects: dict, iterations: int) -> GameTrainingConfig:
         evaluators=GAME_CLI_EVALUATORS,
         output_mode=ModelOutputMode.ALL,
         regularization_weight_grid={"fixed": (0.1, 1.0)},
+        hyperparameter_tuning_iters=tuning_iters,
     )
 
 
@@ -1435,10 +1467,25 @@ def _close(a: GameModel, b: GameModel, rtol: float, atol: float) -> bool:
                for c in a.models)
 
 
-def run_game_cli(dev, work: str, sizes: dict = GAME_CLI) -> dict:
-    """The GAME train then score drivers on Avro part files, as a user runs
-    them (``cli.train.main``, ``cli.score.main``, ``cli.train_glm.main``),
-    each held to the library on the same arrays and the same card."""
+@dataclass
+class GameCliData:
+    """The GAME driver phases' Avro part files (written under ``work``) and
+    the same rows as arrays on the card, entities numbered as the reader
+    numbers them."""
+
+    work: str
+    effects: dict
+    n_train: int
+    n_val: int
+    arrays: list  # [training batch, validation batch]
+    gen_margin: torch.Tensor  # the generating model's validation margins
+    write_s: float
+    avro_bytes: int
+
+
+def game_cli_data(dev, work: str, sizes: dict = GAME_CLI) -> GameCliData:
+    """Config E's rows drawn on the card and written as Avro part files with
+    the port's codec."""
     effects, n_tr, n_va = sizes["effects"], sizes["train"], sizes["val"]
     data = synthetic_game_data(7, n_tr + n_va, D_FIXED, effects, device=dev)
     host = dict(X=data.X.cpu().numpy(), y=data.y.cpu().numpy().tolist(),
@@ -1459,7 +1506,6 @@ def run_game_cli(dev, work: str, sizes: dict = GAME_CLI) -> dict:
     write_s = time.perf_counter() - t0
     avro_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(work) for f in fs)
 
-    # the same rows as arrays, entities numbered as the reader numbers them
     ids = {k: first_seen(v, n_tr) for k, v in host["ids"].items()}
     feats = {"global": data.X, **{f"per_{k}": data.entity_X[k] for k in effects}}
     arrays = [make_game_batch(data.y[rows], {s: f[rows] for s, f in feats.items()},
@@ -1468,8 +1514,70 @@ def run_game_cli(dev, work: str, sizes: dict = GAME_CLI) -> dict:
     gen_margin = data.X[n_tr:] @ data.w_fixed
     for k, v in data.entity_ids.items():
         gen_margin = gen_margin + torch.einsum("nd,nd->n", data.entity_X[k][n_tr:], data.w_entity[k][v[n_tr:]])
-    del data, feats
+    return GameCliData(work=work, effects=effects, n_train=n_tr, n_val=n_va, arrays=arrays,
+                       gen_margin=gen_margin, write_s=write_s, avro_bytes=avro_bytes)
 
+
+@contextmanager
+def recording_decoders():
+    """The decoder (``"native"`` or ``"python"``) of every dataset the
+    drivers read."""
+    seen = []
+    read = AvroDataReader.read
+
+    def recorded(self, *args, **kwargs):
+        ds = read(self, *args, **kwargs)
+        seen.append(ds.decoder)
+        return ds
+
+    AvroDataReader.read = recorded
+    try:
+        yield seen
+    finally:
+        AvroDataReader.read = read
+
+
+def _same_dataset(a, b) -> bool:
+    """Two host datasets equal bit for bit: maps, ids, uids, every column."""
+    if not (a.entity_maps == b.entity_maps and a.uids == b.uids
+            and {s: list(m.items()) for s, m in a.index_maps.items()}
+            == {s: list(m.items()) for s, m in b.index_maps.items()}):
+        return False
+    pa, pb = a.batch, b.batch
+    cols = [(getattr(pa, c), getattr(pb, c)) for c in ("labels", "offsets", "weights")]
+    cols += [(pa.id_tags[t], pb.id_tags[t]) for t in pa.id_tags]
+    for sid, f in pa.features.items():
+        g = pb.features[sid]
+        cols += [(f.X, g.X)] if hasattr(f, "X") else [(f.indices, g.indices), (f.values, g.values)]
+    return all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in cols)
+
+
+def native_read_parity(data: GameCliData) -> dict:
+    """One training part file read on the host by the native decoder and by
+    the Python codec (its plain version): equal bit for bit; each one's ms
+    a record."""
+    shards = game_cli_config(data.effects, 1).feature_shards
+    reader = AvroDataReader(shards)
+    path = os.path.join(data.work, "train", "part-00000.avro")
+    tags = tuple(GAME_CLI_BAGS)
+    out = {}
+    for use_native in (True, False):
+        t0 = time.perf_counter()
+        ds = reader.read(path, id_tags=tags, device="cpu", use_native=use_native)
+        out["native" if use_native else "python"] = (ds, time.perf_counter() - t0)
+    (nat, nat_s), (py, py_s) = out["native"], out["python"]
+    rows = nat.batch.num_rows
+    return dict(rows=rows, native_decoder=nat.decoder, python_decoder=py.decoder,
+                native_ms_per_record=1e3 * nat_s / rows, python_ms_per_record=1e3 * py_s / rows,
+                speedup=py_s / nat_s, bitwise_equal=_same_dataset(nat, py))
+
+
+def run_game_cli(dev, data: GameCliData) -> dict:
+    """The GAME train then score drivers on Avro part files, as a user runs
+    them (``cli.train.main``, ``cli.score.main``, ``cli.train_glm.main``),
+    each held to the library on the same arrays and the same card; every
+    read on the native decoder."""
+    work, effects, n_tr, n_va, arrays = data.work, data.effects, data.n_train, data.n_val, data.arrays
     out = os.path.join(work, "out")
     argv = lambda cfg: ["--config", cfg, "--train-data", os.path.join(work, "train"),  # noqa: E731
                         "--validation-data", os.path.join(work, "val"), "--output-dir", out,
@@ -1575,16 +1683,17 @@ def run_game_cli(dev, work: str, sizes: dict = GAME_CLI) -> dict:
     rows = n_tr + n_va
     return dict(
         rows_train=n_tr, rows_validation=n_va, entities={k: len(ent[k]) for k in effects},
-        avro_bytes=avro_bytes, write_s=write_s, write_ms_per_record=1e3 * write_s / rows,
+        avro_bytes=data.avro_bytes, write_s=data.write_s, write_ms_per_record=1e3 * data.write_s / rows,
         train_wall_s=train_wall, train_stages_s=train_stages,
         read_ms_per_record=1e3 * train_stages["read training data"] / n_tr,
         ingest_share=(train_stages["read training data"] + train_stages["read validation data"]) / train_wall,
+        pr7_python_reader=dict(read_ms_per_record=0.307, train_wall_s=102.99, ingest_share=0.960),
         library_fit_s=library_fit_s, resume_stages_s=resume_stages, score_stages_s=score_stages,
         glm_stages_s=glm_stages, launches=launches, fixed_objective_passes=fixed_passes,
         k1_layout=layout, glm_launches=glm_launches, peak_memory_bytes=peak,
         outputs_ok=outputs_ok, best_index=metrics2["best_index"],
         validation_metrics={i: r["metrics"] for i, r in enumerate(metrics2["results"])},
-        auc_generating_model=float(auc_roc(gen_margin, val_labels)),
+        auc_generating_model=float(auc_roc(data.gen_margin, val_labels)),
         max_abs_diff_driver_vs_library=_max_diff(driver2, lib2.model),
         library_best_index=next(i for i, r in enumerate(lib2_results) if r is lib2),
         resumed_lines=resumed_lines,
@@ -1599,6 +1708,172 @@ def run_game_cli(dev, work: str, sizes: dict = GAME_CLI) -> dict:
         max_abs_diff_glm_twin_vs_train_glm=float(
             (twin.coefficients.means - ref.best_model.coefficients.means).abs().max()),
     )
+
+
+# the projectors of main_game_cli_full and main_e_projected: each user in the
+# subspace of its ceil(capacity / 4) most frequent columns (the buckets of
+# capacity 1 to 16, where most users are, solve over 1 to 4 of their 8
+# columns; at ratio 1 no bucket of capacity 8 or more, hence none at all
+# under E's ladder, would be narrowed), the items over a shared random
+# projection to half their 8 columns
+PROJECTIONS = {"userId": dict(features_to_samples_ratio_upper_bound=0.25),
+               "itemId": dict(random_projection_dim=4)}
+TUNING_ITERS = 4
+
+
+@contextmanager
+def recording_random_effects():
+    """Per random-effect coordinate: its buckets' lanes, capacity and solve
+    width, and the lane solutions (in the solve space: projected for a
+    random projection) of its latest visit."""
+    seen: dict[str, dict] = {}
+    train, solve = RandomEffectCoordinate.train, game_coordinate.train_prepared
+    current = [None]
+
+    def recorded_train(self, offsets, initial=None):
+        current[0] = self.coordinate_id
+        out = train(self, offsets, initial)
+        seen.setdefault(self.coordinate_id, {})["buckets"] = [
+            dict(lanes=pb.num_real, capacity=pb.capacity,
+                 width=pb.static.X.shape[-1] if hasattr(pb.static, "X") else pb.static.num_features)
+            for pb in self._prepared
+        ]
+        return out
+
+    def recorded_solve(*args, **kwargs):
+        res = solve(*args, **kwargs)
+        seen.setdefault(current[0], {})["solution"] = res.coefficients
+        return res
+
+    RandomEffectCoordinate.train, game_coordinate.train_prepared = recorded_train, recorded_solve
+    try:
+        yield seen
+    finally:
+        RandomEffectCoordinate.train, game_coordinate.train_prepared = train, solve
+
+
+def projection_exactness(model, batch, cid: str, tag: str, solution, dim: int, seed: int = 0) -> dict:
+    """Scores of the stored original-space coefficients against (XP)·w_p
+    from the lane solutions, on the card (P rebuilt as the estimator builds
+    it)."""
+    X = batch.features[cid].X
+    P = RandomProjector.build(X.shape[1], dim, seed=seed, device=X.device).matrix
+    ids = batch.id_tags[tag]
+    stored = model[cid].score(batch)
+    projected = torch.einsum("np,np->n", X.float() @ P, solution[ids])
+    err = float((stored - projected).abs().max())
+    scale = float(projected.abs().max())
+    return dict(max_abs_diff=err, max_abs_score=scale, rel_to_scale=err / scale,
+                ok=err <= 1e-5 * scale)
+
+
+def run_game_cli_full(dev, data: GameCliData, glm_prior: str) -> dict:
+    """The GAME train driver again over ``main_game_cli``'s part files with
+    every option one host has: the per-user subspace and per-item random
+    projection, the Bayesian search's refits after the grid, and
+    ``--diagnostics``; held to ``GameEstimator.fit`` plus
+    ``tune_game_hyperparameters`` on the same arrays and card. Then the GLM
+    twin with ``--summarize-features``, ``--validate``, ``--diagnostics``
+    and ``--prior-model`` (``main_game_cli``'s twin model), held to
+    ``train_glm`` with the same prior."""
+    work, effects, arrays = data.work, data.effects, data.arrays
+    config = game_cli_config(effects, 2, projections=PROJECTIONS, tuning_iters=TUNING_ITERS)
+    cfg_path, out = os.path.join(work, "config-full.json"), os.path.join(work, "out-full")
+    with open(cfg_path, "w") as f:
+        json.dump(config.to_dict(), f)
+    torch.cuda.reset_peak_memory_stats()
+    with recording_fits() as fits, stage_times(cli_train) as stages, recording_random_effects() as re_seen:
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_train.main(["--config", cfg_path, "--train-data", os.path.join(work, "train"),
+                        "--validation-data", os.path.join(work, "val"), "--output-dir", out,
+                        "--diagnostics", "--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fixed_passes = sum(t.objective_passes for _, results in fits for r in results
+                       for t in r.descent.trackers["fixed"])
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    maps = {fn[:-4]: IndexMap.load(os.path.join(out, "index-maps", fn))
+            for fn in os.listdir(os.path.join(out, "index-maps"))}
+    with open(os.path.join(out, "entity-maps.json")) as f:
+        ent = json.load(f)
+    driver = load_game_model(os.path.join(out, "best"), index_maps=maps,
+                             entity_ids={f"per_{k}": ent[k] for k in effects}, device=dev)
+
+    est = GameEstimator(config, intercept_indices={"global": D_FIXED}, device=dev)
+    t0 = time.perf_counter()
+    results = est.fit(arrays[0], validation_batch=arrays[1])
+    results = list(results) + tune_game_hyperparameters(est, arrays[0], arrays[1], results, TUNING_ITERS)
+    lib = est.select_best(results)
+    torch.cuda.synchronize()
+    library_s = time.perf_counter() - t0
+    lambdas = lambda rs: [r["configuration"]["fixed"]["regularization_weight"] for r in rs]  # noqa: E731
+
+    glm_out = os.path.join(work, "glm-full")
+    fused.reset_launch_counts()
+    with stage_times(cli_train_glm) as glm_stages:
+        cli_train_glm.main(["--task", "LOGISTIC_REGRESSION", "--format", "avro", "--train-data",
+                            os.path.join(work, "train"), "--weights", "0.1", "1", "10",
+                            "--max-iterations", "20", "--tolerance", "1e-7", "--summarize-features",
+                            "--validate", "VALIDATE_FULL", "--diagnostics", "--prior-model", glm_prior,
+                            "--device", dev.type, "--output-dir", glm_out])
+    glm_launches = launch_counts()
+    twin = load_glm(os.path.join(glm_out, "best", "model.avro"), index_map=maps["global"], device=dev)
+    prior = load_glm(glm_prior, index_map=maps["global"], num_features=D_FIXED + 1,
+                     task=TaskType.LOGISTIC_REGRESSION, device=dev)
+    ref = train_glm(arrays[0].batch_for("global"), TaskType.LOGISTIC_REGRESSION,
+                    optimizer_config=OptimizerConfig(max_iterations=20, tolerance=1e-7),
+                    regularization=RegularizationContext(RegularizationType.L2),
+                    regularization_weights=[0.1, 1.0, 10.0], intercept_index=D_FIXED,
+                    initial_model=prior, incremental=True, device=dev)
+    files = {d: set(os.listdir(d)) for d in (out, glm_out)}
+    return dict(
+        train_wall_s=wall, train_stages_s=stages, library_fit_and_tuning_s=library_s,
+        read_ms_per_record=1e3 * stages["read training data"] / data.n_train,
+        ingest_share=(stages["read training data"] + stages["read validation data"]) / wall,
+        fits=len(fits), launches=launches, fixed_objective_passes=fixed_passes, peak_memory_bytes=peak,
+        configurations=len(metrics["results"]), fixed_lambdas=lambdas(metrics["results"]),
+        library_fixed_lambdas=[r.configuration["fixed"].regularization_weight for r in results],
+        best_index=metrics["best_index"], library_best_index=next(i for i, r in enumerate(results) if r is lib),
+        best_metrics=metrics["results"][metrics["best_index"]]["metrics"],
+        max_abs_diff_driver_vs_library=_max_diff(driver, lib.model),
+        solve_widths={cid: v["buckets"] for cid, v in re_seen.items()},
+        diagnostics_written={"diagnostics.json", "diagnostics.html"} <= files[out],
+        glm_stages_s=glm_stages, glm_launches=glm_launches,
+        glm_files_written={"diagnostics.json", "diagnostics.html", "summary", "best"} <= files[glm_out],
+        max_abs_diff_glm_twin_vs_train_glm=float(
+            (twin.coefficients.means - ref.best_model.coefficients.means).abs().max()),
+    )
+
+
+def run_e_projected(dev, batch, data, lbfgs: dict) -> dict:
+    """``main_e_lbfgs``'s batch and schedule (MovieLens-20M depth, L-BFGS
+    random effects, 2 warm-up and 4 timed outer iterations) with each user
+    in its subspace and the items over a random projection to 4 columns."""
+    n, effects = E_ML20M
+    config = game_config(effects, 6, re_solver="LBFGS")
+    config = config.replace(random_effect_coordinates={
+        cid: c.replace(**PROJECTIONS[c.random_effect_type])
+        for cid, c in config.random_effect_coordinates.items()
+    })
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recording_random_effects() as re_seen:
+        fit = fit_game(batch, config, dev)
+    rec = dict(_game_record(fit, warmup=2), n=n, effects={k: list(v) for k, v in effects.items()},
+               **game_quality(fit, batch, data),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+               solve_widths={cid: v["buckets"] for cid, v in re_seen.items()})
+    rec.update(lbfgs_train_auc=lbfgs["train_auc"], d_auc_vs_lbfgs=rec["train_auc"] - lbfgs["train_auc"],
+               lbfgs_timed_wall_s_per_outer_iteration=lbfgs["timed_wall_s_per_outer_iteration"])
+    rec["random_projection_scores"] = projection_exactness(
+        fit["best"].model, batch, "per_itemId", "itemId", re_seen["per_itemId"]["solution"],
+        PROJECTIONS["itemId"]["random_projection_dim"])
+    return rec
 
 
 def _check_game_launches(phase: str, rec: dict) -> None:
@@ -1624,13 +1899,17 @@ def main() -> int:
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    lib = _cuda.build()
+    with ThreadPoolExecutor(1) as pool:  # g++ for the Avro decoder beside nvcc
+        native_lib = pool.submit(native_build.build)
+        lib = _cuda.build()
+        native_lib = native_lib.result()
     spills = {
         src.name: sum(1 for line in _cuda.log_path(lib, src).read_text().splitlines()
                       if "spill" in line and " 0 bytes spill" not in line)
         for src in _cuda.SOURCES
     }
-    emit("build", seconds=time.perf_counter() - t0, library=lib.name, spill_lines=spills)
+    emit("build", seconds=time.perf_counter() - t0, library=lib.name, spill_lines=spills,
+         native_library=native_lib.name)
 
     parity(dev)
     k3_err = parity_k3(dev)
@@ -1726,8 +2005,6 @@ def main() -> int:
     # config E at MovieLens-20M depth with the random effects on L-BFGS,
     # on main_e's batch; then the lane solvers' agreement at bench depth
     e_lbfgs = run_e_lbfgs(dev, e_batch, e_data, e_rec)
-    del e_batch, e_data
-    torch.cuda.empty_cache()
     emit("main_e_lbfgs", **e_lbfgs)
     _check_game_launches("main_e_lbfgs", e_lbfgs)
     if not (e_lbfgs["quality_ok"] and e_lbfgs["d_auc_vs_newton"] <= 0.005
@@ -1735,6 +2012,15 @@ def main() -> int:
         raise AssertionError(f"config E on L-BFGS: AUC {e_lbfgs['train_auc']} (Newton "
                              f"{e_rec['train_auc']}, generating {e_lbfgs['auc_generating_model']}), "
                              f"relative d log-loss {e_lbfgs['rel_d_log_loss_vs_newton']}")
+    # the same batch with the per-user subspace and the per-item random projection
+    e_proj = run_e_projected(dev, e_batch, e_data, e_lbfgs)
+    del e_batch, e_data
+    torch.cuda.empty_cache()
+    emit("main_e_projected", **e_proj)
+    _check_game_launches("main_e_projected", e_proj)
+    if not (e_proj["quality_ok"] and e_proj["random_projection_scores"]["ok"]):
+        raise AssertionError(f"config E projected: AUC {e_proj['train_auc']} against "
+                             f"{e_proj['auc_generating_model']}; scores {e_proj['random_projection_scores']}")
     solvers = agreement_e_solvers(dev, agree_e["fused"])
     emit("agreement_e_solvers", **solvers)
     ev = solvers["lbfgs"]["evaluators"]
@@ -1755,16 +2041,28 @@ def main() -> int:
     if failed:
         raise AssertionError(f"agreement_e_solvers failed: {failed}")
 
-    # main path GAME CLI: the train and score drivers on Avro part files
+    # main path GAME CLI: the train and score drivers on Avro part files,
+    # every read on the native decoder; then the drivers with every option
     work = tempfile.mkdtemp(prefix="_game_cli-", dir=ROOT)
     try:
-        cli = run_game_cli(dev, work)
+        data = game_cli_data(dev, work)
+        native = native_read_parity(data)
+        with recording_decoders() as decoders:
+            cli = run_game_cli(dev, data)
+        cli.update(native_read=native, decoders=decoders)
+        with recording_decoders() as decoders:
+            full = run_game_cli_full(dev, data, os.path.join(work, "glm", "best", "model.avro"))
+        full["decoders"] = decoders
+        del data
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("main_game_cli", **cli)
     _check_game_launches("main_game_cli", cli)
     best_auc = cli["validation_metrics"][cli["best_index"]]["AUC"]
     failed = [name for name, ok in (
+        ("native_read", native["bitwise_equal"] and native["native_decoder"] == "native"
+         and native["python_decoder"] == "python"),
+        ("native_decoder_in_every_read", cli["decoders"] == ["native"] * 6),
         ("outputs", cli["outputs_ok"]),
         ("k1_tiles", cli["k1_layout"] == "tiles"),
         ("driver_vs_library", cli["max_abs_diff_driver_vs_library"] <= 1e-5
@@ -1778,14 +2076,29 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_game_cli failed: {failed}")
+    emit("main_game_cli_full", **full)
+    _check_game_launches("main_game_cli_full", full)
+    failed = [name for name, ok in (
+        ("native_decoder_in_every_read", full["decoders"] == ["native"] * 3),
+        ("configurations", full["configurations"] == 2 + TUNING_ITERS
+         and full["fixed_lambdas"] == full["library_fixed_lambdas"]),
+        ("driver_vs_library", full["max_abs_diff_driver_vs_library"] <= 1e-5
+         and full["best_index"] == full["library_best_index"]),
+        ("diagnostics", full["diagnostics_written"]),
+        ("glm_twin", full["glm_files_written"] and full["max_abs_diff_glm_twin_vs_train_glm"] <= 1e-5
+         and full["glm_launches"]["fused_value_grad"] > 0),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_game_cli_full failed: {failed}")
 
-    # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS
-    # and the GAME driver (each path counted from 0 just before it ran)
+    # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS,
+    # E projected and the GAME drivers (each path counted from 0 just before it ran)
     by_path = {
         k: {"main_a": a["launches"][k], "main_a_sweep": sweep["launches"][k],
             "main_b": b["launches"][k], "main_d": d_rec["launches"][k],
             "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k],
-            "main_game_cli": cli["launches"][k]}
+            "main_e_projected": e_proj["launches"][k], "main_game_cli": cli["launches"][k],
+            "main_game_cli_full": full["launches"][k]}
         for k in KERNEL_ROWS
     }
     kernels = [

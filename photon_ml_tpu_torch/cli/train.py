@@ -1,12 +1,15 @@
 """GAME training driver (port of ``photon_ml_tpu/cli/train.py`` on its
 in-memory path; the reference's ``GameTrainingDriver``).
 
-Stages: read the training data and build the feature and entity maps (or
-load prebuilt index maps), read the validation data against the frozen
-maps, load the warm-start model, fit the estimator's grid with a checkpoint
-per grid entry under ``<output>/checkpoints`` (a rerun resumes), select the
-best entry, and write ``best/``, ``models/NNNN`` (output mode ALL),
-``index-maps/``, ``entity-maps.json`` and ``metrics.json``: the
+Stages: read the training data (with the native columnar decoder, as the
+reference does by default) and build the feature and entity maps (or load
+prebuilt index maps), read the validation data against the frozen maps,
+load the warm-start model, fit the estimator's grid with a checkpoint per
+grid entry under ``<output>/checkpoints`` (a rerun resumes), run the
+Bayesian hyperparameter search when ``hyperparameter_tuning_iters`` > 0,
+select the best entry, and write ``best/``, ``models/NNNN`` (output mode
+ALL), ``index-maps/``, ``entity-maps.json``, ``metrics.json`` and, with
+``--diagnostics``, ``diagnostics.json`` and ``diagnostics.html``: the
 reference's files, which its scoring driver reads as well as the port's.
 
 Usage:
@@ -16,9 +19,8 @@ Usage:
 
 Branches not ported yet raise ``NotImplementedError`` naming their ROADMAP
 queue 1 item: the out-of-core trainer (``--streaming-chunk-rows`` and its
-selection by input size, item 11), hyperparameter tuning and
-``--diagnostics`` (10b), ``--multihost`` (12), ``--telemetry-dir`` and
-``--profile-dir`` (13).
+selection by input size, item 11), ``--multihost`` (12), ``--telemetry-dir``
+and ``--profile-dir`` (13).
 """
 
 from __future__ import annotations
@@ -34,9 +36,11 @@ from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.cli.common import load_training_config, not_ported
 from photon_ml_tpu_torch.config import GameTrainingConfig
 from photon_ml_tpu_torch.data.index_map import IndexMap
+from photon_ml_tpu_torch.diagnostics import game_diagnostics, write_report
 from photon_ml_tpu_torch.estimators import GameEstimator, GameResult
 from photon_ml_tpu_torch.evaluation import make_evaluator
 from photon_ml_tpu_torch.game.models import GameModel, RandomEffectModel
+from photon_ml_tpu_torch.hyperparameter.tuning import tune_game_hyperparameters
 from photon_ml_tpu_torch.io.avro import list_avro_files
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader, GameDataset, expand_date_range
 from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
@@ -67,10 +71,6 @@ def run(
         raise not_ported("multi-host GAME training (--multihost)", "12")
     if profile_dir is not None:
         raise not_ported("device traces (--profile-dir)", "13")
-    if diagnostics:
-        raise not_ported("the diagnostics report (--diagnostics)", "10b")
-    if config.hyperparameter_tuning_iters > 0:
-        raise not_ported("hyperparameter tuning (hyperparameter_tuning_iters > 0)", "10b")
     dev = resolve_device(device)
     logger = logger or PhotonLogger(output_dir)
     id_tags = _game_id_tags(config)
@@ -136,6 +136,14 @@ def run(
             checkpoint_dir=os.path.join(output_dir, "checkpoints"),
         )
 
+    if config.hyperparameter_tuning_iters > 0:
+        if val is None:
+            raise ValueError("hyperparameter tuning requires validation data")
+        with timed(logger, "hyperparameter tuning"):
+            results = list(results) + tune_game_hyperparameters(
+                estimator, train.batch, val.batch, results, config.hyperparameter_tuning_iters,
+            )
+
     best = estimator.select_best(results)
     logger.info(
         "selected configuration: "
@@ -172,6 +180,9 @@ def run(
     }
     with open(os.path.join(output_dir, "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)
+    if diagnostics:
+        with timed(logger, "write diagnostics"):
+            write_report(game_diagnostics(results, config=config, index_maps=train.index_maps), output_dir)
     return best
 
 
@@ -274,7 +285,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry-dir", default=None,
                    help="the run's telemetry JSONL (ROADMAP queue 1 item 13; raises)")
     p.add_argument("--diagnostics", action="store_true",
-                   help="the diagnostics report (ROADMAP queue 1 item 10b; raises)")
+                   help="write diagnostics.json and diagnostics.html beside the models")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output-dir", required=True)
     return p

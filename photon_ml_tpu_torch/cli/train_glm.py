@@ -7,9 +7,11 @@ validates each, selects the best, and writes the reference's files:
 ``report.json``, advancing ``_stage`` through INIT, PROCESSED, TRAINED and
 VALIDATED. Avro input trains on the ``global`` shard of ``AvroDataReader``
 (the ``features`` bag with an intercept), and its model files name the real
-features; LIBSVM models name them ``f<index>``. ``--summarize-features``,
-``--validate``, ``--prior-model`` and ``--diagnostics`` wait for ROADMAP
-queue 1 item 10b.
+features; LIBSVM models name them ``f<index>``. ``--validate`` checks the
+training columns first, ``--summarize-features`` writes
+``summary/part-00000.avro``, ``--prior-model`` trains incrementally with a
+saved model as the Gaussian prior, and ``--diagnostics`` writes
+``diagnostics.json`` and ``diagnostics.html``.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_glm \\
@@ -27,13 +29,17 @@ from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.config import OptimizerConfig, RegularizationContext
 from photon_ml_tpu_torch.data.libsvm import read_libsvm
 from photon_ml_tpu_torch.data.summary import summarize
+from photon_ml_tpu_torch.data.validation import validate_arrays
+from photon_ml_tpu_torch.diagnostics import glm_sweep_diagnostics, write_report
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader
-from photon_ml_tpu_torch.io.model_io import save_glm
+from photon_ml_tpu_torch.io.model_io import load_glm, save_glm
+from photon_ml_tpu_torch.io.results import write_feature_summary
 from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes as _hbm_budget_bytes
 from photon_ml_tpu_torch.ops.batch import optimize_batch_layout
 from photon_ml_tpu_torch.supervised.training import train_glm
 from photon_ml_tpu_torch.utils import PhotonLogger, timed
 from photon_ml_tpu_torch.types import (
+    DataValidationType,
     NormalizationType,
     OptimizerType,
     RegularizationType,
@@ -57,6 +63,10 @@ def run(
     variance_computation: VarianceComputationType = VarianceComputationType.NONE,
     device=None,
     logger: PhotonLogger | None = None,
+    summarize_features: bool = False,
+    validate: DataValidationType = DataValidationType.VALIDATE_DISABLED,
+    prior_model_path: str | None = None,
+    diagnostics: bool = False,
 ):
     if data_format not in ("libsvm", "avro"):
         raise ValueError(f"unknown --format {data_format!r}")
@@ -84,10 +94,18 @@ def run(
             imap = train_ds.index_maps[sid]
         else:
             batch, intercept_index = read_libsvm(train_data[0], device=dev)
+    if validate is not DataValidationType.VALIDATE_DISABLED:
+        with timed(logger, "validate data"):
+            validate_arrays(task, batch.labels, batch.X if hasattr(batch, "X") else batch.values,
+                            offsets=batch.offsets, weights=batch.weights, mode=validate)
     norm_context = None
-    if normalization is not NormalizationType.NONE:
+    if summarize_features or normalization is not NormalizationType.NONE:
         with timed(logger, "summarize features"):
-            norm_context = summarize(batch).normalization(normalization, intercept_index, device=dev)
+            summary = summarize(batch)
+            if summarize_features:
+                write_feature_summary(os.path.join(output_dir, "summary", "part-00000.avro"), summary, imap)
+            if normalization is not NormalizationType.NONE:
+                norm_context = summary.normalization(normalization, intercept_index, device=dev)
     advance("PROCESSED")
 
     val_batch = None
@@ -102,7 +120,13 @@ def run(
                 d_raw = batch.num_features - (1 if intercept_index is not None else 0)
                 val_batch, _ = read_libsvm(validation_data[0], num_features=d_raw, device=dev)
 
-    # layout decision after the summary (which reads the raw rows)
+    prior_model = None
+    if prior_model_path:
+        with timed(logger, "load prior model"):
+            prior_model = load_glm(prior_model_path, index_map=imap, num_features=batch.num_features,
+                                   task=task, device=dev)
+
+    # layout decision after the validation and the summary (which read the raw rows)
     with timed(logger, "optimize batch layout"):
         batch = optimize_batch_layout(batch, hbm_budget_bytes=_hbm_budget_bytes(dev))
     with timed(logger, "train"):
@@ -118,6 +142,8 @@ def run(
             intercept_index=intercept_index,
             validation_batch=val_batch,
             variance_computation=variance_computation,
+            initial_model=prior_model,
+            incremental=prior_model is not None,
             device=dev,
         )
     advance("TRAINED")
@@ -143,6 +169,9 @@ def run(
     }
     with open(os.path.join(output_dir, "report.json"), "w") as f:
         json.dump(report, f, indent=2)
+    if diagnostics:
+        with timed(logger, "write diagnostics"):
+            write_report(glm_sweep_diagnostics(result, index_map=imap, task=task), output_dir)
     advance("VALIDATED")
     return result
 
@@ -174,6 +203,16 @@ def main(argv: list[str] | None = None) -> None:
         choices=[v.value for v in VarianceComputationType],
         help="the reference's spelling; --variance-computation is kept as an alias",
     )
+    p.add_argument("--summarize-features", action="store_true",
+                   help="write the training features' summary to summary/part-00000.avro")
+    p.add_argument("--validate", default="VALIDATE_DISABLED", choices=[v.value for v in DataValidationType],
+                   help="check labels, features, offsets and weights before training")
+    p.add_argument("--prior-model", default=None,
+                   help="incremental training: a saved model.avro whose means and variances become "
+                        "the Gaussian prior of every λ's solve")
+    p.add_argument("--diagnostics", action="store_true",
+                   help="write diagnostics.json and a self-contained diagnostics.html (optimizer "
+                        "traces, validation metrics, top features)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output-dir", required=True)
     args = p.parse_args(argv)
@@ -191,6 +230,10 @@ def main(argv: list[str] | None = None) -> None:
         normalization=NormalizationType(args.normalization),
         variance_computation=VarianceComputationType(args.variance),
         device=args.device,
+        summarize_features=args.summarize_features,
+        validate=DataValidationType(args.validate),
+        prior_model_path=args.prior_model,
+        diagnostics=args.diagnostics,
     )
 
 

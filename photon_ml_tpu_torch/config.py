@@ -114,8 +114,9 @@ class RandomEffectCoordinateConfig(_JsonMixin):
     capacity ladder is merged toward ``bucket_target_count`` classes while
     the padding merging adds stays under ``bucket_max_padded_ratio`` × the
     active rows (``game/data.py``). ``features_to_samples_ratio_upper_bound``
-    and ``random_projection_dim`` are carried for the JSON round trip; the
-    port's estimator refuses them until the projector slice."""
+    solves each entity in the subspace of its ceil(ratio · capacity) most
+    frequent columns; ``random_projection_dim`` solves over a shared random
+    projection of the shard to that width (``game/projector.py``)."""
 
     random_effect_type: str = "entityId"
     feature_shard_id: str = "per_entity"

@@ -6,6 +6,8 @@ batch's device; only their verdicts come back."""
 
 from __future__ import annotations
 
+from typing import Mapping
+
 import numpy as np
 import torch
 
@@ -45,19 +47,43 @@ def validate_labels(labels: torch.Tensor, task: TaskType) -> None:
         raise DataValidationError("POISSON_REGRESSION requires non-negative labels")
 
 
+def validate_arrays(
+    task: TaskType,
+    labels,
+    features,
+    offsets=None,
+    weights=None,
+    mode: DataValidationType = DataValidationType.VALIDATE_FULL,
+    seed: int = 0,
+) -> None:
+    """Validate the columns of a batch (tensors on one device, or arrays);
+    raises ``DataValidationError``. ``features`` is one array or a mapping
+    shard → array (dense rows, or a sparse shard's values)."""
+    if mode is DataValidationType.VALIDATE_DISABLED:
+        return
+    labels = torch.as_tensor(labels)
+    dev = labels.device
+    rows = _sample_rows(labels.shape[0], mode, seed)
+    if not isinstance(rows, slice):
+        rows = torch.as_tensor(rows, device=dev)
+    validate_labels(labels[rows], task)
+    feats = features if isinstance(features, Mapping) else {"features": features}
+    for sid, f in feats.items():
+        _check_finite(f"features[{sid}]", torch.as_tensor(f, device=dev)[rows])
+    if offsets is not None:
+        _check_finite("offsets", torch.as_tensor(offsets, device=dev)[rows])
+    if weights is not None:
+        w = torch.as_tensor(weights, device=dev)[rows]
+        _check_finite("weights", w)
+        if bool((w < 0).any()):
+            raise DataValidationError("weights must be non-negative")
+
+
 def validate_game_batch(batch, task: TaskType, mode: DataValidationType, seed: int = 0) -> None:
     """Validate a built ``GameBatch``; raises ``DataValidationError``.
     Sparse shards check their values (indices are ingest-made)."""
-    if mode is DataValidationType.VALIDATE_DISABLED:
-        return
-    rows = _sample_rows(batch.num_rows, mode, seed)
-    if not isinstance(rows, slice):
-        rows = torch.as_tensor(rows, device=batch.device)
-    validate_labels(batch.labels[rows], task)
-    for sid, f in batch.features.items():
-        _check_finite(f"features[{sid}]", (f.X if hasattr(f, "X") else f.values)[rows])
-    _check_finite("offsets", batch.offsets[rows])
-    w = batch.weights[rows]
-    _check_finite("weights", w)
-    if bool((w < 0).any()):
-        raise DataValidationError("weights must be non-negative")
+    validate_arrays(
+        task, batch.labels,
+        {sid: f.X if hasattr(f, "X") else f.values for sid, f in batch.features.items()},
+        offsets=batch.offsets, weights=batch.weights, mode=mode, seed=seed,
+    )

@@ -52,6 +52,7 @@ from photon_ml_tpu_torch.game.data import (
 )
 from photon_ml_tpu_torch.game.descent import CoordinateDescent, CoordinateDescentResult
 from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.game.projector import RandomProjector
 from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.sampling import down_sample
 from photon_ml_tpu_torch.types import NormalizationType
@@ -187,11 +188,6 @@ class GameEstimator:
         """Group and bucket each random effect's entities (host numpy, once)."""
         layouts = {}
         for cid, cfg in self.config.random_effect_coordinates.items():
-            if cfg.features_to_samples_ratio_upper_bound is not None or cfg.random_projection_dim is not None:
-                raise NotImplementedError(
-                    f"coordinate {cid!r}: per-entity subspace and random projection wait for "
-                    "ROADMAP queue 1 item 10a.5 (game/projector.py)"
-                )
             ids = batch.id_tags[cfg.random_effect_type].cpu().numpy()
             num_entities = int(ids.max()) + 1 if len(ids) else 0
             grouping = group_by_entity(
@@ -235,9 +231,17 @@ class GameEstimator:
                     coordinates[cid] = re_coordinate_cache[cid].with_config(opt)
                     continue
                 grouping, buckets, num_entities = entity_layouts[cid]
+                projector = None
+                if cc.random_projection_dim is not None:
+                    projector = RandomProjector.build(
+                        batch.features[cc.feature_shard_id].num_features, cc.random_projection_dim,
+                        seed=self.seed, device=batch.device,
+                    )
                 coord = RandomEffectCoordinate(
                     random_effect_type=cc.random_effect_type, grouping=grouping, buckets=buckets,
-                    num_entities=num_entities, **common,
+                    num_entities=num_entities,
+                    features_to_samples_ratio=cc.features_to_samples_ratio_upper_bound,
+                    projector=projector, **common,
                 )
                 if re_coordinate_cache is not None:
                     re_coordinate_cache[cid] = coord

@@ -11,9 +11,11 @@ residual offsets with ``train(offsets, initial)`` and ``score(model)``.
   solver ``select_minimize_fn`` picks from its optimizer config and the
   L1 part of its regularization (L-BFGS, OWL-QN, TRON or Newton).
 
-The reference's one-launch fused visit (ROADMAP queue 1 item 10a.6), its
-mesh-sharded solves (item 12), the random projector and the per-entity
-subspace projection (item 10a.5) are not ported.
+A random effect may solve in a per-entity subspace
+(``features_to_samples_ratio``) or over a shared random projection of its
+shard (``projector``), as the reference's ``IndexMapProjection`` and
+``RandomProjection`` do. The reference's one-launch fused visit (ROADMAP
+queue 1 item 10a.6) and its mesh-sharded solves (item 12) are not ported.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from typing import Any, Protocol
 import torch
 
 from photon_ml_tpu_torch.config import OptimizationConfig
-from photon_ml_tpu_torch.game.data import EntityBuckets, EntityGrouping, GameBatch
+from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets, EntityGrouping, GameBatch
 from photon_ml_tpu_torch.game.models import FixedEffectModel, GameSubModel, RandomEffectModel
+from photon_ml_tpu_torch.game.projector import RandomProjector
 from photon_ml_tpu_torch.game.random_effect import (
     RandomEffectTrainingResult,
     prepare_buckets,
@@ -167,7 +170,13 @@ class RandomEffectCoordinate:
     """Per-entity GLMs over one feature shard and entity column. The
     grouping and bucketing come in built; the buckets' static tensors are
     gathered on the device at the first ``train`` and reused by every
-    visit and, through ``with_config``, every grid entry."""
+    visit and, through ``with_config``, every grid entry.
+
+    ``features_to_samples_ratio`` (``numFeaturesToSamplesRatioUpperBound``)
+    solves each entity in its subspace of most frequent columns;
+    ``projector`` solves over the shard projected once by a shared random
+    matrix and returns the coefficients in the original space, score-exact,
+    without variances (a diagonal does not survive a dense map)."""
 
     coordinate_id: str
     batch: GameBatch
@@ -182,17 +191,39 @@ class RandomEffectCoordinate:
     normalization: NormalizationContext | None = None
     variance_computation: VarianceComputationType = VarianceComputationType.NONE
     prior_model: RandomEffectModel | None = None
+    features_to_samples_ratio: float | None = None
+    projector: RandomProjector | None = None
 
     def __post_init__(self):
+        if self.normalization is not None and self.projector is not None:
+            raise NotImplementedError(
+                "normalization is not supported together with random projection "
+                "(the projected columns have no per-feature stats)"
+            )
+        if self.normalization is not None and self.features_to_samples_ratio is not None:
+            raise NotImplementedError(
+                "normalization is not supported together with per-entity subspace projection "
+                "(the per-entity column maps would need per-entity normalization slices)"
+            )
         require_intercept_for_shifts(self.normalization)
+
+    def _features(self):
+        feats = self.batch.features[self.feature_shard_id]
+        if self.projector is None:
+            return feats
+        if not isinstance(feats, DenseFeatures):
+            raise ValueError("random projection requires dense features")
+        return DenseFeatures(X=self.projector.project_features(feats.X))
 
     @property
     def _prepared(self):
         cached = self.__dict__.get("_prepared_cache")
         if cached is None:
+            # the projected shard is gathered into the buckets once and not kept
             cached = prepare_buckets(
-                self.batch.features[self.feature_shard_id], self.batch.labels,
-                self.batch.weights, self.buckets,
+                self._features(), self.batch.labels, self.batch.weights, self.buckets,
+                features_to_samples_ratio=self.features_to_samples_ratio,
+                intercept_index=None if self.projector is not None else self.intercept_index,
             )
             object.__setattr__(self, "_prepared_cache", cached)
         return cached
@@ -210,36 +241,48 @@ class RandomEffectCoordinate:
         self, offsets: Tensor, initial: GameSubModel | None = None
     ) -> tuple[RandomEffectModel, RandomEffectTrainingResult]:
         opt = self.config
+        P = None if self.projector is None else self.projector.matrix
         W0 = prior_W = prior_V = None
         if initial is not None:
             W0 = initial.coefficients
             if W0.shape[0] != self.num_entities:
                 raise ValueError(f"warm-start entity count {W0.shape[0]} != {self.num_entities}")
+            if P is not None:
+                # P has no exact inverse; near-orthogonal (JL), so projecting
+                # the original-space warm start is the standard choice
+                W0 = W0 @ P
         if self.prior_model is not None:
             _require_prior_l2(self.config)
             prior_W, prior_V = self.prior_model.coefficients, self.prior_model.variances
             if prior_W.shape[0] != self.num_entities:
                 raise ValueError(f"prior entity count {prior_W.shape[0]} != {self.num_entities}")
+            if P is not None:
+                # diagonal variances do not survive a dense projection: unit
+                # precision in the projected space
+                prior_W, prior_V = prior_W @ P, None
         norm = self.normalization
         result = train_prepared(
             self._prepared,
             offsets,
-            self.batch.features[self.feature_shard_id].num_features,
+            self.batch.features[self.feature_shard_id].num_features if P is None else P.shape[1],
             self.num_entities,
             loss_for_task(self.task_type),
             opt.optimizer,
             l2_weight=opt.regularization.l2_weight(opt.regularization_weight),
             l1_weight=opt.regularization.l1_weight(opt.regularization_weight),
-            intercept_index=self.intercept_index,
+            intercept_index=None if P is not None else self.intercept_index,
             initial_coefficients=W0,
             variance_computation=self.variance_computation,
             norm=None if norm is None else norm.to(offsets.device),
             prior_coefficients=prior_W,
             prior_variances=prior_V,
         )
+        coefficients, variances = result.coefficients, result.variances
+        if P is not None:
+            coefficients, variances = self.projector.coefficients_to_original(coefficients), None
         model = RandomEffectModel(
-            coefficients=result.coefficients,
-            variances=result.variances,
+            coefficients=coefficients,
+            variances=variances,
             random_effect_type=self.random_effect_type,
             feature_shard_id=self.feature_shard_id,
             task_type=self.task_type,

@@ -14,7 +14,15 @@ over the lane), and the solutions are scattered back into the (E, d)
 coefficient matrix. One bucket step per bucket.
 
 Newton and FULL variances need the full Hessian, so they take dense
-shards only and raise the reference's message on a sparse one. The mesh,
+shards only and raise the reference's message on a sparse one.
+
+``features_to_samples_ratio`` (the reference's
+``numFeaturesToSamplesRatioUpperBound``) solves each entity in its own
+subspace: a dense bucket of capacity C keeps every entity's p = min(d,
+ceil(ratio · C)) most frequent columns (``game/projector.py``), gathered
+once to (k, C, p); warm starts and priors are read at those columns, and
+the solutions are written back with zeros elsewhere. A sparse shard
+ignores the ratio, as in the reference. The mesh, capacity-class
 projection, compaction and fusion schedules of the reference are not
 ported.
 """
@@ -30,6 +38,7 @@ import torch
 from photon_ml_tpu_torch._device import check_device
 from photon_ml_tpu_torch.config import OptimizerConfig
 from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets, Features
+from photon_ml_tpu_torch.game.projector import subspace_columns
 from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_lane_objective
@@ -117,13 +126,16 @@ class RandomEffectTrainingResult:
 @dataclass(frozen=True)
 class PreparedBucket:
     """One bucket's static tensors on the device, built once: descent
-    visits change only the offsets."""
+    visits change only the offsets. ``columns``, under subspace
+    projection, maps each entity's p solve slots to its feature columns;
+    the static features are already gathered to (k, C, p)."""
 
     entity_ids: np.ndarray  # (k,) entity ids (host)
     ids: Tensor  # (k,) the same ids on the device (the (E, d) scatter key)
     static: DenseBatch | SparseBatch  # (k, C, d) or (k, C, nnz) features, (k, C) columns
     row_idx: Tensor  # (k, C) int64 row indices, padding clipped to 0
     mask: Tensor  # (k, C) 1.0 where the slot holds a real row
+    columns: Tensor | None = None  # (k, p) int64 per-entity column map
 
     @property
     def num_real(self) -> int:
@@ -139,12 +151,16 @@ def prepare_buckets(
     labels: Tensor,
     weights: Tensor,
     buckets: EntityBuckets,
+    features_to_samples_ratio: float | None = None,
+    intercept_index: int | None = None,
 ) -> list[PreparedBucket]:
     """Gather every bucket's static tensors on the features' device with
     index operations (one upload of the padded row-index matrix per bucket;
     the rows themselves never leave the device). Padded slots get weight 0
     and zeroed feature values (a sparse slot keeps row 0's indices, as the
-    reference's ``gather_bucket`` does: its values are 0)."""
+    reference's ``gather_bucket`` does: its values are 0).
+    ``features_to_samples_ratio`` gathers a dense bucket to its entities'
+    subspaces (``subspace_columns``, with the intercept at slot p - 1)."""
     dense = isinstance(features, DenseFeatures)
     dev = (features.X if dense else features.values).device
     prepared = []
@@ -154,8 +170,15 @@ def prepare_buckets(
         idx = torch.clamp_min(raw, 0)
         columns = dict(labels=labels[idx] * mask, offsets=torch.zeros_like(mask),
                        weights=weights[idx] * mask)
+        cols = None
         if dense:
             static = DenseBatch(X=features.X[idx].float() * mask.unsqueeze(-1), **columns)
+            if features_to_samples_ratio is not None:
+                cols = subspace_columns(static.X, features_to_samples_ratio, intercept_index)
+                if cols is not None:
+                    static = dataclasses.replace(
+                        static, X=torch.gather(static.X, 2, cols.unsqueeze(1).expand(-1, static.X.shape[1], -1))
+                    )
         else:
             static = SparseBatch(
                 indices=features.indices[idx].long(),
@@ -169,6 +192,7 @@ def prepare_buckets(
                 static=static,
                 row_idx=idx,
                 mask=mask,
+                columns=cols,
             )
         )
     return prepared
@@ -235,6 +259,12 @@ def train_prepared(
     ``prior_coefficients`` / ``prior_variances`` are (E, d) per-entity
     Gaussian MAP priors. The solver is ``select_minimize_fn(config,
     l1_weight)``'s, over each bucket's lanes."""
+    if norm is not None and any(pb.columns is not None for pb in prepared):
+        # before any bucket solves, not data-dependently mid-loop
+        raise NotImplementedError(
+            "normalization is not supported together with per-entity subspace projection "
+            "(the per-entity column maps would need per-entity normalization slices)"
+        )
     minimize_fn, extra = select_minimize_fn(config, l1_weight)
     dev = offsets.device
     d, E = num_features, num_entities
@@ -274,16 +304,27 @@ def train_prepared(
     )
 
 
-def _extract_lanes(M: Tensor | None, ids: Tensor) -> Tensor | None:
-    """One bucket's rows of an (E, d) matrix (the warm-start / prior lanes)."""
-    return None if M is None else M[ids]
+def _extract_lanes(M: Tensor | None, ids: Tensor, columns: Tensor | None) -> Tensor | None:
+    """One bucket's rows of an (E, d) matrix (the warm-start / prior lanes),
+    at each entity's subspace columns when given."""
+    if M is None:
+        return None
+    rows = M[ids]
+    return rows if columns is None else torch.gather(rows, 1, columns)
 
 
-def _scatter_lanes(W: Tensor, V: Tensor | None, ids: Tensor, w_b: Tensor, var_b: Tensor | None) -> None:
-    """Write a solved bucket's lanes back into the (E, d) matrices."""
-    W[ids] = w_b
-    if V is not None:
-        V[ids] = var_b
+def _scatter_lanes(W: Tensor, V: Tensor | None, ids: Tensor, columns: Tensor | None,
+                   w_b: Tensor, var_b: Tensor | None) -> None:
+    """Write a solved bucket's lanes back into the (E, d) matrices; under
+    subspace projection the columns outside an entity's subspace are 0."""
+    for M, lanes in ((W, w_b), (V, var_b)):
+        if M is None:
+            continue
+        if columns is None:
+            M[ids] = lanes
+        else:
+            M[ids] = 0.0
+            M[ids[:, None], columns] = lanes
 
 
 def _bucket_step(
@@ -308,13 +349,16 @@ def _bucket_step(
     (and variances) into W (and V) in place. Returns the lanes' (k,) final
     objective, iterations, reason and objective passes."""
     batch = dataclasses.replace(pb.static, offsets=offsets[pb.row_idx] * pb.mask)
+    if pb.columns is not None and intercept_index is not None:
+        intercept_index = pb.columns.shape[1] - 1  # the intercept is each subspace's last slot
     obj = make_lane_objective(
         batch, loss, l2_weight=l2_weight, norm=norm, intercept_index=intercept_index,
-        prior_mean=_extract_lanes(prior_mu, pb.ids), prior_variances=_extract_lanes(prior_var, pb.ids),
+        prior_mean=_extract_lanes(prior_mu, pb.ids, pb.columns),
+        prior_variances=_extract_lanes(prior_var, pb.ids, pb.columns),
     )
-    res = minimize_fn(obj, _extract_lanes(W, pb.ids), config, **minimize_kwargs)
+    res = minimize_fn(obj, _extract_lanes(W, pb.ids, pb.columns), config, **minimize_kwargs)
     var = compute_variances(obj, res.w, variance_computation)
-    _scatter_lanes(W, V, pb.ids, res.w, var)
+    _scatter_lanes(W, V, pb.ids, pb.columns, res.w, var)
     return res.value, res.iterations, res.reason, res.objective_passes
 
 

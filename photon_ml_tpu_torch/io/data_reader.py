@@ -1,5 +1,5 @@
 """Avro training and scoring data reader (port of ``AvroDataReader`` in
-``photon_ml_tpu/io/data_reader.py``, on its pure-Python path).
+``photon_ml_tpu/io/data_reader.py``).
 
 Reads ``TrainingExampleAvro``-shaped records (response, optional offset,
 weight and uid, bags of (name, term, value) features, and a metadata map
@@ -8,16 +8,21 @@ columns through an ``IndexMap``, and gives each entity id a dense integer
 in record order. Index maps take the first-seen key order, so the columns
 and entity ids are the reference's integers exactly.
 
-Each shard's arrays are built on the host in numpy and moved to the device
-in one copy. The reference's C++ columnar decoder (its ``use_native``
-path) is ROADMAP queue 1 item 15; the streamed reader and its chunk
-iterator are item 11.
+By default, as in the reference, the records are decoded by the native
+columnar decoder (``io/native_ingest.py``, one thread per part file); a
+file set whose schema lies outside the decoder's envelope is read by the
+Python codec instead, with one log line naming the field. Both paths give
+the same dataset bit for bit. Each shard's arrays are built on the host in
+numpy and moved to the device in one copy. The streamed reader, its chunk
+iterator and the native streaming statistics are ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
 
 import datetime
+import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterable, Mapping, Sequence
 
@@ -34,7 +39,10 @@ from photon_ml_tpu_torch.game.data import (
     SparseFeatures,
     make_game_batch,
 )
-from photon_ml_tpu_torch.io.avro import iter_avro_directory
+from photon_ml_tpu_torch.io.avro import iter_avro_directory, list_avro_files, read_avro_schema
+from photon_ml_tpu_torch.io.native_ingest import ColumnarFile, OutsideEnvelope, compile_program, decode_file
+
+_log = logging.getLogger(__name__)
 
 # a shard this narrow or narrower is stored dense, (n, d); a wider one as
 # padded sparse rows
@@ -57,6 +65,7 @@ class GameDataset:
     entity_maps: dict[str, dict[str, int]]  # id tag → original id → dense id
     uids: list | None
     labels: np.ndarray
+    decoder: str = "python"  # which decoder read the records: "native" or "python"
 
     @property
     def intercept_indices(self) -> dict[str, int | None]:
@@ -149,6 +158,7 @@ class AvroDataReader:
         entity_maps: Mapping[str, Mapping[str, int]] | None = None,
         extend_entities: bool = False,
         device=None,
+        use_native: bool = True,
     ) -> GameDataset:
         """Records → ``GameDataset`` with its batch on ``device`` (CUDA unless
         the caller asks for another; raises without it).
@@ -158,50 +168,56 @@ class AvroDataReader:
         up; unknown features are dropped and unseen entities get id -1, as
         in the reference. ``extend_entities`` instead gives unseen entities
         fresh ids after the known ones (incremental retraining: a saved
-        model keeps its rows and new entities append)."""
+        model keeps its rows and new entities append).
+
+        ``use_native`` (the default) decodes with the native columnar
+        decoder unless a file's schema lies outside its envelope; the
+        dataset's ``decoder`` says which decoder ran."""
         dev = resolve_device(device)
         paths = [path] if isinstance(path, str) else list(path)
-        records: list[dict] = []
-        for p in paths:
-            records.extend(iter_avro_directory(p))
-        if not records:
-            raise ValueError(f"no records under {paths}")
-
-        parsed = self._parse_rows(records)
-        index_maps = self._maps_from_parsed(parsed) if index_maps is None else dict(index_maps)
-
         frozen_entities = entity_maps is not None and not extend_entities
         ent_maps: dict[str, dict[str, int]] = (
             {t: dict(m) for t, m in entity_maps.items()} if entity_maps else {t: {} for t in id_tags}
         )
         for t in id_tags:
             ent_maps.setdefault(t, {})
-
-        n = len(records)
-        labels = np.fromiter((r[_RESPONSE] for r in records), _DTYPE, count=n)
-        offsets = np.fromiter(
-            (0.0 if (v := r.get(_OFFSET)) is None else v for r in records), _DTYPE, count=n
-        )
-        weights = np.fromiter(
-            (1.0 if (v := r.get(_WEIGHT)) is None else v for r in records), _DTYPE, count=n
-        )
-        uids = [r.get(_UID) for r in records]
-        ids = {t: np.full(n, -1, np.int64) for t in id_tags}
-        for i, rec in enumerate(records):
-            meta = rec.get(_METADATA) or {}
-            for t in id_tags:
-                v = meta.get(t)
-                if v is None:
-                    raise ValueError(f"record {i} missing id tag {t!r}")
-                m = ent_maps[t]
-                if v in m:
-                    ids[t][i] = m[v]
-                elif not frozen_entities:
-                    m[v] = ids[t][i] = len(m)
-                # else: an entity unseen in training stays -1
+        files = self._native_files(paths, id_tags) if use_native else None
+        if files is not None:
+            n = sum(c.num_rows for c in files)
+            if n == 0:
+                raise ValueError(f"no records under {paths}")
+            cols = _NativeColumns(files, n)
+            labels = cols.numeric(_RESPONSE, 0.0)
+            offsets, weights = cols.numeric(_OFFSET, 0.0), cols.numeric(_WEIGHT, 1.0)
+            uids = [u for c in files for u in (c.uids if c.uids is not None else [None] * c.num_rows)]
+            ids = cols.entity_ids(id_tags, ent_maps, frozen_entities)
+            if index_maps is None:
+                index_maps = {sid: cols.index_map(cfg) for sid, cfg in self.feature_shards.items()}
+            triples = {sid: cols.shard_entries(cfg, index_maps[sid]) for sid, cfg in self.feature_shards.items()}
+        else:
+            records: list[dict] = []
+            for p in paths:
+                records.extend(iter_avro_directory(p))
+            if not records:
+                raise ValueError(f"no records under {paths}")
+            n = len(records)
+            parsed = self._parse_rows(records)
+            if index_maps is None:
+                index_maps = self._maps_from_parsed(parsed)
+            labels = np.fromiter((float(r[_RESPONSE]) for r in records), _DTYPE, count=n)
+            offsets = np.fromiter(
+                (0.0 if (v := r.get(_OFFSET)) is None else v for r in records), _DTYPE, count=n
+            )
+            weights = np.fromiter(
+                (1.0 if (v := r.get(_WEIGHT)) is None else v for r in records), _DTYPE, count=n
+            )
+            uids = [r.get(_UID) for r in records]
+            ids = _record_entity_ids(records, id_tags, ent_maps, frozen_entities)
+            triples = {sid: _parsed_entries(parsed[sid], index_maps[sid]) for sid in self.feature_shards}
+        index_maps = dict(index_maps)
 
         features: dict[str, Features] = {
-            sid: _build_features(parsed[sid], index_maps[sid], cfg.has_intercept, dev)
+            sid: _build_features(*triples[sid], n, index_maps[sid], cfg.has_intercept, dev)
             for sid, cfg in self.feature_shards.items()
         }
         batch = make_game_batch(
@@ -213,45 +229,194 @@ class AvroDataReader:
             entity_maps=ent_maps,
             uids=uids if any(u is not None for u in uids) else None,
             labels=labels,
+            decoder="python" if files is None else "native",
         )
 
+    def _native_files(self, paths: list[str], id_tags: Sequence[str]) -> list[ColumnarFile] | None:
+        """Every part file decoded by the native decoder, in file order (one
+        thread per file); None, after one log line naming the field, when a
+        file's schema lies outside the decoder's envelope. A missing or
+        malformed file raises as the Python codec would."""
+        files = [f for p in paths for f in list_avro_files(p)]
+        bags = list(dict.fromkeys(b for cfg in self.feature_shards.values() for b in cfg.feature_bags))
+        numeric = {_RESPONSE: 0.0, _OFFSET: 0.0, _WEIGHT: 1.0}
+        plans = []
+        for f in files:
+            try:
+                prog = compile_program(
+                    read_avro_schema(f), bags, numeric, _METADATA if id_tags else None, _UID,
+                    non_nullable=frozenset({_RESPONSE}),
+                )
+                if _RESPONSE not in prog.slots:
+                    raise OutsideEnvelope(_RESPONSE, "absent from the schema")
+            except OutsideEnvelope as e:
+                _log.warning(
+                    "%s: schema outside the native decoder's envelope (%s); reading %s with the "
+                    "Python codec", f, e, paths,
+                )
+                return None
+            plans.append((f, prog))
+        tags = list(id_tags)
+        with ThreadPoolExecutor(max_workers=max(1, min(len(plans), os.cpu_count() or 1))) as pool:
+            return list(pool.map(lambda plan: decode_file(plan[0], plan[1], tags), plans))
 
-def _build_features(
-    parsed: _ParsedShard, index_map: IndexMap, has_intercept: bool, device
-) -> Features:
-    """One shard's container, built in numpy and copied to ``device`` once:
-    dense (n, d) when d <= ``_DENSE_THRESHOLD`` (repeated columns in a row
-    add up, in record order), else (n, k) padded sparse rows with k the
-    longest row. Keys unknown to the map are dropped; the intercept, when
-    the shard has one, is each row's last entry."""
-    n, d = len(parsed.counts), index_map.size
+
+class _NativeColumns:
+    """The native decoder's per-file columns, merged into the reader's
+    arrays in the order the Python path builds them: rows across files in
+    order, each shard's entries by (row, bag in the shard's order, position
+    in the bag)."""
+
+    def __init__(self, files: list[ColumnarFile], n: int):
+        self.files, self.n = files, n
+        self._bags: dict[str, dict] = {}
+
+    def numeric(self, name: str, default: float) -> np.ndarray:
+        return np.concatenate([
+            c.numeric[name] if name in c.numeric else np.full(c.num_rows, default) for c in self.files
+        ]).astype(_DTYPE)
+
+    def entity_ids(self, id_tags, ent_maps: dict, frozen: bool) -> dict[str, np.ndarray]:
+        """Dense ids per tag, new entities numbered in record order (or -1
+        when ``frozen``); raises at the first record that lacks a tag."""
+        ids = {}
+        for t in id_tags:
+            m, parts = ent_maps[t], []
+            for c in self.files:
+                tag = c.tags[t]
+                remap = np.empty(len(tag["uniq_values"]) + 1, np.int64)
+                remap[-1] = -1  # a record without the tag (id -1) maps to the last slot
+                for u, v in enumerate(tag["uniq_values"]):
+                    if v not in m and not frozen:
+                        m[v] = len(m)
+                    remap[u] = m.get(v, -1)
+                parts.append(np.where(tag["ids"] < 0, -2, remap[tag["ids"]]))
+            ids[t] = np.concatenate(parts)
+        missing = {t: np.flatnonzero(v == -2) for t, v in ids.items()}
+        if any(len(rows) for rows in missing.values()):
+            row = min(int(rows[0]) for rows in missing.values() if len(rows))
+            tag = next(t for t in id_tags if len(missing[t]) and missing[t][0] == row)
+            raise ValueError(f"record {row} missing id tag {tag!r}")
+        return ids
+
+    def bag(self, name: str) -> dict:
+        """One bag over all files: a key table in first-seen order, each
+        entry's key id and value, and each row's entry count."""
+        if name not in self._bags:
+            order: dict[str, int] = {}
+            ids, values, counts = [], [], []
+            for c in self.files:
+                b = c.bags[name]
+                remap = np.fromiter((order.setdefault(k, len(order)) for k in b["uniq_keys"]),
+                                    np.int64, count=len(b["uniq_keys"]))
+                ids.append(remap[b["ids"]])
+                values.append(b["values"])
+                counts.append(np.diff(b["rowptr"]))
+            self._bags[name] = dict(keys=list(order), ids=np.concatenate(ids),
+                                    values=np.concatenate(values), counts=np.concatenate(counts))
+        return self._bags[name]
+
+    def index_map(self, cfg: FeatureShardConfig) -> IndexMap:
+        """The shard's map with keys in the order of their first entry."""
+        if len(cfg.feature_bags) == 1:
+            # a bag's key table is already in the order of first entry
+            return IndexMap.build(self.bag(cfg.feature_bags[0])["keys"], add_intercept=cfg.has_intercept)
+        firsts, keys = [], []
+        for b, name in enumerate(cfg.feature_bags):
+            mb = self.bag(name)
+            if not mb["keys"]:
+                continue
+            # key ids are numbered in order of first entry: a new id is one
+            # above every id before it
+            ids = mb["ids"]
+            seen = np.maximum.accumulate(np.concatenate([[-1], ids[:-1]]))
+            first = np.flatnonzero(ids > seen)
+            rowptr = np.concatenate([[0], np.cumsum(mb["counts"])])
+            rows = np.searchsorted(rowptr, first, side="right") - 1
+            firsts.append(np.stack([rows, np.full(len(first), b), first - rowptr[rows]]))
+            keys += mb["keys"]
+        ranked = np.concatenate(firsts, axis=1) if firsts else np.zeros((3, 0), np.int64)
+        order = np.lexsort(ranked[::-1])
+        return IndexMap.build([keys[i] for i in order], add_intercept=cfg.has_intercept)
+
+    def shard_entries(self, cfg: FeatureShardConfig, index_map: IndexMap):
+        """(rows, columns, values) of the shard's known features, in (row,
+        bag, position) order."""
+        rows, cols, vals = [], [], []
+        for name in cfg.feature_bags:
+            mb = self.bag(name)
+            lookup = index_map.lookup_all(np.asarray(mb["keys"], np.str_)) if mb["keys"] else np.zeros(0, np.int64)
+            c = lookup[mb["ids"]]
+            keep = c >= 0
+            rows.append(np.repeat(np.arange(self.n, dtype=np.int64), mb["counts"])[keep])
+            cols.append(c[keep])
+            vals.append(mb["values"][keep])
+        rows, cols, vals = np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+        if len(cfg.feature_bags) > 1:
+            order = np.argsort(rows, kind="stable")
+            rows, cols, vals = rows[order], cols[order], vals[order]
+        return rows, cols, vals
+
+
+def _record_entity_ids(records: list[dict], id_tags, ent_maps: dict, frozen: bool) -> dict[str, np.ndarray]:
+    """The Python path's dense entity ids, record by record."""
+    ids = {t: np.full(len(records), -1, np.int64) for t in id_tags}
+    for i, rec in enumerate(records):
+        meta = rec.get(_METADATA) or {}
+        for t in id_tags:
+            v = meta.get(t)
+            if v is None:
+                raise ValueError(f"record {i} missing id tag {t!r}")
+            m = ent_maps[t]
+            if v in m:
+                ids[t][i] = m[v]
+            elif not frozen:
+                m[v] = ids[t][i] = len(m)
+            # else: an entity unseen in training stays -1
+    return ids
+
+
+def _parsed_entries(parsed: _ParsedShard, index_map: IndexMap):
+    """(rows, columns, values) of the shard's known features, in record order."""
     lookup = dict(index_map.items())
     cols = np.fromiter((lookup.get(k, -1) for k in parsed.keys), np.int64, count=len(parsed.keys))
     vals = np.asarray(parsed.values, np.float64).astype(_DTYPE)
-    rows = np.repeat(np.arange(n, dtype=np.int64), parsed.counts)
+    rows = np.repeat(np.arange(len(parsed.counts), dtype=np.int64), parsed.counts)
     keep = cols >= 0
-    rows, cols, vals = rows[keep], cols[keep], vals[keep]
-    if has_intercept:
-        if index_map.intercept_index is None:
-            # the reference adds 1 to every column of the row here
-            raise ValueError("the shard has an intercept but its index map has no intercept key")
-        # a stable sort by row puts each row's intercept after its features
-        rows = np.concatenate([rows, np.arange(n, dtype=np.int64)])
-        cols = np.concatenate([cols, np.full(n, index_map.intercept_index, np.int64)])
-        vals = np.concatenate([vals, np.ones(n, _DTYPE)])
-        order = np.argsort(rows, kind="stable")
-        rows, cols, vals = rows[order], cols[order], vals[order]
+    return rows[keep], cols[keep], vals[keep]
+
+
+def _build_features(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n: int, index_map: IndexMap,
+    has_intercept: bool, device,
+) -> Features:
+    """One shard's container from its entries in row order, built in numpy
+    and copied to ``device`` once: dense (n, d) when d <=
+    ``_DENSE_THRESHOLD`` (repeated columns in a row add up, in entry
+    order), else (n, k) padded sparse rows with k the longest row. The
+    intercept, when the shard has one, is each row's last entry."""
+    d = index_map.size
+    icept = index_map.intercept_index
+    if has_intercept and icept is None:
+        # the reference's Python path adds 1 to every column of the row here,
+        # and its native path raises
+        raise ValueError("the shard has an intercept but its index map has no intercept key")
     if d <= _DENSE_THRESHOLD:
         X = np.zeros((n, d), _DTYPE)
-        np.add.at(X, (rows, cols), vals)
+        np.add.at(X.reshape(-1), rows * d + cols, vals)
+        if has_intercept:
+            X[:, icept] += _DTYPE(1.0)  # after every feature of the row
         return DenseFeatures(X=torch.from_numpy(X).to(device))
     counts = np.bincount(rows, minlength=n)
-    k = max(int(counts.max()) if n else 1, 1)
+    k = max(int(counts.max()) + int(has_intercept), 1)
     slots = np.arange(len(rows), dtype=np.int64) - np.concatenate([[0], np.cumsum(counts)])[rows]
     indices = np.zeros((n, k), np.int64)
     values = np.zeros((n, k), _DTYPE)
     indices[rows, slots] = cols
     values[rows, slots] = vals
+    if has_intercept:
+        indices[np.arange(n), counts] = icept
+        values[np.arange(n), counts] = 1.0
     return SparseFeatures(
         indices=torch.from_numpy(indices).to(device),
         values=torch.from_numpy(values).to(device),

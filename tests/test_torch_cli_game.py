@@ -5,7 +5,8 @@ configurations and best index, metrics within 1e-3, the same files, the
 best model within the lane tolerance (L-BFGS random effects, atol 2e-3 /
 rtol 1e-2) or atol 1e-4 (Newton); each package's scoring driver scores the
 other's output to atol 1e-5 in the same uid order; warm start, resume from
-``checkpoints/`` and the unported flags."""
+``checkpoints/``, hyperparameter tuning with ``--diagnostics`` and the
+unported flags."""
 
 from __future__ import annotations
 
@@ -318,7 +319,6 @@ def config_file(tmp_path):
     (["--multihost"], "item 12"),
     (["--profile-dir", "p"], "item 13"),
     (["--telemetry-dir", "t"], "item 13"),
-    (["--diagnostics"], "item 10b"),
 ])
 def test_unported_train_flags_raise(tmp_path, data_dir, config_file, flags, item):
     argv = ["--config", str(config_file), "--train-data", str(data_dir / "train"),
@@ -328,9 +328,16 @@ def test_unported_train_flags_raise(tmp_path, data_dir, config_file, flags, item
 
 
 def test_tuning_and_auto_streaming_raise(tmp_path, data_dir, config_file, monkeypatch):
+    """Tuning without validation data raises the reference's ValueError;
+    an input over the device budget selects the out-of-core trainer, which
+    raises, unless --no-auto-streaming."""
     cfg = parse_config(_config("LBFGS", hyperparameter_tuning_iters=2).to_dict())
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        port_train.run(cfg, [str(data_dir / "train")], str(tmp_path / "a"), device="cpu")
+    with pytest.raises(ValueError, match="hyperparameter tuning requires validation data"):
+        port_train.run(cfg, [str(data_dir / "train")], str(tmp_path / "a"), logger=_quiet(PhotonLogger),
+                       device="cpu")
+    with pytest.raises(ValueError, match="hyperparameter tuning requires validation data"):
+        ref_train.run(_config("LBFGS", hyperparameter_tuning_iters=2), [str(data_dir / "train")],
+                      str(tmp_path / "a-ref"), logger=_quiet(JLogger))
     monkeypatch.setattr(port_train, "hbm_budget_bytes", lambda dev: 100.0)
     argv = ["--config", str(config_file), "--train-data", str(data_dir / "train"),
             "--output-dir", str(tmp_path / "b"), "--device", "cpu"]
@@ -389,3 +396,42 @@ def test_date_ranges_and_prebuilt_index_maps(trained, data_dir, tmp_path):
     for cid in ("fixed", "per_user"):
         np.testing.assert_array_equal(got[cid].coefficient_means.numpy(), want[cid].coefficient_means.numpy())
     assert (out / "photon.log").read_text().count("loaded index maps") == 1
+
+
+def test_tuning_and_diagnostics_match_the_reference(data_dir, tmp_path):
+    """``hyperparameter_tuning_iters`` = 2 and ``--diagnostics`` through both
+    drivers on the same files (Newton random effects at tolerance 1e-3):
+    the same files, the same four configurations (the grid's two, then the
+    same two suggested λs) with metrics within 1e-3, the same best entry,
+    its model within 1e-4, and diagnostics reports of the same shape."""
+    cfg = _config("NEWTON_CHOLESKY", hyperparameter_tuning_iters=2)
+    train, val = [str(data_dir / "train")], [str(data_dir / "val.avro")]
+    ref_train.run(cfg, train, str(tmp_path / "ref"), validation_data=val, logger=_quiet(JLogger),
+                  diagnostics=True)
+    cfg_path = tmp_path / "config.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    port_train.main(["--config", str(cfg_path), "--train-data", *train, "--validation-data", *val,
+                     "--output-dir", str(tmp_path / "port"), "--diagnostics", "--device", "cpu"])
+    ref, port = _metrics(tmp_path / "ref"), _metrics(tmp_path / "port")
+    assert set(_listing(tmp_path / "port")) - {"photon.log"} == set(_listing(tmp_path / "ref"))
+    assert {"diagnostics.json", "diagnostics.html", "models/0003/metadata.json"} <= set(_listing(tmp_path / "port"))
+    assert len(port["results"]) == len(ref["results"]) == 4
+    assert port["best_index"] == ref["best_index"]
+    for got, want in zip(port["results"], ref["results"]):
+        assert got["configuration"] == want["configuration"]
+        for k, v in want["metrics"].items():
+            assert abs(got["metrics"][k] - v) <= 1e-3
+    got, want = _load(tmp_path / "port"), _load(tmp_path / "ref")
+    for cid in ("fixed", "per_user"):
+        np.testing.assert_allclose(got[cid].coefficient_means.numpy(), want[cid].coefficient_means.numpy(),
+                                   atol=1e-4)
+    got, want = (json.loads((tmp_path / d / "diagnostics.json").read_text()) for d in ("port", "ref"))
+    assert got.keys() == want.keys() and got["config"] == want["config"]
+    assert len(got["grid"]) == len(want["grid"]) == 4
+    for g, w in zip(got["grid"], want["grid"]):
+        assert g["configuration"] == w["configuration"]
+        assert g["coordinates"].keys() == w["coordinates"].keys()
+        for cid in g["coordinates"]:
+            assert g["coordinates"][cid].keys() == w["coordinates"][cid].keys()
+        assert len(g["validation_history"]) == len(w["validation_history"])
+    assert "grid entry 3" in (tmp_path / "port" / "diagnostics.html").read_text()

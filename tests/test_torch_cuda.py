@@ -500,3 +500,30 @@ def test_game_drivers_on_the_card_match_the_cpu(dev, tmp_path):
     assert [r["uid"] for r in gpu["file"]] == [r["uid"] for r in cpu["file"]]
     np.testing.assert_allclose([r["predictionScore"] for r in gpu["file"]], gpu["scores"].numpy(), atol=1e-6)
     assert abs(gpu["metrics"]["AUC"] - cpu["metrics"]["AUC"]) <= 1e-3
+
+
+def test_projectors_on_the_card_match_the_cpu(dev):
+    """The per-entity subspace columns (a stable sort on the card, with
+    ties and an always-included intercept) equal the CPU's exactly; a GAME
+    fit with a per-user subspace and a per-item random projection on the
+    card matches the CPU's within the lane tolerance (atol 2e-3 / rtol
+    1e-2), and its random projection scores as (XP)·w_p."""
+    from photon_ml_tpu_torch import config as c
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.game.projector import entity_top_columns
+
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(40, 50, 9)).astype(np.float32) * (rng.uniform(size=(40, 50, 9)) < 0.3)
+    for p in (1, 3, 8):
+        got = entity_top_columns(torch.from_numpy(X).to(dev), p, always_include=8)
+        assert torch.equal(got.cpu(), entity_top_columns(torch.from_numpy(X), p, always_include=8))
+    doc = _game_config(("userId", "itemId")).to_dict()
+    doc["random_effect_coordinates"]["per_userId"]["features_to_samples_ratio_upper_bound"] = 0.25
+    doc["random_effect_coordinates"]["per_itemId"]["random_projection_dim"] = 2
+    cfg = c.parse_config(doc)
+    data, batches = _game_batches(dev)
+    models = [GameEstimator(cfg, intercept_indices={"global": data.intercept_index}, device=b.device)
+              .fit(b)[0].model for b in batches]
+    for cid in models[1].models:
+        np.testing.assert_allclose(models[0][cid].coefficient_means.cpu().numpy(),
+                                   models[1][cid].coefficient_means.numpy(), atol=2e-3, rtol=1e-2)

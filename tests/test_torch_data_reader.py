@@ -1,9 +1,10 @@
-"""The port's ``AvroDataReader`` against the JAX package's Python path
-(``use_native=False``) on the same Avro part files: index maps, entity
-maps, labels, offsets, weights, uids, entity ids and every shard's arrays
-(dense, and padded sparse for a shard wider than 2048) must be equal bit
-for bit; validation reads against frozen maps, ``extend_entities`` and
-prebuilt maps saved by the other package must agree too."""
+"""The port's ``AvroDataReader`` (its default, native path) against the JAX
+package's reader on both of its paths (``use_native=False`` and its default
+``use_native=True``) on the same Avro part files: index maps, entity maps,
+labels, offsets, weights, uids, entity ids and every shard's arrays (dense,
+and padded sparse for a shard wider than 2048) must be equal bit for bit;
+validation reads against frozen maps, ``extend_entities`` and prebuilt maps
+saved by the other package must agree too."""
 
 from __future__ import annotations
 
@@ -121,14 +122,19 @@ def _assert_same(port_ds, ref_ds):
             np.testing.assert_array_equal(feats.values.numpy(), np.asarray(want.values))
 
 
+@pytest.fixture(scope="module", params=[False, True], ids=["ref_python", "ref_native"])
+def ref_native(request):
+    """The reference reader's path: its Python codec, or its default native one."""
+    return request.param
+
+
 @pytest.fixture(scope="module")
-def train_read(data_dir):
+def train_read(data_dir, ref_native):
     port_reader, ref_reader = _readers()
     path = str(data_dir / "train")
-    return (
-        port_reader.read(path, id_tags=TAGS, device="cpu"),
-        ref_reader.read(path, id_tags=TAGS, use_native=False),
-    )
+    port_ds = port_reader.read(path, id_tags=TAGS, device="cpu")
+    assert port_ds.decoder == "native"
+    return port_ds, ref_reader.read(path, id_tags=TAGS, use_native=ref_native)
 
 
 def test_training_read_is_bitwise_the_reference(train_read):
@@ -140,14 +146,14 @@ def test_training_read_is_bitwise_the_reference(train_read):
     assert port_ds.entity_names() == ref_ds.entity_names()
 
 
-def test_validation_read_against_frozen_maps(data_dir, train_read):
+def test_validation_read_against_frozen_maps(data_dir, train_read, ref_native):
     port_train, ref_train = train_read
     port_reader, ref_reader = _readers()
     path = str(data_dir / "val.avro")
     port_ds = port_reader.read(path, id_tags=TAGS, index_maps=port_train.index_maps,
                                entity_maps=port_train.entity_maps, device="cpu")
     ref_ds = ref_reader.read(path, id_tags=TAGS, index_maps=ref_train.index_maps,
-                             entity_maps=ref_train.entity_maps, use_native=False)
+                             entity_maps=ref_train.entity_maps, use_native=ref_native)
     _assert_same(port_ds, ref_ds)
     users = port_ds.batch.id_tags["userId"].numpy()
     assert (users == -1).any() and (users >= 0).any()  # unseen users stay -1
@@ -155,14 +161,14 @@ def test_validation_read_against_frozen_maps(data_dir, train_read):
     assert "unseen\x01x" not in port_ds.index_maps["global"]
 
 
-def test_extend_entities_appends_after_the_known_ones(data_dir, train_read):
+def test_extend_entities_appends_after_the_known_ones(data_dir, train_read, ref_native):
     port_train, ref_train = train_read
     port_reader, ref_reader = _readers()
     path = str(data_dir / "val.avro")
     port_ds = port_reader.read(path, id_tags=TAGS, entity_maps=port_train.entity_maps,
                                extend_entities=True, device="cpu")
     ref_ds = ref_reader.read(path, id_tags=TAGS, entity_maps=ref_train.entity_maps,
-                             extend_entities=True, use_native=False)
+                             extend_entities=True, use_native=ref_native)
     _assert_same(port_ds, ref_ds)
     known = len(port_train.entity_maps["userId"])
     users = port_ds.batch.id_tags["userId"].numpy()
@@ -170,7 +176,7 @@ def test_extend_entities_appends_after_the_known_ones(data_dir, train_read):
 
 
 @pytest.mark.parametrize("saved_by", ["port", "ref"])
-def test_prebuilt_maps_saved_by_either_package(tmp_path, data_dir, train_read, saved_by):
+def test_prebuilt_maps_saved_by_either_package(tmp_path, data_dir, train_read, saved_by, ref_native):
     port_train, ref_train = train_read
     maps = port_train.index_maps if saved_by == "port" else ref_train.index_maps
     for sid, m in maps.items():
@@ -181,7 +187,7 @@ def test_prebuilt_maps_saved_by_either_package(tmp_path, data_dir, train_read, s
     path = str(data_dir / "val.avro")
     _assert_same(
         port_reader.read(path, id_tags=TAGS, index_maps=port_maps, device="cpu"),
-        ref_reader.read(path, id_tags=TAGS, index_maps=ref_maps, use_native=False),
+        ref_reader.read(path, id_tags=TAGS, index_maps=ref_maps, use_native=ref_native),
     )
 
 

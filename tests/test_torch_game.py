@@ -294,17 +294,19 @@ def test_transformer_scores_a_carried_model(reference_glmm):
 
 
 def test_estimator_refuses_what_is_not_ported():
-    """The projector knobs are refused (ROADMAP queue 1 item 10a.5); a
-    random effect left at the default optimizer (L-BFGS) and MULTI_AUC
-    model selection, refused before, now fit, and select as the
-    reference does."""
+    """What was refused before now fits: the projector knobs (the
+    reference's numFeaturesToSamplesRatioUpperBound and random projection,
+    held to the reference in tests/test_torch_projector.py), a random
+    effect left at the default optimizer (L-BFGS), and MULTI_AUC model
+    selection, which selects as the reference does."""
     data, jb, tb = _data(seed=7, n=200, effects={"userId": (5, 2)})
     cfg = _config(tcfg, effects={"userId": (5, 2)})
     re = cfg.random_effect_coordinates["per_userId"]
     for field, value in (("random_projection_dim", 2), ("features_to_samples_ratio_upper_bound", 1.0)):
-        bad = cfg.replace(random_effect_coordinates={"per_userId": re.replace(**{field: value})})
-        with pytest.raises(NotImplementedError, match="10a"):
-            GameEstimator(bad, device="cpu").fit(tb)
+        projected = cfg.replace(random_effect_coordinates={"per_userId": re.replace(**{field: value})})
+        fit = GameEstimator(projected, device="cpu").fit(tb)
+        assert fit[0].model["per_userId"].coefficients.shape == (5, 2)
+        assert torch.isfinite(fit[0].model["per_userId"].coefficients).all()
     lbfgs = re.replace(optimization=re.optimization.replace(optimizer=tcfg.OptimizerConfig()))
     fit = GameEstimator(cfg.replace(random_effect_coordinates={"per_userId": lbfgs}), device="cpu").fit(tb)
     assert torch.isfinite(fit[0].model["per_userId"].coefficients).all()

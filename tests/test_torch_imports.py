@@ -69,6 +69,8 @@ def test_import_port_loads_no_jax():
         "import photon_ml_tpu_torch.supervised.training, photon_ml_tpu_torch.cli.train_glm\n"
         "import photon_ml_tpu_torch.convert, photon_ml_tpu_torch.data.synthetic\n"
         "import photon_ml_tpu_torch.ops.sparse_tiled, photon_ml_tpu_torch.ops._cuda\n"
+        "import photon_ml_tpu_torch.cli.train, photon_ml_tpu_torch.io.native_ingest\n"
+        "import photon_ml_tpu_torch.hyperparameter.tuning, photon_ml_tpu_torch.diagnostics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'photon_ml_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -92,6 +94,7 @@ def _entry_calls(tmp_path):
     from photon_ml_tpu_torch.data.libsvm import read_libsvm, to_padded_sparse
     from photon_ml_tpu_torch.data.summary import summarize
     from photon_ml_tpu_torch.data.synthetic import synthetic_glm_data
+    from photon_ml_tpu_torch.game.projector import RandomProjector
     from photon_ml_tpu_torch.normalization import build_normalization, no_normalization
     from photon_ml_tpu_torch.ops.glm import make_objective
     from photon_ml_tpu_torch.ops.losses import logistic_loss
@@ -131,6 +134,7 @@ def _entry_calls(tmp_path):
         "FeatureSummary.normalization": lambda **kw: summary.normalization(
             NormalizationType.STANDARDIZATION, intercept_index=None, **kw
         ),
+        "RandomProjector.build": lambda **kw: RandomProjector.build(3, 2, **kw),
     }
 
 
@@ -139,7 +143,7 @@ def _entry_calls(tmp_path):
     [
         "synthetic_glm_data", "make_objective", "train_glm", "cli.run", "dense_batch_from_numpy",
         "sparse_batch_from_numpy", "read_libsvm", "to_padded_sparse", "no_normalization",
-        "build_normalization", "FeatureSummary.normalization",
+        "build_normalization", "FeatureSummary.normalization", "RandomProjector.build",
     ],
 )
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch, name):

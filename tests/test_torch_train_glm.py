@@ -333,3 +333,88 @@ def test_cli_twin_writes_the_reference_model_files(tmp_path, fmt):
     if fmt == "avro":
         names = {r["name"] for r in ref_read(str(tmp_path / "port" / "best" / "model.avro"))[1][0]["means"]}
         assert names == {"x", "(INTERCEPT)"}
+
+
+def _stages(out_dir) -> list[str]:
+    return [line.split("stage → ")[1].strip() for line in (out_dir / "photon.log").read_text().splitlines()
+            if "stage → " in line]
+
+
+@pytest.mark.parametrize("fmt", ["avro", "libsvm"])
+def test_cli_twin_flags_match_the_reference(tmp_path, fmt):
+    """``--summarize-features``, ``--validate VALIDATE_FULL``,
+    ``--diagnostics`` and ``--prior-model`` (the reference driver's best
+    model of a first run) against the reference's driver on the same files:
+    the same files, the same ``_stage`` sequence, the summary's records
+    within rtol 1e-5, the models within atol 1e-4, the diagnostics report's
+    λ entries and best λ; a label outside {0, 1} fails validation in both."""
+    from photon_ml_tpu.data.validation import DataValidationError as JValidationError
+    from photon_ml_tpu.io.avro import read_avro_file as ref_read
+    from photon_ml_tpu.types import DataValidationType as JValidate
+    from photon_ml_tpu_torch.data.validation import DataValidationError
+
+    rng = np.random.default_rng(29)
+    X = rng.normal(size=(220, 5)).astype(np.float32)
+    X[rng.uniform(size=X.shape) < 0.2] = 0.0
+    y = (rng.uniform(size=220) < 1 / (1 + np.exp(-X @ rng.normal(size=5)))).astype(np.float32)
+    ext = "avro" if fmt == "avro" else "libsvm"
+    write = _write_avro_glm if fmt == "avro" else (lambda p, a, b: _write_libsvm(p, a, b, rng))
+    first, train, val = tmp_path / f"first.{ext}", tmp_path / f"train.{ext}", tmp_path / f"val.{ext}"
+    write(first, X[:80], y[:80])
+    write(train, X[80:180], y[80:180])
+    write(val, X[180:], y[180:])
+    common = dict(data_format=fmt, validation_data=[str(val)], weights=[0.1, 1.0, 10.0], max_iterations=60,
+                  tolerance=1e-3)
+    jax_run(JTask.LOGISTIC_REGRESSION, [str(first)], str(tmp_path / "prior"), **common)
+    prior = str(tmp_path / "prior" / "best" / "model.avro")
+    jax_run(JTask.LOGISTIC_REGRESSION, [str(train)], str(tmp_path / "jax"), summarize_features=True,
+            validate=JValidate.VALIDATE_FULL, prior_model_path=prior, diagnostics=True, **common)
+    cli_main(["--task", "LOGISTIC_REGRESSION", "--train-data", str(train), "--format", fmt,
+              "--validation-data", str(val), "--weights", "0.1", "1.0", "10.0", "--max-iterations", "60",
+              "--tolerance", "1e-3", "--summarize-features", "--validate", "VALIDATE_FULL", "--diagnostics",
+              "--prior-model", prior, "--device", "cpu", "--output-dir", str(tmp_path / "port")])
+
+    def listing(root):
+        import os
+
+        return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+
+    assert listing(tmp_path / "port") == listing(tmp_path / "jax")
+    assert {"summary/part-00000.avro", "diagnostics.json", "diagnostics.html", "_stage"} <= \
+        set(listing(tmp_path / "port"))
+    assert _stages(tmp_path / "port") == _stages(tmp_path / "jax") == \
+        ["INIT", "PROCESSED", "TRAINED", "VALIDATED"]
+    got, want = (ref_read(str(tmp_path / d / "summary" / "part-00000.avro"))[1] for d in ("port", "jax"))
+    assert [(r["featureName"], r["featureTerm"]) for r in got] == [(r["featureName"], r["featureTerm"])
+                                                                   for r in want]
+    for g, w in zip(got, want):
+        assert g["metrics"].keys() == w["metrics"].keys()
+        np.testing.assert_allclose([g["metrics"][k] for k in w["metrics"]],
+                                   [w["metrics"][k] for k in w["metrics"]], rtol=1e-5, atol=1e-7)
+    for f in _model_files(tmp_path / "jax"):
+        if f.startswith("summary/"):
+            continue
+        g, w = ref_read(str(tmp_path / "port" / f))[1][0], ref_read(str(tmp_path / "jax" / f))[1][0]
+        assert [(r["name"], r["term"]) for r in g["means"]] == [(r["name"], r["term"]) for r in w["means"]]
+        np.testing.assert_allclose([r["value"] for r in g["means"]], [r["value"] for r in w["means"]], atol=1e-4)
+    got, want = (json.loads((tmp_path / d / "diagnostics.json").read_text()) for d in ("port", "jax"))
+    assert got.keys() == want.keys() and got["best_regularization_weight"] == want["best_regularization_weight"]
+    assert [e["regularization_weight"] for e in got["entries"]] == [e["regularization_weight"]
+                                                                     for e in want["entries"]]
+    for g, w in zip(got["entries"], want["entries"]):
+        assert g.keys() == w.keys() and g["coefficients"].keys() == w["coefficients"].keys()
+        assert abs(g["validation"]["AUC"] - w["validation"]["AUC"]) <= 1e-4
+
+    bad = tmp_path / f"bad.{ext}"
+    if fmt == "avro":
+        y_bad = y[80:180].copy()
+        y_bad[3] = 2.0
+        write(bad, X[80:180], y_bad)
+    else:  # the LIBSVM writer maps labels to ±1
+        bad.write_text("+1 1:0.5 2:1.0\n2 1:0.25\n-1 2:0.5\n")
+    with pytest.raises(JValidationError, match="binary labels"):
+        jax_run(JTask.LOGISTIC_REGRESSION, [str(bad)], str(tmp_path / "jax-bad"), data_format=fmt,
+                validate=JValidate.VALIDATE_FULL)
+    with pytest.raises(DataValidationError, match="binary labels"):
+        cli_main(["--task", "LOGISTIC_REGRESSION", "--train-data", str(bad), "--format", fmt, "--validate",
+                  "VALIDATE_FULL", "--device", "cpu", "--output-dir", str(tmp_path / "port-bad")])
