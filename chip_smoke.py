@@ -2,8 +2,9 @@
 """Drive the PyTorch port's dense and high-dimensional sparse GLM training
 paths, its GAME mixed-effect training path (random effects on damped
 Newton, on the default lane solvers and in per-entity subspaces and random
-projections) and its GAME train and score drivers on Avro files, read by
-the native columnar decoder, on one CUDA card.
+projections), its GAME train and score drivers on Avro files, read by
+the native columnar decoder, and its out-of-core GLM path (host chunks
+streamed through the card) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -145,14 +146,52 @@ Run from the root of a checkout. It builds the CUDA kernels from
    fits; then the GLM twin with ``--summarize-features``, ``--validate
    VALIDATE_FULL``, ``--diagnostics`` and ``--prior-model`` (phase 16's twin
    model), equal to ``train_glm`` with the same prior (atol 1e-5). The files
-   live in a scratch directory of the checkout, removed at the end.
+   live in a scratch directory of the checkout, removed at the end;
+18. main_glm_streamed_cli: ``cli.train_glm --format avro
+   --streaming-chunk-rows 32768`` on phase 16's files (the global shard,
+   65 columns, with validation, 3 lambda, 100 iterations at 1e-8): the
+   statistics pass, the chunk fill and the validation chunks in ms a
+   record, each stage's seconds and K1's launches (one per chunk of every
+   value-and-gradient pass of the three lambda, nothing else); the first two
+   4096-row chunks of one part read by the native decoder and by the
+   Python codec equal bit for bit; every lambda's model equal to
+   ``train_glm`` on the same arrays within rtol 1e-2 / atol 1e-3 with the
+   same best lambda; a rerun into the same directory loads every lambda
+   from ``checkpoints/``;
+19. main_f: logistic at config A's width in float32, 2^22 rows (8 GiB) in
+   16 host chunks of 2^18 rows drawn on the card, ``train_glm_streamed``
+   with host L-BFGS (10 iterations at tolerance 0, lambda = 1) in three
+   arms: a 2 GiB chunk cache, the default cache and
+   ``PHOTON_PREFETCH_DEPTH=0`` (no worker threads, the default cache), each with its wall per pass, bytes copied
+   a pass beside the pinned host-to-device rate of one 512 MiB copy, cache
+   hits, misses and evictions, stage seconds, K1 launches (16 a pass),
+   peak device and host memory, one more pass's wall, and for the first
+   two arms the card's busy share over one profiled pass; the arms'
+   coefficients bitwise equal,
+   ``value_and_grad`` equal to the in-memory objective on the same 8 GiB on
+   the card (value rtol 1e-5, gradient 1e-4) and the solve to the
+   in-memory ``train_glm`` (|dAUC| <= 0.005, relative d(objective) <=
+   1e-3); K1 alone at the chunk's shape, against its plain version;
+20. main_b_streamed: config B in 8 host chunks of 2^17 rows with host TRON
+   (15 iterations): K1 on each chunk of every value-and-gradient pass and
+   K2 on each chunk of every Hessian-vector pass; against main_b relative
+   dRMSE <= 1e-4 and d(objective) <= 1e-3; K2 alone at the chunk's shape,
+   against its plain version at phase 3's tolerance;
+21. main_a2_streamed: config A2's data in 8 host chunks of 2^16 rows, each
+   chunk's K3 layouts built once through the layout cache (each chunk's
+   build time), host L-BFGS 30 iterations with SIMPLE variances: K3 once
+   per chunk and direction of every pass, a second objective over the
+   same chunks with no cache miss, and against main_a2 |dAUC| <= 1e-3 and
+   relative d(objective) <= 1e-4; K3 alone at the chunk's layouts, each
+   direction against its plain version at 1e-5.
 
 Every check that fails raises, and the script exits non-zero with no
 result. Its last lines are the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
-E on L-BFGS, E projected and the GAME drivers, which ``launches_by_path``
-lists one by one; ``at_main_d_shape`` and ``at_main_e_shape`` give its times at GAME's
-widths), the line
+E on L-BFGS, E projected, the GAME drivers and the four out-of-core
+phases, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
+and ``at_main_e_shape`` give its times at GAME's widths and
+``at_streamed_chunk_shape`` each kernel's at its streamed chunk), the line
 ``nvidia-smi --query-gpu=name,power.limit`` prints, and
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without CUDA or outside a checkout of the repository.
@@ -207,13 +246,14 @@ from photon_ml_tpu_torch.io.data_reader import AvroDataReader
 from photon_ml_tpu_torch.io.model_io import load_game_model, load_glm
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.native import build as native_build
-from photon_ml_tpu_torch.ops import _cuda, fused
+from photon_ml_tpu_torch.ops import _cuda, fused, prefetch, tile_cache
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
 from photon_ml_tpu_torch.ops.glm import make_objective
 from photon_ml_tpu_torch.ops.losses import LOSSES
+from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks
 from photon_ml_tpu_torch.optim import select_minimize_fn
-from photon_ml_tpu_torch.supervised.training import train_glm
+from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
 from photon_ml_tpu_torch.transformers import GameTransformer
 from photon_ml_tpu_torch.types import (
     ModelOutputMode,
@@ -279,22 +319,40 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time of ``fn`` per call: the time of every kernel it launches,
-    summed by ``torch.profiler`` over ``reps`` calls after one warm-up call.
+def device_ms(fn, reps: int, floor_ms: float = 0.0) -> float | None:
+    """Device time of ``fn`` per call: the durations of everything it runs
+    on the card, from the events ``torch.profiler`` traced over ``reps``
+    calls after one warm-up call. A trace with no device event is taken
+    once more with the host's activity traced too. None (not measured)
+    when both are blank, or when the traced time is below ``floor_ms``
+    (half the least time the card could take: the trace missed kernels);
+    ``profiler_blank`` / ``profiler_partial`` record what the traces held.
     Beside ``cuda_ms`` (events around back-to-back calls) it says how much
     of a call's time the card works and how much it waits on the host."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-    return us / 1e3 / reps
+    traces = []
+    for activities in ([ProfilerActivity.CUDA], [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        traces.append(dict(activities=[str(a) for a in activities], device_events=len(events),
+                           names=sorted({e.name[:60] for e in events}),
+                           traced_ms=sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps))
+        if events:
+            break
+    if not traces[-1]["device_events"]:
+        emit("profiler_blank", traces=traces)
+        return None
+    if traces[-1]["traced_ms"] < floor_ms:
+        emit("profiler_partial", floor_ms=floor_ms, traces=traces)
+        return None
+    return traces[-1]["traced_ms"]
 
 
 def close(got, ref, rtol: float, atol: float) -> tuple[bool, float]:
@@ -485,14 +543,14 @@ def k1_time(X, labels, offsets, u, c, loss, reps: int = 20) -> dict:
         rec[f"ms_{k}"] = cuda_ms(in_layout(k), reps)
     rec["ms_again"] = cuda_ms(in_layout(layout), reps)
     rec[f"ms_{layout}"] = rec["ms"]
-    for k in (layout, *others):
-        rec[f"device_ms_{k}"] = device_ms(in_layout(k), reps)
-    rec["device_ms"] = rec[f"device_ms_{layout}"]
-    rec["plain_ms"] = cuda_ms(plain, 2)
-    rec["library_ms"] = cuda_ms(k1_library(X, labels, offsets, u, c, loss), reps)
     nbytes = n * d * X.element_size() + 4 * n * (1 + (offsets is not None)) + 4 * d + 4 * (d + 2)
     rec["bytes"] = nbytes
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 4.0 * n * d)
+    for k in (layout, *others):
+        rec[f"device_ms_{k}"] = device_ms(in_layout(k), reps, floor_ms=0.5 * rec["bound_ms"])
+    rec["device_ms"] = rec[f"device_ms_{layout}"]
+    rec["plain_ms"] = cuda_ms(plain, 2)
+    rec["library_ms"] = cuda_ms(k1_library(X, labels, offsets, u, c, loss), reps)
     rec["hbm_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
@@ -761,15 +819,20 @@ def gather_floor(dev) -> dict:
 
 
 def time_k3(lay, src, square, direction, *, plain=True, library=True) -> dict:
-    """One direction of K3 on one layout: the kernel twice (``ms``,
-    ``ms_again``), beside its plain version and cuSPARSE on the same CSR
-    (``library``), and the least time the card could take."""
+    """One direction of K3 on one layout: its agreement with the plain
+    version (``ok``, at ``parity_k3``'s tolerance for the layout's rung),
+    the kernel twice (``ms``, ``ms_again``), beside its plain version and
+    cuSPARSE on the same CSR (``library``), and the least time the card
+    could take."""
     run = lambda: st.sparse_apply(lay, src, square=square, direction=direction)  # noqa: E731
     ref = st.tiled_apply_reference(lay, src, square=square)
     got = run()
     torch.cuda.synchronize()
-    rec = dict(direction=direction, nnz=lay.nnz,
-               max_abs_err=float((got.double() - ref.double()).abs().max()))
+    if lay.storage == "f32":
+        ok, err = close(got, ref, 1e-5, 1e-5)
+    else:
+        ok, err = close(got, ref, 0.0, 1e-5 * float(ref.abs().max()))
+    rec = dict(direction=direction, nnz=lay.nnz, max_abs_err=err, ok=ok)
     del got, ref
     rec["ms"] = cuda_ms(run, 20)
     if plain:
@@ -1876,6 +1939,390 @@ def run_e_projected(dev, batch, data, lbfgs: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 18-21: the out-of-core GLM path
+# ---------------------------------------------------------------------------
+# main_f: config A's width (logistic, d = 512, float32), 2^22 rows: 8 GiB of
+# X on the host in 16 chunks of 2^18 rows (512 MiB each)
+F_ROWS, F_D, F_CHUNK = 1 << 22, 512, 1 << 18
+B_CHUNK, A2_CHUNK, GLM_CLI_CHUNK = 1 << 17, 1 << 16, 1 << 15
+GLM_CLI_WEIGHTS = ("0.1", "1", "10")
+
+
+def host_memory() -> dict:
+    """The process's resident host memory and its peak so far, and the
+    pinned memory PyTorch's caching host allocator holds (its byte
+    counters since ``reset_peak_host_memory_stats``), bytes."""
+    import resource
+
+    out = {"peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+           "pinned": {k: v for k, v in torch.cuda.host_memory_stats().items() if "bytes" in k}}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, rest = line.partition(":")
+            if key == "VmRSS":
+                out["rss_bytes"] = int(rest.split()[0]) * 1024
+    return out
+
+
+@contextmanager
+def environment(values: dict):
+    """``os.environ`` with ``values`` set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def streamed_solve(chunks, task, d, config, dev, **kw):
+    """``train_glm_streamed`` at λ = 1 with every kernel's launch count and
+    the pipeline's stage counters zeroed just before it and read just
+    after; returns (result, wall seconds, launches)."""
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    prefetch.reset_stage_seconds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = train_glm_streamed(chunks, task, d, config, regularization_weights=[1.0], device=dev, **kw)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, launch_counts()
+
+
+def f_chunks(dev) -> list[dict]:
+    """main_f's 16 chunks, drawn on the card from one seeded generator (X
+    N(0, 1) with column j scaled by exp(4j/511 − 2), so the solve is
+    ill-conditioned enough to take its iterations, the intercept at column
+    511, labels Bernoulli(sigmoid(X·w))) and copied to the host."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    w_true = torch.randn(F_D, generator=gen, device=dev) / F_D**0.5
+    scale = torch.exp(torch.linspace(-2.0, 2.0, F_D, device=dev))
+    chunks = []
+    for _ in range(F_ROWS // F_CHUNK):
+        X = torch.randn((F_CHUNK, F_D), generator=gen, device=dev) * scale
+        X[:, F_D - 1] = 1.0
+        y = (torch.rand(F_CHUNK, generator=gen, device=dev) < torch.sigmoid(X @ w_true)).float()
+        chunks.append(dict(X=X.cpu().numpy(), labels=y.cpu().numpy(),
+                           offsets=np.zeros(F_CHUNK, np.float32), weights=np.ones(F_CHUNK, np.float32)))
+    return chunks
+
+
+def pinned_h2d_gb_s(dev, nbytes: int = F_CHUNK * F_D * 4) -> float:
+    """The card's host-to-device rate from pinned memory: one 512 MiB copy."""
+    host = torch.ones(nbytes // 4, dtype=torch.float32).pin_memory()
+    out = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+    ms = cuda_ms(lambda: out.copy_(host, non_blocking=True), 5)
+    return nbytes / (ms * 1e-3) / 1e9
+
+
+def busy_share(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the union of the
+    intervals in which the card ran a kernel (and a kernel or a copy) over
+    the call's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def union_s(spans) -> float:
+        total, end = 0.0, -1.0
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e6
+
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [(e.time_range.start, e.time_range.end) for e in dev_events if "Memcpy" not in e.name]
+    everything = [(e.time_range.start, e.time_range.end) for e in dev_events]
+    if not everything:
+        return dict(wall_s=wall, busy_share="not measured (no device events in the trace)")
+    return dict(wall_s=wall, kernel_busy_s=union_s(kernels), busy_s=union_s(everything),
+                kernel_busy_share=union_s(kernels) / wall, busy_share=union_s(everything) / wall)
+
+
+def k2_at(X, labels) -> dict:
+    """K2 alone at a streamed chunk's shape (squared loss, offsets and
+    weights read as the streamed objective reads them): its time, plain
+    version, the library yardstick and the least time the card could take."""
+    n, d = X.shape
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(12)
+    u = 0.5 * torch.randn(d, generator=gen, device=dev) / d**0.5
+    v = torch.randn(d, generator=gen, device=dev) / d**0.5
+    off, wt = torch.zeros(n, device=dev), torch.ones(n, device=dev)
+    c, cv, loss = torch.tensor(0.1, device=dev), torch.tensor(-0.05, device=dev), LOSSES["squared"]
+    run = lambda: fused.fused_hvp(X, labels, off, wt, u, v, c, cv, loss=loss)  # noqa: E731
+    plain = lambda: fused.fused_hvp_reference(X, labels, off, wt, u, v, c, cv, loss=loss)  # noqa: E731
+    uv = torch.stack([u, v], dim=1)
+
+    def library():
+        muv = X @ uv
+        q = loss.d2(muv[:, 0] - c + off, labels) * (muv[:, 1] - cv) * wt
+        return X.T @ q, q.sum()
+
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    _, tol = TOL["float32"]  # phase 3's K2 gates: Xᵀq and Σq at rtol = atol = tol
+    (hv_ok, err), (sum_ok, sum_err) = close(got[0], ref[0], tol, tol), close(got[1], ref[1], tol, tol)
+    nbytes = n * d * 4 + 12 * n + 8 * d + 4 * (d + 1)
+    bound_ms, bound_by = _bound(nbytes, 6.0 * n * d)
+    ms = cuda_ms(run, 20)
+    return dict(n=n, d=d, ms=ms, ms_again=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+                library_ms=cuda_ms(library, 20), bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                max_abs_err=err, q_sum_abs_err=sum_err, ok=hv_ok and sum_ok, hbm_share=bound_ms / ms)
+
+
+def run_f(dev, card: str) -> dict:
+    """main_f: the dense out-of-core solve (host L-BFGS, 10 iterations at
+    tolerance 0, λ = 1) over 8 GiB of host chunks in three arms: (a) a 2 GiB
+    chunk cache, (b) the default cache, (c) ``PHOTON_PREFETCH_DEPTH=0``
+    (no worker threads, the default cache);
+    then ``value_and_grad`` and ``train_glm`` on the same 8 GiB on the card."""
+    t0 = time.perf_counter()
+    chunks = f_chunks(dev)
+    rec = dict(card=card, n=F_ROWS, d=F_D, chunk_rows=F_CHUNK, chunks=len(chunks),
+               host_bytes=sum(c["X"].nbytes for c in chunks), data_s=time.perf_counter() - t0,
+               pinned_h2d_gb_s=pinned_h2d_gb_s(dev), arms={})
+    X0 = torch.from_numpy(chunks[0]["X"]).to(dev)  # K1 alone at the chunk's shape, offsets read
+    rec["k1_at_chunk"] = k1_at(X0, torch.zeros(F_CHUNK, device=dev), torch.from_numpy(chunks[0]["labels"]).to(dev),
+                               dev)
+    del X0
+    cfg = OptimizerConfig(max_iterations=10, tolerance=0.0)
+    arms = {"a_cache_2GiB": {"PHOTON_CHUNK_CACHE_BUDGET": str(2 << 30)}, "b_default": {},
+            "c_depth_0": {"PHOTON_PREFETCH_DEPTH": "0"}}
+    solutions = {}
+    for name, env in arms.items():
+        with environment(env):
+            prefetch.clear_cache()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.reset_peak_host_memory_stats()
+            result, wall, launches = streamed_solve(chunks, TaskType.LOGISTIC_REGRESSION, F_D, cfg, dev,
+                                                    intercept_index=F_D - 1)
+            t = result.trackers[1.0]
+            stats, stages, copied = prefetch.cache_stats(), dict(prefetch.stage_seconds), dict(prefetch.copied)
+            arm = dict(
+                iterations=t.iterations, objective_passes=t.objective_passes, objective=float(t.value),
+                wall_s=wall, wall_s_per_pass=wall / t.objective_passes, launches=launches,
+                k1_per_chunk_and_pass=launches["fused_value_grad"] / (len(chunks) * t.objective_passes),
+                bytes_copied_per_pass=copied["bytes"] / t.objective_passes,
+                copy_gb_s=copied["bytes"] / wall / 1e9,
+                copy_share_of_pinned_rate=copied["bytes"] / wall / 1e9 / rec["pinned_h2d_gb_s"],
+                cache=stats, stage_seconds=stages, chunk_cache_budget_bytes=prefetch.chunk_cache_budget_bytes(dev),
+                peak_device_bytes=torch.cuda.max_memory_allocated(), host=host_memory(),
+            )
+            solutions[name] = result.models[1.0].coefficients.means
+            # one more value-and-gradient pass with the cache as the solve left it
+            sobj = StreamingGLMObjective(chunks, LOSSES["logistic"], F_D, l2_weight=1.0,
+                                         intercept_index=F_D - 1, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sobj.value_and_grad(solutions[name])
+            torch.cuda.synchronize()
+            arm["next_pass_s"] = time.perf_counter() - t1
+            if name != "c_depth_0":  # the card's busy share over one pass, thrashing and resident
+                arm["profiled_pass"] = busy_share(lambda: sobj.value_and_grad(solutions[name]))
+            del sobj
+            rec["arms"][name] = arm
+    names = list(arms)
+    rec["arms_bitwise_equal"] = all(torch.equal(solutions[names[0]], solutions[k]) for k in names[1:])
+    rec["k1_launches_ok"] = all(
+        a["launches"]["fused_value_grad"] == len(chunks) * a["objective_passes"] and not a["launches"]["fused_hvp"]
+        for a in rec["arms"].values()
+    )
+    rec["launches"] = {k: sum(a["launches"][k] for a in rec["arms"].values()) for k in launch_counts()}
+
+    # the same 8 GiB on the card: one objective pass and the in-memory solve
+    X = torch.empty((F_ROWS, F_D), device=dev)
+    y = torch.empty(F_ROWS, device=dev)
+    for i, c in enumerate(chunks):
+        X[i * F_CHUNK:(i + 1) * F_CHUNK].copy_(torch.from_numpy(c["X"]))
+        y[i * F_CHUNK:(i + 1) * F_CHUNK].copy_(torch.from_numpy(c["labels"]))
+    batch = DenseBatch(X=X, labels=y, offsets=torch.zeros(F_ROWS, device=dev), weights=torch.ones(F_ROWS, device=dev))
+    w = solutions["b_default"]
+    sobj = StreamingGLMObjective(chunks, LOSSES["logistic"], F_D, l2_weight=1.0, intercept_index=F_D - 1, device=dev)
+    v_s, g_s = sobj.value_and_grad(w)
+    v_m, g_m = make_objective(batch, LOSSES["logistic"], l2_weight=1.0, intercept_index=F_D - 1,
+                              device=dev).value_and_grad(w)
+    v_ok, v_err = close(v_s.reshape(1), v_m.reshape(1), 1e-5, 0.0)
+    g_ok, g_err = close(g_s, g_m, 1e-4, 1e-4)
+    del sobj
+    prefetch.clear_cache()
+    result, wall, launches = solve(batch, TaskType.LOGISTIC_REGRESSION, cfg, [1.0], dev, intercept_index=F_D - 1)
+    t = result.trackers[1.0]
+    auc_mem = float(auc_roc(batch.matvec(result.models[1.0].coefficients.means), y))
+    auc_str = float(auc_roc(batch.matvec(w), y))
+    obj_str = rec["arms"]["b_default"]["objective"]
+    rec.update(
+        value_and_grad_vs_in_memory=dict(value_ok=v_ok, value_abs_err=v_err, grad_ok=g_ok, grad_max_abs_err=g_err),
+        in_memory=_record(t, wall, launches, train_auc=auc_mem),
+        train_auc=auc_str, d_auc_vs_in_memory=abs(auc_str - auc_mem),
+        rel_d_objective_vs_in_memory=abs(obj_str - float(t.value)) / abs(float(t.value)),
+    )
+    return rec
+
+
+def run_b_streamed(dev, b: dict, card: str) -> dict:
+    """main_b_streamed: config B (linear, 2^20 x 256 float32, as main_b
+    draws it) in 8 host chunks of 2^17 rows, host TRON 15 iterations."""
+    task = TaskType.LINEAR_REGRESSION
+    batch, _, _ = synthetic_glm_data(2, N, 256, task, noise=0.1, add_intercept=False, dtype=torch.float32,
+                                     device=dev)
+    chunks = dense_chunks(batch.X.cpu().numpy(), batch.labels.cpu().numpy(), B_CHUNK)
+    prefetch.clear_cache()
+    result, wall, launches = streamed_solve(
+        chunks, task, 256, OptimizerConfig(optimizer_type=OptimizerType.TRON, max_iterations=15, tolerance=0.0), dev
+    )
+    t = result.trackers[1.0]
+    vg_passes = t.iterations + 1  # one value-and-gradient pass per outer iteration and the start
+    hvp_passes = t.objective_passes - vg_passes
+    train_rmse = float(rmse(result.models[1.0].score(batch), batch.labels))
+    rec = _record(t, wall, launches, train_rmse=train_rmse, card=card, chunks=len(chunks), chunk_rows=B_CHUNK,
+                  value_grad_passes=vg_passes, hvp_passes=hvp_passes,
+                  k1_per_chunk_and_pass=launches["fused_value_grad"] / (len(chunks) * vg_passes),
+                  k2_per_chunk_and_pass=launches["fused_hvp"] / (len(chunks) * max(hvp_passes, 1)),
+                  cache=prefetch.cache_stats(), stage_seconds=dict(prefetch.stage_seconds))
+    rec["launches_ok"] = (launches["fused_value_grad"] == len(chunks) * vg_passes
+                          and launches["fused_hvp"] == len(chunks) * hvp_passes and hvp_passes > 0)
+    rec["k2_at_chunk"] = k2_at(batch.X[:B_CHUNK], batch.labels[:B_CHUNK])
+    rec["rel_d_rmse_vs_main_b"] = abs(train_rmse - b["train_rmse"]) / b["train_rmse"]
+    rec["rel_d_objective_vs_main_b"] = abs(rec["objective"] - b["objective"]) / abs(b["objective"])
+    prefetch.clear_cache()
+    return rec
+
+
+def run_a2_streamed(dev, a2: dict, card: str) -> dict:
+    """main_a2_streamed: config A2's data (as main_a2 draws it) in 8 host
+    chunks of 2^16 rows, each tiled for K3 through the layout cache; host
+    L-BFGS 30 iterations at λ = 1 with SIMPLE variances."""
+    n, d, k = A2
+    batch, _ = sparse_problem(dev, n, d, k, seed=1)
+    chunks = sparse_chunks(batch.indices.to(torch.int32).cpu().numpy(), batch.values.cpu().numpy(),
+                           batch.labels.cpu().numpy(), A2_CHUNK)
+    tile_cache.clear()
+    prefetch.clear_cache()
+    first = StreamingGLMObjective(chunks, LOSSES["logistic"], d, device=dev)
+    packed = tile_cache.stats()
+    result, wall, launches = streamed_solve(
+        chunks, TaskType.LOGISTIC_REGRESSION, d, OptimizerConfig(max_iterations=30, tolerance=0.0), dev,
+        variance_computation=VarianceComputationType.SIMPLE,
+    )
+    t = result.trackers[1.0]
+    model = result.models[1.0]
+    passes = t.objective_passes  # value-and-gradient passes; SIMPLE adds one Hessian-diagonal pass
+    expected = {"matvec": len(chunks) * (passes + 1), "rmatvec": len(chunks) * (passes + 1),
+                "rmatvec_sq": len(chunks)}
+    k3 = {dname: launches[f"sparse_{dname}"] for dname in st.DIRECTIONS}
+    auc = float(auc_roc(batch.matvec(model.coefficients.means), batch.labels))
+    rec = _record(t, wall, launches, train_auc=auc, card=card, chunks=len(chunks), chunk_rows=A2_CHUNK,
+                  tiled=first.tiled, layout_build_s=first.layout_build_s, first_objective_cache=packed,
+                  second_objective_misses=tile_cache.stats()["misses"] - packed["misses"],
+                  k3_launches=k3, k3_expected=expected, launches_ok=k3 == expected,
+                  variances_finite=bool(torch.isfinite(model.coefficients.variances).all()),
+                  cache=prefetch.cache_stats())
+    m, g = first._tile_layouts[0]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w, r = torch.randn(d, generator=gen, device=dev), torch.randn(A2_CHUNK, generator=gen, device=dev)
+    rec["k3_at_chunk"] = {dname: time_k3(lay, src, sq, dname)
+                          for dname, (lay, src, sq) in {"matvec": (m, w, False), "rmatvec": (g, r, False),
+                                                        "rmatvec_sq": (g, r, True)}.items()}
+    rec["d_auc_vs_main_a2"] = abs(auc - a2["train_auc"])
+    rec["rel_d_objective_vs_main_a2"] = abs(rec["objective"] - a2["objective"]) / abs(a2["objective"])
+    del first
+    tile_cache.clear()
+    prefetch.clear_cache()
+    return rec
+
+
+def run_glm_streamed_cli(dev, data: GameCliData, card: str) -> dict:
+    """main_glm_streamed_cli: ``cli.train_glm --format avro
+    --streaming-chunk-rows 32768`` on main_game_cli's files (the global
+    shard), held to ``train_glm`` on the same arrays; a rerun loads every λ
+    from its checkpoints."""
+    work, n_tr, n_va = data.work, data.n_train, data.n_val
+    train_dir, val_dir = os.path.join(work, "train"), os.path.join(work, "val")
+    reader = AvroDataReader()
+    part = os.path.join(train_dir, "part-00000.avro")
+    maps, _ = reader.streaming_ingest_stats(train_dir)
+    rows = 4096  # the Python codec's first two chunks of one part, against the native decoder's
+    native = reader.iter_batch_chunks(part, "global", rows, maps)
+    python = reader.iter_batch_chunks(part, "global", rows, maps, use_native=False)
+    chunk_parity = all(
+        all(np.array_equal(a[key], b[key]) and a[key].dtype == b[key].dtype for key in a)
+        for a, b, _ in zip(native, python, range(2))
+    )
+    out = os.path.join(work, "glm_streamed")
+    argv = ["--task", "LOGISTIC_REGRESSION", "--format", "avro", "--train-data", train_dir,
+            "--validation-data", val_dir, "--weights", *GLM_CLI_WEIGHTS, "--max-iterations", "100",
+            "--tolerance", "1e-8", "--streaming-chunk-rows", str(GLM_CLI_CHUNK), "--device", dev.type,
+            "--output-dir", out]
+    streamed = []  # (chunk count, result) of the driver's streamed sweep
+    real = cli_train_glm.train_glm_streamed
+
+    def recorded(chunks, *args, **kwargs):
+        streamed.append((len(chunks), real(chunks, *args, **kwargs)))
+        return streamed[-1][1]
+
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_train_glm.train_glm_streamed = recorded
+    try:
+        with stage_times(cli_train_glm) as stages:
+            cli_train_glm.main(argv)
+    finally:
+        cli_train_glm.train_glm_streamed = real
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    # K1 on every chunk of every value-and-gradient pass of the three λ
+    # (value-only passes and validation scoring run torch.matmul); nothing else
+    chunks, result = streamed[0]
+    vg_passes = sum(t.objective_passes for t in result.trackers.values())
+    launches_ok = (vg_passes > 0 and launches["fused_value_grad"] == chunks * vg_passes
+                   and not any(v for k, v in launches.items() if k != "fused_value_grad"))
+    with open(os.path.join(out, "report.json")) as f:
+        report = json.load(f)
+    weights = [float(w) for w in GLM_CLI_WEIGHTS]
+    ref = train_glm(data.arrays[0].batch_for("global"), TaskType.LOGISTIC_REGRESSION,
+                    optimizer_config=OptimizerConfig(max_iterations=100, tolerance=1e-8),
+                    regularization=RegularizationContext(RegularizationType.L2), regularization_weights=weights,
+                    intercept_index=D_FIXED, validation_batch=data.arrays[1].batch_for("global"), device=dev)
+    coef_ok, max_diff = True, 0.0
+    for lam in weights:
+        got = load_glm(os.path.join(out, "models", f"lambda-{lam:g}", "model.avro"), index_map=maps["global"],
+                       device=dev).coefficients.means
+        want = ref.models[lam].coefficients.means
+        coef_ok = coef_ok and close(got, want, 1e-2, 1e-3)[0]
+        max_diff = max(max_diff, float((got - want).abs().max()))
+    again = cli_train_glm.run(TaskType.LOGISTIC_REGRESSION, [train_dir], out, data_format="avro",
+                              validation_data=[val_dir], weights=weights, max_iterations=100, tolerance=1e-8,
+                              streaming_chunk_rows=GLM_CLI_CHUNK, device=dev)
+    stats_s, fill_s = stages["index maps (streaming pass, all files)"], stages["chunk training data"]
+    return dict(
+        card=card, rows_train=n_tr, rows_validation=n_va, chunk_rows=GLM_CLI_CHUNK, wall_s=wall,
+        stages_s=stages, stats_pass_ms_per_record=1e3 * stats_s / n_tr,
+        chunk_fill_ms_per_record=1e3 * fill_s / n_tr,
+        validation_chunk_ms_per_record=1e3 * stages["chunk validation data"] / n_va,
+        launches=launches, chunks=chunks, value_grad_passes=vg_passes, launches_ok=launches_ok,
+        native_python_chunk_parity=chunk_parity, chunk_parity_rows=2 * rows,
+        report=report, best_weight=report["best_weight"], library_best_weight=ref.best_weight,
+        coefficients_ok=coef_ok, max_abs_diff_vs_train_glm=max_diff,
+        rerun_loaded_every_lambda=again.trackers == {} and sorted(again.models) == weights,
+    )
+
+
 def _check_game_launches(phase: str, rec: dict) -> None:
     """Every fixed-effect objective pass ran on K1, and nothing else
     launched a kernel."""
@@ -2053,6 +2500,8 @@ def main() -> int:
         with recording_decoders() as decoders:
             full = run_game_cli_full(dev, data, os.path.join(work, "glm", "best", "model.avro"))
         full["decoders"] = decoders
+        # the out-of-core GLM driver on the same files
+        glm_streamed = run_glm_streamed_cli(dev, data, smi)
         del data
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2091,6 +2540,58 @@ def main() -> int:
     if failed:
         raise AssertionError(f"main_game_cli_full failed: {failed}")
 
+    # the out-of-core GLM path: the driver (above, on the GAME files), then
+    # main_f, config B and config A2 streamed from host chunks
+    emit("main_glm_streamed_cli", **glm_streamed)
+    failed = [name for name, ok in (
+        ("chunk_parity", glm_streamed["native_python_chunk_parity"]),
+        ("vs_train_glm", glm_streamed["coefficients_ok"]
+         and glm_streamed["best_weight"] == glm_streamed["library_best_weight"]),
+        ("k1_launches", glm_streamed["launches_ok"]),
+        ("rerun_from_checkpoints", glm_streamed["rerun_loaded_every_lambda"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_glm_streamed_cli failed: {failed}")
+    f_rec = run_f(dev, smi)
+    emit("main_f", **f_rec)
+    vg = f_rec["value_and_grad_vs_in_memory"]
+    failed = [name for name, ok in (
+        ("arms_bitwise_equal", f_rec["arms_bitwise_equal"]),
+        ("k1_launches", f_rec["k1_launches_ok"]),
+        ("value_and_grad_vs_in_memory", vg["value_ok"] and vg["grad_ok"]),
+        ("solve_vs_in_memory", f_rec["d_auc_vs_in_memory"] <= 0.005
+         and f_rec["rel_d_objective_vs_in_memory"] <= 1e-3),
+        ("k1_at_chunk", f_rec["k1_at_chunk"]["ok"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_f failed: {failed}")
+    torch.cuda.empty_cache()
+    b_streamed = run_b_streamed(dev, b, smi)
+    emit("main_b_streamed", **b_streamed)
+    failed = [name for name, ok in (
+        ("launches", b_streamed["launches_ok"]),
+        ("k2_at_chunk", b_streamed["k2_at_chunk"]["ok"]),
+        ("vs_main_b", b_streamed["rel_d_rmse_vs_main_b"] <= 1e-4
+         and b_streamed["rel_d_objective_vs_main_b"] <= 1e-3),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_b_streamed failed: {failed}")
+    a2_streamed = run_a2_streamed(dev, a2, smi)
+    emit("main_a2_streamed", **a2_streamed)
+    failed = [name for name, ok in (
+        ("tiled", a2_streamed["tiled"]),
+        ("k3_launches", a2_streamed["launches_ok"]),
+        ("k3_at_chunk", all(r["ok"] for r in a2_streamed["k3_at_chunk"].values())),
+        ("second_objective_no_misses", a2_streamed["second_objective_misses"] == 0),
+        ("vs_main_a2", a2_streamed["d_auc_vs_main_a2"] <= 1e-3
+         and a2_streamed["rel_d_objective_vs_main_a2"] <= 1e-4),
+        ("variances", a2_streamed["variances_finite"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_a2_streamed failed: {failed}")
+    streamed_paths = {"main_f": f_rec, "main_b_streamed": b_streamed, "main_a2_streamed": a2_streamed,
+                      "main_glm_streamed_cli": glm_streamed}
+
     # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS,
     # E projected and the GAME drivers (each path counted from 0 just before it ran)
     by_path = {
@@ -2098,7 +2599,8 @@ def main() -> int:
             "main_b": b["launches"][k], "main_d": d_rec["launches"][k],
             "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k],
             "main_e_projected": e_proj["launches"][k], "main_game_cli": cli["launches"][k],
-            "main_game_cli_full": full["launches"][k]}
+            "main_game_cli_full": full["launches"][k],
+            **{path: rec["launches"][k] for path, rec in streamed_paths.items()}}
         for k in KERNEL_ROWS
     }
     kernels = [
@@ -2110,12 +2612,22 @@ def main() -> int:
     ]
     at_shape_keys = ("n", "d", "layout", "ms", "ms_rows", "ms_tiles", "device_ms", "plain_ms",
                      "library_ms", "bound_ms", "bound_by", "hbm_share", "max_abs_err")
-    kernels[0]["at_main_e_shape"] = {k: e_rec["k1"][k] for k in at_shape_keys}
-    kernels[0]["at_main_d_shape"] = {k: d_rec["k1"][k] for k in at_shape_keys}
-    k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over main_a2
-        dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW, launches=k3[direction],
+    for key, rec in (("at_main_e_shape", e_rec["k1"]), ("at_main_d_shape", d_rec["k1"]),
+                     ("at_streamed_chunk_shape", f_rec["k1_at_chunk"])):
+        # a time the profiler did not read (None) is left out, not written as 0
+        kernels[0][key] = {k: rec[k] for k in at_shape_keys if rec.get(k) is not None}
+    chunk_keys = ("n", "d", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "hbm_share", "max_abs_err")
+    kernels[1]["at_streamed_chunk_shape"] = {k: b_streamed["k2_at_chunk"][k] for k in chunk_keys}
+    k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over main_a2 and its streamed twin
+        dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW,
+             launches=sum(p[f"sparse_{direction}"] for p in (a2["launches"], *(r["launches"] for r in
+                                                                             streamed_paths.values()))),
+             launches_by_path={"main_a2": k3[direction], **{path: r["launches"][f"sparse_{direction}"]
+                                                           for path, r in streamed_paths.items()}},
              max_abs_err=k3_err[direction], ms=rec["ms"], plain_ms=rec["plain_ms"],
-             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"])
+             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+             at_streamed_chunk_shape={k: a2_streamed["k3_at_chunk"][direction][k] for k in (
+                 "nnz", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "hbm_share", "max_abs_err")})
         for direction, rec in k3_rows.items()
     ]
     # K4, the reference's per-group variant of the same function, runs as K3

@@ -18,8 +18,8 @@ Usage:
         [--validation-data data/val] --output-dir out/ [--device cpu]
 
 Branches not ported yet raise ``NotImplementedError`` naming their ROADMAP
-queue 1 item: the out-of-core trainer (``--streaming-chunk-rows`` and its
-selection by input size, item 11), ``--multihost`` (12), ``--telemetry-dir``
+queue 1 item: the out-of-core GAME trainer (``--streaming-chunk-rows`` and
+its selection by input size, item 11b), ``--multihost`` (12), ``--telemetry-dir``
 and ``--profile-dir`` (13).
 """
 
@@ -66,7 +66,7 @@ def run(
     Runs on ``device`` (CUDA unless the caller asks for another; raises
     without it)."""
     if streaming_chunk_rows is not None:
-        raise not_ported("the out-of-core GAME trainer (--streaming-chunk-rows)", "11")
+        raise not_ported("the out-of-core GAME trainer (--streaming-chunk-rows)", "11b")
     if multihost:
         raise not_ported("multi-host GAME training (--multihost)", "12")
     if profile_dir is not None:
@@ -274,7 +274,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--multihost", action="store_true",
                    help="multi-host training (ROADMAP queue 1 item 12; raises)")
     p.add_argument("--streaming-chunk-rows", type=int, default=None,
-                   help="the out-of-core trainer (ROADMAP queue 1 item 11; raises)")
+                   help="the out-of-core GAME trainer (ROADMAP queue 1 item 11b; raises)")
     p.add_argument(
         "--no-auto-streaming", action="store_true",
         help="train in memory even when the input exceeds the device's memory budget "
@@ -313,7 +313,7 @@ def main(argv: list[str] | None = None) -> None:
     ):
         raise not_ported(
             "the input exceeds the device's memory budget; the out-of-core trainer it "
-            "selects (pass --no-auto-streaming to train in memory)", "11",
+            "selects (pass --no-auto-streaming to train in memory)", "11b",
         )
     run(
         config, train_data, args.output_dir, validation_data=validation_data,

@@ -13,6 +13,15 @@ training columns first, ``--summarize-features`` writes
 saved model as the Gaussian prior, and ``--diagnostics`` writes
 ``diagnostics.json`` and ``diagnostics.html``.
 
+``--streaming-chunk-rows N`` (Avro only) trains out of core: one
+statistics pass over every file gives the index maps and the widest row,
+the data are then read into uniform host chunks of N rows, and every
+objective evaluation streams them through the device (``ops/streaming.py``,
+host L-BFGS or TRON); the sweep checkpoints to ``checkpoints/`` and a rerun
+into the same output directory resumes it. ``--multihost``,
+``--profile-dir`` and ``--telemetry-dir`` are ROADMAP queue 1 items 12 and
+13, and raise.
+
 Usage:
     python -m photon_ml_tpu_torch.cli.train_glm \\
         --task LOGISTIC_REGRESSION --train-data a9a.libsvm \\
@@ -26,17 +35,19 @@ import json
 import os
 
 from photon_ml_tpu_torch._device import resolve_device
+from photon_ml_tpu_torch.cli.common import not_ported
 from photon_ml_tpu_torch.config import OptimizerConfig, RegularizationContext
 from photon_ml_tpu_torch.data.libsvm import read_libsvm
-from photon_ml_tpu_torch.data.summary import summarize
-from photon_ml_tpu_torch.data.validation import validate_arrays
+from photon_ml_tpu_torch.data.summary import summarize, summarize_chunks
+from photon_ml_tpu_torch.data.validation import DataValidationError, validate_arrays
+from photon_ml_tpu_torch.io.avro import list_avro_files
 from photon_ml_tpu_torch.diagnostics import glm_sweep_diagnostics, write_report
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader
 from photon_ml_tpu_torch.io.model_io import load_glm, save_glm
 from photon_ml_tpu_torch.io.results import write_feature_summary
 from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes as _hbm_budget_bytes
 from photon_ml_tpu_torch.ops.batch import optimize_batch_layout
-from photon_ml_tpu_torch.supervised.training import train_glm
+from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
 from photon_ml_tpu_torch.utils import PhotonLogger, timed
 from photon_ml_tpu_torch.types import (
     DataValidationType,
@@ -67,7 +78,14 @@ def run(
     validate: DataValidationType = DataValidationType.VALIDATE_DISABLED,
     prior_model_path: str | None = None,
     diagnostics: bool = False,
+    streaming_chunk_rows: int | None = None,
+    multihost: bool = False,
+    profile_dir: str | None = None,
 ):
+    if multihost:
+        raise not_ported("multi-host GLM training (--multihost)", "12")
+    if profile_dir is not None:
+        raise not_ported("device traces (--profile-dir)", "13")
     if data_format not in ("libsvm", "avro"):
         raise ValueError(f"unknown --format {data_format!r}")
     if data_format == "libsvm" and (
@@ -83,6 +101,28 @@ def run(
         with open(stage_file, "w") as f:
             f.write(stage)
         logger.info(f"stage → {stage}")
+
+    if streaming_chunk_rows is not None:
+        # refuse, never silently drop, what the streamed branch cannot honour
+        unsupported = []
+        if optimizer not in (OptimizerType.LBFGS, OptimizerType.TRON):
+            unsupported.append(f"--optimizer {optimizer.value} (streaming offers LBFGS/TRON)")
+        if optimizer is OptimizerType.TRON and regularization in (
+            RegularizationType.L1, RegularizationType.ELASTIC_NET
+        ):
+            unsupported.append(
+                f"--optimizer TRON with --regularization {regularization.value} "
+                "(L1 routes through OWL-QN; use LBFGS)"
+            )
+        if unsupported:
+            raise ValueError("--streaming-chunk-rows does not support: " + ", ".join(unsupported))
+        return _run_streamed(
+            task, train_data, output_dir, data_format, validation_data, regularization, weights,
+            max_iterations, tolerance, streaming_chunk_rows, advance, logger, dev,
+            optimizer=optimizer, normalization=normalization,
+            variance_computation=variance_computation, summarize_features=summarize_features,
+            validate=validate, prior_model_path=prior_model_path, diagnostics=diagnostics,
+        )
 
     advance("INIT")
     imap = None
@@ -176,6 +216,124 @@ def run(
     return result
 
 
+def _expand_avro_paths(paths: list[str]) -> list[str]:
+    """Directories as their sorted ``*.avro`` part files."""
+    return [f for p in paths for f in list_avro_files(p)]
+
+
+def _run_streamed(
+    task, train_data, output_dir, data_format, validation_data, regularization, weights,
+    max_iterations, tolerance, chunk_rows, advance, logger, dev,
+    optimizer: OptimizerType = OptimizerType.LBFGS,
+    normalization: NormalizationType = NormalizationType.NONE,
+    variance_computation: VarianceComputationType = VarianceComputationType.NONE,
+    summarize_features: bool = False,
+    validate: DataValidationType = DataValidationType.VALIDATE_DISABLED,
+    prior_model_path: str | None = None,
+    diagnostics: bool = False,
+):
+    """The out-of-core branch: the data are read into uniform chunks that
+    live in host memory and stream through the device on every optimizer
+    evaluation. Avro only (a LIBSVM file fits in memory whenever its text
+    does). The data are read twice: the statistics pass over all files,
+    then the chunk fill."""
+    if data_format != "avro":
+        raise ValueError("--streaming-chunk-rows requires --format avro")
+    reader = AvroDataReader()
+    sid = next(iter(reader.feature_shards))
+    train_paths = _expand_avro_paths(train_data)
+
+    advance("INIT")
+    with timed(logger, "index maps (streaming pass, all files)"):
+        index_maps, max_nnz = reader.streaming_ingest_stats(train_paths)
+    imap = index_maps[sid]
+    with timed(logger, "chunk training data"):
+        chunks = list(reader.iter_batch_chunks(train_paths, sid, chunk_rows, index_maps,
+                                               max_nnz=max_nnz[sid]))
+    logger.info(f"{len(chunks)} training chunks of {chunk_rows} rows")
+
+    if validate is not DataValidationType.VALIDATE_DISABLED:
+        with timed(logger, "validate data (streamed, per chunk)"):
+            # FULL checks every chunk; SAMPLE thins the rows inside each
+            # chunk (seeded by the chunk's number)
+            for ci, chunk in enumerate(chunks):
+                try:
+                    validate_arrays(task, chunk["labels"], chunk.get("X", chunk.get("values")),
+                                    offsets=chunk.get("offsets"), weights=chunk.get("weights"),
+                                    mode=validate, seed=ci)
+                except DataValidationError as e:
+                    raise DataValidationError(
+                        f"chunk {ci} (rows {ci * chunk_rows}..{ci * chunk_rows + len(chunk['labels'])}"
+                        f" of the stream): {e}"
+                    ) from None
+
+    norm_context = None
+    if summarize_features or normalization is not NormalizationType.NONE:
+        with timed(logger, "summarize features (streamed)"):
+            summary = summarize_chunks(chunks, num_features=imap.size)
+        if summarize_features:
+            write_feature_summary(os.path.join(output_dir, "summary", "part-00000.avro"), summary, imap)
+        if normalization is not NormalizationType.NONE:
+            norm_context = summary.normalization(normalization, imap.intercept_index, device=dev)
+    advance("PROCESSED")
+
+    val_chunks = None
+    if validation_data:
+        with timed(logger, "chunk validation data"):
+            val_chunks = list(reader.iter_batch_chunks(_expand_avro_paths(validation_data), sid,
+                                                       chunk_rows, index_maps))
+
+    prior_model = None
+    if prior_model_path:
+        with timed(logger, "load prior model"):
+            prior_model = load_glm(prior_model_path, index_map=imap, num_features=imap.size, task=task,
+                                   device=dev)
+
+    with timed(logger, "train (streamed)"):
+        result = train_glm_streamed(
+            chunks,
+            task,
+            num_features=imap.size,
+            optimizer_config=OptimizerConfig(
+                optimizer_type=optimizer, max_iterations=max_iterations, tolerance=tolerance
+            ),
+            regularization=RegularizationContext(regularization),
+            regularization_weights=list(weights),
+            intercept_index=imap.intercept_index,
+            validation_chunks=val_chunks,
+            initial_model=prior_model,
+            incremental=prior_model is not None,
+            checkpoint_dir=os.path.join(output_dir, "checkpoints"),
+            normalization=norm_context,
+            variance_computation=variance_computation,
+            device=dev,
+        )
+    advance("TRAINED")
+
+    with timed(logger, "write models"):
+        for lam, model in result.models.items():
+            save_glm(
+                model, os.path.join(output_dir, "models", f"lambda-{lam:g}", "model.avro"),
+                index_map=imap, model_id=f"lambda-{lam:g}",
+            )
+        save_glm(result.best_model, os.path.join(output_dir, "best", "model.avro"), index_map=imap,
+                 model_id="best")
+    report = {
+        "task": task.value,
+        "streaming_chunk_rows": chunk_rows,
+        "weights": sorted(float(w) for w in weights),
+        "best_weight": result.best_weight,
+        "validation": {str(lam): dict(ev.metrics) for lam, ev in result.validation.items()},
+    }
+    with open(os.path.join(output_dir, "report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    if diagnostics:
+        with timed(logger, "write diagnostics"):
+            write_report(glm_sweep_diagnostics(result, index_map=imap, task=task), output_dir)
+    advance("VALIDATED")
+    return result
+
+
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description="Single-GLM training (PyTorch/CUDA port)")
     p.add_argument("--task", required=True, choices=[t.value for t in TaskType])
@@ -213,9 +371,20 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--diagnostics", action="store_true",
                    help="write diagnostics.json and a self-contained diagnostics.html (optimizer "
                         "traces, validation metrics, top features)")
+    p.add_argument("--streaming-chunk-rows", type=int, default=None,
+                   help="out of core (Avro): stream the data through the device in uniform chunks "
+                        "of this many rows, held in host memory")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host training (ROADMAP queue 1 item 12; raises)")
+    p.add_argument("--profile-dir", default=None,
+                   help="device traces (ROADMAP queue 1 item 13; raises)")
+    p.add_argument("--telemetry-dir", default=None,
+                   help="the run's telemetry JSONL (ROADMAP queue 1 item 13; raises)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output-dir", required=True)
     args = p.parse_args(argv)
+    if args.telemetry_dir is not None:
+        raise not_ported("run telemetry (--telemetry-dir)", "13")
     run(
         TaskType(args.task),
         args.train_data,
@@ -234,6 +403,9 @@ def main(argv: list[str] | None = None) -> None:
         validate=DataValidationType(args.validate),
         prior_model_path=args.prior_model,
         diagnostics=args.diagnostics,
+        streaming_chunk_rows=args.streaming_chunk_rows,
+        multihost=args.multihost,
+        profile_dir=args.profile_dir,
     )
 
 

@@ -13,12 +13,21 @@ columnar decoder (``io/native_ingest.py``, one thread per part file); a
 file set whose schema lies outside the decoder's envelope is read by the
 Python codec instead, with one log line naming the field. Both paths give
 the same dataset bit for bit. Each shard's arrays are built on the host in
-numpy and moved to the device in one copy. The streamed reader, its chunk
-iterator and the native streaming statistics are ROADMAP queue 1 item 11.
+numpy and moved to the device in one copy.
+
+Out of core (the reference's streamed reader): ``streaming_ingest_stats``
+makes the index maps and each shard's widest row in one pass that holds
+one part file's columns at a time, and ``iter_batch_chunks`` then streams
+one shard as uniform host chunks for ``ops/streaming.py``. Both run on the
+native decoder when every file's schema allows it, else on the Python
+codec, and give the same maps and chunks bit for bit. The streamed GAME
+reader (``streaming_game_stats``, ``read_streamed_game``) is ROADMAP queue
+1 item 11b.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import logging
 import os
@@ -232,9 +241,10 @@ class AvroDataReader:
             decoder="python" if files is None else "native",
         )
 
-    def _native_files(self, paths: list[str], id_tags: Sequence[str]) -> list[ColumnarFile] | None:
-        """Every part file decoded by the native decoder, in file order (one
-        thread per file); None, after one log line naming the field, when a
+    def _plan_native(self, paths: list[str], id_tags: Sequence[str], uid: bool = True):
+        """Every part file with its native decoder program, in file order,
+        checked before any file is decoded (so a stream never switches
+        decoders midway); None, after one log line naming the field, when a
         file's schema lies outside the decoder's envelope. A missing or
         malformed file raises as the Python codec would."""
         files = [f for p in paths for f in list_avro_files(p)]
@@ -249,6 +259,8 @@ class AvroDataReader:
                 )
                 if _RESPONSE not in prog.slots:
                     raise OutsideEnvelope(_RESPONSE, "absent from the schema")
+                if not uid:  # the uid is parsed and dropped
+                    prog = dataclasses.replace(prog, capture_uid=False)
             except OutsideEnvelope as e:
                 _log.warning(
                     "%s: schema outside the native decoder's envelope (%s); reading %s with the "
@@ -256,9 +268,258 @@ class AvroDataReader:
                 )
                 return None
             plans.append((f, prog))
+        return plans
+
+    def _native_files(self, paths: list[str], id_tags: Sequence[str]) -> list[ColumnarFile] | None:
+        """Every part file decoded by the native decoder, in file order (one
+        thread per file); None when ``_plan_native`` refuses the files."""
+        plans = self._plan_native(paths, id_tags)
+        if plans is None:
+            return None
         tags = list(id_tags)
         with ThreadPoolExecutor(max_workers=max(1, min(len(plans), os.cpu_count() or 1))) as pool:
             return list(pool.map(lambda plan: decode_file(plan[0], plan[1], tags), plans))
+
+    # -- out of core ----------------------------------------------------------------
+    def build_index_maps_streaming(self, path: str | Sequence[str]) -> dict[str, IndexMap]:
+        """Index maps from one streaming pass that holds the distinct keys,
+        never the records (``build_index_maps`` for data beyond host RAM)."""
+        return self.streaming_ingest_stats(path)[0]
+
+    def streaming_ingest_stats(
+        self, path: str | Sequence[str], use_native: bool = True
+    ) -> tuple[dict[str, IndexMap], dict[str, int]]:
+        """One streaming pass giving the index maps and each shard's widest
+        row (``max_nnz``, the intercept included), so the out-of-core driver
+        reads the data twice: these statistics, then the chunks. One part
+        file's columns are held at a time."""
+        paths = [path] if isinstance(path, str) else list(path)
+        plans = self._plan_native(paths, (), uid=False) if use_native else None
+        if plans is not None:
+            return self._streaming_stats_native(plans)
+        seen: dict[str, dict[str, None]] = {sid: {} for sid in self.feature_shards}
+        max_nnz = {sid: 1 for sid in self.feature_shards}
+        for p in paths:
+            for rec in iter_avro_directory(p):
+                for sid, cfg in self.feature_shards.items():
+                    keys: list[str] = []
+                    self._shard_keys(rec, cfg, keys, [])
+                    seen[sid].update(dict.fromkeys(keys))
+                    max_nnz[sid] = max(max_nnz[sid], len(keys) + int(cfg.has_intercept))
+        maps = {
+            sid: IndexMap.build(seen[sid], add_intercept=cfg.has_intercept)
+            for sid, cfg in self.feature_shards.items()
+        }
+        return maps, max_nnz
+
+    def _streaming_stats_native(self, plans) -> tuple[dict[str, IndexMap], dict[str, int]]:
+        """Index maps and max nnz from the native decoder, one file at a
+        time: each key is ranked by its first entry (row, bag in the
+        shard's order, position in the bag), as the Python path sees it."""
+        bags = list(dict.fromkeys(b for cfg in self.feature_shards.values() for b in cfg.feature_bags))
+        key_rank: dict[str, dict[str, tuple]] = {b: {} for b in bags}
+        per_shard_max = {sid: 1 for sid in self.feature_shards}
+        row0 = 0
+        for f, prog in plans:
+            c = decode_file(f, prog, [])
+            n_f = c.num_rows
+            for bag in bags:
+                b = c.bags[bag]
+                ranks = key_rank[bag]
+                if len(b["uniq_keys"]):
+                    ids = b["ids"]
+                    first_flat = np.full(len(b["uniq_keys"]), len(ids), np.int64)
+                    uniq, first_idx = np.unique(ids, return_index=True)
+                    first_flat[uniq] = first_idx
+                    rows = np.searchsorted(b["rowptr"], first_flat, side="right") - 1
+                    pos = first_flat - b["rowptr"][rows]
+                    for kid, key in enumerate(b["uniq_keys"]):
+                        if key not in ranks:
+                            ranks[key] = (row0 + rows[kid], pos[kid])
+            for sid, cfg in self.feature_shards.items():
+                per_row = np.zeros(n_f, np.int64)
+                for bag in cfg.feature_bags:
+                    per_row += np.diff(c.bags[bag]["rowptr"])
+                if n_f:
+                    per_shard_max[sid] = max(per_shard_max[sid], int(per_row.max()) + int(cfg.has_intercept))
+            row0 += n_f
+        maps: dict[str, IndexMap] = {}
+        for sid, cfg in self.feature_shards.items():
+            ranked = [
+                ((row, bi, pos), key)
+                for bi, bag in enumerate(cfg.feature_bags)
+                for key, (row, pos) in key_rank[bag].items()
+            ]
+            ranked.sort(key=lambda t: t[0])
+            maps[sid] = IndexMap.build((k for _, k in ranked), add_intercept=cfg.has_intercept)
+        return maps, per_shard_max
+
+    def iter_batch_chunks(
+        self,
+        path: str | Sequence[str],
+        shard_id: str,
+        chunk_rows: int,
+        index_maps: Mapping[str, IndexMap],
+        dtype=np.float32,
+        max_nnz: int | None = None,
+        use_native: bool = True,
+    ):
+        """Stream one feature shard as uniform host chunk dicts for
+        ``ops/streaming.py``: ``labels``, ``offsets``, ``weights`` and either
+        ``X`` (n, d) when d <= 2048, or ``indices`` / ``values`` (n,
+        ``max_nnz``) padded with index 0 and value 0. Every chunk has
+        ``chunk_rows`` rows; the last is padded with zero-weight rows. The
+        index maps are frozen (a stream cannot grow the feature space), and
+        ``max_nnz`` comes from a statistics pass when not given. The
+        intercept takes the slot right after a row's features (dense: it is
+        added after them). One part file's columns are held at a time."""
+        cfg = self.feature_shards[shard_id]
+        imap = index_maps[shard_id]
+        paths = [path] if isinstance(path, str) else list(path)
+        dense = imap.size <= _DENSE_THRESHOLD
+        plans = self._plan_native(paths, (), uid=False) if use_native else None
+        if plans is not None:
+            if not dense and max_nnz is None:
+                max_nnz = self._streaming_stats_native(plans)[1][shard_id]
+            yield from self._chunks_from_columnar(plans, cfg, imap, chunk_rows, dtype, max_nnz, dense)
+            return
+        if not dense and max_nnz is None:
+            max_nnz = self.streaming_ingest_stats(paths, use_native=False)[1][shard_id]
+        chunk = _empty_chunk(chunk_rows, imap.size, dtype, max_nnz, dense)
+        fill = 0
+        for p in paths:
+            for rec in iter_avro_directory(p):
+                i = fill
+                chunk["labels"][i] = float(rec[_RESPONSE])
+                off = rec.get(_OFFSET)
+                if off is not None:
+                    chunk["offsets"][i] = float(off)
+                w = rec.get(_WEIGHT)
+                chunk["weights"][i] = 1.0 if w is None else float(w)
+                keys: list[str] = []
+                values: list[float] = []
+                self._shard_keys(rec, cfg, keys, values)
+                pairs = [(j, float(v)) for key, v in zip(keys, values) if (j := imap.get(key)) >= 0]
+                if cfg.has_intercept:
+                    pairs.append((imap.intercept_index, 1.0))
+                if dense:
+                    for j, v in pairs:
+                        chunk["X"][i, j] += v
+                else:
+                    if len(pairs) > max_nnz:
+                        raise ValueError(f"record has {len(pairs)} features > max_nnz={max_nnz}")
+                    for slot, (j, v) in enumerate(pairs):
+                        chunk["indices"][i, slot] = j
+                        chunk["values"][i, slot] = v
+                fill += 1
+                if fill == chunk_rows:
+                    yield chunk
+                    chunk = _empty_chunk(chunk_rows, imap.size, dtype, max_nnz, dense)
+                    fill = 0
+        if fill:
+            yield chunk  # the rest of the last chunk stays zero-weight padding
+
+    def _chunks_from_columnar(self, plans, cfg, imap: IndexMap, chunk_rows: int, dtype,
+                              max_nnz: int | None, dense: bool):
+        """Uniform chunks from the native decoder's columns, one file at a
+        time (rows may span files); the same chunks as the Python path."""
+        icept = imap.intercept_index if cfg.has_intercept else None
+        buf = _empty_chunk(chunk_rows, imap.size, dtype, max_nnz, dense)
+        fill = 0
+        for f, prog in plans:
+            c = decode_file(f, prog, [])
+            rows, colv, vals, counts_f, rowptr_f = _file_coo(c, cfg, imap, max_nnz, dense)
+            labels_f = c.numeric[_RESPONSE]
+            offsets_f = c.numeric.get(_OFFSET)
+            weights_f = c.numeric.get(_WEIGHT)
+            n_f = c.num_rows
+            r0 = 0
+            while r0 < n_f:
+                take = min(chunk_rows - fill, n_f - r0)
+                dst = slice(fill, fill + take)
+                src = slice(r0, r0 + take)
+                buf["labels"][dst] = labels_f[src]
+                if offsets_f is not None:
+                    buf["offsets"][dst] = offsets_f[src]
+                buf["weights"][dst] = weights_f[src] if weights_f is not None else 1.0
+                lo, hi = rowptr_f[r0], rowptr_f[r0 + take]
+                rr = rows[lo:hi] - r0 + fill
+                if dense:
+                    np.add.at(buf["X"], (rr, colv[lo:hi]), vals[lo:hi].astype(dtype))
+                    if icept is not None:
+                        buf["X"][dst, icept] += 1.0
+                else:
+                    slots = np.arange(lo, hi, dtype=np.int64) - rowptr_f[rows[lo:hi]]
+                    buf["indices"][rr, slots] = colv[lo:hi]
+                    buf["values"][rr, slots] = vals[lo:hi]
+                    if icept is not None:
+                        # the slot right after the row's features
+                        at = np.arange(fill, fill + take)
+                        buf["indices"][at, counts_f[src]] = icept
+                        buf["values"][at, counts_f[src]] = 1.0
+                fill += take
+                r0 += take
+                if fill == chunk_rows:
+                    yield buf
+                    buf = _empty_chunk(chunk_rows, imap.size, dtype, max_nnz, dense)
+                    fill = 0
+        if fill:
+            yield buf
+
+
+def _empty_chunk(chunk_rows: int, d: int, dtype, max_nnz: int | None, dense: bool) -> dict:
+    chunk = {
+        "labels": np.zeros(chunk_rows, dtype),
+        "offsets": np.zeros(chunk_rows, dtype),
+        "weights": np.zeros(chunk_rows, dtype),  # padding rows keep weight 0
+    }
+    if dense:
+        chunk["X"] = np.zeros((chunk_rows, d), dtype)
+    else:
+        chunk["indices"] = np.zeros((chunk_rows, max_nnz), np.int32)
+        chunk["values"] = np.zeros((chunk_rows, max_nnz), dtype)
+    return chunk
+
+
+def _file_coo(c: ColumnarFile, cfg: FeatureShardConfig, imap: IndexMap, max_nnz: int | None,
+              dense: bool):
+    """One decoded file's known entries of a shard as (rows, columns,
+    values) in (row, bag, position) order, each row's count and the row
+    pointer; raises when a row exceeds ``max_nnz`` on the sparse path."""
+    rows_parts, cols_parts, vals_parts, pos_parts, bag_parts = [], [], [], [], []
+    n_f = c.num_rows
+    for bag_idx, bag in enumerate(cfg.feature_bags):
+        b = c.bags[bag]
+        if not len(b["ids"]):
+            continue
+        uniq_to_col = imap.lookup_all(np.asarray(b["uniq_keys"], np.str_))
+        counts = np.diff(b["rowptr"])
+        rows = np.repeat(np.arange(n_f, dtype=np.int64), counts)
+        pos = np.arange(len(b["ids"]), dtype=np.int64) - b["rowptr"][rows]
+        colv = uniq_to_col[b["ids"]]
+        keep = colv >= 0
+        rows_parts.append(rows[keep])
+        cols_parts.append(colv[keep])
+        vals_parts.append(b["values"][keep])
+        pos_parts.append(pos[keep])
+        bag_parts.append(np.full(int(keep.sum()), bag_idx, np.int64))
+    if rows_parts:
+        rows = np.concatenate(rows_parts)
+        order = np.lexsort((np.concatenate(pos_parts), np.concatenate(bag_parts), rows))
+        rows = rows[order]
+        colv = np.concatenate(cols_parts)[order]
+        vals = np.concatenate(vals_parts)[order]
+    else:
+        rows = np.zeros(0, np.int64)
+        colv = np.zeros(0, np.int64)
+        vals = np.zeros(0, np.float32)
+    counts_f = np.bincount(rows, minlength=n_f).astype(np.int64)
+    rowptr_f = np.concatenate([[0], np.cumsum(counts_f)])
+    if not dense and len(counts_f):
+        worst = int(counts_f.max()) + int(cfg.has_intercept)
+        if worst > max_nnz:
+            raise ValueError(f"record has {worst} features > max_nnz={max_nnz}")
+    return rows, colv, vals, counts_f, rowptr_f
 
 
 class _NativeColumns:

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.ops.sparse_tiled import (
     TiledSparseBatch,
     supports_tiling,
@@ -166,12 +167,11 @@ def maybe_densify(
 
 
 def hbm_budget_bytes(dev: torch.device) -> float:
-    """Bytes a dense training matrix may take: three quarters of the card's
-    memory (room for the optimizer's state and scratch), or 8 GB on the
-    CPU; the reference's ``device_hbm_budget_bytes`` policy."""
-    if dev.type == "cuda":
-        return 0.75 * torch.cuda.get_device_properties(dev).total_memory
-    return 8e9
+    """Bytes a dense training matrix may take on ``dev``: the residency
+    rule of ``ops/streaming.py`` ``device_hbm_budget_bytes``."""
+    from photon_ml_tpu_torch.ops.streaming import device_hbm_budget_bytes
+
+    return device_hbm_budget_bytes(device=dev)
 
 
 def optimize_batch_layout(
@@ -194,10 +194,12 @@ def dense_batch_from_arrays(
     offsets: np.ndarray | None = None,
     weights: np.ndarray | None = None,
     dtype=torch.float32,
-    device: torch.device | str = "cpu",
+    device=None,
 ) -> DenseBatch:
-    """``DenseBatch`` from host arrays: X in ``dtype``, the per-row vectors
-    float32; absent offsets are 0 and absent weights 1."""
+    """``DenseBatch`` from host arrays on ``device`` (CUDA unless the caller
+    asks for another; raises without it): X in ``dtype``, the per-row
+    vectors float32; absent offsets are 0 and absent weights 1."""
+    device = resolve_device(device)
     n = X.shape[0]
     f32 = dict(dtype=torch.float32, device=device)
 

@@ -107,6 +107,19 @@ def tiling_economical_features(num_features: int) -> bool:
     return _MIN_FEATURES <= num_features <= _MAX_TOTAL_COLS
 
 
+def auto_tile_streaming(sparse: bool, num_features: int | None, device) -> bool:
+    """The streamed paths' one rule for K3 chunk layouts (the chunk
+    objective and the module scorer both call it): sparse chunks, a
+    feature width ``tiling_economical_features`` takes, and a CUDA device.
+    On the CPU the plain version is opted into with ``tile_sparse=True``."""
+    return (
+        bool(sparse)
+        and num_features is not None
+        and tiling_economical_features(num_features)
+        and torch.device(device).type == "cuda"
+    )
+
+
 def supports_tiling(batch) -> bool:
     """Shapes the sparse kernel serves better than the gather/scatter
     ``SparseBatch``: a padded-sparse batch with 4096 <= d <= 2^23,

@@ -1,7 +1,8 @@
 """Shared optimizer machinery (port of ``photon_ml_tpu/optim/common.py``):
 convergence reasons, the result record, the relative gradient test and the
-optimizer-selection rule. The chunked and host-streamed entry points wait
-for the lane-compaction and out-of-core slices."""
+optimizer-selection rule, which also picks the host-driven twins of the
+streamed objectives. The chunked entry points wait for the
+lane-compaction knob."""
 
 from __future__ import annotations
 
@@ -54,14 +55,23 @@ def grad_converged(g_norm: Tensor, g0_norm: Tensor, tolerance: float) -> bool:
     return bool(g_norm <= tolerance * torch.clamp_min(g0_norm, 1.0))
 
 
-def select_minimize_fn(config: OptimizerConfig, l1_weight: float = 0.0) -> tuple[Callable, dict]:
+def select_minimize_fn(
+    config: OptimizerConfig, l1_weight: float = 0.0, host: bool = False
+) -> tuple[Callable, dict]:
     """The optimizer-selection rule: NEWTON_CHOLESKY or TRON if configured
     (each rejecting L1, as the reference does), else OWL-QN when L1 is
     active, else L-BFGS. Returns (fn, extra_kwargs);
-    ``fn(objective, w0, config, **extra)`` runs the solve."""
-    from photon_ml_tpu_torch.optim.lbfgs import lbfgs_minimize, owlqn_minimize
-    from photon_ml_tpu_torch.optim.newton import newton_minimize
-    from photon_ml_tpu_torch.optim.tron import tron_minimize
+    ``fn(objective, w0, config, **extra)`` runs the solve. ``host=True``
+    picks the host-driven twins for streamed objectives (the same rule and
+    rejections; NEWTON_CHOLESKY has no twin)."""
+    if host:
+        from photon_ml_tpu_torch.optim.host_lbfgs import host_lbfgs_minimize as lbfgs_fn
+        from photon_ml_tpu_torch.optim.host_lbfgs import host_owlqn_minimize as owlqn_fn
+        from photon_ml_tpu_torch.optim.host_tron import host_tron_minimize as tron_fn
+    else:
+        from photon_ml_tpu_torch.optim.lbfgs import lbfgs_minimize as lbfgs_fn
+        from photon_ml_tpu_torch.optim.lbfgs import owlqn_minimize as owlqn_fn
+        from photon_ml_tpu_torch.optim.tron import tron_minimize as tron_fn
 
     if config.optimizer_type is OptimizerType.NEWTON_CHOLESKY:
         if l1_weight > 0.0:
@@ -69,11 +79,18 @@ def select_minimize_fn(config: OptimizerConfig, l1_weight: float = 0.0) -> tuple
                 "NEWTON_CHOLESKY does not support L1 regularization "
                 "(non-smooth; use LBFGS, which routes through OWL-QN)"
             )
+        if host:
+            raise ValueError(
+                "NEWTON_CHOLESKY is a device-resident small-d solver; the "
+                "streamed/out-of-core objectives use LBFGS or TRON"
+            )
+        from photon_ml_tpu_torch.optim.newton import newton_minimize
+
         return newton_minimize, {}
     if config.optimizer_type is OptimizerType.TRON:
         if l1_weight > 0.0:
             raise ValueError("TRON does not support L1 regularization (reference parity)")
-        return tron_minimize, {}
+        return tron_fn, {}
     if l1_weight > 0.0:
-        return owlqn_minimize, {"l1_weight": l1_weight}
-    return lbfgs_minimize, {}
+        return owlqn_fn, {"l1_weight": l1_weight}
+    return lbfgs_fn, {}

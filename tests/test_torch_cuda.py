@@ -527,3 +527,113 @@ def test_projectors_on_the_card_match_the_cpu(dev):
     for cid in models[1].models:
         np.testing.assert_allclose(models[0][cid].coefficient_means.cpu().numpy(),
                                    models[1][cid].coefficient_means.numpy(), atol=2e-3, rtol=1e-2)
+
+
+def _streamed_chunks(kind: str, seed: int = 0):
+    from photon_ml_tpu_torch.ops import streaming
+
+    rng = np.random.default_rng(seed)
+    if kind == "dense":
+        X = rng.normal(size=(2000, 33)).astype(np.float32)
+        y = (rng.uniform(size=2000) < 0.5).astype(np.float32)
+        return streaming.dense_chunks(X, y, 512, (0.1 * rng.normal(size=2000)).astype(np.float32)), 33
+    idx = rng.integers(0, 8192, size=(3000, 6)).astype(np.int32)
+    val = rng.normal(size=(3000, 6)).astype(np.float32)
+    y = (rng.uniform(size=3000) < 0.5).astype(np.float32)
+    return streaming.sparse_chunks(idx, val, y, 1024), 8192
+
+
+def _streamed_objective(chunks, d, device):
+    from photon_ml_tpu_torch.ops import streaming
+    from photon_ml_tpu_torch.ops.losses import logistic_loss
+
+    return streaming.StreamingGLMObjective(chunks, logistic_loss, d, l2_weight=0.5, tile_sparse=True,
+                                           device=device)
+
+
+@pytest.mark.parametrize("kind", ["dense", "tiled"])
+def test_streamed_objective_on_the_card_matches_its_cpu_run(dev, kind):
+    """value_and_grad, hvp, hessian_diag and the scores of the streamed
+    objective on the card (K1 / K2 on dense chunks, K3 on tiled ones)
+    against the same objective on the CPU (the kernels' plain versions)."""
+    from photon_ml_tpu_torch.ops import prefetch, tile_cache
+
+    prefetch.clear_cache()
+    tile_cache.clear()
+    chunks, d = _streamed_chunks(kind)
+    gpu, cpu = _streamed_objective(chunks, d, dev), _streamed_objective(chunks, d, "cpu")
+    assert gpu.tiled == (kind == "tiled")
+    w = (0.1 * np.random.default_rng(1).normal(size=d)).astype(np.float32)
+    vg, vc = gpu.value_and_grad(w), cpu.value_and_grad(w)
+    np.testing.assert_allclose(float(vg[0]), float(vc[0]), rtol=1e-5)
+    np.testing.assert_allclose(vg[1].cpu().numpy(), vc[1].numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gpu.hvp(w, w).cpu().numpy(), cpu.hvp(w, w).numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gpu.hessian_diag(w).cpu().numpy(), cpu.hessian_diag(w).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gpu.stream_scores(w, 1900), cpu.stream_scores(w, 1900), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["dense", "tiled"])
+def test_streamed_depth_0_and_2_are_bitwise_on_the_card(dev, monkeypatch, kind):
+    from photon_ml_tpu_torch.config import OptimizerConfig
+    from photon_ml_tpu_torch.ops import prefetch
+    from photon_ml_tpu_torch.optim.host_lbfgs import host_lbfgs_minimize
+
+    chunks, d = _streamed_chunks(kind, seed=2)
+    out = {}
+    for depth in ("0", "2"):
+        monkeypatch.setenv("PHOTON_PREFETCH_DEPTH", depth)
+        prefetch.clear_cache()
+        obj = _streamed_objective(chunks, d, dev)
+        res = host_lbfgs_minimize(obj, np.zeros(d), OptimizerConfig(max_iterations=8, tolerance=0.0))
+        out[depth] = (res.w.cpu(), obj.value_and_grad(res.w)[1].cpu())
+    assert all(torch.equal(a, b) for a, b in zip(out["0"], out["2"]))
+
+
+def test_streamed_launches_per_chunk(dev):
+    """One K1 launch per dense chunk per value-and-gradient pass, one K2 per
+    chunk per Hessian-vector pass, none on a value-only pass; one K3 launch
+    per tiled chunk per direction."""
+    chunks, d = _streamed_chunks("dense")
+    obj = _streamed_objective(chunks, d, dev)
+    w = np.zeros(d, np.float32)
+    fused.reset_launch_counts()
+    obj.value_and_grad(w)
+    obj.value_and_grad(w)
+    obj.hvp(w, w)
+    obj.value(w)
+    assert fused.launch_counts == {"fused_value_grad": 2 * len(chunks), "fused_hvp": len(chunks)}
+    chunks, d = _streamed_chunks("tiled")
+    obj = _streamed_objective(chunks, d, dev)
+    st.reset_launch_counts()
+    obj.value_and_grad(np.zeros(d, np.float32))
+    obj.hessian_diag(np.zeros(d, np.float32))
+    n = len(chunks)
+    assert st.launch_counts == {"matvec": 2 * n, "rmatvec": 2 * n, "rmatvec_sq": n}
+
+
+def test_chunk_cache_tiers_on_the_card(dev, monkeypatch):
+    """On the bf16 rung, under a budget of two chunks, the device tier evicts
+    the cast features into the host tier, which a later pass hits; the
+    copies land on the card intact."""
+    from photon_ml_tpu_torch.ops import prefetch
+
+    chunks, d = _streamed_chunks("dense", seed=3)
+    chunks = [{k: v.copy() for k, v in c.items()} for c in chunks]  # each pins its own arrays
+    x_bytes = chunks[0]["X"].nbytes
+    rest = sum(v.nbytes for k, v in chunks[0].items() if k != "X")
+    budget = 2 * (x_bytes + x_bytes // 2 + rest)  # two chunks' pinned host bytes, the cast X included
+    monkeypatch.setenv("PHOTON_KERNEL_DTYPE", "bf16")
+    monkeypatch.setenv("PHOTON_CHUNK_CACHE_BUDGET", str(budget))
+    prefetch.clear_cache()
+    consumer = torch.cuda.current_stream(dev)
+    for order in (chunks, chunks[::-1]):  # the second pass starts at the resident end
+        for c in order:
+            put = prefetch.cached_device_put(c, dev, consumer)
+            prefetch.wait(put, consumer)
+            assert put["X"].device.type == "cuda" and put["X"].dtype == torch.bfloat16
+            assert torch.equal(put["X"].cpu(), torch.from_numpy(c["X"]).to(torch.bfloat16))
+            assert torch.equal(put["labels"].cpu(), torch.from_numpy(c["labels"]))
+    s = prefetch.cache_stats()
+    assert s["evictions"] > 0 and s["host_hits"] > 0 and s["device_bytes"] <= budget
+    prefetch.clear_cache()

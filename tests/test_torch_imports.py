@@ -71,6 +71,9 @@ def test_import_port_loads_no_jax():
         "import photon_ml_tpu_torch.ops.sparse_tiled, photon_ml_tpu_torch.ops._cuda\n"
         "import photon_ml_tpu_torch.cli.train, photon_ml_tpu_torch.io.native_ingest\n"
         "import photon_ml_tpu_torch.hyperparameter.tuning, photon_ml_tpu_torch.diagnostics\n"
+        "import photon_ml_tpu_torch.ops.streaming, photon_ml_tpu_torch.ops.prefetch\n"
+        "import photon_ml_tpu_torch.ops.tile_cache, photon_ml_tpu_torch.optim.host_lbfgs\n"
+        "import photon_ml_tpu_torch.optim.host_tron, photon_ml_tpu_torch.supervised.cross_validation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'photon_ml_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -95,10 +98,15 @@ def _entry_calls(tmp_path):
     from photon_ml_tpu_torch.data.summary import summarize
     from photon_ml_tpu_torch.data.synthetic import synthetic_glm_data
     from photon_ml_tpu_torch.game.projector import RandomProjector
+    from photon_ml_tpu_torch.io.avro import write_avro_file
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
     from photon_ml_tpu_torch.normalization import build_normalization, no_normalization
     from photon_ml_tpu_torch.ops.glm import make_objective
+    from photon_ml_tpu_torch.ops.batch import dense_batch_from_arrays
     from photon_ml_tpu_torch.ops.losses import logistic_loss
-    from photon_ml_tpu_torch.supervised.training import train_glm
+    from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, stream_scores
+    from photon_ml_tpu_torch.supervised.cross_validation import cross_validate_glm
+    from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
     from photon_ml_tpu_torch.types import NormalizationType, TaskType
 
     rng = np.random.default_rng(0)
@@ -110,6 +118,13 @@ def _entry_calls(tmp_path):
     task = TaskType.LOGISTIC_REGRESSION
     stats = (np.zeros(3), np.ones(3), np.ones(3))
     summary = summarize(cpu_batch)
+    chunks = dense_chunks(rng.normal(size=(8, 3)).astype(np.float32), np.ones(8, np.float32), 4)
+    avro = tmp_path / "d.avro"
+    write_avro_file(str(avro), TRAINING_EXAMPLE_SCHEMA, [
+        {"uid": None, "response": float(i % 2), "offset": None, "weight": None,
+         "features": [{"name": "x", "term": "", "value": float(i)}], "metadataMap": None}
+        for i in range(8)
+    ])
     return {
         "synthetic_glm_data": lambda **kw: synthetic_glm_data(rng, 8, 3, **kw),
         "make_objective": lambda **kw: make_objective(cpu_batch, logistic_loss, **kw),
@@ -135,6 +150,16 @@ def _entry_calls(tmp_path):
             NormalizationType.STANDARDIZATION, intercept_index=None, **kw
         ),
         "RandomProjector.build": lambda **kw: RandomProjector.build(3, 2, **kw),
+        "dense_batch_from_arrays": lambda **kw: dense_batch_from_arrays(
+            np.ones((2, 2), np.float32), np.ones(2, np.float32), **kw
+        ),
+        "StreamingGLMObjective": lambda **kw: StreamingGLMObjective(chunks, logistic_loss, 3, **kw),
+        "stream_scores": lambda **kw: stream_scores(chunks, np.zeros(3, np.float32), 8, **kw),
+        "train_glm_streamed": lambda **kw: train_glm_streamed(chunks, task, 3, **kw),
+        "cross_validate_glm": lambda **kw: cross_validate_glm(cpu_batch, task, k=2, **kw),
+        "cli.run --streaming-chunk-rows": lambda **kw: run(
+            task, [str(avro)], str(tmp_path / "streamed"), data_format="avro", streaming_chunk_rows=4, **kw
+        ),
     }
 
 
@@ -144,6 +169,8 @@ def _entry_calls(tmp_path):
         "synthetic_glm_data", "make_objective", "train_glm", "cli.run", "dense_batch_from_numpy",
         "sparse_batch_from_numpy", "read_libsvm", "to_padded_sparse", "no_normalization",
         "build_normalization", "FeatureSummary.normalization", "RandomProjector.build",
+        "dense_batch_from_arrays", "StreamingGLMObjective", "stream_scores", "train_glm_streamed",
+        "cross_validate_glm", "cli.run --streaming-chunk-rows",
     ],
 )
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch, name):
