@@ -3,8 +3,8 @@
 paths, its GAME mixed-effect training path (random effects on damped
 Newton, on the default lane solvers and in per-entity subspaces and random
 projections), its GAME train and score drivers on Avro files, read by
-the native columnar decoder, and its out-of-core GLM path (host chunks
-streamed through the card) on one CUDA card.
+the native columnar decoder, and its out-of-core GLM and GAME paths (host
+data streamed through the card) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -116,6 +116,22 @@ Run from the root of a checkout. It builds the CUDA kernels from
    main_e_lbfgs reported, not gated); the stored original-space item
    coefficients score as (XP)·w_p of the lane solutions on the card, within
    1e-5 x the largest score;
+15c. main_e_streamed: main_e's rows copied to host numpy and trained out
+   of core by ``StreamedGameTrainer`` (2 outer iterations, chunks of 2^20
+   rows: 20, the last 77,319 rows and padding; the fixed effect streamed
+   through K1, the random effects' buckets gathered on the host into pinned
+   memory every visit), against an in-memory ``GameEstimator`` fit of the
+   same configuration on the same rows: |dAUC| <= 0.005 and relative
+   d(training log-loss) <= 1e-3, train AUC >= 0.95 x the generating
+   model's, K1's launches = 20 x the fixed effect's value-and-gradient
+   passes on its tiles layout and nothing else launched, the second fixed
+   visit missing the chunk cache once a chunk (its offsets; X stays
+   resident); wall per outer iteration and per visit, each visit's cache
+   hits and misses and bytes copied, each random-effect visit's host gather
+   seconds, copy bytes and read-backs, peak device memory and host RSS, the
+   card's busy share over a profiled second iteration, and K1 alone at the
+   chunk's shape (2^20 x 65, float32, offsets read) against its plain
+   version;
 16. main_game_cli: config E at its bench depth (64 global features, 8 per
    user and 8 per item, 20,000 users and 4,000 items, Zipf 1.5; 2^18
    training and 2^16 validation rows), generated on the card and written as
@@ -158,6 +174,15 @@ Run from the root of a checkout. It builds the CUDA kernels from
    ``train_glm`` on the same arrays within rtol 1e-2 / atol 1e-3 with the
    same best lambda; a rerun into the same directory loads every lambda
    from ``checkpoints/``;
+18b. main_game_cli_streamed: ``cli.train.main --streaming-chunk-rows
+   32768`` (8 chunks) on phase 16's files and configuration, 2 outer
+   iterations, then a rerun to 3 that resumes both grid entries at outer
+   iteration 2 from their visit checkpoints, then ``cli.score.main`` on its
+   model: every dataset read on the native decoder, the best index and the
+   best model (rtol 1e-2 / atol 1e-3) equal to phase 16's in-memory
+   driver's, the best entry's validation AUC within 1e-3, the scores file
+   equal to the library's scores of the same model (atol 1e-5), K1's
+   launches = 8 x the fixed effect's value-and-gradient passes;
 19. main_f: logistic at config A's width in float32, 2^22 rows (8 GiB) in
    16 host chunks of 2^18 rows drawn on the card, ``train_glm_streamed``
    with host L-BFGS (10 iterations at tolerance 0, lambda = 1) in three
@@ -176,7 +201,8 @@ Run from the root of a checkout. It builds the CUDA kernels from
    (15 iterations): K1 on each chunk of every value-and-gradient pass and
    K2 on each chunk of every Hessian-vector pass; against main_b relative
    dRMSE <= 1e-4 and d(objective) <= 1e-3; K2 alone at the chunk's shape,
-   against its plain version at phase 3's tolerance;
+   against its plain version at phase 3's tolerance, with its card and
+   device times;
 21. main_a2_streamed: config A2's data in 8 host chunks of 2^16 rows, each
    chunk's K3 layouts built once through the layout cache (each chunk's
    build time), host L-BFGS 30 iterations with SIMPLE variances: K3 once
@@ -188,10 +214,11 @@ Run from the root of a checkout. It builds the CUDA kernels from
 Every check that fails raises, and the script exits non-zero with no
 result. Its last lines are the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
-E on L-BFGS, E projected, the GAME drivers and the four out-of-core
+E on L-BFGS, E projected, the GAME drivers and the six out-of-core
 phases, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
-and ``at_main_e_shape`` give its times at GAME's widths and
-``at_streamed_chunk_shape`` each kernel's at its streamed chunk), the line
+and ``at_main_e_shape`` give its times at GAME's widths,
+``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
+``at_streamed_game_chunk_shape`` K1's at main_e_streamed's), the line
 ``nvidia-smi --query-gpu=name,power.limit`` prints, and
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without CUDA or outside a checkout of the repository.
@@ -239,7 +266,9 @@ from photon_ml_tpu_torch.game import coordinate as game_coordinate
 from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
 from photon_ml_tpu_torch.game.data import SparseFeatures, capacity_classes, make_game_batch
 from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.game import random_effect as game_random_effect
 from photon_ml_tpu_torch.game.projector import RandomProjector
+from photon_ml_tpu_torch.game.streaming import StreamedGameData, StreamedGameTrainer
 from photon_ml_tpu_torch.hyperparameter.tuning import tune_game_hyperparameters
 from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader
@@ -268,6 +297,11 @@ N = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-3, 2e-2)}  # (value rtol, vector rtol = atol)
+# a kernel's traced device time under this share of its bound (the least
+# time the card could take; the published rate's rounding allows a few
+# percent) is a trace that missed kernels: late in a smoke the profiler has
+# read K1 and K2 at the streamed chunks at 0.5-0.6 of their bounds
+TRACE_FLOOR = 0.9
 KERNEL_ROWS = {
     "fused_value_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -325,7 +359,8 @@ def device_ms(fn, reps: int, floor_ms: float = 0.0) -> float | None:
     calls after one warm-up call. A trace with no device event is taken
     once more with the host's activity traced too. None (not measured)
     when both are blank, or when the traced time is below ``floor_ms``
-    (half the least time the card could take: the trace missed kernels);
+    (``TRACE_FLOOR`` × the least time the card could take: the trace
+    missed kernels);
     ``profiler_blank`` / ``profiler_partial`` record what the traces held.
     Beside ``cuda_ms`` (events around back-to-back calls) it says how much
     of a call's time the card works and how much it waits on the host."""
@@ -547,7 +582,7 @@ def k1_time(X, labels, offsets, u, c, loss, reps: int = 20) -> dict:
     rec["bytes"] = nbytes
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 4.0 * n * d)
     for k in (layout, *others):
-        rec[f"device_ms_{k}"] = device_ms(in_layout(k), reps, floor_ms=0.5 * rec["bound_ms"])
+        rec[f"device_ms_{k}"] = device_ms(in_layout(k), reps, floor_ms=TRACE_FLOOR * rec["bound_ms"])
     rec["device_ms"] = rec[f"device_ms_{layout}"]
     rec["plain_ms"] = cuda_ms(plain, 2)
     rec["library_ms"] = cuda_ms(k1_library(X, labels, offsets, u, c, loss), reps)
@@ -1946,6 +1981,8 @@ def run_e_projected(dev, batch, data, lbfgs: dict) -> dict:
 # X on the host in 16 chunks of 2^18 rows (512 MiB each)
 F_ROWS, F_D, F_CHUNK = 1 << 22, 512, 1 << 18
 B_CHUNK, A2_CHUNK, GLM_CLI_CHUNK = 1 << 17, 1 << 16, 1 << 15
+E_STREAM_CHUNK = 1 << 20  # main_e_streamed: 20 chunks, the last 77,319 rows and padding
+STREAMED_RESUME_LINE = "resuming streamed descent at outer iteration 2, coordinate index 0"
 GLM_CLI_WEIGHTS = ("0.1", "1", "10")
 
 
@@ -2078,9 +2115,10 @@ def k2_at(X, labels) -> dict:
     nbytes = n * d * 4 + 12 * n + 8 * d + 4 * (d + 1)
     bound_ms, bound_by = _bound(nbytes, 6.0 * n * d)
     ms = cuda_ms(run, 20)
-    return dict(n=n, d=d, ms=ms, ms_again=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
-                library_ms=cuda_ms(library, 20), bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                max_abs_err=err, q_sum_abs_err=sum_err, ok=hv_ok and sum_ok, hbm_share=bound_ms / ms)
+    return dict(n=n, d=d, ms=ms, ms_again=cuda_ms(run, 20),
+                device_ms=device_ms(run, 20, floor_ms=TRACE_FLOOR * bound_ms),
+                plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20), bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, max_abs_err=err, q_sum_abs_err=sum_err, ok=hv_ok and sum_ok, hbm_share=bound_ms / ms)
 
 
 def run_f(dev, card: str) -> dict:
@@ -2323,6 +2361,261 @@ def run_glm_streamed_cli(dev, data: GameCliData, card: str) -> dict:
     )
 
 
+def streamed_game_data(batch) -> StreamedGameData:
+    """A ``GameBatch``'s columns copied to host numpy, the out-of-core
+    trainer's input."""
+    def host(t):
+        return t.cpu().numpy()
+
+    return StreamedGameData(labels=host(batch.labels), features={s: host(f.X) for s, f in batch.features.items()},
+                            id_tags={k: host(v) for k, v in batch.id_tags.items()})
+
+
+def score_streamed(model: GameModel, data: StreamedGameData, dev, rows: int = E_STREAM_CHUNK) -> torch.Tensor:
+    """The model's scores of host rows, computed on the card a block of
+    rows at a time."""
+    out = []
+    for lo in range(0, data.num_rows, rows):
+        hi = min(lo + rows, data.num_rows)
+        block = make_game_batch(data.labels[lo:hi], {s: f[lo:hi] for s, f in data.features.items()},
+                                id_tags={k: v[lo:hi] for k, v in data.id_tags.items()}, device=dev)
+        out.append(model.score(block))
+    return torch.cat(out)
+
+
+def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mark=None) -> dict:
+    """``StreamedGameTrainer.fit`` (chunks of ``E_STREAM_CHUNK`` rows) with
+    every kernel's launch count, the chunk cache and the copy counters
+    zeroed just before and read just after. The trainer's logger marks the
+    end of every visit (each mark synchronizes the card, then calls
+    ``on_mark``); per visit: wall, scalar read-backs, cache hits and misses,
+    bytes copied, and the trainer's own visit record."""
+    marks = []
+
+    def mark(msg: str) -> None:
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), msg, reads[0], prefetch.cache_stats(), dict(prefetch.copied)))
+        if on_mark is not None:
+            on_mark()
+
+    prefetch.clear_cache()
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    game_random_effect.reset_launch_counts()
+    prefetch.reset_stage_seconds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = (t0, 0, prefetch.cache_stats(), dict(prefetch.copied))
+    with counting_readbacks() as reads:
+        trainer = StreamedGameTrainer(config, chunk_rows=E_STREAM_CHUNK, intercept_indices={"global": D_FIXED},
+                                      logger=mark, device=dev)
+        model, info = trainer.fit(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    visits, prev = [], start
+    for (t, msg, n_reads, stats, copied), own in zip([m for m in marks if m[1].startswith("iter ")],
+                                                      trainer.visit_stats):
+        visits.append(dict(own, wall_s=t - prev[0], readbacks=n_reads - prev[1],
+                           cache_misses=stats["misses"] - prev[2]["misses"],
+                           cache_hits=stats["device_hits"] - prev[2]["device_hits"],
+                           bytes_copied_total=copied["bytes"] - prev[3]["bytes"]))
+        prev = (t, n_reads, stats, copied)
+    fixed = [v for v in visits if v["coordinate"] == "fixed"]
+    return dict(model=model, info=info, trainer=trainer, wall_s=wall, visits=visits,
+                iteration_wall_s=[sum(v["wall_s"] for v in visits if v["iteration"] == i)
+                                  for i in range(config.coordinate_descent_iterations)],
+                launches=launch_counts(), re_launches=dict(game_random_effect.launch_counts),
+                fixed_objective_passes=sum(v["objective_passes"] for v in fixed),
+                cache=prefetch.cache_stats(), stage_seconds=dict(prefetch.stage_seconds))
+
+
+def profile_streamed(data: StreamedGameData, config: GameTrainingConfig, dev) -> dict:
+    """``torch.profiler`` over the streamed fit's second outer iteration (a
+    fit of 2; the profiler steps at every visit mark and records the three
+    visits of iteration 1): the card's busy share of that window, as
+    ``profile_e`` reads it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # steps: 0-2 iteration 0's visits (set-up in step 0), 3-5 iteration 1's
+    with profile(activities=acts, schedule=schedule(wait=2, warmup=1, active=3, repeat=1)) as prof:
+        fit = fit_streamed(data, config, dev, on_mark=prof.step)
+    window = fit["iteration_wall_s"][1]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0 and not e.key.startswith("ProfilerStep")]
+    busy_s = sum(dev_us(e) for e in events) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    return dict(window_wall_s=window, device_busy_s=busy_s,
+                device_busy_share=busy_s / window if events and window else "not measured (no device events)",
+                top_device_ops=[dict(name=e.key[:90], device_ms=dev_us(e) / 1e3, count=e.count) for e in top])
+
+
+def e_streamed_reference(dev, batch, data) -> tuple[StreamedGameData, dict]:
+    """main_e_streamed's inputs, taken while main_e's batch is on the card:
+    its rows copied to host numpy, and the in-memory ``GameEstimator`` fit
+    of main_e_streamed's configuration (2 outer iterations) on them."""
+    t0 = time.perf_counter()
+    host = streamed_game_data(batch)
+    to_host_s = time.perf_counter() - t0
+    mem = fit_game(batch, game_config(E_ML20M[1], 2), dev)
+    return host, dict(_game_record(mem), **game_quality(mem, batch, data), to_host_s=to_host_s)
+
+
+def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: str) -> dict:
+    """main_e_streamed: config E at MovieLens-20M depth (main_e's rows, seed
+    4) out of core from host numpy: 2 outer iterations of
+    ``StreamedGameTrainer`` in chunks of 2^20 rows (the fixed effect
+    streamed through K1, the random effects' buckets gathered on the host
+    every visit), held to the in-memory fit ``mem`` of the same
+    configuration on the same rows (``e_streamed_reference``)."""
+    n, effects = E_ML20M
+    config = game_config(effects, 2)
+    chunks = -(-n // E_STREAM_CHUNK)
+    rec = dict(card=card, n=n, effects={k: list(v) for k, v in effects.items()}, chunk_rows=E_STREAM_CHUNK,
+               chunks=chunks, last_chunk_rows=n - (chunks - 1) * E_STREAM_CHUNK,
+               host_bytes=sum(a.nbytes for a in (host.labels, *host.features.values(), *host.id_tags.values())),
+               in_memory=mem, pinned_h2d_gb_s=pinned_h2d_gb_s(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.reset_peak_host_memory_stats()
+    fit = fit_streamed(host, config, dev)
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    rec["host"] = host_memory()
+    scores = score_streamed(fit["model"], host, dev)
+    labels = torch.as_tensor(host.labels, device=dev)
+    auc, log_loss = float(auc_roc(scores, labels)), make_evaluator("LOGISTIC_LOSS")(scores, labels)
+    del scores, labels
+    fixed = [v for v in fit["visits"] if v["coordinate"] == "fixed"]
+    first_chunk = torch.as_tensor(host.features["global"][:E_STREAM_CHUNK], device=dev)
+    first_labels = torch.as_tensor(host.labels[:E_STREAM_CHUNK], device=dev)
+    ones = torch.ones(E_STREAM_CHUNK, device=dev)
+    rec.update(
+        wall_s=fit["wall_s"], iteration_wall_s=fit["iteration_wall_s"],
+        timed_wall_s_per_outer_iteration=fit["iteration_wall_s"][1],
+        visits=fit["visits"], launches=fit["launches"], re_solve_launches=fit["re_launches"],
+        fixed_objective_passes=fit["fixed_objective_passes"],
+        bytes_copied_per_fixed_pass=[v["bytes_copied_total"] / v["objective_passes"] for v in fixed],
+        cache=fit["cache"], stage_seconds=fit["stage_seconds"],
+        re_copy_s_at_pinned_rate={f"{v['iteration']}/{v['coordinate']}": v["bytes_copied"] / 1e9
+                                  / rec["pinned_h2d_gb_s"] for v in fit["visits"] if "bytes_copied" in v},
+        k1_layout=k1_layout(first_chunk, first_labels, ones, ones),
+        train_auc=auc, train_log_loss=log_loss, auc_generating_model=mem["auc_generating_model"],
+        quality_ok=auc >= 0.95 * mem["auc_generating_model"],
+        d_auc_vs_in_memory=abs(auc - mem["train_auc"]),
+        rel_d_log_loss_vs_in_memory=abs(log_loss - mem["train_log_loss"]) / mem["train_log_loss"],
+        main_e_timed_wall_s_per_outer_iteration=e_rec["timed_wall_s_per_outer_iteration"],
+    )
+    # the second fixed visit copies only its residual offsets: one array a chunk
+    rec["second_fixed_visit_misses"] = fixed[1]["cache_misses"]
+    rec["launches_ok"] = (rec["fixed_objective_passes"] > 0
+                          and fit["launches"]["fused_value_grad"] == chunks * rec["fixed_objective_passes"]
+                          and not any(v for k, v in fit["launches"].items() if k != "fused_value_grad"))
+    del fit
+    torch.cuda.empty_cache()
+    rec["profile"] = profile_streamed(host, config, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rec["k1_at_chunk"] = k1_at(first_chunk, 0.1 * torch.randn(E_STREAM_CHUNK, generator=gen, device=dev),
+                               first_labels, dev)
+    prefetch.clear_cache()
+    return rec
+
+
+def run_game_cli_streamed(dev, data: GameCliData, card: str) -> dict:
+    """main_game_cli_streamed: ``cli.train.main --streaming-chunk-rows
+    32768`` on main_game_cli's files and configuration (2 outer iterations,
+    the λ grid), then a rerun to 3 iterations that resumes from its visit
+    checkpoints, then ``cli.score.main`` on the streamed model; held to
+    main_game_cli's in-memory driver output (its 3-iteration run, in
+    ``work/out``) and to the library's scores of the same model."""
+    work, effects, n_tr = data.work, data.effects, data.n_train
+    out = os.path.join(work, "out_streamed")
+    argv = lambda it: ["--config", os.path.join(work, f"config-{it}.json"),  # noqa: E731
+                       "--train-data", os.path.join(work, "train"), "--validation-data", os.path.join(work, "val"),
+                       "--output-dir", out, "--device", dev.type, "--streaming-chunk-rows", str(GLM_CLI_CHUNK)]
+    trainers, decoders = [], []
+    real_trainer, real_read, real_streamed = (cli_train.StreamedGameTrainer, AvroDataReader.read,
+                                              AvroDataReader.read_streamed_game)
+
+    def trainer(*args, **kwargs):
+        trainers.append(real_trainer(*args, **kwargs))
+        return trainers[-1]
+
+    def read(self, *args, **kwargs):
+        ds = real_read(self, *args, **kwargs)
+        decoders.append(ds.decoder)
+        return ds
+
+    def read_streamed(self, *args, **kwargs):
+        ds = real_streamed(self, *args, **kwargs)
+        decoders.append(ds.decoder)
+        return ds
+
+    runs = {}
+    cli_train.StreamedGameTrainer, AvroDataReader.read = trainer, read
+    AvroDataReader.read_streamed_game = read_streamed
+    try:
+        for it in (2, 3):
+            trainers.clear()
+            fused.reset_launch_counts()
+            st.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with stage_times(cli_train) as stages:
+                cli_train.main(argv(it))
+            torch.cuda.synchronize()
+            passes = sum(v["objective_passes"] for t in trainers for v in t.visit_stats if "objective_passes" in v)
+            runs[it] = dict(wall_s=time.perf_counter() - t0, stages_s=stages, launches=launch_counts(),
+                            fixed_objective_passes=passes, resumed_from=[t.resumed_from for t in trainers])
+        score_out = os.path.join(work, "scores_streamed")
+        with stage_times(cli_score) as score_stages:
+            cli_score.main(["--model-dir", out, "--data", os.path.join(work, "val"), "--output-dir", score_out,
+                            "--evaluators", *GAME_CLI_EVALUATORS, "--config", os.path.join(work, "config-3.json"),
+                            "--device", dev.type])
+    finally:
+        cli_train.StreamedGameTrainer, AvroDataReader.read = real_trainer, real_read
+        AvroDataReader.read_streamed_game = real_streamed
+    chunks = -(-n_tr // GLM_CLI_CHUNK)
+    for r in runs.values():
+        r["launches_ok"] = (r["fixed_objective_passes"] > 0
+                            and r["launches"]["fused_value_grad"] == chunks * r["fixed_objective_passes"]
+                            and not any(v for k, v in r["launches"].items() if k != "fused_value_grad"))
+    with open(os.path.join(out, "photon.log")) as f:
+        resumed_lines = f.read().count(STREAMED_RESUME_LINE)
+
+    def load(d):
+        maps = {fn[:-4]: IndexMap.load(os.path.join(d, "index-maps", fn))
+                for fn in os.listdir(os.path.join(d, "index-maps"))}
+        with open(os.path.join(d, "entity-maps.json")) as f:
+            ent = json.load(f)
+        model = load_game_model(os.path.join(d, "best"), index_maps=maps,
+                                entity_ids={f"per_{k}": ent[k] for k in effects}, device=dev)
+        with open(os.path.join(d, "metrics.json")) as f:
+            return model, json.load(f)
+
+    streamed, s_metrics = load(out)
+    in_memory, m_metrics = load(os.path.join(work, "out"))
+    best = s_metrics["best_index"]
+    _, recs = read_avro_file(os.path.join(score_out, "scores", "part-00000.avro"))
+    file_scores = torch.tensor([r["predictionScore"] for r in recs], dtype=torch.float64)
+    library = GameTransformer(streamed, device=dev).transform(data.arrays[1]).double().cpu()
+    coef_ok = all(close(streamed[c].coefficient_means, in_memory[c].coefficient_means, 1e-2, 1e-3)[0]
+                  for c in streamed.models)
+    return dict(
+        card=card, rows_train=n_tr, chunk_rows=GLM_CLI_CHUNK, chunks=chunks, runs=runs, decoders=decoders,
+        score_stages_s=score_stages, launches={k: runs[2]["launches"][k] + runs[3]["launches"][k]
+                                               for k in runs[2]["launches"]},
+        launches_ok=all(r["launches_ok"] for r in runs.values()), resumed_lines=resumed_lines,
+        resume_ok=resumed_lines == 2 and runs[3]["resumed_from"] == [(2, 0), (2, 0)],
+        best_index=best, in_memory_best_index=m_metrics["best_index"],
+        best_primary=s_metrics["results"][best]["primary"],
+        in_memory_best_auc=m_metrics["results"][m_metrics["best_index"]]["metrics"]["AUC"],
+        coefficients_ok=coef_ok, max_abs_diff_vs_in_memory_driver=_max_diff(streamed, in_memory),
+        validation_history_visits=len(s_metrics["validation_history"]),
+        scores_rows=len(recs), scores_finite=bool(torch.isfinite(file_scores).all()),
+        max_abs_diff_scores_file_vs_library=float((file_scores - library).abs().max()),
+    )
+
+
 def _check_game_launches(phase: str, rec: dict) -> None:
     """Every fixed-effect objective pass ran on K1, and nothing else
     launched a kernel."""
@@ -2461,6 +2754,7 @@ def main() -> int:
                              f"relative d log-loss {e_lbfgs['rel_d_log_loss_vs_newton']}")
     # the same batch with the per-user subspace and the per-item random projection
     e_proj = run_e_projected(dev, e_batch, e_data, e_lbfgs)
+    e_host, e_mem = e_streamed_reference(dev, e_batch, e_data)
     del e_batch, e_data
     torch.cuda.empty_cache()
     emit("main_e_projected", **e_proj)
@@ -2468,6 +2762,20 @@ def main() -> int:
     if not (e_proj["quality_ok"] and e_proj["random_projection_scores"]["ok"]):
         raise AssertionError(f"config E projected: AUC {e_proj['train_auc']} against "
                              f"{e_proj['auc_generating_model']}; scores {e_proj['random_projection_scores']}")
+    # the same rows out of core, from host memory
+    e_streamed = run_e_streamed(dev, e_host, e_mem, e_rec, smi)
+    del e_host
+    emit("main_e_streamed", **e_streamed)
+    failed = [name for name, ok in (
+        ("vs_in_memory", e_streamed["d_auc_vs_in_memory"] <= 0.005
+         and e_streamed["rel_d_log_loss_vs_in_memory"] <= 1e-3),
+        ("quality", e_streamed["quality_ok"]),
+        ("k1_launches", e_streamed["launches_ok"] and e_streamed["k1_layout"] == "tiles"),
+        ("second_fixed_visit_misses_offsets_only", e_streamed["second_fixed_visit_misses"] == e_streamed["chunks"]),
+        ("k1_at_chunk", e_streamed["k1_at_chunk"]["ok"] and e_streamed["k1_at_chunk"]["layout"] == "tiles"),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_e_streamed failed: {failed}")
     solvers = agreement_e_solvers(dev, agree_e["fused"])
     emit("agreement_e_solvers", **solvers)
     ev = solvers["lbfgs"]["evaluators"]
@@ -2502,6 +2810,8 @@ def main() -> int:
         full["decoders"] = decoders
         # the out-of-core GLM driver on the same files
         glm_streamed = run_glm_streamed_cli(dev, data, smi)
+        # the out-of-core GAME driver on the same files, against the in-memory one
+        game_streamed = run_game_cli_streamed(dev, data, smi)
         del data
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2539,6 +2849,20 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_game_cli_full failed: {failed}")
+
+    emit("main_game_cli_streamed", **game_streamed)
+    failed = [name for name, ok in (
+        ("native_decoder_in_every_read", game_streamed["decoders"] == ["native"] * 5),
+        ("best_index", game_streamed["best_index"] == game_streamed["in_memory_best_index"]),
+        ("vs_in_memory_driver", game_streamed["coefficients_ok"]
+         and abs(game_streamed["best_primary"] - game_streamed["in_memory_best_auc"]) <= 1e-3),
+        ("resume", game_streamed["resume_ok"]),
+        ("scores", game_streamed["scores_rows"] == GAME_CLI["val"] and game_streamed["scores_finite"]
+         and game_streamed["max_abs_diff_scores_file_vs_library"] <= 1e-5),
+        ("k1_launches", game_streamed["launches_ok"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_game_cli_streamed failed: {failed}")
 
     # the out-of-core GLM path: the driver (above, on the GAME files), then
     # main_f, config B and config A2 streamed from host chunks
@@ -2590,7 +2914,8 @@ def main() -> int:
     if failed:
         raise AssertionError(f"main_a2_streamed failed: {failed}")
     streamed_paths = {"main_f": f_rec, "main_b_streamed": b_streamed, "main_a2_streamed": a2_streamed,
-                      "main_glm_streamed_cli": glm_streamed}
+                      "main_glm_streamed_cli": glm_streamed, "main_e_streamed": e_streamed,
+                      "main_game_cli_streamed": game_streamed}
 
     # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS,
     # E projected and the GAME drivers (each path counted from 0 just before it ran)
@@ -2613,11 +2938,14 @@ def main() -> int:
     at_shape_keys = ("n", "d", "layout", "ms", "ms_rows", "ms_tiles", "device_ms", "plain_ms",
                      "library_ms", "bound_ms", "bound_by", "hbm_share", "max_abs_err")
     for key, rec in (("at_main_e_shape", e_rec["k1"]), ("at_main_d_shape", d_rec["k1"]),
-                     ("at_streamed_chunk_shape", f_rec["k1_at_chunk"])):
+                     ("at_streamed_chunk_shape", f_rec["k1_at_chunk"]),
+                     ("at_streamed_game_chunk_shape", e_streamed["k1_at_chunk"])):
         # a time the profiler did not read (None) is left out, not written as 0
         kernels[0][key] = {k: rec[k] for k in at_shape_keys if rec.get(k) is not None}
-    chunk_keys = ("n", "d", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "hbm_share", "max_abs_err")
-    kernels[1]["at_streamed_chunk_shape"] = {k: b_streamed["k2_at_chunk"][k] for k in chunk_keys}
+    chunk_keys = ("n", "d", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "hbm_share",
+                  "max_abs_err")
+    kernels[1]["at_streamed_chunk_shape"] = {k: b_streamed["k2_at_chunk"][k] for k in chunk_keys
+                                             if b_streamed["k2_at_chunk"].get(k) is not None}
     k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over main_a2 and its streamed twin
         dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW,
              launches=sum(p[f"sparse_{direction}"] for p in (a2["launches"], *(r["launches"] for r in

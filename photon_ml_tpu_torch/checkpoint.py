@@ -40,6 +40,9 @@ class DescentCheckpoint:
     scores: dict[str, np.ndarray] | None = None
     total: np.ndarray | None = None
     fingerprint: str | None = None
+    # the coordinate to restart at within next_iteration (the out-of-core
+    # trainer checkpoints every coordinate visit; in-memory descent, 0)
+    next_coordinate: int = 0
 
 
 _SCORE_PREFIX = "__score__"
@@ -82,19 +85,20 @@ def save_checkpoint(
     scores: dict[str, np.ndarray | torch.Tensor] | None = None,
     total: np.ndarray | torch.Tensor | None = None,
     data_digest: str | None = None,
+    next_coordinate: int = 0,
 ) -> None:
     """``fingerprint`` identifies the training setup (configuration and data
     signature): ``load_checkpoint`` refuses a checkpoint written under
     another, so a rerun after a change to the grid, the settings or the data
-    retrains instead of resuming a stale state."""
+    retrains instead of resuming a stale state. ``next_coordinate`` is the
+    coordinate within ``next_iteration`` to restart at (0 for the in-memory
+    descent, which checkpoints whole outer iterations)."""
     os.makedirs(directory, exist_ok=True)
     arrays: dict[str, np.ndarray] = {}
     meta: dict = {
         "task_type": model.task_type.value,
         "next_iteration": next_iteration,
-        # the coordinate to restart at within next_iteration: the in-memory
-        # descent always restarts an iteration from its first coordinate
-        "next_coordinate": 0,
+        "next_coordinate": next_coordinate,
         "fingerprint": fingerprint,
         "data_digest": data_digest,
         "coordinates": {},
@@ -220,4 +224,5 @@ def load_checkpoint(
         scores=scores,
         total=total,
         fingerprint=meta.get("fingerprint"),
+        next_coordinate=int(meta.get("next_coordinate", 0)),
     )

@@ -12,15 +12,25 @@ ALL), ``index-maps/``, ``entity-maps.json``, ``metrics.json`` and, with
 ``--diagnostics``, ``diagnostics.json`` and ``diagnostics.html``: the
 reference's files, which its scoring driver reads as well as the port's.
 
+``--streaming-chunk-rows N`` (chosen by itself, at 2^20 rows, when the
+input's bytes exceed the card's memory budget) trains out of core
+(``game/streaming.py``): a statistics pass over every file builds the
+index and entity maps, the rows are read into host memory, and each grid
+or tuning entry is one streamed descent with its checkpoints under
+``checkpoints/<entry>`` (only the best entry's model is kept). It writes
+``best/``, ``index-maps/``, ``entity-maps.json`` and a ``metrics.json``
+that a resumed run merges with the interrupted one's, as the reference's
+streamed branch does.
+
 Usage:
     python -m photon_ml_tpu_torch.cli.train \\
         --config config.json --train-data data/train \\
-        [--validation-data data/val] --output-dir out/ [--device cpu]
+        [--validation-data data/val] --output-dir out/ [--device cpu] \\
+        [--streaming-chunk-rows 1048576]
 
 Branches not ported yet raise ``NotImplementedError`` naming their ROADMAP
-queue 1 item: the out-of-core GAME trainer (``--streaming-chunk-rows`` and
-its selection by input size, item 11b), ``--multihost`` (12), ``--telemetry-dir``
-and ``--profile-dir`` (13).
+queue 1 item: ``--multihost`` (12), ``--telemetry-dir`` and
+``--profile-dir`` (13).
 """
 
 from __future__ import annotations
@@ -37,10 +47,11 @@ from photon_ml_tpu_torch.cli.common import load_training_config, not_ported
 from photon_ml_tpu_torch.config import GameTrainingConfig
 from photon_ml_tpu_torch.data.index_map import IndexMap
 from photon_ml_tpu_torch.diagnostics import game_diagnostics, write_report
-from photon_ml_tpu_torch.estimators import GameEstimator, GameResult
-from photon_ml_tpu_torch.evaluation import make_evaluator
+from photon_ml_tpu_torch.estimators import GameEstimator, GameResult, build_configuration_grid
+from photon_ml_tpu_torch.evaluation import DEFAULT_EVALUATOR_BY_TASK, make_evaluator
 from photon_ml_tpu_torch.game.models import GameModel, RandomEffectModel
-from photon_ml_tpu_torch.hyperparameter.tuning import tune_game_hyperparameters
+from photon_ml_tpu_torch.game.streaming import StreamedGameTrainer
+from photon_ml_tpu_torch.hyperparameter.tuning import gp_tune_weights, tune_game_hyperparameters
 from photon_ml_tpu_torch.io.avro import list_avro_files
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader, GameDataset, expand_date_range
 from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
@@ -61,18 +72,20 @@ def run(
     streaming_chunk_rows: int | None = None,
     multihost: bool = False,
     device=None,
-) -> GameResult:
-    """Train, select and write; returns the grid's best ``GameResult``.
-    Runs on ``device`` (CUDA unless the caller asks for another; raises
-    without it)."""
-    if streaming_chunk_rows is not None:
-        raise not_ported("the out-of-core GAME trainer (--streaming-chunk-rows)", "11b")
+) -> GameResult | GameModel:
+    """Train, select and write; returns the grid's best ``GameResult``, or,
+    when ``streaming_chunk_rows`` selects the out-of-core branch, the best
+    entry's ``GameModel``. Runs on ``device`` (CUDA unless the caller asks
+    for another; raises without it)."""
     if multihost:
         raise not_ported("multi-host GAME training (--multihost)", "12")
     if profile_dir is not None:
         raise not_ported("device traces (--profile-dir)", "13")
     dev = resolve_device(device)
     logger = logger or PhotonLogger(output_dir)
+    if streaming_chunk_rows is not None:
+        return _run_streamed_game(config, train_data, output_dir, validation_data, streaming_chunk_rows,
+                                  logger, dev)
     id_tags = _game_id_tags(config)
     reader = AvroDataReader(config.feature_shards or None)
 
@@ -204,15 +217,226 @@ def _expand_part_files(paths: list[str]) -> list[str]:
     return [f for p in paths for f in list_avro_files(p)]
 
 
-def _input_exceeds_device(train_data: list[str], dev: torch.device) -> bool:
-    """The reference's rule for selecting its out-of-core trainer: the raw
-    input bytes exceed the device's memory budget (Avro is more compact than
-    the decoded float32 columns, so such an input cannot fit)."""
+def _streamed_unsupported(config: GameTrainingConfig) -> list[str]:
+    """Configuration features the out-of-core branch rejects (an explicit
+    ``--streaming-chunk-rows`` raises on them, and the selection by input
+    size keeps such a job in memory); none today, as in the reference."""
+    return []
+
+
+def _config_with_optimizations(config: GameTrainingConfig, configuration: dict) -> GameTrainingConfig:
+    """The training configuration with each coordinate's optimization
+    replaced by a grid or tuning entry's."""
+    def entry(coords):
+        return {cid: dataclasses.replace(c, optimization=configuration.get(cid, c.optimization))
+                for cid, c in coords.items()}
+
+    return dataclasses.replace(
+        config, fixed_effect_coordinates=entry(config.fixed_effect_coordinates),
+        random_effect_coordinates=entry(config.random_effect_coordinates),
+    )
+
+
+def _should_auto_stream(train_data: list[str], config: GameTrainingConfig, logger, dev: torch.device,
+                        has_validation: bool = True) -> bool:
+    """The reference's rule for selecting the out-of-core trainer: the raw
+    input bytes of the files the reader will read exceed the card's memory
+    budget (Avro is more compact than the decoded float32 columns, so such
+    an input cannot fit), unless the configuration is one the streamed
+    branch rejects (then it logs why and stays in memory)."""
     try:
         total = sum(os.path.getsize(f) for f in _expand_part_files(train_data))
     except OSError:
         return False  # the reader reports a missing input
-    return total > hbm_budget_bytes(dev)
+    budget = hbm_budget_bytes(dev)
+    if total <= budget:
+        return False
+    unsupported = _streamed_unsupported(config)
+    if not has_validation and (config.hyperparameter_tuning_iters > 0 or config.regularization_weight_grid):
+        # the streamed grid selects by validation metric
+        unsupported = unsupported + ["regularization grids / hyperparameter tuning without --validation-data"]
+    if unsupported:
+        logger.info(
+            f"input bytes {total:.3g} exceed the device memory budget {budget:.3g} but the configuration "
+            f"uses {', '.join(unsupported)}, which the streamed path does not support; keeping the "
+            "in-memory path"
+        )
+        return False
+    logger.info(
+        f"input bytes {total:.3g} exceed the device memory budget {budget:.3g}: selecting the "
+        "out-of-core streamed path (pass --streaming-chunk-rows to set the chunk size, or "
+        "--no-auto-streaming to train in memory)"
+    )
+    return True
+
+
+def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output_dir: str,
+                       validation_data: list[str] | None, chunk_rows: int, logger: PhotonLogger,
+                       dev: torch.device) -> GameModel:
+    """The out-of-core branch: the statistics pass over every file, the
+    host fill of the training and validation rows, one streamed descent
+    per grid (and tuning) entry with per-entry checkpoints, and the best
+    entry's files."""
+    unsupported = _streamed_unsupported(config)
+    if unsupported:
+        raise ValueError("--streaming-chunk-rows does not support: " + ", ".join(unsupported))
+    id_tags = _game_id_tags(config)
+    reader = AvroDataReader(config.feature_shards or None)
+    train_paths = _expand_part_files(train_data)
+    warm_tag_maps = _load_entity_maps(config.model_input_dir) if config.model_input_dir else None
+    with timed(logger, "streaming stats pass (all files)"):
+        index_maps, max_nnz, entity_maps, n_rows = reader.streaming_game_stats(
+            train_paths, id_tags, entity_maps=warm_tag_maps
+        )
+    logger.info(
+        f"streamed GAME: {n_rows} rows, shards { {s: m.size for s, m in index_maps.items()} }, "
+        f"entities { {t: len(m) for t, m in entity_maps.items()} }"
+    )
+    with timed(logger, "fill pass"):
+        data = reader.read_streamed_game(train_paths, id_tags, index_maps, entity_maps, max_nnz=max_nnz)
+    vdata = None
+    if validation_data:
+        with timed(logger, "fill validation"):
+            vdata = reader.read_streamed_game(_expand_part_files(validation_data), id_tags, index_maps,
+                                              entity_maps, max_nnz=max_nnz, unseen_entity_ok=True)
+
+    initial_model = None
+    if config.model_input_dir:
+        with timed(logger, "load warm-start model"):
+            entity_ids = None
+            if warm_tag_maps:
+                entity_ids = {cid: warm_tag_maps[c.random_effect_type]
+                              for cid, c in config.random_effect_coordinates.items()
+                              if c.random_effect_type in warm_tag_maps}
+            initial_model = load_game_model(config.model_input_dir, index_maps=index_maps,
+                                            entity_ids=entity_ids, device=dev)
+            # entities absent from the saved run cold-start from zero rows
+            for cid, c in config.random_effect_coordinates.items():
+                sub = initial_model.models.get(cid)
+                if not isinstance(sub, RandomEffectModel):
+                    continue
+                pad = len(entity_maps[c.random_effect_type]) - sub.num_entities
+                if pad > 0:
+                    W = torch.cat([sub.coefficients, sub.coefficients.new_zeros((pad, sub.coefficients.shape[1]))])
+                    initial_model = initial_model.updated(
+                        cid, dataclasses.replace(sub, coefficients=W, variances=None)
+                    )
+
+    intercepts = {sid: m.intercept_index for sid, m in index_maps.items()}
+    num_entities = {t: len(m) for t, m in entity_maps.items()}
+    grid = build_configuration_grid(config)
+    multi_entry = len(grid) > 1 or config.hyperparameter_tuning_iters > 0
+    if multi_entry and vdata is None:
+        raise ValueError("regularization grids / hyperparameter tuning on the streamed path select by "
+                         "validation metric; pass --validation-data")
+    # an empty evaluators tuple means the task's default metric
+    specs = tuple(config.evaluators) or (DEFAULT_EVALUATOR_BY_TASK[config.task_type],)
+    primary_ev = make_evaluator(specs[0])
+    # only the current best entry's model and trainer stay alive: the host
+    # memory is the dataset's
+    best: dict | None = None
+    summaries: list[dict] = []
+
+    def fit_entry(configuration, tag):
+        nonlocal best
+        ck_dir = os.path.join(output_dir, "checkpoints", tag) if multi_entry else os.path.join(
+            output_dir, "checkpoints")
+        if any(c.random_projection_dim is not None for c in config.random_effect_coordinates.values()):
+            logger.info("random-projected coordinates: checkpoint/resume disabled for the streamed descent")
+            ck_dir = None
+        trainer = StreamedGameTrainer(
+            _config_with_optimizations(config, configuration), chunk_rows=chunk_rows,
+            intercept_indices=intercepts, logger=logger.info, checkpoint_dir=ck_dir,
+            evaluators=specs if vdata is not None else (), num_entities=num_entities, device=dev,
+        )
+        model, info = trainer.fit(data, validation=vdata, initial_model=initial_model)
+        primary = None
+        if trainer.validation_history:
+            (_, last), = trainer.validation_history[-1].items()
+            primary = last.primary
+        summaries.append({"configuration": configuration, "primary": primary})
+        entry = {"model": model, "info": info, "trainer": trainer, "configuration": configuration,
+                 "primary": primary, "index": len(summaries) - 1}
+        if best is None or (primary is not None and (best["primary"] is None
+                                                     or primary_ev.better(primary, best["primary"]))):
+            best = entry  # the previous best's model and trainer go here
+        return primary
+
+    with timed(logger, "streamed coordinate descent"):
+        for i, configuration in enumerate(grid):
+            fit_entry(configuration, f"grid-{i:04d}")
+        if config.hyperparameter_tuning_iters > 0:
+            cids = list(config.coordinate_update_sequence)
+            prior = [({cid: s["configuration"][cid].regularization_weight for cid in cids}, s["primary"])
+                     for s in summaries if s["primary"] is not None]
+
+            def evaluate(weights, it):
+                configuration = {
+                    cid: dataclasses.replace(config.coordinate_config(cid).optimization,
+                                             regularization_weight=weights[cid])
+                    for cid in cids
+                }
+                return fit_entry(configuration, f"tune-{it:04d}")
+
+            with timed(logger, "streamed hyperparameter tuning"):
+                gp_tune_weights(cids, prior, config.hyperparameter_tuning_iters, evaluate,
+                                primary_ev.larger_is_better)
+    if multi_entry:
+        logger.info(
+            "selected streamed configuration: "
+            f"{ {c: o.regularization_weight for c, o in best['configuration'].items()} } "
+            f"(primary {best['primary']})"
+        )
+    model, info, trainer = best["model"], best["info"], best["trainer"]
+
+    with timed(logger, "write models"):
+        entity_names = {}
+        for tag, m in entity_maps.items():
+            names = [""] * len(m)
+            for s, i in m.items():
+                names[i] = s
+            entity_names[tag] = names
+        by_cid = {cid: entity_names[c.random_effect_type] for cid, c in config.random_effect_coordinates.items()}
+        save_game_model(model, os.path.join(output_dir, "best"), index_maps=index_maps, entity_names=by_cid)
+        for sid, imap in index_maps.items():
+            imap.save(os.path.join(output_dir, "index-maps", sid))
+        with open(os.path.join(output_dir, "entity-maps.json"), "w") as f:
+            json.dump(entity_maps, f)
+    metrics_path = os.path.join(output_dir, "metrics.json")
+    # a resumed run revisits only the remaining coordinates: merge with the
+    # interrupted run's file; a run from scratch replaces it
+    old: dict = {}
+    if trainer.resumed_from is not None and os.path.exists(metrics_path):
+        try:
+            with open(metrics_path) as f:
+                old = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            old = {}
+    if info or not old:
+        coordinates = dict(old.get("coordinates", {}))
+        coordinates.update({cid: {"final_loss": ci.final_loss, "iterations": ci.iterations,
+                                  "converged": ci.converged} for cid, ci in info.items()})
+        metrics = {
+            "streaming_chunk_rows": chunk_rows,
+            "coordinates": coordinates,
+            "validation_history": list(old.get("validation_history", [])) + [
+                {cid: dict(res.metrics) for cid, res in entry.items()} for entry in trainer.validation_history
+            ],
+        }
+        if multi_entry:
+            metrics["results"] = [
+                {"configuration": {cid: opt.to_dict() for cid, opt in s["configuration"].items()},
+                 "primary": s["primary"]}
+                for s in summaries
+            ]
+            metrics["best_index"] = best["index"]
+        with open(metrics_path, "w") as f:
+            json.dump(metrics, f, indent=2)
+    else:
+        # the checkpoint showed the run complete: no visit ran, and the
+        # existing metrics.json holds the run's diagnostics
+        logger.info("checkpoint shows training already complete; keeping the existing metrics.json")
+    return model
 
 
 def _pad_random_effects(model: GameModel, train: GameDataset, config: GameTrainingConfig) -> GameModel:
@@ -274,11 +498,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--multihost", action="store_true",
                    help="multi-host training (ROADMAP queue 1 item 12; raises)")
     p.add_argument("--streaming-chunk-rows", type=int, default=None,
-                   help="the out-of-core GAME trainer (ROADMAP queue 1 item 11b; raises)")
+                   help="out-of-core training: the dataset stays in host memory and streams through "
+                        "the card in chunks of this many rows; selected by itself (2^20 rows) when "
+                        "the input exceeds the device's memory budget")
     p.add_argument(
         "--no-auto-streaming", action="store_true",
-        help="train in memory even when the input exceeds the device's memory budget "
-             "(without it such an input selects the out-of-core trainer, which raises)",
+        help="train in memory even when the input exceeds the device's memory budget",
     )
     p.add_argument("--profile-dir", default=None,
                    help="device traces (ROADMAP queue 1 item 13; raises)")
@@ -306,18 +531,16 @@ def main(argv: list[str] | None = None) -> None:
             d for base in validation_data for d in expand_date_range(base, *args.validation_date_range)
         ]
     dev = resolve_device(args.device)
+    logger = PhotonLogger(args.output_dir)
     if (
         args.streaming_chunk_rows is None
         and not args.no_auto_streaming
-        and _input_exceeds_device(train_data, dev)
+        and _should_auto_stream(train_data, config, logger, dev, has_validation=bool(validation_data))
     ):
-        raise not_ported(
-            "the input exceeds the device's memory budget; the out-of-core trainer it "
-            "selects (pass --no-auto-streaming to train in memory)", "11b",
-        )
+        args.streaming_chunk_rows = 1 << 20
     run(
         config, train_data, args.output_dir, validation_data=validation_data,
-        index_map_dir=args.index_maps, profile_dir=args.profile_dir,
+        index_map_dir=args.index_maps, logger=logger, profile_dir=args.profile_dir,
         diagnostics=args.diagnostics, streaming_chunk_rows=args.streaming_chunk_rows,
         multihost=args.multihost, device=dev,
     )

@@ -138,3 +138,32 @@ def game_model_from_numpy(models: dict, task: TaskType | str, device=None):
                 feature_shard_id=m["feature_shard_id"],
             )
     return GameModel(models=out, task_type=task)
+
+
+def streamed_game_data_from_numpy(data):
+    """The port's host-resident ``StreamedGameData`` from the JAX
+    package's (anything with its ``labels``, ``features``, ``id_tags``,
+    ``offsets`` and ``weights``): the same numpy arrays, each feature shard
+    a 2-D dense array, a container with ``X``, or one with ``indices``,
+    ``values`` and ``num_features``. Nothing is copied to a device. A
+    streamed checkpoint needs no conversion: both packages write and read
+    the same ``ckpt.npz``."""
+    from photon_ml_tpu_torch.game.data import DenseFeatures, SparseFeatures
+    from photon_ml_tpu_torch.game.streaming import StreamedGameData
+
+    feats = {}
+    for sid, f in data.features.items():
+        if hasattr(f, "indices"):
+            feats[sid] = SparseFeatures(indices=np.asarray(f.indices), values=np.asarray(f.values),
+                                        num_features=int(f.num_features))
+        else:
+            feats[sid] = DenseFeatures(X=np.asarray(getattr(f, "X", f)))
+
+    def col(a):
+        return None if a is None else np.asarray(a)
+
+    return StreamedGameData(
+        labels=np.asarray(data.labels), features=feats,
+        id_tags={t: np.asarray(v) for t, v in (data.id_tags or {}).items()},
+        offsets=col(data.offsets), weights=col(data.weights),
+    )

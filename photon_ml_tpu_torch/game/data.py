@@ -13,8 +13,10 @@
   reference's integer arrays bit for bit (the same seeded ``rng.choice``).
 
 The entity lanes' static tensors are gathered on the device by
-``game/random_effect.py`` ``prepare_buckets``; ``gather_bucket`` here is
-the host version for small inputs and tests. The owner-placement helpers
+``game/random_effect.py`` ``prepare_buckets``; ``gather_bucket_host``
+here gathers one bucket from host columns (the out-of-core trainer's
+per-visit gather, into page-locked memory), and ``gather_bucket`` is that
+gather on the features' device. The owner-placement helpers
 (``placement_atoms``, ``split_entity_buckets``) wait for the multi-GPU
 slice.
 """
@@ -344,33 +346,82 @@ def _merge_bucket_classes(
     return slot, caps
 
 
+def _host_array(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def gather_bucket_host(
+    features: Features,
+    labels: np.ndarray,
+    offsets: np.ndarray,
+    weights: np.ndarray,
+    row_indices: np.ndarray,
+    columns: np.ndarray | None = None,
+    pin_memory: bool = False,
+) -> dict[str, torch.Tensor]:
+    """One bucket's (k, C, …) columns gathered on the host as CPU tensors
+    (page-locked with ``pin_memory``, so a copy to the card can run
+    asynchronously), written in place by numpy. Padded slots (row index
+    -1) get weight 0, which keeps them inert in the objective, and zeroed
+    feature values, so nothing that reads raw values sees a phantom copy
+    of row 0 (a sparse slot keeps row 0's indices). ``columns`` (per-entity
+    (k, p) column maps) narrows dense features to width p on the host,
+    before any copy pays for the full width."""
+    idx = np.maximum(row_indices, 0)
+    mask = (row_indices >= 0).astype(np.float32)
+
+    def take(src: np.ndarray, masked: bool) -> torch.Tensor:
+        out = torch.empty(idx.shape + src.shape[1:], dtype=torch.from_numpy(src[:0]).dtype,
+                          pin_memory=pin_memory)
+        o = out.numpy()
+        np.take(src, idx, axis=0, out=o)
+        if masked:
+            np.multiply(o, mask.reshape(mask.shape + (1,) * (src.ndim - 1)), out=o)
+        return out
+
+    out = {k: take(np.asarray(a, np.float32), True)
+           for k, a in (("labels", labels), ("offsets", offsets), ("weights", weights))}
+    if isinstance(features, DenseFeatures):
+        X = _host_array(features.X)
+        if columns is None:
+            out["X"] = take(X, True)
+        else:
+            full = X[idx] * mask[:, :, None]
+            narrow = np.take_along_axis(full, np.asarray(columns)[:, None, :], axis=2)
+            out["X"] = torch.empty(narrow.shape, dtype=torch.from_numpy(narrow[:0]).dtype,
+                                   pin_memory=pin_memory)
+            out["X"].numpy()[...] = narrow
+        return out
+    if columns is not None:
+        raise ValueError("subspace column maps require dense features")
+    out["indices"] = take(_host_array(features.indices), False)
+    out["values"] = take(_host_array(features.values), True)
+    return out
+
+
+def bucket_batch(arrays: dict, num_features: int) -> Batch:
+    """A gathered bucket's columns (``gather_bucket_host``, or their copies
+    on a device) as the lanes' batch: a (k, C, d) ``DenseBatch`` or a
+    (k, C, nnz) ``SparseBatch`` with int64 indices."""
+    cols = dict(labels=arrays["labels"], offsets=arrays["offsets"], weights=arrays["weights"])
+    if "X" in arrays:
+        return DenseBatch(X=arrays["X"], **cols)
+    return SparseBatch(indices=arrays["indices"].long(), values=arrays["values"],
+                       num_features=num_features, **cols)
+
+
 def gather_bucket(
     features: Features,
     labels: np.ndarray,
     offsets: np.ndarray,
     weights: np.ndarray,
     row_indices: np.ndarray,
+    columns: np.ndarray | None = None,
 ) -> Batch:
-    """One bucket's (k, C, …) batch gathered on the host from host columns.
-    Padded slots (row index -1) get weight 0, which keeps them inert in the
-    objective, and zeroed features, so nothing that reads raw feature values
-    sees a phantom copy of row 0. The batch lies on the features' device."""
-    dev = (features.X if isinstance(features, DenseFeatures) else features.values).device
-    idx = np.maximum(row_indices, 0)
-    mask = (row_indices >= 0).astype(np.float32)
-
-    def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
-    lab = np.asarray(labels)[idx] * mask
-    off = np.asarray(offsets)[idx] * mask
-    wgt = np.asarray(weights)[idx] * mask
-    if isinstance(features, DenseFeatures):
-        X = features.X.cpu().numpy()[idx] * mask[:, :, None]
-        return DenseBatch(X=put(X), labels=put(lab), offsets=put(off), weights=put(wgt))
-    ind = features.indices.cpu().numpy()[idx]
-    val = features.values.cpu().numpy()[idx] * mask[..., None]
-    return SparseBatch(
-        indices=put(ind), values=put(val), labels=put(lab), offsets=put(off),
-        weights=put(wgt), num_features=features.num_features,
-    )
+    """One bucket's (k, C, …) batch gathered on the host from host columns
+    (``gather_bucket_host``), on the features' device (the CPU for numpy
+    features)."""
+    src = features.X if isinstance(features, DenseFeatures) else features.values
+    dev = src.device if isinstance(src, torch.Tensor) else torch.device("cpu")
+    arrays = gather_bucket_host(features, labels, offsets, weights, row_indices, columns)
+    return bucket_batch({k: v.to(dev) for k, v in arrays.items()}, features.num_features)

@@ -22,14 +22,22 @@ subspace: a dense bucket of capacity C keeps every entity's p = min(d,
 ceil(ratio · C)) most frequent columns (``game/projector.py``), gathered
 once to (k, C, p); warm starts and priors are read at those columns, and
 the solutions are written back with zeros elsewhere. A sparse shard
-ignores the ratio, as in the reference. The mesh, capacity-class
-projection, compaction and fusion schedules of the reference are not
-ported.
+ignores the ratio, as in the reference. The mesh and capacity-class
+projection schedules of the reference are not ported.
+
+``solve_bucket_lanes`` is the one-bucket entry point of eager callers
+(the out-of-core trainer, ``game/streaming.py``, which gathers each
+bucket on the host every visit): the same lane solve, its results left
+on the card, and its launch counted in ``launch_counts`` with the
+iteration read deferred to one ``DeferredLaunchAccounting.flush``. The
+reference's compacted and fused launch schedules (ROADMAP queue 1 item
+15) raise when their knobs are set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -327,6 +335,34 @@ def _scatter_lanes(W: Tensor, V: Tensor | None, ids: Tensor, columns: Tensor | N
             M[ids[:, None], columns] = lanes
 
 
+def _solve_lanes(
+    batch: DenseBatch | SparseBatch,
+    w0: Tensor,
+    l2_weight: Tensor,
+    norm: NormalizationContext | None,
+    prior_mu: Tensor | None,
+    prior_var: Tensor | None,
+    *,
+    loss: PointwiseLoss,
+    config: OptimizerConfig,
+    intercept_index: int | None,
+    variance_computation: VarianceComputationType,
+    minimize_fn,
+    minimize_kwargs: dict,
+) -> tuple[Tensor, Tensor | None, Tensor, Tensor, Tensor, Tensor]:
+    """Solve a bucket's k lanes together from the (k, d) start ``w0`` (the
+    solver's space) under the per-lane prior rows; returns the lanes' (w,
+    variances or None, final objective, iterations, reason, objective
+    passes), all on the device."""
+    obj = make_lane_objective(
+        batch, loss, l2_weight=l2_weight, norm=norm, intercept_index=intercept_index,
+        prior_mean=prior_mu, prior_variances=prior_var,
+    )
+    res = minimize_fn(obj, w0, config, **minimize_kwargs)
+    var = compute_variances(obj, res.w, variance_computation)
+    return res.w, var, res.value, res.iterations, res.reason, res.objective_passes
+
+
 def _bucket_step(
     W: Tensor,
     V: Tensor | None,
@@ -351,15 +387,104 @@ def _bucket_step(
     batch = dataclasses.replace(pb.static, offsets=offsets[pb.row_idx] * pb.mask)
     if pb.columns is not None and intercept_index is not None:
         intercept_index = pb.columns.shape[1] - 1  # the intercept is each subspace's last slot
-    obj = make_lane_objective(
-        batch, loss, l2_weight=l2_weight, norm=norm, intercept_index=intercept_index,
-        prior_mean=_extract_lanes(prior_mu, pb.ids, pb.columns),
-        prior_variances=_extract_lanes(prior_var, pb.ids, pb.columns),
+    w, var, *diag = _solve_lanes(
+        batch, _extract_lanes(W, pb.ids, pb.columns), l2_weight, norm,
+        _extract_lanes(prior_mu, pb.ids, pb.columns), _extract_lanes(prior_var, pb.ids, pb.columns),
+        loss=loss, config=config, intercept_index=intercept_index,
+        variance_computation=variance_computation, minimize_fn=minimize_fn,
+        minimize_kwargs=minimize_kwargs,
     )
-    res = minimize_fn(obj, _extract_lanes(W, pb.ids, pb.columns), config, **minimize_kwargs)
-    var = compute_variances(obj, res.w, variance_computation)
-    _scatter_lanes(W, V, pb.ids, pb.columns, res.w, var)
-    return res.value, res.iterations, res.reason, res.objective_passes
+    _scatter_lanes(W, V, pb.ids, pb.columns, w, var)
+    return tuple(diag)
+
+
+# ---------------------------------------------------------------------------
+# the eager bucket-solve entry point (the out-of-core trainer's)
+# ---------------------------------------------------------------------------
+launch_counts = {"launches": 0, "executed_entity_iterations": 0, "useful_entity_iterations": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _knob_waits_for_item_15(name: str) -> None:
+    env = os.environ.get(name)
+    if env not in (None, "", "0"):
+        raise NotImplementedError(
+            f"{name}={env} changes the random-effect launch schedule; it waits for "
+            "ROADMAP queue 1 item 15 (set it to 0 or unset it)"
+        )
+
+
+class DeferredLaunchAccounting:
+    """Launch accounting that never waits for the card inside a solve
+    loop: ``add`` counts the launch at once and keeps the per-lane
+    iteration tensor; ``flush`` reads every kept tensor back in one
+    transfer, after the loop has waited for its last solve anyway, and
+    adds executed (lanes × the slowest lane's iterations: the lanes step in
+    lock step) and useful (Σ iterations) entity iterations to
+    ``launch_counts``."""
+
+    def __init__(self) -> None:
+        self._pending: list[tuple[Tensor, int]] = []
+
+    def add(self, it_lane: Tensor, lanes: int) -> None:
+        launch_counts["launches"] += 1
+        self._pending.append((it_lane, int(lanes)))
+
+    def flush(self) -> None:
+        if not self._pending:
+            return
+        its = torch.cat([torch.as_tensor(it).reshape(-1).long() for it, _ in self._pending]).cpu().numpy()
+        lo = 0
+        for it, lanes in self._pending:
+            n = torch.as_tensor(it).numel()
+            part = its[lo:lo + n]
+            lo += n
+            launch_counts["executed_entity_iterations"] += int(part.max(initial=0)) * lanes
+            launch_counts["useful_entity_iterations"] += int(part.sum())
+        self._pending.clear()
+
+
+def solve_bucket_lanes(
+    bucket_batch: DenseBatch | SparseBatch,
+    w0: Tensor,
+    l2_weight: Tensor,
+    norm: NormalizationContext | None,
+    prior_mu: Tensor | None,
+    prior_var: Tensor | None,
+    *,
+    minimize_fn,
+    loss: PointwiseLoss,
+    config: OptimizerConfig,
+    intercept_index: int | None,
+    variance_computation: VarianceComputationType,
+    accounting: DeferredLaunchAccounting | None = None,
+    **minimize_kwargs,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The bucket solve for eager callers (the out-of-core trainer): the
+    bucket's k lanes from the (k, d) start ``w0`` in the solver's space,
+    with per-lane prior rows. Returns the reference's tuple (w, final
+    objective, iterations, reason, variances), on the device and unread;
+    variances are zeros when none are asked for. ``accounting`` defers the
+    iteration read to its ``flush``; without it the launch is accounted at
+    once. The compacted and fused launch schedules
+    (``PHOTON_RE_COMPACT_EVERY``, ``PHOTON_RE_FUSE_BUCKETS``) are ROADMAP
+    queue 1 item 15 and raise when set."""
+    _knob_waits_for_item_15("PHOTON_RE_COMPACT_EVERY")
+    _knob_waits_for_item_15("PHOTON_RE_FUSE_BUCKETS")
+    w, var, value, iterations, reason, _passes = _solve_lanes(
+        bucket_batch, w0, l2_weight, norm, prior_mu, prior_var, loss=loss, config=config,
+        intercept_index=intercept_index, variance_computation=variance_computation,
+        minimize_fn=minimize_fn, minimize_kwargs=minimize_kwargs,
+    )
+    acct = accounting if accounting is not None else DeferredLaunchAccounting()
+    acct.add(iterations, w.shape[0])
+    if accounting is None:
+        acct.flush()
+    return w, value, iterations, reason, torch.zeros_like(w) if var is None else var
 
 
 def random_effect_scores(features: Features, entity_ids: Tensor, W: Tensor) -> Tensor:

@@ -20,9 +20,10 @@ makes the index maps and each shard's widest row in one pass that holds
 one part file's columns at a time, and ``iter_batch_chunks`` then streams
 one shard as uniform host chunks for ``ops/streaming.py``. Both run on the
 native decoder when every file's schema allows it, else on the Python
-codec, and give the same maps and chunks bit for bit. The streamed GAME
-reader (``streaming_game_stats``, ``read_streamed_game``) is ROADMAP queue
-1 item 11b.
+codec, and give the same maps and chunks bit for bit. The out-of-core
+GAME driver's reader is ``streaming_game_stats`` (the maps, the entity
+dictionaries and the row count in one pass) and ``read_streamed_game``
+(host numpy columns for ``game/streaming.py``), on the same decoders.
 """
 
 from __future__ import annotations
@@ -418,6 +419,165 @@ class AvroDataReader:
                     fill = 0
         if fill:
             yield chunk  # the rest of the last chunk stays zero-weight padding
+
+    def streaming_game_stats(
+        self,
+        path: str | Sequence[str],
+        id_tags: Sequence[str] = (),
+        entity_maps: Mapping[str, Mapping[str, int]] | None = None,
+        use_native: bool = True,
+    ) -> tuple[dict[str, IndexMap], dict[str, int], dict[str, dict[str, int]], int]:
+        """The out-of-core GAME driver's statistics pass over every file:
+        (index maps, each shard's max nnz, entity maps per id tag, row
+        count), holding the dictionaries and one file's columns at a time.
+        ``entity_maps`` seeds the entity dictionaries (a warm start keeps
+        the saved model's dense rows; new entities append in record
+        order)."""
+        paths = [path] if isinstance(path, str) else list(path)
+        index_maps, max_nnz = self.streaming_ingest_stats(paths, use_native=use_native)
+        ent_maps = {t: dict((entity_maps or {}).get(t, {})) for t in id_tags}
+        num_rows = 0
+        for cols, n_f in self._iter_scalar_columns(paths, id_tags, use_native=use_native):
+            num_rows += n_f
+            for t in id_tags:
+                m = ent_maps[t]
+                for v in cols["tags"][t]["uniq"]:  # first-seen order within the file
+                    if v not in m:
+                        m[v] = len(m)
+        return index_maps, max_nnz, ent_maps, num_rows
+
+    def _iter_scalar_columns(self, paths: list[str], id_tags: Sequence[str], use_native: bool = True):
+        """Per file: (columns, rows) with the labels, the offsets and
+        weights (None where the file has none) and, per id tag, the file's
+        distinct values in first-seen order (``uniq``) and each row's index
+        into them (``ids``). Features are not decoded, and per-row work is
+        numpy: only the distinct values pass through Python."""
+        plans = self._plan_native(paths, id_tags, uid=False) if use_native else None
+        if plans is not None:
+            for f, prog in plans:
+                c = decode_file(f, prog, list(id_tags))
+                cols = {
+                    "labels": np.asarray(c.numeric[_RESPONSE], _DTYPE),
+                    "offsets": np.asarray(c.numeric[_OFFSET], _DTYPE) if _OFFSET in c.numeric else None,
+                    "weights": np.asarray(c.numeric[_WEIGHT], _DTYPE) if _WEIGHT in c.numeric else None,
+                    "tags": {},
+                }
+                for t in id_tags:
+                    tids = np.asarray(c.tags[t]["ids"])
+                    if len(tids) and (tids < 0).any():
+                        raise ValueError(f"record {int(np.flatnonzero(tids < 0)[0])} missing id tag {t!r}")
+                    cols["tags"][t] = {"uniq": c.tags[t]["uniq_values"], "ids": tids}
+                yield cols, c.num_rows
+            return
+        for p in paths:
+            recs = list(iter_avro_directory(p))
+            if not recs:
+                continue
+            n_f = len(recs)
+            labels = np.zeros(n_f, _DTYPE)
+            offsets = np.zeros(n_f, _DTYPE)
+            weights = np.ones(n_f, _DTYPE)
+            uniq: dict[str, dict] = {t: {} for t in id_tags}
+            ids = {t: np.zeros(n_f, np.int64) for t in id_tags}
+            for i, rec in enumerate(recs):
+                labels[i] = float(rec[_RESPONSE])
+                if (off := rec.get(_OFFSET)) is not None:
+                    offsets[i] = float(off)
+                if (w := rec.get(_WEIGHT)) is not None:
+                    weights[i] = float(w)
+                meta = rec.get(_METADATA) or {}
+                for t in id_tags:
+                    v = meta.get(t)
+                    if v is None:
+                        raise ValueError(f"record {i} missing id tag {t!r}")
+                    ids[t][i] = uniq[t].setdefault(v, len(uniq[t]))
+            yield {
+                "labels": labels, "offsets": offsets, "weights": weights,
+                "tags": {t: {"uniq": list(uniq[t]), "ids": ids[t]} for t in id_tags},
+            }, n_f
+
+    def read_streamed_game(
+        self,
+        path: str | Sequence[str],
+        id_tags: Sequence[str],
+        index_maps: Mapping[str, IndexMap],
+        entity_maps: Mapping[str, Mapping[str, int]],
+        max_nnz: Mapping[str, int] | None = None,
+        dtype=np.float32,
+        unseen_entity_ok: bool = False,
+        use_native: bool = True,
+    ):
+        """Host-resident GAME ingest for the out-of-core trainer: a
+        ``game.streaming.StreamedGameData`` of numpy columns, nothing on the
+        device, against the frozen dictionaries of ``streaming_game_stats``.
+        The data stream once for the scalar columns and once per feature
+        shard, each shard filled chunk by chunk into its preallocated
+        columns (dense (n, d) up to 2048 columns, else padded (n, max nnz)
+        int32 indices and values). ``unseen_entity_ok`` gives entities
+        absent from ``entity_maps`` the id -1 (validation: those rows score
+        0 for that coordinate) instead of raising. The reference's
+        ``allow_empty`` (an empty file slice of one process) is ROADMAP
+        queue 1 item 12."""
+        from photon_ml_tpu_torch.game.streaming import StreamedGameData
+
+        paths = [path] if isinstance(path, str) else list(path)
+        labels_p, offsets_p, weights_p = [], [], []
+        ids_p: dict[str, list[np.ndarray]] = {t: [] for t in id_tags}
+        native = use_native and self._plan_native(paths, id_tags, uid=False) is not None
+        for cols, n_f in self._iter_scalar_columns(paths, id_tags, use_native=native):
+            labels_p.append(cols["labels"])
+            offsets_p.append(cols["offsets"] if cols["offsets"] is not None else np.zeros(n_f, _DTYPE))
+            weights_p.append(cols["weights"] if cols["weights"] is not None else np.ones(n_f, _DTYPE))
+            for t in id_tags:
+                m, tag = entity_maps[t], cols["tags"][t]
+                remap = np.empty(max(len(tag["uniq"]), 1), np.int64)
+                for u, v in enumerate(tag["uniq"]):
+                    got = m.get(v, -1)
+                    if got < 0 and not unseen_entity_ok:
+                        raise ValueError(
+                            f"entity {v!r} (tag {t!r}) absent from the statistics pass's "
+                            "dictionaries; did that pass cover every file?"
+                        )
+                    remap[u] = got
+                tids = tag["ids"]
+                ids_p[t].append(remap[tids] if len(tids) else np.zeros(0, np.int64))
+        if not labels_p:
+            raise ValueError(f"no records under {paths}")
+        labels = np.concatenate(labels_p)
+        n = len(labels)
+        features: dict[str, Features] = {}
+        for sid in self.feature_shards:
+            d = index_maps[sid].size
+            dense = d <= _DENSE_THRESHOLD
+            knnz = None
+            if not dense:
+                knnz = (max_nnz or {}).get(sid)
+                if knnz is None:
+                    knnz = self.streaming_ingest_stats(paths, use_native=native)[1][sid]
+            # preallocated and filled chunk by chunk: a list of chunks and a
+            # concatenate would hold the shard twice at its peak
+            if dense:
+                X = np.empty((n, d), dtype)
+            else:
+                idx, val = np.empty((n, knnz), np.int32), np.empty((n, knnz), dtype)
+            fill, chunk_rows = 0, min(n, 1 << 20)
+            for c in self.iter_batch_chunks(paths, sid, chunk_rows=chunk_rows, index_maps=index_maps,
+                                            dtype=dtype, max_nnz=knnz, use_native=native):
+                take = min(chunk_rows, n - fill)
+                if dense:
+                    X[fill:fill + take] = c["X"][:take]
+                else:
+                    idx[fill:fill + take] = c["indices"][:take]
+                    val[fill:fill + take] = c["values"][:take]
+                fill += take
+            features[sid] = (DenseFeatures(X=X) if dense
+                             else SparseFeatures(indices=idx, values=val, num_features=d))
+        return StreamedGameData(
+            labels=labels, features=features,
+            id_tags={t: np.concatenate(v) for t, v in ids_p.items()},
+            offsets=np.concatenate(offsets_p), weights=np.concatenate(weights_p),
+            decoder="native" if native else "python",
+        )
 
     def _chunks_from_columnar(self, plans, cfg, imap: IndexMap, chunk_rows: int, dtype,
                               max_nnz: int | None, dense: bool):

@@ -27,7 +27,8 @@ spills to a host tier that keeps the cast array, so a re-entry pays one
 copy and no second cast; an entry at its own dtype has nothing to keep and
 is dropped. The host budget (``host_spill_budget_bytes``, the device
 tier's) bounds both the spilled arrays and the host memory that device
-entries pin. Cached host arrays must not be mutated in place.
+entries pin (a view pins its whole base, counted once however many
+entries view it). Cached host arrays must not be mutated in place.
 ``clear_cache`` drops both tiers.
 
 Copies to the card: a chunk's numpy arrays are pageable, and an
@@ -291,7 +292,7 @@ def pack_host_chunk(host_tree: dict) -> dict:
 
 # -- the device-resident chunk cache ------------------------------------------------
 _cache_lock = threading.Lock()
-# key -> (host_ref, staged, device tensor, event, device bytes, host bytes); LRU order
+# key -> (host_ref, staged, device tensor, event, device bytes, packed host bytes); LRU order
 _device_tier: "OrderedDict[tuple, tuple]" = OrderedDict()
 _device_bytes = 0
 _device_host_bytes = 0  # host memory the device tier's entries pin
@@ -312,6 +313,35 @@ def _pinned_nbytes(a: np.ndarray) -> int:
     return int(base.nbytes) if isinstance(base, np.ndarray) else int(a.nbytes)
 
 
+# the device tier's pinned bases: id(base) -> [entries viewing it, its bytes].
+# Chunks that are views of one host array (the out-of-core GAME trainer's
+# feature chunks) pin that array once, not once per chunk
+_device_bases: dict[int, list] = {}
+
+
+def _base_key(a: np.ndarray) -> int:
+    return id(a.base) if isinstance(a.base, np.ndarray) else id(a)
+
+
+def _pin_base_locked(a: np.ndarray) -> int:
+    """Count one more device entry over ``a``'s base; the host bytes that
+    adds (the base's, for its first entry)."""
+    ref = _device_bases.setdefault(_base_key(a), [0, _pinned_nbytes(a)])
+    ref[0] += 1
+    return ref[1] if ref[0] == 1 else 0
+
+
+def _unpin_base_locked(a: np.ndarray) -> int:
+    """One device entry over ``a``'s base fewer; the host bytes that frees."""
+    key = _base_key(a)
+    ref = _device_bases[key]
+    ref[0] -= 1
+    if ref[0]:
+        return 0
+    del _device_bases[key]
+    return ref[1]
+
+
 def _nbytes(x) -> int:
     return int(x.nbytes) if isinstance(x, np.ndarray) else x.numel() * x.element_size()
 
@@ -321,12 +351,13 @@ def _evict_over_budget_locked(dev) -> None:
     budget = chunk_cache_budget_bytes(dev)
     host_budget = host_spill_budget_bytes(dev)
     while _device_tier and (_device_bytes > budget or _device_host_bytes > host_budget):
-        key, (host_ref, staged, _dev, _ev, nb_dev, nb_host) = _device_tier.popitem(last=False)
+        key, (host_ref, staged, _dev, _ev, nb_dev, nb_extra) = _device_tier.popitem(last=False)
         _device_bytes -= nb_dev
-        _device_host_bytes -= nb_host
+        _device_host_bytes -= nb_extra + _unpin_base_locked(host_ref)
         _cache_stats["evictions"] += 1
         if staged is host_ref:  # at its own dtype: nothing to keep
             continue
+        nb_host = _pinned_nbytes(host_ref) + nb_extra
         if key not in _host_tier:
             _host_bytes += nb_host
         _host_tier[key] = (host_ref, staged, nb_host)
@@ -366,16 +397,17 @@ def _cached_put_one(name: str, a, dev: torch.device, consumer):
         staged = _pack_for_transfer(a) if packs else a
     dev_t, ev = _copy_to(staged, dev, consumer)  # outside the lock: the expensive part
     nb_dev = dev_t.numel() * dev_t.element_size()
-    nb_host = _pinned_nbytes(a) + (_nbytes(staged) if staged is not a else 0)
+    nb_extra = _nbytes(staged) if staged is not a else 0  # a packed copy, beside the base
     with _cache_lock:
-        if nb_dev <= chunk_cache_budget_bytes(dev) and nb_host <= host_spill_budget_bytes(dev):
+        if (nb_dev <= chunk_cache_budget_bytes(dev)
+                and _pinned_nbytes(a) + nb_extra <= host_spill_budget_bytes(dev)):
             prev = _device_tier.pop(key, None)
             if prev is not None:  # a racing miss inserted it first
                 _device_bytes -= prev[4]
-                _device_host_bytes -= prev[5]
-            _device_tier[key] = (a, staged, dev_t, ev, nb_dev, nb_host)
+                _device_host_bytes -= prev[5] + _unpin_base_locked(prev[0])
+            _device_tier[key] = (a, staged, dev_t, ev, nb_dev, nb_extra)
             _device_bytes += nb_dev
-            _device_host_bytes += nb_host
+            _device_host_bytes += nb_extra + _pin_base_locked(a)
             _evict_over_budget_locked(dev)
     return dev_t, ev
 
@@ -411,6 +443,7 @@ def clear_cache() -> None:
     global _device_bytes, _device_host_bytes, _host_bytes
     with _cache_lock:
         _device_tier.clear()
+        _device_bases.clear()
         _host_tier.clear()
         _device_bytes = _device_host_bytes = _host_bytes = 0
         for k in _cache_stats:

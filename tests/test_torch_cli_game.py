@@ -315,7 +315,7 @@ def config_file(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--streaming-chunk-rows", "1000"], "item 11"),
+    (["--streaming-chunk-rows", "1000", "--profile-dir", "p"], "item 13"),
     (["--multihost"], "item 12"),
     (["--profile-dir", "p"], "item 13"),
     (["--telemetry-dir", "t"], "item 13"),
@@ -329,8 +329,8 @@ def test_unported_train_flags_raise(tmp_path, data_dir, config_file, flags, item
 
 def test_tuning_and_auto_streaming_raise(tmp_path, data_dir, config_file, monkeypatch):
     """Tuning without validation data raises the reference's ValueError;
-    an input over the device budget selects the out-of-core trainer, which
-    raises, unless --no-auto-streaming."""
+    an input over the device budget selects the out-of-core trainer (chunks
+    of 2^20 rows), unless --no-auto-streaming."""
     cfg = parse_config(_config("LBFGS", hyperparameter_tuning_iters=2).to_dict())
     with pytest.raises(ValueError, match="hyperparameter tuning requires validation data"):
         port_train.run(cfg, [str(data_dir / "train")], str(tmp_path / "a"), logger=_quiet(PhotonLogger),
@@ -341,8 +341,12 @@ def test_tuning_and_auto_streaming_raise(tmp_path, data_dir, config_file, monkey
     monkeypatch.setattr(port_train, "hbm_budget_bytes", lambda dev: 100.0)
     argv = ["--config", str(config_file), "--train-data", str(data_dir / "train"),
             "--output-dir", str(tmp_path / "b"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_train.main(argv)
+    port_train.main(argv)  # a grid without validation data cannot select by metric: in memory
+    assert set(_metrics(tmp_path / "b")) == {"results", "best_index"}
+    streamed = argv[:-4] + ["--output-dir", str(tmp_path / "c"), "--device", "cpu",
+                            "--validation-data", str(data_dir / "val.avro")]
+    port_train.main(streamed)
+    assert _metrics(tmp_path / "c")["streaming_chunk_rows"] == 1 << 20
     port_train.main(argv + ["--no-auto-streaming"])  # in memory when asked
     assert _metrics(tmp_path / "b")["best_index"] in (0, 1)
 

@@ -637,3 +637,55 @@ def test_chunk_cache_tiers_on_the_card(dev, monkeypatch):
     s = prefetch.cache_stats()
     assert s["evictions"] > 0 and s["host_hits"] > 0 and s["device_bytes"] <= budget
     prefetch.clear_cache()
+
+
+@pytest.mark.parametrize("solver", ["NEWTON_CHOLESKY", "LBFGS"])
+def test_streamed_game_fit_on_the_card_matches_the_cpu(dev, solver):
+    """The out-of-core GAME trainer on the card (the fixed effect's chunks
+    on K1, one launch per chunk of every value-and-gradient pass; the
+    random-effect buckets gathered into pinned memory and copied every
+    visit) against the same fit on the CPU: fixed coefficients rtol 1e-3 /
+    atol 2e-4, random effects at the lane tolerance."""
+    from photon_ml_tpu_torch.config import (
+        FixedEffectCoordinateConfig,
+        GameTrainingConfig,
+        OptimizationConfig,
+        OptimizerConfig,
+        RandomEffectCoordinateConfig,
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.game.streaming import StreamedGameData, StreamedGameTrainer
+    from photon_ml_tpu_torch.types import OptimizerType, RegularizationType
+
+    rng = np.random.default_rng(5)
+    n, d, E = 3000, 65, 40
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[:, -1] = 1.0
+    Xu = rng.normal(size=(n, 8)).astype(np.float32)
+    ids = rng.integers(0, E, size=n)
+    W = rng.normal(size=(E, 8)).astype(np.float32) * 0.5
+    margin = X @ (rng.normal(size=d).astype(np.float32) * 0.2) + np.sum(W[ids] * Xu, axis=1)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-margin))).astype(np.float32)
+    data = StreamedGameData(labels=y, features={"g": X, "u": Xu}, id_tags={"uid": ids})
+    opt = OptimizerConfig(max_iterations=20, tolerance=1e-4)
+    re_opt = OptimizationConfig(optimizer=OptimizerConfig(optimizer_type=OptimizerType(solver), max_iterations=20,
+                                                          tolerance=1e-4),
+                                regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0)
+    cfg = GameTrainingConfig(
+        coordinate_update_sequence=("fixed", "user"), coordinate_descent_iterations=2,
+        fixed_effect_coordinates={"fixed": FixedEffectCoordinateConfig("g", OptimizationConfig(optimizer=opt))},
+        random_effect_coordinates={"user": RandomEffectCoordinateConfig("uid", "u", re_opt)},
+    )
+    fits = {}
+    for device in (dev, "cpu"):
+        fused.reset_launch_counts()
+        t = StreamedGameTrainer(cfg, chunk_rows=1024, intercept_indices={"g": d - 1}, device=device)
+        model, _ = t.fit(data)
+        passes = sum(v["objective_passes"] for v in t.visit_stats if "objective_passes" in v)
+        fits[str(device)] = (model, dict(fused.launch_counts), passes)
+    (gm, launches, passes), (cm, _, _) = fits[str(dev)], fits["cpu"]
+    assert passes > 0 and launches == {"fused_value_grad": 3 * passes, "fused_hvp": 0}
+    np.testing.assert_allclose(gm["fixed"].model.coefficients.means.cpu().numpy(),
+                               cm["fixed"].model.coefficients.means.numpy(), rtol=1e-3, atol=2e-4)
+    np.testing.assert_allclose(gm["user"].coefficients.cpu().numpy(), cm["user"].coefficients.numpy(),
+                               rtol=1e-2, atol=2e-3)

@@ -74,6 +74,7 @@ def test_import_port_loads_no_jax():
         "import photon_ml_tpu_torch.ops.streaming, photon_ml_tpu_torch.ops.prefetch\n"
         "import photon_ml_tpu_torch.ops.tile_cache, photon_ml_tpu_torch.optim.host_lbfgs\n"
         "import photon_ml_tpu_torch.optim.host_tron, photon_ml_tpu_torch.supervised.cross_validation\n"
+        "import photon_ml_tpu_torch.game.streaming, photon_ml_tpu_torch.io.data_reader\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'photon_ml_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -97,7 +98,9 @@ def _entry_calls(tmp_path):
     from photon_ml_tpu_torch.data.libsvm import read_libsvm, to_padded_sparse
     from photon_ml_tpu_torch.data.summary import summarize
     from photon_ml_tpu_torch.data.synthetic import synthetic_glm_data
+    from photon_ml_tpu_torch.config import FixedEffectCoordinateConfig, GameTrainingConfig
     from photon_ml_tpu_torch.game.projector import RandomProjector
+    from photon_ml_tpu_torch.game.streaming import StreamedGameTrainer
     from photon_ml_tpu_torch.io.avro import write_avro_file
     from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
     from photon_ml_tpu_torch.normalization import build_normalization, no_normalization
@@ -160,6 +163,9 @@ def _entry_calls(tmp_path):
         "cli.run --streaming-chunk-rows": lambda **kw: run(
             task, [str(avro)], str(tmp_path / "streamed"), data_format="avro", streaming_chunk_rows=4, **kw
         ),
+        "StreamedGameTrainer": lambda **kw: StreamedGameTrainer(
+            GameTrainingConfig(fixed_effect_coordinates={"fixed": FixedEffectCoordinateConfig()}), **kw
+        ),
     }
 
 
@@ -170,7 +176,7 @@ def _entry_calls(tmp_path):
         "sparse_batch_from_numpy", "read_libsvm", "to_padded_sparse", "no_normalization",
         "build_normalization", "FeatureSummary.normalization", "RandomProjector.build",
         "dense_batch_from_arrays", "StreamingGLMObjective", "stream_scores", "train_glm_streamed",
-        "cross_validate_glm", "cli.run --streaming-chunk-rows",
+        "cross_validate_glm", "cli.run --streaming-chunk-rows", "StreamedGameTrainer",
     ],
 )
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch, name):
