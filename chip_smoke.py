@@ -3,8 +3,9 @@
 paths, its GAME mixed-effect training path (random effects on damped
 Newton, on the default lane solvers and in per-entity subspaces and random
 projections), its GAME train and score drivers on Avro files, read by
-the native columnar decoder, and its out-of-core GLM and GAME paths (host
-data streamed through the card) on one CUDA card.
+the native columnar decoder, its out-of-core GLM and GAME paths (host
+data streamed through the card), and its data-parallel GLM paths (row
+shards of the card, and two processes over gloo) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -30,7 +31,11 @@ Run from the root of a checkout. It builds the CUDA kernels from
    ``torch.profiler``;
 4. main_a: ``train_glm`` on the headline logistic problem (L-BFGS, 30
    iterations, lambda = 1), then a warm-started 3-lambda sweep with
-   validation at the same width;
+   validation at the same width; then main_a_sharded: the same solve
+   through ``DistributedTrainer`` over ``data_mesh(num_shards=4)`` (4 row
+   shards of the card, which it prints), K1 = 4 x the objective passes,
+   against main_a |dAUC| <= 0.005 and relative d(objective) <= 1e-3, a
+   second run bitwise equal, the wall per pass beside main_a's;
 5. main_b: ``train_glm`` with TRON on config B's linear problem (15
    iterations);
 6. agreement: A and B again with the kernels vetoed
@@ -56,6 +61,11 @@ Run from the root of a checkout. It builds the CUDA kernels from
    variances), generated on the card as bench.py generates it, through
    ``optimize_batch_layout`` (which must pick the sparse kernel's layout)
    and ``train_glm``; train AUC >= 0.98 x the AUC of the true weights;
+   then main_a2_sharded: the same data over 4 row shards of the card, one
+   K3 layout each (``sharded_objective``), L-BFGS 30 iterations and SIMPLE
+   variances: K3 = 4 x (passes + 1) margins and gradients and 4 squared
+   gradients, against main_a2 |dAUC| <= 1e-3 and relative d(objective)
+   <= 1e-4;
 10. agreement_a2: the same solve on the gather/scatter ``SparseBatch``
    (|dAUC| <= 1e-3, relative d(objective) <= 1e-4), and on the bf16 and
    int8 rungs against f32 (|dAUC| <= 0.005 / 0.01, relative d(loss) <=
@@ -173,7 +183,13 @@ Run from the root of a checkout. It builds the CUDA kernels from
    Python codec equal bit for bit; every lambda's model equal to
    ``train_glm`` on the same arrays within rtol 1e-2 / atol 1e-3 with the
    same best lambda; a rerun into the same directory loads every lambda
-   from ``checkpoints/``;
+   from ``checkpoints/``; then main_glm_multihost_cli: the same command
+   with ``--multihost`` in two processes of this script on the card (gloo
+   over loopback; the two training parts, one each), its best lambda and
+   coefficients (rtol 1e-2 / atol 1e-3) main_glm_streamed_cli's, only
+   process 0 writing (no ``best/`` or ``checkpoints/`` from process 1),
+   and a rerun resuming every lambda from process 0's checkpoints (the
+   file unchanged, the model within rtol 1e-6);
 18b. main_game_cli_streamed: ``cli.train.main --streaming-chunk-rows
    32768`` (8 chunks) on phase 16's files and configuration, 2 outer
    iterations, then a rerun to 3 that resumes both grid entries at outer
@@ -196,7 +212,14 @@ Run from the root of a checkout. It builds the CUDA kernels from
    ``value_and_grad`` equal to the in-memory objective on the same 8 GiB on
    the card (value rtol 1e-5, gradient 1e-4) and the solve to the
    in-memory ``train_glm`` (|dAUC| <= 0.005, relative d(objective) <=
-   1e-3); K1 alone at the chunk's shape, against its plain version;
+   1e-3); K1 alone at the chunk's shape, against its plain version; then
+   main_f_multihost: two processes of this script on the card, each
+   drawing main_f's 16 chunks in order and keeping its 8, a chunk cache of
+   5 GiB each, ``train_glm_streamed(cross_process=True)`` (host L-BFGS 10
+   iterations at tolerance 0, lambda = 1, each pass summed over gloo):
+   the two processes' coefficients bitwise equal, K1 = 8 x passes in each,
+   against main_f |dAUC| <= 0.005 and relative d(objective) <= 1e-3, the
+   seconds in collectives per pass;
 20. main_b_streamed: config B in 8 host chunks of 2^17 rows with host TRON
    (15 iterations): K1 on each chunk of every value-and-gradient pass and
    K2 on each chunk of every Hessian-vector pass; against main_b relative
@@ -212,10 +235,13 @@ Run from the root of a checkout. It builds the CUDA kernels from
    direction against its plain version at 1e-5.
 
 Every check that fails raises, and the script exits non-zero with no
-result. Its last lines are the kernel table as one JSON object (K1's
+result; a child process that fails or outlives its time (then killed)
+fails its phase. The kernels are built once, before any child starts.
+Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
-E on L-BFGS, E projected, the GAME drivers and the six out-of-core
-phases, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
+E on L-BFGS, E projected, the GAME drivers, the six out-of-core
+phases and the four data-parallel ones, which ``launches_by_path`` lists
+one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
 ``at_streamed_game_chunk_shape`` K1's at main_e_streamed's), the line
@@ -278,10 +304,17 @@ from photon_ml_tpu_torch.native import build as native_build
 from photon_ml_tpu_torch.ops import _cuda, fused, prefetch, tile_cache
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
-from photon_ml_tpu_torch.ops.glm import make_objective
+from photon_ml_tpu_torch.ops.glm import compute_variances, make_objective
 from photon_ml_tpu_torch.ops.losses import LOSSES
 from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks
-from photon_ml_tpu_torch.optim import select_minimize_fn
+from photon_ml_tpu_torch.optim import lbfgs_minimize, select_minimize_fn
+from photon_ml_tpu_torch.parallel import DistributedTrainer, data_mesh, sharded_objective
+from photon_ml_tpu_torch.parallel.multihost import (
+    collective_stats,
+    initialize_multihost,
+    reset_collective_stats,
+    shutdown_multihost,
+)
 from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
 from photon_ml_tpu_torch.transformers import GameTransformer
 from photon_ml_tpu_torch.types import (
@@ -2031,19 +2064,23 @@ def streamed_solve(chunks, task, d, config, dev, **kw):
     return result, time.perf_counter() - t0, launch_counts()
 
 
-def f_chunks(dev) -> list[dict]:
+def f_chunks(dev, keep: range | None = None) -> list[dict]:
     """main_f's 16 chunks, drawn on the card from one seeded generator (X
     N(0, 1) with column j scaled by exp(4j/511 − 2), so the solve is
     ill-conditioned enough to take its iterations, the intercept at column
-    511, labels Bernoulli(sigmoid(X·w))) and copied to the host."""
+    511, labels Bernoulli(sigmoid(X·w))) and copied to the host. ``keep``
+    names the chunks copied (all by default); every chunk is drawn, in
+    order, so a kept chunk is main_f's whatever else is kept."""
     gen = torch.Generator(device=dev).manual_seed(21)
     w_true = torch.randn(F_D, generator=gen, device=dev) / F_D**0.5
     scale = torch.exp(torch.linspace(-2.0, 2.0, F_D, device=dev))
     chunks = []
-    for _ in range(F_ROWS // F_CHUNK):
+    for i in range(F_ROWS // F_CHUNK):
         X = torch.randn((F_CHUNK, F_D), generator=gen, device=dev) * scale
         X[:, F_D - 1] = 1.0
         y = (torch.rand(F_CHUNK, generator=gen, device=dev) < torch.sigmoid(X @ w_true)).float()
+        if keep is not None and i not in keep:
+            continue
         chunks.append(dict(X=X.cpu().numpy(), labels=y.cpu().numpy(),
                            offsets=np.zeros(F_CHUNK, np.float32), weights=np.ones(F_CHUNK, np.float32)))
     return chunks
@@ -2361,6 +2398,298 @@ def run_glm_streamed_cli(dev, data: GameCliData, card: str) -> dict:
     )
 
 
+# ---------------------------------------------------------------------------
+# data parallel: row shards on one card, and processes over gloo
+# ---------------------------------------------------------------------------
+SHARDS = 4
+CHILD_TIMEOUT_S = 300
+F_MULTIHOST_CACHE = 5 << 30  # each process's chunk cache: its 8 chunks (4 GiB) resident
+
+
+def run_a_sharded(batch, intercept, a: dict, dev) -> dict:
+    """main_a_sharded: the headline solve of main_a (L-BFGS 30 iterations at
+    tolerance 0, λ = 1) through ``DistributedTrainer`` over 4 row shards of
+    the card; then the same solve again, which must be bitwise equal, and
+    on one shard (the same code path: its wall per pass is the baseline of
+    the sharding's cost)."""
+    mesh = data_mesh(num_shards=SHARDS)
+    trainer = DistributedTrainer(mesh=mesh, config=OptimizerConfig(max_iterations=30, tolerance=0.0),
+                                 loss=LOSSES["logistic"], l2_weight=1.0, intercept_index=intercept)
+    w0 = torch.zeros(batch.num_features, device=dev)
+    replace(trainer, config=OptimizerConfig(max_iterations=2)).train(batch, w0)  # warm-up
+    runs = []
+    for t in (trainer, trainer, replace(trainer, mesh=data_mesh(num_shards=1))):
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = t.train(batch, w0)
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0, launch_counts()))
+    (res, wall, launches), (again, wall2, _), (one, wall1, _) = runs
+    auc = float(auc_roc(batch.matvec(res.w), batch.labels))
+    rec = dict(iterations=res.iterations, reason=res.reason, objective_passes=res.objective_passes,
+               objective=float(res.value), train_auc=auc, wall_s=wall, wall_ms_per_pass=1e3 * wall / res.objective_passes,
+               repeat_wall_ms_per_pass=1e3 * wall2 / again.objective_passes, launches=launches,
+               mesh=[str(d) for d in mesh], shards=SHARDS, rows_per_shard=batch.num_rows // SHARDS,
+               one_shard_wall_ms_per_pass=1e3 * wall1 / one.objective_passes,
+               unsharded_wall_ms_per_pass=a["wall_ms_per_pass"])
+    rec.update(
+        k1_launches_ok=launches["fused_value_grad"] == SHARDS * res.objective_passes and not launches["fused_hvp"],
+        repeat_bitwise=torch.equal(res.w, again.w) and torch.equal(res.value, again.value),
+        d_auc_vs_main_a=abs(auc - a["train_auc"]),
+        rel_d_objective_vs_main_a=abs(rec["objective"] - a["objective"]) / abs(a["objective"]),
+        sharded_minus_one_shard_ms_per_pass=rec["wall_ms_per_pass"] - rec["one_shard_wall_ms_per_pass"],
+    )
+    return rec
+
+
+def run_a2_sharded(batch, a2: dict, dev) -> dict:
+    """main_a2_sharded: config A2 split into 4 row shards of the card, each
+    with its own K3 layouts (``sharded_objective`` over every budget), host
+    L-BFGS 30 iterations at λ = 1, then SIMPLE variances (one
+    Hessian-diagonal pass); then the same on one shard (the baseline of
+    the sharding's cost on the same code path)."""
+
+    def timed_solve(shards: int):
+        mesh = data_mesh(num_shards=shards)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obj = sharded_objective(batch, mesh, LOSSES["logistic"], l2_weight=1.0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if not all(isinstance(o.batch, st.TiledSparseBatch) for o in obj.shards):
+            raise AssertionError("A2's shards did not take the sparse kernel's layout")
+        w0 = torch.zeros(batch.num_features, device=dev)
+        lbfgs_minimize(obj, w0, OptimizerConfig(max_iterations=2))  # warm-up
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lbfgs_minimize(obj, w0, OptimizerConfig(max_iterations=30, tolerance=0.0))
+        variances = compute_variances(obj, res.w, VarianceComputationType.SIMPLE)
+        torch.cuda.synchronize()
+        return mesh, obj, build_s, res, variances, time.perf_counter() - t0, launch_counts()
+
+    mesh, obj, build_s, res, variances, wall, launches = timed_solve(SHARDS)
+    nnz = [o.batch.m.nnz for o in obj.shards]
+    del obj
+    _, _, _, one, _, wall1, _ = timed_solve(1)
+    passes = res.objective_passes
+    k3 = {d: launches[f"sparse_{d}"] for d in st.DIRECTIONS}
+    expected = {"matvec": SHARDS * (passes + 1), "rmatvec": SHARDS * (passes + 1), "rmatvec_sq": SHARDS}
+    auc = float(auc_roc(batch.matvec(res.w), batch.labels))
+    return dict(iterations=res.iterations, reason=res.reason, objective_passes=passes, objective=float(res.value),
+                train_auc=auc, wall_s=wall, wall_ms_per_pass=1e3 * wall / (passes + 1), launches=launches,
+                mesh=[str(d) for d in mesh], layout_build_s=build_s, nnz_per_shard=nnz,
+                k3_launches=k3, k3_expected=expected, launches_ok=k3 == expected,
+                variances_finite=bool(torch.isfinite(variances).all()),
+                one_shard_wall_ms_per_pass=1e3 * wall1 / (one.objective_passes + 1),
+                unsharded_wall_ms_per_pass=a2["wall_ms_per_pass"],
+                d_auc_vs_main_a2=abs(auc - a2["train_auc"]),
+                rel_d_objective_vs_main_a2=abs(float(res.value) - a2["objective"]) / abs(a2["objective"]))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None, n: int = 2) -> list[dict]:
+    """``n`` processes of this script in ``--child`` mode, one gloo group on
+    a fresh loopback port; each writes ``work/rank<r>.json``. The kernels
+    are built by the parent before (``_cuda.load``), so no two children
+    build at once. A child that fails or outlives ``CHILD_TIMEOUT_S`` (then
+    killed) fails the phase."""
+    _cuda.load()
+    native_build.build()
+    os.makedirs(work, exist_ok=True)
+    child_env = {k: v for k, v in os.environ.items()
+                 if k not in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")}
+    child_env.update(env or {})
+    port = _free_port()
+    spec = json.dumps(dict(args, work=work, port=port, processes=n, device=dev.type))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", mode, str(r), spec],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=child_env)
+             for r in range(n)]
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{mode}: a child outlived {CHILD_TIMEOUT_S} s and was killed") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{mode}: child {r} exited {p.returncode}:\n{err[-4000:]}")
+    results = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _child(mode: str, rank: int, spec: dict) -> int:
+    """One process of a multi-process phase (``run_children``), on the
+    parent's device."""
+    global F_ROWS, F_D, F_CHUNK
+    dev = torch.device(spec["device"])
+    if dev.type != "cuda":  # a rehearsal on the CPU: no card to wait for
+        torch.cuda.synchronize = lambda *a, **k: None
+    work = spec["work"]
+    out: dict = {"rank": rank}
+    if mode == "f_multihost":
+        F_ROWS, F_D, F_CHUNK = spec["shape"]  # the parent's, so the chunks are its chunks
+        t0 = time.perf_counter()
+        per = (F_ROWS // F_CHUNK) // spec["processes"]
+        chunks = f_chunks(dev, keep=range(rank * per, (rank + 1) * per))
+        out["data_s"] = time.perf_counter() - t0
+        initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+        reset_collective_stats()
+        result, wall, launches = streamed_solve(chunks, TaskType.LOGISTIC_REGRESSION, F_D,
+                                                OptimizerConfig(max_iterations=10, tolerance=0.0), dev,
+                                                intercept_index=F_D - 1, cross_process=True)
+        t = result.trackers[1.0]
+        w = result.models[1.0].coefficients.means
+        margins = torch.cat([torch.from_numpy(c["X"]).to(dev) @ w for c in chunks])
+        labels = np.concatenate([c["labels"] for c in chunks])
+        np.savez(os.path.join(work, f"rank{rank}.npz"), w=w.cpu().numpy(), margins=margins.cpu().numpy(),
+                 labels=labels)
+        out.update(chunks=len(chunks), iterations=t.iterations, objective_passes=t.objective_passes,
+                   objective=float(t.value), wall_s=wall, wall_s_per_pass=wall / t.objective_passes,
+                   launches=launches, collectives=dict(collective_stats),
+                   collective_s_per_pass=collective_stats["seconds"] / t.objective_passes,
+                   chunk_cache_budget_bytes=prefetch.chunk_cache_budget_bytes(dev), cache=prefetch.cache_stats(),
+                   peak_device_bytes=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None)
+    elif mode == "glm_multihost_cli":
+        os.environ.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{spec['port']}",
+                          JAX_NUM_PROCESSES=str(spec["processes"]), JAX_PROCESS_ID=str(rank))
+        streamed = []
+        real = cli_train_glm.train_glm_streamed
+
+        def recorded(chunks, *args, **kwargs):
+            streamed.append((len(chunks), real(chunks, *args, **kwargs)))
+            return streamed[-1][1]
+
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        reset_collective_stats()
+        t0 = time.perf_counter()
+        cli_train_glm.train_glm_streamed = recorded
+        try:
+            cli_train_glm.main(spec["argv"] + ["--output-dir", os.path.join(work, f"out{rank}")])
+        finally:
+            cli_train_glm.train_glm_streamed = real
+        chunks, result = streamed[0]
+        out.update(wall_s=time.perf_counter() - t0, launches=launch_counts(), chunks=chunks,
+                   value_grad_passes=sum(t.objective_passes for t in result.trackers.values()),
+                   trained_lambdas=sorted(result.trackers), best_weight=result.best_weight,
+                   collectives=dict(collective_stats))
+    else:
+        raise ValueError(f"unknown child mode {mode!r}")
+    shutdown_multihost()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_f_multihost(dev, f_rec: dict, card: str) -> dict:
+    """main_f_multihost: main_f's solve (host L-BFGS 10 iterations at
+    tolerance 0, λ = 1) by two processes on the card, each holding 8 of
+    main_f's 16 chunks and a chunk cache of ``F_MULTIHOST_CACHE`` bytes,
+    summing each pass over gloo (``train_glm_streamed(cross_process=True)``)."""
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="_f_multihost-", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        kids = run_children("f_multihost", work, {"shape": [F_ROWS, F_D, F_CHUNK]}, dev,
+                            env={"PHOTON_CHUNK_CACHE_BUDGET": str(F_MULTIHOST_CACHE)})
+        wall = time.perf_counter() - t0
+        arrays = [np.load(os.path.join(work, f"rank{r}.npz")) for r in range(2)]
+        margins = torch.from_numpy(np.concatenate([a["margins"] for a in arrays])).to(dev)
+        labels = torch.from_numpy(np.concatenate([a["labels"] for a in arrays])).to(dev)
+        auc = float(auc_roc(margins, labels))
+        bitwise = arrays[0]["w"].tobytes() == arrays[1]["w"].tobytes()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    passes = kids[0]["objective_passes"]
+    launches = {k: sum(c["launches"][k] for c in kids) for k in launch_counts()}
+    ref_obj = f_rec["arms"]["b_default"]["objective"]
+    return dict(
+        card=card, processes=2, chunks_per_process=[c["chunks"] for c in kids], phase_wall_s=wall,
+        children=kids, objective=kids[0]["objective"], objective_passes=passes, launches=launches,
+        wall_s_per_pass=max(c["wall_s_per_pass"] for c in kids),
+        one_process_wall_s_per_pass=f_rec["arms"]["b_default"]["wall_s_per_pass"],
+        collective_s_per_pass=[c["collective_s_per_pass"] for c in kids],
+        k1_launches_ok=all(c["launches"]["fused_value_grad"] == c["chunks"] * passes
+                           and not c["launches"]["fused_hvp"] for c in kids),
+        coefficients_bitwise_equal=bitwise, train_auc=auc, d_auc_vs_main_f=abs(auc - f_rec["train_auc"]),
+        rel_d_objective_vs_main_f=abs(kids[0]["objective"] - ref_obj) / abs(ref_obj),
+    )
+
+
+def run_glm_multihost_cli(dev, data: GameCliData, glm_streamed: dict, card: str) -> dict:
+    """main_glm_multihost_cli: ``cli.train_glm --multihost
+    --streaming-chunk-rows 32768`` in two processes on main_game_cli's files
+    (two training parts: one each), held to main_glm_streamed_cli's
+    one-process run; then the same command into the same directories,
+    which must resume every λ from process 0's checkpoints."""
+    work, maps = data.work, AvroDataReader().streaming_ingest_stats(os.path.join(data.work, "train"))[0]
+    argv = ["--task", "LOGISTIC_REGRESSION", "--format", "avro", "--train-data", os.path.join(work, "train"),
+            "--validation-data", os.path.join(work, "val"), "--weights", *GLM_CLI_WEIGHTS,
+            "--max-iterations", "100", "--tolerance", "1e-8", "--streaming-chunk-rows", str(GLM_CLI_CHUNK),
+            "--device", dev.type, "--multihost"]
+    out = os.path.join(work, "glm_multihost")
+    t0 = time.perf_counter()
+    kids = run_children("glm_multihost_cli", out, {"argv": argv}, dev)
+    wall = time.perf_counter() - t0
+    out0 = os.path.join(out, "out0")
+    done = os.path.join(out0, "checkpoints", "sweep-done.npz")
+    with open(os.path.join(out0, "report.json")) as f:
+        report = json.load(f)
+    weights = [float(w) for w in GLM_CLI_WEIGHTS]
+
+    def model(root: str, lam: float) -> torch.Tensor:
+        return load_glm(os.path.join(root, "models", f"lambda-{lam:g}", "model.avro"), index_map=maps["global"],
+                        device=dev).coefficients.means
+
+    one = os.path.join(work, "glm_streamed")
+    coef_ok, max_diff = True, 0.0
+    for lam in weights:
+        got, want = model(out0, lam), model(one, lam)
+        coef_ok = coef_ok and close(got, want, 1e-2, 1e-3)[0]
+        max_diff = max(max_diff, float((got - want).abs().max()))
+    first = {lam: model(out0, lam) for lam in weights}
+    mtime = os.stat(done).st_mtime_ns
+    t1 = time.perf_counter()
+    rerun = run_children("glm_multihost_cli", out, {"argv": argv}, dev)
+    rerun_wall = time.perf_counter() - t1
+    resumed = (os.stat(done).st_mtime_ns == mtime and all(k["trained_lambdas"] == [] for k in rerun)
+               and all(close(model(out0, lam), first[lam], 1e-6, 0.0)[0] for lam in weights))
+    vg = kids[0]["value_grad_passes"]
+    launches = {k: sum(c["launches"][k] for c in kids) for k in launch_counts()}
+    out1 = os.path.join(out, "out1")
+    return dict(
+        card=card, processes=2, wall_s=wall, rerun_wall_s=rerun_wall, children=kids, rerun_children=rerun,
+        chunks_per_process=[c["chunks"] for c in kids], value_grad_passes=vg, launches=launches,
+        launches_ok=vg > 0 and all(c["launches"]["fused_value_grad"] == c["chunks"] * vg for c in kids)
+        and not any(v for k, v in launches.items() if k != "fused_value_grad"),
+        best_weight=report["best_weight"], one_process_best_weight=glm_streamed["best_weight"],
+        coefficients_ok=coef_ok, max_abs_diff_vs_one_process=max_diff,
+        only_process_0_wrote=not os.path.exists(os.path.join(out1, "best"))
+        and not os.path.exists(os.path.join(out1, "checkpoints")) and os.path.exists(done),
+        rerun_resumed=resumed,
+    )
+
+
 def streamed_game_data(batch) -> StreamedGameData:
     """A ``GameBatch``'s columns copied to host numpy, the out-of-core
     trainer's input."""
@@ -2632,6 +2961,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     name, power_limit = [s.strip() for s in smi.split(",", 1)]
@@ -2667,6 +2997,16 @@ def main() -> int:
     emit("main_a_sweep", **sweep)
     if sweep["launches"]["fused_value_grad"] == 0:
         raise AssertionError("the sweep launched no K1")
+    # the same solve over 4 row shards of the card
+    a_sharded = run_a_sharded(batch, intercept, a, dev)
+    emit("main_a_sharded", **a_sharded)
+    failed = [name for name, ok in (
+        ("k1_launches", a_sharded["k1_launches_ok"]),
+        ("repeat_bitwise", a_sharded["repeat_bitwise"]),
+        ("vs_main_a", a_sharded["d_auc_vs_main_a"] <= 0.005 and a_sharded["rel_d_objective_vs_main_a"] <= 1e-3),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_a_sharded failed: {failed}")
 
     # main path B: TRON on config B
     b = run_b(dev)
@@ -2709,6 +3049,17 @@ def main() -> int:
         if not (a2["quality_ok"] and a2["variances_finite"]):
             raise AssertionError(f"A2 solve quality: AUC {a2['train_auc']} against "
                                  f"{a2['auc_true_weights']} for the true weights")
+        # the same data over 4 row shards, one K3 layout each
+        a2_sharded = run_a2_sharded(a2_batch, a2, dev)
+        emit("main_a2_sharded", **a2_sharded)
+        failed = [name for name, ok in (
+            ("k3_launches", a2_sharded["launches_ok"]),
+            ("vs_main_a2", a2_sharded["d_auc_vs_main_a2"] <= 1e-3 and a2_sharded["rel_d_objective_vs_main_a2"] <= 1e-4),
+            ("variances", a2_sharded["variances_finite"]),
+        ) if not ok]
+        if failed:
+            raise AssertionError(f"main_a2_sharded failed: {failed}")
+        torch.cuda.empty_cache()
         agree_a2 = agreement_a2(a2_batch, a2, a2_model, dev)
     finally:
         del os.environ["PHOTON_KERNEL_DTYPE"]
@@ -2810,6 +3161,8 @@ def main() -> int:
         full["decoders"] = decoders
         # the out-of-core GLM driver on the same files
         glm_streamed = run_glm_streamed_cli(dev, data, smi)
+        # the same command in two processes over gloo
+        glm_multihost = run_glm_multihost_cli(dev, data, glm_streamed, smi)
         # the out-of-core GAME driver on the same files, against the in-memory one
         game_streamed = run_game_cli_streamed(dev, data, smi)
         del data
@@ -2876,6 +3229,16 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_glm_streamed_cli failed: {failed}")
+    emit("main_glm_multihost_cli", **glm_multihost)
+    failed = [name for name, ok in (
+        ("best_weight", glm_multihost["best_weight"] == glm_multihost["one_process_best_weight"]),
+        ("vs_one_process", glm_multihost["coefficients_ok"]),
+        ("only_process_0_wrote", glm_multihost["only_process_0_wrote"]),
+        ("rerun_resumed", glm_multihost["rerun_resumed"]),
+        ("k1_launches", glm_multihost["launches_ok"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_glm_multihost_cli failed: {failed}")
     f_rec = run_f(dev, smi)
     emit("main_f", **f_rec)
     vg = f_rec["value_and_grad_vs_in_memory"]
@@ -2889,6 +3252,15 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_f failed: {failed}")
+    f_multi = run_f_multihost(dev, f_rec, smi)
+    emit("main_f_multihost", **f_multi)
+    failed = [name for name, ok in (
+        ("coefficients_bitwise_equal", f_multi["coefficients_bitwise_equal"]),
+        ("k1_launches", f_multi["k1_launches_ok"]),
+        ("vs_main_f", f_multi["d_auc_vs_main_f"] <= 0.005 and f_multi["rel_d_objective_vs_main_f"] <= 1e-3),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_f_multihost failed: {failed}")
     torch.cuda.empty_cache()
     b_streamed = run_b_streamed(dev, b, smi)
     emit("main_b_streamed", **b_streamed)
@@ -2916,6 +3288,9 @@ def main() -> int:
     streamed_paths = {"main_f": f_rec, "main_b_streamed": b_streamed, "main_a2_streamed": a2_streamed,
                       "main_glm_streamed_cli": glm_streamed, "main_e_streamed": e_streamed,
                       "main_game_cli_streamed": game_streamed}
+    # data parallel: row shards of the card, and two processes over gloo
+    parallel_paths = {"main_a_sharded": a_sharded, "main_a2_sharded": a2_sharded,
+                      "main_f_multihost": f_multi, "main_glm_multihost_cli": glm_multihost}
 
     # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS,
     # E projected and the GAME drivers (each path counted from 0 just before it ran)
@@ -2925,7 +3300,7 @@ def main() -> int:
             "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k],
             "main_e_projected": e_proj["launches"][k], "main_game_cli": cli["launches"][k],
             "main_game_cli_full": full["launches"][k],
-            **{path: rec["launches"][k] for path, rec in streamed_paths.items()}}
+            **{path: rec["launches"][k] for path, rec in {**streamed_paths, **parallel_paths}.items()}}
         for k in KERNEL_ROWS
     }
     kernels = [
@@ -2946,12 +3321,12 @@ def main() -> int:
                   "max_abs_err")
     kernels[1]["at_streamed_chunk_shape"] = {k: b_streamed["k2_at_chunk"][k] for k in chunk_keys
                                              if b_streamed["k2_at_chunk"].get(k) is not None}
-    k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over main_a2 and its streamed twin
+    k3_paths = {**streamed_paths, **parallel_paths}
+    k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over A2's paths and the rest
         dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW,
-             launches=sum(p[f"sparse_{direction}"] for p in (a2["launches"], *(r["launches"] for r in
-                                                                             streamed_paths.values()))),
+             launches=k3[direction] + sum(r["launches"][f"sparse_{direction}"] for r in k3_paths.values()),
              launches_by_path={"main_a2": k3[direction], **{path: r["launches"][f"sparse_{direction}"]
-                                                           for path, r in streamed_paths.items()}},
+                                                           for path, r in k3_paths.items()}},
              max_abs_err=k3_err[direction], ms=rec["ms"], plain_ms=rec["plain_ms"],
              bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
              at_streamed_chunk_shape={k: a2_streamed["k3_at_chunk"][direction][k] for k in (
@@ -2962,6 +3337,7 @@ def main() -> int:
     k4 = dict(k3_kernels[0], name="_tile_kernel (K4), closed by sparse_apply[matvec] (K3)",
               replaces=K4_REPLACES)
     kernels += k3_kernels + [k4]
+    emit("smoke_wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2972,4 +3348,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:  # one process of a multi-process phase
+        sys.exit(_child(sys.argv[2], int(sys.argv[3]), json.loads(sys.argv[4])))
     sys.exit(main())

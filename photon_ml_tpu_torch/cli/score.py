@@ -12,7 +12,7 @@ Usage:
         --model-dir out/ --data data/test --output-dir scores/ \\
         [--evaluators AUC "MULTI_AUC(userId)"] [--config config.json] [--device cpu]
 
-``--multihost`` (ROADMAP queue 1 item 12) and ``--profile-dir`` /
+``--multihost`` (ROADMAP queue 1 item 12b) and ``--profile-dir`` /
 ``--telemetry-dir`` (item 13) raise ``NotImplementedError``.
 """
 
@@ -51,7 +51,7 @@ def run(
     level above it) on ``device`` (CUDA unless the caller asks for another;
     raises without it). Returns (scores, metrics or None)."""
     if multihost:
-        raise not_ported("multi-host scoring (--multihost)", "12")
+        raise not_ported("multi-host scoring (--multihost)", "12b")
     if profile_dir is not None:
         raise not_ported("device traces (--profile-dir)", "13")
     dev = resolve_device(device)
@@ -153,7 +153,7 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--telemetry-dir", default=None,
                    help="the run's telemetry JSONL (ROADMAP queue 1 item 13; raises)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host scoring (ROADMAP queue 1 item 12; raises)")
+                   help="multi-host scoring (ROADMAP queue 1 item 12b; raises)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.telemetry_dir is not None:

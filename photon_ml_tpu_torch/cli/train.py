@@ -29,7 +29,7 @@ Usage:
         [--streaming-chunk-rows 1048576]
 
 Branches not ported yet raise ``NotImplementedError`` naming their ROADMAP
-queue 1 item: ``--multihost`` (12), ``--telemetry-dir`` and
+queue 1 item: ``--multihost`` (12b), ``--telemetry-dir`` and
 ``--profile-dir`` (13).
 """
 
@@ -78,7 +78,7 @@ def run(
     entry's ``GameModel``. Runs on ``device`` (CUDA unless the caller asks
     for another; raises without it)."""
     if multihost:
-        raise not_ported("multi-host GAME training (--multihost)", "12")
+        raise not_ported("multi-host GAME training (--multihost)", "12b")
     if profile_dir is not None:
         raise not_ported("device traces (--profile-dir)", "13")
     dev = resolve_device(device)
@@ -496,7 +496,7 @@ def _parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--index-maps", default=None, help="prebuilt index maps (directory of .npz)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (ROADMAP queue 1 item 12; raises)")
+                   help="multi-host training (ROADMAP queue 1 item 12b; raises)")
     p.add_argument("--streaming-chunk-rows", type=int, default=None,
                    help="out-of-core training: the dataset stays in host memory and streams through "
                         "the card in chunks of this many rows; selected by itself (2^20 rows) when "

@@ -18,9 +18,19 @@ statistics pass over every file gives the index maps and the widest row,
 the data are then read into uniform host chunks of N rows, and every
 objective evaluation streams them through the device (``ops/streaming.py``,
 host L-BFGS or TRON); the sweep checkpoints to ``checkpoints/`` and a rerun
-into the same output directory resumes it. ``--multihost``,
-``--profile-dir`` and ``--telemetry-dir`` are ROADMAP queue 1 items 12 and
-13, and raise.
+into the same output directory resumes it.
+
+``--multihost`` (with ``--streaming-chunk-rows`` only, as in the
+reference) trains one model over several processes: every process runs
+the same command with ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``
+and ``JAX_PROCESS_ID`` set, joins one gloo process group
+(``parallel/multihost.py``), builds the index maps from a statistics pass
+over all files, then chunks only its round-robin share of the part files
+(``host_shard_of_paths``). Each objective pass sums over the processes;
+validation files are read whole by every process, so the metrics agree.
+Only process 0 writes (models, report, summary, checkpoints, ``_stage``),
+and all processes meet at a closing barrier. ``--profile-dir`` and
+``--telemetry-dir`` are ROADMAP queue 1 item 13, and raise.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_glm \\
@@ -33,6 +43,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+
+import numpy as np
 
 from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.cli.common import not_ported
@@ -47,6 +59,14 @@ from photon_ml_tpu_torch.io.model_io import load_glm, save_glm
 from photon_ml_tpu_torch.io.results import write_feature_summary
 from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes as _hbm_budget_bytes
 from photon_ml_tpu_torch.ops.batch import optimize_batch_layout
+from photon_ml_tpu_torch.parallel.multihost import (
+    allreduce_max_host,
+    host_shard_of_paths,
+    initialize_multihost,
+    is_output_process,
+    shutdown_multihost,
+    sync_processes,
+)
 from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
 from photon_ml_tpu_torch.utils import PhotonLogger, timed
 from photon_ml_tpu_torch.types import (
@@ -82,8 +102,7 @@ def run(
     multihost: bool = False,
     profile_dir: str | None = None,
 ):
-    if multihost:
-        raise not_ported("multi-host GLM training (--multihost)", "12")
+    _check_multihost(multihost, streaming_chunk_rows)
     if profile_dir is not None:
         raise not_ported("device traces (--profile-dir)", "13")
     if data_format not in ("libsvm", "avro"):
@@ -122,6 +141,7 @@ def run(
             optimizer=optimizer, normalization=normalization,
             variance_computation=variance_computation, summarize_features=summarize_features,
             validate=validate, prior_model_path=prior_model_path, diagnostics=diagnostics,
+            multihost=multihost,
         )
 
     advance("INIT")
@@ -216,6 +236,15 @@ def run(
     return result
 
 
+def _check_multihost(multihost: bool, streaming_chunk_rows: int | None) -> None:
+    if multihost and streaming_chunk_rows is None:
+        raise ValueError(
+            "--multihost requires --streaming-chunk-rows (per-host sharded "
+            "ingest exists on the streaming path; in-memory multihost GLM "
+            "training goes through the GAME driver's --multihost)"
+        )
+
+
 def _expand_avro_paths(paths: list[str]) -> list[str]:
     """Directories as their sorted ``*.avro`` part files."""
     return [f for p in paths for f in list_avro_files(p)]
@@ -231,51 +260,70 @@ def _run_streamed(
     validate: DataValidationType = DataValidationType.VALIDATE_DISABLED,
     prior_model_path: str | None = None,
     diagnostics: bool = False,
+    multihost: bool = False,
 ):
     """The out-of-core branch: the data are read into uniform chunks that
     live in host memory and stream through the device on every optimizer
     evaluation. Avro only (a LIBSVM file fits in memory whenever its text
     does). The data are read twice: the statistics pass over all files,
-    then the chunk fill."""
+    then the chunk fill (of this process's files under ``multihost``)."""
     if data_format != "avro":
         raise ValueError("--streaming-chunk-rows requires --format avro")
     reader = AvroDataReader()
     sid = next(iter(reader.feature_shards))
     train_paths = _expand_avro_paths(train_data)
+    local_paths = train_paths
+    if multihost:
+        local_paths = host_shard_of_paths(train_paths)
+        logger.info(f"this process reads {len(local_paths)}/{len(train_paths)} files")
+    writer = is_output_process()
 
-    advance("INIT")
+    def advance_once(stage: str) -> None:
+        if writer:
+            advance(stage)
+
+    advance_once("INIT")
     with timed(logger, "index maps (streaming pass, all files)"):
         index_maps, max_nnz = reader.streaming_ingest_stats(train_paths)
     imap = index_maps[sid]
     with timed(logger, "chunk training data"):
-        chunks = list(reader.iter_batch_chunks(train_paths, sid, chunk_rows, index_maps,
-                                               max_nnz=max_nnz[sid]))
+        chunks = list(reader.iter_batch_chunks(local_paths, sid, chunk_rows, index_maps,
+                                               max_nnz=max_nnz[sid])) if local_paths else []
     logger.info(f"{len(chunks)} training chunks of {chunk_rows} rows")
 
     if validate is not DataValidationType.VALIDATE_DISABLED:
         with timed(logger, "validate data (streamed, per chunk)"):
             # FULL checks every chunk; SAMPLE thins the rows inside each
             # chunk (seeded by the chunk's number)
+            failure = None
             for ci, chunk in enumerate(chunks):
                 try:
                     validate_arrays(task, chunk["labels"], chunk.get("X", chunk.get("values")),
                                     offsets=chunk.get("offsets"), weights=chunk.get("weights"),
                                     mode=validate, seed=ci)
                 except DataValidationError as e:
-                    raise DataValidationError(
-                        f"chunk {ci} (rows {ci * chunk_rows}..{ci * chunk_rows + len(chunk['labels'])}"
-                        f" of the stream): {e}"
-                    ) from None
+                    failure = (f"chunk {ci} (rows {ci * chunk_rows}..{ci * chunk_rows + len(chunk['labels'])}"
+                               f" of this process's stream): {e}")
+                    break
+            if multihost:
+                # every process learns of a failure before any raises: one
+                # raising alone would leave the others waiting in a collective
+                failed_anywhere = allreduce_max_host(np.asarray([float(failure is not None)]))
+                if float(failed_anywhere[0]) > 0 and failure is None:
+                    failure = "validation failed on another process"
+            if failure is not None:
+                raise DataValidationError(failure)
 
     norm_context = None
     if summarize_features or normalization is not NormalizationType.NONE:
         with timed(logger, "summarize features (streamed)"):
-            summary = summarize_chunks(chunks, num_features=imap.size)
-        if summarize_features:
+            # cross-process: every process gets the global statistics
+            summary = summarize_chunks(chunks, num_features=imap.size, cross_process=multihost)
+        if summarize_features and writer:
             write_feature_summary(os.path.join(output_dir, "summary", "part-00000.avro"), summary, imap)
         if normalization is not NormalizationType.NONE:
             norm_context = summary.normalization(normalization, imap.intercept_index, device=dev)
-    advance("PROCESSED")
+    advance_once("PROCESSED")
 
     val_chunks = None
     if validation_data:
@@ -306,31 +354,34 @@ def _run_streamed(
             checkpoint_dir=os.path.join(output_dir, "checkpoints"),
             normalization=norm_context,
             variance_computation=variance_computation,
+            cross_process=multihost,
             device=dev,
         )
-    advance("TRAINED")
+    advance_once("TRAINED")
 
-    with timed(logger, "write models"):
-        for lam, model in result.models.items():
-            save_glm(
-                model, os.path.join(output_dir, "models", f"lambda-{lam:g}", "model.avro"),
-                index_map=imap, model_id=f"lambda-{lam:g}",
-            )
-        save_glm(result.best_model, os.path.join(output_dir, "best", "model.avro"), index_map=imap,
-                 model_id="best")
-    report = {
-        "task": task.value,
-        "streaming_chunk_rows": chunk_rows,
-        "weights": sorted(float(w) for w in weights),
-        "best_weight": result.best_weight,
-        "validation": {str(lam): dict(ev.metrics) for lam, ev in result.validation.items()},
-    }
-    with open(os.path.join(output_dir, "report.json"), "w") as f:
-        json.dump(report, f, indent=2)
-    if diagnostics:
-        with timed(logger, "write diagnostics"):
-            write_report(glm_sweep_diagnostics(result, index_map=imap, task=task), output_dir)
-    advance("VALIDATED")
+    if writer:
+        with timed(logger, "write models"):
+            for lam, model in result.models.items():
+                save_glm(
+                    model, os.path.join(output_dir, "models", f"lambda-{lam:g}", "model.avro"),
+                    index_map=imap, model_id=f"lambda-{lam:g}",
+                )
+            save_glm(result.best_model, os.path.join(output_dir, "best", "model.avro"), index_map=imap,
+                     model_id="best")
+        report = {
+            "task": task.value,
+            "streaming_chunk_rows": chunk_rows,
+            "weights": sorted(float(w) for w in weights),
+            "best_weight": result.best_weight,
+            "validation": {str(lam): dict(ev.metrics) for lam, ev in result.validation.items()},
+        }
+        with open(os.path.join(output_dir, "report.json"), "w") as f:
+            json.dump(report, f, indent=2)
+        if diagnostics:
+            with timed(logger, "write diagnostics"):
+                write_report(glm_sweep_diagnostics(result, index_map=imap, task=task), output_dir)
+        advance("VALIDATED")
+    sync_processes("train-glm-outputs-written")
     return result
 
 
@@ -375,7 +426,9 @@ def main(argv: list[str] | None = None) -> None:
                    help="out of core (Avro): stream the data through the device in uniform chunks "
                         "of this many rows, held in host memory")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (ROADMAP queue 1 item 12; raises)")
+                   help="train over several processes (with --streaming-chunk-rows): run the same "
+                        "command in each with JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and "
+                        "JAX_PROCESS_ID set; each reads its share of the part files")
     p.add_argument("--profile-dir", default=None,
                    help="device traces (ROADMAP queue 1 item 13; raises)")
     p.add_argument("--telemetry-dir", default=None,
@@ -385,6 +438,16 @@ def main(argv: list[str] | None = None) -> None:
     args = p.parse_args(argv)
     if args.telemetry_dir is not None:
         raise not_ported("run telemetry (--telemetry-dir)", "13")
+    if args.multihost:
+        _check_multihost(True, args.streaming_chunk_rows)
+        initialize_multihost()
+    try:
+        _run_main(args)
+    finally:
+        shutdown_multihost()
+
+
+def _run_main(args) -> None:
     run(
         TaskType(args.task),
         args.train_data,

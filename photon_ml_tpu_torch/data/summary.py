@@ -98,12 +98,11 @@ def summarize_chunks(chunks, num_features: int, cross_process: bool = False) -> 
     weighted statistics in float64 numpy with O(d) accumulators, one chunk
     at a time. The same semantics: implicit zeros take part in the moments
     and in min / max, zero-weight padding rows are inert, and duplicate
-    (row, column) entries add up before squaring. ``cross_process`` (a
-    summary over every process's chunks) is ROADMAP queue 1 item 12."""
-    if cross_process:
-        raise NotImplementedError(
-            "summarizing chunks across processes waits for ROADMAP queue 1 item 12 (multi-GPU)"
-        )
+    (row, column) entries add up before squaring. ``cross_process`` makes
+    the summary global: each process summarizes its own chunks (none is
+    allowed), the sums meet in ``allreduce_sum_host`` and the extremes in
+    ``allreduce_max_host`` (``parallel/multihost.py``), and every process
+    gets the same statistics. Every process must call it then."""
     d = num_features
     w_total = 0.0
     n_active = 0
@@ -155,6 +154,18 @@ def summarize_chunks(chunks, num_features: int, cross_process: bool = False) -> 
                 np.maximum.at(vmax, ucols[a], summed[a])
                 np.add.at(nnz, ucols[a], (summed[a] != 0).astype(np.int64))
                 np.add.at(n_present, ucols[a], 1)
+
+    if cross_process:
+        from photon_ml_tpu_torch.parallel.multihost import allreduce_max_host, allreduce_sum_host
+
+        w_sum, n_sum, s1, s2, nnz_f, present_f = allreduce_sum_host(
+            np.asarray([w_total]), np.asarray([float(n_active)]), s1, s2,
+            nnz.astype(np.float64), n_present.astype(np.float64),
+        )
+        w_total, n_active = float(w_sum[0]), int(n_sum[0])
+        nnz, n_present = nnz_f.astype(np.int64), present_f.astype(np.int64)
+        vmax, neg_vmin = allreduce_max_host(vmax, -vmin)
+        vmin = -neg_vmin
 
     if w_total <= 0:
         raise ValueError("summarize: total sample weight is zero")

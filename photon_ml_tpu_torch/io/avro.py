@@ -13,7 +13,9 @@ schema. Files interchange with the JAX package and with any Avro tooling.
 The reference walks the schema dict for every value it reads or writes.
 Here a schema is compiled once per file into one closure per node, which
 does the same work with fewer dictionary lookups; the bytes are the same.
-A faster columnar decoder is ROADMAP queue 1 item 15.
+The readers' default path is the columnar C++ decoder of
+``io/native_ingest.py`` (``native/avro_ingest.cc``); this codec is its
+plain version and the writer.
 """
 
 from __future__ import annotations

@@ -188,6 +188,30 @@ def optimize_batch_layout(
     return out
 
 
+def pad_batch(batch: DenseBatch | SparseBatch, target_rows: int) -> DenseBatch | SparseBatch:
+    """``batch`` grown to ``target_rows`` rows by zero rows of weight 0,
+    inert in every contract (the row count of a sharded batch must divide
+    the number of shards). The batch itself when it has that many rows."""
+    n = batch.num_rows
+    if n == target_rows:
+        return batch
+    if n > target_rows:
+        raise ValueError(f"batch has {n} rows > target {target_rows}")
+    pad = target_rows - n
+
+    def grow(a: Tensor) -> Tensor:
+        return torch.cat([a, torch.zeros((pad,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)])
+
+    if isinstance(batch, DenseBatch):
+        return DenseBatch(X=grow(batch.X), labels=grow(batch.labels), offsets=grow(batch.offsets),
+                          weights=grow(batch.weights))
+    if isinstance(batch, SparseBatch):
+        return SparseBatch(indices=grow(batch.indices), values=grow(batch.values), labels=grow(batch.labels),
+                           offsets=grow(batch.offsets), weights=grow(batch.weights),
+                           num_features=batch.num_features)
+    raise TypeError(f"pad_batch takes a DenseBatch or a SparseBatch, not {type(batch).__name__}")
+
+
 def dense_batch_from_arrays(
     X: np.ndarray,
     labels: np.ndarray,

@@ -11,7 +11,12 @@ versions. Every other contract, and the unfused branch, is plain torch with
 ``torch.matmul`` for X@u and Xᵀr (the reference leaves those to XLA); on a
 ``TiledSparseBatch`` the batch's ``matvec`` / ``rmatvec`` / ``rmatvec_sq``
 run the sparse kernel K3 (``ops/sparse_tiled.py``).
-The multi-device reduction (``axis_name``) waits for the multi-GPU slice.
+
+Each contract is the data's partial sums (the ``*_partials`` methods)
+finished by the normalization and the regularizer (the ``_finish_*``
+methods). The reference's cross-device ``psum`` (``axis_name``) sits
+between the two; here ``parallel/distributed.py``'s ``ShardedGLMObjective``
+sums the shards' partials and finishes once.
 """
 
 from __future__ import annotations
@@ -113,9 +118,13 @@ class GLMObjective:
         margins-and-gradient pass at acceptance (three)."""
         return self.fused or isinstance(self.batch, TiledSparseBatch)
 
-    def value(self, w: Tensor) -> Tensor:
+    def value_partial(self, w: Tensor) -> Tensor:
+        """Σ weight·loss over the batch's rows (no regularizer)."""
         m = self.margins(w)
-        return torch.sum(self._weighted(self.loss.value(m, self.batch.labels))) + self._l2_term(w)
+        return torch.sum(self._weighted(self.loss.value(m, self.batch.labels)))
+
+    def value(self, w: Tensor) -> Tensor:
+        return self.value_partial(w) + self._l2_term(w)
 
     # -- margin-state API ------------------------------------------------------
     def direction_margins(self, p: Tensor) -> Tensor:
@@ -129,33 +138,45 @@ class GLMObjective:
         )
         return val + self._l2_term(w), g
 
-    def value_and_grad_from_margins(self, m: Tensor, w: Tensor) -> tuple[Tensor, Tensor]:
+    def value_and_grad_partials_from_margins(self, m: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+        """(Σ weight·loss, Xᵀr, Σr) with r = weight·l'(m, y)."""
         lv = self.loss.value(m, self.batch.labels)
         r = self._weighted(self.loss.d1(m, self.batch.labels))
-        return self._finish_grad(
-            torch.sum(self._weighted(lv)), self.batch.rmatvec(r), torch.sum(r), w
-        )
+        return torch.sum(self._weighted(lv)), self.batch.rmatvec(r), torch.sum(r)
 
-    def hessian_from_margins(self, m: Tensor, w: Tensor) -> Tensor:
+    def value_and_grad_from_margins(self, m: Tensor, w: Tensor) -> tuple[Tensor, Tensor]:
+        return self._finish_grad(*self.value_and_grad_partials_from_margins(m), w)
+
+    def hessian_partial_from_margins(self, m: Tensor) -> Tensor:
+        """Zᵀ diag(weight·l'') Z over the batch's rows (Z the normalized
+        design; dense batches only)."""
         if not isinstance(self.batch, DenseBatch):
             raise NotImplementedError(FULL_HESSIAN_NEEDS_DENSE)
         d2 = self._weighted(self.loss.d2(m, self.batch.labels))
         Z = (self.batch.X.float() - self.norm.shifts) * self.norm.factors
-        h = Z.T @ (d2[:, None] * Z)
+        return Z.T @ (d2[:, None] * Z)
+
+    def _finish_hessian(self, h: Tensor) -> Tensor:
         return h + torch.diag(
             self.l2_weight * self.reg_mask * self._reg_curvature(self.reg_mask)
         )
+
+    def hessian_from_margins(self, m: Tensor, w: Tensor) -> Tensor:
+        return self._finish_hessian(self.hessian_partial_from_margins(m))
 
     def ray_values_from_margins(
         self, m: Tensor, dm: Tensor, w: Tensor, p: Tensor, ts: Tensor
     ) -> Tensor:
         """Objective at w + t·p for every t in ``ts`` from stored margins —
         no matvec at all."""
+        return self.ray_partials_from_margins(m, dm, ts) + self._reg_ray(w, p, ts)
+
+    def ray_partials_from_margins(self, m: Tensor, dm: Tensor, ts: Tensor) -> Tensor:
+        """(len(ts),): Σ weight·loss at margins m + t·dm for each t."""
         y = self.batch.labels
-        data = torch.stack(
+        return torch.stack(
             [torch.sum(self._weighted(self.loss.value(m + t * dm, y))) for t in ts]
         )
-        return data + self._reg_ray(w, p, ts)
 
     def _reg_ray(self, w: Tensor, p: Tensor, ts: Tensor) -> Tensor:
         delta = w if self.prior_mean is None else w - self.prior_mean
@@ -180,47 +201,62 @@ class GLMObjective:
             None if self.weights_one else b.weights,
         )
 
-    def value_and_grad(self, w: Tensor) -> tuple[Tensor, Tensor]:
+    def value_and_grad_partials(self, w: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+        """(Σ weight·loss, Xᵀr, Σr) at w: one K1 launch when fused."""
         if not (self.fused and isinstance(self.batch, DenseBatch)):
-            return self.value_and_grad_from_margins(self.margins(w), w)
+            return self.value_and_grad_partials_from_margins(self.margins(w))
         u, c = self.norm.to_effective(w)
         offsets, weights = self._aux()
-        val, g_raw, r_sum = fused_value_grad(
+        return fused_value_grad(
             self.batch.X, self.batch.labels, offsets, weights, u, c, loss=self.loss
         )
-        return self._finish_grad(val, g_raw, r_sum, w)
+
+    def value_and_grad(self, w: Tensor) -> tuple[Tensor, Tensor]:
+        return self._finish_grad(*self.value_and_grad_partials(w), w)
 
     def grad(self, w: Tensor) -> Tensor:
         return self.value_and_grad(w)[1]
 
-    def hvp(self, w: Tensor, v: Tensor) -> Tensor:
-        """Gauss-Newton H·v = AᵀDA·v + λ₂·v (A the normalized design, D =
-        diag(weight·d2)); TRON's CG inner step."""
+    def hvp_partials(self, w: Tensor, v: Tensor) -> tuple[Tensor, Tensor]:
+        """(Xᵀq, Σq) with q = weight·l''·(X·v_eff − cv): one K2 launch when
+        fused."""
         v_eff = self.norm.factors * v
         cv = torch.dot(self.norm.shifts, v_eff)
         if self.fused and isinstance(self.batch, DenseBatch):
             u, c = self.norm.to_effective(w)
             offsets, weights = self._aux()
-            hv_raw, q_sum = fused_hvp(
+            return fused_hvp(
                 self.batch.X, self.batch.labels, offsets, weights, u, v_eff, c, cv,
                 loss=self.loss,
             )
-        else:
-            m = self.margins(w)
-            d2 = self._weighted(self.loss.d2(m, self.batch.labels))
-            q = d2 * (self.batch.matvec(v_eff) - cv)
-            hv_raw, q_sum = self.batch.rmatvec(q), torch.sum(q)
+        m = self.margins(w)
+        d2 = self._weighted(self.loss.d2(m, self.batch.labels))
+        q = d2 * (self.batch.matvec(v_eff) - cv)
+        return self.batch.rmatvec(q), torch.sum(q)
+
+    def _finish_hvp(self, hv_raw: Tensor, q_sum: Tensor, v: Tensor) -> Tensor:
         hv = self.norm.grad_to_model_space(hv_raw, q_sum)
         return hv + self.l2_weight * self.reg_mask * self._reg_curvature(v) * v
 
-    def hessian_diag(self, w: Tensor) -> Tensor:
-        """diag(H) = f² [Σ d2 x² − 2 s Σ d2 x + s² Σ d2] + λ₂·mask."""
+    def hvp(self, w: Tensor, v: Tensor) -> Tensor:
+        """Gauss-Newton H·v = AᵀDA·v + λ₂·v (A the normalized design, D =
+        diag(weight·d2)); TRON's CG inner step."""
+        return self._finish_hvp(*self.hvp_partials(w, v), v)
+
+    def hessian_diag_partials(self, w: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+        """(Σ d2 x², Σ d2 x, Σ d2) with d2 = weight·l''."""
         m = self.margins(w)
         d2 = self._weighted(self.loss.d2(m, self.batch.labels))
-        sq, lin, tot = self.batch.rmatvec_sq(d2), self.batch.rmatvec(d2), torch.sum(d2)
+        return self.batch.rmatvec_sq(d2), self.batch.rmatvec(d2), torch.sum(d2)
+
+    def _finish_hessian_diag(self, sq: Tensor, lin: Tensor, tot: Tensor) -> Tensor:
         f, s = self.norm.factors, self.norm.shifts
         diag = f * f * (sq - 2.0 * s * lin + s * s * tot)
         return diag + self.l2_weight * self.reg_mask * self._reg_curvature(diag)
+
+    def hessian_diag(self, w: Tensor) -> Tensor:
+        """diag(H) = f² [Σ d2 x² − 2 s Σ d2 x + s² Σ d2] + λ₂·mask."""
+        return self._finish_hessian_diag(*self.hessian_diag_partials(w))
 
     def hessian(self, w: Tensor) -> Tensor:
         """Full (d, d) Hessian (dense batches only)."""

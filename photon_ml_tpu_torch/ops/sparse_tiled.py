@@ -306,6 +306,32 @@ def tile_sparse_batch(batch) -> TiledSparseBatch:
     )
 
 
+def tile_sparse_batch_sharded(batch, num_shards: int, devices=None) -> tuple[list[TiledSparseBatch], int]:
+    """One ``TiledSparseBatch`` per row shard (the reference's
+    ``tile_sparse_batch_sharded``): the rows pad with zero-weight rows to a
+    multiple of ``num_shards`` and split into contiguous shards of equal
+    count, and shard i is moved to ``devices[i]`` (the batch's own device
+    when None) and tiled there, so each shard runs K3 on its own layouts.
+    The reference stacks its shards' tiles on a leading device axis for
+    ``shard_map``; here each shard's layouts are a batch of their own.
+    Returns (shards, rows per shard)."""
+    from photon_ml_tpu_torch.ops.batch import SparseBatch, pad_batch
+
+    rows = -(-batch.num_rows // num_shards)
+    padded = pad_batch(batch, rows * num_shards)
+    devs = [batch.device] * num_shards if devices is None else [torch.device(d) for d in devices]
+    shards = []
+    for i, dev in enumerate(devs):
+        part = slice(i * rows, (i + 1) * rows)
+        shard = SparseBatch(
+            indices=padded.indices[part].to(dev), values=padded.values[part].to(dev),
+            labels=padded.labels[part].to(dev), offsets=padded.offsets[part].to(dev),
+            weights=padded.weights[part].to(dev), num_features=padded.num_features,
+        )
+        shards.append(tile_sparse_batch(shard))
+    return shards, rows
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------

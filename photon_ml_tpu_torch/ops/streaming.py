@@ -26,8 +26,11 @@ The optimizers over these objectives are the host loops of
 value-and-gradient evaluation, plus one per CG step for TRON.
 ``fits_in_memory`` is the rule between them and the in-memory solvers.
 
-Summing over processes (``cross_process``) and feature-range sharding
-(``PHOTON_FE_SHARD``) are ROADMAP queue 1 item 12.
+With ``cross_process`` every process streams its own chunks (none is
+allowed) and each pass's sums, read back in float64, meet in
+``allreduce_sum_host`` (``parallel/multihost.py``) before the regularizer
+is added, so every process holds the same value and gradient.
+Feature-range sharding (``PHOTON_FE_SHARD``) is ROADMAP queue 1 item 12d.
 """
 
 from __future__ import annotations
@@ -55,8 +58,10 @@ Tensor = torch.Tensor
 _TILED_STREAM_KEYS = ("labels", "offsets", "weights")
 
 
-def _waits_for_item_12(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for ROADMAP queue 1 item 12 (multi-GPU)")
+def _fe_shard_waits() -> NotImplementedError:
+    return NotImplementedError(
+        "feature-range sharding (PHOTON_FE_SHARD) waits for ROADMAP queue 1 item 12d (multi-GPU)"
+    )
 
 
 def chunk_batch(batch_arrays: dict, chunk_rows: int) -> list[dict]:
@@ -169,6 +174,9 @@ class StreamingGLMObjective:
     ``hessian`` contracts of ``GLMObjective``, each one streamed pass, so
     the host solvers take it directly. ``prior_mean`` / ``prior_precision``
     (the solver's space) make the regularizer 0.5·λ₂·Σ maskⱼ·precⱼ·(wⱼ−μⱼ)².
+    ``cross_process`` sums every pass over all processes (each holding its
+    own chunks, possibly none); every process must then evaluate the same
+    contracts in the same order.
     ``tile_sparse=None`` tiles sparse chunks by ``auto_tile_streaming``;
     the layouts are built once from the first chunks, and a later
     ``chunks`` swap may change labels, offsets or weights but nothing else
@@ -194,13 +202,11 @@ class StreamingGLMObjective:
     FULL_HESSIAN_MAX_D = 8192
 
     def __post_init__(self):
-        if self.cross_process:
-            raise _waits_for_item_12("summing streamed objectives over processes (cross_process)")
         sparse = bool(self.chunks) and "indices" in self.chunks[0]
         env = os.environ.get("PHOTON_FE_SHARD")
         if self.fe_shard or (self.fe_shard is None and sparse and env not in (None, "", "0")):
-            raise _waits_for_item_12("feature-range sharding (PHOTON_FE_SHARD)")
-        if not self.chunks:
+            raise _fe_shard_waits()
+        if not self.chunks and not self.cross_process:
             raise ValueError("streaming objective needs at least one chunk")
         dev = resolve_device(self.device)
         self.device = dev
@@ -307,6 +313,19 @@ class StreamingGLMObjective:
             acc = accumulate(acc, kernel(self._chunk_objective(b)))
         return acc
 
+    def _across_processes(self, *sums: Tensor) -> tuple[Tensor, ...]:
+        """This process's pass sums summed over all processes when
+        ``cross_process`` (read back in float64, summed in rank order,
+        rounded once to float32 on the device); unchanged otherwise."""
+        if not self.cross_process:
+            return sums
+        from photon_ml_tpu_torch.parallel.multihost import allreduce_sum_host
+
+        host = [t.detach().to(torch.float64).cpu().numpy() for t in sums]
+        total = allreduce_sum_host(*host)
+        total = total if len(sums) > 1 else (total,)
+        return tuple(torch.as_tensor(np.asarray(t), dtype=torch.float32, device=self.device) for t in total)
+
     # -- the regularizer, once after the stream -----------------------------------
     def _l2_term(self, w: Tensor) -> Tensor:
         return reg_term(w, float(self.l2_weight), self.reg_mask, self.prior_mean, self.prior_precision)
@@ -318,6 +337,7 @@ class StreamingGLMObjective:
     def value(self, w) -> Tensor:
         w = self._w(w)
         total = self._stream(lambda o: o.value(w), lambda acc, v: acc + v, self._zero)
+        (total,) = self._across_processes(total)
         return total + self._l2_term(w)
 
     def value_and_grad(self, w) -> tuple[Tensor, Tensor]:
@@ -325,6 +345,7 @@ class StreamingGLMObjective:
         init = (self._zero, torch.zeros(self.num_features, dtype=torch.float32, device=self.device))
         v, g = self._stream(lambda o: o.value_and_grad(w),
                             lambda acc, out: (acc[0] + out[0], acc[1] + out[1]), init)
+        v, g = self._across_processes(v, g)
         g = g + float(self.l2_weight) * self.reg_mask * reg_delta(w, self.prior_mean, self.prior_precision)
         return v + self._l2_term(w), g
 
@@ -333,6 +354,7 @@ class StreamingGLMObjective:
         w, v = self._w(w), self._w(v)
         init = torch.zeros(self.num_features, dtype=torch.float32, device=self.device)
         hv = self._stream(lambda o: o.hvp(w, v), lambda acc, out: acc + out, init)
+        (hv,) = self._across_processes(hv)
         return hv + float(self.l2_weight) * self.reg_mask * reg_curvature(
             v, self.prior_mean, self.prior_precision) * v
 
@@ -341,6 +363,7 @@ class StreamingGLMObjective:
         w = self._w(w)
         init = torch.zeros(self.num_features, dtype=torch.float32, device=self.device)
         diag = self._stream(lambda o: o.hessian_diag(w), lambda acc, out: acc + out, init)
+        (diag,) = self._across_processes(diag)
         return diag + float(self.l2_weight) * self.reg_mask * reg_curvature(
             diag, self.prior_mean, self.prior_precision)
 
@@ -369,14 +392,19 @@ class StreamingGLMObjective:
             return o.hessian(w)
 
         h = self._stream(chunk_hessian, lambda acc, out: acc + out, init)
+        (h,) = self._across_processes(h)
         return h + torch.diag(float(self.l2_weight) * self.reg_mask * reg_curvature(
             self.reg_mask, self.prior_mean, self.prior_precision))
 
     def stream_scores(self, w, num_rows: int) -> np.ndarray:
         """Margins X·w (no offsets) over this objective's chunks, trimmed to
-        ``num_rows``, through the layouts the solve used when it has them."""
+        ``num_rows``, through the layouts the solve used when it has them.
+        Under ``cross_process`` the rows are this process's own, as in the
+        reference: scoring rows needs no collective."""
         w = self._w(w)
         outs = [b.matvec(w) for b in self._batches()]
+        if not outs:
+            return np.zeros(num_rows, np.float32)
         return torch.cat(outs).cpu().numpy()[:num_rows]
 
 
@@ -416,7 +444,7 @@ def stream_scores(chunks: Sequence[dict], w, num_rows: int, num_features: int | 
     sparse = "indices" in chunks[0]
     env = os.environ.get("PHOTON_FE_SHARD")
     if sparse and num_features is not None and env not in (None, "", "0"):
-        raise _waits_for_item_12("feature-range sharding (PHOTON_FE_SHARD)")
+        raise _fe_shard_waits()
     tiled = sparse and (tile_sparse if tile_sparse is not None
                         else auto_tile_streaming(sparse, num_features, dev))
     w = torch.as_tensor(w, dtype=torch.float32, device=dev)

@@ -28,6 +28,7 @@ from photon_ml_tpu_torch.ops.batch import Batch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_objective
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optim.common import OptimizationResult, select_minimize_fn
+from photon_ml_tpu_torch.parallel.multihost import broadcast_from_host0, is_output_process, process_count
 from photon_ml_tpu_torch.types import RegularizationType, TaskType, VarianceComputationType
 
 
@@ -189,7 +190,13 @@ class _StreamedSweepCheckpoint:
     (task, geometry, optimizer, regularization, normalization, prior and a
     digest of the data), so either package resumes the other's sweep where
     the digest agrees. A changed setup retrains; a corrupt or foreign file
-    is ignored, never fatal."""
+    is ignored, never fatal.
+
+    Across processes only the output process reads and writes the files;
+    ``sync_across_processes`` then gives every process its view, so all
+    take the same branch of the λ loop and their collectives stay
+    matched (each process's own chunks would give it another
+    fingerprint)."""
 
     def __init__(self, directory, task, chunks, num_features, opt_config, reg,
                  normalization=None, prior=None):
@@ -221,6 +228,8 @@ class _StreamedSweepCheckpoint:
         ).hexdigest()
         self._completed: dict[str, np.ndarray] = {}
         self._partial: tuple[float, np.ndarray] | None = None
+        if not is_output_process():
+            return
         done = self._load(self.done_path)
         if done is not None:
             z, _ = done
@@ -230,6 +239,34 @@ class _StreamedSweepCheckpoint:
             z, meta = partial
             if "w" in z.files and meta.get("lam") is not None:
                 self._partial = (float(meta["lam"]), z["w"])
+
+    def sync_across_processes(self) -> None:
+        """Every process adopts process 0's view of the checkpoint, in two
+        broadcasts: the counts and width first, then the arrays, all in
+        float64 (the stored dtype varies: float32 from the solver, float64
+        from a resume). A no-op on one process."""
+        if process_count() <= 1:
+            return
+        width = next((len(v) for v in self._completed.values()), None)
+        if width is None and self._partial is not None:
+            width = len(self._partial[1])
+        counts = broadcast_from_host0(np.asarray(
+            [len(self._completed), int(self._partial is not None), width or 0], np.int64))
+        k, has_partial, width = (int(c) for c in counts)
+        if k == 0 and not has_partial:
+            self._completed, self._partial = {}, None
+            return
+        if is_output_process():
+            lams = np.asarray([float(key) for key in self._completed], np.float64)
+            W = (np.stack([np.asarray(v, np.float64) for v in self._completed.values()]) if k
+                 else np.zeros((0, width)))
+            plam = np.asarray([self._partial[0] if has_partial else 0.0], np.float64)
+            pw = np.asarray(self._partial[1], np.float64) if has_partial else np.zeros(width)
+        else:
+            lams, W, plam, pw = np.zeros(k), np.zeros((k, width)), np.zeros(1), np.zeros(width)
+        lams, W, plam, pw = broadcast_from_host0((lams, W, plam, pw))
+        self._completed = {repr(float(lams[i])): np.asarray(W[i]) for i in range(k)}
+        self._partial = (float(plam[0]), np.asarray(pw)) if has_partial else None
 
     def _load(self, path):
         """(npz, meta) when ``path`` is a checkpoint of this sweep, else None."""
@@ -261,12 +298,15 @@ class _StreamedSweepCheckpoint:
         self._completed[repr(float(lam))] = np.asarray(w)
         self._partial = None
         self._write(self.done_path, {f"done__{k}": v for k, v in self._completed.items()}, {})
-        try:
-            os.remove(self.partial_path)
-        except OSError:
-            pass
+        if is_output_process():
+            try:
+                os.remove(self.partial_path)
+            except OSError:
+                pass
 
     def _write(self, path: str, arrays: dict, extra_meta: dict) -> None:
+        if not is_output_process():
+            return  # one writer across processes
         os.makedirs(self.directory, exist_ok=True)
         arrays = dict(arrays)
         arrays["__meta__"] = np.frombuffer(
@@ -310,8 +350,10 @@ def train_glm_streamed(
     ``FULL_HESSIAN_MAX_D``). ``incremental=True`` makes ``initial_model``
     a Gaussian MAP prior. ``checkpoint_dir`` makes the sweep resumable:
     completed λs load, and an interrupted λ restarts from its last saved
-    iterate with a fresh history. ``cross_process`` is ROADMAP queue 1
-    item 12."""
+    iterate with a fresh history. ``cross_process`` trains over every
+    process's chunks (this process's may be none): each pass's sums meet
+    in ``allreduce_sum_host``, only process 0 reads and writes the
+    checkpoint, and every process adopts its view before the λ loop."""
     from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, stream_scores
 
     dev = resolve_device(device)
@@ -382,6 +424,8 @@ def train_glm_streamed(
                                  regularization, normalization=normalization, prior=prior)
         if checkpoint_dir is not None else None
     )
+    if ckpt is not None and cross_process:
+        ckpt.sync_across_processes()
     # one objective for the sweep (λ is applied outside the stream); FULL
     # keeps the raw chunks, which its densified Hessian pass needs
     sobj = StreamingGLMObjective(

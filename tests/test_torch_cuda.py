@@ -689,3 +689,135 @@ def test_streamed_game_fit_on_the_card_matches_the_cpu(dev, solver):
                                cm["fixed"].model.coefficients.means.numpy(), rtol=1e-3, atol=2e-4)
     np.testing.assert_allclose(gm["user"].coefficients.cpu().numpy(), cm["user"].coefficients.numpy(),
                                rtol=1e-2, atol=2e-3)
+
+
+def test_sharded_objective_on_several_shards_of_one_card(dev, monkeypatch):
+    """Four row shards on one card: K1 once per shard a value-and-gradient
+    pass and K2 once per shard a Hessian-vector pass (the padding rows read
+    weight 0), the contracts against the same shards on the CPU (the
+    kernels' plain versions) and the unsharded objective on the card; then
+    the sparse branch with one K3 layout per shard, once per shard and
+    direction."""
+    from photon_ml_tpu_torch.config import OptimizerConfig
+    from photon_ml_tpu_torch.convert import dense_batch_from_numpy, sparse_batch_from_numpy
+    from photon_ml_tpu_torch.ops import streaming
+    from photon_ml_tpu_torch.ops.glm import make_objective
+    from photon_ml_tpu_torch.optim import lbfgs_minimize
+    from photon_ml_tpu_torch.parallel import data_mesh, sharded_objective
+
+    rng = np.random.default_rng(3)
+    n, d = 5003, 64
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    mesh = data_mesh(4, devices=[dev])
+    on_card = dense_batch_from_numpy(X, y, device=dev)
+    obj = sharded_objective(on_card, mesh, LOSSES["logistic"], l2_weight=0.5)
+    cpu = sharded_objective(dense_batch_from_numpy(X, y, device="cpu"), data_mesh(4, devices=["cpu"]),
+                            LOSSES["logistic"], l2_weight=0.5, fused=True)
+    assert obj.fused and all(not o.weights_one for o in obj.shards)
+    w = torch.as_tensor((0.1 * rng.normal(size=d)).astype(np.float32), device=dev)
+    fused.reset_launch_counts()
+    f, g = obj.value_and_grad(w)
+    hv = obj.hvp(w, w)
+    assert fused.launch_counts == {"fused_value_grad": 4, "fused_hvp": 4}
+    fc, gc = cpu.value_and_grad(w.cpu())
+    np.testing.assert_allclose(float(f), float(fc), rtol=1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), gc.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(hv.cpu().numpy(), cpu.hvp(w.cpu(), w.cpu()).numpy(), rtol=1e-4, atol=1e-4)
+    cfg = OptimizerConfig(max_iterations=20, tolerance=0.0)
+    res = lbfgs_minimize(obj, torch.zeros(d, device=dev), cfg)
+    one = lbfgs_minimize(make_objective(on_card, LOSSES["logistic"], l2_weight=0.5, device=dev),
+                         torch.zeros(d, device=dev), cfg)
+    np.testing.assert_allclose(res.w.cpu().numpy(), one.w.cpu().numpy(), rtol=1e-3, atol=1e-4)
+
+    monkeypatch.setattr(streaming, "device_hbm_budget_bytes", lambda *a, **k: 1.0)
+    idx = rng.integers(0, 8192, size=(4096, 6))
+    val = rng.normal(size=(4096, 6)).astype(np.float32)
+    ys = (rng.uniform(size=4096) < 0.5).astype(np.float32)
+    sobj = sharded_objective(sparse_batch_from_numpy(idx, val, ys, num_features=8192, device=dev), mesh,
+                             LOSSES["logistic"], l2_weight=0.5)
+    scpu = sharded_objective(sparse_batch_from_numpy(idx, val, ys, num_features=8192, device="cpu"),
+                             data_mesh(4, devices=["cpu"]), LOSSES["logistic"], l2_weight=0.5)
+    assert all(isinstance(o.batch, st.TiledSparseBatch) for o in sobj.shards)
+    ws = torch.as_tensor((0.1 * rng.normal(size=8192)).astype(np.float32), device=dev)
+    st.reset_launch_counts()
+    fs, gs = sobj.value_and_grad(ws)
+    hd = sobj.hessian_diag(ws)
+    assert st.launch_counts == {"matvec": 8, "rmatvec": 8, "rmatvec_sq": 4}
+    fsc, gsc = scpu.value_and_grad(ws.cpu())
+    np.testing.assert_allclose(float(fs), float(fsc), rtol=1e-5)
+    np.testing.assert_allclose(gs.cpu().numpy(), gsc.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(hd.cpu().numpy(), scpu.hessian_diag(ws.cpu()).numpy(), rtol=1e-4, atol=1e-4)
+
+
+_ALLREDUCE_WORKER = """
+import sys
+root, port, rank, path = sys.argv[1:5]
+rank = int(rank)
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from photon_ml_tpu_torch.ops import fused
+from photon_ml_tpu_torch.ops.losses import LOSSES
+from photon_ml_tpu_torch.parallel import multihost as mh
+
+mh.initialize_multihost(f"127.0.0.1:{port}", 2, rank, timeout_s=100)
+z = np.load(path)
+half = len(z["y"]) // 2
+rows = slice(0, half) if rank == 0 else slice(half, None)
+dev = torch.device("cuda")
+X = torch.as_tensor(z["X"][rows], device=dev)
+y = torch.as_tensor(z["y"][rows], device=dev)
+val, g, r = fused.fused_value_grad(X, y, None, None, torch.as_tensor(z["u"], device=dev),
+                                   torch.zeros((), device=dev), loss=LOSSES["logistic"])
+assert fused.launch_counts["fused_value_grad"] == 1
+total = mh.allreduce_sum_host(*(t.double().cpu().numpy() for t in (val, g, r)))
+np.savez(path.replace(".npz", f"-rank{rank}.npz"), val=total[0], g=total[1], r=total[2])
+mh.shutdown_multihost()
+print("WORKER DONE", rank)
+"""
+
+
+def test_two_process_allreduce_of_cuda_readbacks(dev, tmp_path):
+    """Two processes on one card, gloo over loopback: each runs K1 on its
+    half of the rows and sums the read-backs with ``allreduce_sum_host``;
+    both receive identical bytes, equal to K1 over all rows within the
+    float32 tolerance."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from photon_ml_tpu_torch.ops import _cuda
+
+    _cuda.load()  # built once here, before two processes would build it at once
+    rng = np.random.default_rng(4)
+    n, d = 1 << 14, 96
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    u = (0.1 * rng.normal(size=d)).astype(np.float32)
+    np.savez(tmp_path / "in.npz", X=X, y=y, u=u)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", _ALLREDUCE_WORKER, root, str(port), str(r),
+                               str(tmp_path / "in.npz")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"WORKER DONE {r}" in out, err
+    got = [np.load(tmp_path / f"in-rank{r}.npz") for r in range(2)]
+    for key in ("val", "g", "r"):
+        assert got[0][key].tobytes() == got[1][key].tobytes()
+    val, g, r = fused.fused_value_grad(torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev), None, None,
+                                       torch.as_tensor(u, device=dev), torch.zeros((), device=dev),
+                                       loss=LOSSES["logistic"])
+    np.testing.assert_allclose(float(got[0]["val"]), float(val), rtol=1e-5)
+    np.testing.assert_allclose(got[0]["g"], g.cpu().numpy(), rtol=1e-4, atol=1e-4)

@@ -75,6 +75,8 @@ def test_import_port_loads_no_jax():
         "import photon_ml_tpu_torch.ops.tile_cache, photon_ml_tpu_torch.optim.host_lbfgs\n"
         "import photon_ml_tpu_torch.optim.host_tron, photon_ml_tpu_torch.supervised.cross_validation\n"
         "import photon_ml_tpu_torch.game.streaming, photon_ml_tpu_torch.io.data_reader\n"
+        "import photon_ml_tpu_torch.parallel.distributed, photon_ml_tpu_torch.parallel.mesh\n"
+        "import photon_ml_tpu_torch.parallel.multihost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'photon_ml_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -108,6 +110,7 @@ def _entry_calls(tmp_path):
     from photon_ml_tpu_torch.ops.batch import dense_batch_from_arrays
     from photon_ml_tpu_torch.ops.losses import logistic_loss
     from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, stream_scores
+    from photon_ml_tpu_torch.parallel import data_mesh
     from photon_ml_tpu_torch.supervised.cross_validation import cross_validate_glm
     from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
     from photon_ml_tpu_torch.types import NormalizationType, TaskType
@@ -166,6 +169,7 @@ def _entry_calls(tmp_path):
         "StreamedGameTrainer": lambda **kw: StreamedGameTrainer(
             GameTrainingConfig(fixed_effect_coordinates={"fixed": FixedEffectCoordinateConfig()}), **kw
         ),
+        "data_mesh": lambda device=None: data_mesh(2, devices=None if device is None else [device]),
     }
 
 
@@ -176,7 +180,7 @@ def _entry_calls(tmp_path):
         "sparse_batch_from_numpy", "read_libsvm", "to_padded_sparse", "no_normalization",
         "build_normalization", "FeatureSummary.normalization", "RandomProjector.build",
         "dense_batch_from_arrays", "StreamingGLMObjective", "stream_scores", "train_glm_streamed",
-        "cross_validate_glm", "cli.run --streaming-chunk-rows", "StreamedGameTrainer",
+        "cross_validate_glm", "cli.run --streaming-chunk-rows", "StreamedGameTrainer", "data_mesh",
     ],
 )
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch, name):

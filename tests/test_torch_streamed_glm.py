@@ -178,8 +178,11 @@ def test_summarize_chunks_matches_the_reference(data_dir, kind):
         np.testing.assert_allclose(getattr(got, f), getattr(want, f), rtol=1e-12, atol=1e-15, err_msg=f)
     np.testing.assert_array_equal(got.num_nonzeros, want.num_nonzeros)
     assert got.count == want.count == 1200
-    with pytest.raises(NotImplementedError, match="item 12"):
-        summarize_chunks(chunks, maps[sid].size, cross_process=True)
+    # across processes on a process of its own: the same statistics
+    alone = summarize_chunks(chunks, maps[sid].size, cross_process=True)
+    for f in ("mean", "variance", "min", "max", "max_magnitude", "num_nonzeros"):
+        np.testing.assert_array_equal(getattr(alone, f), getattr(got, f), err_msg=f)
+    assert alone.count == got.count
 
 
 def _glm_data(task=TaskType.LOGISTIC_REGRESSION, n=900, d=6, seed=3):
@@ -402,7 +405,7 @@ def test_driver_streamed_branch(tmp_path, flags):
         np.testing.assert_allclose(_best(tmp_path / "port"), best, rtol=0, atol=1e-6)
 
 
-def test_driver_streamed_rejections_and_validation(tmp_path):
+def test_driver_streamed_rejections_and_validation(tmp_path, monkeypatch):
     X, y = _glm_data(n=200, seed=4)
     _write_glm_avro(tmp_path / "t.avro", X, y)
     base = ["--task", "LOGISTIC_REGRESSION", "--train-data", str(tmp_path / "t.avro"), "--format", "avro",
@@ -413,8 +416,12 @@ def test_driver_streamed_rejections_and_validation(tmp_path):
         cli_main(base + ["--optimizer", "TRON", "--regularization", "L1"])
     with pytest.raises(ValueError, match="requires --format avro"):
         cli_main([a if a != "avro" else "libsvm" for a in base])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli_main(base + ["--multihost"])
+    for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="multihost initialization failed"):
+        cli_main(base + ["--multihost"])  # no process group to join
+    with pytest.raises(ValueError, match="--multihost requires --streaming-chunk-rows"):
+        cli_main(base[:-4] + base[-2:] + ["--multihost"])
     with pytest.raises(NotImplementedError, match="item 13"):
         cli_main(base + ["--profile-dir", "p"])
     with pytest.raises(NotImplementedError, match="item 13"):

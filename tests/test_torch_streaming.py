@@ -204,7 +204,7 @@ def test_what_waits_for_multi_gpu_raises(monkeypatch):
     tch, _, d = _chunks("sparse", rng, TaskType.LOGISTIC_REGRESSION)
     loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
     with pytest.raises(NotImplementedError, match="item 12"):
-        streaming.StreamingGLMObjective(tch, loss, d, cross_process=True, device="cpu")
+        streaming.StreamingGLMObjective(tch, loss, d, fe_shard=True, cross_process=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         streaming.StreamingGLMObjective(tch, loss, d, fe_shard=True, device="cpu")
     monkeypatch.setenv("PHOTON_FE_SHARD", "1")
