@@ -16,19 +16,20 @@ Run from the root of a checkout. It builds the CUDA kernels from
 2. build: the kernels compiled with nvcc for sm_90a (one nvcc per source,
    started together), with the spill lines of each source's report, and
    beside them the native Avro decoder with g++;
-3. parity: K1 (fused value+gradient) and K2 (fused Hessian-vector) against
-   their plain PyTorch versions on the card, at the headline shape
-   (n = 2^20, d = 512, bfloat16 X), config B's (n = 2^20, d = 256, float32),
-   a ragged one (n = 2^20 - 37, d = 124, both storage types) and GAME's
-   width (n = 2^20, d = 65, float32; n = 2^20 - 37, d = 65, bfloat16), over
-   all four losses, with and without offsets and weights (zero-weight rows
-   included), with each line naming K1's layout; K1 repeats bitwise at the
-   headline and at d = 65; then each kernel's time at the shape the main
-   path gives it, beside its plain version, one PyTorch-library computation
-   of the same function, and the least time the card could take; then
-   ``timing_k1_layouts``: K1 in both of its layouts at d = 65, 124, 128 and
-   256 (n = 2^20, both storage types), each with its device time from
-   ``torch.profiler``;
+3. parity: K1 (fused value+gradient) and K2 (fused Hessian-vector)
+   against their plain PyTorch versions on the card, at the headline shape
+   (n = 2^20, d = 512, bfloat16 X), config B's (n = 2^20, d = 256,
+   float32), a ragged one (n = 2^20 - 37, d = 124, both storage types) and
+   GAME's width (n = 2^20, d = 65, float32; n = 2^20 - 37, d = 65,
+   bfloat16), over all four losses, with and without offsets and weights
+   (zero-weight rows included), with each line naming K1's layout; K1
+   repeats bitwise at the headline and at d = 65, K2 at config B and the
+   ragged d = 124; then each kernel's time at the shape the main path gives
+   it (card, device and enqueue ms), beside its plain version, one
+   PyTorch-library computation of the same function, and the least time
+   the card could take; then ``timing_k1_layouts``: K1 in both of its
+   layouts at d = 65, 124, 128 and 256 (n = 2^20, both storage types),
+   each with its device time from ``torch.profiler``;
 4. main_a: ``train_glm`` on the headline logistic problem (L-BFGS, 30
    iterations, lambda = 1), then a warm-started 3-lambda sweep with
    validation at the same width; then main_a_sharded: the same solve
@@ -223,9 +224,10 @@ Run from the root of a checkout. It builds the CUDA kernels from
 20. main_b_streamed: config B in 8 host chunks of 2^17 rows with host TRON
    (15 iterations): K1 on each chunk of every value-and-gradient pass and
    K2 on each chunk of every Hessian-vector pass; against main_b relative
-   dRMSE <= 1e-4 and d(objective) <= 1e-3; K2 alone at the chunk's shape,
-   against its plain version at phase 3's tolerance, with its card and
-   device times;
+   dRMSE <= 1e-4 and d(objective) <= 1e-3; K2 alone at the chunk's shape
+   (``k2_time``: against its plain version at phase 3's tolerance, with
+   card, device and enqueue times), and K1 alone there
+   (``k1_time``, offsets and weights read);
 21. main_a2_streamed: config A2's data in 8 host chunks of 2^16 rows, each
    chunk's K3 layouts built once through the layout cache (each chunk's
    build time), host L-BFGS 30 iterations with SIMPLE variances: K3 once
@@ -386,6 +388,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def enqueue_ms(fn, calls: int = 100) -> float:
+    """Host time per call of ``fn`` over ``calls`` back-to-back calls with
+    nothing synchronized (after a warm-up call and a synchronize): what a
+    call costs the host before the card runs it. Beside ``cuda_ms`` it
+    says whether the card waits on the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
 def device_ms(fn, reps: int, floor_ms: float = 0.0) -> float | None:
     """Device time of ``fn`` per call: the durations of everything it runs
     on the card, from the events ``torch.profiler`` traced over ``reps``
@@ -500,6 +517,11 @@ def parity(dev) -> None:
             if not all(torch.equal(p, q) for p, q in zip(a, b)):
                 raise AssertionError(f"K1 is not bitwise repeatable at {name}")
             emit("parity_k1_bitwise", shape=name, k1_layout=k1_layout(X, y, off, wt), ok=True)
+        if name in ("config_b", "ragged_f32"):
+            runs = [fused.fused_hvp(X, y, off, wt, u, v, c, cv, loss=loss) for _ in range(3)]
+            if not all(torch.equal(p, q) for r in runs[1:] for p, q in zip(runs[0], r)):
+                raise AssertionError(f"K2 is not bitwise repeatable at {name}")
+            emit("parity_k2_bitwise", shape=name, repeats=3, ok=True)
         del X
         torch.cuda.empty_cache()
 
@@ -518,7 +540,9 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
 def timing(dev) -> dict:
     """Each kernel at the shape and inputs the main path gives it: K1 at the
     headline (logistic, bfloat16, offsets and weights constant and not
-    read), K2 at config B (squared, float32); K1 at config B besides."""
+    read), K2 at config B (squared, float32, ``k2_time``); K1 at config B
+    besides. Each with its card, device and enqueue
+    ms."""
     rows = {}
     cases = [
         ("fused_value_grad", "headline", 512, torch.bfloat16, "logistic"),
@@ -544,62 +568,65 @@ def timing(dev) -> dict:
             got, ref = run(), plain()
             err = float((got[1].double() - ref[1].double()).abs().max())
         else:
-            run = lambda: fused.fused_hvp(X, y, None, None, u, v, c, cv, loss=loss)  # noqa: E731
-            plain = lambda: fused.fused_hvp_reference(X, y, None, None, u, v, c, cv, loss=loss)  # noqa: E731
-            uv = torch.stack([u, v], dim=1).to(dtype)
-
-            def library():
-                muv = (X @ uv).float()
-                q = loss.d2(muv[:, 0] - c, y) * (muv[:, 1] - cv)
-                return X.T @ q.to(dtype), q.sum()
-
-            nbytes = N * d * itemsize + 4 * N + 8 * d + 4 * (d + 1)
-            flops = 6.0 * N * d
-            got, ref = run(), plain()
-            err = float((got[0].double() - ref[0].double()).abs().max())
+            rec = dict(kernel=kernel, shape=shape, loss=loss_name,
+                       **k2_time(X, y, None, None, u, v, c, cv, loss))
+            emit("timing", **rec)
+            if not rec["ok"]:
+                raise AssertionError(f"K2 disagrees with its plain version at {shape}")
+            rows[kernel] = rec
+            del X
+            torch.cuda.empty_cache()
+            continue
         ms = cuda_ms(run, 20)
         plain_ms = cuda_ms(plain, 3)
         library_ms = cuda_ms(library, 20)
         ms_again = cuda_ms(run, 20)
         bound_ms, bound_by = _bound(nbytes, flops)
         rec = dict(kernel=kernel, shape=shape, n=N, d=d, dtype=str(dtype), loss=loss_name,
-                   ms=ms, ms_again=ms_again, plain_ms=plain_ms, library_ms=library_ms,
+                   layout=k1_layout(X, y, None, None), ms=ms, ms_again=ms_again,
+                   device_ms=device_ms(run, 20, floor_ms=TRACE_FLOOR * bound_ms),
+                   enqueue_ms=enqueue_ms(run), plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
                    max_abs_err=err, hbm_share=bound_ms / ms)
         emit("timing", **rec)
-        if (kernel, shape) in (("fused_value_grad", "headline"), ("fused_hvp", "config_b")):
+        if shape == "headline":
             rows[kernel] = rec
+        else:
+            rows["k1_config_b"] = rec
         del X
         torch.cuda.empty_cache()
     return rows
 
 
-def k1_library(X, labels, offsets, u, c, loss):
+def k1_library(X, labels, offsets, u, c, loss, weights=None):
     """One PyTorch computation of K1's function: cuBLAS X @ u, the
     elementwise loss, cuBLAS Xᵀ @ r (a yardstick; the port never calls it)."""
     def run():
         m = (X @ u.to(X.dtype)).float() - c
         if offsets is not None:
             m = m + offsets
-        r = loss.d1(m, labels)
-        return loss.value(m, labels).sum(), X.T @ r.to(X.dtype), r.sum()
+        lv, r = loss.value(m, labels), loss.d1(m, labels)
+        if weights is not None:
+            lv, r = weights * lv, weights * r
+        return lv.sum(), X.T @ r.to(X.dtype), r.sum()
     return run
 
 
-def k1_time(X, labels, offsets, u, c, loss, reps: int = 20) -> dict:
+def k1_time(X, labels, offsets, u, c, loss, reps: int = 20, weights=None) -> dict:
     """K1 on these inputs in each of its layouts that can run (``ms_rows``,
     ``ms_tiles``; the rule's first, twice; ``device_ms_*`` of each, and
-    ``device_ms`` of the rule's), its plain version, the library yardstick
-    and the least time the card could take (X, labels, offsets and u read
-    once, the d + 2 results written once)."""
+    ``device_ms`` of the rule's; ``enqueue_ms`` of the rule's), its plain
+    version, the library yardstick and the least time the card could take
+    (X, labels, offsets, weights and u read once, the d + 2 results written
+    once)."""
     n, d = X.shape
-    layout = k1_layout(X, labels, offsets, None)
+    layout = k1_layout(X, labels, offsets, weights)
     others = [k for k in fused.LAYOUTS if k != layout and (
         k == "rows" or fused.tile_plan(d, X.dtype) is not None)]
     in_layout = lambda k: lambda: fused.fused_value_grad_in_layout(  # noqa: E731
-        X, labels, offsets, None, u, c, loss=loss, layout=k)
-    plain = lambda: fused.fused_value_grad_reference(X, labels, offsets, None, u, c, loss=loss)  # noqa: E731
-    got, ref = fused.fused_value_grad(X, labels, offsets, None, u, c, loss=loss), plain()
+        X, labels, offsets, weights, u, c, loss=loss, layout=k)
+    plain = lambda: fused.fused_value_grad_reference(X, labels, offsets, weights, u, c, loss=loss)  # noqa: E731
+    got, ref = fused.fused_value_grad(X, labels, offsets, weights, u, c, loss=loss), plain()
     torch.cuda.synchronize()
     rtol_v, tol = TOL[str(X.dtype).removeprefix("torch.")]
     ok = close(got[0], ref[0], rtol_v, 0.0)[0] and close(got[1], ref[1], tol, tol)[0]
@@ -611,14 +638,16 @@ def k1_time(X, labels, offsets, u, c, loss, reps: int = 20) -> dict:
         rec[f"ms_{k}"] = cuda_ms(in_layout(k), reps)
     rec["ms_again"] = cuda_ms(in_layout(layout), reps)
     rec[f"ms_{layout}"] = rec["ms"]
-    nbytes = n * d * X.element_size() + 4 * n * (1 + (offsets is not None)) + 4 * d + 4 * (d + 2)
+    nbytes = (n * d * X.element_size() + 4 * n * (1 + (offsets is not None) + (weights is not None))
+              + 4 * d + 4 * (d + 2))
     rec["bytes"] = nbytes
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 4.0 * n * d)
     for k in (layout, *others):
         rec[f"device_ms_{k}"] = device_ms(in_layout(k), reps, floor_ms=TRACE_FLOOR * rec["bound_ms"])
     rec["device_ms"] = rec[f"device_ms_{layout}"]
+    rec["enqueue_ms"] = enqueue_ms(in_layout(layout))
     rec["plain_ms"] = cuda_ms(plain, 2)
-    rec["library_ms"] = cuda_ms(k1_library(X, labels, offsets, u, c, loss), reps)
+    rec["library_ms"] = cuda_ms(k1_library(X, labels, offsets, u, c, loss, weights), reps)
     rec["hbm_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
@@ -639,6 +668,52 @@ def timing_k1_layouts(dev) -> None:
                 raise AssertionError(f"K1 disagrees with its plain version at d = {d} {dtype}")
             del X
             torch.cuda.empty_cache()
+
+
+def k2_library(X, labels, offsets, weights, u, v, c, cv, loss):
+    """One PyTorch computation of K2's function: cuBLAS X @ [u v], the
+    elementwise curvature, cuBLAS Xᵀ @ q (a yardstick; the port never calls
+    it)."""
+    uv = torch.stack([u, v], dim=1).to(X.dtype)
+
+    def run():
+        muv = (X @ uv).float()
+        m = muv[:, 0] - c
+        if offsets is not None:
+            m = m + offsets
+        q = loss.d2(m, labels) * (muv[:, 1] - cv)
+        if weights is not None:
+            q = q * weights
+        return X.T @ q.to(X.dtype), q.sum()
+    return run
+
+
+def k2_time(X, labels, offsets, weights, u, v, c, cv, loss, reps: int = 20) -> dict:
+    """K2 on these inputs held to the plain version, then timed twice
+    (``ms``, ``ms_again``), with its ``enqueue_ms``, its ``device_ms`` from
+    the profiler, the plain version, the library yardstick and the least
+    time the card could take (X, labels, offsets, weights, u and v read
+    once, the d + 1 results written once)."""
+    n, d = X.shape
+    run = lambda: fused.fused_hvp(X, labels, offsets, weights, u, v, c, cv, loss=loss)  # noqa: E731
+    plain = lambda: fused.fused_hvp_reference(X, labels, offsets, weights, u, v, c, cv, loss=loss)  # noqa: E731
+    _, tol = TOL[str(X.dtype).removeprefix("torch.")]
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    (hv_ok, err), (sum_ok, sum_err) = close(got[0], ref[0], tol, tol), close(got[1], ref[1], tol, tol)
+    del got, ref
+    rec = dict(n=n, d=d, dtype=str(X.dtype), layout="rows", ok=hv_ok and sum_ok, max_abs_err=err,
+               q_sum_abs_err=sum_err, ms=cuda_ms(run, reps), ms_again=cuda_ms(run, reps),
+               enqueue_ms=enqueue_ms(run))
+    nbytes = (n * d * X.element_size() + 4 * n * (1 + (offsets is not None) + (weights is not None))
+              + 8 * d + 4 * (d + 1))
+    rec["bytes"] = nbytes
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 6.0 * n * d)
+    rec["hbm_share"] = rec["bound_ms"] / rec["ms"]
+    rec["device_ms"] = device_ms(run, reps, floor_ms=TRACE_FLOOR * rec["bound_ms"])
+    rec["plain_ms"] = cuda_ms(plain, 2)
+    rec["library_ms"] = cuda_ms(k2_library(X, labels, offsets, weights, u, v, c, cv, loss), reps)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2127,35 +2202,28 @@ def busy_share(fn) -> dict:
 
 def k2_at(X, labels) -> dict:
     """K2 alone at a streamed chunk's shape (squared loss, offsets and
-    weights read as the streamed objective reads them): its time, plain
-    version, the library yardstick and the least time the card could take."""
+    weights read as the streamed objective reads them): ``k2_time``'s
+    record."""
     n, d = X.shape
     dev = X.device
     gen = torch.Generator(device=dev).manual_seed(12)
     u = 0.5 * torch.randn(d, generator=gen, device=dev) / d**0.5
     v = torch.randn(d, generator=gen, device=dev) / d**0.5
     off, wt = torch.zeros(n, device=dev), torch.ones(n, device=dev)
-    c, cv, loss = torch.tensor(0.1, device=dev), torch.tensor(-0.05, device=dev), LOSSES["squared"]
-    run = lambda: fused.fused_hvp(X, labels, off, wt, u, v, c, cv, loss=loss)  # noqa: E731
-    plain = lambda: fused.fused_hvp_reference(X, labels, off, wt, u, v, c, cv, loss=loss)  # noqa: E731
-    uv = torch.stack([u, v], dim=1)
+    return k2_time(X, labels, off, wt, u, v, torch.tensor(0.1, device=dev), torch.tensor(-0.05, device=dev),
+                   LOSSES["squared"])
 
-    def library():
-        muv = X @ uv
-        q = loss.d2(muv[:, 0] - c + off, labels) * (muv[:, 1] - cv) * wt
-        return X.T @ q, q.sum()
 
-    got, ref = run(), plain()
-    torch.cuda.synchronize()
-    _, tol = TOL["float32"]  # phase 3's K2 gates: Xᵀq and Σq at rtol = atol = tol
-    (hv_ok, err), (sum_ok, sum_err) = close(got[0], ref[0], tol, tol), close(got[1], ref[1], tol, tol)
-    nbytes = n * d * 4 + 12 * n + 8 * d + 4 * (d + 1)
-    bound_ms, bound_by = _bound(nbytes, 6.0 * n * d)
-    ms = cuda_ms(run, 20)
-    return dict(n=n, d=d, ms=ms, ms_again=cuda_ms(run, 20),
-                device_ms=device_ms(run, 20, floor_ms=TRACE_FLOOR * bound_ms),
-                plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20), bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, max_abs_err=err, q_sum_abs_err=sum_err, ok=hv_ok and sum_ok, hbm_share=bound_ms / ms)
+def k1_at_b_chunk(X, labels) -> dict:
+    """K1 alone at config B's streamed chunk (squared loss, offsets and
+    weights read as the streamed objective reads them): ``k1_time``'s
+    record."""
+    n, d = X.shape
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    u = 0.5 * torch.randn(d, generator=gen, device=dev) / d**0.5
+    off, wt = torch.zeros(n, device=dev), torch.ones(n, device=dev)
+    return k1_time(X, labels, off, u, torch.tensor(0.1, device=dev), LOSSES["squared"], weights=wt)
 
 
 def run_f(dev, card: str) -> dict:
@@ -2271,6 +2339,7 @@ def run_b_streamed(dev, b: dict, card: str) -> dict:
     rec["launches_ok"] = (launches["fused_value_grad"] == len(chunks) * vg_passes
                           and launches["fused_hvp"] == len(chunks) * hvp_passes and hvp_passes > 0)
     rec["k2_at_chunk"] = k2_at(batch.X[:B_CHUNK], batch.labels[:B_CHUNK])
+    rec["k1_at_chunk"] = k1_at_b_chunk(batch.X[:B_CHUNK], batch.labels[:B_CHUNK])
     rec["rel_d_rmse_vs_main_b"] = abs(train_rmse - b["train_rmse"]) / b["train_rmse"]
     rec["rel_d_objective_vs_main_b"] = abs(rec["objective"] - b["objective"]) / abs(b["objective"])
     prefetch.clear_cache()
@@ -2984,6 +3053,7 @@ def main() -> int:
     parity(dev)
     k3_err = parity_k3(dev)
     rows = timing(dev)
+    k1_config_b = rows.pop("k1_config_b")
     timing_k1_layouts(dev)
     k3_rows = timing_k3(dev, gather_floor(dev))
 
@@ -3304,23 +3374,25 @@ def main() -> int:
         for k in KERNEL_ROWS
     }
     kernels = [
-        dict(name=kernel, route="cuda", **KERNEL_ROWS[kernel],
+        dict(name=kernel, route="cuda", **KERNEL_ROWS[kernel], layout=rec["layout"],
              launches=sum(by_path[kernel].values()), launches_by_path=by_path[kernel],
              max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
-             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"])
+             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+             device_ms=rec["device_ms"], enqueue_ms=rec["enqueue_ms"])
         for kernel, rec in rows.items()
     ]
-    at_shape_keys = ("n", "d", "layout", "ms", "ms_rows", "ms_tiles", "device_ms", "plain_ms",
+    at_shape_keys = ("n", "d", "layout", "ms", "ms_rows", "ms_tiles", "device_ms", "enqueue_ms", "plain_ms",
                      "library_ms", "bound_ms", "bound_by", "hbm_share", "max_abs_err")
     for key, rec in (("at_main_e_shape", e_rec["k1"]), ("at_main_d_shape", d_rec["k1"]),
+                     ("at_config_b_shape", k1_config_b),
+                     ("at_b_streamed_chunk_shape", b_streamed["k1_at_chunk"]),
                      ("at_streamed_chunk_shape", f_rec["k1_at_chunk"]),
                      ("at_streamed_game_chunk_shape", e_streamed["k1_at_chunk"])):
         # a time the profiler did not read (None) is left out, not written as 0
         kernels[0][key] = {k: rec[k] for k in at_shape_keys if rec.get(k) is not None}
-    chunk_keys = ("n", "d", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "hbm_share",
-                  "max_abs_err")
-    kernels[1]["at_streamed_chunk_shape"] = {k: b_streamed["k2_at_chunk"][k] for k in chunk_keys
-                                             if b_streamed["k2_at_chunk"].get(k) is not None}
+    k2_chunk = b_streamed["k2_at_chunk"]
+    kernels[1]["at_streamed_chunk_shape"] = {k: k2_chunk[k] for k in at_shape_keys
+                                             if k2_chunk.get(k) is not None}
     k3_paths = {**streamed_paths, **parallel_paths}
     k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over A2's paths and the rest
         dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW,

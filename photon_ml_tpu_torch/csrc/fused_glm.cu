@@ -9,15 +9,22 @@
 //
 // Bound on an H100 SXM: both read X once and everything else is O(n + d),
 // so they are bound by the bytes of X over the 3.35 TB/s of device memory:
-// 0.32 ms for X of 1 GiB (n = 2^20, d = 512 in bf16, or d = 256 in f32).
-// The arithmetic (4 n d flops for K1, 6 n d for K2, plus 3 n d for the
+// 0.32 ms for X of 1 GiB (n = 2^20, d = 512 in bf16, or d = 256 in f32:
+// K1 at the headline and config B, K2 at config B), 0.041 ms for K2 at B's
+// streamed chunk (2^17 x 256 f32, with labels, offsets and weights). The
+// arithmetic (4 n d flops for K1, 6 n d for K2, plus 3 n d for the
 // compensated sums below, in float32 on the CUDA cores at 67 TFLOP/s) stays
 // under a fifth of that time.
 //
 // What the design does about the bound: X is read exactly once per
 // evaluation, as data first to evict from L2, and nothing per row goes back
 // to device memory. K1 has two layouts, chosen by shape and alignment only
-// (`vg_launch`); K2 has the first.
+// (`vg_launch`); K2 has the first. At a 2^17-row chunk a call's host cost is
+// as large as the card's work, so the launch path asks the device nothing
+// after its first call (`LaunchCache`: SM count, resident blocks and the
+// shared-memory limit kept per instantiation and device) and takes c and cv
+// from the caller's tensors on the card or by value, with no tensor built
+// for them.
 //
 // Rows layout (`vg_kernel`, `hvp_kernel`): a warp owns one row at a time:
 // its lanes load the row in 16-byte vectors where the row is 16-byte aligned
@@ -27,12 +34,15 @@
 // and add r * x (or q * x) into per-lane column accumulators. Where a lane
 // holds at most 16 columns, each warp loads two rows before it reduces
 // either, to keep more bytes in flight. Neither the margins nor r / q are
-// ever stored. At the headline and config B this reaches 60% and 85% of
+// ever stored. At the headline and config B this reaches 60% and 85-90% of
 // the bytes bound. On narrow rows it is bound by instruction issue instead:
 // at d = 65 float32 (GAME's fixed effect) a 260-byte row is not 16-byte
 // aligned, each lane runs 8 predicated scalar columns of which 65 of 256
 // exist, and the butterfly and the loss run 32 times a row -- about 100
 // warp instructions a row against some 74 issue slots a row at the bound.
+// K2 runs only at config B's width (256 float32), where a layout of staged
+// row tiles with several threads a row and its blocks summed in the same
+// launch measured no faster than this one (PERF.md), so K2 keeps this one.
 //
 // Tiles layout (`vg_tiles_kernel`, K1 only; d <= kTilesMaxFeatures* and X,
 // labels, offsets and weights 16-byte aligned): a block walks over tiles of
@@ -81,6 +91,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -195,6 +206,12 @@ struct Vec<__nv_bfloat16, 8> {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A scalar argument: the caller's float32 on the card where `p` is given,
+// else the value passed with the launch.
+__device__ __forceinline__ float scalar(const float* p, float value) {
+  return p != nullptr ? *p : value;
 }
 
 // Lane `lane` holds columns (k * 32 + lane) * VEC + e, k < NV, e < VEC.
@@ -372,7 +389,7 @@ template <typename T, int L, int VEC, int NV>
 __global__ void __launch_bounds__(kThreads)
     vg_kernel(const T* __restrict__ X, const float* __restrict__ y,
               const float* __restrict__ off, const float* __restrict__ wt,
-              const float* __restrict__ u, const float* __restrict__ sc,
+              const float* __restrict__ u, const float* __restrict__ cp, float cval,
               long long n, int d, double* __restrict__ part) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int E = NV * VEC;
@@ -384,7 +401,7 @@ __global__ void __launch_bounds__(kThreads)
   load_vector<kBf16, VEC, NV>(u, d, lane, ur);
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = cmp[e] = 0.f;
-  const float c = sc[0];
+  const float c = scalar(cp, cval);
   float sums[2] = {0.f, 0.f}, comps[2] = {0.f, 0.f};
 
   for_each_row<T, VEC, NV>(X, n, d, lane, warp, [&](const float (&x)[E], long long i) {
@@ -395,14 +412,14 @@ __global__ void __launch_bounds__(kThreads)
   write_block_partial(slots, d + 2, part);
 }
 
-// K2. part: (gridDim.x, d + 1) float64 = [X^T q | sum q] per block; sc = [c, cv].
+// K2. part: (gridDim.x, d + 1) float64 = [X^T q | sum q] per block.
 template <typename T, int L, int VEC, int NV>
 __global__ void __launch_bounds__(kThreads)
     hvp_kernel(const T* __restrict__ X, const float* __restrict__ y,
                const float* __restrict__ off, const float* __restrict__ wt,
                const float* __restrict__ u, const float* __restrict__ v,
-               const float* __restrict__ sc, long long n, int d,
-               double* __restrict__ part) {
+               const float* __restrict__ cp, const float* __restrict__ cvp, float cval,
+               float cvval, long long n, int d, double* __restrict__ part) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int E = NV * VEC;
   extern __shared__ double slots[];
@@ -414,8 +431,8 @@ __global__ void __launch_bounds__(kThreads)
   load_vector<kBf16, VEC, NV>(v, d, lane, vr);
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = cmp[e] = 0.f;
-  const float c = sc[0];
-  const float cv = sc[1];
+  const float c = scalar(cp, cval);
+  const float cv = scalar(cvp, cvval);
   float sums[1] = {0.f}, comps[1] = {0.f};
 
   for_each_row<T, VEC, NV>(X, n, d, lane, warp, [&](const float (&x)[E], long long i) {
@@ -522,8 +539,8 @@ template <typename T, int L>
 __global__ void __launch_bounds__(kThreads, 1)
     vg_tiles_kernel(const T* __restrict__ X, const float* __restrict__ y,
                     const float* __restrict__ off, const float* __restrict__ wt,
-                    const float* __restrict__ u, const float* __restrict__ sc, long long n, int d,
-                    int R, int S, int P, int rotation, int stage_bytes,
+                    const float* __restrict__ u, const float* __restrict__ cp, float cval,
+                    long long n, int d, int R, int S, int P, int rotation, int stage_bytes,
                     double* __restrict__ part) {
   using namespace photon_ring;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -565,7 +582,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < S && i < count; ++i) issue(i, blockIdx.x + i * G);
   }
 
-  const float c = sc[0];
+  const float c = scalar(cp, cval);
   float sums[2] = {0.f, 0.f}, comps[2] = {0.f, 0.f};  // value and r, compensated
   const int owner_p = tid / d;  // this thread's partition; it owns column tid - owner_p * d
   const bool owner = owner_p < P;
@@ -675,143 +692,182 @@ __global__ void __launch_bounds__(kThreads, 1)
   write_block_partial(slots, d + 2, part);
 }
 
+// ---------------------------------------------------------------------------
+// Launch path: nothing about the device is asked on a call after the first
+// ---------------------------------------------------------------------------
+
 // Rows per warp at least this many before another block is added, so small
 // problems run on few blocks.
 constexpr long long kMinRowsPerWarp = 16;
 constexpr long long kMinRowsPerBlock = kWarps * kMinRowsPerWarp;
+constexpr int kMaxDevices = 16;
 
-// The blocks that fill the card (as resident blocks allow), at most `need`
-// and `max_grid`.
-template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, size_t smem, long long need, int max_grid, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (e != cudaSuccess) return e;
-  long long g = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (need < g) g = need;
-  if (max_grid < g) g = max_grid;
-  *grid = static_cast<int>(g < 1 ? 1 : g);
+// The SMs of each device, read once.
+inline cudaError_t sm_count(int dev, int* sms) {
+  static std::atomic<int> cache[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int v = cache[dev].load(std::memory_order_relaxed);
+  if (v == 0) {
+    const cudaError_t e = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cache[dev].store(v, std::memory_order_relaxed);
+  }
+  *sms = v;
   return cudaSuccess;
 }
 
+// One kernel instantiation's launch facts per device, each found on first
+// need and kept: its dynamic shared memory limit raised to the card's most
+// (kernels above 48 KB), and its resident blocks per SM at each width d (a
+// kernel's shared memory is a function of d alone). Each Op keeps one in a
+// static, so every instantiation has its own.
+struct LaunchCache {
+  std::atomic<int> raised[kMaxDevices];
+  std::atomic<int> per_sm[kMaxDevices][kMaxFeatures + 1];  // resident blocks + 1; 0 not yet asked
+
+  // The blocks that fill the card (as resident blocks allow), at most
+  // `need` and `max_grid`.
+  template <typename Kernel>
+  cudaError_t grid(Kernel kernel, int threads, size_t smem, bool raise, int dev, int d,
+                   long long need, int max_grid, int* out) {
+    int sms = 0;
+    cudaError_t e = sm_count(dev, &sms);
+    if (e != cudaSuccess) return e;
+    if (raise && raised[dev].load(std::memory_order_relaxed) == 0) {
+      // the card's most, less the kernel's static shared memory
+      int most = 0;
+      cudaFuncAttributes fa;
+      e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 most - static_cast<int>(fa.sharedSizeBytes));
+      if (e != cudaSuccess) return e;
+      raised[dev].store(1, std::memory_order_relaxed);
+    }
+    int per = per_sm[dev][d].load(std::memory_order_relaxed) - 1;
+    if (per < 0) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads, smem);
+      if (e != cudaSuccess) return e;
+      per_sm[dev][d].store(per + 1, std::memory_order_relaxed);
+    }
+    long long g = static_cast<long long>(sms) * (per > 0 ? per : 1);
+    if (need < g) g = need;
+    if (max_grid < g) g = max_grid;
+    *out = static_cast<int>(g < 1 ? 1 : g);
+    return cudaSuccess;
+  }
+};
+
+// A call's arguments. K1: c (cp on the card, else c), part (max_grid, d + 2)
+// doubles, out d + 2 floats. K2: also v and cv, part (max_grid, d + 1),
+// out d + 1.
+struct Args {
+  const void* X;
+  const float* y;
+  const float* off;
+  const float* wt;
+  const float* u;
+  const float* v;
+  const float* cp;
+  const float* cvp;
+  float c;
+  float cv;
+  long long n;
+  int d;
+  int dev;
+  int max_grid;
+  double* part;
+  float* out;
+  cudaStream_t stream;
+};
+
 template <typename T, int L, int VEC, int NV>
 struct VgOp {
-  static cudaError_t run(const void* X, const float* y, const float* off, const float* wt,
-                         const float* u, const float* sc, long long n, int d, int max_grid,
-                         double* part, float* out, cudaStream_t stream) {
+  static cudaError_t run(const Args& a) {
+    static LaunchCache cache;
     auto kernel = vg_kernel<T, L, VEC, NV>;
-    const size_t smem = sizeof(double) * (d + 2);
+    const size_t smem = sizeof(double) * (a.d + 2);
     int grid = 0;
-    const long long need = (n + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
-    cudaError_t e = grid_for(kernel, smem, need, max_grid, &grid);
+    const long long need = (a.n + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
+    cudaError_t e = cache.grid(kernel, kThreads, smem, false, a.dev, a.d, need, a.max_grid, &grid);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(X), y, off, wt, u, sc, n, d, part);
+    kernel<<<grid, kThreads, smem, a.stream>>>(static_cast<const T*>(a.X), a.y, a.off, a.wt, a.u,
+                                               a.cp, a.c, a.n, a.d, a.part);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    reduce_partials<<<d + 2, kReduceThreads, 0, stream>>>(part, grid, d + 2, out);
+    reduce_partials<<<a.d + 2, kReduceThreads, 0, a.stream>>>(a.part, grid, a.d + 2, a.out);
     return cudaGetLastError();
   }
 };
 
 template <typename T, int L>
 struct VgTilesOp {
-  static cudaError_t run(const void* X, const float* y, const float* off, const float* wt,
-                         const float* u, const float* sc, long long n, int d, int max_grid,
-                         double* part, float* out, cudaStream_t stream) {
-    const TilePlan p = tile_plan(d, sizeof(T));
+  static cudaError_t run(const Args& a) {
+    static LaunchCache cache;
+    const TilePlan p = tile_plan(a.d, sizeof(T));
     auto kernel = vg_tiles_kernel<T, L>;
-    // once per instantiation: the most dynamic shared memory the card lets
-    // a block have (setting it on every call would cost host time per call)
-    static const cudaError_t attr = [kernel] {
-      int dev = 0, most = 0;
-      cudaError_t err = cudaGetDevice(&dev);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-      return err;
-    }();
-    cudaError_t e = attr;
     int grid = 0;
-    if (e == cudaSuccess) e = grid_for(kernel, p.smem, (n + p.rows - 1) / p.rows, max_grid, &grid);
+    cudaError_t e = cache.grid(kernel, kThreads, p.smem, true, a.dev, a.d,
+                               (a.n + p.rows - 1) / p.rows, a.max_grid, &grid);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, kThreads, p.smem, stream>>>(static_cast<const T*>(X), y, off, wt, u, sc, n, d,
-                                               p.rows, p.stages, p.partitions, p.rotation,
-                                               p.stage_bytes, part);
+    kernel<<<grid, kThreads, p.smem, a.stream>>>(static_cast<const T*>(a.X), a.y, a.off, a.wt, a.u,
+                                                 a.cp, a.c, a.n, a.d, p.rows, p.stages,
+                                                 p.partitions, p.rotation, p.stage_bytes, a.part);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    reduce_partials<<<d + 2, kReduceThreads, 0, stream>>>(part, grid, d + 2, out);
+    reduce_partials<<<a.d + 2, kReduceThreads, 0, a.stream>>>(a.part, grid, a.d + 2, a.out);
     return cudaGetLastError();
   }
 };
 
 template <typename T, int L, int VEC, int NV>
 struct HvpOp {
-  static cudaError_t run(const void* X, const float* y, const float* off, const float* wt,
-                         const float* u, const float* v, const float* sc, long long n, int d,
-                         int max_grid, double* part, float* out, cudaStream_t stream) {
+  static cudaError_t run(const Args& a) {
+    static LaunchCache cache;
     auto kernel = hvp_kernel<T, L, VEC, NV>;
-    const size_t smem = sizeof(double) * (d + 1);
+    const size_t smem = sizeof(double) * (a.d + 1);
     int grid = 0;
-    const long long need = (n + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
-    cudaError_t e = grid_for(kernel, smem, need, max_grid, &grid);
+    const long long need = (a.n + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
+    cudaError_t e = cache.grid(kernel, kThreads, smem, false, a.dev, a.d, need, a.max_grid, &grid);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(X), y, off, wt, u, v, sc, n, d,
-                                             part);
+    kernel<<<grid, kThreads, smem, a.stream>>>(static_cast<const T*>(a.X), a.y, a.off, a.wt, a.u,
+                                               a.v, a.cp, a.cvp, a.c, a.cv, a.n, a.d, a.part);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    reduce_partials<<<d + 1, kReduceThreads, 0, stream>>>(part, grid, d + 1, out);
+    reduce_partials<<<a.d + 1, kReduceThreads, 0, a.stream>>>(a.part, grid, a.d + 1, a.out);
     return cudaGetLastError();
   }
 };
 
 // Smallest NV in the instantiated set with d <= 32 * VEC * NV; every set
 // reaches kMaxFeatures with at most 32 columns per lane.
-template <template <typename, int, int, int> class Op, typename T, int L, int VEC, typename... A>
-cudaError_t by_width(int d, A... args) {
+template <template <typename, int, int, int> class Op, typename T, int L, int VEC>
+cudaError_t by_width(const Args& a) {
   constexpr int kPerNv = 32 * VEC;
+  const int d = a.d;
   if constexpr (VEC == 1) {  // scalar loads (unaligned rows): NV in {8, 32}
-    if (d <= 8 * kPerNv) return Op<T, L, VEC, 8>::run(args...);
-    return Op<T, L, VEC, 32>::run(args...);
+    if (d <= 8 * kPerNv) return Op<T, L, VEC, 8>::run(a);
+    return Op<T, L, VEC, 32>::run(a);
   } else if constexpr (VEC == 8) {  // bfloat16 16-byte vectors: NV in {1, 2, 4}
-    if (d <= kPerNv) return Op<T, L, VEC, 1>::run(args...);
-    if (d <= 2 * kPerNv) return Op<T, L, VEC, 2>::run(args...);
-    return Op<T, L, VEC, 4>::run(args...);
+    if (d <= kPerNv) return Op<T, L, VEC, 1>::run(a);
+    if (d <= 2 * kPerNv) return Op<T, L, VEC, 2>::run(a);
+    return Op<T, L, VEC, 4>::run(a);
   } else {  // float32 16-byte vectors: NV in {1, 2, 4, 8}
-    if (d <= kPerNv) return Op<T, L, VEC, 1>::run(args...);
-    if (d <= 2 * kPerNv) return Op<T, L, VEC, 2>::run(args...);
-    if (d <= 4 * kPerNv) return Op<T, L, VEC, 4>::run(args...);
-    return Op<T, L, VEC, 8>::run(args...);
+    if (d <= kPerNv) return Op<T, L, VEC, 1>::run(a);
+    if (d <= 2 * kPerNv) return Op<T, L, VEC, 2>::run(a);
+    if (d <= 4 * kPerNv) return Op<T, L, VEC, 4>::run(a);
+    return Op<T, L, VEC, 8>::run(a);
   }
 }
 
-template <template <typename, int, int, int> class Op, typename T, int L, typename... A>
-cudaError_t by_layout(const void* X, int d, A... args) {
+// The rows layout: 16-byte vector loads where rows are 16-byte aligned.
+template <template <typename, int, int, int> class Op, typename T, int L>
+cudaError_t by_layout(const Args& a) {
   constexpr int kWide = 16 / static_cast<int>(sizeof(T));
-  const bool wide = d % kWide == 0 && reinterpret_cast<std::uintptr_t>(X) % 16 == 0;
-  if (wide) return by_width<Op, T, L, kWide>(d, args...);
-  return by_width<Op, T, L, 1>(d, args...);
-}
-
-template <template <typename, int, int, int> class Op, typename T, typename... A>
-cudaError_t by_loss(int loss, const void* X, int d, A... args) {
-  switch (loss) {
-    case kLogistic: return by_layout<Op, T, kLogistic>(X, d, args...);
-    case kSquared: return by_layout<Op, T, kSquared>(X, d, args...);
-    case kPoisson: return by_layout<Op, T, kPoisson>(X, d, args...);
-    case kSmoothedHinge: return by_layout<Op, T, kSmoothedHinge>(X, d, args...);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// Template dispatch over (storage type, loss id, load width, columns per lane).
-template <template <typename, int, int, int> class Op, typename... A>
-cudaError_t dispatch(int x_bf16, int loss, const void* X, int d, A... args) {
-  if (d < 1 || d > kMaxFeatures) return cudaErrorInvalidValue;
-  if (x_bf16) return by_loss<Op, __nv_bfloat16>(loss, X, d, X, args...);
-  return by_loss<Op, float>(loss, X, d, X, args...);
+  const bool wide = a.d % kWide == 0 && reinterpret_cast<std::uintptr_t>(a.X) % 16 == 0;
+  if (wide) return by_width<Op, T, L, kWide>(a);
+  return by_width<Op, T, L, 1>(a);
 }
 
 inline bool aligned16(const void* p) {
@@ -823,31 +879,47 @@ inline bool aligned16(const void* p) {
 // 16-byte aligned, two stages fit) and d is at most the storage type's
 // kTilesMaxFeatures*, else the rows layout (vg_kernel).
 template <typename T, int L>
-cudaError_t vg_launch(int layout, const void* X, const float* y, const float* off,
-                      const float* wt, const float* u, const float* sc, long long n, int d,
-                      int max_grid, double* part, float* out, cudaStream_t stream) {
+cudaError_t vg_launch(int layout, const Args& a) {
   constexpr int kTilesMax =
       std::is_same<T, float>::value ? kTilesMaxFeaturesF32 : kTilesMaxFeaturesBf16;
-  const bool tiles_ok = tile_plan(d, sizeof(T)).stages >= 2 && aligned16(X) && aligned16(y) &&
-                        (off == nullptr || aligned16(off)) && (wt == nullptr || aligned16(wt));
-  if (layout == kLayoutAuto) layout = tiles_ok && d <= kTilesMax ? kLayoutTiles : kLayoutRows;
+  const bool tiles_ok = tile_plan(a.d, sizeof(T)).stages >= 2 && aligned16(a.X) && aligned16(a.y) &&
+                        (a.off == nullptr || aligned16(a.off)) && (a.wt == nullptr || aligned16(a.wt));
+  if (layout == kLayoutAuto) layout = tiles_ok && a.d <= kTilesMax ? kLayoutTiles : kLayoutRows;
   if (layout == kLayoutTiles) {
     if (!tiles_ok) return cudaErrorInvalidValue;
-    return VgTilesOp<T, L>::run(X, y, off, wt, u, sc, n, d, max_grid, part, out, stream);
+    return VgTilesOp<T, L>::run(a);
   }
   if (layout != kLayoutRows) return cudaErrorInvalidValue;
-  return by_layout<VgOp, T, L>(X, d, X, y, off, wt, u, sc, n, d, max_grid, part, out, stream);
+  return by_layout<VgOp, T, L>(a);
 }
 
-template <typename T, typename... A>
-cudaError_t vg_by_loss(int loss, A... args) {
+// K1 in its layout; K2, which has the rows layout only (hvp_kernel, then
+// reduce_partials).
+template <typename T, int L, bool kHvp>
+cudaError_t by_kernel(int layout, const Args& a) {
+  if constexpr (kHvp) {
+    return by_layout<HvpOp, T, L>(a);
+  } else {
+    return vg_launch<T, L>(layout, a);
+  }
+}
+
+template <typename T, bool kHvp>
+cudaError_t by_loss(int loss, int layout, const Args& a) {
   switch (loss) {
-    case kLogistic: return vg_launch<T, kLogistic>(args...);
-    case kSquared: return vg_launch<T, kSquared>(args...);
-    case kPoisson: return vg_launch<T, kPoisson>(args...);
-    case kSmoothedHinge: return vg_launch<T, kSmoothedHinge>(args...);
+    case kLogistic: return by_kernel<T, kLogistic, kHvp>(layout, a);
+    case kSquared: return by_kernel<T, kSquared, kHvp>(layout, a);
+    case kPoisson: return by_kernel<T, kPoisson, kHvp>(layout, a);
+    case kSmoothedHinge: return by_kernel<T, kSmoothedHinge, kHvp>(layout, a);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kHvp>
+int launch(int x_bf16, int loss, int layout, const Args& a) {
+  if (a.d < 1 || a.d > kMaxFeatures) return static_cast<int>(cudaErrorInvalidValue);
+  if (x_bf16) return static_cast<int>(by_loss<__nv_bfloat16, kHvp>(loss, layout, a));
+  return static_cast<int>(by_loss<float, kHvp>(loss, layout, a));
 }
 
 }  // namespace
@@ -855,37 +927,37 @@ cudaError_t vg_by_loss(int loss, A... args) {
 extern "C" {
 
 // K1 in a given layout (VgLayout: -1 by the rule, 0 rows, 1 tiles; a layout
-// that cannot run on these pointers and shapes is refused). Returns the
+// that cannot run on these pointers and shapes is refused). c is read from
+// the card at `cp` where it is given, else passed by value. `device` is the
+// CUDA ordinal the pointers and the stream belong to. Returns the
 // cudaError_t of the launches (0 on success). `part` holds at least
 // max_grid * (d + 2) doubles, `out` d + 2 floats: [X^T r | value | r-sum].
 int photon_fused_vg_layout(const void* X, int x_bf16, const float* y, const float* off,
-                           const float* wt, const float* u, const float* sc, long long n, int d,
-                           int loss, int max_grid, double* part, float* out, void* stream,
-                           int layout) {
-  if (d < 1 || d > kMaxFeatures) return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return static_cast<int>(vg_by_loss<__nv_bfloat16>(loss, layout, X, y, off, wt, u, sc, n, d,
-                                                      max_grid, part, out, st));
-  return static_cast<int>(
-      vg_by_loss<float>(loss, layout, X, y, off, wt, u, sc, n, d, max_grid, part, out, st));
+                           const float* wt, const float* u, const float* cp, float c, long long n,
+                           int d, int loss, int device, int max_grid, double* part, float* out,
+                           void* stream, int layout) {
+  const Args a{X, y, off, wt, u, nullptr, cp, nullptr, c, 0.f, n, d, device, max_grid, part, out,
+               static_cast<cudaStream_t>(stream)};
+  return launch<false>(x_bf16, loss, layout, a);
 }
 
 // K1 in the layout the rule picks.
 int photon_fused_vg(const void* X, int x_bf16, const float* y, const float* off,
-                    const float* wt, const float* u, const float* sc, long long n, int d,
-                    int loss, int max_grid, double* part, float* out, void* stream) {
-  return photon_fused_vg_layout(X, x_bf16, y, off, wt, u, sc, n, d, loss, max_grid, part, out,
-                                stream, kLayoutAuto);
+                    const float* wt, const float* u, const float* cp, float c, long long n, int d,
+                    int loss, int device, int max_grid, double* part, float* out, void* stream) {
+  return photon_fused_vg_layout(X, x_bf16, y, off, wt, u, cp, c, n, d, loss, device, max_grid,
+                                part, out, stream, kLayoutAuto);
 }
 
-// `part` holds at least max_grid * (d + 1) floats, `out` d + 1: [X^T q | q-sum].
+// K2. c and cv as K1's c. `part` holds at least max_grid * (d + 1)
+// doubles, `out` d + 1 floats: [X^T q | q-sum].
 int photon_fused_hvp(const void* X, int x_bf16, const float* y, const float* off,
-                     const float* wt, const float* u, const float* v, const float* sc,
-                     long long n, int d, int loss, int max_grid, double* part, float* out,
-                     void* stream) {
-  return static_cast<int>(dispatch<HvpOp>(x_bf16, loss, X, d, y, off, wt, u, v, sc, n, d,
-                                          max_grid, part, out, static_cast<cudaStream_t>(stream)));
+                     const float* wt, const float* u, const float* v, const float* cp,
+                     const float* cvp, float c, float cv, long long n, int d, int loss, int device,
+                     int max_grid, double* part, float* out, void* stream) {
+  const Args a{X, y, off, wt, u, v, cp, cvp, c, cv, n, d, device, max_grid, part, out,
+               static_cast<cudaStream_t>(stream)};
+  return launch<true>(x_bf16, loss, kLayoutRows, a);
 }
 
 }  // extern "C"

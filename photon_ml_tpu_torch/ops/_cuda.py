@@ -104,15 +104,17 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # X, x_bf16, y, off, wt, u, sc, n, d, loss, max_grid, part, out, stream
-        lib.photon_fused_vg.argtypes = [p, i, p, p, p, p, p, ll, i, i, i, p, p, p]
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        # X, x_bf16, y, off, wt, u, c_ptr, c, n, d, loss, device, max_grid, part, out, stream
+        vg = [p, i, p, p, p, p, p, f, ll, i, i, i, i, p, p, p]
+        lib.photon_fused_vg.argtypes = vg
         lib.photon_fused_vg.restype = i
         # the same, then the layout (-1 by the rule, 0 rows, 1 tiles)
-        lib.photon_fused_vg_layout.argtypes = [p, i, p, p, p, p, p, ll, i, i, i, p, p, p, i]
+        lib.photon_fused_vg_layout.argtypes = vg + [i]
         lib.photon_fused_vg_layout.restype = i
-        # X, x_bf16, y, off, wt, u, v, sc, n, d, loss, max_grid, part, out, stream
-        lib.photon_fused_hvp.argtypes = [p, i, p, p, p, p, p, p, ll, i, i, i, p, p, p]
+        # X, x_bf16, y, off, wt, u, v, c_ptr, cv_ptr, c, cv, n, d, loss, device,
+        # max_grid, part, out, stream
+        lib.photon_fused_hvp.argtypes = [p, i, p, p, p, p, p, p, p, f, f, ll, i, i, i, i, p, p, p]
         lib.photon_fused_hvp.restype = i
         # offsets, read, values, storage, scale, scale_ld, src, read_len,
         # write_len, nnz, tile_write, carry, square, out, stream

@@ -9,10 +9,11 @@ says how they work.
 Bound on an H100 SXM: each reads X once and everything else is O(n + d),
 so each is bound by the bytes of X over 3.35 TB/s: 0.32 ms for the
 headline X (n = 2^20, d = 512, bfloat16: 1 GiB) and 0.32 ms for config B's
-X (n = 2^20, d = 256, float32: 1 GiB), 1.6 ms for GAME's fixed effect at
-MovieLens-20M depth (20,000,263 x 65, float32). The design reads X exactly
-once per evaluation and keeps margins and r / q on the chip, never in
-device memory.
+X (n = 2^20, d = 256, float32: 1 GiB), 0.041 ms for config B's streamed
+chunk (2^17 rows), 1.6 ms for GAME's fixed effect at MovieLens-20M depth
+(20,000,263 x 65, float32). The design reads X exactly once per
+evaluation and keeps margins and r / q on the chip, never in device
+memory.
 
 K1 has two layouts, picked by shape and alignment alone (``vg_plan``
 mirrors the kernel's rule): "rows", a warp per row with the row in
@@ -27,22 +28,27 @@ threads for Xᵀr; ``tile_plan`` gives its geometry.
 Each wrapper takes a CPU tensor to its plain PyTorch version
 (``fused_value_grad_reference`` / ``fused_hvp_reference``: the same row
 masking, loss and casts, with float64 sums) and a CUDA tensor to its
-kernel; any other device raises, and a kernel that fails to launch raises.
-The plain versions are what the CPU tests run and what ``chip_smoke.py``
-holds the kernels against on the card.
+kernel; any other device raises, and a kernel that fails to build or
+launch raises. The plain versions are what the CPU tests run and what
+``chip_smoke.py`` holds the kernels against on the card.
 
-``launch_counts`` counts the kernel launches of each wrapper (plain
+A call on the card does little on the host: it checks its inputs, takes
+c and cv where the caller holds them (a float32 scalar tensor on the card
+is read there, a Python number passes by value), allocates its output,
+and reuses the blocks' float64 partials, kept per device and stream.
+
+``launch_counts`` counts the calls that launched each kernel (plain
 integers; ``reset_launch_counts`` zeroes them).
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
+from photon_ml_tpu_torch.ops import _cuda
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
 Tensor = torch.Tensor
@@ -190,11 +196,14 @@ def fused_hvp_reference(X, labels, offsets, weights, u, v, c, cv, *, loss: Point
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _ptr(t: Tensor | None):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _check(X, labels, offsets, weights, vectors) -> None:
+    """Raise unless X is a contiguous (n, d) float32 / bfloat16 tensor the
+    kernels take and every other input a contiguous float32 vector of its
+    length on X's device."""
     if X.dim() != 2 or not X.is_contiguous():
         raise ValueError("X must be a contiguous (n, d) tensor")
     n, d = X.shape
@@ -203,26 +212,52 @@ def _check(X, labels, offsets, weights, vectors) -> None:
             f"fused kernels take float32/bfloat16 X with 1 <= d <= {MAX_FEATURES}; "
             f"got {tuple(X.shape)} {X.dtype}"
         )
-    for name, t, size in (
-        [("labels", labels, n), ("offsets", offsets, n), ("weights", weights, n)]
-        + [(f"vector {k}", t, d) for k, t in enumerate(vectors)]
-    ):
-        if t is None:
-            continue
-        if t.device != X.device or t.dtype != torch.float32 or t.shape != (size,) or not t.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous float32 ({size},) tensor on {X.device}"
-            )
+    device = X.get_device()
+    for k, (t, size) in enumerate(((labels, n), (offsets, n), (weights, n), *((t, d) for t in vectors))):
+        if t is not None and (t.dtype is not torch.float32 or t.dim() != 1 or t.shape[0] != size
+                              or t.get_device() != device or not t.is_contiguous()):
+            name = ("labels", "offsets", "weights")[k] if k < 3 else f"vector {k - 3}"
+            raise ValueError(f"{name} must be a contiguous float32 ({size},) tensor on {X.device}")
 
 
-def _scalars(X: Tensor, *values) -> Tensor:
-    return torch.stack(
-        [torch.as_tensor(s, dtype=torch.float32, device=X.device).reshape(()) for s in values]
-    )
+_workspaces: dict[tuple[int, int], tuple[int, int, Tensor]] = {}
+_raw_stream = None
 
 
-def _max_grid(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count * _MAX_BLOCKS_PER_SM
+def _current_stream(index: int) -> int:
+    """The handle of the current CUDA stream on device ``index``."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(index)
+
+
+def _workspace(device: torch.device, stream: int) -> tuple[int, int, Tensor]:
+    """(partials pointer, max_grid, partials) for a device and stream, made
+    on first use and kept: room for every block's float64 row at any
+    width. Calls on one stream run in order, so they share it; another
+    stream gets its own."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        max_grid = torch.cuda.get_device_properties(device).multi_processor_count * _MAX_BLOCKS_PER_SM
+        part = torch.empty((max_grid, MAX_FEATURES + 2), dtype=torch.float64, device=device)
+        ws = _workspaces[key] = (part.data_ptr(), max_grid, part)
+    return ws
+
+
+def _scalar(s, X: Tensor):
+    """(pointer, value, tensor kept for the launch) for c or cv: a tensor is
+    read by the kernel where it lies (moved to X's device as float32 if it
+    is not already there), a number passes by value."""
+    if isinstance(s, Tensor):
+        if s.numel() != 1:
+            raise ValueError(f"a scalar argument must have one element, not {tuple(s.shape)}")
+        if s.dtype is not torch.float32 or s.device != X.device:
+            s = s.to(device=X.device, dtype=torch.float32)
+        return s.data_ptr(), 0.0, s
+    return None, float(s), None
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -230,8 +265,10 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
-def _as_f32(t: Tensor | None) -> Tensor | None:
-    return None if t is None else t.to(torch.float32).contiguous()
+def _as_f32(t: Tensor) -> Tensor:
+    if t.dtype is torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
 
 
 def fused_value_grad(X, labels, offsets, weights, u, c, *, loss: PointwiseLoss):
@@ -251,24 +288,23 @@ def fused_value_grad_in_layout(X, labels, offsets, weights, u, c, *, loss: Point
 
 
 def _value_grad(X, labels, offsets, weights, u, c, loss, layout: int | None):
-    if X.device.type == "cpu":
+    device = X.device
+    if device.type == "cpu":
         return fused_value_grad_reference(X, labels, offsets, weights, u, c, loss=loss)
-    if X.device.type != "cuda":
-        raise ValueError(f"fused_value_grad runs on CPU or CUDA tensors, not {X.device}")
+    if device.type != "cuda":
+        raise ValueError(f"fused_value_grad runs on CPU or CUDA tensors, not {device}")
     u = _as_f32(u)
     _check(X, labels, offsets, weights, (u,))
-    from photon_ml_tpu_torch.ops import _cuda
-
     lib = _cuda.load()
     n, d = X.shape
-    sc = _scalars(X, c)
-    max_grid = _max_grid(X.device)
-    part = torch.empty((max_grid, d + 2), dtype=torch.float64, device=X.device)
-    out = torch.empty(d + 2, dtype=torch.float32, device=X.device)
+    stream = _current_stream(device.index)
+    part, max_grid, _ = _workspace(device, stream)
+    cp, cval, _c = _scalar(c, X)
+    out = torch.empty(d + 2, dtype=torch.float32, device=device)
     args = (
-        _ptr(X), int(X.dtype == torch.bfloat16), _ptr(labels), _ptr(offsets),
-        _ptr(weights), _ptr(u), _ptr(sc), n, d, loss.kernel_id, max_grid,
-        _ptr(part), _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
+        X.data_ptr(), X.dtype is torch.bfloat16, labels.data_ptr(), _ptr(offsets), _ptr(weights),
+        u.data_ptr(), cp, cval, n, d, loss.kernel_id, device.index, max_grid, part,
+        out.data_ptr(), stream,
     )
     if layout is None:  # the layout the rule picks
         rc = lib.photon_fused_vg(*args)
@@ -283,24 +319,24 @@ def fused_hvp(X, labels, offsets, weights, u, v, c, cv, *, loss: PointwiseLoss):
     """One X-read Gauss-Newton Hv: (Xᵀq, Σq) with q = w·l''(m, y)·(X@v − cv)
     and m = X@u + offsets − c; ``offsets``/``weights`` may be None as in
     ``fused_value_grad``. Returns float32 (hv, q_sum)."""
-    if X.device.type == "cpu":
+    device = X.device
+    if device.type == "cpu":
         return fused_hvp_reference(X, labels, offsets, weights, u, v, c, cv, loss=loss)
-    if X.device.type != "cuda":
-        raise ValueError(f"fused_hvp runs on CPU or CUDA tensors, not {X.device}")
+    if device.type != "cuda":
+        raise ValueError(f"fused_hvp runs on CPU or CUDA tensors, not {device}")
     u, v = _as_f32(u), _as_f32(v)
     _check(X, labels, offsets, weights, (u, v))
-    from photon_ml_tpu_torch.ops import _cuda
-
     lib = _cuda.load()
     n, d = X.shape
-    sc = _scalars(X, c, cv)
-    max_grid = _max_grid(X.device)
-    part = torch.empty((max_grid, d + 1), dtype=torch.float64, device=X.device)
-    out = torch.empty(d + 1, dtype=torch.float32, device=X.device)
+    stream = _current_stream(device.index)
+    part, max_grid, _ = _workspace(device, stream)
+    cp, cval, _c = _scalar(c, X)
+    cvp, cvval, _cv = _scalar(cv, X)
+    out = torch.empty(d + 1, dtype=torch.float32, device=device)
     rc = lib.photon_fused_hvp(
-        _ptr(X), int(X.dtype == torch.bfloat16), _ptr(labels), _ptr(offsets),
-        _ptr(weights), _ptr(u), _ptr(v), _ptr(sc), n, d, loss.kernel_id, max_grid,
-        _ptr(part), _ptr(out), ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
+        X.data_ptr(), X.dtype is torch.bfloat16, labels.data_ptr(), _ptr(offsets), _ptr(weights),
+        u.data_ptr(), v.data_ptr(), cp, cvp, cval, cvval, n, d, loss.kernel_id, device.index,
+        max_grid, part, out.data_ptr(), stream,
     )
     _raise_on(rc, "fused_hvp")
     launch_counts["fused_hvp"] += 1

@@ -2,7 +2,9 @@
 version on the same CUDA tensors, at small shapes: K1 / K2 over every loss,
 storage type, aux-input combination and load layout (16-byte rows and
 unaligned rows), K1 in both of its layouts (a warp per row, and row tiles
-staged in shared memory) over many tiles and a partial last one; K3 (the sparse kernel) over every storage rung and all
+staged in shared memory) over many tiles and a partial last one, K2 at
+every width repeating bitwise, K1 and K2 on two streams at once; K3 (the
+sparse kernel) over every storage rung and all
 three directions. Skipped without a card; run on one with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -163,6 +165,88 @@ def test_objective_on_cuda_uses_the_kernels(dev):
     torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(obj.hvp(w, w), plain.hvp(w, w), rtol=1e-4, atol=1e-4)
     assert fused.launch_counts == {"fused_value_grad": 1, "fused_hvp": 1}
+
+
+# ---------------------------------------------------------------------------
+# K2 at every width, and the launch path's workspace
+# ---------------------------------------------------------------------------
+K2_WIDTHS = [1, 7, 65, 124, 128, 255, 256, 512, 1024]
+
+
+def _k2_check(got, ref, dtype):
+    _, rg = TOL[dtype]
+    torch.testing.assert_close(got[0], ref[0], rtol=rg, atol=rg)
+    torch.testing.assert_close(got[1], ref[1], rtol=rg, atol=rg)
+
+
+@pytest.mark.parametrize("aux", [False, True], ids=["no_aux", "aux"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", K2_WIDTHS)
+@pytest.mark.parametrize("loss", list(LOSSES))
+def test_k2_matches_plain_version_at_every_width(dev, loss, d, dtype, aux):
+    """K2 at n = 20,011 with c and cv read on the card, one launch counted
+    per call."""
+    X, y, off, wt, u, v = _inputs(dev, 20_011, d, dtype, loss, aux, seed=d)
+    c, cv = torch.tensor(0.3, device=dev), torch.tensor(-0.2, device=dev)
+    fused.reset_launch_counts()
+    got = fused.fused_hvp(X, y, off, wt, u, v, c, cv, loss=LOSSES[loss])
+    ref = fused.fused_hvp_reference(X, y, off, wt, u, v, c, cv, loss=LOSSES[loss])
+    torch.cuda.synchronize()
+    assert fused.launch_counts["fused_hvp"] == 1
+    _k2_check(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 37])
+@pytest.mark.parametrize("d", [1, 65, 256, 1024])
+def test_k2_on_a_few_rows(dev, d, n, dtype):
+    X, y, off, wt, u, v = _inputs(dev, n, d, dtype, "logistic", True)
+    loss = LOSSES["logistic"]
+    got = fused.fused_hvp(X, y, off, wt, u, v, 0.1, 0.2, loss=loss)
+    ref = fused.fused_hvp_reference(X, y, off, wt, u, v, 0.1, 0.2, loss=loss)
+    torch.cuda.synchronize()
+    _k2_check(got, ref, dtype)
+
+
+@pytest.mark.parametrize("d", [124, 256, 1024])
+def test_k2_repeats_bitwise_and_takes_scalars_either_way(dev, d):
+    """K2 gives the same bits on every call, and c / cv read on the card
+    equal c / cv passed by value."""
+    X, y, off, wt, u, v = _inputs(dev, 100_003, d, torch.float32, "logistic", True)
+    loss = LOSSES["logistic"]
+    c, cv = torch.tensor(0.25, device=dev), torch.tensor(-0.5, device=dev)
+    runs = [fused.fused_hvp(X, y, off, wt, u, v, c, cv, loss=loss) for _ in range(5)]
+    runs.append(fused.fused_hvp(X, y, off, wt, u, v, 0.25, -0.5, loss=loss))
+    for got in runs[1:]:
+        for a, b in zip(runs[0], got):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [65, 256])
+def test_k1_and_k2_on_two_streams_at_once(dev, d):
+    """Two streams launching K1 and K2 in turn, together, each keep their
+    own partials workspace: every result equals its one-stream result (at
+    d = 65 K1 takes its tiles layout, at 256 its rows layout)."""
+    loss = LOSSES["squared"]
+    cases = [_inputs(dev, 200_003, d, torch.float32, "squared", True, seed=s) for s in (1, 2)]
+
+    def both(X, y, off, wt, u, v):
+        return (*fused.fused_value_grad(X, y, off, wt, u, 0.1, loss=loss),
+                *fused.fused_hvp(X, y, off, wt, u, v, 0.1, 0.0, loss=loss))
+
+    alone = [both(*case) for case in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in cases]
+    got: list[list] = [[], []]
+    for _ in range(20):
+        for k, (case, st_) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(st_):
+                got[k].append(both(*case))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for res in got[k]:
+            for a, b in zip(alone[k], res):
+                assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -323,7 +323,7 @@ def _tiles_model(X, y, off, wt, u, c, loss, plan, grid):
 @pytest.mark.parametrize("d", [5, 64, 65])
 def test_tiles_schedule_model_matches_the_plain_version(d, dtype):
     """The schedule of ``vg_tiles_kernel`` with the plan ``tile_plan``
-    gives, over three blocks and a partial last tile, the plain version's
+    gives, over seven blocks and a ragged last tile, the plain version's
     sums: each row's margin and each column's sum take every element once."""
     tdt = getattr(torch, dtype)
     plan = tfused.tile_plan(d, tdt)
@@ -364,6 +364,11 @@ def test_kernel_source_agrees_with_the_wrappers():
     for name, value in constants.items():
         assert re.search(rf"constexpr int {name} = {value};", src), name
     assert '#include "ring.cuh"' in src
+    # the C entries the wrappers call, with the argument counts _cuda.load declares
+    for entry, count in (("photon_fused_vg", 16), ("photon_fused_vg_layout", 17),
+                         ("photon_fused_hvp", 19)):
+        body = re.search(rf"\bint {entry}\(([^)]*)\)", src)
+        assert body and body.group(1).count(",") + 1 == count, entry
 
 
 def test_kernel_headers_feed_the_library_name(monkeypatch, tmp_path):
@@ -375,3 +380,99 @@ def test_kernel_headers_feed_the_library_name(monkeypatch, tmp_path):
     edited.write_text(_cuda.HEADERS[0].read_text() + "\n// edited\n")
     monkeypatch.setattr(_cuda, "HEADERS", (edited,))
     assert _cuda.library_path() != before
+
+
+# ---------------------------------------------------------------------------
+# K2's schedule (``hvp_kernel``, then ``reduce_partials``)
+# ---------------------------------------------------------------------------
+def _rows_lanes(d: int, itemsize: int) -> list[list[int]]:
+    """Each lane's columns in the rows layout: ``by_layout`` / ``by_width``
+    pick 16-byte vectors of VEC elements where d is a multiple of VEC (X
+    taken as aligned) and the fewest NV vectors a lane that reach d; lane l
+    holds columns (k·32 + l)·VEC + e for k < NV, e < VEC, those below d."""
+    wide = 16 // itemsize
+    vec = wide if d % wide == 0 else 1
+    nvs = (8, 32) if vec == 1 else (1, 2, 4) if vec == 8 else (1, 2, 4, 8)
+    nv = next(k for k in nvs if d <= 32 * vec * k)
+    return [[j for k in range(nv) for e in range(vec) if (j := (k * 32 + lane) * vec + e) < d]
+            for lane in range(32)]
+
+
+def _hvp_rows_model(X, y, off, wt, u, v, c, cv, loss, grid):
+    """The rows kernel's schedule in float64: warp w of block b (W = 8·grid
+    warps) takes rows 8b + w, 8b + w + W, ...; each lane dots its columns
+    (``_rows_lanes``) and the butterfly adds the lanes; q in float32 (rounded
+    to the storage type for Xᵀq); the warps of a block add into its row of
+    partials in warp order; ``reduce_partials`` sums column j as 256
+    threads, thread t over blocks t, t + 256, ..., then a halving tree.
+    Every row and column must be counted exactly once."""
+    n, d = X.shape
+    lanes = _rows_lanes(d, X.element_size())
+    assert sorted(j for cols in lanes for j in cols) == list(range(d))
+    warps = 8 * grid
+    xd, ud, vd = X.double(), u.to(X.dtype).double(), v.to(X.dtype).double()
+    lane_of = torch.zeros((d, 32), dtype=torch.float64)
+    for lane, cols in enumerate(lanes):
+        lane_of[cols, lane] = 1.0
+    du = ((xd * ud) @ lane_of).sum(1)  # each lane's partial dot, then the butterfly
+    dv = ((xd * vd) @ lane_of).sum(1)
+    m = du.float() - c
+    if off is not None:
+        m = m + off
+    d2 = loss.d2(m, y)
+    if wt is not None:
+        d2 = torch.where(wt != 0, wt * d2, 0.0)
+    q = d2 * (dv.float() - cv)
+    rows = torch.cat([xd * q.to(X.dtype).double()[:, None], q.double()[:, None]], 1)
+    per_warp = torch.zeros((warps, d + 1), dtype=torch.float64)
+    per_warp.index_add_(0, torch.arange(n) % warps, rows)
+    part = torch.zeros((grid, d + 1), dtype=torch.float64)
+    for w in range(8):  # warp order within each block
+        part += per_warp[w::8]
+    threads = torch.zeros((256, d + 1), dtype=torch.float64)
+    for t in range(min(256, grid)):
+        for g in range(t, grid, 256):
+            threads[t] += part[g]
+    o = 128
+    while o > 0:
+        threads[:o] += threads[o:2 * o]
+        o //= 2
+    return threads[0, :d].float(), threads[0, d].float()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_rows_lanes_take_each_column_once(dtype):
+    """At every width the lanes' columns cover the row once, at most 32 a
+    lane (the kernel's register arrays)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for d in range(1, tfused.MAX_FEATURES + 1):
+        lanes = _rows_lanes(d, itemsize)
+        assert sorted(j for cols in lanes for j in cols) == list(range(d))
+        assert max(len(cols) for cols in lanes) <= 32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_aux", [False, True], ids=["no_aux", "aux"])
+@pytest.mark.parametrize("d", [1, 7, 65, 124, 256, 300])
+@pytest.mark.parametrize("loss", LOSS_NAMES)
+def test_hvp_rows_schedule_model_matches_plain_and_pallas(loss, d, with_aux, dtype):
+    """The schedule of ``hvp_kernel`` over the grid the launch path gives
+    n = 4091 rows (one block per 128 rows: 32 blocks, 16 rows a warp) gives
+    the plain version's sums (each row's dots and each column's sum take
+    every element once) and the JAX package's Pallas kernel's, at
+    tests/test_fused.py's tolerances."""
+    n = 4091
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    X, y, off, wt, u, v, c, cv = _case(d + 1000 * with_aux, n, d, loss, with_aux)
+    u = (u / max(1.0, math.sqrt(d) / 4)).astype(np.float32)  # margins of order one at every width
+    v = (v / math.sqrt(d)).astype(np.float32)
+    targs = (_torch(X, tdt), _torch(y), _torch(off), _torch(wt), _torch(u), _torch(v), float(c), float(cv))
+    got = _hvp_rows_model(*targs, TLOSSES[loss], grid=-(-n // 128))
+    ref = tfused.fused_hvp_reference(*targs, loss=TLOSSES[loss])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=1e-6)
+    jh, jq = jfused.fused_hvp(_jax(X, jdt), _jax(y), _jax(off), _jax(wt), _jax(u), _jax(v), c, cv,
+                              loss=JLOSSES[loss], interpret=True)
+    tol = TOL[dtype]["grad"]
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jh), rtol=tol, atol=tol)
+    np.testing.assert_allclose(float(got[1]), float(jq), rtol=tol, atol=tol)
