@@ -4,8 +4,8 @@ paths, its GAME mixed-effect training path (random effects on damped
 Newton, on the default lane solvers and in per-entity subspaces and random
 projections), its GAME train and score drivers on Avro files, read by
 the native columnar decoder, its out-of-core GLM and GAME paths (host
-data streamed through the card), and its data-parallel GLM paths (row
-shards of the card, and two processes over gloo) on one CUDA card.
+data streamed through the card), and its data-parallel GLM and GAME
+paths (shards of the card, and two processes over gloo) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -90,6 +90,21 @@ Run from the root of a checkout. It builds the CUDA kernels from
    effect's objective passes, train AUC >= 0.95 x the generating model's;
    then K1 alone at that shape (20,000,263 x 65, float32, offsets read) as
    at D's; K1 must take its tiles layout at both shapes;
+12b. main_e_sharded: main_e's batch and schedule over a data mesh of 4
+   shards of the card (the fixed effect row-sharded, K1 once per shard a
+   pass; each bucket's entity lanes split over the shards), then the same
+   fit again: K1 = 4 x the fixed effect's passes, the repeat bitwise
+   equal, against main_e |dAUC| <= 0.005, relative d(fixed objective)
+   <= 1e-3 and the random effects within atol 2e-3 / rtol 1e-2; the wall
+   per outer iteration beside main_e's and each visit's seconds in the
+   shard reductions; then main_e_multihost: two processes of this script
+   on the card, 2 local shards each of a 4-shard mesh across them, each
+   drawing main_e's rows on the card and keeping the replicated copy on
+   the host: both processes' models bitwise equal and bitwise equal to
+   main_e_sharded, K1 = 2 x passes in each, each process's peak device
+   memory below main_e's; the wall per outer iteration and each visit's
+   seconds in gloo collectives and in the score row gather (and its
+   bytes);
 13. agreement_e: config E at bench.py's own shape (n = 2^18, 20,000 users
    and 4,000 items), 4 outer iterations on K1 and again with the kernels
    vetoed (which must launch none): |dAUC| <= 0.005 and relative d(training
@@ -190,7 +205,18 @@ Run from the root of a checkout. It builds the CUDA kernels from
    coefficients (rtol 1e-2 / atol 1e-3) main_glm_streamed_cli's, only
    process 0 writing (no ``best/`` or ``checkpoints/`` from process 1),
    and a rerun resuming every lambda from process 0's checkpoints (the
-   file unchanged, the model within rtol 1e-6);
+   file unchanged, the model within rtol 1e-6); then
+   main_game_multihost_cli: ``cli.train --multihost`` in memory in two
+   processes of this script on main_game_cli's files and 2-iteration
+   configuration (every process reads every file to the host, one shard
+   each on the card), the same command again, then ``cli.score
+   --multihost`` on the validation files: the best index main_game_cli's,
+   every model within rtol 1e-2 / atol 1e-3 of its 2-iteration run, only
+   process 0 writing, the rerun resuming both grid entries with the same
+   model and checkpoint, the scores part files' union equal to the
+   one-process score driver's scores of the same model (1e-5) and the one
+   ``metrics.json`` to its metrics (1e-6), K1 = the fixed effect's passes
+   in each process;
 18b. main_game_cli_streamed: ``cli.train.main --streaming-chunk-rows
    32768`` (8 chunks) on phase 16's files and configuration, 2 outer
    iterations, then a rerun to 3 that resumes both grid entries at outer
@@ -242,7 +268,7 @@ fails its phase. The kernels are built once, before any child starts.
 Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
 E on L-BFGS, E projected, the GAME drivers, the six out-of-core
-phases and the four data-parallel ones, which ``launches_by_path`` lists
+phases and the seven data-parallel ones, which ``launches_by_path`` lists
 one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
@@ -311,6 +337,8 @@ from photon_ml_tpu_torch.ops.losses import LOSSES
 from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks
 from photon_ml_tpu_torch.optim import lbfgs_minimize, select_minimize_fn
 from photon_ml_tpu_torch.parallel import DistributedTrainer, data_mesh, sharded_objective
+from photon_ml_tpu_torch.parallel.distributed import reduction_stats
+from photon_ml_tpu_torch.parallel.mesh import process_mesh
 from photon_ml_tpu_torch.parallel.multihost import (
     collective_stats,
     initialize_multihost,
@@ -1201,18 +1229,29 @@ def recording_visits():
         RandomEffectCoordinate.train = train
 
 
-def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None, validation=None) -> dict:
+def _exchange_snapshot() -> dict:
+    """The host collectives' running totals a data-mesh fit reads per visit:
+    the shard reductions (``reduction_s``), every gloo collective
+    (``collective_s``) and the score row gathers (``score_exchange_*``)."""
+    return dict(reduction_s=reduction_stats["seconds"], collective_s=collective_stats["seconds"],
+                score_exchange_s=game_coordinate.score_exchange_stats["seconds"],
+                score_exchange_bytes=game_coordinate.score_exchange_stats["bytes"])
+
+
+def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None, validation=None, mesh=None) -> dict:
     """``GameEstimator.fit`` and ``select_best`` with every kernel's launch
     count zeroed just before and read just after. The estimator's logger
     marks the end of the host ingest and of every coordinate visit (each
     mark synchronizes the card, then calls ``on_mark``), which times the
     visits and the outer iterations and counts each visit's read-backs
-    (``counting_readbacks``)."""
+    (``counting_readbacks``). With a data ``mesh`` each visit also carries
+    its seconds in the shard reductions, in gloo collectives and in the
+    score row gather, and that gather's bytes."""
     marks = []
 
     def mark(msg: str) -> None:
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), msg, reads[0]))
+        marks.append((time.perf_counter(), msg, reads[0], _exchange_snapshot()))
         if on_mark is not None:
             on_mark()
 
@@ -1221,25 +1260,25 @@ def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None, validation=No
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with counting_readbacks() as reads:
-        est = GameEstimator(config, intercept_indices={"global": D_FIXED}, logger=mark, device=dev)
+        est = GameEstimator(config, intercept_indices={"global": D_FIXED}, logger=mark, device=dev, mesh=mesh)
         best = est.select_best(est.fit(batch, validation_batch=validation))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    visits, prev, prev_reads = [], marks[0][0], marks[0][2]
-    for t, msg, n_reads in marks[1:]:
+    visits, (prev, _, prev_reads, prev_x) = [], marks[0]
+    for t, msg, n_reads, x in marks[1:]:
         if not msg.startswith("iter "):
             continue  # the grid entry's closing validation line
         it, cid = msg.split(":")[0].removeprefix("iter ").split(" coordinate ")
-        visits.append(dict(iteration=int(it), coordinate=cid, wall_s=t - prev,
-                           readbacks=n_reads - prev_reads))
-        prev, prev_reads = t, n_reads
+        visits.append(dict(iteration=int(it), coordinate=cid, wall_s=t - prev, readbacks=n_reads - prev_reads,
+                           **({k: x[k] - prev_x[k] for k in x} if mesh is not None else {})))
+        prev, prev_reads, prev_x = t, n_reads, x
     iters = [sum(v["wall_s"] for v in visits if v["iteration"] == i)
              for i in range(config.coordinate_descent_iterations)]
     fixed = best.descent.trackers["fixed"]
     return dict(best=best, wall_s=wall, ingest_s=marks[0][0] - t0, visits=visits,
                 iteration_wall_s=iters, launches=launch_counts(),
                 fixed_objective_passes=sum(t.objective_passes for t in fixed),
-                fixed_iterations=[t.iterations for t in fixed])
+                fixed_iterations=[t.iterations for t in fixed], fixed_objective=float(fixed[-1].value))
 
 
 def game_quality(fit: dict, batch, data) -> dict:
@@ -1296,7 +1335,20 @@ def _game_record(fit: dict, warmup: int = 0) -> dict:
                 timed_wall_s_per_visit={c: sum(w) / len(w) for c, w in per_visit.items()},
                 timed_readbacks_per_visit={c: sum(r) / len(r) for c, r in reads.items()},
                 launches=fit["launches"], fixed_objective_passes=fit["fixed_objective_passes"],
-                fixed_iterations=fit["fixed_iterations"])
+                fixed_iterations=fit["fixed_iterations"], fixed_objective=fit["fixed_objective"])
+
+
+def _exchange_per_visit(fit: dict, warmup: int) -> dict:
+    """A data-mesh fit's timed visits: per coordinate the mean seconds in
+    shard reductions, gloo collectives and the score row gather, and that
+    gather's bytes, a visit."""
+    out: dict = {}
+    for v in fit["visits"]:
+        if v["iteration"] >= warmup:
+            row = out.setdefault(v["coordinate"], {k: [] for k in _exchange_snapshot()})
+            for k in row:
+                row[k].append(v[k])
+    return {c: {k: sum(x) / len(x) for k, x in row.items()} for c, row in out.items()}
 
 
 def run_d(dev) -> dict:
@@ -1327,10 +1379,11 @@ def k1_at(X, offsets, labels, dev) -> dict:
     return k1_time(X, labels, offsets, u, torch.tensor(0.1, device=dev), LOSSES["logistic"], reps=10)
 
 
-def run_e(dev) -> tuple[dict, object, object]:
+def run_e(dev) -> tuple[dict, object, object, GameModel]:
     """Config E's widths at MovieLens-20M depth: 6 outer iterations in one
-    fit, the first 2 a warm-up and the last 4 timed. Returns the record and
-    the generated batch and data (``run_e_lbfgs`` reuses them)."""
+    fit, the first 2 a warm-up and the last 4 timed. Returns the record,
+    the generated batch and data (``run_e_lbfgs`` reuses them) and the
+    model (``run_e_sharded`` is held to it)."""
     n, effects = E_ML20M
     batch, data = game_problem(dev, n, effects, seed=4)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1343,13 +1396,14 @@ def run_e(dev) -> tuple[dict, object, object]:
     for _ in range(100):
         bool(torch.zeros(1, device=dev).all())
     rec["readback_round_trip_s"] = (time.perf_counter() - t0) / 100
+    model = fit["best"].model
     del fit
     torch.cuda.empty_cache()
     rec["profile"] = profile_e(batch, effects, dev)
     gen = torch.Generator(device=dev).manual_seed(12)
     rec["k1"] = k1_at(batch.features["global"].X, 0.1 * torch.randn(n, generator=gen, device=dev),
                       batch.labels, dev)
-    return rec, batch, data
+    return rec, batch, data, model
 
 
 def run_e_lbfgs(dev, batch, data, newton: dict) -> dict:
@@ -1806,6 +1860,8 @@ def run_game_cli(dev, data: GameCliData) -> dict:
         train_wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    # the 2-iteration run's files, which main_game_multihost_cli is held to
+    shutil.copytree(out, os.path.join(work, "out-2it"), ignore=shutil.ignore_patterns("checkpoints"))
     batch, results = fits[0]
     fixed_passes = sum(t.objective_passes for r in results for t in r.descent.trackers["fixed"])
     layout = k1_layout(batch.features["global"].X, batch.labels, batch.offsets, batch.weights)
@@ -2567,20 +2623,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None, n: int = 2) -> list[dict]:
+def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None, n: int = 2,
+                 ports: int = 1) -> list[dict]:
     """``n`` processes of this script in ``--child`` mode, one gloo group on
-    a fresh loopback port; each writes ``work/rank<r>.json``. The kernels
-    are built by the parent before (``_cuda.load``), so no two children
-    build at once. A child that fails or outlives ``CHILD_TIMEOUT_S`` (then
-    killed) fails the phase."""
+    a fresh loopback port (``ports`` fresh ports for children that form a
+    group several times, in the spec's ``ports``); each writes
+    ``work/rank<r>.json``. The kernels are built by the parent before
+    (``_cuda.load``), so no two children build at once. A child that fails
+    or outlives ``CHILD_TIMEOUT_S`` (then killed) fails the phase."""
     _cuda.load()
     native_build.build()
     os.makedirs(work, exist_ok=True)
     child_env = {k: v for k, v in os.environ.items()
                  if k not in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")}
     child_env.update(env or {})
-    port = _free_port()
-    spec = json.dumps(dict(args, work=work, port=port, processes=n, device=dev.type))
+    fresh = [_free_port() for _ in range(ports)]
+    spec = json.dumps(dict(args, work=work, port=fresh[0], ports=fresh, processes=n, device=dev.type))
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", mode, str(r), spec],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=child_env)
              for r in range(n)]
@@ -2662,6 +2720,47 @@ def _child(mode: str, rank: int, spec: dict) -> int:
                    value_grad_passes=sum(t.objective_passes for t in result.trackers.values()),
                    trained_lambdas=sorted(result.trackers), best_weight=result.best_weight,
                    collectives=dict(collective_stats))
+    elif mode == "e_multihost":
+        n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
+        t0 = time.perf_counter()
+        batch, data = game_problem(dev, n, effects, seed=4)  # main_e's rows, drawn on the card
+        host = batch.to("cpu")  # the replicated copy; the card keeps only this process's shards
+        del batch, data
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        out["data_s"] = time.perf_counter() - t0
+        initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+        mesh = process_mesh(spec["local_shards"], devices=[dev])
+        fit = fit_game(host, game_config(effects, 6), dev, mesh=mesh)
+        np.savez(os.path.join(work, f"rank{rank}.npz"),
+                 **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["best"].model.models.items()})
+        out.update(_game_record(fit, warmup=2), mesh=[str(d) for d in mesh.local],
+                   global_shards=list(mesh.global_shards()), exchange_per_visit=_exchange_per_visit(fit, 2),
+                   peak_device_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
+    elif mode == "game_multihost_cli":
+        phases = []
+        for port, (command, argv) in zip(spec["ports"], spec["phases"]):
+            os.environ.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                              JAX_NUM_PROCESSES=str(spec["processes"]), JAX_PROCESS_ID=str(rank))
+            fused.reset_launch_counts()
+            st.reset_launch_counts()
+            reset_collective_stats()
+            t0 = time.perf_counter()
+            with recording_fits() as fits:
+                (cli_train if command == "train" else cli_score).main([a.replace("{rank}", str(rank))
+                                                                      for a in argv])
+            torch.cuda.synchronize()
+            ckpt = os.path.join(work, "out0", "checkpoints", "config-0000", "ckpt.npz")
+            phases.append(dict(
+                command=command, wall_s=time.perf_counter() - t0, launches=launch_counts(),
+                fixed_objective_passes=sum(t.objective_passes for _, results in fits for r in results
+                                           for t in r.descent.trackers["fixed"]),
+                collectives=dict(collective_stats),
+                checkpoint_mtime_ns=os.stat(ckpt).st_mtime_ns if os.path.exists(ckpt) else None))
+            if rank == 0 and len(phases) == 1:  # the first run's models, for the rerun's check
+                shutil.copytree(os.path.join(work, "out0", "best"), os.path.join(work, "first-best"))
+        out["phases"] = phases
     else:
         raise ValueError(f"unknown child mode {mode!r}")
     shutdown_multihost()
@@ -2756,6 +2855,169 @@ def run_glm_multihost_cli(dev, data: GameCliData, glm_streamed: dict, card: str)
         only_process_0_wrote=not os.path.exists(os.path.join(out1, "best"))
         and not os.path.exists(os.path.join(out1, "checkpoints")) and os.path.exists(done),
         rerun_resumed=resumed,
+    )
+
+
+E_SHARDS = 4  # main_e_sharded's shards, main_e_multihost's global shards (2 processes x 2)
+
+
+def _model_bytes(model: GameModel) -> dict:
+    return {cid: sub.coefficient_means.detach().cpu().numpy().tobytes() for cid, sub in model.models.items()}
+
+
+def run_e_sharded(dev, batch, data, e_rec: dict, e_model: GameModel) -> tuple[dict, GameModel]:
+    """main_e_sharded: main_e's batch and schedule (Newton random effects,
+    6 outer iterations, the first 2 a warm-up) over a data mesh of 4 shards
+    of the card: the fixed effect row-sharded (K1 once per shard a pass,
+    the partials summed in shard order), each bucket's entity lanes split
+    over the shards; then the same fit again, which must be bitwise equal.
+    Held to main_e's fit (``e_model``). Returns the record and the model
+    (main_e_multihost is held to it)."""
+    n, effects = E_ML20M
+    mesh = data_mesh(E_SHARDS)
+    fits = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats(dev)
+        fits.append((fit_game(batch, game_config(effects, 6), dev, mesh=mesh), torch.cuda.max_memory_allocated(dev)))
+    (fit, peak), (again, _) = fits
+    model = fit["best"].model
+    rec = dict(_game_record(fit, warmup=2), n=n, mesh=[str(d) for d in mesh], shards=E_SHARDS,
+               exchange_per_visit=_exchange_per_visit(fit, 2), max_memory_allocated_bytes=peak,
+               repeat_timed_wall_s_per_outer_iteration=_game_record(again, warmup=2)[
+                   "timed_wall_s_per_outer_iteration"],
+               main_e_timed_wall_s_per_outer_iteration=e_rec["timed_wall_s_per_outer_iteration"],
+               **game_quality(fit, batch, data))
+    passes, launches = rec["fixed_objective_passes"], rec["launches"]
+    random = {cid: close(model[cid].coefficient_means, e_model[cid].coefficient_means, 1e-2, 2e-3)
+              for cid in model.models if cid != "fixed"}
+    rec.update(
+        k1_launches_ok=launches["fused_value_grad"] == E_SHARDS * passes > 0
+        and not any(v for k, v in launches.items() if k != "fused_value_grad"),
+        repeat_bitwise=_model_bytes(model) == _model_bytes(again["best"].model),
+        d_auc_vs_main_e=abs(rec["train_auc"] - e_rec["train_auc"]),
+        rel_d_fixed_objective_vs_main_e=abs(rec["fixed_objective"] - e_rec["fixed_objective"])
+        / abs(e_rec["fixed_objective"]),
+        random_effects_within_lane_tolerance=all(ok for ok, _ in random.values()),
+        max_abs_diff_random_effects_vs_main_e={cid: err for cid, (_, err) in random.items()},
+    )
+    return rec, model
+
+
+def run_e_multihost(dev, e_rec: dict, sharded: GameModel, card: str) -> dict:
+    """main_e_multihost: two processes of this script on the card, each with
+    2 local shards of a 4-shard process-spanning mesh (global shards 0-1
+    and 2-3), each drawing main_e's rows from the seed on the card, keeping
+    the replicated copy on the host and staging only its shards: main_e's
+    schedule, the partials of all 4 shards gathered over gloo each pass and
+    the random effects' lanes and the (n,) scores combined in one host
+    gather each. Held to main_e_sharded (one process x 4 shards) bit for
+    bit."""
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="_e_multihost-", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        kids = run_children("e_multihost", work, {"local_shards": E_SHARDS // 2, "shape": E_ML20M}, dev)
+        wall = time.perf_counter() - t0
+        arrays = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want = _model_bytes(sharded)
+    ranks_equal = all(arrays[0][c].tobytes() == arrays[1][c].tobytes() for c in want)
+    vs_sharded = {c: arrays[0][c].tobytes() == want[c] for c in want}
+    diff = {c: float(np.abs(arrays[0][c] - sharded[c].coefficient_means.cpu().numpy()).max()) for c in want}
+    launches = {k: sum(c["launches"][k] for c in kids) for k in launch_counts()}
+    return dict(
+        card=card, processes=2, local_shards=E_SHARDS // 2, phase_wall_s=wall, children=kids, launches=launches,
+        timed_wall_s_per_outer_iteration=max(c["timed_wall_s_per_outer_iteration"] for c in kids),
+        main_e_timed_wall_s_per_outer_iteration=e_rec["timed_wall_s_per_outer_iteration"],
+        exchange_per_visit=[c["exchange_per_visit"] for c in kids],
+        peak_device_bytes=[c["peak_device_bytes"] for c in kids],
+        main_e_peak_device_bytes=e_rec["max_memory_allocated_bytes"],
+        models_bitwise_equal_across_ranks=ranks_equal, bitwise_equal_to_main_e_sharded=vs_sharded,
+        max_abs_diff_vs_main_e_sharded=diff,
+        k1_launches_ok=all(c["launches"]["fused_value_grad"] == (E_SHARDS // 2) * c["fixed_objective_passes"] > 0
+                           for c in kids),
+        peak_below_main_e=all(c["peak_device_bytes"] < e_rec["max_memory_allocated_bytes"] for c in kids),
+    )
+
+
+def _scores_by_uid(score_dir: str) -> dict:
+    out = {}
+    for fn in sorted(os.listdir(os.path.join(score_dir, "scores"))):
+        for rec in read_avro_file(os.path.join(score_dir, "scores", fn))[1]:
+            out[rec["uid"]] = rec["predictionScore"]
+    return out
+
+
+def run_game_multihost_cli(dev, data: GameCliData, cli: dict, card: str) -> dict:
+    """main_game_multihost_cli: ``cli.train --multihost`` in memory in two
+    processes on main_game_cli's files and 2-iteration configuration (every
+    process reads every file to the host, one shard each on the card), the
+    same command again (a resume), then ``cli.score --multihost`` on the
+    validation files (one part file each); held to main_game_cli's
+    one-process run and to the one-process score driver on the same
+    model."""
+    work, effects = data.work, data.effects
+    root = os.path.join(work, "game_multihost")
+    cfg = os.path.join(work, "config-2.json")
+    train = ["--config", cfg, "--train-data", os.path.join(work, "train"), "--validation-data",
+             os.path.join(work, "val"), "--device", dev.type, "--multihost", "--output-dir",
+             os.path.join(root, "out{rank}")]
+    score = ["--model-dir", os.path.join(root, "out0"), "--data", os.path.join(work, "val"), "--evaluators",
+             *GAME_CLI_EVALUATORS, "--config", cfg, "--device", dev.type, "--multihost", "--output-dir",
+             os.path.join(root, "score{rank}")]
+    t0 = time.perf_counter()
+    kids = run_children("game_multihost_cli", root, {"phases": [("train", train), ("train", train),
+                                                               ("score", score)]}, dev, ports=3)
+    wall = time.perf_counter() - t0
+    out0, one_2it = os.path.join(root, "out0"), os.path.join(work, "out-2it")
+    with open(os.path.join(out0, "metrics.json")) as f:
+        metrics = json.load(f)
+    maps = {fn[:-4]: IndexMap.load(os.path.join(out0, "index-maps", fn))
+            for fn in os.listdir(os.path.join(out0, "index-maps"))}
+    with open(os.path.join(out0, "entity-maps.json")) as f:
+        ent = json.load(f)
+
+    def load(path: str) -> GameModel:
+        return load_game_model(path, index_maps=maps, entity_ids={f"per_{k}": ent[k] for k in effects}, device=dev)
+
+    pairs = [(load(os.path.join(out0, m)), load(os.path.join(one_2it, m))) for m in ("best", "models/0000",
+                                                                                       "models/0001")]
+    rerun_same = _close(load(os.path.join(out0, "best")), load(os.path.join(root, "first-best")), 1e-6, 0.0)
+    with open(os.path.join(out0, "photon.log")) as f:
+        resumed = f.read().count(RESUME_LINE)
+    # the one-process score driver on the model the processes scored
+    one_score = os.path.join(root, "one_score")
+    cli_score.main(["--model-dir", out0, "--data", os.path.join(work, "val"), "--output-dir", one_score,
+                    "--evaluators", *GAME_CLI_EVALUATORS, "--config", cfg, "--device", dev.type])
+    got, want = _scores_by_uid(os.path.join(root, "score0")), _scores_by_uid(one_score)
+    got.update(_scores_by_uid(os.path.join(root, "score1")))
+    with open(os.path.join(root, "score0", "metrics.json")) as f:
+        score_metrics = json.load(f)
+    with open(os.path.join(one_score, "metrics.json")) as f:
+        one_metrics = json.load(f)
+    first, rerun, scoring = ([c["phases"][i] for c in kids] for i in range(3))
+    launches = {k: sum(p["launches"][k] for c in kids for p in c["phases"]) for k in launch_counts()}
+    return dict(
+        card=card, processes=2, wall_s=wall, train_wall_s=[p["wall_s"] for p in first],
+        rerun_wall_s=[p["wall_s"] for p in rerun], score_wall_s=[p["wall_s"] for p in scoring],
+        collectives=[p["collectives"] for p in first], launches=launches,
+        fixed_objective_passes=[p["fixed_objective_passes"] for p in first],
+        launches_ok=all(p["launches"]["fused_value_grad"] == p["fixed_objective_passes"] > 0 for p in first)
+        and not any(p["launches"]["fused_value_grad"] for p in rerun + scoring),
+        best_index=metrics["best_index"], one_process_best_index=cli["best_index"],
+        models_ok=all(_close(a, b, 1e-2, 1e-3) for a, b in pairs),
+        max_abs_diff_vs_one_process=max(_max_diff(a, b) for a, b in pairs),
+        validation_metrics={i: r["metrics"] for i, r in enumerate(metrics["results"])},
+        only_process_0_wrote=not os.path.exists(os.path.join(root, "out1"))
+        and sorted(os.listdir(os.path.join(root, "score1"))) == ["scores"]
+        and os.listdir(os.path.join(root, "score1", "scores")) == ["part-00001.avro"],
+        resumed_lines=resumed, rerun_same_model=rerun_same,
+        rerun_checkpoint_unchanged=first[0]["checkpoint_mtime_ns"] == rerun[0]["checkpoint_mtime_ns"] is not None,
+        scores_rows=len(got), scores_ok=sorted(got) == sorted(want) and len(want) == data.n_val,
+        max_abs_diff_scores_vs_one_process=max(abs(got[u] - want[u]) for u in want),
+        metrics=score_metrics, one_process_metrics=one_metrics,
+        max_abs_diff_metrics=max(abs(score_metrics[k] - v) for k, v in one_metrics.items()),
     )
 
 
@@ -3147,7 +3409,7 @@ def main() -> int:
     _check_game_launches("main_d", d_rec)
     if not d_rec["max_abs_diff_vs_train_glm"] <= 1e-4:
         raise AssertionError(f"config D differs from train_glm: {d_rec['max_abs_diff_vs_train_glm']}")
-    e_rec, e_batch, e_data = run_e(dev)
+    e_rec, e_batch, e_data, e_model = run_e(dev)
     emit("main_e", **e_rec)
     _check_game_launches("main_e", e_rec)
     if not (d_rec["k1"]["ok"] and d_rec["k1"]["layout"] == "tiles"):
@@ -3155,6 +3417,30 @@ def main() -> int:
     if not (e_rec["quality_ok"] and e_rec["k1"]["ok"] and e_rec["k1"]["layout"] == "tiles"):
         raise AssertionError(f"config E: AUC {e_rec['train_auc']} against "
                              f"{e_rec['auc_generating_model']}; K1 ok {e_rec['k1']['ok']}")
+    # main_e over 4 shards of the card, then over two processes of 2 shards each
+    e_sharded, e_sharded_model = run_e_sharded(dev, e_batch, e_data, e_rec, e_model)
+    emit("main_e_sharded", **e_sharded)
+    failed = [name for name, ok in (
+        ("k1_launches", e_sharded["k1_launches_ok"]),
+        ("repeat_bitwise", e_sharded["repeat_bitwise"]),
+        ("vs_main_e", e_sharded["d_auc_vs_main_e"] <= 0.005
+         and e_sharded["rel_d_fixed_objective_vs_main_e"] <= 1e-3
+         and e_sharded["random_effects_within_lane_tolerance"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_e_sharded failed: {failed}")
+    del e_model
+    e_multi = run_e_multihost(dev, e_rec, e_sharded_model, smi)
+    emit("main_e_multihost", **e_multi)
+    failed = [name for name, ok in (
+        ("models_bitwise_equal_across_ranks", e_multi["models_bitwise_equal_across_ranks"]),
+        ("bitwise_equal_to_main_e_sharded", all(e_multi["bitwise_equal_to_main_e_sharded"].values())),
+        ("k1_launches", e_multi["k1_launches_ok"]),
+        ("peak_below_main_e", e_multi["peak_below_main_e"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_e_multihost failed: {failed}")
+    del e_sharded_model
     agree_e = agreement_e(dev)
     emit("agreement_e", **agree_e)
     _check_game_launches("agreement_e", agree_e["fused"])
@@ -3233,6 +3519,8 @@ def main() -> int:
         glm_streamed = run_glm_streamed_cli(dev, data, smi)
         # the same command in two processes over gloo
         glm_multihost = run_glm_multihost_cli(dev, data, glm_streamed, smi)
+        # the GAME drivers' --multihost in memory, in two processes
+        game_multihost = run_game_multihost_cli(dev, data, cli, smi)
         # the out-of-core GAME driver on the same files, against the in-memory one
         game_streamed = run_game_cli_streamed(dev, data, smi)
         del data
@@ -3272,6 +3560,20 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_game_cli_full failed: {failed}")
+
+    emit("main_game_multihost_cli", **game_multihost)
+    failed = [name for name, ok in (
+        ("best_index", game_multihost["best_index"] == game_multihost["one_process_best_index"]),
+        ("vs_one_process", game_multihost["models_ok"]),
+        ("only_process_0_wrote", game_multihost["only_process_0_wrote"]),
+        ("rerun_resumed", game_multihost["resumed_lines"] == 2 and game_multihost["rerun_same_model"]
+         and game_multihost["rerun_checkpoint_unchanged"]),
+        ("scores", game_multihost["scores_ok"] and game_multihost["max_abs_diff_scores_vs_one_process"] <= 1e-5),
+        ("metrics", game_multihost["max_abs_diff_metrics"] <= 1e-6),
+        ("k1_launches", game_multihost["launches_ok"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_game_multihost_cli failed: {failed}")
 
     emit("main_game_cli_streamed", **game_streamed)
     failed = [name for name, ok in (
@@ -3360,7 +3662,9 @@ def main() -> int:
                       "main_game_cli_streamed": game_streamed}
     # data parallel: row shards of the card, and two processes over gloo
     parallel_paths = {"main_a_sharded": a_sharded, "main_a2_sharded": a2_sharded,
-                      "main_f_multihost": f_multi, "main_glm_multihost_cli": glm_multihost}
+                      "main_f_multihost": f_multi, "main_glm_multihost_cli": glm_multihost,
+                      "main_e_sharded": e_sharded, "main_e_multihost": e_multi,
+                      "main_game_multihost_cli": game_multihost}
 
     # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS,
     # E projected and the GAME drivers (each path counted from 0 just before it ran)

@@ -12,16 +12,19 @@ reference's: a checkpoint that either package writes, the other resumes.
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import logging
 import os
 from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.game.models import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_ml_tpu_torch.parallel.multihost import broadcast_from_host0, is_output_process, process_count
 from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.utils.atomic_io import atomic_savez
 
@@ -150,26 +153,44 @@ def peek_fingerprint(directory: str) -> str | None:
     return meta.get("fingerprint")
 
 
+def _checkpoint_source(npz_path: str, across_processes: bool):
+    """Where ``load_checkpoint`` reads: the file, or across processes the
+    bytes process 0 read from it and broadcast (None: no checkpoint)."""
+    if across_processes and process_count() > 1:
+        blob = b""
+        if is_output_process() and os.path.exists(npz_path):
+            with open(npz_path, "rb") as f:
+                blob = f.read()
+        blob = broadcast_from_host0(np.frombuffer(blob, np.uint8)).tobytes()
+        return io.BytesIO(blob) if blob else None
+    return npz_path if os.path.exists(npz_path) else None
+
+
 def load_checkpoint(
     directory: str,
     fingerprint: str | None = None,
     data_digest: str | None = None,
     device=None,
+    across_processes: bool = False,
 ) -> DescentCheckpoint | None:
     """The checkpoint in ``directory``, its model on ``device`` (CUDA unless
     the caller asks for another; raises without it), or None without one.
+    ``across_processes``: process 0 alone reads the file and every process
+    parses the bytes it broadcasts, so all make the same resume decision
+    (a collective: every process calls it).
 
     A checkpoint whose fingerprint is not ``fingerprint`` (when given) is
     ignored with a warning: it belongs to another configuration or dataset.
     (The reference also takes a collection of fingerprints, for the
-    degraded restarts of ROADMAP queue 1 item 12.) A ``data_digest`` other than the stored one
+    degraded restarts of ROADMAP queue 1 item 12d.) A ``data_digest`` other than the stored one
     drops only the scores and total (they hold the old data's per-row
     values); the model still resumes."""
     dev = resolve_device(device)
     npz_path = os.path.join(directory, "ckpt.npz")
-    if not os.path.exists(npz_path):
+    source = _checkpoint_source(npz_path, across_processes)
+    if source is None:
         return None
-    with np.load(npz_path) as z:
+    with np.load(source) as z:
         arrays = {k: z[k] for k in z.files}
     if _META_KEY not in arrays:
         _log.warning(

@@ -22,14 +22,23 @@ or tuning entry is one streamed descent with its checkpoints under
 that a resumed run merges with the interrupted one's, as the reference's
 streamed branch does.
 
+``--multihost`` trains in memory across processes, as the reference
+does: every process reads every file (replicated ingest: the feature and
+entity dictionaries need the global view) into host memory, the
+estimator runs over the process-spanning data mesh (one shard per local
+card, or one on ``--device cpu``), and process 0 alone writes the log
+file and every output; the others log to stderr. Run the same command in
+each process with ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+``JAX_PROCESS_ID`` set (the reference's variables).
+
 Usage:
     python -m photon_ml_tpu_torch.cli.train \\
         --config config.json --train-data data/train \\
         [--validation-data data/val] --output-dir out/ [--device cpu] \\
-        [--streaming-chunk-rows 1048576]
+        [--streaming-chunk-rows 1048576] [--multihost]
 
 Branches not ported yet raise ``NotImplementedError`` naming their ROADMAP
-queue 1 item: ``--multihost`` (12b), ``--telemetry-dir`` and
+queue 1 item: ``--multihost`` out of core (12c), ``--telemetry-dir`` and
 ``--profile-dir`` (13).
 """
 
@@ -56,6 +65,15 @@ from photon_ml_tpu_torch.io.avro import list_avro_files
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader, GameDataset, expand_date_range
 from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
 from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes
+from photon_ml_tpu_torch.parallel.mesh import process_mesh
+from photon_ml_tpu_torch.parallel.multihost import (
+    initialize_multihost,
+    is_output_process,
+    require_process_group,
+    runtime_summary,
+    shutdown_multihost,
+    sync_processes,
+)
 from photon_ml_tpu_torch.types import ModelOutputMode
 from photon_ml_tpu_torch.utils import PhotonLogger, timed
 
@@ -76,16 +94,25 @@ def run(
     """Train, select and write; returns the grid's best ``GameResult``, or,
     when ``streaming_chunk_rows`` selects the out-of-core branch, the best
     entry's ``GameModel``. Runs on ``device`` (CUDA unless the caller asks
-    for another; raises without it)."""
-    if multihost:
-        raise not_ported("multi-host GAME training (--multihost)", "12b")
+    for another; raises without it). ``multihost`` trains across the
+    process group (module docstring) over ``process_mesh``: one shard on
+    ``device``'s card, or one on every local card for plain ``cuda``."""
+    if multihost and streaming_chunk_rows is not None:
+        raise _multihost_streaming_error()
     if profile_dir is not None:
         raise not_ported("device traces (--profile-dir)", "13")
     dev = resolve_device(device)
-    logger = logger or PhotonLogger(output_dir)
+    mesh = None
+    if multihost:
+        require_process_group()
+        mesh = process_mesh(devices=None if dev == torch.device("cuda") else [dev])
+    logger = logger or PhotonLogger(output_dir if is_output_process() else None)
     if streaming_chunk_rows is not None:
         return _run_streamed_game(config, train_data, output_dir, validation_data, streaming_chunk_rows,
                                   logger, dev)
+    # across processes the replicated batches stay on the host; each
+    # process stages its shards on its cards
+    read_dev = torch.device("cpu") if multihost else dev
     id_tags = _game_id_tags(config)
     reader = AvroDataReader(config.feature_shards or None)
 
@@ -105,7 +132,7 @@ def run(
     with timed(logger, "read training data"):
         train = reader.read(
             train_data, id_tags=id_tags, index_maps=prebuilt, entity_maps=warm_tag_maps,
-            extend_entities=warm_tag_maps is not None, device=dev,
+            extend_entities=warm_tag_maps is not None, device=read_dev,
         )
         logger.info(
             f"train: {train.batch.num_rows} rows, shards "
@@ -117,7 +144,7 @@ def run(
         with timed(logger, "read validation data"):
             val = reader.read(
                 validation_data, id_tags=id_tags, index_maps=train.index_maps,
-                entity_maps=train.entity_maps, device=dev,
+                entity_maps=train.entity_maps, device=read_dev,
             )
 
     initial_model = None
@@ -139,7 +166,7 @@ def run(
             initial_model = _pad_random_effects(initial_model, train, config)
 
     estimator = GameEstimator(
-        config, intercept_indices=train.intercept_indices, logger=logger, device=dev
+        config, intercept_indices=train.intercept_indices, logger=logger, device=dev, mesh=mesh
     )
     with timed(logger, "estimator grid fit"):
         results = estimator.fit(
@@ -162,6 +189,18 @@ def run(
         "selected configuration: "
         f"{ {c: o.regularization_weight for c, o in best.configuration.items()} }"
     )
+    # every process computes; process 0 alone writes the shared outputs
+    if is_output_process():
+        _write_outputs(output_dir, config, train, results, best, diagnostics, logger)
+    if multihost:
+        sync_processes("train-outputs-written")
+    return best
+
+
+def _write_outputs(output_dir: str, config: GameTrainingConfig, train: GameDataset, results, best,
+                   diagnostics: bool, logger: PhotonLogger) -> None:
+    """The in-memory branch's files: ``best/``, ``models/NNNN`` (output mode
+    ALL), the maps, ``metrics.json`` and the diagnostics."""
     with timed(logger, "write models"):
         entity_names = train.entity_names()
         by_cid = {
@@ -196,7 +235,11 @@ def run(
     if diagnostics:
         with timed(logger, "write diagnostics"):
             write_report(game_diagnostics(results, config=config, index_maps=train.index_maps), output_dir)
-    return best
+
+
+def _multihost_streaming_error() -> NotImplementedError:
+    return not_ported("multi-host out-of-core GAME training (--multihost with --streaming-chunk-rows "
+                      "or auto-streaming)", "12c")
 
 
 def _game_id_tags(config: GameTrainingConfig) -> tuple[str, ...]:
@@ -496,7 +539,10 @@ def _parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--index-maps", default=None, help="prebuilt index maps (directory of .npz)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (ROADMAP queue 1 item 12b; raises)")
+                   help="train in memory across processes: run the same command in each with "
+                        "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID set; every "
+                        "process reads every file, process 0 writes (out of core: ROADMAP queue 1 "
+                        "item 12c; raises)")
     p.add_argument("--streaming-chunk-rows", type=int, default=None,
                    help="out-of-core training: the dataset stays in host memory and streams through "
                         "the card in chunks of this many rows; selected by itself (2^20 rows) when "
@@ -531,19 +577,29 @@ def main(argv: list[str] | None = None) -> None:
             d for base in validation_data for d in expand_date_range(base, *args.validation_date_range)
         ]
     dev = resolve_device(args.device)
-    logger = PhotonLogger(args.output_dir)
-    if (
-        args.streaming_chunk_rows is None
-        and not args.no_auto_streaming
-        and _should_auto_stream(train_data, config, logger, dev, has_validation=bool(validation_data))
-    ):
-        args.streaming_chunk_rows = 1 << 20
-    run(
-        config, train_data, args.output_dir, validation_data=validation_data,
-        index_map_dir=args.index_maps, logger=logger, profile_dir=args.profile_dir,
-        diagnostics=args.diagnostics, streaming_chunk_rows=args.streaming_chunk_rows,
-        multihost=args.multihost, device=dev,
-    )
+    if args.multihost:
+        if args.streaming_chunk_rows is not None:
+            raise _multihost_streaming_error()
+        initialize_multihost()
+    try:
+        # one process owns the shared log file; the rest log to stderr
+        logger = PhotonLogger(args.output_dir if is_output_process() else None)
+        if args.multihost:
+            logger.info(f"multihost runtime: {runtime_summary()}")
+        if (
+            args.streaming_chunk_rows is None
+            and not args.no_auto_streaming
+            and _should_auto_stream(train_data, config, logger, dev, has_validation=bool(validation_data))
+        ):
+            args.streaming_chunk_rows = 1 << 20
+        run(
+            config, train_data, args.output_dir, validation_data=validation_data,
+            index_map_dir=args.index_maps, logger=logger, profile_dir=args.profile_dir,
+            diagnostics=args.diagnostics, streaming_chunk_rows=args.streaming_chunk_rows,
+            multihost=args.multihost, device=dev,
+        )
+    finally:
+        shutdown_multihost()
 
 
 if __name__ == "__main__":

@@ -9,6 +9,12 @@ and shared too. With ``checkpoint_dir`` each grid entry checkpoints its
 descent under ``config-NNNN/``, fingerprinted by the reference's recipe
 (the same string for the same configuration and data), so either package
 resumes the other's checkpoints.
+
+With a data ``mesh`` (``parallel/mesh.py``: row shards of one process, or
+of every process of a group, each holding the same replicated batch) the
+mesh reaches every coordinate and the descent, as in the reference; the
+batches may then lie on the host, and only each process's shards go to
+its devices (the validation batch to the mesh's head device).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from photon_ml_tpu_torch.game.descent import CoordinateDescent, CoordinateDescen
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.game.projector import RandomProjector
 from photon_ml_tpu_torch.normalization import NormalizationContext
+from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh
 from photon_ml_tpu_torch.sampling import down_sample
 from photon_ml_tpu_torch.types import NormalizationType
 
@@ -151,7 +158,8 @@ class GameEstimator:
 
     ``intercept_indices`` maps feature-shard id → intercept column (None or
     absent: no intercept). ``device`` is where the batches must lie (CUDA
-    unless the caller asks for another; raises without it)."""
+    unless the caller asks for another; raises without it). With ``mesh``
+    the fit runs over its shards and the batches may lie anywhere."""
 
     def __init__(
         self,
@@ -160,12 +168,14 @@ class GameEstimator:
         logger: Callable[[str], None] | None = None,
         seed: int = 0,
         device=None,
+        mesh: Mesh | ProcessMesh | None = None,
     ):
         self.config = config
         self.intercept_indices = dict(intercept_indices or {})
         self._log = logger or (lambda msg: None)
         self.seed = seed
         self.device = device
+        self.mesh = None if mesh is None else as_process_mesh(mesh)
 
     # -- ingest-time preparation (the same for every grid entry) ---------------
     def _normalization_contexts(self, batch: GameBatch) -> dict[str, NormalizationContext]:
@@ -235,13 +245,13 @@ class GameEstimator:
                 if cc.random_projection_dim is not None:
                     projector = RandomProjector.build(
                         batch.features[cc.feature_shard_id].num_features, cc.random_projection_dim,
-                        seed=self.seed, device=batch.device,
+                        seed=self.seed, device=batch.device if self.mesh is None else self.mesh.head,
                     )
                 coord = RandomEffectCoordinate(
                     random_effect_type=cc.random_effect_type, grouping=grouping, buckets=buckets,
                     num_entities=num_entities,
                     features_to_samples_ratio=cc.features_to_samples_ratio_upper_bound,
-                    projector=projector, **common,
+                    projector=projector, mesh=self.mesh, **common,
                 )
                 if re_coordinate_cache is not None:
                     re_coordinate_cache[cid] = coord
@@ -255,7 +265,7 @@ class GameEstimator:
                     train_rows = torch.as_tensor(rows, dtype=torch.int64, device=batch.device)
                     weight_scale = None if scale is None else torch.as_tensor(scale, device=batch.device)
                 coordinates[cid] = FixedEffectCoordinate(
-                    train_rows=train_rows, train_weight_scale=weight_scale, **common
+                    train_rows=train_rows, train_weight_scale=weight_scale, mesh=self.mesh, **common
                 )
         return coordinates
 
@@ -277,9 +287,12 @@ class GameEstimator:
         coordinate's Gaussian MAP prior. ``checkpoint_dir`` checkpoints entry
         i's descent after every outer iteration under
         ``checkpoint_dir/config-{i:04d}`` and resumes from what is there."""
-        check_device(batch.device, self.device)
-        if validation_batch is not None:
-            check_device(validation_batch.device, self.device)
+        if self.mesh is None:
+            check_device(batch.device, self.device)
+            if validation_batch is not None:
+                check_device(validation_batch.device, self.device)
+        elif validation_batch is not None:
+            validation_batch = validation_batch.to(self.mesh.head)
         cfg = self.config
         validate_game_batch(batch, cfg.task_type, cfg.data_validation, self.seed)
         if validation_batch is not None:
@@ -305,6 +318,7 @@ class GameEstimator:
             descent = CoordinateDescent(
                 coordinates, batch, cfg.task_type, validation_batch=validation_batch,
                 evaluators=specs if validation_batch is not None else (), logger=self._log,
+                mesh=self.mesh,
             )
             cd_result = descent.run(
                 cfg.coordinate_update_sequence, cfg.coordinate_descent_iterations,
@@ -319,7 +333,7 @@ class GameEstimator:
             if validation_batch is not None:
                 evaluation = evaluate_all(
                     specs, cd_result.model.score(validation_batch), validation_batch.labels,
-                    validation_batch.weights, group_ids=validation_batch.id_tags,
+                    validation_batch.weights, group_ids=validation_batch.id_tags, mesh=self.mesh,
                 )
                 self._log(f"grid entry {i + 1}: validation {evaluation}")
             results.append(

@@ -5,10 +5,13 @@ average ranks for ties, RMSE, and the per-loss mean losses. The GAME
 model-selection metrics: ``MULTI_AUC(tag)`` and ``PRECISION_AT_K(k,tag)``
 group the scores by a validation batch's id tag and average the
 per-group metric, on the scores' device (``evaluation/scalable.py``);
-``BUCKETED_AUC[(n)]`` is the sort-free histogram AUC. The host numpy
-versions of the grouped metrics (``grouped_auc``,
-``grouped_precision_at_k``) are the oracle the device versions are held
-to; no evaluator calls them.
+``BUCKETED_AUC[(n)]`` is the sort-free histogram AUC, in its sharded form
+when ``evaluate_all`` is given a data mesh. The host numpy versions of
+the grouped metrics (``grouped_auc``, ``grouped_precision_at_k``) are the
+oracle the device versions are held to; their summable halves
+(``grouped_auc_parts``, ``grouped_precision_at_k_parts``: partials of
+disjoint complete groups add across processes) serve the multi-process
+scoring driver.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from photon_ml_tpu_torch.evaluation.scalable import (
     bucketed_auc,
+    bucketed_auc_sharded_padded,
     grouped_auc_device,
     grouped_precision_at_k_device,
 )
@@ -93,6 +97,13 @@ def grouped_auc(scores: np.ndarray, labels: np.ndarray, group_ids: np.ndarray) -
     return s / n if n else float("nan")
 
 
+def grouped_auc_parts(scores: np.ndarray, labels: np.ndarray, group_ids: np.ndarray) -> tuple[float, int]:
+    """(Σ per-group AUC over the valid groups, their count): the summable
+    halves of ``grouped_auc``; partials of disjoint complete groups add
+    across processes."""
+    return _grouped_auc_impl(scores, labels, group_ids)
+
+
 def _grouped_auc_impl(scores, labels, group_ids) -> tuple[float, int]:
     if len(np.asarray(scores)) == 0:
         return 0.0, 0
@@ -129,11 +140,20 @@ def grouped_precision_at_k(
 ) -> float:
     """Mean per-group precision@k: the fraction of positives among each
     group's top-k scores, averaged over groups with at least one sample."""
+    s, n = grouped_precision_at_k_parts(scores, labels, group_ids, k)
+    return s / n if n else float("nan")
+
+
+def grouped_precision_at_k_parts(
+    scores: np.ndarray, labels: np.ndarray, group_ids: np.ndarray, k: int
+) -> tuple[float, int]:
+    """(Σ per-group precision@k, group count): summable across processes
+    holding disjoint complete groups (see ``grouped_auc_parts``)."""
     scores = np.asarray(scores, np.float64)
     labels = np.asarray(labels, np.float64)
     group_ids = np.asarray(group_ids)
     if len(scores) == 0:
-        return float("nan")
+        return 0.0, 0
     order = np.lexsort((-scores, group_ids))
     g, y = group_ids[order], labels[order]
     starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
@@ -141,7 +161,7 @@ def grouped_precision_at_k(
     within_rank = np.arange(len(g)) - starts[seg_of]
     hits = np.add.reduceat(np.where(within_rank < k, y, 0.0), starts)
     denom = np.minimum(np.add.reduceat(np.ones_like(y), starts), k)
-    return float(np.sum(hits / denom)) / len(starts)
+    return float(np.sum(hits / denom)), int(len(starts))
 
 
 # ---------------------------------------------------------------------------
@@ -153,15 +173,19 @@ class Evaluator:
     ``group_by`` set it is a per-group metric over the id tag of that name,
     and ``_fn`` receives ``(scores, labels, dense_group_ids, num_groups)``;
     a scalar evaluator's ``_fn`` receives ``(scores, labels, weights)``.
-    ``k`` is PRECISION_AT_K's cut-off."""
+    ``k`` is PRECISION_AT_K's cut-off. ``_sharded_fn(scores, labels,
+    weights, mesh)``, where set, is the metric over a data mesh's shards."""
 
     name: str
     larger_is_better: bool
     _fn: Callable
     group_by: str | None = None
     k: int | None = None
+    _sharded_fn: Callable | None = None
 
-    def __call__(self, scores, labels, weights=None, group_ids=None) -> float:
+    def __call__(self, scores, labels, weights=None, group_ids=None, mesh=None) -> float:
+        if mesh is not None and self._sharded_fn is not None:
+            return float(self._sharded_fn(scores, labels, weights, mesh))
         if self.group_by is None:
             return float(self._fn(scores, labels, weights))
         if group_ids is None or self.group_by not in group_ids:
@@ -222,6 +246,7 @@ def make_evaluator(spec: str) -> Evaluator:
         return Evaluator(
             name=spec.upper(), larger_is_better=True,
             _fn=lambda s, y, w=None: bucketed_auc(s, y, w, num_buckets=buckets),
+            _sharded_fn=lambda s, y, w, mesh: bucketed_auc_sharded_padded(s, y, w, buckets, mesh=mesh),
         )
     m = re.fullmatch(r"MULTI_AUC\((\w+)\)", spec, re.IGNORECASE)
     if m:
@@ -253,10 +278,12 @@ class EvaluationResults:
         return self.metrics[name]
 
 
-def evaluate_all(specs, scores, labels, weights=None, group_ids=None) -> EvaluationResults:
+def evaluate_all(specs, scores, labels, weights=None, group_ids=None, mesh=None) -> EvaluationResults:
     """Every evaluator of ``specs`` on raw scores. ``group_ids`` (tag →
     (n,) entity ids) is what the grouped evaluators read; the scalar ones
-    ignore it."""
+    ignore it. With a data ``mesh`` an evaluator with a sharded form
+    (BUCKETED_AUC) computes over the mesh's shards; across processes it is
+    a collective (every process calls it with its same copy of the rows)."""
     evs = [make_evaluator(s) if isinstance(s, str) else s for s in specs]
-    metrics = {e.name: e(scores, labels, weights, group_ids) for e in evs}
+    metrics = {e.name: e(scores, labels, weights, group_ids, mesh) for e in evs}
     return EvaluationResults(metrics=metrics, primary_name=evs[0].name if evs else None)

@@ -13,10 +13,16 @@ metrics (port of ``photon_ml_tpu/evaluation/scalable.py``).
   and group bounds come from ``cummax`` / ``cummin``, and per-group sums
   from ``index_add_``: no host loop.
 
+- ``bucketed_auc_sharded`` / ``_padded``: the histogram AUC over a data
+  mesh's row shards (``parallel/mesh.py``): each shard histograms its rows
+  on its device against the global score range, and the per-shard
+  histograms are summed in shard order (across processes after one gloo
+  gather), so only O(buckets) crosses between devices.
+
 Everything runs on the scores' device. Counts and rank sums are float64:
 they are integers and half-integers, so their sums are exact in any
-order (``index_add_`` on CUDA adds by atomics). The reference's
-mesh-sharded histogram waits for the multi-GPU slice.
+order (``index_add_`` on CUDA adds by atomics): the sharded histogram AUC
+equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -50,12 +56,77 @@ def bucketed_auc(
     inc = torch.ones_like(scores, dtype=torch.bool) if weights is None else weights > 0
     lo = torch.min(torch.where(inc, scores, float("inf")))
     hi = torch.max(torch.where(inc, scores, float("-inf")))
-    pos_hist, neg_hist = _score_histograms(scores, labels, inc, lo, hi, num_buckets)
+    return _auc_from_histograms(*_score_histograms(scores, labels, inc, lo, hi, num_buckets))
+
+
+def _auc_from_histograms(pos_hist: Tensor, neg_hist: Tensor) -> Tensor:
     pos, neg = torch.sum(pos_hist), torch.sum(neg_hist)
     # negatives strictly below each bin, plus half the bin's own
     neg_below = torch.cumsum(neg_hist, 0) - neg_hist
     u = torch.sum(pos_hist * (neg_below + 0.5 * neg_hist))
     return torch.where((pos > 0) & (neg > 0), u / (pos * neg), float("nan"))
+
+
+def bucketed_auc_sharded(
+    scores: Tensor, labels: Tensor, weights: Tensor | None = None, num_buckets: int = 1 << 16, *, mesh
+) -> Tensor:
+    """``bucketed_auc`` over the row shards of ``mesh`` (a tuple of devices or
+    a ``ProcessMesh``): ``scores`` holds every row (each process's same
+    copy), whose count must divide the global shard count. This process's
+    shards histogram their rows on their devices against the global
+    [min, max] of the included scores (across processes one max gather),
+    and every shard's histogram is summed in global shard order (across
+    processes after one gather). Returns the AUC on the scores' device."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.parallel.mesh import as_process_mesh
+    from photon_ml_tpu_torch.parallel.multihost import _gather_arrays, allreduce_max_host
+
+    pm = as_process_mesh(mesh)
+    n = scores.shape[0]
+    if n % pm.num_shards:
+        raise ValueError(f"{n} rows do not divide {pm.num_shards} shards (use bucketed_auc_sharded_padded)")
+    rows = n // pm.num_shards
+    parts = []
+    for shard, dev in zip(pm.global_shards(), pm.local):
+        part = slice(shard * rows, (shard + 1) * rows)
+        s, y = scores[part].to(dev), labels[part].to(dev)
+        inc = torch.ones_like(s, dtype=torch.bool) if weights is None else weights[part].to(dev) > 0
+        parts.append((s, y, inc))
+    lo = min(float(torch.min(torch.where(inc, s, float("inf")))) for s, _, inc in parts)
+    hi = max(float(torch.max(torch.where(inc, s, float("-inf")))) for s, _, inc in parts)
+    if pm.spans_processes:
+        neg_lo, hi = allreduce_max_host(np.asarray([-lo]), np.asarray([hi]))
+        lo, hi = -float(neg_lo[0]), float(hi[0])
+    hists = []
+    for s, y, inc in parts:
+        t = dict(dtype=s.dtype, device=s.device)
+        hists.append(torch.stack(_score_histograms(s, y, inc, torch.tensor(lo, **t), torch.tensor(hi, **t),
+                                                   num_buckets)).to(scores.device))
+    if pm.spans_processes:
+        ranks = _gather_arrays([torch.stack(hists).cpu().numpy()])
+        hists = [torch.from_numpy(np.array(h)).to(scores.device) for rank in ranks for h in rank[0]]
+    total = hists[0]
+    for h in hists[1:]:
+        total = total + h
+    return _auc_from_histograms(total[0], total[1])
+
+
+def bucketed_auc_sharded_padded(
+    scores: Tensor, labels: Tensor, weights: Tensor | None = None, num_buckets: int = 1 << 16, *, mesh
+) -> Tensor:
+    """``bucketed_auc_sharded`` for any row count: weight-0 rows (excluded,
+    as everywhere) pad the rows to a multiple of the global shard count."""
+    from photon_ml_tpu_torch.parallel.mesh import as_process_mesh
+
+    n = scores.shape[0]
+    pad = -n % as_process_mesh(mesh).num_shards
+    if pad:
+        zeros = scores.new_zeros(pad)
+        w = torch.ones_like(scores) if weights is None else weights.to(scores.dtype)
+        scores, labels = torch.cat([scores, zeros]), torch.cat([labels, labels.new_zeros(pad)])
+        weights = torch.cat([w, zeros])
+    return bucketed_auc_sharded(scores, labels, weights, num_buckets, mesh=mesh)
 
 
 def _group_score_order(scores: Tensor, group_ids: Tensor) -> Tensor:

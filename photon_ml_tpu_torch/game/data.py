@@ -17,8 +17,8 @@ The entity lanes' static tensors are gathered on the device by
 here gathers one bucket from host columns (the out-of-core trainer's
 per-visit gather, into page-locked memory), and ``gather_bucket`` is that
 gather on the features' device. The owner-placement helpers
-(``placement_atoms``, ``split_entity_buckets``) wait for the multi-GPU
-slice.
+(``placement_atoms``, ``split_entity_buckets``) wait for ROADMAP queue 1
+item 12d.
 """
 
 from __future__ import annotations
@@ -107,6 +107,21 @@ class GameBatch:
     @property
     def device(self) -> torch.device:
         return self.labels.device
+
+    def to(self, device) -> "GameBatch":
+        """The batch on ``device`` (itself when it lies there already)."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+
+        def move(f):
+            if isinstance(f, DenseFeatures):
+                return DenseFeatures(X=f.X.to(device))
+            return SparseFeatures(f.indices.to(device), f.values.to(device), f.num_features)
+
+        return GameBatch(labels=self.labels.to(device), offsets=self.offsets.to(device),
+                         weights=self.weights.to(device), features={k: move(f) for k, f in self.features.items()},
+                         id_tags={k: v.to(device) for k, v in self.id_tags.items()})
 
     def batch_for(self, shard_id: str, offsets: Tensor | None = None) -> Batch:
         """One coordinate's ``Batch``: the shard's features, the global

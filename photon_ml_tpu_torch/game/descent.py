@@ -8,9 +8,16 @@ the update sequence is locked: it keeps contributing its score. With a
 validation batch and evaluators, the evolving model is evaluated after
 every visit. With a checkpoint directory the model, the scores and the
 total are saved after every outer iteration (``checkpoint.py``), and a
-rerun resumes at the next one. The reference's one-program fused outer
-iteration and degrade-in-place wait (ROADMAP queue 1 item 10a.6); its
-peer-loss handling and degraded-restart fingerprints are item 12.
+rerun resumes at the next one.
+
+With a data mesh (``parallel/mesh.py``) the coordinates solve and score
+over it, the (n,) vectors live on the mesh's head device, and validation
+takes the evaluators' sharded forms (``evaluate_all(mesh=)``). Across
+processes process 0 alone writes checkpoints and reads them for a
+resume; every process adopts the bytes it broadcasts, so all make the same
+decision. The reference's one-program fused outer iteration and
+degrade-in-place wait (ROADMAP queue 1 item 10a.6); its peer-loss
+handling and degraded-restart fingerprints are item 12d.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from photon_ml_tpu_torch.evaluation import EvaluationResults, evaluate_all
 from photon_ml_tpu_torch.game.coordinate import Coordinate
 from photon_ml_tpu_torch.game.data import GameBatch
 from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh
+from photon_ml_tpu_torch.parallel.multihost import is_output_process
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -47,7 +56,9 @@ class CoordinateDescentResult:
 
 class CoordinateDescent:
     """Drives coordinates, which share one training ``GameBatch``, through
-    residual-offset retraining."""
+    residual-offset retraining. With ``mesh`` the coordinates are the
+    mesh's (the batch may lie on the host) and the validation batch lies on
+    the mesh's head device."""
 
     def __init__(
         self,
@@ -57,6 +68,7 @@ class CoordinateDescent:
         validation_batch: GameBatch | None = None,
         evaluators: Sequence[str] = (),
         logger: Callable[[str], None] | None = None,
+        mesh: Mesh | ProcessMesh | None = None,
     ):
         self.coordinates = dict(coordinates)
         self.batch = batch
@@ -64,6 +76,7 @@ class CoordinateDescent:
         self.validation_batch = validation_batch
         self.evaluators = list(evaluators)
         self._log = logger or (lambda msg: None)
+        self.mesh = None if mesh is None else as_process_mesh(mesh)
 
     def run(
         self,
@@ -82,7 +95,7 @@ class CoordinateDescent:
         for cid in update_sequence:
             if cid not in self.coordinates:
                 raise KeyError(f"update sequence names unknown coordinate {cid!r}")
-        dev = self.batch.device
+        dev = self.batch.device if self.mesh is None else self.mesh.head
         model = initial_model or GameModel(models={}, task_type=self.task_type)
         start_iteration = 0
         ckpt = digest = None
@@ -92,7 +105,8 @@ class CoordinateDescent:
 
             digest = batch_digest(self.batch.labels, self.batch.weights)
             ckpt = load_checkpoint(
-                checkpoint_dir, fingerprint=checkpoint_fingerprint, data_digest=digest, device=dev
+                checkpoint_dir, fingerprint=checkpoint_fingerprint, data_digest=digest, device=dev,
+                across_processes=self.mesh is not None,
             )
             if ckpt is not None:
                 model = ckpt.model
@@ -113,8 +127,11 @@ class CoordinateDescent:
             # locked ones (not in the update sequence) included
             for cid, sub in model.models.items():
                 coord = self.coordinates.get(cid)
-                scores[cid] = coord.score(sub) if coord is not None else sub.score(self.batch)
-            total = self.batch.offsets
+                if coord is not None:
+                    scores[cid] = coord.score(sub)
+                else:  # a locked coordinate scores where the batch lies
+                    scores[cid] = sub.to(self.batch.device).score(self.batch).to(dev)
+            total = self.batch.offsets.to(dev)
             for s in scores.values():
                 total = total + s
 
@@ -139,14 +156,14 @@ class CoordinateDescent:
                     vb = self.validation_batch
                     res = evaluate_all(
                         self.evaluators, model.score(vb), vb.labels, vb.weights,
-                        group_ids=vb.id_tags,
+                        group_ids=vb.id_tags, mesh=self.mesh,
                     )
                     iter_validation[cid] = res
                     self._log(f"iter {it} coordinate {cid}: {res}")
                 else:
                     self._log(f"iter {it} coordinate {cid}: trained")
             validation_history.append(iter_validation)
-            if checkpoint_dir is not None:
+            if checkpoint_dir is not None and is_output_process():
                 from photon_ml_tpu_torch.checkpoint import save_checkpoint
 
                 save_checkpoint(

@@ -4,6 +4,7 @@ matrix on the device, so scoring a batch is a gather and a row-wise dot."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Mapping
 
@@ -33,6 +34,11 @@ class FixedEffectModel:
         """Raw contribution w·x per row (no offsets: the caller sums them)."""
         return batch.features[self.feature_shard_id].score(self.model.coefficients.means)
 
+    def to(self, device) -> "FixedEffectModel":
+        c = self.model.coefficients
+        return dataclasses.replace(self, model=dataclasses.replace(self.model, coefficients=Coefficients(
+            c.means.to(device), None if c.variances is None else c.variances.to(device))))
+
 
 @dataclass(frozen=True)
 class RandomEffectModel:
@@ -55,13 +61,19 @@ class RandomEffectModel:
     def score(self, batch: GameBatch) -> Tensor:
         """w_{e(i)}·x_i per row; rows whose entity id is out of range
         (unseen in training: id < 0 or >= E) score 0."""
-        ids = batch.id_tags[self.random_effect_type]
+        return self.score_rows(batch.features[self.feature_shard_id], batch.id_tags[self.random_effect_type])
+
+    def score_rows(self, features, ids: Tensor) -> Tensor:
+        """``score`` of rows given as their feature container and entity
+        ids (on the coefficients' device or another: the rows' decides)."""
         in_range = (ids >= 0) & (ids < self.num_entities)
         safe_ids = torch.where(in_range, ids, torch.zeros_like(ids))
-        raw = random_effect_scores(
-            batch.features[self.feature_shard_id], safe_ids, self.coefficients
-        )
+        raw = random_effect_scores(features, safe_ids, self.coefficients.to(ids.device))
         return torch.where(in_range, raw, torch.zeros_like(raw))
+
+    def to(self, device) -> "RandomEffectModel":
+        return dataclasses.replace(self, coefficients=self.coefficients.to(device),
+                                   variances=None if self.variances is None else self.variances.to(device))
 
     def model_for_entity(self, entity: int) -> GeneralizedLinearModel:
         var = None if self.variances is None else self.variances[entity]

@@ -22,8 +22,20 @@ subspace: a dense bucket of capacity C keeps every entity's p = min(d,
 ceil(ratio · C)) most frequent columns (``game/projector.py``), gathered
 once to (k, C, p); warm starts and priors are read at those columns, and
 the solutions are written back with zeros elsewhere. A sparse shard
-ignores the ratio, as in the reference. The mesh and capacity-class
-projection schedules of the reference are not ported.
+ignores the ratio, as in the reference.
+
+Over a data mesh (``parallel/mesh.py``; the reference's lane-sharded
+schedule) each bucket's k entity lanes pad with zero-weight lanes to a
+multiple of the global shard count S and split in order: global shard s
+solves lanes [s·⌈k/S⌉, (s+1)·⌈k/S⌉), derived from k and S alone, so P
+processes × L shards solve exactly the lane sets of one process × P·L.
+Each process gathers and stages only its shards' lanes, each on its
+shard's device, and solves them with no collective; the solutions, the
+variances and the per-entity diagnostics of every process then meet in
+one host gather per visit, in rank order, and every process ends the
+visit with the same (E, d) matrix. The reference's entity-sharded
+placement (``PHOTON_RE_SHARD``) and capacity-class projection are ROADMAP
+queue 1 item 12d.
 
 ``solve_bucket_lanes`` is the one-bucket entry point of eager callers
 (the out-of-core trainer, ``game/streaming.py``, which gathers each
@@ -36,6 +48,7 @@ reference's compacted and fused launch schedules (ROADMAP queue 1 item
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from dataclasses import dataclass
@@ -52,6 +65,7 @@ from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_lane_objective
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.optim.common import select_minimize_fn
+from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, shard_extent
 from photon_ml_tpu_torch.types import VarianceComputationType
 
 Tensor = torch.Tensor
@@ -144,6 +158,10 @@ class PreparedBucket:
     row_idx: Tensor  # (k, C) int64 row indices, padding clipped to 0
     mask: Tensor  # (k, C) 1.0 where the slot holds a real row
     columns: Tensor | None = None  # (k, p) int64 per-entity column map
+    # over a mesh: the bucket these lanes belong to and their global shard;
+    # the first num_real of the shard's ⌈k/S⌉ lanes are real, the rest pad
+    bucket: int = 0
+    shard: int | None = None
 
     @property
     def num_real(self) -> int:
@@ -154,6 +172,52 @@ class PreparedBucket:
         return self.row_idx.shape[1]
 
 
+def _prepare_one(
+    features: Features,
+    labels: Tensor,
+    weights: Tensor,
+    ent_ids: np.ndarray,
+    rows: np.ndarray,
+    features_to_samples_ratio: float | None,
+    intercept_index: int | None,
+    device: torch.device,
+    **where,
+) -> PreparedBucket:
+    """One bucket's (or one shard's lanes') static tensors, gathered where
+    the features lie and staged on ``device``."""
+    dense = isinstance(features, DenseFeatures)
+    src = (features.X if dense else features.values).device
+    raw = torch.as_tensor(rows, dtype=torch.int64, device=src)
+    mask = (raw >= 0).to(torch.float32)
+    idx = torch.clamp_min(raw, 0)
+    columns = dict(labels=(labels[idx] * mask).to(device), offsets=torch.zeros_like(mask, device=device),
+                   weights=(weights[idx] * mask).to(device))
+    cols = None
+    if dense:
+        static = DenseBatch(X=(features.X[idx].float() * mask.unsqueeze(-1)).to(device), **columns)
+        if features_to_samples_ratio is not None:
+            cols = subspace_columns(static.X, features_to_samples_ratio, intercept_index)
+            if cols is not None:
+                static = dataclasses.replace(
+                    static, X=torch.gather(static.X, 2, cols.unsqueeze(1).expand(-1, static.X.shape[1], -1))
+                )
+    else:
+        static = SparseBatch(
+            indices=features.indices[idx].long().to(device),
+            values=(features.values[idx].float() * mask.unsqueeze(-1)).to(device),
+            num_features=features.num_features, **columns,
+        )
+    return PreparedBucket(
+        entity_ids=np.asarray(ent_ids),
+        ids=torch.as_tensor(ent_ids, dtype=torch.int64, device=device),
+        static=static,
+        row_idx=idx.to(device),
+        mask=mask.to(device),
+        columns=cols,
+        **where,
+    )
+
+
 def prepare_buckets(
     features: Features,
     labels: Tensor,
@@ -161,48 +225,40 @@ def prepare_buckets(
     buckets: EntityBuckets,
     features_to_samples_ratio: float | None = None,
     intercept_index: int | None = None,
+    mesh: Mesh | ProcessMesh | None = None,
 ) -> list[PreparedBucket]:
-    """Gather every bucket's static tensors on the features' device with
-    index operations (one upload of the padded row-index matrix per bucket;
-    the rows themselves never leave the device). Padded slots get weight 0
+    """Gather every bucket's static tensors with index operations where the
+    features lie (one upload of the padded row-index matrix per bucket; on
+    the card the rows themselves never leave it). Padded slots get weight 0
     and zeroed feature values (a sparse slot keeps row 0's indices, as the
     reference's ``gather_bucket`` does: its values are 0).
     ``features_to_samples_ratio`` gathers a dense bucket to its entities'
-    subspaces (``subspace_columns``, with the intercept at slot p - 1)."""
+    subspaces (``subspace_columns``, with the intercept at slot p - 1).
+
+    With ``mesh``, each bucket's lanes pad to a multiple of the global
+    shard count and this process prepares only its shards' lanes, each on
+    its shard's device (a shard with no real lane of a bucket gets none);
+    the features may then lie on the host."""
     dense = isinstance(features, DenseFeatures)
-    dev = (features.X if dense else features.values).device
+    src = (features.X if dense else features.values).device
     prepared = []
-    for ent_ids, rows in zip(buckets.entity_ids, buckets.row_indices):
-        raw = torch.as_tensor(rows, dtype=torch.int64, device=dev)
-        mask = (raw >= 0).to(torch.float32)
-        idx = torch.clamp_min(raw, 0)
-        columns = dict(labels=labels[idx] * mask, offsets=torch.zeros_like(mask),
-                       weights=weights[idx] * mask)
-        cols = None
-        if dense:
-            static = DenseBatch(X=features.X[idx].float() * mask.unsqueeze(-1), **columns)
-            if features_to_samples_ratio is not None:
-                cols = subspace_columns(static.X, features_to_samples_ratio, intercept_index)
-                if cols is not None:
-                    static = dataclasses.replace(
-                        static, X=torch.gather(static.X, 2, cols.unsqueeze(1).expand(-1, static.X.shape[1], -1))
-                    )
-        else:
-            static = SparseBatch(
-                indices=features.indices[idx].long(),
-                values=features.values[idx].float() * mask.unsqueeze(-1),
-                num_features=features.num_features, **columns,
-            )
-        prepared.append(
-            PreparedBucket(
-                entity_ids=np.asarray(ent_ids),
-                ids=torch.as_tensor(ent_ids, dtype=torch.int64, device=dev),
-                static=static,
-                row_idx=idx,
-                mask=mask,
-                columns=cols,
-            )
-        )
+    for b, (ent_ids, rows) in enumerate(zip(buckets.entity_ids, buckets.row_indices)):
+        if mesh is None:
+            prepared.append(_prepare_one(features, labels, weights, ent_ids, rows, features_to_samples_ratio,
+                                         intercept_index, src))
+            continue
+        pm = as_process_mesh(mesh)
+        k = len(ent_ids)
+        per = shard_extent(k, pm.num_shards)
+        for shard, dev in zip(pm.global_shards(), pm.local):
+            lo, hi = min(shard * per, k), min((shard + 1) * per, k)
+            if lo == hi:
+                continue
+            lanes = np.full((per, rows.shape[1]), -1, dtype=np.asarray(rows).dtype)
+            lanes[: hi - lo] = rows[lo:hi]
+            prepared.append(_prepare_one(features, labels, weights, ent_ids[lo:hi], lanes,
+                                         features_to_samples_ratio, intercept_index, dev,
+                                         bucket=b, shard=shard))
     return prepared
 
 
@@ -224,23 +280,26 @@ def train_random_effects(
     prior_coefficients: Tensor | None = None,
     prior_variances: Tensor | None = None,
     device=None,
+    mesh: Mesh | ProcessMesh | None = None,
 ) -> RandomEffectTrainingResult:
     """Train every entity's GLM; returns the (E, d) coefficient matrix.
     Runs on ``device`` (CUDA unless the caller asks for another), which
     must hold ``features``; the per-row columns (numpy or tensors) are put
-    there."""
+    there. With ``mesh`` the lanes split over its shards, ``features``
+    may lie anywhere, and the matrix lies on the mesh's head device."""
     feats_dev = (features.X if isinstance(features, DenseFeatures) else features.values).device
-    dev = check_device(feats_dev, device)
+    dev = check_device(feats_dev, device) if mesh is None else feats_dev
+    head = dev if mesh is None else as_process_mesh(mesh).head
 
-    def col(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+    def col(a, where=dev):
+        return torch.as_tensor(a, dtype=torch.float32, device=where)
 
-    prepared = prepare_buckets(features, col(labels), col(weights), buckets)
+    prepared = prepare_buckets(features, col(labels), col(weights), buckets, mesh=mesh)
     return train_prepared(
-        prepared, col(offsets), features.num_features, num_entities, loss, config,
+        prepared, col(offsets, head), features.num_features, num_entities, loss, config,
         l2_weight=l2_weight, l1_weight=l1_weight, intercept_index=intercept_index,
         initial_coefficients=initial_coefficients, variance_computation=variance_computation,
-        norm=norm, prior_coefficients=prior_coefficients, prior_variances=prior_variances,
+        norm=norm, prior_coefficients=prior_coefficients, prior_variances=prior_variances, mesh=mesh,
     )
 
 
@@ -259,6 +318,7 @@ def train_prepared(
     norm: NormalizationContext | None = None,
     prior_coefficients: Tensor | None = None,
     prior_variances: Tensor | None = None,
+    mesh: Mesh | ProcessMesh | None = None,
 ) -> RandomEffectTrainingResult:
     """Solve every prepared bucket against the current (n,) residual
     ``offsets``, one bucket step per bucket. ``norm`` (shared by all
@@ -266,7 +326,9 @@ def train_prepared(
     in the original feature space and the coefficients leave in it.
     ``prior_coefficients`` / ``prior_variances`` are (E, d) per-entity
     Gaussian MAP priors. The solver is ``select_minimize_fn(config,
-    l1_weight)``'s, over each bucket's lanes."""
+    l1_weight)``'s, over each bucket's lanes. With ``mesh`` the buckets are
+    ``prepare_buckets(mesh=)``'s shards, ``offsets`` lies on the mesh's
+    head device and the visit ends with one combine (``_combine_shards``)."""
     if norm is not None and any(pb.columns is not None for pb in prepared):
         # before any bucket solves, not data-dependently mid-loop
         raise NotImplementedError(
@@ -296,13 +358,16 @@ def train_prepared(
     V = torch.zeros((E, d), dtype=torch.float32, device=dev) if compute_variance else None
     l2 = torch.as_tensor(l2_weight, dtype=torch.float32, device=dev)
 
-    diag = []
-    for pb in prepared:
-        diag.append((pb.entity_ids, *_bucket_step(
-            W, V, offsets, pb, l2, norm, prior_mu, prior_var, loss=loss, config=config,
-            intercept_index=intercept_index, variance_computation=variance_computation,
-            minimize_fn=minimize_fn, minimize_kwargs=extra,
-        )))
+    kw = dict(loss=loss, config=config, intercept_index=intercept_index,
+              variance_computation=variance_computation, minimize_fn=minimize_fn, minimize_kwargs=extra)
+    if mesh is None:
+        diag = []
+        for pb in prepared:
+            diag.append((pb.entity_ids, *_bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, **kw)))
+    else:
+        diag = _combine_shards(as_process_mesh(mesh), W, V, [
+            (pb, _shard_step(W, offsets, pb, l2, norm, prior_mu, prior_var, **kw)) for pb in prepared
+        ])
     if norm is not None:
         W = norm.model_to_original_space(W)[0]
         if V is not None:
@@ -396,6 +461,86 @@ def _bucket_step(
     )
     _scatter_lanes(W, V, pb.ids, pb.columns, w, var)
     return tuple(diag)
+
+
+def _on(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _pad_lanes(M: Tensor | None, lanes: int, fill: float = 0.0) -> Tensor | None:
+    """``M``'s rows grown to ``lanes`` rows of ``fill`` (the padding lanes)."""
+    if M is None or M.shape[0] == lanes:
+        return M
+    return torch.cat([M, M.new_full((lanes - M.shape[0],) + tuple(M.shape[1:]), fill)])
+
+
+def _shard_step(
+    W: Tensor,
+    offsets: Tensor,
+    pb: PreparedBucket,
+    l2_weight: Tensor,
+    norm: NormalizationContext | None,
+    prior_mu: Tensor | None,
+    prior_var: Tensor | None,
+    **kw,
+) -> tuple:
+    """One shard's lanes of a bucket, on the shard's device: the residual
+    offsets gathered there, the warm-start and prior rows of its real lanes
+    (zeros, and unit prior variances, on the padding lanes), the lane
+    solve. Returns the real lanes' (w, variances or None, final objective,
+    iterations, reason, objective passes), on the shard's device."""
+    dev = pb.static.labels.device
+    k, lanes = pb.num_real, pb.static.labels.shape[0]
+    cols = None if pb.columns is None else pb.columns[:k]
+    intercept_index = kw.pop("intercept_index")
+    if pb.columns is not None and intercept_index is not None:
+        intercept_index = pb.columns.shape[1] - 1  # the intercept is each subspace's last slot
+    with _on(dev):
+        ids = pb.ids
+        batch = dataclasses.replace(pb.static, offsets=offsets.to(dev)[pb.row_idx] * pb.mask)
+
+        def lanes_of(M, fill=0.0):
+            return None if M is None else _pad_lanes(_extract_lanes(M.to(dev), ids, cols), lanes, fill)
+
+        out = _solve_lanes(
+            batch, lanes_of(W), l2_weight.to(dev), None if norm is None else norm.to(dev), lanes_of(prior_mu),
+            lanes_of(prior_var, 1.0), intercept_index=intercept_index, **kw,
+        )
+    return tuple(None if t is None else t[:k] for t in out)
+
+
+def _combine_shards(mesh: ProcessMesh, W: Tensor, V: Tensor | None, solved: list) -> list:
+    """Write every shard's solutions into W (and V), on the head device, and
+    return the per-entity diagnostics, one entry per (bucket, shard) in
+    that order. Across processes every process's solved lanes (ids, rows,
+    variances, column maps, diagnostics) travel in one host gather and are
+    written in rank order, so every process ends with the same bytes."""
+    head = W.device
+    if not mesh.spans_processes:
+        diag = []
+        for pb, (w, var, *d) in solved:
+            cols = None if pb.columns is None else pb.columns[: pb.num_real].to(head)
+            _scatter_lanes(W, V, pb.ids.to(head), cols, w.to(head), None if var is None else var.to(head))
+            diag.append(((pb.bucket, pb.shard), pb.entity_ids, *(t.to(head) for t in d)))
+    else:
+        from photon_ml_tpu_torch.parallel.multihost import _gather_objects
+
+        def host(t):
+            return None if t is None else t.detach().cpu().numpy()
+
+        mine = [((pb.bucket, pb.shard), pb.entity_ids, host(w), host(var),
+                 None if pb.columns is None else host(pb.columns[: pb.num_real]), [host(t) for t in d])
+                for pb, (w, var, *d) in solved]
+        diag = []
+        for rank in _gather_objects(mine):
+            for where, ids, w, var, cols, d in rank:
+                ids_t = torch.as_tensor(ids, dtype=torch.int64, device=head)
+                _scatter_lanes(W, V, ids_t, None if cols is None else torch.as_tensor(cols, device=head),
+                               torch.as_tensor(w, device=head),
+                               None if var is None else torch.as_tensor(var, device=head))
+                diag.append((where, ids, *(torch.as_tensor(t) for t in d)))
+    diag.sort(key=lambda e: e[0])
+    return [e[1:] for e in diag]
 
 
 # ---------------------------------------------------------------------------

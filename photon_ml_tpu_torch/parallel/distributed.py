@@ -14,6 +14,12 @@ The order is fixed, so a solve repeats bit for bit run to run; the
 reference's ``psum`` order is unspecified, so the two packages agree to
 rounding, not bitwise.
 
+Across processes (a ``ProcessMesh``, ``parallel/mesh.py``) each process
+builds and runs only its own global shards, gathers the raw float64
+partials of every global shard over gloo and sums them in global shard
+order, so P processes × L shards reproduce the bits of one process × P·L
+shards, and every process holds the same iterate.
+
 The optimizers are the ones every single-device solve uses
 (``optim/lbfgs.py``, ``optim/tron.py``): the sharded objective meets the
 same contracts (``value``, ``value_and_grad``, ``hvp``, ``hessian_diag``,
@@ -24,9 +30,12 @@ of per-shard tensors; only scalars and d-vectors are summed.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.config import OptimizerConfig
@@ -37,7 +46,6 @@ from photon_ml_tpu_torch.ops.batch import (
     SparseBatch,
     densify,
     maybe_densify,
-    pad_batch,
 )
 from photon_ml_tpu_torch.ops.glm import (
     GaussianPrior,
@@ -47,11 +55,21 @@ from photon_ml_tpu_torch.ops.glm import (
     make_objective,
 )
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
-from photon_ml_tpu_torch.ops.sparse_tiled import supports_tiling, tile_sparse_batch_sharded
+from photon_ml_tpu_torch.ops.sparse_tiled import supports_tiling, tile_sparse_batch
 from photon_ml_tpu_torch.optim.common import OptimizationResult, select_minimize_fn
-from photon_ml_tpu_torch.parallel.mesh import Mesh
+from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, shard_extent
+from photon_ml_tpu_torch.parallel.multihost import _gather_arrays
 
 Tensor = torch.Tensor
+
+# host seconds and calls of the shard reductions since the last reset
+# (across processes the gather included; on one process the card's
+# additions run asynchronously, so the seconds are their enqueueing)
+reduction_stats: dict = {"seconds": 0.0, "calls": 0}
+
+
+def reset_reduction_stats() -> None:
+    reduction_stats.update(seconds=0.0, calls=0)
 
 
 def _on(device: torch.device):
@@ -59,47 +77,55 @@ def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _slice_rows(batch: Batch, lo: int, hi: int, device: torch.device) -> Batch:
-    part = slice(lo, hi)
-    if isinstance(batch, DenseBatch):
-        return DenseBatch(X=batch.X[part].to(device), labels=batch.labels[part].to(device),
-                          offsets=batch.offsets[part].to(device), weights=batch.weights[part].to(device))
-    if isinstance(batch, SparseBatch):
-        return SparseBatch(indices=batch.indices[part].to(device), values=batch.values[part].to(device),
-                           labels=batch.labels[part].to(device), offsets=batch.offsets[part].to(device),
-                           weights=batch.weights[part].to(device), num_features=batch.num_features)
-    raise TypeError(f"row shards are cut from a DenseBatch or a SparseBatch, not {type(batch).__name__}")
+def shard_rows(t: Tensor, shard: int, rows: int, device: torch.device) -> Tensor:
+    """Global shard ``shard``'s rows of ``t`` (rows [shard × rows,
+    (shard + 1) × rows), zero rows past the end) on ``device``: a view
+    where no padding is needed and ``t`` already lies there."""
+    n = t.shape[0]
+    lo, hi = min(shard * rows, n), min((shard + 1) * rows, n)
+    part = t[lo:hi]
+    if hi - lo < rows:
+        part = torch.cat([part, part.new_zeros((rows - (hi - lo),) + tuple(t.shape[1:]))])
+    return part.to(device)
 
 
-def shard_batch(batch: DenseBatch | SparseBatch, mesh: Mesh) -> list[DenseBatch | SparseBatch]:
-    """The batch's rows padded with zero-weight rows to a multiple of
-    ``len(mesh)`` and split into that many contiguous shards of equal
-    count, shard i on ``mesh[i]`` (a row slice on the batch's own device
-    is a view, not a copy)."""
-    p = len(mesh)
-    rows = -(-batch.num_rows // p)
-    padded = pad_batch(batch, rows * p)
-    return [_slice_rows(padded, i * rows, (i + 1) * rows, mesh[i]) for i in range(p)]
+def _slice_rows(batch: Batch, shard: int, rows: int, device: torch.device) -> Batch:
+    if not isinstance(batch, (DenseBatch, SparseBatch)):
+        raise TypeError(f"row shards are cut from a DenseBatch or a SparseBatch, not {type(batch).__name__}")
+    fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+    return type(batch)(**{k: shard_rows(v, shard, rows, device) if isinstance(v, Tensor) else v
+                          for k, v in fields.items()})
 
 
-def _densify_sharded(batch: SparseBatch, mesh: Mesh) -> list[DenseBatch]:
+def shard_batch(batch: DenseBatch | SparseBatch, mesh: Mesh | ProcessMesh) -> list[DenseBatch | SparseBatch]:
+    """This process's row shards: the rows split into the mesh's global
+    shards of ceil(n / shards) rows each (the tail padded with zero-weight
+    rows), shard i of ``as_process_mesh(mesh).local`` on its device (a row
+    slice on the batch's own device is a view, not a copy)."""
+    pm = as_process_mesh(mesh)
+    rows = shard_extent(batch.num_rows, pm.num_shards)
+    return [_slice_rows(batch, s, rows, dev) for s, dev in zip(pm.global_shards(), pm.local)]
+
+
+def _densify_sharded(batch: SparseBatch, mesh: Mesh | ProcessMesh) -> list[DenseBatch]:
     """A sparse batch whose dense form fits the mesh's cards but not one:
     the sparse rows are sharded first and each shard densifies on its own
     device, so the whole (n, d) matrix never exists on one card."""
     out = []
-    for shard, dev in zip(shard_batch(batch, mesh), mesh):
+    for shard, dev in zip(shard_batch(batch, mesh), as_process_mesh(mesh).local):
         with _on(dev):
             out.append(densify(shard))
     return out
 
 
-def _mesh_budget_bytes(mesh: Mesh) -> float:
+def _mesh_budget_bytes(mesh: Mesh | ProcessMesh) -> float:
     """The memory a dataset may hold on the mesh: one card's budget times
     the distinct devices it spans (shards that share a card share its
-    memory)."""
+    memory; each process counts its own)."""
     from photon_ml_tpu_torch.ops.streaming import device_hbm_budget_bytes
 
-    return device_hbm_budget_bytes(device=mesh[0]) * len(set(mesh))
+    mesh = as_process_mesh(mesh)
+    return device_hbm_budget_bytes(device=mesh.head) * len(set(mesh.local)) * mesh.process_count
 
 
 @dataclass(frozen=True)
@@ -115,6 +141,8 @@ class ShardedGLMObjective:
     coefficients on its own device."""
 
     shards: tuple[GLMObjective, ...]
+    # set when the shards are this process's part of a mesh across processes
+    mesh: ProcessMesh | None = None
 
     @property
     def head(self) -> GLMObjective:
@@ -153,14 +181,37 @@ class ShardedGLMObjective:
 
     def _sum(self, parts: list) -> tuple:
         """The shards' partials, each summed in float64 in shard order on
-        shard 0's device and rounded once to its own dtype."""
-        dev = self.device
+        shard 0's device and rounded once to its own dtype. Across processes
+        the float64 partials of every global shard are gathered (one gloo
+        gather) and summed on the host in global shard order: the same
+        additions in the same order, so the same bits."""
+        t0 = time.perf_counter()
+        if self.mesh is not None and self.mesh.spans_processes:
+            out = self._sum_across_processes(parts)
+        else:
+            dev = self.device
+            out = []
+            for k in range(len(parts[0])):
+                acc = parts[0][k].to(dev, torch.float64)
+                for p in parts[1:]:
+                    acc = acc + p[k].to(dev, torch.float64)
+                out.append(acc.to(parts[0][k].dtype))
+            out = tuple(out)
+        reduction_stats["seconds"] += time.perf_counter() - t0
+        reduction_stats["calls"] += 1
+        return out
+
+    def _sum_across_processes(self, parts: list) -> tuple:
+        local = [np.stack([p[k].detach().to(torch.float64).cpu().numpy() for p in parts])
+                 for k in range(len(parts[0]))]
+        ranks = _gather_arrays(local)
         out = []
-        for k in range(len(parts[0])):
-            acc = parts[0][k].to(dev, torch.float64)
-            for p in parts[1:]:
-                acc = acc + p[k].to(dev, torch.float64)
-            out.append(acc.to(parts[0][k].dtype))
+        for k, ref in enumerate(parts[0]):
+            shards = [s for rank in ranks for s in rank[k]]  # global shard order
+            acc = shards[0]
+            for part in shards[1:]:
+                acc = acc + part
+            out.append(torch.from_numpy(np.array(acc, np.float64)).to(self.device).to(ref.dtype))
         return tuple(out)
 
     # -- contracts ---------------------------------------------------------------
@@ -212,9 +263,67 @@ class ShardedGLMObjective:
         return self.ray_values_from_margins(self.margins(w), self.direction_margins(p), w, p, ts)
 
 
+def shard_layout(
+    batch: Batch, mesh: Mesh | ProcessMesh, fused: bool | None = None
+) -> tuple[list[Batch], bool, tuple[bool, bool]]:
+    """This process's shards of ``batch`` in their training layout, and the
+    objective's ``fused`` flag and data hints: the ingest layout decision
+    of ``sharded_objective``, made once (the GAME fixed effect re-binds
+    each visit's offsets onto the shards)."""
+    from photon_ml_tpu_torch.ops.streaming import device_hbm_budget_bytes
+
+    pm = as_process_mesh(mesh)
+    shards = None
+    hints = (False, False)  # shards built here read their offsets and weights
+    if isinstance(batch, SparseBatch):
+        one_card = device_hbm_budget_bytes(device=pm.head)
+        dense_bytes = batch.num_rows * batch.num_features * 4
+        if dense_bytes <= one_card:
+            batch = maybe_densify(batch, one_card)
+        elif dense_bytes <= _mesh_budget_bytes(mesh):
+            shards = _densify_sharded(batch, mesh)
+        elif supports_tiling(batch):
+            shards = [tile_sparse_batch(s) for s in shard_batch(batch, pm)]
+    if shards is None:
+        shards = shard_batch(batch, pm)
+        if fused is None:
+            fused = all(auto_fused(s) for s in shards)
+        if fused:
+            hints = _constant_hints(batch)
+            if batch.num_rows % pm.num_shards:
+                hints = (hints[0], False)
+    elif fused is None:
+        fused = all(auto_fused(s) for s in shards)
+    return shards, bool(fused), hints
+
+
+def objective_over_shards(
+    shards: Sequence[Batch],
+    mesh: Mesh | ProcessMesh,
+    loss: PointwiseLoss,
+    l2_weight: float | Tensor = 0.0,
+    norm: NormalizationContext | None = None,
+    intercept_index: int | None = None,
+    fused: bool = False,
+    hints: tuple[bool, bool] = (False, False),
+    prior: GaussianPrior | None = None,
+) -> ShardedGLMObjective:
+    """One objective per shard of ``shard_layout``, each on its device."""
+    pm = as_process_mesh(mesh)
+    objs = []
+    for shard, dev in zip(shards, pm.local):
+        with _on(dev):
+            objs.append(make_objective(
+                shard, loss, l2_weight=l2_weight, norm=norm, intercept_index=intercept_index,
+                fused=fused and isinstance(shard, DenseBatch), data_hints=hints, prior=prior,
+                device=dev,
+            ))
+    return ShardedGLMObjective(shards=tuple(objs), mesh=pm)
+
+
 def sharded_objective(
     batch: Batch,
-    mesh: Mesh,
+    mesh: Mesh | ProcessMesh,
     loss: PointwiseLoss,
     l2_weight: float | Tensor = 0.0,
     norm: NormalizationContext | None = None,
@@ -222,50 +331,36 @@ def sharded_objective(
     fused: bool | None = None,
     prior: GaussianPrior | None = None,
 ) -> ShardedGLMObjective:
-    """The batch split over ``mesh`` as one objective.
+    """The batch split over ``mesh`` as one objective (this process's
+    shards of a ``ProcessMesh``).
 
     The ingest layout decision is the reference's: a sparse batch
     densifies when its dense matrix fits one card's budget
     (``device_hbm_budget_bytes``), densifies shard by shard when it fits
     the mesh's cards together, and is otherwise re-blocked into one K3
     layout per shard when ``supports_tiling`` takes it. ``fused=None``
-    decides K1 / K2 on the global batch (``auto_fused``), as the reference
-    decides outside its ``shard_map``. Rows padded in to divide the shard
-    count turn the all-ones weights hint off, so each shard's kernel reads
-    its weights and the padding stays inert (a kernel given no weights
-    counts every row once)."""
-    from photon_ml_tpu_torch.ops.streaming import device_hbm_budget_bytes
+    enables K1 / K2 when every shard takes them (``auto_fused``). Rows
+    padded in to divide the shard count turn the all-ones weights hint
+    off, so each shard's kernel reads its weights and the padding stays
+    inert (a kernel given no weights counts every row once). Across
+    processes ``batch`` is every process's same replicated batch, so every
+    process takes the same decisions."""
+    shards, fused, hints = shard_layout(batch, mesh, fused)
+    return objective_over_shards(shards, mesh, loss, l2_weight=l2_weight, norm=norm,
+                                 intercept_index=intercept_index, fused=fused, hints=hints, prior=prior)
 
-    shards = None
-    hints = (False, False)  # shards built here read their offsets and weights
-    if isinstance(batch, SparseBatch):
-        one_card = device_hbm_budget_bytes(device=mesh[0])
-        dense_bytes = batch.num_rows * batch.num_features * 4
-        if dense_bytes <= one_card:
-            batch = maybe_densify(batch, one_card)
-        elif dense_bytes <= _mesh_budget_bytes(mesh):
-            shards = _densify_sharded(batch, mesh)
-        elif supports_tiling(batch):
-            shards = tile_sparse_batch_sharded(batch, len(mesh), devices=mesh)[0]
-    if shards is None:
-        if fused is None:
-            fused = auto_fused(batch)
-        if fused:
-            hints = _constant_hints(batch)
-            if batch.num_rows % len(mesh):
-                hints = (hints[0], False)
-        shards = shard_batch(batch, mesh)
-    elif fused is None:
-        fused = all(auto_fused(s) for s in shards)
-    objs = []
-    for shard, dev in zip(shards, mesh):
-        with _on(dev):
-            objs.append(make_objective(
-                shard, loss, l2_weight=l2_weight, norm=norm, intercept_index=intercept_index,
-                fused=bool(fused) and isinstance(shard, DenseBatch), data_hints=hints, prior=prior,
-                device=dev,
-            ))
-    return ShardedGLMObjective(shards=tuple(objs))
+
+def refuse_newton(minimize_fn) -> None:
+    """The port's Newton solves a single GLM as one lane of its lane solver,
+    which needs the whole dense batch on one device: a sharded solve
+    refuses it."""
+    from photon_ml_tpu_torch.optim.newton import newton_minimize
+
+    if minimize_fn is newton_minimize:
+        raise NotImplementedError(
+            "NEWTON_CHOLESKY runs a single GLM as one lane of the lane solver, on one device; "
+            "the sharded solve takes LBFGS (OWL-QN with L1) or TRON"
+        )
 
 
 def sharded_minimize(
@@ -273,7 +368,7 @@ def sharded_minimize(
     batch: Batch,
     w0: Tensor,
     config: OptimizerConfig,
-    mesh: Mesh,
+    mesh: Mesh | ProcessMesh,
     loss: PointwiseLoss,
     l2_weight: float | Tensor = 0.0,
     norm: NormalizationContext | None = None,
@@ -288,13 +383,7 @@ def sharded_minimize(
     ``l1_weight`` is passed on when given (OWL-QN). The port's Newton
     solves a single GLM as one lane of its lane solver, which needs the
     whole dense batch on one device, so it is refused here."""
-    from photon_ml_tpu_torch.optim.newton import newton_minimize
-
-    if minimize_fn is newton_minimize:
-        raise NotImplementedError(
-            "NEWTON_CHOLESKY runs a single GLM as one lane of the lane solver, on one device; "
-            "the sharded solve takes LBFGS (OWL-QN with L1) or TRON"
-        )
+    refuse_newton(minimize_fn)
     obj = sharded_objective(batch, mesh, loss, l2_weight=l2_weight, norm=norm,
                             intercept_index=intercept_index, fused=fused, prior=prior)
     w0 = torch.as_tensor(w0, dtype=torch.float32).to(obj.device)

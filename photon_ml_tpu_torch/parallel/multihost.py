@@ -1,5 +1,5 @@
-"""The multi-process runtime and its host collectives (port of the GLM
-subset of ``photon_ml_tpu/parallel/multihost.py``).
+"""The multi-process runtime and its host collectives (port of the
+in-memory subset of ``photon_ml_tpu/parallel/multihost.py``).
 
 Every process runs the same program; ``initialize_multihost`` joins them
 into one ``torch.distributed`` process group, each process reads its own
@@ -13,6 +13,12 @@ The backend is gloo, chosen here and nowhere switched. Every collective of
 this module is a host collective over numpy arrays, as the reference's
 are, and gloo runs several processes on one card, which NCCL refuses.
 NCCL comes with the first collective over device tensors.
+
+``exchange_rows`` is the entity-row shuffle: each row travels to one
+destination process only, sized exactly (the (P, P) count matrix is
+exchanged first, so no block pads to the largest). ``allgather_rows``
+concatenates every process's rows in rank order: the multi-process GAME
+descent assembles each coordinate's (n,) scores with it.
 
 Each collective is an ``all_gather`` of the raw bytes of every process's
 arrays, reduced on every process in rank order by the same numpy code, so
@@ -132,6 +138,14 @@ def host_shard_of_paths(paths: Sequence[str]) -> list[str]:
     return sorted(paths)[process_index()::process_count()]
 
 
+def require_process_group() -> None:
+    """Raise the initialization error unless this process belongs to a
+    process group: a multi-process entry point never runs alone by
+    accident."""
+    if not dist.is_initialized():
+        raise _init_error("this process belongs to no process group (call initialize_multihost first)")
+
+
 def is_output_process() -> bool:
     """True on the one process that writes shared outputs (models,
     metrics, checkpoints): all processes compute, one writes."""
@@ -243,3 +257,94 @@ def broadcast_from_host0(tree):
         return tree
     blobs = _gather_bytes(pickle.dumps(tree) if process_index() == 0 else b"")
     return _tree_map(np.asarray, pickle.loads(blobs[0]))
+
+
+def _gather_objects(obj) -> list:
+    """Every process's picklable ``obj`` in rank order (one gather)."""
+    if process_count() <= 1:
+        return [obj]
+    return [pickle.loads(b) for b in _gather_bytes(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))]
+
+
+def allgather_rows(*arrays: np.ndarray):
+    """Every process's rows of each array concatenated in rank order; the
+    row counts may differ between processes (the trailing shape and dtype
+    may not). One array in, one out; several in, a tuple out. The arrays
+    themselves on one process. One gather for all of them."""
+    arrays = tuple(np.asarray(a) for a in arrays)
+    if process_count() > 1:
+        per_rank = _gather_objects(arrays)
+        arrays = tuple(np.concatenate([r[i] for r in per_rank]) for i in range(len(arrays)))
+    return arrays if len(arrays) > 1 else arrays[0]
+
+
+# what the last ``exchange_rows`` moved (the reference's keys)
+LAST_EXCHANGE_STATS: dict = {}
+
+
+def exchange_rows(arrays, dest: np.ndarray, tag: str = "") -> dict:
+    """Deliver row ``i`` of every array to process ``dest[i]``: the
+    reference's point-to-point shuffle (a Spark exchange in Photon ML).
+
+    ``arrays`` maps names to numpy arrays of one row count (an empty
+    sender passes zero rows of the same trailing shapes and dtypes, and
+    takes part). Returns a dict of the rows received, grouped by source
+    process in ascending order, each source's rows in their order there.
+    The identity on one process. Every process calls it at the same
+    program point with the same keys.
+
+    One gloo transport: the (P, P) count matrix is gathered first, so each
+    process knows what it receives, then one ``all_to_all`` moves each
+    (source, destination) block at its exact size (gloo has no
+    uniform-block rule, so nothing pads to the largest block). ``tag``
+    names the exchange in errors only. ``LAST_EXCHANGE_STATS`` records
+    ``bytes_sent``, ``rows_sent``, ``padded_rows`` (the row slots moved,
+    summed over arrays: the payload) and ``transport``."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    dest = np.asarray(dest, np.int64).reshape(-1)
+    p = process_count()
+    if p <= 1:
+        LAST_EXCHANGE_STATS.update(bytes_sent=0, rows_sent=len(dest), padded_rows=len(dest),
+                                   transport="local")
+        return arrays
+    keys = sorted(arrays)
+    for k in keys:
+        if len(arrays[k]) != len(dest):
+            raise ValueError(f"exchange {tag!r}: array {k!r} has {len(arrays[k])} rows, dest {len(dest)}")
+    if len(dest) and (dest.min() < 0 or dest.max() >= p):
+        raise ValueError(f"exchange {tag!r}: destinations outside [0, {p})")
+    t0 = time.perf_counter()
+    order = np.argsort(dest, kind="stable")
+    counts = np.bincount(dest, minlength=p).astype(np.int64)
+    matrix = allgather_host(counts)  # (source, destination) row counts
+    me = process_index()
+    row_bytes = [arrays[k].dtype.itemsize * int(np.prod(arrays[k].shape[1:], dtype=np.int64)) for k in keys]
+    width = sum(row_bytes)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    blocks = []
+    for q in range(p):
+        rows = order[starts[q]:starts[q + 1]]
+        blocks.extend(arrays[k][rows].tobytes() for k in keys)
+    send = torch.frombuffer(bytearray(b"".join(blocks)), dtype=torch.uint8) if width and len(dest) \
+        else torch.zeros(0, dtype=torch.uint8)
+    recv_rows = matrix[:, me]
+    recv = torch.empty(int(recv_rows.sum()) * width, dtype=torch.uint8)
+    dist.all_to_all_single(recv, send, output_split_sizes=[int(r) * width for r in recv_rows],
+                           input_split_sizes=[int(c) * width for c in counts])
+    raw = recv.numpy()
+    out: dict[str, list[np.ndarray]] = {k: [] for k in keys}
+    pos = 0
+    for src in range(p):
+        n_src = int(recv_rows[src])
+        for k, rb in zip(keys, row_bytes):
+            a = arrays[k]
+            out[k].append(np.frombuffer(raw, dtype=a.dtype, count=n_src * (rb // a.dtype.itemsize),
+                                        offset=pos).reshape((n_src,) + a.shape[1:]).copy())
+            pos += n_src * rb
+    nbytes = int(counts.sum()) * width
+    collective_stats["seconds"] += time.perf_counter() - t0
+    collective_stats["calls"] += 1
+    collective_stats["bytes"] += nbytes
+    LAST_EXCHANGE_STATS.update(bytes_sent=nbytes, rows_sent=int(counts.sum()),
+                               padded_rows=int(counts.sum()) * len(keys), transport=BACKEND)
+    return {k: np.concatenate(v) for k, v in out.items()}

@@ -834,6 +834,35 @@ def test_sharded_objective_on_several_shards_of_one_card(dev, monkeypatch):
     np.testing.assert_allclose(hd.cpu().numpy(), scpu.hessian_diag(ws.cpu()).numpy(), rtol=1e-4, atol=1e-4)
 
 
+def test_sharded_objective_host_reduction_is_bitwise_the_card_reduction(dev, monkeypatch):
+    """Four row shards on the card: the float64 shard-order sum a mesh across
+    processes takes on the host (``_sum_across_processes``, its gather
+    replaced by this one process's shards) gives the bits of the sum on the
+    card in shard order, for every contract the solvers read, so P
+    processes × L shards reproduce one process × P·L shards."""
+    from photon_ml_tpu_torch.convert import dense_batch_from_numpy
+    from photon_ml_tpu_torch.parallel import data_mesh, distributed, sharded_objective
+
+    rng = np.random.default_rng(9)
+    n, d = 40_003, 65
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    obj = sharded_objective(dense_batch_from_numpy(X, y, device=dev), data_mesh(4, devices=[dev]),
+                            LOSSES["logistic"], l2_weight=0.5)
+    w = torch.as_tensor((0.1 * rng.normal(size=d)).astype(np.float32), device=dev)
+    monkeypatch.setattr(distributed, "_gather_arrays", lambda arrays: [arrays])
+    fused.reset_launch_counts()
+    for contract, args in ((lambda o, wi: o.value_and_grad_partials(wi), (obj._bcast(w),)),
+                           (lambda o, wi, vi: o.hvp_partials(wi, vi), (obj._bcast(w), obj._bcast(w))),
+                           (lambda o, wi: o.hessian_diag_partials(wi), (obj._bcast(w),))):
+        parts = obj._each(contract, *args)
+        on_card, on_host = obj._sum(parts), obj._sum_across_processes(parts)
+        assert len(on_card) == len(on_host)
+        for a, b in zip(on_card, on_host):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert fused.launch_counts["fused_value_grad"] == 4 and fused.launch_counts["fused_hvp"] == 4
+
+
 _ALLREDUCE_WORKER = """
 import sys
 root, port, rank, path = sys.argv[1:5]
