@@ -5,7 +5,8 @@ Newton, on the default lane solvers and in per-entity subspaces and random
 projections), its GAME train and score drivers on Avro files, read by
 the native columnar decoder, its out-of-core GLM and GAME paths (host
 data streamed through the card), and its data-parallel GLM and GAME
-paths (shards of the card, and two processes over gloo) on one CUDA card.
+paths (shards of the card, and two processes over gloo, in memory and
+out of core) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -158,6 +159,21 @@ Run from the root of a checkout. It builds the CUDA kernels from
    card's busy share over a profiled second iteration, and K1 alone at the
    chunk's shape (2^20 x 65, float32, offsets read) against its plain
    version;
+15d. main_e_streamed_multihost: main_e_streamed's problem at the same
+   width and depth in two processes of this script on the card (gloo over
+   loopback), each drawing main_e's rows from the seed on the card and
+   keeping one contiguous half (10,000,131 and 10,000,132 rows) on its
+   host: ``StreamedGameTrainer(multihost=True)``, each process streaming
+   its own 10 chunks through K1 with every pass summed over the
+   processes, each entity's rows exchanged to its owner (entity % 2) once
+   and the offsets and scores every visit. The ranks' models bitwise
+   equal; against main_e_streamed |dAUC| <= 0.005, relative d(fixed
+   objective) <= 1e-3 and the random effects within atol 2e-3 / rtol
+   1e-2; K1 = the process's chunks x the fixed effect's passes in each.
+   It records the wall per outer iteration beside main_e_streamed's, per
+   coordinate the ingest exchange's seconds and bytes, per visit the
+   offset and score exchanges' seconds and bytes and the host gather
+   seconds, and each process's peak device bytes and host RSS;
 16. main_game_cli: config E at its bench depth (64 global features, 8 per
    user and 8 per item, 20,000 users and 4,000 items, Zipf 1.5; 2^18
    training and 2^16 validation rows), generated on the card and written as
@@ -226,6 +242,16 @@ Run from the root of a checkout. It builds the CUDA kernels from
    driver's, the best entry's validation AUC within 1e-3, the scores file
    equal to the library's scores of the same model (atol 1e-5), K1's
    launches = 8 x the fixed effect's value-and-gradient passes;
+18c. main_game_cli_streamed_multihost: the same driver with
+   ``--multihost`` in two processes of this script on the card, one
+   training part each (4 chunks): 2 outer iterations, the same command at
+   3 (each grid entry resumes at outer iteration 2 from the sharded
+   checkpoints: process 0's model file, each process's score file), then 3
+   iterations uninterrupted into other directories. The best index and
+   the models (rtol 1e-2 / atol 1e-3) of the 2- and 3-iteration runs
+   main_game_cli_streamed's; process 0 alone writing (process 1 only its
+   score files); the resumed run bitwise the uninterrupted one; K1 = the
+   process's chunks x its fixed-effect passes in every run;
 19. main_f: logistic at config A's width in float32, 2^22 rows (8 GiB) in
    16 host chunks of 2^18 rows drawn on the card, ``train_glm_streamed``
    with host L-BFGS (10 iterations at tolerance 0, lambda = 1) in three
@@ -268,8 +294,8 @@ fails its phase. The kernels are built once, before any child starts.
 Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
 E on L-BFGS, E projected, the GAME drivers, the six out-of-core
-phases and the seven data-parallel ones, which ``launches_by_path`` lists
-one by one; ``at_main_d_shape``
+phases, the seven data-parallel ones and the two out-of-core ones across
+processes, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
 ``at_streamed_game_chunk_shape`` K1's at main_e_streamed's), the line
@@ -1694,6 +1720,31 @@ def recording_fits():
 
 
 @contextmanager
+def recording_streamed_trainers():
+    """Keeps each out-of-core trainer the GAME driver builds, with the row
+    count of the data it fits (``rows``: the process's own)."""
+    seen, real = [], cli_train.StreamedGameTrainer
+
+    def trainer(*args, **kwargs):
+        t = real(*args, **kwargs)
+        fit = t.fit
+
+        def recorded(data, *a, **k):
+            t.rows = data.num_rows
+            return fit(data, *a, **k)
+
+        t.fit = recorded
+        seen.append(t)
+        return t
+
+    cli_train.StreamedGameTrainer = trainer
+    try:
+        yield seen
+    finally:
+        cli_train.StreamedGameTrainer = real
+
+
+@contextmanager
 def stage_times(*modules):
     """Seconds of each ``timed`` stage the drivers of ``modules`` log, the
     card synchronized at its end."""
@@ -2667,7 +2718,7 @@ def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None,
 def _child(mode: str, rank: int, spec: dict) -> int:
     """One process of a multi-process phase (``run_children``), on the
     parent's device."""
-    global F_ROWS, F_D, F_CHUNK
+    global F_ROWS, F_D, F_CHUNK, E_STREAM_CHUNK
     dev = torch.device(spec["device"])
     if dev.type != "cuda":  # a rehearsal on the CPU: no card to wait for
         torch.cuda.synchronize = lambda *a, **k: None
@@ -2738,6 +2789,32 @@ def _child(mode: str, rank: int, spec: dict) -> int:
         out.update(_game_record(fit, warmup=2), mesh=[str(d) for d in mesh.local],
                    global_shards=list(mesh.global_shards()), exchange_per_visit=_exchange_per_visit(fit, 2),
                    peak_device_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
+    elif mode == "e_streamed_multihost":
+        n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
+        E_STREAM_CHUNK = spec["chunk_rows"]
+        t0 = time.perf_counter()
+        batch, data = game_problem(dev, n, effects, seed=4)  # main_e's rows, drawn on the card
+        per = n // spec["processes"]
+        rows = slice(rank * per, n if rank == spec["processes"] - 1 else (rank + 1) * per)
+        host = streamed_game_data(batch, rows)  # this process's contiguous half, on its host only
+        del batch, data
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.reset_peak_host_memory_stats()
+        out["data_s"] = time.perf_counter() - t0
+        initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+        reset_collective_stats()
+        fit = fit_streamed(host, game_config(effects, 2), dev, multihost=True)
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+        margins = score_streamed(fit["model"], host, dev)
+        np.savez(os.path.join(work, f"rank{rank}.npz"), margins=margins.cpu().numpy(), labels=host.labels,
+                 **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["model"].models.items()})
+        out.update(rows=host.num_rows, chunks=-(-host.num_rows // E_STREAM_CHUNK), wall_s=fit["wall_s"],
+                   iteration_wall_s=fit["iteration_wall_s"], visits=fit["visits"], launches=fit["launches"],
+                   fixed_objective_passes=fit["fixed_objective_passes"],
+                   fixed_objective=fit["info"]["fixed"].final_loss, exchange_totals=fit["trainer"].exchange_totals,
+                   collectives=dict(collective_stats), peak_device_bytes=peak, host=host_memory())
     elif mode == "game_multihost_cli":
         phases = []
         for port, (command, argv) in zip(spec["ports"], spec["phases"]):
@@ -2747,17 +2824,25 @@ def _child(mode: str, rank: int, spec: dict) -> int:
             st.reset_launch_counts()
             reset_collective_stats()
             t0 = time.perf_counter()
-            with recording_fits() as fits:
+            with recording_fits() as fits, recording_streamed_trainers() as trainers:
                 (cli_train if command == "train" else cli_score).main([a.replace("{rank}", str(rank))
                                                                       for a in argv])
             torch.cuda.synchronize()
             ckpt = os.path.join(work, "out0", "checkpoints", "config-0000", "ckpt.npz")
+            metrics = os.path.join(work, "out0", "metrics.json")
             phases.append(dict(
                 command=command, wall_s=time.perf_counter() - t0, launches=launch_counts(),
                 fixed_objective_passes=sum(t.objective_passes for _, results in fits for r in results
-                                           for t in r.descent.trackers["fixed"]),
+                                           for t in r.descent.trackers["fixed"])
+                + sum(v.get("objective_passes", 0) for t in trainers for v in t.visit_stats),
                 collectives=dict(collective_stats),
-                checkpoint_mtime_ns=os.stat(ckpt).st_mtime_ns if os.path.exists(ckpt) else None))
+                checkpoint_mtime_ns=os.stat(ckpt).st_mtime_ns if os.path.exists(ckpt) else None,
+                # the out-of-core entries: this process's rows, the resume, the row exchanges
+                streamed=[dict(rows=t.rows, resumed_from=t.resumed_from, exchange_totals=t.exchange_totals,
+                               visit_exchanges=_visit_exchanges(t.visit_stats)) for t in trainers]))
+            if rank == 0 and os.path.exists(metrics):
+                with open(metrics) as f:
+                    phases[-1]["best_index"] = json.load(f).get("best_index")
             if rank == 0 and len(phases) == 1:  # the first run's models, for the rerun's check
                 shutil.copytree(os.path.join(work, "out0", "best"), os.path.join(work, "first-best"))
         out["phases"] = phases
@@ -3021,11 +3106,11 @@ def run_game_multihost_cli(dev, data: GameCliData, cli: dict, card: str) -> dict
     )
 
 
-def streamed_game_data(batch) -> StreamedGameData:
-    """A ``GameBatch``'s columns copied to host numpy, the out-of-core
-    trainer's input."""
+def streamed_game_data(batch, rows: slice = slice(None)) -> StreamedGameData:
+    """A ``GameBatch``'s columns (its ``rows``) copied to host numpy, the
+    out-of-core trainer's input."""
     def host(t):
-        return t.cpu().numpy()
+        return t[rows].cpu().numpy()
 
     return StreamedGameData(labels=host(batch.labels), features={s: host(f.X) for s, f in batch.features.items()},
                             id_tags={k: host(v) for k, v in batch.id_tags.items()})
@@ -3043,13 +3128,13 @@ def score_streamed(model: GameModel, data: StreamedGameData, dev, rows: int = E_
     return torch.cat(out)
 
 
-def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mark=None) -> dict:
-    """``StreamedGameTrainer.fit`` (chunks of ``E_STREAM_CHUNK`` rows) with
-    every kernel's launch count, the chunk cache and the copy counters
-    zeroed just before and read just after. The trainer's logger marks the
-    end of every visit (each mark synchronizes the card, then calls
-    ``on_mark``); per visit: wall, scalar read-backs, cache hits and misses,
-    bytes copied, and the trainer's own visit record."""
+def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mark=None, **trainer_kw) -> dict:
+    """``StreamedGameTrainer.fit`` (chunks of ``E_STREAM_CHUNK`` rows, and
+    ``trainer_kw``) with every kernel's launch count, the chunk cache and
+    the copy counters zeroed just before and read just after. The trainer's
+    logger marks the end of every visit (each mark synchronizes the card,
+    then calls ``on_mark``); per visit: wall, scalar read-backs, cache hits
+    and misses, bytes copied, and the trainer's own visit record."""
     marks = []
 
     def mark(msg: str) -> None:
@@ -3068,7 +3153,7 @@ def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mar
     start = (t0, 0, prefetch.cache_stats(), dict(prefetch.copied))
     with counting_readbacks() as reads:
         trainer = StreamedGameTrainer(config, chunk_rows=E_STREAM_CHUNK, intercept_indices={"global": D_FIXED},
-                                      logger=mark, device=dev)
+                                      logger=mark, device=dev, **trainer_kw)
         model, info = trainer.fit(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3122,13 +3207,14 @@ def e_streamed_reference(dev, batch, data) -> tuple[StreamedGameData, dict]:
     return host, dict(_game_record(mem), **game_quality(mem, batch, data), to_host_s=to_host_s)
 
 
-def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: str) -> dict:
+def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: str) -> tuple[dict, GameModel]:
     """main_e_streamed: config E at MovieLens-20M depth (main_e's rows, seed
     4) out of core from host numpy: 2 outer iterations of
     ``StreamedGameTrainer`` in chunks of 2^20 rows (the fixed effect
     streamed through K1, the random effects' buckets gathered on the host
     every visit), held to the in-memory fit ``mem`` of the same
-    configuration on the same rows (``e_streamed_reference``)."""
+    configuration on the same rows (``e_streamed_reference``). Returns the
+    record and the model (main_e_streamed_multihost is held to it)."""
     n, effects = E_ML20M
     config = game_config(effects, 2)
     chunks = -(-n // E_STREAM_CHUNK)
@@ -3160,7 +3246,7 @@ def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: st
                                   / rec["pinned_h2d_gb_s"] for v in fit["visits"] if "bytes_copied" in v},
         k1_layout=k1_layout(first_chunk, first_labels, ones, ones),
         train_auc=auc, train_log_loss=log_loss, auc_generating_model=mem["auc_generating_model"],
-        quality_ok=auc >= 0.95 * mem["auc_generating_model"],
+        quality_ok=auc >= 0.95 * mem["auc_generating_model"], fixed_objective=fit["info"]["fixed"].final_loss,
         d_auc_vs_in_memory=abs(auc - mem["train_auc"]),
         rel_d_log_loss_vs_in_memory=abs(log_loss - mem["train_log_loss"]) / mem["train_log_loss"],
         main_e_timed_wall_s_per_outer_iteration=e_rec["timed_wall_s_per_outer_iteration"],
@@ -3170,6 +3256,7 @@ def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: st
     rec["launches_ok"] = (rec["fixed_objective_passes"] > 0
                           and fit["launches"]["fused_value_grad"] == chunks * rec["fixed_objective_passes"]
                           and not any(v for k, v in fit["launches"].items() if k != "fused_value_grad"))
+    model = fit["model"]
     del fit
     torch.cuda.empty_cache()
     rec["profile"] = profile_streamed(host, config, dev)
@@ -3177,28 +3264,87 @@ def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: st
     rec["k1_at_chunk"] = k1_at(first_chunk, 0.1 * torch.randn(E_STREAM_CHUNK, generator=gen, device=dev),
                                first_labels, dev)
     prefetch.clear_cache()
-    return rec
+    return rec, model
+
+
+def _visit_exchanges(visits: list) -> list:
+    """Each random-effect visit's offset and score exchanges (seconds,
+    bytes sent) and its host gather seconds."""
+    keys = ("offsets_exchange_s", "offsets_exchange_bytes", "scores_exchange_s", "scores_exchange_bytes", "gather_s")
+    return [dict(iteration=v["iteration"], coordinate=v["coordinate"], **{k: v[k] for k in keys})
+            for v in visits if "offsets_exchange_s" in v]
+
+
+def run_e_streamed_multihost(dev, e_streamed: dict, e_model: GameModel, card: str) -> dict:
+    """main_e_streamed_multihost: main_e_streamed's problem (config E at
+    ML-20M depth, 2 outer iterations, chunks of 2^20 rows) in two processes
+    of this script on the card, each drawing main_e's rows from the seed on
+    the card and keeping one contiguous half on its host:
+    ``StreamedGameTrainer(multihost=True)`` (each process streams its own
+    chunks through K1 and the passes sum over gloo; each entity's rows
+    travel to their owner once, and the offsets and scores every visit).
+    Held to main_e_streamed (one process, every row)."""
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="_e_streamed_multihost-", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        kids = run_children("e_streamed_multihost", work, {"shape": E_ML20M, "chunk_rows": E_STREAM_CHUNK}, dev)
+        wall = time.perf_counter() - t0
+        arrays = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cids = list(e_model.models)
+    margins = torch.from_numpy(np.concatenate([a["margins"] for a in arrays])).to(dev)
+    labels = torch.from_numpy(np.concatenate([a["labels"] for a in arrays])).to(dev)
+    auc = float(auc_roc(margins, labels))
+    del margins, labels
+    random = {c: close(torch.from_numpy(arrays[0][c]).to(dev), e_model[c].coefficient_means, 1e-2, 2e-3)
+              for c in cids if c != "fixed"}
+    launches = {k: sum(c["launches"][k] for c in kids) for k in launch_counts()}
+    fixed_objective = kids[0]["fixed_objective"]
+    return dict(
+        card=card, processes=2, phase_wall_s=wall, launches=launches,
+        rows=[c["rows"] for c in kids], chunks=[c["chunks"] for c in kids], data_s=[c["data_s"] for c in kids],
+        wall_s=[c["wall_s"] for c in kids], iteration_wall_s=[c["iteration_wall_s"] for c in kids],
+        timed_wall_s_per_outer_iteration=max(c["iteration_wall_s"][1] for c in kids),
+        main_e_streamed_timed_wall_s_per_outer_iteration=e_streamed["timed_wall_s_per_outer_iteration"],
+        visit_wall_s=[{f"{v['iteration']}/{v['coordinate']}": v["wall_s"] for v in c["visits"]} for c in kids],
+        ingest_exchange={c: [k["exchange_totals"][f"ingest/{c}"] for k in kids] for c in cids if c != "fixed"},
+        visit_exchanges=[_visit_exchanges(c["visits"]) for c in kids], collectives=[c["collectives"] for c in kids],
+        fixed_objective_passes=[c["fixed_objective_passes"] for c in kids],
+        peak_device_bytes=[c["peak_device_bytes"] for c in kids],
+        main_e_streamed_peak_device_bytes=e_streamed["peak_device_bytes"],
+        # at the fit's end (a child's getrusage peak starts at its parent's size at the fork)
+        host_rss_bytes=[c["host"].get("rss_bytes") for c in kids],
+        models_bitwise_equal_across_ranks=all(arrays[0][c].tobytes() == arrays[1][c].tobytes() for c in cids),
+        train_auc=auc, d_auc_vs_main_e_streamed=abs(auc - e_streamed["train_auc"]),
+        fixed_objective=fixed_objective,
+        rel_d_fixed_objective_vs_main_e_streamed=abs(fixed_objective - e_streamed["fixed_objective"])
+        / abs(e_streamed["fixed_objective"]),
+        random_effects_within_lane_tolerance=all(ok for ok, _ in random.values()),
+        max_abs_diff_random_effects_vs_main_e_streamed={c: err for c, (_, err) in random.items()},
+        k1_launches_ok=all(c["fixed_objective_passes"] > 0
+                           and c["launches"]["fused_value_grad"] == c["chunks"] * c["fixed_objective_passes"]
+                           and not any(v for k, v in c["launches"].items() if k != "fused_value_grad")
+                           for c in kids),
+    )
 
 
 def run_game_cli_streamed(dev, data: GameCliData, card: str) -> dict:
     """main_game_cli_streamed: ``cli.train.main --streaming-chunk-rows
     32768`` on main_game_cli's files and configuration (2 outer iterations,
-    the λ grid), then a rerun to 3 iterations that resumes from its visit
-    checkpoints, then ``cli.score.main`` on the streamed model; held to
-    main_game_cli's in-memory driver output (its 3-iteration run, in
-    ``work/out``) and to the library's scores of the same model."""
+    the λ grid; its outputs kept in ``work/out_streamed-2it``), then a
+    rerun to 3 iterations that resumes from its visit checkpoints, then
+    ``cli.score.main`` on the streamed model; held to main_game_cli's
+    in-memory driver output (its 3-iteration run, in ``work/out``) and to
+    the library's scores of the same model."""
     work, effects, n_tr = data.work, data.effects, data.n_train
     out = os.path.join(work, "out_streamed")
     argv = lambda it: ["--config", os.path.join(work, f"config-{it}.json"),  # noqa: E731
                        "--train-data", os.path.join(work, "train"), "--validation-data", os.path.join(work, "val"),
                        "--output-dir", out, "--device", dev.type, "--streaming-chunk-rows", str(GLM_CLI_CHUNK)]
-    trainers, decoders = [], []
-    real_trainer, real_read, real_streamed = (cli_train.StreamedGameTrainer, AvroDataReader.read,
-                                              AvroDataReader.read_streamed_game)
-
-    def trainer(*args, **kwargs):
-        trainers.append(real_trainer(*args, **kwargs))
-        return trainers[-1]
+    decoders = []
+    real_read, real_streamed = AvroDataReader.read, AvroDataReader.read_streamed_game
 
     def read(self, *args, **kwargs):
         ds = real_read(self, *args, **kwargs)
@@ -3211,29 +3357,28 @@ def run_game_cli_streamed(dev, data: GameCliData, card: str) -> dict:
         return ds
 
     runs = {}
-    cli_train.StreamedGameTrainer, AvroDataReader.read = trainer, read
-    AvroDataReader.read_streamed_game = read_streamed
+    AvroDataReader.read, AvroDataReader.read_streamed_game = read, read_streamed
     try:
         for it in (2, 3):
-            trainers.clear()
             fused.reset_launch_counts()
             st.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with stage_times(cli_train) as stages:
+            with stage_times(cli_train) as stages, recording_streamed_trainers() as trainers:
                 cli_train.main(argv(it))
             torch.cuda.synchronize()
             passes = sum(v["objective_passes"] for t in trainers for v in t.visit_stats if "objective_passes" in v)
             runs[it] = dict(wall_s=time.perf_counter() - t0, stages_s=stages, launches=launch_counts(),
                             fixed_objective_passes=passes, resumed_from=[t.resumed_from for t in trainers])
+            if it == 2:  # main_game_cli_streamed_multihost's first run is held to this one
+                shutil.copytree(out, out + "-2it", ignore=shutil.ignore_patterns("checkpoints"))
         score_out = os.path.join(work, "scores_streamed")
         with stage_times(cli_score) as score_stages:
             cli_score.main(["--model-dir", out, "--data", os.path.join(work, "val"), "--output-dir", score_out,
                             "--evaluators", *GAME_CLI_EVALUATORS, "--config", os.path.join(work, "config-3.json"),
                             "--device", dev.type])
     finally:
-        cli_train.StreamedGameTrainer, AvroDataReader.read = real_trainer, real_read
-        AvroDataReader.read_streamed_game = real_streamed
+        AvroDataReader.read, AvroDataReader.read_streamed_game = real_read, real_streamed
     chunks = -(-n_tr // GLM_CLI_CHUNK)
     for r in runs.values():
         r["launches_ok"] = (r["fixed_objective_passes"] > 0
@@ -3242,18 +3387,8 @@ def run_game_cli_streamed(dev, data: GameCliData, card: str) -> dict:
     with open(os.path.join(out, "photon.log")) as f:
         resumed_lines = f.read().count(STREAMED_RESUME_LINE)
 
-    def load(d):
-        maps = {fn[:-4]: IndexMap.load(os.path.join(d, "index-maps", fn))
-                for fn in os.listdir(os.path.join(d, "index-maps"))}
-        with open(os.path.join(d, "entity-maps.json")) as f:
-            ent = json.load(f)
-        model = load_game_model(os.path.join(d, "best"), index_maps=maps,
-                                entity_ids={f"per_{k}": ent[k] for k in effects}, device=dev)
-        with open(os.path.join(d, "metrics.json")) as f:
-            return model, json.load(f)
-
-    streamed, s_metrics = load(out)
-    in_memory, m_metrics = load(os.path.join(work, "out"))
+    streamed, s_metrics = driver_output(out, effects, dev)
+    in_memory, m_metrics = driver_output(os.path.join(work, "out"), effects, dev)
     best = s_metrics["best_index"]
     _, recs = read_avro_file(os.path.join(score_out, "scores", "part-00000.avro"))
     file_scores = torch.tensor([r["predictionScore"] for r in recs], dtype=torch.float64)
@@ -3273,6 +3408,86 @@ def run_game_cli_streamed(dev, data: GameCliData, card: str) -> dict:
         validation_history_visits=len(s_metrics["validation_history"]),
         scores_rows=len(recs), scores_finite=bool(torch.isfinite(file_scores).all()),
         max_abs_diff_scores_file_vs_library=float((file_scores - library).abs().max()),
+    )
+
+
+def driver_output(d: str, effects: dict, dev, best: str = "best") -> tuple[GameModel, dict]:
+    """A GAME train driver's model in ``best`` (under ``d`` unless absolute),
+    read through its index and entity maps, and its ``metrics.json``."""
+    maps = {fn[:-4]: IndexMap.load(os.path.join(d, "index-maps", fn))
+            for fn in os.listdir(os.path.join(d, "index-maps"))}
+    with open(os.path.join(d, "entity-maps.json")) as f:
+        ent = json.load(f)
+    model = load_game_model(os.path.join(d, best), index_maps=maps,
+                            entity_ids={f"per_{k}": ent[k] for k in effects}, device=dev)
+    with open(os.path.join(d, "metrics.json")) as f:
+        return model, json.load(f)
+
+
+def run_game_cli_streamed_multihost(dev, data: GameCliData, card: str) -> dict:
+    """main_game_cli_streamed_multihost: ``cli.train --multihost
+    --streaming-chunk-rows 32768`` in two processes of this script on
+    main_game_cli's files (two training parts: one a process; every
+    process's statistics pass reads both), as main_game_cli_streamed runs
+    it: 2 outer iterations, then the same command at 3, which resumes both
+    grid entries at outer iteration 2 from the sharded checkpoints (each
+    process's score files); then 3 iterations uninterrupted into other
+    directories, which the resumed run must equal bit for bit. Held to
+    main_game_cli_streamed's 2- and 3-iteration runs."""
+    work, effects = data.work, data.effects
+    root = os.path.join(work, "game_streamed_multihost")
+
+    def train(it: int, out: str) -> tuple:
+        return ("train", ["--config", os.path.join(work, f"config-{it}.json"), "--train-data",
+                          os.path.join(work, "train"), "--validation-data", os.path.join(work, "val"),
+                          "--device", dev.type, "--streaming-chunk-rows", str(GLM_CLI_CHUNK), "--multihost",
+                          "--output-dir", os.path.join(root, out)])
+
+    t0 = time.perf_counter()
+    kids = run_children("game_multihost_cli", root, {"phases": [train(2, "out{rank}"), train(3, "out{rank}"),
+                                                                train(3, "fresh{rank}")]}, dev, ports=3)
+    wall = time.perf_counter() - t0
+    first, rerun, fresh = ([c["phases"][i] for c in kids] for i in range(3))
+    out0 = os.path.join(root, "out0")
+    first_model, _ = driver_output(out0, effects, dev, best=os.path.join(root, "first-best"))
+    rerun_model, metrics = driver_output(out0, effects, dev)
+    fresh_model, fresh_metrics = driver_output(os.path.join(root, "fresh0"), effects, dev)
+    one_2it, one_2it_metrics = driver_output(os.path.join(work, "out_streamed-2it"), effects, dev)
+    one_3it, one_3it_metrics = driver_output(os.path.join(work, "out_streamed"), effects, dev)
+    with open(os.path.join(out0, "photon.log")) as f:
+        resumed_lines = f.read().count(STREAMED_RESUME_LINE)
+
+    def files(d: str) -> list:
+        return sorted(os.path.relpath(os.path.join(p, f), d) for p, _, fs in os.walk(d) for f in fs)
+
+    def k1_ok(p: dict) -> bool:  # K1 once a chunk of this process's rows a pass, nothing else
+        chunks = -(-p["streamed"][0]["rows"] // GLM_CLI_CHUNK)
+        return (p["fixed_objective_passes"] > 0
+                and p["launches"]["fused_value_grad"] == chunks * p["fixed_objective_passes"]
+                and not any(v for k, v in p["launches"].items() if k != "fused_value_grad"))
+
+    score_files = [f"checkpoints/grid-000{i}/scores-shard-00001.npz" for i in range(2)]
+    phases = (first, rerun, fresh)
+    launches = {k: sum(p["launches"][k] for ph in phases for p in ph) for k in launch_counts()}
+    return dict(
+        card=card, processes=2, wall_s=wall, chunk_rows=GLM_CLI_CHUNK,
+        train_wall_s=[p["wall_s"] for p in first], rerun_wall_s=[p["wall_s"] for p in rerun],
+        fresh_wall_s=[p["wall_s"] for p in fresh],
+        rows=[[s["rows"] for s in p["streamed"]] for p in first],
+        ingest_exchange=[[s["exchange_totals"] for s in p["streamed"]] for p in first],
+        visit_exchanges=[[s["visit_exchanges"] for s in p["streamed"]] for p in first],
+        collectives=[p["collectives"] for p in first], launches=launches,
+        fixed_objective_passes=[[p["fixed_objective_passes"] for p in ph] for ph in phases],
+        launches_ok=all(k1_ok(p) for ph in phases for p in ph),
+        best_index=first[0]["best_index"], one_process_best_index=one_2it_metrics["best_index"],
+        rerun_best_index=metrics["best_index"], one_process_rerun_best_index=one_3it_metrics["best_index"],
+        models_ok=_close(first_model, one_2it, 1e-2, 1e-3) and _close(rerun_model, one_3it, 1e-2, 1e-3),
+        max_abs_diff_vs_one_process=max(_max_diff(first_model, one_2it), _max_diff(rerun_model, one_3it)),
+        only_process_0_wrote=files(os.path.join(root, "out1")) == score_files
+        and files(os.path.join(root, "fresh1")) == score_files and os.path.exists(os.path.join(out0, "best")),
+        resumed_lines=resumed_lines, resumed_from=[[s["resumed_from"] for s in p["streamed"]] for p in rerun],
+        rerun_bitwise_uninterrupted=_model_bytes(rerun_model) == _model_bytes(fresh_model)
+        and metrics["best_index"] == fresh_metrics["best_index"],
     )
 
 
@@ -3470,7 +3685,7 @@ def main() -> int:
         raise AssertionError(f"config E projected: AUC {e_proj['train_auc']} against "
                              f"{e_proj['auc_generating_model']}; scores {e_proj['random_projection_scores']}")
     # the same rows out of core, from host memory
-    e_streamed = run_e_streamed(dev, e_host, e_mem, e_rec, smi)
+    e_streamed, e_streamed_model = run_e_streamed(dev, e_host, e_mem, e_rec, smi)
     del e_host
     emit("main_e_streamed", **e_streamed)
     failed = [name for name, ok in (
@@ -3483,6 +3698,19 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_e_streamed failed: {failed}")
+    # the same problem in two processes, each holding half of the rows
+    e_streamed_multi = run_e_streamed_multihost(dev, e_streamed, e_streamed_model, smi)
+    del e_streamed_model
+    emit("main_e_streamed_multihost", **e_streamed_multi)
+    failed = [name for name, ok in (
+        ("models_bitwise_equal_across_ranks", e_streamed_multi["models_bitwise_equal_across_ranks"]),
+        ("vs_main_e_streamed", e_streamed_multi["d_auc_vs_main_e_streamed"] <= 0.005
+         and e_streamed_multi["rel_d_fixed_objective_vs_main_e_streamed"] <= 1e-3
+         and e_streamed_multi["random_effects_within_lane_tolerance"]),
+        ("k1_launches", e_streamed_multi["k1_launches_ok"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_e_streamed_multihost failed: {failed}")
     solvers = agreement_e_solvers(dev, agree_e["fused"])
     emit("agreement_e_solvers", **solvers)
     ev = solvers["lbfgs"]["evaluators"]
@@ -3523,6 +3751,8 @@ def main() -> int:
         game_multihost = run_game_multihost_cli(dev, data, cli, smi)
         # the out-of-core GAME driver on the same files, against the in-memory one
         game_streamed = run_game_cli_streamed(dev, data, smi)
+        # the same driver across two processes, one training part each
+        game_streamed_multi = run_game_cli_streamed_multihost(dev, data, smi)
         del data
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3588,6 +3818,19 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_game_cli_streamed failed: {failed}")
+    gsm = game_streamed_multi
+    emit("main_game_cli_streamed_multihost", **gsm)
+    failed = [name for name, ok in (
+        ("best_index", gsm["best_index"] == gsm["one_process_best_index"]
+         and gsm["rerun_best_index"] == gsm["one_process_rerun_best_index"]),
+        ("vs_one_process", gsm["models_ok"]),
+        ("only_process_0_wrote", gsm["only_process_0_wrote"]),
+        ("rerun_resumed", gsm["resumed_lines"] == 2 and gsm["resumed_from"] == [[[2, 0], [2, 0]]] * 2),
+        ("rerun_bitwise_uninterrupted", gsm["rerun_bitwise_uninterrupted"]),
+        ("k1_launches", gsm["launches_ok"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_game_cli_streamed_multihost failed: {failed}")
 
     # the out-of-core GLM path: the driver (above, on the GAME files), then
     # main_f, config B and config A2 streamed from host chunks
@@ -3660,6 +3903,9 @@ def main() -> int:
     streamed_paths = {"main_f": f_rec, "main_b_streamed": b_streamed, "main_a2_streamed": a2_streamed,
                       "main_glm_streamed_cli": glm_streamed, "main_e_streamed": e_streamed,
                       "main_game_cli_streamed": game_streamed}
+    # out of core across processes
+    parallel_streamed_paths = {"main_e_streamed_multihost": e_streamed_multi,
+                               "main_game_cli_streamed_multihost": game_streamed_multi}
     # data parallel: row shards of the card, and two processes over gloo
     parallel_paths = {"main_a_sharded": a_sharded, "main_a2_sharded": a2_sharded,
                       "main_f_multihost": f_multi, "main_glm_multihost_cli": glm_multihost,
@@ -3674,7 +3920,8 @@ def main() -> int:
             "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k],
             "main_e_projected": e_proj["launches"][k], "main_game_cli": cli["launches"][k],
             "main_game_cli_full": full["launches"][k],
-            **{path: rec["launches"][k] for path, rec in {**streamed_paths, **parallel_paths}.items()}}
+            **{path: rec["launches"][k]
+               for path, rec in {**streamed_paths, **parallel_paths, **parallel_streamed_paths}.items()}}
         for k in KERNEL_ROWS
     }
     kernels = [
@@ -3697,7 +3944,7 @@ def main() -> int:
     k2_chunk = b_streamed["k2_at_chunk"]
     kernels[1]["at_streamed_chunk_shape"] = {k: k2_chunk[k] for k in at_shape_keys
                                              if k2_chunk.get(k) is not None}
-    k3_paths = {**streamed_paths, **parallel_paths}
+    k3_paths = {**streamed_paths, **parallel_paths, **parallel_streamed_paths}
     k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over A2's paths and the rest
         dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW,
              launches=k3[direction] + sum(r["launches"][f"sparse_{direction}"] for r in k3_paths.values()),

@@ -22,13 +22,18 @@ or tuning entry is one streamed descent with its checkpoints under
 that a resumed run merges with the interrupted one's, as the reference's
 streamed branch does.
 
-``--multihost`` trains in memory across processes, as the reference
-does: every process reads every file (replicated ingest: the feature and
-entity dictionaries need the global view) into host memory, the
+``--multihost`` trains across processes, as the reference does. In
+memory, every process reads every file (replicated ingest: the feature
+and entity dictionaries need the global view) into host memory and the
 estimator runs over the process-spanning data mesh (one shard per local
-card, or one on ``--device cpu``), and process 0 alone writes the log
-file and every output; the others log to stderr. Run the same command in
-each process with ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+card, or one on ``--device cpu``). Out of core, the statistics pass reads
+every file on every process (so the dictionaries agree), each process
+fills only its round-robin slice of the part files (none, when there are
+fewer files than processes) and the streamed trainer partitions the rows
+over the processes, with per-process score files in the checkpoints.
+Process 0 alone writes the log file and every output; the others log to
+stderr. Run the same command in each process with
+``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
 ``JAX_PROCESS_ID`` set (the reference's variables).
 
 Usage:
@@ -38,8 +43,7 @@ Usage:
         [--streaming-chunk-rows 1048576] [--multihost]
 
 Branches not ported yet raise ``NotImplementedError`` naming their ROADMAP
-queue 1 item: ``--multihost`` out of core (12c), ``--telemetry-dir`` and
-``--profile-dir`` (13).
+queue 1 item: ``--telemetry-dir`` and ``--profile-dir`` (13).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
 from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes
 from photon_ml_tpu_torch.parallel.mesh import process_mesh
 from photon_ml_tpu_torch.parallel.multihost import (
+    host_shard_of_paths,
     initialize_multihost,
     is_output_process,
     require_process_group,
@@ -95,21 +100,19 @@ def run(
     when ``streaming_chunk_rows`` selects the out-of-core branch, the best
     entry's ``GameModel``. Runs on ``device`` (CUDA unless the caller asks
     for another; raises without it). ``multihost`` trains across the
-    process group (module docstring) over ``process_mesh``: one shard on
-    ``device``'s card, or one on every local card for plain ``cuda``."""
-    if multihost and streaming_chunk_rows is not None:
-        raise _multihost_streaming_error()
+    process group (module docstring): in memory over ``process_mesh`` (one
+    shard on ``device``'s card, or one on every local card for plain
+    ``cuda``), out of core over each process's part files."""
     if profile_dir is not None:
         raise not_ported("device traces (--profile-dir)", "13")
     dev = resolve_device(device)
-    mesh = None
     if multihost:
         require_process_group()
-        mesh = process_mesh(devices=None if dev == torch.device("cuda") else [dev])
     logger = logger or PhotonLogger(output_dir if is_output_process() else None)
     if streaming_chunk_rows is not None:
         return _run_streamed_game(config, train_data, output_dir, validation_data, streaming_chunk_rows,
-                                  logger, dev)
+                                  logger, dev, multihost)
+    mesh = process_mesh(devices=None if dev == torch.device("cuda") else [dev]) if multihost else None
     # across processes the replicated batches stay on the host; each
     # process stages its shards on its cards
     read_dev = torch.device("cpu") if multihost else dev
@@ -237,11 +240,6 @@ def _write_outputs(output_dir: str, config: GameTrainingConfig, train: GameDatas
             write_report(game_diagnostics(results, config=config, index_maps=train.index_maps), output_dir)
 
 
-def _multihost_streaming_error() -> NotImplementedError:
-    return not_ported("multi-host out-of-core GAME training (--multihost with --streaming-chunk-rows "
-                      "or auto-streaming)", "12c")
-
-
 def _game_id_tags(config: GameTrainingConfig) -> tuple[str, ...]:
     """The id-tag columns the records must carry: every random-effect type
     and every grouped evaluator's group-by tag (a grouped evaluator may
@@ -315,11 +313,12 @@ def _should_auto_stream(train_data: list[str], config: GameTrainingConfig, logge
 
 def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output_dir: str,
                        validation_data: list[str] | None, chunk_rows: int, logger: PhotonLogger,
-                       dev: torch.device) -> GameModel:
+                       dev: torch.device, multihost: bool = False) -> GameModel:
     """The out-of-core branch: the statistics pass over every file, the
-    host fill of the training and validation rows, one streamed descent
-    per grid (and tuning) entry with per-entry checkpoints, and the best
-    entry's files."""
+    host fill of the training and validation rows (across processes, each
+    process's slice of the files), one streamed descent per grid (and
+    tuning) entry with per-entry checkpoints, and the best entry's files,
+    written by process 0."""
     unsupported = _streamed_unsupported(config)
     if unsupported:
         raise ValueError("--streaming-chunk-rows does not support: " + ", ".join(unsupported))
@@ -335,13 +334,24 @@ def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output
         f"streamed GAME: {n_rows} rows, shards { {s: m.size for s, m in index_maps.items()} }, "
         f"entities { {t: len(m) for t, m in entity_maps.items()} }"
     )
+
+    def own(paths: list[str]) -> list[str]:
+        return host_shard_of_paths(paths) if multihost else paths
+
+    local_paths = own(train_paths)
+    if multihost:
+        logger.info(f"this process fills {len(local_paths)}/{len(train_paths)} files")
+    # a process without a file still builds its 0-row dataset: it takes
+    # part in every collective of the trainer
     with timed(logger, "fill pass"):
-        data = reader.read_streamed_game(train_paths, id_tags, index_maps, entity_maps, max_nnz=max_nnz)
+        data = reader.read_streamed_game(local_paths, id_tags, index_maps, entity_maps, max_nnz=max_nnz,
+                                         allow_empty=multihost)
     vdata = None
     if validation_data:
         with timed(logger, "fill validation"):
-            vdata = reader.read_streamed_game(_expand_part_files(validation_data), id_tags, index_maps,
-                                              entity_maps, max_nnz=max_nnz, unseen_entity_ok=True)
+            vdata = reader.read_streamed_game(own(_expand_part_files(validation_data)), id_tags, index_maps,
+                                              entity_maps, max_nnz=max_nnz, unseen_entity_ok=True,
+                                              allow_empty=multihost)
 
     initial_model = None
     if config.model_input_dir:
@@ -389,7 +399,7 @@ def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output
             ck_dir = None
         trainer = StreamedGameTrainer(
             _config_with_optimizations(config, configuration), chunk_rows=chunk_rows,
-            intercept_indices=intercepts, logger=logger.info, checkpoint_dir=ck_dir,
+            intercept_indices=intercepts, logger=logger.info, multihost=multihost, checkpoint_dir=ck_dir,
             evaluators=specs if vdata is not None else (), num_entities=num_entities, device=dev,
         )
         model, info = trainer.fit(data, validation=vdata, initial_model=initial_model)
@@ -431,7 +441,21 @@ def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output
             f"(primary {best['primary']})"
         )
     model, info, trainer = best["model"], best["info"], best["trainer"]
+    # every process computes; process 0 alone writes the shared outputs
+    if is_output_process():
+        _write_streamed_outputs(output_dir, config, index_maps, entity_maps, model, info, trainer, chunk_rows,
+                                summaries if multi_entry else None, best["index"], logger)
+    if multihost:
+        sync_processes("streamed-game-outputs-written")
+    return model
 
+
+def _write_streamed_outputs(output_dir: str, config: GameTrainingConfig, index_maps, entity_maps, model,
+                            info, trainer, chunk_rows: int, summaries: list | None, best_index: int,
+                            logger: PhotonLogger) -> None:
+    """The out-of-core branch's files: ``best/``, the maps and a
+    ``metrics.json`` merged with an interrupted run's; ``summaries``, the
+    grid's entries (None for one entry)."""
     with timed(logger, "write models"):
         entity_names = {}
         for tag, m in entity_maps.items():
@@ -466,20 +490,19 @@ def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output
                 {cid: dict(res.metrics) for cid, res in entry.items()} for entry in trainer.validation_history
             ],
         }
-        if multi_entry:
+        if summaries is not None:
             metrics["results"] = [
                 {"configuration": {cid: opt.to_dict() for cid, opt in s["configuration"].items()},
                  "primary": s["primary"]}
                 for s in summaries
             ]
-            metrics["best_index"] = best["index"]
+            metrics["best_index"] = best_index
         with open(metrics_path, "w") as f:
             json.dump(metrics, f, indent=2)
     else:
         # the checkpoint showed the run complete: no visit ran, and the
         # existing metrics.json holds the run's diagnostics
         logger.info("checkpoint shows training already complete; keeping the existing metrics.json")
-    return model
 
 
 def _pad_random_effects(model: GameModel, train: GameDataset, config: GameTrainingConfig) -> GameModel:
@@ -539,10 +562,10 @@ def _parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--index-maps", default=None, help="prebuilt index maps (directory of .npz)")
     p.add_argument("--multihost", action="store_true",
-                   help="train in memory across processes: run the same command in each with "
-                        "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID set; every "
-                        "process reads every file, process 0 writes (out of core: ROADMAP queue 1 "
-                        "item 12c; raises)")
+                   help="train across processes: run the same command in each with "
+                        "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID set; in memory "
+                        "every process reads every file, out of core (--streaming-chunk-rows or "
+                        "auto-streaming) each fills its slice of the part files; process 0 writes")
     p.add_argument("--streaming-chunk-rows", type=int, default=None,
                    help="out-of-core training: the dataset stays in host memory and streams through "
                         "the card in chunks of this many rows; selected by itself (2^20 rows) when "
@@ -578,8 +601,6 @@ def main(argv: list[str] | None = None) -> None:
         ]
     dev = resolve_device(args.device)
     if args.multihost:
-        if args.streaming_chunk_rows is not None:
-            raise _multihost_streaming_error()
         initialize_multihost()
     try:
         # one process owns the shared log file; the rest log to stderr

@@ -1,6 +1,6 @@
 """Feature index maps: (name, term) → dense column index (own copy of
 ``photon_ml_tpu/data/index_map.py``, without the feature-range sharding of
-ROADMAP queue 1 item 12).
+ROADMAP queue 1 item 12d).
 
 The feature key is name + DELIMITER + term, as the reference's
 ``AvroDataReader`` forms it. A map is a sorted string array and each key's

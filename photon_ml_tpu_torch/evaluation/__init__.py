@@ -11,6 +11,7 @@ from photon_ml_tpu_torch.evaluation.evaluators import (  # noqa: F401
     make_evaluator,
     rmse,
 )
+from photon_ml_tpu_torch.evaluation.host_sharded import evaluate_host_sharded  # noqa: F401
 from photon_ml_tpu_torch.evaluation.scalable import (  # noqa: F401
     bucketed_auc,
     bucketed_auc_sharded,

@@ -14,7 +14,7 @@ projectors of ``photon_ml_tpu/game/projector.py``; the reference's
 
 The reference's capacity-class projection ladder (``PHOTON_RE_PROJECT``:
 ``projection_ladder``, ``class_activity``, ``ClassProjection``) is a fleet
-knob of ROADMAP queue 1 item 12 and is not ported.
+knob of ROADMAP queue 1 item 12d and is not ported.
 """
 
 from __future__ import annotations

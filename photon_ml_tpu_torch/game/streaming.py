@@ -1,13 +1,14 @@
 """Out-of-core GAME training: coordinate descent over host-resident data
-(port of the single-process trainer of ``photon_ml_tpu/game/streaming.py``).
+(port of ``photon_ml_tpu/game/streaming.py``: one process, and several
+with every fleet knob off).
 
 The in-memory ``CoordinateDescent`` (``game/descent.py``) needs the whole
 ``GameBatch`` on the card. This trainer keeps the dataset in host memory
 as numpy columns (``StreamedGameData``) and holds on the card, at a time,
 the fixed effect's chunks (through the chunk cache of ``ops/prefetch.py``)
 or a few random-effect buckets, and the models. The residual bookkeeping
-``base_offsets + total − own_score`` is float32 host numpy, in the
-reference's order.
+``base_offsets + total − own_score`` is float32 host numpy over each
+process's own rows, in the reference's order.
 
 - **Fixed effect**: a ``StreamingGLMObjective`` over the shard's uniform
   chunks, solved by the host L-BFGS / OWL-QN / TRON
@@ -28,6 +29,28 @@ reference's order.
   or Newton), and the coefficient and variance matrices stay on the host,
   in the original feature space.
 
+Across processes (``multihost=True``, in a ``parallel/multihost.py``
+process group) the rows are partitioned: each process holds its own slice
+of the data, and no process holds the dataset.
+
+- The fixed effect streams each process's own chunks and sums every pass
+  over the processes (``StreamingGLMObjective(cross_process=True)``).
+- Entity e belongs to process e % P. At set-up each random effect's rows
+  travel to their owners in rounds of ``chunk_rows`` rows of
+  ``exchange_rows`` (the number of rounds set by the largest process, so
+  an empty process takes part); the owner groups, buckets and solves its
+  entities. Every visit, the residual offsets flow to the owners and the
+  scores flow back, point to point; nothing is broadcast.
+- Validation rows are routed the same way once; scalar metrics combine
+  per-process partials (``evaluation/host_sharded.py``), grouped ones
+  per-owner partials of complete groups, so no process gathers a global
+  column.
+- Checkpoints: each process writes its own scores to
+  ``scores-shard-{pid:05d}.npz`` and process 0 the model (sharded, the
+  default), or process 0 alone gathers every score
+  (``sharded_checkpoints=False``). Process 0 reads the checkpoint and every
+  process adopts its bytes.
+
 Validation is scored after every coordinate visit (``validation_history``)
 on the port's evaluators, grouped ones included. ``checkpoint_dir`` keeps
 a resumable checkpoint per visit (every ``checkpoint_every_n_visits``-th)
@@ -37,10 +60,9 @@ down-sampling of the fixed effect, the incremental prior, warm starts and
 the subspace and random projections of random effects are supported, with
 the reference's construction-time rejections.
 
-Everything that serves several processes (the entity exchange, placement
-and its re-planning, peer loss and rejoin, sharded score checkpoints) is
-ROADMAP queue 1 item 12, and ``multihost=True`` and the fleet knobs raise
-naming it.
+The fleet knobs (skew-aware placement and its re-planner, the overlapped
+exchanges, device split, projection) and peer loss and rejoin are ROADMAP
+queue 1 item 12d, and the knobs raise naming it.
 """
 
 from __future__ import annotations
@@ -50,6 +72,7 @@ import json
 import os
 import time
 import warnings
+import zipfile
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
@@ -60,7 +83,7 @@ from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from photon_ml_tpu_torch.config import GameTrainingConfig, OptimizationConfig
 from photon_ml_tpu_torch.data.summary import shard_normalization_context, summarize_chunks
-from photon_ml_tpu_torch.evaluation import EvaluationResults, evaluate_all, make_evaluator
+from photon_ml_tpu_torch.evaluation import EvaluationResults, evaluate_all, evaluate_host_sharded, make_evaluator
 from photon_ml_tpu_torch.game.coordinate import _require_prior_l2
 from photon_ml_tpu_torch.game.data import (
     DenseFeatures,
@@ -81,8 +104,10 @@ from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks, stream_scores
 from photon_ml_tpu_torch.optim.common import select_minimize_fn
+from photon_ml_tpu_torch.parallel import multihost as mh
 from photon_ml_tpu_torch.sampling import down_sample
 from photon_ml_tpu_torch.types import NormalizationType, VarianceComputationType
+from photon_ml_tpu_torch.utils.atomic_io import atomic_savez
 
 Tensor = torch.Tensor
 
@@ -91,8 +116,8 @@ Tensor = torch.Tensor
 _FLEET_KNOBS = ("PHOTON_RE_SHARD", "PHOTON_RE_PROJECT", "PHOTON_RE_DEVICE_SPLIT")
 
 
-def _waits_for_item_12(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for ROADMAP queue 1 item 12 (multi-GPU)")
+def _waits_for_item_12d(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} waits for ROADMAP queue 1 item 12d (the fleet knobs)")
 
 
 @dataclass
@@ -102,9 +127,10 @@ class StreamedGameData:
     ``features[shard_id]`` is a dense (n, d) array, a ``DenseFeatures`` or
     a ``SparseFeatures`` (padded (n, k) indices and values) holding numpy
     arrays; nothing here touches the device. ``id_tags[tag]`` holds the
-    per-row dense entity ids of one id tag (-1: an entity unseen in
+    per-row dense global entity ids of one id tag (-1: an entity unseen in
     training, on validation data). ``decoder`` says which Avro decoder
-    read the rows, when a reader did."""
+    read the rows, when a reader did. Across processes it holds this
+    process's rows only."""
 
     labels: np.ndarray
     features: Mapping[str, Any]
@@ -165,18 +191,23 @@ def _re_chunk_scores_sparse(W_rows: Tensor, idx: Tensor, val: Tensor) -> Tensor:
     return torch.sum(val * torch.gather(W_rows, 1, idx.long()), dim=1)
 
 
-def _take_features(f: Features, idx: np.ndarray) -> dict[str, np.ndarray]:
-    """Host row-slice of a feature container as plain arrays."""
+def _feature_arrays(f: Features) -> dict[str, np.ndarray]:
+    """A feature container's row arrays, as plain arrays (no copy)."""
     if isinstance(f, DenseFeatures):
-        return {"X": np.asarray(f.X)[idx]}
-    return {"indices": np.asarray(f.indices)[idx], "values": np.asarray(f.values)[idx]}
+        return {"X": np.asarray(f.X)}
+    return {"indices": np.asarray(f.indices), "values": np.asarray(f.values)}
+
+
+def _features_from_arrays(arrays: dict[str, np.ndarray], like: Features) -> Features:
+    """A container of ``like``'s kind over ``_feature_arrays``-keyed rows."""
+    if isinstance(like, DenseFeatures):
+        return DenseFeatures(X=arrays["X"])
+    return SparseFeatures(indices=arrays["indices"], values=arrays["values"], num_features=like.num_features)
 
 
 def _slice_features(f: Features, idx: np.ndarray) -> Features:
-    sub = _take_features(f, idx)
-    if isinstance(f, DenseFeatures):
-        return DenseFeatures(X=sub["X"])
-    return SparseFeatures(indices=sub["indices"], values=sub["values"], num_features=f.num_features)
+    """Host row-slice of a feature container."""
+    return _features_from_arrays({k: v[idx] for k, v in _feature_arrays(f).items()}, f)
 
 
 def _feature_chunk_dicts(feats: Features, labels: np.ndarray, chunk_rows: int,
@@ -199,10 +230,7 @@ class _ChunkedShard:
         self.num_rows = len(labels)
         self.chunk_rows = chunk_rows
         self.ranges = _chunk_ranges(self.num_rows, chunk_rows)
-        if isinstance(feats, DenseFeatures):
-            cols = {"X": np.asarray(feats.X)}
-        else:
-            cols = {"indices": np.asarray(feats.indices), "values": np.asarray(feats.values)}
+        cols = _feature_arrays(feats)
         self._static = []
         for lo, hi in self.ranges:
             chunk = {**{k: v[lo:hi] for k, v in cols.items()}, "labels": labels[lo:hi],
@@ -224,32 +252,38 @@ class _ChunkedShard:
 
 @dataclass
 class _ReShard:
-    """One random-effect coordinate's rows on the host: the training shard
-    (every row) or a validation shard (``rows``: the rows whose entity was
-    seen in training; the rest score 0 for this coordinate)."""
+    """One random-effect coordinate's rows that this process solves and
+    scores: the training shard, or a validation shard (rows of entities
+    seen in training only; the rest score 0 for this coordinate). Across
+    processes they are the rows of the entities this process owns, after
+    the exchange, and ``grow`` keys the per-visit exchanges."""
 
-    ent: np.ndarray  # (m,) int64 dense entity ids
+    ent_local: np.ndarray  # (m,) int64 owner-local dense entity ids (global id // P)
     labels: np.ndarray  # (m,) float32
     weights: np.ndarray  # (m,) float32
-    features: Features  # m rows, in the solve space (projected under a random projection)
-    rows: np.ndarray | None  # (m,) the data's rows, or None for every row in order
-    num_entities: int
+    features: Features | None  # m rows, in the solve space (projected under a random projection)
+    # (m,) int64 global row ids of the rows, or None for every row of this
+    # process's data in order (one process)
+    grow: np.ndarray | None
+    num_entities: int  # the coordinate's entity count over every process
+    num_entities_local: int
     buckets: EntityBuckets | None  # None on a validation shard: it never solves
     # per-bucket (k, p) subspace column maps (None entries: full width)
     subspace_cols: tuple | None = None
+    # the per-visit routing across processes, found once at set-up
+    grow_sorted: np.ndarray | None = None  # sort(grow)
+    grow_order: np.ndarray | None = None  # argsort(grow)
+    origin_grow: np.ndarray | None = None  # (n_kept,) this process's kept rows' global ids
+    origin_dest: np.ndarray | None = None  # (n_kept,) each kept row's owner process
+    owner_dest: np.ndarray | None = None  # (m,) each owned row's origin process
 
-    def take(self, a: np.ndarray) -> np.ndarray:
-        """The shard's rows of a per-row data column."""
-        return a if self.rows is None else a[self.rows]
 
-    def scatter(self, s: np.ndarray, n: int) -> np.ndarray:
-        """Per-row scores of the shard's rows onto the data's n rows (0
-        where the shard has no row)."""
-        if self.rows is None:
-            return s
-        out = np.zeros(n, np.float32)
-        out[self.rows] = s
-        return out
+def _slice_owned_rows(M_full: np.ndarray, pid: int, P: int, limit: int | None = None) -> np.ndarray:
+    """This process's rows of a global (E, d) matrix (a warm start, a prior,
+    a resume): owner p holds entities p, p + P, ... as its rows 0, 1, ....
+    Always a writable copy: the bucket solves write rows in place."""
+    out = M_full[pid::P] if P > 1 else M_full
+    return (out if limit is None else out[:limit]).copy()
 
 
 class StreamedGameTrainer:
@@ -270,8 +304,17 @@ class StreamedGameTrainer:
     floors each random effect's entity count, so a warm-start model's rows
     for entities absent from the data survive.
 
-    ``multihost=True`` (and with it the reference's sharded score
-    checkpoints) is ROADMAP queue 1 item 12."""
+    ``multihost=True`` trains across the processes of the process group
+    (the initialization error without one), each with its own rows (module
+    docstring). Every process then calls ``fit`` with its slice; only
+    process 0 writes the checkpoint's model, and ``sharded_checkpoints``
+    picks per-process score files (a checkpoint directory every process
+    can reach by the same path, the reference's shared file system; each
+    reads back only its own file) over gathering every score on process
+    0. ``exchange_totals`` holds the seconds, bytes sent and calls of each
+    kind of row exchange (``ingest/<cid>``, ``validation/<cid>``,
+    ``offsets``, ``scores``), and each random-effect visit's
+    ``visit_stats`` its offset and score exchanges'."""
 
     def __init__(
         self,
@@ -285,9 +328,12 @@ class StreamedGameTrainer:
         num_entities: Mapping[str, int] | None = None,
         checkpoint_every_n_visits: int = 1,
         device=None,
+        sharded_checkpoints: bool = True,
     ):
         if multihost:
-            raise _waits_for_item_12("multi-host out-of-core GAME training (multihost=True)")
+            mh.require_process_group()
+        self.multihost = bool(multihost)
+        self.sharded_checkpoints = bool(sharded_checkpoints)
         self.device = resolve_device(device)
         self.config = config
         self.chunk_rows = int(chunk_rows)
@@ -299,6 +345,7 @@ class StreamedGameTrainer:
         self.validation_history: list[dict[str, Any]] = []
         self.resumed_from: tuple[int, int] | None = None
         self.visit_stats: list[dict] = []
+        self.exchange_totals: dict[str, dict] = {}
         self._entity_count_base: dict[str, int] = dict(num_entities or {})
         self._entity_count_floor: dict[str, int] = dict(self._entity_count_base)
         self._fixed_objectives: dict[str, StreamingGLMObjective] = {}
@@ -328,20 +375,84 @@ class StreamedGameTrainer:
                 "the in-memory coordinate"
             )
 
-    # -- entities and shards ------------------------------------------------------
-    def _num_entities(self, ids: np.ndarray, tag: str) -> int:
-        """The largest dense id + 1, floored by the declared dictionary size
-        (a warm start keeps rows for entities absent from the data)."""
+    # -- processes, entities and shards --------------------------------------------
+    def _distributed(self) -> bool:
+        return self.multihost and mh.process_count() > 1
+
+    def _ranks(self) -> tuple[int, int]:
+        """(this process's index, the process count) of the descent: (0, 1)
+        unless it is distributed."""
+        return (mh.process_index(), mh.process_count()) if self._distributed() else (0, 1)
+
+    def _global_layout(self, n_local: int) -> tuple[int, int, tuple[int, ...]]:
+        """(global row count, this process's first global row, every
+        process's row count), from one gather. The row counts enter the
+        checkpoint's fingerprint: global row ids follow them, so a resume
+        under another process count or file assignment is refused."""
+        if not self._distributed():
+            return n_local, 0, (n_local,)
+        counts = mh.allgather_host(np.asarray([n_local], np.int64)).reshape(-1)
+        return int(counts.sum()), int(counts[:mh.process_index()].sum()), tuple(int(c) for c in counts)
+
+    def _global_num_entities(self, ids: np.ndarray, tag: str) -> int:
+        """The largest dense id over the processes + 1, floored by the
+        declared dictionary size (a warm start keeps rows for entities
+        absent from the data)."""
         seen = int(ids.max()) + 1 if len(ids) else 0
+        if self._distributed():
+            seen = int(mh.allgather_host(np.asarray([seen], np.int64)).max())
         return max(seen, self._entity_count_floor.get(tag, 0))
 
-    def _build_re_shard(self, cid: str, data: StreamedGameData, drop_unseen: bool = False) -> _ReShard:
+    def _exchange(self, kind: str, arrays: dict, dest: np.ndarray, tag: str) -> dict:
+        """``exchange_rows``, its seconds, bytes sent and calls added to
+        ``exchange_totals[kind]``."""
+        t0 = time.perf_counter()
+        recv = mh.exchange_rows(arrays, dest, tag=tag)
+        tot = self.exchange_totals.setdefault(kind, {"seconds": 0.0, "bytes": 0, "calls": 0})
+        tot["seconds"] += time.perf_counter() - t0
+        tot["bytes"] += int(mh.LAST_EXCHANGE_STATS["bytes_sent"])
+        tot["calls"] += 1
+        return recv
+
+    def _exchange_to_owners(self, kind: str, arrays: dict[str, np.ndarray],
+                            row_layout: tuple[int, ...]) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
+        """Every row of ``arrays`` (``ent``: the global entity id, ``grow``:
+        the global row id) at its entity's owner, ``ent`` % P, in rounds of
+        ``chunk_rows`` rows of ``exchange_rows`` (peak memory O(P · chunk),
+        each row sent once). The largest process sets the number of rounds,
+        so a process with fewer rows, or none, sends empty rounds and still
+        takes part. Returns the owned rows (grouped by source process) and
+        the routing of the per-visit exchanges (``_ReShard``'s fields)."""
+        P = mh.process_count()
+        n = len(arrays["ent"])
+        keep: dict[str, list[np.ndarray]] = {k: [] for k in arrays}
+        for r in range(max(-(-max(row_layout) // self.chunk_rows), 1)):
+            lo = min(r * self.chunk_rows, n)
+            sub = {k: v[lo:lo + self.chunk_rows] for k, v in arrays.items()}
+            recv = self._exchange(kind, sub, sub["ent"] % P, tag=kind)
+            for k, v in recv.items():
+                keep[k].append(v)
+        owned = {k: np.concatenate(v) for k, v in keep.items()}
+        grow = owned["grow"]
+        order = np.argsort(grow)
+        # an owned row's origin: the process whose global rows hold its id
+        row_starts = np.concatenate([[0], np.cumsum(np.asarray(row_layout, np.int64))])
+        route = dict(grow=grow, grow_sorted=grow[order], grow_order=order, origin_grow=arrays["grow"],
+                     origin_dest=arrays["ent"] % P,
+                     owner_dest=(np.searchsorted(row_starts, grow, side="right") - 1).astype(np.int64))
+        return owned, route
+
+    def _build_re_shard(self, cid: str, data: StreamedGameData, row_base: int = 0,
+                        row_layout: tuple[int, ...] | None = None, drop_unseen: bool = False) -> _ReShard:
         """The coordinate's rows, grouped by entity and bucketed on the host
         (a training shard), or, with ``drop_unseen``, the validation rows of
-        entities seen in training (ids >= 0; the others keep score 0)."""
+        entities seen in training (ids >= 0; the others keep score 0).
+        Across processes the rows first travel to their entities' owners
+        (``row_base`` and ``row_layout``: ``_global_layout``'s), keeping
+        their global row ids, and the owner buckets its own entities."""
         for knob in _FLEET_KNOBS:
             if os.environ.get(knob) not in (None, "", "0"):
-                raise _waits_for_item_12(f"{knob} (placement over processes or devices)")
+                raise _waits_for_item_12d(f"{knob} (placement over processes or devices)")
         c = self.config.random_effect_coordinates[cid]
         feats = data.feature_container(c.feature_shard_id)
         ids = np.asarray(data.id_tags[c.random_effect_type], np.int64)
@@ -352,7 +463,17 @@ class StreamedGameTrainer:
         if drop_unseen and len(ids) and ids.min() < 0:
             rows = np.flatnonzero(ids >= 0)
             feats, ids, labels, weights = _slice_features(feats, rows), ids[rows], labels[rows], weights[rows]
-        E = self._num_entities(ids, c.random_effect_type)
+        E = self._global_num_entities(ids, c.random_effect_type)
+        pid, P = self._ranks()
+        ent, E_local, route = ids, E, {"grow": rows}
+        if P > 1:
+            origin_grow = row_base + (np.arange(len(ids), dtype=np.int64) if rows is None else rows.astype(np.int64))
+            arrays = {"ent": ids, "label": labels, "weight": weights, "grow": origin_grow,
+                      **_feature_arrays(feats)}
+            kind = f"{'validation' if drop_unseen else 'ingest'}/{cid}"
+            owned, route = self._exchange_to_owners(kind, arrays, row_layout)
+            labels, weights, feats = owned["label"], owned["weight"], _features_from_arrays(owned, feats)
+            ent, E_local = owned["ent"] // P, (E - pid + P - 1) // P
         if c.random_projection_dim is not None:
             # one shared projection, applied to the rows once: solves and
             # scores run projected, and the model maps back score-exactly
@@ -363,34 +484,128 @@ class StreamedGameTrainer:
                 proj = RandomProjector.build(feats.num_features, c.random_projection_dim, seed=0, device="cpu")
                 self._projectors[cid] = proj
             feats = DenseFeatures(X=np.asarray(feats.X, np.float32) @ proj.matrix.numpy())
+        shard = _ReShard(ent_local=ent, labels=labels, weights=weights, features=feats, num_entities=E,
+                         num_entities_local=E_local, buckets=None, **route)
         if drop_unseen:
-            return _ReShard(ent=ids, labels=labels, weights=weights, features=feats, rows=rows,
-                            num_entities=E, buckets=None)
-        grouping = group_by_entity(ids, num_entities=E, active_upper_bound=c.active_data_upper_bound)
-        buckets = bucket_entities(grouping, c.sample_bucket_sizes, target_buckets=c.bucket_target_count,
-                                  max_padded_ratio=c.bucket_max_padded_ratio)
-        subspace_cols = None
+            return shard
+        grouping = group_by_entity(ent, num_entities=E_local, active_upper_bound=c.active_data_upper_bound)
+        shard.buckets = bucket_entities(grouping, c.sample_bucket_sizes, target_buckets=c.bucket_target_count,
+                                        max_padded_ratio=c.bucket_max_padded_ratio)
         if c.features_to_samples_ratio_upper_bound is not None and isinstance(feats, DenseFeatures):
-            # each entity's column map, once per fit: the visits' gathers
-            # then copy width-p rows only
+            # each entity's column map, once per fit, from the rows its
+            # owner holds: the visits' gathers then copy width-p rows only
             X = np.asarray(feats.X)
             intercept = None if cid in self._projectors else self.intercept_indices.get(c.feature_shard_id)
             cols_list = []
-            for rows_b in buckets.row_indices:
+            for rows_b in shard.buckets.row_indices:
                 mask = (rows_b >= 0).astype(np.float32)
                 Xb = X[np.maximum(rows_b, 0)] * mask[:, :, None]
                 cols_b = subspace_columns(torch.from_numpy(Xb), c.features_to_samples_ratio_upper_bound,
                                           intercept)
                 cols_list.append(None if cols_b is None else cols_b.numpy())
-            subspace_cols = tuple(cols_list)
-        return _ReShard(ent=ids, labels=labels, weights=weights, features=feats, rows=None,
-                        num_entities=E, buckets=buckets, subspace_cols=subspace_cols)
+            shard.subspace_cols = tuple(cols_list)
+        return shard
+
+    def _build_val_route(self, tag: str, validation: StreamedGameData, row_base: int,
+                         row_layout: tuple[int, ...]) -> _ReShard:
+        """The owner routing of a grouped evaluator's id tag that no random
+        effect has: each kept row's (entity id, label, global row id) goes
+        to the entity's owner once, at set-up; every visit only the current
+        total scores follow (``_offsets_to_owners``). A shard of grouping
+        columns, with nothing to solve."""
+        ids = np.asarray(validation.id_tags[tag], np.int64)
+        keep = np.flatnonzero(ids >= 0)
+        arrays = {"ent": ids[keep], "label": np.asarray(validation.labels, np.float32)[keep],
+                  "grow": row_base + keep.astype(np.int64)}
+        owned, route = self._exchange_to_owners(f"validation/{tag}", arrays, row_layout)
+        return _ReShard(ent_local=owned["ent"] // mh.process_count(), labels=owned["label"],
+                        weights=np.ones(len(owned["grow"]), np.float32), features=None, num_entities=0,
+                        num_entities_local=0, buckets=None, **route)
+
+    def _offsets_to_owners(self, shard: _ReShard, offs_local: np.ndarray, row_base: int,
+                           kind: str = "offsets") -> np.ndarray:
+        """This visit's per-row values (the residual offsets) for the
+        shard's rows: across processes each row's value goes to its
+        entity's owner only; on one process, the rows' own."""
+        if not self._distributed():
+            return offs_local if shard.grow is None else offs_local[shard.grow]
+        recv = self._exchange(kind, {"grow": shard.origin_grow,
+                                     "off": offs_local[shard.origin_grow - row_base].astype(np.float32)},
+                              shard.origin_dest, tag=kind)
+        # each received value at its owned row's position, found by global row id
+        out = np.zeros(len(shard.grow), np.float32)
+        if len(shard.grow):
+            g = recv["grow"]
+            pos = np.minimum(np.searchsorted(shard.grow_sorted, g), len(shard.grow) - 1)
+            match = shard.grow_sorted[pos] == g
+            out[shard.grow_order[pos[match]]] = recv["off"][match]
+        return out
+
+    def _scores_to_origin(self, shard: _ReShard, scores_re: np.ndarray, n_local: int, row_base: int,
+                          kind: str = "scores") -> np.ndarray:
+        """The shard's row scores at this process's n_local rows (0 where
+        it has no row): across processes, back from the owners to the
+        processes that hold the rows."""
+        if not self._distributed() and shard.grow is None:
+            return scores_re
+        out = np.zeros(n_local, np.float32)
+        if not self._distributed():
+            out[shard.grow] = scores_re
+            return out
+        recv = self._exchange(kind, {"grow": shard.grow, "score": scores_re.astype(np.float32)}, shard.owner_dest,
+                              tag=kind)
+        out[recv["grow"] - row_base] = recv["score"]
+        return out
+
+    def _gather_global(self, local: np.ndarray, row_base: int, n_global: int, collect: bool = True):
+        """The global (n_global,) column from every process's rows (a
+        gathered checkpoint's scores), in rounds of ``chunk_rows``.
+        ``collect=False`` takes part in every round but keeps nothing, so
+        only the writer ever holds a global column. The column itself on
+        one process."""
+        local = np.asarray(local)
+        if not self._distributed():
+            return local if collect else None
+        grow = row_base + np.arange(len(local), dtype=np.int64)
+        out = np.zeros(n_global, local.dtype) if collect else None
+        for rnd in mh.allgather_row_chunks({"grow": grow, "v": local}, self.chunk_rows, pad_values={"grow": -1}):
+            if collect:
+                g, v = rnd["grow"].reshape(-1), rnd["v"].reshape(-1)
+                out[g[g >= 0]] = v[g >= 0]
+        return out
+
+    def _exchanges_since(self, before: dict) -> dict:
+        """The offset and score exchanges' seconds and bytes sent since the
+        ``exchange_totals`` snapshot ``before``."""
+        out = {}
+        for kind in ("offsets", "scores"):
+            now, was = (t.get(kind, {"seconds": 0.0, "bytes": 0}) for t in (self.exchange_totals, before))
+            out[f"{kind}_exchange_s"] = now["seconds"] - was["seconds"]
+            out[f"{kind}_exchange_bytes"] = now["bytes"] - was["bytes"]
+        return out
+
+    def _full_re_matrix(self, W_local: np.ndarray, E: int) -> np.ndarray:
+        """The (E, d) matrix of every process's owned rows (owner p holds
+        entities p, p + P, ... as its rows 0, 1, ...), from one gather;
+        ``W_local`` itself on one process."""
+        if not self._distributed():
+            return W_local
+        P = mh.process_count()
+        padded = np.zeros((max(-(-E // P), 1), W_local.shape[1]), np.float32)
+        padded[:len(W_local)] = W_local
+        stacked = mh.allgather_host(padded)
+        W = np.zeros((E, W_local.shape[1]), np.float32)
+        for p in range(P):
+            own = np.arange(p, E, P)
+            W[own] = stacked[p][:len(own)]
+        return W
 
     # -- coordinate training ------------------------------------------------------
     def _normalization_contexts(self, data: StreamedGameData) -> dict[str, Any]:
         """Per-shard contexts from a streamed summary of every shard the
         coordinates read (the estimator's policy, the no-intercept
-        STANDARDIZATION degrade included)."""
+        STANDARDIZATION degrade included). Across processes the summary
+        sums over them, so every process builds the same contexts."""
         cfg = self.config
         if cfg.normalization is NormalizationType.NONE:
             return {}
@@ -404,7 +619,8 @@ class StreamedGameTrainer:
             feats = data.feature_container(sid)
             chunks = _feature_chunk_dicts(feats, labels, self.chunk_rows, np.zeros(n, np.float32), weights)
             contexts[sid] = shard_normalization_context(
-                summarize_chunks(chunks, num_features=feats.num_features), cfg.normalization, sid,
+                summarize_chunks(chunks, num_features=feats.num_features, cross_process=self._distributed()),
+                cfg.normalization, sid,
                 self.intercept_indices.get(sid), log=self._log, device=self.device,
             )
         return contexts
@@ -412,8 +628,9 @@ class StreamedGameTrainer:
     def _fixed_chunks(self, cid: str, feats: Features, data: StreamedGameData, rate: float):
         """(training chunks, all-rows chunks or None, training rows or None)
         of a fixed-effect coordinate, built once per fit. Down-sampling
-        (rate < 1) draws a seeded row subset once and reweights it; scoring
-        always covers every row."""
+        (rate < 1) draws a seeded row subset once and reweights it (each
+        process its own rows, seeded by its index); scoring always covers
+        every row."""
         if cid not in self._fixed_shards:
             n = data.num_rows
             weights = np.ones(n, np.float32) if data.weights is None else np.asarray(data.weights, np.float32)
@@ -421,7 +638,7 @@ class StreamedGameTrainer:
             full = _ChunkedShard(feats, labels, weights, self.chunk_rows)
             train, rows = full, None
             if rate < 1.0:
-                rows, scale = down_sample(self.config.task_type, labels, rate, seed=0)
+                rows, scale = down_sample(self.config.task_type, labels, rate, seed=self._ranks()[0])
                 t_weights = weights[rows] if scale is None else weights[rows] * scale
                 train = _ChunkedShard(_slice_features(feats, rows), labels[rows], t_weights, self.chunk_rows)
             self._fixed_shards[cid] = (train, None if rows is None else full, rows)
@@ -455,7 +672,7 @@ class StreamedGameTrainer:
                 # FULL variance densifies the raw chunks, which K3's layouts drop
                 tile_sparse=(False if self.config.variance_computation is VarianceComputationType.FULL
                              else None),
-                fe_shard=False, device=self.device,
+                cross_process=self._distributed(), fe_shard=False, device=self.device,
             )
             self._fixed_objectives[cid] = sobj
         else:
@@ -609,20 +826,19 @@ class StreamedGameTrainer:
         gathered (c, d) block of coefficient rows on the card at a time).
         The feature slices are the same storage every visit and come
         through the chunk cache; the gathered rows are copied afresh."""
-        m = len(shard.ent)
+        m = len(shard.ent_local)
         if m == 0:
             return np.zeros(0, np.float32)
         f = shard.features
         dense = isinstance(f, DenseFeatures)
-        cols = {"X": np.asarray(f.X)} if dense else {"indices": np.asarray(f.indices),
-                                                     "values": np.asarray(f.values)}
+        cols = _feature_arrays(f)
         ranges = _chunk_ranges(m, self.chunk_rows)
         dev = self.device
         consumer = prefetch.consumer_stream(dev)
 
         def prepare(i):
             lo, hi = ranges[i]
-            w_rows = prefetch.device_put({"W": W[shard.ent[lo:hi]]}, dev, consumer)
+            w_rows = prefetch.device_put({"W": W[shard.ent_local[lo:hi]]}, dev, consumer)
             feat = prefetch.cached_device_put({k: v[lo:hi] for k, v in cols.items()}, dev, consumer)
             return w_rows, feat
 
@@ -639,7 +855,8 @@ class StreamedGameTrainer:
     # -- model assembly -----------------------------------------------------------
     def _assemble_model(self, model_state: dict[str, Any], device=None) -> GameModel:
         """The model of the host state, its tensors copied to ``device``
-        (the trainer's by default)."""
+        (the trainer's by default). Across processes the random effects'
+        rows are gathered from their owners: a collective."""
         cfg = self.config
         dev = self.device if device is None else torch.device(device)
 
@@ -656,7 +873,10 @@ class StreamedGameTrainer:
                 feature_shard_id=c.feature_shard_id,
             )
         for cid, c in cfg.random_effect_coordinates.items():
-            W_out, V_out = t(model_state["re_W"][cid]), t(re_V.get(cid))
+            E = model_state["re_E"][cid]
+            V_local = re_V.get(cid)
+            W_out = t(self._full_re_matrix(model_state["re_W"][cid], E))
+            V_out = None if V_local is None else t(self._full_re_matrix(V_local, E))
             if cid in self._projectors:
                 # back to the original feature space, score-exactly
                 W_out = self._projectors[cid].coefficients_to_original(W_out.cpu()).to(dev)
@@ -674,15 +894,19 @@ class StreamedGameTrainer:
 
     def _log_grouped_dropped(self, validation: StreamedGameData) -> dict[str, float]:
         """Per grouped evaluator's id tag: the fraction of validation rows
-        with the unseen-entity id -1, which every grouped metric leaves out;
-        logged once per fit, with a warning when it is large."""
+        (over every process) with the unseen-entity id -1, which every
+        grouped metric leaves out; logged once per fit, with a warning when
+        it is large."""
         fracs: dict[str, float] = {}
         for spec in self.evaluators:
             tag = make_evaluator(spec).group_by
             if tag is None or tag in fracs or tag not in validation.id_tags:
                 continue
             ids = np.asarray(validation.id_tags[tag])
-            dropped, total = int((ids < 0).sum()), int(len(ids))
+            counts = np.asarray([(ids < 0).sum(), len(ids)], np.int64)
+            if self._distributed():
+                counts = mh.allreduce_sum_host(counts)
+            dropped, total = int(counts[0]), int(counts[1])
             frac = dropped / total if total else 0.0
             fracs[tag] = frac
             self._log(f"grouped metrics on tag {tag!r}: {dropped}/{total} validation rows ({frac:.1%}) "
@@ -699,37 +923,50 @@ class StreamedGameTrainer:
     def _prepare_validation(self, validation: StreamedGameData) -> dict[str, Any]:
         """Per-visit validation state: each fixed shard's chunks, each random
         effect's validation shard, the running per-coordinate scores and
-        total, and the columns on the card that the evaluators read."""
+        total, and what the evaluators read: on one process the columns on
+        the card, across processes the host columns and, per grouped id
+        tag, the shard whose owners hold each group whole (the tag's random
+        effect's, or a routing of its own)."""
         cfg = self.config
         n = validation.num_rows
+        _, val_base, val_layout = self._global_layout(n)
         labels = np.asarray(validation.labels, np.float32)
         weights = np.ones(n, np.float32) if validation.weights is None else np.asarray(validation.weights,
                                                                                        np.float32)
         base = np.zeros(n, np.float32) if validation.offsets is None else np.asarray(validation.offsets,
                                                                                      np.float32)
         state: dict[str, Any] = {
-            "n": n, "fixed": {}, "re_shards": {}, "zeros": np.zeros(n, np.float32),
+            "n": n, "base": val_base, "fixed": {}, "re_shards": {}, "zeros": np.zeros(n, np.float32),
             "scores": {cid: np.zeros(n, np.float32) for cid in cfg.coordinate_update_sequence},
             "total": base.copy(),
-            "labels": torch.as_tensor(labels, device=self.device),
-            "weights": torch.as_tensor(weights, device=self.device),
         }
         for cid, c in cfg.fixed_effect_coordinates.items():
             state["fixed"][cid] = _ChunkedShard(validation.feature_container(c.feature_shard_id), labels,
                                                 np.ones(n, np.float32), self.chunk_rows)
         for cid in cfg.random_effect_coordinates:
-            state["re_shards"][cid] = self._build_re_shard(cid, validation, drop_unseen=True)
-        tags = {make_evaluator(s).group_by for s in self.evaluators} - {None}
+            state["re_shards"][cid] = self._build_re_shard(cid, validation, val_base, val_layout, drop_unseen=True)
+        # in the evaluators' order: across processes each routing is a collective
+        tags = list(dict.fromkeys(t for t in (make_evaluator(s).group_by for s in self.evaluators) if t))
         missing = sorted(t for t in tags if t not in validation.id_tags)
         if missing:
             raise KeyError(f"evaluators {self.evaluators}: validation data carries no id tag {missing}")
-        state["group_ids"] = {t: torch.as_tensor(np.asarray(validation.id_tags[t], np.int64), device=self.device)
-                              for t in tags}
+        if self._distributed():
+            by_type = {c.random_effect_type: cid for cid, c in cfg.random_effect_coordinates.items()}
+            state.update(labels=labels, weights=weights, owner_grouped={
+                t: state["re_shards"][by_type[t]] if t in by_type
+                else self._build_val_route(t, validation, val_base, val_layout)
+                for t in tags
+            })
+        else:
+            state.update(labels=torch.as_tensor(labels, device=self.device),
+                         weights=torch.as_tensor(weights, device=self.device),
+                         group_ids={t: torch.as_tensor(np.asarray(validation.id_tags[t], np.int64),
+                                                       device=self.device) for t in tags})
         state["grouped_dropped"] = self._log_grouped_dropped(validation)
         return state
 
     def _val_scores_for(self, cid: str, vstate: dict[str, Any], fixed_w: dict, re_W: dict) -> np.ndarray:
-        """This coordinate's current validation scores."""
+        """This coordinate's current scores of this process's validation rows."""
         n = vstate["n"]
         if cid in self.config.fixed_effect_coordinates:
             shard = vstate["fixed"][cid]
@@ -737,24 +974,38 @@ class StreamedGameTrainer:
             return stream_scores(shard.chunks(vstate["zeros"]), fixed_w[cid], num_rows=n, num_features=d,
                                  device=self.device)
         shard: _ReShard = vstate["re_shards"][cid]
-        return shard.scatter(self._score_re_rows(shard, re_W[cid]), n)
+        return self._scores_to_origin(shard, self._score_re_rows(shard, re_W[cid]), n, vstate["base"],
+                                      kind="validation/scores")
 
     def _validate_after_visit(self, cid: str, vstate: dict[str, Any], fixed_w: dict,
                               re_W: dict) -> EvaluationResults:
         """Rescore the coordinate just trained on the validation rows,
-        update the running total and evaluate."""
+        update the running total and evaluate: across processes from
+        per-process partials (scalar metrics) and per-owner partials of
+        complete groups (grouped ones), no process gathering a column."""
         new = self._val_scores_for(cid, vstate, fixed_w, re_W)
         vstate["total"] = vstate["total"] - vstate["scores"][cid] + new
         vstate["scores"][cid] = new
-        return evaluate_all(self.evaluators, torch.as_tensor(vstate["total"], device=self.device),
-                            vstate["labels"], vstate["weights"], group_ids=vstate["group_ids"])
+        if not self._distributed():
+            return evaluate_all(self.evaluators, torch.as_tensor(vstate["total"], device=self.device),
+                                vstate["labels"], vstate["weights"], group_ids=vstate["group_ids"])
+        owner_grouped = {}
+        for tag, shard in vstate["owner_grouped"].items():
+            owned = self._offsets_to_owners(shard, vstate["total"], vstate["base"], kind="validation/totals")
+            owner_grouped[tag] = (owned, shard.labels, shard.ent_local)
+        res = evaluate_host_sharded(self.evaluators, vstate["total"], vstate["labels"], vstate["weights"],
+                                    owner_grouped)
+        return EvaluationResults(metrics=res.metrics, primary_name=make_evaluator(self.evaluators[0]).name)
 
     # -- checkpoints --------------------------------------------------------------
-    def _fingerprint(self, data: StreamedGameData, initial_model: GameModel | None = None) -> str:
+    def _fingerprint(self, data: StreamedGameData, n_global: int | None = None,
+                     row_layout: tuple[int, ...] | None = None, initial_model: GameModel | None = None) -> str:
         """The reference's trajectory fingerprint: the configuration less its
         non-trajectory fields, the chunk size (it sets the float summation
-        order), the entity-count floors, the one process's row layout, the
-        shards' widths and a hash of the warm-start coefficients."""
+        order), the entity-count floors, the global row count and every
+        process's row count (global row ids follow them; one process by
+        default), the shards' widths and a hash of the warm-start
+        coefficients."""
         cfg = self.config.to_dict()
         for k in ("coordinate_descent_iterations", "evaluators", "output_mode",
                   "hyperparameter_tuning_iters", "model_input_dir"):
@@ -773,30 +1024,102 @@ class StreamedGameTrainer:
             "initial_model": warm_hash,
             "entity_count_floor": sorted(self._entity_count_floor.items()),
             "data": {
-                "num_rows_global": n,
-                "row_layout": [n],
+                "num_rows_global": n if n_global is None else n_global,
+                "row_layout": [n] if row_layout is None else list(row_layout),
                 "shards": {sid: data.feature_container(sid).num_features for sid in sorted(data.features)},
             },
         }
         return hashlib.sha256(json.dumps(payload, sort_keys=True, default=str).encode()).hexdigest()
 
+    def _shard_path(self, pid: int) -> str:
+        return os.path.join(self.checkpoint_dir, f"scores-shard-{pid:05d}.npz")
+
     def _save_visit_checkpoint(self, model_state: dict[str, Any], scores: dict[str, np.ndarray],
                                total: np.ndarray, next_iteration: int, next_coordinate: int,
-                               fingerprint: str, digest: str | None) -> None:
-        """The model, the residual scores and total, and the next visit, in
-        one ``ckpt.npz`` (the reference's gathered single-file form)."""
-        save_checkpoint(
-            self.checkpoint_dir, self._assemble_model(model_state, device="cpu"),
-            next_iteration=next_iteration, next_coordinate=next_coordinate, fingerprint=fingerprint,
-            scores=scores, total=total, data_digest=digest,
-        )
+                               fingerprint: str, digest: str | None, row_base: int = 0,
+                               n_global: int | None = None) -> None:
+        """The model, the residual scores and total, and the next visit: one
+        ``ckpt.npz`` on one process (the reference's gathered form). Across
+        processes every process takes part in the model's gather; then,
+        sharded, each writes its own scores, total and the checkpoint's
+        markers (with its ``row_base``) to its score file by
+        write-and-rename, all meet, and process 0 writes the model's file
+        without scores, the commit point; gathered, process 0 alone
+        collects every score (the others keep nothing) and writes one
+        file."""
+        model = self._assemble_model(model_state, device="cpu")
+        meta = dict(fingerprint=fingerprint, data_digest=digest, next_iteration=next_iteration,
+                    next_coordinate=next_coordinate)
+        if not self._distributed():
+            save_checkpoint(self.checkpoint_dir, model, scores=scores, total=total, **meta)
+            return
+        writer = mh.is_output_process()
+        if self.sharded_checkpoints:
+            payload = {f"s__{cid}": np.asarray(s, np.float32) for cid, s in scores.items()}
+            payload["total"] = np.asarray(total, np.float32)
+            payload["meta"] = np.frombuffer(json.dumps(dict(meta, row_base=int(row_base))).encode(), dtype=np.uint8)
+            atomic_savez(self.checkpoint_dir, self._shard_path(mh.process_index()), payload)
+            mh.sync_processes("streamed-game-score-shards")
+            if writer:
+                save_checkpoint(self.checkpoint_dir, model, scores=None, total=None, **meta)
+            return
+        g_scores = {cid: self._gather_global(s, row_base, n_global, collect=writer) for cid, s in scores.items()}
+        g_total = self._gather_global(total, row_base, n_global, collect=writer)
+        if writer:
+            save_checkpoint(self.checkpoint_dir, model, scores=g_scores, total=g_total, **meta)
 
     def _load_resume_state(self, fingerprint: str, digest: str | None) -> dict | None:
-        ckpt = load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint, data_digest=digest, device="cpu")
-        if ckpt is None or ckpt.scores is None or ckpt.total is None:
+        """The checkpoint to resume from, or None. Across processes process
+        0 reads the model's file and every process adopts its bytes, so all
+        take one decision (the data digest checked is process 0's, which
+        that file holds); the scores come from the file when it holds them
+        (gathered: global columns), else from each process's own score file,
+        checked against the model's markers and this process's data. A
+        stale, torn or missing score file on any process is a miss for
+        all."""
+        if not self._distributed():
+            ckpt = load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint, data_digest=digest,
+                                   device="cpu")
+            if ckpt is None or ckpt.scores is None or ckpt.total is None:
+                return None
+            return {"model": ckpt.model, "next_iteration": ckpt.next_iteration,
+                    "next_coordinate": ckpt.next_coordinate, "scores": ckpt.scores, "total": ckpt.total,
+                    "scores_local": False}
+        ckpt = load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint,
+                               data_digest=str(mh.broadcast_from_host0(digest)), device="cpu",
+                               across_processes=True)
+        if ckpt is None:
             return None
-        return {"model": ckpt.model, "next_iteration": ckpt.next_iteration,
-                "next_coordinate": ckpt.next_coordinate, "scores": ckpt.scores, "total": ckpt.total}
+        state = {"model": ckpt.model, "next_iteration": ckpt.next_iteration,
+                 "next_coordinate": ckpt.next_coordinate}
+        if ckpt.scores is not None and ckpt.total is not None:
+            return dict(state, scores=ckpt.scores, total=ckpt.total, scores_local=False)
+        local = self._load_score_shard(fingerprint, digest, ckpt.next_iteration, ckpt.next_coordinate)
+        found = mh.allreduce_sum_host(np.asarray([0.0 if local is None else 1.0]))
+        if int(found[0]) != mh.process_count():
+            return None
+        return dict(state, scores=local[0], total=local[1], scores_local=True)
+
+    def _load_score_shard(self, fingerprint: str, digest: str | None, next_iteration: int,
+                          next_coordinate: int) -> tuple[dict[str, np.ndarray], np.ndarray] | None:
+        """This process's score file, if it belongs to the checkpoint: the
+        same fingerprint, this process's data digest and the same next
+        visit. A file from another visit or setup, or a torn one, is a
+        miss."""
+        path = self._shard_path(mh.process_index())
+        if not os.path.exists(path):
+            return None
+        try:
+            with np.load(path) as z:
+                meta = json.loads(bytes(z["meta"]).decode())
+                if (meta.get("fingerprint") != fingerprint or meta.get("data_digest") != digest
+                        or meta.get("next_iteration") != next_iteration
+                        or meta.get("next_coordinate") != next_coordinate):
+                    return None
+                scores = {k[len("s__"):]: np.asarray(z[k], np.float32) for k in z.files if k.startswith("s__")}
+                return scores, np.asarray(z["total"], np.float32)
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            return None
 
     # -- descent ------------------------------------------------------------------
     def fit(
@@ -810,7 +1133,8 @@ class StreamedGameTrainer:
         every coordinate it holds (its random-effect rows aligned to this
         data's dense entity ids; the driver pads new entities with zero
         rows), and its scores enter the residuals before the first visit,
-        as in the in-memory descent."""
+        as in the in-memory descent. Across processes (``multihost``) every
+        process calls it with its own rows and gets the same model."""
         cfg = self.config
         n = data.num_rows
         self._entity_count_floor = dict(self._entity_count_base)
@@ -821,14 +1145,19 @@ class StreamedGameTrainer:
                     tag = w_c.random_effect_type
                     self._entity_count_floor[tag] = max(self._entity_count_floor.get(tag, 0),
                                                         int(sub.num_entities))
+        n_global, row_base, row_layout = self._global_layout(n)
+        pid, P = self._ranks()
         base = np.zeros(n, np.float32) if data.offsets is None else np.asarray(data.offsets, np.float32)
         self._norm_contexts = self._normalization_contexts(data)
         self._fixed_objectives = {}
         self._fixed_shards = {}
         self._projectors = {}
         self.visit_stats = []
+        self.exchange_totals = {}
 
-        re_shards = {cid: self._build_re_shard(cid, data) for cid in cfg.random_effect_coordinates}
+        # the entity exchange to the owners, once a fit
+        re_shards = {cid: self._build_re_shard(cid, data, row_base, row_layout)
+                     for cid in cfg.random_effect_coordinates}
         fixed_w: dict[str, np.ndarray] = {}
         re_W: dict[str, np.ndarray] = {}
         re_E: dict[str, int] = {}
@@ -847,7 +1176,7 @@ class StreamedGameTrainer:
         for cid in cfg.random_effect_coordinates:
             shard = re_shards[cid]
             re_E[cid] = shard.num_entities
-            re_W[cid] = np.zeros((shard.num_entities, shard.features.num_features), np.float32)
+            re_W[cid] = np.zeros((shard.num_entities_local, shard.features.num_features), np.float32)
         want_var = cfg.variance_computation is not VarianceComputationType.NONE
         fixed_var: dict[str, np.ndarray | None] = {c_: None for c_ in fixed_w}
         # diagonal variances do not survive the projection's map back
@@ -871,7 +1200,7 @@ class StreamedGameTrainer:
                         # the warm start arrives in the original space; the
                         # descent runs projected (the in-memory contract)
                         W_full = W_full @ self._projectors[cid].matrix.numpy()
-                    re_W[cid] = W_full[:re_E[cid]].copy()
+                    re_W[cid] = _slice_owned_rows(W_full, pid, P, limit=len(re_W[cid]))
 
         # incremental training: the loaded model, held fixed, is every
         # visit's Gaussian MAP prior. Fixed priors stay in the original
@@ -894,7 +1223,8 @@ class StreamedGameTrainer:
                     _require_prior_l2(cfg.random_effect_coordinates[cid].optimization)
                     V_loc = None
                     if cid not in self._projectors and sub.variances is not None:
-                        V_loc = sub.variances.detach().cpu().numpy().astype(np.float32)[:re_E[cid]]
+                        V_loc = _slice_owned_rows(sub.variances.detach().cpu().numpy().astype(np.float32), pid, P,
+                                                  limit=len(re_W[cid]))
                     c_norm = self._norm_contexts.get(cfg.random_effect_coordinates[cid].feature_shard_id)
                     pr = GaussianPrior.from_coefficients(
                         torch.as_tensor(re_W[cid], device=self.device),
@@ -919,7 +1249,8 @@ class StreamedGameTrainer:
                     scores[cid] = stream_scores((full or train).chunks(np.zeros(n, np.float32)), fixed_w[cid],
                                                 num_rows=n, num_features=shard_dims[cid], device=self.device)
                 else:
-                    scores[cid] = re_shards[cid].scatter(self._score_re_rows(re_shards[cid], re_W[cid]), n)
+                    scores[cid] = self._scores_to_origin(re_shards[cid],
+                                                         self._score_re_rows(re_shards[cid], re_W[cid]), n, row_base)
                 total = total + scores[cid]
 
         vstate = None
@@ -931,7 +1262,8 @@ class StreamedGameTrainer:
         start_it, start_ci = 0, 0
         fingerprint = digest = None
         if self.checkpoint_dir is not None:
-            fingerprint = self._fingerprint(data, initial_model=initial_model)
+            fingerprint = self._fingerprint(data, n_global, row_layout, initial_model=initial_model)
+            # each process's own rows (a score file is checked against its process's)
             digest = _host_digest(np.asarray(data.labels, np.float32),
                                   np.ones(n, np.float32) if data.weights is None
                                   else np.asarray(data.weights, np.float32))
@@ -946,12 +1278,14 @@ class StreamedGameTrainer:
                             fixed_var[cid] = v.numpy().astype(np.float32).copy()
                     elif cid in re_W:
                         # copies: the bucket solves write rows in place
-                        re_W[cid] = sub.coefficients.numpy().astype(np.float32).copy()
+                        re_W[cid] = _slice_owned_rows(sub.coefficients.numpy().astype(np.float32), pid, P)
                         if sub.variances is not None and want_var:
-                            re_V[cid] = sub.variances.numpy().astype(np.float32).copy()
+                            re_V[cid] = _slice_owned_rows(sub.variances.numpy().astype(np.float32), pid, P)
+                # a gathered checkpoint holds global columns, a score file this process's rows
+                lo = 0 if resume["scores_local"] else row_base
                 for cid in seq:
-                    scores[cid] = np.asarray(resume["scores"][cid], np.float32)[:n].copy()
-                total = np.asarray(resume["total"], np.float32)[:n].copy()
+                    scores[cid] = np.asarray(resume["scores"][cid], np.float32)[lo:lo + n].copy()
+                total = np.asarray(resume["total"], np.float32)[lo:lo + n].copy()
                 self.resumed_from = (start_it, start_ci)
                 self._log(f"resuming streamed descent at outer iteration {start_it}, coordinate index {start_ci}")
 
@@ -988,15 +1322,23 @@ class StreamedGameTrainer:
                 else:
                     c = cfg.random_effect_coordinates[cid]
                     shard = re_shards[cid]
+                    before = {k: dict(v) for k, v in self.exchange_totals.items()}
                     loss_sum, max_it, conv, pipeline = self._solve_re_buckets(
-                        shard, shard.take(offs), c.optimization, re_W[cid],
+                        shard, self._offsets_to_owners(shard, offs, row_base), c.optimization, re_W[cid],
                         None if cid in self._projectors else self.intercept_indices.get(c.feature_shard_id),
                         norm=self._norm_contexts.get(c.feature_shard_id), V=re_V[cid],
                         W_prior=re_W_prior.get(cid), V_prior=re_V_prior.get(cid),
                     )
+                    if P > 1:
+                        # the owners' partial diagnostics: losses sum, iterations max, flags and
+                        agg = mh.allgather_host(np.asarray([loss_sum, max_it, 0.0 if conv else 1.0])).reshape(-1, 3)
+                        loss_sum, max_it = float(agg[:, 0].sum()), int(agg[:, 1].max())
+                        conv = bool((agg[:, 2] == 0).all())
                     self.visit_stats.append(dict(iteration=it, coordinate=cid,
                                                  solve_wall_s=time.perf_counter() - t_visit, **pipeline))
-                    new_scores = shard.scatter(self._score_re_rows(shard, re_W[cid]), n)
+                    new_scores = self._scores_to_origin(shard, self._score_re_rows(shard, re_W[cid]), n, row_base)
+                    if P > 1:
+                        self.visit_stats[-1].update(self._exchanges_since(before))
                     info[cid] = StreamedCoordinateInfo(final_loss=loss_sum, iterations=max_it, converged=conv)
                 total = offs + new_scores
                 scores[cid] = new_scores
@@ -1012,9 +1354,10 @@ class StreamedGameTrainer:
                 if self.checkpoint_dir is not None and (visit_index + 1) % self.checkpoint_every_n_visits == 0:
                     nxt_it, nxt_ci = (it, ci + 1) if ci + 1 < len(seq) else (it + 1, 0)
                     self._save_visit_checkpoint(
-                        {"fixed_w": fixed_w, "re_W": re_W, "fixed_var": fixed_var, "re_V": re_V},
-                        scores, total, nxt_it, nxt_ci, fingerprint, digest,
+                        {"fixed_w": fixed_w, "re_W": re_W, "re_E": re_E, "fixed_var": fixed_var, "re_V": re_V},
+                        scores, total, nxt_it, nxt_ci, fingerprint, digest, row_base, n_global,
                     )
 
-        model = self._assemble_model({"fixed_w": fixed_w, "re_W": re_W, "fixed_var": fixed_var, "re_V": re_V})
+        model = self._assemble_model({"fixed_w": fixed_w, "re_W": re_W, "re_E": re_E, "fixed_var": fixed_var,
+                                      "re_V": re_V})
         return model, info

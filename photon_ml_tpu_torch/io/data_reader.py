@@ -506,6 +506,7 @@ class AvroDataReader:
         dtype=np.float32,
         unseen_entity_ok: bool = False,
         use_native: bool = True,
+        allow_empty: bool = False,
     ):
         """Host-resident GAME ingest for the out-of-core trainer: a
         ``game.streaming.StreamedGameData`` of numpy columns, nothing on the
@@ -515,9 +516,11 @@ class AvroDataReader:
         columns (dense (n, d) up to 2048 columns, else padded (n, max nnz)
         int32 indices and values). ``unseen_entity_ok`` gives entities
         absent from ``entity_maps`` the id -1 (validation: those rows score
-        0 for that coordinate) instead of raising. The reference's
-        ``allow_empty`` (an empty file slice of one process) is ROADMAP
-        queue 1 item 12."""
+        0 for that coordinate) instead of raising. ``allow_empty``: paths
+        with no record give a 0-row dataset with the dictionaries' shard
+        widths and every id tag, instead of raising (a process of
+        ``--multihost`` whose file slice is empty still takes part in every
+        collective of the trainer)."""
         from photon_ml_tpu_torch.game.streaming import StreamedGameData
 
         paths = [path] if isinstance(path, str) else list(path)
@@ -541,9 +544,9 @@ class AvroDataReader:
                     remap[u] = got
                 tids = tag["ids"]
                 ids_p[t].append(remap[tids] if len(tids) else np.zeros(0, np.int64))
-        if not labels_p:
+        if not labels_p and not allow_empty:
             raise ValueError(f"no records under {paths}")
-        labels = np.concatenate(labels_p)
+        labels = _concat(labels_p, _DTYPE)
         n = len(labels)
         features: dict[str, Features] = {}
         for sid in self.feature_shards:
@@ -552,7 +555,9 @@ class AvroDataReader:
             knnz = None
             if not dense:
                 knnz = (max_nnz or {}).get(sid)
-                if knnz is None:
+                if n == 0:
+                    knnz = knnz or 1
+                elif knnz is None:
                     knnz = self.streaming_ingest_stats(paths, use_native=native)[1][sid]
             # preallocated and filled chunk by chunk: a list of chunks and a
             # concatenate would hold the shard twice at its peak
@@ -561,8 +566,9 @@ class AvroDataReader:
             else:
                 idx, val = np.empty((n, knnz), np.int32), np.empty((n, knnz), dtype)
             fill, chunk_rows = 0, min(n, 1 << 20)
-            for c in self.iter_batch_chunks(paths, sid, chunk_rows=chunk_rows, index_maps=index_maps,
-                                            dtype=dtype, max_nnz=knnz, use_native=native):
+            chunks = self.iter_batch_chunks(paths, sid, chunk_rows=chunk_rows, index_maps=index_maps, dtype=dtype,
+                                            max_nnz=knnz, use_native=native) if n else ()
+            for c in chunks:
                 take = min(chunk_rows, n - fill)
                 if dense:
                     X[fill:fill + take] = c["X"][:take]
@@ -574,8 +580,8 @@ class AvroDataReader:
                              else SparseFeatures(indices=idx, values=val, num_features=d))
         return StreamedGameData(
             labels=labels, features=features,
-            id_tags={t: np.concatenate(v) for t, v in ids_p.items()},
-            offsets=np.concatenate(offsets_p), weights=np.concatenate(weights_p),
+            id_tags={t: _concat(v, np.int64) for t, v in ids_p.items()},
+            offsets=_concat(offsets_p, _DTYPE), weights=_concat(weights_p, _DTYPE),
             decoder="native" if native else "python",
         )
 
@@ -625,6 +631,11 @@ class AvroDataReader:
                     fill = 0
         if fill:
             yield buf
+
+
+def _concat(parts: list[np.ndarray], dtype) -> np.ndarray:
+    """The parts joined, or an empty column of ``dtype`` without any."""
+    return np.concatenate(parts) if parts else np.zeros(0, dtype)
 
 
 def _empty_chunk(chunk_rows: int, d: int, dtype, max_nnz: int | None, dense: bool) -> dict:

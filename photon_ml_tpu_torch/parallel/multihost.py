@@ -19,6 +19,9 @@ destination process only, sized exactly (the (P, P) count matrix is
 exchanged first, so no block pads to the largest). ``allgather_rows``
 concatenates every process's rows in rank order: the multi-process GAME
 descent assembles each coordinate's (n,) scores with it.
+``allgather_row_chunks`` does the same in bounded rounds, so the
+out-of-core trainer's one writer gathers global columns without any
+process holding more than a round of them at once.
 
 Each collective is an ``all_gather`` of the raw bytes of every process's
 arrays, reduced on every process in rank order by the same numpy code, so
@@ -276,6 +279,32 @@ def allgather_rows(*arrays: np.ndarray):
         per_rank = _gather_objects(arrays)
         arrays = tuple(np.concatenate([r[i] for r in per_rank]) for i in range(len(arrays)))
     return arrays if len(arrays) > 1 else arrays[0]
+
+
+def allgather_row_chunks(arrays, chunk_rows: int, pad_values=None):
+    """Every process's rows of ``arrays`` (a dict of host arrays of one row
+    count) in rounds of ``chunk_rows`` rows: each round yields a dict of
+    (P, chunk_rows, ...) arrays stacked in rank order, so a receiver keeps
+    what it needs and drops the round before the next (peak memory
+    O(P · chunk_rows), never the global rows). A process with fewer rows
+    pads its rounds with ``pad_values[key]`` (default 0: pick a sentinel
+    the receiver can tell apart, e.g. -1 row ids). Every process yields the
+    same number of rounds, set by the largest process's row count."""
+    pad_values = dict(pad_values or {})
+    keys = list(arrays)
+    cols = [np.asarray(arrays[k]) for k in keys]
+    n_loc = len(cols[0]) if cols else 0
+    largest = int(allgather_host(np.asarray([n_loc], np.int64)).max())
+    for lo in range(0, largest, chunk_rows):
+        chunk = []
+        for k, a in zip(keys, cols):
+            part = a[min(lo, n_loc):min(lo + chunk_rows, n_loc)]
+            if len(part) < chunk_rows:
+                fill = np.full((chunk_rows - len(part),) + a.shape[1:], pad_values.get(k, 0), a.dtype)
+                part = np.concatenate([part, fill])
+            chunk.append(part)
+        per_rank = _gather_arrays(chunk) if process_count() > 1 else [chunk]
+        yield {k: np.stack([r[i] for r in per_rank]) for i, k in enumerate(keys)}
 
 
 # what the last ``exchange_rows`` moved (the reference's keys)

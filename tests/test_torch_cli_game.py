@@ -316,15 +316,20 @@ def config_file(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--streaming-chunk-rows", "1000", "--profile-dir", "p"], "item 13"),
-    # in memory --multihost is ported; out of core it waits for item 12c
-    (["--multihost", "--streaming-chunk-rows", "1000"], "item 12"),
+    # --multihost is ported in memory and out of core: outside a process
+    # group it raises the initialization error
+    # (tests/test_torch_multihost_game_streaming.py runs it)
+    pytest.param(["--multihost", "--streaming-chunk-rows", "1000"], "multihost initialization failed",
+                 id="flags1-item 12"),
     (["--profile-dir", "p"], "item 13"),
     (["--telemetry-dir", "t"], "item 13"),
 ])
-def test_unported_train_flags_raise(tmp_path, data_dir, config_file, flags, item):
+def test_unported_train_flags_raise(tmp_path, data_dir, config_file, flags, item, monkeypatch):
+    for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
     argv = ["--config", str(config_file), "--train-data", str(data_dir / "train"),
             "--output-dir", str(tmp_path / "out"), "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError if "--multihost" in flags else NotImplementedError, match=item):
         port_train.main(argv)
 
 

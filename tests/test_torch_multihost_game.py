@@ -19,9 +19,9 @@ Held to:
 - ``cli.score --multihost``: one scores part per process whose union is
   the one-process score driver's scores of the same model (atol 1e-5),
   one ``metrics.json`` within 1e-6 of the one-process metrics;
-- ``--multihost`` with ``--streaming-chunk-rows`` raising naming ROADMAP
-  item 12c, and without a process group raising the initialization
-  error.
+- ``--multihost``, in memory or with ``--streaming-chunk-rows``, raising
+  the initialization error without a process group, and the out-of-core
+  trainer's fleet knobs raising naming ROADMAP item 12d.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from photon_ml_tpu_torch.cli import train as port_train
 from photon_ml_tpu_torch.data.synthetic import synthetic_game_data
 from photon_ml_tpu_torch.estimators import GameEstimator
 from photon_ml_tpu_torch.game.data import make_game_batch
+from photon_ml_tpu_torch.game.streaming import StreamedGameData, StreamedGameTrainer
 from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.parallel import data_mesh
@@ -359,16 +360,30 @@ def test_score_driver_multihost_writes_a_part_a_process_and_one_metrics_file(dri
 
 
 def test_multihost_refuses_streaming_and_needs_a_process_group(tmp_path, monkeypatch):
+    """Out of core too, ``--multihost`` needs a process group (it runs in
+    tests/test_torch_multihost_game_streaming.py); the fleet knobs still
+    raise, naming ROADMAP item 12d."""
     for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
     (tmp_path / "config.json").write_text(json.dumps(_config().to_dict()))
     base = ["--config", str(tmp_path / "config.json"), "--train-data", str(tmp_path / "t"), "--device", "cpu",
             "--output-dir", str(tmp_path / "o"), "--multihost"]
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(RuntimeError, match="multihost initialization failed"):
         port_train.main(base + ["--streaming-chunk-rows", "64"])
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(RuntimeError, match="multihost initialization failed"):
         port_train.run(_config(), [str(tmp_path / "t")], str(tmp_path / "o"), streaming_chunk_rows=64,
                        multihost=True, device="cpu")
+    with pytest.raises(RuntimeError, match="multihost initialization failed"):
+        StreamedGameTrainer(_config(), multihost=True, device="cpu")
+    data, _ = _library_data()
+    streamed = StreamedGameData(labels=data.y, features={"global": data.X, "per_user": data.entity_X["userId"],
+                                                         "per_item": data.entity_X["itemId"]},
+                                id_tags={k: v.numpy() for k, v in data.entity_ids.items()})
+    for knob in ("PHOTON_RE_SHARD", "PHOTON_RE_PROJECT", "PHOTON_RE_DEVICE_SPLIT"):
+        monkeypatch.setenv(knob, "1")
+        with pytest.raises(NotImplementedError, match="item 12d"):
+            StreamedGameTrainer(_config(), chunk_rows=256, device="cpu").fit(streamed)
+        monkeypatch.delenv(knob)
     with pytest.raises(RuntimeError, match="multihost initialization failed"):
         port_train.main(base)
     with pytest.raises(RuntimeError, match="multihost initialization failed"):
