@@ -250,8 +250,26 @@ Run from the root of a checkout. It builds the CUDA kernels from
    iterations uninterrupted into other directories. The best index and
    the models (rtol 1e-2 / atol 1e-3) of the 2- and 3-iteration runs
    main_game_cli_streamed's; process 0 alone writing (process 1 only its
-   score files); the resumed run bitwise the uninterrupted one; K1 = the
+   score files); the resumed run bitwise the uninterrupted one, which runs
+   with ``--telemetry-dir`` and ``PHOTON_TELEMETRY_FLEET=1``; K1 = the
    process's chunks x its fixed-effect passes in every run;
+18d. main_telemetry: run telemetry (``obs``) and the profiler on the
+   drivers. Phase 16's 2-iteration training command again with
+   ``--telemetry-dir`` and ``--profile-dir``: its models and the scoring
+   driver's scores and metrics of them (also with both flags) equal, record
+   for record, to the same commands with the flags off; each run file
+   valid (``validate_run``); every ``descent/visit`` span under a
+   ``descent/iter`` under ``train/grid-fit``, the ``score/pass`` span;
+   ``run_end``'s registry with ``re_solve.*``, every ``hbm_watermark``
+   record ``available``; K1's kernel in the profiler's trace; K1's
+   launches those of the run without telemetry. Phase 18's command again
+   with ``--telemetry-dir`` (its models equal to phase 18's) and with TRON
+   (one lambda, 5 iterations): K1's and K2's ``executable_cost`` bytes at
+   the 32768-row chunk equal to the bytes their bounds divide, the
+   registry's ``stream.passes`` equal to the solves' objective passes.
+   Phase 18c's uninterrupted run wrote a canonical file and a ``.p1``
+   shard of one run id, both valid. Each telemetry-on wall beside its
+   telemetry-off twin's and each file's bytes are printed;
 19. main_f: logistic at config A's width in float32, 2^22 rows (8 GiB) in
    16 host chunks of 2^18 rows drawn on the card, ``train_glm_streamed``
    with host L-BFGS (10 iterations at tolerance 0, lambda = 1) in three
@@ -294,8 +312,8 @@ fails its phase. The kernels are built once, before any child starts.
 Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
 E on L-BFGS, E projected, the GAME drivers, the six out-of-core
-phases, the seven data-parallel ones and the two out-of-core ones across
-processes, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
+phases, the seven data-parallel ones, the two out-of-core ones across
+processes and main_telemetry, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
 ``at_streamed_game_chunk_shape`` K1's at main_e_streamed's), the line
@@ -307,13 +325,14 @@ without CUDA or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass, replace
 
@@ -355,6 +374,8 @@ from photon_ml_tpu_torch.io.data_reader import AvroDataReader
 from photon_ml_tpu_torch.io.model_io import load_game_model, load_glm
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.native import build as native_build
+from photon_ml_tpu_torch.obs import REGISTRY
+from photon_ml_tpu_torch.obs.report import load_run, validate_run
 from photon_ml_tpu_torch.ops import _cuda, fused, prefetch, tile_cache
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
@@ -1675,19 +1696,19 @@ def game_cli_config(effects: dict, iterations: int, projections: dict | None = N
     )
 
 
-def game_cli_records(host: dict, rows: range):
-    """``TrainingExampleAvro`` records of ``rows``: the global bag (the 64
-    features; the reader adds the intercept), one bag per effect and the
-    entity ids as metadata tags. Values are float32, so they cross the file
-    exactly."""
+def game_cli_records(host: dict, lo: int, hi: int):
+    """``TrainingExampleAvro`` records of rows [lo, hi) (``host`` holds those
+    rows only, as lists): the global bag (the 64 features; the reader adds
+    the intercept), one bag per effect and the entity ids as metadata tags.
+    Values are float32, so they cross the file exactly."""
     X, y = host["X"], host["y"]
-    for i in rows:
-        rec = {"uid": i, "response": y[i], "offset": None, "weight": None,
+    for r, i in enumerate(range(lo, hi)):
+        rec = {"uid": i, "response": y[r], "offset": None, "weight": None,
                "features": [{"name": "g", "term": str(j), "value": v}
-                            for j, v in enumerate(X[i][:D_FIXED])],
-               "metadataMap": {k: f"{k}_{host['ids'][k][i]}" for k in GAME_CLI_BAGS}}
+                            for j, v in enumerate(X[r][:D_FIXED])],
+               "metadataMap": {k: f"{k}_{host['ids'][k][r]}" for k in GAME_CLI_BAGS}}
         for k, bag in GAME_CLI_BAGS.items():
-            rec[bag] = [{"name": k, "term": str(j), "value": v} for j, v in enumerate(host["Xe"][k][i])]
+            rec[bag] = [{"name": k, "term": str(j), "value": v} for j, v in enumerate(host["Xe"][k][r])]
         yield rec
 
 
@@ -1794,26 +1815,41 @@ class GameCliData:
     avro_bytes: int
 
 
+def _write_game_cli_part(path: str, schema: dict, host: dict, lo: int, hi: int) -> None:
+    """One part file of rows [lo, hi) (``host``'s arrays hold those rows
+    only): a worker process's share of ``game_cli_data``'s writing."""
+    rows = dict(X=host["X"].tolist(), y=host["y"].tolist(), ids=host["ids"],
+                Xe={k: v.tolist() for k, v in host["Xe"].items()})
+    write_avro_file(path, schema, game_cli_records(rows, lo, hi))
+
+
 def game_cli_data(dev, work: str, sizes: dict = GAME_CLI) -> GameCliData:
     """Config E's rows drawn on the card and written as Avro part files with
-    the port's codec."""
+    the port's codec, one worker process a part file (all started
+    together; the codec is pure Python)."""
     effects, n_tr, n_va = sizes["effects"], sizes["train"], sizes["val"]
     data = synthetic_game_data(7, n_tr + n_va, D_FIXED, effects, device=dev)
-    host = dict(X=data.X.cpu().numpy(), y=data.y.cpu().numpy().tolist(),
+    host = dict(X=data.X.cpu().numpy(), y=data.y.cpu().numpy(),
                 ids={k: v.cpu().numpy() for k, v in data.entity_ids.items()},
                 Xe={k: v.cpu().numpy() for k, v in data.entity_X.items()})
-    X_rows, Xe_rows = host["X"].tolist(), {k: v.tolist() for k, v in host["Xe"].items()}
     schema = json.loads(json.dumps(TRAINING_EXAMPLE_SCHEMA))
     for bag in GAME_CLI_BAGS.values():
         schema["fields"].insert(5, {"name": bag, "type": {"type": "array", "items": "NameTermValueAvro"},
                                     "default": []})
-    t0 = time.perf_counter()
+    parts = []
     for split, lo, n in (("train", 0, n_tr), ("val", n_tr, n_va)):
         step = n // sizes["parts"]
-        for p in range(sizes["parts"]):
-            write_avro_file(os.path.join(work, split, f"part-{p:05d}.avro"), schema,
-                            game_cli_records(dict(host, X=X_rows, Xe=Xe_rows),
-                                             range(lo + p * step, lo + (p + 1) * step)))
+        os.makedirs(os.path.join(work, split), exist_ok=True)
+        parts += [(os.path.join(work, split, f"part-{p:05d}.avro"), lo + p * step, lo + (p + 1) * step)
+                  for p in range(sizes["parts"])]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(parts), mp_context=multiprocessing.get_context("spawn")) as pool:
+        for f in [pool.submit(_write_game_cli_part, path, schema,
+                              dict(X=host["X"][a:b], y=host["y"][a:b],
+                                   ids={k: v[a:b] for k, v in host["ids"].items()},
+                                   Xe={k: v[a:b] for k, v in host["Xe"].items()}), a, b)
+                  for path, a, b in parts]:
+            f.result()
     write_s = time.perf_counter() - t0
     avro_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(work) for f in fs)
 
@@ -2361,7 +2397,7 @@ def run_f(dev, card: str) -> dict:
             result, wall, launches = streamed_solve(chunks, TaskType.LOGISTIC_REGRESSION, F_D, cfg, dev,
                                                     intercept_index=F_D - 1)
             t = result.trackers[1.0]
-            stats, stages, copied = prefetch.cache_stats(), dict(prefetch.stage_seconds), dict(prefetch.copied)
+            stats, stages, copied = prefetch.cache_stats(), REGISTRY.timer_snapshot("prefetch."), dict(prefetch.copied)
             arm = dict(
                 iterations=t.iterations, objective_passes=t.objective_passes, objective=float(t.value),
                 wall_s=wall, wall_s_per_pass=wall / t.objective_passes, launches=launches,
@@ -2442,7 +2478,7 @@ def run_b_streamed(dev, b: dict, card: str) -> dict:
                   value_grad_passes=vg_passes, hvp_passes=hvp_passes,
                   k1_per_chunk_and_pass=launches["fused_value_grad"] / (len(chunks) * vg_passes),
                   k2_per_chunk_and_pass=launches["fused_hvp"] / (len(chunks) * max(hvp_passes, 1)),
-                  cache=prefetch.cache_stats(), stage_seconds=dict(prefetch.stage_seconds))
+                  cache=prefetch.cache_stats(), stage_seconds=REGISTRY.timer_snapshot("prefetch."))
     rec["launches_ok"] = (launches["fused_value_grad"] == len(chunks) * vg_passes
                           and launches["fused_hvp"] == len(chunks) * hvp_passes and hvp_passes > 0)
     rec["k2_at_chunk"] = k2_at(batch.X[:B_CHUNK], batch.labels[:B_CHUNK])
@@ -2496,6 +2532,15 @@ def run_a2_streamed(dev, a2: dict, card: str) -> dict:
     return rec
 
 
+def glm_streamed_argv(dev, work: str, out: str) -> list[str]:
+    """main_glm_streamed_cli's command: the GLM driver out of core on the
+    GAME driver's files (3 λ, 100 iterations at 1e-8)."""
+    return ["--task", "LOGISTIC_REGRESSION", "--format", "avro", "--train-data", os.path.join(work, "train"),
+            "--validation-data", os.path.join(work, "val"), "--weights", *GLM_CLI_WEIGHTS, "--max-iterations",
+            "100", "--tolerance", "1e-8", "--streaming-chunk-rows", str(GLM_CLI_CHUNK), "--device", dev.type,
+            "--output-dir", out]
+
+
 def run_glm_streamed_cli(dev, data: GameCliData, card: str) -> dict:
     """main_glm_streamed_cli: ``cli.train_glm --format avro
     --streaming-chunk-rows 32768`` on main_game_cli's files (the global
@@ -2514,10 +2559,7 @@ def run_glm_streamed_cli(dev, data: GameCliData, card: str) -> dict:
         for a, b, _ in zip(native, python, range(2))
     )
     out = os.path.join(work, "glm_streamed")
-    argv = ["--task", "LOGISTIC_REGRESSION", "--format", "avro", "--train-data", train_dir,
-            "--validation-data", val_dir, "--weights", *GLM_CLI_WEIGHTS, "--max-iterations", "100",
-            "--tolerance", "1e-8", "--streaming-chunk-rows", str(GLM_CLI_CHUNK), "--device", dev.type,
-            "--output-dir", out]
+    argv = glm_streamed_argv(dev, work, out)
     streamed = []  # (chunk count, result) of the driver's streamed sweep
     real = cli_train_glm.train_glm_streamed
 
@@ -2562,8 +2604,8 @@ def run_glm_streamed_cli(dev, data: GameCliData, card: str) -> dict:
                               streaming_chunk_rows=GLM_CLI_CHUNK, device=dev)
     stats_s, fill_s = stages["index maps (streaming pass, all files)"], stages["chunk training data"]
     return dict(
-        card=card, rows_train=n_tr, rows_validation=n_va, chunk_rows=GLM_CLI_CHUNK, wall_s=wall,
-        stages_s=stages, stats_pass_ms_per_record=1e3 * stats_s / n_tr,
+        card=card, rows_train=n_tr, rows_validation=n_va, chunk_rows=GLM_CLI_CHUNK, d=maps["global"].size,
+        wall_s=wall, stages_s=stages, stats_pass_ms_per_record=1e3 * stats_s / n_tr,
         chunk_fill_ms_per_record=1e3 * fill_s / n_tr,
         validation_chunk_ms_per_record=1e3 * stages["chunk validation data"] / n_va,
         launches=launches, chunks=chunks, value_grad_passes=vg_passes, launches_ok=launches_ok,
@@ -3151,7 +3193,9 @@ def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mar
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start = (t0, 0, prefetch.cache_stats(), dict(prefetch.copied))
-    with counting_readbacks() as reads:
+    # the entity-iteration counts read the iterations back at each visit's
+    # flush; with no telemetry sink the port reads them only when asked
+    with counting_readbacks() as reads, environment({"PHOTON_RE_ITER_ACCOUNTING": "1"}):
         trainer = StreamedGameTrainer(config, chunk_rows=E_STREAM_CHUNK, intercept_indices={"global": D_FIXED},
                                       logger=mark, device=dev, **trainer_kw)
         model, info = trainer.fit(data)
@@ -3171,7 +3215,7 @@ def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mar
                                   for i in range(config.coordinate_descent_iterations)],
                 launches=launch_counts(), re_launches=dict(game_random_effect.launch_counts),
                 fixed_objective_passes=sum(v["objective_passes"] for v in fixed),
-                cache=prefetch.cache_stats(), stage_seconds=dict(prefetch.stage_seconds))
+                cache=prefetch.cache_stats(), stage_seconds=REGISTRY.timer_snapshot("prefetch."))
 
 
 def profile_streamed(data: StreamedGameData, config: GameTrainingConfig, dev) -> dict:
@@ -3443,9 +3487,14 @@ def run_game_cli_streamed_multihost(dev, data: GameCliData, card: str) -> dict:
                           "--device", dev.type, "--streaming-chunk-rows", str(GLM_CLI_CHUNK), "--multihost",
                           "--output-dir", os.path.join(root, out)])
 
+    # the uninterrupted run writes fleet telemetry (main_telemetry reads it):
+    # the resumed run, telemetry off, must equal it bit for bit
+    telemetry = os.path.join(root, "telemetry")
     t0 = time.perf_counter()
-    kids = run_children("game_multihost_cli", root, {"phases": [train(2, "out{rank}"), train(3, "out{rank}"),
-                                                                train(3, "fresh{rank}")]}, dev, ports=3)
+    kids = run_children("game_multihost_cli", root, {"phases": [
+        train(2, "out{rank}"), train(3, "out{rank}"),
+        ("train", train(3, "fresh{rank}")[1] + ["--telemetry-dir", telemetry]),
+    ]}, dev, env={"PHOTON_TELEMETRY_FLEET": "1"}, ports=3)
     wall = time.perf_counter() - t0
     first, rerun, fresh = ([c["phases"][i] for c in kids] for i in range(3))
     out0 = os.path.join(root, "out0")
@@ -3488,6 +3537,189 @@ def run_game_cli_streamed_multihost(dev, data: GameCliData, card: str) -> dict:
         resumed_lines=resumed_lines, resumed_from=[[s["resumed_from"] for s in p["streamed"]] for p in rerun],
         rerun_bitwise_uninterrupted=_model_bytes(rerun_model) == _model_bytes(fresh_model)
         and metrics["best_index"] == fresh_metrics["best_index"],
+        fleet_telemetry=fleet_telemetry_files(telemetry),
+    )
+
+
+def fleet_telemetry_files(directory: str) -> dict:
+    """A fleet run's files: the canonical one and its shards, each checked
+    by the port's ``validate_run``, with their run ids and sizes."""
+    files = sorted(os.listdir(directory))
+    runs = [load_run(os.path.join(directory, f)) for f in files]
+    return dict(files=files, bytes=[os.path.getsize(os.path.join(directory, f)) for f in files],
+                run_ids=[r[0].get("run_id") for r in runs], process_index=[r[0].get("process_index") for r in runs],
+                problems=[validate_run(r) for r in runs],
+                spans=[sorted({x["name"] for x in r if x["event"] == "span"}) for r in runs])
+
+
+# ---------------------------------------------------------------------------
+# run telemetry: the drivers with --telemetry-dir and --profile-dir
+# ---------------------------------------------------------------------------
+def decoded_outputs(d: str, skip: tuple = ("checkpoints", "photon.log", "report.json")) -> dict:
+    """A driver's output files decoded (Avro records, npz arrays as bytes,
+    JSON), by relative path: Avro's sync markers are random, so two runs
+    compare by their records."""
+    got = {}
+    for p, _, fs in os.walk(d):
+        for f in fs:
+            rel = os.path.relpath(os.path.join(p, f), d)
+            if rel.split(os.sep)[0] in skip:
+                continue
+            full = os.path.join(p, f)
+            if f.endswith(".avro"):
+                got[rel] = read_avro_file(full)[1]
+            elif f.endswith(".npz"):
+                with np.load(full) as z:
+                    got[rel] = {k: z[k].tobytes() for k in z.files}
+            elif f.endswith(".json"):
+                with open(full) as fh:
+                    got[rel] = json.load(fh)
+    return got
+
+
+def telemetry_run(directory: str) -> tuple[list, dict]:
+    """The one run file in ``directory``: its records and a summary (size,
+    problems, span names, record kinds, the registry's counters at its
+    end less those at its start)."""
+    (name,) = os.listdir(directory)
+    path = os.path.join(directory, name)
+    records = load_run(path)
+    end = records[-1].get("metrics", {}).get("counters", {})
+    base = records[0].get("metrics_baseline", {}).get("counters", {})
+    counters = {k: v["value"] - base.get(k, {"value": 0.0})["value"] for k, v in end.items()}
+    return records, dict(file=name, bytes=os.path.getsize(path), problems=validate_run(records),
+                         records=len(records), kinds=sorted({r["event"] for r in records}),
+                         counters=counters)
+
+
+def _ancestors(span: dict, by_id: dict) -> list[str]:
+    names = []
+    while span is not None:
+        names.append(span["name"])
+        span = by_id.get(span.get("parent_id"))
+    return names
+
+
+def k1_bound_bytes(n: int, d: int, itemsize: int, offsets: bool, weights: bool) -> int:
+    """The bytes K1's bound divides (``k1_time``'s count): X, labels,
+    offsets and weights where read, u; the d + 2 results."""
+    return n * d * itemsize + 4 * n * (1 + offsets + weights) + 4 * d + 4 * (d + 2)
+
+
+def k2_bound_bytes(n: int, d: int, itemsize: int, offsets: bool, weights: bool) -> int:
+    """The bytes K2's bound divides (``k2_time``'s count)."""
+    return n * d * itemsize + 4 * n * (1 + offsets + weights) + 8 * d + 4 * (d + 1)
+
+
+def run_telemetry(dev, data: GameCliData, cli: dict, glm_streamed: dict) -> dict:
+    """main_telemetry: main_game_cli's 2-iteration training command again
+    with ``--telemetry-dir`` and ``--profile-dir`` into a new directory, and
+    the scoring driver on both runs' models (telemetry off and on);
+    main_glm_streamed_cli's command again with ``--telemetry-dir``, then
+    with TRON (one λ, 5 iterations). Each run's outputs against its
+    telemetry-off twin's, its file checked by ``validate_run``, its span
+    tree, registry, memory and cost records read."""
+    work, effects = data.work, data.effects
+    cfg2 = os.path.join(work, "config-2.json")
+    out_on = os.path.join(work, "out-telemetry")
+    tel_game, prof = os.path.join(work, "telemetry-game"), os.path.join(work, "profile-game")
+
+    # the GAME driver in memory, telemetry and the profiler on
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_train.main(["--config", cfg2, "--train-data", os.path.join(work, "train"), "--validation-data",
+                    os.path.join(work, "val"), "--output-dir", out_on, "--device", dev.type,
+                    "--telemetry-dir", tel_game, "--profile-dir", prof])
+    torch.cuda.synchronize()
+    game_wall = time.perf_counter() - t0
+    game_launches = launch_counts()
+    game_peak = torch.cuda.max_memory_allocated()
+    off = decoded_outputs(os.path.join(work, "out-2it"))
+    on = decoded_outputs(out_on)
+    records, game_run = telemetry_run(tel_game)
+    spans = [r for r in records if r["event"] == "span"]
+    by_id = {x["span_id"]: x for x in spans}
+    visits = [x for x in spans if x["name"] == "descent/visit"]
+    watermarks = [r for r in records if r["event"] == "hbm_watermark"]
+    with open(os.path.join(prof, "grid-fit", "trace.json")) as f:
+        trace_names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])}
+    k1_in_trace = sorted(n for n in trace_names if "vg_tiles_kernel" in n or "vg_kernel" in n)
+
+    # the scoring driver on both models: telemetry off, then on
+    score = {}
+    for label, model_dir, extra in (("off", os.path.join(work, "out-2it"), []),
+                                    ("on", out_on, ["--telemetry-dir", os.path.join(work, "telemetry-score"),
+                                                    "--profile-dir", prof])):
+        dest = os.path.join(work, f"scores-telemetry-{label}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_score.main(["--model-dir", model_dir, "--data", os.path.join(work, "val"), "--output-dir", dest,
+                        "--evaluators", *GAME_CLI_EVALUATORS, "--config", cfg2, "--device", dev.type, *extra])
+        torch.cuda.synchronize()
+        score[label] = dict(wall_s=time.perf_counter() - t0, outputs=decoded_outputs(dest))
+    score_records, score_run = telemetry_run(os.path.join(work, "telemetry-score"))
+
+    # the streamed GLM driver, telemetry on: L-BFGS (main_glm_streamed_cli's twin), then TRON
+    glm = {}
+    for label, extra in (("lbfgs", []), ("tron", ["--optimizer", "TRON", "--weights", "1",
+                                                  "--max-iterations", "5"])):
+        out = os.path.join(work, f"glm_streamed-telemetry-{label}")
+        tel = os.path.join(work, f"telemetry-glm-{label}")
+        fused.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_train_glm.main(glm_streamed_argv(dev, work, out) + ["--telemetry-dir", tel] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recs, run = telemetry_run(tel)
+        costs: dict[str, set] = {}  # label -> the bytes of each signature it recorded
+        for r in recs:
+            if r["event"] == "executable_cost":
+                costs.setdefault(r["label"], set()).add(r["bytes_accessed"])
+        glm[label] = dict(wall_s=wall, run=run, launches=launch_counts(),
+                          solve_passes=sum(r["objective_passes"] for r in recs if r["event"] == "optim_result"),
+                          stream_passes=run["counters"].get("stream.passes", 0.0),
+                          costs={k: sorted(v) for k, v in costs.items()})
+        if label == "lbfgs":
+            glm_models = {k: v for k, v in decoded_outputs(out).items() if k.startswith(("models", "best"))}
+    n, d = GLM_CLI_CHUNK, glm_streamed["d"]
+    k1_bytes, k2_bytes = k1_bound_bytes(n, d, 4, True, True), k2_bound_bytes(n, d, 4, True, True)
+    glm_off = decoded_outputs(os.path.join(work, "glm_streamed"))
+    launches = {k: game_launches[k] + glm["lbfgs"]["launches"][k] + glm["tron"]["launches"][k]
+                for k in game_launches}
+    return dict(
+        game=dict(wall_s_telemetry_and_profiler=game_wall, wall_s_off=cli["train_wall_s"], run=game_run,
+                  launches=game_launches, launches_off=cli["launches"],
+                  hbm_watermarks=len(watermarks),
+                  hbm_peak_bytes=max((w.get("peak_bytes_in_use", 0) for w in watermarks), default=None),
+                  peak_memory_bytes=game_peak, peak_memory_bytes_off=cli["peak_memory_bytes"],
+                  k1_kernels_in_trace=k1_in_trace,
+                  cuda_build_s=records[-1]["metrics"]["timers"].get("cuda.build_s")),
+        score=dict(wall_s_on=score["on"]["wall_s"], wall_s_off=score["off"]["wall_s"], run=score_run),
+        glm_streamed=dict(wall_s_off=glm_streamed["wall_s"], **glm, k1_bound_bytes=k1_bytes,
+                          k2_bound_bytes=k2_bytes),
+        launches=launches,
+        outputs_bitwise=bool(off) and off == {k: v for k, v in on.items() if k in off} and off.keys() <= on.keys(),
+        scores_bitwise=bool(score["off"]["outputs"]) and score["off"]["outputs"] == score["on"]["outputs"],
+        glm_models_bitwise=bool(glm_models) and all(glm_off.get(k) == v for k, v in glm_models.items()),
+        jsonl_valid=not game_run["problems"] and not score_run["problems"]
+        and not glm["lbfgs"]["run"]["problems"] and not glm["tron"]["run"]["problems"],
+        span_tree=bool(visits) and all(
+            _ancestors(v, by_id)[:2] == ["descent/visit", "descent/iter"] and "train/grid-fit" in _ancestors(v, by_id)
+            for v in visits) and "score/pass" in {x["name"] for x in score_records if x["event"] == "span"},
+        re_solve=game_run["counters"].get("re_solve.launches", 0) > 0
+        and game_run["counters"].get("re_solve.executed_entity_iterations", 0) > 0,
+        hbm_available=bool(watermarks) and all(w["available"] for w in watermarks),
+        k1_in_profile=bool(k1_in_trace),
+        # a signature is recorded once a process: K1's chunk in the first run, K2's in the second
+        k1_cost_bytes=glm["lbfgs"]["costs"].get("fused.value_grad") == [k1_bytes],
+        k2_cost_bytes=glm["tron"]["costs"].get("fused.hvp") == [k2_bytes],
+        stream_passes=all(r["solve_passes"] > 0 and r["stream_passes"] == r["solve_passes"] for r in glm.values()),
+        same_launches_as_off=game_launches == cli["launches"]
+        and glm["lbfgs"]["launches"] == glm_streamed["launches"],
     )
 
 
@@ -3753,6 +3985,8 @@ def main() -> int:
         game_streamed = run_game_cli_streamed(dev, data, smi)
         # the same driver across two processes, one training part each
         game_streamed_multi = run_game_cli_streamed_multihost(dev, data, smi)
+        # the drivers again with run telemetry and the profiler on
+        telemetry = run_telemetry(dev, data, cli, glm_streamed)
         del data
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3831,6 +4065,22 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_game_cli_streamed_multihost failed: {failed}")
+    fleet = gsm["fleet_telemetry"]
+    telemetry.update(card=smi, fleet=fleet, fleet_wall_s=gsm["fresh_wall_s"])
+    emit("main_telemetry", **telemetry)
+    failed = [name for name, ok in (
+        *((gate, telemetry[gate]) for gate in (
+            "outputs_bitwise", "scores_bitwise", "glm_models_bitwise", "jsonl_valid", "span_tree", "re_solve",
+            "hbm_available", "k1_in_profile", "k1_cost_bytes", "k2_cost_bytes", "stream_passes",
+            "same_launches_as_off")),
+        # the uninterrupted two-process run (telemetry on) equals the resumed one (off) bit for bit
+        ("fleet_files", len(fleet["files"]) == 2 and fleet["files"][1].endswith(".p1.jsonl")
+         and fleet["process_index"] == [0, 1] and len(set(fleet["run_ids"])) == 1
+         and fleet["problems"] == [[], []] and all("game/fit" in sp for sp in fleet["spans"])),
+        ("fleet_bitwise", gsm["rerun_bitwise_uninterrupted"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_telemetry failed: {failed}")
 
     # the out-of-core GLM path: the driver (above, on the GAME files), then
     # main_f, config B and config A2 streamed from host chunks
@@ -3906,6 +4156,8 @@ def main() -> int:
     # out of core across processes
     parallel_streamed_paths = {"main_e_streamed_multihost": e_streamed_multi,
                                "main_game_cli_streamed_multihost": game_streamed_multi}
+    # the drivers with run telemetry on
+    telemetry_paths = {"main_telemetry": telemetry}
     # data parallel: row shards of the card, and two processes over gloo
     parallel_paths = {"main_a_sharded": a_sharded, "main_a2_sharded": a2_sharded,
                       "main_f_multihost": f_multi, "main_glm_multihost_cli": glm_multihost,
@@ -3921,7 +4173,8 @@ def main() -> int:
             "main_e_projected": e_proj["launches"][k], "main_game_cli": cli["launches"][k],
             "main_game_cli_full": full["launches"][k],
             **{path: rec["launches"][k]
-               for path, rec in {**streamed_paths, **parallel_paths, **parallel_streamed_paths}.items()}}
+               for path, rec in {**streamed_paths, **parallel_paths, **parallel_streamed_paths,
+                                 **telemetry_paths}.items()}}
         for k in KERNEL_ROWS
     }
     kernels = [
@@ -3944,7 +4197,7 @@ def main() -> int:
     k2_chunk = b_streamed["k2_at_chunk"]
     kernels[1]["at_streamed_chunk_shape"] = {k: k2_chunk[k] for k in at_shape_keys
                                              if k2_chunk.get(k) is not None}
-    k3_paths = {**streamed_paths, **parallel_paths, **parallel_streamed_paths}
+    k3_paths = {**streamed_paths, **parallel_paths, **parallel_streamed_paths, **telemetry_paths}
     k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over A2's paths and the rest
         dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW,
              launches=k3[direction] + sum(r["launches"][f"sparse_{direction}"] for r in k3_paths.values()),

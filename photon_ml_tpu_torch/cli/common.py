@@ -11,8 +11,3 @@ def load_training_config(path: str) -> GameTrainingConfig:
     with open(path) as f:
         return parse_config(json.load(f))
 
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of a flag or setting whose branch waits for a ROADMAP
-    queue 1 item."""
-    return NotImplementedError(f"{what} waits for ROADMAP queue 1 item {item}")

@@ -22,8 +22,9 @@ Usage:
         [--evaluators AUC "MULTI_AUC(userId)"] [--config config.json] [--device cpu] \\
         [--multihost]
 
-``--profile-dir`` / ``--telemetry-dir`` (ROADMAP queue 1 item 13) raise
-``NotImplementedError``.
+``--telemetry-dir DIR`` writes the run's telemetry JSONL into ``DIR``
+(``obs``; the span ``score/pass``); ``--profile-dir DIR`` traces the
+scoring pass with ``torch.profiler`` into ``DIR/score/``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch._device import resolve_device
-from photon_ml_tpu_torch.cli.common import load_training_config, not_ported
+from photon_ml_tpu_torch import obs
+from photon_ml_tpu_torch.cli.common import load_training_config
 from photon_ml_tpu_torch.config import FeatureShardConfig
 from photon_ml_tpu_torch.data.index_map import IndexMap
 from photon_ml_tpu_torch.evaluation import (
@@ -64,7 +66,7 @@ from photon_ml_tpu_torch.parallel.multihost import (
     sync_processes,
 )
 from photon_ml_tpu_torch.transformers import GameTransformer
-from photon_ml_tpu_torch.utils import PhotonLogger, timed
+from photon_ml_tpu_torch.utils import PhotonLogger, profile_trace, timed
 
 
 def run(
@@ -83,9 +85,8 @@ def run(
     level above it) on ``device`` (CUDA unless the caller asks for another;
     raises without it). Returns (scores, metrics or None); under
     ``multihost`` the scores are this process's rows and the metrics the
-    global ones (module docstring)."""
-    if profile_dir is not None:
-        raise not_ported("device traces (--profile-dir)", "13")
+    global ones (module docstring). ``profile_dir`` traces the scoring
+    pass (``utils/profiling.profile_trace``)."""
     dev = resolve_device(device)
     part_index = 0
     if multihost:
@@ -157,7 +158,7 @@ def run(
 
     transformer = GameTransformer(model, logger=logger, device=dev)
     metrics = None
-    with timed(logger, "score"):
+    with timed(logger, "score"), profile_trace(profile_dir, "score"), obs.span("score/pass"):
         if evaluators and not multihost:
             scores, results = transformer.transform_with_evaluation(ds.batch, evaluators)
             metrics = dict(results.metrics)
@@ -261,26 +262,31 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--evaluators", nargs="*", default=None)
     p.add_argument("--config", default=None, help="training config JSON (for feature shards)")
     p.add_argument("--profile-dir", default=None,
-                   help="a device trace of the scoring pass (ROADMAP queue 1 item 13; raises)")
+                   help="write a torch.profiler trace (CPU and CUDA) of the scoring pass into this directory")
     p.add_argument("--telemetry-dir", default=None,
-                   help="the run's telemetry JSONL (ROADMAP queue 1 item 13; raises)")
+                   help="write the run's telemetry JSONL into this directory; read it with the "
+                        "reference's photon-ml-tpu report")
     p.add_argument("--multihost", action="store_true",
                    help="score across processes: run the same command in each with "
                         "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID set; each "
                         "scores its slice of the part files and writes its own scores part")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.telemetry_dir is not None:
-        raise not_ported("run telemetry (--telemetry-dir)", "13")
     shards = dict(load_training_config(args.config).feature_shards) if args.config else None
     if args.multihost:
         initialize_multihost()
     try:
-        run(
-            args.model_dir, args.data, args.output_dir, evaluators=args.evaluators,
-            feature_shards=shards, profile_dir=args.profile_dir,
-            multihost=args.multihost, device=args.device,
-        )
+        # after the process group is up: process 0 writes (every process
+        # its shard under PHOTON_TELEMETRY_FLEET=1)
+        obs.configure(args.telemetry_dir)
+        try:
+            run(
+                args.model_dir, args.data, args.output_dir, evaluators=args.evaluators,
+                feature_shards=shards, profile_dir=args.profile_dir,
+                multihost=args.multihost, device=args.device,
+            )
+        finally:
+            obs.shutdown()
     finally:
         shutdown_multihost()
 

@@ -42,8 +42,11 @@ Usage:
         [--validation-data data/val] --output-dir out/ [--device cpu] \\
         [--streaming-chunk-rows 1048576] [--multihost]
 
-Branches not ported yet raise ``NotImplementedError`` naming their ROADMAP
-queue 1 item: ``--telemetry-dir`` and ``--profile-dir`` (13).
+``--telemetry-dir DIR`` writes the run's telemetry JSONL into ``DIR``
+(``obs``: spans, optimizer records, the metrics registry; process 0 writes,
+or every process its own shard under ``PHOTON_TELEMETRY_FLEET=1``);
+``--profile-dir DIR`` traces the fit with ``torch.profiler`` into
+``DIR/grid-fit/`` (``DIR/streamed-game/`` out of core).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ import os
 import torch
 
 from photon_ml_tpu_torch._device import resolve_device
-from photon_ml_tpu_torch.cli.common import load_training_config, not_ported
+from photon_ml_tpu_torch import obs
+from photon_ml_tpu_torch.cli.common import load_training_config
 from photon_ml_tpu_torch.config import GameTrainingConfig
 from photon_ml_tpu_torch.data.index_map import IndexMap
 from photon_ml_tpu_torch.diagnostics import game_diagnostics, write_report
@@ -68,6 +72,7 @@ from photon_ml_tpu_torch.hyperparameter.tuning import gp_tune_weights, tune_game
 from photon_ml_tpu_torch.io.avro import list_avro_files
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader, GameDataset, expand_date_range
 from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
+from photon_ml_tpu_torch.obs import span
 from photon_ml_tpu_torch.ops.batch import hbm_budget_bytes
 from photon_ml_tpu_torch.parallel.mesh import process_mesh
 from photon_ml_tpu_torch.parallel.multihost import (
@@ -80,7 +85,7 @@ from photon_ml_tpu_torch.parallel.multihost import (
     sync_processes,
 )
 from photon_ml_tpu_torch.types import ModelOutputMode
-from photon_ml_tpu_torch.utils import PhotonLogger, timed
+from photon_ml_tpu_torch.utils import PhotonLogger, profile_trace, timed
 
 
 def run(
@@ -102,16 +107,15 @@ def run(
     for another; raises without it). ``multihost`` trains across the
     process group (module docstring): in memory over ``process_mesh`` (one
     shard on ``device``'s card, or one on every local card for plain
-    ``cuda``), out of core over each process's part files."""
-    if profile_dir is not None:
-        raise not_ported("device traces (--profile-dir)", "13")
+    ``cuda``), out of core over each process's part files. ``profile_dir``
+    traces the fit (``utils/profiling.profile_trace``)."""
     dev = resolve_device(device)
     if multihost:
         require_process_group()
     logger = logger or PhotonLogger(output_dir if is_output_process() else None)
     if streaming_chunk_rows is not None:
         return _run_streamed_game(config, train_data, output_dir, validation_data, streaming_chunk_rows,
-                                  logger, dev, multihost)
+                                  logger, dev, multihost, profile_dir)
     mesh = process_mesh(devices=None if dev == torch.device("cuda") else [dev]) if multihost else None
     # across processes the replicated batches stay on the host; each
     # process stages its shards on its cards
@@ -132,7 +136,7 @@ def run(
     # warm start: the saved run's entity maps keep the saved model's dense
     # entity rows valid; new entities get ids after them
     warm_tag_maps = _load_entity_maps(config.model_input_dir) if config.model_input_dir else None
-    with timed(logger, "read training data"):
+    with timed(logger, "read training data"), span("ingest/train-data"):
         train = reader.read(
             train_data, id_tags=id_tags, index_maps=prebuilt, entity_maps=warm_tag_maps,
             extend_entities=warm_tag_maps is not None, device=read_dev,
@@ -144,7 +148,7 @@ def run(
 
     val: GameDataset | None = None
     if validation_data:
-        with timed(logger, "read validation data"):
+        with timed(logger, "read validation data"), span("ingest/validation-data"):
             val = reader.read(
                 validation_data, id_tags=id_tags, index_maps=train.index_maps,
                 entity_maps=train.entity_maps, device=read_dev,
@@ -171,7 +175,7 @@ def run(
     estimator = GameEstimator(
         config, intercept_indices=train.intercept_indices, logger=logger, device=dev, mesh=mesh
     )
-    with timed(logger, "estimator grid fit"):
+    with timed(logger, "estimator grid fit"), profile_trace(profile_dir, "grid-fit"), span("train/grid-fit"):
         results = estimator.fit(
             train.batch,
             None if val is None else val.batch,
@@ -313,7 +317,7 @@ def _should_auto_stream(train_data: list[str], config: GameTrainingConfig, logge
 
 def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output_dir: str,
                        validation_data: list[str] | None, chunk_rows: int, logger: PhotonLogger,
-                       dev: torch.device, multihost: bool = False) -> GameModel:
+                       dev: torch.device, multihost: bool = False, profile_dir: str | None = None) -> GameModel:
     """The out-of-core branch: the statistics pass over every file, the
     host fill of the training and validation rows (across processes, each
     process's slice of the files), one streamed descent per grid (and
@@ -326,7 +330,7 @@ def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output
     reader = AvroDataReader(config.feature_shards or None)
     train_paths = _expand_part_files(train_data)
     warm_tag_maps = _load_entity_maps(config.model_input_dir) if config.model_input_dir else None
-    with timed(logger, "streaming stats pass (all files)"):
+    with timed(logger, "streaming stats pass (all files)"), span("ingest/stats-pass", files=len(train_paths)):
         index_maps, max_nnz, entity_maps, n_rows = reader.streaming_game_stats(
             train_paths, id_tags, entity_maps=warm_tag_maps
         )
@@ -343,15 +347,15 @@ def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output
         logger.info(f"this process fills {len(local_paths)}/{len(train_paths)} files")
     # a process without a file still builds its 0-row dataset: it takes
     # part in every collective of the trainer
-    with timed(logger, "fill pass"):
+    with timed(logger, "fill pass"), span("ingest/fill-pass", files=len(local_paths)):
         data = reader.read_streamed_game(local_paths, id_tags, index_maps, entity_maps, max_nnz=max_nnz,
                                          allow_empty=multihost)
     vdata = None
     if validation_data:
-        with timed(logger, "fill validation"):
-            vdata = reader.read_streamed_game(own(_expand_part_files(validation_data)), id_tags, index_maps,
-                                              entity_maps, max_nnz=max_nnz, unseen_entity_ok=True,
-                                              allow_empty=multihost)
+        local_val = own(_expand_part_files(validation_data))
+        with timed(logger, "fill validation"), span("ingest/fill-validation", files=len(local_val)):
+            vdata = reader.read_streamed_game(local_val, id_tags, index_maps, entity_maps, max_nnz=max_nnz,
+                                              unseen_entity_ok=True, allow_empty=multihost)
 
     initial_model = None
     if config.model_input_dir:
@@ -402,7 +406,9 @@ def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output
             intercept_indices=intercepts, logger=logger.info, multihost=multihost, checkpoint_dir=ck_dir,
             evaluators=specs if vdata is not None else (), num_entities=num_entities, device=dev,
         )
-        model, info = trainer.fit(data, validation=vdata, initial_model=initial_model)
+        weights = {cid: float(o.regularization_weight) for cid, o in configuration.items()}
+        with span("train/grid-entry", tag=tag, weights=weights):
+            model, info = trainer.fit(data, validation=vdata, initial_model=initial_model)
         primary = None
         if trainer.validation_history:
             (_, last), = trainer.validation_history[-1].items()
@@ -415,7 +421,8 @@ def _run_streamed_game(config: GameTrainingConfig, train_data: list[str], output
             best = entry  # the previous best's model and trainer go here
         return primary
 
-    with timed(logger, "streamed coordinate descent"):
+    with timed(logger, "streamed coordinate descent"), profile_trace(profile_dir, "streamed-game"), \
+            span("train/streamed-descent", grid_entries=len(grid)):
         for i, configuration in enumerate(grid):
             fit_entry(configuration, f"grid-{i:04d}")
         if config.hyperparameter_tuning_iters > 0:
@@ -575,9 +582,11 @@ def _parser() -> argparse.ArgumentParser:
         help="train in memory even when the input exceeds the device's memory budget",
     )
     p.add_argument("--profile-dir", default=None,
-                   help="device traces (ROADMAP queue 1 item 13; raises)")
+                   help="write torch.profiler traces (CPU and CUDA) of the fit into this directory")
     p.add_argument("--telemetry-dir", default=None,
-                   help="the run's telemetry JSONL (ROADMAP queue 1 item 13; raises)")
+                   help="write the run's telemetry JSONL (spans, per-iteration optimizer records, the "
+                        "metrics registry) into this directory; read it with the reference's "
+                        "photon-ml-tpu report")
     p.add_argument("--diagnostics", action="store_true",
                    help="write diagnostics.json and diagnostics.html beside the models")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -587,8 +596,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> None:
     args = _parser().parse_args(argv)
-    if args.telemetry_dir is not None:
-        raise not_ported("run telemetry (--telemetry-dir)", "13")
     config = load_training_config(args.config)
     train_data, validation_data = args.train_data, args.validation_data
     if args.train_date_range:
@@ -613,12 +620,18 @@ def main(argv: list[str] | None = None) -> None:
             and _should_auto_stream(train_data, config, logger, dev, has_validation=bool(validation_data))
         ):
             args.streaming_chunk_rows = 1 << 20
-        run(
-            config, train_data, args.output_dir, validation_data=validation_data,
-            index_map_dir=args.index_maps, logger=logger, profile_dir=args.profile_dir,
-            diagnostics=args.diagnostics, streaming_chunk_rows=args.streaming_chunk_rows,
-            multihost=args.multihost, device=dev,
-        )
+        # after the process group is up: process 0 writes (every process
+        # its shard under PHOTON_TELEMETRY_FLEET=1)
+        obs.configure(args.telemetry_dir)
+        try:
+            run(
+                config, train_data, args.output_dir, validation_data=validation_data,
+                index_map_dir=args.index_maps, logger=logger, profile_dir=args.profile_dir,
+                diagnostics=args.diagnostics, streaming_chunk_rows=args.streaming_chunk_rows,
+                multihost=args.multihost, device=dev,
+            )
+        finally:
+            obs.shutdown()
     finally:
         shutdown_multihost()
 

@@ -29,8 +29,14 @@ over all files, then chunks only its round-robin share of the part files
 (``host_shard_of_paths``). Each objective pass sums over the processes;
 validation files are read whole by every process, so the metrics agree.
 Only process 0 writes (models, report, summary, checkpoints, ``_stage``),
-and all processes meet at a closing barrier. ``--profile-dir`` and
-``--telemetry-dir`` are ROADMAP queue 1 item 13, and raise.
+and all processes meet at a closing barrier.
+
+``--telemetry-dir DIR`` writes the run's telemetry JSONL into ``DIR``
+(``obs``: the solvers' per-iteration records, the streamed passes, the
+kernels' analytic cost, the metrics registry; process 0 writes, or every
+process its own shard under ``PHOTON_TELEMETRY_FLEET=1``);
+``--profile-dir DIR`` traces the λ sweep with ``torch.profiler`` into
+``DIR/glm-sweep/`` (``DIR/glm-sweep-streamed/`` out of core).
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_glm \\
@@ -47,7 +53,7 @@ import os
 import numpy as np
 
 from photon_ml_tpu_torch._device import resolve_device
-from photon_ml_tpu_torch.cli.common import not_ported
+from photon_ml_tpu_torch import obs
 from photon_ml_tpu_torch.config import OptimizerConfig, RegularizationContext
 from photon_ml_tpu_torch.data.libsvm import read_libsvm
 from photon_ml_tpu_torch.data.summary import summarize, summarize_chunks
@@ -68,7 +74,7 @@ from photon_ml_tpu_torch.parallel.multihost import (
     sync_processes,
 )
 from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
-from photon_ml_tpu_torch.utils import PhotonLogger, timed
+from photon_ml_tpu_torch.utils import PhotonLogger, profile_trace, timed
 from photon_ml_tpu_torch.types import (
     DataValidationType,
     NormalizationType,
@@ -103,8 +109,6 @@ def run(
     profile_dir: str | None = None,
 ):
     _check_multihost(multihost, streaming_chunk_rows)
-    if profile_dir is not None:
-        raise not_ported("device traces (--profile-dir)", "13")
     if data_format not in ("libsvm", "avro"):
         raise ValueError(f"unknown --format {data_format!r}")
     if data_format == "libsvm" and (
@@ -141,7 +145,7 @@ def run(
             optimizer=optimizer, normalization=normalization,
             variance_computation=variance_computation, summarize_features=summarize_features,
             validate=validate, prior_model_path=prior_model_path, diagnostics=diagnostics,
-            multihost=multihost,
+            multihost=multihost, profile_dir=profile_dir,
         )
 
     advance("INIT")
@@ -189,7 +193,7 @@ def run(
     # layout decision after the validation and the summary (which read the raw rows)
     with timed(logger, "optimize batch layout"):
         batch = optimize_batch_layout(batch, hbm_budget_bytes=_hbm_budget_bytes(dev))
-    with timed(logger, "train"):
+    with timed(logger, "train"), profile_trace(profile_dir, "glm-sweep"):
         result = train_glm(
             batch,
             task,
@@ -261,6 +265,7 @@ def _run_streamed(
     prior_model_path: str | None = None,
     diagnostics: bool = False,
     multihost: bool = False,
+    profile_dir: str | None = None,
 ):
     """The out-of-core branch: the data are read into uniform chunks that
     live in host memory and stream through the device on every optimizer
@@ -337,7 +342,7 @@ def _run_streamed(
             prior_model = load_glm(prior_model_path, index_map=imap, num_features=imap.size, task=task,
                                    device=dev)
 
-    with timed(logger, "train (streamed)"):
+    with timed(logger, "train (streamed)"), profile_trace(profile_dir, "glm-sweep-streamed"):
         result = train_glm_streamed(
             chunks,
             task,
@@ -430,19 +435,25 @@ def main(argv: list[str] | None = None) -> None:
                         "command in each with JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and "
                         "JAX_PROCESS_ID set; each reads its share of the part files")
     p.add_argument("--profile-dir", default=None,
-                   help="device traces (ROADMAP queue 1 item 13; raises)")
+                   help="write torch.profiler traces (CPU and CUDA) of the λ sweep into this directory")
     p.add_argument("--telemetry-dir", default=None,
-                   help="the run's telemetry JSONL (ROADMAP queue 1 item 13; raises)")
+                   help="write the run's telemetry JSONL (spans, per-iteration optimizer records, the "
+                        "metrics registry) into this directory; read it with the reference's "
+                        "photon-ml-tpu report")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output-dir", required=True)
     args = p.parse_args(argv)
-    if args.telemetry_dir is not None:
-        raise not_ported("run telemetry (--telemetry-dir)", "13")
     if args.multihost:
         _check_multihost(True, args.streaming_chunk_rows)
         initialize_multihost()
     try:
-        _run_main(args)
+        # after the process group is up: process 0 writes (every process
+        # its shard under PHOTON_TELEMETRY_FLEET=1)
+        obs.configure(args.telemetry_dir)
+        try:
+            _run_main(args)
+        finally:
+            obs.shutdown()
     finally:
         shutdown_multihost()
 

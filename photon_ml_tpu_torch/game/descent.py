@@ -10,6 +10,10 @@ every visit. With a checkpoint directory the model, the scores and the
 total are saved after every outer iteration (``checkpoint.py``), and a
 rerun resumes at the next one.
 
+Telemetry (``obs``; no-ops with no sink): spans ``descent/iter`` →
+``descent/visit``, ``descent/validation`` and ``descent/checkpoint``, and
+a ``descent_iteration`` record after every outer iteration.
+
 With a data mesh (``parallel/mesh.py``) the coordinates solve and score
 over it, the (n,) vectors live on the mesh's head device, and validation
 takes the evaluators' sharded forms (``evaluate_all(mesh=)``). Across
@@ -31,6 +35,7 @@ from photon_ml_tpu_torch.evaluation import EvaluationResults, evaluate_all
 from photon_ml_tpu_torch.game.coordinate import Coordinate
 from photon_ml_tpu_torch.game.data import GameBatch
 from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.obs import emit_event, span
 from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh
 from photon_ml_tpu_torch.parallel.multihost import is_output_process
 from photon_ml_tpu_torch.types import TaskType
@@ -138,39 +143,44 @@ class CoordinateDescent:
         validate = self.validation_batch is not None and bool(self.evaluators)
         for it in range(start_iteration, num_iterations):
             iter_validation: dict[str, EvaluationResults] = {}
-            for cid in update_sequence:
-                coord = self.coordinates[cid]
-                offsets = total - scores[cid] if cid in scores else total
-                sub_model, tracker = coord.train(offsets, model.models.get(cid))
-                new_score = coord.score(sub_model)
-                total = offsets + new_score
-                scores[cid] = new_score
-                model = model.updated(cid, sub_model)
-                if trackers[cid]:
-                    # keep per-entity diagnostics of the latest visit only
-                    release = getattr(trackers[cid][-1], "release_device_diagnostics", None)
-                    if release is not None:
-                        release()
-                trackers[cid].append(tracker)
-                if validate:
-                    vb = self.validation_batch
-                    res = evaluate_all(
-                        self.evaluators, model.score(vb), vb.labels, vb.weights,
-                        group_ids=vb.id_tags, mesh=self.mesh,
-                    )
-                    iter_validation[cid] = res
-                    self._log(f"iter {it} coordinate {cid}: {res}")
-                else:
-                    self._log(f"iter {it} coordinate {cid}: trained")
-            validation_history.append(iter_validation)
-            if checkpoint_dir is not None and is_output_process():
-                from photon_ml_tpu_torch.checkpoint import save_checkpoint
+            with span("descent/iter", iteration=it):
+                for cid in update_sequence:
+                    coord = self.coordinates[cid]
+                    with span("descent/visit", iteration=it, coordinate=cid):
+                        offsets = total - scores[cid] if cid in scores else total
+                        sub_model, tracker = coord.train(offsets, model.models.get(cid))
+                        new_score = coord.score(sub_model)
+                        total = offsets + new_score
+                        scores[cid] = new_score
+                        model = model.updated(cid, sub_model)
+                        if trackers[cid]:
+                            # keep per-entity diagnostics of the latest visit only
+                            release = getattr(trackers[cid][-1], "release_device_diagnostics", None)
+                            if release is not None:
+                                release()
+                        trackers[cid].append(tracker)
+                    if validate:
+                        vb = self.validation_batch
+                        with span("descent/validation", iteration=it, coordinate=cid):
+                            res = evaluate_all(
+                                self.evaluators, model.score(vb), vb.labels, vb.weights,
+                                group_ids=vb.id_tags, mesh=self.mesh,
+                            )
+                        iter_validation[cid] = res
+                        self._log(f"iter {it} coordinate {cid}: {res}")
+                    else:
+                        self._log(f"iter {it} coordinate {cid}: trained")
+                validation_history.append(iter_validation)
+                emit_event("descent_iteration", iteration=it)
+                if checkpoint_dir is not None and is_output_process():
+                    from photon_ml_tpu_torch.checkpoint import save_checkpoint
 
-                save_checkpoint(
-                    checkpoint_dir, model, next_iteration=it + 1,
-                    fingerprint=checkpoint_fingerprint,
-                    scores=scores, total=total, data_digest=digest,
-                )
+                    with span("descent/checkpoint", iteration=it):
+                        save_checkpoint(
+                            checkpoint_dir, model, next_iteration=it + 1,
+                            fingerprint=checkpoint_fingerprint,
+                            scores=scores, total=total, data_digest=digest,
+                        )
         return CoordinateDescentResult(
             model=model, validation_history=validation_history, trackers=trackers,
             training_scores=scores,

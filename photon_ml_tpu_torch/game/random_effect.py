@@ -41,7 +41,11 @@ queue 1 item 12d.
 (the out-of-core trainer, ``game/streaming.py``, which gathers each
 bucket on the host every visit): the same lane solve, its results left
 on the card, and its launch counted in ``launch_counts`` with the
-iteration read deferred to one ``DeferredLaunchAccounting.flush``. The
+iteration read deferred to one ``DeferredLaunchAccounting.flush``. Both
+entry points count their launches into the metrics registry
+(``re_solve.launches``) and, while a telemetry sink is active or with
+``PHOTON_RE_ITER_ACCOUNTING=1``, the executed and useful entity
+iterations (``re_solve.*``); otherwise nothing is read back for them. The
 reference's compacted and fused launch schedules (ROADMAP queue 1 item
 15) raise when their knobs are set.
 """
@@ -61,6 +65,8 @@ from photon_ml_tpu_torch.config import OptimizerConfig
 from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets, Features
 from photon_ml_tpu_torch.game.projector import subspace_columns
 from photon_ml_tpu_torch.normalization import NormalizationContext
+from photon_ml_tpu_torch.obs import sink as obs_sink
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_lane_objective
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
@@ -328,7 +334,10 @@ def train_prepared(
     Gaussian MAP priors. The solver is ``select_minimize_fn(config,
     l1_weight)``'s, over each bucket's lanes. With ``mesh`` the buckets are
     ``prepare_buckets(mesh=)``'s shards, ``offsets`` lies on the mesh's
-    head device and the visit ends with one combine (``_combine_shards``)."""
+    head device and the visit ends with one combine (``_combine_shards``).
+    Every bucket solve counts ``re_solve.launches``; the entity-iteration
+    counts read the iterations back once, at the end, only while
+    ``iter_accounting_enabled``."""
     if norm is not None and any(pb.columns is not None for pb in prepared):
         # before any bucket solves, not data-dependently mid-loop
         raise NotImplementedError(
@@ -360,14 +369,21 @@ def train_prepared(
 
     kw = dict(loss=loss, config=config, intercept_index=intercept_index,
               variance_computation=variance_computation, minimize_fn=minimize_fn, minimize_kwargs=extra)
+    acct = DeferredLaunchAccounting()
     if mesh is None:
         diag = []
         for pb in prepared:
-            diag.append((pb.entity_ids, *_bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, **kw)))
+            step = _bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, **kw)
+            acct.add(step[1], pb.static.labels.shape[0])
+            diag.append((pb.entity_ids, *step))
     else:
-        diag = _combine_shards(as_process_mesh(mesh), W, V, [
-            (pb, _shard_step(W, offsets, pb, l2, norm, prior_mu, prior_var, **kw)) for pb in prepared
-        ])
+        solved = []
+        for pb in prepared:
+            step = _shard_step(W, offsets, pb, l2, norm, prior_mu, prior_var, **kw)
+            acct.add(step[3], pb.static.labels.shape[0])
+            solved.append((pb, step))
+        diag = _combine_shards(as_process_mesh(mesh), W, V, solved)
+    acct.flush()
     if norm is not None:
         W = norm.model_to_original_space(W)[0]
         if V is not None:
@@ -546,12 +562,26 @@ def _combine_shards(mesh: ProcessMesh, W: Tensor, V: Tensor | None, solved: list
 # ---------------------------------------------------------------------------
 # the eager bucket-solve entry point (the out-of-core trainer's)
 # ---------------------------------------------------------------------------
+# the lane solves since the last reset; the registry's ``re_solve.*``
+# counters take the same increments
 launch_counts = {"launches": 0, "executed_entity_iterations": 0, "useful_entity_iterations": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def iter_accounting_enabled() -> bool:
+    """Whether a lane solve's iterations are read back for the executed and
+    useful entity-iteration counts: a read of the card the solve loop does
+    not otherwise need, so it is on only while a telemetry sink is active
+    or with ``PHOTON_RE_ITER_ACCOUNTING=1`` (``=0`` forces it off), as in
+    the reference."""
+    env = os.environ.get("PHOTON_RE_ITER_ACCOUNTING")
+    if env is not None and env != "":
+        return int(env) != 0
+    return obs_sink.is_active()
 
 
 def _knob_waits_for_item_15(name: str) -> None:
@@ -565,31 +595,41 @@ def _knob_waits_for_item_15(name: str) -> None:
 
 class DeferredLaunchAccounting:
     """Launch accounting that never waits for the card inside a solve
-    loop: ``add`` counts the launch at once and keeps the per-lane
-    iteration tensor; ``flush`` reads every kept tensor back in one
-    transfer, after the loop has waited for its last solve anyway, and
-    adds executed (lanes × the slowest lane's iterations: the lanes step in
-    lock step) and useful (Σ iterations) entity iterations to
-    ``launch_counts``."""
+    loop: ``add`` counts the launch at once and, when
+    ``iter_accounting_enabled``, keeps the per-lane iteration tensor;
+    ``flush`` reads every kept tensor back in one transfer, after the loop
+    has waited for its last solve anyway, and adds executed (lanes × the
+    slowest lane's iterations: the lanes step in lock step) and useful (Σ
+    iterations) entity iterations to ``launch_counts`` and the registry
+    (``re_solve.*``, with the ``re_solve.active_lane_fraction`` gauge)."""
 
     def __init__(self) -> None:
         self._pending: list[tuple[Tensor, int]] = []
 
     def add(self, it_lane: Tensor, lanes: int) -> None:
         launch_counts["launches"] += 1
-        self._pending.append((it_lane, int(lanes)))
+        REGISTRY.counter_inc("re_solve.launches")
+        if iter_accounting_enabled():
+            self._pending.append((it_lane, int(lanes)))
 
     def flush(self) -> None:
         if not self._pending:
             return
-        its = torch.cat([torch.as_tensor(it).reshape(-1).long() for it, _ in self._pending]).cpu().numpy()
+        flat = [torch.as_tensor(it).reshape(-1).long() for it, _ in self._pending]
+        # one read-back: a mesh's shards meet on the first one's device first
+        its = torch.cat([t.to(flat[0].device) for t in flat]).cpu().numpy()
         lo = 0
         for it, lanes in self._pending:
             n = torch.as_tensor(it).numel()
             part = its[lo:lo + n]
             lo += n
-            launch_counts["executed_entity_iterations"] += int(part.max(initial=0)) * lanes
-            launch_counts["useful_entity_iterations"] += int(part.sum())
+            executed, useful = int(part.max(initial=0)) * lanes, int(part.sum())
+            launch_counts["executed_entity_iterations"] += executed
+            launch_counts["useful_entity_iterations"] += useful
+            REGISTRY.counter_inc("re_solve.executed_entity_iterations", float(executed))
+            REGISTRY.counter_inc("re_solve.useful_entity_iterations", float(useful))
+            if executed:
+                REGISTRY.gauge_set("re_solve.active_lane_fraction", useful / executed)
         self._pending.clear()
 
 

@@ -99,6 +99,7 @@ from photon_ml_tpu_torch.game.models import FixedEffectModel, GameModel, RandomE
 from photon_ml_tpu_torch.game.projector import RandomProjector, subspace_columns
 from photon_ml_tpu_torch.game.random_effect import DeferredLaunchAccounting, solve_bucket_lanes
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_ml_tpu_torch.obs import REGISTRY, emit_event, span
 from photon_ml_tpu_torch.ops import prefetch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances
 from photon_ml_tpu_torch.ops.losses import loss_for_task
@@ -909,9 +910,15 @@ class StreamedGameTrainer:
             dropped, total = int(counts[0]), int(counts[1])
             frac = dropped / total if total else 0.0
             fracs[tag] = frac
+            # the registry and the run's telemetry carry the count too
+            REGISTRY.gauge_set(f"game.grouped_dropped_frac.{tag}", frac)
+            emit_event("dropped_rows", tag=tag, dropped=dropped, total=total, fraction=frac)
             self._log(f"grouped metrics on tag {tag!r}: {dropped}/{total} validation rows ({frac:.1%}) "
                       "carry the -1 unseen-entity sentinel and are dropped")
             if frac >= self.GROUPED_DROPPED_WARN_FRACTION:
+                emit_event("log", level="WARN", tag=tag, fraction=frac,
+                           message=f"grouped metrics on tag {tag!r} drop {frac:.1%} of validation rows "
+                                   "(unseen-entity sentinel -1)")
                 warnings.warn(
                     f"grouped metrics on tag {tag!r} drop {frac:.1%} of validation rows (unseen-entity "
                     f"sentinel -1): the reported score covers only the remaining {total - dropped} rows "
@@ -1134,7 +1141,19 @@ class StreamedGameTrainer:
         data's dense entity ids; the driver pads new entities with zero
         rows), and its scores enter the residuals before the first visit,
         as in the in-memory descent. Across processes (``multihost``) every
-        process calls it with its own rows and gets the same model."""
+        process calls it with its own rows and gets the same model.
+
+        Telemetry (``obs``; no-ops with no sink): the span ``game/fit``
+        holds ``ingest/re-shard`` (a coordinate's entity layout and
+        exchange) and ``descent/iter`` → ``descent/visit``,
+        ``descent/validation``, ``descent/checkpoint``; a ``visit_result``
+        record follows every visit."""
+        with span("game/fit", rows=int(data.num_rows), chunk_rows=int(self.chunk_rows),
+                  coordinates=list(self.config.coordinate_update_sequence)):
+            return self._fit(data, validation, initial_model)
+
+    def _fit(self, data: StreamedGameData, validation: StreamedGameData | None,
+             initial_model: GameModel | None) -> tuple[GameModel, dict[str, StreamedCoordinateInfo]]:
         cfg = self.config
         n = data.num_rows
         self._entity_count_floor = dict(self._entity_count_base)
@@ -1156,8 +1175,10 @@ class StreamedGameTrainer:
         self.exchange_totals = {}
 
         # the entity exchange to the owners, once a fit
-        re_shards = {cid: self._build_re_shard(cid, data, row_base, row_layout)
-                     for cid in cfg.random_effect_coordinates}
+        re_shards = {}
+        for cid in cfg.random_effect_coordinates:
+            with span("ingest/re-shard", coordinate=cid):
+                re_shards[cid] = self._build_re_shard(cid, data, row_base, row_layout)
         fixed_w: dict[str, np.ndarray] = {}
         re_W: dict[str, np.ndarray] = {}
         re_E: dict[str, int] = {}
@@ -1298,65 +1319,77 @@ class StreamedGameTrainer:
 
         for it in range(start_it, cfg.coordinate_descent_iterations):
             ci0 = start_ci if it == start_it else 0
-            for ci in range(ci0, len(seq)):
-                cid = seq[ci]
-                offs = total - scores[cid]  # a fresh array: the chunk cache keys by storage
-                t_visit = time.perf_counter()
-                if cid in cfg.fixed_effect_coordinates:
-                    c = cfg.fixed_effect_coordinates[cid]
-                    w, new_scores, res, var = self._train_fixed(
-                        cid, data.feature_container(c.feature_shard_id), data, offs, c.optimization,
-                        fixed_w[cid], self.intercept_indices.get(c.feature_shard_id),
-                        norm=self._norm_contexts.get(c.feature_shard_id),
-                        compute_var=it == cfg.coordinate_descent_iterations - 1,
-                        prior=prior_fixed.get(cid),
-                    )
-                    fixed_w[cid] = w
-                    if var is not None:
-                        fixed_var[cid] = var
-                    info[cid] = StreamedCoordinateInfo(final_loss=float(res.value), iterations=int(res.iterations),
-                                                       converged=bool(res.converged))
-                    self.visit_stats.append(dict(iteration=it, coordinate=cid,
-                                                 solve_wall_s=time.perf_counter() - t_visit,
-                                                 objective_passes=res.objective_passes))
-                else:
-                    c = cfg.random_effect_coordinates[cid]
-                    shard = re_shards[cid]
-                    before = {k: dict(v) for k, v in self.exchange_totals.items()}
-                    loss_sum, max_it, conv, pipeline = self._solve_re_buckets(
-                        shard, self._offsets_to_owners(shard, offs, row_base), c.optimization, re_W[cid],
-                        None if cid in self._projectors else self.intercept_indices.get(c.feature_shard_id),
-                        norm=self._norm_contexts.get(c.feature_shard_id), V=re_V[cid],
-                        W_prior=re_W_prior.get(cid), V_prior=re_V_prior.get(cid),
-                    )
-                    if P > 1:
-                        # the owners' partial diagnostics: losses sum, iterations max, flags and
-                        agg = mh.allgather_host(np.asarray([loss_sum, max_it, 0.0 if conv else 1.0])).reshape(-1, 3)
-                        loss_sum, max_it = float(agg[:, 0].sum()), int(agg[:, 1].max())
-                        conv = bool((agg[:, 2] == 0).all())
-                    self.visit_stats.append(dict(iteration=it, coordinate=cid,
-                                                 solve_wall_s=time.perf_counter() - t_visit, **pipeline))
-                    new_scores = self._scores_to_origin(shard, self._score_re_rows(shard, re_W[cid]), n, row_base)
-                    if P > 1:
-                        self.visit_stats[-1].update(self._exchanges_since(before))
-                    info[cid] = StreamedCoordinateInfo(final_loss=loss_sum, iterations=max_it, converged=conv)
-                total = offs + new_scores
-                scores[cid] = new_scores
-                self._log(f"iter {it} coordinate {cid}: loss={info[cid].final_loss:.6g} "
-                          f"iterations={info[cid].iterations} converged={info[cid].converged}")
+            with span("descent/iter", iteration=it):
+                for ci in range(ci0, len(seq)):
+                    cid = seq[ci]
+                    with span("descent/visit", iteration=it, coordinate=cid):
+                        offs = total - scores[cid]  # a fresh array: the chunk cache keys by storage
+                        t_visit = time.perf_counter()
+                        if cid in cfg.fixed_effect_coordinates:
+                            c = cfg.fixed_effect_coordinates[cid]
+                            w, new_scores, res, var = self._train_fixed(
+                                cid, data.feature_container(c.feature_shard_id), data, offs, c.optimization,
+                                fixed_w[cid], self.intercept_indices.get(c.feature_shard_id),
+                                norm=self._norm_contexts.get(c.feature_shard_id),
+                                compute_var=it == cfg.coordinate_descent_iterations - 1,
+                                prior=prior_fixed.get(cid),
+                            )
+                            fixed_w[cid] = w
+                            if var is not None:
+                                fixed_var[cid] = var
+                            info[cid] = StreamedCoordinateInfo(final_loss=float(res.value),
+                                                               iterations=int(res.iterations),
+                                                               converged=bool(res.converged))
+                            self.visit_stats.append(dict(iteration=it, coordinate=cid,
+                                                         solve_wall_s=time.perf_counter() - t_visit,
+                                                         objective_passes=res.objective_passes))
+                        else:
+                            c = cfg.random_effect_coordinates[cid]
+                            shard = re_shards[cid]
+                            before = {k: dict(v) for k, v in self.exchange_totals.items()}
+                            loss_sum, max_it, conv, pipeline = self._solve_re_buckets(
+                                shard, self._offsets_to_owners(shard, offs, row_base), c.optimization, re_W[cid],
+                                None if cid in self._projectors else self.intercept_indices.get(c.feature_shard_id),
+                                norm=self._norm_contexts.get(c.feature_shard_id), V=re_V[cid],
+                                W_prior=re_W_prior.get(cid), V_prior=re_V_prior.get(cid),
+                            )
+                            solve_wall = time.perf_counter() - t_visit
+                            REGISTRY.timer_add("re_solve.visit_wall_s", solve_wall)
+                            if P > 1:
+                                # the owners' partial diagnostics: losses sum, iterations max, flags and
+                                agg = mh.allgather_host(
+                                    np.asarray([loss_sum, max_it, 0.0 if conv else 1.0])).reshape(-1, 3)
+                                loss_sum, max_it = float(agg[:, 0].sum()), int(agg[:, 1].max())
+                                conv = bool((agg[:, 2] == 0).all())
+                            self.visit_stats.append(dict(iteration=it, coordinate=cid,
+                                                         solve_wall_s=time.perf_counter() - t_visit, **pipeline))
+                            new_scores = self._scores_to_origin(shard, self._score_re_rows(shard, re_W[cid]), n,
+                                                                row_base)
+                            if P > 1:
+                                self.visit_stats[-1].update(self._exchanges_since(before))
+                            info[cid] = StreamedCoordinateInfo(final_loss=loss_sum, iterations=max_it, converged=conv)
+                        total = offs + new_scores
+                        scores[cid] = new_scores
+                    emit_event("visit_result", iteration=it, coordinate=cid, loss=info[cid].final_loss,
+                               iterations=info[cid].iterations, converged=info[cid].converged)
+                    self._log(f"iter {it} coordinate {cid}: loss={info[cid].final_loss:.6g} "
+                              f"iterations={info[cid].iterations} converged={info[cid].converged}")
 
-                if vstate is not None:
-                    res_v = self._validate_after_visit(cid, vstate, fixed_w, re_W)
-                    self.validation_history.append({cid: res_v})
-                    self._log(f"iter {it} coordinate {cid}: validation {res_v}")
+                    if vstate is not None:
+                        with span("descent/validation", iteration=it, coordinate=cid):
+                            res_v = self._validate_after_visit(cid, vstate, fixed_w, re_W)
+                        self.validation_history.append({cid: res_v})
+                        self._log(f"iter {it} coordinate {cid}: validation {res_v}")
 
-                visit_index = it * len(seq) + ci
-                if self.checkpoint_dir is not None and (visit_index + 1) % self.checkpoint_every_n_visits == 0:
-                    nxt_it, nxt_ci = (it, ci + 1) if ci + 1 < len(seq) else (it + 1, 0)
-                    self._save_visit_checkpoint(
-                        {"fixed_w": fixed_w, "re_W": re_W, "re_E": re_E, "fixed_var": fixed_var, "re_V": re_V},
-                        scores, total, nxt_it, nxt_ci, fingerprint, digest, row_base, n_global,
-                    )
+                    visit_index = it * len(seq) + ci
+                    if self.checkpoint_dir is not None and (visit_index + 1) % self.checkpoint_every_n_visits == 0:
+                        nxt_it, nxt_ci = (it, ci + 1) if ci + 1 < len(seq) else (it + 1, 0)
+                        with span("descent/checkpoint", iteration=it, coordinate=cid):
+                            self._save_visit_checkpoint(
+                                {"fixed_w": fixed_w, "re_W": re_W, "re_E": re_E, "fixed_var": fixed_var,
+                                 "re_V": re_V},
+                                scores, total, nxt_it, nxt_ci, fingerprint, digest, row_base, n_global,
+                            )
 
         model = self._assemble_model({"fixed_w": fixed_w, "re_W": re_W, "re_E": re_E, "fixed_var": fixed_var,
                                       "re_V": re_V})

@@ -8,6 +8,11 @@ of all the sources, the headers they include (``csrc/*.cuh``) and the
 flags, so editing any of them rebuilds it, and
 loaded with ``ctypes``. Nothing here runs at import: the CPU test suite
 imports every module on a machine with no ``nvcc``.
+
+A build's wall seconds go to the metrics registry's timer
+``cuda.build_s`` (the counterpart of the reference's XLA compile timer,
+``jax.compile_s``), so a run's telemetry shows what the first kernel call
+paid; a library already built costs nothing there.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -63,6 +69,7 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     procs: list[subprocess.Popen] = []
@@ -96,6 +103,9 @@ def build() -> Path:
                 p.kill()
                 p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+    from photon_ml_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.timer_add("cuda.build_s", time.perf_counter() - t0)
     return out
 
 

@@ -38,7 +38,11 @@ is read there, a Python number passes by value), allocates its output,
 and reuses the blocks' float64 partials, kept per device and stream.
 
 ``launch_counts`` counts the calls that launched each kernel (plain
-integers; ``reset_launch_counts`` zeroes them).
+integers; ``reset_launch_counts`` zeroes them). While device-cost capture
+is on (``obs/devcost``: a telemetry sink, or ``PHOTON_DEVCOST=1``), each
+wrapper records its call signature's analytic work once
+(``value_grad_cost`` / ``hvp_cost``: the bytes and operations the bound
+divides), on the card and on the CPU alike.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import NamedTuple
 
 import torch
 
+from photon_ml_tpu_torch.obs import devcost
 from photon_ml_tpu_torch.ops import _cuda
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
@@ -137,6 +142,33 @@ def inputs_aligned(*tensors: Tensor | None) -> bool:
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def _cost(n: int, d: int, x_itemsize: int, row_vectors: int, in_vectors: int, outputs: int,
+          flops_per_entry: float) -> dict:
+    """A one-pass kernel's analytic work: X and the (n,) row vectors read
+    once, the (d,) input vectors read once, the outputs written once."""
+    args = n * d * x_itemsize + 4 * n * row_vectors + 4 * d * in_vectors
+    return {"flops": flops_per_entry * n * d, "bytes_accessed": args + 4 * outputs,
+            "memory": {"argument_size_in_bytes": args, "output_size_in_bytes": 4 * outputs}}
+
+
+def value_grad_cost(n: int, d: int, x_itemsize: int, offsets: bool, weights: bool) -> dict:
+    """K1's work: X, labels (offsets, weights where read) and u read once;
+    the value, Xᵀr and Σr written once; 4·n·d operations (Xu and Xᵀr)."""
+    return _cost(n, d, x_itemsize, 1 + offsets + weights, 1, d + 2, 4.0)
+
+
+def hvp_cost(n: int, d: int, x_itemsize: int, offsets: bool, weights: bool) -> dict:
+    """K2's work: X, labels (offsets, weights where read), u and v read
+    once; Xᵀq and Σq written once; 6·n·d operations (Xu, Xv and Xᵀq)."""
+    return _cost(n, d, x_itemsize, 1 + offsets + weights, 2, d + 1, 6.0)
+
+
+def _capture(label: str, cost, X: Tensor, offsets: Tensor | None, weights: Tensor | None) -> None:
+    n, d = X.shape
+    devcost.capture(label, (X, offsets, weights),
+                    lambda: cost(n, d, X.element_size(), offsets is not None, weights is not None))
 
 
 def supports_fused(n: int, d: int, dtype) -> bool:
@@ -288,6 +320,8 @@ def fused_value_grad_in_layout(X, labels, offsets, weights, u, c, *, loss: Point
 
 
 def _value_grad(X, labels, offsets, weights, u, c, loss, layout: int | None):
+    if devcost.capture_enabled():
+        _capture("fused.value_grad", value_grad_cost, X, offsets, weights)
     device = X.device
     if device.type == "cpu":
         return fused_value_grad_reference(X, labels, offsets, weights, u, c, loss=loss)
@@ -319,6 +353,8 @@ def fused_hvp(X, labels, offsets, weights, u, v, c, cv, *, loss: PointwiseLoss):
     """One X-read Gauss-Newton Hv: (Xᵀq, Σq) with q = w·l''(m, y)·(X@v − cv)
     and m = X@u + offsets − c; ``offsets``/``weights`` may be None as in
     ``fused_value_grad``. Returns float32 (hv, q_sum)."""
+    if devcost.capture_enabled():
+        _capture("fused.hvp", hvp_cost, X, offsets, weights)
     device = X.device
     if device.type == "cpu":
         return fused_hvp_reference(X, labels, offsets, weights, u, v, c, cv, loss=loss)

@@ -50,11 +50,17 @@ Knobs, read from the environment at call time:
 memory). On the bf16 and int8 rungs of ``PHOTON_KERNEL_DTYPE`` the raw
 feature columns (``X``, ``values``) cross to the card in bfloat16.
 
-``stage_seconds`` holds the stages' wall seconds: ``host_pack_s`` (worker
-preparation besides the copies), ``device_put_s`` (staging and issuing
-copies) and ``consumer_wait_s`` (time the consumer waited for a prepared
-item); ``copied`` counts the arrays and bytes copied to a card.
-``reset_stage_seconds`` zeroes both.
+The stages' wall seconds are the metrics registry's timers
+``prefetch.host_pack_s`` (worker preparation besides the copies),
+``prefetch.device_put_s`` (staging and issuing copies) and
+``prefetch.consumer_wait_s`` (time the consumer waited for a prepared
+item), so they land in a run's telemetry; ``stage_seconds`` is a view of
+them by stage name. ``copied`` counts the arrays and bytes copied to a
+card. ``reset_stage_seconds`` zeroes both. The cache's registry counters
+are the reference's: ``prefetch.cache.hit_bytes`` (device hits, at the
+device size), ``host_hit_bytes``, ``miss_bytes`` (the staged bytes a
+miss copies) and ``evictions``, fed from the increments behind
+``cache_stats()``.
 """
 
 from __future__ import annotations
@@ -63,11 +69,15 @@ import os
 import threading
 import time
 from collections import OrderedDict, deque
+from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
+
+from photon_ml_tpu_torch.obs.metrics import REGISTRY as _REGISTRY
+from photon_ml_tpu_torch.utils import profiling
 
 _DEFAULT_PREFETCH_DEPTH = 2  # items prepared ahead of the consumer; 0 = synchronous
 # a minority of the card: the streamed paths run when the data exceed the
@@ -75,20 +85,39 @@ _DEFAULT_PREFETCH_DEPTH = 2  # items prepared ahead of the consumer; 0 = synchro
 _DEFAULT_HBM_FRACTION = 0.25
 _device_budget_memo: dict[str, int] = {}
 
-stage_seconds = {"host_pack_s": 0.0, "device_put_s": 0.0, "consumer_wait_s": 0.0}
+_STAGES = ("host_pack_s", "device_put_s", "consumer_wait_s")
 copied = {"arrays": 0, "bytes": 0}
 _stage_lock = threading.Lock()
 
 
+class _StageSeconds(Mapping):
+    """The stage timers by stage name (``host_pack_s``, ...): a read-only
+    view of the registry's ``prefetch.*`` timers."""
+
+    def __getitem__(self, name: str) -> float:
+        if name not in _STAGES:
+            raise KeyError(name)
+        t = profiling.counter_snapshot(f"prefetch.{name}").get(f"prefetch.{name}")
+        return 0.0 if t is None else t["seconds"]
+
+    def __iter__(self):
+        return iter(_STAGES)
+
+    def __len__(self) -> int:
+        return len(_STAGES)
+
+
+stage_seconds = _StageSeconds()
+
+
 def _add_seconds(name: str, dt: float) -> None:
-    with _stage_lock:
-        stage_seconds[name] += dt
+    profiling.add_seconds(f"prefetch.{name}", dt)
 
 
 def reset_stage_seconds() -> None:
+    for name in _STAGES:
+        profiling.reset_counters(f"prefetch.{name}")
     with _stage_lock:
-        for k in stage_seconds:
-            stage_seconds[k] = 0.0
         copied["arrays"] = copied["bytes"] = 0
 
 
@@ -355,6 +384,7 @@ def _evict_over_budget_locked(dev) -> None:
         _device_bytes -= nb_dev
         _device_host_bytes -= nb_extra + _unpin_base_locked(host_ref)
         _cache_stats["evictions"] += 1
+        _REGISTRY.counter_inc("prefetch.cache.evictions")
         if staged is host_ref:  # at its own dtype: nothing to keep
             continue
         nb_host = _pinned_nbytes(host_ref) + nb_extra
@@ -389,12 +419,17 @@ def _cached_put_one(name: str, a, dev: torch.device, consumer):
                 staged = spilled[1]
             else:
                 _cache_stats["misses"] += 1
+    # the registry's twins take their own (leaf) lock
     if hit is not None:
+        _REGISTRY.counter_inc("prefetch.cache.hit_bytes", hit[4])
         if consumer is not None:
             hit[2].record_stream(consumer)
         return hit[2], hit[3]
     if staged is None:
         staged = _pack_for_transfer(a) if packs else a
+        _REGISTRY.counter_inc("prefetch.cache.miss_bytes", _nbytes(staged))
+    else:
+        _REGISTRY.counter_inc("prefetch.cache.host_hit_bytes", _nbytes(staged))
     dev_t, ev = _copy_to(staged, dev, consumer)  # outside the lock: the expensive part
     nb_dev = dev_t.numel() * dev_t.element_size()
     nb_extra = _nbytes(staged) if staged is not a else 0  # a packed copy, beside the base

@@ -44,7 +44,9 @@ accumulates in float32.
 On a CPU tensor each direction runs the kernel's plain version
 (``tiled_apply_reference``: the same decode and products, sums in float64
 rounded once); on a CUDA tensor it launches the kernel or raises.
-``launch_counts`` counts kernel launches per direction.
+``launch_counts`` counts kernel launches per direction. While device-cost
+capture is on (``obs/devcost``), ``sparse_apply`` records each layout
+signature's analytic work once (``tiled_apply_cost``).
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ import os
 from dataclasses import dataclass
 
 import torch
+
+from photon_ml_tpu_torch.obs import devcost
 
 Tensor = torch.Tensor
 
@@ -396,11 +400,24 @@ def _check_kernel_layout(layout: SparseLayout) -> None:
                          "with tile_sparse_batch")
 
 
+def tiled_apply_cost(layout: SparseLayout, square: bool = False) -> dict:
+    """K3's work on one layout: its streams (offsets, read indices, values,
+    the int8 scale table) and the (read_len,) float32 source read once, the
+    (write_len,) output written once; 2 operations a nonzero (4 squared)."""
+    args = layout.stream_bytes() + 4 * layout.read_len
+    return {"flops": 2.0 * layout.nnz * (2 if square else 1), "bytes_accessed": args + 4 * layout.write_len,
+            "memory": {"argument_size_in_bytes": args, "output_size_in_bytes": 4 * layout.write_len}}
+
+
 def sparse_apply(layout: SparseLayout, src: Tensor, square: bool = False,
                  direction: str = "matvec") -> Tensor:
     """K3 over one layout: (write_len,) float32 from a (read_len,) source.
     A CPU source runs the plain version; a CUDA source launches the kernel
     (counted under ``direction``) or raises."""
+    if devcost.capture_enabled():
+        devcost.capture("sparse_tiled.tiled_apply",
+                        (layout.values, layout.read, layout.offsets, layout.scale, src, direction),
+                        lambda: tiled_apply_cost(layout, square))
     if src.device.type == "cpu":
         return tiled_apply_reference(layout, src, square)
     if src.device.type != "cuda":

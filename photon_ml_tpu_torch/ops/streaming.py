@@ -46,6 +46,7 @@ import torch
 
 from photon_ml_tpu_torch._device import resolve_device
 from photon_ml_tpu_torch.normalization import NormalizationContext, no_normalization
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.ops import prefetch, tile_cache
 from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch, SparseBatch, densify
 from photon_ml_tpu_torch.ops.fused import supports_fused
@@ -116,9 +117,12 @@ def device_hbm_budget_bytes(default: float = 8e9, fraction: float = 0.75, device
     ``device=None`` asks the current card; without CUDA, or on a CPU
     device, ``default``."""
     dev = torch.device(device if device is not None else "cuda" if torch.cuda.is_available() else "cpu")
-    if dev.type == "cuda":
-        return fraction * float(torch.cuda.get_device_properties(dev).total_memory)
-    return default
+    queried = dev.type == "cuda"
+    budget = fraction * float(torch.cuda.get_device_properties(dev).total_memory) if queried else default
+    from photon_ml_tpu_torch.obs import devcost
+
+    devcost.record_hbm_budget(budget, queried)
+    return budget
 
 
 def fits_in_memory(num_rows: int, num_features: int, itemsize: int = 4,
@@ -309,6 +313,11 @@ class StreamingGLMObjective:
 
     def _stream(self, kernel: Callable[[GLMObjective], object], accumulate: Callable, init):
         acc = init
+        if not self.chunks:  # a process without rows streams nothing
+            return acc
+        # one registry update a pass, none a chunk
+        REGISTRY.counter_inc("stream.passes")
+        REGISTRY.counter_inc("stream.chunks", len(self.chunks))
         for b in self._batches():
             acc = accumulate(acc, kernel(self._chunk_objective(b)))
         return acc

@@ -132,6 +132,9 @@ def tiled_layout_for(batch, fingerprint: tuple | None = None, device=None):
         with _lock:
             _stats["misses"] += 1
             prev = _entry_bytes.pop(key, None)
+            # the pack is accounted once per new entry: a racing miss on
+            # the same key packed the same layouts
+            record_pack = prev is None
             if prev is not None:  # a racing miss inserted this key first
                 _total_bytes -= prev
                 _entries.pop(key, None)
@@ -140,6 +143,10 @@ def tiled_layout_for(batch, fingerprint: tuple | None = None, device=None):
                 _entry_bytes[key] = nbytes
                 _total_bytes += nbytes
             _evict_over_limits_locked()
+        if record_pack:
+            from photon_ml_tpu_torch.obs import devcost
+
+            devcost.record_layout_pack(nbytes=nbytes, chunks=1)
     m, g = cached
     return st.TiledSparseBatch(
         m=m, g=g, labels=batch.labels, offsets=batch.offsets, weights=batch.weights,

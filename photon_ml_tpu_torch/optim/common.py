@@ -49,6 +49,23 @@ class OptimizationResult:
     def converged(self) -> bool:
         return self.reason != ConvergenceReason.MAX_ITERATIONS
 
+    def telemetry_record(self, **extra) -> dict:
+        """The solve as one JSON-plain telemetry record: the reason's enum
+        name, the iteration count, the final value and gradient norm (a
+        read-back each when they lie on the card: called only while a sink
+        is active), the objective passes where counted; ``extra`` tags it
+        (coordinate, λ, fold)."""
+        rec = {
+            "reason": ConvergenceReason(int(self.reason)).name,
+            "iterations": int(self.iterations),
+            "value": float(self.value),
+            "grad_norm": float(self.grad_norm),
+        }
+        if self.objective_passes is not None:
+            rec["objective_passes"] = int(self.objective_passes)
+        rec.update(extra)
+        return rec
+
 
 def grad_converged(g_norm: Tensor, g0_norm: Tensor, tolerance: float) -> bool:
     """Relative gradient-norm test: ||g|| <= tol·max(1, ||g0||)."""

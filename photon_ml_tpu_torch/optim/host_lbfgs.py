@@ -14,7 +14,9 @@ quadratic interpolation, OWL-QN's pseudo-gradient, orthant-constrained
 direction and sign-projected trial points, the same convergence tests and
 ``OptimizationResult``. The recursion runs in float64 numpy on the host,
 as in the reference; each evaluation reads the value and the gradient back
-once, as one float32 vector.
+once, as one float32 vector. Each iteration emits an ``optim_iter``
+telemetry record and each solve an ``optim_result`` (``obs``; no-ops with
+no sink).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.config import OptimizerConfig
+from photon_ml_tpu_torch.obs import REGISTRY, emit_event
 from photon_ml_tpu_torch.optim.common import ConvergenceReason, OptimizationResult
 
 _ARMIJO_C1 = 1e-4
@@ -49,10 +52,18 @@ def read_value_and_grad(objective: Any, w: np.ndarray, dev: torch.device) -> tup
     return float(host[0]), host[1:]
 
 
-def result_record(w, f, gnorm, it, reason, loss_hist, gnorm_hist, passes, dev) -> OptimizationResult:
+def result_record(w, f, gnorm, it, reason, loss_hist, gnorm_hist, passes, dev,
+                  algorithm: str) -> OptimizationResult:
+    """The solve's result on ``dev``, and its telemetry: the
+    ``optim.iterations`` histogram, the ``optim.reason.<NAME>`` counter and
+    one ``optim_result`` event (from the host's values: no read-back)."""
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
+    REGISTRY.histogram_observe("optim.iterations", it)
+    REGISTRY.counter_inc(f"optim.reason.{reason.name}")
+    emit_event("optim_result", algorithm=algorithm, reason=reason.name, iterations=int(it),
+               value=float(np.float32(f)), grad_norm=float(np.float32(gnorm)), objective_passes=int(passes))
     return OptimizationResult(
         w=f32(w), value=f32(f), grad_norm=f32(gnorm), iterations=int(it), reason=int(reason),
         loss_history=f32(loss_hist), grad_norm_history=f32(gnorm_hist), objective_passes=passes,
@@ -92,6 +103,7 @@ def host_lbfgs_minimize(
     history = config.history_length if history is None else history
     max_ls = config.max_line_search_steps
     use_l1 = l1_weight is not None
+    algorithm = "owlqn" if use_l1 else "lbfgs"
     l1w = np.asarray(l1_weight, np.float64) if use_l1 else None
     passes = 0
 
@@ -197,6 +209,8 @@ def host_lbfgs_minimize(
         it += 1
         gn = float(np.linalg.norm(pg))
         loss_hist[it], gnorm_hist[it] = f, gn
+        # one record an iteration (a no-op with no sink)
+        emit_event("optim_iter", algorithm=algorithm, it=it, loss=f, grad_norm=gn)
         if iteration_callback is not None:
             iteration_callback(it, w, f)
         if converged_grad(gn):
@@ -206,7 +220,7 @@ def host_lbfgs_minimize(
             reason = ConvergenceReason.OBJECTIVE_CONVERGED
             break
 
-    return result_record(w, f, np.linalg.norm(pg), it, reason, loss_hist, gnorm_hist, passes, dev)
+    return result_record(w, f, np.linalg.norm(pg), it, reason, loss_hist, gnorm_hist, passes, dev, algorithm)
 
 
 def host_owlqn_minimize(

@@ -7,7 +7,8 @@ loop over an objective whose every ``value_and_grad`` and ``hvp`` streams
 the data through the card (``StreamingGLMObjective``): one pass per outer
 evaluation plus one per CG step, the reference's cost model. The
 recursion runs in float64 numpy on the host; each evaluation is read back
-once.
+once. Its telemetry is ``host_lbfgs``'s (``optim_iter`` records, then
+``optim_result``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.config import OptimizerConfig
+from photon_ml_tpu_torch.obs import emit_event
 from photon_ml_tpu_torch.optim.common import ConvergenceReason, OptimizationResult
 from photon_ml_tpu_torch.optim.host_lbfgs import (
     objective_device,
@@ -137,6 +139,8 @@ def host_tron_minimize(
         gn = float(np.linalg.norm(g))
         it += 1
         loss_hist[it], gnorm_hist[it] = f, gn
+        # one record an iteration (a no-op with no sink)
+        emit_event("optim_iter", algorithm="tron", it=it, loss=f, grad_norm=gn, accepted=bool(accept))
         if iteration_callback is not None:
             iteration_callback(it, w, f)
 
@@ -149,4 +153,4 @@ def host_tron_minimize(
             reason = ConvergenceReason.OBJECTIVE_CONVERGED
             break
 
-    return result_record(w, f, np.linalg.norm(g), it, reason, loss_hist, gnorm_hist, passes, dev)
+    return result_record(w, f, np.linalg.norm(g), it, reason, loss_hist, gnorm_hist, passes, dev, "tron")

@@ -48,6 +48,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from photon_ml_tpu_torch.obs import devcost
+
 BACKEND = "gloo"
 # seconds a collective waits for the other processes before it raises
 DEFAULT_TIMEOUT_S = 600.0
@@ -328,7 +330,10 @@ def exchange_rows(arrays, dest: np.ndarray, tag: str = "") -> dict:
     uniform-block rule, so nothing pads to the largest block). ``tag``
     names the exchange in errors only. ``LAST_EXCHANGE_STATS`` records
     ``bytes_sent``, ``rows_sent``, ``padded_rows`` (the row slots moved,
-    summed over arrays: the payload) and ``transport``."""
+    summed over arrays: the payload) and ``transport``. While device-cost
+    capture is on, the exchange's bytes are recorded once per size
+    (``executable_cost`` label ``multihost.all_to_all``, as the
+    reference's all-to-all transport records its program)."""
     arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
     dest = np.asarray(dest, np.int64).reshape(-1)
     p = process_count()
@@ -360,6 +365,12 @@ def exchange_rows(arrays, dest: np.ndarray, tag: str = "") -> dict:
     recv = torch.empty(int(recv_rows.sum()) * width, dtype=torch.uint8)
     dist.all_to_all_single(recv, send, output_split_sizes=[int(r) * width for r in recv_rows],
                            input_split_sizes=[int(c) * width for c in counts])
+    # the exchange's bytes in the run's telemetry, once per (sent, received)
+    # size, recorded after the collective: no process waits on another's capture
+    devcost.capture("multihost.all_to_all", (send, recv),
+                    lambda: {"flops": 0.0, "bytes_accessed": float(send.numel() + recv.numel()),
+                             "memory": {"argument_size_in_bytes": send.numel(),
+                                        "output_size_in_bytes": recv.numel()}})
     raw = recv.numpy()
     out: dict[str, list[np.ndarray]] = {k: [] for k in keys}
     pos = 0

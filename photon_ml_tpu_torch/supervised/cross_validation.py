@@ -23,6 +23,7 @@ import torch
 from photon_ml_tpu_torch._device import check_device
 from photon_ml_tpu_torch.config import OptimizerConfig, RegularizationContext
 from photon_ml_tpu_torch.evaluation import DEFAULT_EVALUATOR_BY_TASK, make_evaluator
+from photon_ml_tpu_torch.obs import span
 from photon_ml_tpu_torch.ops import prefetch
 from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch, SparseBatch, optimize_batch_layout
 from photon_ml_tpu_torch.supervised.training import GLMTrainingResult, train_glm
@@ -108,21 +109,24 @@ def cross_validate_glm(
     metric_values: dict[float, list[float]] = {float(lam): [] for lam in regularization_weights}
 
     def ingest_fold(i):
-        train_rows = np.setdiff1d(perm, folds[i], assume_unique=True)
-        return _ingest_training_batch(_row_select(batch, train_rows))
+        # the span roots on the worker thread that gathers the fold
+        with span("ingest/cv-fold", fold=i):
+            train_rows = np.setdiff1d(perm, folds[i], assume_unique=True)
+            return _ingest_training_batch(_row_select(batch, train_rows))
 
     # one fold ahead at most: each item is a near-full training batch
     for i, train_batch in enumerate(
         prefetch.prefetch_iter(len(folds), ingest_fold, depth=min(prefetch.prefetch_depth(), 1))
     ):
-        result = train_glm(
-            train_batch, task, optimizer_config=optimizer_config, regularization=regularization,
-            regularization_weights=regularization_weights, normalization=normalization,
-            intercept_index=intercept_index, device=dev,
-        )
-        val = _row_select(batch, folds[i])
-        for lam, model in result.models.items():
-            metric_values[float(lam)].append(float(ev(model.score(val), val.labels, val.weights)))
+        with span("cv/fold", fold=i, k=k):
+            result = train_glm(
+                train_batch, task, optimizer_config=optimizer_config, regularization=regularization,
+                regularization_weights=regularization_weights, normalization=normalization,
+                intercept_index=intercept_index, device=dev,
+            )
+            val = _row_select(batch, folds[i])
+            for lam, model in result.models.items():
+                metric_values[float(lam)].append(float(ev(model.score(val), val.labels, val.weights)))
 
     best_weight = None
     best_mean = float("nan")
@@ -131,12 +135,13 @@ def cross_validate_glm(
         if best_weight is None or ev.better(m, best_mean):
             best_weight, best_mean = lam, m
 
-    final = train_glm(
-        _ingest_training_batch(batch), task, optimizer_config=optimizer_config,
-        regularization=regularization, regularization_weights=[best_weight],
-        normalization=normalization, intercept_index=intercept_index,
-        variance_computation=variance_computation, device=dev,
-    )
+    with span("cv/refit", weight=float(best_weight), k=k):
+        final = train_glm(
+            _ingest_training_batch(batch), task, optimizer_config=optimizer_config,
+            regularization=regularization, regularization_weights=[best_weight],
+            normalization=normalization, intercept_index=intercept_index,
+            variance_computation=variance_computation, device=dev,
+        )
     return CrossValidationResult(
         metric_values=metric_values, metric_name=ev.name, best_weight=best_weight, final=final,
     )

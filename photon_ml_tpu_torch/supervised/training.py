@@ -24,6 +24,8 @@ from photon_ml_tpu_torch.evaluation import (
 )
 from photon_ml_tpu_torch.models import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.normalization import NormalizationContext, require_intercept_for_shifts
+from photon_ml_tpu_torch.obs import emit_event, span
+from photon_ml_tpu_torch.obs import enabled as obs_enabled
 from photon_ml_tpu_torch.ops.batch import Batch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_objective
 from photon_ml_tpu_torch.ops.losses import loss_for_task
@@ -136,18 +138,22 @@ def train_glm(
     best_value = float("nan")
 
     for lam in sorted(regularization_weights):  # ascending, warm-started
-        obj = make_objective(
-            batch,
-            loss,
-            l2_weight=regularization.l2_weight(lam),
-            norm=normalization,
-            intercept_index=intercept_index,
-            prior=prior,
-            device=dev,
-        )
-        minimize_fn, extra = select_minimize_fn(optimizer_config, regularization.l1_weight(lam))
-        result = minimize_fn(obj, w, optimizer_config, **extra)
+        with span("glm/lambda", weight=float(lam)):
+            obj = make_objective(
+                batch,
+                loss,
+                l2_weight=regularization.l2_weight(lam),
+                norm=normalization,
+                intercept_index=intercept_index,
+                prior=prior,
+                device=dev,
+            )
+            minimize_fn, extra = select_minimize_fn(optimizer_config, regularization.l1_weight(lam))
+            result = minimize_fn(obj, w, optimizer_config, **extra)
         w = result.w  # warm start for the next λ (normalized space)
+        if obs_enabled():
+            # the device solvers' record reads the result back: only while a sink is active
+            emit_event("optim_result", weight=float(lam), **result.telemetry_record())
 
         variances = compute_variances(obj, result.w, variance_computation)
         w_model = result.w

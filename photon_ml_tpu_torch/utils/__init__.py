@@ -1,4 +1,4 @@
-"""Shared utilities: logging, stage timing, atomic file writes."""
+"""Shared utilities: logging, stage timing, device traces, atomic file writes."""
 
 from photon_ml_tpu_torch.utils.atomic_io import (  # noqa: F401
     atomic_replace,
@@ -6,3 +6,4 @@ from photon_ml_tpu_torch.utils.atomic_io import (  # noqa: F401
     atomic_savez,
 )
 from photon_ml_tpu_torch.utils.logging import PhotonLogger, timed  # noqa: F401
+from photon_ml_tpu_torch.utils.profiling import annotate, profile_trace  # noqa: F401

@@ -1,8 +1,8 @@
 """Leveled run logging and stage timers (port of
 ``photon_ml_tpu/utils/logging.py``): the reference's ``PhotonLogger`` (a
 leveled log file in the job's output directory) and ``Timed`` stage
-wrappers. The reference also sends WARN and ERROR lines to its telemetry
-sink; the port's telemetry waits for ROADMAP queue 1 item 13."""
+wrappers. WARN and ERROR lines also go to the run's telemetry JSONL as
+``log`` records (``obs.emit_log``) while a sink is active."""
 
 from __future__ import annotations
 
@@ -19,7 +19,11 @@ class PhotonLogger:
 
     Levels: DEBUG < INFO < WARN < ERROR. The instance is callable with a
     plain message (INFO), so it serves wherever a ``logger`` callback is
-    taken (the estimator, coordinate descent)."""
+    taken (the estimator, coordinate descent).
+
+    ``event_hook(level, message, fields)`` receives every WARN and ERROR
+    line with its keyword fields; ``None`` (the default) is the telemetry
+    sink's ``emit_log`` (a no-op with no sink), ``False`` turns it off."""
 
     LEVELS = {"DEBUG": 10, "INFO": 20, "WARN": 30, "ERROR": 40}
 
@@ -29,15 +33,17 @@ class PhotonLogger:
         level: str = "INFO",
         stream: TextIO | None = None,
         filename: str = "photon.log",
+        event_hook=None,
     ):
         self.level = self.LEVELS[level.upper()]
         self.stream = stream if stream is not None else sys.stderr
+        self._event_hook = event_hook
         self._path = None
         if output_dir is not None:
             os.makedirs(output_dir, exist_ok=True)
             self._path = os.path.join(output_dir, filename)
 
-    def log(self, level: str, msg: str) -> None:
+    def log(self, level: str, msg: str, **fields) -> None:
         if self.LEVELS[level] < self.level:
             return
         line = f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {level:5s} {msg}"
@@ -45,6 +51,17 @@ class PhotonLogger:
         if self._path is not None:
             with open(self._path, "a") as f:
                 print(line, file=f)
+        if self.LEVELS[level] >= self.LEVELS["WARN"]:
+            hook = self._event_hook
+            if hook is None:
+                from photon_ml_tpu_torch.obs import emit_log
+
+                hook = emit_log
+            if hook:
+                try:
+                    hook(level, msg, fields or None)
+                except Exception:
+                    pass  # telemetry never takes down the run it logs
 
     def debug(self, msg: str) -> None:
         self.log("DEBUG", msg)
@@ -52,11 +69,11 @@ class PhotonLogger:
     def info(self, msg: str) -> None:
         self.log("INFO", msg)
 
-    def warn(self, msg: str) -> None:
-        self.log("WARN", msg)
+    def warn(self, msg: str, **fields) -> None:
+        self.log("WARN", msg, **fields)
 
-    def error(self, msg: str) -> None:
-        self.log("ERROR", msg)
+    def error(self, msg: str, **fields) -> None:
+        self.log("ERROR", msg, **fields)
 
     def __call__(self, msg: str) -> None:
         self.info(msg)

@@ -325,12 +325,35 @@ def config_file(tmp_path):
     (["--telemetry-dir", "t"], "item 13"),
 ])
 def test_unported_train_flags_raise(tmp_path, data_dir, config_file, flags, item, monkeypatch):
+    """``--multihost`` outside a process group raises; ``--profile-dir``
+    and ``--telemetry-dir`` (ROADMAP item 13, ported) run and write a
+    profiler trace of the fit, or a valid telemetry run."""
     for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
+    monkeypatch.chdir(tmp_path)  # the flags' directories are relative
     argv = ["--config", str(config_file), "--train-data", str(data_dir / "train"),
+            "--validation-data", str(data_dir / "val.avro"),  # the streamed grid selects by it
             "--output-dir", str(tmp_path / "out"), "--device", "cpu", *flags]
-    with pytest.raises(RuntimeError if "--multihost" in flags else NotImplementedError, match=item):
-        port_train.main(argv)
+    if "--multihost" in flags:
+        with pytest.raises(RuntimeError, match=item):
+            port_train.main(argv)
+        return
+    port_train.main(argv)
+    assert (tmp_path / "out" / "best").is_dir()
+    _assert_item_13_outputs(tmp_path, flags, "streamed-game" if "--streaming-chunk-rows" in flags else "grid-fit",
+                            "train/grid-fit" if "--streaming-chunk-rows" not in flags else "train/streamed-descent")
+
+
+def _assert_item_13_outputs(tmp_path, flags, trace_label, span_name):
+    from photon_ml_tpu_torch.obs.report import load_run, validate_run
+
+    if "--profile-dir" in flags:
+        assert (tmp_path / "p" / trace_label / "trace.json").stat().st_size > 0
+    if "--telemetry-dir" in flags:
+        (run,) = [f for f in os.listdir(tmp_path / "t") if f.endswith(".jsonl")]
+        records = load_run(str(tmp_path / "t" / run))
+        assert validate_run(records) == []
+        assert span_name in {r["name"] for r in records if r["event"] == "span"}
 
 
 def test_tuning_and_auto_streaming_raise(tmp_path, data_dir, config_file, monkeypatch):
@@ -364,13 +387,22 @@ def test_tuning_and_auto_streaming_raise(tmp_path, data_dir, config_file, monkey
     (["--profile-dir", "p"], "item 13"),
     (["--telemetry-dir", "t"], "item 13"),
 ])
-def test_unported_score_flags_raise(tmp_path, trained, data_dir, flags, item, monkeypatch):
+def test_unported_score_flags_raise(tmp_path, trained, data_dir, config_file, flags, item, monkeypatch):
+    """``--multihost`` outside a process group raises; ``--profile-dir``
+    and ``--telemetry-dir`` (ROADMAP item 13, ported) run and write a
+    profiler trace of the scoring pass, or a valid telemetry run."""
     for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
+    monkeypatch.chdir(tmp_path)  # the flags' directories are relative
     argv = ["--model-dir", str(trained["out"] / "port"), "--data", str(data_dir / "val.avro"),
-            "--output-dir", str(tmp_path / "s"), "--device", "cpu", *flags]
-    with pytest.raises(RuntimeError if "--multihost" in flags else NotImplementedError, match=item):
-        port_score.main(argv)
+            "--output-dir", str(tmp_path / "s"), "--config", str(config_file), "--device", "cpu", *flags]
+    if "--multihost" in flags:
+        with pytest.raises(RuntimeError, match=item):
+            port_score.main(argv)
+        return
+    port_score.main(argv)
+    assert os.listdir(tmp_path / "s" / "scores")
+    _assert_item_13_outputs(tmp_path, flags, "score", "score/pass")
 
 
 def test_drivers_need_cuda_unless_cpu_is_asked(tmp_path, trained, data_dir, config_file, monkeypatch):

@@ -481,9 +481,12 @@ def test_fixed_visits_keep_the_feature_chunks_on_the_device(rng, monkeypatch):
 
 
 @pytest.mark.parametrize("solver", ["LBFGS", "NEWTON_CHOLESKY"])
-def test_solve_bucket_lanes_matches_reference(rng, solver):
+def test_solve_bucket_lanes_matches_reference(rng, solver, monkeypatch):
     """The eager bucket solve on one gathered bucket, against the
-    reference's ``solve_bucket_lanes`` (lane tolerance)."""
+    reference's ``solve_bucket_lanes`` (lane tolerance). The entity
+    iterations are counted with ``PHOTON_RE_ITER_ACCOUNTING=1`` (with no
+    telemetry sink the iterations are not read back for them)."""
+    monkeypatch.setenv("PHOTON_RE_ITER_ACCOUNTING", "1")
     X, Xr, ids, y, _ = _data(rng, n=200)
     grouping = jdata.group_by_entity(ids.astype(np.int64))
     buckets = jdata.bucket_entities(grouping, target_buckets=1, max_padded_ratio=1e6)

@@ -422,10 +422,17 @@ def test_driver_streamed_rejections_and_validation(tmp_path, monkeypatch):
         cli_main(base + ["--multihost"])  # no process group to join
     with pytest.raises(ValueError, match="--multihost requires --streaming-chunk-rows"):
         cli_main(base[:-4] + base[-2:] + ["--multihost"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cli_main(base + ["--profile-dir", "p"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cli_main(base + ["--telemetry-dir", "t"])
+    # ROADMAP item 13 is ported: the flags run, and write the sweep's
+    # profiler trace and a valid telemetry run
+    fresh = base[:-2] + ["--output-dir", str(tmp_path / "o-item13")]  # a fresh run: no resume
+    cli_main(fresh + ["--profile-dir", str(tmp_path / "p")])
+    assert (tmp_path / "p" / "glm-sweep-streamed" / "trace.json").stat().st_size > 0
+    cli_main(base[:-2] + ["--output-dir", str(tmp_path / "o-item13-t"), "--telemetry-dir", str(tmp_path / "t")])
+    from photon_ml_tpu_torch.obs.report import load_run, validate_run
+
+    (run,) = [f for f in os.listdir(tmp_path / "t") if f.endswith(".jsonl")]
+    records = load_run(str(tmp_path / "t" / run))
+    assert validate_run(records) == [] and any(r["event"] == "optim_result" for r in records)
     from photon_ml_tpu_torch.data.validation import DataValidationError
 
     y_bad = y.copy()
