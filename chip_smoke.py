@@ -105,7 +105,15 @@ Run from the root of a checkout. It builds the CUDA kernels from
    main_e_sharded, K1 = 2 x passes in each, each process's peak device
    memory below main_e's; the wall per outer iteration and each visit's
    seconds in gloo collectives and in the score row gather (and its
-   bytes);
+   bytes); then main_e_multihost_re_shard: main_e_multihost's layout with
+   PHOTON_RE_SHARD=1 at E's bench depth (2^18 rows, to keep the smoke in
+   its time; owned buckets: whole buckets placed over the two processes by
+   their rows, each solved by its owner on its first shard's device, one
+   host gather of the rows a visit): the ranks bitwise equal, train AUC
+   >= 0.95 x the generating model's, K1 = 2 x passes in each; the wall per
+   outer iteration and the combine's seconds and bytes a visit; and one
+   per-user visit on identical offsets solved owned across the processes
+   and without a mesh on the card, bit for bit;
 13. agreement_e: config E at bench.py's own shape (n = 2^18, 20,000 users
    and 4,000 items), 4 outer iterations on K1 and again with the kernels
    vetoed (which must launch none): |dAUC| <= 0.005 and relative d(training
@@ -174,6 +182,24 @@ Run from the root of a checkout. It builds the CUDA kernels from
    coordinate the ingest exchange's seconds and bytes, per visit the
    offset and score exchanges' seconds and bytes and the host gather
    seconds, and each process's peak device bytes and host RSS;
+15e. main_e_streamed_multihost_re_shard: 15d with PHOTON_RE_SHARD=1 in both
+   children: the entities placed by their rows (LPT over the allreduced
+   per-entity rows, the global capacity ladder), the offsets exchange
+   issued before each random-effect visit's solve and joined by its first
+   bucket gather, the scores exchange riding under the diagnostics
+   gather, both on the exchange worker's own gloo group. The ranks'
+   models bitwise equal; the random effects against 15d's within rtol
+   5e-3 / atol 1e-3 (15d's owners bucket their entities on capacity
+   ladders of their own rows, so lanes pad to other widths); against
+   main_e_streamed |dAUC| <= 0.005; K1 = the process's chunks x the fixed
+   effect's passes in each; per random effect the trainer's plan
+   (``trainer.placements``) the same on both ranks, its loads the global
+   rows of the owners it chose. It records the wall per outer iteration
+   beside 15d's and main_e_streamed's; per visit the offset and score
+   exchanges' seconds, bytes and blocked seconds, the owner's gather
+   seconds; the exchange timers and the overlap ratio; per random effect
+   the plan's balance and loads beside the balance ``e % 2`` gives the
+   same rows; peak device bytes;
 16. main_game_cli: config E at its bench depth (64 global features, 8 per
    user and 8 per item, 20,000 users and 4,000 items, Zipf 1.5; 2^18
    training and 2^16 validation rows), generated on the card and written as
@@ -312,7 +338,7 @@ fails its phase. The kernels are built once, before any child starts.
 Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
 E on L-BFGS, E projected, the GAME drivers, the six out-of-core
-phases, the seven data-parallel ones, the two out-of-core ones across
+phases, the eight data-parallel ones, the three out-of-core ones across
 processes and main_telemetry, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
@@ -363,10 +389,18 @@ from photon_ml_tpu_torch.evaluation import (
 )
 from photon_ml_tpu_torch.game import coordinate as game_coordinate
 from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
-from photon_ml_tpu_torch.game.data import SparseFeatures, capacity_classes, make_game_batch
+from photon_ml_tpu_torch.game.data import (
+    DenseFeatures,
+    SparseFeatures,
+    bucket_entities,
+    capacity_classes,
+    group_by_entity,
+    make_game_batch,
+)
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.game import random_effect as game_random_effect
 from photon_ml_tpu_torch.game.projector import RandomProjector
+from photon_ml_tpu_torch.game.random_effect import train_random_effects
 from photon_ml_tpu_torch.game.streaming import StreamedGameData, StreamedGameTrainer
 from photon_ml_tpu_torch.hyperparameter.tuning import tune_game_hyperparameters
 from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
@@ -387,11 +421,13 @@ from photon_ml_tpu_torch.parallel import DistributedTrainer, data_mesh, sharded_
 from photon_ml_tpu_torch.parallel.distributed import reduction_stats
 from photon_ml_tpu_torch.parallel.mesh import process_mesh
 from photon_ml_tpu_torch.parallel.multihost import (
+    allreduce_sum_host,
     collective_stats,
     initialize_multihost,
     reset_collective_stats,
     shutdown_multihost,
 )
+from photon_ml_tpu_torch.parallel.placement import plan_entity_placement, plan_from_owner
 from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
 from photon_ml_tpu_torch.transformers import GameTransformer
 from photon_ml_tpu_torch.types import (
@@ -1279,10 +1315,13 @@ def recording_visits():
 def _exchange_snapshot() -> dict:
     """The host collectives' running totals a data-mesh fit reads per visit:
     the shard reductions (``reduction_s``), every gloo collective
-    (``collective_s``) and the score row gathers (``score_exchange_*``)."""
+    (``collective_s``), the score row gathers (``score_exchange_*``) and the
+    owned-bucket combines (``combine_*``)."""
     return dict(reduction_s=reduction_stats["seconds"], collective_s=collective_stats["seconds"],
                 score_exchange_s=game_coordinate.score_exchange_stats["seconds"],
-                score_exchange_bytes=game_coordinate.score_exchange_stats["bytes"])
+                score_exchange_bytes=game_coordinate.score_exchange_stats["bytes"],
+                combine_s=game_random_effect.combine_stats["seconds"],
+                combine_bytes=game_random_effect.combine_stats["bytes"])
 
 
 def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None, validation=None, mesh=None) -> dict:
@@ -2757,6 +2796,56 @@ def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None,
     return results
 
 
+def placement_balances(trainer: StreamedGameTrainer, host: StreamedGameData, effects: dict,
+                       processes: int) -> dict:
+    """Per random effect: the balance (max / mean rows an owner) and the
+    loads of the plan the trainer placed its entities by
+    (``trainer.placements``), beside the balance the modular rule ``e % P``
+    gives the same rows, and whether the trainer's loads are the global
+    rows of the owners it chose (every process's rows counted here: a
+    collective)."""
+    out = {}
+    for tag in effects:
+        cid = f"per_{tag}"
+        plan = trainer.placements[cid]
+        counts = allreduce_sum_host(np.bincount(host.id_tags[tag], minlength=len(plan.owner)).astype(np.float64))
+        out[cid] = dict(planned=plan.balance, loads=plan.loads.tolist(),
+                        modular=plan_entity_placement(counts, processes, skew_aware=False).balance,
+                        loads_are_global_rows=bool(np.array_equal(
+                            plan_from_owner(plan.owner, counts, processes).loads, plan.loads)))
+    return out
+
+
+def owned_visit_bitwise(host, effects: dict, dev, mesh) -> dict:
+    """One per-user random-effect visit on identical seeded offsets (E's
+    Newton configuration, a cold start): owned buckets across the processes
+    (``mesh``, PHOTON_RE_SHARD=1; features on the host, each process staging
+    its own buckets) against the no-mesh solve with everything on the card.
+    Bit for bit, with each solve's seconds."""
+    tag = next(iter(effects))
+    cid = f"per_{tag}"
+    c = game_config(effects, 1).random_effect_coordinates[cid]
+    ids = host.id_tags[tag].numpy()
+    buckets = bucket_entities(group_by_entity(ids, num_entities=effects[tag][0]), c.sample_bucket_sizes,
+                              target_buckets=c.bucket_target_count, max_padded_ratio=c.bucket_max_padded_ratio)
+    gen = torch.Generator().manual_seed(21)
+    kw = dict(labels=host.labels, offsets=0.1 * torch.randn(host.num_rows, generator=gen), weights=host.weights,
+              buckets=buckets, num_entities=effects[tag][0], loss=LOSSES["logistic"], config=c.optimization.optimizer,
+              l2_weight=1.0)
+    out = {}
+    for name, feats, where in (("owned", host.features[cid], None),
+                               ("plain", DenseFeatures(X=host.features[cid].X.to(dev)), dev)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_random_effects(feats, mesh=mesh if where is None else None, device=where, **kw)
+        W = res.coefficients.cpu().numpy()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[name] = W
+    W_owned, W_plain = out.pop("owned"), out.pop("plain")
+    return dict(out, coordinate=cid, bitwise=W_owned.tobytes() == W_plain.tobytes(),
+                max_abs_diff=float(np.abs(W_owned - W_plain).max()))
+
+
 def _child(mode: str, rank: int, spec: dict) -> int:
     """One process of a multi-process phase (``run_children``), on the
     parent's device."""
@@ -2818,6 +2907,8 @@ def _child(mode: str, rank: int, spec: dict) -> int:
         t0 = time.perf_counter()
         batch, data = game_problem(dev, n, effects, seed=4)  # main_e's rows, drawn on the card
         host = batch.to("cpu")  # the replicated copy; the card keeps only this process's shards
+        # the quality check's inputs (main_e_multihost_re_shard, at bench depth), else nothing
+        kept = (batch, data) if spec.get("quality") else None
         del batch, data
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -2825,12 +2916,18 @@ def _child(mode: str, rank: int, spec: dict) -> int:
         out["data_s"] = time.perf_counter() - t0
         initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
         mesh = process_mesh(spec["local_shards"], devices=[dev])
+        game_random_effect.reset_combine_stats()
         fit = fit_game(host, game_config(effects, 6), dev, mesh=mesh)
         np.savez(os.path.join(work, f"rank{rank}.npz"),
                  **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["best"].model.models.items()})
         out.update(_game_record(fit, warmup=2), mesh=[str(d) for d in mesh.local],
                    global_shards=list(mesh.global_shards()), exchange_per_visit=_exchange_per_visit(fit, 2),
                    peak_device_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
+        if kept is not None:
+            out["quality"] = game_quality(fit, *kept)
+        if os.environ.get("PHOTON_RE_SHARD") == "1":
+            out.update(re_shard=REGISTRY.snapshot("re_shard.")["gauges"],
+                       re_visit=owned_visit_bitwise(host, effects, dev, mesh))
     elif mode == "e_streamed_multihost":
         n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
         E_STREAM_CHUNK = spec["chunk_rows"]
@@ -2849,6 +2946,10 @@ def _child(mode: str, rank: int, spec: dict) -> int:
         reset_collective_stats()
         fit = fit_streamed(host, game_config(effects, 2), dev, multihost=True)
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+        if os.environ.get("PHOTON_RE_SHARD") == "1":
+            out["re_shard"] = dict(placement=placement_balances(fit["trainer"], host, effects, spec["processes"]),
+                                   gauges=REGISTRY.snapshot("re_shard.")["gauges"],
+                                   timers=REGISTRY.timer_snapshot("re_exchange."))
         margins = score_streamed(fit["model"], host, dev)
         np.savez(os.path.join(work, f"rank{rank}.npz"), margins=margins.cpu().numpy(), labels=host.labels,
                  **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["model"].models.items()})
@@ -3065,6 +3166,46 @@ def run_e_multihost(dev, e_rec: dict, sharded: GameModel, card: str) -> dict:
         k1_launches_ok=all(c["launches"]["fused_value_grad"] == (E_SHARDS // 2) * c["fixed_objective_passes"] > 0
                            for c in kids),
         peak_below_main_e=all(c["peak_device_bytes"] < e_rec["max_memory_allocated_bytes"] for c in kids),
+    )
+
+
+def run_e_multihost_re_shard(dev, e_multi: dict, card: str) -> dict:
+    """main_e_multihost_re_shard: main_e_multihost's layout (two processes
+    x 2 local shards, E's Newton schedule over 6 outer iterations, the
+    first 2 a warm-up) with PHOTON_RE_SHARD=1 in both children, at E's
+    bench depth (2^18 rows) to keep the smoke inside its time: the random
+    effects in owned buckets, each whole bucket solved by the process the
+    row-balanced plan gives it, on its first shard's device, and every
+    bucket's rows, variances and diagnostics brought to every process by
+    one host gather a visit; the fixed effect over the 4-shard mesh. Held
+    to: the ranks bit for bit, train AUC >= 0.95 x the generating model's,
+    K1 = 2 x passes in each process, and one per-user visit on identical
+    offsets, owned across the processes against no mesh on the card, bit
+    for bit (``owned_visit_bitwise``)."""
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="_e_multihost-", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        kids = run_children("e_multihost", work, {"local_shards": E_SHARDS // 2, "shape": E_BENCH, "quality": True},
+                            dev, env={"PHOTON_RE_SHARD": "1"})
+        wall = time.perf_counter() - t0
+        arrays = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    visits = [c["re_visit"] for c in kids]
+    return dict(
+        card=card, n=E_BENCH[0], processes=2, local_shards=E_SHARDS // 2, phase_wall_s=wall,
+        launches={k: sum(c["launches"][k] for c in kids) for k in launch_counts()},
+        timed_wall_s_per_outer_iteration=max(c["timed_wall_s_per_outer_iteration"] for c in kids),
+        timed_wall_s_per_visit=[c["timed_wall_s_per_visit"] for c in kids],
+        main_e_multihost_n=E_ML20M[0],
+        main_e_multihost_timed_wall_s_per_outer_iteration=e_multi["timed_wall_s_per_outer_iteration"],
+        exchange_per_visit=[c["exchange_per_visit"] for c in kids], re_shard=[c["re_shard"] for c in kids],
+        peak_device_bytes=[c["peak_device_bytes"] for c in kids], quality=kids[0]["quality"],
+        models_bitwise_equal_across_ranks=all(arrays[0][c].tobytes() == arrays[1][c].tobytes() for c in arrays[0]),
+        k1_launches_ok=all(c["launches"]["fused_value_grad"] == (E_SHARDS // 2) * c["fixed_objective_passes"] > 0
+                           for c in kids),
+        owned_visit=visits, owned_visit_bitwise=all(v["bitwise"] for v in visits),
     )
 
 
@@ -3313,13 +3454,16 @@ def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: st
 
 def _visit_exchanges(visits: list) -> list:
     """Each random-effect visit's offset and score exchanges (seconds,
-    bytes sent) and its host gather seconds."""
-    keys = ("offsets_exchange_s", "offsets_exchange_bytes", "scores_exchange_s", "scores_exchange_bytes", "gather_s")
-    return [dict(iteration=v["iteration"], coordinate=v["coordinate"], **{k: v[k] for k in keys})
+    bytes sent, and under PHOTON_RE_SHARD the seconds the consumer blocked)
+    and its host gather seconds."""
+    keys = ("offsets_exchange_s", "offsets_exchange_bytes", "scores_exchange_s", "scores_exchange_bytes", "gather_s",
+            "offsets_wait_s", "scores_wait_s")  # the blocked seconds: the overlapped schedule only
+    return [dict(iteration=v["iteration"], coordinate=v["coordinate"], **{k: v[k] for k in keys if k in v})
             for v in visits if "offsets_exchange_s" in v]
 
 
-def run_e_streamed_multihost(dev, e_streamed: dict, e_model: GameModel, card: str) -> dict:
+def run_e_streamed_multihost(dev, e_streamed: dict, e_model: GameModel, card: str,
+                             env: dict | None = None) -> tuple[dict, dict]:
     """main_e_streamed_multihost: main_e_streamed's problem (config E at
     ML-20M depth, 2 outer iterations, chunks of 2^20 rows) in two processes
     of this script on the card, each drawing main_e's rows from the seed on
@@ -3327,12 +3471,15 @@ def run_e_streamed_multihost(dev, e_streamed: dict, e_model: GameModel, card: st
     ``StreamedGameTrainer(multihost=True)`` (each process streams its own
     chunks through K1 and the passes sum over gloo; each entity's rows
     travel to their owner once, and the offsets and scores every visit).
-    Held to main_e_streamed (one process, every row)."""
+    Held to main_e_streamed (one process, every row). ``env`` goes to the
+    children (main_e_streamed_multihost_re_shard's knob). Returns the
+    record and process 0's model arrays."""
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="_e_streamed_multihost-", dir=ROOT)
     try:
         t0 = time.perf_counter()
-        kids = run_children("e_streamed_multihost", work, {"shape": E_ML20M, "chunk_rows": E_STREAM_CHUNK}, dev)
+        kids = run_children("e_streamed_multihost", work, {"shape": E_ML20M, "chunk_rows": E_STREAM_CHUNK}, dev,
+                            env=env)
         wall = time.perf_counter() - t0
         arrays = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(2)]
     finally:
@@ -3346,7 +3493,7 @@ def run_e_streamed_multihost(dev, e_streamed: dict, e_model: GameModel, card: st
               for c in cids if c != "fixed"}
     launches = {k: sum(c["launches"][k] for c in kids) for k in launch_counts()}
     fixed_objective = kids[0]["fixed_objective"]
-    return dict(
+    rec = dict(
         card=card, processes=2, phase_wall_s=wall, launches=launches,
         rows=[c["rows"] for c in kids], chunks=[c["chunks"] for c in kids], data_s=[c["data_s"] for c in kids],
         wall_s=[c["wall_s"] for c in kids], iteration_wall_s=[c["iteration_wall_s"] for c in kids],
@@ -3371,7 +3518,34 @@ def run_e_streamed_multihost(dev, e_streamed: dict, e_model: GameModel, card: st
                            and c["launches"]["fused_value_grad"] == c["chunks"] * c["fixed_objective_passes"]
                            and not any(v for k, v in c["launches"].items() if k != "fused_value_grad")
                            for c in kids),
+        **({"re_shard": [c["re_shard"] for c in kids]} if env else {}),
     )
+    return rec, arrays[0]
+
+
+def run_e_streamed_multihost_re_shard(dev, e_streamed: dict, e_model: GameModel, off: dict, off_arrays: dict,
+                                      card: str) -> dict:
+    """main_e_streamed_multihost_re_shard: main_e_streamed_multihost with
+    PHOTON_RE_SHARD=1 in both children (skew-aware placement and the
+    overlapped exchanges), held to the knob-off arm ``off`` (its record and
+    process 0's model ``off_arrays``): the random effects within the
+    knob-off multi-process tolerance (rtol 5e-3 / atol 1e-3) and whether
+    they match bit for bit, and to main_e_streamed for AUC."""
+    rec, arrays = run_e_streamed_multihost(dev, e_streamed, e_model, card, env={"PHOTON_RE_SHARD": "1"})
+    random = {c: close(torch.from_numpy(arrays[c]).to(dev), torch.from_numpy(off_arrays[c]).to(dev), 5e-3, 1e-3)
+              for c in e_model.models if c != "fixed"}
+    per_visit = [[{k: v[k] for k in ("offsets_exchange_s", "offsets_wait_s", "scores_exchange_s", "scores_wait_s",
+                                     "gather_s")} for v in visits] for visits in rec["visit_exchanges"]]
+    rec.update(
+        knob_off_timed_wall_s_per_outer_iteration=off["timed_wall_s_per_outer_iteration"],
+        knob_off_visit_exchanges=off["visit_exchanges"], visit_seconds=per_visit,
+        random_effects_within_knob_off_tolerance=all(ok for ok, _ in random.values()),
+        max_abs_diff_random_effects_vs_knob_off={c: err for c, (_, err) in random.items()},
+        bitwise_equal_to_knob_off={c: arrays[c].tobytes() == off_arrays[c].tobytes() for c in e_model.models},
+        placement_ok=all(p["loads_are_global_rows"] and p == kid["placement"][c]
+                         for kid in rec["re_shard"] for c, p in rec["re_shard"][0]["placement"].items()),
+    )
+    return rec
 
 
 def run_game_cli_streamed(dev, data: GameCliData, card: str) -> dict:
@@ -3887,6 +4061,16 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_e_multihost failed: {failed}")
+    e_multi_rs = run_e_multihost_re_shard(dev, e_multi, smi)
+    emit("main_e_multihost_re_shard", **e_multi_rs)
+    failed = [name for name, ok in (
+        ("models_bitwise_equal_across_ranks", e_multi_rs["models_bitwise_equal_across_ranks"]),
+        ("quality", e_multi_rs["quality"]["quality_ok"]),
+        ("k1_launches", e_multi_rs["k1_launches_ok"]),
+        ("owned_visit_bitwise", e_multi_rs["owned_visit_bitwise"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_e_multihost_re_shard failed: {failed}")
     del e_sharded_model
     agree_e = agreement_e(dev)
     emit("agreement_e", **agree_e)
@@ -3931,8 +4115,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"main_e_streamed failed: {failed}")
     # the same problem in two processes, each holding half of the rows
-    e_streamed_multi = run_e_streamed_multihost(dev, e_streamed, e_streamed_model, smi)
-    del e_streamed_model
+    e_streamed_multi, off_arrays = run_e_streamed_multihost(dev, e_streamed, e_streamed_model, smi)
     emit("main_e_streamed_multihost", **e_streamed_multi)
     failed = [name for name, ok in (
         ("models_bitwise_equal_across_ranks", e_streamed_multi["models_bitwise_equal_across_ranks"]),
@@ -3943,6 +4126,20 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_e_streamed_multihost failed: {failed}")
+    # the same with skew-aware placement and the overlapped exchanges
+    e_streamed_rs = run_e_streamed_multihost_re_shard(dev, e_streamed, e_streamed_model, e_streamed_multi,
+                                                      off_arrays, smi)
+    del e_streamed_model, off_arrays
+    emit("main_e_streamed_multihost_re_shard", **e_streamed_rs)
+    failed = [name for name, ok in (
+        ("models_bitwise_equal_across_ranks", e_streamed_rs["models_bitwise_equal_across_ranks"]),
+        ("vs_knob_off", e_streamed_rs["random_effects_within_knob_off_tolerance"]),
+        ("placement", e_streamed_rs["placement_ok"]),
+        ("vs_main_e_streamed", e_streamed_rs["d_auc_vs_main_e_streamed"] <= 0.005),
+        ("k1_launches", e_streamed_rs["k1_launches_ok"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_e_streamed_multihost_re_shard failed: {failed}")
     solvers = agreement_e_solvers(dev, agree_e["fused"])
     emit("agreement_e_solvers", **solvers)
     ev = solvers["lbfgs"]["evaluators"]
@@ -4155,6 +4352,7 @@ def main() -> int:
                       "main_game_cli_streamed": game_streamed}
     # out of core across processes
     parallel_streamed_paths = {"main_e_streamed_multihost": e_streamed_multi,
+                               "main_e_streamed_multihost_re_shard": e_streamed_rs,
                                "main_game_cli_streamed_multihost": game_streamed_multi}
     # the drivers with run telemetry on
     telemetry_paths = {"main_telemetry": telemetry}
@@ -4162,7 +4360,7 @@ def main() -> int:
     parallel_paths = {"main_a_sharded": a_sharded, "main_a2_sharded": a2_sharded,
                       "main_f_multihost": f_multi, "main_glm_multihost_cli": glm_multihost,
                       "main_e_sharded": e_sharded, "main_e_multihost": e_multi,
-                      "main_game_multihost_cli": game_multihost}
+                      "main_e_multihost_re_shard": e_multi_rs, "main_game_multihost_cli": game_multihost}
 
     # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS,
     # E projected and the GAME drivers (each path counted from 0 just before it ran)

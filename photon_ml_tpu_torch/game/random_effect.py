@@ -33,9 +33,25 @@ Each process gathers and stages only its shards' lanes, each on its
 shard's device, and solves them with no collective; the solutions, the
 variances and the per-entity diagnostics of every process then meet in
 one host gather per visit, in rank order, and every process ends the
-visit with the same (E, d) matrix. The reference's entity-sharded
-placement (``PHOTON_RE_SHARD``) and capacity-class projection are ROADMAP
-queue 1 item 12d.
+visit with the same (E, d) matrix.
+
+``PHOTON_RE_SHARD=1`` with a mesh switches to owned buckets (the
+reference's owned-bucket mode): placement is decided before any staging,
+whole buckets balanced over the processes by Σ active rows
+(``_plan_bucket_owners``, LPT over ``plan_fusion_groups``' groups, the
+same plan on every process), and each process gathers, stages (on its
+first local device) and solves only the buckets it owns, whole. One host
+gather then brings every bucket's rows, variances and diagnostics to
+every process in bucket order (``_combine_owned``). A bucket solves
+exactly as without a mesh, so the result is bitwise the unsharded
+solve's on one process and across processes.
+
+Knobs that wait for other ROADMAP items raise when set: the capacity
+class projection (``PHOTON_RE_PROJECT``, item 12d-ii) everywhere; the
+sub-bucket split, its weight axis, the device split and the owner-segment
+combine (``PHOTON_RE_SPLIT``, ``PHOTON_RE_SPLIT_WEIGHT``,
+``PHOTON_RE_DEVICE_SPLIT``, ``PHOTON_RE_COMBINE=segments``, item 12d-iii)
+under a mesh and out of core (``refuse_waiting_knobs``).
 
 ``solve_bucket_lanes`` is the one-bucket entry point of eager callers
 (the out-of-core trainer, ``game/streaming.py``, which gathers each
@@ -55,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -67,11 +84,13 @@ from photon_ml_tpu_torch.game.projector import subspace_columns
 from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.obs import sink as obs_sink
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
+from photon_ml_tpu_torch.obs.spans import emit_event
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_lane_objective
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.optim.common import select_minimize_fn
 from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, shard_extent
+from photon_ml_tpu_torch.parallel.placement import plan_shard_placement, re_shard_enabled, record_placement_metrics
 from photon_ml_tpu_torch.types import VarianceComputationType
 
 Tensor = torch.Tensor
@@ -159,15 +178,19 @@ class PreparedBucket:
     the static features are already gathered to (k, C, p)."""
 
     entity_ids: np.ndarray  # (k,) entity ids (host)
-    ids: Tensor  # (k,) the same ids on the device (the (E, d) scatter key)
-    static: DenseBatch | SparseBatch  # (k, C, d) or (k, C, nnz) features, (k, C) columns
-    row_idx: Tensor  # (k, C) int64 row indices, padding clipped to 0
-    mask: Tensor  # (k, C) 1.0 where the slot holds a real row
+    # the device tensors; None on a bucket another process owns (owned mode)
+    ids: Tensor | None  # (k,) the same ids on the device (the (E, d) scatter key)
+    static: DenseBatch | SparseBatch | None  # (k, C, d) or (k, C, nnz) features, (k, C) columns
+    row_idx: Tensor | None  # (k, C) int64 row indices, padding clipped to 0
+    mask: Tensor | None  # (k, C) 1.0 where the slot holds a real row
     columns: Tensor | None = None  # (k, p) int64 per-entity column map
     # over a mesh: the bucket these lanes belong to and their global shard;
     # the first num_real of the shard's ⌈k/S⌉ lanes are real, the rest pad
     bucket: int = 0
     shard: int | None = None
+    # owned mode (PHOTON_RE_SHARD=1 over a mesh): the process that solves
+    # this whole bucket; None in the lane-sharded and unsharded schedules
+    owner: int | None = None
 
     @property
     def num_real(self) -> int:
@@ -244,11 +267,29 @@ def prepare_buckets(
     With ``mesh``, each bucket's lanes pad to a multiple of the global
     shard count and this process prepares only its shards' lanes, each on
     its shard's device (a shard with no real lane of a bucket gets none);
-    the features may then lie on the host."""
+    the features may then lie on the host. Under ``PHOTON_RE_SHARD=1`` a
+    mesh prepares owned buckets instead (module docstring): the buckets
+    this process owns whole, on its first local device, and host
+    bookkeeping only (entity ids, owner) for the rest."""
+    refuse_waiting_knobs(mesh is not None)
     dense = isinstance(features, DenseFeatures)
     src = (features.X if dense else features.values).device
     prepared = []
+    owners = None
+    if mesh is not None and re_shard_enabled():
+        pm = as_process_mesh(mesh)
+        # placement before any staging: device residency is O(owned buckets)
+        owners = _plan_bucket_owners(buckets, pm.process_count, pm.process_index)
     for b, (ent_ids, rows) in enumerate(zip(buckets.entity_ids, buckets.row_indices)):
+        if owners is not None:
+            owner = int(owners[b])
+            if owner != pm.process_index:
+                prepared.append(PreparedBucket(entity_ids=np.asarray(ent_ids), ids=None, static=None, row_idx=None,
+                                               mask=None, bucket=b, owner=owner))
+            else:
+                prepared.append(_prepare_one(features, labels, weights, ent_ids, rows, features_to_samples_ratio,
+                                             intercept_index, pm.head, bucket=b, owner=owner))
+            continue
         if mesh is None:
             prepared.append(_prepare_one(features, labels, weights, ent_ids, rows, features_to_samples_ratio,
                                          intercept_index, src))
@@ -334,7 +375,9 @@ def train_prepared(
     Gaussian MAP priors. The solver is ``select_minimize_fn(config,
     l1_weight)``'s, over each bucket's lanes. With ``mesh`` the buckets are
     ``prepare_buckets(mesh=)``'s shards, ``offsets`` lies on the mesh's
-    head device and the visit ends with one combine (``_combine_shards``).
+    head device and the visit ends with one combine (``_combine_shards``;
+    owned buckets: this process's solved as without a mesh, then
+    ``_combine_owned`` across processes).
     Every bucket solve counts ``re_solve.launches``; the entity-iteration
     counts read the iterations back once, at the end, only while
     ``iter_accounting_enabled``."""
@@ -370,7 +413,19 @@ def train_prepared(
     kw = dict(loss=loss, config=config, intercept_index=intercept_index,
               variance_computation=variance_computation, minimize_fn=minimize_fn, minimize_kwargs=extra)
     acct = DeferredLaunchAccounting()
-    if mesh is None:
+    if any(pb.owner is not None for pb in prepared):
+        # owned mode: this process's whole buckets, each as without a mesh
+        pm = as_process_mesh(mesh)
+        diag = [None] * len(prepared)
+        for i, pb in enumerate(prepared):
+            if pb.owner != pm.process_index:
+                continue  # another process's: its rows arrive in the combine
+            step = _bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, **kw)
+            acct.add(step[1], pb.static.labels.shape[0])
+            diag[i] = (pb.entity_ids, *step)
+        if pm.spans_processes:
+            diag = _combine_owned(pm, W, V, prepared, diag)
+    elif mesh is None:
         diag = []
         for pb in prepared:
             step = _bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, **kw)
@@ -557,6 +612,136 @@ def _combine_shards(mesh: ProcessMesh, W: Tensor, V: Tensor | None, solved: list
                 diag.append((where, ids, *(torch.as_tensor(t) for t in d)))
     diag.sort(key=lambda e: e[0])
     return [e[1:] for e in diag]
+
+
+# seconds, calls and bytes of the owned-bucket combines since the last reset
+combine_stats: dict = {"seconds": 0.0, "calls": 0, "bytes": 0}
+
+
+def reset_combine_stats() -> None:
+    combine_stats.update(seconds=0.0, calls=0, bytes=0)
+
+
+def _combine_owned(mesh: ProcessMesh, W: Tensor, V: Tensor | None, prepared: list, diag: list) -> list:
+    """The owned-bucket combine: every process's owned buckets' rows,
+    variances and diagnostics (final objective, iterations, reason,
+    objective passes) packed in bucket order into one dense buffer of Σ
+    lanes rows (zeros where another process owns the bucket), one host
+    gather of every process's buffer, then each other-owned bucket's rows
+    copied from its owner's buffer into W (and V) and its diagnostics
+    filled in. Each row is taken from its owner's buffer by overwrite,
+    never summed, so its bits arrive as the owner wrote them, -0.0
+    included. Returns the diagnostics, one entry per bucket."""
+    from photon_ml_tpu_torch.parallel.multihost import _gather_arrays
+
+    t0 = time.perf_counter()
+    ks = [pb.num_real for pb in prepared]
+    offs = np.concatenate([[0], np.cumsum(ks)]).astype(np.int64)
+    total, d = int(offs[-1]), int(W.shape[1])
+    Wc = np.zeros((total, d), np.float32)
+    Vc = np.zeros((total, d), np.float32) if V is not None else None
+    Dc = np.zeros((4, total), np.float64)  # final objective, iterations, reason, objective passes
+    own = [i for i, pb in enumerate(prepared) if pb.owner == mesh.process_index]
+    if own:
+        ids = torch.as_tensor(np.concatenate([prepared[i].entity_ids for i in own]), dtype=torch.int64,
+                              device=W.device)
+        W_own = W[ids].cpu().numpy()
+        V_own = None if V is None else V[ids].cpu().numpy()
+        D_own = torch.cat([torch.stack([t.double() for t in diag[i][1:]]) for i in own], dim=1).cpu().numpy()
+        lo = 0
+        for i in own:
+            a, b = int(offs[i]), int(offs[i + 1])
+            Wc[a:b] = W_own[lo:lo + b - a]
+            if Vc is not None:
+                Vc[a:b] = V_own[lo:lo + b - a]
+            Dc[:, a:b] = D_own[:, lo:lo + b - a]
+            lo += b - a
+    parts = [Wc, Dc] + ([] if Vc is None else [Vc])
+    gathered = _gather_arrays(parts)
+    nbytes = sum(a.nbytes for a in parts) * (mesh.process_count - 1)
+    out = list(diag)
+    for i, pb in enumerate(prepared):
+        if pb.owner == mesh.process_index:
+            continue
+        a, b = int(offs[i]), int(offs[i + 1])
+        got = gathered[pb.owner]
+        ids = torch.as_tensor(pb.entity_ids, dtype=torch.int64, device=W.device)
+        W[ids] = torch.from_numpy(got[0][a:b].copy()).to(W.device)
+        if V is not None:
+            V[ids] = torch.from_numpy(got[2][a:b].copy()).to(V.device)
+        Dg = got[1][:, a:b]
+        out[i] = (pb.entity_ids, torch.from_numpy(Dg[0].astype(np.float32)).to(W.device),
+                  *(torch.from_numpy(Dg[j].astype(np.int64)).to(W.device) for j in (1, 2, 3)))
+    seconds = time.perf_counter() - t0
+    combine_stats["seconds"] += seconds
+    combine_stats["calls"] += 1
+    combine_stats["bytes"] += nbytes
+    REGISTRY.counter_inc("re_combine.exchanges")
+    REGISTRY.counter_inc("re_combine.bytes_sent", float(nbytes))
+    emit_event("re_combine", mode="allgather", bytes_sent=int(nbytes), buckets_owned=len(own),
+               buckets=len(prepared), seconds=seconds)
+    return out
+
+
+def plan_fusion_groups(keys: list, lanes: list[int]) -> list[tuple[list[int], list[tuple[int, int, int]]]]:
+    """The launch-fusion bookkeeping (the reference's, which its fused
+    launch schedules and the owned-bucket placement share): an ordered
+    group-by of ``keys`` with each member's ``(index, lo, hi)`` lane range
+    in the group's concatenation, groups in first-seen key order. A bucket
+    of fewer than 2 lanes never joins a group: a 1-lane solve does not
+    give the bits of the same lane in a batch."""
+    groups: dict = {}
+    for i, key in enumerate(keys):
+        if lanes[i] < 2:
+            key = ("__solo__", i)
+        groups.setdefault(key, []).append(i)
+    plan = []
+    for idxs in groups.values():
+        members, lo = [], 0
+        for i in idxs:
+            members.append((i, lo, lo + lanes[i]))
+            lo += lanes[i]
+        plan.append((idxs, members))
+    return plan
+
+
+def _plan_bucket_owners(buckets: EntityBuckets, num_processes: int, process_index: int) -> np.ndarray:
+    """Whole-bucket owners over ``num_processes``, decided before any
+    staging: LPT over Σ active rows (Zipf traffic puts most rows behind a
+    few head entities, so counting buckets or entities would not balance),
+    the fusion groups (keyed by capacity, which fixes a bucket's geometry
+    before staging) placed whole. The same host arithmetic on the same
+    buckets on every process gives every process the same plan; its
+    gauges go to the registry (``record_placement_metrics``)."""
+    lanes = [len(e) for e in buckets.entity_ids]
+    rows = [int(np.sum(np.asarray(r) >= 0)) for r in buckets.row_indices]
+    keys = [int(np.asarray(r).shape[1]) for r in buckets.row_indices]
+    groups = [idxs for idxs, _ in plan_fusion_groups(keys, lanes)]
+    plan = plan_shard_placement(rows, num_processes, groups=groups)
+    record_placement_metrics(plan, shard=process_index, atoms=len(groups))
+    return plan.owner
+
+
+def refuse_waiting_knobs(placed: bool) -> None:
+    """Raise, naming the ROADMAP item, on a random-effect knob the port
+    does not have yet: ``PHOTON_RE_PROJECT`` (12d-ii) whenever it is set;
+    with ``placed`` (a mesh, or the out-of-core trainer) also
+    ``PHOTON_RE_SPLIT``, ``PHOTON_RE_DEVICE_SPLIT``,
+    ``PHOTON_RE_SPLIT_WEIGHT`` and ``PHOTON_RE_COMBINE`` at any value but
+    their defaults (12d-iii). Without this a set knob would be dropped
+    without a word and train another model than the reference's."""
+    waiting = {"PHOTON_RE_PROJECT": "12d-ii (capacity-class projection)"}
+    if placed:
+        waiting.update(dict.fromkeys(("PHOTON_RE_SPLIT", "PHOTON_RE_DEVICE_SPLIT", "PHOTON_RE_SPLIT_WEIGHT",
+                                      "PHOTON_RE_COMBINE"), "12d-iii (split, combine, device split)"))
+    defaults = {"PHOTON_RE_SPLIT_WEIGHT": "rows", "PHOTON_RE_COMBINE": "allreduce"}
+    for name, item in waiting.items():
+        value = os.environ.get(name)
+        if value not in (None, "", "0", defaults.get(name)):
+            raise NotImplementedError(
+                f"{name}={value} waits for ROADMAP queue 1 item {item}: the port does not read it yet, "
+                "and training without it would not be the reference's model (unset it)"
+            )
 
 
 # ---------------------------------------------------------------------------

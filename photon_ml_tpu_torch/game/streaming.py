@@ -1,6 +1,6 @@
 """Out-of-core GAME training: coordinate descent over host-resident data
-(port of ``photon_ml_tpu/game/streaming.py``: one process, and several
-with every fleet knob off).
+(port of ``photon_ml_tpu/game/streaming.py``: one process, and several,
+with skew-aware placement and its overlapped exchanges).
 
 The in-memory ``CoordinateDescent`` (``game/descent.py``) needs the whole
 ``GameBatch`` on the card. This trainer keeps the dataset in host memory
@@ -35,12 +35,26 @@ of the data, and no process holds the dataset.
 
 - The fixed effect streams each process's own chunks and sums every pass
   over the processes (``StreamingGLMObjective(cross_process=True)``).
-- Entity e belongs to process e % P. At set-up each random effect's rows
-  travel to their owners in rounds of ``chunk_rows`` rows of
-  ``exchange_rows`` (the number of rounds set by the largest process, so
-  an empty process takes part); the owner groups, buckets and solves its
-  entities. Every visit, the residual offsets flow to the owners and the
+- Entity e belongs to process e % P (``placement.modular_owner``). At
+  set-up each random effect's rows travel to their owners in rounds of
+  ``chunk_rows`` rows of ``exchange_rows`` (the number of rounds set by
+  the largest process, so an empty process takes part); the owner
+  groups, buckets and solves its entities. Every visit, the residual offsets flow to the owners and the
   scores flow back, point to point; nothing is broadcast.
+- ``PHOTON_RE_SHARD=1`` (``parallel/placement.py``) places entities by
+  their rows instead: one allreduced bincount gives the global rows per
+  entity, the global capacity ladder (so an entity's bucket capacity does
+  not depend on its owner) and the owners, by LPT. A one-entity bucket of
+  a larger global class solves beside one padding lane (the lane floor):
+  on the card a lane of a batch of two or more has the same bits in any
+  batch, and a batch of one gives others.
+  Each visit the offsets exchange is issued before the solve and joined
+  by the first bucket gather, and the scores exchange rides under the
+  diagnostics gather, both on the exchange worker
+  (``multihost.exchange_rows_async``). With
+  ``PHOTON_RE_REPLAN_IMBALANCE`` the owners are re-planned between outer
+  iterations from the measured solve walls (``_maybe_replan_re_shards``).
+  On one process the knob changes nothing.
 - Validation rows are routed the same way once; scalar metrics combine
   per-process partials (``evaluation/host_sharded.py``), grouped ones
   per-owner partials of complete groups, so no process gathers a global
@@ -60,9 +74,9 @@ down-sampling of the fixed effect, the incremental prior, warm starts and
 the subspace and random projections of random effects are supported, with
 the reference's construction-time rejections.
 
-The fleet knobs (skew-aware placement and its re-planner, the overlapped
-exchanges, device split, projection) and peer loss and rejoin are ROADMAP
-queue 1 item 12d, and the knobs raise naming it.
+Capacity-class projection (``PHOTON_RE_PROJECT``, ROADMAP queue 1 item
+12d-ii), the sub-bucket split and the device split (12d-iii) raise naming
+their items; peer loss and rejoin are item 12d-v.
 """
 
 from __future__ import annotations
@@ -97,7 +111,12 @@ from photon_ml_tpu_torch.game.data import (
 )
 from photon_ml_tpu_torch.game.models import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_tpu_torch.game.projector import RandomProjector, subspace_columns
-from photon_ml_tpu_torch.game.random_effect import DeferredLaunchAccounting, solve_bucket_lanes
+from photon_ml_tpu_torch.game.data import capacity_classes
+from photon_ml_tpu_torch.game.random_effect import (
+    DeferredLaunchAccounting,
+    refuse_waiting_knobs,
+    solve_bucket_lanes,
+)
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.obs import REGISTRY, emit_event, span
 from photon_ml_tpu_torch.ops import prefetch
@@ -106,20 +125,22 @@ from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks, stream_scores
 from photon_ml_tpu_torch.optim.common import select_minimize_fn
 from photon_ml_tpu_torch.parallel import multihost as mh
+from photon_ml_tpu_torch.parallel.placement import (
+    PlacementPlan,
+    measured_entity_costs,
+    modular_owner,
+    plan_entity_placement,
+    plan_from_owner,
+    re_shard_enabled,
+    record_placement_metrics,
+    replan_excluding,
+    replan_imbalance_threshold,
+)
 from photon_ml_tpu_torch.sampling import down_sample
 from photon_ml_tpu_torch.types import NormalizationType, VarianceComputationType
 from photon_ml_tpu_torch.utils.atomic_io import atomic_savez
 
 Tensor = torch.Tensor
-
-# the reference's fleet knobs: each changes how entities or buckets are
-# placed over processes or devices
-_FLEET_KNOBS = ("PHOTON_RE_SHARD", "PHOTON_RE_PROJECT", "PHOTON_RE_DEVICE_SPLIT")
-
-
-def _waits_for_item_12d(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for ROADMAP queue 1 item 12d (the fleet knobs)")
-
 
 @dataclass
 class StreamedGameData:
@@ -259,7 +280,7 @@ class _ReShard:
     processes they are the rows of the entities this process owns, after
     the exchange, and ``grow`` keys the per-visit exchanges."""
 
-    ent_local: np.ndarray  # (m,) int64 owner-local dense entity ids (global id // P)
+    ent_local: np.ndarray  # (m,) int64 owner-local dense entity ids (rank among owned_global)
     labels: np.ndarray  # (m,) float32
     weights: np.ndarray  # (m,) float32
     features: Features | None  # m rows, in the solve space (projected under a random projection)
@@ -277,14 +298,24 @@ class _ReShard:
     origin_grow: np.ndarray | None = None  # (n_kept,) this process's kept rows' global ids
     origin_dest: np.ndarray | None = None  # (n_kept,) each kept row's owner process
     owner_dest: np.ndarray | None = None  # (m,) each owned row's origin process
+    # each global entity's owner (the same map on every process: the
+    # modular rule, or skew-aware placement under PHOTON_RE_SHARD=1 across
+    # processes) and this process's owned ids, ascending (its local entity e
+    # is owned_global[e]); None only on a grouping route (_build_val_route)
+    entity_owner: np.ndarray | None = None  # (E,) int64
+    owned_global: np.ndarray | None = None  # (E_local,) int64
+    entity_rows: np.ndarray | None = None  # (E,) int64 global rows per entity, the plan's weights
+    # per bucket 1 where a one-entity bucket of a globally larger capacity
+    # class solves with one all-padding lane beside it: a one-lane solve
+    # does not give the bits of a lane in a batch
+    lane_floor_pad: tuple | None = None
 
 
-def _slice_owned_rows(M_full: np.ndarray, pid: int, P: int, limit: int | None = None) -> np.ndarray:
+def _slice_owned_rows(M_full: np.ndarray, shard: _ReShard) -> np.ndarray:
     """This process's rows of a global (E, d) matrix (a warm start, a prior,
-    a resume): owner p holds entities p, p + P, ... as its rows 0, 1, ....
-    Always a writable copy: the bucket solves write rows in place."""
-    out = M_full[pid::P] if P > 1 else M_full
-    return (out if limit is None else out[:limit]).copy()
+    a resume) in the shard's owner layout, its owned ids in order. Always a
+    writable copy: the bucket solves write rows in place."""
+    return M_full[shard.owned_global].copy()
 
 
 class StreamedGameTrainer:
@@ -315,7 +346,10 @@ class StreamedGameTrainer:
     0. ``exchange_totals`` holds the seconds, bytes sent and calls of each
     kind of row exchange (``ingest/<cid>``, ``validation/<cid>``,
     ``offsets``, ``scores``), and each random-effect visit's
-    ``visit_stats`` its offset and score exchanges'."""
+    ``visit_stats`` its offset and score exchanges'. Under skew-aware
+    placement ``placements`` holds each random effect's plan in force
+    (``PlacementPlan``: owners, Σ rows per owner, balance), the
+    re-planner's after a re-plan."""
 
     def __init__(
         self,
@@ -353,6 +387,10 @@ class StreamedGameTrainer:
         self._fixed_shards: dict[str, tuple] = {}
         self._norm_contexts: dict[str, Any] = {}
         self._projectors: dict[str, RandomProjector] = {}
+        self._re_layouts: dict[str, np.ndarray] = {}
+        self._re_solve_wall: dict[str, float] = {}
+        self._skew_aware = False
+        self.placements: dict[str, PlacementPlan] = {}
         has_projection = any(c.random_projection_dim is not None
                              for c in config.random_effect_coordinates.values())
         if has_projection and checkpoint_dir is not None:
@@ -415,22 +453,37 @@ class StreamedGameTrainer:
         tot["calls"] += 1
         return recv
 
-    def _exchange_to_owners(self, kind: str, arrays: dict[str, np.ndarray],
-                            row_layout: tuple[int, ...]) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
+    def _exchange_async(self, kind: str, arrays: dict, dest: np.ndarray, tag: str, finish) -> mh.ExchangeHandle:
+        """``multihost.exchange_rows_async`` with its host epilogue
+        ``finish(rows)``; when it is joined, the handle's worker seconds,
+        blocked seconds and bytes sent, and one call, go to
+        ``exchange_totals[kind]``."""
+        tot = self.exchange_totals.setdefault(kind, {"seconds": 0.0, "bytes": 0, "calls": 0})
+
+        def booked(recv, stats):
+            tot["seconds"] += stats["seconds"]
+            tot["wait_s"] = tot.get("wait_s", 0.0) + stats["wait_s"]
+            tot["bytes"] += int(stats["bytes_sent"])
+            tot["calls"] += 1
+            return finish(recv)
+
+        return mh.exchange_rows_async(arrays, dest, tag=tag, finish=booked)
+
+    def _exchange_to_owners(self, kind: str, arrays: dict[str, np.ndarray], row_layout: tuple[int, ...],
+                            entity_owner: np.ndarray) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
         """Every row of ``arrays`` (``ent``: the global entity id, ``grow``:
-        the global row id) at its entity's owner, ``ent`` % P, in rounds of
+        the global row id) at its entity's owner ``entity_owner[ent]``, in rounds of
         ``chunk_rows`` rows of ``exchange_rows`` (peak memory O(P · chunk),
         each row sent once). The largest process sets the number of rounds,
         so a process with fewer rows, or none, sends empty rounds and still
         takes part. Returns the owned rows (grouped by source process) and
         the routing of the per-visit exchanges (``_ReShard``'s fields)."""
-        P = mh.process_count()
         n = len(arrays["ent"])
         keep: dict[str, list[np.ndarray]] = {k: [] for k in arrays}
         for r in range(max(-(-max(row_layout) // self.chunk_rows), 1)):
             lo = min(r * self.chunk_rows, n)
             sub = {k: v[lo:lo + self.chunk_rows] for k, v in arrays.items()}
-            recv = self._exchange(kind, sub, sub["ent"] % P, tag=kind)
+            recv = self._exchange(kind, sub, entity_owner[sub["ent"]], tag=kind)
             for k, v in recv.items():
                 keep[k].append(v)
         owned = {k: np.concatenate(v) for k, v in keep.items()}
@@ -439,21 +492,58 @@ class StreamedGameTrainer:
         # an owned row's origin: the process whose global rows hold its id
         row_starts = np.concatenate([[0], np.cumsum(np.asarray(row_layout, np.int64))])
         route = dict(grow=grow, grow_sorted=grow[order], grow_order=order, origin_grow=arrays["grow"],
-                     origin_dest=arrays["ent"] % P,
+                     origin_dest=entity_owner[arrays["ent"]],
                      owner_dest=(np.searchsorted(row_starts, grow, side="right") - 1).astype(np.int64))
         return owned, route
 
+    def _plan_entities(self, cid: str, ids: np.ndarray, E: int, P: int, pid: int,
+                       entity_owner_override: np.ndarray | None) -> dict:
+        """The owners of a training shard's entities. The modular rule
+        (``modular_owner``) unless skew-aware placement is on
+        (``self._skew_aware``); then the global rows per entity from one
+        allreduced bincount, the global capacity ladder from them (so an
+        entity's bucket capacity does not depend on its owner or on P), and
+        the owners by LPT over the rows (``plan_entity_placement``), or the
+        re-planner's map ``entity_owner_override``. The same plan on every
+        process; its gauges go to the registry and the plan to
+        ``placements``."""
+        if not self._skew_aware:
+            owner = modular_owner(E, P)
+            return dict(entity_owner=owner, owned_global=np.flatnonzero(owner == pid))
+        c = self.config.random_effect_coordinates[cid]
+        counts = np.bincount(ids[ids >= 0], minlength=E).astype(np.float64)
+        counts_g = np.rint(mh.allreduce_sum_host(counts)).astype(np.int64)
+        active_g = counts_g if c.active_data_upper_bound is None else np.minimum(counts_g,
+                                                                                  c.active_data_upper_bound)
+        caps, pops = capacity_classes(active_g, c.sample_bucket_sizes, target_buckets=c.bucket_target_count,
+                                      max_padded_ratio=c.bucket_max_padded_ratio)
+        if entity_owner_override is not None:
+            plan = plan_from_owner(entity_owner_override, counts_g, P)
+        else:
+            plan = plan_entity_placement(counts_g, P)
+        record_placement_metrics(plan, shard=pid)
+        self.placements[cid] = plan
+        return dict(entity_owner=plan.owner, owned_global=np.flatnonzero(plan.owner == pid).astype(np.int64),
+                    entity_rows=counts_g, caps=caps, pops=pops)
+
     def _build_re_shard(self, cid: str, data: StreamedGameData, row_base: int = 0,
-                        row_layout: tuple[int, ...] | None = None, drop_unseen: bool = False) -> _ReShard:
+                        row_layout: tuple[int, ...] | None = None, drop_unseen: bool = False,
+                        reuse_layout: _ReShard | None = None,
+                        entity_owner_override: np.ndarray | None = None) -> _ReShard:
         """The coordinate's rows, grouped by entity and bucketed on the host
         (a training shard), or, with ``drop_unseen``, the validation rows of
         entities seen in training (ids >= 0; the others keep score 0).
         Across processes the rows first travel to their entities' owners
         (``row_base`` and ``row_layout``: ``_global_layout``'s), keeping
-        their global row ids, and the owner buckets its own entities."""
-        for knob in _FLEET_KNOBS:
-            if os.environ.get(knob) not in (None, "", "0"):
-                raise _waits_for_item_12d(f"{knob} (placement over processes or devices)")
+        their global row ids, and the owner buckets its own entities.
+
+        A training shard's owners come from ``_plan_entities`` (or the
+        re-planner's forced map ``entity_owner_override``), and under
+        skew-aware placement its buckets from the global capacity ladder,
+        with the lane floor; a validation shard follows its training
+        shard's owners (``reuse_layout``), since the coefficient rows are
+        laid out by them."""
+        refuse_waiting_knobs(placed=True)
         c = self.config.random_effect_coordinates[cid]
         feats = data.feature_container(c.feature_shard_id)
         ids = np.asarray(data.id_tags[c.random_effect_type], np.int64)
@@ -467,14 +557,23 @@ class StreamedGameTrainer:
         E = self._global_num_entities(ids, c.random_effect_type)
         pid, P = self._ranks()
         ent, E_local, route = ids, E, {"grow": rows}
+        if reuse_layout is not None:
+            if len(ids) and int(ids.max()) >= len(reuse_layout.entity_owner):
+                raise ValueError(f"coordinate {cid!r}: validation entity id {int(ids.max())} outside the training "
+                                 f"dictionary (E={len(reuse_layout.entity_owner)}); unseen entities must carry -1")
+            placed = dict(entity_owner=reuse_layout.entity_owner, owned_global=reuse_layout.owned_global)
+        else:
+            placed = self._plan_entities(cid, ids, E, P, pid, entity_owner_override)
         if P > 1:
             origin_grow = row_base + (np.arange(len(ids), dtype=np.int64) if rows is None else rows.astype(np.int64))
             arrays = {"ent": ids, "label": labels, "weight": weights, "grow": origin_grow,
                       **_feature_arrays(feats)}
             kind = f"{'validation' if drop_unseen else 'ingest'}/{cid}"
-            owned, route = self._exchange_to_owners(kind, arrays, row_layout)
+            owned, route = self._exchange_to_owners(kind, arrays, row_layout, placed["entity_owner"])
             labels, weights, feats = owned["label"], owned["weight"], _features_from_arrays(owned, feats)
-            ent, E_local = owned["ent"] // P, (E - pid + P - 1) // P
+            # owner-local id: the rank among this process's owned ids
+            ent = np.searchsorted(placed["owned_global"], owned["ent"]).astype(np.int64)
+            E_local = len(placed["owned_global"])
         if c.random_projection_dim is not None:
             # one shared projection, applied to the rows once: solves and
             # scores run projected, and the model maps back score-exactly
@@ -486,12 +585,22 @@ class StreamedGameTrainer:
                 self._projectors[cid] = proj
             feats = DenseFeatures(X=np.asarray(feats.X, np.float32) @ proj.matrix.numpy())
         shard = _ReShard(ent_local=ent, labels=labels, weights=weights, features=feats, num_entities=E,
-                         num_entities_local=E_local, buckets=None, **route)
+                         num_entities_local=E_local, buckets=None, **route,
+                         entity_owner=placed["entity_owner"], owned_global=placed["owned_global"],
+                         entity_rows=placed.get("entity_rows"))
         if drop_unseen:
             return shard
         grouping = group_by_entity(ent, num_entities=E_local, active_upper_bound=c.active_data_upper_bound)
-        shard.buckets = bucket_entities(grouping, c.sample_bucket_sizes, target_buckets=c.bucket_target_count,
+        caps = placed.get("caps")
+        shard.buckets = bucket_entities(grouping, caps if caps else c.sample_bucket_sizes,
+                                        target_buckets=c.bucket_target_count,
                                         max_padded_ratio=c.bucket_max_padded_ratio)
+        if caps:
+            population = dict(zip(caps, placed["pops"]))
+            shard.lane_floor_pad = tuple(
+                int(len(e) == 1 and population.get(int(r.shape[1]), 0) >= 2)
+                for e, r in zip(shard.buckets.entity_ids, shard.buckets.row_indices)
+            )
         if c.features_to_samples_ratio_upper_bound is not None and isinstance(feats, DenseFeatures):
             # each entity's column map, once per fit, from the rows its
             # owner holds: the visits' gathers then copy width-p rows only
@@ -513,15 +622,36 @@ class StreamedGameTrainer:
         effect has: each kept row's (entity id, label, global row id) goes
         to the entity's owner once, at set-up; every visit only the current
         total scores follow (``_offsets_to_owners``). A shard of grouping
-        columns, with nothing to solve."""
+        columns, with nothing to solve. No coefficient rows are laid out by
+        this tag, so its owners are the modular ones under every knob, as in
+        the reference, and its groups keep their global ids (the grouped
+        metrics read only their order)."""
         ids = np.asarray(validation.id_tags[tag], np.int64)
         keep = np.flatnonzero(ids >= 0)
         arrays = {"ent": ids[keep], "label": np.asarray(validation.labels, np.float32)[keep],
                   "grow": row_base + keep.astype(np.int64)}
-        owned, route = self._exchange_to_owners(f"validation/{tag}", arrays, row_layout)
-        return _ReShard(ent_local=owned["ent"] // mh.process_count(), labels=owned["label"],
+        owner = modular_owner(int(ids.max(initial=-1)) + 1, mh.process_count())
+        owned, route = self._exchange_to_owners(f"validation/{tag}", arrays, row_layout, owner)
+        return _ReShard(ent_local=owned["ent"], labels=owned["label"],
                         weights=np.ones(len(owned["grow"]), np.float32), features=None, num_entities=0,
                         num_entities_local=0, buckets=None, **route)
+
+    @staticmethod
+    def _offsets_payload(shard: _ReShard, offs_local: np.ndarray, row_base: int) -> dict:
+        """The owner-ward offsets exchange's rows, one definition for the
+        blocking and the overlapped schedule."""
+        return {"grow": shard.origin_grow, "off": offs_local[shard.origin_grow - row_base].astype(np.float32)}
+
+    @staticmethod
+    def _scatter_offsets(shard: _ReShard, recv: dict) -> np.ndarray:
+        """Each received value at its owned row's position, found by global row id."""
+        out = np.zeros(len(shard.grow), np.float32)
+        if len(shard.grow):
+            g = recv["grow"]
+            pos = np.minimum(np.searchsorted(shard.grow_sorted, g), len(shard.grow) - 1)
+            match = shard.grow_sorted[pos] == g
+            out[shard.grow_order[pos[match]]] = recv["off"][match]
+        return out
 
     def _offsets_to_owners(self, shard: _ReShard, offs_local: np.ndarray, row_base: int,
                            kind: str = "offsets") -> np.ndarray:
@@ -530,17 +660,16 @@ class StreamedGameTrainer:
         entity's owner only; on one process, the rows' own."""
         if not self._distributed():
             return offs_local if shard.grow is None else offs_local[shard.grow]
-        recv = self._exchange(kind, {"grow": shard.origin_grow,
-                                     "off": offs_local[shard.origin_grow - row_base].astype(np.float32)},
-                              shard.origin_dest, tag=kind)
-        # each received value at its owned row's position, found by global row id
-        out = np.zeros(len(shard.grow), np.float32)
-        if len(shard.grow):
-            g = recv["grow"]
-            pos = np.minimum(np.searchsorted(shard.grow_sorted, g), len(shard.grow) - 1)
-            match = shard.grow_sorted[pos] == g
-            out[shard.grow_order[pos[match]]] = recv["off"][match]
-        return out
+        recv = self._exchange(kind, self._offsets_payload(shard, offs_local, row_base), shard.origin_dest, tag=kind)
+        return self._scatter_offsets(shard, recv)
+
+    def _offsets_to_owners_async(self, shard: _ReShard, offs_local: np.ndarray,
+                                 row_base: int) -> mh.ExchangeHandle:
+        """The overlapped twin of ``_offsets_to_owners`` (``PHOTON_RE_SHARD=1``
+        across processes): issued here, joined by the visit's first bucket
+        gather; the same values."""
+        return self._exchange_async("offsets", self._offsets_payload(shard, offs_local, row_base),
+                                    shard.origin_dest, "offsets", lambda recv: self._scatter_offsets(shard, recv))
 
     def _scores_to_origin(self, shard: _ReShard, scores_re: np.ndarray, n_local: int, row_base: int,
                           kind: str = "scores") -> np.ndarray:
@@ -557,6 +686,19 @@ class StreamedGameTrainer:
                               tag=kind)
         out[recv["grow"] - row_base] = recv["score"]
         return out
+
+    def _scores_to_origin_async(self, shard: _ReShard, scores_re: np.ndarray, n_local: int,
+                                row_base: int) -> mh.ExchangeHandle:
+        """The overlapped twin of ``_scores_to_origin``: issued right after
+        the owner's scoring, joined after the visit's diagnostics
+        collective; the same values."""
+        def finish(recv):
+            out = np.zeros(n_local, np.float32)
+            out[recv["grow"] - row_base] = recv["score"]
+            return out
+
+        return self._exchange_async("scores", {"grow": shard.grow, "score": scores_re.astype(np.float32)},
+                                    shard.owner_dest, "scores", finish)
 
     def _gather_global(self, local: np.ndarray, row_base: int, n_global: int, collect: bool = True):
         """The global (n_global,) column from every process's rows (a
@@ -583,21 +725,24 @@ class StreamedGameTrainer:
             now, was = (t.get(kind, {"seconds": 0.0, "bytes": 0}) for t in (self.exchange_totals, before))
             out[f"{kind}_exchange_s"] = now["seconds"] - was["seconds"]
             out[f"{kind}_exchange_bytes"] = now["bytes"] - was["bytes"]
+            if "wait_s" in now:  # the overlapped schedule: the seconds its consumer blocked
+                out[f"{kind}_wait_s"] = now["wait_s"] - was.get("wait_s", 0.0)
         return out
 
-    def _full_re_matrix(self, W_local: np.ndarray, E: int) -> np.ndarray:
-        """The (E, d) matrix of every process's owned rows (owner p holds
-        entities p, p + P, ... as its rows 0, 1, ...), from one gather;
-        ``W_local`` itself on one process."""
+    def _full_re_matrix(self, W_local: np.ndarray, E: int, entity_owner: np.ndarray) -> np.ndarray:
+        """The (E, d) matrix of every process's owned rows (owner p holds the
+        ids ``entity_owner`` gives it, ascending, as its rows 0, 1, ...),
+        from one gather; ``W_local`` itself on one process."""
         if not self._distributed():
             return W_local
         P = mh.process_count()
-        padded = np.zeros((max(-(-E // P), 1), W_local.shape[1]), np.float32)
+        rows = int(np.bincount(entity_owner, minlength=P).max(initial=0))
+        padded = np.zeros((max(rows, 1), W_local.shape[1]), np.float32)
         padded[:len(W_local)] = W_local
         stacked = mh.allgather_host(padded)
         W = np.zeros((E, W_local.shape[1]), np.float32)
         for p in range(P):
-            own = np.arange(p, E, P)
+            own = np.flatnonzero(entity_owner == p)
             W[own] = stacked[p][:len(own)]
         return W
 
@@ -704,7 +849,7 @@ class StreamedGameTrainer:
             scores = stream_scores(full.chunks(offs), w, num_rows=n, num_features=d, device=self.device)
         return w, scores, res, None if var is None else var.detach().cpu().numpy().astype(np.float32)
 
-    def _solve_re_buckets(self, shard: _ReShard, offs_re: np.ndarray, opt: OptimizationConfig,
+    def _solve_re_buckets(self, shard: _ReShard, offs_re: np.ndarray | mh.ExchangeHandle, opt: OptimizationConfig,
                           W: np.ndarray, intercept_index: int | None, norm=None,
                           V: np.ndarray | None = None, W_prior: np.ndarray | None = None,
                           V_prior: np.ndarray | None = None) -> tuple[float, int, bool, dict]:
@@ -718,7 +863,13 @@ class StreamedGameTrainer:
         back with zeros outside the subspace. Returns (Σ per-entity final
         objective, most iterations of any entity, every entity converged,
         the bucket pipeline's record: buckets, host gather seconds, seconds
-        issuing the copies, bytes copied, result read-backs)."""
+        issuing the copies, bytes copied, result read-backs).
+
+        ``offs_re`` may be an offsets exchange in flight
+        (``_offsets_to_owners_async``): the first gather joins it. A bucket
+        with a lane-floor pad (``_ReShard.lane_floor_pad``) solves with one
+        all-padding lane (zero start, zero-mean unit-variance prior) whose
+        outputs are dropped."""
         loss = loss_for_task(self.config.task_type)
         l1 = opt.regularization.l1_weight(opt.regularization_weight)
         l2 = torch.as_tensor(opt.regularization.l2_weight(opt.regularization_weight), dtype=torch.float32,
@@ -728,7 +879,10 @@ class StreamedGameTrainer:
                                 else VarianceComputationType.NONE)
         buckets = shard.buckets
         sub_cols = shard.subspace_cols or (None,) * len(buckets.entity_ids)
-        units = list(zip(buckets.entity_ids, buckets.row_indices, sub_cols))
+        pads = shard.lane_floor_pad or (0,) * len(buckets.entity_ids)
+        units = [(ent, np.concatenate([rows, np.full((1, rows.shape[1]), -1, rows.dtype)]) if pad else rows, cols)
+                 for ent, rows, cols, pad in zip(buckets.entity_ids, buckets.row_indices, sub_cols, pads)]
+        offsets = offs_re.result if isinstance(offs_re, mh.ExchangeHandle) else (lambda: offs_re)
         dev = self.device
         consumer = prefetch.consumer_stream(dev)
         pin = dev.type == "cuda"
@@ -743,8 +897,11 @@ class StreamedGameTrainer:
             # reads ingest-time columns and this visit's offsets only, never
             # W, which collect() below writes in bucket order
             _, rows, cols = units[i]
+            offs = offsets()  # joins the exchange in flight: its wait is not the gather's
             t0 = time.perf_counter()
-            arrays = gather_bucket_host(shard.features, shard.labels, offs_re, shard.weights, rows,
+            if cols is not None and len(cols) < len(rows):  # the padding lane takes any columns
+                cols = np.concatenate([cols, cols[:1]])
+            arrays = gather_bucket_host(shard.features, shard.labels, offs, shard.weights, rows,
                                         columns=cols, pin_memory=pin)
             t1 = time.perf_counter()
             put = prefetch.device_put(arrays, dev, consumer)
@@ -782,6 +939,7 @@ class StreamedGameTrainer:
             ent_ids, _, cols = units[i]
             prefetch.wait(put, consumer)
             bucket = bucket_batch(put, d_full)
+            pad = pads[i]
             prior_mu = prior_var = None
             if W_prior is not None:
                 mu_rows = W_prior[ent_ids]
@@ -790,6 +948,10 @@ class StreamedGameTrainer:
                     mu_rows = np.take_along_axis(mu_rows, cols, axis=1)
                     if var_rows is not None:
                         var_rows = np.take_along_axis(var_rows, cols, axis=1)
+                if pad:
+                    mu_rows = np.concatenate([mu_rows, np.zeros((1, mu_rows.shape[1]), mu_rows.dtype)])
+                    if var_rows is not None:
+                        var_rows = np.concatenate([var_rows, np.ones((1, var_rows.shape[1]), var_rows.dtype)])
                 prior_mu = torch.as_tensor(mu_rows, dtype=torch.float32, device=dev)
                 if var_rows is not None:
                     prior_var = torch.as_tensor(var_rows, dtype=torch.float32, device=dev)
@@ -799,6 +961,8 @@ class StreamedGameTrainer:
             w0_rows = W[ent_ids]
             if cols is not None:
                 w0_rows = np.take_along_axis(w0_rows, cols, axis=1)
+            if pad:
+                w0_rows = np.concatenate([w0_rows, np.zeros((1, w0_rows.shape[1]), w0_rows.dtype)])
             w0 = torch.as_tensor(w0_rows, dtype=torch.float32, device=dev)
             if norm is not None:
                 w0 = norm.model_from_original_space(w0)
@@ -807,6 +971,8 @@ class StreamedGameTrainer:
                 config=opt.optimizer, intercept_index=b_intercept,
                 variance_computation=variance_computation, accounting=accounting, **extra,
             )
+            if pad:
+                out = tuple(t[:len(ent_ids)] for t in out)
             if pending is not None:
                 collect(*pending)  # waits for the previous bucket only
             pending = (i, ent_ids, cols, out)
@@ -816,6 +982,7 @@ class StreamedGameTrainer:
         pipeline = dict(buckets=len(units), gather_s=sum(gather_s), copy_issue_s=sum(issue_s),
                         bytes_copied=sum(nbytes), result_readbacks=agg["readbacks"])
         if not units:
+            offsets()  # a process that owns no bucket still joins its offsets exchange
             return 0.0, 0, True, pipeline
         loss_sum = 0.0
         for i in range(len(units)):
@@ -876,8 +1043,9 @@ class StreamedGameTrainer:
         for cid, c in cfg.random_effect_coordinates.items():
             E = model_state["re_E"][cid]
             V_local = re_V.get(cid)
-            W_out = t(self._full_re_matrix(model_state["re_W"][cid], E))
-            V_out = None if V_local is None else t(self._full_re_matrix(V_local, E))
+            owner = self._re_layouts[cid]
+            W_out = t(self._full_re_matrix(model_state["re_W"][cid], E, owner))
+            V_out = None if V_local is None else t(self._full_re_matrix(V_local, E, owner))
             if cid in self._projectors:
                 # back to the original feature space, score-exactly
                 W_out = self._projectors[cid].coefficients_to_original(W_out.cpu()).to(dev)
@@ -927,13 +1095,15 @@ class StreamedGameTrainer:
                 )
         return fracs
 
-    def _prepare_validation(self, validation: StreamedGameData) -> dict[str, Any]:
+    def _prepare_validation(self, validation: StreamedGameData,
+                            re_shards: dict[str, _ReShard]) -> dict[str, Any]:
         """Per-visit validation state: each fixed shard's chunks, each random
-        effect's validation shard, the running per-coordinate scores and
-        total, and what the evaluators read: on one process the columns on
-        the card, across processes the host columns and, per grouped id
-        tag, the shard whose owners hold each group whole (the tag's random
-        effect's, or a routing of its own)."""
+        effect's validation shard (routed by its training shard's owners,
+        ``re_shards``), the running per-coordinate scores and total, and
+        what the evaluators read: on one process the columns on the card,
+        across processes the host columns and, per grouped id tag, the shard
+        whose owners hold each group whole (the tag's random effect's, or a
+        routing of its own)."""
         cfg = self.config
         n = validation.num_rows
         _, val_base, val_layout = self._global_layout(n)
@@ -943,7 +1113,8 @@ class StreamedGameTrainer:
         base = np.zeros(n, np.float32) if validation.offsets is None else np.asarray(validation.offsets,
                                                                                      np.float32)
         state: dict[str, Any] = {
-            "n": n, "base": val_base, "fixed": {}, "re_shards": {}, "zeros": np.zeros(n, np.float32),
+            "n": n, "base": val_base, "layout": val_layout, "fixed": {}, "re_shards": {},
+            "zeros": np.zeros(n, np.float32),
             "scores": {cid: np.zeros(n, np.float32) for cid in cfg.coordinate_update_sequence},
             "total": base.copy(),
         }
@@ -951,7 +1122,8 @@ class StreamedGameTrainer:
             state["fixed"][cid] = _ChunkedShard(validation.feature_container(c.feature_shard_id), labels,
                                                 np.ones(n, np.float32), self.chunk_rows)
         for cid in cfg.random_effect_coordinates:
-            state["re_shards"][cid] = self._build_re_shard(cid, validation, val_base, val_layout, drop_unseen=True)
+            state["re_shards"][cid] = self._build_re_shard(cid, validation, val_base, val_layout, drop_unseen=True,
+                                                           reuse_layout=re_shards[cid])
         # in the evaluators' order: across processes each routing is a collective
         tags = list(dict.fromkeys(t for t in (make_evaluator(s).group_by for s in self.evaluators) if t))
         missing = sorted(t for t in tags if t not in validation.id_tags)
@@ -1054,6 +1226,8 @@ class StreamedGameTrainer:
         without scores, the commit point; gathered, process 0 alone
         collects every score (the others keep nothing) and writes one
         file."""
+        if self._distributed():
+            mh.drain_async_exchanges()
         model = self._assemble_model(model_state, device="cpu")
         meta = dict(fingerprint=fingerprint, data_digest=digest, next_iteration=next_iteration,
                     next_coordinate=next_coordinate)
@@ -1128,6 +1302,77 @@ class StreamedGameTrainer:
         except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
             return None
 
+    # -- the re-planner -----------------------------------------------------------
+    def _maybe_replan_re_shards(self, re_shards: dict, re_W: dict, re_V: dict, re_W_prior: dict,
+                                re_V_prior: dict, data: StreamedGameData, validation: StreamedGameData | None,
+                                vstate: dict | None, row_base: int, row_layout: tuple[int, ...],
+                                re_E: dict[str, int], iteration: int) -> None:
+        """Between outer iterations under ``PHOTON_RE_REPLAN_IMBALANCE``:
+        every process's random-effect solve wall of the iteration is
+        allgathered; where max / mean passes the threshold, the entities
+        are re-planned by LPT over their measured costs
+        (``measured_entity_costs``, ``replan_excluding`` with no lost
+        shard) and migrate before the next visit. The shard is rebuilt
+        through the ingest exchange under the new map, and ``W``, ``V``
+        and the priors move by a gather under the old layout and a slice
+        under the new: copies only, so the model stays bitwise the
+        unmigrated run's. Every input is the same on every process, so all
+        take the same decision. Off (threshold 0, one process, or the
+        knob off) it returns at once, with no collective."""
+        threshold = replan_imbalance_threshold()
+        if threshold <= 0.0 or not self._skew_aware:
+            self._re_solve_wall.clear()
+            return
+        P = mh.process_count()
+        for cid in self.config.random_effect_coordinates:
+            shard = re_shards[cid]
+            wall_local = self._re_solve_wall.pop(cid, 0.0)
+            walls = mh.allgather_host(np.asarray([wall_local], np.float64)).reshape(-1)
+            mean = float(walls.mean())
+            imbalance = float(walls.max()) / mean if mean > 0 else 1.0
+            REGISTRY.counter_inc("re_replan.checks")
+            REGISTRY.gauge_set("re_replan.last_imbalance", imbalance)
+            emit_event("re_replan_check", coordinate=cid, iteration=iteration, imbalance=imbalance,
+                       threshold=threshold, walls=[float(w) for w in walls])
+            if imbalance <= threshold:
+                continue
+            counts = shard.entity_rows
+            old_plan = plan_from_owner(shard.entity_owner, counts, P)
+            new_plan, migrated = replan_excluding(old_plan, [], measured_entity_costs(counts, shard.entity_owner,
+                                                                                      walls), survivors=range(P))
+            moved = int(migrated.sum())
+            if moved == 0:
+                emit_event("re_replan", coordinate=cid, iteration=iteration, imbalance=imbalance, migrated=0)
+                continue
+            mh.drain_async_exchanges()
+            with span("replan/migrate", coordinate=cid, iteration=iteration):
+                E, old = re_E[cid], shard.entity_owner
+                full = {name: self._full_re_matrix(M[cid], E, old)
+                        for name, M in (("W", re_W), ("V", re_V), ("Wp", re_W_prior), ("Vp", re_V_prior))
+                        if M.get(cid) is not None}
+                new_shard = self._build_re_shard(cid, data, row_base, row_layout,
+                                                 entity_owner_override=new_plan.owner)
+                re_shards[cid] = new_shard
+                self._re_layouts[cid] = new_shard.entity_owner
+                for name, M in (("W", re_W), ("V", re_V), ("Wp", re_W_prior), ("Vp", re_V_prior)):
+                    if name in full:
+                        M[cid] = _slice_owned_rows(full[name], new_shard)
+                if vstate is not None and validation is not None:
+                    # the validation rows follow the training owners, which just changed
+                    old_val = vstate["re_shards"][cid]
+                    vstate["re_shards"][cid] = self._build_re_shard(
+                        cid, validation, vstate["base"], vstate["layout"], drop_unseen=True, reuse_layout=new_shard)
+                    for tag, routed in vstate.get("owner_grouped", {}).items():
+                        if routed is old_val:
+                            vstate["owner_grouped"][tag] = vstate["re_shards"][cid]
+            REGISTRY.counter_inc("re_replan.count")
+            REGISTRY.counter_inc("re_replan.migrations", float(moved))
+            emit_event("re_replan", coordinate=cid, iteration=iteration, imbalance=imbalance, threshold=threshold,
+                       migrated=moved, old_balance=float(old_plan.balance), new_balance=float(new_plan.balance),
+                       walls=[float(w) for w in walls])
+            self._log(f"re-plan after iter {iteration}, coordinate {cid}: measured solve-wall imbalance "
+                      f"{imbalance:.2f}x > {threshold:.2f}x, migrating {moved} entities")
+
     # -- descent ------------------------------------------------------------------
     def fit(
         self,
@@ -1165,7 +1410,7 @@ class StreamedGameTrainer:
                     self._entity_count_floor[tag] = max(self._entity_count_floor.get(tag, 0),
                                                         int(sub.num_entities))
         n_global, row_base, row_layout = self._global_layout(n)
-        pid, P = self._ranks()
+        _, P = self._ranks()
         base = np.zeros(n, np.float32) if data.offsets is None else np.asarray(data.offsets, np.float32)
         self._norm_contexts = self._normalization_contexts(data)
         self._fixed_objectives = {}
@@ -1173,12 +1418,21 @@ class StreamedGameTrainer:
         self._projectors = {}
         self.visit_stats = []
         self.exchange_totals = {}
+        # per coordinate, this outer iteration's random-effect solve wall,
+        # which the re-planner reads between iterations
+        self._re_solve_wall: dict[str, float] = {}
+        # skew-aware placement, its overlapped exchanges and its re-planner
+        # (PHOTON_RE_SHARD=1); one process ignores the knob, as the reference does
+        self._skew_aware = P > 1 and re_shard_enabled()
+        self.placements = {}
 
         # the entity exchange to the owners, once a fit
         re_shards = {}
         for cid in cfg.random_effect_coordinates:
             with span("ingest/re-shard", coordinate=cid):
                 re_shards[cid] = self._build_re_shard(cid, data, row_base, row_layout)
+        # the owner layouts that assemble the (E, d) matrices
+        self._re_layouts = {cid: s.entity_owner for cid, s in re_shards.items()}
         fixed_w: dict[str, np.ndarray] = {}
         re_W: dict[str, np.ndarray] = {}
         re_E: dict[str, int] = {}
@@ -1221,7 +1475,7 @@ class StreamedGameTrainer:
                         # the warm start arrives in the original space; the
                         # descent runs projected (the in-memory contract)
                         W_full = W_full @ self._projectors[cid].matrix.numpy()
-                    re_W[cid] = _slice_owned_rows(W_full, pid, P, limit=len(re_W[cid]))
+                    re_W[cid] = _slice_owned_rows(W_full, re_shards[cid])
 
         # incremental training: the loaded model, held fixed, is every
         # visit's Gaussian MAP prior. Fixed priors stay in the original
@@ -1244,8 +1498,8 @@ class StreamedGameTrainer:
                     _require_prior_l2(cfg.random_effect_coordinates[cid].optimization)
                     V_loc = None
                     if cid not in self._projectors and sub.variances is not None:
-                        V_loc = _slice_owned_rows(sub.variances.detach().cpu().numpy().astype(np.float32), pid, P,
-                                                  limit=len(re_W[cid]))
+                        V_loc = _slice_owned_rows(sub.variances.detach().cpu().numpy().astype(np.float32),
+                                                  re_shards[cid])
                     c_norm = self._norm_contexts.get(cfg.random_effect_coordinates[cid].feature_shard_id)
                     pr = GaussianPrior.from_coefficients(
                         torch.as_tensor(re_W[cid], device=self.device),
@@ -1277,7 +1531,7 @@ class StreamedGameTrainer:
         vstate = None
         # no evaluators, no per-visit validation (the in-memory descent's contract)
         if validation is not None and self.evaluators:
-            vstate = self._prepare_validation(validation)
+            vstate = self._prepare_validation(validation, re_shards)
 
         seq = list(cfg.coordinate_update_sequence)
         start_it, start_ci = 0, 0
@@ -1299,9 +1553,9 @@ class StreamedGameTrainer:
                             fixed_var[cid] = v.numpy().astype(np.float32).copy()
                     elif cid in re_W:
                         # copies: the bucket solves write rows in place
-                        re_W[cid] = _slice_owned_rows(sub.coefficients.numpy().astype(np.float32), pid, P)
+                        re_W[cid] = _slice_owned_rows(sub.coefficients.numpy().astype(np.float32), re_shards[cid])
                         if sub.variances is not None and want_var:
-                            re_V[cid] = _slice_owned_rows(sub.variances.numpy().astype(np.float32), pid, P)
+                            re_V[cid] = _slice_owned_rows(sub.variances.numpy().astype(np.float32), re_shards[cid])
                 # a gathered checkpoint holds global columns, a score file this process's rows
                 lo = 0 if resume["scores_local"] else row_base
                 for cid in seq:
@@ -1347,26 +1601,43 @@ class StreamedGameTrainer:
                             c = cfg.random_effect_coordinates[cid]
                             shard = re_shards[cid]
                             before = {k: dict(v) for k, v in self.exchange_totals.items()}
+                            # the overlapped schedule (PHOTON_RE_SHARD=1 across processes): the
+                            # offsets exchange is issued here and joined by the first bucket
+                            # gather, the scores exchange rides under the diagnostics gather;
+                            # with the knob off, the blocking sequence
+                            overlap = self._skew_aware
+                            t_solve = time.perf_counter()
+                            offs_re = (self._offsets_to_owners_async(shard, offs, row_base) if overlap
+                                       else self._offsets_to_owners(shard, offs, row_base))
                             loss_sum, max_it, conv, pipeline = self._solve_re_buckets(
-                                shard, self._offsets_to_owners(shard, offs, row_base), c.optimization, re_W[cid],
+                                shard, offs_re, c.optimization, re_W[cid],
                                 None if cid in self._projectors else self.intercept_indices.get(c.feature_shard_id),
                                 norm=self._norm_contexts.get(c.feature_shard_id), V=re_V[cid],
                                 W_prior=re_W_prior.get(cid), V_prior=re_V_prior.get(cid),
                             )
-                            solve_wall = time.perf_counter() - t_visit
+                            solve_wall = time.perf_counter() - (t_solve if overlap else t_visit)
                             REGISTRY.timer_add("re_solve.visit_wall_s", solve_wall)
+                            self._re_solve_wall[cid] = self._re_solve_wall.get(cid, 0.0) + solve_wall
+                            pending = None
+                            if overlap:
+                                pending = self._scores_to_origin_async(shard, self._score_re_rows(shard, re_W[cid]),
+                                                                       n, row_base)
                             if P > 1:
                                 # the owners' partial diagnostics: losses sum, iterations max, flags and
                                 agg = mh.allgather_host(
                                     np.asarray([loss_sum, max_it, 0.0 if conv else 1.0])).reshape(-1, 3)
                                 loss_sum, max_it = float(agg[:, 0].sum()), int(agg[:, 1].max())
                                 conv = bool((agg[:, 2] == 0).all())
-                            self.visit_stats.append(dict(iteration=it, coordinate=cid,
-                                                         solve_wall_s=time.perf_counter() - t_visit, **pipeline))
-                            new_scores = self._scores_to_origin(shard, self._score_re_rows(shard, re_W[cid]), n,
-                                                                row_base)
+                            stats = dict(iteration=it, coordinate=cid, solve_wall_s=time.perf_counter() - t_visit,
+                                         **pipeline)
+                            if pending is not None:
+                                new_scores = pending.result()
+                            else:
+                                new_scores = self._scores_to_origin(shard, self._score_re_rows(shard, re_W[cid]), n,
+                                                                    row_base)
                             if P > 1:
-                                self.visit_stats[-1].update(self._exchanges_since(before))
+                                stats.update(self._exchanges_since(before))
+                            self.visit_stats.append(stats)
                             info[cid] = StreamedCoordinateInfo(final_loss=loss_sum, iterations=max_it, converged=conv)
                         total = offs + new_scores
                         scores[cid] = new_scores
@@ -1391,6 +1662,13 @@ class StreamedGameTrainer:
                                 scores, total, nxt_it, nxt_ci, fingerprint, digest, row_base, n_global,
                             )
 
+            if it + 1 < cfg.coordinate_descent_iterations:
+                # between outer iterations, so a migration lands at a visit boundary
+                self._maybe_replan_re_shards(re_shards, re_W, re_V, re_W_prior, re_V_prior, data, validation,
+                                             vstate, row_base, row_layout, re_E, it)
+
+        if self._distributed():
+            mh.drain_async_exchanges()
         model = self._assemble_model({"fixed_w": fixed_w, "re_W": re_W, "re_E": re_E, "fixed_var": fixed_var,
                                       "re_V": re_V})
         return model, info

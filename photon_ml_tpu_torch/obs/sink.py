@@ -153,14 +153,15 @@ def _process_count() -> int:
 
 def fleet_telemetry_enabled() -> bool:
     """``PHOTON_TELEMETRY_FLEET`` (a strict int parse: a typo raises).
-    Unset, it is off. The reference turns it on by default under
-    ``PHOTON_RE_SHARD``, the sharded random-effect schedule whose
-    telemetry lives on processes 1..N-1; the port takes that default with
-    the schedule (ROADMAP queue 1 item 12d)."""
+    Unset, it follows ``PHOTON_RE_SHARD``, as the reference's does: the
+    entity-sharded schedule is the workload whose telemetry lives on
+    processes 1..N-1, and every other multi-process run keeps one file."""
     env = os.environ.get("PHOTON_TELEMETRY_FLEET")
     if env is not None and env != "":
         return int(env) != 0
-    return False
+    from photon_ml_tpu_torch.parallel.placement import re_shard_enabled
+
+    return re_shard_enabled()
 
 
 def _fleet_run_id() -> str:

@@ -23,6 +23,11 @@ descent assembles each coordinate's (n,) scores with it.
 out-of-core trainer's one writer gathers global columns without any
 process holding more than a round of them at once.
 
+``exchange_rows_async`` issues an exchange and returns a handle to join
+later (the overlapped schedule of ``PHOTON_RE_SHARD``): one worker thread
+a process runs the exchanges in submission order over a second gloo group
+of their own, so they never pair against the main thread's collectives.
+
 Each collective is an ``all_gather`` of the raw bytes of every process's
 arrays, reduced on every process in rank order by the same numpy code, so
 all processes hold identical bytes afterwards and their host control flow
@@ -40,7 +45,9 @@ from __future__ import annotations
 
 import os
 import pickle
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 from typing import Sequence
 
@@ -49,10 +56,15 @@ import torch
 import torch.distributed as dist
 
 from photon_ml_tpu_torch.obs import devcost
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
+from photon_ml_tpu_torch.obs.spans import emit_event
 
 BACKEND = "gloo"
 # seconds a collective waits for the other processes before it raises
 DEFAULT_TIMEOUT_S = 600.0
+
+# the process group's collective timeout, which the exchange group takes too
+_TIMEOUT_S = [DEFAULT_TIMEOUT_S]
 
 # seconds, calls and bytes gathered by the host collectives since the last
 # ``reset_collective_stats``
@@ -103,6 +115,7 @@ def initialize_multihost(
         raise _init_error(f"process id {process_id} outside [0, {num_processes})")
     if dist.is_initialized():
         raise _init_error("this process already belongs to a process group")
+    _TIMEOUT_S[0] = float(timeout_s)
     try:
         dist.init_process_group(
             BACKEND, init_method=f"tcp://{coordinator_address}", world_size=num_processes,
@@ -114,8 +127,10 @@ def initialize_multihost(
 
 
 def shutdown_multihost() -> None:
-    """Leave the process group (a no-op outside one)."""
+    """Leave the process group (a no-op outside one), after the exchange
+    worker has drained."""
     if dist.is_initialized():
+        _reset_async_exchanges()
         dist.destroy_process_group()
 
 
@@ -175,33 +190,36 @@ def sync_processes(tag: str = "photon-ml-barrier") -> None:
         raise RuntimeError(f"processes reached different barriers: {[k.decode() for k in keys]}")
 
 
-def _gather_bytes(payload: bytes) -> list[bytes]:
+def _gather_bytes(payload: bytes, group=None) -> list[bytes]:
     """Every process's ``payload`` in rank order (two all_gathers: the
-    sizes, then the bytes padded to the largest)."""
+    sizes, then the bytes padded to the largest). ``group`` None is the
+    default group, whose calls ``collective_stats`` counts; the exchange
+    worker's group (``exchange_rows_async``) keeps its own books."""
     t0 = time.perf_counter()
     p = process_count()
     size = torch.tensor([len(payload)], dtype=torch.int64)
     sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(p)]
-    dist.all_gather(sizes, size)
+    dist.all_gather(sizes, size, group=group)
     width = max(int(s) for s in sizes)
     buf = torch.zeros(max(width, 1), dtype=torch.uint8)
     if payload:
         buf[: len(payload)] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     outs = [torch.empty_like(buf) for _ in range(p)]
-    dist.all_gather(outs, buf)
-    collective_stats["seconds"] += time.perf_counter() - t0
-    collective_stats["calls"] += 1
-    collective_stats["bytes"] += p * buf.numel()
+    dist.all_gather(outs, buf, group=group)
+    if group is None:
+        collective_stats["seconds"] += time.perf_counter() - t0
+        collective_stats["calls"] += 1
+        collective_stats["bytes"] += p * buf.numel()
     return [bytes(o[: int(s)].numpy()) for o, s in zip(outs, sizes)]
 
 
-def _gather_arrays(arrays: Sequence[np.ndarray]) -> list[list[np.ndarray]]:
+def _gather_arrays(arrays: Sequence[np.ndarray], group=None) -> list[list[np.ndarray]]:
     """Every process's ``arrays`` (same count, shapes and dtypes on every
     process) in rank order, moved in one gather of their bytes."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     payload = b"".join(a.tobytes() for a in arrays)
     out = []
-    for blob in _gather_bytes(payload):
+    for blob in _gather_bytes(payload, group):
         if len(blob) != len(payload):
             raise RuntimeError("host collective over arrays of different sizes across processes")
         parts, pos = [], 0
@@ -336,21 +354,40 @@ def exchange_rows(arrays, dest: np.ndarray, tag: str = "") -> dict:
     reference's all-to-all transport records its program)."""
     arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
     dest = np.asarray(dest, np.int64).reshape(-1)
-    p = process_count()
-    if p <= 1:
+    if process_count() <= 1:
         LAST_EXCHANGE_STATS.update(bytes_sent=0, rows_sent=len(dest), padded_rows=len(dest),
                                    transport="local")
         return arrays
+    t0 = time.perf_counter()
+    out, stats, (send, recv) = _exchange_on(arrays, dest, tag, None)
+    # the exchange's bytes in the run's telemetry, once per (sent, received)
+    # size, recorded after the collective: no process waits on another's capture
+    devcost.capture("multihost.all_to_all", (send, recv),
+                    lambda: {"flops": 0.0, "bytes_accessed": float(send.numel() + recv.numel()),
+                             "memory": {"argument_size_in_bytes": send.numel(),
+                                        "output_size_in_bytes": recv.numel()}})
+    collective_stats["seconds"] += time.perf_counter() - t0
+    collective_stats["calls"] += 1
+    collective_stats["bytes"] += stats["bytes_sent"]
+    LAST_EXCHANGE_STATS.update(stats)
+    return out
+
+
+def _exchange_on(arrays: dict, dest: np.ndarray, tag: str, group) -> tuple[dict, dict, tuple]:
+    """``exchange_rows``' transport on ``group`` (None: the default
+    group): (the rows received, the exchange's stats, the (send, receive)
+    byte tensors)."""
+    p = process_count()
     keys = sorted(arrays)
     for k in keys:
         if len(arrays[k]) != len(dest):
             raise ValueError(f"exchange {tag!r}: array {k!r} has {len(arrays[k])} rows, dest {len(dest)}")
     if len(dest) and (dest.min() < 0 or dest.max() >= p):
         raise ValueError(f"exchange {tag!r}: destinations outside [0, {p})")
-    t0 = time.perf_counter()
     order = np.argsort(dest, kind="stable")
     counts = np.bincount(dest, minlength=p).astype(np.int64)
-    matrix = allgather_host(counts)  # (source, destination) row counts
+    # (source, destination) row counts
+    matrix = np.stack([g[0] for g in _gather_arrays([counts], group)])
     me = process_index()
     row_bytes = [arrays[k].dtype.itemsize * int(np.prod(arrays[k].shape[1:], dtype=np.int64)) for k in keys]
     width = sum(row_bytes)
@@ -364,13 +401,7 @@ def exchange_rows(arrays, dest: np.ndarray, tag: str = "") -> dict:
     recv_rows = matrix[:, me]
     recv = torch.empty(int(recv_rows.sum()) * width, dtype=torch.uint8)
     dist.all_to_all_single(recv, send, output_split_sizes=[int(r) * width for r in recv_rows],
-                           input_split_sizes=[int(c) * width for c in counts])
-    # the exchange's bytes in the run's telemetry, once per (sent, received)
-    # size, recorded after the collective: no process waits on another's capture
-    devcost.capture("multihost.all_to_all", (send, recv),
-                    lambda: {"flops": 0.0, "bytes_accessed": float(send.numel() + recv.numel()),
-                             "memory": {"argument_size_in_bytes": send.numel(),
-                                        "output_size_in_bytes": recv.numel()}})
+                           input_split_sizes=[int(c) * width for c in counts], group=group)
     raw = recv.numpy()
     out: dict[str, list[np.ndarray]] = {k: [] for k in keys}
     pos = 0
@@ -381,10 +412,147 @@ def exchange_rows(arrays, dest: np.ndarray, tag: str = "") -> dict:
             out[k].append(np.frombuffer(raw, dtype=a.dtype, count=n_src * (rb // a.dtype.itemsize),
                                         offset=pos).reshape((n_src,) + a.shape[1:]).copy())
             pos += n_src * rb
-    nbytes = int(counts.sum()) * width
-    collective_stats["seconds"] += time.perf_counter() - t0
-    collective_stats["calls"] += 1
-    collective_stats["bytes"] += nbytes
-    LAST_EXCHANGE_STATS.update(bytes_sent=nbytes, rows_sent=int(counts.sum()),
-                               padded_rows=int(counts.sum()) * len(keys), transport=BACKEND)
-    return {k: np.concatenate(v) for k, v in out.items()}
+    sent = int(counts.sum())
+    stats = dict(bytes_sent=sent * width, rows_sent=sent, padded_rows=sent * len(keys), transport=BACKEND)
+    return {k: np.concatenate(v) for k, v in out.items()}, stats, (send, recv)
+
+
+# ---------------------------------------------------------------------------
+# the overlapped exchange schedule (PHOTON_RE_SHARD=1)
+# ---------------------------------------------------------------------------
+# An exchange is issued at one program point and joined at a later one,
+# with solves, host work and collectives of the main thread in between.
+# Its body runs on one worker thread per process, in submission order,
+# over a second gloo group that no other code uses: every process submits
+# the same exchanges in the same order, so the worker's collectives pair
+# across processes, and they never interleave with the main thread's on
+# the default group (two threads issuing collectives on one group could
+# pair them in different orders on different processes). The group is
+# created collectively on the calling thread at the first exchange, in
+# program order.
+_ASYNC: dict = {"group": None, "pool": None}
+_EXCHANGE_LOCK = threading.Lock()  # the pending list and the overlap books
+_PENDING_EXCHANGES: list = []
+_EXCHANGE_TOTALS = {"exchange_s": 0.0, "wait_s": 0.0}
+
+
+def _exchange_group():
+    if _ASYNC["group"] is None:
+        _ASYNC["group"] = dist.new_group(backend=BACKEND, timeout=timedelta(seconds=_TIMEOUT_S[0]))
+    if _ASYNC["pool"] is None:
+        _ASYNC["pool"] = ThreadPoolExecutor(max_workers=1, thread_name_prefix="photon-exchange")
+    return _ASYNC["group"], _ASYNC["pool"]
+
+
+def _record_overlap(kind: str, seconds: float) -> None:
+    """The exchange's (``exchange_s``, on the worker) or the consumer's
+    blocked (``wait_s``) seconds, as the timers ``re_exchange.*``, and the
+    gauge ``re_shard.exchange_overlap_ratio``: the share of exchange wall
+    the consumer did not block on (1.0 hidden, 0.0 a barrier; 1.0 on one
+    process, where there is nothing to wait for)."""
+    with _EXCHANGE_LOCK:
+        _EXCHANGE_TOTALS[kind] += seconds
+        wall, wait = _EXCHANGE_TOTALS["exchange_s"], _EXCHANGE_TOTALS["wait_s"]
+    REGISTRY.timer_add(f"re_exchange.{kind}", seconds)
+    ratio = 1.0 if wall <= 0.0 else max(0.0, min(1.0, 1.0 - wait / wall))
+    REGISTRY.gauge_set("re_shard.exchange_overlap_ratio", ratio)
+
+
+class ExchangeHandle:
+    """A pending ``exchange_rows_async``. ``result()`` blocks until the
+    rows land and returns ``exchange_rows``' dict, or what the epilogue
+    ``finish(rows, stats)`` makes of it. The first call joins, under a
+    lock, so any thread may join (a prefetch worker, the main thread) and
+    the epilogue runs once; later calls return the same value. The blocked
+    seconds go to ``re_exchange.wait_s`` (and an ``exchange_wait`` record
+    while a sink is on). ``stats`` holds the exchange's
+    ``LAST_EXCHANGE_STATS`` keys, its ``seconds`` on the worker and the
+    joiner's ``wait_s`` once it has been joined."""
+
+    def __init__(self, future=None, value=None, tag: str = "", stats: dict | None = None, finish=None):
+        self._future = future
+        self._value = value
+        self._tag = tag
+        self._finish = finish
+        self._joined = False
+        self._lock = threading.Lock()
+        self.stats = stats
+
+    @property
+    def done(self) -> bool:
+        return self._future is None or self._future.done()
+
+    def result(self):
+        with self._lock:
+            if not self._joined:
+                out = self._value
+                if self._future is not None:
+                    t0 = time.perf_counter()
+                    try:
+                        out, stats = self._future.result()
+                    finally:
+                        waited = time.perf_counter() - t0
+                        _record_overlap("wait_s", waited)
+                        emit_event("exchange_wait", tag=self._tag, wait_s=waited)
+                        with _EXCHANGE_LOCK:
+                            _PENDING_EXCHANGES[:] = [e for e in _PENDING_EXCHANGES if e[0] is not self._future]
+                    self.stats = dict(stats, wait_s=waited)
+                self._value = out if self._finish is None else self._finish(out, self.stats)
+                self._future = self._finish = None
+                self._joined = True
+            return self._value
+
+
+def exchange_rows_async(arrays, dest: np.ndarray, tag: str = "", finish=None) -> ExchangeHandle:
+    """``exchange_rows`` without blocking: a handle whose ``result()`` is
+    the same dict (or ``finish(rows, stats)`` of it). The rows travel on the exchange worker over the second
+    gloo group (created here, collectively, at the first call). Every
+    process calls it at the same program point; the arrays must not change
+    until the handle is joined. On one process it completes inline (the
+    identity), recording zero seconds so the overlap gauge exists there
+    too."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    dest = np.asarray(dest, np.int64).reshape(-1)
+    if process_count() <= 1:
+        _record_overlap("exchange_s", 0.0)
+        _record_overlap("wait_s", 0.0)
+        return ExchangeHandle(value=arrays, finish=finish, stats=dict(
+            bytes_sent=0, rows_sent=len(dest), padded_rows=len(dest), transport="local", seconds=0.0, wait_s=0.0))
+    group, pool = _exchange_group()
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            out, stats, _ = _exchange_on(arrays, dest, tag, group)
+        finally:
+            dur = time.perf_counter() - t0
+            _record_overlap("exchange_s", dur)
+            emit_event("exchange", tag=tag, dur_s=dur)
+        return out, dict(stats, transport=f"{BACKEND}_async", seconds=dur)
+
+    fut = pool.submit(run)
+    with _EXCHANGE_LOCK:
+        _PENDING_EXCHANGES.append((fut, tag))
+    return ExchangeHandle(future=fut, tag=tag, finish=finish)
+
+
+def drain_async_exchanges() -> None:
+    """Wait for every exchange in flight (each result stays claimable
+    through its handle, which re-raises a failure). The streamed trainer
+    drains before a checkpoint, a re-plan and the fit's end."""
+    with _EXCHANGE_LOCK:
+        pending = list(_PENDING_EXCHANGES)
+    for fut, _ in pending:
+        fut.exception()  # waits; the handle's result() re-raises
+
+
+def _reset_async_exchanges() -> None:
+    """Drain, stop the worker and forget the group (before the process
+    group it belongs to is destroyed)."""
+    drain_async_exchanges()
+    if _ASYNC["pool"] is not None:
+        _ASYNC["pool"].shutdown(wait=True)
+    _ASYNC.update(group=None, pool=None)
+    with _EXCHANGE_LOCK:
+        _PENDING_EXCHANGES.clear()
+        _EXCHANGE_TOTALS.update(exchange_s=0.0, wait_s=0.0)

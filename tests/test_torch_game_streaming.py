@@ -425,9 +425,12 @@ def test_construction_time_rejections(monkeypatch, arrays):
     with pytest.raises(RuntimeError, match="multihost initialization failed"):
         StreamedGameTrainer(_port(cfg), multihost=True, device="cpu")
     data = streamed_game_data_from_numpy(arrays[0])
+    # entity sharding is ported: on one process the knob changes nothing
+    off, _ = StreamedGameTrainer(_port(cfg), device="cpu").fit(data)
     monkeypatch.setenv("PHOTON_RE_SHARD", "1")
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        StreamedGameTrainer(_port(cfg), device="cpu").fit(data)
+    on, _ = StreamedGameTrainer(_port(cfg), device="cpu").fit(data)
+    for cid, sub in off.models.items():
+        assert torch.equal(sub.coefficient_means, on.models[cid].coefficient_means), cid
     monkeypatch.delenv("PHOTON_RE_SHARD")
     monkeypatch.setenv("PHOTON_RE_FUSE_BUCKETS", "1")
     with pytest.raises(NotImplementedError, match="item 15"):

@@ -76,7 +76,7 @@ def test_import_port_loads_no_jax():
         "import photon_ml_tpu_torch.optim.host_tron, photon_ml_tpu_torch.supervised.cross_validation\n"
         "import photon_ml_tpu_torch.game.streaming, photon_ml_tpu_torch.io.data_reader\n"
         "import photon_ml_tpu_torch.parallel.distributed, photon_ml_tpu_torch.parallel.mesh\n"
-        "import photon_ml_tpu_torch.parallel.multihost\n"
+        "import photon_ml_tpu_torch.parallel.multihost, photon_ml_tpu_torch.parallel.placement\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'photon_ml_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -85,6 +85,22 @@ def test_import_port_loads_no_jax():
         env={**os.environ, "PYTHONPATH": ROOT},
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_reexports_the_references_names():
+    """``photon_ml_tpu_torch.parallel`` exports what the reference's
+    ``photon_ml_tpu.parallel`` does for the ported slices: the multi-process
+    runtime's entry points and the placement names."""
+    import photon_ml_tpu_torch.parallel as par
+    from photon_ml_tpu_torch.parallel import multihost, placement
+
+    names = ("host_shard_of_paths", "initialize_multihost", "PlacementPlan", "plan_entity_placement",
+             "plan_shard_placement", "re_shard_enabled")
+    assert set(names) <= set(par.__all__)
+    for name in names:
+        assert getattr(par, name) is getattr(multihost if name in names[:2] else placement, name)
+    ref_init = open(os.path.join(ROOT, "photon_ml_tpu", "parallel", "__init__.py")).read()
+    assert all(name in ref_init for name in names)
 
 
 def test_import_sets_float32_matmul_precision():

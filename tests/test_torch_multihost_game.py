@@ -379,7 +379,15 @@ def test_multihost_refuses_streaming_and_needs_a_process_group(tmp_path, monkeyp
     streamed = StreamedGameData(labels=data.y, features={"global": data.X, "per_user": data.entity_X["userId"],
                                                          "per_item": data.entity_X["itemId"]},
                                 id_tags={k: v.numpy() for k, v in data.entity_ids.items()})
-    for knob in ("PHOTON_RE_SHARD", "PHOTON_RE_PROJECT", "PHOTON_RE_DEVICE_SPLIT"):
+    # entity sharding is ported (tests/test_torch_re_shard.py): on one
+    # process the knob-on fit is the knob-off fit, bit for bit
+    off, _ = StreamedGameTrainer(_config(), chunk_rows=256, device="cpu").fit(streamed)
+    monkeypatch.setenv("PHOTON_RE_SHARD", "1")
+    on, _ = StreamedGameTrainer(_config(), chunk_rows=256, device="cpu").fit(streamed)
+    monkeypatch.delenv("PHOTON_RE_SHARD")
+    assert all(torch.equal(sub.coefficient_means, on.models[cid].coefficient_means)
+               for cid, sub in off.models.items())
+    for knob in ("PHOTON_RE_PROJECT", "PHOTON_RE_DEVICE_SPLIT"):
         monkeypatch.setenv(knob, "1")
         with pytest.raises(NotImplementedError, match="item 12d"):
             StreamedGameTrainer(_config(), chunk_rows=256, device="cpu").fit(streamed)

@@ -363,14 +363,21 @@ class TestFleetSink:
         assert "fleet" not in load_run(path)[0]
 
     def test_fleet_knob_parses_and_is_off_by_default(self, monkeypatch):
-        """Unset, the port's fleet knob is off, ``PHOTON_RE_SHARD`` or not:
-        the reference's default follows the re-sharded schedule, which the
-        port does not have yet."""
+        """Unset, the port's fleet knob is off unless ``PHOTON_RE_SHARD`` is
+        on: it follows the entity-sharded schedule, as the reference's
+        does (``tests/test_telemetry.py::TestFleetSink::
+        test_fleet_knob_parses_and_follows_re_shard``); set, it wins."""
+        from photon_ml_tpu.obs.sink import fleet_telemetry_enabled as ref_fleet
         from photon_ml_tpu_torch.obs.sink import fleet_telemetry_enabled
 
         monkeypatch.delenv("PHOTON_TELEMETRY_FLEET", raising=False)
+        monkeypatch.delenv("PHOTON_RE_SHARD", raising=False)
+        assert fleet_telemetry_enabled() is False is ref_fleet()
         monkeypatch.setenv("PHOTON_RE_SHARD", "1")
-        assert fleet_telemetry_enabled() is False
+        assert fleet_telemetry_enabled() is True is ref_fleet()
+        monkeypatch.setenv("PHOTON_TELEMETRY_FLEET", "0")
+        assert fleet_telemetry_enabled() is False is ref_fleet()
+        monkeypatch.setenv("PHOTON_RE_SHARD", "0")
         monkeypatch.setenv("PHOTON_TELEMETRY_FLEET", "1")
         assert fleet_telemetry_enabled() is True
         monkeypatch.setenv("PHOTON_TELEMETRY_FLEET", "junk")
@@ -552,6 +559,11 @@ ALLOWED = {
     "dropped_rows": "the reference's dropped-row record (game/streaming.py)",
     "visit_result": "the reference's per-visit record; its acceptance test reads it",
     "tile_layout_pack": "the reference's layout-pack record (devcost.record_layout_pack)",
+    "*.rows_mean": "the reference's placement gauge re_shard.rows_mean (placement.record_placement_metrics), "
+                   "beside re_shard.rows_max, which its report reads",
+    "*.shards": "the reference's placement gauge re_shard.shards (record_placement_metrics)",
+    "re_replan_check": "the reference's per-check re-planner record (game/streaming.py "
+                       "_maybe_replan_re_shards); its report reads the re_replan records",
 }
 _METRIC_CALLS = {"counter_inc", "gauge_set", "timer_add", "histogram_observe"}
 
