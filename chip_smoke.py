@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's dense and high-dimensional sparse GLM training
 paths, its GAME mixed-effect training path (random effects on damped
-Newton, on the default lane solvers and in per-entity subspaces and random
-projections), its GAME train and score drivers on Avro files, read by
+Newton, on the default lane solvers, compacted and fused, and in per-entity
+subspaces, capacity-class projections and random projections), its GAME train and score drivers on Avro files, read by
 the native columnar decoder, its out-of-core GLM and GAME paths (host
 data streamed through the card), and its data-parallel GLM and GAME
 paths (shards of the card, and two processes over gloo, in memory and
@@ -126,7 +126,14 @@ Run from the root of a checkout. It builds the CUDA kernels from
    steps, the peak memory, the profile of its second outer iteration (as
    main_e's); train AUC >= 0.95 x the generating model's,
    and against main_e's Newton fit |dAUC| <= 0.005 and relative d(training
-   log-loss) <= 1e-3;
+   log-loss) <= 1e-3; the lane solves' launches and executed and useful
+   entity iterations (``re_solve.*``, read back once a visit);
+14b. main_e_lbfgs_compact: main_e_lbfgs again with
+   PHOTON_RE_COMPACT_EVERY=4 and PHOTON_RE_FUSE_BUCKETS=1: whether the
+   model is bitwise main_e_lbfgs's, and (gates) within the lane tolerance
+   with |dAUC| <= 1e-4 and relative d(training log-loss) <= 1e-4; both
+   arms' lane launches, executed and useful entity iterations, read-backs
+   a visit, wall per outer iteration and peak device bytes;
 15. agreement_e_solvers: config E at bench.py's shape, 4 outer iterations
    with the random effects on (a) L-BFGS, (b) TRON, (c) OWL-QN through
    ELASTIC_NET (alpha 0.5, weight 1) and (d) L-BFGS over the per-user
@@ -200,6 +207,33 @@ Run from the root of a checkout. It builds the CUDA kernels from
    seconds; the exchange timers and the overlap ratio; per random effect
    the plan's balance and loads beside the balance ``e % 2`` gives the
    same rows; peak device bytes;
+15f. re_skew: bench.py's R_re_skew (1024 entities of 32 rows, d = 8, one
+   in 16 ill-conditioned, 200 iterations at 1e-7) through
+   ``train_random_effects`` on L-BFGS, OWL-QN and TRON over
+   PHOTON_RE_COMPACT_EVERY in {0, 1, 4, 16} x PHOTON_RE_FUSE_BUCKETS in
+   {0, 1} (L-BFGS also on the bucket cut into 4): every cell against the
+   knob-off cell, whether bitwise and (gate) within the lane tolerance,
+   with its lane launches, executed and useful entity iterations, host
+   reads, peak device bytes and wall, beside the witness (the slow lanes
+   solved knob off as a bucket of their own against the whole bucket's);
+   then OWL-QN and TRON at agreement_e_solvers' depth with both knobs
+   set, within the lane tolerance of that phase's fits (gate);
+15g. main_e_streamed_compact: config E at bench depth (2^18 rows) out of
+   core with L-BFGS random effects, knobs off and set: whether bitwise,
+   within the lane tolerance (gate), lane launches and iterations,
+   read-backs a random-effect visit;
+15h. main_re_project: bench.py's projection recipe (Zipf rows, class-
+   correlated column support, d = 32) at MovieLens-20M's 138,493 users,
+   in memory, arms off (unset), off0 (PHOTON_RE_PROJECT=0), support and
+   hash (PHOTON_RE_PROJECT_DIM=16), each cold and then warm with the MAP
+   prior, and a streamed support arm on the same rows. Gates: off0 bitwise
+   off, launches too; support's held-out AUC within 1e-4 of off's, cold
+   and warm, with a class solving below 32 wide, and, solved until its
+   lanes stop (25 iterations at 1e-9), within the lane tolerance of off
+   with every column off its class support exactly 0; hash |dAUC| <=
+   0.005 on a held-out draw; streamed support within the lane tolerance
+   of the in-memory one. It prints the ``re_project.*`` gauges and each
+   arm's solve wall;
 16. main_game_cli: config E at its bench depth (64 global features, 8 per
    user and 8 per item, 20,000 users and 4,000 items, Zipf 1.5; 2^18
    training and 2^16 validation rows), generated on the card and written as
@@ -391,6 +425,7 @@ from photon_ml_tpu_torch.game import coordinate as game_coordinate
 from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
 from photon_ml_tpu_torch.game.data import (
     DenseFeatures,
+    EntityBuckets,
     SparseFeatures,
     bucket_entities,
     capacity_classes,
@@ -399,7 +434,7 @@ from photon_ml_tpu_torch.game.data import (
 )
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.game import random_effect as game_random_effect
-from photon_ml_tpu_torch.game.projector import RandomProjector
+from photon_ml_tpu_torch.game.projector import RandomProjector, class_activity, projection_ladder
 from photon_ml_tpu_torch.game.random_effect import train_random_effects
 from photon_ml_tpu_torch.game.streaming import StreamedGameData, StreamedGameTrainer
 from photon_ml_tpu_torch.hyperparameter.tuning import tune_game_hyperparameters
@@ -1492,19 +1527,34 @@ def run_e(dev) -> tuple[dict, object, object, GameModel]:
     return rec, batch, data, model
 
 
-def run_e_lbfgs(dev, batch, data, newton: dict) -> dict:
+def fit_lane_counted(batch, config: GameTrainingConfig, dev) -> dict:
+    """``fit_game`` with the random-effect lane solves' counters
+    (``re_solve.*``: launches, executed and useful entity iterations)
+    zeroed just before and read just after, the lane iterations read back
+    once a visit (``PHOTON_RE_ITER_ACCOUNTING=1``; the compacted schedule
+    reads them between its chunks anyway), and the peak device bytes."""
+    game_random_effect.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with environment({"PHOTON_RE_ITER_ACCOUNTING": "1"}):
+        fit = fit_game(batch, config, dev)
+    fit["re_solve"] = dict(game_random_effect.launch_counts)
+    fit["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return fit
+
+
+def run_e_lbfgs(dev, batch, data, newton: dict) -> tuple[dict, GameModel]:
     """``main_e``'s path (the same batch and schedule) with the random
     effects on L-BFGS, the default solver type, at the fixed effect's
     ``OptimizerConfig`` (20 iterations, tolerance 1e-7) with L2 1; held to
     ``main_e``'s Newton fit (``newton``), which solves the same L2
-    problems."""
+    problems. Returns the record and the model (``run_e_lbfgs_compact``
+    holds its knob-on fit to it)."""
     n, effects = E_ML20M
-    torch.cuda.reset_peak_memory_stats(dev)
-    fit = fit_game(batch, game_config(effects, 6, re_solver="LBFGS"), dev)
+    fit = fit_lane_counted(batch, game_config(effects, 6, re_solver="LBFGS"), dev)
     rec = dict(_game_record(fit, warmup=2), n=n, effects={k: list(v) for k, v in effects.items()},
                buckets=bucket_report(fit, batch, effects, solver="lbfgs"),
-               **game_quality(fit, batch, data),
-               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+               **game_quality(fit, batch, data), re_solve=fit["re_solve"],
+               max_memory_allocated_bytes=fit["peak_device_bytes"])
     rec.update(
         newton_train_auc=newton["train_auc"], newton_train_log_loss=newton["train_log_loss"],
         d_auc_vs_newton=abs(rec["train_auc"] - newton["train_auc"]),
@@ -1512,10 +1562,396 @@ def run_e_lbfgs(dev, batch, data, newton: dict) -> dict:
         / newton["train_log_loss"],
         newton_timed_wall_s_per_outer_iteration=newton["timed_wall_s_per_outer_iteration"],
     )
+    model = fit["best"].model
     del fit
     torch.cuda.empty_cache()
     rec["profile"] = profile_e(batch, effects, dev, re_solver="LBFGS")
-    return rec
+    return rec, model
+
+
+# the random-effect schedule knobs' arm: chunks of 4 iterations, same-geometry buckets fused
+SCHEDULE_KNOBS = {"PHOTON_RE_COMPACT_EVERY": "4", "PHOTON_RE_FUSE_BUCKETS": "1"}
+
+
+LANE_TOL = dict(rtol=1e-2, atol=2e-3)  # the lane solvers' pinned tolerance (ROADMAP queue 3)
+
+
+def models_agree(a: GameModel, b: GameModel) -> dict:
+    """Two models of the same configuration: bitwise, the largest
+    coefficient difference, and within the lane tolerance."""
+    pairs = [(sub.coefficient_means, b.models[cid].coefficient_means) for cid, sub in a.models.items()]
+    return dict(bitwise=a.models.keys() == b.models.keys() and all(torch.equal(x, y) for x, y in pairs),
+                max_abs_diff=max(float((x - y).abs().max()) for x, y in pairs),
+                within_lane_tolerance=all(bool(torch.allclose(x, y, **LANE_TOL)) for x, y in pairs))
+
+
+def lane_counters(re_solve: dict, visits: int) -> dict:
+    """The lane solves' launches and entity iterations, and their
+    useful / executed share, over a fit and a random-effect visit."""
+    ex, us = re_solve["executed_entity_iterations"], re_solve["useful_entity_iterations"]
+    return dict(lane_launches=re_solve["launches"], executed_entity_iterations=ex, useful_entity_iterations=us,
+                useful_share=us / ex if ex else None, lane_launches_per_visit=re_solve["launches"] / visits,
+                executed_per_visit=ex / visits)
+
+
+def run_e_lbfgs_compact(dev, batch, data, lbfgs: dict, lbfgs_model: GameModel) -> dict:
+    """main_e_lbfgs_compact: main_e_lbfgs's batch and schedule with
+    ``SCHEDULE_KNOBS`` (lane compaction every 4 iterations, launch
+    fusion), against main_e_lbfgs's knob-off fit of the same run: whether
+    the models are bitwise, their largest difference, and (gates) the
+    coefficients within the lane tolerance, |dAUC| <= 1e-4 and relative
+    d(training log-loss) <= 1e-4 (a front of other lane counts takes other
+    cuBLAS and reduction kernels on the card, so its lanes' bits move:
+    re_skew's witness); the lane solves' launches, executed and useful
+    entity iterations and read-backs a visit of either arm, wall per outer
+    iteration and peak device bytes."""
+    n, effects = E_ML20M
+    config = game_config(effects, 6, re_solver="LBFGS")
+    with environment(SCHEDULE_KNOBS):
+        fit = fit_lane_counted(batch, config, dev)
+    re_visits = 6 * len(effects)
+    on = dict(_game_record(fit, warmup=2), knobs=SCHEDULE_KNOBS, peak_device_bytes=fit["peak_device_bytes"],
+              **lane_counters(fit["re_solve"], re_visits))
+    off = dict(timed_wall_s_per_outer_iteration=lbfgs["timed_wall_s_per_outer_iteration"],
+               timed_readbacks_per_visit=lbfgs["timed_readbacks_per_visit"],
+               peak_device_bytes=lbfgs["max_memory_allocated_bytes"], **lane_counters(lbfgs["re_solve"], re_visits))
+    on.update(game_quality(fit, batch, data))
+    agree = models_agree(fit["best"].model, lbfgs_model)
+    return dict(n=n, effects={k: list(v) for k, v in effects.items()}, on=on, off=off, launches=fit["launches"],
+                fixed_objective_passes=fit["fixed_objective_passes"], models=agree,
+                d_auc_vs_off=abs(on["train_auc"] - lbfgs["train_auc"]),
+                rel_d_log_loss_vs_off=abs(on["train_log_loss"] - lbfgs["train_log_loss"]) / lbfgs["train_log_loss"],
+                executed_drop=1.0 - on["executed_entity_iterations"] / off["executed_entity_iterations"])
+
+
+RE_SKEW = (1024, 32, 8)  # bench.py R_re_skew: entities, rows each, features
+RE_SKEW_CELLS = [(c, f) for c in ("0", "1", "4", "16") for f in ("0", "1")]
+RE_SKEW_SOLVERS = {"lbfgs": ("LBFGS", 0.0), "owlqn": ("LBFGS", 0.05), "tron": ("TRON", 0.0)}
+
+
+def re_skew_problem(dev):
+    """bench.py's R_re_skew on the card: E entities of C rows, d features,
+    every 16th entity's features scaled 1-60 (several times the others'
+    iterations), logistic labels; one bucket of E lanes."""
+    E, C, d = RE_SKEW
+    rng = np.random.default_rng(7)
+    ids = np.repeat(np.arange(E), C).astype(np.int64)
+    n = E * C
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[np.isin(ids, np.arange(0, E, 16))] *= np.geomspace(1.0, 60.0, d).astype(np.float32)
+    W_true = (rng.normal(size=(E, d)) * 0.5).astype(np.float32)
+    margin = np.clip(np.sum(W_true[ids] * X, axis=1), -60.0, 60.0)
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float32)
+    w0 = (np.random.default_rng(2).normal(size=(E, d)) * 1e-3).astype(np.float32)
+    return dict(features=DenseFeatures(X=torch.from_numpy(X).to(dev)), labels=y,
+                offsets=np.zeros(n, np.float32), weights=np.ones(n, np.float32),
+                buckets=bucket_entities(group_by_entity(ids, num_entities=E)), num_entities=E,
+                loss=LOSSES["logistic"], l2_weight=1.0, initial_coefficients=torch.from_numpy(w0).to(dev),
+                device=dev)
+
+
+def split_buckets(buckets: EntityBuckets, parts: int) -> EntityBuckets:
+    """Each bucket cut into ``parts`` buckets of the same capacity (fusion's
+    target: same-geometry buckets)."""
+    ent, rows, caps = [], [], []
+    for e, r, c in zip(buckets.entity_ids, buckets.row_indices, buckets.capacities):
+        for part in np.array_split(np.arange(len(e)), parts):
+            ent.append(e[part])
+            rows.append(r[part])
+            caps.append(c)
+    return EntityBuckets(capacities=tuple(caps), entity_ids=ent, row_indices=rows)
+
+
+def run_re_skew(dev) -> dict:
+    """re_skew: bench.py's R_re_skew (E = 1024, C = 32, d = 8, one entity
+    in 16 ill-conditioned, 200 iterations at tolerance 1e-7) through
+    ``train_random_effects`` on L-BFGS, OWL-QN (l1 0.05) and TRON, each
+    over ``PHOTON_RE_COMPACT_EVERY`` in {0, 1, 4, 16} x
+    ``PHOTON_RE_FUSE_BUCKETS`` in {0, 1}: every cell's coefficients,
+    variances, final objectives and iterations bitwise the (0, 0) cell's
+    (gate); per cell the lane launches, executed and useful entity
+    iterations, the host reads of the card, the peak device bytes and the
+    wall (after one warm-up solve a solver). The natural bucketing gives
+    one bucket, so fusion has nothing to fuse there; the L-BFGS sweep also
+    runs on the bucket cut into 4 of the same capacity (``split4_*``),
+    where fusion takes 4 launches to 1. Each cell is held to the (0, 0)
+    cell: whether bitwise, the largest coefficient difference, and (gate)
+    within the lane tolerance. The witness: the slow entities' lanes (the
+    front compaction keeps longest) solved knob off as a bucket of their
+    own, against the same lanes of the whole bucket: the difference a
+    lane's batch alone makes on this card, with no knob set."""
+    prob = re_skew_problem(dev)
+    out = {}
+    for name, (solver, l1) in RE_SKEW_SOLVERS.items():
+        config = OptimizerConfig(optimizer_type=OptimizerType(solver), max_iterations=200, tolerance=1e-7)
+        train_random_effects(config=config, l1_weight=l1, variance_computation=VarianceComputationType.SIMPLE,
+                             **prob)  # warm-up
+        cells, ref = {}, None
+        grid = [("", ce, fuse) for ce, fuse in RE_SKEW_CELLS]
+        if name == "lbfgs":
+            grid += [("split4_", ce, fuse) for ce, fuse in (("0", "0"), ("0", "1"), ("4", "1"))]
+        for variant, ce, fuse in grid:
+            buckets = split_buckets(prob["buckets"], 4) if variant else prob["buckets"]
+            game_random_effect.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with environment({"PHOTON_RE_COMPACT_EVERY": ce, "PHOTON_RE_FUSE_BUCKETS": fuse,
+                              "PHOTON_RE_ITER_ACCOUNTING": "1"}), counting_readbacks() as reads:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = train_random_effects(config=config, l1_weight=l1,
+                                           variance_computation=VarianceComputationType.SIMPLE,
+                                           **dict(prob, buckets=buckets))
+                got = (res.coefficients, res.variances, torch.as_tensor(res.loss_values),
+                       torch.as_tensor(res.iterations))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if ref is None:
+                ref = got
+            cells[f"{variant}compact_{ce}_fuse_{fuse}"] = dict(
+                wall_s=wall, readbacks=reads[0], bitwise=all(torch.equal(a, b) for a, b in zip(got, ref)),
+                max_abs_diff=float((got[0] - ref[0]).abs().max()),
+                within_lane_tolerance=bool(torch.allclose(got[0], ref[0], **LANE_TOL)),
+                lanes_other_iterations=int((got[3] != ref[3]).sum()),
+                peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+                **lane_counters(dict(game_random_effect.launch_counts), 1))
+        # the witness: the slow lanes as a bucket of their own, knob off
+        b = prob["buckets"]
+        slow = np.flatnonzero(np.isin(b.entity_ids[0], np.arange(0, RE_SKEW[0], 16)))
+        own = EntityBuckets(capacities=b.capacities[:1], entity_ids=[b.entity_ids[0][slow]],
+                            row_indices=[b.row_indices[0][slow]])
+        with environment({"PHOTON_RE_COMPACT_EVERY": "0", "PHOTON_RE_FUSE_BUCKETS": "0"}):
+            alone = train_random_effects(config=config, l1_weight=l1,
+                                         variance_computation=VarianceComputationType.SIMPLE,
+                                         **dict(prob, buckets=own)).coefficients
+        ids = torch.as_tensor(b.entity_ids[0][slow], device=dev)
+        out[name] = dict(cells=cells, iterations_max=int(ref[3].max()), iterations_median=float(ref[3].median()),
+                         bitwise=all(c["bitwise"] for c in cells.values()),
+                         within_lane_tolerance=all(c["within_lane_tolerance"] for c in cells.values()),
+                         witness=dict(lanes=len(slow), bitwise=bool(torch.equal(alone[ids], ref[0][ids])),
+                                      max_abs_diff=float((alone[ids] - ref[0][ids]).abs().max())))
+    return dict(entities=RE_SKEW[0], rows_each=RE_SKEW[1], d=RE_SKEW[2], max_iterations=200, tolerance=1e-7,
+                **out, bitwise=all(out[k]["bitwise"] for k in out),
+                within_lane_tolerance=all(out[k]["within_lane_tolerance"] for k in out))
+
+
+def run_e_solvers_compact(dev, models: dict) -> dict:
+    """OWL-QN and TRON with ``SCHEDULE_KNOBS`` at agreement_e_solvers'
+    depth and schedule, against that phase's knob-off fits (``models``):
+    whether bitwise, the largest difference and (gate) the lane
+    tolerance, with the lane counters and wall of each."""
+    n, effects = E_BENCH
+    batch, _ = game_problem(dev, n, effects, seed=4)
+    out = {}
+    for name in ("owlqn", "tron"):
+        solver, reg, _ = SOLVER_VARIANTS[name]
+        with environment(SCHEDULE_KNOBS):
+            fit = fit_lane_counted(batch, game_config(effects, 4, re_solver=solver, re_regularization=reg), dev)
+        out[name] = dict(_game_record(fit), models=models_agree(fit["best"].model, models[name]),
+                         **lane_counters(fit["re_solve"], 4 * len(effects)))
+    return out
+
+
+E_STREAMED_COMPACT = E_BENCH  # bench depth: 2^18 rows, one chunk
+
+
+def run_e_streamed_compact(dev) -> dict:
+    """main_e_streamed_compact: config E at bench depth (2^18 rows, seed 4)
+    out of core with the random effects on L-BFGS, 2 outer iterations,
+    knob off and with ``SCHEDULE_KNOBS``: whether the models are bitwise,
+    their largest difference and (gate) the lane tolerance; per arm the
+    lane launches and entity iterations, the random-effect visits'
+    read-backs, wall per outer iteration and K1's launches."""
+    n, effects = E_STREAMED_COMPACT
+    batch, _ = game_problem(dev, n, effects, seed=4)
+    host = streamed_game_data(batch)
+    del batch
+    config = game_config(effects, 2, re_solver="LBFGS")
+    arms = {}
+    for arm, knobs in (("off", {}), ("on", SCHEDULE_KNOBS)):
+        with environment(knobs):
+            fit = fit_streamed(host, config, dev)
+        re_visits = [v for v in fit["visits"] if v["coordinate"] != "fixed"]
+        arms[arm] = dict(fit=fit, rec=dict(
+            wall_s=fit["wall_s"], iteration_wall_s=fit["iteration_wall_s"], launches=fit["launches"],
+            fixed_objective_passes=fit["fixed_objective_passes"],
+            readbacks_per_re_visit=sum(v["readbacks"] for v in re_visits) / len(re_visits),
+            **lane_counters(fit["re_launches"], len(re_visits))))
+    prefetch.clear_cache()
+    on, off = arms["on"], arms["off"]
+    return dict(n=n, effects={k: list(v) for k, v in effects.items()}, knobs=SCHEDULE_KNOBS,
+                off=off["rec"], on=on["rec"], models=models_agree(on["fit"]["model"], off["fit"]["model"]),
+                launches=on["fit"]["launches"],
+                launches_ok=all(a["fit"]["launches"]["fused_value_grad"] == a["fit"]["fixed_objective_passes"] > 0
+                                for a in arms.values()))
+
+
+RE_PROJECT_D, RE_PROJECT_DIM = 32, 16  # bench.py's projection recipe (MULTICHIP_R11_D, _DIM)
+RE_PROJECT_E = E_ML20M[1]["userId"][0]  # MovieLens-20M's users
+
+
+def re_project_dataset(E: int) -> dict:
+    """bench.py's projection recipe (``_multichip_r11_dataset``): Zipf row
+    counts (E / (1 + i))^0.9, at least 6 an entity; each row activates 3
+    signal columns and 2 weak noise columns among its entity's first
+    ncols(e) columns, ncols growing with the entity's rows (so the
+    capacity class follows the support width); signal on one column per
+    distinct hash slot of the d = 32 -> 16 fold; a held-out twin draw."""
+    from photon_ml_tpu_torch.game.projector import _hash_fold
+
+    rng = np.random.default_rng(1111)
+    sizes = np.maximum(np.maximum(((E / (1.0 + np.arange(E))) ** 0.9).astype(np.int64), 1), 6)
+    d = RE_PROJECT_D
+    ncols = np.minimum(d, 3 + (np.ceil(np.log2(sizes + 1.0)) * 3).astype(np.int64))
+    ids = np.repeat(np.arange(E), sizes).astype(np.int64)
+    ids = ids[rng.permutation(len(ids))]
+    n = len(ids)
+    slots, _ = _hash_fold(np.arange(d, dtype=np.int64), RE_PROJECT_DIM, None)
+    sig_cols = np.asarray([j for j in range(d) if slots[j] not in slots[:j]], np.int64)  # a slot's first column
+    noise_cols = np.setdiff1d(np.arange(d), sig_cols)
+    n_sig, n_noi = np.searchsorted(sig_cols, ncols), np.searchsorted(noise_cols, ncols)
+    W_true = np.zeros((E, d), np.float32)
+    W_true[:, sig_cols] = (rng.normal(size=(E, len(sig_cols)))
+                           / np.sqrt(1.0 + np.arange(len(sig_cols)))[None, :]).astype(np.float32)
+
+    def draw():
+        X = np.zeros((n, d), np.float32)
+        for _ in range(3):
+            c = sig_cols[rng.integers(0, 1 << 30, size=n) % n_sig[ids]]
+            X[np.arange(n), c] = rng.normal(size=n).astype(np.float32)
+        for _ in range(2):
+            c = noise_cols[rng.integers(0, 1 << 30, size=n) % n_noi[ids]]
+            X[np.arange(n), c] = (0.2 * rng.normal(size=n)).astype(np.float32)
+        y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-2.0 * np.sum(W_true[ids] * X, axis=1)))).astype(np.float32)
+        return X, y
+
+    X, y = draw()
+    X_eval, y_eval = draw()
+    return dict(E=E, n=n, ids=ids, X=X, y=y, X_eval=X_eval, y_eval=y_eval)
+
+
+def run_re_project(dev) -> dict:
+    """main_re_project: bench.py's projection recipe at MovieLens-20M's
+    138,493 users (one random effect, d = 32, L-BFGS 4 iterations at 1e-8,
+    L2 1, SIMPLE variances) in memory, arms ``off`` (the knob unset),
+    ``off0`` (``PHOTON_RE_PROJECT=0``), ``support`` and ``hash``
+    (``PHOTON_RE_PROJECT_DIM=16``), each cold and then warm with the MAP
+    prior at the cold solution; then a streamed ``support`` arm on the same
+    rows (one outer iteration, against the in-memory support solve), and
+    support against off solved to the reference test's stopping rule (25
+    iterations at 1e-9). Gates: off0 bitwise off, launches too; support's
+    held-out AUC within 1e-4 of off's, cold and warm, with at least one
+    class solving below 32 wide (at 4 iterations the lanes are far from
+    their optimum, where a narrower solve's other summation order moves a
+    line search; its largest difference is printed); support solved until
+    its lanes stop within the lane tolerance of off (the float32 stopping
+    floors of ROADMAP queue 3 leave lanes up to about 3e-3 apart), with
+    every column off its class support exactly 0; hash |dAUC| <=
+    0.005 against off on the held-out draw; streamed support within the
+    lane tolerance of the in-memory one. Prints each arm's ``re_project.*``
+    gauges, launches, solve walls and largest differences from off."""
+    data = re_project_dataset(RE_PROJECT_E)
+    E, n, ids = data["E"], data["n"], data["ids"]
+    feats = DenseFeatures(X=torch.from_numpy(data["X"]).to(dev))
+    common = dict(features=feats, labels=data["y"], offsets=np.zeros(n, np.float32),
+                  weights=np.ones(n, np.float32), buckets=bucket_entities(group_by_entity(ids, num_entities=E)),
+                  num_entities=E, loss=LOSSES["logistic"], config=OptimizerConfig(max_iterations=4, tolerance=1e-8),
+                  l2_weight=1.0, variance_computation=VarianceComputationType.SIMPLE, device=dev)
+    X_eval = torch.from_numpy(data["X_eval"]).to(dev)
+    y_eval = torch.from_numpy(data["y_eval"]).to(dev)
+    ids_t = torch.from_numpy(ids).to(dev)
+
+    def held_out_auc(W):
+        return float(auc_roc(torch.einsum("nd,nd->n", X_eval, W[ids_t]), y_eval))
+
+    train_random_effects(**common)  # warm-up
+    arms, models = {}, {}
+    for arm, env in (("off", {}), ("off0", {"PHOTON_RE_PROJECT": "0"}), ("support", {"PHOTON_RE_PROJECT": "support"}),
+                     ("hash", {"PHOTON_RE_PROJECT": "hash", "PHOTON_RE_PROJECT_DIM": str(RE_PROJECT_DIM)})):
+        REGISTRY.reset("re_project.")
+        game_random_effect.reset_launch_counts()
+        saved = os.environ.pop("PHOTON_RE_PROJECT", None)
+        try:
+            with environment(env):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cold = train_random_effects(**common)
+                W, V = cold.coefficients, cold.variances
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                warm = train_random_effects(initial_coefficients=W, prior_coefficients=W, prior_variances=V, **common)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        finally:
+            if saved is not None:
+                os.environ["PHOTON_RE_PROJECT"] = saved
+        models[arm] = (W, V, warm.coefficients, warm.variances)
+        arms[arm] = dict(cold_wall_s=t1 - t0, warm_wall_s=t2 - t1,
+                         launches=game_random_effect.launch_counts["launches"],
+                         gauges=REGISTRY.snapshot("re_project.")["gauges"], held_out_auc=held_out_auc(W),
+                         warm_held_out_auc=held_out_auc(warm.coefficients),
+                         finite=bool(torch.isfinite(W).all() and torch.isfinite(warm.coefficients).all()))
+    off, sup, hsh = models["off"], models["support"], models["hash"]
+    gates = dict(
+        off0_bitwise=all(torch.equal(a, b) for a, b in zip(models["off0"], off))
+        and arms["off0"]["launches"] == arms["off"]["launches"],
+        support_auc=all(abs(arms["support"][k] - arms["off"][k]) <= 1e-4
+                        for k in ("held_out_auc", "warm_held_out_auc")),
+        support_narrower=arms["support"]["gauges"].get("re_project.mean_ratio", 1.0) < 1.0,
+        hash_auc=abs(arms["hash"]["held_out_auc"] - arms["off"]["held_out_auc"]) <= 0.005,
+        finite=all(a["finite"] for a in arms.values()),
+    )
+    rec = dict(entities=E, rows=n, d=RE_PROJECT_D, hash_dim=RE_PROJECT_DIM, arms=arms,
+               support_max_abs_diff=float((sup[0] - off[0]).abs().max()),
+               support_warm_max_abs_diff=float((sup[2] - off[2]).abs().max()),
+               support_within_lane_tolerance=all(bool(torch.allclose(a, b, **LANE_TOL))
+                                                 for a, b in zip(sup[::2], off[::2])),
+               hash_max_abs_diff=float((hsh[0] - off[0]).abs().max()))
+    # support against off at the reference test's stopping rule
+    converged = dict(common, config=OptimizerConfig(max_iterations=25, tolerance=1e-9))
+    with environment({"PHOTON_RE_PROJECT": "support"}):
+        W_sup = train_random_effects(**converged).coefficients
+    saved = os.environ.pop("PHOTON_RE_PROJECT", None)
+    try:
+        W_off = train_random_effects(**converged).coefficients
+    finally:
+        if saved is not None:
+            os.environ["PHOTON_RE_PROJECT"] = saved
+    buckets = common["buckets"]
+    classes, activity = class_activity(feats.X, buckets.capacities, buckets.row_indices)
+    ladder = projection_ladder(classes, activity, RE_PROJECT_D, "support", RE_PROJECT_DIM, None)
+    off_support = []
+    for cap, ent in zip(buckets.capacities, buckets.entity_ids):
+        spec = ladder[int(cap)]
+        if spec is not None:
+            outside = np.setdiff1d(np.arange(RE_PROJECT_D), spec.columns)
+            off_support.append(W_sup[torch.as_tensor(ent, device=dev)][:, torch.as_tensor(outside, device=dev)])
+    rec["converged"] = dict(max_iterations=25, tolerance=1e-9, support_max_abs_diff=float((W_sup - W_off).abs().max()),
+                            zeros_off_support=int(sum(int((t == 0).sum()) for t in off_support)),
+                            entries_off_support=int(sum(t.numel() for t in off_support)))
+    gates["support_converged_close"] = bool(torch.allclose(W_sup, W_off, **LANE_TOL))
+    gates["support_zero_off_support"] = (rec["converged"]["zeros_off_support"]
+                                         == rec["converged"]["entries_off_support"] > 0)
+    del feats, common, converged, W_sup, W_off
+    torch.cuda.empty_cache()
+    # the same rows out of core, support arm, one random effect and no fixed effect
+    opt = OptimizationConfig(optimizer=OptimizerConfig(max_iterations=4, tolerance=1e-8),
+                             regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0)
+    config = GameTrainingConfig(
+        task_type=TaskType.LOGISTIC_REGRESSION, coordinate_update_sequence=("per_user",),
+        coordinate_descent_iterations=1, fixed_effect_coordinates={},
+        random_effect_coordinates={"per_user": RandomEffectCoordinateConfig("userId", "user", opt)},
+        variance_computation=VarianceComputationType.SIMPLE)
+    host = StreamedGameData(labels=data["y"], features={"user": data["X"]}, id_tags={"userId": ids})
+    REGISTRY.reset("re_project.")
+    with environment({"PHOTON_RE_PROJECT": "support"}):
+        fit = fit_streamed(host, config, dev)
+    W_s = fit["model"]["per_user"].coefficients.to(dev)
+    rec["streamed_support"] = dict(wall_s=fit["wall_s"], gauges=REGISTRY.snapshot("re_project.")["gauges"],
+                                   held_out_auc=held_out_auc(W_s), re_launches=fit["re_launches"],
+                                   max_abs_diff_vs_in_memory=float((W_s - sup[0]).abs().max()))
+    gates["streamed_support_close"] = bool(torch.allclose(W_s, sup[0], rtol=1e-2, atol=2e-3))
+    prefetch.clear_cache()
+    return dict(rec, gates=gates)
 
 
 def profile_e(batch, effects: dict, dev, re_solver: str = "NEWTON_CHOLESKY") -> dict:
@@ -1618,13 +2054,13 @@ def lanes_vs_single(batch, X, tag: str, lane_W, visit, opt: OptimizationConfig, 
                 rows_max=int(counts[picks].max()), max_abs_diff=worst, ok=ok)
 
 
-def agreement_e_solvers(dev, newton: dict) -> dict:
+def agreement_e_solvers(dev, newton: dict) -> tuple[dict, dict]:
     """Config E at bench.py's shape with the random effects on L-BFGS,
     TRON, OWL-QN (ELASTIC_NET) and L-BFGS over a sparse per-user shard, 4
     outer iterations each; against ``agreement_e``'s Newton fit of the
     same shape (``newton``), the dense L-BFGS fit, the single-GLM solvers
     and, for the L-BFGS fit, the grouped validation metrics' host
-    versions."""
+    versions. Returns the record and each variant's model."""
     n, effects = E_BENCH
     batch, data = game_problem(dev, n, effects, seed=4)
     runs, models = {}, {}
@@ -1683,7 +2119,7 @@ def agreement_e_solvers(dev, newton: dict) -> dict:
               d_precision_at_5=abs(ev["card"]["PRECISION_AT_K(5,userId)"] - ev["precision_at_5_host"]),
               d_bucketed_auc=abs(ev["card"]["BUCKETED_AUC"] - ev["auc"]))
     return dict(n=n, effects={k: list(v) for k, v in effects.items()}, newton=dict(
-        train_auc=newton["train_auc"], train_log_loss=newton["train_log_loss"]), **runs)
+        train_auc=newton["train_auc"], train_log_loss=newton["train_log_loss"]), **runs), models
 
 
 # config E at its bench depth (64 global features and an intercept, 8 per user
@@ -4082,7 +4518,7 @@ def main() -> int:
 
     # config E at MovieLens-20M depth with the random effects on L-BFGS,
     # on main_e's batch; then the lane solvers' agreement at bench depth
-    e_lbfgs = run_e_lbfgs(dev, e_batch, e_data, e_rec)
+    e_lbfgs, e_lbfgs_model = run_e_lbfgs(dev, e_batch, e_data, e_rec)
     emit("main_e_lbfgs", **e_lbfgs)
     _check_game_launches("main_e_lbfgs", e_lbfgs)
     if not (e_lbfgs["quality_ok"] and e_lbfgs["d_auc_vs_newton"] <= 0.005
@@ -4090,6 +4526,15 @@ def main() -> int:
         raise AssertionError(f"config E on L-BFGS: AUC {e_lbfgs['train_auc']} (Newton "
                              f"{e_rec['train_auc']}, generating {e_lbfgs['auc_generating_model']}), "
                              f"relative d log-loss {e_lbfgs['rel_d_log_loss_vs_newton']}")
+    # the same fit with lane compaction and launch fusion: the same model, bit for bit
+    e_compact = run_e_lbfgs_compact(dev, e_batch, e_data, e_lbfgs, e_lbfgs_model)
+    del e_lbfgs_model
+    emit("main_e_lbfgs_compact", **e_compact)
+    _check_game_launches("main_e_lbfgs_compact", e_compact)
+    if not (e_compact["models"]["within_lane_tolerance"] and e_compact["d_auc_vs_off"] <= 1e-4
+            and e_compact["rel_d_log_loss_vs_off"] <= 1e-4):
+        raise AssertionError(f"main_e_lbfgs_compact: knob on against off {e_compact['models']}, "
+                             f"dAUC {e_compact['d_auc_vs_off']}")
     # the same batch with the per-user subspace and the per-item random projection
     e_proj = run_e_projected(dev, e_batch, e_data, e_lbfgs)
     e_host, e_mem = e_streamed_reference(dev, e_batch, e_data)
@@ -4140,7 +4585,7 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_e_streamed_multihost_re_shard failed: {failed}")
-    solvers = agreement_e_solvers(dev, agree_e["fused"])
+    solvers, solver_models = agreement_e_solvers(dev, agree_e["fused"])
     emit("agreement_e_solvers", **solvers)
     ev = solvers["lbfgs"]["evaluators"]
     failed = [name for name, ok in (
@@ -4159,6 +4604,27 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"agreement_e_solvers failed: {failed}")
+    # the schedule knobs: R_re_skew's sweep, OWL-QN and TRON at bench depth, E streamed
+    re_skew = run_re_skew(dev)
+    re_skew["bench_depth"] = run_e_solvers_compact(dev, solver_models)
+    del solver_models
+    emit("re_skew", **re_skew)
+    if not (re_skew["within_lane_tolerance"]
+            and all(r["models"]["within_lane_tolerance"] for r in re_skew["bench_depth"].values())):
+        raise AssertionError("re_skew: a knob cell is outside the lane tolerance of the knob-off cell")
+    for name, r in re_skew["bench_depth"].items():
+        _check_game_launches(f"re_skew[{name}]", r)
+    e_streamed_compact = run_e_streamed_compact(dev)
+    emit("main_e_streamed_compact", **e_streamed_compact)
+    if not (e_streamed_compact["models"]["within_lane_tolerance"] and e_streamed_compact["launches_ok"]):
+        raise AssertionError(f"main_e_streamed_compact failed: {e_streamed_compact['models']}, "
+                             f"launches {e_streamed_compact['launches']}")
+    # capacity-class projection at MovieLens-20M's users
+    re_project = run_re_project(dev)
+    emit("main_re_project", **re_project)
+    failed = [name for name, ok in re_project["gates"].items() if not ok]
+    if failed:
+        raise AssertionError(f"main_re_project failed: {failed}")
 
     # main path GAME CLI: the train and score drivers on Avro part files,
     # every read on the native decoder; then the drivers with every option
@@ -4368,6 +4834,9 @@ def main() -> int:
         k: {"main_a": a["launches"][k], "main_a_sweep": sweep["launches"][k],
             "main_b": b["launches"][k], "main_d": d_rec["launches"][k],
             "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k],
+            "main_e_lbfgs_compact": e_compact["launches"][k],
+            "main_e_streamed_compact": e_streamed_compact["launches"][k],
+            **{f"re_skew[{name}]": r["launches"][k] for name, r in re_skew["bench_depth"].items()},
             "main_e_projected": e_proj["launches"][k], "main_game_cli": cli["launches"][k],
             "main_game_cli_full": full["launches"][k],
             **{path: rec["launches"][k]

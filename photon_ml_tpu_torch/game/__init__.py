@@ -1,7 +1,8 @@
-"""GAME (generalized additive mixed effects) training, in memory: one
+"""GAME (generalized additive mixed effects) training: in memory, one
 columnar ``GameBatch`` on the device, entities grouped and bucketed once on
-the host, each random effect solved as lanes of one batched damped-Newton
-loop per bucket, and coordinate descent over the coordinates' residuals.
+the host, each random effect solved as lanes of one batched lane solver
+per bucket, and coordinate descent over the coordinates' residuals; out of
+core, ``StreamedGameTrainer`` over host-resident ``StreamedGameData``.
 The fixed effect's objective passes run on K1 (``ops/fused.py``)."""
 
 from photon_ml_tpu_torch.game.data import (  # noqa: F401
@@ -32,3 +33,4 @@ from photon_ml_tpu_torch.game.coordinate import (  # noqa: F401
     RandomEffectCoordinate,
 )
 from photon_ml_tpu_torch.game.descent import CoordinateDescent, CoordinateDescentResult  # noqa: F401
+from photon_ml_tpu_torch.game.streaming import StreamedGameData, StreamedGameTrainer  # noqa: F401

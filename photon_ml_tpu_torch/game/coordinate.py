@@ -51,6 +51,8 @@ from photon_ml_tpu_torch.game.models import FixedEffectModel, GameSubModel, Rand
 from photon_ml_tpu_torch.game.projector import RandomProjector
 from photon_ml_tpu_torch.game.random_effect import (
     RandomEffectTrainingResult,
+    _fusion_units,
+    fuse_buckets,
     prepare_buckets,
     train_prepared,
 )
@@ -357,13 +359,32 @@ class RandomEffectCoordinate:
             object.__setattr__(self, "_prepared_cache", cached)
         return cached
 
+    def _staged_fusion_units(self):
+        """The fused launch units of the prepared buckets
+        (``PHOTON_RE_FUSE_BUCKETS``), concatenated once and kept across
+        visits, as the reference's coordinate keeps them: rebuilding them
+        every visit would copy every static bucket tensor. None when fusion
+        does not apply (the knob off, one bucket, or lanes sharded over a
+        mesh, which the prepared buckets, not the knob, tell)."""
+        prepared = self._prepared
+        lane_sharded = self.mesh is not None and not any(pb.owner is not None for pb in prepared)
+        if lane_sharded or len(prepared) < 2 or not fuse_buckets():
+            return None
+        units = self.__dict__.get("_fusion_units_cache")
+        if units is None:
+            units = _fusion_units(prepared)
+            object.__setattr__(self, "_fusion_units_cache", units)
+        return units
+
     def with_config(self, config: OptimizationConfig) -> "RandomEffectCoordinate":
         """A copy bound to another optimization config that shares the
-        prepared bucket tensors (they depend on the data alone)."""
+        prepared bucket tensors and fused units (they depend on the data
+        alone)."""
         new = dataclasses.replace(self, config=config)
-        cached = self.__dict__.get("_prepared_cache")
-        if cached is not None:
-            object.__setattr__(new, "_prepared_cache", cached)
+        for key in ("_prepared_cache", "_fusion_units_cache"):
+            cached = self.__dict__.get(key)
+            if cached is not None:
+                object.__setattr__(new, key, cached)
         return new
 
     def train(
@@ -406,6 +427,7 @@ class RandomEffectCoordinate:
             prior_coefficients=prior_W,
             prior_variances=prior_V,
             mesh=self.mesh,
+            fusion_units=self._staged_fusion_units(),
         )
         coefficients, variances = result.coefficients, result.variances
         if P is not None:

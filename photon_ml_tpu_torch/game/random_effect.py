@@ -46,10 +46,39 @@ every process in bucket order (``_combine_owned``). A bucket solves
 exactly as without a mesh, so the result is bitwise the unsharded
 solve's on one process and across processes.
 
-Knobs that wait for other ROADMAP items raise when set: the capacity
-class projection (``PHOTON_RE_PROJECT``, item 12d-ii) everywhere; the
-sub-bucket split, its weight axis, the device split and the owner-segment
-combine (``PHOTON_RE_SPLIT``, ``PHOTON_RE_SPLIT_WEIGHT``,
+Three knobs, read at call time, reshape the one-card solve:
+
+- ``PHOTON_RE_COMPACT_EVERY=c`` (lane compaction) runs each bucket's
+  lanes through the solver's chunked twins (``select_chunked_solver``) c
+  iterations at a time. After each chunk the lanes' ``done`` and ``it``
+  are read back once, and the still-active lanes are gathered into a
+  smaller front (a power of two, never below 2 lanes for a bucket of more
+  than one), so converged lanes stop costing iterations
+  (``_solve_bucket_compacted``). Newton has no chunked twin and keeps one
+  launch.
+- ``PHOTON_RE_FUSE_BUCKETS=1`` concatenates buckets of one launch
+  geometry (``_bucket_geometry``) into one launch unit
+  (``_fusion_units``); a one-lane bucket stays alone.
+- ``PHOTON_RE_PROJECT=support|hash`` solves every bucket of a capacity
+  class over the class's active columns, folded to
+  ``PHOTON_RE_PROJECT_DIM`` signed slots under ``hash``
+  (``game/projector.py``): warm starts and priors are folded the same way
+  (``_hash_fold_lanes``), and the solutions are expanded and written back
+  with zeros off the support.
+
+Compaction and fusion change the launch schedule and not the lanes'
+arithmetic, but a front or a fused unit is a batch of another lane count,
+and a lane's bits can move with it: on the CPU through ``torch.sigmoid``'s
+vector body against its tail, on the card through the batched products'
+and the reductions' kernel choice at larger lane counts (ROADMAP queue 3,
+``scripts/lane_bits.py``). So the knob-on model is bitwise the knob-off
+one where the shapes keep their kernels, and otherwise within the lane
+solvers' tolerance. Over a lane-sharded mesh both keep the classic
+schedule; owned buckets take them per bucket.
+
+Knobs that wait for another ROADMAP item raise when set: the sub-bucket
+split, its weight axis, the device split and the owner-segment combine
+(``PHOTON_RE_SPLIT``, ``PHOTON_RE_SPLIT_WEIGHT``,
 ``PHOTON_RE_DEVICE_SPLIT``, ``PHOTON_RE_COMBINE=segments``, item 12d-iii)
 under a mesh and out of core (``refuse_waiting_knobs``).
 
@@ -59,17 +88,19 @@ bucket on the host every visit): the same lane solve, its results left
 on the card, and its launch counted in ``launch_counts`` with the
 iteration read deferred to one ``DeferredLaunchAccounting.flush``. Both
 entry points count their launches into the metrics registry
-(``re_solve.launches``) and, while a telemetry sink is active or with
-``PHOTON_RE_ITER_ACCOUNTING=1``, the executed and useful entity
+(``re_solve.launches``: one per single-launch solve; init, each chunk
+and finalize under compaction) and, while a telemetry sink is active or
+with ``PHOTON_RE_ITER_ACCOUNTING=1``, the executed and useful entity
 iterations (``re_solve.*``); otherwise nothing is read back for them. The
-reference's compacted and fused launch schedules (ROADMAP queue 1 item
-15) raise when their knobs are set.
+compacted schedule reads them between its chunks anyway and always
+counts them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -80,7 +111,13 @@ import torch
 from photon_ml_tpu_torch._device import check_device
 from photon_ml_tpu_torch.config import OptimizerConfig
 from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets, Features
-from photon_ml_tpu_torch.game.projector import subspace_columns
+from photon_ml_tpu_torch.game.projector import (
+    class_activity,
+    projection_ladder,
+    re_project_dim,
+    re_project_mode,
+    subspace_columns,
+)
 from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.obs import sink as obs_sink
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
@@ -88,12 +125,47 @@ from photon_ml_tpu_torch.obs.spans import emit_event
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_lane_objective
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
-from photon_ml_tpu_torch.optim.common import select_minimize_fn
+from photon_ml_tpu_torch.optim.common import (
+    hash_expand_coefficients,
+    hash_expand_variances,
+    hash_fold_prior,
+    hash_fold_warm_start,
+    select_chunked_solver,
+    select_minimize_fn,
+)
 from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, shard_extent
-from photon_ml_tpu_torch.parallel.placement import plan_shard_placement, re_shard_enabled, record_placement_metrics
+from photon_ml_tpu_torch.parallel.placement import (
+    plan_shard_placement,
+    re_shard_enabled,
+    record_placement_metrics,
+    record_projection_metrics,
+)
 from photon_ml_tpu_torch.types import VarianceComputationType
 
 Tensor = torch.Tensor
+
+# The schedule knobs, read at call time (the environment over these module
+# values): PHOTON_RE_COMPACT_EVERY iterations per chunk (0: one launch a
+# bucket), PHOTON_RE_FUSE_BUCKETS (1: one launch per bucket geometry).
+COMPACT_EVERY = 0
+FUSE_BUCKETS = 0
+
+
+def compact_every() -> int:
+    """``PHOTON_RE_COMPACT_EVERY`` (environment over ``COMPACT_EVERY``),
+    0 = off."""
+    env = os.environ.get("PHOTON_RE_COMPACT_EVERY")
+    if env is not None and env != "":
+        return max(int(env), 0)
+    return max(int(COMPACT_EVERY), 0)
+
+
+def fuse_buckets() -> bool:
+    """``PHOTON_RE_FUSE_BUCKETS`` (environment over ``FUSE_BUCKETS``)."""
+    env = os.environ.get("PHOTON_RE_FUSE_BUCKETS")
+    if env is not None and env != "":
+        return int(env) != 0
+    return int(FUSE_BUCKETS) != 0
 
 
 @dataclass(frozen=True)
@@ -174,8 +246,10 @@ class RandomEffectTrainingResult:
 class PreparedBucket:
     """One bucket's static tensors on the device, built once: descent
     visits change only the offsets. ``columns``, under subspace
-    projection, maps each entity's p solve slots to its feature columns;
-    the static features are already gathered to (k, C, p)."""
+    projection (and the capacity-class projection), maps each entity's p
+    solve slots to its feature columns; the static features are already
+    gathered to (k, C, p), and under a hash fold folded on to (k, C, m)
+    by ``hash_S``."""
 
     entity_ids: np.ndarray  # (k,) entity ids (host)
     # the device tensors; None on a bucket another process owns (owned mode)
@@ -191,6 +265,11 @@ class PreparedBucket:
     # owned mode (PHOTON_RE_SHARD=1 over a mesh): the process that solves
     # this whole bucket; None in the lane-sharded and unsharded schedules
     owner: int | None = None
+    # the capacity class's projection (PHOTON_RE_PROJECT; None: full
+    # width), set on every bucket of a projected preparation, and its
+    # (d_e, m) signed fold on the bucket's device when the class folds
+    project: object | None = None
+    hash_S: Tensor | None = None
 
     @property
     def num_real(self) -> int:
@@ -210,10 +289,13 @@ def _prepare_one(
     features_to_samples_ratio: float | None,
     intercept_index: int | None,
     device: torch.device,
+    spec=None,
     **where,
 ) -> PreparedBucket:
     """One bucket's (or one shard's lanes') static tensors, gathered where
-    the features lie and staged on ``device``."""
+    the features lie and staged on ``device``; ``spec`` (a dense bucket's
+    ``ClassProjection``) gathers them to the class support and folds them
+    when the class hashes."""
     dense = isinstance(features, DenseFeatures)
     src = (features.X if dense else features.values).device
     raw = torch.as_tensor(rows, dtype=torch.int64, device=src)
@@ -221,9 +303,18 @@ def _prepare_one(
     idx = torch.clamp_min(raw, 0)
     columns = dict(labels=(labels[idx] * mask).to(device), offsets=torch.zeros_like(mask, device=device),
                    weights=(weights[idx] * mask).to(device))
-    cols = None
+    cols = hash_S = None
     if dense:
         static = DenseBatch(X=(features.X[idx].float() * mask.unsqueeze(-1)).to(device), **columns)
+        if spec is not None:
+            # one shared column set per class; the intercept (the last
+            # column) lands at slot d_e - 1
+            cols = torch.as_tensor(spec.columns, device=device).expand(len(rows), -1).contiguous()
+            X = static.X[:, :, cols[0]]
+            if spec.hash_dim is not None:
+                hash_S = torch.from_numpy(spec.hash_matrix()).to(device)
+                X = X @ hash_S
+            static = dataclasses.replace(static, X=X)
         if features_to_samples_ratio is not None:
             cols = subspace_columns(static.X, features_to_samples_ratio, intercept_index)
             if cols is not None:
@@ -243,6 +334,8 @@ def _prepare_one(
         row_idx=idx.to(device),
         mask=mask.to(device),
         columns=cols,
+        project=spec,
+        hash_S=hash_S,
         **where,
     )
 
@@ -270,10 +363,23 @@ def prepare_buckets(
     the features may then lie on the host. Under ``PHOTON_RE_SHARD=1`` a
     mesh prepares owned buckets instead (module docstring): the buckets
     this process owns whole, on its first local device, and host
-    bookkeeping only (entity ids, owner) for the rest."""
+    bookkeeping only (entity ids, owner) for the rest.
+
+    ``PHOTON_RE_PROJECT`` (support / hash) derives one projection per
+    capacity class from the classes' column activity over the whole batch
+    (``class_activity``, ``projection_ladder``: the batch is the same on
+    every process, so is the ladder) and gathers every dense bucket of a
+    projected class to the class support (folded under ``hash``). It
+    refuses ``features_to_samples_ratio`` (two column maps) and sparse
+    features, as the reference does."""
     refuse_waiting_knobs(mesh is not None)
     dense = isinstance(features, DenseFeatures)
     src = (features.X if dense else features.values).device
+    ladder = _projection_ladder(features, buckets, features_to_samples_ratio, intercept_index)
+
+    def spec_of(rows):
+        return None if ladder is None else ladder.get(int(np.asarray(rows).shape[1]))
+
     prepared = []
     owners = None
     if mesh is not None and re_shard_enabled():
@@ -285,14 +391,14 @@ def prepare_buckets(
             owner = int(owners[b])
             if owner != pm.process_index:
                 prepared.append(PreparedBucket(entity_ids=np.asarray(ent_ids), ids=None, static=None, row_idx=None,
-                                               mask=None, bucket=b, owner=owner))
+                                               mask=None, bucket=b, owner=owner, project=spec_of(rows)))
             else:
                 prepared.append(_prepare_one(features, labels, weights, ent_ids, rows, features_to_samples_ratio,
-                                             intercept_index, pm.head, bucket=b, owner=owner))
+                                             intercept_index, pm.head, spec=spec_of(rows), bucket=b, owner=owner))
             continue
         if mesh is None:
             prepared.append(_prepare_one(features, labels, weights, ent_ids, rows, features_to_samples_ratio,
-                                         intercept_index, src))
+                                         intercept_index, src, spec=spec_of(rows)))
             continue
         pm = as_process_mesh(mesh)
         k = len(ent_ids)
@@ -305,8 +411,32 @@ def prepare_buckets(
             lanes[: hi - lo] = rows[lo:hi]
             prepared.append(_prepare_one(features, labels, weights, ent_ids[lo:hi], lanes,
                                          features_to_samples_ratio, intercept_index, dev,
-                                         bucket=b, shard=shard))
+                                         spec=spec_of(rows), bucket=b, shard=shard))
+    if ladder is not None:
+        d = int(features.num_features)
+        record_projection_metrics([(pb.num_real, d if pb.project is None else pb.project.dim)
+                                   for pb in prepared], d)
+        emit_event("re_project", mode=re_project_mode(), full_dim=d, classes=[
+            {"capacity": int(c), "support_dim": d if p is None else p.support_dim,
+             "dim": d if p is None else p.dim, "hashed": bool(p is not None and p.hash_dim is not None)}
+            for c, p in sorted(ladder.items())])
     return prepared
+
+
+def _projection_ladder(features: Features, buckets: EntityBuckets, features_to_samples_ratio: float | None,
+                       intercept_index: int | None) -> dict | None:
+    """The capacity classes' projections under ``PHOTON_RE_PROJECT`` (None
+    when it is off), with the reference's refusals."""
+    mode = re_project_mode()
+    if mode == "0":
+        return None
+    if features_to_samples_ratio is not None:
+        raise ValueError("PHOTON_RE_PROJECT and features_to_samples_ratio are mutually exclusive "
+                         "(two competing per-entity column maps)")
+    if not isinstance(features, DenseFeatures):
+        raise ValueError("PHOTON_RE_PROJECT requires dense features (sparse rows are already width-bounded)")
+    classes, activity = class_activity(features.X, buckets.capacities, buckets.row_indices)
+    return projection_ladder(classes, activity, features.num_features, mode, re_project_dim(), intercept_index)
 
 
 def train_random_effects(
@@ -341,7 +471,8 @@ def train_random_effects(
     def col(a, where=dev):
         return torch.as_tensor(a, dtype=torch.float32, device=where)
 
-    prepared = prepare_buckets(features, col(labels), col(weights), buckets, mesh=mesh)
+    prepared = prepare_buckets(features, col(labels), col(weights), buckets, intercept_index=intercept_index,
+                               mesh=mesh)
     return train_prepared(
         prepared, col(offsets, head), features.num_features, num_entities, loss, config,
         l2_weight=l2_weight, l1_weight=l1_weight, intercept_index=intercept_index,
@@ -366,6 +497,7 @@ def train_prepared(
     prior_coefficients: Tensor | None = None,
     prior_variances: Tensor | None = None,
     mesh: Mesh | ProcessMesh | None = None,
+    fusion_units: list | None = None,
 ) -> RandomEffectTrainingResult:
     """Solve every prepared bucket against the current (n,) residual
     ``offsets``, one bucket step per bucket. ``norm`` (shared by all
@@ -380,7 +512,13 @@ def train_prepared(
     ``_combine_owned`` across processes).
     Every bucket solve counts ``re_solve.launches``; the entity-iteration
     counts read the iterations back once, at the end, only while
-    ``iter_accounting_enabled``."""
+    ``iter_accounting_enabled``.
+
+    Without a lane-sharded mesh, ``PHOTON_RE_FUSE_BUCKETS`` solves
+    ``_fusion_units(prepared)`` (or the caller's ``fusion_units``, the same
+    units staged once) and ``PHOTON_RE_COMPACT_EVERY`` runs each launch
+    compacted (module docstring); the per-entity diagnostics come back per
+    bucket either way."""
     if norm is not None and any(pb.columns is not None for pb in prepared):
         # before any bucket solves, not data-dependently mid-loop
         raise NotImplementedError(
@@ -413,24 +551,30 @@ def train_prepared(
     kw = dict(loss=loss, config=config, intercept_index=intercept_index,
               variance_computation=variance_computation, minimize_fn=minimize_fn, minimize_kwargs=extra)
     acct = DeferredLaunchAccounting()
-    if any(pb.owner is not None for pb in prepared):
-        # owned mode: this process's whole buckets, each as without a mesh
-        pm = as_process_mesh(mesh)
+    owned = any(pb.owner is not None for pb in prepared)
+    if owned or mesh is None:
+        # whole buckets (owned mode: this process's, each as without a
+        # mesh), in launch units: one per bucket, or fused by geometry
+        ce = compact_every()
+        chunked = select_chunked_solver(config, l1_weight)[0] if ce > 0 else None
+        if fuse_buckets() and len(prepared) > 1:
+            units = fusion_units if fusion_units is not None else _fusion_units(prepared)
+        else:
+            units = [(pb, [(i, 0, pb.num_real)]) for i, pb in enumerate(prepared)]
+        pid = as_process_mesh(mesh).process_index if owned else None
         diag = [None] * len(prepared)
-        for i, pb in enumerate(prepared):
-            if pb.owner != pm.process_index:
+        for pb, members in units:
+            if owned and pb.owner != pid:
                 continue  # another process's: its rows arrive in the combine
-            step = _bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, **kw)
-            acct.add(step[1], pb.static.labels.shape[0])
-            diag[i] = (pb.entity_ids, *step)
-        if pm.spans_processes:
-            diag = _combine_owned(pm, W, V, prepared, diag)
-    elif mesh is None:
-        diag = []
-        for pb in prepared:
-            step = _bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, **kw)
-            acct.add(step[1], pb.static.labels.shape[0])
-            diag.append((pb.entity_ids, *step))
+            step = _bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, chunked=chunked,
+                                compact_every_n=ce, **kw)
+            if chunked is None:
+                acct.add(step[1], pb.static.labels.shape[0])
+            for i, lo, hi in members:
+                whole = lo == 0 and hi == pb.num_real
+                diag[i] = (prepared[i].entity_ids, *(t if whole else t[lo:hi] for t in step))
+        if owned and as_process_mesh(mesh).spans_processes:
+            diag = _combine_owned(as_process_mesh(mesh), W, V, prepared, diag)
     else:
         solved = []
         for pb in prepared:
@@ -515,23 +659,58 @@ def _bucket_step(
     variance_computation: VarianceComputationType,
     minimize_fn,
     minimize_kwargs: dict,
+    chunked=None,
+    compact_every_n: int = 0,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """One bucket: gather its rows' residual offsets, extract the warm-start
-    and prior lanes, solve the k lanes together, and scatter the solutions
-    (and variances) into W (and V) in place. Returns the lanes' (k,) final
-    objective, iterations, reason and objective passes."""
+    """One bucket (or fused unit): gather its rows' residual offsets,
+    extract the warm-start and prior lanes (folded under a hash
+    projection), solve the k lanes together, in one launch or compacted
+    (``chunked``), and scatter the solutions (and variances), expanded
+    back to the support, into W (and V) in place. Returns the lanes' (k,)
+    final objective, iterations, reason and objective passes."""
     batch = dataclasses.replace(pb.static, offsets=offsets[pb.row_idx] * pb.mask)
-    if pb.columns is not None and intercept_index is not None:
-        intercept_index = pb.columns.shape[1] - 1  # the intercept is each subspace's last slot
-    w, var, *diag = _solve_lanes(
-        batch, _extract_lanes(W, pb.ids, pb.columns), l2_weight, norm,
-        _extract_lanes(prior_mu, pb.ids, pb.columns), _extract_lanes(prior_var, pb.ids, pb.columns),
-        loss=loss, config=config, intercept_index=intercept_index,
-        variance_computation=variance_computation, minimize_fn=minimize_fn,
-        minimize_kwargs=minimize_kwargs,
+    w0, mu, var0 = (_extract_lanes(M, pb.ids, pb.columns) for M in (W, prior_mu, prior_var))
+    intercept_index = _solve_intercept(pb, intercept_index)
+    if pb.hash_S is not None:
+        w0, mu, var0 = _hash_fold_lanes(w0, mu, var0, pb.hash_S)
+    solve = _solve_lanes if chunked is None else functools.partial(
+        _solve_bucket_compacted, chunked=chunked, compact_every_n=compact_every_n)
+    w, var, *diag = solve(
+        batch, w0, l2_weight, norm, mu, var0, loss=loss, config=config, intercept_index=intercept_index,
+        variance_computation=variance_computation, minimize_fn=minimize_fn, minimize_kwargs=minimize_kwargs,
     )
+    if pb.hash_S is not None:
+        w, var = _hash_expand_lanes(w, var, pb.hash_S)
     _scatter_lanes(W, V, pb.ids, pb.columns, w, var)
     return tuple(diag)
+
+
+def _solve_intercept(pb: PreparedBucket, intercept_index: int | None) -> int | None:
+    """The intercept's slot in a bucket's solve: the last of each subspace
+    (the intercept is the last column, columns ascend), and the last hash
+    slot, which the fold keeps for it alone."""
+    if intercept_index is None:
+        return None
+    if pb.hash_S is not None:
+        return pb.hash_S.shape[1] - 1
+    return intercept_index if pb.columns is None else pb.columns.shape[1] - 1
+
+
+def _hash_fold_lanes(w0: Tensor, mu: Tensor | None, var: Tensor | None, hash_S: Tensor):
+    """A bucket's support-width warm-start and prior lanes folded to the
+    hash width: the prior's means and variances together (by precision),
+    so the folded penalty is the full one restricted to the subspace; means
+    alone fold like a warm start (no variances: the plain-L2 prior)."""
+    w0 = hash_fold_warm_start(w0, hash_S)
+    if mu is not None and var is not None:
+        mu, var = hash_fold_prior(mu, var, hash_S)
+    elif mu is not None:
+        mu = hash_fold_warm_start(mu, hash_S)
+    return w0, mu, var
+
+
+def _hash_expand_lanes(w: Tensor, var: Tensor | None, hash_S: Tensor):
+    return hash_expand_coefficients(w, hash_S), None if var is None else hash_expand_variances(var, hash_S)
 
 
 def _on(device: torch.device):
@@ -563,9 +742,7 @@ def _shard_step(
     dev = pb.static.labels.device
     k, lanes = pb.num_real, pb.static.labels.shape[0]
     cols = None if pb.columns is None else pb.columns[:k]
-    intercept_index = kw.pop("intercept_index")
-    if pb.columns is not None and intercept_index is not None:
-        intercept_index = pb.columns.shape[1] - 1  # the intercept is each subspace's last slot
+    intercept_index = _solve_intercept(pb, kw.pop("intercept_index"))
     with _on(dev):
         ids = pb.ids
         batch = dataclasses.replace(pb.static, offsets=offsets.to(dev)[pb.row_idx] * pb.mask)
@@ -573,11 +750,16 @@ def _shard_step(
         def lanes_of(M, fill=0.0):
             return None if M is None else _pad_lanes(_extract_lanes(M.to(dev), ids, cols), lanes, fill)
 
-        out = _solve_lanes(
-            batch, lanes_of(W), l2_weight.to(dev), None if norm is None else norm.to(dev), lanes_of(prior_mu),
-            lanes_of(prior_var, 1.0), intercept_index=intercept_index, **kw,
+        w0, mu, var0 = lanes_of(W), lanes_of(prior_mu), lanes_of(prior_var, 1.0)
+        if pb.hash_S is not None:
+            w0, mu, var0 = _hash_fold_lanes(w0, mu, var0, pb.hash_S)
+        w, var, *diag = _solve_lanes(
+            batch, w0, l2_weight.to(dev), None if norm is None else norm.to(dev), mu, var0,
+            intercept_index=intercept_index, **kw,
         )
-    return tuple(None if t is None else t[:k] for t in out)
+        if pb.hash_S is not None:
+            w, var = _hash_expand_lanes(w, var, pb.hash_S)
+    return tuple(None if t is None else t[:k] for t in (w, var, *diag))
 
 
 def _combine_shards(mesh: ProcessMesh, W: Tensor, V: Tensor | None, solved: list) -> list:
@@ -705,6 +887,57 @@ def plan_fusion_groups(keys: list, lanes: list[int]) -> list[tuple[list[int], li
     return plan
 
 
+def _bucket_geometry(pb: PreparedBucket) -> tuple:
+    """The launch geometry of a prepared bucket: its static tensors' kind,
+    shapes past the lane axis and dtypes, its capacity, its solve width
+    and its hash fold's. Buckets of one geometry solve as one launch
+    unit with their lanes concatenated."""
+    static = tuple(
+        (f.name, tuple(v.shape[1:]), str(v.dtype)) if isinstance(v, Tensor) else (f.name, v)
+        for f in dataclasses.fields(pb.static) for v in (getattr(pb.static, f.name),)
+    )
+    return (
+        type(pb.static).__name__, static, tuple(pb.row_idx.shape[1:]), str(pb.row_idx.device),
+        None if pb.columns is None else pb.columns.shape[1],
+        None if pb.hash_S is None else tuple(pb.hash_S.shape),
+    )
+
+
+def _fusion_units(prepared: list[PreparedBucket]) -> list[tuple[PreparedBucket, list[tuple[int, int, int]]]]:
+    """Same-geometry buckets fused into launch units (``PHOTON_RE_FUSE_BUCKETS``):
+    ``(unit, members)`` pairs, ``members`` each bucket's ``(index, lo, hi)``
+    lane range in the unit, through which the diagnostics are sliced back.
+    Entity ids partition the buckets, so the unit's scatter writes the
+    same rows. A bucket another process owns stays a unit of its own."""
+    return _concat_units(prepared, [("__remote__", i) if pb.static is None else _bucket_geometry(pb)
+                                    for i, pb in enumerate(prepared)])
+
+
+def _concat_units(prepared: list[PreparedBucket],
+                  keys: list) -> list[tuple[PreparedBucket, list[tuple[int, int, int]]]]:
+    """One launch unit per ``plan_fusion_groups`` group of ``keys``: the
+    members' static tensors concatenated along the lanes (a copy), a
+    group of one passed through."""
+    units = []
+    for idxs, members in plan_fusion_groups(keys, [pb.num_real for pb in prepared]):
+        if len(idxs) == 1:
+            units.append((prepared[idxs[0]], members))
+            continue
+        group = [prepared[i] for i in idxs]
+        first = group[0]
+        static = dataclasses.replace(first.static, **{
+            f.name: torch.cat([getattr(pb.static, f.name) for pb in group])
+            for f in dataclasses.fields(first.static) if isinstance(getattr(first.static, f.name), Tensor)})
+        units.append((PreparedBucket(
+            entity_ids=np.concatenate([pb.entity_ids for pb in group]), ids=torch.cat([pb.ids for pb in group]),
+            static=static, row_idx=torch.cat([pb.row_idx for pb in group]),
+            mask=torch.cat([pb.mask for pb in group]),
+            columns=None if first.columns is None else torch.cat([pb.columns for pb in group]),
+            bucket=first.bucket, owner=first.owner, project=first.project, hash_S=first.hash_S,
+        ), members))
+    return units
+
+
 def _plan_bucket_owners(buckets: EntityBuckets, num_processes: int, process_index: int) -> np.ndarray:
     """Whole-bucket owners over ``num_processes``, decided before any
     staging: LPT over Σ active rows (Zipf traffic puts most rows behind a
@@ -724,16 +957,16 @@ def _plan_bucket_owners(buckets: EntityBuckets, num_processes: int, process_inde
 
 def refuse_waiting_knobs(placed: bool) -> None:
     """Raise, naming the ROADMAP item, on a random-effect knob the port
-    does not have yet: ``PHOTON_RE_PROJECT`` (12d-ii) whenever it is set;
-    with ``placed`` (a mesh, or the out-of-core trainer) also
-    ``PHOTON_RE_SPLIT``, ``PHOTON_RE_DEVICE_SPLIT``,
+    does not have yet: with ``placed`` (a mesh, or the out-of-core
+    trainer) ``PHOTON_RE_SPLIT``, ``PHOTON_RE_DEVICE_SPLIT``,
     ``PHOTON_RE_SPLIT_WEIGHT`` and ``PHOTON_RE_COMBINE`` at any value but
-    their defaults (12d-iii). Without this a set knob would be dropped
-    without a word and train another model than the reference's."""
-    waiting = {"PHOTON_RE_PROJECT": "12d-ii (capacity-class projection)"}
-    if placed:
-        waiting.update(dict.fromkeys(("PHOTON_RE_SPLIT", "PHOTON_RE_DEVICE_SPLIT", "PHOTON_RE_SPLIT_WEIGHT",
-                                      "PHOTON_RE_COMBINE"), "12d-iii (split, combine, device split)"))
+    their defaults (12d-iii; without a mesh the reference ignores them
+    too). Without this a set knob would be dropped without a word and
+    train another model than the reference's."""
+    if not placed:
+        return
+    waiting = dict.fromkeys(("PHOTON_RE_SPLIT", "PHOTON_RE_DEVICE_SPLIT", "PHOTON_RE_SPLIT_WEIGHT",
+                             "PHOTON_RE_COMBINE"), "12d-iii (split, combine, device split)")
     defaults = {"PHOTON_RE_SPLIT_WEIGHT": "rows", "PHOTON_RE_COMBINE": "allreduce"}
     for name, item in waiting.items():
         value = os.environ.get(name)
@@ -769,15 +1002,6 @@ def iter_accounting_enabled() -> bool:
     return obs_sink.is_active()
 
 
-def _knob_waits_for_item_15(name: str) -> None:
-    env = os.environ.get(name)
-    if env not in (None, "", "0"):
-        raise NotImplementedError(
-            f"{name}={env} changes the random-effect launch schedule; it waits for "
-            "ROADMAP queue 1 item 15 (set it to 0 or unset it)"
-        )
-
-
 class DeferredLaunchAccounting:
     """Launch accounting that never waits for the card inside a solve
     loop: ``add`` counts the launch at once and, when
@@ -792,8 +1016,7 @@ class DeferredLaunchAccounting:
         self._pending: list[tuple[Tensor, int]] = []
 
     def add(self, it_lane: Tensor, lanes: int) -> None:
-        launch_counts["launches"] += 1
-        REGISTRY.counter_inc("re_solve.launches")
+        _count_launch()
         if iter_accounting_enabled():
             self._pending.append((it_lane, int(lanes)))
 
@@ -809,13 +1032,127 @@ class DeferredLaunchAccounting:
             part = its[lo:lo + n]
             lo += n
             executed, useful = int(part.max(initial=0)) * lanes, int(part.sum())
-            launch_counts["executed_entity_iterations"] += executed
-            launch_counts["useful_entity_iterations"] += useful
-            REGISTRY.counter_inc("re_solve.executed_entity_iterations", float(executed))
-            REGISTRY.counter_inc("re_solve.useful_entity_iterations", float(useful))
+            _count_iterations(executed, useful)
             if executed:
                 REGISTRY.gauge_set("re_solve.active_lane_fraction", useful / executed)
         self._pending.clear()
+
+
+def _count_launch() -> None:
+    launch_counts["launches"] += 1
+    REGISTRY.counter_inc("re_solve.launches")
+
+
+def _count_iterations(executed: int, useful: int) -> None:
+    launch_counts["executed_entity_iterations"] += executed
+    launch_counts["useful_entity_iterations"] += useful
+    REGISTRY.counter_inc("re_solve.executed_entity_iterations", float(executed))
+    REGISTRY.counter_inc("re_solve.useful_entity_iterations", float(useful))
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def _solve_bucket_compacted(
+    batch: DenseBatch | SparseBatch,
+    w0: Tensor,
+    l2_weight: Tensor,
+    norm: NormalizationContext | None,
+    prior_mu: Tensor | None,
+    prior_var: Tensor | None,
+    *,
+    chunked,
+    compact_every_n: int,
+    loss: PointwiseLoss,
+    config: OptimizerConfig,
+    intercept_index: int | None,
+    variance_computation: VarianceComputationType,
+    minimize_fn=None,
+    minimize_kwargs: dict,
+) -> tuple[Tensor, Tensor | None, Tensor, Tensor, Tensor, Tensor]:
+    """``_solve_lanes``'s compacted twin (``PHOTON_RE_COMPACT_EVERY``): the
+    same arguments and outputs, the solve run through ``chunked``'s init,
+    one run per chunk of ``compact_every_n`` iterations, and finalize.
+
+    After each chunk the front's ``done`` and ``it`` are read back once
+    (that read is the design: it buys dropping converged lanes from every
+    later chunk). The front's lanes go back to their slots in the full
+    state only when a chunk reads the full state (a shrink, or the end);
+    the still-active lanes are then gathered, with their batch rows, prior
+    rows and solver state, into a front of the next power of two (at least
+    2 lanes for a bucket of more than one, never more than the current
+    front; no re-gather when it would not shrink), whose padding lanes
+    replay the first active lane, marked done. The front's objective is
+    built anew on the gathered rows. Counts ``re_solve.launches`` (init,
+    each chunk, finalize) and, from the reads, the executed and useful
+    entity iterations and ``re_solve.active_lane_fraction``."""
+    k = int(batch.labels.shape[0])
+    T = int(config.max_iterations)
+    every = max(int(compact_every_n), 1)
+    dev = w0.device
+
+    def objective(b, mu, var):
+        return make_lane_objective(b, loss, l2_weight=l2_weight, norm=norm, intercept_index=intercept_index,
+                                   prior_mean=mu, prior_variances=var)
+
+    full_obj = objective(batch, prior_mu, prior_var)
+    full = chunked.init(full_obj, w0, config, **minimize_kwargs)
+    _count_launch()
+    state, front_obj = full, full_obj
+    slots = np.arange(k, dtype=np.int64)  # each real front lane's slot in the bucket
+    n_real, compacted = k, False
+    it_prev = np.zeros(k, np.int64)
+    executed_total = useful_total = bound = 0
+    while True:
+        bound = min(bound + every, T)
+        state = chunked.run(front_obj, state, config, bound, **minimize_kwargs)
+        _count_launch()
+        read = torch.stack([state.done.to(torch.int64), state.it]).cpu().numpy()
+        front_lanes = read.shape[1]  # padding lanes included
+        done_f, it_f = read[0, :n_real] != 0, read[1, :n_real]
+        # lanes step together: every active lane is at the shared step,
+        # which keys the two-loop bound and the history column
+        if not np.all(it_f[~done_f] == state.step):
+            raise AssertionError(f"an active lane is not at the shared step {state.step}: {it_f[~done_f]}")
+        delta = it_f - it_prev[slots]
+        trips = int(delta.max(initial=0))
+        executed_total += trips * front_lanes
+        useful_total += int(delta.sum())
+        _count_iterations(trips * front_lanes, int(delta.sum()))
+        it_prev[slots] = it_f
+        active = np.flatnonzero(~done_f)
+        exit_loop = active.size == 0 or bound >= T
+        if not exit_loop:
+            front_n = _next_pow2(int(active.size))
+            if k > 1:
+                front_n = max(front_n, 2)
+            front_n = min(front_n, front_lanes)
+            if front_n == front_lanes:
+                continue  # the front would not shrink: keep it as it is
+        full = full.put(torch.as_tensor(slots, device=dev), state, n_real) if compacted else state
+        if exit_loop:
+            break
+        orig_active = slots[active]
+        n_real = int(orig_active.size)
+        pad = front_n - n_real
+        gather = np.concatenate([orig_active, np.repeat(orig_active[:1], pad)]) if pad else orig_active
+        gidx = torch.as_tensor(gather, device=dev)
+        state = full.take(gidx)
+        if pad:
+            state = state.retire(n_real)
+        front_batch = dataclasses.replace(batch, **{
+            f.name: getattr(batch, f.name)[gidx] for f in dataclasses.fields(batch)
+            if isinstance(getattr(batch, f.name), Tensor)})
+        front_obj = objective(front_batch, None if prior_mu is None else prior_mu[gidx],
+                              None if prior_var is None else prior_var[gidx])
+        slots, compacted = orig_active, True
+    if executed_total:
+        REGISTRY.gauge_set("re_solve.active_lane_fraction", useful_total / executed_total)
+    res = chunked.finalize(full)
+    _count_launch()
+    var = compute_variances(full_obj, res.w, variance_computation)
+    return res.w, var, res.value, res.iterations, res.reason, res.objective_passes
 
 
 def solve_bucket_lanes(
@@ -840,20 +1177,23 @@ def solve_bucket_lanes(
     objective, iterations, reason, variances), on the device and unread;
     variances are zeros when none are asked for. ``accounting`` defers the
     iteration read to its ``flush``; without it the launch is accounted at
-    once. The compacted and fused launch schedules
-    (``PHOTON_RE_COMPACT_EVERY``, ``PHOTON_RE_FUSE_BUCKETS``) are ROADMAP
-    queue 1 item 15 and raise when set."""
-    _knob_waits_for_item_15("PHOTON_RE_COMPACT_EVERY")
-    _knob_waits_for_item_15("PHOTON_RE_FUSE_BUCKETS")
-    w, var, value, iterations, reason, _passes = _solve_lanes(
-        bucket_batch, w0, l2_weight, norm, prior_mu, prior_var, loss=loss, config=config,
-        intercept_index=intercept_index, variance_computation=variance_computation,
-        minimize_fn=minimize_fn, minimize_kwargs=minimize_kwargs,
-    )
-    acct = accounting if accounting is not None else DeferredLaunchAccounting()
-    acct.add(iterations, w.shape[0])
-    if accounting is None:
-        acct.flush()
+    once. ``PHOTON_RE_COMPACT_EVERY`` > 0 runs the solve compacted
+    (``_solve_bucket_compacted``, which accounts for itself), except under
+    Newton, which has no chunked twin."""
+    ce = compact_every()
+    chunked = select_chunked_solver(config, minimize_kwargs.get("l1_weight", 0.0))[0] if ce > 0 else None
+    kw = dict(loss=loss, config=config, intercept_index=intercept_index,
+              variance_computation=variance_computation, minimize_fn=minimize_fn, minimize_kwargs=minimize_kwargs)
+    if chunked is not None:
+        w, var, value, iterations, reason, _passes = _solve_bucket_compacted(
+            bucket_batch, w0, l2_weight, norm, prior_mu, prior_var, chunked=chunked, compact_every_n=ce, **kw)
+    else:
+        w, var, value, iterations, reason, _passes = _solve_lanes(
+            bucket_batch, w0, l2_weight, norm, prior_mu, prior_var, **kw)
+        acct = accounting if accounting is not None else DeferredLaunchAccounting()
+        acct.add(iterations, w.shape[0])
+        if accounting is None:
+            acct.flush()
     return w, value, iterations, reason, torch.zeros_like(w) if var is None else var
 
 

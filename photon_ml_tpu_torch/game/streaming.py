@@ -46,8 +46,9 @@ of the data, and no process holds the dataset.
   entity, the global capacity ladder (so an entity's bucket capacity does
   not depend on its owner) and the owners, by LPT. A one-entity bucket of
   a larger global class solves beside one padding lane (the lane floor):
-  on the card a lane of a batch of two or more has the same bits in any
-  batch, and a batch of one gives others.
+  on the card a lane of a small batch of two or more keeps its bits in
+  other small batches (``scripts/lane_bits.py``; at larger lane counts the
+  batched products change kernels), and a batch of one gives others.
   Each visit the offsets exchange is issued before the solve and joined
   by the first bucket gather, and the scores exchange rides under the
   diagnostics gather, both on the exchange worker
@@ -74,13 +75,19 @@ down-sampling of the fixed effect, the incremental prior, warm starts and
 the subspace and random projections of random effects are supported, with
 the reference's construction-time rejections.
 
-Capacity-class projection (``PHOTON_RE_PROJECT``, ROADMAP queue 1 item
-12d-ii), the sub-bucket split and the device split (12d-iii) raise naming
-their items; peer loss and rejoin are item 12d-v.
+The random-effect schedule knobs act here as in memory
+(``game/random_effect.py``): ``PHOTON_RE_FUSE_BUCKETS`` groups the
+buckets of one geometry into one launch unit, ``PHOTON_RE_COMPACT_EVERY``
+compacts each unit's lanes, and ``PHOTON_RE_PROJECT`` solves each capacity
+class over its support (hashed under ``hash``), from a ladder the
+processes agree on under skew-aware placement. The sub-bucket split and
+the device split (12d-iii) raise naming their item; peer loss and rejoin
+are item 12d-v.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -110,10 +117,22 @@ from photon_ml_tpu_torch.game.data import (
     group_by_entity,
 )
 from photon_ml_tpu_torch.game.models import FixedEffectModel, GameModel, RandomEffectModel
-from photon_ml_tpu_torch.game.projector import RandomProjector, subspace_columns
+from photon_ml_tpu_torch.game.projector import (
+    RandomProjector,
+    class_activity,
+    projection_ladder,
+    re_project_dim,
+    re_project_mode,
+    subspace_columns,
+)
 from photon_ml_tpu_torch.game.data import capacity_classes
 from photon_ml_tpu_torch.game.random_effect import (
     DeferredLaunchAccounting,
+    _hash_expand_lanes,
+    _hash_fold_lanes,
+    _pad_lanes,
+    fuse_buckets,
+    plan_fusion_groups,
     refuse_waiting_knobs,
     solve_bucket_lanes,
 )
@@ -133,6 +152,7 @@ from photon_ml_tpu_torch.parallel.placement import (
     plan_from_owner,
     re_shard_enabled,
     record_placement_metrics,
+    record_projection_metrics,
     replan_excluding,
     replan_imbalance_threshold,
 )
@@ -309,6 +329,9 @@ class _ReShard:
     # class solves with one all-padding lane beside it: a one-lane solve
     # does not give the bits of a lane in a batch
     lane_floor_pad: tuple | None = None
+    # per bucket the capacity class's projection (PHOTON_RE_PROJECT), None
+    # entries at full width; None when no class is projected
+    project: tuple | None = None
 
 
 def _slice_owned_rows(M_full: np.ndarray, shard: _ReShard) -> np.ndarray:
@@ -497,7 +520,7 @@ class StreamedGameTrainer:
         return owned, route
 
     def _plan_entities(self, cid: str, ids: np.ndarray, E: int, P: int, pid: int,
-                       entity_owner_override: np.ndarray | None) -> dict:
+                       entity_owner_override: np.ndarray | None, feats: Features | None = None) -> dict:
         """The owners of a training shard's entities. The modular rule
         (``modular_owner``) unless skew-aware placement is on
         (``self._skew_aware``); then the global rows per entity from one
@@ -506,7 +529,11 @@ class StreamedGameTrainer:
         the owners by LPT over the rows (``plan_entity_placement``), or the
         re-planner's map ``entity_owner_override``. The same plan on every
         process; its gauges go to the registry and the plan to
-        ``placements``."""
+        ``placements``. Under ``PHOTON_RE_PROJECT`` (``feats`` given) the
+        capacity classes' projections come from here too, before any row
+        moves: each local row's columns count toward its entity's global
+        class, one allreduce sums the counts, and every process derives the
+        same ladder from them."""
         if not self._skew_aware:
             owner = modular_owner(E, P)
             return dict(entity_owner=owner, owned_global=np.flatnonzero(owner == pid))
@@ -517,6 +544,17 @@ class StreamedGameTrainer:
                                                                                   c.active_data_upper_bound)
         caps, pops = capacity_classes(active_g, c.sample_bucket_sizes, target_buckets=c.bucket_target_count,
                                       max_padded_ratio=c.bucket_max_padded_ratio)
+        ladder = None
+        if feats is not None and len(caps):
+            caps_arr = np.asarray(caps, np.int64)
+            cls_of_entity = np.minimum(np.searchsorted(caps_arr, active_g), len(caps_arr) - 1)
+            activity = np.zeros((len(caps_arr), feats.num_features), np.int64)
+            rows = np.flatnonzero(ids >= 0)
+            if len(rows):
+                np.add.at(activity, cls_of_entity[ids[rows]], (np.asarray(feats.X)[rows] != 0).astype(np.int64))
+            activity = np.rint(mh.allreduce_sum_host(activity.astype(np.float64))).astype(np.int64)
+            ladder = projection_ladder(caps, activity, feats.num_features, re_project_mode(), re_project_dim(),
+                                       self.intercept_indices.get(c.feature_shard_id))
         if entity_owner_override is not None:
             plan = plan_from_owner(entity_owner_override, counts_g, P)
         else:
@@ -524,7 +562,7 @@ class StreamedGameTrainer:
         record_placement_metrics(plan, shard=pid)
         self.placements[cid] = plan
         return dict(entity_owner=plan.owner, owned_global=np.flatnonzero(plan.owner == pid).astype(np.int64),
-                    entity_rows=counts_g, caps=caps, pops=pops)
+                    entity_rows=counts_g, caps=caps, pops=pops, ladder=ladder)
 
     def _build_re_shard(self, cid: str, data: StreamedGameData, row_base: int = 0,
                         row_layout: tuple[int, ...] | None = None, drop_unseen: bool = False,
@@ -542,10 +580,30 @@ class StreamedGameTrainer:
         skew-aware placement its buckets from the global capacity ladder,
         with the lane floor; a validation shard follows its training
         shard's owners (``reuse_layout``), since the coefficient rows are
-        laid out by them."""
+        laid out by them.
+
+        ``PHOTON_RE_PROJECT`` gives a training shard one projection per
+        bucket (``_ReShard.project``) and the class support as its column
+        map: from the global ladder under skew-aware placement, else from
+        the owner's rows (exact for the solves it makes)."""
         refuse_waiting_knobs(placed=True)
         c = self.config.random_effect_coordinates[cid]
         feats = data.feature_container(c.feature_shard_id)
+        project_mode = "0" if drop_unseen else re_project_mode()
+        if project_mode != "0":
+            # at shard build, before any exchange or solve
+            if c.features_to_samples_ratio_upper_bound is not None:
+                raise ValueError("PHOTON_RE_PROJECT and features_to_samples_ratio_upper_bound are mutually "
+                                 "exclusive (two competing per-entity column maps)")
+            if c.random_projection_dim is not None:
+                raise ValueError("PHOTON_RE_PROJECT and random_projection_dim are mutually exclusive "
+                                 "(the random projection already re-bases the feature axis)")
+            if self.config.normalization is not NormalizationType.NONE:
+                raise NotImplementedError("normalization is not supported together with per-entity feature "
+                                          "projection — same contract as the subspace-ratio knob")
+            if not isinstance(feats, DenseFeatures):
+                raise ValueError("PHOTON_RE_PROJECT requires dense features (sparse rows are already "
+                                 "width-bounded)")
         ids = np.asarray(data.id_tags[c.random_effect_type], np.int64)
         labels = np.asarray(data.labels, np.float32)
         weights = (np.ones(data.num_rows, np.float32) if data.weights is None
@@ -563,7 +621,8 @@ class StreamedGameTrainer:
                                  f"dictionary (E={len(reuse_layout.entity_owner)}); unseen entities must carry -1")
             placed = dict(entity_owner=reuse_layout.entity_owner, owned_global=reuse_layout.owned_global)
         else:
-            placed = self._plan_entities(cid, ids, E, P, pid, entity_owner_override)
+            placed = self._plan_entities(cid, ids, E, P, pid, entity_owner_override,
+                                         feats if project_mode != "0" else None)
         if P > 1:
             origin_grow = row_base + (np.arange(len(ids), dtype=np.int64) if rows is None else rows.astype(np.int64))
             arrays = {"ent": ids, "label": labels, "weight": weights, "grow": origin_grow,
@@ -614,6 +673,22 @@ class StreamedGameTrainer:
                                           intercept)
                 cols_list.append(None if cols_b is None else cols_b.numpy())
             shard.subspace_cols = tuple(cols_list)
+        if project_mode != "0":
+            ladder = placed.get("ladder")
+            if ladder is None:
+                classes, activity = class_activity(np.asarray(feats.X), shard.buckets.capacities,
+                                                   shard.buckets.row_indices)
+                ladder = projection_ladder(classes, activity, feats.num_features, project_mode, re_project_dim(),
+                                           self.intercept_indices.get(c.feature_shard_id))
+            project = tuple(ladder.get(int(r.shape[1])) for r in shard.buckets.row_indices)
+            d = feats.num_features
+            record_projection_metrics([(len(e), d if p is None else p.dim)
+                                       for p, e in zip(project, shard.buckets.entity_ids)], d)
+            if any(p is not None for p in project):
+                # the support gather rides the subspace column maps
+                shard.subspace_cols = tuple(None if p is None else np.broadcast_to(p.columns, (len(e), p.support_dim))
+                                            for p, e in zip(project, shard.buckets.entity_ids))
+                shard.project = project
         return shard
 
     def _build_val_route(self, tag: str, validation: StreamedGameData, row_base: int,
@@ -869,7 +944,17 @@ class StreamedGameTrainer:
         (``_offsets_to_owners_async``): the first gather joins it. A bucket
         with a lane-floor pad (``_ReShard.lane_floor_pad``) solves with one
         all-padding lane (zero start, zero-mean unit-variance prior) whose
-        outputs are dropped."""
+        outputs are dropped.
+
+        ``PHOTON_RE_FUSE_BUCKETS`` groups buckets of one (capacity, solve
+        width) into one launch unit (``plan_fusion_groups``; a one-lane
+        bucket, lane-floor ones included, stays alone), and
+        ``solve_bucket_lanes`` runs each unit, compacted under
+        ``PHOTON_RE_COMPACT_EVERY``; the per-bucket losses are summed in
+        bucket order either way. Under a hash projection
+        (``_ReShard.project``) the gathered support columns are folded on
+        the card, the warm-start and prior rows on the host, and the
+        solutions expanded on the host before the write-back."""
         loss = loss_for_task(self.config.task_type)
         l1 = opt.regularization.l1_weight(opt.regularization_weight)
         l2 = torch.as_tensor(opt.regularization.l2_weight(opt.regularization_weight), dtype=torch.float32,
@@ -878,10 +963,36 @@ class StreamedGameTrainer:
         variance_computation = (self.config.variance_computation if V is not None
                                 else VarianceComputationType.NONE)
         buckets = shard.buckets
-        sub_cols = shard.subspace_cols or (None,) * len(buckets.entity_ids)
-        pads = shard.lane_floor_pad or (0,) * len(buckets.entity_ids)
-        units = [(ent, np.concatenate([rows, np.full((1, rows.shape[1]), -1, rows.dtype)]) if pad else rows, cols)
-                 for ent, rows, cols, pad in zip(buckets.entity_ids, buckets.row_indices, sub_cols, pads)]
+        nb = len(buckets.entity_ids)
+        sub_cols = shard.subspace_cols or (None,) * nb
+        pads = shard.lane_floor_pad or (0,) * nb
+        specs = shard.project or (None,) * nb
+        if fuse_buckets() and nb > 1:
+            keys = [(r.shape[1], None if c_ is None else c_.shape[1]) for r, c_ in zip(buckets.row_indices, sub_cols)]
+            plan = plan_fusion_groups(keys, [len(e) for e in buckets.entity_ids])
+        else:
+            plan = [([i], [(i, 0, len(buckets.entity_ids[i]))]) for i in range(nb)]
+        units = []  # (members, entity ids, rows, column maps or None, projection or None, lane-floor pad)
+        for idxs, members in plan:
+            if len(idxs) == 1:
+                i = idxs[0]
+                rows = buckets.row_indices[i]
+                if pads[i]:
+                    rows = np.concatenate([rows, np.full((1, rows.shape[1]), -1, rows.dtype)])
+                units.append((members, buckets.entity_ids[i], rows, sub_cols[i], specs[i], pads[i]))
+                continue
+            # one geometry: one capacity, so one class and one projection
+            units.append((members, np.concatenate([buckets.entity_ids[i] for i in idxs]),
+                          np.concatenate([buckets.row_indices[i] for i in idxs]),
+                          None if sub_cols[idxs[0]] is None else np.concatenate([sub_cols[i] for i in idxs]),
+                          specs[idxs[0]], 0))
+        folds: dict[int, Tensor] = {}  # per hashed projection: its fold on the card
+
+        def fold_of(spec):
+            if id(spec) not in folds:
+                folds[id(spec)] = torch.from_numpy(spec.hash_matrix()).to(self.device)
+            return folds[id(spec)]
+
         offsets = offs_re.result if isinstance(offs_re, mh.ExchangeHandle) else (lambda: offs_re)
         dev = self.device
         consumer = prefetch.consumer_stream(dev)
@@ -896,7 +1007,7 @@ class StreamedGameTrainer:
         def gather(i):
             # reads ingest-time columns and this visit's offsets only, never
             # W, which collect() below writes in bucket order
-            _, rows, cols = units[i]
+            _, _, rows, cols, _, _ = units[i]
             offs = offsets()  # joins the exchange in flight: its wait is not the gather's
             t0 = time.perf_counter()
             if cols is not None and len(cols) < len(rows):  # the padding lane takes any columns
@@ -909,11 +1020,13 @@ class StreamedGameTrainer:
             nbytes[i] = sum(a.numel() * a.element_size() for a in arrays.values())
             return put
 
-        def collect(i, ent_ids, cols, out):
+        def collect(members, ent_ids, cols, spec, out):
             w_b, f_b, it_b, reason_b, var_b = out
             if norm is not None:
                 w_b = norm.model_to_original_space(w_b)[0]
                 var_b = norm.factors**2 * var_b
+            if spec is not None and spec.hash_dim is not None:
+                w_b, var_b = _hash_expand_lanes(w_b, var_b, fold_of(spec))  # back at the support's width
             w_h, var_h = w_b.cpu().numpy(), var_b.cpu().numpy()
             f_h, it_h, reason_h = f_b.cpu().numpy(), it_b.cpu().numpy(), reason_b.cpu().numpy()
             agg["readbacks"] += 1
@@ -929,41 +1042,42 @@ class StreamedGameTrainer:
                 W[ent_ids] = w_h
                 if V is not None:
                     V[ent_ids] = var_h
-            bucket_loss[i] = float(np.sum(f_h, dtype=np.float32))
+            for i, lo, hi in members:  # per bucket, summed in bucket order below
+                bucket_loss[i] = float(np.sum(f_h if lo == 0 and hi == len(ent_ids) else f_h[lo:hi],
+                                              dtype=np.float32))
             agg["max_iters"] = max(agg["max_iters"], int(np.max(it_h)))
             agg["converged"] = agg["converged"] and bool(np.all(reason_h != 0))  # 0: MAX_ITERATIONS
+
+        def rows_of(M, ent_ids, cols):
+            """A unit's rows of a host (E, d) matrix at its column maps, on the card."""
+            if M is None:
+                return None
+            rows = M[ent_ids] if cols is None else np.take_along_axis(M[ent_ids], cols, axis=1)
+            return torch.as_tensor(rows, dtype=torch.float32, device=dev)
 
         accounting = DeferredLaunchAccounting()
         pending = None
         for i, put in enumerate(prefetch.prefetch_iter(len(units), gather)):
-            ent_ids, _, cols = units[i]
+            members, ent_ids, _, cols, spec, pad = units[i]
+            hashed = spec is not None and spec.hash_dim is not None
             prefetch.wait(put, consumer)
             bucket = bucket_batch(put, d_full)
-            pad = pads[i]
-            prior_mu = prior_var = None
-            if W_prior is not None:
-                mu_rows = W_prior[ent_ids]
-                var_rows = None if V_prior is None else V_prior[ent_ids]
-                if cols is not None:
-                    mu_rows = np.take_along_axis(mu_rows, cols, axis=1)
-                    if var_rows is not None:
-                        var_rows = np.take_along_axis(var_rows, cols, axis=1)
-                if pad:
-                    mu_rows = np.concatenate([mu_rows, np.zeros((1, mu_rows.shape[1]), mu_rows.dtype)])
-                    if var_rows is not None:
-                        var_rows = np.concatenate([var_rows, np.ones((1, var_rows.shape[1]), var_rows.dtype)])
-                prior_mu = torch.as_tensor(mu_rows, dtype=torch.float32, device=dev)
-                if var_rows is not None:
-                    prior_var = torch.as_tensor(var_rows, dtype=torch.float32, device=dev)
+            if hashed:
+                bucket = dataclasses.replace(bucket, X=bucket.X @ fold_of(spec))
+            # the warm start and the incremental prior (already in the solver's space)
+            w0, prior_mu, prior_var = (rows_of(M, ent_ids, cols)
+                                       for M in (W, W_prior, None if W_prior is None else V_prior))
+            if hashed:
+                w0, prior_mu, prior_var = _hash_fold_lanes(w0, prior_mu, prior_var, fold_of(spec))
+            if pad:  # the padding lane: zero start, zero-mean unit-variance prior
+                lanes = len(ent_ids) + 1
+                w0, prior_mu, prior_var = _pad_lanes(w0, lanes), _pad_lanes(prior_mu, lanes), _pad_lanes(prior_var,
+                                                                                                         lanes, 1.0)
             b_intercept = intercept_index
             if cols is not None and intercept_index is not None:
                 b_intercept = cols.shape[1] - 1  # the intercept is each subspace's last slot
-            w0_rows = W[ent_ids]
-            if cols is not None:
-                w0_rows = np.take_along_axis(w0_rows, cols, axis=1)
-            if pad:
-                w0_rows = np.concatenate([w0_rows, np.zeros((1, w0_rows.shape[1]), w0_rows.dtype)])
-            w0 = torch.as_tensor(w0_rows, dtype=torch.float32, device=dev)
+            if hashed and intercept_index is not None:
+                b_intercept = int(spec.hash_dim) - 1  # the fold keeps the last slot for the intercept alone
             if norm is not None:
                 w0 = norm.model_from_original_space(w0)
             out = solve_bucket_lanes(
@@ -975,7 +1089,7 @@ class StreamedGameTrainer:
                 out = tuple(t[:len(ent_ids)] for t in out)
             if pending is not None:
                 collect(*pending)  # waits for the previous bucket only
-            pending = (i, ent_ids, cols, out)
+            pending = (members, ent_ids, cols, spec, out)
         if pending is not None:
             collect(*pending)
         accounting.flush()
@@ -985,7 +1099,7 @@ class StreamedGameTrainer:
             offsets()  # a process that owns no bucket still joins its offsets exchange
             return 0.0, 0, True, pipeline
         loss_sum = 0.0
-        for i in range(len(units)):
+        for i in range(nb):
             loss_sum += bucket_loss[i]
         return loss_sum, agg["max_iters"], agg["converged"], pipeline
 

@@ -102,14 +102,20 @@ _knob_memo: list = []  # [raw fingerprint, knobs, sorted item tuple]
 
 
 def _knob_raw_state() -> tuple:
+    import photon_ml_tpu_torch.game.projector as proj
+    import photon_ml_tpu_torch.game.random_effect as re_mod
     import photon_ml_tpu_torch.ops.prefetch as pf
     import photon_ml_tpu_torch.ops.sparse_tiled as st
+    import photon_ml_tpu_torch.parallel.placement as pl
 
     env = os.environ
     return (
         env.get("PHOTON_PREFETCH_DEPTH"), env.get("PHOTON_CHUNK_CACHE_BUDGET"),
         env.get("PHOTON_KERNEL_DTYPE"), env.get("PHOTON_DISABLE_FUSED"),
         len(pf._device_budget_memo), st.KERNEL_DTYPE, st.TILE_NNZ,
+        env.get("PHOTON_RE_COMPACT_EVERY"), env.get("PHOTON_RE_FUSE_BUCKETS"), env.get("PHOTON_RE_PROJECT"),
+        env.get("PHOTON_RE_PROJECT_DIM"), env.get("PHOTON_RE_SHARD"), re_mod.COMPACT_EVERY, re_mod.FUSE_BUCKETS,
+        proj.RE_PROJECT, proj.RE_PROJECT_DIM, pl.RE_SHARD,
     )
 
 

@@ -260,7 +260,9 @@ def _knob_snapshot() -> dict:
     configurations too: the prefetch depth, the chunk cache's budget, the
     kernels' storage rung (``PHOTON_KERNEL_DTYPE``), whether K1 and K2 run
     (``PHOTON_DISABLE_FUSED``), K1's layout rule (the widths up to which
-    it takes the tiles layout) and K3's tile size."""
+    it takes the tiles layout), K3's tile size, and the random-effect
+    knobs under the reference's names (the schedule knobs, the projection
+    and entity sharding)."""
     knobs: dict = {}
     try:
         from photon_ml_tpu_torch.ops import prefetch
@@ -285,6 +287,26 @@ def _knob_snapshot() -> dict:
         knobs["fused"] = int(not fused_disabled())
         knobs["k1_tiles_max_features_f32"] = int(fused.TILES_MAX_FEATURES[torch.float32])
         knobs["k1_tiles_max_features_bf16"] = int(fused.TILES_MAX_FEATURES[torch.bfloat16])
+    except Exception:
+        pass
+    try:
+        from photon_ml_tpu_torch.game import random_effect as re_mod
+
+        knobs["re_compact_every"] = int(re_mod.compact_every())
+        knobs["re_fuse_buckets"] = int(bool(re_mod.fuse_buckets()))
+    except Exception:
+        pass
+    try:
+        from photon_ml_tpu_torch.game import projector
+
+        knobs["re_project"] = str(projector.re_project_mode())
+        knobs["re_project_dim"] = int(projector.re_project_dim())
+    except Exception:
+        pass
+    try:
+        from photon_ml_tpu_torch.parallel import placement
+
+        knobs["re_shard"] = int(bool(placement.re_shard_enabled()))
     except Exception:
         pass
     return knobs

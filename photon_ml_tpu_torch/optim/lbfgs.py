@@ -12,12 +12,16 @@ entities) both solvers run over the lanes in lock step, as the reference's
 loop does under ``jax.vmap`` (``_lbfgs_lanes``): every lane keeps its own
 history ring, line search, acceptance and stopping reason, done lanes are
 frozen with ``torch.where``, and the host reads back one boolean per
-line-search step and one per iteration for the whole bucket. The chunked
-entry points (``lbfgs_chunk_*``) wait for the lane-compaction knob.
+line-search step and one per iteration for the whole bucket. The lane loop
+is three pieces, a state (``LbfgsLaneState``), ``init``, ``run`` to an
+iteration bound and ``finalize``: the one-shot lane solve runs them once,
+and lane compaction runs them in chunks through the public twins
+(``lbfgs_chunk_*``, ``owlqn_chunk_*``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import torch
@@ -26,6 +30,7 @@ from photon_ml_tpu_torch.config import OptimizerConfig
 from photon_ml_tpu_torch.ops.glm import LaneGLMObjective
 from photon_ml_tpu_torch.optim.common import (
     ConvergenceReason,
+    LaneState,
     OptimizationResult,
     grad_converged,
 )
@@ -269,10 +274,74 @@ def _lane_two_loop(
     return r
 
 
-def _lbfgs_lanes(
-    obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig, l1w: Tensor | None
-) -> OptimizationResult:
-    """L-BFGS (``l1w`` None) or OWL-QN over k lanes in lock step.
+@dataclass
+class LbfgsLaneState(LaneState):
+    """The L-BFGS / OWL-QN lane loop's state between chunks: the iterate,
+    its margins, value, gradient and (pseudo-)gradient, each lane's
+    gradient tolerance, its (m, d) history ring with ρ and pair count,
+    iterations, objective passes, stopping reason, done flag and
+    (T + 1) histories; ``step`` is the shared iteration count."""
+
+    w: Tensor
+    mg: Tensor
+    f: Tensor
+    g: Tensor
+    pg: Tensor
+    g_tol: Tensor
+    S: Tensor
+    Y: Tensor
+    rho: Tensor
+    count: Tensor
+    it: Tensor
+    evals: Tensor
+    reason: Tensor
+    done: Tensor
+    loss_hist: Tensor
+    gnorm_hist: Tensor
+    step: int = 0
+
+
+def _l1_terms(l1w: Tensor | None, f: Tensor, g: Tensor, w: Tensor) -> tuple[Tensor, Tensor]:
+    if l1w is None:
+        return f, g
+    return f + torch.sum(l1w * torch.abs(w), dim=-1), _pseudo_gradient(w, g, l1w)
+
+
+def _lbfgs_lane_init(obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig,
+                     l1w: Tensor | None) -> LbfgsLaneState:
+    """The lane state at the (k, d) start ``w0`` (one value-and-gradient
+    pass)."""
+    m = config.history_length
+    T = config.max_iterations
+    k, d = w0.shape
+    dtype, dev = w0.dtype, w0.device
+    mg = obj.margins(w0)
+    f, g = obj.value_and_grad_from_margins(mg, w0)
+    f, pg = _l1_terms(l1w, f, g, w0)
+    g0_norm = torch.linalg.norm(pg, dim=-1)
+    g_tol = config.tolerance * torch.clamp_min(g0_norm, 1.0)
+    loss_hist = torch.full((k, T + 1), float("nan"), dtype=dtype, device=dev)
+    gnorm_hist = torch.full((k, T + 1), float("nan"), dtype=dtype, device=dev)
+    loss_hist[:, 0] = f
+    gnorm_hist[:, 0] = g0_norm
+    return LbfgsLaneState(
+        w=w0, mg=mg, f=f, g=g, pg=pg, g_tol=g_tol,
+        S=torch.zeros((k, m, d), dtype=dtype, device=dev),
+        Y=torch.zeros((k, m, d), dtype=dtype, device=dev),
+        rho=torch.zeros((k, m), dtype=dtype, device=dev),
+        count=torch.zeros(k, dtype=torch.int64, device=dev),
+        it=torch.zeros(k, dtype=torch.int64, device=dev),
+        evals=torch.ones(k, dtype=torch.int64, device=dev),  # the initial value_and_grads
+        reason=torch.full((k,), int(ConvergenceReason.MAX_ITERATIONS), dtype=torch.int64, device=dev),
+        done=g0_norm <= g_tol,
+        loss_hist=loss_hist, gnorm_hist=gnorm_hist,
+    )
+
+
+def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: OptimizerConfig, it_bound: int,
+                    l1w: Tensor | None) -> LbfgsLaneState:
+    """Step the lanes in lock step until every lane is done or the shared
+    step reaches min(``it_bound``, max_iterations).
 
     Each lane follows the reference's loop under ``vmap``: its own
     curvature pairs (a pair with sᵀy ≤ 1e-10 is skipped, so ``count`` is
@@ -288,40 +357,22 @@ def _lbfgs_lanes(
     for a lane objective, which is not one-pass: 1 + Σ (2 + line-search
     steps)."""
     m = config.history_length
-    T = config.max_iterations
+    bound = min(int(it_bound), config.max_iterations)
     max_ls = config.max_line_search_steps
     use_l1 = l1w is not None
-    k, d = w0.shape
-    dtype, dev = w0.dtype, w0.device
-
-    def l1_terms(f: Tensor, g: Tensor, w: Tensor) -> tuple[Tensor, Tensor]:
-        if not use_l1:
-            return f, g
-        return f + torch.sum(l1w * torch.abs(w), dim=-1), _pseudo_gradient(w, g, l1w)
-
-    w = w0
-    mg = obj.margins(w)
-    f, g = obj.value_and_grad_from_margins(mg, w)
-    f, pg = l1_terms(f, g, w)
-    g0_norm = torch.linalg.norm(pg, dim=-1)
-    g_tol = config.tolerance * torch.clamp_min(g0_norm, 1.0)
-    S = torch.zeros((k, m, d), dtype=dtype, device=dev)
-    Y = torch.zeros((k, m, d), dtype=dtype, device=dev)
-    rho = torch.zeros((k, m), dtype=dtype, device=dev)
+    k = st.w.shape[0]
+    dev = st.w.device
+    w, mg, f, g, pg, g_tol = st.w, st.mg, st.f, st.g, st.pg, st.g_tol
+    S, Y, rho, count, it, evals, reason, done = st.S, st.Y, st.rho, st.count, st.it, st.evals, st.reason, st.done
+    loss_hist, gnorm_hist = st.loss_hist, st.gnorm_hist
     slots = torch.arange(m, device=dev)
-    count = torch.zeros(k, dtype=torch.int64, device=dev)
-    it = torch.zeros(k, dtype=torch.int64, device=dev)
-    evals = torch.ones(k, dtype=torch.int64, device=dev)  # the initial value_and_grads
-    reason = torch.full((k,), int(ConvergenceReason.MAX_ITERATIONS), dtype=torch.int64, device=dev)
-    done = g0_norm <= g_tol
-    loss_hist = torch.full((k, T + 1), float("nan"), dtype=dtype, device=dev)
-    gnorm_hist = torch.full((k, T + 1), float("nan"), dtype=dtype, device=dev)
-    loss_hist[:, 0] = f
-    gnorm_hist[:, 0] = g0_norm
 
-    step = 0
-    while step < T and not bool(done.all()):
+    step = st.step
+    while step < bound and not bool(done.all()):
         active = ~done
+        # every active lane has taken exactly `step` iterations, so the
+        # two-loop bound and the history column below are the same for
+        # each lane in any front
         p = -_lane_two_loop(pg, S, Y, rho, count, m, step)
         if use_l1:
             # constrain the search direction to the descent orthant
@@ -383,7 +434,7 @@ def _lbfgs_lanes(
             searching = searching & keep_searching(f_t, w_t)
 
         f2, g2 = obj.value_and_grad_from_margins(m_t, w_t)
-        f2, pg2 = l1_terms(f2, g2, w_t)
+        f2, pg2 = _l1_terms(l1w, f2, g2, w_t)
         dec = decrease(w_t)
         # Armijo acceptance, except the degenerate terminal case (a
         # below-resolution step that does not decrease f: LINE_SEARCH_FAILED)
@@ -420,25 +471,74 @@ def _lbfgs_lanes(
         done = done | (active & (~ls_ok | converged))
         it = it + active.to(it.dtype)
         evals = evals + active.to(evals.dtype) * (2 + ls_k)
-        # every lane still active has taken exactly `step` iterations
         loss_hist[:, step + 1] = torch.where(active, f, loss_hist[:, step + 1])
         gnorm_hist[:, step + 1] = torch.where(
             active, torch.linalg.norm(pg, dim=-1), gnorm_hist[:, step + 1]
         )
         step += 1
 
+    return LbfgsLaneState(w=w, mg=mg, f=f, g=g, pg=pg, g_tol=g_tol, S=S, Y=Y, rho=rho, count=count, it=it,
+                          evals=evals, reason=reason, done=done, loss_hist=loss_hist, gnorm_hist=gnorm_hist,
+                          step=step)
+
+
+def _lbfgs_lane_result(st: LbfgsLaneState) -> OptimizationResult:
     # a lane whose initial point already passed the gradient test
-    reason = torch.where((it == 0) & done, int(ConvergenceReason.GRADIENT_CONVERGED), reason)
+    reason = torch.where((st.it == 0) & st.done, int(ConvergenceReason.GRADIENT_CONVERGED), st.reason)
     return OptimizationResult(
-        w=w,
-        value=f,
-        grad_norm=torch.linalg.norm(pg, dim=-1),
-        iterations=it,
+        w=st.w,
+        value=st.f,
+        grad_norm=torch.linalg.norm(st.pg, dim=-1),
+        iterations=st.it,
         reason=reason,
-        loss_history=loss_hist,
-        grad_norm_history=gnorm_hist,
-        objective_passes=evals,
+        loss_history=st.loss_hist,
+        grad_norm_history=st.gnorm_hist,
+        objective_passes=st.evals,
     )
+
+
+def _lbfgs_lanes(
+    obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig, l1w: Tensor | None
+) -> OptimizationResult:
+    """L-BFGS (``l1w`` None) or OWL-QN over k lanes in lock step: the
+    chunked pieces run once to the iteration bound."""
+    st = _lbfgs_lane_run(obj, _lbfgs_lane_init(obj, w0, config, l1w), config, config.max_iterations, l1w)
+    return _lbfgs_lane_result(st)
+
+
+# -- chunked entry points (lane compaction; optim/common.py ChunkedSolver) ----
+def lbfgs_chunk_init(objective: LaneGLMObjective, w0: Tensor, config: OptimizerConfig) -> LbfgsLaneState:
+    """The L-BFGS lane state at the (k, d) start (the initial pass)."""
+    return _lbfgs_lane_init(objective, w0, config, None)
+
+
+def lbfgs_chunk_run(objective: LaneGLMObjective, state: LbfgsLaneState, config: OptimizerConfig,
+                    it_bound: int) -> LbfgsLaneState:
+    """Step until every lane is done or ``state.step`` reaches the
+    absolute bound ``it_bound``."""
+    return _lbfgs_lane_run(objective, state, config, it_bound, None)
+
+
+def lbfgs_chunk_finalize(state: LbfgsLaneState) -> OptimizationResult:
+    return _lbfgs_lane_result(state)
+
+
+def _owlqn_l1w(objective: LaneGLMObjective, dtype, l1_weight) -> Tensor:
+    return torch.as_tensor(l1_weight, dtype=dtype, device=objective.reg_mask.device) * objective.reg_mask
+
+
+def owlqn_chunk_init(objective: LaneGLMObjective, w0: Tensor, config: OptimizerConfig,
+                     l1_weight) -> LbfgsLaneState:
+    return _lbfgs_lane_init(objective, w0, config, _owlqn_l1w(objective, w0.dtype, l1_weight))
+
+
+def owlqn_chunk_run(objective: LaneGLMObjective, state: LbfgsLaneState, config: OptimizerConfig, it_bound: int,
+                    l1_weight) -> LbfgsLaneState:
+    return _lbfgs_lane_run(objective, state, config, it_bound, _owlqn_l1w(objective, state.w.dtype, l1_weight))
+
+
+def owlqn_chunk_finalize(state: LbfgsLaneState) -> OptimizationResult:
+    return _lbfgs_lane_result(state)
 
 
 def _lanes(objective: Any, w0: Tensor) -> bool:

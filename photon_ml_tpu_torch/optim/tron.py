@@ -14,10 +14,14 @@ stopping reason, and one truncated-CG loop for the bucket in which each
 lane stops on its own (residual below ξ·‖g‖, or the boundary step with its
 own τ). Each CG step is one lane ``hvp`` from the margins stored at the
 iterate; the host reads one boolean per CG step and one per iteration.
+The lane loop is a state (``TronLaneState``), ``init``, ``run`` to an
+iteration bound and ``finalize``, which lane compaction runs in chunks
+(``tron_chunk_*``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import torch
@@ -25,6 +29,7 @@ import torch
 from photon_ml_tpu_torch.config import OptimizerConfig
 from photon_ml_tpu_torch.optim.common import (
     ConvergenceReason,
+    LaneState,
     OptimizationResult,
     grad_converged,
 )
@@ -220,30 +225,61 @@ def _lane_trcg(hvp, g: Tensor, delta: Tensor, max_cg: int, active: Tensor):
     return s, r, steps
 
 
-def _tron_lanes(obj, w0: Tensor, config: OptimizerConfig) -> OptimizationResult:
-    """TRON over k lanes in lock step; per-lane iterations, reason,
-    histories and ``objective_passes`` (1 + Σ (CG steps + 1)) as the
-    reference's loop gives them under ``vmap``."""
+@dataclass
+class TronLaneState(LaneState):
+    """The TRON lane loop's state between chunks: the iterate, its
+    margins, value and gradient, each lane's gradient tolerance and trust
+    radius, iterations, objective passes, stopping reason, done flag and
+    (T + 1) histories; ``step`` is the shared iteration count."""
+
+    w: Tensor
+    mg: Tensor
+    f: Tensor
+    g: Tensor
+    g_tol: Tensor
+    delta: Tensor
+    it: Tensor
+    passes: Tensor
+    reason: Tensor
+    done: Tensor
+    loss_hist: Tensor
+    gnorm_hist: Tensor
+    step: int = 0
+
+
+def _tron_lane_init(obj, w0: Tensor, config: OptimizerConfig) -> TronLaneState:
     T = config.max_iterations
     k = w0.shape[0]
     dtype, dev = w0.dtype, w0.device
-    w = w0
-    mg = obj.margins(w)
-    f, g = obj.value_and_grad_from_margins(mg, w)
+    mg = obj.margins(w0)
+    f, g = obj.value_and_grad_from_margins(mg, w0)
     g0_norm = torch.linalg.norm(g, dim=-1)
     g_tol = config.tolerance * torch.clamp_min(g0_norm, 1.0)
-    delta = g0_norm
-    it = torch.zeros(k, dtype=torch.int64, device=dev)
-    passes = torch.ones(k, dtype=torch.int64, device=dev)  # the initial value_and_grad
-    reason = torch.full((k,), int(ConvergenceReason.MAX_ITERATIONS), dtype=torch.int64, device=dev)
-    done = g0_norm <= g_tol
     loss_hist = torch.full((k, T + 1), float("nan"), dtype=dtype, device=dev)
     gnorm_hist = torch.full((k, T + 1), float("nan"), dtype=dtype, device=dev)
     loss_hist[:, 0] = f
     gnorm_hist[:, 0] = g0_norm
+    return TronLaneState(
+        w=w0, mg=mg, f=f, g=g, g_tol=g_tol, delta=g0_norm,
+        it=torch.zeros(k, dtype=torch.int64, device=dev),
+        passes=torch.ones(k, dtype=torch.int64, device=dev),  # the initial value_and_grad
+        reason=torch.full((k,), int(ConvergenceReason.MAX_ITERATIONS), dtype=torch.int64, device=dev),
+        done=g0_norm <= g_tol, loss_hist=loss_hist, gnorm_hist=gnorm_hist,
+    )
 
-    step = 0
-    while step < T and not bool(done.all()):
+
+def _tron_lane_run(obj, st: TronLaneState, config: OptimizerConfig, it_bound: int) -> TronLaneState:
+    """TRON over k lanes in lock step until every lane is done or the
+    shared step reaches min(``it_bound``, max_iterations); per-lane
+    iterations, reason, histories and ``objective_passes`` (1 + Σ (CG
+    steps + 1)) as the reference's loop gives them under ``vmap``."""
+    bound = min(int(it_bound), config.max_iterations)
+    w, mg, f, g, g_tol, delta = st.w, st.mg, st.f, st.g, st.g_tol, st.delta
+    it, passes, reason, done = st.it, st.passes, st.reason, st.done
+    loss_hist, gnorm_hist = st.loss_hist, st.gnorm_hist
+
+    step = st.step
+    while step < bound and not bool(done.all()):
         active = ~done
         s, r, cg_k = _lane_trcg(
             lambda v, mg=mg: obj.hvp_from_margins(mg, v), g, delta, config.max_cg_iterations, active
@@ -310,14 +346,41 @@ def _tron_lanes(obj, w0: Tensor, config: OptimizerConfig) -> OptimizationResult:
         gnorm_hist[:, step + 1] = torch.where(active, g_norm, gnorm_hist[:, step + 1])
         step += 1
 
-    reason = torch.where((it == 0) & done, int(ConvergenceReason.GRADIENT_CONVERGED), reason)
+    return TronLaneState(w=w, mg=mg, f=f, g=g, g_tol=g_tol, delta=delta, it=it, passes=passes, reason=reason,
+                         done=done, loss_hist=loss_hist, gnorm_hist=gnorm_hist, step=step)
+
+
+def _tron_lane_result(st: TronLaneState) -> OptimizationResult:
+    reason = torch.where((st.it == 0) & st.done, int(ConvergenceReason.GRADIENT_CONVERGED), st.reason)
     return OptimizationResult(
-        w=w,
-        value=f,
-        grad_norm=torch.linalg.norm(g, dim=-1),
-        iterations=it,
+        w=st.w,
+        value=st.f,
+        grad_norm=torch.linalg.norm(st.g, dim=-1),
+        iterations=st.it,
         reason=reason,
-        loss_history=loss_hist,
-        grad_norm_history=gnorm_hist,
-        objective_passes=passes,
+        loss_history=st.loss_hist,
+        grad_norm_history=st.gnorm_hist,
+        objective_passes=st.passes,
     )
+
+
+def _tron_lanes(obj, w0: Tensor, config: OptimizerConfig) -> OptimizationResult:
+    """TRON over k lanes in lock step: the chunked pieces run once to the
+    iteration bound."""
+    return _tron_lane_result(_tron_lane_run(obj, _tron_lane_init(obj, w0, config), config, config.max_iterations))
+
+
+# -- chunked entry points (lane compaction; optim/common.py ChunkedSolver) ----
+def tron_chunk_init(objective, w0: Tensor, config: OptimizerConfig) -> TronLaneState:
+    """The TRON lane state at the (k, d) start (the initial pass)."""
+    return _tron_lane_init(objective, w0, config)
+
+
+def tron_chunk_run(objective, state: TronLaneState, config: OptimizerConfig, it_bound: int) -> TronLaneState:
+    """Step until every lane is done or ``state.step`` reaches the
+    absolute bound ``it_bound``."""
+    return _tron_lane_run(objective, state, config, it_bound)
+
+
+def tron_chunk_finalize(state: TronLaneState) -> OptimizationResult:
+    return _tron_lane_result(state)

@@ -254,6 +254,20 @@ def measured_entity_costs(entity_row_counts: np.ndarray, entity_owner: np.ndarra
     return counts * rate[owner]
 
 
+def record_projection_metrics(lane_dims: Sequence[tuple[int, int]], full_dim: int, prefix: str = "re_project") -> None:
+    """The projection's gauges (``PHOTON_RE_PROJECT``), from one (lanes,
+    solved width) pair per bucket this process solves:
+    ``re_project.mean_ratio``, Σ lanes·d_e / Σ lanes·d, and
+    ``re_project.dims_saved_bytes``, the float32 coefficient-row bytes
+    the narrower solves leave out, Σ lanes·(d − d_e)·4. Published only
+    while the knob is on, so an unprojected run has no such gauge."""
+    lanes_total = float(sum(k for k, _ in lane_dims))
+    full = lanes_total * float(full_dim)
+    kept = float(sum(k * d for k, d in lane_dims))
+    REGISTRY.gauge_set(f"{prefix}.mean_ratio", kept / full if full > 0 else 1.0)
+    REGISTRY.gauge_set(f"{prefix}.dims_saved_bytes", (full - kept) * 4.0)
+
+
 def record_placement_metrics(plan: PlacementPlan, shard: int | None = None, prefix: str = "re_shard",
                              atoms: int | None = None, split_classes: int | None = None) -> None:
     """The plan's gauges in the registry: ``re_shard.rows`` (this shard's

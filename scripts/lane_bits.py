@@ -13,6 +13,14 @@ lanes in reverse order. For each (k, C, d) and solver (L-BFGS, Newton,
 TRON) it prints whether lane 0's coefficients and variances equal the
 whole bucket's bit for bit, and the largest coefficient difference. On
 CUDA it prints the card's name and power limit first.
+
+Then the lane products and reductions alone, at the lane counts lane
+compaction and fusion give (``OP_SHAPES``, up to 1024 lanes): for each
+op, every sub-batch (the first m lanes, and m gathered lanes, m = k/2
+down to 2) whose rows differ from the whole batch's, with the largest
+difference. ``bmm_*`` are ``DenseBatch.matvec`` / ``rmatvec``'s batched
+products, ``sum_rows`` a row sum over C (the objective's), ``norm_d`` a
+lane norm; ``mulsum_*`` the same products as a product and a sum.
 """
 
 from __future__ import annotations
@@ -35,6 +43,36 @@ from photon_ml_tpu_torch.optim.common import select_minimize_fn  # noqa: E402
 from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType  # noqa: E402
 
 SHAPES = ((7, 16, 3), (33, 64, 8), (5, 256, 9))
+OP_SHAPES = ((1024, 32, 8), (256, 256, 8), (64, 2048, 8), (16, 16384, 8), (512, 64, 32), (40, 1024, 9))
+OPS = {
+    "bmm_matvec": lambda X, w, r: torch.bmm(X, w.unsqueeze(-1)).squeeze(-1),
+    "bmm_rmatvec": lambda X, w, r: torch.bmm(X.transpose(1, 2), r.unsqueeze(-1)).squeeze(-1),
+    "mulsum_matvec": lambda X, w, r: (X * w.unsqueeze(1)).sum(-1),
+    "mulsum_rmatvec": lambda X, w, r: (X * r.unsqueeze(-1)).sum(1),
+    "sum_rows": lambda X, w, r: torch.sum(r * r, dim=-1),
+    "norm_d": lambda X, w, r: torch.linalg.norm(w, dim=-1),
+    "sigmoid": lambda X, w, r: torch.sigmoid(r),
+}
+
+
+def op_bits(dev: torch.device) -> None:
+    g = torch.Generator(device=dev).manual_seed(0)
+    for k, C, d in OP_SHAPES:
+        X = torch.randn((k, C, d), generator=g, device=dev)
+        w = torch.randn((k, d), generator=g, device=dev)
+        r = torch.randn((k, C), generator=g, device=dev)
+        res = {}
+        for name, fn in OPS.items():
+            full, bad, m = fn(X, w, r), [], k // 2
+            while m >= 2:
+                for kind, sel in (("head", torch.arange(m, device=dev)),
+                                  ("gather", torch.randperm(k, generator=g, device=dev)[:m])):
+                    sub = fn(X[sel].contiguous(), w[sel].contiguous(), r[sel].contiguous())
+                    if not torch.equal(sub, full[sel]):
+                        bad.append(f"{kind}{m}:{float((sub - full[sel]).abs().max()):.2e}")
+                m //= 2
+            res[name] = bad
+        print("ops", (k, C, d), res, flush=True)
 
 
 def main() -> None:
@@ -77,6 +115,7 @@ def main() -> None:
                 same = bool(np.array_equal(got[0][pos], whole[0][0]) and np.array_equal(got[1][pos], whole[1][0]))
                 res[name] = (same, float(np.abs(got[0][pos] - whole[0][0]).max()))
             print((k, C, d), solver, res, flush=True)
+    op_bits(dev)
 
 
 if __name__ == "__main__":

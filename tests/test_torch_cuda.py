@@ -934,3 +934,142 @@ def test_two_process_allreduce_of_cuda_readbacks(dev, tmp_path):
                                        loss=LOSSES["logistic"])
     np.testing.assert_allclose(float(got[0]["val"]), float(val), rtol=1e-5)
     np.testing.assert_allclose(got[0]["g"], g.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the random-effect schedule knobs and the projection on the card
+# ---------------------------------------------------------------------------
+def _skewed_lanes(dev, E=97, C=16, d=8, seed=7):
+    """bench.py's R_re_skew at a small size (every 16th entity's columns
+    scaled 1-60) as three buckets of one capacity, 48 and 48 lanes and a
+    one-lane bucket, odd lane counts and fronts of every size."""
+    from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets
+
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(np.arange(E), C)
+    X = rng.normal(size=(E * C, d)).astype(np.float32)
+    X[np.isin(ids, np.arange(0, E, 16))] *= np.geomspace(1.0, 60.0, d).astype(np.float32)
+    W = (rng.normal(size=(E, d)) * 0.5).astype(np.float32)
+    y = (rng.uniform(size=E * C) < 1 / (1 + np.exp(-np.clip(np.sum(W[ids] * X, axis=1), -60, 60)))).astype(np.float32)
+    rows = np.arange(E * C, dtype=np.int64).reshape(E, C)
+    cuts = [0, 48, 96, 97]
+    buckets = EntityBuckets(capacities=(C, C, C), entity_ids=[np.arange(a, b) for a, b in zip(cuts, cuts[1:])],
+                            row_indices=[rows[a:b] for a, b in zip(cuts, cuts[1:])])
+    return dict(features=DenseFeatures(X=torch.from_numpy(X).to(dev)), labels=y,
+                offsets=np.zeros(E * C, np.float32), weights=np.ones(E * C, np.float32), buckets=buckets,
+                num_entities=E, loss=LOSSES["logistic"], l2_weight=1.0, device=dev)
+
+
+@pytest.mark.parametrize("solver,l1", [("LBFGS", 0.0), ("LBFGS", 0.05), ("TRON", 0.0)],
+                         ids=["lbfgs", "owlqn", "tron"])
+def test_schedule_knobs_are_bitwise_on_the_card(dev, monkeypatch, solver, l1):
+    """``PHOTON_RE_COMPACT_EVERY`` in {1, 4, 16} and ``PHOTON_RE_FUSE_BUCKETS``
+    change the launches and not the bits at this fixture's shapes (fronts
+    of 2-64 lanes of C = 16, d = 8, whose products keep their kernels on
+    the card; at larger lane counts they do not, ROADMAP queue 3):
+    coefficients, variances, objectives and iterations equal to the
+    knob-off solve's; fusion takes three launches to two (the one-lane
+    bucket stays alone)."""
+    from photon_ml_tpu_torch.config import OptimizerConfig
+    from photon_ml_tpu_torch.game import random_effect as tre
+    from photon_ml_tpu_torch.types import OptimizerType, VarianceComputationType
+
+    prob = _skewed_lanes(dev)
+    cfg = OptimizerConfig(optimizer_type=OptimizerType(solver), max_iterations=100, tolerance=1e-7)
+    kw = dict(config=cfg, l1_weight=l1, variance_computation=VarianceComputationType.SIMPLE, **prob)
+
+    def run(ce, fuse):
+        monkeypatch.setenv("PHOTON_RE_COMPACT_EVERY", ce)
+        monkeypatch.setenv("PHOTON_RE_FUSE_BUCKETS", fuse)
+        tre.reset_launch_counts()
+        res = tre.train_random_effects(**kw)
+        return (res.coefficients, res.variances, torch.as_tensor(res.loss_values),
+                torch.as_tensor(res.iterations)), tre.launch_counts["launches"]
+
+    ref, launches = run("0", "0")
+    assert launches == 3 and int(ref[3].max()) > float(ref[3].double().median())  # lanes retire at other times
+    for ce, fuse in (("1", "0"), ("4", "0"), ("16", "1"), ("0", "1"), ("4", "1")):
+        got, launches = run(ce, fuse)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), (ce, fuse)
+        if ce == "0":
+            assert launches == 2
+
+
+def test_streamed_schedule_knobs_are_bitwise_on_the_card(dev, monkeypatch):
+    """The out-of-core trainer on the card with lane compaction and fusion,
+    at a size whose fronts keep their kernels: the model bitwise the
+    knob-off fit's, the chunks launched."""
+    from photon_ml_tpu_torch.config import (
+        FixedEffectCoordinateConfig,
+        GameTrainingConfig,
+        OptimizationConfig,
+        OptimizerConfig,
+        RandomEffectCoordinateConfig,
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.game import random_effect as tre
+    from photon_ml_tpu_torch.game.streaming import StreamedGameData, StreamedGameTrainer
+    from photon_ml_tpu_torch.types import RegularizationType
+
+    rng = np.random.default_rng(5)
+    n, d, E = 3000, 65, 40
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[:, -1] = 1.0
+    Xu = rng.normal(size=(n, 8)).astype(np.float32)
+    ids = rng.integers(0, E, size=n)
+    Xu[ids % 8 == 0] *= np.geomspace(1.0, 30.0, 8).astype(np.float32)
+    W = rng.normal(size=(E, 8)).astype(np.float32) * 0.5
+    margin = X @ (rng.normal(size=d).astype(np.float32) * 0.2) + np.sum(W[ids] * Xu, axis=1)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-np.clip(margin, -60, 60)))).astype(np.float32)
+    data = StreamedGameData(labels=y, features={"g": X, "u": Xu}, id_tags={"uid": ids})
+    opt = OptimizationConfig(optimizer=OptimizerConfig(max_iterations=40, tolerance=1e-7),
+                             regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0)
+    cfg = GameTrainingConfig(
+        coordinate_update_sequence=("fixed", "user"), coordinate_descent_iterations=2,
+        fixed_effect_coordinates={"fixed": FixedEffectCoordinateConfig("g", opt)},
+        random_effect_coordinates={"user": RandomEffectCoordinateConfig("uid", "u", opt)},
+    )
+    models, launches = [], []
+    for ce, fuse in (("0", "0"), ("3", "1")):
+        monkeypatch.setenv("PHOTON_RE_COMPACT_EVERY", ce)
+        monkeypatch.setenv("PHOTON_RE_FUSE_BUCKETS", fuse)
+        tre.reset_launch_counts()
+        model, _ = StreamedGameTrainer(cfg, chunk_rows=1024, intercept_indices={"g": d - 1}, device=dev).fit(data)
+        models.append(model)
+        launches.append(tre.launch_counts["launches"])
+    assert launches[1] > launches[0]
+    for cid in models[0].models:
+        assert torch.equal(models[0][cid].coefficient_means, models[1][cid].coefficient_means), cid
+
+
+@pytest.mark.parametrize("mode", ["support", "hash"])
+def test_projection_on_the_card_matches_the_cpu(dev, monkeypatch, mode):
+    """``PHOTON_RE_PROJECT`` on the card against the same solve on the CPU
+    (lane tolerance), the columns off each class support exactly 0."""
+    from photon_ml_tpu_torch.config import OptimizerConfig
+    from photon_ml_tpu_torch.game import bucket_entities, group_by_entity, train_random_effects
+    from photon_ml_tpu_torch.game.data import DenseFeatures
+    from photon_ml_tpu_torch.types import VarianceComputationType
+
+    rng = np.random.default_rng(11)
+    E, d = 30, 24
+    rows = np.repeat([6, 14, 30], 10)
+    widths = np.repeat([5, 12, 24], 10)
+    ids = np.repeat(np.arange(E), rows)
+    X = rng.normal(size=(len(ids), d)).astype(np.float32)
+    X = np.where(np.arange(d)[None, :] < widths[ids][:, None], X, 0.0).astype(np.float32)
+    y = (rng.uniform(size=len(ids)) < 0.5).astype(np.float32)
+    monkeypatch.setenv("PHOTON_RE_PROJECT", mode)
+    monkeypatch.setenv("PHOTON_RE_PROJECT_DIM", "8")
+    out = {}
+    for device in (dev, "cpu"):
+        res = train_random_effects(
+            DenseFeatures(X=torch.from_numpy(X).to(device)), y, np.zeros(len(ids), np.float32),
+            np.ones(len(ids), np.float32), bucket_entities(group_by_entity(ids, num_entities=E)), E,
+            LOSSES["logistic"], OptimizerConfig(max_iterations=25, tolerance=1e-7), l2_weight=1.0,
+            variance_computation=VarianceComputationType.SIMPLE, device=device)
+        out[str(device)] = res.coefficients.cpu().numpy(), res.variances.cpu().numpy()
+    (W, V), (Wc, Vc) = out[str(dev)], out["cpu"]
+    np.testing.assert_allclose(W, Wc, rtol=1e-2, atol=2e-3)
+    np.testing.assert_allclose(V, Vc, rtol=1e-2, atol=2e-3)
+    assert (W[:10, 5:] == 0).all() and (W[10:20, 12:] == 0).all()

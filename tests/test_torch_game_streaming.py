@@ -432,9 +432,12 @@ def test_construction_time_rejections(monkeypatch, arrays):
     for cid, sub in off.models.items():
         assert torch.equal(sub.coefficient_means, on.models[cid].coefficient_means), cid
     monkeypatch.delenv("PHOTON_RE_SHARD")
+    # the schedule knobs are ported (tests/test_torch_re_compaction.py): bitwise knob off
     monkeypatch.setenv("PHOTON_RE_FUSE_BUCKETS", "1")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        StreamedGameTrainer(_port(cfg), device="cpu").fit(data)
+    monkeypatch.setenv("PHOTON_RE_COMPACT_EVERY", "2")
+    fused, _ = StreamedGameTrainer(_port(cfg), device="cpu").fit(data)
+    for cid, sub in off.models.items():
+        assert torch.equal(sub.coefficient_means, fused.models[cid].coefficient_means), cid
 
 
 def test_grouped_metric_dropped_fraction_is_logged(rng, arrays):

@@ -103,6 +103,33 @@ def test_parallel_reexports_the_references_names():
     assert all(name in ref_init for name in names)
 
 
+@pytest.mark.parametrize("module, names", [
+    ("game", ("StreamedGameData", "StreamedGameTrainer")),
+    ("game.random_effect", ("compact_every", "fuse_buckets", "COMPACT_EVERY", "FUSE_BUCKETS")),
+    ("game.projector", ("re_project_mode", "re_project_dim", "RE_PROJECT", "RE_PROJECT_DIM", "ClassProjection",
+                        "projection_ladder", "class_activity")),
+    ("optim.common", ("ChunkedSolver", "select_chunked_solver", "hash_fold_warm_start", "hash_fold_prior",
+                      "hash_expand_coefficients", "hash_expand_variances")),
+    ("optim.lbfgs", ("lbfgs_chunk_init", "lbfgs_chunk_run", "lbfgs_chunk_finalize", "owlqn_chunk_init",
+                     "owlqn_chunk_run", "owlqn_chunk_finalize")),
+    ("optim.tron", ("tron_chunk_init", "tron_chunk_run", "tron_chunk_finalize")),
+    ("parallel.placement", ("record_projection_metrics",)),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_port_defines_the_references_names_where_it_does(module, names):
+    """The knob accessors and the names around them live in the port's
+    module where the reference's module defines them (the game package
+    re-exports the out-of-core trainer, as the reference's does)."""
+    import importlib
+
+    port = importlib.import_module(f"photon_ml_tpu_torch.{module}")
+    ref_source = open(os.path.join(ROOT, "photon_ml_tpu", *module.split(".")[:-1],
+                                   module.split(".")[-1] + ".py") if "." in module
+                      else os.path.join(ROOT, "photon_ml_tpu", module, "__init__.py")).read()
+    for name in names:
+        assert hasattr(port, name), f"photon_ml_tpu_torch.{module} lacks {name}"
+        assert name in ref_source, f"the reference's {module} has no {name}"
+
+
 def test_import_sets_float32_matmul_precision():
     import photon_ml_tpu_torch  # noqa: F401
 

@@ -387,9 +387,12 @@ def test_multihost_refuses_streaming_and_needs_a_process_group(tmp_path, monkeyp
     monkeypatch.delenv("PHOTON_RE_SHARD")
     assert all(torch.equal(sub.coefficient_means, on.models[cid].coefficient_means)
                for cid, sub in off.models.items())
-    for knob in ("PHOTON_RE_PROJECT", "PHOTON_RE_DEVICE_SPLIT"):
+    # the projection is ported: "1" is no mode of it, and raises the reference's
+    # ValueError; the device split waits for item 12d-iii
+    for knob, error, match in (("PHOTON_RE_PROJECT", ValueError, "PHOTON_RE_PROJECT must be one of"),
+                               ("PHOTON_RE_DEVICE_SPLIT", NotImplementedError, "item 12d")):
         monkeypatch.setenv(knob, "1")
-        with pytest.raises(NotImplementedError, match="item 12d"):
+        with pytest.raises(error, match=match):
             StreamedGameTrainer(_config(), chunk_rows=256, device="cpu").fit(streamed)
         monkeypatch.delenv(knob)
     with pytest.raises(RuntimeError, match="multihost initialization failed"):

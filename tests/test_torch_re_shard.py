@@ -194,6 +194,18 @@ def history(trainer) -> list:
     return [{cid: dict(res.metrics) for cid, res in h.items()} for h in trainer.validation_history]
 
 
+def narrow_tail(f: dict) -> dict:
+    """The fixture with column 2 unused by the tail entities (8 rows or
+    fewer: the capacity-8 class), so their class projects."""
+    X = f["X"].copy()
+    X[np.bincount(f["ids"], minlength=f["E"])[f["ids"]] <= 8, 2] = 0.0
+    return dict(f, X=X)
+
+
+def ladder_columns(ladder: dict | None) -> dict:
+    return {str(c): None if p is None else p.columns.tolist() for c, p in (ladder or {}).items()}
+
+
 def in_memory_kwargs(f: dict) -> dict:
     return dict(
         features=DenseFeatures(X=torch.tensor(f["X"])), labels=f["y"], offsets=np.zeros(f["n"], np.float32),
@@ -269,6 +281,24 @@ def worker(job: str, port: int, rank: int, nproc: int, work: str) -> None:
             StreamedGameTrainer._build_re_shard = real
         arrays.update(W=W, V=V)
         out["floor_pads"] = pads
+    elif job == "project":
+        # skew-aware placement plans the projection ladder from allreduced counts
+        os.environ["PHOTON_RE_SHARD"] = "1"
+        os.environ["PHOTON_RE_PROJECT"] = "support"
+        real, ladders = StreamedGameTrainer._plan_entities, []
+
+        def recorded(self, *a, **kw):
+            placed = real(self, *a, **kw)
+            ladders.append(ladder_columns(placed["ladder"]))
+            return placed
+
+        StreamedGameTrainer._plan_entities = recorded
+        try:
+            t, W, V = streamed_fit(narrow_tail(f), rank, nproc)
+        finally:
+            StreamedGameTrainer._plan_entities = real
+        arrays.update(W=W, V=V)
+        out["ladders"] = ladders
     elif job == "replan":
         os.environ["PHOTON_RE_SHARD"] = "1"
         base, Wb, Vb = streamed_fit(f, rank, nproc, iterations=3)
@@ -406,10 +436,10 @@ def test_the_anchors_match_the_jax_package(one_process):
 
 
 # ---------------------------------------------------------------------------
-# step 0: the knobs the port does not read yet raise
+# the knobs: the projection is ported, the 12d-iii knobs raise
 # ---------------------------------------------------------------------------
 def _projection_problem():
-    """The open fault's setup, cut to size: columns 0-5 and the intercept
+    """The fixed fault's setup, cut to size: columns 0-5 and the intercept
     active at density 0.3, Newton, l2 1.0."""
     rng = np.random.default_rng(3)
     n, d, E = 400, 16, 40
@@ -463,11 +493,13 @@ def port_knob_off():
                                  {"PHOTON_RE_PROJECT": "support"}, {"PHOTON_RE_PROJECT": "bogus"}],
                          ids=["hash", "support", "bogus"])
 def test_re_project_fault_then_raise(env, port_knob_off, monkeypatch):
-    """The fault: the reference projects each capacity class (hash folds
-    it to another model, beyond the lane tolerance; support solves on the
-    class support and records ``re_project.*``) or refuses an unknown
-    mode, where the port trained at full width without a word. Now the
-    port raises, naming item 12d, with or without a mesh."""
+    """The fixed fault (the port once trained at full width where the
+    reference projects each capacity class: hash folds it to another model,
+    beyond the lane tolerance; support solves on the class support and
+    records ``re_project.*``), then the raise that held it, are gone: the
+    port now projects as the reference does, with or without a mesh
+    (within the lane tolerance, the same gauges), and an unknown mode
+    raises the reference's ``ValueError`` in both packages."""
     from photon_ml_tpu.obs.metrics import REGISTRY as REF_REGISTRY
 
     prob, W_off = port_knob_off
@@ -477,14 +509,20 @@ def test_re_project_fault_then_raise(env, port_knob_off, monkeypatch):
     if env["PHOTON_RE_PROJECT"] == "bogus":
         with pytest.raises(ValueError):
             _in_memory("ref", *prob)
-    else:
-        W_ref = _in_memory("ref", *prob)
-        assert REF_REGISTRY.snapshot("re_project.")["gauges"]["re_project.mean_ratio"] < 1.0
-        if env["PHOTON_RE_PROJECT"] == "hash":
-            assert np.abs(W_ref - W_off).max() > 2e-3  # the lane tolerance
+        for mesh in (None, data_mesh(2, ["cpu"])):
+            with pytest.raises(ValueError, match="PHOTON_RE_PROJECT"):
+                _in_memory("port", *prob, mesh=mesh)
+        return
+    W_ref = _in_memory("ref", *prob)
+    assert REF_REGISTRY.snapshot("re_project.")["gauges"]["re_project.mean_ratio"] < 1.0
+    if env["PHOTON_RE_PROJECT"] == "hash":
+        assert np.abs(W_ref - W_off).max() > 2e-3  # the lane tolerance: another model
     for mesh in (None, data_mesh(2, ["cpu"])):
-        with pytest.raises(NotImplementedError, match="item 12d"):
-            _in_memory("port", *prob, mesh=mesh)
+        REGISTRY.reset("re_project.")
+        W = _in_memory("port", *prob, mesh=mesh)
+        np.testing.assert_allclose(W, W_ref, **LANE_TOL)
+        assert REGISTRY.snapshot("re_project.")["gauges"] == pytest.approx(
+            REF_REGISTRY.snapshot("re_project.")["gauges"])
 
 
 def _ref_reads(knob: str, value: str, monkeypatch) -> bool:
@@ -543,14 +581,40 @@ def test_placement_knob_fault_then_raise_under_a_mesh(knob, value, monkeypatch):
     assert torch.equal(got.coefficients, off.coefficients) and torch.equal(got.variances, off.variances)
 
 
+def test_streamed_projection_plans_one_ladder_on_every_process(tmp_path, monkeypatch):
+    """``PHOTON_RE_PROJECT=support`` out of core across 2 processes under
+    skew-aware placement: every process derives the same ladder from the
+    allreduced counts, narrower than full width for the tail classes, and
+    the fit matches one process's projected fit (which plans from its own
+    rows) at ``ENTITY_TOL``, bitwise across ranks."""
+    _spawn(["project"], 2, tmp_path)
+    ranks = _load(tmp_path, "project", 2)
+    ladders = [r["ladders"] for r in ranks]
+    assert ladders[0] == ladders[1] and ladders[0]
+    assert any(cols is not None and len(cols) < 3 for cols in ladders[0][0].values())
+    np.testing.assert_array_equal(ranks[0]["arrays"]["W"], ranks[1]["arrays"]["W"])
+    monkeypatch.setenv("PHOTON_RE_PROJECT", "support")
+    REGISTRY.reset("re_project.")
+    _, W1, _ = streamed_fit(narrow_tail(fixture()), 0, 1)
+    assert REGISTRY.snapshot("re_project.")["gauges"]["re_project.mean_ratio"] < 1.0
+    np.testing.assert_allclose(ranks[0]["arrays"]["W"], W1, **ENTITY_TOL)
+
+
 def test_streamed_trainer_raises_on_every_waiting_knob_but_re_shard(monkeypatch):
+    """The 12d-iii knobs raise, naming the item; the projection, ported,
+    trains (its support solve within the lane tolerance of full width:
+    this fixture's classes are active in every column but one)."""
     f = fixture()
-    for knob, value in (("PHOTON_RE_PROJECT", "support"), ("PHOTON_RE_DEVICE_SPLIT", "1"), ("PHOTON_RE_SPLIT", "4"),
+    for knob, value in (("PHOTON_RE_DEVICE_SPLIT", "1"), ("PHOTON_RE_SPLIT", "4"),
                         ("PHOTON_RE_SPLIT_WEIGHT", "bytes")):
         monkeypatch.setenv(knob, value)
-        with pytest.raises(NotImplementedError, match="item 12d"):
+        with pytest.raises(NotImplementedError, match="item 12d-iii"):
             streamed_fit(f, 0, 1)
         monkeypatch.delenv(knob)
+    _, W_off, _ = streamed_fit(f, 0, 1)
+    monkeypatch.setenv("PHOTON_RE_PROJECT", "support")
+    _, W, _ = streamed_fit(f, 0, 1)
+    np.testing.assert_allclose(W, W_off, **LANE_TOL)
 
 
 # ---------------------------------------------------------------------------
