@@ -113,7 +113,21 @@ Run from the root of a checkout. It builds the CUDA kernels from
    >= 0.95 x the generating model's, K1 = 2 x passes in each; the wall per
    outer iteration and the combine's seconds and bytes a visit; and one
    per-user visit on identical offsets solved owned across the processes
-   and without a mesh on the card, bit for bit;
+   and without a mesh on the card, bit for bit; then main_e_multihost_re_split:
+   the same layout and knob (2 processes x 2 local shards of the card, E at
+   bench depth, 3 outer iterations, the first a warm-up) in one pair of
+   children, arm after arm: the knob-off twin, PHOTON_RE_SPLIT=16, the same
+   with PHOTON_RE_SPLIT_WEIGHT=bytes, PHOTON_RE_COMBINE=segments and
+   PHOTON_RE_DEVICE_SPLIT=1 (each process's buckets over its two shards'
+   entries of the card). Every arm's ranks bitwise equal; the segments and
+   device-split arms bitwise the twin, the split arms within the lane
+   tolerance of it (a split parent's lanes solve in batches of other lane
+   counts, whose bits the card does not keep at E's sizes: re_skew's
+   witness), whether bitwise recorded; the segments combine fewer bytes a
+   process than the twin's dense combine; K1 = 2 x passes in each. Per arm
+   the wall per outer iteration, the combine's bytes and seconds a
+   process, the placement gauges (balance, atoms, split classes) and the
+   device gauges (devices, device balance);
 13. agreement_e: config E at bench.py's own shape (n = 2^18, 20,000 users
    and 4,000 items), 4 outer iterations on K1 and again with the kernels
    vetoed (which must launch none): |dAUC| <= 0.005 and relative d(training
@@ -174,39 +188,47 @@ Run from the root of a checkout. It builds the CUDA kernels from
    card's busy share over a profiled second iteration, and K1 alone at the
    chunk's shape (2^20 x 65, float32, offsets read) against its plain
    version;
-15d. main_e_streamed_multihost: main_e_streamed's problem at the same
-   width and depth in two processes of this script on the card (gloo over
-   loopback), each drawing main_e's rows from the seed on the card and
-   keeping one contiguous half (10,000,131 and 10,000,132 rows) on its
-   host: ``StreamedGameTrainer(multihost=True)``, each process streaming
-   its own 10 chunks through K1 with every pass summed over the
+15d. main_e_streamed_multihost: config E at bench depth (2^18 rows, seed
+   4; run at bench depth to keep the smoke in its time) in two processes
+   of this script on the card (gloo over loopback), each drawing the rows
+   from the seed on the card and keeping one contiguous half (2^17 rows)
+   on its host: ``StreamedGameTrainer(multihost=True)``, each process
+   streaming its chunk through K1 with every pass summed over the
    processes, each entity's rows exchanged to its owner (entity % 2) once
    and the offsets and scores every visit. The ranks' models bitwise
-   equal; against main_e_streamed |dAUC| <= 0.005, relative d(fixed
-   objective) <= 1e-3 and the random effects within atol 2e-3 / rtol
-   1e-2; K1 = the process's chunks x the fixed effect's passes in each.
-   It records the wall per outer iteration beside main_e_streamed's, per
-   coordinate the ingest exchange's seconds and bytes, per visit the
-   offset and score exchanges' seconds and bytes and the host gather
-   seconds, and each process's peak device bytes and host RSS;
-15e. main_e_streamed_multihost_re_shard: 15d with PHOTON_RE_SHARD=1 in both
-   children: the entities placed by their rows (LPT over the allreduced
-   per-entity rows, the global capacity ladder), the offsets exchange
-   issued before each random-effect visit's solve and joined by its first
-   bucket gather, the scores exchange riding under the diagnostics
-   gather, both on the exchange worker's own gloo group. The ranks'
-   models bitwise equal; the random effects against 15d's within rtol
-   5e-3 / atol 1e-3 (15d's owners bucket their entities on capacity
-   ladders of their own rows, so lanes pad to other widths); against
-   main_e_streamed |dAUC| <= 0.005; K1 = the process's chunks x the fixed
-   effect's passes in each; per random effect the trainer's plan
-   (``trainer.placements``) the same on both ranks, its loads the global
-   rows of the owners it chose. It records the wall per outer iteration
-   beside 15d's and main_e_streamed's; per visit the offset and score
-   exchanges' seconds, bytes and blocked seconds, the owner's gather
+   equal; against a one-process streamed fit of the same rows and
+   configuration |dAUC| <= 0.005, relative d(fixed objective) <= 1e-3 and
+   the random effects within atol 2e-3 / rtol 1e-2; K1 = the process's
+   chunks x the fixed effect's passes in each. It records the wall per
+   outer iteration beside the one process's, per coordinate the ingest
+   exchange's seconds and bytes, per visit the offset and score exchanges'
+   seconds and bytes and the host gather seconds, and each process's peak
+   device bytes and host RSS;
+15e. main_e_streamed_multihost_re_shard: 15d with PHOTON_RE_SHARD=1, in
+   the same pair of children after 15d's fit: the entities placed by their
+   rows (LPT over the allreduced per-entity rows, the global capacity
+   ladder), the offsets exchange issued before each random-effect visit's
+   solve and joined by its first bucket gather, the scores exchange riding
+   under the diagnostics gather, both on the exchange worker's own gloo
+   group. The ranks' models bitwise equal; the random effects against
+   15d's within rtol 5e-3 / atol 1e-3 (15d's owners bucket their entities
+   on capacity ladders of their own rows, so lanes pad to other widths);
+   against the one-process fit |dAUC| <= 0.005; K1 = the process's chunks
+   x the fixed effect's passes in each; per random effect the trainer's
+   plan (``trainer.placements``) the same on both ranks, its loads the
+   global rows of the owners it chose. It records the wall per outer
+   iteration beside 15d's and the one process's; per visit the offset and
+   score exchanges' seconds, bytes and blocked seconds, the owner's gather
    seconds; the exchange timers and the overlap ratio; per random effect
    the plan's balance and loads beside the balance ``e % 2`` gives the
    same rows; peak device bytes;
+15e'. main_e_streamed_multihost_re_split: 15e's trainer at E's bench depth
+   in one pair of children, the knob-on
+   twin and then PHOTON_RE_SPLIT=16 with PHOTON_RE_DEVICE_SPLIT=1 (the
+   buckets over two entries of the card a process): the ranks bitwise
+   equal, the split arm within 15e's tolerance of the twin (rtol 5e-3 /
+   atol 1e-3; another owner map), K1 = chunks x passes; per arm the wall
+   per outer iteration and the placement and device gauges;
 15f. re_skew: bench.py's R_re_skew (1024 entities of 32 rows, d = 8, one
    in 16 ill-conditioned, 200 iterations at 1e-7) through
    ``train_random_effects`` on L-BFGS, OWL-QN and TRON over
@@ -508,8 +530,13 @@ E_BENCH = (1 << 18, {"userId": (20_000, 8), "itemId": (4_000, 8)})
 E_ML20M = (20_000_263, {"userId": (138_493, 8), "itemId": (27_278, 8)})
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``at_s``: seconds since the script started,
+    so the gaps between lines give each phase's share of the smoke."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - _START}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -3364,6 +3391,43 @@ def _child(mode: str, rank: int, spec: dict) -> int:
         if os.environ.get("PHOTON_RE_SHARD") == "1":
             out.update(re_shard=REGISTRY.snapshot("re_shard.")["gauges"],
                        re_visit=owned_visit_bitwise(host, effects, dev, mesh))
+    elif mode == "e_re_split":
+        n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
+        batch, _ = game_problem(dev, n, effects, seed=4)
+        host = batch.to("cpu")
+        del batch
+        initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+        mesh = process_mesh(spec["local_shards"], devices=[dev])
+        out["arms"] = {}
+        for arm, env in RE_SPLIT_ARMS.items():
+            with environment(env):
+                REGISTRY.reset("re_shard.")
+                REGISTRY.reset("re_combine.")
+                game_random_effect.reset_combine_stats()
+                fit = fit_game(host, game_config(effects, 3), dev, mesh=mesh)
+            np.savez(os.path.join(work, f"{arm}-rank{rank}.npz"),
+                     **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["best"].model.models.items()})
+            out["arms"][arm] = dict(_game_record(fit, warmup=1), **_re_split_telemetry())
+    elif mode == "e_streamed_re_split":
+        n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
+        E_STREAM_CHUNK = spec["chunk_rows"]
+        batch, _ = game_problem(dev, n, effects, seed=4)
+        per = n // spec["processes"]
+        host = streamed_game_data(batch, slice(rank * per, n if rank == spec["processes"] - 1 else (rank + 1) * per))
+        del batch
+        initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+        out["arms"] = {}
+        for arm, env in RE_SPLIT_STREAMED_ARMS.items():
+            with environment(env):
+                REGISTRY.reset("re_shard.")
+                fit = fit_streamed(host, game_config(effects, 2), dev, multihost=True,
+                                   local_devices=[dev, dev] if "PHOTON_RE_DEVICE_SPLIT" in env else None)
+            np.savez(os.path.join(work, f"{arm}-rank{rank}.npz"),
+                     **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["model"].models.items()})
+            out["arms"][arm] = dict(
+                iteration_wall_s=fit["iteration_wall_s"], launches=fit["launches"],
+                fixed_objective_passes=fit["fixed_objective_passes"], chunks=-(-host.num_rows // E_STREAM_CHUNK),
+                **_re_split_telemetry())
     elif mode == "e_streamed_multihost":
         n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
         E_STREAM_CHUNK = spec["chunk_rows"]
@@ -3375,25 +3439,38 @@ def _child(mode: str, rank: int, spec: dict) -> int:
         del batch, data
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-            torch.cuda.reset_peak_host_memory_stats()
         out["data_s"] = time.perf_counter() - t0
         initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
-        reset_collective_stats()
-        fit = fit_streamed(host, game_config(effects, 2), dev, multihost=True)
-        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-        if os.environ.get("PHOTON_RE_SHARD") == "1":
-            out["re_shard"] = dict(placement=placement_balances(fit["trainer"], host, effects, spec["processes"]),
-                                   gauges=REGISTRY.snapshot("re_shard.")["gauges"],
-                                   timers=REGISTRY.timer_snapshot("re_exchange."))
-        margins = score_streamed(fit["model"], host, dev)
-        np.savez(os.path.join(work, f"rank{rank}.npz"), margins=margins.cpu().numpy(), labels=host.labels,
-                 **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["model"].models.items()})
-        out.update(rows=host.num_rows, chunks=-(-host.num_rows // E_STREAM_CHUNK), wall_s=fit["wall_s"],
-                   iteration_wall_s=fit["iteration_wall_s"], visits=fit["visits"], launches=fit["launches"],
-                   fixed_objective_passes=fit["fixed_objective_passes"],
-                   fixed_objective=fit["info"]["fixed"].final_loss, exchange_totals=fit["trainer"].exchange_totals,
-                   collectives=dict(collective_stats), peak_device_bytes=peak, host=host_memory())
+        out["arms"] = {}
+        for arm, env in spec["arms"]:  # in turn, in this process group
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.reset_peak_host_memory_stats()
+            reset_collective_stats()
+            REGISTRY.reset("re_shard.")
+            REGISTRY.reset("re_exchange.")
+            rec = {}
+            with environment(env):
+                fit = fit_streamed(host, game_config(effects, 2), dev, multihost=True)
+                if env.get("PHOTON_RE_SHARD") == "1":
+                    rec["re_shard"] = dict(placement=placement_balances(fit["trainer"], host, effects,
+                                                                        spec["processes"]),
+                                           gauges=REGISTRY.snapshot("re_shard.")["gauges"],
+                                           timers=REGISTRY.timer_snapshot("re_exchange."))
+            peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+            margins = score_streamed(fit["model"], host, dev)
+            np.savez(os.path.join(work, f"{arm}-rank{rank}.npz"), margins=margins.cpu().numpy(), labels=host.labels,
+                     **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["model"].models.items()})
+            rec.update(rows=host.num_rows, chunks=-(-host.num_rows // E_STREAM_CHUNK), wall_s=fit["wall_s"],
+                       iteration_wall_s=fit["iteration_wall_s"], visits=fit["visits"], launches=fit["launches"],
+                       fixed_objective_passes=fit["fixed_objective_passes"],
+                       fixed_objective=fit["info"]["fixed"].final_loss,
+                       exchange_totals=fit["trainer"].exchange_totals, collectives=dict(collective_stats),
+                       peak_device_bytes=peak, host=host_memory())
+            out["arms"][arm] = rec
+            del fit, margins
+            prefetch.clear_cache()
     elif mode == "game_multihost_cli":
         phases = []
         for port, (command, argv) in zip(spec["ports"], spec["phases"]):
@@ -3645,6 +3722,136 @@ def run_e_multihost_re_shard(dev, e_multi: dict, card: str) -> dict:
     )
 
 
+# main_e_multihost_re_split's arms, each child running them in turn under
+# PHOTON_RE_SHARD=1 (the first the knob-off twin). At 4 and 8 no capacity
+# class of E passes the row cap (the heaviest class is one entity with 38%
+# of the rows); 16 splits two classes a coordinate by rows.
+RE_SPLIT_ARMS = {
+    "off": {}, "split": {"PHOTON_RE_SPLIT": "16"},
+    "split_bytes": {"PHOTON_RE_SPLIT": "16", "PHOTON_RE_SPLIT_WEIGHT": "bytes"},
+    "segments": {"PHOTON_RE_COMBINE": "segments"}, "device_split": {"PHOTON_RE_DEVICE_SPLIT": "1"},
+}
+RE_SPLIT_STREAMED_ARMS = {"off": {}, "split_device": {"PHOTON_RE_SPLIT": "16", "PHOTON_RE_DEVICE_SPLIT": "1"}}
+
+
+def _re_split_telemetry() -> dict:
+    """A child's placement and device gauges and its owned combines' bytes
+    and seconds (the registry's ``re_combine.*`` and the dense combine's
+    own books) since they were reset."""
+    snap = REGISTRY.snapshot()
+    return dict(
+        re_shard={k: v for k, v in snap["gauges"].items() if k.startswith("re_shard.")},
+        re_combine=dict(counters={k: v["value"] for k, v in snap["counters"].items() if k.startswith("re_combine.")},
+                        timers=REGISTRY.timer_snapshot("re_combine."),
+                        gauges={k: v for k, v in snap["gauges"].items() if k.startswith("re_combine.")},
+                        seconds=game_random_effect.combine_stats["seconds"],
+                        calls=game_random_effect.combine_stats["calls"]))
+
+
+def _arms_against_twin(work: str, arms, cids, processes: int, rtol: float, atol: float) -> dict:
+    """Each arm's models (``work/<arm>-rank<r>.npz``): whether the ranks
+    agree bit for bit, and against the ``off`` twin whether bitwise, within
+    (rtol, atol), and the largest difference."""
+    got = {arm: [dict(np.load(os.path.join(work, f"{arm}-rank{r}.npz"))) for r in range(processes)] for arm in arms}
+    out = {}
+    for arm in arms:
+        a, off = got[arm][0], got["off"][0]
+        out[arm] = dict(
+            ranks_bitwise=all(x[c].tobytes() == a[c].tobytes() for x in got[arm] for c in cids),
+            bitwise_vs_off=all(a[c].tobytes() == off[c].tobytes() for c in cids),
+            within_tolerance_vs_off=all(np.allclose(a[c], off[c], rtol=rtol, atol=atol) for c in cids),
+            max_abs_diff_vs_off={c: float(np.abs(a[c] - off[c]).max()) for c in cids})
+    return out
+
+
+def run_e_multihost_re_split(dev, card: str) -> dict:
+    """main_e_multihost_re_split (the module docstring, phase 12): the
+    12d-iii knobs in memory, every arm against its knob-off twin in the
+    same pair of children."""
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="_e_re_split-", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        kids = run_children("e_re_split", work, {"local_shards": E_SHARDS // 2, "shape": E_BENCH}, dev,
+                            env={"PHOTON_RE_SHARD": "1"})
+        wall = time.perf_counter() - t0
+        cids = ["fixed", *(f"per_{k}" for k in E_BENCH[1])]
+        models = _arms_against_twin(work, RE_SPLIT_ARMS, cids, 2, 1e-2, 2e-3)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    arms = {}
+    for arm in RE_SPLIT_ARMS:
+        rows = [c["arms"][arm] for c in kids]
+        arms[arm] = dict(
+            models[arm],
+            timed_wall_s_per_outer_iteration=max(r["timed_wall_s_per_outer_iteration"] for r in rows),
+            timed_wall_s_per_visit=[r["timed_wall_s_per_visit"] for r in rows],
+            combine_bytes_sent=[r["re_combine"]["counters"].get("re_combine.bytes_sent", 0.0) for r in rows],
+            combine_exchanges=[r["re_combine"]["counters"].get("re_combine.exchanges", 0.0) for r in rows],
+            combine_seconds=[r["re_combine"]["seconds"] for r in rows],
+            combine_exchange_s=[r["re_combine"]["timers"].get("re_combine.exchange_s", {}).get("seconds")
+                                for r in rows],
+            combine_wait_s=[r["re_combine"]["timers"].get("re_combine.wait_s", {}).get("seconds") for r in rows],
+            combine_overlap_ratio=[r["re_combine"]["gauges"].get("re_combine.overlap_ratio") for r in rows],
+            re_shard=[{k.removeprefix("re_shard."): v for k, v in r["re_shard"].items()
+                       if k.split(".")[1] in ("balance", "atoms", "split_classes", "devices", "device_balance")}
+                      for r in rows],
+            launches={k: sum(r["launches"][k] for r in rows) for k in launch_counts()},
+            k1_launches_ok=all(r["launches"]["fused_value_grad"] == (E_SHARDS // 2) * r["fixed_objective_passes"] > 0
+                               for r in rows))
+    seg, off = arms["segments"], arms["off"]
+    return dict(
+        card=card, n=E_BENCH[0], processes=2, local_shards=E_SHARDS // 2, phase_wall_s=wall, arms=arms,
+        launches={k: sum(a["launches"][k] for a in arms.values()) for k in launch_counts()},
+        ranks_bitwise=all(a["ranks_bitwise"] for a in arms.values()),
+        bitwise_where_promised=seg["bitwise_vs_off"] and arms["device_split"]["bitwise_vs_off"],
+        split_within_lane_tolerance=all(arms[a]["within_tolerance_vs_off"] for a in ("split", "split_bytes")),
+        segments_fewer_bytes=all(0 < s_ < o_ for s_, o_ in zip(seg["combine_bytes_sent"], off["combine_bytes_sent"])),
+        split_placed=all(r["split_classes"] > 0 for r in arms["split"]["re_shard"]),
+        device_split_placed=all(r.get("devices") == 2.0 for r in arms["device_split"]["re_shard"]),
+        k1_launches_ok=all(a["k1_launches_ok"] for a in arms.values()),
+    )
+
+
+def run_e_streamed_multihost_re_split(dev, card: str) -> dict:
+    """main_e_streamed_multihost_re_split (the module docstring, phase
+    15e'): the split and the device split out of core, against the knob-on
+    twin in the same pair of children."""
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="_e_streamed_re_split-", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        kids = run_children("e_streamed_re_split", work, {"shape": E_BENCH, "chunk_rows": E_STREAM_CHUNK}, dev,
+                            env={"PHOTON_RE_SHARD": "1"})
+        wall = time.perf_counter() - t0
+        cids = ["fixed", *(f"per_{k}" for k in E_BENCH[1])]
+        models = _arms_against_twin(work, RE_SPLIT_STREAMED_ARMS, cids, 2, 5e-3, 1e-3)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    arms = {}
+    for arm in RE_SPLIT_STREAMED_ARMS:
+        rows = [c["arms"][arm] for c in kids]
+        arms[arm] = dict(
+            models[arm], timed_wall_s_per_outer_iteration=max(r["iteration_wall_s"][1] for r in rows),
+            iteration_wall_s=[r["iteration_wall_s"] for r in rows],
+            re_shard=[{k.removeprefix("re_shard."): v for k, v in r["re_shard"].items()
+                       if k.split(".")[1] in ("balance", "atoms", "split_classes", "devices", "device_balance")}
+                      for r in rows],
+            launches={k: sum(r["launches"][k] for r in rows) for k in launch_counts()},
+            k1_launches_ok=all(r["fixed_objective_passes"] > 0
+                               and r["launches"]["fused_value_grad"] == r["chunks"] * r["fixed_objective_passes"]
+                               for r in rows))
+    on = arms["split_device"]
+    return dict(
+        card=card, n=E_BENCH[0], processes=2, phase_wall_s=wall, arms=arms,
+        launches={k: sum(a["launches"][k] for a in arms.values()) for k in launch_counts()},
+        ranks_bitwise=all(a["ranks_bitwise"] for a in arms.values()),
+        split_within_tolerance=on["within_tolerance_vs_off"],
+        placed=all(r["split_classes"] > 0 and r.get("devices") == 2.0 for r in on["re_shard"]),
+        k1_launches_ok=all(a["k1_launches_ok"] for a in arms.values()),
+    )
+
+
 def _scores_by_uid(score_dir: str) -> dict:
     out = {}
     for fn in sorted(os.listdir(os.path.join(score_dir, "scores"))):
@@ -3828,14 +4035,13 @@ def e_streamed_reference(dev, batch, data) -> tuple[StreamedGameData, dict]:
     return host, dict(_game_record(mem), **game_quality(mem, batch, data), to_host_s=to_host_s)
 
 
-def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: str) -> tuple[dict, GameModel]:
+def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: str) -> dict:
     """main_e_streamed: config E at MovieLens-20M depth (main_e's rows, seed
     4) out of core from host numpy: 2 outer iterations of
     ``StreamedGameTrainer`` in chunks of 2^20 rows (the fixed effect
     streamed through K1, the random effects' buckets gathered on the host
     every visit), held to the in-memory fit ``mem`` of the same
-    configuration on the same rows (``e_streamed_reference``). Returns the
-    record and the model (main_e_streamed_multihost is held to it)."""
+    configuration on the same rows (``e_streamed_reference``)."""
     n, effects = E_ML20M
     config = game_config(effects, 2)
     chunks = -(-n // E_STREAM_CHUNK)
@@ -3877,7 +4083,6 @@ def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: st
     rec["launches_ok"] = (rec["fixed_objective_passes"] > 0
                           and fit["launches"]["fused_value_grad"] == chunks * rec["fixed_objective_passes"]
                           and not any(v for k, v in fit["launches"].items() if k != "fused_value_grad"))
-    model = fit["model"]
     del fit
     torch.cuda.empty_cache()
     rec["profile"] = profile_streamed(host, config, dev)
@@ -3885,7 +4090,7 @@ def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: st
     rec["k1_at_chunk"] = k1_at(first_chunk, 0.1 * torch.randn(E_STREAM_CHUNK, generator=gen, device=dev),
                                first_labels, dev)
     prefetch.clear_cache()
-    return rec, model
+    return rec
 
 
 def _visit_exchanges(visits: list) -> list:
@@ -3898,90 +4103,110 @@ def _visit_exchanges(visits: list) -> list:
             for v in visits if "offsets_exchange_s" in v]
 
 
-def run_e_streamed_multihost(dev, e_streamed: dict, e_model: GameModel, card: str,
-                             env: dict | None = None) -> tuple[dict, dict]:
-    """main_e_streamed_multihost: main_e_streamed's problem (config E at
-    ML-20M depth, 2 outer iterations, chunks of 2^20 rows) in two processes
-    of this script on the card, each drawing main_e's rows from the seed on
-    the card and keeping one contiguous half on its host:
-    ``StreamedGameTrainer(multihost=True)`` (each process streams its own
-    chunks through K1 and the passes sum over gloo; each entity's rows
-    travel to their owner once, and the offsets and scores every visit).
-    Held to main_e_streamed (one process, every row). ``env`` goes to the
-    children (main_e_streamed_multihost_re_shard's knob). Returns the
-    record and process 0's model arrays."""
+# main_e_streamed_multihost and its PHOTON_RE_SHARD=1 twin run at bench
+# depth (to keep the smoke in its time), held to a one-process fit there
+E_STREAMED_PAIR = E_BENCH
+
+
+def e_streamed_one_process(dev) -> tuple[dict, GameModel]:
+    """The one-process twin of main_e_streamed_multihost at its depth
+    (``E_STREAMED_PAIR``'s rows, seed 4, out of core in one process, 2
+    outer iterations, chunks of ``E_STREAM_CHUNK`` rows): its record (train
+    AUC, fixed objective, wall per outer iteration, peak device bytes) and
+    its model, which the two-process arms are held to."""
+    n, effects = E_STREAMED_PAIR
+    batch, _ = game_problem(dev, n, effects, seed=4)
+    host = streamed_game_data(batch)
+    del batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fit = fit_streamed(host, game_config(effects, 2), dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    scores = score_streamed(fit["model"], host, dev)
+    auc = float(auc_roc(scores, torch.as_tensor(host.labels, device=dev)))
+    prefetch.clear_cache()
+    return dict(n=n, train_auc=auc, fixed_objective=fit["info"]["fixed"].final_loss,
+                iteration_wall_s=fit["iteration_wall_s"], timed_wall_s_per_outer_iteration=fit["iteration_wall_s"][1],
+                peak_device_bytes=peak, launches=fit["launches"],
+                fixed_objective_passes=fit["fixed_objective_passes"]), fit["model"]
+
+
+def run_e_streamed_multihost(dev, one: dict, one_model: GameModel, card: str) -> tuple[dict, dict]:
+    """main_e_streamed_multihost and main_e_streamed_multihost_re_shard
+    (phases 15d, 15e): config E at bench depth (``E_STREAMED_PAIR``, 2
+    outer iterations, chunks of 2^20 rows) in two processes of this script
+    on the card, each drawing the rows from the seed on the card and
+    keeping one contiguous half on its host: ``StreamedGameTrainer(
+    multihost=True)`` knob off, then with PHOTON_RE_SHARD=1, in the same
+    pair of children (``phase_wall_s`` is the pair's). Knob off is held to
+    the one-process fit ``one`` / ``one_model``
+    (``e_streamed_one_process``), knob on to knob off (rtol 5e-3 / atol
+    1e-3) and to ``one`` for AUC. Returns the two records."""
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="_e_streamed_multihost-", dir=ROOT)
+    arms = [["off", {}], ["on", {"PHOTON_RE_SHARD": "1"}]]
     try:
         t0 = time.perf_counter()
-        kids = run_children("e_streamed_multihost", work, {"shape": E_ML20M, "chunk_rows": E_STREAM_CHUNK}, dev,
-                            env=env)
+        kids = run_children("e_streamed_multihost", work, {"shape": E_STREAMED_PAIR, "chunk_rows": E_STREAM_CHUNK,
+                                                           "arms": arms}, dev)
         wall = time.perf_counter() - t0
-        arrays = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(2)]
+        arrays = {arm: [dict(np.load(os.path.join(work, f"{arm}-rank{r}.npz"))) for r in range(2)] for arm, _ in arms}
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    cids = list(e_model.models)
-    margins = torch.from_numpy(np.concatenate([a["margins"] for a in arrays])).to(dev)
-    labels = torch.from_numpy(np.concatenate([a["labels"] for a in arrays])).to(dev)
-    auc = float(auc_roc(margins, labels))
-    del margins, labels
-    random = {c: close(torch.from_numpy(arrays[0][c]).to(dev), e_model[c].coefficient_means, 1e-2, 2e-3)
+    cids = list(one_model.models)
+    recs = {}
+    for arm, _ in arms:
+        rows, got = [c["arms"][arm] for c in kids], arrays[arm]
+        margins = torch.from_numpy(np.concatenate([a["margins"] for a in got])).to(dev)
+        labels = torch.from_numpy(np.concatenate([a["labels"] for a in got])).to(dev)
+        auc = float(auc_roc(margins, labels))
+        del margins, labels
+        random = {c: close(torch.from_numpy(got[0][c]).to(dev), one_model[c].coefficient_means, 1e-2, 2e-3)
+                  for c in cids if c != "fixed"}
+        fixed_objective = rows[0]["fixed_objective"]
+        recs[arm] = dict(
+            card=card, n=E_STREAMED_PAIR[0], processes=2, phase_wall_s=wall,
+            launches={k: sum(r["launches"][k] for r in rows) for k in launch_counts()},
+            rows=[r["rows"] for r in rows], chunks=[r["chunks"] for r in rows], data_s=[c["data_s"] for c in kids],
+            wall_s=[r["wall_s"] for r in rows], iteration_wall_s=[r["iteration_wall_s"] for r in rows],
+            timed_wall_s_per_outer_iteration=max(r["iteration_wall_s"][1] for r in rows),
+            one_process_timed_wall_s_per_outer_iteration=one["timed_wall_s_per_outer_iteration"],
+            visit_wall_s=[{f"{v['iteration']}/{v['coordinate']}": v["wall_s"] for v in r["visits"]} for r in rows],
+            ingest_exchange={c: [r["exchange_totals"][f"ingest/{c}"] for r in rows] for c in cids if c != "fixed"},
+            visit_exchanges=[_visit_exchanges(r["visits"]) for r in rows], collectives=[r["collectives"] for r in rows],
+            fixed_objective_passes=[r["fixed_objective_passes"] for r in rows],
+            peak_device_bytes=[r["peak_device_bytes"] for r in rows],
+            one_process_peak_device_bytes=one["peak_device_bytes"],
+            # at the arm's end (a child's getrusage peak starts at its parent's size at the fork)
+            host_rss_bytes=[r["host"].get("rss_bytes") for r in rows],
+            models_bitwise_equal_across_ranks=all(got[0][c].tobytes() == got[1][c].tobytes() for c in cids),
+            train_auc=auc, d_auc_vs_one_process=abs(auc - one["train_auc"]), fixed_objective=fixed_objective,
+            rel_d_fixed_objective_vs_one_process=abs(fixed_objective - one["fixed_objective"])
+            / abs(one["fixed_objective"]),
+            random_effects_within_lane_tolerance=all(ok for ok, _ in random.values()),
+            max_abs_diff_random_effects_vs_one_process={c: err for c, (_, err) in random.items()},
+            k1_launches_ok=all(r["fixed_objective_passes"] > 0
+                               and r["launches"]["fused_value_grad"] == r["chunks"] * r["fixed_objective_passes"]
+                               and not any(v for k, v in r["launches"].items() if k != "fused_value_grad")
+                               for r in rows),
+            **({"re_shard": [r["re_shard"] for r in rows]} if arm == "on" else {}),
+        )
+    off, on = recs["off"], recs["on"]
+    on_w, off_w = arrays["on"][0], arrays["off"][0]
+    random = {c: close(torch.from_numpy(on_w[c]).to(dev), torch.from_numpy(off_w[c]).to(dev), 5e-3, 1e-3)
               for c in cids if c != "fixed"}
-    launches = {k: sum(c["launches"][k] for c in kids) for k in launch_counts()}
-    fixed_objective = kids[0]["fixed_objective"]
-    rec = dict(
-        card=card, processes=2, phase_wall_s=wall, launches=launches,
-        rows=[c["rows"] for c in kids], chunks=[c["chunks"] for c in kids], data_s=[c["data_s"] for c in kids],
-        wall_s=[c["wall_s"] for c in kids], iteration_wall_s=[c["iteration_wall_s"] for c in kids],
-        timed_wall_s_per_outer_iteration=max(c["iteration_wall_s"][1] for c in kids),
-        main_e_streamed_timed_wall_s_per_outer_iteration=e_streamed["timed_wall_s_per_outer_iteration"],
-        visit_wall_s=[{f"{v['iteration']}/{v['coordinate']}": v["wall_s"] for v in c["visits"]} for c in kids],
-        ingest_exchange={c: [k["exchange_totals"][f"ingest/{c}"] for k in kids] for c in cids if c != "fixed"},
-        visit_exchanges=[_visit_exchanges(c["visits"]) for c in kids], collectives=[c["collectives"] for c in kids],
-        fixed_objective_passes=[c["fixed_objective_passes"] for c in kids],
-        peak_device_bytes=[c["peak_device_bytes"] for c in kids],
-        main_e_streamed_peak_device_bytes=e_streamed["peak_device_bytes"],
-        # at the fit's end (a child's getrusage peak starts at its parent's size at the fork)
-        host_rss_bytes=[c["host"].get("rss_bytes") for c in kids],
-        models_bitwise_equal_across_ranks=all(arrays[0][c].tobytes() == arrays[1][c].tobytes() for c in cids),
-        train_auc=auc, d_auc_vs_main_e_streamed=abs(auc - e_streamed["train_auc"]),
-        fixed_objective=fixed_objective,
-        rel_d_fixed_objective_vs_main_e_streamed=abs(fixed_objective - e_streamed["fixed_objective"])
-        / abs(e_streamed["fixed_objective"]),
-        random_effects_within_lane_tolerance=all(ok for ok, _ in random.values()),
-        max_abs_diff_random_effects_vs_main_e_streamed={c: err for c, (_, err) in random.items()},
-        k1_launches_ok=all(c["fixed_objective_passes"] > 0
-                           and c["launches"]["fused_value_grad"] == c["chunks"] * c["fixed_objective_passes"]
-                           and not any(v for k, v in c["launches"].items() if k != "fused_value_grad")
-                           for c in kids),
-        **({"re_shard": [c["re_shard"] for c in kids]} if env else {}),
-    )
-    return rec, arrays[0]
-
-
-def run_e_streamed_multihost_re_shard(dev, e_streamed: dict, e_model: GameModel, off: dict, off_arrays: dict,
-                                      card: str) -> dict:
-    """main_e_streamed_multihost_re_shard: main_e_streamed_multihost with
-    PHOTON_RE_SHARD=1 in both children (skew-aware placement and the
-    overlapped exchanges), held to the knob-off arm ``off`` (its record and
-    process 0's model ``off_arrays``): the random effects within the
-    knob-off multi-process tolerance (rtol 5e-3 / atol 1e-3) and whether
-    they match bit for bit, and to main_e_streamed for AUC."""
-    rec, arrays = run_e_streamed_multihost(dev, e_streamed, e_model, card, env={"PHOTON_RE_SHARD": "1"})
-    random = {c: close(torch.from_numpy(arrays[c]).to(dev), torch.from_numpy(off_arrays[c]).to(dev), 5e-3, 1e-3)
-              for c in e_model.models if c != "fixed"}
     per_visit = [[{k: v[k] for k in ("offsets_exchange_s", "offsets_wait_s", "scores_exchange_s", "scores_wait_s",
-                                     "gather_s")} for v in visits] for visits in rec["visit_exchanges"]]
-    rec.update(
+                                     "gather_s")} for v in visits] for visits in on["visit_exchanges"]]
+    on.update(
         knob_off_timed_wall_s_per_outer_iteration=off["timed_wall_s_per_outer_iteration"],
         knob_off_visit_exchanges=off["visit_exchanges"], visit_seconds=per_visit,
         random_effects_within_knob_off_tolerance=all(ok for ok, _ in random.values()),
         max_abs_diff_random_effects_vs_knob_off={c: err for c, (_, err) in random.items()},
-        bitwise_equal_to_knob_off={c: arrays[c].tobytes() == off_arrays[c].tobytes() for c in e_model.models},
+        bitwise_equal_to_knob_off={c: on_w[c].tobytes() == off_w[c].tobytes() for c in cids},
         placement_ok=all(p["loads_are_global_rows"] and p == kid["placement"][c]
-                         for kid in rec["re_shard"] for c, p in rec["re_shard"][0]["placement"].items()),
+                         for kid in on["re_shard"] for c, p in on["re_shard"][0]["placement"].items()),
     )
-    return rec
+    return off, on
 
 
 def run_game_cli_streamed(dev, data: GameCliData, card: str) -> dict:
@@ -4507,6 +4732,13 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_e_multihost_re_shard failed: {failed}")
+    e_re_split = run_e_multihost_re_split(dev, smi)
+    emit("main_e_multihost_re_split", **e_re_split)
+    failed = [name for name in ("ranks_bitwise", "bitwise_where_promised", "split_within_lane_tolerance",
+                                "segments_fewer_bytes", "split_placed", "device_split_placed", "k1_launches_ok")
+              if not e_re_split[name]]
+    if failed:
+        raise AssertionError(f"main_e_multihost_re_split failed: {failed}")
     del e_sharded_model
     agree_e = agreement_e(dev)
     emit("agreement_e", **agree_e)
@@ -4546,7 +4778,7 @@ def main() -> int:
         raise AssertionError(f"config E projected: AUC {e_proj['train_auc']} against "
                              f"{e_proj['auc_generating_model']}; scores {e_proj['random_projection_scores']}")
     # the same rows out of core, from host memory
-    e_streamed, e_streamed_model = run_e_streamed(dev, e_host, e_mem, e_rec, smi)
+    e_streamed = run_e_streamed(dev, e_host, e_mem, e_rec, smi)
     del e_host
     emit("main_e_streamed", **e_streamed)
     failed = [name for name, ok in (
@@ -4559,32 +4791,38 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_e_streamed failed: {failed}")
-    # the same problem in two processes, each holding half of the rows
-    e_streamed_multi, off_arrays = run_e_streamed_multihost(dev, e_streamed, e_streamed_model, smi)
+    # two processes, each holding half of the rows (at bench depth), knob
+    # off and with skew-aware placement and the overlapped exchanges
+    one, one_model = e_streamed_one_process(dev)
+    e_streamed_multi, e_streamed_rs = run_e_streamed_multihost(dev, one, one_model, smi)
+    del one_model
+    e_streamed_multi["one_process"] = one
     emit("main_e_streamed_multihost", **e_streamed_multi)
     failed = [name for name, ok in (
         ("models_bitwise_equal_across_ranks", e_streamed_multi["models_bitwise_equal_across_ranks"]),
-        ("vs_main_e_streamed", e_streamed_multi["d_auc_vs_main_e_streamed"] <= 0.005
-         and e_streamed_multi["rel_d_fixed_objective_vs_main_e_streamed"] <= 1e-3
+        ("vs_one_process", e_streamed_multi["d_auc_vs_one_process"] <= 0.005
+         and e_streamed_multi["rel_d_fixed_objective_vs_one_process"] <= 1e-3
          and e_streamed_multi["random_effects_within_lane_tolerance"]),
         ("k1_launches", e_streamed_multi["k1_launches_ok"]),
     ) if not ok]
     if failed:
         raise AssertionError(f"main_e_streamed_multihost failed: {failed}")
-    # the same with skew-aware placement and the overlapped exchanges
-    e_streamed_rs = run_e_streamed_multihost_re_shard(dev, e_streamed, e_streamed_model, e_streamed_multi,
-                                                      off_arrays, smi)
-    del e_streamed_model, off_arrays
     emit("main_e_streamed_multihost_re_shard", **e_streamed_rs)
     failed = [name for name, ok in (
         ("models_bitwise_equal_across_ranks", e_streamed_rs["models_bitwise_equal_across_ranks"]),
         ("vs_knob_off", e_streamed_rs["random_effects_within_knob_off_tolerance"]),
         ("placement", e_streamed_rs["placement_ok"]),
-        ("vs_main_e_streamed", e_streamed_rs["d_auc_vs_main_e_streamed"] <= 0.005),
+        ("vs_one_process", e_streamed_rs["d_auc_vs_one_process"] <= 0.005),
         ("k1_launches", e_streamed_rs["k1_launches_ok"]),
     ) if not ok]
     if failed:
         raise AssertionError(f"main_e_streamed_multihost_re_shard failed: {failed}")
+    e_streamed_re_split = run_e_streamed_multihost_re_split(dev, smi)
+    emit("main_e_streamed_multihost_re_split", **e_streamed_re_split)
+    failed = [name for name in ("ranks_bitwise", "split_within_tolerance", "placed", "k1_launches_ok")
+              if not e_streamed_re_split[name]]
+    if failed:
+        raise AssertionError(f"main_e_streamed_multihost_re_split failed: {failed}")
     solvers, solver_models = agreement_e_solvers(dev, agree_e["fused"])
     emit("agreement_e_solvers", **solvers)
     ev = solvers["lbfgs"]["evaluators"]
@@ -4819,6 +5057,7 @@ def main() -> int:
     # out of core across processes
     parallel_streamed_paths = {"main_e_streamed_multihost": e_streamed_multi,
                                "main_e_streamed_multihost_re_shard": e_streamed_rs,
+                               "main_e_streamed_multihost_re_split": e_streamed_re_split,
                                "main_game_cli_streamed_multihost": game_streamed_multi}
     # the drivers with run telemetry on
     telemetry_paths = {"main_telemetry": telemetry}
@@ -4826,7 +5065,8 @@ def main() -> int:
     parallel_paths = {"main_a_sharded": a_sharded, "main_a2_sharded": a2_sharded,
                       "main_f_multihost": f_multi, "main_glm_multihost_cli": glm_multihost,
                       "main_e_sharded": e_sharded, "main_e_multihost": e_multi,
-                      "main_e_multihost_re_shard": e_multi_rs, "main_game_multihost_cli": game_multihost}
+                      "main_e_multihost_re_shard": e_multi_rs, "main_e_multihost_re_split": e_re_split,
+                      "main_game_multihost_cli": game_multihost}
 
     # launches over the main path: A, the sweep and B, then D, E, E on L-BFGS,
     # E projected and the GAME drivers (each path counted from 0 just before it ran)

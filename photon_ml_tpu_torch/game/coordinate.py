@@ -52,6 +52,7 @@ from photon_ml_tpu_torch.game.projector import RandomProjector
 from photon_ml_tpu_torch.game.random_effect import (
     RandomEffectTrainingResult,
     _fusion_units,
+    _parent_units,
     fuse_buckets,
     prepare_buckets,
     train_prepared,
@@ -360,21 +361,26 @@ class RandomEffectCoordinate:
         return cached
 
     def _staged_fusion_units(self):
-        """The fused launch units of the prepared buckets
-        (``PHOTON_RE_FUSE_BUCKETS``), concatenated once and kept across
-        visits, as the reference's coordinate keeps them: rebuilding them
-        every visit would copy every static bucket tensor. None when fusion
-        does not apply (the knob off, one bucket, or lanes sharded over a
-        mesh, which the prepared buckets, not the knob, tell)."""
+        """The launch units of the prepared buckets, concatenated once and
+        kept across visits, as the reference's coordinate keeps them:
+        rebuilding them every visit would copy every static bucket tensor.
+        Fused by geometry under ``PHOTON_RE_FUSE_BUCKETS``, else, on a
+        ``PHOTON_RE_SPLIT`` preparation, the atoms of each parent together
+        again (``_parent_units``). None when neither applies (one bucket,
+        or lanes sharded over a mesh, which the prepared buckets, not the
+        knob, tell)."""
         prepared = self._prepared
         lane_sharded = self.mesh is not None and not any(pb.owner is not None for pb in prepared)
-        if lane_sharded or len(prepared) < 2 or not fuse_buckets():
+        if lane_sharded or len(prepared) < 2:
             return None
-        units = self.__dict__.get("_fusion_units_cache")
-        if units is None:
-            units = _fusion_units(prepared)
-            object.__setattr__(self, "_fusion_units_cache", units)
-        return units
+        fuse = fuse_buckets()
+        if not fuse and not any(pb.parent is not None for pb in prepared):
+            return None
+        cached = self.__dict__.get("_fusion_units_cache")
+        if cached is None or cached[0] != fuse:
+            cached = (fuse, _fusion_units(prepared) if fuse else _parent_units(prepared))
+            object.__setattr__(self, "_fusion_units_cache", cached)
+        return cached[1]
 
     def with_config(self, config: OptimizationConfig) -> "RandomEffectCoordinate":
         """A copy bound to another optimization config that shares the

@@ -24,7 +24,7 @@ item 12d.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -327,6 +327,134 @@ def capacity_classes(
     pops = np.bincount(slot, minlength=len(caps))
     used = np.flatnonzero(pops > 0)
     return tuple(int(caps[b]) for b in used), tuple(int(pops[b]) for b in used)
+
+
+
+def _split_runs(weights: np.ndarray, cap: float, byte_weights: np.ndarray | None = None,
+                byte_cap: float = 0.0) -> list[tuple[int, int]]:
+    """The split rule both split sites share: positions [0, len(weights))
+    in contiguous half-open runs whose summed weight stays at or under
+    ``cap`` where it can, each of at least two positions (a placement atom
+    never makes a one-lane launch of what the unsplit run batched; a
+    trailing singleton merges back). ``byte_weights`` / ``byte_cap`` add
+    the byte axis (``PHOTON_RE_SPLIT_WEIGHT=bytes``): a run also closes
+    when its summed bytes would pass ``byte_cap``."""
+    n = len(weights)
+    if n < 4 or cap <= 0:  # fewer than 4 cannot make two atoms of 2
+        return [(0, n)] if n else []
+    runs: list[tuple[int, int]] = []
+    lo, acc, acc_b = 0, 0.0, 0.0
+    for i in range(n):
+        w = float(weights[i])
+        b = 0.0 if byte_weights is None else float(byte_weights[i])
+        over = acc + w > cap or (byte_weights is not None and acc_b + b > byte_cap)
+        if i > lo + 1 and over:
+            runs.append((lo, i))
+            lo, acc, acc_b = i, w, b
+        else:
+            acc += w
+            acc_b += b
+    runs.append((lo, n))
+    if len(runs) > 1 and runs[-1][1] - runs[-1][0] < 2:
+        runs[-2:] = [(runs[-2][0], n)]
+    return runs
+
+
+def placement_atoms(
+    active_counts: np.ndarray,
+    weights: np.ndarray | None = None,
+    capacities: tuple[int, ...] | None = None,
+    target_buckets: int = 8,
+    max_padded_ratio: float = 0.5,
+    split: int = 0,
+    byte_weights: np.ndarray | None = None,
+) -> tuple[list[np.ndarray], tuple[int, ...], int]:
+    """The placement atoms of ``PHOTON_RE_SPLIT``: the active entities in
+    contiguous ascending runs within each capacity class, a class whose
+    summed ``weights`` (the active counts by default) passes
+    ``Σ weights / split`` cut by ``_split_runs``. ``byte_weights`` adds
+    the byte axis with its own cap ``Σ byte_weights / split``. Returns
+    (each atom's entity indices, each atom's capacity, the number of
+    classes split). ``split <= 0`` gives one atom a used class. The
+    inputs are the global counts and the knob, never the process count,
+    so every process and one process derive the same atoms."""
+    counts = np.asarray(active_counts)
+    w = counts if weights is None else np.asarray(weights)
+    if len(w) != len(counts):
+        raise ValueError(f"placement_atoms: weights length {len(w)} != active_counts length {len(counts)}")
+    bw = None if byte_weights is None else np.asarray(byte_weights)
+    if bw is not None and len(bw) != len(counts):
+        raise ValueError(f"placement_atoms: byte_weights length {len(bw)} != active_counts length "
+                         f"{len(counts)}")
+    active, slot, caps = _capacity_slots(counts, capacities, target_buckets, max_padded_ratio)
+    if len(active) == 0:
+        return [], (), 0
+    cap_w = float(w[active].sum()) / split if split > 0 else 0.0
+    cap_b = float(bw[active].sum()) / split if split > 0 and bw is not None else 0.0
+    atoms: list[np.ndarray] = []
+    atom_caps: list[int] = []
+    split_classes = 0
+    for b in np.flatnonzero(np.bincount(slot, minlength=len(caps))):
+        members = active[slot == b]
+        mw = np.asarray(w[members], np.float64)
+        mb = None if bw is None else np.asarray(bw[members], np.float64)
+        over = split > 0 and (mw.sum() > cap_w or (mb is not None and mb.sum() > cap_b))
+        runs = _split_runs(mw, cap_w, byte_weights=mb, byte_cap=cap_b) if over else [(0, len(members))]
+        split_classes += len(runs) > 1
+        for lo, hi in runs:
+            atoms.append(members[lo:hi])
+            atom_caps.append(int(caps[b]))
+    return atoms, tuple(atom_caps), split_classes
+
+
+def split_entity_buckets(
+    buckets: EntityBuckets,
+    split: int,
+    weight: str = "rows",
+    byte_dims: Sequence[float] | None = None,
+) -> tuple[EntityBuckets, tuple[int, ...] | None, int]:
+    """``PHOTON_RE_SPLIT`` on built buckets (the in-memory owned mode): a
+    bucket whose active rows pass Σ active rows / ``split`` is cut into
+    contiguous sub-buckets of the same capacity by ``_split_runs``.
+    ``weight="bytes"`` adds the byte axis, one segment row a lane
+    (``byte_dims[b]``, the projected width of bucket b's class, where
+    ``PHOTON_RE_PROJECT`` narrows it). Returns (buckets, ``parents``,
+    classes split): ``parents[b]`` is output bucket b's input bucket, and
+    ``parents`` is None when nothing split, which keeps the knob-off
+    path."""
+    if split <= 0 or not buckets.entity_ids:
+        return buckets, None, 0
+    if weight not in ("rows", "bytes"):
+        raise ValueError(f"split_entity_buckets: unknown weight axis {weight!r}")
+    per_bucket_w = [np.asarray((rows >= 0).sum(axis=1), np.float64) for rows in buckets.row_indices]
+    if byte_dims is not None and len(byte_dims) != len(per_bucket_w):
+        raise ValueError(f"split_entity_buckets: byte_dims length {len(byte_dims)} != bucket count "
+                         f"{len(per_bucket_w)}")
+    cap_w = float(sum(w.sum() for w in per_bucket_w)) / split
+    by_bytes = weight == "bytes"
+    cap_b = 0.0
+    if by_bytes:
+        lane_w = [1.0] * len(per_bucket_w) if byte_dims is None else [float(x) for x in byte_dims]
+        cap_b = float(sum(len(w) * lw for w, lw in zip(per_bucket_w, lane_w))) / split
+    ent_out: list[np.ndarray] = []
+    row_out: list[np.ndarray] = []
+    caps_out: list[int] = []
+    parents: list[int] = []
+    split_classes = 0
+    for b, (ents, rows, w) in enumerate(zip(buckets.entity_ids, buckets.row_indices, per_bucket_w)):
+        bw = np.full(len(w), lane_w[b], np.float64) if by_bytes else None
+        over = float(w.sum()) > cap_w or (by_bytes and float(bw.sum()) > cap_b)
+        runs = _split_runs(w, cap_w, byte_weights=bw, byte_cap=cap_b) if over else [(0, len(ents))]
+        split_classes += len(runs) > 1
+        for lo, hi in runs:
+            ent_out.append(ents[lo:hi])
+            row_out.append(rows[lo:hi])
+            caps_out.append(int(buckets.capacities[b]))
+            parents.append(b)
+    if split_classes == 0:
+        return buckets, None, 0
+    return (EntityBuckets(capacities=tuple(caps_out), entity_ids=ent_out, row_indices=row_out),
+            tuple(parents), split_classes)
 
 
 def _merge_bucket_classes(

@@ -76,11 +76,26 @@ one where the shapes keep their kernels, and otherwise within the lane
 solvers' tolerance. Over a lane-sharded mesh both keep the classic
 schedule; owned buckets take them per bucket.
 
-Knobs that wait for another ROADMAP item raise when set: the sub-bucket
-split, its weight axis, the device split and the owner-segment combine
-(``PHOTON_RE_SPLIT``, ``PHOTON_RE_SPLIT_WEIGHT``,
-``PHOTON_RE_DEVICE_SPLIT``, ``PHOTON_RE_COMBINE=segments``, item 12d-iii)
-under a mesh and out of core (``refuse_waiting_knobs``).
+Under owned buckets three more knobs act (``parallel/placement.py``),
+and a lane-sharded mesh or no mesh ignores them, as the reference does:
+
+- ``PHOTON_RE_SPLIT`` cuts heavy capacity classes into sub-bucket
+  placement atoms (``game/data.py`` ``split_entity_buckets``), each placed
+  on its own (``PreparedBucket.parent`` names its class's bucket); the
+  atoms one process owns of a class launch together again
+  (``_parent_units``), so on one process the split launches exactly the
+  unsplit buckets. ``PHOTON_RE_SPLIT_WEIGHT=bytes`` balances lanes (one
+  combine segment row each, at the projected width under
+  ``PHOTON_RE_PROJECT``) instead of rows.
+- ``PHOTON_RE_DEVICE_SPLIT=1`` places a process's owned buckets on the
+  mesh's local entries by a second LPT level (``PreparedBucket.device``):
+  each entry solves on its own copy of the (E, d) matrices, folded back
+  by row copies (``_combine_device_local``). Fewer than two entries: off.
+- ``PHOTON_RE_COMBINE=segments`` (``re_combine_mode``) replaces the
+  dense combine, which gathers Σ lanes rows from every process, by each
+  owner's packed segments (``_combine_owned_segments``): O(E·d) bytes a
+  process instead of O(P·E·d), on the exchange worker's gloo group, the
+  same bits.
 
 ``solve_bucket_lanes`` is the one-bucket entry point of eager callers
 (the out-of-core trainer, ``game/streaming.py``, which gathers each
@@ -110,7 +125,7 @@ import torch
 
 from photon_ml_tpu_torch._device import check_device
 from photon_ml_tpu_torch.config import OptimizerConfig
-from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets, Features
+from photon_ml_tpu_torch.game.data import DenseFeatures, EntityBuckets, Features, split_entity_buckets
 from photon_ml_tpu_torch.game.projector import (
     class_activity,
     projection_ladder,
@@ -135,8 +150,14 @@ from photon_ml_tpu_torch.optim.common import (
 )
 from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, shard_extent
 from photon_ml_tpu_torch.parallel.placement import (
+    placement_weights,
+    plan_device_placement,
     plan_shard_placement,
+    re_device_split_enabled,
     re_shard_enabled,
+    re_split_factor,
+    re_split_weight,
+    record_device_placement_metrics,
     record_placement_metrics,
     record_projection_metrics,
 )
@@ -149,6 +170,22 @@ Tensor = torch.Tensor
 # bucket), PHOTON_RE_FUSE_BUCKETS (1: one launch per bucket geometry).
 COMPACT_EVERY = 0
 FUSE_BUCKETS = 0
+
+# the owned-bucket combine's transport (PHOTON_RE_COMBINE): "allreduce",
+# the dense buffer of every bucket's rows from every process, or
+# "segments", each owner's packed rows alone
+RE_COMBINE = "allreduce"
+_RE_COMBINE_MODES = ("allreduce", "segments")
+
+
+def re_combine_mode() -> str:
+    """``PHOTON_RE_COMBINE`` (env > module global); a name outside
+    ``_RE_COMBINE_MODES`` raises."""
+    env = os.environ.get("PHOTON_RE_COMBINE")
+    mode = env if env else str(RE_COMBINE)
+    if mode not in _RE_COMBINE_MODES:
+        raise ValueError(f"PHOTON_RE_COMBINE must be one of {_RE_COMBINE_MODES}, got {mode!r}")
+    return mode
 
 
 def compact_every() -> int:
@@ -265,6 +302,11 @@ class PreparedBucket:
     # owned mode (PHOTON_RE_SHARD=1 over a mesh): the process that solves
     # this whole bucket; None in the lane-sharded and unsharded schedules
     owner: int | None = None
+    # PHOTON_RE_SPLIT: the unsplit bucket this sub-bucket atom was cut
+    # from (None on an unsplit preparation); PHOTON_RE_DEVICE_SPLIT: the
+    # local mesh entry it is staged and solved on (None: the head)
+    parent: int | None = None
+    device: int | None = None
     # the capacity class's projection (PHOTON_RE_PROJECT; None: full
     # width), set on every bucket of a projected preparation, and its
     # (d_e, m) signed fold on the bucket's device when the class folds
@@ -288,12 +330,12 @@ def _prepare_one(
     rows: np.ndarray,
     features_to_samples_ratio: float | None,
     intercept_index: int | None,
-    device: torch.device,
+    target: torch.device,
     spec=None,
     **where,
 ) -> PreparedBucket:
     """One bucket's (or one shard's lanes') static tensors, gathered where
-    the features lie and staged on ``device``; ``spec`` (a dense bucket's
+    the features lie and staged on ``target``; ``spec`` (a dense bucket's
     ``ClassProjection``) gathers them to the class support and folds them
     when the class hashes."""
     dense = isinstance(features, DenseFeatures)
@@ -301,18 +343,18 @@ def _prepare_one(
     raw = torch.as_tensor(rows, dtype=torch.int64, device=src)
     mask = (raw >= 0).to(torch.float32)
     idx = torch.clamp_min(raw, 0)
-    columns = dict(labels=(labels[idx] * mask).to(device), offsets=torch.zeros_like(mask, device=device),
-                   weights=(weights[idx] * mask).to(device))
+    columns = dict(labels=(labels[idx] * mask).to(target), offsets=torch.zeros_like(mask, device=target),
+                   weights=(weights[idx] * mask).to(target))
     cols = hash_S = None
     if dense:
-        static = DenseBatch(X=(features.X[idx].float() * mask.unsqueeze(-1)).to(device), **columns)
+        static = DenseBatch(X=(features.X[idx].float() * mask.unsqueeze(-1)).to(target), **columns)
         if spec is not None:
             # one shared column set per class; the intercept (the last
             # column) lands at slot d_e - 1
-            cols = torch.as_tensor(spec.columns, device=device).expand(len(rows), -1).contiguous()
+            cols = torch.as_tensor(spec.columns, device=target).expand(len(rows), -1).contiguous()
             X = static.X[:, :, cols[0]]
             if spec.hash_dim is not None:
-                hash_S = torch.from_numpy(spec.hash_matrix()).to(device)
+                hash_S = torch.from_numpy(spec.hash_matrix()).to(target)
                 X = X @ hash_S
             static = dataclasses.replace(static, X=X)
         if features_to_samples_ratio is not None:
@@ -323,16 +365,16 @@ def _prepare_one(
                 )
     else:
         static = SparseBatch(
-            indices=features.indices[idx].long().to(device),
-            values=(features.values[idx].float() * mask.unsqueeze(-1)).to(device),
+            indices=features.indices[idx].long().to(target),
+            values=(features.values[idx].float() * mask.unsqueeze(-1)).to(target),
             num_features=features.num_features, **columns,
         )
     return PreparedBucket(
         entity_ids=np.asarray(ent_ids),
-        ids=torch.as_tensor(ent_ids, dtype=torch.int64, device=device),
+        ids=torch.as_tensor(ent_ids, dtype=torch.int64, device=target),
         static=static,
-        row_idx=idx.to(device),
-        mask=mask.to(device),
+        row_idx=idx.to(target),
+        mask=mask.to(target),
         columns=cols,
         project=spec,
         hash_S=hash_S,
@@ -362,8 +404,10 @@ def prepare_buckets(
     its shard's device (a shard with no real lane of a bucket gets none);
     the features may then lie on the host. Under ``PHOTON_RE_SHARD=1`` a
     mesh prepares owned buckets instead (module docstring): the buckets
-    this process owns whole, on its first local device, and host
-    bookkeeping only (entity ids, owner) for the rest.
+    this process owns whole, on its first local device (on the entry the
+    device split picks, under ``PHOTON_RE_DEVICE_SPLIT``), and host
+    bookkeeping only (entity ids, owner) for the rest; ``PHOTON_RE_SPLIT``
+    first cuts heavy buckets into sub-bucket atoms.
 
     ``PHOTON_RE_PROJECT`` (support / hash) derives one projection per
     capacity class from the classes' column activity over the whole batch
@@ -372,7 +416,6 @@ def prepare_buckets(
     projected class to the class support (folded under ``hash``). It
     refuses ``features_to_samples_ratio`` (two column maps) and sparse
     features, as the reference does."""
-    refuse_waiting_knobs(mesh is not None)
     dense = isinstance(features, DenseFeatures)
     src = (features.X if dense else features.values).device
     ladder = _projection_ladder(features, buckets, features_to_samples_ratio, intercept_index)
@@ -380,21 +423,39 @@ def prepare_buckets(
     def spec_of(rows):
         return None if ladder is None else ladder.get(int(np.asarray(rows).shape[1]))
 
+    def dims_of(bks):
+        # each bucket's solved width, the segment row its lanes ship (None
+        # without a projection, which keeps the weights of the unprojected
+        # preparation)
+        if ladder is None:
+            return None
+        return [float(features.num_features) if (p := ladder.get(int(c))) is None else float(p.dim)
+                for c in bks.capacities]
+
     prepared = []
-    owners = None
+    owners = parents = devices = None
     if mesh is not None and re_shard_enabled():
         pm = as_process_mesh(mesh)
         # placement before any staging: device residency is O(owned buckets)
-        owners = _plan_bucket_owners(buckets, pm.process_count, pm.process_index)
+        buckets, parents, n_split = split_entity_buckets(buckets, re_split_factor(), weight=re_split_weight(),
+                                                         byte_dims=dims_of(buckets))
+        lane_dims = dims_of(buckets)
+        owners = _plan_bucket_owners(buckets, pm.process_count, pm.process_index, parents, n_split, lane_dims)
+        devices = _plan_bucket_devices(buckets, parents, owners, pm.process_index, len(pm.local), lane_dims)
     for b, (ent_ids, rows) in enumerate(zip(buckets.entity_ids, buckets.row_indices)):
         if owners is not None:
             owner = int(owners[b])
+            parent = None if parents is None else int(parents[b])
             if owner != pm.process_index:
                 prepared.append(PreparedBucket(entity_ids=np.asarray(ent_ids), ids=None, static=None, row_idx=None,
-                                               mask=None, bucket=b, owner=owner, project=spec_of(rows)))
+                                               mask=None, bucket=b, owner=owner, parent=parent,
+                                               project=spec_of(rows)))
             else:
+                dev = None if devices is None else int(devices[b])
                 prepared.append(_prepare_one(features, labels, weights, ent_ids, rows, features_to_samples_ratio,
-                                             intercept_index, pm.head, spec=spec_of(rows), bucket=b, owner=owner))
+                                             intercept_index, pm.head if dev is None else pm.local[dev],
+                                             spec=spec_of(rows), bucket=b, owner=owner, parent=parent,
+                                             device=dev))
             continue
         if mesh is None:
             prepared.append(_prepare_one(features, labels, weights, ent_ids, rows, features_to_samples_ratio,
@@ -559,22 +620,38 @@ def train_prepared(
         chunked = select_chunked_solver(config, l1_weight)[0] if ce > 0 else None
         if fuse_buckets() and len(prepared) > 1:
             units = fusion_units if fusion_units is not None else _fusion_units(prepared)
+        elif any(pb.parent is not None for pb in prepared):
+            # a split's atoms launch per parent again, fusion or not
+            units = fusion_units if fusion_units is not None else _parent_units(prepared)
         else:
             units = [(pb, [(i, 0, pb.num_real)]) for i, pb in enumerate(prepared)]
         pid = as_process_mesh(mesh).process_index if owned else None
+        # PHOTON_RE_DEVICE_SPLIT: each mesh entry solves on its own copy of
+        # the matrices, offsets and priors (its buckets' tensors lie there)
+        local = {dv: {key: None if t is None else t.to(as_process_mesh(mesh).local[dv], copy=True)
+                      for key, t in (("W", W), ("V", V), ("offsets", offsets), ("mu", prior_mu),
+                                     ("var", prior_var))}
+                 for dv in sorted({pb.device for pb in prepared if pb.device is not None})}
         diag = [None] * len(prepared)
         for pb, members in units:
             if owned and pb.owner != pid:
                 continue  # another process's: its rows arrive in the combine
-            step = _bucket_step(W, V, offsets, pb, l2, norm, prior_mu, prior_var, chunked=chunked,
-                                compact_every_n=ce, **kw)
+            st = local.get(pb.device)
+            step = _bucket_step(
+                W if st is None else st["W"], V if st is None else st["V"],
+                offsets if st is None else st["offsets"], pb, l2 if st is None else l2.to(st["W"].device),
+                norm if st is None or norm is None else norm.to(st["W"].device),
+                prior_mu if st is None else st["mu"], prior_var if st is None else st["var"],
+                chunked=chunked, compact_every_n=ce, **kw)
             if chunked is None:
                 acct.add(step[1], pb.static.labels.shape[0])
             for i, lo, hi in members:
                 whole = lo == 0 and hi == pb.num_real
                 diag[i] = (prepared[i].entity_ids, *(t if whole else t[lo:hi] for t in step))
+        if local:
+            _combine_device_local(prepared, W, V, local, pid, diag)
         if owned and as_process_mesh(mesh).spans_processes:
-            diag = _combine_owned(as_process_mesh(mesh), W, V, prepared, diag)
+            diag = _combine_owned_results(as_process_mesh(mesh), W, V, prepared, diag)
     else:
         solved = []
         for pb in prepared:
@@ -804,6 +881,59 @@ def reset_combine_stats() -> None:
     combine_stats.update(seconds=0.0, calls=0, bytes=0)
 
 
+def _combine_device_local(prepared: list, W: Tensor, V: Tensor | None, local: dict, pid: int | None,
+                          diag: list) -> None:
+    """The device split's fold: each owned bucket's rows copied from its
+    mesh entry's matrices into W (and V), and its diagnostics moved to W's
+    device (the result reads every bucket's in one ``torch.cat``), in
+    place. Entity ids partition the buckets, so the rows are disjoint and
+    arrive with the bits their entry wrote."""
+    for i, pb in enumerate(prepared):
+        if pb.device is None or (pb.owner is not None and pb.owner != pid):
+            continue
+        st = local[pb.device]
+        ids = torch.as_tensor(pb.entity_ids, dtype=torch.int64, device=W.device)
+        W[ids] = st["W"][pb.ids].to(W.device)
+        if V is not None:
+            V[ids] = st["V"][pb.ids].to(V.device)
+        diag[i] = (diag[i][0], *(t.to(W.device) for t in diag[i][1:]))
+
+
+def _combine_owned_results(mesh: ProcessMesh, W: Tensor, V: Tensor | None, prepared: list, diag: list) -> list:
+    """The owned-bucket combine by ``PHOTON_RE_COMBINE``: the dense buffer
+    (``_combine_owned``) or each owner's segments
+    (``_combine_owned_segments``), the same bits either way."""
+    if re_combine_mode() == "segments":
+        return _combine_owned_segments(mesh, W, V, prepared, diag)
+    return _combine_owned(mesh, W, V, prepared, diag)
+
+
+def _owned_rows(W: Tensor, V: Tensor | None, prepared: list, own: list):
+    """This process's owned buckets' coefficient and variance rows, host
+    float32 in owned-bucket order."""
+    ids = np.concatenate([np.zeros(0, np.int64)] + [prepared[i].entity_ids for i in own])
+    ids = torch.as_tensor(ids, dtype=torch.int64, device=W.device)
+    return W[ids].cpu().numpy(), None if V is None else V[ids].cpu().numpy()
+
+
+def _owned_diag(diag: list, own: list) -> np.ndarray:
+    """The owned buckets' diagnostics as (4, Σ lanes) float64 in the same
+    order: final objective, iterations, reason, objective passes."""
+    return np.concatenate([np.zeros((4, 0))] + [torch.stack([t.detach().cpu().double() for t in diag[i][1:]])
+                                                 .numpy() for i in own], axis=1)
+
+
+def _fill_remote(W: Tensor, V: Tensor | None, pb: PreparedBucket, W_rows: np.ndarray, V_rows, D: np.ndarray):
+    """A bucket another process owns: its rows written into W (and V) by
+    overwrite, and its diagnostics entry, cast as the owner's were."""
+    ids = torch.as_tensor(pb.entity_ids, dtype=torch.int64, device=W.device)
+    W[ids] = torch.from_numpy(np.array(W_rows, np.float32)).to(W.device)
+    if V is not None:
+        V[ids] = torch.from_numpy(np.array(V_rows, np.float32)).to(V.device)
+    return (pb.entity_ids, torch.from_numpy(D[0].astype(np.float32)).to(W.device),
+            *(torch.from_numpy(D[j].astype(np.int64)).to(W.device) for j in (1, 2, 3)))
+
+
 def _combine_owned(mesh: ProcessMesh, W: Tensor, V: Tensor | None, prepared: list, diag: list) -> list:
     """The owned-bucket combine: every process's owned buckets' rows,
     variances and diagnostics (final objective, iterations, reason,
@@ -824,20 +954,15 @@ def _combine_owned(mesh: ProcessMesh, W: Tensor, V: Tensor | None, prepared: lis
     Vc = np.zeros((total, d), np.float32) if V is not None else None
     Dc = np.zeros((4, total), np.float64)  # final objective, iterations, reason, objective passes
     own = [i for i, pb in enumerate(prepared) if pb.owner == mesh.process_index]
-    if own:
-        ids = torch.as_tensor(np.concatenate([prepared[i].entity_ids for i in own]), dtype=torch.int64,
-                              device=W.device)
-        W_own = W[ids].cpu().numpy()
-        V_own = None if V is None else V[ids].cpu().numpy()
-        D_own = torch.cat([torch.stack([t.double() for t in diag[i][1:]]) for i in own], dim=1).cpu().numpy()
-        lo = 0
-        for i in own:
-            a, b = int(offs[i]), int(offs[i + 1])
-            Wc[a:b] = W_own[lo:lo + b - a]
-            if Vc is not None:
-                Vc[a:b] = V_own[lo:lo + b - a]
-            Dc[:, a:b] = D_own[:, lo:lo + b - a]
-            lo += b - a
+    (W_own, V_own), D_own = _owned_rows(W, V, prepared, own), _owned_diag(diag, own)
+    lo = 0
+    for i in own:
+        a, b = int(offs[i]), int(offs[i + 1])
+        Wc[a:b] = W_own[lo:lo + b - a]
+        if Vc is not None:
+            Vc[a:b] = V_own[lo:lo + b - a]
+        Dc[:, a:b] = D_own[:, lo:lo + b - a]
+        lo += b - a
     parts = [Wc, Dc] + ([] if Vc is None else [Vc])
     gathered = _gather_arrays(parts)
     nbytes = sum(a.nbytes for a in parts) * (mesh.process_count - 1)
@@ -847,21 +972,126 @@ def _combine_owned(mesh: ProcessMesh, W: Tensor, V: Tensor | None, prepared: lis
             continue
         a, b = int(offs[i]), int(offs[i + 1])
         got = gathered[pb.owner]
-        ids = torch.as_tensor(pb.entity_ids, dtype=torch.int64, device=W.device)
-        W[ids] = torch.from_numpy(got[0][a:b].copy()).to(W.device)
-        if V is not None:
-            V[ids] = torch.from_numpy(got[2][a:b].copy()).to(V.device)
-        Dg = got[1][:, a:b]
-        out[i] = (pb.entity_ids, torch.from_numpy(Dg[0].astype(np.float32)).to(W.device),
-                  *(torch.from_numpy(Dg[j].astype(np.int64)).to(W.device) for j in (1, 2, 3)))
+        out[i] = _fill_remote(W, V, pb, got[0][a:b], None if V is None else got[2][a:b], got[1][:, a:b])
     seconds = time.perf_counter() - t0
     combine_stats["seconds"] += seconds
     combine_stats["calls"] += 1
     combine_stats["bytes"] += nbytes
     REGISTRY.counter_inc("re_combine.exchanges")
     REGISTRY.counter_inc("re_combine.bytes_sent", float(nbytes))
-    emit_event("re_combine", mode="allgather", bytes_sent=int(nbytes), buckets_owned=len(own),
+    emit_event("re_combine", mode="allreduce", bytes_sent=int(nbytes), buckets_owned=len(own),
                buckets=len(prepared), seconds=seconds)
+    return out
+
+
+def _segment_widths(prepared: list, d: int) -> list[int]:
+    """Each bucket's segment row width: the class support's under a
+    projection (the zeros off it are rebuilt on arrival), else d."""
+    return [d if pb.project is None else int(pb.project.support_dim) for pb in prepared]
+
+
+def _pack_wv_segments(prepared: list, W_own: np.ndarray, V_own: np.ndarray | None, own: list) -> bytes:
+    """This owner's coefficient rows, then its variance rows, as raw
+    float32 in owned-bucket order, each bucket at its segment width. No
+    header: every process derives each owner's buckets, lanes and widths
+    from the same plan."""
+    widths = _segment_widths(prepared, int(W_own.shape[1]))
+
+    def pack(M):
+        parts, lo = [], 0
+        for i in own:
+            hi = lo + prepared[i].num_real
+            rows = M[lo:hi] if widths[i] == M.shape[1] else M[lo:hi][:, prepared[i].project.columns]
+            parts.append(np.ascontiguousarray(rows, np.float32).tobytes())
+            lo = hi
+        return b"".join(parts)
+
+    return pack(W_own) + (b"" if V_own is None else pack(V_own))
+
+
+def _pack_diag_segments(D_own: np.ndarray) -> bytes:
+    """The owned lanes' diagnostics: the final objectives as float32 (the
+    solve's own type), then iterations, reasons and objective passes as
+    int32; their casts on arrival give the dense combine's bits."""
+    return (np.asarray(D_own[0], np.float32).tobytes() + np.asarray(D_own[1:], np.int32).tobytes())
+
+
+def _apply_owner_segments(prepared: list, W: Tensor, V: Tensor | None, diag: list, wv_frames: list,
+                          diag_frames: list, pid: int) -> list:
+    """Every other owner's segments written into W (and V) and the
+    diagnostics. Each frame's layout follows from the plan every process
+    holds; a frame of another length means the processes' plans disagree,
+    and raises."""
+    d = int(W.shape[1])
+    widths = _segment_widths(prepared, d)
+    out = list(diag)
+    for q, (wv, dg) in enumerate(zip(wv_frames, diag_frames)):
+        if q == pid:
+            continue
+        mine = [i for i, pb in enumerate(prepared) if pb.owner == q]
+        lanes = sum(prepared[i].num_real for i in mine)
+        floats = sum(prepared[i].num_real * widths[i] for i in mine)
+        if len(wv) != 4 * floats * (1 if V is None else 2) or len(dg) != 16 * lanes:
+            raise RuntimeError(f"owner-segment combine: process {q}'s segments do not match this process's "
+                               "placement plan (the plans disagree across processes)")
+        flat = np.frombuffer(wv, np.float32)
+        D = np.empty((4, lanes), np.float64)
+        D[0] = np.frombuffer(dg, np.float32, count=lanes)
+        D[1:] = np.frombuffer(dg, np.int32, offset=4 * lanes).reshape(3, lanes)
+        lo = dlo = 0
+        for i in mine:
+            pb, k, width = prepared[i], prepared[i].num_real, widths[i]
+
+            def rows(base):
+                block = flat[base + lo:base + lo + k * width].reshape(k, width)
+                if width == d:
+                    return block
+                full = np.zeros((k, d), np.float32)
+                full[:, pb.project.columns] = block
+                return full
+
+            out[i] = _fill_remote(W, V, pb, rows(0), None if V is None else rows(floats), D[:, dlo:dlo + k])
+            lo += k * width
+            dlo += k
+    return out
+
+
+def _combine_owned_segments(mesh: ProcessMesh, W: Tensor, V: Tensor | None, prepared: list,
+                            diag: list) -> list:
+    """The owner-segment combine (``PHOTON_RE_COMBINE=segments``): each
+    owner sends its packed segments alone (``_pack_wv_segments``,
+    ``_pack_diag_segments``) to every other process on the exchange
+    worker's gloo group (``multihost.allgather_bytes_async``), the
+    coefficient rows first, so their transfer overlaps the diagnostics'
+    packing. O(E·d) bytes a process against the dense combine's O(P·E·d);
+    each row is written by its one owner either way, so the result is the
+    dense combine's bit for bit."""
+    from photon_ml_tpu_torch.parallel import multihost as mh
+
+    t0 = time.perf_counter()
+    own = [i for i, pb in enumerate(prepared) if pb.owner == mesh.process_index]
+    wv_stats, diag_stats = {}, {}
+    wv_handle = mh.allgather_bytes_async(_pack_wv_segments(prepared, *_owned_rows(W, V, prepared, own), own),
+                                       tag="re_combine/wv", stats=wv_stats)
+    diag_handle = mh.allgather_bytes_async(_pack_diag_segments(_owned_diag(diag, own)), tag="re_combine/diag",
+                                         stats=diag_stats)
+    t_wait = time.perf_counter()
+    wv_frames, diag_frames = wv_handle.result(), diag_handle.result()
+    waited = time.perf_counter() - t_wait
+    bytes_sent = int(wv_stats.get("bytes_sent", 0) + diag_stats.get("bytes_sent", 0))
+    exchange_s = float(wv_stats.get("exchange_s", 0.0) + diag_stats.get("exchange_s", 0.0))
+    REGISTRY.counter_inc("re_combine.exchanges")
+    REGISTRY.counter_inc("re_combine.bytes_sent", float(bytes_sent))
+    REGISTRY.timer_add("re_combine.exchange_s", exchange_s)
+    REGISTRY.timer_add("re_combine.wait_s", waited)
+    if exchange_s > 0.0:
+        REGISTRY.gauge_set("re_combine.overlap_ratio", max(0.0, min(1.0, 1.0 - waited / exchange_s)))
+    emit_event("re_combine", mode="segments", bytes_sent=bytes_sent, exchange_s=exchange_s, wait_s=waited,
+               buckets_owned=len(own), buckets=len(prepared))
+    out = _apply_owner_segments(prepared, W, V, diag, wv_frames, diag_frames, mesh.process_index)
+    combine_stats["seconds"] += time.perf_counter() - t0
+    combine_stats["calls"] += 1
+    combine_stats["bytes"] += bytes_sent
     return out
 
 
@@ -908,9 +1138,24 @@ def _fusion_units(prepared: list[PreparedBucket]) -> list[tuple[PreparedBucket, 
     ``(unit, members)`` pairs, ``members`` each bucket's ``(index, lo, hi)``
     lane range in the unit, through which the diagnostics are sliced back.
     Entity ids partition the buckets, so the unit's scatter writes the
-    same rows. A bucket another process owns stays a unit of its own."""
-    return _concat_units(prepared, [("__remote__", i) if pb.static is None else _bucket_geometry(pb)
+    same rows. A bucket another process owns stays a unit of its own, and
+    only buckets on one mesh entry fuse."""
+    return _concat_units(prepared, [("__remote__", i) if pb.static is None else (_bucket_geometry(pb), pb.device)
                                     for i, pb in enumerate(prepared)])
+
+
+def _parent_units(prepared: list[PreparedBucket]) -> list[tuple[PreparedBucket, list[tuple[int, int, int]]]]:
+    """``PHOTON_RE_SPLIT``'s launch units with fusion off: the atoms of one
+    parent that this process holds on one mesh entry, concatenated again.
+    Atoms are contiguous in-order slices of their parent, so a parent held
+    whole launches with the unsplit lanes in the unsplit order; a parent
+    split between owners launches its owned lanes together (each atom has
+    two lanes or more). Unsplit and remote buckets stay units of their own."""
+    return _concat_units(prepared, [
+        ("__remote__", i) if pb.static is None
+        else ("__own_solo__", i) if pb.parent is None
+        else ("__parent__", pb.parent, pb.device)
+        for i, pb in enumerate(prepared)])
 
 
 def _concat_units(prepared: list[PreparedBucket],
@@ -933,48 +1178,60 @@ def _concat_units(prepared: list[PreparedBucket],
             static=static, row_idx=torch.cat([pb.row_idx for pb in group]),
             mask=torch.cat([pb.mask for pb in group]),
             columns=None if first.columns is None else torch.cat([pb.columns for pb in group]),
-            bucket=first.bucket, owner=first.owner, project=first.project, hash_S=first.hash_S,
+            bucket=first.bucket, owner=first.owner, parent=first.parent, device=first.device,
+            project=first.project, hash_S=first.hash_S,
         ), members))
     return units
 
 
-def _plan_bucket_owners(buckets: EntityBuckets, num_processes: int, process_index: int) -> np.ndarray:
+def _placement_weights(buckets: EntityBuckets, lane_dims) -> np.ndarray:
+    """Each bucket's placement weight (``placement_weights``): its active
+    rows, or its lanes at ``lane_dims`` floats."""
+    return placement_weights([len(e) for e in buckets.entity_ids],
+                             [int(np.sum(np.asarray(r) >= 0)) for r in buckets.row_indices], lane_dims)
+
+
+def _placement_groups(buckets: EntityBuckets, parents) -> list | None:
+    """The units placed whole: the fusion groups (keyed by capacity, which
+    fixes a bucket's geometry before staging) of an unsplit preparation;
+    every sub-bucket atom on its own under a split (``_parent_units``
+    launches an owner's atoms of one class together again)."""
+    if parents is not None:
+        return None
+    keys = [int(np.asarray(r).shape[1]) for r in buckets.row_indices]
+    return [idxs for idxs, _ in plan_fusion_groups(keys, [len(e) for e in buckets.entity_ids])]
+
+
+def _plan_bucket_owners(buckets: EntityBuckets, num_processes: int, process_index: int, parents=None,
+                        split_classes: int = 0, lane_dims=None) -> np.ndarray:
     """Whole-bucket owners over ``num_processes``, decided before any
     staging: LPT over Σ active rows (Zipf traffic puts most rows behind a
-    few head entities, so counting buckets or entities would not balance),
-    the fusion groups (keyed by capacity, which fixes a bucket's geometry
-    before staging) placed whole. The same host arithmetic on the same
-    buckets on every process gives every process the same plan; its
+    few head entities, so counting buckets or entities would not balance;
+    lanes under ``PHOTON_RE_SPLIT_WEIGHT=bytes``), the placement units of
+    ``_placement_groups`` placed whole. The same host arithmetic on the
+    same buckets on every process gives every process the same plan; its
     gauges go to the registry (``record_placement_metrics``)."""
-    lanes = [len(e) for e in buckets.entity_ids]
-    rows = [int(np.sum(np.asarray(r) >= 0)) for r in buckets.row_indices]
-    keys = [int(np.asarray(r).shape[1]) for r in buckets.row_indices]
-    groups = [idxs for idxs, _ in plan_fusion_groups(keys, lanes)]
-    plan = plan_shard_placement(rows, num_processes, groups=groups)
-    record_placement_metrics(plan, shard=process_index, atoms=len(groups))
+    groups = _placement_groups(buckets, parents)
+    plan = plan_shard_placement(_placement_weights(buckets, lane_dims), num_processes, groups=groups)
+    record_placement_metrics(plan, shard=process_index,
+                             atoms=len(buckets.entity_ids) if groups is None else len(groups),
+                             split_classes=split_classes)
     return plan.owner
 
 
-def refuse_waiting_knobs(placed: bool) -> None:
-    """Raise, naming the ROADMAP item, on a random-effect knob the port
-    does not have yet: with ``placed`` (a mesh, or the out-of-core
-    trainer) ``PHOTON_RE_SPLIT``, ``PHOTON_RE_DEVICE_SPLIT``,
-    ``PHOTON_RE_SPLIT_WEIGHT`` and ``PHOTON_RE_COMBINE`` at any value but
-    their defaults (12d-iii; without a mesh the reference ignores them
-    too). Without this a set knob would be dropped without a word and
-    train another model than the reference's."""
-    if not placed:
-        return
-    waiting = dict.fromkeys(("PHOTON_RE_SPLIT", "PHOTON_RE_DEVICE_SPLIT", "PHOTON_RE_SPLIT_WEIGHT",
-                             "PHOTON_RE_COMBINE"), "12d-iii (split, combine, device split)")
-    defaults = {"PHOTON_RE_SPLIT_WEIGHT": "rows", "PHOTON_RE_COMBINE": "allreduce"}
-    for name, item in waiting.items():
-        value = os.environ.get(name)
-        if value not in (None, "", "0", defaults.get(name)):
-            raise NotImplementedError(
-                f"{name}={value} waits for ROADMAP queue 1 item {item}: the port does not read it yet, "
-                "and training without it would not be the reference's model (unset it)"
-            )
+def _plan_bucket_devices(buckets: EntityBuckets, parents, owners: np.ndarray, process_index: int,
+                         num_devices: int, lane_dims=None) -> np.ndarray | None:
+    """The second placement level (``PHOTON_RE_DEVICE_SPLIT``): this
+    process's owned buckets on its ``num_devices`` local mesh entries by
+    the same rule and units as the process level. Local entry ordinals,
+    -1 for buckets another process owns; None with the knob off or fewer
+    than two entries, which keeps the one-level preparation."""
+    if not re_device_split_enabled() or num_devices < 2:
+        return None
+    device, plan = plan_device_placement(_placement_weights(buckets, lane_dims), owners, process_index,
+                                         num_devices, groups=_placement_groups(buckets, parents))
+    record_device_placement_metrics(plan)
+    return device
 
 
 # ---------------------------------------------------------------------------

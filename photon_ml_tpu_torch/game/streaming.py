@@ -80,9 +80,13 @@ The random-effect schedule knobs act here as in memory
 buckets of one geometry into one launch unit, ``PHOTON_RE_COMPACT_EVERY``
 compacts each unit's lanes, and ``PHOTON_RE_PROJECT`` solves each capacity
 class over its support (hashed under ``hash``), from a ladder the
-processes agree on under skew-aware placement. The sub-bucket split and
-the device split (12d-iii) raise naming their item; peer loss and rejoin
-are item 12d-v.
+processes agree on under skew-aware placement. Under skew-aware
+placement ``PHOTON_RE_SPLIT`` places the sub-bucket atoms of the global
+ladder (``placement_atoms``, weighed by projected lane bytes under
+``PHOTON_RE_SPLIT_WEIGHT=bytes``) instead of single entities, and the
+re-planner keeps them; ``PHOTON_RE_DEVICE_SPLIT`` places each process's
+buckets over its ``local_devices``, each launch unit gathered to and
+solved on its device. Peer loss and rejoin are item 12d-v.
 """
 
 from __future__ import annotations
@@ -101,7 +105,9 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch._device import resolve_device
-from photon_ml_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+# The module, not its names: ``checkpoint`` imports ``game.models``, whose
+# package imports this module, so the names may not exist yet here.
+from photon_ml_tpu_torch import checkpoint as ckpt_io
 from photon_ml_tpu_torch.config import GameTrainingConfig, OptimizationConfig
 from photon_ml_tpu_torch.data.summary import shard_normalization_context, summarize_chunks
 from photon_ml_tpu_torch.evaluation import EvaluationResults, evaluate_all, evaluate_host_sharded, make_evaluator
@@ -125,7 +131,7 @@ from photon_ml_tpu_torch.game.projector import (
     re_project_mode,
     subspace_columns,
 )
-from photon_ml_tpu_torch.game.data import capacity_classes
+from photon_ml_tpu_torch.game.data import capacity_classes, placement_atoms
 from photon_ml_tpu_torch.game.random_effect import (
     DeferredLaunchAccounting,
     _hash_expand_lanes,
@@ -133,7 +139,6 @@ from photon_ml_tpu_torch.game.random_effect import (
     _pad_lanes,
     fuse_buckets,
     plan_fusion_groups,
-    refuse_waiting_knobs,
     solve_bucket_lanes,
 )
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
@@ -144,13 +149,21 @@ from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks, stream_scores
 from photon_ml_tpu_torch.optim.common import select_minimize_fn
 from photon_ml_tpu_torch.parallel import multihost as mh
+from photon_ml_tpu_torch.parallel.mesh import data_mesh
 from photon_ml_tpu_torch.parallel.placement import (
     PlacementPlan,
     measured_entity_costs,
     modular_owner,
+    placement_weights,
+    plan_device_placement,
     plan_entity_placement,
     plan_from_owner,
+    plan_shard_placement,
+    re_device_split_enabled,
     re_shard_enabled,
+    re_split_factor,
+    re_split_weight,
+    record_device_placement_metrics,
     record_placement_metrics,
     record_projection_metrics,
     replan_excluding,
@@ -332,6 +345,15 @@ class _ReShard:
     # per bucket the capacity class's projection (PHOTON_RE_PROJECT), None
     # entries at full width; None when no class is projected
     project: tuple | None = None
+    # PHOTON_RE_SPLIT: the entity groups the owner plan placed whole (the
+    # sub-bucket atoms, from the global counts: the same on every
+    # process), kept so the re-planner re-plans over the same atoms; None
+    # places entities one by one
+    placement_atoms: tuple | None = None
+    # PHOTON_RE_DEVICE_SPLIT: each bucket's local device ordinal (the
+    # trainer's ``local_devices``), placed whole with its fusion group;
+    # None solves every bucket on the trainer's device
+    bucket_device: tuple | None = None
 
 
 def _slice_owned_rows(M_full: np.ndarray, shard: _ReShard) -> np.ndarray:
@@ -372,7 +394,12 @@ class StreamedGameTrainer:
     ``visit_stats`` its offset and score exchanges'. Under skew-aware
     placement ``placements`` holds each random effect's plan in force
     (``PlacementPlan``: owners, Σ rows per owner, balance), the
-    re-planner's after a re-plan."""
+    re-planner's after a re-plan.
+
+    ``local_devices`` are the devices ``PHOTON_RE_DEVICE_SPLIT`` places a
+    process's buckets on: every local card on a CUDA trainer, the
+    trainer's device alone otherwise, unless the caller names them (e.g.
+    ``["cpu", "cpu"]``); the split is off with fewer than two."""
 
     def __init__(
         self,
@@ -387,12 +414,16 @@ class StreamedGameTrainer:
         checkpoint_every_n_visits: int = 1,
         device=None,
         sharded_checkpoints: bool = True,
+        local_devices=None,
     ):
         if multihost:
             mh.require_process_group()
         self.multihost = bool(multihost)
         self.sharded_checkpoints = bool(sharded_checkpoints)
         self.device = resolve_device(device)
+        if local_devices is None:
+            local_devices = None if self.device.type == "cuda" else (self.device,)
+        self.local_devices = data_mesh(None, local_devices)
         self.config = config
         self.chunk_rows = int(chunk_rows)
         self.intercept_indices = dict(intercept_indices or {})
@@ -555,14 +586,34 @@ class StreamedGameTrainer:
             activity = np.rint(mh.allreduce_sum_host(activity.astype(np.float64))).astype(np.int64)
             ladder = projection_ladder(caps, activity, feats.num_features, re_project_mode(), re_project_dim(),
                                        self.intercept_indices.get(c.feature_shard_id))
+        ent_bytes = None
+        if ladder is not None and re_split_weight() == "bytes":
+            # the byte axis under a projection: an active entity is one
+            # combine segment row of its class's solved width
+            dims = np.asarray([float(feats.num_features) if ladder[int(cp)] is None else float(ladder[int(cp)].dim)
+                               for cp in caps], np.float64)
+            ent_bytes = placement_weights(active_g > 0, counts_g, dims[cls_of_entity])
+        atoms, split_classes = None, None
+        if re_split_factor() > 0:
+            # placement units: the sub-bucket atoms of the global ladder,
+            # the same rule the in-memory owned preparation cuts by
+            members, _, split_classes = placement_atoms(
+                active_g, weights=counts_g, capacities=c.sample_bucket_sizes,
+                target_buckets=c.bucket_target_count, max_padded_ratio=c.bucket_max_padded_ratio,
+                split=re_split_factor(), byte_weights=ent_bytes)
+            atoms = tuple(members)
+        weights = counts_g if ent_bytes is None else ent_bytes
         if entity_owner_override is not None:
             plan = plan_from_owner(entity_owner_override, counts_g, P)
+        elif atoms is not None:
+            plan = plan_shard_placement(weights, P, groups=[list(a) for a in atoms])
         else:
-            plan = plan_entity_placement(counts_g, P)
-        record_placement_metrics(plan, shard=pid)
+            plan = plan_entity_placement(weights, P)
+        record_placement_metrics(plan, shard=pid, atoms=None if atoms is None else len(atoms),
+                                 split_classes=split_classes)
         self.placements[cid] = plan
         return dict(entity_owner=plan.owner, owned_global=np.flatnonzero(plan.owner == pid).astype(np.int64),
-                    entity_rows=counts_g, caps=caps, pops=pops, ladder=ladder)
+                    entity_rows=counts_g, caps=caps, pops=pops, ladder=ladder, atoms=atoms)
 
     def _build_re_shard(self, cid: str, data: StreamedGameData, row_base: int = 0,
                         row_layout: tuple[int, ...] | None = None, drop_unseen: bool = False,
@@ -586,7 +637,6 @@ class StreamedGameTrainer:
         bucket (``_ReShard.project``) and the class support as its column
         map: from the global ladder under skew-aware placement, else from
         the owner's rows (exact for the solves it makes)."""
-        refuse_waiting_knobs(placed=True)
         c = self.config.random_effect_coordinates[cid]
         feats = data.feature_container(c.feature_shard_id)
         project_mode = "0" if drop_unseen else re_project_mode()
@@ -646,7 +696,7 @@ class StreamedGameTrainer:
         shard = _ReShard(ent_local=ent, labels=labels, weights=weights, features=feats, num_entities=E,
                          num_entities_local=E_local, buckets=None, **route,
                          entity_owner=placed["entity_owner"], owned_global=placed["owned_global"],
-                         entity_rows=placed.get("entity_rows"))
+                         entity_rows=placed.get("entity_rows"), placement_atoms=placed.get("atoms"))
         if drop_unseen:
             return shard
         grouping = group_by_entity(ent, num_entities=E_local, active_upper_bound=c.active_data_upper_bound)
@@ -689,7 +739,30 @@ class StreamedGameTrainer:
                 shard.subspace_cols = tuple(None if p is None else np.broadcast_to(p.columns, (len(e), p.support_dim))
                                             for p, e in zip(project, shard.buckets.entity_ids))
                 shard.project = project
+        shard.bucket_device = self._plan_bucket_devices(shard)
         return shard
+
+    def _plan_bucket_devices(self, shard: _ReShard) -> tuple | None:
+        """The second placement level (``PHOTON_RE_DEVICE_SPLIT``): this
+        process's buckets on its ``local_devices`` by LPT over rows (lanes,
+        at the projected width, under ``PHOTON_RE_SPLIT_WEIGHT=bytes``),
+        each fusion group whole, so the units that fuse lie on one device.
+        Rebuilt with the shard (a re-plan re-derives it). None with the
+        knob off or fewer than two local devices."""
+        if not re_device_split_enabled() or len(self.local_devices) < 2:
+            return None
+        buckets = shard.buckets
+        lanes = [len(e) for e in buckets.entity_ids]
+        d = shard.features.num_features
+        weights = placement_weights(lanes, [int((rows >= 0).sum()) for rows in buckets.row_indices],
+                                    None if shard.project is None else
+                                    [d if p is None else p.dim for p in shard.project])
+        cols = shard.subspace_cols or (None,) * len(lanes)
+        keys = [(int(r.shape[1]), None if c_ is None else int(c_.shape[1])) for r, c_ in zip(buckets.row_indices, cols)]
+        device, plan = plan_device_placement(weights, np.zeros(len(lanes), np.int64), 0, len(self.local_devices),
+                                             groups=[idxs for idxs, _ in plan_fusion_groups(keys, lanes)])
+        record_device_placement_metrics(plan)
+        return tuple(int(x) for x in device)
 
     def _build_val_route(self, tag: str, validation: StreamedGameData, row_base: int,
                          row_layout: tuple[int, ...]) -> _ReShard:
@@ -967,8 +1040,13 @@ class StreamedGameTrainer:
         sub_cols = shard.subspace_cols or (None,) * nb
         pads = shard.lane_floor_pad or (0,) * nb
         specs = shard.project or (None,) * nb
+        bdevs = shard.bucket_device
         if fuse_buckets() and nb > 1:
             keys = [(r.shape[1], None if c_ is None else c_.shape[1]) for r, c_ in zip(buckets.row_indices, sub_cols)]
+            if bdevs is not None:
+                # only buckets on one device fuse (the device plan places
+                # fusion groups whole, so the same groups form)
+                keys = [(k, bdevs[i]) for i, k in enumerate(keys)]
             plan = plan_fusion_groups(keys, [len(e) for e in buckets.entity_ids])
         else:
             plan = [([i], [(i, 0, len(buckets.entity_ids[i]))]) for i in range(nb)]
@@ -986,17 +1064,20 @@ class StreamedGameTrainer:
                           np.concatenate([buckets.row_indices[i] for i in idxs]),
                           None if sub_cols[idxs[0]] is None else np.concatenate([sub_cols[i] for i in idxs]),
                           specs[idxs[0]], 0))
-        folds: dict[int, Tensor] = {}  # per hashed projection: its fold on the card
+        # PHOTON_RE_DEVICE_SPLIT: each unit gathers to and solves on its
+        # buckets' device; the results come back to the host matrices
+        unit_dev = [self.device if bdevs is None else self.local_devices[bdevs[u[0][0][0]]] for u in units]
+        folds: dict = {}  # per (hashed projection, device): its fold there
 
-        def fold_of(spec):
-            if id(spec) not in folds:
-                folds[id(spec)] = torch.from_numpy(spec.hash_matrix()).to(self.device)
-            return folds[id(spec)]
+        def fold_of(spec, dev=self.device):
+            if (id(spec), dev) not in folds:
+                folds[id(spec), dev] = torch.from_numpy(spec.hash_matrix()).to(dev)
+            return folds[id(spec), dev]
 
         offsets = offs_re.result if isinstance(offs_re, mh.ExchangeHandle) else (lambda: offs_re)
-        dev = self.device
-        consumer = prefetch.consumer_stream(dev)
-        pin = dev.type == "cuda"
+        consumers = {dev: prefetch.consumer_stream(dev) for dev in set(unit_dev)}
+        l2_on = {dev: l2 if dev == self.device else l2.to(dev) for dev in consumers}
+        norm_on = {dev: norm if norm is None or dev == self.device else norm.to(dev) for dev in consumers}
         d_full = shard.features.num_features
         gather_s = [0.0] * len(units)
         issue_s = [0.0] * len(units)
@@ -1012,21 +1093,22 @@ class StreamedGameTrainer:
             t0 = time.perf_counter()
             if cols is not None and len(cols) < len(rows):  # the padding lane takes any columns
                 cols = np.concatenate([cols, cols[:1]])
+            dev = unit_dev[i]
             arrays = gather_bucket_host(shard.features, shard.labels, offs, shard.weights, rows,
-                                        columns=cols, pin_memory=pin)
+                                        columns=cols, pin_memory=dev.type == "cuda")
             t1 = time.perf_counter()
-            put = prefetch.device_put(arrays, dev, consumer)
+            put = prefetch.device_put(arrays, dev, consumers[dev])
             gather_s[i], issue_s[i] = t1 - t0, time.perf_counter() - t1
             nbytes[i] = sum(a.numel() * a.element_size() for a in arrays.values())
             return put
 
-        def collect(members, ent_ids, cols, spec, out):
+        def collect(members, ent_ids, cols, spec, out, dev):
             w_b, f_b, it_b, reason_b, var_b = out
             if norm is not None:
-                w_b = norm.model_to_original_space(w_b)[0]
-                var_b = norm.factors**2 * var_b
+                w_b = norm_on[dev].model_to_original_space(w_b)[0]
+                var_b = norm_on[dev].factors**2 * var_b
             if spec is not None and spec.hash_dim is not None:
-                w_b, var_b = _hash_expand_lanes(w_b, var_b, fold_of(spec))  # back at the support's width
+                w_b, var_b = _hash_expand_lanes(w_b, var_b, fold_of(spec, dev))  # back at the support's width
             w_h, var_h = w_b.cpu().numpy(), var_b.cpu().numpy()
             f_h, it_h, reason_h = f_b.cpu().numpy(), it_b.cpu().numpy(), reason_b.cpu().numpy()
             agg["readbacks"] += 1
@@ -1048,7 +1130,7 @@ class StreamedGameTrainer:
             agg["max_iters"] = max(agg["max_iters"], int(np.max(it_h)))
             agg["converged"] = agg["converged"] and bool(np.all(reason_h != 0))  # 0: MAX_ITERATIONS
 
-        def rows_of(M, ent_ids, cols):
+        def rows_of(M, ent_ids, cols, dev):
             """A unit's rows of a host (E, d) matrix at its column maps, on the card."""
             if M is None:
                 return None
@@ -1059,16 +1141,17 @@ class StreamedGameTrainer:
         pending = None
         for i, put in enumerate(prefetch.prefetch_iter(len(units), gather)):
             members, ent_ids, _, cols, spec, pad = units[i]
+            dev = unit_dev[i]
             hashed = spec is not None and spec.hash_dim is not None
-            prefetch.wait(put, consumer)
+            prefetch.wait(put, consumers[dev])
             bucket = bucket_batch(put, d_full)
             if hashed:
-                bucket = dataclasses.replace(bucket, X=bucket.X @ fold_of(spec))
+                bucket = dataclasses.replace(bucket, X=bucket.X @ fold_of(spec, dev))
             # the warm start and the incremental prior (already in the solver's space)
-            w0, prior_mu, prior_var = (rows_of(M, ent_ids, cols)
+            w0, prior_mu, prior_var = (rows_of(M, ent_ids, cols, dev)
                                        for M in (W, W_prior, None if W_prior is None else V_prior))
             if hashed:
-                w0, prior_mu, prior_var = _hash_fold_lanes(w0, prior_mu, prior_var, fold_of(spec))
+                w0, prior_mu, prior_var = _hash_fold_lanes(w0, prior_mu, prior_var, fold_of(spec, dev))
             if pad:  # the padding lane: zero start, zero-mean unit-variance prior
                 lanes = len(ent_ids) + 1
                 w0, prior_mu, prior_var = _pad_lanes(w0, lanes), _pad_lanes(prior_mu, lanes), _pad_lanes(prior_var,
@@ -1079,9 +1162,9 @@ class StreamedGameTrainer:
             if hashed and intercept_index is not None:
                 b_intercept = int(spec.hash_dim) - 1  # the fold keeps the last slot for the intercept alone
             if norm is not None:
-                w0 = norm.model_from_original_space(w0)
+                w0 = norm_on[dev].model_from_original_space(w0)
             out = solve_bucket_lanes(
-                bucket, w0, l2, norm, prior_mu, prior_var, minimize_fn=minimize_fn, loss=loss,
+                bucket, w0, l2_on[dev], norm_on[dev], prior_mu, prior_var, minimize_fn=minimize_fn, loss=loss,
                 config=opt.optimizer, intercept_index=b_intercept,
                 variance_computation=variance_computation, accounting=accounting, **extra,
             )
@@ -1089,7 +1172,7 @@ class StreamedGameTrainer:
                 out = tuple(t[:len(ent_ids)] for t in out)
             if pending is not None:
                 collect(*pending)  # waits for the previous bucket only
-            pending = (members, ent_ids, cols, spec, out)
+            pending = (members, ent_ids, cols, spec, out, dev)
         if pending is not None:
             collect(*pending)
         accounting.flush()
@@ -1346,7 +1429,7 @@ class StreamedGameTrainer:
         meta = dict(fingerprint=fingerprint, data_digest=digest, next_iteration=next_iteration,
                     next_coordinate=next_coordinate)
         if not self._distributed():
-            save_checkpoint(self.checkpoint_dir, model, scores=scores, total=total, **meta)
+            ckpt_io.save_checkpoint(self.checkpoint_dir, model, scores=scores, total=total, **meta)
             return
         writer = mh.is_output_process()
         if self.sharded_checkpoints:
@@ -1356,12 +1439,12 @@ class StreamedGameTrainer:
             atomic_savez(self.checkpoint_dir, self._shard_path(mh.process_index()), payload)
             mh.sync_processes("streamed-game-score-shards")
             if writer:
-                save_checkpoint(self.checkpoint_dir, model, scores=None, total=None, **meta)
+                ckpt_io.save_checkpoint(self.checkpoint_dir, model, scores=None, total=None, **meta)
             return
         g_scores = {cid: self._gather_global(s, row_base, n_global, collect=writer) for cid, s in scores.items()}
         g_total = self._gather_global(total, row_base, n_global, collect=writer)
         if writer:
-            save_checkpoint(self.checkpoint_dir, model, scores=g_scores, total=g_total, **meta)
+            ckpt_io.save_checkpoint(self.checkpoint_dir, model, scores=g_scores, total=g_total, **meta)
 
     def _load_resume_state(self, fingerprint: str, digest: str | None) -> dict | None:
         """The checkpoint to resume from, or None. Across processes process
@@ -1373,14 +1456,14 @@ class StreamedGameTrainer:
         stale, torn or missing score file on any process is a miss for
         all."""
         if not self._distributed():
-            ckpt = load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint, data_digest=digest,
+            ckpt = ckpt_io.load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint, data_digest=digest,
                                    device="cpu")
             if ckpt is None or ckpt.scores is None or ckpt.total is None:
                 return None
             return {"model": ckpt.model, "next_iteration": ckpt.next_iteration,
                     "next_coordinate": ckpt.next_coordinate, "scores": ckpt.scores, "total": ckpt.total,
                     "scores_local": False}
-        ckpt = load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint,
+        ckpt = ckpt_io.load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint,
                                data_digest=str(mh.broadcast_from_host0(digest)), device="cpu",
                                across_processes=True)
         if ckpt is None:
@@ -1452,8 +1535,10 @@ class StreamedGameTrainer:
                 continue
             counts = shard.entity_rows
             old_plan = plan_from_owner(shard.entity_owner, counts, P)
-            new_plan, migrated = replan_excluding(old_plan, [], measured_entity_costs(counts, shard.entity_owner,
-                                                                                      walls), survivors=range(P))
+            # a split shard re-plans over the atoms it was placed by
+            new_plan, migrated = replan_excluding(
+                old_plan, [], measured_entity_costs(counts, shard.entity_owner, walls), survivors=range(P),
+                groups=None if shard.placement_atoms is None else [list(a) for a in shard.placement_atoms])
             moved = int(migrated.sum())
             if moved == 0:
                 emit_event("re_replan", coordinate=cid, iteration=iteration, imbalance=imbalance, migrated=0)

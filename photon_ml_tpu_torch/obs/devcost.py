@@ -116,6 +116,8 @@ def _knob_raw_state() -> tuple:
         env.get("PHOTON_RE_COMPACT_EVERY"), env.get("PHOTON_RE_FUSE_BUCKETS"), env.get("PHOTON_RE_PROJECT"),
         env.get("PHOTON_RE_PROJECT_DIM"), env.get("PHOTON_RE_SHARD"), re_mod.COMPACT_EVERY, re_mod.FUSE_BUCKETS,
         proj.RE_PROJECT, proj.RE_PROJECT_DIM, pl.RE_SHARD,
+        env.get("PHOTON_RE_COMBINE"), env.get("PHOTON_RE_SPLIT"), env.get("PHOTON_RE_DEVICE_SPLIT"),
+        env.get("PHOTON_RE_SPLIT_WEIGHT"), re_mod.RE_COMBINE, pl.RE_SPLIT, pl.RE_DEVICE_SPLIT, pl.RE_SPLIT_WEIGHT,
     )
 
 

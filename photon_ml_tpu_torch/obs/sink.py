@@ -261,8 +261,9 @@ def _knob_snapshot() -> dict:
     kernels' storage rung (``PHOTON_KERNEL_DTYPE``), whether K1 and K2 run
     (``PHOTON_DISABLE_FUSED``), K1's layout rule (the widths up to which
     it takes the tiles layout), K3's tile size, and the random-effect
-    knobs under the reference's names (the schedule knobs, the projection
-    and entity sharding)."""
+    knobs under the reference's names (the schedule knobs, the projection,
+    entity sharding, the split, its weight, the device split and the
+    combine)."""
     knobs: dict = {}
     try:
         from photon_ml_tpu_torch.ops import prefetch
@@ -294,6 +295,7 @@ def _knob_snapshot() -> dict:
 
         knobs["re_compact_every"] = int(re_mod.compact_every())
         knobs["re_fuse_buckets"] = int(bool(re_mod.fuse_buckets()))
+        knobs["re_combine"] = str(re_mod.re_combine_mode())
     except Exception:
         pass
     try:
@@ -307,6 +309,9 @@ def _knob_snapshot() -> dict:
         from photon_ml_tpu_torch.parallel import placement
 
         knobs["re_shard"] = int(bool(placement.re_shard_enabled()))
+        knobs["re_split"] = int(placement.re_split_factor())
+        knobs["re_device_split"] = int(bool(placement.re_device_split_enabled()))
+        knobs["re_split_weight"] = str(placement.re_split_weight())
     except Exception:
         pass
     return knobs

@@ -536,6 +536,61 @@ def exchange_rows_async(arrays, dest: np.ndarray, tag: str = "", finish=None) ->
     return ExchangeHandle(future=fut, tag=tag, finish=finish)
 
 
+
+def _allgather_bytes_exact(payload: bytes, group) -> tuple[list[bytes], int]:
+    """Every process's ``payload`` in rank order, each sent to every other
+    process at its own size (one all_to_all over the sizes' gather, no
+    padding to the largest). Returns the payloads and the bytes this
+    process sent."""
+    p, me = process_count(), process_index()
+    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(p)]
+    dist.all_gather(sizes, torch.tensor([len(payload)], dtype=torch.int64), group=group)
+    sizes = [int(x) for x in sizes]
+    n = len(payload)
+    send = torch.frombuffer(bytearray(payload * (p - 1)), dtype=torch.uint8) if n and p > 1 \
+        else torch.zeros(0, dtype=torch.uint8)
+    recv = torch.empty(sum(sz for q, sz in enumerate(sizes) if q != me), dtype=torch.uint8)
+    dist.all_to_all_single(recv, send, output_split_sizes=[0 if q == me else sizes[q] for q in range(p)],
+                           input_split_sizes=[0 if q == me else n for q in range(p)], group=group)
+    raw, out, pos = recv.numpy(), [], 0
+    for q in range(p):
+        if q == me:
+            out.append(payload)
+            continue
+        out.append(raw[pos:pos + sizes[q]].tobytes())
+        pos += sizes[q]
+    return out, n * (p - 1)
+
+
+def allgather_bytes_async(payload: bytes, tag: str = "", stats: dict | None = None) -> ExchangeHandle:
+    """Every process's ``payload`` in rank order, without blocking: a
+    handle whose ``result()`` is the list. It travels like
+    ``exchange_rows_async``'s rows, on the exchange worker over the second
+    gloo group, each payload sent at its own size to every other process.
+    ``stats`` (when given) receives ``bytes_sent`` (this process's payload
+    times P - 1) and ``exchange_s`` (the seconds on the worker). On one
+    process it completes inline."""
+    stats = {} if stats is None else stats
+    if process_count() <= 1:
+        stats.update(bytes_sent=0, exchange_s=0.0)
+        return ExchangeHandle(value=[payload], tag=tag, stats=stats)
+    group, pool = _exchange_group()
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            blobs, sent = _allgather_bytes_exact(payload, group)
+        finally:
+            dur = time.perf_counter() - t0
+            emit_event("exchange", tag=tag, dur_s=dur)
+        stats.update(bytes_sent=sent, exchange_s=dur)
+        return blobs, dict(stats)
+
+    fut = pool.submit(run)
+    with _EXCHANGE_LOCK:
+        _PENDING_EXCHANGES.append((fut, tag))
+    return ExchangeHandle(future=fut, tag=tag)
+
 def drain_async_exchanges() -> None:
     """Wait for every exchange in flight (each result stays claimable
     through its handle, which re-raises a failure). The streamed trainer

@@ -28,9 +28,19 @@ Knobs, read at call time and set identically on every process:
   per-process solve-wall imbalance (max / mean) past which the streamed
   trainer re-plans between outer iterations.
 
-The sub-bucket split, the byte weight axis and the device level
-(``PHOTON_RE_SPLIT``, ``PHOTON_RE_SPLIT_WEIGHT``, ``PHOTON_RE_DEVICE_SPLIT``)
-are ROADMAP queue 1 item 12d-iii.
+- ``PHOTON_RE_SPLIT`` (strict int, <= 0 off): the sub-bucket split's
+  target atom count. A capacity class heavier than Σ rows / value is cut
+  into placement atoms of whole entities (``game/data.py``
+  ``placement_atoms``), each placed on its own; a class's atoms stay one
+  bucket for the solve, so the split moves owners, never lanes.
+- ``PHOTON_RE_SPLIT_WEIGHT`` (``rows`` | ``bytes``, strict): the axis the
+  split and the planner balance. ``rows`` is solve compute; ``bytes`` is
+  combine wire bytes (one segment row a lane, so the lane count), with
+  the split capping both axes.
+- ``PHOTON_RE_DEVICE_SPLIT`` (strict int): 1 adds a second LPT level,
+  ``plan_device_placement``, over a process's local devices.
+
+All of them act only under owned-bucket placement (``PHOTON_RE_SHARD=1``).
 """
 
 from __future__ import annotations
@@ -52,6 +62,17 @@ RE_SHARD = 0
 # 0 = off
 REPLAN_IMBALANCE = 0.0
 
+# the sub-bucket split's target atom count; 0 = whole capacity classes
+RE_SPLIT = 0
+
+# 1: a second LPT level over each process's local devices
+RE_DEVICE_SPLIT = 0
+
+# the placement weight axis: "rows" (solve compute) or "bytes" (combine
+# wire bytes, one segment row a lane)
+RE_SPLIT_WEIGHT = "rows"
+_SPLIT_WEIGHT_MODES = ("rows", "bytes")
+
 
 def re_shard_enabled() -> bool:
     """``PHOTON_RE_SHARD`` (env > module global), a strict int parse: a
@@ -60,6 +81,40 @@ def re_shard_enabled() -> bool:
     if env is not None and env != "":
         return int(env) != 0
     return int(RE_SHARD) != 0
+
+
+def re_split_factor() -> int:
+    """``PHOTON_RE_SPLIT`` (env > module global), a strict int parse; a
+    value <= 0 turns the split off."""
+    env = os.environ.get("PHOTON_RE_SPLIT")
+    return max(int(env if env else RE_SPLIT), 0)
+
+
+def re_device_split_enabled() -> bool:
+    """``PHOTON_RE_DEVICE_SPLIT`` (env > module global), a strict int parse."""
+    env = os.environ.get("PHOTON_RE_DEVICE_SPLIT")
+    return int(env if env else RE_DEVICE_SPLIT) != 0
+
+
+def re_split_weight() -> str:
+    """``PHOTON_RE_SPLIT_WEIGHT`` (env > module global): ``rows`` or
+    ``bytes``; any other name raises."""
+    env = os.environ.get("PHOTON_RE_SPLIT_WEIGHT")
+    mode = str(env if env else RE_SPLIT_WEIGHT)
+    if mode not in _SPLIT_WEIGHT_MODES:
+        raise ValueError(f"PHOTON_RE_SPLIT_WEIGHT must be one of {_SPLIT_WEIGHT_MODES}, got {mode!r}")
+    return mode
+
+
+def placement_weights(lanes, rows, dims=None) -> np.ndarray:
+    """What the placement planners balance, by ``PHOTON_RE_SPLIT_WEIGHT``:
+    each unit's active ``rows``, or under ``bytes`` its combine payload,
+    ``lanes`` segment rows of ``dims`` floats each (its class's projected
+    width; one float a row without a projection, ``dims`` None)."""
+    if re_split_weight() == "bytes":
+        w = np.asarray(lanes, np.float64)
+        return w if dims is None else w * np.asarray(dims, np.float64)
+    return np.asarray(rows, np.float64)
 
 
 def replan_imbalance_threshold() -> float:
@@ -229,6 +284,57 @@ def replan_excluding(
         rank_of[s] = r
     migrated = rank_of[plan.owner] != new_plan.owner
     return new_plan, migrated
+
+
+def plan_device_placement(row_counts: Sequence[float] | np.ndarray, owner: np.ndarray, shard: int,
+                          num_devices: int, groups: Sequence[Sequence[int]] | None = None,
+                          skew_aware: bool = True) -> tuple[np.ndarray, PlacementPlan]:
+    """The second placement level (``PHOTON_RE_DEVICE_SPLIT``): the items
+    ``shard`` owns under the process-level ``owner`` map, placed on its
+    ``num_devices`` local devices by the same LPT rule. ``groups`` (index
+    sets that must share a device, e.g. the fusion groups of an unsplit
+    prep) must be wholly owned or wholly not; a group that straddles the
+    owner boundary is a desynced plan and raises. Returns ``(device,
+    plan)``: ``device[i]`` is item i's local device ordinal, -1 where
+    another process owns it, and ``plan`` the device-space sub-plan (its
+    balance is the ``re_shard.device_balance`` gauge)."""
+    counts = np.asarray(row_counts, np.float64)
+    owner = np.asarray(owner, np.int64)
+    if len(owner) != len(counts):
+        raise ValueError(f"plan_device_placement: owner map length {len(owner)} != row_counts length "
+                         f"{len(counts)}")
+    D = int(num_devices)
+    if D < 1:
+        raise ValueError(f"num_devices must be >= 1, got {num_devices}")
+    owned = np.flatnonzero(owner == int(shard))
+    device = np.full(len(owner), -1, np.int64)
+    pos = np.full(len(owner), -1, np.int64)
+    pos[owned] = np.arange(len(owned))
+    sub_groups = None
+    if groups is not None:
+        sub_groups = []
+        for g in groups:
+            g = list(g)
+            mine = [i for i in g if owner[i] == int(shard)]
+            if mine and len(mine) != len(g):
+                raise ValueError(f"plan_device_placement: group {g} straddles the owner boundary of shard "
+                                 f"{int(shard)}: the process-level plan is group-atomic, so this plan is "
+                                 "desynced")
+            if mine:
+                sub_groups.append([int(pos[i]) for i in mine])
+    plan = plan_shard_placement(counts[owned], D, groups=sub_groups, skew_aware=skew_aware)
+    device[owned] = plan.owner
+    return device, plan
+
+
+def record_device_placement_metrics(plan: PlacementPlan, prefix: str = "re_shard") -> None:
+    """The device-level sub-plan's gauges: ``re_shard.device_balance``
+    (max / mean over this process's device loads), ``re_shard.devices``
+    and ``re_shard.device_rows.<d>``."""
+    REGISTRY.gauge_set(f"{prefix}.device_balance", plan.balance)
+    REGISTRY.gauge_set(f"{prefix}.devices", float(plan.num_shards))
+    for d in range(plan.num_shards):
+        REGISTRY.gauge_set(f"{prefix}.device_rows.{d}", float(plan.loads[d]))
 
 
 def measured_entity_costs(entity_row_counts: np.ndarray, entity_owner: np.ndarray,

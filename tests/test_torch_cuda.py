@@ -1073,3 +1073,58 @@ def test_projection_on_the_card_matches_the_cpu(dev, monkeypatch, mode):
     np.testing.assert_allclose(W, Wc, rtol=1e-2, atol=2e-3)
     np.testing.assert_allclose(V, Vc, rtol=1e-2, atol=2e-3)
     assert (W[:10, 5:] == 0).all() and (W[10:20, 12:] == 0).all()
+
+
+def test_segments_combine_is_bitwise_the_dense_combine_on_the_card(dev, tmp_path):
+    """``PHOTON_RE_COMBINE=segments`` across two processes on one card
+    (``PHOTON_RE_SHARD=1``, in memory): bitwise the dense combine on both
+    processes, at full width, projected and split, with fewer bytes sent
+    by each (``tests/test_torch_re_split.py``'s workers and fixture)."""
+    import test_torch_re_split as split_tests
+
+    from photon_ml_tpu_torch.ops import _cuda
+
+    _cuda.load()  # built once here, before two processes would build it at once
+    ranks = split_tests.run_workers("card-combine", 2, tmp_path)
+    for arrays, meta in ranks:
+        for base in ("", "split_", "project_"):
+            for what in ("W", "V", "it", "loss"):
+                np.testing.assert_array_equal(arrays[f"{base}segments_{what}"], arrays[f"{base}allreduce_{what}"])
+                np.testing.assert_array_equal(arrays[f"{base}segments_{what}"], ranks[0][0][f"{base}segments_{what}"])
+            sent = {arm: meta[f"{base}{arm}"]["counters"]["re_combine.bytes_sent"] for arm in ("allreduce", "segments")}
+            assert 0 < sent["segments"] < sent["allreduce"], sent
+
+
+
+def test_device_split_over_the_card_and_the_cpu(dev, monkeypatch):
+    """``PHOTON_RE_DEVICE_SPLIT`` over a mesh of two different entries, the
+    card and then the CPU (``PHOTON_RE_SHARD=1``, in memory): the result's
+    matrices lie on the card, the buckets each entry solved are bitwise
+    that entry's knob-off solve, and the per-entity diagnostics, which
+    come from both entries, read back as one (``tests/test_torch_re_shard.py``'s
+    fixture)."""
+    import test_torch_re_shard as rs
+
+    from photon_ml_tpu_torch.game.data import DenseFeatures
+    from photon_ml_tpu_torch.game.random_effect import prepare_buckets, train_random_effects
+    from photon_ml_tpu_torch.parallel.mesh import data_mesh
+
+    f = rs.fixture()
+    kw = rs.in_memory_kwargs(f)
+    monkeypatch.setenv("PHOTON_RE_SHARD", "1")
+    off = [train_random_effects(mesh=data_mesh(1, [d]), **kw) for d in (dev, "cpu")]
+    monkeypatch.setenv("PHOTON_RE_DEVICE_SPLIT", "1")
+    mesh = data_mesh(2, [dev, "cpu"])
+    prepared = prepare_buckets(DenseFeatures(X=torch.tensor(f["X"])), torch.tensor(f["y"]), torch.ones(f["n"]),
+                               kw["buckets"], mesh=mesh)
+    assert {pb.device for pb in prepared} == {0, 1}
+    got = train_random_effects(mesh=mesh, **kw)
+    assert got.coefficients.device.type == got.variances.device.type == dev.type
+    W, V = got.coefficients.cpu().numpy(), got.variances.cpu().numpy()
+    for pb in prepared:
+        want, ids = off[pb.device], pb.entity_ids
+        np.testing.assert_array_equal(W[ids], want.coefficients.cpu().numpy()[ids])
+        np.testing.assert_array_equal(V[ids], want.variances.cpu().numpy()[ids])
+        np.testing.assert_array_equal(got.iterations[ids], want.iterations[ids])
+        np.testing.assert_array_equal(got.loss_values[ids], want.loss_values[ids])
+    assert (got.iterations > 0).all() and np.isfinite(got.loss_values).all()

@@ -87,6 +87,39 @@ def test_import_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+
+def test_every_port_module_imports_first():
+    """Each port module as the first thing an interpreter imports: one
+    subprocess drops every ``photon_ml_tpu_torch`` module from
+    ``sys.modules`` before the next, so an import cycle that another
+    module's earlier import would hide shows up."""
+    modules = sorted(
+        "photon_ml_tpu_torch" + ("." + ".".join(parts) if parts else "")
+        for path in _port_sources() if path.startswith(PORT)
+        for parts in [os.path.relpath(path[:-3], PORT).split(os.sep)]
+        for parts in [parts[:-1] if parts[-1] == "__init__" else parts]
+    )
+    assert "photon_ml_tpu_torch.estimators" in modules and "photon_ml_tpu_torch.checkpoint" in modules
+    code = (
+        "import importlib, sys, traceback\n"
+        f"modules = {modules!r}\n"
+        "failed = []\n"
+        "for name in modules:\n"
+        "    for k in [k for k in sys.modules if k.split('.')[0] == 'photon_ml_tpu_torch']:\n"
+        "        del sys.modules[k]\n"
+        "    try:\n"
+        "        importlib.import_module(name)\n"
+        "    except Exception:\n"
+        "        failed.append(name + ': ' + traceback.format_exc().splitlines()[-1])\n"
+        "print('\\n'.join(failed)); sys.exit(1 if failed else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=240,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_parallel_reexports_the_references_names():
     """``photon_ml_tpu_torch.parallel`` exports what the reference's
     ``photon_ml_tpu.parallel`` does for the ported slices: the multi-process

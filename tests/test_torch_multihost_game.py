@@ -21,7 +21,7 @@ Held to:
   one ``metrics.json`` within 1e-6 of the one-process metrics;
 - ``--multihost``, in memory or with ``--streaming-chunk-rows``, raising
   the initialization error without a process group, and the out-of-core
-  trainer's fleet knobs raising naming ROADMAP item 12d.
+  trainer's ported fleet knobs training as knob off on one process.
 """
 
 from __future__ import annotations
@@ -361,8 +361,8 @@ def test_score_driver_multihost_writes_a_part_a_process_and_one_metrics_file(dri
 
 def test_multihost_refuses_streaming_and_needs_a_process_group(tmp_path, monkeypatch):
     """Out of core too, ``--multihost`` needs a process group (it runs in
-    tests/test_torch_multihost_game_streaming.py); the fleet knobs still
-    raise, naming ROADMAP item 12d."""
+    tests/test_torch_multihost_game_streaming.py); on one process the
+    ported fleet knobs train as knob off."""
     for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
     (tmp_path / "config.json").write_text(json.dumps(_config().to_dict()))
@@ -388,13 +388,17 @@ def test_multihost_refuses_streaming_and_needs_a_process_group(tmp_path, monkeyp
     assert all(torch.equal(sub.coefficient_means, on.models[cid].coefficient_means)
                for cid, sub in off.models.items())
     # the projection is ported: "1" is no mode of it, and raises the reference's
-    # ValueError; the device split waits for item 12d-iii
-    for knob, error, match in (("PHOTON_RE_PROJECT", ValueError, "PHOTON_RE_PROJECT must be one of"),
-                               ("PHOTON_RE_DEVICE_SPLIT", NotImplementedError, "item 12d")):
-        monkeypatch.setenv(knob, "1")
-        with pytest.raises(error, match=match):
-            StreamedGameTrainer(_config(), chunk_rows=256, device="cpu").fit(streamed)
-        monkeypatch.delenv(knob)
+    # ValueError; the device split is ported too (tests/test_torch_re_split.py):
+    # with the trainer's one device it plans nothing, bit for bit knob off
+    monkeypatch.setenv("PHOTON_RE_PROJECT", "1")
+    with pytest.raises(ValueError, match="PHOTON_RE_PROJECT must be one of"):
+        StreamedGameTrainer(_config(), chunk_rows=256, device="cpu").fit(streamed)
+    monkeypatch.delenv("PHOTON_RE_PROJECT")
+    monkeypatch.setenv("PHOTON_RE_DEVICE_SPLIT", "1")
+    split, _ = StreamedGameTrainer(_config(), chunk_rows=256, device="cpu").fit(streamed)
+    monkeypatch.delenv("PHOTON_RE_DEVICE_SPLIT")
+    assert all(torch.equal(sub.coefficient_means, split.models[cid].coefficient_means)
+               for cid, sub in off.models.items())
     with pytest.raises(RuntimeError, match="multihost initialization failed"):
         port_train.main(base)
     with pytest.raises(RuntimeError, match="multihost initialization failed"):

@@ -4,7 +4,10 @@ package's: the per-entity subspace columns (``entity_top_columns``,
 reference's bit for bit on the same numpy input; the prepared buckets' column
 maps equal the reference's ``prepare_buckets``; a GAME fit with a per-entity
 subspace or a random projection matches the reference's estimator (L-BFGS
-lanes at atol 2e-3 / rtol 1e-2, Newton at tolerance 1e-3 within 1e-4); the
+lanes at atol 2e-3 / rtol 1e-2, Newton at tolerance 1e-3 within 1e-4 with
+its fixed effect at 1e-2: at 1e-3 that fixed effect ends 1.9e-4 apart, the
+warm-started stop whose float32 floor the driver fixture's float64 witness
+shows, ROADMAP queue 3); the
 original-space model scores as (XP)·w_p within rtol 1e-5; and a projected
 solve of entities that use few columns scores as the full-width solve."""
 
@@ -38,10 +41,12 @@ from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.types import TaskType
 
-# random-effect solver → (its tolerance, the coefficients' tolerance against the reference)
+# random-effect solver → (the fixed effect's tolerance, the random effect's,
+# the coefficients' tolerance against the reference). The Newton case's
+# fixed effect runs above its float32 floor (1e-2, ROADMAP queue 3).
 SOLVERS = {
-    "LBFGS": (1e-7, dict(atol=2e-3, rtol=1e-2)),
-    "NEWTON_CHOLESKY": (1e-3, dict(atol=1e-4, rtol=0.0)),
+    "LBFGS": (1e-7, 1e-7, dict(atol=2e-3, rtol=1e-2)),
+    "NEWTON_CHOLESKY": (1e-2, 1e-3, dict(atol=1e-4, rtol=0.0)),
 }
 
 
@@ -150,10 +155,10 @@ def _estimator_fixture():
 
 def _config(m, solver: str, projection: dict):
     T = jtypes if m is jcfg else ttypes
-    fixed = m.OptimizationConfig(optimizer=m.OptimizerConfig(max_iterations=60, tolerance=1e-7))
+    fixed = m.OptimizationConfig(optimizer=m.OptimizerConfig(max_iterations=60, tolerance=SOLVERS[solver][0]))
     per_user = m.OptimizationConfig(
         optimizer=m.OptimizerConfig(optimizer_type=T.OptimizerType(solver), max_iterations=60,
-                                    tolerance=SOLVERS[solver][0]),
+                                    tolerance=SOLVERS[solver][1]),
         regularization=m.RegularizationContext(T.RegularizationType.L2), regularization_weight=1.0)
     return m.GameTrainingConfig(
         task_type=T.TaskType.LOGISTIC_REGRESSION,
@@ -183,7 +188,7 @@ def test_game_fit_with_projectors_matches_the_reference(solver, projection):
     assert tres.model["per_user"].variances is None
     for cid in ("fixed", "per_user"):
         np.testing.assert_allclose(tres.model[cid].coefficient_means.numpy(),
-                                   np.asarray(jres.model[cid].coefficient_means), **SOLVERS[solver][1])
+                                   np.asarray(jres.model[cid].coefficient_means), **SOLVERS[solver][2])
     assert abs(tres.evaluation.primary - jres.evaluation.primary) <= 1e-3
     assert tres.evaluation.primary > 0.6
 

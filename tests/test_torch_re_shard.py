@@ -10,9 +10,11 @@ offsets), SIMPLE variances, a warm start and an incremental MAP prior, 2
 outer iterations, per-visit validation with AUC and MULTI_AUC(eid). Held
 to:
 
-- the knob refusals of the in-memory solve (each knob first shows the
-  fault: the reference reads it, and a port that drops it trains another
-  model or silently a default; then the port raises, naming item 12d);
+- the placement knobs of 12d-iii in the in-memory solve and the streamed
+  trainer (each first shows that the reference reads it; then the port
+  trains with it: bitwise knob off where one process makes it so, within
+  the lane tolerance of the reference's arm; more in
+  ``tests/test_torch_re_split.py``);
 - the in-memory owned-bucket mode: bitwise the unsharded solve on one
   process and across 2 (coefficients, variances, iterations), each
   process staging only the buckets it owns; with the knob off a mesh keeps
@@ -436,7 +438,7 @@ def test_the_anchors_match_the_jax_package(one_process):
 
 
 # ---------------------------------------------------------------------------
-# the knobs: the projection is ported, the 12d-iii knobs raise
+# the knobs: the projection and the 12d-iii knobs are ported
 # ---------------------------------------------------------------------------
 def _projection_problem():
     """The fixed fault's setup, cut to size: columns 0-5 and the intercept
@@ -558,27 +560,68 @@ def _ref_reads(knob: str, value: str, monkeypatch) -> bool:
     return ref_re._plan_bucket_devices(buckets, None, owners) is not None
 
 
+def _jax_in_memory(f: dict, mesh=None) -> np.ndarray:
+    """The JAX package's in-memory solve of ``in_memory_kwargs(f)``, over
+    its ``mesh`` when given (the knobs as the environment sets them)."""
+    import jax.numpy as jnp
+
+    from photon_ml_tpu.config import OptimizerConfig as JOpt
+    from photon_ml_tpu.game.data import DenseFeatures as JDense
+    from photon_ml_tpu.game.data import bucket_entities as jbucket
+    from photon_ml_tpu.game.data import group_by_entity as jgroup
+    from photon_ml_tpu.game.random_effect import train_random_effects as jtrain
+    from photon_ml_tpu.ops.losses import loss_for_task as jloss
+    from photon_ml_tpu.types import TaskType as JTask
+    from photon_ml_tpu.types import VarianceComputationType as JVar
+
+    kw = in_memory_kwargs(f)
+    res = jtrain(JDense(X=jnp.asarray(f["X"])), labels=f["y"], offsets=kw["offsets"], weights=kw["weights"],
+                 buckets=jbucket(jgroup(f["ids"], num_entities=f["E"])), num_entities=f["E"],
+                 loss=jloss(JTask.LOGISTIC_REGRESSION), config=JOpt(max_iterations=6, tolerance=1e-9),
+                 l2_weight=1.0, initial_coefficients=jnp.asarray(f["W0"]), variance_computation=JVar.SIMPLE,
+                 prior_coefficients=jnp.asarray(f["W0"]), prior_variances=jnp.asarray(f["V0"]), mesh=mesh)
+    return np.asarray(res.coefficients)
+
+
 @pytest.mark.parametrize("knob, value", [("PHOTON_RE_DEVICE_SPLIT", "1"), ("PHOTON_RE_SPLIT", "12"),
                                          ("PHOTON_RE_SPLIT_WEIGHT", "bytes"), ("PHOTON_RE_COMBINE", "segments")])
 def test_placement_knob_fault_then_raise_under_a_mesh(knob, value, monkeypatch):
-    """The fault: under a mesh the reference acts on each of these knobs
-    (a device level, sub-bucket atoms, another owner plan, another
-    combine transport) and the port dropped them without a word. Now a
-    mesh solve raises, naming item 12d, knob on or off; without a mesh the
-    reference ignores them, and so does the port (bitwise knob-off)."""
-    assert _ref_reads(knob, value, monkeypatch)
+    """Once a fault (under a mesh the reference acts on each of these
+    knobs: a device level, sub-bucket atoms, another owner plan, another
+    combine transport, and the port dropped them), then a refusal naming
+    item 12d; now each knob trains. Under ``PHOTON_RE_SHARD=1`` over
+    ``data_mesh(2, ["cpu"])`` on one process it is bitwise the knob-off
+    owned solve (the split's atoms launch per parent again, the device
+    split solves on two entries of one device, one process owns every
+    bucket and combines nothing) and within the lane tolerance of the
+    reference's same arm; over a lane-sharded mesh and without a mesh the
+    port ignores it, as the reference does: bitwise knob off."""
+    from photon_ml_tpu.parallel import data_mesh as j_data_mesh
+
+    with monkeypatch.context() as m:  # the probe's two-process view ends here
+        assert _ref_reads(knob, value, m)
     for k in ("PHOTON_RE_SHARD", "PHOTON_RE_SPLIT", "PHOTON_RE_SPLIT_WEIGHT", "PHOTON_RE_DEVICE_SPLIT",
               "PHOTON_RE_COMBINE"):
         monkeypatch.delenv(k, raising=False)
     f = fixture()
-    off = train_random_effects(**in_memory_kwargs(f))
-    monkeypatch.setenv(knob, value)
-    for shard_knob in ("0", "1"):
+
+    def solve(shard_knob=None):
+        if shard_knob is None:
+            return train_random_effects(**in_memory_kwargs(f))
         monkeypatch.setenv("PHOTON_RE_SHARD", shard_knob)
-        with pytest.raises(NotImplementedError, match="item 12d"):
-            train_random_effects(mesh=data_mesh(2, ["cpu"]), **in_memory_kwargs(f))
-    got = train_random_effects(**in_memory_kwargs(f))
-    assert torch.equal(got.coefficients, off.coefficients) and torch.equal(got.variances, off.variances)
+        try:
+            return train_random_effects(mesh=data_mesh(2, ["cpu"]), **in_memory_kwargs(f))
+        finally:
+            monkeypatch.delenv("PHOTON_RE_SHARD")
+
+    off = {k: solve(k) for k in (None, "0", "1")}
+    monkeypatch.setenv(knob, value)
+    for k in (None, "0", "1"):
+        got = solve(k)
+        assert torch.equal(got.coefficients, off[k].coefficients) and torch.equal(got.variances, off[k].variances)
+        np.testing.assert_array_equal(got.iterations, off[k].iterations)
+    monkeypatch.setenv("PHOTON_RE_SHARD", "1")
+    np.testing.assert_allclose(off["1"].coefficients.numpy(), _jax_in_memory(f, j_data_mesh(2)), **LANE_TOL)
 
 
 def test_streamed_projection_plans_one_ladder_on_every_process(tmp_path, monkeypatch):
@@ -601,17 +644,27 @@ def test_streamed_projection_plans_one_ladder_on_every_process(tmp_path, monkeyp
 
 
 def test_streamed_trainer_raises_on_every_waiting_knob_but_re_shard(monkeypatch):
-    """The 12d-iii knobs raise, naming the item; the projection, ported,
-    trains (its support solve within the lane tolerance of full width:
-    this fixture's classes are active in every column but one)."""
+    """Once the 12d-iii knobs raised here; now every one trains. On one
+    process the streamed trainer places nothing (skew-aware placement
+    needs two processes), so the split and its weight leave the fit
+    bitwise knob off, and so does the device split over two entries of
+    one device (``local_devices=["cpu", "cpu"]``: the buckets solve on
+    either, each unit with its own lanes); the projection, ported, trains
+    within the lane tolerance of full width (this fixture's classes are
+    active in every column but one)."""
     f = fixture()
+    _, W_off, V_off = streamed_fit(f, 0, 1)
     for knob, value in (("PHOTON_RE_DEVICE_SPLIT", "1"), ("PHOTON_RE_SPLIT", "4"),
                         ("PHOTON_RE_SPLIT_WEIGHT", "bytes")):
         monkeypatch.setenv(knob, value)
-        with pytest.raises(NotImplementedError, match="item 12d-iii"):
-            streamed_fit(f, 0, 1)
+        REGISTRY.reset("re_shard.")
+        t, W, V = streamed_fit(f, 0, 1, local_devices=["cpu", "cpu"])
+        np.testing.assert_array_equal(W, W_off)
+        np.testing.assert_array_equal(V, V_off)
+        if knob == "PHOTON_RE_DEVICE_SPLIT":
+            gauges = REGISTRY.snapshot("re_shard.")["gauges"]
+            assert gauges["re_shard.devices"] == 2.0 and "re_shard.device_rows.1" in gauges
         monkeypatch.delenv(knob)
-    _, W_off, _ = streamed_fit(f, 0, 1)
     monkeypatch.setenv("PHOTON_RE_PROJECT", "support")
     _, W, _ = streamed_fit(f, 0, 1)
     np.testing.assert_allclose(W, W_off, **LANE_TOL)

@@ -564,6 +564,12 @@ ALLOWED = {
     "*.shards": "the reference's placement gauge re_shard.shards (record_placement_metrics)",
     "re_replan_check": "the reference's per-check re-planner record (game/streaming.py "
                        "_maybe_replan_re_shards); its report reads the re_replan records",
+    "*.devices": "the reference's device-level gauge re_shard.devices "
+                 "(placement.record_device_placement_metrics), beside re_shard.device_balance",
+    "*.device_rows.*": "the reference's per-device load gauges re_shard.device_rows.<d> "
+                       "(record_device_placement_metrics)",
+    "re_combine.overlap_ratio": "the reference's owner-segment combine gauge "
+                                "(random_effect._combine_owned_segments)",
 }
 _METRIC_CALLS = {"counter_inc", "gauge_set", "timer_add", "histogram_observe"}
 
