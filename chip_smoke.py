@@ -386,7 +386,24 @@ Run from the root of a checkout. It builds the CUDA kernels from
    per chunk and direction of every pass, a second objective over the
    same chunks with no cache miss, and against main_a2 |dAUC| <= 1e-3 and
    relative d(objective) <= 1e-4; K3 alone at the chunk's layouts, each
-   direction against its plain version at 1e-5.
+   direction against its plain version at 1e-5;
+22. main_a2_streamed_fe_shard: A2's shape with power-law columns
+   (``sparse_problem`` kind "skewed") in 8 host chunks of 2^16 rows,
+   ``train_glm_streamed`` (host L-BFGS 10 iterations at tolerance 0,
+   lambda = 1, SIMPLE variances), then the module scorer, with the fixed
+   effect's features split into ranges over processes
+   (``PHOTON_FE_SHARD``): in this process the knob unset, "0" and "1" (one
+   range; bitwise the unset arm), then 2 and 4 gloo children with the knob
+   on (and 2 with ``PHOTON_FE_SPLIT_WEIGHT=width``). Per arm the plan's
+   boundaries, the ``fe_shard.*`` gauges, the packed K3 bytes per process
+   against one range's, seconds per evaluation, the phase-A reduction's
+   seconds and float32 bytes per evaluation, K3 launches per process and
+   direction against the count the evaluations give, peak device bytes;
+   every rank bitwise the others, against the one-process arm |dAUC| <=
+   0.005 and relative d(objective) <= 1e-4, the widths summing to d and
+   the ranges' nonzeros to the data's, nnz balance <= 1.15 on the nnz
+   arms; and K3 against its plain version on a chunk restricted to the
+   4-range plan's second range, each direction at f32 rtol = atol = 1e-5.
 
 Every check that fails raises, and the script exits non-zero with no
 result; a child process that fails or outlives its time (then killed)
@@ -394,7 +411,7 @@ fails its phase. The kernels are built once, before any child starts.
 Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
 E on L-BFGS, E projected, the GAME drivers, the six out-of-core
-phases, the eight data-parallel ones, the three out-of-core ones across
+phases, the eight data-parallel ones, the five out-of-core ones across
 processes and main_telemetry, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
@@ -406,6 +423,7 @@ without CUDA or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import multiprocessing
 import os
@@ -472,7 +490,9 @@ from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
 from photon_ml_tpu_torch.ops.glm import compute_variances, make_objective
 from photon_ml_tpu_torch.ops.losses import LOSSES
-from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks
+from photon_ml_tpu_torch.data.index_map import plan_feature_ranges
+from photon_ml_tpu_torch.ops import streaming
+from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks, stream_scores
 from photon_ml_tpu_torch.optim import lbfgs_minimize, select_minimize_fn
 from photon_ml_tpu_torch.parallel import DistributedTrainer, data_mesh, sharded_objective
 from photon_ml_tpu_torch.parallel.distributed import reduction_stats
@@ -3034,6 +3054,214 @@ def run_a2_streamed(dev, a2: dict, card: str) -> dict:
     return rec
 
 
+# main_a2_streamed_fe_shard: the children's arms, by process count
+A2_FE_ITERATIONS = 10
+A2_FE_CHILD_ARMS = {2: {"nnz": {}, "width": {"PHOTON_FE_SPLIT_WEIGHT": "width"}}, 4: {"nnz": {}}}
+
+
+def a2_fe_chunks(dev) -> tuple[list[dict], torch.Tensor]:
+    """A2's shape with power-law columns (``sparse_problem`` kind
+    "skewed"), in 8 host chunks of 2^16 rows; and its labels on the card.
+    Every process draws the same chunks from the seed."""
+    n, d, k = A2
+    batch, _ = sparse_problem(dev, n, d, k, seed=1, kind="skewed")
+    chunks = sparse_chunks(batch.indices.to(torch.int32).cpu().numpy(), batch.values.cpu().numpy(),
+                           batch.labels.cpu().numpy(), A2_CHUNK)
+    labels = batch.labels
+    del batch
+    torch.cuda.empty_cache()
+    return chunks, labels
+
+
+@contextmanager
+def timed_fe_evaluations(stats: dict):
+    """Seconds in each of the streamed objective's evaluations
+    (``value_and_grad``, ``hessian_diag``; the card synchronized after
+    each), and the phase-A reductions' seconds, calls and the bytes this
+    process puts on the wire (float32), summed into ``stats``."""
+    real_vg, real_hd, real_reduce = (StreamingGLMObjective.value_and_grad, StreamingGLMObjective.hessian_diag,
+                                     streaming._fe_allreduce)
+
+    def timed(fn, key):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if key == "eval":
+                torch.cuda.synchronize()
+            else:
+                stats["reduce_bytes"] += sum(np.asarray(a, np.float32).nbytes for a in args)
+            stats[f"{key}_s"] += time.perf_counter() - t0
+            stats[f"{key}_calls"] += 1
+            return out
+        return call
+
+    stats.update(eval_s=0.0, eval_calls=0, reduce_s=0.0, reduce_calls=0, reduce_bytes=0)
+    StreamingGLMObjective.value_and_grad = timed(real_vg, "eval")
+    StreamingGLMObjective.hessian_diag = timed(real_hd, "eval")
+    streaming._fe_allreduce = timed(real_reduce, "reduce")
+    try:
+        yield stats
+    finally:
+        StreamingGLMObjective.value_and_grad, StreamingGLMObjective.hessian_diag = real_vg, real_hd
+        streaming._fe_allreduce = real_reduce
+
+
+def _sha(t) -> str:
+    a = t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def fe_shard_arm(dev, chunks: list[dict], labels: torch.Tensor) -> dict:
+    """One arm of main_a2_streamed_fe_shard under the environment as it
+    stands: an objective built first (its K3 layouts packed through the
+    cache; the plan, the ``fe_shard`` gauges and the packed bytes read),
+    then ``train_glm_streamed`` with its launches counted and its
+    evaluations and reductions timed, then the module scorer over the
+    training chunks (its launches counted apart)."""
+    n, d, _ = A2
+    tile_cache.clear()
+    prefetch.clear_cache()
+    REGISTRY.reset("fe_shard.")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = StreamingGLMObjective(chunks, LOSSES["logistic"], d, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plan = first._fe_plan
+    rec = dict(fe_active=first.fe_active, tiled=first.tiled, build_s=build_s,
+               packed_k3_bytes=tile_cache.stats()["bytes"],
+               plan_boundaries=None if plan is None else list(plan.boundaries),
+               plan_balance=None if plan is None else plan.balance, fe_range=first._fe_range,
+               gauges={k.removeprefix("fe_shard."): v for k, v in REGISTRY.snapshot("fe_shard.")["gauges"].items()})
+    del first
+    stats: dict = {}
+    reset_collective_stats()
+    with timed_fe_evaluations(stats):
+        result, wall, launches = streamed_solve(
+            chunks, TaskType.LOGISTIC_REGRESSION, d, OptimizerConfig(max_iterations=A2_FE_ITERATIONS, tolerance=0.0),
+            dev, variance_computation=VarianceComputationType.SIMPLE)
+    collectives = dict(collective_stats)
+    t = result.trackers[1.0]
+    coef = result.models[1.0].coefficients
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = stream_scores(chunks, coef.means, n, num_features=d, device=dev)
+    torch.cuda.synchronize()
+    scorer_s = time.perf_counter() - t0
+    scorer_launches = launch_counts()
+    passes = t.objective_passes  # value-and-gradient evaluations; SIMPLE adds one Hessian-diagonal evaluation
+    c = len(chunks)
+    expected = {"matvec": c * (passes + 1), "rmatvec": c * (passes if rec["fe_active"] else passes + 1),
+                "rmatvec_sq": c}
+    k3 = {direction: launches[f"sparse_{direction}"] for direction in st.DIRECTIONS}
+    evals = max(stats["eval_calls"], 1)
+    rec.update(
+        iterations=t.iterations, reason=t.reason, objective_passes=passes, objective=float(t.value),
+        train_auc=float(auc_roc(torch.as_tensor(scores, device=dev), labels)), solve_wall_s=wall,
+        wall_ms_per_evaluation=1e3 * stats["eval_s"] / evals, evaluations=stats["eval_calls"],
+        reduce_ms_per_evaluation=1e3 * stats["reduce_s"] / evals, reduce_calls=stats["reduce_calls"],
+        reduce_bytes_per_evaluation=stats["reduce_bytes"] / evals, reduce_wire_dtype="float32",
+        collectives=collectives, scorer_s=scorer_s,
+        launches={k: launches[k] + scorer_launches[k] for k in launches},
+        k3_launches=k3, k3_expected=expected, scorer_k3_matvec=scorer_launches["sparse_matvec"],
+        launches_ok=k3 == expected and scorer_launches["sparse_matvec"] == c,
+        peak_device_bytes=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+        variances_finite=bool(torch.isfinite(coef.variances).all()),
+        sha={"means": _sha(coef.means), "variances": _sha(coef.variances), "scores": _sha(scores)})
+    tile_cache.clear()
+    prefetch.clear_cache()
+    return rec
+
+
+def _fe_child_record(ranks: list[dict], one: dict, one_range: dict, d: int, total_nnz: int) -> dict:
+    """A children's arm across its ranks, against the one-process arm."""
+    r0 = ranks[0]
+    return dict(
+        processes=len(ranks), plan_boundaries=r0["plan_boundaries"], plan_balance=r0["plan_balance"],
+        gauges=[x["gauges"] for x in ranks], packed_k3_bytes=[x["packed_k3_bytes"] for x in ranks],
+        packed_share_of_one_range=[x["packed_k3_bytes"] / one_range["packed_k3_bytes"] for x in ranks],
+        build_s=[x["build_s"] for x in ranks], solve_wall_s=[x["solve_wall_s"] for x in ranks],
+        wall_ms_per_evaluation=[x["wall_ms_per_evaluation"] for x in ranks],
+        reduce_ms_per_evaluation=[x["reduce_ms_per_evaluation"] for x in ranks],
+        reduce_bytes_per_evaluation=r0["reduce_bytes_per_evaluation"], reduce_wire_dtype=r0["reduce_wire_dtype"],
+        collectives=[x["collectives"] for x in ranks], k3_launches=[x["k3_launches"] for x in ranks],
+        k3_expected=[x["k3_expected"] for x in ranks], peak_device_bytes=[x["peak_device_bytes"] for x in ranks],
+        iterations=r0["iterations"], objective_passes=r0["objective_passes"], objective=r0["objective"],
+        train_auc=r0["train_auc"], launches={k: sum(x["launches"][k] for x in ranks) for k in launch_counts()},
+        launches_ok=all(x["launches_ok"] for x in ranks),
+        ranks_bitwise=all(x["sha"] == r0["sha"] and x["objective"] == r0["objective"]
+                          and x["iterations"] == r0["iterations"] and x["train_auc"] == r0["train_auc"]
+                          for x in ranks),
+        widths_cover_d=sum(x["gauges"]["width"] for x in ranks) == float(d),
+        nnz_covers_data=sum(x["gauges"]["nnz_local"] for x in ranks) == float(total_nnz),
+        nnz_balance=r0["gauges"]["nnz_balance"],
+        d_auc_vs_one_process=abs(r0["train_auc"] - one["train_auc"]),
+        rel_d_objective_vs_one_process=abs(r0["objective"] - one["objective"]) / abs(one["objective"]),
+        variances_finite=all(x["variances_finite"] for x in ranks))
+
+
+def run_a2_streamed_fe_shard(dev, card: str) -> dict:
+    """main_a2_streamed_fe_shard (the module docstring, phase 22)."""
+    t_phase = time.perf_counter()
+    n, d, _ = A2
+    os.environ.pop("PHOTON_FE_SHARD", None)
+    chunks, labels = a2_fe_chunks(dev)
+    total_nnz = int(sum(np.count_nonzero(c["values"]) for c in chunks))
+    arms = {}
+    for arm, env in (("unset", {}), ("off0", {"PHOTON_FE_SHARD": "0"}), ("on1", {"PHOTON_FE_SHARD": "1"})):
+        with environment(env):
+            arms[arm] = fe_shard_arm(dev, chunks, labels)
+    one = arms["unset"]
+    one_range_bitwise = {arm: arms[arm]["sha"] == one["sha"] and arms[arm]["objective"] == one["objective"]
+                         for arm in ("off0", "on1")}
+
+    # K3 on a chunk restricted to the second of four ranges (lo > 0)
+    plan4 = plan_feature_ranges(streaming._fe_nnz_histogram(chunks, d), 4, mode="nnz")
+    lo, hi = plan4.range_of(1)
+    r = streaming._fe_restrict_chunks(chunks[:1], lo, hi)[0][0]
+    rows = r["labels"].shape[0]
+    restricted = st.tile_sparse_batch(SparseBatch(
+        indices=torch.from_numpy(r["indices"]).long().to(dev), values=torch.from_numpy(r["values"]).to(dev),
+        labels=torch.zeros(rows, device=dev), offsets=torch.zeros(rows, device=dev),
+        weights=torch.ones(rows, device=dev), num_features=hi - lo), fe_range=(1, lo, hi, 4))
+    gen = torch.Generator(device=dev).manual_seed(29)
+    w, y = torch.randn(hi - lo, generator=gen, device=dev), torch.randn(rows, generator=gen, device=dev)
+    k3_parity = {}
+    for direction, (lay, src, square) in k3_directions(restricted, w, y).items():
+        got = st.sparse_apply(lay, src, square=square, direction=direction)
+        ok, err = close(got, st.tiled_apply_reference(lay, src, square=square), 1e-5, 1e-5)
+        k3_parity[direction] = dict(ok=ok, max_abs_err=err)
+    k3_shape = dict(range=[lo, hi], width=hi - lo, rows=rows, nnz=restricted.m.nnz, row_width=r["values"].shape[1])
+    del restricted, labels
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    children = {}
+    work_root = tempfile.mkdtemp(prefix="_a2_fe_shard-", dir=ROOT)
+    try:
+        for p, child_arms in A2_FE_CHILD_ARMS.items():
+            t0 = time.perf_counter()
+            kids = run_children("a2_fe_shard", os.path.join(work_root, f"p{p}"),
+                                {"arms": child_arms, "shape": A2, "chunk_rows": A2_CHUNK}, dev,
+                                env={"PHOTON_FE_SHARD": "1"}, n=p)
+            for arm in child_arms:
+                children[f"p{p}_{arm}"] = dict(
+                    _fe_child_record([kid["arms"][arm] for kid in kids], one, arms["on1"], d, total_nnz),
+                    children_wall_s=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(work_root, ignore_errors=True)
+    all_arms = [*arms.values(), *children.values()]
+    return dict(card=card, n=n, d=d, chunks=len(chunks), chunk_rows=A2_CHUNK, total_nnz=total_nnz,
+                iterations=A2_FE_ITERATIONS, one_process=arms, one_range_bitwise_unset=one_range_bitwise,
+                k3_restricted_parity=k3_parity, k3_restricted_shape=k3_shape, processes=children,
+                launches={k: sum(a["launches"][k] for a in all_arms) for k in launch_counts()},
+                phase_wall_s=time.perf_counter() - t_phase)
+
+
 def glm_streamed_argv(dev, work: str, out: str) -> list[str]:
     """main_glm_streamed_cli's command: the GLM driver out of core on the
     GAME driver's files (3 λ, 100 iterations at 1e-8)."""
@@ -3312,7 +3540,7 @@ def owned_visit_bitwise(host, effects: dict, dev, mesh) -> dict:
 def _child(mode: str, rank: int, spec: dict) -> int:
     """One process of a multi-process phase (``run_children``), on the
     parent's device."""
-    global F_ROWS, F_D, F_CHUNK, E_STREAM_CHUNK
+    global F_ROWS, F_D, F_CHUNK, E_STREAM_CHUNK, A2, A2_CHUNK
     dev = torch.device(spec["device"])
     if dev.type != "cuda":  # a rehearsal on the CPU: no card to wait for
         torch.cuda.synchronize = lambda *a, **k: None
@@ -3428,6 +3656,14 @@ def _child(mode: str, rank: int, spec: dict) -> int:
                 iteration_wall_s=fit["iteration_wall_s"], launches=fit["launches"],
                 fixed_objective_passes=fit["fixed_objective_passes"], chunks=-(-host.num_rows // E_STREAM_CHUNK),
                 **_re_split_telemetry())
+    elif mode == "a2_fe_shard":
+        A2, A2_CHUNK = tuple(spec["shape"]), spec["chunk_rows"]  # the parent's, so the chunks are its chunks
+        chunks, labels = a2_fe_chunks(dev)
+        initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+        out["arms"] = {}
+        for arm, env in spec["arms"].items():
+            with environment(env):
+                out["arms"][arm] = fe_shard_arm(dev, chunks, labels)
     elif mode == "e_streamed_multihost":
         n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
         E_STREAM_CHUNK = spec["chunk_rows"]
@@ -5051,6 +5287,24 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_a2_streamed failed: {failed}")
+    a2_fe = run_a2_streamed_fe_shard(dev, smi)
+    emit("main_a2_streamed_fe_shard", **a2_fe)
+    on_arms = a2_fe["processes"]
+    failed = [name for name, ok in (
+        ("one_range_bitwise_unset", all(a2_fe["one_range_bitwise_unset"].values())),
+        ("sharded", a2_fe["one_process"]["on1"]["fe_active"] and not a2_fe["one_process"]["off0"]["fe_active"]),
+        ("tiled", all(r["tiled"] for r in a2_fe["one_process"].values())),
+        ("k3_launches", all(r["launches_ok"] for r in [*a2_fe["one_process"].values(), *on_arms.values()])),
+        ("k3_restricted_parity", all(r["ok"] for r in a2_fe["k3_restricted_parity"].values())),
+        ("ranks_bitwise", all(r["ranks_bitwise"] for r in on_arms.values())),
+        ("vs_one_process", all(r["d_auc_vs_one_process"] <= 0.005 and r["rel_d_objective_vs_one_process"] <= 1e-4
+                               for r in on_arms.values())),
+        ("cover", all(r["widths_cover_d"] and r["nnz_covers_data"] for r in on_arms.values())),
+        ("nnz_balance", all(r["nnz_balance"] <= 1.15 for name, r in on_arms.items() if name.endswith("_nnz"))),
+        ("variances", all(r["variances_finite"] for r in on_arms.values())),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_a2_streamed_fe_shard failed: {failed}")
     streamed_paths = {"main_f": f_rec, "main_b_streamed": b_streamed, "main_a2_streamed": a2_streamed,
                       "main_glm_streamed_cli": glm_streamed, "main_e_streamed": e_streamed,
                       "main_game_cli_streamed": game_streamed}
@@ -5058,7 +5312,8 @@ def main() -> int:
     parallel_streamed_paths = {"main_e_streamed_multihost": e_streamed_multi,
                                "main_e_streamed_multihost_re_shard": e_streamed_rs,
                                "main_e_streamed_multihost_re_split": e_streamed_re_split,
-                               "main_game_cli_streamed_multihost": game_streamed_multi}
+                               "main_game_cli_streamed_multihost": game_streamed_multi,
+                               "main_a2_streamed_fe_shard": a2_fe}
     # the drivers with run telemetry on
     telemetry_paths = {"main_telemetry": telemetry}
     # data parallel: row shards of the card, and two processes over gloo

@@ -102,6 +102,7 @@ _knob_memo: list = []  # [raw fingerprint, knobs, sorted item tuple]
 
 
 def _knob_raw_state() -> tuple:
+    import photon_ml_tpu_torch.data.index_map as im
     import photon_ml_tpu_torch.game.projector as proj
     import photon_ml_tpu_torch.game.random_effect as re_mod
     import photon_ml_tpu_torch.ops.prefetch as pf
@@ -118,6 +119,7 @@ def _knob_raw_state() -> tuple:
         proj.RE_PROJECT, proj.RE_PROJECT_DIM, pl.RE_SHARD,
         env.get("PHOTON_RE_COMBINE"), env.get("PHOTON_RE_SPLIT"), env.get("PHOTON_RE_DEVICE_SPLIT"),
         env.get("PHOTON_RE_SPLIT_WEIGHT"), re_mod.RE_COMBINE, pl.RE_SPLIT, pl.RE_DEVICE_SPLIT, pl.RE_SPLIT_WEIGHT,
+        env.get("PHOTON_FE_SHARD"), env.get("PHOTON_FE_SPLIT_WEIGHT"), im.FE_SHARD, im.FE_SPLIT_WEIGHT,
     )
 
 

@@ -263,7 +263,8 @@ def _knob_snapshot() -> dict:
     it takes the tiles layout), K3's tile size, and the random-effect
     knobs under the reference's names (the schedule knobs, the projection,
     entity sharding, the split, its weight, the device split and the
-    combine)."""
+    combine), and the fixed effect's feature-range sharding and its
+    split axis."""
     knobs: dict = {}
     try:
         from photon_ml_tpu_torch.ops import prefetch
@@ -312,6 +313,13 @@ def _knob_snapshot() -> dict:
         knobs["re_split"] = int(placement.re_split_factor())
         knobs["re_device_split"] = int(bool(placement.re_device_split_enabled()))
         knobs["re_split_weight"] = str(placement.re_split_weight())
+    except Exception:
+        pass
+    try:
+        from photon_ml_tpu_torch.data import index_map
+
+        knobs["fe_shard"] = int(bool(index_map.fe_shard_enabled()))
+        knobs["fe_split_weight"] = str(index_map.fe_split_weight())
     except Exception:
         pass
     return knobs

@@ -252,6 +252,9 @@ class TiledSparseBatch:
     offsets: Tensor
     weights: Tensor
     num_features: int
+    # (pid, lo, hi, P) when the columns are the feature range [lo, hi) of
+    # ``PHOTON_FE_SHARD``'s plan (``num_features`` is then hi − lo), else None
+    fe_range: tuple | None = None
 
     @property
     def num_rows(self) -> int:
@@ -278,10 +281,12 @@ class TiledSparseBatch:
         return sparse_apply(self.g, r, square=True, direction="rmatvec_sq")
 
 
-def tile_sparse_batch(batch) -> TiledSparseBatch:
+def tile_sparse_batch(batch, fe_range: tuple | None = None) -> TiledSparseBatch:
     """Both directions' layouts of a padded-sparse batch, built on its
     device, on the storage rung ``kernel_dtype()`` gives (read once for
-    both). Raises on a feature index outside [0, d)."""
+    both). Raises on a feature index outside [0, d). ``fe_range`` names a
+    batch whose columns are one feature range (already shifted to start
+    at 0) and rides the result."""
     storage = kernel_dtype()
     n, k = batch.indices.shape
     d = batch.num_features
@@ -307,6 +312,7 @@ def tile_sparse_batch(batch) -> TiledSparseBatch:
         offsets=batch.offsets,
         weights=batch.weights,
         num_features=d,
+        fe_range=fe_range,
     )
 
 

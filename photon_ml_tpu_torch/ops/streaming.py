@@ -30,12 +30,26 @@ With ``cross_process`` every process streams its own chunks (none is
 allowed) and each pass's sums, read back in float64, meet in
 ``allreduce_sum_host`` (``parallel/multihost.py``) before the regularizer
 is added, so every process holds the same value and gradient.
-Feature-range sharding (``PHOTON_FE_SHARD``) is ROADMAP queue 1 item 12d.
+
+Feature-range sharding (``PHOTON_FE_SHARD=1``, sparse chunks) is the
+other axis: every process streams all the rows, and holds only its range
+[lo, hi) of ``data/index_map.py``'s ``plan_feature_ranges`` over the
+global nonzero histogram. Its chunks are restricted to the range
+(``_fe_restrict_chunks``), its K3 layouts are packed at width hi − lo, and
+its coefficients, gradients and curvature vectors are the (hi − lo,)
+segment. Each evaluation is two passes: phase A streams the range's
+partial margins (one K3 ``matvec`` a chunk and vector) and sums them over
+the processes in one ascending-rank reduction (float32 on the wire, summed
+in float64, rounded once), the local L2 scalar riding along; phase B
+derives value, gradient, H·v or diag(H) from the combined margins with
+K3's ``rmatvec`` / ``rmatvec_sq``. The ranges are disjoint, so each
+process's segment is its exact share and ``fe_gather`` assembles the full
+vector by concatenation. ``fe_dot`` gives the host solvers the global
+inner products they branch on.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -45,6 +59,8 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch._device import resolve_device
+from photon_ml_tpu_torch.data.index_map import FeatureRangePlan, fe_shard_enabled, plan_feature_ranges
+from photon_ml_tpu_torch.obs import devcost
 from photon_ml_tpu_torch.normalization import NormalizationContext, no_normalization
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.ops import prefetch, tile_cache
@@ -52,17 +68,11 @@ from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch, SparseBatch, densif
 from photon_ml_tpu_torch.ops.fused import supports_fused
 from photon_ml_tpu_torch.ops.glm import GLMObjective, fused_disabled, reg_curvature, reg_delta, reg_term
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
-from photon_ml_tpu_torch.ops.sparse_tiled import TiledSparseBatch, auto_tile_streaming
+from photon_ml_tpu_torch.ops.sparse_tiled import TiledSparseBatch, auto_tile_streaming, tiled_apply_cost
 
 Tensor = torch.Tensor
 
 _TILED_STREAM_KEYS = ("labels", "offsets", "weights")
-
-
-def _fe_shard_waits() -> NotImplementedError:
-    return NotImplementedError(
-        "feature-range sharding (PHOTON_FE_SHARD) waits for ROADMAP queue 1 item 12d (multi-GPU)"
-    )
 
 
 def chunk_batch(batch_arrays: dict, chunk_rows: int) -> list[dict]:
@@ -157,6 +167,87 @@ def _host_sparse_batch(chunk: dict, num_features: int | None) -> SparseBatch:
     )
 
 
+def _fe_nnz_histogram(chunks: Sequence[dict], num_features: int) -> np.ndarray:
+    """Per-feature nonzero counts over sparse host chunks (zero-valued
+    slots left out: they pack to nothing). Rows are replicated under
+    feature-range sharding, so this local histogram is the global one."""
+    nnz = np.zeros(num_features, np.int64)
+    for c in chunks:
+        idx = np.asarray(c["indices"]).ravel()
+        live = idx[np.asarray(c["values"]).ravel() != 0.0]
+        if live.size:
+            nnz += np.bincount(live, minlength=num_features)
+    return nnz
+
+
+def _fe_restrict_chunks(chunks: Sequence[dict], lo: int, hi: int) -> tuple[list[dict], int]:
+    """Sparse host chunks restricted to the feature range [lo, hi): entries
+    outside it become (0, 0.0), inert in every direction, entries inside
+    shift by −lo, and every chunk keeps its live entries first (stable) in
+    one common row width, the most any row keeps, so the restricted chunks
+    are uniform and their raw stream shrinks with the range. Labels,
+    offsets and weights are the input chunks' own arrays (the chunk cache
+    keeps hitting). Returns (chunks, width)."""
+    keeps, k_max = [], 1
+    for c in chunks:
+        idx, val = np.asarray(c["indices"]), np.asarray(c["values"])
+        keep = (idx >= lo) & (idx < hi) & (val != 0.0)
+        if keep.size:
+            k_max = max(k_max, int(keep.sum(axis=1).max()))
+        keeps.append(keep)
+    out = []
+    for c, keep in zip(chunks, keeps):
+        idx, val = np.asarray(c["indices"]), np.asarray(c["values"])
+        order = np.argsort(~keep, axis=1, kind="stable")
+        idx_loc = np.take_along_axis(np.where(keep, idx - lo, 0).astype(idx.dtype), order, axis=1)[:, :k_max]
+        val_loc = np.take_along_axis(np.where(keep, val, 0.0).astype(val.dtype), order, axis=1)[:, :k_max]
+        out.append(dict(c, indices=np.ascontiguousarray(idx_loc), values=np.ascontiguousarray(val_loc)))
+    return out, k_max
+
+
+def _fe_plan(chunks: Sequence[dict], num_features: int) -> tuple[FeatureRangePlan, tuple]:
+    """This process's plan and range identity (pid, lo, hi, P) over the
+    process group (one range on a lone process)."""
+    from photon_ml_tpu_torch.parallel.multihost import process_count, process_index
+
+    p, pid = process_count(), process_index()
+    plan = plan_feature_ranges(_fe_nnz_histogram(chunks, num_features), p)
+    lo, hi = plan.range_of(pid)
+    return plan, (pid, lo, hi, p)
+
+
+def _fe_allreduce(*arrays: np.ndarray):
+    """The phase-A reduction: float32 host arrays summed over the processes
+    in rank order (float32 on the wire, float64 sums); unchanged on one."""
+    from photon_ml_tpu_torch.parallel.multihost import allreduce_sum_lockstep
+
+    return allreduce_sum_lockstep(*arrays, wire_dtype=np.float32)
+
+
+def _weighted(b: Batch, x: Tensor) -> Tensor:
+    """weights·x with zero-weight rows exactly 0 (``GLMObjective._weighted``)."""
+    return torch.where(b.weights != 0.0, b.weights * x, torch.zeros_like(x))
+
+
+def _fe_cost(b: Batch, directions: dict) -> Callable[[], dict]:
+    """One chunk's analytic work in a sharded phase: K3's on each named
+    (direction: times) of a tiled chunk (a gather's 2 operations a nonzero
+    otherwise), and the chunk's per-row arrays read once."""
+    def cost() -> dict:
+        rows = 4.0 * 3 * b.num_rows
+        if isinstance(b, TiledSparseBatch):
+            parts = [(tiled_apply_cost(b.g if name != "matvec" else b.m, name == "rmatvec_sq"), k)
+                     for name, k in directions.items()]
+            flops = sum(c["flops"] * k for c, k in parts)
+            nbytes = sum(c["bytes_accessed"] * k for c, k in parts) + rows
+        else:
+            nnz = float(b.indices.numel())
+            flops = sum(2.0 * nnz * k for k in directions.values())
+            nbytes = sum(12.0 * nnz * k for k in directions.values()) + rows
+        return {"flops": flops, "bytes_accessed": nbytes}
+    return cost
+
+
 def _same_storage(a, b) -> bool:
     """True when ``a`` and ``b`` are numpy arrays over the same memory (the
     same object, or views with one data pointer, shape and strides)."""
@@ -181,10 +272,17 @@ class StreamingGLMObjective:
     ``cross_process`` sums every pass over all processes (each holding its
     own chunks, possibly none); every process must then evaluate the same
     contracts in the same order.
-    ``tile_sparse=None`` tiles sparse chunks by ``auto_tile_streaming``;
+    ``tile_sparse=None`` tiles sparse chunks by ``auto_tile_streaming``
+    (on the global width, sharded or not);
     the layouts are built once from the first chunks, and a later
     ``chunks`` swap may change labels, offsets or weights but nothing else
-    (the fingerprints refuse it)."""
+    (the fingerprints refuse it).
+    ``fe_shard=None`` follows ``PHOTON_FE_SHARD`` on sparse chunks; True
+    or False forces it. Sharded, the objective's vectors are this
+    process's range segment (``fe_slice``, ``fe_gather``, ``fe_dot``), its
+    values are global, and every process must evaluate the same contracts
+    in the same order. It refuses dense chunks, ``cross_process``,
+    ``norm``, a chunk swap and the FULL Hessian."""
 
     chunks: Sequence[dict]
     loss: PointwiseLoss
@@ -207,9 +305,6 @@ class StreamingGLMObjective:
 
     def __post_init__(self):
         sparse = bool(self.chunks) and "indices" in self.chunks[0]
-        env = os.environ.get("PHOTON_FE_SHARD")
-        if self.fe_shard or (self.fe_shard is None and sparse and env not in (None, "", "0")):
-            raise _fe_shard_waits()
         if not self.chunks and not self.cross_process:
             raise ValueError("streaming objective needs at least one chunk")
         dev = resolve_device(self.device)
@@ -218,32 +313,65 @@ class StreamingGLMObjective:
         mask = torch.ones(d, dtype=torch.float32, device=dev)
         if self.intercept_index is not None:
             mask[self.intercept_index] = 0.0
-        self.reg_mask = mask  # the host OWL-QN applies its L1 over this mask
+        self.reg_mask = mask  # the host OWL-QN applies its L1 over this mask (the range's, sharded)
         if self.prior_mean is not None:
             self.prior_mean = torch.as_tensor(self.prior_mean, dtype=torch.float32, device=dev)
         if self.prior_precision is not None:
             self.prior_precision = torch.as_tensor(self.prior_precision, dtype=torch.float32, device=dev)
-        self._norm = (no_normalization(d, self.intercept_index, device=dev) if self.norm is None
-                      else self.norm.to(dev))
         self._zero = torch.zeros((), dtype=torch.float32, device=dev)
         self._tile_layouts = None
         self._tile_fingerprints = None
+        self._fe_plan = None
+        self._fe_range = None  # (pid, lo, hi, P) when sharded
+        self._fe_chunks = None
+        self._fe_dim = d
+        if self.fe_shard if self.fe_shard is not None else (sparse and fe_shard_enabled()):
+            self._init_fe_shard(sparse)
+        self._norm = (no_normalization(self._fe_dim, self.intercept_index, device=dev) if self.norm is None
+                      else self.norm.to(dev))
         want_tiling = (self.tile_sparse if self.tile_sparse is not None
                        else auto_tile_streaming(sparse, d, dev))
         if want_tiling and sparse:
             self._build_tile_layouts()
+
+    def _init_fe_shard(self, sparse: bool) -> None:
+        """Restrict this process to its feature range: the plan from the
+        global nonzero histogram and the process count (the same on every
+        process), the restricted chunks, and the regularizer's mask and
+        prior sliced to the range (disjoint ranges: the local quadratic
+        terms sum to the global one)."""
+        if not sparse:
+            raise ValueError("PHOTON_FE_SHARD requires sparse chunks (dense chunks fit one card by construction)")
+        if self.cross_process:
+            raise ValueError("PHOTON_FE_SHARD shards the feature axis over replicated rows; cross_process "
+                             "shards the rows: the two are exclusive on one objective")
+        if self.norm is not None:
+            raise NotImplementedError("PHOTON_FE_SHARD supports identity normalization only (norm=None): "
+                                      "normalization shifts couple all ranges through the margin correction")
+        plan, fe_range = _fe_plan(self.chunks, self.num_features)
+        pid, lo, hi, p = fe_range
+        self._fe_plan, self._fe_range, self._fe_dim = plan, fe_range, hi - lo
+        self._fe_chunks, _ = _fe_restrict_chunks(self.chunks, lo, hi)
+        self.reg_mask = self.reg_mask[lo:hi]
+        if self.prior_mean is not None:
+            self.prior_mean = self.prior_mean[lo:hi]
+        if self.prior_precision is not None:
+            self.prior_precision = self.prior_precision[lo:hi]
+        for name, value in (("ranges", p), ("width", hi - lo), ("nnz_local", plan.weights[pid]),
+                            ("nnz_balance", plan.balance)):
+            REGISTRY.gauge_set(f"fe_shard.{name}", float(value))
 
     def _build_tile_layouts(self) -> None:
         """Each sparse chunk's K3 layouts, built once through the
         process-wide cache (a rebuilt objective over the same data packs
         nothing) and kept on the card."""
         layouts, fps = [], []
-        for c in self.chunks:
+        for c in self._source():
             t0 = time.perf_counter()
             fp = tile_cache.structure_fingerprint(c["indices"], c["values"])
-            tb = tile_cache.tiled_layout_for(_host_sparse_batch(c, self.num_features),
-                                             fingerprint=(fp[0], self.num_features, fp[1], fp[2]),
-                                             device=self.device)
+            tb = tile_cache.tiled_layout_for(_host_sparse_batch(c, self._fe_dim),
+                                             fingerprint=(fp[0], self._fe_dim, fp[1], fp[2]),
+                                             device=self.device, fe_range=self._fe_range)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.layout_build_s.append(time.perf_counter() - t0)
@@ -256,7 +384,16 @@ class StreamingGLMObjective:
     def tiled(self) -> bool:
         return self._tile_layouts is not None
 
+    def _source(self) -> Sequence[dict]:
+        """The chunks the passes stream: the restricted ones when sharded."""
+        return self._fe_chunks if self._fe_chunks is not None else self.chunks
+
     def __setattr__(self, name, value):
+        if name == "chunks" and getattr(self, "_fe_chunks", None) is not None:
+            # the restricted chunks and their plan came from the previous
+            # chunks; re-deriving a plan mid-solve would not be lock step
+            raise ValueError("chunk swap under feature-range sharding (PHOTON_FE_SHARD); "
+                             "rebuild the StreamingGLMObjective")
         if name == "chunks" and getattr(self, "_tile_layouts", None) is not None:
             # the layouts were built from the previous chunks' indices and
             # values: a swap may change labels, offsets and weights only
@@ -281,8 +418,8 @@ class StreamingGLMObjective:
         if self._tile_layouts is not None:
             m, g = self._tile_layouts[i]
             return TiledSparseBatch(m=m, g=g, labels=cur["labels"], offsets=cur["offsets"],
-                                    weights=cur["weights"], num_features=self.num_features)
-        return _to_batch(cur, self.num_features)
+                                    weights=cur["weights"], num_features=self._fe_dim, fe_range=self._fe_range)
+        return _to_batch(cur, self._fe_dim)
 
     def _chunk_objective(self, b: Batch) -> GLMObjective:
         """One chunk's contracts with no regularization: the one-pass
@@ -301,7 +438,7 @@ class StreamingGLMObjective:
         for on the calling thread's stream. The chunks come through the
         chunk cache at every prefetch depth; depth 0 prepares each one on
         this thread."""
-        src, dev = self.chunks, self.device
+        src, dev = self._source(), self.device
         consumer = prefetch.consumer_stream(dev)
 
         def prepare(i):
@@ -311,16 +448,25 @@ class StreamingGLMObjective:
             prefetch.wait(cur, consumer)
             yield self._chunk_batch(cur, i)
 
-    def _stream(self, kernel: Callable[[GLMObjective], object], accumulate: Callable, init):
+    def _stream(self, kernel: Callable[[Batch, int], object], accumulate: Callable, init,
+                cost_label: str | None = None, cost: Callable[[Batch], Callable] | None = None):
+        """One pass: ``kernel(batch, chunk index)`` on every chunk in order,
+        folded by ``accumulate``. ``cost_label`` records the first chunk's
+        analytic work (``cost(batch)``) under device-cost capture."""
         acc = init
         if not self.chunks:  # a process without rows streams nothing
             return acc
         # one registry update a pass, none a chunk
         REGISTRY.counter_inc("stream.passes")
         REGISTRY.counter_inc("stream.chunks", len(self.chunks))
-        for b in self._batches():
-            acc = accumulate(acc, kernel(self._chunk_objective(b)))
+        for i, b in enumerate(self._batches()):
+            if i == 0 and cost_label is not None and devcost.capture_enabled():
+                devcost.capture(cost_label, (b.labels, self._fe_range), cost(b))
+            acc = accumulate(acc, kernel(b, i))
         return acc
+
+    def _each_chunk(self, contract: Callable[[GLMObjective], object]) -> Callable[[Batch, int], object]:
+        return lambda b, _: contract(self._chunk_objective(b))
 
     def _across_processes(self, *sums: Tensor) -> tuple[Tensor, ...]:
         """This process's pass sums summed over all processes when
@@ -344,34 +490,43 @@ class StreamingGLMObjective:
 
     # -- contracts ----------------------------------------------------------------
     def value(self, w) -> Tensor:
+        if self._fe_range is not None:
+            return self._fe_value(self._w(w))
         w = self._w(w)
-        total = self._stream(lambda o: o.value(w), lambda acc, v: acc + v, self._zero)
+        total = self._stream(self._each_chunk(lambda o: o.value(w)), lambda acc, v: acc + v, self._zero)
         (total,) = self._across_processes(total)
         return total + self._l2_term(w)
 
     def value_and_grad(self, w) -> tuple[Tensor, Tensor]:
+        if self._fe_range is not None:
+            return self._fe_value_and_grad(self._w(w))
         w = self._w(w)
         init = (self._zero, torch.zeros(self.num_features, dtype=torch.float32, device=self.device))
-        v, g = self._stream(lambda o: o.value_and_grad(w),
+        v, g = self._stream(self._each_chunk(lambda o: o.value_and_grad(w)),
                             lambda acc, out: (acc[0] + out[0], acc[1] + out[1]), init)
         v, g = self._across_processes(v, g)
         g = g + float(self.l2_weight) * self.reg_mask * reg_delta(w, self.prior_mean, self.prior_precision)
         return v + self._l2_term(w), g
 
     def hvp(self, w, v) -> Tensor:
-        """Gauss-Newton H·v, streamed: TRON's CG step costs one pass."""
+        """Gauss-Newton H·v, streamed: TRON's CG step costs one pass (two
+        sharded: the margins of w and v, then the contraction)."""
         w, v = self._w(w), self._w(v)
+        if self._fe_range is not None:
+            return self._fe_hvp(w, v)
         init = torch.zeros(self.num_features, dtype=torch.float32, device=self.device)
-        hv = self._stream(lambda o: o.hvp(w, v), lambda acc, out: acc + out, init)
+        hv = self._stream(self._each_chunk(lambda o: o.hvp(w, v)), lambda acc, out: acc + out, init)
         (hv,) = self._across_processes(hv)
         return hv + float(self.l2_weight) * self.reg_mask * reg_curvature(
             v, self.prior_mean, self.prior_precision) * v
 
     def hessian_diag(self, w) -> Tensor:
-        """diag(H), streamed: SIMPLE variances cost one pass."""
+        """diag(H), streamed: SIMPLE variances cost one pass (two sharded)."""
         w = self._w(w)
+        if self._fe_range is not None:
+            return self._fe_hessian_diag(w)
         init = torch.zeros(self.num_features, dtype=torch.float32, device=self.device)
-        diag = self._stream(lambda o: o.hessian_diag(w), lambda acc, out: acc + out, init)
+        diag = self._stream(self._each_chunk(lambda o: o.hessian_diag(w)), lambda acc, out: acc + out, init)
         (diag,) = self._across_processes(diag)
         return diag + float(self.l2_weight) * self.reg_mask * reg_curvature(
             diag, self.prior_mean, self.prior_precision)
@@ -380,6 +535,11 @@ class StreamingGLMObjective:
         """The full (d, d) Hessian, streamed: FULL variances cost one pass
         that sums each chunk's Zᵀ(d2·Z) (sparse chunks densified), bounded
         by ``FULL_HESSIAN_MAX_D``."""
+        if self._fe_range is not None:
+            raise NotImplementedError(
+                "FULL variance is not supported under feature-range sharding (PHOTON_FE_SHARD): the d×d "
+                "Hessian couples all ranges; use SIMPLE variances"
+            )
         if self._tile_layouts is not None:
             raise NotImplementedError(
                 "FULL variance is not supported with K3 streamed chunks (the raw per-chunk "
@@ -400,7 +560,7 @@ class StreamingGLMObjective:
                                  reg_mask=o.reg_mask, loss=o.loss)
             return o.hessian(w)
 
-        h = self._stream(chunk_hessian, lambda acc, out: acc + out, init)
+        h = self._stream(self._each_chunk(chunk_hessian), lambda acc, out: acc + out, init)
         (h,) = self._across_processes(h)
         return h + torch.diag(float(self.l2_weight) * self.reg_mask * reg_curvature(
             self.reg_mask, self.prior_mean, self.prior_precision))
@@ -409,12 +569,122 @@ class StreamingGLMObjective:
         """Margins X·w (no offsets) over this objective's chunks, trimmed to
         ``num_rows``, through the layouts the solve used when it has them.
         Under ``cross_process`` the rows are this process's own, as in the
-        reference: scoring rows needs no collective."""
+        reference: scoring rows needs no collective. Sharded, ``w`` is the
+        range segment and the scores are the combined margins, the same on
+        every process (a collective)."""
         w = self._w(w)
+        if self._fe_range is not None:
+            if not self.chunks:
+                return np.zeros(num_rows, np.float32)
+            return self._fe_combine_margins((w,))[0].cpu().numpy()[:num_rows]
         outs = [b.matvec(w) for b in self._batches()]
         if not outs:
             return np.zeros(num_rows, np.float32)
         return torch.cat(outs).cpu().numpy()[:num_rows]
+
+    # -- feature-range sharding (PHOTON_FE_SHARD) ---------------------------------
+    # Phase A: the range's partial margins, one reduction a pass (the L2
+    # value piggybacks); phase B: each chunk reads its rows of the combined
+    # margins. The data value is a full-data sum every process forms alike;
+    # gradients and curvature are this range's disjoint segment, exact by
+    # construction; the regularizer is elementwise over the local slices.
+    @property
+    def fe_active(self) -> bool:
+        """True when the objective's vectors are a feature-range segment."""
+        return self._fe_range is not None
+
+    def fe_slice(self, w_full) -> np.ndarray:
+        """This process's segment of a full-space vector (a warm start)."""
+        _, lo, hi, _ = self._fe_range
+        full = w_full.cpu().numpy() if isinstance(w_full, torch.Tensor) else np.asarray(w_full)
+        return full[lo:hi]
+
+    def fe_gather(self, w_local) -> np.ndarray:
+        """The full vector from every process's segment, in range order: a
+        concatenation, bitwise the segments (a collective; the segment
+        itself on one range)."""
+        from photon_ml_tpu_torch.parallel.multihost import allgather_concat
+
+        local = w_local.cpu().numpy() if isinstance(w_local, torch.Tensor) else np.asarray(w_local)
+        return local if self._fe_range[3] <= 1 else allgather_concat(local)
+
+    def fe_dot(self, a, b) -> float:
+        """The global inner product of two segments: a local float64 dot
+        summed over the processes in rank order, the same on every
+        process (the host solvers' line searches branch on it)."""
+        from photon_ml_tpu_torch.parallel.multihost import allreduce_sum_lockstep
+
+        return float(allreduce_sum_lockstep(np.asarray(np.dot(np.asarray(a, np.float64), np.asarray(b, np.float64)))))
+
+    def _fe_combine_margins(self, ws: tuple, l2_w: Tensor | None = None):
+        """Phase A: (len(ws), rows) combined margins on the device (and the
+        global L2 value when ``l2_w`` is given), the same bits on every
+        process."""
+        parts = self._stream(lambda b, _: torch.stack([b.matvec(w) for w in ws]),
+                             lambda acc, out: acc + [out], [], cost_label="streaming.fe_margins",
+                             cost=lambda b: _fe_cost(b, {"matvec": len(ws)}))
+        partial = torch.cat(parts, dim=1).cpu().numpy()
+        if l2_w is None:
+            return torch.as_tensor(np.asarray(_fe_allreduce(partial)), dtype=torch.float32, device=self.device)
+        m, l2 = _fe_allreduce(partial, self._l2_term(l2_w).cpu().numpy())
+        as_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=self.device)  # noqa: E731
+        return as_dev(m), as_dev(l2)
+
+    def _fe_rows(self, m: Tensor, b: Batch, i: int) -> Tensor:
+        """Chunk i's rows of combined margins ``m`` (chunks are uniform)."""
+        n = b.num_rows
+        return m[..., i * n:(i + 1) * n]
+
+    def _fe_value(self, w: Tensor) -> Tensor:
+        m, l2 = self._fe_combine_margins((w,), l2_w=w)
+
+        def chunk(b, i):
+            mi = self._fe_rows(m[0], b, i) + b.offsets
+            return torch.sum(_weighted(b, self.loss.value(mi, b.labels)))
+
+        total = self._stream(chunk, lambda acc, v: acc + v, self._zero,
+                             cost_label="streaming.fe_chunk_value", cost=lambda b: _fe_cost(b, {}))
+        return total + l2
+
+    def _fe_value_and_grad(self, w: Tensor) -> tuple[Tensor, Tensor]:
+        m, l2 = self._fe_combine_margins((w,), l2_w=w)
+
+        def chunk(b, i):
+            mi = self._fe_rows(m[0], b, i) + b.offsets
+            r = _weighted(b, self.loss.d1(mi, b.labels))
+            return torch.sum(_weighted(b, self.loss.value(mi, b.labels))), b.rmatvec(r)
+
+        init = (self._zero, torch.zeros(self._fe_dim, dtype=torch.float32, device=self.device))
+        v, g = self._stream(chunk, lambda acc, out: (acc[0] + out[0], acc[1] + out[1]), init,
+                            cost_label="streaming.fe_chunk_value_grad", cost=lambda b: _fe_cost(b, {"rmatvec": 1}))
+        g = g + float(self.l2_weight) * self.reg_mask * reg_delta(w, self.prior_mean, self.prior_precision)
+        return v + l2, g
+
+    def _fe_hvp(self, w: Tensor, v: Tensor) -> Tensor:
+        m2 = self._fe_combine_margins((w, v))  # both matvecs in one pass and one reduction
+
+        def chunk(b, i):
+            rows = self._fe_rows(m2, b, i)
+            return b.rmatvec(_weighted(b, self.loss.d2(rows[0] + b.offsets, b.labels)) * rows[1])
+
+        hv = self._stream(chunk, lambda acc, out: acc + out,
+                          torch.zeros(self._fe_dim, dtype=torch.float32, device=self.device),
+                          cost_label="streaming.fe_chunk_hvp", cost=lambda b: _fe_cost(b, {"rmatvec": 1}))
+        return hv + float(self.l2_weight) * self.reg_mask * reg_curvature(
+            v, self.prior_mean, self.prior_precision) * v
+
+    def _fe_hessian_diag(self, w: Tensor) -> Tensor:
+        m = self._fe_combine_margins((w,))
+
+        def chunk(b, i):
+            return b.rmatvec_sq(_weighted(b, self.loss.d2(self._fe_rows(m[0], b, i) + b.offsets, b.labels)))
+
+        diag = self._stream(chunk, lambda acc, out: acc + out,
+                            torch.zeros(self._fe_dim, dtype=torch.float32, device=self.device),
+                            cost_label="streaming.fe_chunk_hessian_diag",
+                            cost=lambda b: _fe_cost(b, {"rmatvec_sq": 1}))
+        return diag + float(self.l2_weight) * self.reg_mask * reg_curvature(
+            diag, self.prior_mean, self.prior_precision)
 
 
 # Fingerprints of recently scored chunks, by storage identity: the module
@@ -446,16 +716,26 @@ def stream_scores(chunks: Sequence[dict], w, num_rows: int, num_features: int | 
     ``device`` (CUDA unless the caller passes another), trimmed to
     ``num_rows``. ``tile_sparse=None`` applies ``auto_tile_streaming``:
     sparse chunks of that width score through K3 layouts from the
-    process-wide cache."""
+    process-wide cache. Under ``PHOTON_FE_SHARD`` (sparse chunks with
+    ``num_features``) ``w`` is the full vector, each process scores its
+    range, and the margins are summed over the processes: a collective,
+    the same scores on every process."""
     dev = resolve_device(device)
     if not chunks:
         return np.zeros(num_rows, np.float32)
     sparse = "indices" in chunks[0]
-    env = os.environ.get("PHOTON_FE_SHARD")
-    if sparse and num_features is not None and env not in (None, "", "0"):
-        raise _fe_shard_waits()
     tiled = sparse and (tile_sparse if tile_sparse is not None
                         else auto_tile_streaming(sparse, num_features, dev))
+    fe_range = None
+    if sparse and num_features is not None and fe_shard_enabled():
+        # sharded: this range's partial margins over the restricted chunks,
+        # summed over the processes as the objective sums them (the same
+        # plan, so the layouts the solve packed are found again)
+        _, fe_range = _fe_plan(chunks, num_features)
+        _, lo, hi, _ = fe_range
+        chunks, _ = _fe_restrict_chunks(chunks, lo, hi)
+        num_features = hi - lo
+        w = (w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w))[lo:hi]
     w = torch.as_tensor(w, dtype=torch.float32, device=dev)
     consumer = prefetch.consumer_stream(dev)
 
@@ -466,11 +746,15 @@ def stream_scores(chunks: Sequence[dict], w, num_rows: int, num_features: int | 
             return _to_batch(put, num_features), put
         shape, h_idx, h_val = _chunk_structure_fingerprint(c["indices"], c["values"])
         tb = tile_cache.tiled_layout_for(_host_sparse_batch(c, num_features),
-                                         fingerprint=(shape, num_features, h_idx, h_val), device=dev)
+                                         fingerprint=(shape, num_features, h_idx, h_val), device=dev,
+                                         fe_range=fe_range)
         return tb, None
 
     outs = []
     for b, put in prefetch.prefetch_iter(len(chunks), prepare):
         prefetch.wait(put, consumer)  # scoring stays on this thread, in chunk order
         outs.append(b.matvec(w))
-    return torch.cat(outs).cpu().numpy()[:num_rows]
+    scores = torch.cat(outs).cpu().numpy()
+    if fe_range is not None:
+        scores = np.asarray(_fe_allreduce(scores)).astype(np.float32, copy=False)
+    return scores[:num_rows]

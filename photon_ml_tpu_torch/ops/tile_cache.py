@@ -8,12 +8,14 @@ objective was rebuilt over the same data: each ``StreamingGLMObjective``
 of a λ sweep, a second objective over the same chunks, the module scorer.
 This cache keys the layouts by
 
-    (sparsity fingerprint, device, K3's constants)
+    (sparsity fingerprint, device, feature range, K3's constants)
 
 where the fingerprint hashes the nonzero structure (index and value bytes,
-shape, feature count) and the constants are the port's own, read at call
-time (``TILE_NNZ``, the int8 cell ``SLAB`` and the storage rung), so a
-change of them misses by key. Only the layouts are cached; labels, offsets
+shape, feature count), the feature range is ``PHOTON_FE_SHARD``'s
+(pid, lo, hi, P) of a column-restricted batch (None otherwise), and the
+constants are the port's own, read at call time (``TILE_NNZ``, the int8
+cell ``SLAB`` and the storage rung), so a re-plan, another P or a change
+of the constants misses by key. Only the layouts are cached; labels, offsets
 and weights always come from the caller's batch.
 
 Thread-safe: the prefetch workers look layouts up concurrently. The lock
@@ -100,19 +102,20 @@ def _layout_nbytes(tb) -> int:
     return sum(lay.stream_bytes() + sum(lay.tile_bytes()) for lay in (tb.m, tb.g))
 
 
-def tiled_layout_for(batch, fingerprint: tuple | None = None, device=None):
+def tiled_layout_for(batch, fingerprint: tuple | None = None, device=None, fe_range: tuple | None = None):
     """A ``TiledSparseBatch`` for the padded-sparse ``batch`` on ``device``
     (the batch's own by default), reusing the cached layouts when the same
-    structure was packed there under the current constants. The result
-    carries the caller's labels, offsets and weights. ``fingerprint`` lets a
-    caller that already hashed the chunk skip the second hash."""
+    structure was packed there for the same feature range under the
+    current constants. The result carries the caller's labels, offsets and
+    weights, and ``fe_range``. ``fingerprint`` lets a caller that already
+    hashed the chunk skip the second hash."""
     import photon_ml_tpu_torch.ops.sparse_tiled as st
     from photon_ml_tpu_torch.ops.batch import SparseBatch
 
     dev = torch.device(device) if device is not None else batch.device
     if fingerprint is None:
         fingerprint = sparsity_fingerprint(batch.indices, batch.values, batch.num_features)
-    key = (fingerprint, str(dev), tuned_constants())
+    key = (fingerprint, str(dev), fe_range, tuned_constants())
     with _lock:
         cached = _entries.get(key)
         if cached is not None:
@@ -125,7 +128,7 @@ def tiled_layout_for(batch, fingerprint: tuple | None = None, device=None):
             indices=batch.indices.to(dev), values=batch.values.to(dev),
             labels=batch.labels, offsets=batch.offsets, weights=batch.weights,
             num_features=batch.num_features,
-        ))
+        ), fe_range=fe_range)
         cached = (packed.m, packed.g)
         nbytes = _layout_nbytes(packed)
         global _total_bytes
@@ -150,5 +153,5 @@ def tiled_layout_for(batch, fingerprint: tuple | None = None, device=None):
     m, g = cached
     return st.TiledSparseBatch(
         m=m, g=g, labels=batch.labels, offsets=batch.offsets, weights=batch.weights,
-        num_features=batch.num_features,
+        num_features=batch.num_features, fe_range=fe_range,
     )

@@ -17,6 +17,12 @@ as in the reference; each evaluation reads the value and the gradient back
 once, as one float32 vector. Each iteration emits an ``optim_iter``
 telemetry record and each solve an ``optim_result`` (``obs``; no-ops with
 no sink).
+
+Over a feature-range-sharded objective (``PHOTON_FE_SHARD``) the vectors
+are this process's segment, and every dot, norm and L1 sum the loop
+branches on is the objective's global ``fe_dot``, the same on every
+process, so the processes' line searches stay in lock step. Other
+objectives keep plain local numpy, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,6 +39,21 @@ from photon_ml_tpu_torch.optim.common import ConvergenceReason, OptimizationResu
 _ARMIJO_C1 = 1e-4
 _BACKTRACK = 0.5
 _CURVATURE_EPS = 1e-10
+
+
+def global_dot(objective: Any):
+    """The objective's global inner product when its vectors are a
+    feature-range segment (``fe_active``), else None."""
+    return objective.fe_dot if getattr(objective, "fe_active", False) else None
+
+
+def scalar_reductions(objective: Any):
+    """(dot, norm) for the host loops: plain numpy on full-space vectors;
+    the global ``fe_dot`` and the norm through it on segments."""
+    fe_dot = global_dot(objective)
+    if fe_dot is None:
+        return (lambda a, b: float(np.dot(a, b))), (lambda x: float(np.linalg.norm(x)))
+    return fe_dot, (lambda x: float(np.sqrt(max(fe_dot(x, x), 0.0))))
 
 
 def objective_device(objective: Any) -> torch.device:
@@ -106,20 +127,24 @@ def host_lbfgs_minimize(
     algorithm = "owlqn" if use_l1 else "lbfgs"
     l1w = np.asarray(l1_weight, np.float64) if use_l1 else None
     passes = 0
+    dot, nrm = scalar_reductions(objective)
+    fe_dot = global_dot(objective)
+    l1sum = ((lambda w_: float(np.sum(l1w * np.abs(w_)))) if fe_dot is None
+             else (lambda w_: fe_dot(l1w, np.abs(w_))))
 
     def vg(w_):
         nonlocal passes
         passes += 1
         f_, g_ = read_value_and_grad(objective, w_, dev)
         if use_l1:
-            f_ += float(np.sum(l1w * np.abs(w_)))
+            f_ += l1sum(w_)
             pg_ = _pseudo_gradient(np.asarray(w_, np.float64), g_, l1w)
         else:
             pg_ = g_
         return f_, g_, pg_
 
     f, g, pg = vg(w)
-    g0_norm = float(np.linalg.norm(pg))
+    g0_norm = nrm(pg)
     loss_hist = np.full(max_iter + 1, np.nan)
     gnorm_hist = np.full(max_iter + 1, np.nan)
     loss_hist[0], gnorm_hist[0] = f, g0_norm
@@ -145,21 +170,21 @@ def host_lbfgs_minimize(
         alphas = np.zeros(history)
         for j in range(m):
             i = (count - 1 - j) % history
-            alphas[i] = rho[i] * float(np.dot(S[i], q))
+            alphas[i] = rho[i] * dot(S[i], q)
             q -= alphas[i] * Y[i]
         if m > 0:
             last = (count - 1) % history
-            gamma = float(np.dot(S[last], Y[last])) / max(float(np.dot(Y[last], Y[last])), 1e-300)
+            gamma = dot(S[last], Y[last]) / max(dot(Y[last], Y[last]), 1e-300)
             q *= gamma
         for j in range(m - 1, -1, -1):
             i = (count - 1 - j) % history
-            beta = rho[i] * float(np.dot(Y[i], q))
+            beta = rho[i] * dot(Y[i], q)
             q += (alphas[i] - beta) * S[i]
         p = -q
 
         if use_l1:
             p = np.where(p * (-pg) > 0.0, p, 0.0)  # the descent orthant
-        if float(np.dot(p, pg)) >= 0:  # not a descent direction: steepest descent
+        if dot(p, pg) >= 0:  # not a descent direction: steepest descent
             p = -pg
 
         if use_l1:
@@ -174,18 +199,18 @@ def host_lbfgs_minimize(
                 return w + t * p
 
         # the first iteration's identity Hessian guess: a unit-length step
-        step = 1.0 if count > 0 else 1.0 / max(1.0, float(np.linalg.norm(p)))
+        step = 1.0 if count > 0 else 1.0 / max(1.0, nrm(p))
 
         # Armijo backtracking on the actual (projected) step: the first
         # trial and up to max_ls refinements by the safeguarded quadratic
         # interpolation of optim/lbfgs.py, every trial a value-and-gradient
         # pass (its gradient is needed at acceptance anyway)
         accepted = False
-        slope0 = float(np.dot(pg, p))
+        slope0 = dot(pg, p)
         for _ in range(max_ls + 1):
             w_try = trial_point(step)
             f_try, g_try, pg_try = vg(w_try)
-            rhs = f + _ARMIJO_C1 * float(np.dot(pg, w_try - w))
+            rhs = f + _ARMIJO_C1 * dot(pg, w_try - w)
             if f_try <= rhs and not np.isnan(f_try):
                 accepted = True
                 break
@@ -199,7 +224,7 @@ def host_lbfgs_minimize(
             break
 
         s, y = w_try - w, g_try - g
-        sy = float(np.dot(s, y))
+        sy = dot(s, y)
         if sy > _CURVATURE_EPS:
             i = count % history
             S[i], Y[i], rho[i] = s, y, 1.0 / sy
@@ -207,7 +232,7 @@ def host_lbfgs_minimize(
         f_prev = f
         w, f, g, pg = w_try, f_try, g_try, pg_try
         it += 1
-        gn = float(np.linalg.norm(pg))
+        gn = nrm(pg)
         loss_hist[it], gnorm_hist[it] = f, gn
         # one record an iteration (a no-op with no sink)
         emit_event("optim_iter", algorithm=algorithm, it=it, loss=f, grad_norm=gn)
@@ -220,7 +245,7 @@ def host_lbfgs_minimize(
             reason = ConvergenceReason.OBJECTIVE_CONVERGED
             break
 
-    return result_record(w, f, np.linalg.norm(pg), it, reason, loss_hist, gnorm_hist, passes, dev, algorithm)
+    return result_record(w, f, nrm(pg), it, reason, loss_hist, gnorm_hist, passes, dev, algorithm)
 
 
 def host_owlqn_minimize(

@@ -8,7 +8,9 @@ the data through the card (``StreamingGLMObjective``): one pass per outer
 evaluation plus one per CG step, the reference's cost model. The
 recursion runs in float64 numpy on the host; each evaluation is read back
 once. Its telemetry is ``host_lbfgs``'s (``optim_iter`` records, then
-``optim_result``).
+``optim_result``). Over a feature-range-sharded objective every dot and
+norm is the global one (``host_lbfgs.scalar_reductions``), so the
+trust-region branches stay in lock step across processes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from photon_ml_tpu_torch.optim.host_lbfgs import (
     objective_device,
     read_value_and_grad,
     result_record,
+    scalar_reductions,
     to_device,
 )
 
@@ -34,26 +37,31 @@ _SIGMA1, _SIGMA2, _SIGMA3 = 0.25, 0.5, 4.0
 _CG_XI = 0.1
 
 
-def _trcg_host(hvp, g: np.ndarray, delta: float, max_cg: int):
+def _trcg_host(hvp, g: np.ndarray, delta: float, max_cg: int, dot=None, nrm=None):
     """Truncated CG for H·s = -g within ‖s‖ <= delta (each ``hvp`` one
-    streamed pass)."""
+    streamed pass). ``dot`` / ``nrm`` are the loop's scalar reductions
+    (plain numpy when None)."""
+    if dot is None:
+        dot = lambda a, b: float(a @ b)  # noqa: E731
+    if nrm is None:
+        nrm = lambda x: float(np.linalg.norm(x))  # noqa: E731
     s = np.zeros_like(g)
     r = -g
     d = r.copy()
-    rtr = float(r @ r)
-    cg_tol = _CG_XI * float(np.linalg.norm(g))
+    rtr = dot(r, r)
+    cg_tol = _CG_XI * nrm(g)
     for _ in range(max_cg):
         if np.sqrt(rtr) <= cg_tol:
             break
         hd = np.asarray(hvp(d), np.float64)
-        dhd = float(d @ hd)
+        dhd = dot(d, hd)
         alpha = rtr / max(dhd, 1e-30)
         s1 = s + alpha * d
-        if float(np.linalg.norm(s1)) > delta:
+        if nrm(s1) > delta:
             # the boundary: τ >= 0 with ‖s + τ·d‖ = delta
-            std = float(s @ d)
-            dd = float(d @ d)
-            ss = float(s @ s)
+            std = dot(s, d)
+            dd = dot(d, d)
+            ss = dot(s, s)
             rad = np.sqrt(max(std * std + dd * (delta * delta - ss), 0.0))
             if std >= 0.0:
                 tau = (delta * delta - ss) / max(std + rad, 1e-30)
@@ -64,7 +72,7 @@ def _trcg_host(hvp, g: np.ndarray, delta: float, max_cg: int):
             break
         s = s1
         r = r - alpha * hd
-        rtr_new = float(r @ r)
+        rtr_new = dot(r, r)
         beta = rtr_new / max(rtr, 1e-30)
         d = r + beta * d
         rtr = rtr_new
@@ -84,6 +92,7 @@ def host_tron_minimize(
     T = config.max_iterations
     tol = config.tolerance
     passes = 0
+    dot, nrm = scalar_reductions(objective)
 
     def vg(w_):
         nonlocal passes
@@ -97,7 +106,7 @@ def host_tron_minimize(
 
     w = np.asarray(torch.as_tensor(w0).cpu().numpy() if isinstance(w0, torch.Tensor) else w0, np.float64)
     f, g = vg(w)
-    g0_norm = float(np.linalg.norm(g))
+    g0_norm = nrm(g)
     loss_hist = np.full(T + 1, np.nan)
     gnorm_hist = np.full(T + 1, np.nan)
     loss_hist[0], gnorm_hist[0] = f, g0_norm
@@ -113,12 +122,12 @@ def host_tron_minimize(
         T = 0
 
     while it < T:
-        s, r = _trcg_host(lambda v: hvp(w, v), g, delta, config.max_cg_iterations)
-        gs = float(np.dot(g, s))
-        prered = -0.5 * (gs - float(np.dot(s, r)))
+        s, r = _trcg_host(lambda v: hvp(w, v), g, delta, config.max_cg_iterations, dot=dot, nrm=nrm)
+        gs = dot(g, s)
+        prered = -0.5 * (gs - dot(s, r))
         f_new, g_new = vg(w + s)
         actred = f - f_new
-        snorm = float(np.linalg.norm(s))
+        snorm = nrm(s)
 
         if it == 0:
             delta = min(delta, snorm)
@@ -136,7 +145,7 @@ def host_tron_minimize(
         accept = actred > _ETA0 * prered
         if accept:
             w, f, g = w + s, f_new, g_new
-        gn = float(np.linalg.norm(g))
+        gn = nrm(g)
         it += 1
         loss_hist[it], gnorm_hist[it] = f, gn
         # one record an iteration (a no-op with no sink)
@@ -153,4 +162,4 @@ def host_tron_minimize(
             reason = ConvergenceReason.OBJECTIVE_CONVERGED
             break
 
-    return result_record(w, f, np.linalg.norm(g), it, reason, loss_hist, gnorm_hist, passes, dev, "tron")
+    return result_record(w, f, nrm(g), it, reason, loss_hist, gnorm_hist, passes, dev, "tron")

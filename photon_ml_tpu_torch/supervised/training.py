@@ -359,7 +359,14 @@ def train_glm_streamed(
     iterate with a fresh history. ``cross_process`` trains over every
     process's chunks (this process's may be none): each pass's sums meet
     in ``allreduce_sum_host``, only process 0 reads and writes the
-    checkpoint, and every process adopts its view before the λ loop."""
+    checkpoint, and every process adopts its view before the λ loop.
+
+    Under ``PHOTON_FE_SHARD=1`` (sparse chunks, every process holding all
+    the rows) each process solves its feature range: the warm start is
+    sliced to it, SIMPLE variances and the model are gathered to the full
+    width (every process returns the same model), and validation scores
+    through the collective module scorer. ``checkpoint_dir`` and FULL
+    variances are refused there."""
     from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, stream_scores
 
     dev = resolve_device(device)
@@ -442,6 +449,17 @@ def train_glm_streamed(
         tile_sparse=False if variance_computation is VarianceComputationType.FULL else None,
         device=dev,
     )
+    fe = sobj.fe_active
+    if fe:
+        if ckpt is not None:
+            # checkpoints hold full-space iterates over the unsharded chunks'
+            # fingerprint; a per-range resume is not defined
+            raise NotImplementedError("checkpoint_dir with PHOTON_FE_SHARD=1 is not supported; "
+                                      "disable sharding or drop the checkpoint directory")
+        if variance_computation is VarianceComputationType.FULL:
+            raise NotImplementedError("FULL variances with PHOTON_FE_SHARD=1 are not supported; "
+                                      "use SIMPLE (the range's diagonal, gathered exactly)")
+        w = sobj.fe_slice(w)  # the solver iterates on this process's range
     for lam in sorted(regularization_weights):
         sobj.l2_weight = float(regularization.l2_weight(lam))
         done_w = ckpt.completed_model(lam) if ckpt is not None else None
@@ -464,6 +482,12 @@ def train_glm_streamed(
         # variances are not checkpointed: one more streamed pass at the solution
         w_solver = torch.as_tensor(np.asarray(w, np.float32), device=dev)
         variances = compute_variances(sobj, w_solver, variance_computation)
+        if fe:
+            # SIMPLE variances are elementwise in diag(H), whose range
+            # segments are disjoint: both gathers are concatenations
+            if variances is not None:
+                variances = torch.as_tensor(sobj.fe_gather(variances), device=dev)
+            w_solver = torch.as_tensor(sobj.fe_gather(np.asarray(w, np.float32)), device=dev)
         w_model = w_solver
         if normalization is not None:
             w_model, _ = normalization.model_to_original_space(w_solver)

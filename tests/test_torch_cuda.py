@@ -696,6 +696,35 @@ def test_streamed_launches_per_chunk(dev):
     assert st.launch_counts == {"matvec": 2 * n, "rmatvec": 2 * n, "rmatvec_sq": n}
 
 
+def test_streamed_fe_shard_one_range_is_bitwise_knob_off_on_the_card(dev, monkeypatch):
+    """``PHOTON_FE_SHARD=1`` on one process (one range) over tiled chunks on
+    the card: value and gradient, H·v, diag(H) and both scorers bitwise
+    the knob-off objective's, K3 launched once per chunk a phase (the
+    gradient phase without the knob-off diagonal's extra ``rmatvec``)."""
+    from photon_ml_tpu_torch.ops import streaming, tile_cache
+
+    chunks, d = _streamed_chunks("tiled")
+    rng = np.random.default_rng(2)
+    w, v = (0.1 * rng.normal(size=d)).astype(np.float32), rng.normal(size=d).astype(np.float32)
+    outs = {}
+    for knob in ("", "1"):
+        monkeypatch.setenv("PHOTON_FE_SHARD", knob)
+        tile_cache.clear()
+        obj = _streamed_objective(chunks, d, dev)
+        assert obj.fe_active is (knob == "1") and obj.tiled
+        st.reset_launch_counts()
+        val, g = obj.value_and_grad(w)
+        diag = obj.hessian_diag(w)
+        launches = dict(st.launch_counts)
+        outs[knob] = [val, g, obj.hvp(w, v), diag, torch.as_tensor(obj.stream_scores(w, 3000)),
+                      torch.as_tensor(streaming.stream_scores(chunks, w, 3000, num_features=d, device=dev))]
+        n = len(chunks)
+        assert launches == {"matvec": 2 * n, "rmatvec": n if knob else 2 * n, "rmatvec_sq": n}
+    for got, want in zip(outs["1"], outs[""]):
+        assert torch.equal(got.cpu(), want.cpu())
+    tile_cache.clear()
+
+
 def test_chunk_cache_tiers_on_the_card(dev, monkeypatch):
     """On the bf16 rung, under a budget of two chunks, the device tier evicts
     the cast features into the host tier, which a later pass hits; the

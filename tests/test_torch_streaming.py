@@ -200,18 +200,24 @@ def test_chunk_swap_guard():
 
 
 def test_what_waits_for_multi_gpu_raises(monkeypatch):
+    """Feature-range sharding runs (one range on a lone process, the knob
+    read strictly); only its combination with ``cross_process`` raises,
+    as the reference's does."""
     rng = np.random.default_rng(0)
     tch, _, d = _chunks("sparse", rng, TaskType.LOGISTIC_REGRESSION)
     loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="cross_process"):
         streaming.StreamingGLMObjective(tch, loss, d, fe_shard=True, cross_process=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        streaming.StreamingGLMObjective(tch, loss, d, fe_shard=True, device="cpu")
+    assert streaming.StreamingGLMObjective(tch, loss, d, fe_shard=True, device="cpu").fe_active
+    w = (0.1 * rng.normal(size=d)).astype(np.float32)
+    off = streaming.stream_scores(tch, w, 10, num_features=d, device="cpu")
     monkeypatch.setenv("PHOTON_FE_SHARD", "1")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    assert streaming.StreamingGLMObjective(tch, loss, d, device="cpu").fe_active
+    np.testing.assert_allclose(streaming.stream_scores(tch, w, 10, num_features=d, device="cpu"), off,
+                               rtol=1e-6, atol=1e-7)
+    monkeypatch.setenv("PHOTON_FE_SHARD", "on")
+    with pytest.raises(ValueError):
         streaming.StreamingGLMObjective(tch, loss, d, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        streaming.stream_scores(tch, np.zeros(d, np.float32), 10, num_features=d, device="cpu")
 
 
 def test_empty_chunks_and_cuda_default(monkeypatch):
