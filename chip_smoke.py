@@ -5,8 +5,8 @@ Newton, on the default lane solvers, compacted and fused, and in per-entity
 subspaces, capacity-class projections and random projections), its GAME train and score drivers on Avro files, read by
 the native columnar decoder, its out-of-core GLM and GAME paths (host
 data streamed through the card), and its data-parallel GLM and GAME
-paths (shards of the card, and two processes over gloo, in memory and
-out of core) on one CUDA card.
+paths (shards of the card, and two processes over gloo and the framed
+mesh, in memory and out of core, through a peer's loss) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -80,8 +80,8 @@ Run from the root of a checkout. It builds the CUDA kernels from
    then K1 alone at D's shape (2^18 x 65, float32, offsets not read), in
    both layouts, beside its plain version, the library yardstick and its
    bound;
-12. main_e: config E's widths at MovieLens-20M depth (20,000,263 rows,
-   138,493 users and 27,278 items with 8 features each, Zipf skew 1.5,
+12. main_e: config E's widths at MovieLens-10M depth (10,000,054 rows,
+   69,878 users and 10,677 items with 8 features each, Zipf skew 1.5,
    generated on the card): fixed (L-BFGS 20 iterations, no
    regularization), per-user and per-item random effects (damped Newton
    20 iterations, L2 1, capacity ladder merged toward 8 buckets at 0.5
@@ -89,7 +89,7 @@ Run from the root of a checkout. It builds the CUDA kernels from
    4 timed ones; wall per outer iteration and per coordinate visit, the
    buckets and their Newton iterations, K1's launches against the fixed
    effect's objective passes, train AUC >= 0.95 x the generating model's;
-   then K1 alone at that shape (20,000,263 x 65, float32, offsets read) as
+   then K1 alone at that shape (10,000,054 x 65, float32, offsets read) as
    at D's; K1 must take its tiles layout at both shapes;
 12b. main_e_sharded: main_e's batch and schedule over a data mesh of 4
    shards of the card (the fixed effect row-sharded, K1 once per shard a
@@ -174,12 +174,12 @@ Run from the root of a checkout. It builds the CUDA kernels from
    1e-5 x the largest score;
 15c. main_e_streamed: main_e's rows copied to host numpy and trained out
    of core by ``StreamedGameTrainer`` (2 outer iterations, chunks of 2^20
-   rows: 20, the last 77,319 rows and padding; the fixed effect streamed
+   rows: 10, the last 562,870 rows and padding; the fixed effect streamed
    through K1, the random effects' buckets gathered on the host into pinned
    memory every visit), against an in-memory ``GameEstimator`` fit of the
    same configuration on the same rows: |dAUC| <= 0.005 and relative
    d(training log-loss) <= 1e-3, train AUC >= 0.95 x the generating
-   model's, K1's launches = 20 x the fixed effect's value-and-gradient
+   model's, K1's launches = 10 x the fixed effect's value-and-gradient
    passes on its tiles layout and nothing else launched, the second fixed
    visit missing the chunk cache once a chunk (its offsets; X stays
    resident); wall per outer iteration and per visit, each visit's cache
@@ -209,8 +209,9 @@ Run from the root of a checkout. It builds the CUDA kernels from
    rows (LPT over the allreduced per-entity rows, the global capacity
    ladder), the offsets exchange issued before each random-effect visit's
    solve and joined by its first bucket gather, the scores exchange riding
-   under the diagnostics gather, both on the exchange worker's own gloo
-   group. The ranks' models bitwise equal; the random effects against
+   under the diagnostics gather, both on the exchange worker over the
+   framed mesh (``multihost.exchange_rows_async``). The ranks' models
+   bitwise equal; the random effects against
    15d's within rtol 5e-3 / atol 1e-3 (15d's owners bucket their entities
    on capacity ladders of their own rows, so lanes pad to other widths);
    against the one-process fit |dAUC| <= 0.005; K1 = the process's chunks
@@ -229,6 +230,26 @@ Run from the root of a checkout. It builds the CUDA kernels from
    equal, the split arm within 15e's tolerance of the twin (rtol 5e-3 /
    atol 1e-3; another owner map), K1 = chunks x passes; per arm the wall
    per outer iteration and the placement and device gauges;
+15e''. main_faults: peer loss and recovery (``run_faults``), config E at
+   bench depth in pairs of children on the card with CRC, 2 retries, a 3 s
+   mesh timeout and a 2 s roll call (``FAULT_ENV``) and PHOTON_RE_SHARD=1:
+   (1) the ring on a healthy group, a third arm of 15d / 15e's children
+   (15e's fit with the fault knobs armed and no plan): bitwise 15e's, the
+   ranks alike, no recovery counter, K1 = chunks x passes, each visit's
+   exchange seconds and bytes on the mesh; its checkpoint after outer
+   iteration 0 is the anchor; (2) the streamed peer kill: process 1
+   killed at its first offsets send of iteration 1 (exit 137, the only
+   death allowed); the survivor resumes at (1, 0) with ``fleet.peer_lost``,
+   ``fleet.recoveries`` and ``p2p.giveups`` each 1, bitwise one process's
+   fit over its rows resumed from the anchor (run here); (3) the in-memory
+   descent (fixed effect whole on each process, random effects owned,
+   ``PHOTON_RE_COMBINE=segments``, ``PHOTON_DESCENT_DEGRADE=1``) resumed
+   for a second outer iteration with process 1 killed at its first
+   owner-segment combine send: ``run`` returns on the survivor with
+   ``fleet.degraded_descents`` 1, bitwise one process's descent resumed
+   from the same anchor here. Each pair has a time limit of its own; it
+   prints the seconds from the kill to the roll call's end and on to the
+   resumed visit (the re-run iteration's end);
 15f. re_skew: bench.py's R_re_skew (1024 entities of 32 rows, d = 8, one
    in 16 ill-conditioned, 200 iterations at 1e-7) through
    ``train_random_effects`` on L-BFGS, OWL-QN and TRON over
@@ -412,7 +433,7 @@ Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
 E on L-BFGS, E projected, the GAME drivers, the six out-of-core
 phases, the eight data-parallel ones, the five out-of-core ones across
-processes and main_telemetry, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
+processes, main_faults and main_telemetry, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
 ``at_streamed_game_chunk_shape`` K1's at main_e_streamed's), the line
@@ -462,7 +483,9 @@ from photon_ml_tpu_torch.evaluation import (
     rmse,
 )
 from photon_ml_tpu_torch.game import coordinate as game_coordinate
-from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
+from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
+from photon_ml_tpu_torch.checkpoint import peek_fingerprint
+from photon_ml_tpu_torch.game.descent import CoordinateDescent
 from photon_ml_tpu_torch.game.data import (
     DenseFeatures,
     EntityBuckets,
@@ -497,12 +520,15 @@ from photon_ml_tpu_torch.optim import lbfgs_minimize, select_minimize_fn
 from photon_ml_tpu_torch.parallel import DistributedTrainer, data_mesh, sharded_objective
 from photon_ml_tpu_torch.parallel.distributed import reduction_stats
 from photon_ml_tpu_torch.parallel.mesh import process_mesh
+from photon_ml_tpu_torch.parallel import faults
+from photon_ml_tpu_torch.parallel import multihost as mh
 from photon_ml_tpu_torch.parallel.multihost import (
     allreduce_sum_host,
     collective_stats,
     initialize_multihost,
     reset_collective_stats,
     shutdown_multihost,
+    sync_processes,
 )
 from photon_ml_tpu_torch.parallel.placement import plan_entity_placement, plan_from_owner
 from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
@@ -543,11 +569,13 @@ K4_REPLACES = "photon_ml_tpu/ops/sparse_tiled.py:654 (_tile_kernel, launched at 
 # config A2 (bench.py bench_a2_sparse_highdim): n, d, nonzeros a row
 A2 = (1 << 19, 1 << 17, 32)
 # GAME (bench.py _game_setup): 64 fixed features and an intercept; config E's
-# effects at bench.py's depth and at MovieLens-20M's (GroupLens: 20,000,263
-# ratings, 138,493 users, 27,278 movies)
+# effects at bench.py's depth and at MovieLens-10M's (GroupLens: 10,000,054
+# ratings, 69,878 users, 10,677 movies), the E chain's depth since
+# main_faults joined: at MovieLens-20M's (20,000,263 ratings, 138,493 users,
+# 27,278 movies) the smoke passed its time limit on a slower machine
 D_FIXED = 64
 E_BENCH = (1 << 18, {"userId": (20_000, 8), "itemId": (4_000, 8)})
-E_ML20M = (20_000_263, {"userId": (138_493, 8), "itemId": (27_278, 8)})
+E_ML10M = (10_000_054, {"userId": (69_878, 8), "itemId": (10_677, 8)})
 
 
 _START = time.perf_counter()
@@ -1548,11 +1576,11 @@ def k1_at(X, offsets, labels, dev) -> dict:
 
 
 def run_e(dev) -> tuple[dict, object, object, GameModel]:
-    """Config E's widths at MovieLens-20M depth: 6 outer iterations in one
+    """Config E's widths at MovieLens-10M depth: 6 outer iterations in one
     fit, the first 2 a warm-up and the last 4 timed. Returns the record,
     the generated batch and data (``run_e_lbfgs`` reuses them) and the
     model (``run_e_sharded`` is held to it)."""
-    n, effects = E_ML20M
+    n, effects = E_ML10M
     batch, data = game_problem(dev, n, effects, seed=4)
     torch.cuda.reset_peak_memory_stats(dev)
     fit = fit_game(batch, game_config(effects, 6), dev)
@@ -1596,7 +1624,7 @@ def run_e_lbfgs(dev, batch, data, newton: dict) -> tuple[dict, GameModel]:
     ``main_e``'s Newton fit (``newton``), which solves the same L2
     problems. Returns the record and the model (``run_e_lbfgs_compact``
     holds its knob-on fit to it)."""
-    n, effects = E_ML20M
+    n, effects = E_ML10M
     fit = fit_lane_counted(batch, game_config(effects, 6, re_solver="LBFGS"), dev)
     rec = dict(_game_record(fit, warmup=2), n=n, effects={k: list(v) for k, v in effects.items()},
                buckets=bucket_report(fit, batch, effects, solver="lbfgs"),
@@ -1652,7 +1680,7 @@ def run_e_lbfgs_compact(dev, batch, data, lbfgs: dict, lbfgs_model: GameModel) -
     re_skew's witness); the lane solves' launches, executed and useful
     entity iterations and read-backs a visit of either arm, wall per outer
     iteration and peak device bytes."""
-    n, effects = E_ML20M
+    n, effects = E_ML10M
     config = game_config(effects, 6, re_solver="LBFGS")
     with environment(SCHEDULE_KNOBS):
         fit = fit_lane_counted(batch, config, dev)
@@ -1833,7 +1861,7 @@ def run_e_streamed_compact(dev) -> dict:
 
 
 RE_PROJECT_D, RE_PROJECT_DIM = 32, 16  # bench.py's projection recipe (MULTICHIP_R11_D, _DIM)
-RE_PROJECT_E = E_ML20M[1]["userId"][0]  # MovieLens-20M's users
+RE_PROJECT_E = 138_493  # MovieLens-20M's users
 
 
 def re_project_dataset(E: int) -> dict:
@@ -2172,7 +2200,7 @@ def agreement_e_solvers(dev, newton: dict) -> tuple[dict, dict]:
 # config E at its bench depth (64 global features and an intercept, 8 per user
 # and 8 per item, 20,000 users and 4,000 items, Zipf 1.5), with a quarter as
 # many validation rows, in Avro part files: the Python codec, not the card,
-# keeps the depth below ML-20M's
+# keeps the depth below ML-10M's
 GAME_CLI = dict(train=E_BENCH[0], val=E_BENCH[0] // 4, parts=2, effects=E_BENCH[1])
 GAME_CLI_BAGS = {"userId": "userFeatures", "itemId": "itemFeatures"}
 GAME_CLI_EVALUATORS = ("AUC", "MULTI_AUC(userId)")
@@ -2723,10 +2751,10 @@ def run_game_cli_full(dev, data: GameCliData, glm_prior: str) -> dict:
 
 
 def run_e_projected(dev, batch, data, lbfgs: dict) -> dict:
-    """``main_e_lbfgs``'s batch and schedule (MovieLens-20M depth, L-BFGS
+    """``main_e_lbfgs``'s batch and schedule (MovieLens-10M depth, L-BFGS
     random effects, 2 warm-up and 4 timed outer iterations) with each user
     in its subspace and the items over a random projection to 4 columns."""
-    n, effects = E_ML20M
+    n, effects = E_ML10M
     config = game_config(effects, 6, re_solver="LBFGS")
     config = config.replace(random_effect_coordinates={
         cid: c.replace(**PROJECTIONS[c.random_effect_type])
@@ -2754,7 +2782,7 @@ def run_e_projected(dev, batch, data, lbfgs: dict) -> dict:
 # X on the host in 16 chunks of 2^18 rows (512 MiB each)
 F_ROWS, F_D, F_CHUNK = 1 << 22, 512, 1 << 18
 B_CHUNK, A2_CHUNK, GLM_CLI_CHUNK = 1 << 17, 1 << 16, 1 << 15
-E_STREAM_CHUNK = 1 << 20  # main_e_streamed: 20 chunks, the last 77,319 rows and padding
+E_STREAM_CHUNK = 1 << 20  # main_e_streamed: 10 chunks, the last 562,870 rows and padding
 STREAMED_RESUME_LINE = "resuming streamed descent at outer iteration 2, coordinate index 0"
 GLM_CLI_WEIGHTS = ("0.1", "1", "10")
 
@@ -3438,22 +3466,27 @@ def run_a2_sharded(batch, a2: dict, dev) -> dict:
                 rel_d_objective_vs_main_a2=abs(float(res.value) - a2["objective"]) / abs(a2["objective"]))
 
 
+_PORTS_GIVEN: set[int] = set()
+
+
 def _free_port() -> int:
+    """A free loopback port this run has not handed out before: groups that
+    start at once (main_faults' pairs) must not meet on one store."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if port not in _PORTS_GIVEN:
+            _PORTS_GIVEN.add(port)
+            return port
 
 
-def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None, n: int = 2,
-                 ports: int = 1) -> list[dict]:
-    """``n`` processes of this script in ``--child`` mode, one gloo group on
-    a fresh loopback port (``ports`` fresh ports for children that form a
-    group several times, in the spec's ``ports``); each writes
-    ``work/rank<r>.json``. The kernels are built by the parent before
-    (``_cuda.load``), so no two children build at once. A child that fails
-    or outlives ``CHILD_TIMEOUT_S`` (then killed) fails the phase."""
+def start_children(mode: str, work: str, args: dict, dev, env: dict | None = None, n: int = 2,
+                   ports: int = 1, allow_kill: tuple = (), timeout_s: float = CHILD_TIMEOUT_S) -> dict:
+    """``run_children``'s first half: the children started, not waited on
+    (their limit counts from here). ``join_children`` waits for them."""
     _cuda.load()
     native_build.build()
     os.makedirs(work, exist_ok=True)
@@ -3465,26 +3498,50 @@ def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None,
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", mode, str(r), spec],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=child_env)
              for r in range(n)]
-    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    return dict(mode=mode, work=work, n=n, procs=procs, allow_kill=allow_kill, timeout_s=timeout_s,
+                deadline=time.monotonic() + timeout_s)
+
+
+def join_children(kids: dict) -> list[dict]:
+    """Wait for ``start_children``'s children and return their records
+    (``run_children``'s rules)."""
+    mode, procs, allow_kill = kids["mode"], kids["procs"], kids["allow_kill"]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0)))
+            outs.append(p.communicate(timeout=max(kids["deadline"] - time.monotonic(), 1.0)))
     except subprocess.TimeoutExpired:
-        raise AssertionError(f"{mode}: a child outlived {CHILD_TIMEOUT_S} s and was killed") from None
+        raise AssertionError(f"{mode}: a child outlived {kids['timeout_s']} s and was killed") from None
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
     for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"{mode}: child {r} exited {p.returncode}:\n{err[-4000:]}")
+        want = 137 if r in allow_kill else 0
+        if p.returncode != want:
+            raise AssertionError(f"{mode}: child {r} exited {p.returncode} (expected {want}):\n{err[-4000:]}")
     results = []
-    for r in range(n):
-        with open(os.path.join(work, f"rank{r}.json")) as f:
+    for r in range(kids["n"]):
+        if r in allow_kill:
+            results.append(None)
+            continue
+        with open(os.path.join(kids["work"], f"rank{r}.json")) as f:
             results.append(json.load(f))
     return results
+
+
+def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None, n: int = 2,
+                 ports: int = 1, allow_kill: tuple = (), timeout_s: float = CHILD_TIMEOUT_S) -> list[dict]:
+    """``n`` processes of this script in ``--child`` mode, one gloo group on
+    a fresh loopback port (``ports`` fresh ports for children that form a
+    group several times, in the spec's ``ports``); each writes
+    ``work/rank<r>.json``. The kernels are built by the parent before
+    (``_cuda.load``), so no two children build at once. A child that fails
+    or outlives ``timeout_s`` (then killed) fails the phase; a child in
+    ``allow_kill`` (a fault plan's kill) must exit 137 instead, and has no
+    record (None in its place)."""
+    return join_children(start_children(mode, work, args, dev, env, n, ports, allow_kill, timeout_s))
 
 
 def placement_balances(trainer: StreamedGameTrainer, host: StreamedGameData, effects: dict,
@@ -3686,9 +3743,17 @@ def _child(mode: str, rank: int, spec: dict) -> int:
             reset_collective_stats()
             REGISTRY.reset("re_shard.")
             REGISTRY.reset("re_exchange.")
+            REGISTRY.reset("p2p.")
+            REGISTRY.reset("fleet.")
+            mh._reset_host_links()  # each arm builds its mesh afresh (its CRC negotiated anew)
             rec = {}
+            kw = {}
+            if arm == "armed":  # main_faults' healthy ring, which checkpoints its anchor
+                kw = dict(checkpoint_dir=os.path.join(work, "ckpt-armed"),
+                          checkpoint_every_n_visits=len(effects) + 1, sharded_checkpoints=False,
+                          on_log=_anchor_logger(rec, os.path.join(work, "ckpt-armed"), spec["anchor_dir"], rank))
             with environment(env):
-                fit = fit_streamed(host, game_config(effects, 2), dev, multihost=True)
+                fit = fit_streamed(host, game_config(effects, 2), dev, multihost=True, **kw)
                 if env.get("PHOTON_RE_SHARD") == "1":
                     rec["re_shard"] = dict(placement=placement_balances(fit["trainer"], host, effects,
                                                                         spec["processes"]),
@@ -3703,7 +3768,9 @@ def _child(mode: str, rank: int, spec: dict) -> int:
                        fixed_objective_passes=fit["fixed_objective_passes"],
                        fixed_objective=fit["info"]["fixed"].final_loss,
                        exchange_totals=fit["trainer"].exchange_totals, collectives=dict(collective_stats),
-                       peak_device_bytes=peak, host=host_memory())
+                       peak_device_bytes=peak, host=host_memory(),
+                       counters={k: v["value"] for k, v in (REGISTRY.snapshot("p2p.")["counters"]
+                                                            | REGISTRY.snapshot("fleet.")["counters"]).items()})
             out["arms"][arm] = rec
             del fit, margins
             prefetch.clear_cache()
@@ -3738,11 +3805,70 @@ def _child(mode: str, rank: int, spec: dict) -> int:
             if rank == 0 and len(phases) == 1:  # the first run's models, for the rerun's check
                 shutil.copytree(os.path.join(work, "out0", "best"), os.path.join(work, "first-best"))
         out["phases"] = phases
+    elif mode == "faults_kill":
+        n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
+        E_STREAM_CHUNK = spec["chunk_rows"]
+        batch, _ = game_problem(dev, n, effects, seed=4)
+        per = n // spec["processes"]
+        host = streamed_game_data(batch, slice(rank * per, (rank + 1) * per))
+        del batch
+        torch.cuda.empty_cache()
+        times = _stamp_fault_events(work, rank)
+        initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+
+        def on_log(msg):
+            if msg.startswith("resuming streamed descent"):
+                times.setdefault("resume_t", time.time())
+
+        fit = fit_streamed(host, game_config(effects, 2), dev, on_log=on_log, multihost=True,
+                           checkpoint_dir=os.path.join(work, "ckpt"), checkpoint_every_n_visits=len(effects) + 1,
+                           sharded_checkpoints=False)
+        np.savez(os.path.join(work, f"kill-rank{rank}.npz"),
+                 **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["model"].models.items()})
+        counters = REGISTRY.snapshot("p2p.")["counters"] | REGISTRY.snapshot("fleet.")["counters"]
+        out.update(resumed_from=fit["trainer"].resumed_from, launches=fit["launches"], wall_s=fit["wall_s"],
+                   counters={k: v["value"] for k, v in counters.items()}, times=dict(times))
+    elif mode == "faults_descent":
+        n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
+        batch, _ = game_problem(dev, n, effects, seed=4)  # every row on every process (in memory)
+        times = _stamp_fault_events(work, rank)
+        initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+        mesh = process_mesh(1, devices=[dev])
+        anchor, chaos = os.path.join(work, "anchor"), os.path.join(work, "chaos")
+        descent, seq = degradable_descent(batch, effects, mesh)
+        descent.run(seq, 1, checkpoint_dir=anchor, checkpoint_fingerprint="e-descent-p2")
+        if rank == 0:
+            shutil.copytree(anchor, chaos)
+        sync_processes("faults-descent-anchor")
+        # the resumed run, with process 1's first owner-segment combine send killed
+        mh._reset_host_links()
+        faults.reset()
+        os.environ["PHOTON_FAULT_PLAN"] = json.dumps(spec["plan"])
+        REGISTRY.reset("p2p.")
+        REGISTRY.reset("fleet.")
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        descent, seq = degradable_descent(batch, effects, mesh)
+        t0 = time.perf_counter()
+        res = descent.run(seq, 2, checkpoint_dir=chaos, checkpoint_fingerprint="e-descent-p2")
+        torch.cuda.synchronize()
+        times["end_t"] = time.time()
+        np.savez(os.path.join(work, f"chaos-rank{rank}.npz"),
+                 **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in res.model.models.items()})
+        counters = REGISTRY.snapshot("p2p.")["counters"] | REGISTRY.snapshot("fleet.")["counters"]
+        out.update(iterations_recorded=len(res.trackers["fixed"]), wall_s=time.perf_counter() - t0,
+                   launches=launch_counts(), counters={k: v["value"] for k, v in counters.items()},
+                   fixed_objective_passes=sum(t.objective_passes for t in res.trackers["fixed"]),
+                   times=dict(times))
     else:
         raise ValueError(f"unknown child mode {mode!r}")
     shutdown_multihost()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+    if mode.startswith("faults_"):
+        # a degraded survivor leaves at once: nothing may wait on the dead peer at exit
+        sys.stdout.flush()
+        os._exit(0)
     return 0
 
 
@@ -3850,7 +3976,7 @@ def run_e_sharded(dev, batch, data, e_rec: dict, e_model: GameModel) -> tuple[di
     over the shards; then the same fit again, which must be bitwise equal.
     Held to main_e's fit (``e_model``). Returns the record and the model
     (main_e_multihost is held to it)."""
-    n, effects = E_ML20M
+    n, effects = E_ML10M
     mesh = data_mesh(E_SHARDS)
     fits = []
     for _ in range(2):
@@ -3893,7 +4019,7 @@ def run_e_multihost(dev, e_rec: dict, sharded: GameModel, card: str) -> dict:
     work = tempfile.mkdtemp(prefix="_e_multihost-", dir=ROOT)
     try:
         t0 = time.perf_counter()
-        kids = run_children("e_multihost", work, {"local_shards": E_SHARDS // 2, "shape": E_ML20M}, dev)
+        kids = run_children("e_multihost", work, {"local_shards": E_SHARDS // 2, "shape": E_ML10M}, dev)
         wall = time.perf_counter() - t0
         arrays = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(2)]
     finally:
@@ -3947,7 +4073,7 @@ def run_e_multihost_re_shard(dev, e_multi: dict, card: str) -> dict:
         launches={k: sum(c["launches"][k] for c in kids) for k in launch_counts()},
         timed_wall_s_per_outer_iteration=max(c["timed_wall_s_per_outer_iteration"] for c in kids),
         timed_wall_s_per_visit=[c["timed_wall_s_per_visit"] for c in kids],
-        main_e_multihost_n=E_ML20M[0],
+        main_e_multihost_n=E_ML10M[0],
         main_e_multihost_timed_wall_s_per_outer_iteration=e_multi["timed_wall_s_per_outer_iteration"],
         exchange_per_visit=[c["exchange_per_visit"] for c in kids], re_shard=[c["re_shard"] for c in kids],
         peak_device_bytes=[c["peak_device_bytes"] for c in kids], quality=kids[0]["quality"],
@@ -4190,13 +4316,16 @@ def score_streamed(model: GameModel, data: StreamedGameData, dev, rows: int = E_
     return torch.cat(out)
 
 
-def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mark=None, **trainer_kw) -> dict:
+def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mark=None, on_log=None,
+                 before_fit=None, **trainer_kw) -> dict:
     """``StreamedGameTrainer.fit`` (chunks of ``E_STREAM_CHUNK`` rows, and
     ``trainer_kw``) with every kernel's launch count, the chunk cache and
     the copy counters zeroed just before and read just after. The trainer's
     logger marks the end of every visit (each mark synchronizes the card,
-    then calls ``on_mark``); per visit: wall, scalar read-backs, cache hits
-    and misses, bytes copied, and the trainer's own visit record."""
+    then calls ``on_mark``, and ``on_log`` with the line); per visit: wall,
+    scalar read-backs, cache hits and misses, bytes copied, and the
+    trainer's own visit record. ``before_fit(trainer)`` runs before the
+    fit (a recovery's resume fingerprints)."""
     marks = []
 
     def mark(msg: str) -> None:
@@ -4204,6 +4333,8 @@ def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mar
         marks.append((time.perf_counter(), msg, reads[0], prefetch.cache_stats(), dict(prefetch.copied)))
         if on_mark is not None:
             on_mark()
+        if on_log is not None:
+            on_log(msg)
 
     prefetch.clear_cache()
     fused.reset_launch_counts()
@@ -4218,6 +4349,8 @@ def fit_streamed(data: StreamedGameData, config: GameTrainingConfig, dev, on_mar
     with counting_readbacks() as reads, environment({"PHOTON_RE_ITER_ACCOUNTING": "1"}):
         trainer = StreamedGameTrainer(config, chunk_rows=E_STREAM_CHUNK, intercept_indices={"global": D_FIXED},
                                       logger=mark, device=dev, **trainer_kw)
+        if before_fit is not None:
+            before_fit(trainer)
         model, info = trainer.fit(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4267,18 +4400,18 @@ def e_streamed_reference(dev, batch, data) -> tuple[StreamedGameData, dict]:
     t0 = time.perf_counter()
     host = streamed_game_data(batch)
     to_host_s = time.perf_counter() - t0
-    mem = fit_game(batch, game_config(E_ML20M[1], 2), dev)
+    mem = fit_game(batch, game_config(E_ML10M[1], 2), dev)
     return host, dict(_game_record(mem), **game_quality(mem, batch, data), to_host_s=to_host_s)
 
 
 def run_e_streamed(dev, host: StreamedGameData, mem: dict, e_rec: dict, card: str) -> dict:
-    """main_e_streamed: config E at MovieLens-20M depth (main_e's rows, seed
+    """main_e_streamed: config E at MovieLens-10M depth (main_e's rows, seed
     4) out of core from host numpy: 2 outer iterations of
     ``StreamedGameTrainer`` in chunks of 2^20 rows (the fixed effect
     streamed through K1, the random effects' buckets gathered on the host
     every visit), held to the in-memory fit ``mem`` of the same
     configuration on the same rows (``e_streamed_reference``)."""
-    n, effects = E_ML20M
+    n, effects = E_ML10M
     config = game_config(effects, 2)
     chunks = -(-n // E_STREAM_CHUNK)
     rec = dict(card=card, n=n, effects={k: list(v) for k, v in effects.items()}, chunk_rows=E_STREAM_CHUNK,
@@ -4339,6 +4472,218 @@ def _visit_exchanges(visits: list) -> list:
             for v in visits if "offsets_exchange_s" in v]
 
 
+# -- main_faults: peer loss and recovery (ROADMAP 12d-v-a) -----------------------------
+# the fault knobs of every fault child (the drills' timing: detection in
+# retries x (backoff + timeout), a roll call of 2 s)
+FAULT_ENV = {"PHOTON_P2P_CRC": "1", "PHOTON_P2P_RETRIES": "2", "PHOTON_P2P_BACKOFF_S": "0.1",
+             "PHOTON_P2P_TIMEOUT_S": "3", "PHOTON_ROLLCALL_WINDOW_S": "2"}
+FAULT_LAST_COORDINATE = f"per_{list(E_BENCH[1])[-1]}"
+FAULT_CHILD_TIMEOUT_S = 150  # each fault child pair's own limit
+# the two fault pairs run at once: two host threads a child keep the four
+# children and this process inside the host's cores, so that no peer's
+# compute outlasts the mesh's 3 s timeout and passes for a loss
+FAULT_CHILD_THREADS = {"OMP_NUM_THREADS": "2"}
+
+
+def _stamp_fault_events(work: str, rank: int) -> dict:
+    """Wall-clock stamps of the recovery's steps in this process (the
+    processes share the host's clock): a ``kill`` spec's firing, written to
+    ``work/kill.json`` before the process dies, and, on a survivor, the
+    start of the loss's confirmation and the roll call's end. The returned
+    dict fills in place."""
+    times: dict = {}
+    apply, confirm, roll = faults.apply_send_fault, mh.confirm_peer_loss, mh.roll_call
+
+    def stamped_apply(spec, frames, sock):
+        if spec.op == "kill":
+            with open(os.path.join(work, "kill.json"), "w") as f:
+                json.dump({"t": time.time(), "rank": rank, "tag": spec.tag, "seq": spec.seq}, f)
+        return apply(spec, frames, sock)
+
+    def stamped_confirm(err):
+        times.setdefault("confirm_t", time.time())
+        return confirm(err)
+
+    def stamped_roll(*a, **k):
+        out = roll(*a, **k)
+        times.setdefault("rollcall_end_t", time.time())
+        return out
+
+    faults.apply_send_fault, mh.confirm_peer_loss, mh.roll_call = stamped_apply, stamped_confirm, stamped_roll
+    return times
+
+
+def _anchor_logger(rec: dict, ckpt: str, anchor_dir: str, rank: int):
+    """The trainer log hook of main_faults' healthy armed arm: at the end of
+    outer iteration 0 it records the frame sets this process sent to
+    process 0 (the kill plan names the next), and at the end of the first
+    visit of iteration 1, process 0 copies the checkpoint then on disk, the
+    one after iteration 0 (next visit (1, 0)), to ``anchor_dir``."""
+
+    def on_log(msg: str) -> None:
+        if msg.startswith(f"iter 0 coordinate {FAULT_LAST_COORDINATE}"):
+            rec["seq_after_iteration_0"] = mh._LINK_SEQ["send"].get(0, 0)
+        elif msg.startswith("iter 1 coordinate fixed") and rank == 0 and "anchor" not in rec:
+            os.makedirs(anchor_dir, exist_ok=True)
+            shutil.copy(os.path.join(ckpt, "ckpt.npz"), os.path.join(anchor_dir, "ckpt.npz"))
+            rec["anchor"] = True
+
+    return on_log
+
+
+def degradable_descent(batch, effects: dict, mesh=None) -> tuple[CoordinateDescent, list]:
+    """Config E's coordinates (``game_config``) as an in-memory descent
+    that can degrade in place: the fixed effect solved whole on each
+    process (no mesh: K1 over every row, the same bits on each), each random
+    effect over ``mesh`` (owned buckets under ``PHOTON_RE_SHARD=1``), or
+    over no mesh for the one-process arm. Returns the descent and its
+    update sequence."""
+    cfg = game_config(effects, 1)
+    coords = {"fixed": FixedEffectCoordinate(
+        coordinate_id="fixed", batch=batch, feature_shard_id="global",
+        config=cfg.fixed_effect_coordinates["fixed"].optimization, task_type=cfg.task_type,
+        intercept_index=D_FIXED)}
+    for cid, c in cfg.random_effect_coordinates.items():
+        ids = batch.id_tags[c.random_effect_type].cpu().numpy()
+        grouping = group_by_entity(ids, num_entities=int(ids.max()) + 1)
+        coords[cid] = RandomEffectCoordinate(
+            coordinate_id=cid, batch=batch, feature_shard_id=c.feature_shard_id,
+            random_effect_type=c.random_effect_type, config=c.optimization, grouping=grouping,
+            buckets=bucket_entities(grouping, c.sample_bucket_sizes, target_buckets=c.bucket_target_count,
+                                    max_padded_ratio=c.bucket_max_padded_ratio),
+            task_type=cfg.task_type, num_entities=grouping.num_entities, mesh=mesh)
+    return CoordinateDescent(coords, batch, cfg.task_type), list(cfg.coordinate_update_sequence)
+
+
+def _recovery_seconds(times: dict, kill_t: float, end_key: str) -> dict:
+    return dict(kill_to_confirm_s=times["confirm_t"] - kill_t,
+                confirm_to_rollcall_end_s=times["rollcall_end_t"] - times["confirm_t"],
+                kill_to_rollcall_end_s=times["rollcall_end_t"] - kill_t,
+                rollcall_end_to_resume_s=times[end_key] - times["rollcall_end_t"])
+
+
+def run_faults(dev, card: str, ring: dict, anchor: str) -> dict:
+    """main_faults: peer loss and recovery on the card, config E at bench
+    depth (``E_STREAMED_PAIR``, seed 4) in pairs of children, with
+    ``FAULT_ENV`` (2 retries, a 2 s roll call) and ``PHOTON_RE_SHARD=1``.
+
+    1. The ring on a healthy group (``ring``, from main_e_streamed_multihost's
+       children: their ``armed`` arm, CRC and the reliable mode armed and no
+       plan, held bitwise to the knob-unset ``on`` arm of 15e; the armed arm
+       checkpointed once an outer iteration, its checkpoint after iteration
+       0 is ``anchor``, and it counted the frame sets process 1 sent to
+       process 0 in iteration 0).
+    2. The streamed peer kill: a pair fits 2 outer iterations with process 1
+       killed at its first offsets send of iteration 1 (link 1->0, the next
+       frame set). The survivor resumes at (1, 0), its ``fleet.peer_lost``,
+       ``fleet.recoveries`` and ``p2p.giveups`` each 1, and its model is
+       bitwise one process's fit over its rows resumed from the anchor (run
+       here, with the anchor's fingerprint and row base 0).
+    3. The descent's degrade in place: a pair runs the in-memory descent of
+       ``degradable_descent`` (``PHOTON_RE_COMBINE=segments``,
+       ``PHOTON_DESCENT_DEGRADE=1``) for one outer iteration (the anchor),
+       then resumed for the second with process 1 killed at its first
+       owner-segment combine send. ``run`` returns on the survivor,
+       ``fleet.degraded_descents`` 1, its model bitwise one process's
+       descent (no mesh) resumed from the anchor here.
+
+    The pairs of 2. and 3. run at once, each on its own port, and the
+    streamed clean arm runs in this process meanwhile (so each pair's
+    ``phase_wall_s`` counts from their common start to its end, and the
+    recovery seconds are taken beside the other pair's work). Every fault
+    child pair has a limit of its own, and only process 1 may die, with
+    137. It prints the seconds from the kill to the roll call's end and
+    from there to the resumed visit (2) and the re-run iteration's end
+    (3)."""
+    n, effects = E_STREAMED_PAIR
+    spec = {"shape": [n, effects], "chunk_rows": E_STREAM_CHUNK}
+    cids = ["fixed", *(f"per_{k}" for k in effects)]
+    rec: dict = dict(card=card, n=n, processes=2, knobs=FAULT_ENV, ring=ring)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="_faults-", dir=ROOT)
+    try:
+        # the two pairs run at once, each on its own port (2. and 3.); the
+        # streamed clean arm runs here meanwhile
+        plan = [{"op": "kill", "link": [1, 0], "seq": ring["frame_sets_iteration_0"] + 1, "tag": "offsets"}]
+        dplan = [{"op": "kill", "link": [1, 0], "seq": 1, "tag": "re_combine/wv"}]
+        t0 = time.perf_counter()
+        kill_kids = start_children("faults_kill", os.path.join(work, "kill"), spec, dev,
+                                   env=dict(FAULT_ENV, **FAULT_CHILD_THREADS, PHOTON_RE_SHARD="1",
+                                            PHOTON_FAULT_PLAN=json.dumps(plan)),
+                                   allow_kill=(1,), timeout_s=FAULT_CHILD_TIMEOUT_S)
+        desc_kids = start_children("faults_descent", os.path.join(work, "descent"), dict(spec, plan=dplan), dev,
+                                   env=dict(FAULT_ENV, **FAULT_CHILD_THREADS, PHOTON_RE_SHARD="1",
+                                            PHOTON_RE_COMBINE="segments", PHOTON_DESCENT_DEGRADE="1"),
+                                   allow_kill=(1,), timeout_s=FAULT_CHILD_TIMEOUT_S)
+        try:
+            batch, _ = game_problem(dev, n, effects, seed=4)
+            host = streamed_game_data(batch, slice(0, n // 2))  # the survivor's rows
+            del batch
+            fp = peek_fingerprint(anchor)
+
+            def resume_from_anchor(trainer):
+                trainer.resume_fingerprints, trainer.resume_row_base = [fp], 0
+
+            clean = fit_streamed(host, game_config(effects, 2), dev, before_fit=resume_from_anchor,
+                                 checkpoint_dir=anchor, checkpoint_every_n_visits=len(effects) + 1)
+            clean_w = {cid: sub.coefficient_means.cpu().numpy() for cid, sub in clean["model"].models.items()}
+            clean_objective_passes = clean["fixed_objective_passes"]
+            clean_resumed_from = list(clean["trainer"].resumed_from or ())
+            clean_launches = clean["launches"]
+            del clean, host
+            prefetch.clear_cache()
+        finally:
+            surv = join_children(kill_kids)[0]
+            chaos_wall = time.perf_counter() - t0
+            desc = join_children(desc_kids)
+            desc_wall = time.perf_counter() - t0
+        # 2. the streamed peer kill
+        with open(os.path.join(work, "kill", "kill.json")) as f:
+            kill = json.load(f)
+        survivor = dict(np.load(os.path.join(work, "kill", "kill-rank0.npz")))
+        rec["streamed_kill"] = dict(
+            phase_wall_s=chaos_wall, plan=plan, killed=kill, resumed_from=surv["resumed_from"],
+            counters=surv["counters"], clean_resumed_from=clean_resumed_from,
+            bitwise_vs_clean={c: survivor[c].tobytes() == clean_w[c].tobytes() for c in cids},
+            max_abs_diff_vs_clean={c: float(np.max(np.abs(survivor[c] - clean_w[c]))) for c in cids},
+            **_recovery_seconds(surv["times"], kill["t"], "resume_t"),
+            launches={k: surv["launches"][k] + clean_launches[k] for k in launch_counts()},
+            clean_launches=clean_launches, survivor_launches=surv["launches"],
+            k1_launches_ok=clean_launches["fused_value_grad"] == (-(-(n // 2) // E_STREAM_CHUNK)
+                                                                  * clean_objective_passes))
+
+        # 3. the descent's degrade in place
+        with open(os.path.join(work, "descent", "kill.json")) as f:
+            dkill = json.load(f)
+        dsurv = dict(np.load(os.path.join(work, "descent", "chaos-rank0.npz")))
+        batch, _ = game_problem(dev, n, effects, seed=4)
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        descent, seq_ids = degradable_descent(batch, effects)
+        res = descent.run(seq_ids, 2, checkpoint_dir=os.path.join(work, "descent", "anchor"),
+                          checkpoint_fingerprint="e-descent-p1", resume_fingerprints=["e-descent-p2"])
+        torch.cuda.synchronize()
+        dclean = {cid: sub.coefficient_means.cpu().numpy() for cid, sub in res.model.models.items()}
+        dlaunch = launch_counts()
+        del batch, descent, res
+        torch.cuda.empty_cache()
+        rec["descent_degrade"] = dict(
+            phase_wall_s=desc_wall, plan=dplan, killed=dkill, counters=desc[0]["counters"],
+            iterations_recorded=desc[0]["iterations_recorded"],
+            bitwise_vs_clean={c: dsurv[c].tobytes() == dclean[c].tobytes() for c in cids},
+            max_abs_diff_vs_clean={c: float(np.max(np.abs(dsurv[c] - dclean[c]))) for c in cids},
+            **_recovery_seconds(desc[0]["times"], dkill["t"], "end_t"),
+            launches={k: desc[0]["launches"][k] + dlaunch[k] for k in launch_counts()},
+            survivor_launches=desc[0]["launches"], clean_launches=dlaunch,
+            k1_launches_ok=desc[0]["launches"]["fused_value_grad"] > 0 and dlaunch["fused_value_grad"] > 0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # the phase's launches: the armed ring arm, the survivor and clean fits of 2, the descent's
+    rec["launches"] = {k: ring["launches"][k] + rec["streamed_kill"]["launches"][k]
+                       + rec["descent_degrade"]["launches"][k] for k in launch_counts()}
+    return rec
+
+
 # main_e_streamed_multihost and its PHOTON_RE_SHARD=1 twin run at bench
 # depth (to keep the smoke in its time), held to a one-process fit there
 E_STREAMED_PAIR = E_BENCH
@@ -4367,7 +4712,8 @@ def e_streamed_one_process(dev) -> tuple[dict, GameModel]:
                 fixed_objective_passes=fit["fixed_objective_passes"]), fit["model"]
 
 
-def run_e_streamed_multihost(dev, one: dict, one_model: GameModel, card: str) -> tuple[dict, dict]:
+def run_e_streamed_multihost(dev, one: dict, one_model: GameModel, card: str,
+                             anchor_dir: str) -> tuple[dict, dict, dict]:
     """main_e_streamed_multihost and main_e_streamed_multihost_re_shard
     (phases 15d, 15e): config E at bench depth (``E_STREAMED_PAIR``, 2
     outer iterations, chunks of 2^20 rows) in two processes of this script
@@ -4377,21 +4723,25 @@ def run_e_streamed_multihost(dev, one: dict, one_model: GameModel, card: str) ->
     pair of children (``phase_wall_s`` is the pair's). Knob off is held to
     the one-process fit ``one`` / ``one_model``
     (``e_streamed_one_process``), knob on to knob off (rtol 5e-3 / atol
-    1e-3) and to ``one`` for AUC. Returns the two records."""
+    1e-3) and to ``one`` for AUC. A third arm, ``armed``, is main_faults'
+    ring on a healthy group: the knob-on fit with CRC and the reliable mode
+    armed and no plan (``FAULT_ENV``), which checkpoints once an outer
+    iteration and leaves its checkpoint after iteration 0 in ``anchor_dir``.
+    Returns the two records and main_faults' ring record."""
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="_e_streamed_multihost-", dir=ROOT)
-    arms = [["off", {}], ["on", {"PHOTON_RE_SHARD": "1"}]]
+    arms = [["off", {}], ["on", {"PHOTON_RE_SHARD": "1"}], ["armed", dict(FAULT_ENV, PHOTON_RE_SHARD="1")]]
     try:
         t0 = time.perf_counter()
         kids = run_children("e_streamed_multihost", work, {"shape": E_STREAMED_PAIR, "chunk_rows": E_STREAM_CHUNK,
-                                                           "arms": arms}, dev)
+                                                           "arms": arms, "anchor_dir": anchor_dir}, dev)
         wall = time.perf_counter() - t0
         arrays = {arm: [dict(np.load(os.path.join(work, f"{arm}-rank{r}.npz"))) for r in range(2)] for arm, _ in arms}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     cids = list(one_model.models)
     recs = {}
-    for arm, _ in arms:
+    for arm, _ in arms[:2]:
         rows, got = [c["arms"][arm] for c in kids], arrays[arm]
         margins = torch.from_numpy(np.concatenate([a["margins"] for a in got])).to(dev)
         labels = torch.from_numpy(np.concatenate([a["labels"] for a in got])).to(dev)
@@ -4442,7 +4792,21 @@ def run_e_streamed_multihost(dev, one: dict, one_model: GameModel, card: str) ->
         placement_ok=all(p["loads_are_global_rows"] and p == kid["placement"][c]
                          for kid in on["re_shard"] for c, p in on["re_shard"][0]["placement"].items()),
     )
-    return off, on
+    armed = [c["arms"]["armed"] for c in kids]
+    ring = dict(
+        bitwise_armed_vs_unset=all(arrays["armed"][r][c].tobytes() == arrays["on"][r][c].tobytes()
+                                   for r in range(2) for c in cids),
+        ranks_bitwise=all(arrays["armed"][0][c].tobytes() == arrays["armed"][1][c].tobytes() for c in cids),
+        no_recovery_counters=all(not a["counters"] for a in armed),
+        anchor_written=os.path.exists(os.path.join(anchor_dir, "ckpt.npz")),
+        frame_sets_iteration_0=armed[1]["seq_after_iteration_0"],
+        wall_s=[a["wall_s"] for a in armed], unset_wall_s=on["wall_s"],
+        visit_exchanges=[_visit_exchanges(a["visits"]) for a in armed], unset_visit_exchanges=on["visit_exchanges"],
+        launches={k: sum(a["launches"][k] for a in armed) for k in launch_counts()},
+        k1_launches_ok=all(a["fixed_objective_passes"] > 0
+                           and a["launches"]["fused_value_grad"] == a["chunks"] * a["fixed_objective_passes"]
+                           for a in armed))
+    return off, on, ring
 
 
 def run_game_cli_streamed(dev, data: GameCliData, card: str) -> dict:
@@ -4921,7 +5285,7 @@ def main() -> int:
     )):
         raise AssertionError("the A2 solves disagree")
 
-    # GAME: config D, config E at MovieLens-20M depth, config E's agreement
+    # GAME: config D, config E at MovieLens-10M depth, config E's agreement
     d_rec = run_d(dev)
     emit("main_d", **d_rec)
     _check_game_launches("main_d", d_rec)
@@ -4984,7 +5348,7 @@ def main() -> int:
     if not (agree_e["d_auc"] <= 0.005 and agree_e["rel_d_log_loss"] <= 1e-3):
         raise AssertionError("the GAME runs with and without K1 disagree")
 
-    # config E at MovieLens-20M depth with the random effects on L-BFGS,
+    # config E at MovieLens-10M depth with the random effects on L-BFGS,
     # on main_e's batch; then the lane solvers' agreement at bench depth
     e_lbfgs, e_lbfgs_model = run_e_lbfgs(dev, e_batch, e_data, e_rec)
     emit("main_e_lbfgs", **e_lbfgs)
@@ -5030,7 +5394,9 @@ def main() -> int:
     # two processes, each holding half of the rows (at bench depth), knob
     # off and with skew-aware placement and the overlapped exchanges
     one, one_model = e_streamed_one_process(dev)
-    e_streamed_multi, e_streamed_rs = run_e_streamed_multihost(dev, one, one_model, smi)
+    faults_work = tempfile.mkdtemp(prefix="_faults-", dir=ROOT)  # main_faults' anchor, written by 15e's children
+    e_streamed_multi, e_streamed_rs, ring = run_e_streamed_multihost(dev, one, one_model, smi,
+                                                                     os.path.join(faults_work, "anchor"))
     del one_model
     e_streamed_multi["one_process"] = one
     emit("main_e_streamed_multihost", **e_streamed_multi)
@@ -5059,6 +5425,29 @@ def main() -> int:
               if not e_streamed_re_split[name]]
     if failed:
         raise AssertionError(f"main_e_streamed_multihost_re_split failed: {failed}")
+    # peer loss: the ring on a healthy group, the streamed recovery, the descent's degrade in place
+    try:
+        faults_rec = run_faults(dev, smi, ring, os.path.join(faults_work, "anchor"))
+    finally:
+        shutil.rmtree(faults_work, ignore_errors=True)
+    emit("main_faults", **faults_rec)
+    kill, degrade = faults_rec["streamed_kill"], faults_rec["descent_degrade"]
+    failed = [name for name, ok in (
+        ("ring_bitwise_armed_vs_unset", ring["bitwise_armed_vs_unset"] and ring["ranks_bitwise"]),
+        ("ring_no_recovery", ring["no_recovery_counters"] and ring["anchor_written"]),
+        ("ring_k1_launches", ring["k1_launches_ok"]),
+        ("kill_resumed_from", kill["resumed_from"] == [1, 0] and kill["clean_resumed_from"] == [1, 0]),
+        ("kill_counters", all(kill["counters"].get(k) == 1.0
+                              for k in ("fleet.peer_lost", "fleet.recoveries", "p2p.giveups"))),
+        ("kill_bitwise_vs_clean", all(kill["bitwise_vs_clean"].values())),
+        ("kill_k1_launches", kill["k1_launches_ok"]),
+        ("degrade_counters", degrade["counters"].get("fleet.degraded_descents") == 1.0
+         and degrade["counters"].get("fleet.peer_lost") == 1.0 and "fleet.recoveries" not in degrade["counters"]),
+        ("degrade_bitwise_vs_clean", all(degrade["bitwise_vs_clean"].values())),
+        ("degrade_k1_launches", degrade["k1_launches_ok"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"main_faults failed: {failed}")
     solvers, solver_models = agreement_e_solvers(dev, agree_e["fused"])
     emit("agreement_e_solvers", **solvers)
     ev = solvers["lbfgs"]["evaluators"]
@@ -5313,7 +5702,7 @@ def main() -> int:
                                "main_e_streamed_multihost_re_shard": e_streamed_rs,
                                "main_e_streamed_multihost_re_split": e_streamed_re_split,
                                "main_game_cli_streamed_multihost": game_streamed_multi,
-                               "main_a2_streamed_fe_shard": a2_fe}
+                               "main_a2_streamed_fe_shard": a2_fe, "main_faults": faults_rec}
     # the drivers with run telemetry on
     telemetry_paths = {"main_telemetry": telemetry}
     # data parallel: row shards of the card, and two processes over gloo

@@ -17,6 +17,7 @@ import json
 import logging
 import os
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -168,7 +169,7 @@ def _checkpoint_source(npz_path: str, across_processes: bool):
 
 def load_checkpoint(
     directory: str,
-    fingerprint: str | None = None,
+    fingerprint: str | Sequence[str] | None = None,
     data_digest: str | None = None,
     device=None,
     across_processes: bool = False,
@@ -181,8 +182,10 @@ def load_checkpoint(
 
     A checkpoint whose fingerprint is not ``fingerprint`` (when given) is
     ignored with a warning: it belongs to another configuration or dataset.
-    (The reference also takes a collection of fingerprints, for the
-    degraded restarts of ROADMAP queue 1 item 12d.) A ``data_digest`` other than the stored one
+    A collection of fingerprints accepts any of them: a recovery resumes a
+    degraded run from a checkpoint written under the process layout before
+    the loss, whose fingerprint differs from the survivors' (the row layout
+    is part of it). A ``data_digest`` other than the stored one
     drops only the scores and total (they hold the old data's per-row
     values); the model still resumes."""
     dev = resolve_device(device)
@@ -199,7 +202,8 @@ def load_checkpoint(
         )
         return None
     meta = json.loads(bytes(arrays[_META_KEY]).decode())
-    if fingerprint is not None and meta.get("fingerprint") != fingerprint:
+    accepted = (fingerprint,) if isinstance(fingerprint, str) else None if fingerprint is None else tuple(fingerprint)
+    if accepted is not None and meta.get("fingerprint") not in accepted:
         _log.warning(
             "ignoring %s: fingerprint mismatch (written under a different "
             "configuration/data); training restarts from iteration 0", npz_path,

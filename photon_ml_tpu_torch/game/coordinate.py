@@ -69,8 +69,9 @@ from photon_ml_tpu_torch.parallel.distributed import (
     shard_layout,
     shard_rows,
 )
-from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, shard_extent
+from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, effective_mesh, shard_extent
 from photon_ml_tpu_torch.parallel.multihost import allgather_rows
+from photon_ml_tpu_torch.parallel.placement import re_shard_enabled
 from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
 Tensor = torch.Tensor
@@ -294,6 +295,22 @@ class FixedEffectCoordinate:
         return model.score(self.batch)
 
 
+    def _reset_compiled_state(self) -> None:
+        """Drop the cached layouts and shards, so the next visit builds them
+        again from the batch (the descent's degrade in place calls it after
+        the group shrinks)."""
+        for key in ("_mesh_cached", "_mesh_rows", "_layout_cached"):
+            self.__dict__.pop(key, None)
+
+    def _degrade_blocker(self) -> str | None:
+        """Why this coordinate cannot survive a group shrink in place, or
+        None: a fixed effect solving over a mesh splits its rows over every
+        process's shards, and the dead process's rows leave with it."""
+        if self.mesh is not None:
+            return f"fixed-effect coordinate {self.coordinate_id!r} solves over the full device mesh"
+        return None
+
+
 @dataclass(frozen=True)
 class RandomEffectCoordinate:
     """Per-entity GLMs over one feature shard and entity column. The
@@ -446,6 +463,31 @@ class RandomEffectCoordinate:
             task_type=self.task_type,
         )
         return model, result
+
+    def _reset_compiled_state(self) -> None:
+        """The degrade-in-place hook: drop the prepared buckets, the staged
+        launch units and the scoring shards, and take the mesh over the
+        current (survivor) group, so the next visit prepares its owned
+        buckets by the placement re-planned over the survivors."""
+        for key in ("_prepared_cache", "_fusion_units_cache", "_mesh_rows"):
+            self.__dict__.pop(key, None)
+        if self.mesh is not None:
+            object.__setattr__(self, "mesh", effective_mesh(self.mesh))
+
+    def _degrade_blocker(self) -> str | None:
+        """Why this coordinate cannot survive a group shrink in place, or
+        None. Owned buckets (``PHOTON_RE_SHARD=1`` under a mesh) degrade:
+        each is staged whole on its owner and combined over the host mesh.
+        Lanes sharded over the mesh keep the abort."""
+        if self.mesh is None:
+            return None
+        prepared = self.__dict__.get("_prepared_cache")
+        owned = any(pb.owner is not None for pb in prepared) if prepared is not None else re_shard_enabled()
+        if owned:
+            return None
+        return (f"random-effect coordinate {self.coordinate_id!r} is lane-sharded over the full device mesh "
+                "(enable PHOTON_RE_SHARD=1 owned-bucket placement — with the PHOTON_RE_COMBINE=segments "
+                "host-collective combine — for a degradable in-memory solve)")
 
     def score(self, model: RandomEffectModel) -> Tensor:
         if self.mesh is None:

@@ -17,8 +17,8 @@ The entity lanes' static tensors are gathered on the device by
 here gathers one bucket from host columns (the out-of-core trainer's
 per-visit gather, into page-locked memory), and ``gather_bucket`` is that
 gather on the features' device. The owner-placement helpers
-(``placement_atoms``, ``split_entity_buckets``) wait for ROADMAP queue 1
-item 12d.
+(``placement_atoms``, ``split_entity_buckets``) cut heavy buckets into the
+sub-bucket atoms that ``PHOTON_RE_SPLIT`` places (ROADMAP 12d-iii).
 """
 
 from __future__ import annotations

@@ -19,13 +19,28 @@ over it, the (n,) vectors live on the mesh's head device, and validation
 takes the evaluators' sharded forms (``evaluate_all(mesh=)``). Across
 processes process 0 alone writes checkpoints and reads them for a
 resume; every process adopts the bytes it broadcasts, so all make the same
-decision. The reference's one-program fused outer iteration and
-degrade-in-place wait (ROADMAP queue 1 item 10a.6); its peer-loss
-handling and degraded-restart fingerprints are item 12d.
+decision. The reference's one-program fused outer iteration waits
+(ROADMAP queue 1 item 10a.6).
+
+Peer loss (ROADMAP 12d-v-a). Each outer iteration is a transaction: a
+``multihost.PeerLost`` inside it either aborts ``run`` with the
+restart-from-checkpoint message (``PHOTON_DESCENT_DEGRADE`` unset, the
+default) or, with the knob on, degrades in place: a roll call confirms
+the loss, the group shrinks to the survivors, every coordinate drops its
+prepared state (owned random-effect buckets re-plan over the survivors at
+the next visit) and the iteration runs again from its start, so ``run``
+returns normally and the model is bitwise a clean run over the survivors
+resumed from the same state. A roll call that finds every peer alive (a
+link flap) re-runs the iteration, at most ``_MAX_FLAP_RETRIES`` times in a
+row. A coordinate spanning the device mesh (a mesh fixed effect, lanes
+sharded over a mesh) and validation over the mesh cannot shrink and keep
+the abort. ``resume_fingerprints`` lets a degraded restart resume from a
+checkpoint of the layout before the loss.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping, Sequence
 
@@ -36,11 +51,30 @@ from photon_ml_tpu_torch.game.coordinate import Coordinate
 from photon_ml_tpu_torch.game.data import GameBatch
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.obs import emit_event, span
-from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh
-from photon_ml_tpu_torch.parallel.multihost import is_output_process
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
+from photon_ml_tpu_torch.parallel import multihost as mh
+from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, effective_mesh
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
+
+# in-place degrade of the descent on a peer loss (``PHOTON_DESCENT_DEGRADE``;
+# the environment wins over this module value, read at call time)
+DESCENT_DEGRADE = 0
+
+# iteration re-runs in a row for roll calls that find every peer alive (a
+# link flap): the ring collectives have no retry of their own, so the re-run
+# absorbs the transient, bounded so a flapping link still surfaces
+_MAX_FLAP_RETRIES = 3
+
+
+def descent_degrade_enabled() -> bool:
+    """``PHOTON_DESCENT_DEGRADE`` (strict int parse: a typo raises rather
+    than silently keeping the abort on a loss)."""
+    env = os.environ.get("PHOTON_DESCENT_DEGRADE")
+    if env is not None and env != "":
+        return int(env) != 0
+    return int(DESCENT_DEGRADE) != 0
 
 
 @dataclass(frozen=True)
@@ -90,16 +124,41 @@ class CoordinateDescent:
         initial_model: GameModel | None = None,
         checkpoint_dir: str | None = None,
         checkpoint_fingerprint: str | None = None,
+        resume_fingerprints: Sequence[str] = (),
     ) -> CoordinateDescentResult:
         """``checkpoint_dir`` makes the descent resumable: a checkpoint is
         saved after every outer iteration, and one already in the directory
         restarts the descent at its next iteration. A stored checkpoint
         whose fingerprint is not ``checkpoint_fingerprint`` (which names the
-        training setup) is ignored. When the stored data digest differs from
+        training setup) is ignored, unless it is one of
+        ``resume_fingerprints`` (a degraded restart from a checkpoint of the
+        layout before a loss). When the stored data digest differs from
         this batch's, the model resumes and the scores are recomputed."""
         for cid in update_sequence:
             if cid not in self.coordinates:
                 raise KeyError(f"update sequence names unknown coordinate {cid!r}")
+        try:
+            return self._run(update_sequence, num_iterations, initial_model, checkpoint_dir,
+                             checkpoint_fingerprint, resume_fingerprints)
+        except mh.PeerLost as e:
+            self._raise_peer_lost(e, checkpoint_dir)
+
+    @staticmethod
+    def _raise_peer_lost(e: "mh.PeerLost", checkpoint_dir) -> None:
+        """The abort on a loss the descent does not degrade around: an
+        instruction to restart on the survivors from the per-iteration
+        checkpoint, in place of a timeout."""
+        emit_event("peer_lost", peer=int(e.peer), error=str(e))
+        hint = (f"resume from the last per-iteration checkpoint in {checkpoint_dir!r} by restarting on the "
+                "surviving hosts" if checkpoint_dir is not None else
+                "re-run with checkpoint_dir set to make the restart resume instead of retrain")
+        raise RuntimeError(
+            f"in-memory coordinate descent lost process {e.peer}: the mesh-spanning executables cannot degrade "
+            f"in place — {hint} (set PHOTON_DESCENT_DEGRADE=1 with owned random-effect buckets to degrade in "
+            "place; the streamed trainer recovers from its checkpoint)") from e
+
+    def _run(self, update_sequence, num_iterations, initial_model, checkpoint_dir, checkpoint_fingerprint,
+             resume_fingerprints) -> CoordinateDescentResult:
         dev = self.batch.device if self.mesh is None else self.mesh.head
         model = initial_model or GameModel(models={}, task_type=self.task_type)
         start_iteration = 0
@@ -109,8 +168,12 @@ class CoordinateDescent:
             from photon_ml_tpu_torch.checkpoint import batch_digest, load_checkpoint
 
             digest = batch_digest(self.batch.labels, self.batch.weights)
+            # None keeps its accept-anything meaning; else the primary and the collection
+            accepted: Any = checkpoint_fingerprint
+            if checkpoint_fingerprint is not None and resume_fingerprints:
+                accepted = (checkpoint_fingerprint, *resume_fingerprints)
             ckpt = load_checkpoint(
-                checkpoint_dir, fingerprint=checkpoint_fingerprint, data_digest=digest, device=dev,
+                checkpoint_dir, fingerprint=accepted, data_digest=digest, device=dev,
                 across_processes=self.mesh is not None,
             )
             if ckpt is not None:
@@ -140,48 +203,121 @@ class CoordinateDescent:
             for s in scores.values():
                 total = total + s
 
-        validate = self.validation_batch is not None and bool(self.evaluators)
-        for it in range(start_iteration, num_iterations):
-            iter_validation: dict[str, EvaluationResults] = {}
-            with span("descent/iter", iteration=it):
+        it = start_iteration
+        flap_retries = 0
+        while it < num_iterations:
+            # the start-of-iteration state: nothing below writes a tensor of it
+            # in place, so holding the references is the snapshot
+            snap_model, snap_scores, snap_total = model, dict(scores), total
+            snap_trackers = {cid: len(trackers[cid]) for cid in update_sequence}
+            snap_history = len(validation_history)
+            try:
+                model, scores, total = self._run_one_iteration(
+                    it, update_sequence, model, scores, total, trackers, validation_history, checkpoint_dir,
+                    checkpoint_fingerprint, digest)
+            except mh.PeerLost as e:
+                if not descent_degrade_enabled():
+                    raise
+                if not self._degrade_in_place(e, it):
+                    flap_retries += 1
+                    if flap_retries > _MAX_FLAP_RETRIES:
+                        raise RuntimeError(
+                            f"in-memory descent iteration {it}: links flapped {flap_retries} times with every "
+                            "peer alive — raise PHOTON_P2P_RETRIES/BACKOFF_S rather than retrying the "
+                            "iteration forever") from e
+                # back to the start of the iteration, over the (maybe shrunk) group
+                model, scores, total = snap_model, dict(snap_scores), snap_total
                 for cid in update_sequence:
-                    coord = self.coordinates[cid]
-                    with span("descent/visit", iteration=it, coordinate=cid):
-                        offsets = total - scores[cid] if cid in scores else total
-                        sub_model, tracker = coord.train(offsets, model.models.get(cid))
-                        new_score = coord.score(sub_model)
-                        total = offsets + new_score
-                        scores[cid] = new_score
-                        model = model.updated(cid, sub_model)
-                        if trackers[cid]:
-                            # keep per-entity diagnostics of the latest visit only
-                            release = getattr(trackers[cid][-1], "release_device_diagnostics", None)
-                            if release is not None:
-                                release()
-                        trackers[cid].append(tracker)
-                    if validate:
-                        vb = self.validation_batch
-                        with span("descent/validation", iteration=it, coordinate=cid):
-                            res = evaluate_all(
-                                self.evaluators, model.score(vb), vb.labels, vb.weights,
-                                group_ids=vb.id_tags, mesh=self.mesh,
-                            )
-                        iter_validation[cid] = res
-                        self._log(f"iter {it} coordinate {cid}: {res}")
-                    else:
-                        self._log(f"iter {it} coordinate {cid}: trained")
-                validation_history.append(iter_validation)
-                emit_event("descent_iteration", iteration=it)
-                if checkpoint_dir is not None and is_output_process():
-                    from photon_ml_tpu_torch.checkpoint import save_checkpoint
-
-                    with span("descent/checkpoint", iteration=it):
-                        save_checkpoint(
-                            checkpoint_dir, model, next_iteration=it + 1,
-                            fingerprint=checkpoint_fingerprint,
-                            scores=scores, total=total, data_digest=digest,
-                        )
+                    del trackers[cid][snap_trackers[cid]:]
+                del validation_history[snap_history:]
+                continue
+            flap_retries = 0
+            it += 1
         return CoordinateDescentResult(
             model=model, validation_history=validation_history, trackers=trackers,
             training_scores=scores,
         )
+
+    def _run_one_iteration(self, it, update_sequence, model, scores, total, trackers, validation_history,
+                           checkpoint_dir, checkpoint_fingerprint, digest):
+        """One outer iteration, the unit the degrade in place rolls back:
+        returns the advanced (model, scores, total)."""
+        validate = self.validation_batch is not None and bool(self.evaluators)
+        iter_validation: dict[str, EvaluationResults] = {}
+        with span("descent/iter", iteration=it):
+            for cid in update_sequence:
+                coord = self.coordinates[cid]
+                with span("descent/visit", iteration=it, coordinate=cid):
+                    offsets = total - scores[cid] if cid in scores else total
+                    sub_model, tracker = coord.train(offsets, model.models.get(cid))
+                    new_score = coord.score(sub_model)
+                    total = offsets + new_score
+                    scores[cid] = new_score
+                    model = model.updated(cid, sub_model)
+                    if trackers[cid]:
+                        # keep per-entity diagnostics of the latest visit only
+                        release = getattr(trackers[cid][-1], "release_device_diagnostics", None)
+                        if release is not None:
+                            release()
+                    trackers[cid].append(tracker)
+                if validate:
+                    vb = self.validation_batch
+                    with span("descent/validation", iteration=it, coordinate=cid):
+                        res = evaluate_all(
+                            self.evaluators, model.score(vb), vb.labels, vb.weights,
+                            group_ids=vb.id_tags, mesh=self.mesh,
+                        )
+                    iter_validation[cid] = res
+                    self._log(f"iter {it} coordinate {cid}: {res}")
+                else:
+                    self._log(f"iter {it} coordinate {cid}: trained")
+            validation_history.append(iter_validation)
+            emit_event("descent_iteration", iteration=it)
+            if checkpoint_dir is not None and mh.is_output_process():
+                from photon_ml_tpu_torch.checkpoint import save_checkpoint
+
+                with span("descent/checkpoint", iteration=it):
+                    save_checkpoint(
+                        checkpoint_dir, model, next_iteration=it + 1,
+                        fingerprint=checkpoint_fingerprint,
+                        scores=scores, total=total, data_digest=digest,
+                    )
+        return model, scores, total
+
+    def _degrade_in_place(self, err, iteration: int) -> bool:
+        """The ``PHOTON_DESCENT_DEGRADE`` handler: confirm the loss with a
+        roll call, shrink the group to the survivors and drop every
+        coordinate's prepared state, without leaving ``run``. True when
+        the group shrank, False when every peer answered (a link flap: the
+        roll call rebuilt the mesh, the caller re-runs the iteration). A
+        coordinate or a validation that spans the device mesh cannot shrink:
+        the loss then goes on to the abort."""
+        self._log(f"iteration {iteration}: peer loss (process {getattr(err, 'peer', -1)}) — starting roll call")
+        group, survivors, lost = mh.confirm_peer_loss(err)
+        if not lost:
+            emit_event("descent_retry", iteration=iteration, group=list(group))
+            self._log(f"iteration {iteration}: roll call found every process alive (links flapped) — re-running "
+                      "the iteration over the rebuilt mesh")
+            return False
+        # judged only once a loss is confirmed: a flap needs no shrinking
+        blockers = [getattr(coord, "_degrade_blocker", lambda: None)() for coord in self.coordinates.values()]
+        if self.mesh is not None and self.validation_batch is not None and self.evaluators:
+            blockers.append("validation evaluates over the full device mesh")
+        for blocker in blockers:
+            if blocker is not None:
+                self._log(f"iteration {iteration}: lost processes {lost} with PHOTON_DESCENT_DEGRADE=1, but "
+                          f"{blocker} — falling back to the abort path")
+                raise err
+        mh.set_degraded_group(survivors)
+        if self.mesh is not None:
+            self.mesh = effective_mesh(self.mesh)
+        for coord in self.coordinates.values():
+            reset = getattr(coord, "_reset_compiled_state", None)
+            if reset is not None:
+                reset()
+        REGISTRY.counter_inc("fleet.degraded_descents")
+        emit_event("degraded_descent", iteration=iteration, survivors=[int(s) for s in survivors],
+                   lost=[int(p) for p in lost])
+        self._log(f"iteration {iteration}: lost processes {lost}, surviving group {survivors} — degraded in "
+                  "place, re-running the iteration over the survivor set")
+        return True

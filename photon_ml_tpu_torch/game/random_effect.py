@@ -1060,23 +1060,30 @@ def _combine_owned_segments(mesh: ProcessMesh, W: Tensor, V: Tensor | None, prep
                             diag: list) -> list:
     """The owner-segment combine (``PHOTON_RE_COMBINE=segments``): each
     owner sends its packed segments alone (``_pack_wv_segments``,
-    ``_pack_diag_segments``) to every other process on the exchange
-    worker's gloo group (``multihost.allgather_bytes_async``), the
-    coefficient rows first, so their transfer overlaps the diagnostics'
-    packing. O(E·d) bytes a process against the dense combine's O(P·E·d);
-    each row is written by its one owner either way, so the result is the
-    dense combine's bit for bit."""
+    ``_pack_diag_segments``, raw bytes riding as one uint8 array) to every
+    other process over the framed mesh on the exchange worker
+    (``multihost.allgather_obj_p2p_async``, tags ``re_combine/wv`` and
+    ``re_combine/diag``, as the reference's), the coefficient rows first,
+    so their transfer overlaps the diagnostics' packing. O(E·d) bytes a
+    process against the dense combine's O(P·E·d); each row is written by
+    its one owner either way, so the result is the dense combine's bit for
+    bit."""
     from photon_ml_tpu_torch.parallel import multihost as mh
 
     t0 = time.perf_counter()
     own = [i for i, pb in enumerate(prepared) if pb.owner == mesh.process_index]
     wv_stats, diag_stats = {}, {}
-    wv_handle = mh.allgather_bytes_async(_pack_wv_segments(prepared, *_owned_rows(W, V, prepared, own), own),
-                                       tag="re_combine/wv", stats=wv_stats)
-    diag_handle = mh.allgather_bytes_async(_pack_diag_segments(_owned_diag(diag, own)), tag="re_combine/diag",
-                                         stats=diag_stats)
+
+    def frames(payload: bytes) -> np.ndarray:
+        return np.frombuffer(payload, np.uint8)
+
+    wv_handle = mh.allgather_obj_p2p_async(frames(_pack_wv_segments(prepared, *_owned_rows(W, V, prepared, own),
+                                                                     own)), tag="re_combine/wv", stats=wv_stats)
+    diag_handle = mh.allgather_obj_p2p_async(frames(_pack_diag_segments(_owned_diag(diag, own))),
+                                             tag="re_combine/diag", stats=diag_stats)
     t_wait = time.perf_counter()
-    wv_frames, diag_frames = wv_handle.result(), diag_handle.result()
+    wv_frames = [np.asarray(f).tobytes() for f in wv_handle.result()]
+    diag_frames = [np.asarray(f).tobytes() for f in diag_handle.result()]
     waited = time.perf_counter() - t_wait
     bytes_sent = int(wv_stats.get("bytes_sent", 0) + diag_stats.get("bytes_sent", 0))
     exchange_s = float(wv_stats.get("exchange_s", 0.0) + diag_stats.get("exchange_s", 0.0))

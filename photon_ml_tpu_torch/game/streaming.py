@@ -86,7 +86,21 @@ ladder (``placement_atoms``, weighed by projected lane bytes under
 ``PHOTON_RE_SPLIT_WEIGHT=bytes``) instead of single entities, and the
 re-planner keeps them; ``PHOTON_RE_DEVICE_SPLIT`` places each process's
 buckets over its ``local_devices``, each launch unit gathered to and
-solved on its device. Peer loss and rejoin are item 12d-v.
+solved on its device.
+
+Peer loss (ROADMAP 12d-v-a): across processes with a ``checkpoint_dir``
+and ``PHOTON_P2P_RETRIES`` > 0, a lost peer surfaces as
+``multihost.PeerLost`` (retries exhausted on the exchange mesh, or a gloo
+collective failing). ``fit`` then confirms the loss with a roll call,
+shrinks the process group to the survivors (``multihost.set_degraded_group``),
+quiesces the aborted visit's device work (``prefetch.quiesce``) and runs
+the fit again: ingest re-plans the placement over the survivors (the same
+host arithmetic on each) and the resume accepts the last checkpoint,
+written under the layout before the loss (``resume_fingerprints``,
+``resume_row_base``). The survivors' model is bitwise a clean run on their
+rows resumed from that checkpoint. ``PHOTON_RE_STRAGGLER`` delays the
+named process's bucket solves (the re-planner's drill). Elastic rejoin is
+item 12d-v-b.
 """
 
 from __future__ import annotations
@@ -148,6 +162,7 @@ from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks, stream_scores
 from photon_ml_tpu_torch.optim.common import select_minimize_fn
+from photon_ml_tpu_torch.parallel import faults
 from photon_ml_tpu_torch.parallel import multihost as mh
 from photon_ml_tpu_torch.parallel.mesh import data_mesh
 from photon_ml_tpu_torch.parallel.placement import (
@@ -445,6 +460,18 @@ class StreamedGameTrainer:
         self._re_solve_wall: dict[str, float] = {}
         self._skew_aware = False
         self.placements: dict[str, PlacementPlan] = {}
+        # peer-loss recovery: the fingerprints of other process layouts whose
+        # checkpoints a resume accepts (the layout before a loss: its row
+        # layout, part of the fingerprint, differs from the survivors'), and
+        # this process's row base in the layout that wrote such a
+        # checkpoint, to slice its gathered scores. ``_prepare_recovery``
+        # sets both mid-fit; a driver restarting a degraded run from a
+        # checkpoint of another layout may set them too
+        self.resume_fingerprints: list[str] = []
+        self.resume_row_base: int | None = None
+        # the layouts this fit itself ran before a loss: their checkpoints
+        # hold this process's own rows at its registered base
+        self._own_anchor_fingerprints: set[str] = set()
         has_projection = any(c.random_projection_dim is not None
                              for c in config.random_effect_coordinates.values())
         if has_projection and checkpoint_dir is not None:
@@ -1028,6 +1055,9 @@ class StreamedGameTrainer:
         (``_ReShard.project``) the gathered support columns are folded on
         the card, the warm-start and prior rows on the host, and the
         solutions expanded on the host before the write-back."""
+        # PHOTON_RE_STRAGGLER: a real sleep inflates this process's measured
+        # solve wall (the re-planner reads it) and touches no math
+        faults.maybe_straggle()
         loss = loss_for_task(self.config.task_type)
         l1 = opt.regularization.l1_weight(opt.regularization_weight)
         l2 = torch.as_tensor(opt.regularization.l2_weight(opt.regularization_weight), dtype=torch.float32,
@@ -1436,7 +1466,7 @@ class StreamedGameTrainer:
             payload = {f"s__{cid}": np.asarray(s, np.float32) for cid, s in scores.items()}
             payload["total"] = np.asarray(total, np.float32)
             payload["meta"] = np.frombuffer(json.dumps(dict(meta, row_base=int(row_base))).encode(), dtype=np.uint8)
-            atomic_savez(self.checkpoint_dir, self._shard_path(mh.process_index()), payload)
+            atomic_savez(self.checkpoint_dir, self._shard_path(mh.original_process_index()), payload)
             mh.sync_processes("streamed-game-score-shards")
             if writer:
                 ckpt_io.save_checkpoint(self.checkpoint_dir, model, scores=None, total=None, **meta)
@@ -1454,22 +1484,37 @@ class StreamedGameTrainer:
         (gathered: global columns), else from each process's own score file,
         checked against the model's markers and this process's data. A
         stale, torn or missing score file on any process is a miss for
-        all."""
+        all. Every fingerprint of ``resume_fingerprints`` is accepted too;
+        ``foreign`` says the checkpoint was written under one of them.
+
+        A gathered checkpoint's data digest is its writer's rows'. One that
+        this fit wrote itself before a loss (``_own_anchor_fingerprints``)
+        holds every survivor's rows at the base it registered, so its
+        digest is not compared: after the writer's loss it is another
+        process's (the reference compares it, drops the scores, and its
+        survivors restart from iteration 0)."""
+        accepted = (fingerprint, *self.resume_fingerprints)
+        check = digest
+        if (self._own_anchor_fingerprints and mh.is_output_process()
+                and ckpt_io.peek_fingerprint(self.checkpoint_dir) in self._own_anchor_fingerprints):
+            check = ""
         if not self._distributed():
-            ckpt = ckpt_io.load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint, data_digest=digest,
-                                   device="cpu")
+            ckpt = ckpt_io.load_checkpoint(self.checkpoint_dir, fingerprint=accepted, data_digest=check or None,
+                                           device="cpu")
             if ckpt is None or ckpt.scores is None or ckpt.total is None:
                 return None
             return {"model": ckpt.model, "next_iteration": ckpt.next_iteration,
                     "next_coordinate": ckpt.next_coordinate, "scores": ckpt.scores, "total": ckpt.total,
-                    "scores_local": False}
-        ckpt = ckpt_io.load_checkpoint(self.checkpoint_dir, fingerprint=fingerprint,
-                               data_digest=str(mh.broadcast_from_host0(digest)), device="cpu",
-                               across_processes=True)
+                    "scores_local": False,
+                    "foreign": ckpt.fingerprint is not None and ckpt.fingerprint != fingerprint}
+        ckpt = ckpt_io.load_checkpoint(self.checkpoint_dir, fingerprint=accepted,
+                                       data_digest=str(mh.broadcast_from_host0(check)) or None, device="cpu",
+                                       across_processes=True)
         if ckpt is None:
             return None
         state = {"model": ckpt.model, "next_iteration": ckpt.next_iteration,
-                 "next_coordinate": ckpt.next_coordinate}
+                 "next_coordinate": ckpt.next_coordinate,
+                 "foreign": ckpt.fingerprint is not None and ckpt.fingerprint != fingerprint}
         if ckpt.scores is not None and ckpt.total is not None:
             return dict(state, scores=ckpt.scores, total=ckpt.total, scores_local=False)
         local = self._load_score_shard(fingerprint, digest, ckpt.next_iteration, ckpt.next_coordinate)
@@ -1484,13 +1529,14 @@ class StreamedGameTrainer:
         same fingerprint, this process's data digest and the same next
         visit. A file from another visit or setup, or a torn one, is a
         miss."""
-        path = self._shard_path(mh.process_index())
+        path = self._shard_path(mh.original_process_index())
         if not os.path.exists(path):
             return None
+        accepted = (fingerprint, *self.resume_fingerprints)
         try:
             with np.load(path) as z:
                 meta = json.loads(bytes(z["meta"]).decode())
-                if (meta.get("fingerprint") != fingerprint or meta.get("data_digest") != digest
+                if (meta.get("fingerprint") not in accepted or meta.get("data_digest") != digest
                         or meta.get("next_iteration") != next_iteration
                         or meta.get("next_coordinate") != next_coordinate):
                     return None
@@ -1592,9 +1638,64 @@ class StreamedGameTrainer:
         exchange) and ``descent/iter`` → ``descent/visit``,
         ``descent/validation``, ``descent/checkpoint``; a ``visit_result``
         record follows every visit."""
+        if self.multihost:
+            mh.rejoin_enabled()  # refuses PHOTON_REJOIN before any work
         with span("game/fit", rows=int(data.num_rows), chunk_rows=int(self.chunk_rows),
                   coordinates=list(self.config.coordinate_update_sequence)):
-            return self._fit(data, validation, initial_model)
+            while True:
+                try:
+                    return self._fit(data, validation, initial_model)
+                except mh.PeerLost as e:
+                    # checkpoint-anchored recovery: confirm the loss, shrink
+                    # the group and fit again over the survivors from the
+                    # last checkpoint
+                    self._prepare_recovery(e)
+
+    def _prepare_recovery(self, err) -> None:
+        """Turn a ``PeerLost`` into a resume over the survivors, or raise
+        why recovery is impossible. A survivor leaves with the group shrunk
+        to the roll call's survivors, the layout's fingerprint and row base
+        registered so the last checkpoint is accepted under the new
+        layout, no device work of the aborted visit in flight, and the
+        ``peer_lost`` / ``recovery`` records and ``fleet.*`` counters."""
+        if self.checkpoint_dir is None or not self.multihost:
+            raise RuntimeError(
+                f"peer loss (process {err.peer}) with no recovery substrate: streamed peer-loss recovery needs "
+                "multihost mode and a checkpoint_dir to resume from; re-run with checkpointing enabled or "
+                "restart the whole job") from err
+        self._log(f"peer loss: process {err.peer} unreachable after retries — starting roll call")
+        group, survivors, lost = mh.confirm_peer_loss(err)
+        if not lost:
+            raise RuntimeError(
+                f"roll call found every process alive after a reported peer loss (process {err.peer}): links "
+                "flapped past the retry budget — raise PHOTON_P2P_RETRIES/BACKOFF_S rather than recovering "
+                "around a live peer") from err
+        self._register_degrade_anchors()
+        mh.set_degraded_group(survivors)
+        # the aborted visit's prefetch workers, copies and resident chunks
+        prefetch.quiesce()
+        for dev in {*self.local_devices, self.device}:
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize(dev)
+        REGISTRY.counter_inc("fleet.recoveries")
+        emit_event("recovery", survivors=[int(s) for s in survivors], lost=[int(p) for p in lost],
+                   resume_fingerprints=len(self.resume_fingerprints))
+        self._log(f"recovery: lost processes {lost}, surviving group {survivors} — re-planning placement and "
+                  "resuming from the last checkpoint")
+
+    def _register_degrade_anchors(self) -> None:
+        """Accept the current layout's checkpoints under whatever layout
+        the fit re-enters with: its fingerprint joins the resume
+        allow-list, and the row base of a resume from a checkpoint it
+        wrote is this process's base in it."""
+        fp = getattr(self, "_last_fingerprint", None)
+        if fp is not None and fp not in self.resume_fingerprints:
+            self.resume_fingerprints.append(fp)
+        if fp is not None:
+            self._own_anchor_fingerprints.add(fp)
+        base = getattr(self, "_last_row_base", None)
+        if base is not None:
+            self.resume_row_base = int(base)
 
     def _fit(self, data: StreamedGameData, validation: StreamedGameData | None,
              initial_model: GameModel | None) -> tuple[GameModel, dict[str, StreamedCoordinateInfo]]:
@@ -1741,6 +1842,8 @@ class StreamedGameTrainer:
             digest = _host_digest(np.asarray(data.labels, np.float32),
                                   np.ones(n, np.float32) if data.weights is None
                                   else np.asarray(data.weights, np.float32))
+            # the recovery anchors: a loss mid-fit accepts this layout's checkpoints
+            self._last_fingerprint, self._last_row_base = fingerprint, row_base
             resume = self._load_resume_state(fingerprint, digest)
             if resume is not None:
                 start_it, start_ci = resume["next_iteration"], resume["next_coordinate"]
@@ -1755,8 +1858,20 @@ class StreamedGameTrainer:
                         re_W[cid] = _slice_owned_rows(sub.coefficients.numpy().astype(np.float32), re_shards[cid])
                         if sub.variances is not None and want_var:
                             re_V[cid] = _slice_owned_rows(sub.variances.numpy().astype(np.float32), re_shards[cid])
-                # a gathered checkpoint holds global columns, a score file this process's rows
-                lo = 0 if resume["scores_local"] else row_base
+                # a gathered checkpoint holds global columns, a score file this
+                # process's rows; a checkpoint of the layout before a loss is
+                # sliced at this process's base there
+                lo = 0
+                if not resume["scores_local"]:
+                    lo = (self.resume_row_base if resume["foreign"] and self.resume_row_base is not None
+                          else row_base)
+                    ck_rows = int(np.asarray(resume["total"]).shape[0])
+                    if lo + n > ck_rows:
+                        raise RuntimeError(
+                            f"checkpoint score state covers {ck_rows} global rows but this process expects rows "
+                            f"[{lo}, {lo + n}) of the writing layout — the checkpoint was written by a layout "
+                            "that did not hold this process's rows; restart from a full-layout checkpoint or "
+                            "retrain")
                 for cid in seq:
                     scores[cid] = np.asarray(resume["scores"][cid], np.float32)[lo:lo + n].copy()
                 total = np.asarray(resume["total"], np.float32)[lo:lo + n].copy()

@@ -140,15 +140,16 @@ def is_active() -> bool:
 
 
 def _process_index() -> int:
+    # the original index: a shard keeps its name after the group degrades
     from photon_ml_tpu_torch.parallel import multihost
 
-    return multihost.process_index()
+    return multihost.original_process_index()
 
 
 def _process_count() -> int:
     from photon_ml_tpu_torch.parallel import multihost
 
-    return multihost.process_count()
+    return multihost.original_process_count()
 
 
 def fleet_telemetry_enabled() -> bool:

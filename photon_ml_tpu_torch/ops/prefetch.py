@@ -474,6 +474,23 @@ def cache_stats() -> dict:
         )
 
 
+def quiesce() -> None:
+    """End an aborted pipeline's device work: wait for every running
+    preparation (the worker pool is shut down and made anew at its next
+    use), wait for every copy stream and drop the chunk cache. A recovery
+    calls it before it re-plans, so nothing of the aborted visit is in
+    flight or resident."""
+    global _pool
+    with _pool_lock:
+        pool, _pool = _pool, None
+        streams = list(_copy_streams.values())
+    if pool is not None:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for st in streams:
+        st.synchronize()
+    clear_cache()
+
+
 def clear_cache() -> None:
     global _device_bytes, _device_host_bytes, _host_bytes
     with _cache_lock:

@@ -601,8 +601,8 @@ class StreamingGLMObjective:
 
     def fe_gather(self, w_local) -> np.ndarray:
         """The full vector from every process's segment, in range order: a
-        concatenation, bitwise the segments (a collective; the segment
-        itself on one range)."""
+        concatenation, bitwise the segments (a collective over the framed
+        mesh, tag ``fe_gather``; the segment itself on one range)."""
         from photon_ml_tpu_torch.parallel.multihost import allgather_concat
 
         local = w_local.cpu().numpy() if isinstance(w_local, torch.Tensor) else np.asarray(w_local)

@@ -68,6 +68,17 @@ def as_process_mesh(mesh) -> ProcessMesh:
     return ProcessMesh(local=tuple(torch.device(d) for d in mesh))
 
 
+def effective_mesh(mesh) -> ProcessMesh:
+    """``mesh`` over the current process group: after a degrade
+    (``multihost.set_degraded_group``) this process's rank among the
+    survivors and their count, so rows and buckets split over the
+    survivors' shards alone."""
+    from photon_ml_tpu_torch.parallel.multihost import process_count, process_index
+
+    pm = as_process_mesh(mesh)
+    return ProcessMesh(local=pm.local, process_index=process_index(), process_count=process_count())
+
+
 def shard_extent(count: int, num_shards: int) -> int:
     """Rows (or lanes) a global shard holds: ceil(count / num_shards); shard
     s holds [s × extent, (s + 1) × extent), the tail padded."""

@@ -1,5 +1,5 @@
-"""The multi-process runtime and its host collectives (port of the
-in-memory subset of ``photon_ml_tpu/parallel/multihost.py``).
+"""The multi-process runtime and its host collectives (port of
+``photon_ml_tpu/parallel/multihost.py``).
 
 Every process runs the same program; ``initialize_multihost`` joins them
 into one ``torch.distributed`` process group, each process reads its own
@@ -9,30 +9,43 @@ objective sums its per-process partial values and gradients with
 ``DistributedGLMLossFunction``. Exactly one process writes shared
 outputs (``is_output_process``).
 
-The backend is gloo, chosen here and nowhere switched. Every collective of
-this module is a host collective over numpy arrays, as the reference's
-are, and gloo runs several processes on one card, which NCCL refuses.
-NCCL comes with the first collective over device tensors.
+Two transports carry the host collectives:
+
+- **gloo**, chosen here and nowhere switched: the default process group's
+  ``all_gather`` of the raw bytes of every process's arrays, reduced on
+  every process in rank order by the same numpy code, so all processes
+  hold identical bytes afterwards and their host control flow (line
+  searches, stopping tests) stays in lock step. Gloo runs several
+  processes on one card, which NCCL refuses.
+- **the framed peer-to-peer mesh** (the reference's): one TCP connection
+  per ordered pair of processes, each frame an 8-byte length prefix, the
+  payload and (``PHOTON_P2P_CRC=1``, negotiated per link) a CRC32 trailer.
+  It carries the overlapped exchanges (``exchange_rows_async``), the
+  owner-segment collectives (``allgather_obj_p2p``: the random-effect
+  combine, the feature-range gather), the skewed ``exchange_rows`` and,
+  once a peer is lost, every collective of the surviving group.
 
 ``exchange_rows`` is the entity-row shuffle: each row travels to one
-destination process only, sized exactly (the (P, P) count matrix is
-exchanged first, so no block pads to the largest). ``allgather_rows``
-concatenates every process's rows in rank order: the multi-process GAME
-descent assembles each coordinate's (n,) scores with it.
-``allgather_row_chunks`` does the same in bounded rounds, so the
-out-of-core trainer's one writer gathers global columns without any
-process holding more than a round of them at once.
+destination process only. The (P, P) count matrix is gathered first and
+picks the transport, as the reference's does: the mesh when P²·(largest
+block) > 2 × payload (entity skew), else one exact-size gloo
+``all_to_all``. ``allgather_rows`` concatenates every process's rows in
+rank order; ``allgather_row_chunks`` does the same in bounded rounds.
 
-``exchange_rows_async`` issues an exchange and returns a handle to join
-later (the overlapped schedule of ``PHOTON_RE_SHARD``): one worker thread
-a process runs the exchanges in submission order over a second gloo group
-of their own, so they never pair against the main thread's collectives.
-
-Each collective is an ``all_gather`` of the raw bytes of every process's
-arrays, reduced on every process in rank order by the same numpy code, so
-all processes hold identical bytes afterwards and their host control flow
-(line searches, stopping tests) stays in lock step. Every process must
-call each collective at the same program point.
+Faults and recovery (ROADMAP 12d-v-a). ``PHOTON_P2P_RETRIES`` > 0 arms the
+reliable mode: a mesh exchange ends with a completion ACK on every link
+and a failed one is retried through a teardown and rebuild from the
+cached addresses, with backoff; retries exhausted against an unreachable
+peer harden into ``PeerLost``, and so does a failed gloo collective (a
+dead peer closes gloo's pairs). The caller with a recovery path (the
+streamed trainer, the in-memory descent under ``PHOTON_DESCENT_DEGRADE``)
+confirms the loss with ``roll_call`` over the cached addresses and shrinks
+the world with ``set_degraded_group``: from then on ``process_index`` /
+``process_count`` are the survivors' ranks, every collective rides the
+mesh, and nothing touches the gloo group again (no barrier, no
+``new_group``, no ``destroy_process_group``: each can hang on the dead
+peer). ``parallel/faults.py`` injects deterministic faults at the framed
+send. Elastic rejoin (``PHOTON_REJOIN``) is ROADMAP queue 1 item 12d-v-b.
 
 Usage (the same command on every process; the reference's variables, so
 one launcher drives either package):
@@ -43,10 +56,15 @@ one launcher drives either package):
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
+import selectors
+import socket
+import struct
 import threading
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 from typing import Sequence
@@ -56,15 +74,19 @@ import torch
 import torch.distributed as dist
 
 from photon_ml_tpu_torch.obs import devcost
+from photon_ml_tpu_torch.obs import sink as _sink
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.obs.spans import emit_event
+from photon_ml_tpu_torch.parallel import faults
 
 BACKEND = "gloo"
 # seconds a collective waits for the other processes before it raises
 DEFAULT_TIMEOUT_S = 600.0
 
-# the process group's collective timeout, which the exchange group takes too
+# the process group's collective timeout
 _TIMEOUT_S = [DEFAULT_TIMEOUT_S]
+# the coordinator's address as given to initialize_multihost
+_COORDINATOR = [""]
 
 # seconds, calls and bytes gathered by the host collectives since the last
 # ``reset_collective_stats``
@@ -95,8 +117,11 @@ def initialize_multihost(
     arguments default to the reference's variables
     ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
     ``JAX_PROCESS_ID``; a missing or bad one raises the reference's error.
-    Collectives wait ``timeout_s`` for the other processes. Returns
-    ``runtime_summary()``."""
+    Collectives wait ``timeout_s`` for the other processes. With
+    ``PHOTON_P2P_RETRIES`` > 0 every process's mesh address is gathered
+    here, while the group is whole, so a roll call after a loss needs no
+    gloo collective. Returns ``runtime_summary()``."""
+    rejoin_enabled()  # refuses the knob before any work
     if coordinator_address is None:
         coordinator_address = os.environ.get("JAX_COORDINATOR_ADDRESS")
     try:
@@ -123,23 +148,58 @@ def initialize_multihost(
         )
     except (ValueError, RuntimeError) as e:
         raise _init_error(str(e)) from e
+    _COORDINATOR[0] = str(coordinator_address)
+    if num_processes > 1 and _p2p_retries() > 0:
+        _bootstrap_link_addrs()
     return runtime_summary()
 
 
 def shutdown_multihost() -> None:
-    """Leave the process group (a no-op outside one), after the exchange
-    worker has drained."""
-    if dist.is_initialized():
-        _reset_async_exchanges()
-        dist.destroy_process_group()
+    """Leave the process group (a no-op outside one). A whole group drains
+    the exchange worker, closes the mesh and destroys the gloo group; a
+    degraded one only forgets its pending exchanges and closes the mesh,
+    and returns at once: the gloo group holds a dead peer, and destroying
+    it can wait on that peer forever."""
+    global _DEGRADED, _HOST_ADDRS
+    if not dist.is_initialized():
+        return
+    if _DEGRADED is not None:
+        reset_async_exchanges()
+        _reset_host_links()
+        return
+    _stop_exchange_worker()
+    _reset_host_links()
+    _HOST_ADDRS = None
+    dist.destroy_process_group()
 
 
-def process_index() -> int:
+def _self_pid() -> int:
+    """This process's original index in the group it joined."""
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def process_count() -> int:
+def _world_size() -> int:
+    """The original group's size."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def original_process_index() -> int:
+    return _self_pid()
+
+
+def original_process_count() -> int:
+    return _world_size()
+
+
+def process_index() -> int:
+    """This process's rank in the current group: its original index, or
+    its rank among the survivors once the group is degraded."""
+    return effective_process_index()
+
+
+def process_count() -> int:
+    """The current group's size (the survivors' once degraded)."""
+    return effective_process_count()
 
 
 def runtime_summary() -> dict:
@@ -168,8 +228,38 @@ def require_process_group() -> None:
 
 def is_output_process() -> bool:
     """True on the one process that writes shared outputs (models,
-    metrics, checkpoints): all processes compute, one writes."""
-    return process_index() == 0
+    metrics, checkpoints): all processes compute, one writes. In a
+    degraded group the lowest surviving process writes."""
+    return effective_process_index() == 0
+
+
+def rejoin_enabled() -> bool:
+    """``PHOTON_REJOIN`` (strict int parse; unset or 0: lost peers stay
+    lost). Elastic rejoin is not ported yet: a set knob raises rather than
+    silently keeping the survivors degraded."""
+    env = os.environ.get("PHOTON_REJOIN")
+    if env is not None and env != "" and int(env) != 0:
+        raise NotImplementedError(
+            f"PHOTON_REJOIN={env}: elastic rejoin is {faults.REJOIN_ITEM} (the port degrades on a peer "
+            "loss and keeps the survivors; unset the knob)")
+    return False
+
+
+# -- gloo, and its hardening into PeerLost -------------------------------------
+
+
+def _gloo(fn, tag: str):
+    """Run one gloo collective. A gloo failure (a dead peer closes its
+    pairs: a ``RuntimeError``, not an ``OSError``) hardens into
+    ``PeerLost`` when the reliable mode is armed (``PHOTON_P2P_RETRIES`` >
+    0), so the caller's recovery path runs the roll call; with the knob
+    unset it propagates raw, as before."""
+    try:
+        return fn()
+    except RuntimeError as e:
+        if _p2p_retries() > 0:
+            raise PeerLost(-1, f"gloo collective {tag!r} failed: {e}") from e
+        raise
 
 
 # per-call barrier counter: every process calls sync_processes at the same
@@ -185,41 +275,45 @@ def sync_processes(tag: str = "photon-ml-barrier") -> None:
         return
     _BARRIER_SEQ[0] += 1
     key = f"{tag}#{_BARRIER_SEQ[0]}"
-    keys = _gather_bytes(key.encode())
+    keys = _gather_bytes(key.encode(), tag="barrier")
     if any(k != keys[0] for k in keys):
         raise RuntimeError(f"processes reached different barriers: {[k.decode() for k in keys]}")
 
 
-def _gather_bytes(payload: bytes, group=None) -> list[bytes]:
+def _gather_bytes(payload: bytes, group=None, tag: str = "host_collective") -> list[bytes]:
     """Every process's ``payload`` in rank order (two all_gathers: the
-    sizes, then the bytes padded to the largest). ``group`` None is the
-    default group, whose calls ``collective_stats`` counts; the exchange
-    worker's group (``exchange_rows_async``) keeps its own books."""
+    sizes, then the bytes padded to the largest; on the mesh once the
+    group is degraded). ``collective_stats`` counts the calls."""
     t0 = time.perf_counter()
     p = process_count()
+    if _DEGRADED is not None:
+        out = [np.asarray(v).tobytes() for v in _p2p_allgather_obj(np.frombuffer(payload, np.uint8), tag=tag)]
+        collective_stats["seconds"] += time.perf_counter() - t0
+        collective_stats["calls"] += 1
+        collective_stats["bytes"] += sum(len(b) for b in out)
+        return out
     size = torch.tensor([len(payload)], dtype=torch.int64)
     sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(p)]
-    dist.all_gather(sizes, size, group=group)
+    _gloo(lambda: dist.all_gather(sizes, size, group=group), tag)
     width = max(int(s) for s in sizes)
     buf = torch.zeros(max(width, 1), dtype=torch.uint8)
     if payload:
         buf[: len(payload)] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     outs = [torch.empty_like(buf) for _ in range(p)]
-    dist.all_gather(outs, buf, group=group)
-    if group is None:
-        collective_stats["seconds"] += time.perf_counter() - t0
-        collective_stats["calls"] += 1
-        collective_stats["bytes"] += p * buf.numel()
+    _gloo(lambda: dist.all_gather(outs, buf, group=group), tag)
+    collective_stats["seconds"] += time.perf_counter() - t0
+    collective_stats["calls"] += 1
+    collective_stats["bytes"] += p * buf.numel()
     return [bytes(o[: int(s)].numpy()) for o, s in zip(outs, sizes)]
 
 
-def _gather_arrays(arrays: Sequence[np.ndarray], group=None) -> list[list[np.ndarray]]:
+def _gather_arrays(arrays: Sequence[np.ndarray], group=None, tag: str = "host_collective") -> list[list[np.ndarray]]:
     """Every process's ``arrays`` (same count, shapes and dtypes on every
     process) in rank order, moved in one gather of their bytes."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     payload = b"".join(a.tobytes() for a in arrays)
     out = []
-    for blob in _gather_bytes(payload, group):
+    for blob in _gather_bytes(payload, group, tag):
         if len(blob) != len(payload):
             raise RuntimeError("host collective over arrays of different sizes across processes")
         parts, pos = [], 0
@@ -236,13 +330,15 @@ def allgather_host(array: np.ndarray) -> np.ndarray:
     array = np.asarray(array)
     if process_count() <= 1:
         return array[None]
-    return np.stack([g[0] for g in _gather_arrays([array])])
+    return np.stack([g[0] for g in _gather_arrays([array], tag="allgather_host")])
 
 
-def _gather_same(arrays: Sequence[np.ndarray], group=None) -> list[list[np.ndarray]]:
+def _gather_same(arrays: Sequence[np.ndarray], group=None, tag: str = "host_collective") -> list[list[np.ndarray]]:
     """``_gather_arrays`` for callers whose every process passes the same
     count, shapes and dtypes by construction (lock-step collectives): one
     all_gather of the bytes, without the exchange of sizes first."""
+    if _DEGRADED is not None:
+        return [[a.copy() for a in g] for g in _gather_arrays(arrays, group, tag)]
     t0 = time.perf_counter()
     arrays = [np.ascontiguousarray(a) for a in arrays]
     payload = b"".join(a.tobytes() for a in arrays)
@@ -250,11 +346,10 @@ def _gather_same(arrays: Sequence[np.ndarray], group=None) -> list[list[np.ndarr
     if payload:
         buf[: len(payload)] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     outs = [torch.empty_like(buf) for _ in range(process_count())]
-    dist.all_gather(outs, buf, group=group)
-    if group is None:
-        collective_stats["seconds"] += time.perf_counter() - t0
-        collective_stats["calls"] += 1
-        collective_stats["bytes"] += len(outs) * buf.numel()
+    _gloo(lambda: dist.all_gather(outs, buf, group=group), tag)
+    collective_stats["seconds"] += time.perf_counter() - t0
+    collective_stats["calls"] += 1
+    collective_stats["bytes"] += len(outs) * buf.numel()
     out = []
     for o in outs:
         blob, parts, pos = o.numpy(), [], 0
@@ -265,10 +360,10 @@ def _gather_same(arrays: Sequence[np.ndarray], group=None) -> list[list[np.ndarr
     return out
 
 
-def _reduce(arrays, op, wire_dtype=np.float64, gather=_gather_arrays):
+def _reduce(arrays, op, wire_dtype=np.float64, gather=_gather_arrays, tag: str = "host_collective"):
     if process_count() <= 1:
         return arrays if len(arrays) > 1 else arrays[0]
-    gathered = gather([np.asarray(a, wire_dtype) for a in arrays])
+    gathered = gather([np.asarray(a, wire_dtype) for a in arrays], tag=tag)
     out = tuple(op(np.stack([g[i] for g in gathered]).astype(np.float64, copy=False), axis=0)
                 for i in range(len(arrays)))
     return out if len(out) > 1 else out[0]
@@ -280,7 +375,7 @@ def allreduce_sum_host(*arrays: np.ndarray):
     process receives identical bytes. One array in, one out; several in,
     a tuple out. The streamed objective's per-process partial sums meet
     here: the treeAggregate of the out-of-core path."""
-    return _reduce(arrays, np.sum)
+    return _reduce(arrays, np.sum, tag="allreduce_sum")
 
 
 def allreduce_sum_lockstep(*arrays: np.ndarray, wire_dtype=np.float64):
@@ -289,24 +384,32 @@ def allreduce_sum_lockstep(*arrays: np.ndarray, wire_dtype=np.float64):
     scalars): one all_gather instead of two, each array on the wire as
     ``wire_dtype`` (float32 partials lose nothing on a float32 wire, at
     half the bytes), summed in float64 in rank order."""
-    return _reduce(arrays, np.sum, wire_dtype, _gather_same)
+    return _reduce(arrays, np.sum, wire_dtype, _gather_same, tag="allreduce_sum")
 
 
 def allgather_concat(array: np.ndarray) -> np.ndarray:
     """Every process's 1-D ``array`` (one dtype everywhere, lengths free)
-    concatenated in rank order: data movement only, so the result holds
-    each process's bytes as they were. ``array`` itself on one process."""
+    concatenated in rank order: the feature-range gather, over the mesh
+    (``allgather_obj_p2p``, tag ``fe_gather``, as the reference's rides
+    it), counted in ``collective_stats``. Data movement only, so the
+    result holds each process's bytes as they were. ``array`` itself on
+    one process."""
     array = np.ascontiguousarray(array)
     if process_count() <= 1:
         return array
-    return np.concatenate([np.frombuffer(b, dtype=array.dtype) for b in _gather_bytes(array.tobytes())])
+    t0 = time.perf_counter()
+    out = np.concatenate([np.asarray(p) for p in allgather_obj_p2p(array, tag="fe_gather")])
+    collective_stats["seconds"] += time.perf_counter() - t0
+    collective_stats["calls"] += 1
+    collective_stats["bytes"] += out.nbytes
+    return out
 
 
 def allreduce_max_host(*arrays: np.ndarray):
     """Elementwise max across all processes in float64 (unchanged on one
     process): the streamed summary's min / max statistics (a min rides as
     the max of its negation)."""
-    return _reduce(arrays, np.max)
+    return _reduce(arrays, np.max, tag="allreduce_max")
 
 
 def _tree_map(fn, tree):
@@ -321,18 +424,18 @@ def broadcast_from_host0(tree):
     """Process 0's value of ``tree`` (numpy leaves in nested tuples, lists
     and dicts) on every process; the tree itself on one process. Process
     0 decides what the others adopt, e.g. the checkpoint state only it
-    reads."""
+    reads. In a degraded group "process 0" is the lowest survivor."""
     if process_count() <= 1:
         return tree
-    blobs = _gather_bytes(pickle.dumps(tree) if process_index() == 0 else b"")
+    blobs = _gather_bytes(pickle.dumps(tree) if process_index() == 0 else b"", tag="broadcast0")
     return _tree_map(np.asarray, pickle.loads(blobs[0]))
 
 
-def _gather_objects(obj) -> list:
+def _gather_objects(obj, tag: str = "host_collective") -> list:
     """Every process's picklable ``obj`` in rank order (one gather)."""
     if process_count() <= 1:
         return [obj]
-    return [pickle.loads(b) for b in _gather_bytes(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))]
+    return [pickle.loads(b) for b in _gather_bytes(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL), tag=tag)]
 
 
 def allgather_rows(*arrays: np.ndarray):
@@ -342,7 +445,7 @@ def allgather_rows(*arrays: np.ndarray):
     themselves on one process. One gather for all of them."""
     arrays = tuple(np.asarray(a) for a in arrays)
     if process_count() > 1:
-        per_rank = _gather_objects(arrays)
+        per_rank = _gather_objects(arrays, tag="allgather_rows")
         arrays = tuple(np.concatenate([r[i] for r in per_rank]) for i in range(len(arrays)))
     return arrays if len(arrays) > 1 else arrays[0]
 
@@ -369,7 +472,7 @@ def allgather_row_chunks(arrays, chunk_rows: int, pad_values=None):
                 fill = np.full((chunk_rows - len(part),) + a.shape[1:], pad_values.get(k, 0), a.dtype)
                 part = np.concatenate([part, fill])
             chunk.append(part)
-        per_rank = _gather_arrays(chunk) if process_count() > 1 else [chunk]
+        per_rank = _gather_arrays(chunk, tag="row_chunks") if process_count() > 1 else [chunk]
         yield {k: np.stack([r[i] for r in per_rank]) for i, k in enumerate(keys)}
 
 
@@ -388,42 +491,25 @@ def exchange_rows(arrays, dest: np.ndarray, tag: str = "") -> dict:
     The identity on one process. Every process calls it at the same
     program point with the same keys.
 
-    One gloo transport: the (P, P) count matrix is gathered first, so each
-    process knows what it receives, then one ``all_to_all`` moves each
-    (source, destination) block at its exact size (gloo has no
-    uniform-block rule, so nothing pads to the largest block). ``tag``
-    names the exchange in errors only. ``LAST_EXCHANGE_STATS`` records
-    ``bytes_sent``, ``rows_sent``, ``padded_rows`` (the row slots moved,
-    summed over arrays: the payload) and ``transport``. While device-cost
-    capture is on, the exchange's bytes are recorded once per size
-    (``executable_cost`` label ``multihost.all_to_all``, as the
-    reference's all-to-all transport records its program)."""
+    The (P, P) count matrix is gathered first and picks the transport for
+    every process alike, by the reference's rule: the framed mesh
+    (``transport`` ``p2p_host``) when P²·(largest block) > 2 × payload, the
+    skew at which the reference's uniform-block ``all_to_all`` would pad
+    past twice the payload, and always once the group is degraded;
+    otherwise one exact-size gloo ``all_to_all`` (``gloo``). ``tag`` names
+    the exchange in errors, fault plans and telemetry. ``LAST_EXCHANGE_STATS``
+    records ``bytes_sent``, ``rows_sent``, ``padded_rows`` (the row slots
+    moved, summed over arrays: the payload) and ``transport``. While
+    device-cost capture is on, a gloo exchange's bytes are recorded once
+    per size (``executable_cost`` label ``multihost.all_to_all``)."""
     arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
     dest = np.asarray(dest, np.int64).reshape(-1)
-    if process_count() <= 1:
+    p = process_count()
+    if p <= 1:
         LAST_EXCHANGE_STATS.update(bytes_sent=0, rows_sent=len(dest), padded_rows=len(dest),
                                    transport="local")
         return arrays
     t0 = time.perf_counter()
-    out, stats, (send, recv) = _exchange_on(arrays, dest, tag, None)
-    # the exchange's bytes in the run's telemetry, once per (sent, received)
-    # size, recorded after the collective: no process waits on another's capture
-    devcost.capture("multihost.all_to_all", (send, recv),
-                    lambda: {"flops": 0.0, "bytes_accessed": float(send.numel() + recv.numel()),
-                             "memory": {"argument_size_in_bytes": send.numel(),
-                                        "output_size_in_bytes": recv.numel()}})
-    collective_stats["seconds"] += time.perf_counter() - t0
-    collective_stats["calls"] += 1
-    collective_stats["bytes"] += stats["bytes_sent"]
-    LAST_EXCHANGE_STATS.update(stats)
-    return out
-
-
-def _exchange_on(arrays: dict, dest: np.ndarray, tag: str, group) -> tuple[dict, dict, tuple]:
-    """``exchange_rows``' transport on ``group`` (None: the default
-    group): (the rows received, the exchange's stats, the (send, receive)
-    byte tensors)."""
-    p = process_count()
     keys = sorted(arrays)
     for k in keys:
         if len(arrays[k]) != len(dest):
@@ -432,9 +518,36 @@ def _exchange_on(arrays: dict, dest: np.ndarray, tag: str, group) -> tuple[dict,
         raise ValueError(f"exchange {tag!r}: destinations outside [0, {p})")
     order = np.argsort(dest, kind="stable")
     counts = np.bincount(dest, minlength=p).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)])
     # (source, destination) row counts
-    matrix = np.stack([g[0] for g in _gather_arrays([counts], group)])
-    me = process_index()
+    matrix = allgather_host(counts).reshape(p, p)
+    maxc = max(int(matrix.max()), 1)
+    if _DEGRADED is not None or p * p * maxc > 2 * max(int(matrix.sum()), 1):
+        # one socket-use order: never interleave with an exchange on the worker
+        drain_async_exchanges()
+        stats: dict = {}
+        out = _host_p2p_exchange(arrays, order, starts, matrix, tag=tag, stats=stats)
+    else:
+        out, stats, (send, recv) = _exchange_on(arrays, order, counts, matrix, tag)
+        # the exchange's bytes in the run's telemetry, once per (sent, received)
+        # size, recorded after the collective: no process waits on another's capture
+        devcost.capture("multihost.all_to_all", (send, recv),
+                        lambda: {"flops": 0.0, "bytes_accessed": float(send.numel() + recv.numel()),
+                                 "memory": {"argument_size_in_bytes": send.numel(),
+                                            "output_size_in_bytes": recv.numel()}})
+    collective_stats["seconds"] += time.perf_counter() - t0
+    collective_stats["calls"] += 1
+    collective_stats["bytes"] += stats["bytes_sent"]
+    LAST_EXCHANGE_STATS.update(stats)
+    return out
+
+
+def _exchange_on(arrays: dict, order: np.ndarray, counts: np.ndarray, matrix: np.ndarray,
+                 tag: str) -> tuple[dict, dict, tuple]:
+    """``exchange_rows``' gloo transport: (the rows received, the
+    exchange's stats, the (send, receive) byte tensors)."""
+    p, me = process_count(), process_index()
+    keys = sorted(arrays)
     row_bytes = [arrays[k].dtype.itemsize * int(np.prod(arrays[k].shape[1:], dtype=np.int64)) for k in keys]
     width = sum(row_bytes)
     starts = np.concatenate([[0], np.cumsum(counts)])
@@ -442,12 +555,12 @@ def _exchange_on(arrays: dict, dest: np.ndarray, tag: str, group) -> tuple[dict,
     for q in range(p):
         rows = order[starts[q]:starts[q + 1]]
         blocks.extend(arrays[k][rows].tobytes() for k in keys)
-    send = torch.frombuffer(bytearray(b"".join(blocks)), dtype=torch.uint8) if width and len(dest) \
+    send = torch.frombuffer(bytearray(b"".join(blocks)), dtype=torch.uint8) if width and len(order) \
         else torch.zeros(0, dtype=torch.uint8)
     recv_rows = matrix[:, me]
     recv = torch.empty(int(recv_rows.sum()) * width, dtype=torch.uint8)
-    dist.all_to_all_single(recv, send, output_split_sizes=[int(r) * width for r in recv_rows],
-                           input_split_sizes=[int(c) * width for c in counts], group=group)
+    _gloo(lambda: dist.all_to_all_single(recv, send, output_split_sizes=[int(r) * width for r in recv_rows],
+                                         input_split_sizes=[int(c) * width for c in counts]), tag)
     raw = recv.numpy()
     out: dict[str, list[np.ndarray]] = {k: [] for k in keys}
     pos = 0
@@ -464,30 +577,1107 @@ def _exchange_on(arrays: dict, dest: np.ndarray, tag: str, group) -> tuple[dict,
 
 
 # ---------------------------------------------------------------------------
-# the overlapped exchange schedule (PHOTON_RE_SHARD=1)
+# the framed peer-to-peer mesh
+# ---------------------------------------------------------------------------
+
+# host-collective payload formats: a 1-byte kind prefix selects the decode.
+# PICKLE carries any host object; NDARRAY carries array-bearing payloads as
+# the container skeleton (array leaves replaced by position markers) and the
+# arrays' (dtype, shape) specs pickled small, then each array's raw bytes,
+# so the send side never pickles or copies a row payload. The reference's
+# formats byte for byte.
+_PAYLOAD_PICKLE = 0
+_PAYLOAD_NDARRAY = 1
+
+
+class _NdRef:
+    """Skeleton placeholder for the i-th raw array of an NDARRAY payload."""
+
+    __slots__ = ("i",)
+
+    def __init__(self, i: int):
+        self.i = i
+
+    def __reduce__(self):
+        return (_NdRef, (self.i,))
+
+
+# the placeholder's name on the wire: the reference's, so a skeleton's bytes
+# are the reference's for the same payload (nothing of the reference is
+# imported: the skeleton's pickler writes the name, its unpickler maps it)
+_NDREF_WIRE = ("photon_ml_tpu.parallel.multihost", "_NdRef")
+
+
+class _SkeletonPickler(pickle._Pickler):
+    """The pure-Python pickler (the C one's bytes), writing ``_NdRef``
+    under its wire name."""
+
+    def save_global(self, obj, name=None):
+        if obj is not _NdRef:
+            return super().save_global(obj, name)
+        self.save(_NDREF_WIRE[0])
+        self.save(_NDREF_WIRE[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+class _SkeletonUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == _NDREF_WIRE:
+            return _NdRef
+        return super().find_class(module, name)
+
+
+def _dumps_skeleton(obj) -> bytes:
+    buf = io.BytesIO()
+    _SkeletonPickler(buf, protocol=4).dump(obj)
+    return buf.getvalue()
+
+
+def _encode_host_payload(obj) -> tuple[list, int]:
+    """``(wire_parts, total_bytes)`` for one host-collective payload: the
+    buffers the sender streams in order, arrays as zero-copy views of the
+    (contiguous) sources. Only plain ndarrays of simple dtypes take the raw
+    path; object and structured dtypes and ndarray subclasses stay pickled
+    (in the skeleton, or as a whole PICKLE payload when no array is raw)."""
+    arrays: list[np.ndarray] = []
+    shapes: list[tuple] = []
+
+    def strip(x):
+        if type(x) is np.ndarray and not x.dtype.hasobject and x.dtype.names is None:
+            # the original shape: ascontiguousarray makes a 0-d array 1-d
+            arrays.append(np.ascontiguousarray(x))
+            shapes.append(x.shape)
+            return _NdRef(len(arrays) - 1)
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            vals = [strip(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        if isinstance(x, list):
+            return [strip(v) for v in x]
+        return x
+
+    skeleton = strip(obj)
+    if not arrays:
+        raw = bytes([_PAYLOAD_PICKLE]) + pickle.dumps(obj, protocol=4)
+        return [raw], len(raw)
+    specs = [(a.dtype.str, shape) for a, shape in zip(arrays, shapes)]
+    head = _dumps_skeleton((skeleton, specs))
+    parts: list = [bytes([_PAYLOAD_NDARRAY]) + struct.pack("!q", len(head)) + head]
+    total = len(parts[0])
+    for a in arrays:
+        if a.size == 0:
+            continue  # the spec alone rebuilds an empty array
+        m = memoryview(a).cast("B")
+        parts.append(m)
+        total += len(m)
+    return parts, total
+
+
+def _decode_host_payload(raw: bytes):
+    """Inverse of ``_encode_host_payload``; arrays come back as fresh
+    writable copies."""
+    kind = raw[0]
+    body = memoryview(raw)[1:]
+    if kind == _PAYLOAD_PICKLE:
+        return pickle.loads(body)
+    if kind != _PAYLOAD_NDARRAY:
+        raise RuntimeError(f"host collective payload: unknown wire format {kind}")
+    head_len = struct.unpack("!q", body[:8])[0]
+    skeleton, specs = _SkeletonUnpickler(io.BytesIO(body[8:8 + head_len])).load()
+    offset = 1 + 8 + head_len
+    arrays = []
+    for dt, shape in specs:
+        dtype = np.dtype(dt)
+        count = int(np.prod(shape, dtype=np.int64))
+        arrays.append(np.frombuffer(raw, dtype, count=count, offset=offset).reshape(shape).copy())
+        offset += count * dtype.itemsize
+
+    def restore(x):
+        if isinstance(x, _NdRef):
+            return arrays[x.i]
+        if isinstance(x, dict):
+            return {k: restore(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            vals = [restore(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        if isinstance(x, list):
+            return [restore(v) for v in x]
+        return x
+
+    return restore(skeleton)
+
+
+# -- knobs ----------------------------------------------------------------------
+
+
+def _p2p_timeout_s() -> float | None:
+    """``PHOTON_P2P_TIMEOUT_S`` (seconds, default 300; 0 or negative:
+    blocking sockets): every socket operation of the mesh (accept,
+    connect, send, recv) times out, so a dead or silent peer raises
+    instead of hanging the exchange."""
+    env = os.environ.get("PHOTON_P2P_TIMEOUT_S")
+    if env is not None and env != "":
+        v = float(env)
+        return v if v > 0 else None
+    return 300.0
+
+
+def _configure_link_socket(sock) -> None:
+    """The mesh's socket policy: the knob's timeout and TCP_NODELAY (small
+    length-prefixed frames must not wait on Nagle)."""
+    sock.settimeout(_p2p_timeout_s())
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+
+def _p2p_retries() -> int:
+    """``PHOTON_P2P_RETRIES`` (default 0: any link error tears the mesh
+    down and raises, as before). N > 0 arms the reliable mode: a completion
+    ACK ends every framed exchange (so one process's failure fails every
+    process's exchange alike), a failed exchange is retried up to N times
+    through the teardown and rebuild, with exponential backoff, and gloo
+    and ring-collective failures harden into ``PeerLost``."""
+    env = os.environ.get("PHOTON_P2P_RETRIES")
+    if env is not None and env != "":
+        return max(int(env), 0)
+    return 0
+
+
+def _p2p_backoff_s() -> float:
+    """``PHOTON_P2P_BACKOFF_S`` (seconds, default 0.5): attempt k sleeps
+    ``base * 2**k`` times one plus a jitter fraction in [0, 0.5) derived
+    from (process index, attempt), with no random state."""
+    env = os.environ.get("PHOTON_P2P_BACKOFF_S")
+    if env is not None and env != "":
+        return max(float(env), 0.0)
+    return 0.5
+
+
+def _retry_backoff_sleep(attempt: int) -> float:
+    base = _p2p_backoff_s()
+    if base <= 0.0:
+        return 0.0
+    pid = _self_pid()
+    jitter = ((pid * 2654435761 + attempt * 40503) % 512) / 1024.0
+    return base * (2.0 ** attempt) * (1.0 + jitter)
+
+
+def _p2p_crc_enabled() -> bool:
+    """``PHOTON_P2P_CRC`` (default 0): advertise frame protocol v1 (the
+    CRC32 trailer) in the mesh hello. A link carries the trailer only when
+    both ends advertised it; off, the wire bytes are the plain framing."""
+    env = os.environ.get("PHOTON_P2P_CRC")
+    if env is not None and env != "":
+        return int(env) != 0
+    return False
+
+
+def _p2p_heartbeat_s() -> float | None:
+    """``PHOTON_P2P_HEARTBEAT_S`` (seconds, default 5; 0 or negative
+    disables): while a framed send or receive is blocked on a silent peer
+    and a telemetry sink is on, one ``p2p_heartbeat`` record per interval,
+    long before the ``PHOTON_P2P_TIMEOUT_S`` abort."""
+    env = os.environ.get("PHOTON_P2P_HEARTBEAT_S")
+    if env is not None and env != "":
+        v = float(env)
+        return v if v > 0 else None
+    return 5.0
+
+
+# frame-protocol versions a process advertises in the mesh hello: 0 =
+# length-prefixed frames, 1 = length prefix + payload + CRC32 trailer. The
+# hello int packs ``pid | (version << 16)``: version 0 leaves it the pid.
+_FRAME_PROTO_CRC = 1
+
+
+class LinkCorruption(ConnectionError):
+    """A framed payload failed its CRC32 check: the frame arrived, its bytes
+    are wrong. A transient for the retry layer."""
+
+
+class PeerUnreachable(ConnectionError):
+    """A mesh (re)build could not reach one peer (connect refused or timed
+    out, accept never arrived). Transient until the retries run out, then
+    it hardens into ``PeerLost``."""
+
+    def __init__(self, peer: int, message: str):
+        super().__init__(message)
+        self.peer = peer
+
+
+class PeerLost(ConnectionError):
+    """The transport has given up on a peer (``peer`` -1 when the failing
+    link is unknown). A caller with a recovery path confirms the loss with a
+    roll call and degrades; any other gets an abort that names the peer
+    instead of a timeout."""
+
+    def __init__(self, peer: int, message: str):
+        super().__init__(message)
+        self.peer = peer
+
+
+# -- the degraded group -----------------------------------------------------------
+# After a confirmed loss the gloo group is unusable (every collective would
+# include, and fail or hang on, the dead process), so recovery shrinks the
+# world on the host: a degraded group names the surviving original process
+# indices, every collective of this module rides the mesh among them (whose
+# addresses are cached: no gloo collective needed), and the effective index
+# and count replace the gloo rank and size.
+
+_DEGRADED: dict | None = None
+
+
+def degraded_group() -> dict | None:
+    return _DEGRADED
+
+
+def effective_process_count() -> int:
+    if _DEGRADED is not None:
+        return len(_DEGRADED["survivors"])
+    return _world_size()
+
+
+def effective_process_index() -> int:
+    if _DEGRADED is not None:
+        return _DEGRADED["rank"]
+    return _self_pid()
+
+
+def effective_topology() -> tuple:
+    """The topology this process computes under, as a hashable cache key:
+    (backend, local card count, effective process count). A cache keyed on
+    it never re-enters state built for the group before a degrade."""
+    return ("cuda" if torch.cuda.is_available() else "cpu", torch.cuda.device_count(),
+            effective_process_count())
+
+
+def set_degraded_group(survivors) -> None:
+    """Shrink this process's world to ``survivors`` (original process
+    indices, this process among them). Tears the mesh down: the next
+    exchange rebuilds it over the survivors from the cached addresses."""
+    global _DEGRADED
+    survivors = tuple(sorted(int(s) for s in survivors))
+    pid = _self_pid()
+    if pid not in survivors:
+        raise ValueError(f"process {pid} cannot join a degraded group {survivors} that excludes it")
+    _reset_host_links()
+    if len(survivors) == _world_size() and _DEGRADED is None:
+        return  # the whole group: not degraded
+    _DEGRADED = {"survivors": survivors, "rank": survivors.index(pid)}
+    REGISTRY.gauge_set("fleet.survivors", float(len(survivors)))
+    emit_event("degraded_group", survivors=list(survivors), rank=_DEGRADED["rank"])
+
+
+def _orig_pid(rank: int) -> int:
+    """Effective rank -> original process index."""
+    if _DEGRADED is not None:
+        return _DEGRADED["survivors"][rank]
+    return rank
+
+
+# -- frames -------------------------------------------------------------------------
+
+# the cached mesh: {"send": {pid: socket}, "recv": {pid: socket}, "proto": {pid: version}}
+_HOST_LINKS: dict | None = None
+
+# per-link frame-set counters: every process issues the same exchanges at
+# the same program points, so the k-th frame set sent on link i→j is the
+# k-th received there, and both ends derive the correlation id
+# ``p2p:<src>><dst>#<k>`` with no bytes on the wire; a fault plan's ``seq``
+# names it too. Counted whether or not a sink is on.
+_LINK_SEQ: dict = {"send": {}, "recv": {}}
+
+
+def _next_link_seq(direction: str, peer: int) -> int:
+    seqs = _LINK_SEQ[direction]
+    seqs[peer] = seqs.get(peer, 0) + 1
+    return seqs[peer]
+
+
+def _sink_active() -> bool:
+    return _sink.is_active()
+
+
+def _reset_host_links() -> None:
+    """Close every cached mesh socket and forget the mesh, so the next
+    exchange rebuilds it. Called on any mesh error: after a partial send or
+    receive the framing of the surviving streams is undefined, so the only
+    safe state is no mesh. Peers fail fast against the closed sockets on
+    their next use and reset too. The frame counters restart with the mesh."""
+    global _HOST_LINKS
+    links, _HOST_LINKS = _HOST_LINKS, None
+    _LINK_SEQ["send"] = {}
+    _LINK_SEQ["recv"] = {}
+    if not links:
+        return
+    for side in ("send", "recv"):
+        for sock in links.get(side, {}).values():
+            _close_quietly(sock)
+
+
+def _is_loopback(ip: str) -> bool:
+    return ip.startswith("127.") or ip in ("0.0.0.0", "localhost", "::1")
+
+
+def _coordinator_is_loopback(host: str) -> bool:
+    """True when the coordinator host is loopback, literally or through
+    name resolution (a machine's own hostname often maps to 127.0.1.1)."""
+    if not host:
+        return False
+    if _is_loopback(host):
+        return True
+    try:
+        return _is_loopback(socket.gethostbyname(host))
+    except OSError:
+        return False
+
+
+def _local_ip() -> str:
+    """This host's address as peers dial it: ``PHOTON_EXCHANGE_HOST`` when
+    set; 127.0.0.1 when the coordinator is loopback (every process then
+    runs on this machine); else the interface that routes toward the
+    coordinator (a UDP connect sends no packet), else this hostname's
+    address. Unlike the reference it probes no address outside the
+    cluster. An address that is still loopback with several processes and
+    a remote coordinator fails fast: remote peers would dial themselves."""
+    explicit = os.environ.get("PHOTON_EXCHANGE_HOST")
+    if explicit:
+        return explicit
+    target = os.environ.get("JAX_COORDINATOR_ADDRESS") or _COORDINATOR[0]
+    host = target.rsplit(":", 1)[0] if target else ""
+    if _coordinator_is_loopback(host):
+        return "127.0.0.1"
+    last = "127.0.0.1"
+    if host:
+        try:
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+                s.connect((host, 53))
+                ip = s.getsockname()[0]
+            if not _is_loopback(ip):
+                return ip
+            last = ip
+        except OSError:
+            pass
+    try:
+        ip = socket.gethostbyname(socket.gethostname())
+        if not _is_loopback(ip):
+            return ip
+        last = ip
+    except OSError:
+        pass
+    if _world_size() > 1:
+        raise RuntimeError(
+            f"host exchange address discovery found only loopback {last!r} with process_count="
+            f"{_world_size()} and coordinator {host!r}: remote peers cannot dial it. Set "
+            "PHOTON_EXCHANGE_HOST to this host's reachable address.")
+    return last
+
+
+def _recv_exact(sock, n: int, peer: int | None = None, tag: str | None = None,
+                heartbeat: float | None = None) -> bytes:
+    """``n`` bytes from ``sock``. ``heartbeat=None`` (always when no sink is
+    on: callers decide once per exchange) is the plain recv loop; with a
+    heartbeat the recv polls and emits a ``p2p_heartbeat`` per silent
+    interval, the knob's timeout still bounding the silence."""
+    if heartbeat is None:
+        chunks = []
+        while n:
+            part = sock.recv(min(n, 1 << 20))
+            if not part:
+                raise ConnectionError("exchange peer closed the connection")
+            chunks.append(part)
+            n -= len(part)
+        return b"".join(chunks)
+    timeout_s = _p2p_timeout_s()
+    chunks = []
+    silent = 0.0
+    with selectors.DefaultSelector() as sel:
+        sel.register(sock, selectors.EVENT_READ)
+        while n:
+            t0 = time.perf_counter()
+            if not sel.select(timeout=heartbeat):
+                silent += time.perf_counter() - t0
+                emit_event("p2p_heartbeat", peer=peer, tag=tag, blocked_s=silent, bytes_remaining=n,
+                           direction="recv")
+                if timeout_s is not None and silent >= timeout_s:
+                    raise socket.timeout(f"exchange recv from process {peer} silent for {silent:.1f}s "
+                                         "(PHOTON_P2P_TIMEOUT_S)")
+                continue
+            part = sock.recv(min(n, 1 << 20))
+            if not part:
+                raise ConnectionError("exchange peer closed the connection")
+            silent = 0.0
+            chunks.append(part)
+            n -= len(part)
+    return b"".join(chunks)
+
+
+def _sendall_hb(sock, data, peer: int | None = None, tag: str | None = None,
+                heartbeat: float | None = None) -> None:
+    """``sock.sendall(data)``; with a heartbeat, a send stalled on a full
+    buffer toward a wedged peer emits ``p2p_heartbeat`` records
+    (``direction: send``) and times out after the knob's silence."""
+    if heartbeat is None:
+        sock.sendall(data)
+        return
+    timeout_s = _p2p_timeout_s()
+    view = memoryview(data)
+    silent = 0.0
+    with selectors.DefaultSelector() as sel:
+        sel.register(sock, selectors.EVENT_WRITE)
+        while view:
+            t0 = time.perf_counter()
+            if not sel.select(timeout=heartbeat):
+                silent += time.perf_counter() - t0
+                emit_event("p2p_heartbeat", peer=peer, tag=tag, blocked_s=silent, bytes_remaining=len(view),
+                           direction="send")
+                if timeout_s is not None and silent >= timeout_s:
+                    raise socket.timeout(f"exchange send to process {peer} blocked for {silent:.1f}s "
+                                         "(PHOTON_P2P_TIMEOUT_S)")
+                continue
+            sent = sock.send(view)
+            if sent == 0:
+                raise ConnectionError("exchange peer closed the connection")
+            silent = 0.0
+            view = view[sent:]
+
+
+def _send_frame(sock, payload: bytes, crc: bool, peer: int | None = None, tag: str | None = None,
+                heartbeat: float | None = None, corrupt_wire: bool = False) -> None:
+    """One frame: the 8-byte length prefix, the payload and, on a CRC link,
+    the CRC32 trailer of the payload (the prefix never counts it).
+    ``corrupt_wire`` (fault injection) flips a payload byte after the
+    trailer is computed."""
+    wire = faults._corrupt(payload) if corrupt_wire else payload
+    _sendall_hb(sock, struct.pack("!q", len(payload)), peer, tag, heartbeat)
+    _sendall_hb(sock, wire, peer, tag, heartbeat)
+    if crc:
+        _sendall_hb(sock, struct.pack("!I", zlib.crc32(payload)), peer, tag, heartbeat)
+
+
+def _send_frame_parts(sock, parts: list, total: int, crc: bool, peer: int | None = None,
+                      tag: str | None = None, heartbeat: float | None = None,
+                      corrupt_wire: bool = False) -> None:
+    """``_send_frame`` for a payload in several buffers: one prefix for the
+    whole, each part streamed without concatenation, and one trailer over
+    the parts (equal to the trailer over their concatenation)."""
+    wire = parts
+    if corrupt_wire and parts:
+        wire = [faults._corrupt(bytes(parts[0])), *parts[1:]]
+    _sendall_hb(sock, struct.pack("!q", total), peer, tag, heartbeat)
+    for p in wire:
+        _sendall_hb(sock, p, peer, tag, heartbeat)
+    if crc:
+        c = 0
+        for p in parts:
+            c = zlib.crc32(p, c)
+        _sendall_hb(sock, struct.pack("!I", c & 0xFFFFFFFF), peer, tag, heartbeat)
+
+
+def _recv_frame_payload(sock, n: int, crc: bool, peer: int | None = None, tag: str | None = None,
+                        heartbeat: float | None = None) -> bytes:
+    """The payload of a frame whose prefix was read, its trailer checked on
+    a CRC link (a mismatch raises ``LinkCorruption``)."""
+    raw = _recv_exact(sock, n, peer, tag, heartbeat)
+    if crc:
+        want = struct.unpack("!I", _recv_exact(sock, 4, peer, tag, heartbeat))[0]
+        got = zlib.crc32(raw)
+        if got != want:
+            raise LinkCorruption(f"exchange frame from process {peer} tag {tag!r}: CRC32 mismatch "
+                                 f"(got {got:#010x}, trailer {want:#010x})")
+    return raw
+
+
+# the reliable mode's completion ACK: one byte a link an exchange, confirming
+# the peer finished its whole exchange
+_ACK_BYTE = b"\xa5"
+
+# every process's (ip, port), from the first build (or, with retries armed,
+# from initialize_multihost): rebuilds reuse them and re-bind this process's
+# recorded port, with no gloo collective, so a rebuild is legal on the
+# exchange worker and in a degraded group
+_HOST_ADDRS: dict[int, tuple[str, int]] | None = None
+
+# serializes mesh builds across threads
+_LINKS_BUILD_LOCK = threading.RLock()
+
+
+def _hello_int(pid: int) -> int:
+    """The mesh hello: the sender's pid, the advertised frame protocol in
+    the high bytes (version 0 leaves the int the pid)."""
+    proto = _FRAME_PROTO_CRC if _p2p_crc_enabled() else 0
+    return pid | (proto << 16)
+
+
+def _decode_hello(raw: int) -> tuple[int, int]:
+    return raw & 0xFFFF, raw >> 16
+
+
+def _close_quietly(sock) -> None:
+    try:
+        sock.close()
+    except OSError:  # closing is best effort on a torn mesh
+        pass
+
+
+def _gather_link_addrs(own: tuple[str, int]) -> dict[int, tuple[str, int]]:
+    """Every process's (IPv4, port) as five small ints, over gloo: the one
+    collective the mesh uses, in program order on the calling thread."""
+    p = _world_size()
+    ip = np.frombuffer(socket.inet_aton(own[0]), np.uint8).astype(np.int64)
+    mine = np.concatenate([ip, [own[1]]]).astype(np.int64)
+    addrs = np.stack([g[0] for g in _gather_arrays([mine], tag="link_addrs")]).reshape(p, 5)
+    return {q: (socket.inet_ntoa(addrs[q, :4].astype(np.uint8).tobytes()), int(addrs[q, 4])) for q in range(p)}
+
+
+def _bootstrap_link_addrs() -> None:
+    """Record every process's mesh address now (a listener bound once for
+    its port, then closed; the builds re-bind it)."""
+    global _HOST_ADDRS
+    with _LINKS_BUILD_LOCK:
+        if _HOST_ADDRS is not None:
+            return
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            srv.bind((_local_ip(), 0))
+            own = srv.getsockname()[:2]
+        finally:
+            srv.close()
+        _HOST_ADDRS = _gather_link_addrs(own)
+
+
+def _build_host_links(peers: list[int], timeout_s, srv=None) -> dict:
+    """One full-mesh build over ``peers`` (original pids, this process
+    among them): every ordered pair gets its own one-way TCP connection, so
+    concurrent sends and receives never share a stream. On any partial
+    failure the established sockets and the listener close and the acceptor
+    thread is joined before the error propagates: a half-built mesh leaks
+    nothing into the next attempt. Returns ``{"send": {pid: sock}, "recv":
+    {pid: sock}, "proto": {pid: negotiated version}}``."""
+    global _HOST_ADDRS
+    pid = _self_pid()
+    others = [p for p in peers if p != pid]
+    first_build = _HOST_ADDRS is None
+    if srv is None:
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.settimeout(timeout_s)  # accept() must not hang on a dead peer
+        # the listener binds the address peers dial, never every interface;
+        # rebuilds bind the recorded one (peers dial the cached address)
+        own = (_local_ip(), 0) if first_build else _HOST_ADDRS[pid]
+        try:
+            srv.bind(own)
+        except OSError:
+            srv.close()
+            raise
+        srv.listen(max(len(peers), 1))
+    if first_build:
+        try:
+            _HOST_ADDRS = _gather_link_addrs(srv.getsockname()[:2])
+        except BaseException:
+            _HOST_ADDRS = None
+            srv.close()
+            raise
+
+    recv_socks: dict[int, socket.socket] = {}
+    recv_protos: dict[int, int] = {}
+    accept_err: list[BaseException] = []
+    peer_ips = {_HOST_ADDRS[p][0] for p in others}
+
+    def accept_all():
+        try:
+            while len(recv_socks) < len(others):
+                # only a peer of this build, from the address it published,
+                # may open a link (its frames are unpickled): any other
+                # connection is dropped before or at its hello
+                conn, addr = srv.accept()
+                if addr[0] not in peer_ips:
+                    _close_quietly(conn)
+                    continue
+                _configure_link_socket(conn)
+                src, proto = _decode_hello(struct.unpack("!i", _recv_exact(conn, 4))[0])
+                if src not in others or addr[0] != _HOST_ADDRS[src][0]:
+                    _close_quietly(conn)
+                    continue
+                if src in recv_socks:
+                    # a peer re-dialed (its previous attempt aborted): the old socket is dead
+                    _close_quietly(recv_socks[src])
+                recv_socks[src] = conn
+                recv_protos[src] = proto
+        except BaseException as e:
+            accept_err.append(e)
+
+    acceptor = threading.Thread(target=accept_all, daemon=True)
+    acceptor.start()
+    send_socks: dict[int, socket.socket] = {}
+    try:
+        for peer in sorted(others, key=lambda p: (p - pid) % max(len(peers), 1)):
+            peer_ip, peer_port = _HOST_ADDRS[peer]
+            # dial with patience while our own listener stays up: in a
+            # concurrent rebuild a refusal only means the peer has not
+            # re-listened yet (giving up at once would livelock two peers)
+            deadline = time.monotonic() + (timeout_s if timeout_s is not None else 30.0)
+            while True:
+                try:
+                    s = socket.create_connection((peer_ip, peer_port), timeout=timeout_s)
+                    break
+                except OSError as e:
+                    if time.monotonic() >= deadline:
+                        raise PeerUnreachable(peer, f"exchange mesh build: cannot connect to process {peer} "
+                                                    f"at {peer_ip}:{peer_port}: {e}") from e
+                    time.sleep(0.05)
+            _configure_link_socket(s)
+            s.sendall(struct.pack("!i", _hello_int(pid)))
+            send_socks[peer] = s
+        acceptor.join(timeout=timeout_s)
+        if acceptor.is_alive() or len(recv_socks) != len(others):
+            missing = sorted(set(others) - set(recv_socks))
+            msg = (f"host exchange mesh incomplete: accepted {len(recv_socks)} of {len(others)} peers"
+                   + (f" (missing {missing})" if missing else ""))
+            # name the lowest missing peer: the retry and roll-call tier
+            # needs one suspect to treat the failure as transient
+            raise PeerUnreachable(missing[0], msg) if missing else RuntimeError(msg)
+    except BaseException:
+        # closing the listener unblocks a live acceptor, so the join cannot hang
+        srv.close()
+        for s in send_socks.values():
+            _close_quietly(s)
+        for s in recv_socks.values():
+            _close_quietly(s)
+        acceptor.join(timeout=timeout_s)
+        raise
+    srv.close()
+    my_proto = _FRAME_PROTO_CRC if _p2p_crc_enabled() else 0
+    # a link carries the CRC trailer only when both ends advertised it
+    proto = {p: min(my_proto, recv_protos.get(p, 0)) for p in others}
+    return {"send": send_socks, "recv": recv_socks, "proto": proto}
+
+
+def _links_in_program_order(tag: str) -> None:
+    """Build the mesh on the calling thread before an exchange goes to the
+    worker (the first build's address gather is a collective, in program
+    order). A rebuild that cannot reach a peer (the worker's previous
+    exchange tore the mesh down over a dead one) hardens into ``PeerLost``
+    as the exchange itself would: in a degraded group always, in a whole
+    one when the reliable mode is armed."""
+    try:
+        _host_links()
+    except OSError as e:
+        _reset_host_links()
+        if _DEGRADED is not None or _p2p_retries() > 0:
+            raise PeerLost(getattr(e, "peer", -1), f"exchange {tag!r}: mesh rebuild failed: {e}") from e
+        raise
+
+
+def _host_links() -> dict:
+    """The (lazily built) mesh of the current group: every process, or the
+    survivors once degraded. The first build is a collective (the address
+    gather) unless the addresses are cached; rebuilds are not."""
+    global _HOST_LINKS
+    with _LINKS_BUILD_LOCK:
+        if _HOST_LINKS is not None:
+            return _HOST_LINKS
+        peers = list(_DEGRADED["survivors"]) if _DEGRADED is not None else list(range(_world_size()))
+        _HOST_LINKS = _build_host_links(peers, _p2p_timeout_s())
+        return _HOST_LINKS
+
+
+# -- the ring collectives -----------------------------------------------------------
+
+
+def _ring_allgather(links: dict, ordered_pids: list[int], rank: int, obj, tag: str,
+                    heartbeat: float | None, stats: dict | None = None) -> list:
+    """One framed allgather of a host object over an explicit ring:
+    ``ordered_pids[rank]`` is this process, links keyed by original pid.
+    The one implementation behind the degraded group's collectives, the
+    roll call's agreement and the owner-segment collectives. Bumps the
+    per-link frame counters like every framed user. ``stats`` receives
+    ``payload_bytes``, ``bytes_sent`` (payload × (P − 1)) and
+    ``bytes_recv``. Returns the per-rank list."""
+    protos = links.get("proto", {})
+    parts, total = _encode_host_payload(obj)
+    P_ = len(ordered_pids)
+    own_pid = ordered_pids[rank]
+    plan = faults.active_plan()
+    out: dict[int, object] = {rank: obj}
+    err: list[BaseException] = []
+
+    def send_all():
+        peer_pid = None
+        try:
+            for r in range(1, P_):
+                peer_pid = ordered_pids[(rank + r) % P_]
+                seq = _next_link_seq("send", peer_pid)
+                wire_parts, corrupt_wire = parts, False
+                if plan is not None:
+                    spec = plan.pop_send_fault(own_pid, peer_pid, seq, tag)
+                    if spec is not None:
+                        wire_parts, corrupt_wire = faults.apply_send_fault(spec, parts, links["send"][peer_pid])
+                if wire_parts is None:
+                    continue  # the frame set was dropped
+                _send_frame_parts(links["send"][peer_pid], wire_parts, total,
+                                  protos.get(peer_pid, 0) >= _FRAME_PROTO_CRC, peer_pid, tag, heartbeat,
+                                  corrupt_wire=corrupt_wire)
+        except BaseException as e:
+            e.peer = getattr(e, "peer", peer_pid)
+            err.append(e)
+
+    t = threading.Thread(target=send_all)
+    t.start()
+    bytes_recv = 0
+    # a receive error propagates without the join: the caller's teardown
+    # closes the sockets, which ends a sender blocked on a dead peer
+    for r in range(1, P_):
+        src_rank = (rank - r) % P_
+        src_pid = ordered_pids[src_rank]
+        sock = links["recv"][src_pid]
+        _next_link_seq("recv", src_pid)
+        try:
+            n = struct.unpack("!q", _recv_exact(sock, 8, src_pid, tag, heartbeat))[0]
+            raw = _recv_frame_payload(sock, n, protos.get(src_pid, 0) >= _FRAME_PROTO_CRC, src_pid, tag,
+                                      heartbeat)
+        except BaseException as e:
+            # name the silent link: the roll call wants a suspect
+            e.peer = getattr(e, "peer", src_pid)
+            raise
+        bytes_recv += n
+        out[src_rank] = _decode_host_payload(raw)
+    t.join()
+    if err:
+        raise err[0]
+    if stats is not None:
+        stats.update(payload_bytes=total, bytes_sent=total * (P_ - 1), bytes_recv=bytes_recv)
+    return [out[r] for r in range(P_)]
+
+
+def _p2p_allgather_obj(obj, tag: str = "host_collective", drain: bool = True, stats: dict | None = None) -> list:
+    """Allgather one host object over the mesh of the current group (the
+    degraded group's collectives, and the owner-segment collectives of a
+    whole one). The per-rank list in ascending rank. A synchronous call
+    drains the exchange worker first (``drain=False`` is the worker's own
+    call). A link failure here hardens into ``PeerLost`` (peer -1 when the
+    link is unknown) in a degraded group always, and in a whole one when
+    the reliable mode is armed: these collectives have no completion ACK,
+    so a retry inside could desync the peers, while the failure is
+    symmetric and the caller's roll call decides. With retries unset a
+    whole group's error propagates raw."""
+    P_ = effective_process_count()
+    pid = effective_process_index()
+    if P_ <= 1:
+        if stats is not None:
+            stats.update(payload_bytes=0, bytes_sent=0, bytes_recv=0)
+        return [obj]
+    if drain:
+        drain_async_exchanges()
+    try:
+        links = _host_links()
+        heartbeat = _p2p_heartbeat_s() if _sink_active() else None
+        return _ring_allgather(links, [_orig_pid(r) for r in range(P_)], pid, obj, tag, heartbeat, stats=stats)
+    except BaseException as e:
+        _reset_host_links()
+        if isinstance(e, OSError):
+            if _DEGRADED is not None:
+                raise PeerLost(getattr(e, "peer", -1), f"degraded-group host collective {tag!r} failed: {e}") from e
+            if _p2p_retries() > 0:
+                raise PeerLost(getattr(e, "peer", -1),
+                               f"host collective {tag!r} failed on the full mesh: {e}") from e
+        raise
+
+
+def allgather_obj_p2p(obj, tag: str = "host_collective", stats: dict | None = None) -> list:
+    """Every process's host object in rank order, over the mesh of the
+    current group (whole or degraded): the owner-segment collectives ride
+    it. Array payloads travel raw. ``[obj]`` on one process. A collective."""
+    return _p2p_allgather_obj(obj, tag=tag, stats=stats)
+
+
+def _fragment_may_proceed(survivors, group) -> bool:
+    """The roll call's split-brain quorum: a fragment proceeds iff it holds
+    a strict majority of the group's members, or exactly half of them
+    including the group's writer (its lowest member). Only members count.
+    At most one fragment of any partition passes."""
+    group = sorted(group)
+    writer = group[0]
+    members = [s for s in survivors if s in group]
+    if 2 * len(members) > len(group):
+        return True
+    return 2 * len(members) == len(group) and writer in members
+
+
+def roll_call(window_s: float | None = None, candidates: Sequence[int] | None = None,
+              guard_group: Sequence[int] | None = None) -> list[int]:
+    """The survivor census after a suspected loss. Every process that met
+    ``PeerLost`` on the same exchange calls it at the same program point:
+    each rebuilds a mesh over the candidates from the cached addresses,
+    dropping a peer that stays unreachable past the window
+    (``PHOTON_ROLLCALL_WINDOW_S``, default 10 s), then the survivors trade
+    their reachable sets over the mesh and agree on the intersection.
+    Returns the sorted surviving original indices (this process among
+    them). ``candidates`` widens the census past the current group and
+    ``guard_group`` names the membership the quorum is judged by (both for
+    the rejoin roll call, 12d-v-b); a fragment without the quorum
+    (``_fragment_may_proceed``) raises rather than risk a second writer."""
+    global _HOST_LINKS
+    if window_s is None:
+        env = os.environ.get("PHOTON_ROLLCALL_WINDOW_S")
+        window_s = float(env) if env else 10.0
+    with _LINKS_BUILD_LOCK:
+        _reset_host_links()
+        pid = _self_pid()
+        if guard_group is not None:
+            group = sorted(int(p) for p in guard_group)
+        elif _DEGRADED is not None:
+            group = list(_DEGRADED["survivors"])
+        else:
+            group = list(range(_world_size()))
+        candidates = list(group) if candidates is None else sorted(int(p) for p in candidates)
+        deadline = time.monotonic() + window_s
+        # survivors enter at times spread over their retry budgets, and each
+        # removal needs one more agreement over the reduced set: keep probing
+        # past the window up to a give-up that grows with every removal
+        give_up = deadline + window_s
+        probe_timeout = max(min(2.0, window_s / 4.0), 0.2)
+        survivors = None
+        while len(candidates) > 1:
+            try:
+                links = _build_host_links(candidates, probe_timeout)
+            except PeerUnreachable as e:
+                if time.monotonic() >= deadline:
+                    candidates.remove(e.peer)
+                    # the reduced set gets a fresh window: its members may
+                    # still be probing the removed peer
+                    deadline = time.monotonic() + window_s
+                    give_up = max(give_up, deadline + window_s)
+                else:
+                    time.sleep(probe_timeout / 2.0)
+                continue
+            except (OSError, RuntimeError):
+                # a build race (two peers mid-rebuild): retry until the give-up
+                if time.monotonic() >= give_up:
+                    break
+                time.sleep(probe_timeout / 2.0)
+                continue
+            _HOST_LINKS = links
+            try:
+                views = _ring_allgather(links, candidates, candidates.index(pid), list(candidates), "rollcall",
+                                        None)
+            except OSError:
+                # the agreement raced a peer whose own build failed after ours
+                # succeeded: rebuild and agree again
+                _reset_host_links()
+                if time.monotonic() >= give_up:
+                    break
+                time.sleep(probe_timeout / 2.0)
+                continue
+            agreed = set(candidates)
+            for v in views:
+                agreed &= set(v)
+            if pid not in agreed:
+                _reset_host_links()
+                raise RuntimeError(f"roll call excluded this process ({pid}): survivors agreed on {sorted(agreed)}")
+            if agreed != set(candidates):
+                # another survivor could not reach a candidate this one could:
+                # the intersection, rebuilt
+                _reset_host_links()
+                candidates = sorted(agreed)
+                if len(candidates) > 1:
+                    _HOST_LINKS = _build_host_links(candidates, _p2p_timeout_s())
+            survivors = sorted(candidates)
+            break
+        if survivors is None:
+            _reset_host_links()
+            survivors = [pid]
+        if not _fragment_may_proceed(survivors, group):
+            _reset_host_links()
+            emit_event("roll_call_abort", survivors=survivors, group=list(group))
+            raise RuntimeError(
+                f"roll call reached only {survivors} of {sorted(group)}: a fragment without a strict member "
+                f"majority (or exactly half the group including the writer, process {min(group)}) must abort "
+                "rather than risk a split-brain second writer — restart this process")
+        emit_event("roll_call", survivors=survivors, lost=[p for p in group if p not in survivors])
+        return survivors
+
+
+def _host_p2p_exchange(arrays, order, starts, counts_matrix=None, transport: str = "p2p_host", tag: str = "",
+                       stats: dict | None = None):
+    """The mesh transport of ``exchange_rows``: each (source, destination)
+    block travels exactly, length-prefixed, over its pair's own link, with
+    no padding under any skew. Sends run on a helper thread in rotation
+    order (round r: send to rank + r, receive from rank − r), so every
+    receiver drains concurrently. The result's layout is the gloo
+    transport's (ascending source, stable within a source).
+
+    Any error tears this process's mesh down. With ``PHOTON_P2P_RETRIES``
+    > 0 a transient link fault (refused connect, timeout, EOF, CRC
+    mismatch: an ``OSError``) is retried with backoff through the rebuild
+    from the cached addresses, with no collective, so a retry is legal on
+    the exchange worker; the completion ACK makes every process see the
+    same outcome, so all retry the same exchange. Retries exhausted against
+    an unreachable peer harden into ``PeerLost``. ``stats`` (else
+    ``LAST_EXCHANGE_STATS``) receives the exchange's stats."""
+    retries = _p2p_retries()
+    attempt = 0
+    while True:
+        try:
+            return _host_p2p_exchange_impl(arrays, order, starts, counts_matrix, transport, tag, stats)
+        except BaseException as e:
+            # closing the sockets also unblocks a sender stuck on a stalled peer
+            _reset_host_links()
+            transient = isinstance(e, OSError)
+            if transient and attempt < retries:
+                attempt += 1
+                backoff = _retry_backoff_sleep(attempt - 1)
+                REGISTRY.counter_inc("p2p.retries")
+                emit_event("p2p_retry", attempt=attempt, max_attempts=retries, tag=tag, error=type(e).__name__,
+                           peer=getattr(e, "peer", None), backoff_s=backoff)
+                if backoff > 0.0:
+                    time.sleep(backoff)
+                continue
+            if retries and transient:
+                REGISTRY.counter_inc("p2p.giveups")
+                emit_event("p2p_giveup", attempts=attempt, tag=tag, error=type(e).__name__,
+                           peer=getattr(e, "peer", None))
+                if isinstance(e, PeerUnreachable):
+                    raise PeerLost(e.peer, f"exchange retries exhausted ({retries}) against unreachable "
+                                           f"process {e.peer}: {e}") from e
+            raise
+
+
+def _host_p2p_exchange_impl(arrays, order, starts, counts_matrix, transport: str = "p2p_host", tag: str = "",
+                            stats: dict | None = None):
+    """One attempt. ``counts_matrix=None`` is the collective-free framing
+    (the overlapped schedule): each block's row count comes from its
+    length prefix, validated per key (a whole number of rows, every key of
+    a source agreeing)."""
+    P_ = effective_process_count()
+    pid = effective_process_index()
+    links = _host_links()
+    protos = links.get("proto", {})
+    reliable = _p2p_retries() > 0
+    plan = faults.active_plan()
+    keys = sorted(arrays)
+    parts: dict[str, dict[int, np.ndarray]] = {
+        k: {pid: np.ascontiguousarray(arrays[k][order[starts[pid]:starts[pid + 1]]])} for k in keys}
+    bytes_sent = 0
+    send_err: list[BaseException] = []
+    # decided once an exchange: the framing never flips mid-exchange
+    telemetry = _sink_active()
+    heartbeat = _p2p_heartbeat_s() if telemetry else None
+
+    def send_all():
+        nonlocal bytes_sent
+        try:
+            for r in range(1, P_):
+                peer = (pid + r) % P_
+                o_pid, o_peer = _orig_pid(pid), _orig_pid(peer)
+                sock = links["send"][o_peer]
+                crc = protos.get(o_peer, 0) >= _FRAME_PROTO_CRC
+                seq = _next_link_seq("send", o_peer)
+                t_start, t0 = time.time(), time.perf_counter()
+                rows = order[starts[peer]:starts[peer + 1]]
+                bufs = [np.ascontiguousarray(arrays[k][rows]).tobytes() for k in keys]
+                corrupt_wire = False
+                if plan is not None:
+                    spec = plan.pop_send_fault(o_pid, o_peer, seq, tag)
+                    if spec is not None:
+                        bufs, corrupt_wire = faults.apply_send_fault(spec, bufs, sock)
+                peer_bytes = 0
+                if bufs is not None:  # None: the frame set was dropped
+                    for j, buf in enumerate(bufs):
+                        _send_frame(sock, buf, crc, o_peer, tag, heartbeat, corrupt_wire=corrupt_wire and j == 0)
+                        peer_bytes += len(buf)
+                bytes_sent += peer_bytes
+                if telemetry:
+                    emit_event("p2p_send", peer=o_peer, bytes=peer_bytes, rows=int(starts[peer + 1] - starts[peer]),
+                               dur_s=time.perf_counter() - t0, t_start=t_start, corr=f"p2p:{o_pid}>{o_peer}#{seq}",
+                               tag=tag, transport=transport)
+        except BaseException as e:  # surfaced after the join
+            send_err.append(e)
+
+    sender = threading.Thread(target=send_all)
+    sender.start()
+    # a receive error propagates without the join (as in ``_ring_allgather``)
+    for r in range(1, P_):
+        src = (pid - r) % P_
+        o_pid, o_src = _orig_pid(pid), _orig_pid(src)
+        sock = links["recv"][o_src]
+        crc = protos.get(o_src, 0) >= _FRAME_PROTO_CRC
+        seq = _next_link_seq("recv", o_src)
+        t_start, t0 = time.time(), time.perf_counter()
+        src_bytes = src_rows = 0
+        n_src: int | None = None
+        for k in keys:
+            a = arrays[k]
+            row_bytes = a.itemsize * int(np.prod(a.shape[1:], dtype=np.int64))
+            got = struct.unpack("!q", _recv_exact(sock, 8, o_src, tag, heartbeat))[0]
+            if counts_matrix is not None:
+                n = int(counts_matrix[src, pid])
+                want = n * row_bytes
+                if got != want:
+                    raise RuntimeError(f"exchange size mismatch from process {o_src} key {k!r}: expected "
+                                       f"{want} bytes ({n} rows), got {got}")
+            else:
+                if row_bytes <= 0 or got % row_bytes:
+                    raise RuntimeError(f"exchange frame from process {o_src} key {k!r}: {got} bytes is not "
+                                       f"a multiple of the {row_bytes}-byte row")
+                n = got // row_bytes
+                if n_src is None:
+                    n_src = n
+                elif n != n_src:
+                    raise RuntimeError(f"exchange frames from process {o_src} disagree on row count: key "
+                                       f"{k!r} carries {n} rows, earlier keys carried {n_src}")
+            raw = _recv_frame_payload(sock, got, crc, o_src, tag, heartbeat)
+            src_bytes += got
+            src_rows = n
+            parts[k][src] = np.frombuffer(raw, a.dtype).reshape((n,) + a.shape[1:]).copy()
+        if telemetry:
+            emit_event("p2p_recv", peer=o_src, bytes=src_bytes, rows=int(src_rows),
+                       dur_s=time.perf_counter() - t0, t_start=t_start, corr=f"p2p:{o_src}>{o_pid}#{seq}",
+                       tag=tag, transport=transport)
+    sender.join()
+    if send_err:
+        raise send_err[0]
+    if reliable:
+        # the completion ACK (reliable mode only, absent from the knob-off
+        # wire): a link's ACK comes only after its peer finished its whole
+        # exchange, so any failure fails every process's exchange
+        for r in range(1, P_):
+            peer = (pid + r) % P_
+            _sendall_hb(links["send"][_orig_pid(peer)], _ACK_BYTE, _orig_pid(peer), tag, heartbeat)
+        for r in range(1, P_):
+            o_src = _orig_pid((pid - r) % P_)
+            got = _recv_exact(links["recv"][o_src], 1, o_src, tag, heartbeat)
+            if got != _ACK_BYTE:
+                raise RuntimeError(f"exchange completion ACK from process {o_src} carries {got!r} (stream desync)")
+    counts_send = np.diff(starts)
+    out_stats = dict(bytes_sent=bytes_sent, rows_sent=int(counts_send.sum()),
+                     padded_rows=int(counts_send.sum()) * len(arrays), transport=transport)
+    (LAST_EXCHANGE_STATS if stats is None else stats).update(out_stats)
+    return {k: np.concatenate([parts[k][s] for s in range(P_)]) for k in keys}
+
+
+# ---------------------------------------------------------------------------
+# the overlapped schedule (PHOTON_RE_SHARD=1)
 # ---------------------------------------------------------------------------
 # An exchange is issued at one program point and joined at a later one,
-# with solves, host work and collectives of the main thread in between.
-# Its body runs on one worker thread per process, in submission order,
-# over a second gloo group that no other code uses: every process submits
-# the same exchanges in the same order, so the worker's collectives pair
-# across processes, and they never interleave with the main thread's on
-# the default group (two threads issuing collectives on one group could
-# pair them in different orders on different processes). The group is
-# created collectively on the calling thread at the first exchange, in
+# with solves, host work and gloo collectives of the main thread in
+# between. Its body runs on one worker thread a process, in submission
+# order, on the mesh alone (collective-free: row counts ride the length
+# prefixes), so it never pairs against the main thread's collectives. The
+# mesh's first build (a collective) happens on the calling thread, in
 # program order.
-_ASYNC: dict = {"group": None, "pool": None}
+_EXCHANGE_POOL: list = [None]
 _EXCHANGE_LOCK = threading.Lock()  # the pending list and the overlap books
 _PENDING_EXCHANGES: list = []
 _EXCHANGE_TOTALS = {"exchange_s": 0.0, "wait_s": 0.0}
 
 
-def _exchange_group():
-    if _ASYNC["group"] is None:
-        _ASYNC["group"] = dist.new_group(backend=BACKEND, timeout=timedelta(seconds=_TIMEOUT_S[0]))
-    if _ASYNC["pool"] is None:
-        _ASYNC["pool"] = ThreadPoolExecutor(max_workers=1, thread_name_prefix="photon-exchange")
-    return _ASYNC["group"], _ASYNC["pool"]
+def _exchange_pool() -> ThreadPoolExecutor:
+    if _EXCHANGE_POOL[0] is None:
+        _EXCHANGE_POOL[0] = ThreadPoolExecutor(max_workers=1, thread_name_prefix="photon-exchange")
+    return _EXCHANGE_POOL[0]
 
 
 def _record_overlap(kind: str, seconds: float) -> None:
@@ -504,16 +1694,21 @@ def _record_overlap(kind: str, seconds: float) -> None:
     REGISTRY.gauge_set("re_shard.exchange_overlap_ratio", ratio)
 
 
+def _forget_pending(future) -> None:
+    with _EXCHANGE_LOCK:
+        _PENDING_EXCHANGES[:] = [e for e in _PENDING_EXCHANGES if e[0] is not future]
+
+
 class ExchangeHandle:
     """A pending ``exchange_rows_async``. ``result()`` blocks until the
     rows land and returns ``exchange_rows``' dict, or what the epilogue
     ``finish(rows, stats)`` makes of it. The first call joins, under a
     lock, so any thread may join (a prefetch worker, the main thread) and
-    the epilogue runs once; later calls return the same value. The blocked
-    seconds go to ``re_exchange.wait_s`` (and an ``exchange_wait`` record
-    while a sink is on). ``stats`` holds the exchange's
-    ``LAST_EXCHANGE_STATS`` keys, its ``seconds`` on the worker and the
-    joiner's ``wait_s`` once it has been joined."""
+    the epilogue runs once; later calls return the same value (a failed
+    exchange raises its error to every caller). The blocked seconds go to
+    ``re_exchange.wait_s`` (and an ``exchange_wait`` record while a sink is
+    on). ``stats`` holds the exchange's ``LAST_EXCHANGE_STATS`` keys, its
+    ``seconds`` on the worker and the joiner's ``wait_s`` once joined."""
 
     def __init__(self, future=None, value=None, tag: str = "", stats: dict | None = None, finish=None):
         self._future = future
@@ -540,8 +1735,7 @@ class ExchangeHandle:
                         waited = time.perf_counter() - t0
                         _record_overlap("wait_s", waited)
                         emit_event("exchange_wait", tag=self._tag, wait_s=waited)
-                        with _EXCHANGE_LOCK:
-                            _PENDING_EXCHANGES[:] = [e for e in _PENDING_EXCHANGES if e[0] is not self._future]
+                        _forget_pending(self._future)
                     self.stats = dict(stats, wait_s=waited)
                 self._value = out if self._finish is None else self._finish(out, self.stats)
                 self._future = self._finish = None
@@ -551,109 +1745,142 @@ class ExchangeHandle:
 
 def exchange_rows_async(arrays, dest: np.ndarray, tag: str = "", finish=None) -> ExchangeHandle:
     """``exchange_rows`` without blocking: a handle whose ``result()`` is
-    the same dict (or ``finish(rows, stats)`` of it). The rows travel on the exchange worker over the second
-    gloo group (created here, collectively, at the first call). Every
-    process calls it at the same program point; the arrays must not change
-    until the handle is joined. On one process it completes inline (the
-    identity), recording zero seconds so the overlap gauge exists there
-    too."""
+    the same dict (or ``finish(rows, stats)`` of it). The rows travel on
+    the exchange worker over the mesh, always (collective-free, and
+    padding-free for the skewed workloads the schedule exists for;
+    ``transport`` ``p2p_host_async``). Every process calls it at the same
+    program point; the arrays must not change until the handle is joined.
+    On one process it completes inline (the identity), recording zero
+    seconds so the overlap gauge exists there too."""
     arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
     dest = np.asarray(dest, np.int64).reshape(-1)
-    if process_count() <= 1:
+    P_ = process_count()
+    if P_ <= 1:
         _record_overlap("exchange_s", 0.0)
         _record_overlap("wait_s", 0.0)
         return ExchangeHandle(value=arrays, finish=finish, stats=dict(
             bytes_sent=0, rows_sent=len(dest), padded_rows=len(dest), transport="local", seconds=0.0, wait_s=0.0))
-    group, pool = _exchange_group()
+    order = np.argsort(dest, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(np.bincount(dest, minlength=P_).astype(np.int64))])
+    _links_in_program_order(tag)
 
     def run():
         t0 = time.perf_counter()
+        stats: dict = {}
         try:
-            out, stats, _ = _exchange_on(arrays, dest, tag, group)
+            out = _host_p2p_exchange(arrays, order, starts, None, transport="p2p_host_async", tag=tag, stats=stats)
         finally:
             dur = time.perf_counter() - t0
             _record_overlap("exchange_s", dur)
             emit_event("exchange", tag=tag, dur_s=dur)
-        return out, dict(stats, transport=f"{BACKEND}_async", seconds=dur)
+        return out, dict(stats, seconds=dur)
 
-    fut = pool.submit(run)
+    fut = _exchange_pool().submit(run)
     with _EXCHANGE_LOCK:
         _PENDING_EXCHANGES.append((fut, tag))
     return ExchangeHandle(future=fut, tag=tag, finish=finish)
 
 
+class ObjCollectiveHandle:
+    """A pending ``allgather_obj_p2p_async``: ``result()`` blocks until the
+    allgather lands and returns the per-rank list. It books nothing into
+    the ``re_exchange.*`` overlap accounting (owner-segment callers keep
+    their own ``re_combine.*`` books)."""
 
-def _allgather_bytes_exact(payload: bytes, group) -> tuple[list[bytes], int]:
-    """Every process's ``payload`` in rank order, each sent to every other
-    process at its own size (one all_to_all over the sizes' gather, no
-    padding to the largest). Returns the payloads and the bytes this
-    process sent."""
-    p, me = process_count(), process_index()
-    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(p)]
-    dist.all_gather(sizes, torch.tensor([len(payload)], dtype=torch.int64), group=group)
-    sizes = [int(x) for x in sizes]
-    n = len(payload)
-    send = torch.frombuffer(bytearray(payload * (p - 1)), dtype=torch.uint8) if n and p > 1 \
-        else torch.zeros(0, dtype=torch.uint8)
-    recv = torch.empty(sum(sz for q, sz in enumerate(sizes) if q != me), dtype=torch.uint8)
-    dist.all_to_all_single(recv, send, output_split_sizes=[0 if q == me else sizes[q] for q in range(p)],
-                           input_split_sizes=[0 if q == me else n for q in range(p)], group=group)
-    raw, out, pos = recv.numpy(), [], 0
-    for q in range(p):
-        if q == me:
-            out.append(payload)
-            continue
-        out.append(raw[pos:pos + sizes[q]].tobytes())
-        pos += sizes[q]
-    return out, n * (p - 1)
+    def __init__(self, future=None, value=None, tag: str = ""):
+        self._future = future
+        self._value = value
+        self._tag = tag
+
+    def result(self) -> list:
+        if self._future is None:
+            return self._value
+        try:
+            out = self._future.result()
+        finally:
+            _forget_pending(self._future)
+        self._future = None
+        self._value = out
+        return out
 
 
-def allgather_bytes_async(payload: bytes, tag: str = "", stats: dict | None = None) -> ExchangeHandle:
-    """Every process's ``payload`` in rank order, without blocking: a
-    handle whose ``result()`` is the list. It travels like
-    ``exchange_rows_async``'s rows, on the exchange worker over the second
-    gloo group, each payload sent at its own size to every other process.
-    ``stats`` (when given) receives ``bytes_sent`` (this process's payload
-    times P - 1) and ``exchange_s`` (the seconds on the worker). On one
-    process it completes inline."""
-    stats = {} if stats is None else stats
+def allgather_obj_p2p_async(obj, tag: str = "host_collective", stats: dict | None = None) -> ObjCollectiveHandle:
+    """``allgather_obj_p2p`` on the exchange worker: the frames go on the
+    wire while the caller keeps working (the owner-segment combine packs
+    its diagnostics under the coefficient segments' send). The mesh's first
+    build happens here on the calling thread; the body runs on the worker
+    in submission order. ``stats`` is filled by the worker (the byte counts
+    and ``exchange_s``, its seconds there) before the handle resolves.
+    ``[obj]`` inline on one process."""
     if process_count() <= 1:
-        stats.update(bytes_sent=0, exchange_s=0.0)
-        return ExchangeHandle(value=[payload], tag=tag, stats=stats)
-    group, pool = _exchange_group()
+        if stats is not None:
+            stats.update(payload_bytes=0, bytes_sent=0, bytes_recv=0, exchange_s=0.0)
+        return ObjCollectiveHandle(value=[obj], tag=tag)
+    _links_in_program_order(tag)
 
     def run():
         t0 = time.perf_counter()
         try:
-            blobs, sent = _allgather_bytes_exact(payload, group)
+            return _p2p_allgather_obj(obj, tag=tag, drain=False, stats=stats)
         finally:
-            dur = time.perf_counter() - t0
-            emit_event("exchange", tag=tag, dur_s=dur)
-        stats.update(bytes_sent=sent, exchange_s=dur)
-        return blobs, dict(stats)
+            if stats is not None:
+                stats["exchange_s"] = time.perf_counter() - t0
 
-    fut = pool.submit(run)
+    fut = _exchange_pool().submit(run)
     with _EXCHANGE_LOCK:
         _PENDING_EXCHANGES.append((fut, tag))
-    return ExchangeHandle(future=fut, tag=tag)
+    return ObjCollectiveHandle(future=fut, tag=tag)
+
 
 def drain_async_exchanges() -> None:
     """Wait for every exchange in flight (each result stays claimable
-    through its handle, which re-raises a failure). The streamed trainer
-    drains before a checkpoint, a re-plan and the fit's end."""
+    through its handle, which re-raises a failure). A synchronous mesh user
+    drains first, so the sockets see one global order; the streamed
+    trainer drains before a checkpoint, a re-plan and the fit's end. A
+    worker failure seen here is recorded (``exchange_drain_error``,
+    ``p2p.exchange_drain_errors``) and its entry dropped, so later drains
+    neither wait on nor report it again."""
     with _EXCHANGE_LOCK:
         pending = list(_PENDING_EXCHANGES)
-    for fut, _ in pending:
-        fut.exception()  # waits; the handle's result() re-raises
+    for entry in pending:
+        fut, tag = entry
+        exc = fut.exception()  # waits; the handle re-raises on result()
+        if exc is not None:
+            with _EXCHANGE_LOCK:
+                if entry in _PENDING_EXCHANGES:
+                    _PENDING_EXCHANGES.remove(entry)
+            REGISTRY.counter_inc("p2p.exchange_drain_errors")
+            emit_event("exchange_drain_error", tag=tag, error=type(exc).__name__, peer=getattr(exc, "peer", None))
 
 
-def _reset_async_exchanges() -> None:
-    """Drain, stop the worker and forget the group (before the process
-    group it belongs to is destroyed)."""
+def reset_async_exchanges() -> None:
+    """Forget every pending exchange without waiting: recovery abandons the
+    failed attempt's handles wholesale."""
+    with _EXCHANGE_LOCK:
+        _PENDING_EXCHANGES.clear()
+
+
+def _stop_exchange_worker() -> None:
+    """Drain, stop the worker and forget the books (at shutdown)."""
     drain_async_exchanges()
-    if _ASYNC["pool"] is not None:
-        _ASYNC["pool"].shutdown(wait=True)
-    _ASYNC.update(group=None, pool=None)
+    if _EXCHANGE_POOL[0] is not None:
+        _EXCHANGE_POOL[0].shutdown(wait=True)
+        _EXCHANGE_POOL[0] = None
     with _EXCHANGE_LOCK:
         _PENDING_EXCHANGES.clear()
         _EXCHANGE_TOTALS.update(exchange_s=0.0, wait_s=0.0)
+
+
+def confirm_peer_loss(err) -> tuple[list[int], list[int], list[int]]:
+    """The confirmation every ``PeerLost`` recovery shares (the streamed
+    fit's checkpoint re-entry, the in-memory descent's degrade in place):
+    count and record the suspected loss, drop the failed attempt's pending
+    exchanges, roll-call the current group and return ``(group, survivors,
+    lost)``. An empty ``lost`` means every peer answered (a link flap): the
+    caller retries rather than degrades."""
+    REGISTRY.counter_inc("fleet.peer_lost")
+    emit_event("peer_lost", peer=int(getattr(err, "peer", -1)), error=str(err))
+    reset_async_exchanges()
+    group = list(_DEGRADED["survivors"]) if _DEGRADED is not None else list(range(original_process_count()))
+    survivors = roll_call()
+    return group, survivors, sorted(set(group) - set(survivors))

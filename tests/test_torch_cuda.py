@@ -1157,3 +1157,29 @@ def test_device_split_over_the_card_and_the_cpu(dev, monkeypatch):
         np.testing.assert_array_equal(got.iterations[ids], want.iterations[ids])
         np.testing.assert_array_equal(got.loss_values[ids], want.loss_values[ids])
     assert (got.iterations > 0).all() and np.isfinite(got.loss_values).all()
+
+
+def test_faults_streamed_peer_kill_recovers_bitwise_on_the_card(dev, tmp_path):
+    """The streamed peer-kill drill (``tests/test_torch_faults_drill.py``)
+    with its processes on the card: process 1 killed at its second visit's
+    offsets send, process 0 degraded and resumed from the last checkpoint,
+    bitwise one process's fit over its rows resumed from the anchor."""
+    import test_torch_faults_drill as drill
+
+    from photon_ml_tpu_torch.ops import _cuda
+
+    _cuda.load()  # built once here, before the workers would build it at once
+    drill.check_streamed_peer_kill(tmp_path, device="cuda")
+
+
+def test_faults_streamed_writer_kill_of_three_recovers_bitwise_on_the_card(dev, tmp_path):
+    """The three-process drill on the card: process 0, the writer, killed;
+    processes 1 and 2 resume at their bases in the anchor's layout,
+    bitwise two processes' fit over their rows resumed from the anchor
+    sliced to those rows."""
+    import test_torch_faults_drill as drill
+
+    from photon_ml_tpu_torch.ops import _cuda
+
+    _cuda.load()
+    drill.check_streamed_peer_kill(tmp_path, device="cuda", killed=0, nproc=3, groups=True)

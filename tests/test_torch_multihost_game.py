@@ -200,9 +200,11 @@ def test_exchange_rows_routes_by_destination_in_source_order(library):
     for rank, r in enumerate(library):
         np.testing.assert_array_equal(r["ex_gid"], sent[dest == rank])
         np.testing.assert_array_equal(r["ex_x"], x[dest == rank])
-        assert str(r["ex_transport"]) == "gloo"
-    # process 0 sent 7 rows of (8 + 12) bytes, process 1 none: an empty sender takes part
-    np.testing.assert_array_equal(library[0]["ex_sent"], [7 * 20, 7, 14])
+        # counts [[3, 4], [0, 0]]: P² × 4 = 16 > 2 × 7 rows, the reference's skew rule picks the mesh
+        assert str(r["ex_transport"]) == "p2p_host"
+    # process 0 routed 7 rows of (8 + 12) bytes, 4 of them over the wire to process 1, process 1
+    # none: an empty sender takes part
+    np.testing.assert_array_equal(library[0]["ex_sent"], [4 * 20, 7, 14])
     np.testing.assert_array_equal(library[1]["ex_sent"], [0, 0, 0])
     # grouped by source, ascending
     np.testing.assert_array_equal(library[0]["ex2_gid"], [2, 12])

@@ -913,7 +913,7 @@ def test_async_exchanges_equal_the_blocking_ones_beside_a_main_thread_collective
     for r in runs[("async", 2)]:
         assert r["same"]
         assert r["gathered"] == [[0.0] * 3, [1.0] * 3]
-        assert [s["transport"] for s in r["stats"]] == [f"{mh.BACKEND}_async"] * 2
+        assert [s["transport"] for s in r["stats"]] == ["p2p_host_async"] * 2  # the framed mesh
         assert all(s["bytes_sent"] > 0 and s["seconds"] >= 0.0 for s in r["stats"])
         assert r["timers"] == ["re_exchange.exchange_s", "re_exchange.wait_s"]
 

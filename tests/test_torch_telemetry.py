@@ -570,6 +570,23 @@ ALLOWED = {
                        "(record_device_placement_metrics)",
     "re_combine.overlap_ratio": "the reference's owner-segment combine gauge "
                                 "(random_effect._combine_owned_segments)",
+    "degraded_group": "the reference's record of a group shrinking to its survivors "
+                      "(multihost.set_degraded_group); its report reads the recovery and roll_call records",
+    "roll_call_abort": "the reference's record of a roll call refused by the split-brain quorum "
+                       "(multihost.roll_call)",
+    "fleet.peer_lost": "the reference's counter beside the peer_lost record its report reads "
+                       "(multihost.confirm_peer_loss)",
+    "fleet.survivors": "the reference's survivor-count gauge (multihost.set_degraded_group)",
+    "p2p.retries": "the reference's counter beside the p2p_retry record its report reads",
+    "p2p.giveups": "the reference's counter beside the p2p_giveup record its report reads",
+    "p2p.exchange_drain_errors": "the reference's counter beside the exchange_drain_error record "
+                                 "its report reads",
+    "fleet.recoveries": "the reference's counter beside the recovery record its report reads "
+                        "(game/streaming.py _prepare_recovery); its gate reads fleet/recoveries off the records",
+    "fleet.degraded_descents": "the reference's counter beside the degraded_descent record its report reads "
+                               "(game/descent.py _degrade_in_place)",
+    "descent_retry": "the reference's record of a descent iteration re-run after a link flap "
+                     "(game/descent.py _degrade_in_place)",
 }
 _METRIC_CALLS = {"counter_inc", "gauge_set", "timer_add", "histogram_observe"}
 
