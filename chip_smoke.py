@@ -247,9 +247,16 @@ Run from the root of a checkout. It builds the CUDA kernels from
    for a second outer iteration with process 1 killed at its first
    owner-segment combine send: ``run`` returns on the survivor with
    ``fleet.degraded_descents`` 1, bitwise one process's descent resumed
-   from the same anchor here. Each pair has a time limit of its own; it
-   prints the seconds from the kill to the roll call's end and on to the
-   resumed visit (the re-run iteration's end);
+   from the same anchor here; (4) elastic rejoin: (2)'s pair with
+   PHOTON_REJOIN=1 and the op ``rejoin``, process 1 re-exec'd 1 s after
+   its death as a rejoin boot on the card and admitted back at the first
+   visit boundary after the degrade: both final models bitwise (1)'s armed
+   pair (the uninterrupted run), ``fleet.rejoins`` 1 on both, K1 = chunks x
+   passes on the rejoined process. The three pairs run at once, each with
+   a time limit of its own; it prints the seconds from the kill to the
+   roll call's end and on to the resumed visit (the re-run iteration's
+   end), and for (4) the re-entry, the wait for the rejoiner and the
+   rejoin roll call too;
 15f. re_skew: bench.py's R_re_skew (1024 entities of 32 rows, d = 8, one
    in 16 ill-conditioned, 200 iterations at 1e-7) through
    ``train_random_effects`` on L-BFGS, OWL-QN and TRON over
@@ -449,6 +456,7 @@ import json
 import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3484,9 +3492,13 @@ def _free_port() -> int:
 
 
 def start_children(mode: str, work: str, args: dict, dev, env: dict | None = None, n: int = 2,
-                   ports: int = 1, allow_kill: tuple = (), timeout_s: float = CHILD_TIMEOUT_S) -> dict:
+                   ports: int = 1, allow_kill: tuple = (), timeout_s: float = CHILD_TIMEOUT_S,
+                   rejoin: bool = False) -> dict:
     """``run_children``'s first half: the children started, not waited on
-    (their limit counts from here). ``join_children`` waits for them."""
+    (their limit counts from here). ``join_children`` waits for them.
+    ``rejoin``: each child's ``PHOTON_REJOIN_CMD`` is its own command, so a
+    plan's ``rejoin`` op re-execs it; a child in ``allow_kill`` then leaves
+    the record of its re-exec'd process, which holds its pipes."""
     _cuda.load()
     native_build.build()
     os.makedirs(work, exist_ok=True)
@@ -3495,16 +3507,21 @@ def start_children(mode: str, work: str, args: dict, dev, env: dict | None = Non
     child_env.update(env or {})
     fresh = [_free_port() for _ in range(ports)]
     spec = json.dumps(dict(args, work=work, port=fresh[0], ports=fresh, processes=n, device=dev.type))
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", mode, str(r), spec],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=child_env)
-             for r in range(n)]
+    procs = []
+    for r in range(n):
+        argv = [sys.executable, os.path.abspath(__file__), "--child", mode, str(r), spec]
+        procs.append(subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                                      env=dict(child_env, PHOTON_REJOIN_CMD=json.dumps(argv)) if rejoin
+                                      else child_env))
     return dict(mode=mode, work=work, n=n, procs=procs, allow_kill=allow_kill, timeout_s=timeout_s,
-                deadline=time.monotonic() + timeout_s)
+                deadline=time.monotonic() + timeout_s, rejoin=rejoin)
 
 
 def join_children(kids: dict) -> list[dict]:
     """Wait for ``start_children``'s children and return their records
-    (``run_children``'s rules)."""
+    (``run_children``'s rules). A re-exec'd process (``rejoin``) runs in a
+    session of its own and writes its pid to ``work/rejoiner.pid``: it is
+    killed with the rest when the pair outlives its limit."""
     mode, procs, allow_kill = kids["mode"], kids["procs"], kids["allow_kill"]
     outs = []
     try:
@@ -3517,16 +3534,26 @@ def join_children(kids: dict) -> list[dict]:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+        pid_file = os.path.join(kids["work"], "rejoiner.pid")
+        if kids.get("rejoin") and os.path.exists(pid_file):
+            try:
+                with open(pid_file) as f:
+                    os.kill(int(f.read()), signal.SIGKILL)
+            except ProcessLookupError:  # it has finished
+                pass
     for r, (p, (_, err)) in enumerate(zip(procs, outs)):
         want = 137 if r in allow_kill else 0
         if p.returncode != want:
             raise AssertionError(f"{mode}: child {r} exited {p.returncode} (expected {want}):\n{err[-4000:]}")
     results = []
     for r in range(kids["n"]):
-        if r in allow_kill:
+        path = os.path.join(kids["work"], f"rank{r}.json")
+        if r in allow_kill and not kids.get("rejoin"):
             results.append(None)
             continue
-        with open(os.path.join(kids["work"], f"rank{r}.json")) as f:
+        if not os.path.exists(path):
+            raise AssertionError(f"{mode}: child {r} left no record:\n{outs[r][1][-4000:]}")
+        with open(path) as f:
             results.append(json.load(f))
     return results
 
@@ -3828,6 +3855,41 @@ def _child(mode: str, rank: int, spec: dict) -> int:
         counters = REGISTRY.snapshot("p2p.")["counters"] | REGISTRY.snapshot("fleet.")["counters"]
         out.update(resumed_from=fit["trainer"].resumed_from, launches=fit["launches"], wall_s=fit["wall_s"],
                    counters={k: v["value"] for k, v in counters.items()}, times=dict(times))
+    elif mode == "faults_rejoin":
+        n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
+        E_STREAM_CHUNK = spec["chunk_rows"]
+        started_t = time.time()
+        boot = bool(os.environ.get("PHOTON_REJOIN_BOOT"))  # re-exec'd by the plan's rejoin op
+        if boot:
+            with open(os.path.join(work, "rejoiner.pid"), "w") as f:
+                f.write(str(os.getpid()))
+        batch, _ = game_problem(dev, n, effects, seed=4)
+        per = n // spec["processes"]
+        host = streamed_game_data(batch, slice(rank * per, (rank + 1) * per))
+        del batch
+        torch.cuda.empty_cache()
+        times = _stamp_fault_events(work, rank)
+        times["started_t"] = started_t
+        if boot:
+            mh.bootstrap_rejoin()  # the identity and addresses from the mesh cache; no gloo group
+        else:
+            initialize_multihost(f"127.0.0.1:{spec['port']}", spec["processes"], rank)
+        resumes = times.setdefault("resume_ts", [])
+
+        def on_log(msg):
+            if msg.startswith("resuming streamed descent"):
+                resumes.append(time.time())
+
+        fit = fit_streamed(host, game_config(effects, 2), dev, on_log=on_log, multihost=True,
+                           checkpoint_dir=os.path.join(work, "ckpt"), checkpoint_every_n_visits=len(effects) + 1,
+                           sharded_checkpoints=False)
+        np.savez(os.path.join(work, f"rejoin-rank{rank}.npz"),
+                 **{cid: sub.coefficient_means.cpu().numpy() for cid, sub in fit["model"].models.items()})
+        counters = REGISTRY.snapshot("p2p.")["counters"] | REGISTRY.snapshot("fleet.")["counters"]
+        out.update(booted=boot, resumed_from=fit["trainer"].resumed_from, launches=fit["launches"],
+                   wall_s=fit["wall_s"], fixed_objective_passes=fit["fixed_objective_passes"],
+                   chunks=-(-host.num_rows // E_STREAM_CHUNK), counters={k: v["value"] for k, v in counters.items()},
+                   times=dict(times))
     elif mode == "faults_descent":
         n, effects = spec["shape"][0], {k: tuple(v) for k, v in spec["shape"][1].items()}  # the parent's
         batch, _ = game_problem(dev, n, effects, seed=4)  # every row on every process (in memory)
@@ -4483,19 +4545,36 @@ FAULT_CHILD_TIMEOUT_S = 150  # each fault child pair's own limit
 # children and this process inside the host's cores, so that no peer's
 # compute outlasts the mesh's 3 s timeout and passes for a loss
 FAULT_CHILD_THREADS = {"OMP_NUM_THREADS": "2"}
+# main_faults' rejoin pair, beside the two others: one host thread a child,
+# the rejoiner re-exec'd about 1 s after its death, and a wait at the first
+# boundary after the degrade long enough for its start on the card
+REJOIN_CHILD_ENV = {"OMP_NUM_THREADS": "1", "PHOTON_REJOIN": "1", "PHOTON_REJOIN_WINDOW_S": "30"}
+REJOIN_DELAY_S = 1.0
 
 
 def _stamp_fault_events(work: str, rank: int) -> dict:
     """Wall-clock stamps of the recovery's steps in this process (the
-    processes share the host's clock): a ``kill`` spec's firing, written to
-    ``work/kill.json`` before the process dies, and, on a survivor, the
-    start of the loss's confirmation and the roll call's end. The returned
-    dict fills in place."""
+    processes share the host's clock): a ``kill`` or ``rejoin`` spec's
+    firing, written to ``work/kill.json`` before the process dies, and, on
+    a survivor, the start of the loss's confirmation and the roll call's
+    end; with rejoin, the first probe for returning processes and the
+    rejoin roll call's start and end, and on the rejoiner the invite's
+    arrival. The returned dict fills in place."""
     times: dict = {}
     apply, confirm, roll = faults.apply_send_fault, mh.confirm_peer_loss, mh.roll_call
+    probe, wait = mh.probe_rejoiners, mh.rejoin_wait
+
+    def stamped_probe(*a, **k):
+        times.setdefault("first_probe_t", time.time())
+        return probe(*a, **k)
+
+    def stamped_wait(*a, **k):
+        out = wait(*a, **k)
+        times.setdefault("invited_t", time.time())
+        return out
 
     def stamped_apply(spec, frames, sock):
-        if spec.op == "kill":
+        if spec.op in ("kill", "rejoin"):
             with open(os.path.join(work, "kill.json"), "w") as f:
                 json.dump({"t": time.time(), "rank": rank, "tag": spec.tag, "seq": spec.seq}, f)
         return apply(spec, frames, sock)
@@ -4505,11 +4584,17 @@ def _stamp_fault_events(work: str, rank: int) -> dict:
         return confirm(err)
 
     def stamped_roll(*a, **k):
+        if k.get("candidates") is not None:  # a rejoin roll call
+            times.setdefault("rejoin_rollcall_start_t", time.time())
+            out = roll(*a, **k)
+            times.setdefault("rejoin_rollcall_end_t", time.time())
+            return out
         out = roll(*a, **k)
         times.setdefault("rollcall_end_t", time.time())
         return out
 
     faults.apply_send_fault, mh.confirm_peer_loss, mh.roll_call = stamped_apply, stamped_confirm, stamped_roll
+    mh.probe_rejoiners, mh.rejoin_wait = stamped_probe, stamped_wait
     return times
 
 
@@ -4586,15 +4671,29 @@ def run_faults(dev, card: str, ring: dict, anchor: str) -> dict:
        owner-segment combine send. ``run`` returns on the survivor,
        ``fleet.degraded_descents`` 1, its model bitwise one process's
        descent (no mesh) resumed from the anchor here.
+    4. Elastic rejoin (``PHOTON_REJOIN=1``, the mesh cache in the pair's
+       directory): 2.'s pair and plan with the op ``rejoin``: process 1
+       dies at its first offsets send of iteration 1 and re-execs
+       ``REJOIN_DELAY_S`` later as a rejoin boot, on the card; process 0
+       degrades, re-enters and, at the first visit boundary, waits for
+       it, invites it and runs the rejoin roll call; both resume from the
+       checkpoint after iteration 0. Both final models bitwise the armed
+       pair's of 1. (the uninterrupted two-process run, saved by
+       ``run_e_streamed_multihost`` beside the anchor), ``fleet.rejoins``
+       1 on both, the survivor's ``fleet.peer_lost`` and
+       ``fleet.recoveries`` 1, K1 = chunks x passes on the rejoined
+       process.
 
-    The pairs of 2. and 3. run at once, each on its own port, and the
+    The pairs of 2., 3. and 4. run at once, each on its own port, and the
     streamed clean arm runs in this process meanwhile (so each pair's
     ``phase_wall_s`` counts from their common start to its end, and the
-    recovery seconds are taken beside the other pair's work). Every fault
+    recovery seconds are taken beside the other pairs' work). Every fault
     child pair has a limit of its own, and only process 1 may die, with
     137. It prints the seconds from the kill to the roll call's end and
     from there to the resumed visit (2) and the re-run iteration's end
-    (3)."""
+    (3); for 4., kill → confirm, confirm → the degrade roll call's end,
+    the re-entry, the wait for the rejoiner, the rejoin roll call and the
+    resumed visit."""
     n, effects = E_STREAMED_PAIR
     spec = {"shape": [n, effects], "chunk_rows": E_STREAM_CHUNK}
     cids = ["fixed", *(f"per_{k}" for k in effects)]
@@ -4615,6 +4714,12 @@ def run_faults(dev, card: str, ring: dict, anchor: str) -> dict:
                                    env=dict(FAULT_ENV, **FAULT_CHILD_THREADS, PHOTON_RE_SHARD="1",
                                             PHOTON_RE_COMBINE="segments", PHOTON_DESCENT_DEGRADE="1"),
                                    allow_kill=(1,), timeout_s=FAULT_CHILD_TIMEOUT_S)
+        rplan = [dict(plan[0], op="rejoin", delay_s=REJOIN_DELAY_S)]
+        rejoin_kids = start_children("faults_rejoin", os.path.join(work, "rejoin"), spec, dev,
+                                     env=dict(FAULT_ENV, **REJOIN_CHILD_ENV, PHOTON_RE_SHARD="1",
+                                              PHOTON_MESH_CACHE=os.path.join(work, "rejoin", "mesh.json"),
+                                              PHOTON_FAULT_PLAN=json.dumps(rplan)),
+                                     allow_kill=(1,), timeout_s=FAULT_CHILD_TIMEOUT_S, rejoin=True)
         try:
             batch, _ = game_problem(dev, n, effects, seed=4)
             host = streamed_game_data(batch, slice(0, n // 2))  # the survivor's rows
@@ -4637,6 +4742,8 @@ def run_faults(dev, card: str, ring: dict, anchor: str) -> dict:
             chaos_wall = time.perf_counter() - t0
             desc = join_children(desc_kids)
             desc_wall = time.perf_counter() - t0
+            rejoined = join_children(rejoin_kids)
+            rejoin_wall = time.perf_counter() - t0
         # 2. the streamed peer kill
         with open(os.path.join(work, "kill", "kill.json")) as f:
             kill = json.load(f)
@@ -4676,12 +4783,50 @@ def run_faults(dev, card: str, ring: dict, anchor: str) -> dict:
             launches={k: desc[0]["launches"][k] + dlaunch[k] for k in launch_counts()},
             survivor_launches=desc[0]["launches"], clean_launches=dlaunch,
             k1_launches_ok=desc[0]["launches"]["fused_value_grad"] > 0 and dlaunch["fused_value_grad"] > 0)
+        # 4. elastic rejoin
+        with open(os.path.join(work, "rejoin", "kill.json")) as f:
+            rkill = json.load(f)
+        final = [dict(np.load(os.path.join(work, "rejoin", f"rejoin-rank{r}.npz"))) for r in range(2)]
+        whole = [dict(np.load(os.path.join(os.path.dirname(anchor), f"uninterrupted-rank{r}.npz")))
+                 for r in range(2)]
+        survivor, rejoiner = rejoined
+        rec["rejoin"] = dict(
+            phase_wall_s=rejoin_wall, plan=rplan, killed=rkill, booted=[r["booted"] for r in rejoined],
+            resumed_from=[r["resumed_from"] for r in rejoined], counters=[r["counters"] for r in rejoined],
+            bitwise_vs_uninterrupted={f"{c}[{r}]": final[r][c].tobytes() == whole[r][c].tobytes()
+                                      for r in range(2) for c in cids},
+            max_abs_diff_vs_uninterrupted={f"{c}[{r}]": float(np.max(np.abs(final[r][c] - whole[r][c])))
+                                           for r in range(2) for c in cids},
+            **_rejoin_seconds(survivor["times"], rejoiner["times"], rkill["t"]),
+            launches={k: survivor["launches"][k] + rejoiner["launches"][k] for k in launch_counts()},
+            survivor_launches=survivor["launches"], rejoiner_launches=rejoiner["launches"],
+            k1_launches_ok=survivor["launches"]["fused_value_grad"] > 0 and rejoiner["fixed_objective_passes"] > 0
+            and rejoiner["launches"]["fused_value_grad"] == rejoiner["chunks"] * rejoiner["fixed_objective_passes"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # the phase's launches: the armed ring arm, the survivor and clean fits of 2, the descent's
+    # the phase's launches: the armed ring arm, the survivor and clean fits of 2, the descent's, the rejoin pair's
     rec["launches"] = {k: ring["launches"][k] + rec["streamed_kill"]["launches"][k]
-                       + rec["descent_degrade"]["launches"][k] for k in launch_counts()}
+                       + rec["descent_degrade"]["launches"][k] + rec["rejoin"]["launches"][k]
+                       for k in launch_counts()}
     return rec
+
+
+def _rejoin_seconds(survivor: dict, rejoiner: dict, kill_t: float) -> dict:
+    """The rejoin's steps on the host's clock: the loss's detection and
+    roll call (as ``_recovery_seconds``), the re-entry under the degraded
+    group to its first probe, the wait from there to the rejoin roll
+    call's start (the invite included), that roll call, and from its end to
+    the resumed visit; the rejoiner's start after the kill and its start to
+    the invite."""
+    return dict(kill_to_confirm_s=survivor["confirm_t"] - kill_t,
+                confirm_to_rollcall_end_s=survivor["rollcall_end_t"] - survivor["confirm_t"],
+                rollcall_end_to_first_probe_s=survivor["first_probe_t"] - survivor["rollcall_end_t"],
+                linger_s=survivor["rejoin_rollcall_start_t"] - survivor["first_probe_t"],
+                rejoin_rollcall_s=survivor["rejoin_rollcall_end_t"] - survivor["rejoin_rollcall_start_t"],
+                rejoin_rollcall_end_to_resume_s=survivor["resume_ts"][-1] - survivor["rejoin_rollcall_end_t"],
+                kill_to_rejoiner_start_s=rejoiner["started_t"] - kill_t,
+                rejoiner_start_to_invite_s=rejoiner["invited_t"] - rejoiner["started_t"],
+                kill_to_resume_s=survivor["resume_ts"][-1] - kill_t)
 
 
 # main_e_streamed_multihost and its PHOTON_RE_SHARD=1 twin run at bench
@@ -4740,6 +4885,10 @@ def run_e_streamed_multihost(dev, one: dict, one_model: GameModel, card: str,
     finally:
         shutil.rmtree(work, ignore_errors=True)
     cids = list(one_model.models)
+    # the armed pair's models: the uninterrupted run main_faults' rejoin part is held to
+    for r in range(2):
+        np.savez(os.path.join(os.path.dirname(anchor_dir), f"uninterrupted-rank{r}.npz"),
+                 **{c: arrays["armed"][r][c] for c in cids})
     recs = {}
     for arm, _ in arms[:2]:
         rows, got = [c["arms"][arm] for c in kids], arrays[arm]
@@ -5431,7 +5580,7 @@ def main() -> int:
     finally:
         shutil.rmtree(faults_work, ignore_errors=True)
     emit("main_faults", **faults_rec)
-    kill, degrade = faults_rec["streamed_kill"], faults_rec["descent_degrade"]
+    kill, degrade, rejoin = faults_rec["streamed_kill"], faults_rec["descent_degrade"], faults_rec["rejoin"]
     failed = [name for name, ok in (
         ("ring_bitwise_armed_vs_unset", ring["bitwise_armed_vs_unset"] and ring["ranks_bitwise"]),
         ("ring_no_recovery", ring["no_recovery_counters"] and ring["anchor_written"]),
@@ -5445,6 +5594,13 @@ def main() -> int:
          and degrade["counters"].get("fleet.peer_lost") == 1.0 and "fleet.recoveries" not in degrade["counters"]),
         ("degrade_bitwise_vs_clean", all(degrade["bitwise_vs_clean"].values())),
         ("degrade_k1_launches", degrade["k1_launches_ok"]),
+        ("rejoin_booted", rejoin["booted"] == [False, True]),
+        ("rejoin_counters", rejoin["counters"][1].get("fleet.rejoins") == 1.0
+         and all(rejoin["counters"][0].get(k) == 1.0
+                 for k in ("fleet.peer_lost", "fleet.recoveries", "fleet.rejoins"))),
+        ("rejoin_resumed_from", rejoin["resumed_from"] == [[1, 0], [1, 0]]),
+        ("rejoin_bitwise_vs_uninterrupted", all(rejoin["bitwise_vs_uninterrupted"].values())),
+        ("rejoin_k1_launches", rejoin["k1_launches_ok"]),
     ) if not ok]
     if failed:
         raise AssertionError(f"main_faults failed: {failed}")

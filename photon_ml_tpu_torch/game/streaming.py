@@ -99,8 +99,21 @@ host arithmetic on each) and the resume accepts the last checkpoint,
 written under the layout before the loss (``resume_fingerprints``,
 ``resume_row_base``). The survivors' model is bitwise a clean run on their
 rows resumed from that checkpoint. ``PHOTON_RE_STRAGGLER`` delays the
-named process's bucket solves (the re-planner's drill). Elastic rejoin is
-item 12d-v-b.
+named process's bucket solves (the re-planner's drill).
+
+Elastic rejoin (``PHOTON_REJOIN=1``). A process booted by
+``multihost.bootstrap_rejoin`` waits in ``fit`` for the survivors' invite
+(``_join_as_rejoiner``) before any collective. While the group is
+degraded, every visit boundary probes the lost processes
+(``_maybe_admit_rejoin``; the first boundary after a degrade waits up to
+``PHOTON_REJOIN_WINDOW_S`` for them, later ones probe once); whoever
+answers is invited, one roll call over survivors and rejoiners agrees on
+the group, the survivors hand the rejoiners their resume fingerprints and
+``fit`` runs again over the expanded group from the last checkpoint, as
+after a loss. Rejoined before any degraded visit was checkpointed, the
+model is bitwise an uninterrupted run of the whole group. A rejoiner never
+takes a gathered checkpoint that a degraded layout wrote: that layout held
+none of its rows.
 """
 
 from __future__ import annotations
@@ -378,6 +391,13 @@ def _slice_owned_rows(M_full: np.ndarray, shard: _ReShard) -> np.ndarray:
     return M_full[shard.owned_global].copy()
 
 
+class _RejoinResume(Exception):
+    """Raised at a visit boundary once the expanded group has agreed (or a
+    rejoin roll call dropped a survivor): ``fit`` runs again, ingest
+    re-plans over the new group and the resume takes the last checkpoint,
+    as after a loss."""
+
+
 class StreamedGameTrainer:
     """Block coordinate descent over a ``StreamedGameData`` dataset, on
     ``device`` (CUDA unless the caller passes another; raises without it).
@@ -472,6 +492,11 @@ class StreamedGameTrainer:
         # the layouts this fit itself ran before a loss: their checkpoints
         # hold this process's own rows at its registered base
         self._own_anchor_fingerprints: set[str] = set()
+        # elastic rejoin: whether this degrade already spent its
+        # PHOTON_REJOIN_WINDOW_S wait at a visit boundary, and whether this
+        # rejoin-booted process was admitted
+        self._rejoin_waited = False
+        self._rejoined = False
         has_projection = any(c.random_projection_dim is not None
                              for c in config.random_effect_coordinates.values())
         if has_projection and checkpoint_dir is not None:
@@ -1492,7 +1517,8 @@ class StreamedGameTrainer:
         holds every survivor's rows at the base it registered, so its
         digest is not compared: after the writer's loss it is another
         process's (the reference compares it, drops the scores, and its
-        survivors restart from iteration 0)."""
+        survivors restart from iteration 0). A rejoined process refuses a
+        gathered checkpoint of another layout (the rejoin guard)."""
         accepted = (fingerprint, *self.resume_fingerprints)
         check = digest
         if (self._own_anchor_fingerprints and mh.is_output_process()
@@ -1516,6 +1542,14 @@ class StreamedGameTrainer:
                  "next_coordinate": ckpt.next_coordinate,
                  "foreign": ckpt.fingerprint is not None and ckpt.fingerprint != fingerprint}
         if ckpt.scores is not None and ckpt.total is not None:
+            if state["foreign"] and mh.rejoin_identity() is not None:
+                # a gathered checkpoint of another layout is a degraded
+                # group's, which held none of a rejoiner's rows: even an
+                # in-bounds slice would copy another process's scores
+                raise RuntimeError(
+                    "this rejoined process was handed a checkpoint that a degraded layout wrote, which holds none "
+                    "of its rows (a checkpoint written between the loss and the rejoin); restart from a "
+                    "full-layout checkpoint or retrain")
             return dict(state, scores=ckpt.scores, total=ckpt.total, scores_local=False)
         local = self._load_score_shard(fingerprint, digest, ckpt.next_iteration, ckpt.next_coordinate)
         found = mh.allreduce_sum_host(np.asarray([0.0 if local is None else 1.0]))
@@ -1638,10 +1672,12 @@ class StreamedGameTrainer:
         exchange) and ``descent/iter`` → ``descent/visit``,
         ``descent/validation``, ``descent/checkpoint``; a ``visit_result``
         record follows every visit."""
-        if self.multihost:
-            mh.rejoin_enabled()  # refuses PHOTON_REJOIN before any work
         with span("game/fit", rows=int(data.num_rows), chunk_rows=int(self.chunk_rows),
                   coordinates=list(self.config.coordinate_update_sequence)):
+            if mh.rejoin_identity() is not None and not self._rejoined:
+                # a rejoin-booted process: seated in the expanded group
+                # before any collective
+                self._join_as_rejoiner()
             while True:
                 try:
                     return self._fit(data, validation, initial_model)
@@ -1650,6 +1686,12 @@ class StreamedGameTrainer:
                     # the group and fit again over the survivors from the
                     # last checkpoint
                     self._prepare_recovery(e)
+                except _RejoinResume:
+                    # the group changed at a visit boundary (rejoiners
+                    # admitted, or a survivor dropped): fit again over it
+                    # from the last checkpoint, nothing of the old layout
+                    # resident
+                    self._quiesce()
 
     def _prepare_recovery(self, err) -> None:
         """Turn a ``PeerLost`` into a resume over the survivors, or raise
@@ -1672,16 +1714,23 @@ class StreamedGameTrainer:
                 "around a live peer") from err
         self._register_degrade_anchors()
         mh.set_degraded_group(survivors)
-        # the aborted visit's prefetch workers, copies and resident chunks
-        prefetch.quiesce()
-        for dev in {*self.local_devices, self.device}:
-            if torch.device(dev).type == "cuda":
-                torch.cuda.synchronize(dev)
+        # a fresh degrade waits for returning peers again
+        self._rejoin_waited = False
+        self._quiesce()
         REGISTRY.counter_inc("fleet.recoveries")
         emit_event("recovery", survivors=[int(s) for s in survivors], lost=[int(p) for p in lost],
                    resume_fingerprints=len(self.resume_fingerprints))
         self._log(f"recovery: lost processes {lost}, surviving group {survivors} — re-planning placement and "
                   "resuming from the last checkpoint")
+
+    def _quiesce(self) -> None:
+        """No device work of an aborted visit in flight, and nothing of the
+        layout being left resident: prefetch workers, copies, cached
+        chunks."""
+        prefetch.quiesce()
+        for dev in {*self.local_devices, self.device}:
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _register_degrade_anchors(self) -> None:
         """Accept the current layout's checkpoints under whatever layout
@@ -1696,6 +1745,139 @@ class StreamedGameTrainer:
         base = getattr(self, "_last_row_base", None)
         if base is not None:
             self.resume_row_base = int(base)
+
+    # -- elastic rejoin (PHOTON_REJOIN) ------------------------------------------
+    def _join_as_rejoiner(self) -> None:
+        """The rejoin-booted side of the handshake: wait at this process's
+        recorded address for the survivors' invite, enter the roll call they
+        run, take the agreed group and the survivors' resume fingerprints.
+        ``_fit`` then re-plans over the expanded group and resumes from the
+        checkpoint."""
+        if self.checkpoint_dir is None or not self.multihost:
+            raise RuntimeError("rejoin boot without a recovery substrate: rejoining needs multihost mode and a "
+                               "checkpoint_dir to resume from")
+        # longer than a boundary's wait: the survivors may still be degrading
+        # (the roll call, the re-entry) when this process comes back
+        invite = mh.rejoin_wait(window_s=4.0 * mh.rejoin_window_s())
+        if invite is None:
+            raise RuntimeError(
+                "rejoin: no invite arrived within 4x PHOTON_REJOIN_WINDOW_S — the surviving group is not probing "
+                "(PHOTON_REJOIN unset there?) or this process's recorded address is stale")
+        survivors = [int(s) for s in invite["survivors"]]
+        agreed = mh.roll_call(candidates=invite["candidates"], guard_group=survivors)
+        mh.set_degraded_group(agreed)
+        ctrl = self._rejoin_ctrl_exchange(agreed, survivors, None)
+        for fp in ctrl.get("fingerprints") or []:
+            if fp not in self.resume_fingerprints:
+                self.resume_fingerprints.append(fp)
+        # no row base comes with the anchors: no degraded layout held this
+        # process's rows, and the resume refuses such a checkpoint
+        self._rejoined = True
+        REGISTRY.counter_inc("fleet.rejoins")
+        emit_event("rejoin", rejoined=[int(mh.original_process_index())], group=[int(p) for p in agreed],
+                   role="rejoiner")
+        self._log(f"rejoined the fleet as process {mh.original_process_index()}: group {sorted(agreed)}, "
+                  "resuming from the last checkpoint")
+
+    @staticmethod
+    def _rejoin_ctrl_exchange(agreed, survivors, payload) -> dict:
+        """The resume anchors over the expanded group: one allgather rooted
+        at the lowest survivor still in the agreed group (rank 0 may be the
+        rejoiner, which has nothing to give, and the roll call may have
+        dropped a survivor). ``{}`` when no survivor is left."""
+        agreed = sorted(int(p) for p in agreed)
+        live = sorted(int(s) for s in survivors if int(s) in set(agreed))
+        if not live:
+            return {}
+        root = live[0]
+        views = mh.allgather_obj_p2p(payload if mh.original_process_index() == root else None, tag="rejoin_ctrl")
+        return views[agreed.index(root)] or {}
+
+    def _maybe_admit_rejoin(self, re_shards: dict, iteration: int, ci: int) -> None:
+        """The survivors' side, at every visit boundary while the group is
+        degraded: rank 0 probes the lost processes' addresses and broadcasts
+        who answered (the first boundary after a degrade repeats the round
+        every 0.5 s for up to ``PHOTON_REJOIN_WINDOW_S``, each process
+        running the same rounds; later boundaries run one), invites them,
+        and every survivor runs the roll call over survivors and rejoiners.
+        An expanded group raises ``_RejoinResume`` after sending the
+        rejoiners the resume fingerprints, with the entities each random
+        effect moves back (the re-planner's preview) in the ``rejoin``
+        record; a group that lost a survivor in that roll call raises it as
+        a recovery; an unchanged one trains on."""
+        if not self.multihost or not mh.rejoin_enabled():
+            return
+        dg = mh.degraded_group()
+        if dg is None:
+            return
+        survivors = sorted(int(s) for s in dg["survivors"])
+        lost = [p for p in range(mh.original_process_count()) if p not in survivors]
+        if not lost:
+            return
+        window = 0.0 if self._rejoin_waited else mh.rejoin_window_s()
+        self._rejoin_waited = True
+        rank0 = mh.effective_process_index() == 0
+        # counted rounds, not a deadline: the broadcast keeps every survivor
+        # in the same round, so none waits in a receive past the mesh timeout
+        poll_s = 0.5
+        rounds = max(1, int(np.ceil(window / poll_s))) if window > 0 else 1
+        present: list[int] = []
+        for r in range(rounds):
+            probed = mh.probe_rejoiners(lost, 0.0) if rank0 else []
+            present = [int(p) for p in np.asarray(mh.broadcast_from_host0(np.asarray(probed, np.int64))).reshape(-1)]
+            if present:
+                break
+            if r + 1 < rounds:
+                time.sleep(poll_s)
+        if not present:
+            return
+        candidates = sorted(set(survivors) | set(present))
+        if rank0:
+            mh.send_rejoin_invites(present, candidates, survivors)
+        agreed = mh.roll_call(candidates=candidates, guard_group=survivors)
+        mh.set_degraded_group(agreed)
+        rejoined = sorted(set(agreed) - set(survivors))
+        dropped = sorted(set(survivors) - set(agreed))
+        if not rejoined and not dropped:
+            return  # the probed peer vanished before the roll call: train on
+        if not rejoined:
+            # a survivor died between the probe and the roll call: the
+            # visit's plans are keyed on the old ranks, so this is a loss
+            self._register_degrade_anchors()
+            self._rejoin_waited = False
+            REGISTRY.counter_inc("fleet.recoveries")
+            emit_event("recovery", survivors=[int(p) for p in agreed], lost=[int(p) for p in dropped],
+                       resume_fingerprints=len(self.resume_fingerprints))
+            self._log(f"iter {iteration}: rejoin roll call dropped {dropped} — group {sorted(agreed)}, "
+                      "re-planning and resuming from the last checkpoint")
+            raise _RejoinResume()
+        # the re-planner's preview of the entities the expanded re-ingest moves
+        migrated = {}
+        for cid, shard in re_shards.items():
+            if shard.entity_owner is None or shard.entity_rows is None:
+                continue
+            old_plan = plan_from_owner(shard.entity_owner, shard.entity_rows, len(survivors))
+            _, moved = replan_excluding(old_plan, [], shard.entity_rows, survivors=range(len(agreed)),
+                                        groups=None if shard.placement_atoms is None
+                                        else [list(a) for a in shard.placement_atoms])
+            migrated[cid] = int(moved.sum())
+        fps: list[str] = []
+        for fp in (getattr(self, "_last_fingerprint", None), *self.resume_fingerprints):
+            if fp and fp not in fps:
+                fps.append(fp)
+        self._rejoin_ctrl_exchange(agreed, survivors, {"fingerprints": fps})
+        # the survivors accept what they sent: the expanded layout's
+        # fingerprint differs from the one that wrote the last checkpoint
+        # (degraded or before the loss), and the row base is this process's
+        # in the degraded layout that wrote a checkpoint since the loss
+        self._register_degrade_anchors()
+        self._rejoin_waited = False
+        REGISTRY.counter_inc("fleet.rejoins")
+        emit_event("rejoin", iteration=iteration, coordinate_index=ci, rejoined=[int(p) for p in rejoined],
+                   group=[int(p) for p in agreed], migrated=migrated, role="survivor")
+        self._log(f"iter {iteration}: processes {rejoined} rejoined — group {sorted(agreed)}, re-planning placement "
+                  "and resuming from the last checkpoint")
+        raise _RejoinResume()
 
     def _fit(self, data: StreamedGameData, validation: StreamedGameData | None,
              initial_model: GameModel | None) -> tuple[GameModel, dict[str, StreamedCoordinateInfo]]:
@@ -1890,6 +2072,9 @@ class StreamedGameTrainer:
             with span("descent/iter", iteration=it):
                 for ci in range(ci0, len(seq)):
                     cid = seq[ci]
+                    # a degraded group admits returning processes here (a
+                    # collective; raises _RejoinResume into fit's loop)
+                    self._maybe_admit_rejoin(re_shards, it, ci)
                     with span("descent/visit", iteration=it, coordinate=cid):
                         offs = total - scores[cid]  # a fresh array: the chunk cache keys by storage
                         t_visit = time.perf_counter()

@@ -1,9 +1,11 @@
 """Build and load the port's native (C++) host library.
 
 ``avro_ingest.cc`` is compiled at first use with the system ``g++``
-(``-O2 -shared -fPIC -std=c++17``, linked against zlib) into
-``photon_ml_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
-of the source and the flags, so an edit rebuilds it. Concurrent builds
+(``-O2 -shared -fPIC -std=c++17``, linked against zlib) into the cache
+directory ``PHOTON_ML_TPU_CACHE``, or else ``photon_ml_tpu_torch_native``
+under the temporary directory (the reference's rule, read at call time:
+nothing is written into the package, which may be read-only), named by a
+hash of the source and the flags, so an edit rebuilds it. Concurrent builds
 (test workers) each compile to their own temporary name and rename the
 result into place atomically. A failed build raises with the compiler's
 output: the readers never fall back to the Python codec because the
@@ -22,7 +24,6 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (Path(__file__).resolve().parent / "avro_ingest.cc",)
-BUILD_DIR = _PKG / "_build"
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 LIBS = ("-lz",)
@@ -31,11 +32,18 @@ _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 
 
+def build_dir() -> Path:
+    """``PHOTON_ML_TPU_CACHE``, or ``photon_ml_tpu_torch_native`` under the
+    temporary directory when it is unset or empty."""
+    root = os.environ.get("PHOTON_ML_TPU_CACHE")
+    return Path(root) if root else Path(tempfile.gettempdir()) / "photon_ml_tpu_torch_native"
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join((CXX, *CXX_FLAGS, *LIBS)).encode())
     for src in SOURCES:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    return BUILD_DIR / f"libphoton_native_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libphoton_native_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -45,8 +53,8 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so.tmp")
     os.close(fd)
     try:
         try:

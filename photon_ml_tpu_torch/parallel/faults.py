@@ -24,10 +24,14 @@ Plan grammar (JSON, a list of fault specs, or ``@/path/to/plan.json``):
   computed: the trailer catches it when ``PHOTON_P2P_CRC`` was negotiated),
   ``delay`` (``delay_s`` of sleep before the send), ``close`` (the link's
   socket is closed instead: the peer sees EOF), ``kill`` (the process
-  exits at once with ``exit_code``, 137 by default: the peer-loss drill).
-  ``rejoin`` (die and re-exec as a rejoining process) parses, and applying
-  it raises ``NotImplementedError``: elastic rejoin is ROADMAP queue 1
-  item 12d-v-b.
+  exits at once with ``exit_code``, 137 by default: the peer-loss drill),
+  ``rejoin`` (the process exits as ``kill`` does and re-execs ``delay_s``
+  seconds later as a rejoin boot: the elastic-rejoin drill). ``rejoin``
+  needs ``PHOTON_REJOIN_CMD``, a JSON argv list naming the command to
+  relaunch (a ``python -c`` worker's command is not recoverable from
+  ``sys.argv``); the child gets ``PHOTON_REJOIN_BOOT`` = the dying
+  process's index and no fault plan (a rejoined process must not run the
+  plan that killed it again), and inherits its standard output and error.
 - ``link``: ``[src, dst]``, original process indices. A spec fires on the
   ``src`` process, at its framed send.
 - ``seq``: the link's frame-set ordinal (the k-th frame set ever sent on
@@ -49,8 +53,6 @@ import time
 from dataclasses import dataclass, field
 
 VALID_OPS = ("drop", "corrupt", "delay", "close", "kill", "rejoin")
-
-REJOIN_ITEM = "ROADMAP queue 1 item 12d-v-b"
 
 
 @dataclass
@@ -181,9 +183,40 @@ def apply_send_fault(spec: FaultSpec, frames: list, sock) -> tuple[list | None, 
         # telemetry shard ends mid-run and its peers must cope
         os._exit(spec.exit_code)
     if spec.op == "rejoin":
-        raise NotImplementedError(
-            f"fault op 'rejoin' (die and re-exec as a rejoining process) waits for elastic rejoin, {REJOIN_ITEM}")
+        _spawn_rejoin_child(spec)
+        os._exit(spec.exit_code)
     raise AssertionError(f"unhandled fault op {spec.op!r}")
+
+
+def rejoin_command() -> list[str]:
+    """``PHOTON_REJOIN_CMD``: the JSON argv list a ``rejoin`` spec
+    relaunches (strict: anything else raises before the process dies)."""
+    raw = os.environ.get("PHOTON_REJOIN_CMD")
+    if not raw:
+        raise RuntimeError("fault op 'rejoin' needs PHOTON_REJOIN_CMD (JSON argv list of the command to relaunch)")
+    cmd = json.loads(raw)
+    if not isinstance(cmd, list) or not cmd or not all(isinstance(c, str) for c in cmd):
+        raise RuntimeError(f"PHOTON_REJOIN_CMD must be a JSON list of strings, got {raw!r}")
+    return cmd
+
+
+def _spawn_rejoin_child(spec: FaultSpec) -> None:
+    """Start the delayed re-exec of a ``rejoin`` spec; the caller then
+    exits. The child is a detached ``sh`` that sleeps ``delay_s`` and execs
+    ``PHOTON_REJOIN_CMD`` with ``PHOTON_REJOIN_BOOT`` = this process's
+    original index and the fault plan removed. Its standard output and
+    error are this process's, so a harness reading the dying process's
+    pipes reads the rejoiner's too."""
+    import subprocess
+
+    cmd = rejoin_command()
+    env = dict(os.environ)
+    env["PHOTON_REJOIN_BOOT"] = str(spec.src)
+    env.pop("PHOTON_FAULT_PLAN", None)
+    # "$0" "$@" carry the argv verbatim, and the exec makes the rejoiner the
+    # shell's own process once this one has died
+    subprocess.Popen(["/bin/sh", "-c", f'sleep {float(spec.delay_s)}; exec "$0" "$@"', *cmd], env=env,
+                     start_new_session=True)
 
 
 def _emit(spec: FaultSpec) -> None:

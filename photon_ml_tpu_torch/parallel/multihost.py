@@ -45,7 +45,26 @@ the world with ``set_degraded_group``: from then on ``process_index`` /
 mesh, and nothing touches the gloo group again (no barrier, no
 ``new_group``, no ``destroy_process_group``: each can hang on the dead
 peer). ``parallel/faults.py`` injects deterministic faults at the framed
-send. Elastic rejoin (``PHOTON_REJOIN``) is ROADMAP queue 1 item 12d-v-b.
+send.
+
+Elastic rejoin (``PHOTON_REJOIN=1``). A lost process re-execs, reloads its
+original index and every process's mesh address from the mesh cache that
+the first address gather wrote (``PHOTON_MESH_CACHE``; ``bootstrap_rejoin``)
+and waits on its recorded address to be invited (``rejoin_wait``). It never
+calls ``init_process_group``: a gloo group cannot take back a process. At
+a visit boundary the survivors probe the lost addresses
+(``probe_rejoiners``), invite whoever answers (``send_rejoin_invites``)
+and run one roll call over survivors and rejoiners, its quorum judged by
+the current group; the agreed group goes through ``set_degraded_group``
+and so runs every collective on the framed ring, also at the full size.
+
+Gloo has no heartbeat. ``PHOTON_COORD_MAX_MISSING_HEARTBEATS`` (strict int,
+at least 1; unset: the ``timeout_s`` argument) counts 10 s heartbeats, as
+the reference's coordination service does: the gloo group's collective
+timeout becomes that many times 10 s. A dead peer closes its pairs, which
+fails a collective at once; the timeout decides only when a live but silent
+peer is given up, so an elastic fleet raises it and lets the roll call, not
+gloo, decide who is dead.
 
 Usage (the same command on every process; the reference's variables, so
 one launcher drives either package):
@@ -57,6 +76,7 @@ one launcher drives either package):
 from __future__ import annotations
 
 import io
+import json
 import os
 import pickle
 import selectors
@@ -82,6 +102,8 @@ from photon_ml_tpu_torch.parallel import faults
 BACKEND = "gloo"
 # seconds a collective waits for the other processes before it raises
 DEFAULT_TIMEOUT_S = 600.0
+# one heartbeat of PHOTON_COORD_MAX_MISSING_HEARTBEATS, in seconds
+HEARTBEAT_S = 10.0
 
 # the process group's collective timeout
 _TIMEOUT_S = [DEFAULT_TIMEOUT_S]
@@ -120,8 +142,12 @@ def initialize_multihost(
     Collectives wait ``timeout_s`` for the other processes. With
     ``PHOTON_P2P_RETRIES`` > 0 every process's mesh address is gathered
     here, while the group is whole, so a roll call after a loss needs no
-    gloo collective. Returns ``runtime_summary()``."""
-    rejoin_enabled()  # refuses the knob before any work
+    gloo collective. ``PHOTON_COORD_MAX_MISSING_HEARTBEATS`` replaces
+    ``timeout_s`` by that many 10 s heartbeats (module docstring). Returns
+    ``runtime_summary()``."""
+    heartbeats = coord_max_missing_heartbeats()  # a typo'd knob names itself, outside the init error
+    if heartbeats is not None:
+        timeout_s = heartbeats * HEARTBEAT_S
     if coordinator_address is None:
         coordinator_address = os.environ.get("JAX_COORDINATOR_ADDRESS")
     try:
@@ -154,14 +180,27 @@ def initialize_multihost(
     return runtime_summary()
 
 
+def coord_max_missing_heartbeats() -> int | None:
+    """``PHOTON_COORD_MAX_MISSING_HEARTBEATS`` (strict int parse, at least
+    1; None unset): the gloo group's timeout in 10 s heartbeats."""
+    env = os.environ.get("PHOTON_COORD_MAX_MISSING_HEARTBEATS")
+    if env is None or env == "":
+        return None
+    value = int(env)
+    if value < 1:
+        raise ValueError(f"PHOTON_COORD_MAX_MISSING_HEARTBEATS must be at least 1, got {env!r}")
+    return value
+
+
 def shutdown_multihost() -> None:
     """Leave the process group (a no-op outside one). A whole group drains
     the exchange worker, closes the mesh and destroys the gloo group; a
-    degraded one only forgets its pending exchanges and closes the mesh,
-    and returns at once: the gloo group holds a dead peer, and destroying
-    it can wait on that peer forever."""
+    degraded one (and a rejoined process, which holds no gloo group) only
+    forgets its pending exchanges and closes the mesh, and returns at once:
+    the gloo group holds a dead peer, and destroying it can wait on that
+    peer forever."""
     global _DEGRADED, _HOST_ADDRS
-    if not dist.is_initialized():
+    if not dist.is_initialized() and _REJOIN_IDENTITY is None:
         return
     if _DEGRADED is not None:
         reset_async_exchanges()
@@ -173,13 +212,29 @@ def shutdown_multihost() -> None:
     dist.destroy_process_group()
 
 
+# a rejoined process's original identity (``bootstrap_rejoin``): its fresh
+# interpreter holds no gloo group, so every identity read of this module
+# goes through ``_self_pid`` / ``_world_size``, which answer with it. None
+# on every process that joined the group with ``initialize_multihost``.
+_REJOIN_IDENTITY: dict | None = None
+
+
+def rejoin_identity() -> dict | None:
+    return _REJOIN_IDENTITY
+
+
 def _self_pid() -> int:
-    """This process's original index in the group it joined."""
+    """This process's original index in the group it joined (kept across
+    a rejoin's re-exec)."""
+    if _REJOIN_IDENTITY is not None:
+        return int(_REJOIN_IDENTITY["pid"])
     return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _world_size() -> int:
-    """The original group's size."""
+    """The original group's size (kept across a rejoin's re-exec)."""
+    if _REJOIN_IDENTITY is not None:
+        return int(_REJOIN_IDENTITY["world"])
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
@@ -221,8 +276,9 @@ def host_shard_of_paths(paths: Sequence[str]) -> list[str]:
 def require_process_group() -> None:
     """Raise the initialization error unless this process belongs to a
     process group: a multi-process entry point never runs alone by
-    accident."""
-    if not dist.is_initialized():
+    accident. A rejoined process (``bootstrap_rejoin``) belongs to its
+    group through the mesh."""
+    if not dist.is_initialized() and _REJOIN_IDENTITY is None:
         raise _init_error("this process belongs to no process group (call initialize_multihost first)")
 
 
@@ -231,18 +287,6 @@ def is_output_process() -> bool:
     metrics, checkpoints): all processes compute, one writes. In a
     degraded group the lowest surviving process writes."""
     return effective_process_index() == 0
-
-
-def rejoin_enabled() -> bool:
-    """``PHOTON_REJOIN`` (strict int parse; unset or 0: lost peers stay
-    lost). Elastic rejoin is not ported yet: a set knob raises rather than
-    silently keeping the survivors degraded."""
-    env = os.environ.get("PHOTON_REJOIN")
-    if env is not None and env != "" and int(env) != 0:
-        raise NotImplementedError(
-            f"PHOTON_REJOIN={env}: elastic rejoin is {faults.REJOIN_ITEM} (the port degrades on a peer "
-            "loss and keeps the survivors; unset the knob)")
-    return False
 
 
 # -- gloo, and its hardening into PeerLost -------------------------------------
@@ -799,11 +843,13 @@ class LinkCorruption(ConnectionError):
 class PeerUnreachable(ConnectionError):
     """A mesh (re)build could not reach one peer (connect refused or timed
     out, accept never arrived). Transient until the retries run out, then
-    it hardens into ``PeerLost``."""
+    it hardens into ``PeerLost``. ``missing``: every peer the build missed
+    (``peer`` is the lowest)."""
 
-    def __init__(self, peer: int, message: str):
+    def __init__(self, peer: int, message: str, missing: Sequence[int] | None = None):
         super().__init__(message)
         self.peer = peer
+        self.missing = [peer] if missing is None else list(missing)
 
 
 class PeerLost(ConnectionError):
@@ -833,6 +879,9 @@ def degraded_group() -> dict | None:
 
 
 def effective_process_count() -> int:
+    """The current group's size. A rejoined process before its admission
+    counts its original group, never a healthy world of one: it runs no
+    collective until the rejoin roll call seats it."""
     if _DEGRADED is not None:
         return len(_DEGRADED["survivors"])
     return _world_size()
@@ -855,14 +904,17 @@ def effective_topology() -> tuple:
 def set_degraded_group(survivors) -> None:
     """Shrink this process's world to ``survivors`` (original process
     indices, this process among them). Tears the mesh down: the next
-    exchange rebuilds it over the survivors from the cached addresses."""
+    exchange rebuilds it over the survivors from the cached addresses. An
+    expanded group (a rejoin's) goes through here too and stays on the
+    mesh even at the original size: the rejoined process holds no gloo
+    group."""
     global _DEGRADED
     survivors = tuple(sorted(int(s) for s in survivors))
     pid = _self_pid()
     if pid not in survivors:
         raise ValueError(f"process {pid} cannot join a degraded group {survivors} that excludes it")
     _reset_host_links()
-    if len(survivors) == _world_size() and _DEGRADED is None:
+    if len(survivors) == _world_size() and _DEGRADED is None and _REJOIN_IDENTITY is None:
         return  # the whole group: not degraded
     _DEGRADED = {"survivors": survivors, "rank": survivors.index(pid)}
     REGISTRY.gauge_set("fleet.survivors", float(len(survivors)))
@@ -1146,6 +1198,7 @@ def _bootstrap_link_addrs() -> None:
         finally:
             srv.close()
         _HOST_ADDRS = _gather_link_addrs(own)
+        _maybe_persist_mesh_addrs()
 
 
 def _build_host_links(peers: list[int], timeout_s, srv=None) -> dict:
@@ -1180,6 +1233,7 @@ def _build_host_links(peers: list[int], timeout_s, srv=None) -> dict:
             _HOST_ADDRS = None
             srv.close()
             raise
+        _maybe_persist_mesh_addrs()
 
     recv_socks: dict[int, socket.socket] = {}
     recv_protos: dict[int, int] = {}
@@ -1238,8 +1292,8 @@ def _build_host_links(peers: list[int], timeout_s, srv=None) -> dict:
                    + (f" (missing {missing})" if missing else ""))
             # name the lowest missing peer: the retry and roll-call tier
             # needs one suspect to treat the failure as transient
-            raise PeerUnreachable(missing[0], msg) if missing else RuntimeError(msg)
-    except BaseException:
+            raise PeerUnreachable(missing[0], msg, missing) if missing else RuntimeError(msg)
+    except BaseException as e:
         # closing the listener unblocks a live acceptor, so the join cannot hang
         srv.close()
         for s in send_socks.values():
@@ -1247,6 +1301,9 @@ def _build_host_links(peers: list[int], timeout_s, srv=None) -> dict:
         for s in recv_socks.values():
             _close_quietly(s)
         acceptor.join(timeout=timeout_s)
+        # the peers whose hello arrived: alive, whatever failed the build
+        # (the roll call removes only peers it has not heard)
+        e.heard = frozenset(recv_socks)
         raise
     srv.close()
     my_proto = _FRAME_PROTO_CRC if _p2p_crc_enabled() else 0
@@ -1396,8 +1453,10 @@ def allgather_obj_p2p(obj, tag: str = "host_collective", stats: dict | None = No
 def _fragment_may_proceed(survivors, group) -> bool:
     """The roll call's split-brain quorum: a fragment proceeds iff it holds
     a strict majority of the group's members, or exactly half of them
-    including the group's writer (its lowest member). Only members count.
-    At most one fragment of any partition passes."""
+    including the group's writer (its lowest member). Only members count:
+    an invited rejoiner in the agreed set is no member yet, and letting it
+    pad a fragment would let two fragments pass. At most one fragment of
+    any partition passes."""
     group = sorted(group)
     writer = group[0]
     members = [s for s in survivors if s in group]
@@ -1413,12 +1472,20 @@ def roll_call(window_s: float | None = None, candidates: Sequence[int] | None = 
     each rebuilds a mesh over the candidates from the cached addresses,
     dropping a peer that stays unreachable past the window
     (``PHOTON_ROLLCALL_WINDOW_S``, default 10 s), then the survivors trade
-    their reachable sets over the mesh and agree on the intersection.
+    their reachable sets over the mesh and agree on the intersection. Of
+    the peers a failed build missed, the lowest one whose hello this
+    process has not heard for the window is dropped: a live peer dials on
+    every build attempt of its own, from its exchange retries or its roll
+    call, so a build that failed on a dead peer or on a rejoiner not yet
+    invited (which answers no build) does not drop a live peer that was
+    missed mid-rebuild.
     Returns the sorted surviving original indices (this process among
     them). ``candidates`` widens the census past the current group and
     ``guard_group`` names the membership the quorum is judged by (both for
-    the rejoin roll call, 12d-v-b); a fragment without the quorum
-    (``_fragment_may_proceed``) raises rather than risk a second writer."""
+    the rejoin roll call: survivors and invited rejoiners, judged by the
+    current group, which a rejoiner joins only once agreed); a fragment
+    without the quorum (``_fragment_may_proceed``) raises rather than risk
+    a second writer."""
     global _HOST_LINKS
     if window_s is None:
         env = os.environ.get("PHOTON_ROLLCALL_WINDOW_S")
@@ -1440,21 +1507,31 @@ def roll_call(window_s: float | None = None, candidates: Sequence[int] | None = 
         give_up = deadline + window_s
         probe_timeout = max(min(2.0, window_s / 4.0), 0.2)
         survivors = None
+        # when each candidate's hello last reached this process's listener
+        heard: dict[int, float] = {}
         while len(candidates) > 1:
             try:
                 links = _build_host_links(candidates, probe_timeout)
             except PeerUnreachable as e:
-                if time.monotonic() >= deadline:
-                    candidates.remove(e.peer)
+                now = time.monotonic()
+                heard.update((p, now) for p in getattr(e, "heard", ()))
+                # the missed peers not heard for the window: a live peer
+                # missed mid-rebuild is never the one dropped
+                silent = [m for m in e.missing if m in candidates and heard.get(m, -np.inf) < now - window_s]
+                if now >= deadline and silent:
+                    candidates.remove(silent[0])
                     # the reduced set gets a fresh window: its members may
                     # still be probing the removed peer
-                    deadline = time.monotonic() + window_s
+                    deadline = now + window_s
                     give_up = max(give_up, deadline + window_s)
+                elif now >= give_up:
+                    break
                 else:
                     time.sleep(probe_timeout / 2.0)
                 continue
-            except (OSError, RuntimeError):
+            except (OSError, RuntimeError) as e:
                 # a build race (two peers mid-rebuild): retry until the give-up
+                heard.update((p, time.monotonic()) for p in getattr(e, "heard", ()))
                 if time.monotonic() >= give_up:
                     break
                 time.sleep(probe_timeout / 2.0)
@@ -1884,3 +1961,199 @@ def confirm_peer_loss(err) -> tuple[list[int], list[int], list[int]]:
     group = list(_DEGRADED["survivors"]) if _DEGRADED is not None else list(range(original_process_count()))
     survivors = roll_call()
     return group, survivors, sorted(set(group) - set(survivors))
+
+
+# -- elastic rejoin (PHOTON_REJOIN) ---------------------------------------------------
+# The degraded group shrinks the world in place; rejoin grows it back. A lost
+# process re-execs (a plan's ``rejoin`` op, or an operator's restart), takes
+# its original identity and every mesh address from the mesh cache and waits
+# to be invited; the survivors probe, invite and run one roll call over
+# survivors and rejoiners, and the agreed group goes on over the mesh.
+
+
+def rejoin_enabled() -> bool:
+    """``PHOTON_REJOIN`` (strict int parse; unset or 0: lost peers stay
+    lost)."""
+    env = os.environ.get("PHOTON_REJOIN")
+    if env is not None and env != "":
+        return int(env) != 0
+    return False
+
+
+def rejoin_window_s() -> float:
+    """``PHOTON_REJOIN_WINDOW_S`` (seconds, strict float parse, default
+    10): how long the group waits for returning peers at the first visit
+    boundary after a degrade (later boundaries probe once), and, times
+    four, how long a booting rejoiner waits for its invite."""
+    env = os.environ.get("PHOTON_REJOIN_WINDOW_S")
+    if env is not None and env != "":
+        return max(float(env), 0.0)
+    return 10.0
+
+
+def _mesh_cache_path() -> str | None:
+    """``PHOTON_MESH_CACHE``: the file the first address gather writes
+    every process's mesh address to, and a rejoin boot reads. Unset:
+    nothing is written."""
+    return os.environ.get("PHOTON_MESH_CACHE") or None
+
+
+def _maybe_persist_mesh_addrs() -> None:
+    """Write the gathered address table for later rejoiners, by atomic
+    replace (every process writes: on a shared file system the copies are
+    the same bytes). A failed write is recorded, never fatal: the cache
+    enables rejoin and nothing else reads it."""
+    from photon_ml_tpu_torch.utils.atomic_io import atomic_replace_bytes
+
+    path = _mesh_cache_path()
+    if path is None or _HOST_ADDRS is None:
+        return
+    doc = {"world": _world_size(), "addrs": {str(p): [ip, int(port)] for p, (ip, port) in sorted(_HOST_ADDRS.items())}}
+    try:
+        atomic_replace_bytes(os.path.dirname(path) or ".", path, json.dumps(doc).encode())
+    except OSError as e:
+        emit_event("mesh_cache_write_failed", path=path, error=str(e))
+
+
+def bootstrap_rejoin(pid: int | None = None, path: str | None = None) -> dict:
+    """Take a lost process's original identity in a fresh interpreter: read
+    the mesh cache, record ``(pid, world)`` as this process's identity and
+    every address for the mesh, ready for ``rejoin_wait``. ``pid`` defaults
+    to ``PHOTON_REJOIN_BOOT`` (set by the ``rejoin`` op in the re-exec'd
+    child), ``path`` to ``PHOTON_MESH_CACHE``. Joins no gloo group."""
+    global _HOST_ADDRS, _REJOIN_IDENTITY
+    if pid is None:
+        env = os.environ.get("PHOTON_REJOIN_BOOT")
+        if not env:
+            raise RuntimeError("bootstrap_rejoin needs the original process index: pass pid= or set PHOTON_REJOIN_BOOT")
+        pid = int(env)
+    path = path or _mesh_cache_path()
+    if path is None:
+        raise RuntimeError("bootstrap_rejoin needs the persisted mesh cache: set PHOTON_MESH_CACHE (the same path "
+                           "the original group ran with) or pass path=")
+    with open(path) as f:
+        doc = json.load(f)
+    addrs = {int(p): (str(ip), int(port)) for p, (ip, port) in doc["addrs"].items()}
+    if pid not in addrs:
+        raise RuntimeError(f"mesh cache {path!r} has no address for process {pid} (recorded: {sorted(addrs)})")
+    _reset_host_links()
+    _HOST_ADDRS = addrs
+    _REJOIN_IDENTITY = {"pid": int(pid), "world": int(doc["world"])}
+    emit_event("rejoin_boot", pid=int(pid), world=int(doc["world"]))
+    return dict(_REJOIN_IDENTITY)
+
+
+# hello versions reserved for the rejoin rendezvous: the frame protocol uses
+# 0 and 1, so a rejoiner tells a probe or an invite from a mesh build's dial
+# and stays out of a build it was not named in
+_HELLO_PROBE = 0x7D
+_HELLO_INVITE = 0x7E
+
+
+def probe_rejoiners(lost: Sequence[int], window_s: float = 0.0, poll_s: float = 0.25) -> list[int]:
+    """Which of the ``lost`` original indices are back and listening at
+    their recorded address (one connect and a hello answered by the ACK
+    byte; refused or silent: not back). Per-process I/O, not a collective:
+    the caller broadcasts the answer before acting on it. ``window_s``
+    polls every ``poll_s`` until one answers or the window closes."""
+    if _HOST_ADDRS is None:
+        return []
+    deadline = time.monotonic() + max(window_s, 0.0)
+    present: list[int] = []
+    while True:
+        for p in lost:
+            if p in present or p not in _HOST_ADDRS:
+                continue
+            try:
+                with socket.create_connection(_HOST_ADDRS[p], timeout=0.5) as s:
+                    s.settimeout(2.0)
+                    s.sendall(struct.pack("!i", _self_pid() | (_HELLO_PROBE << 16)))
+                    if _recv_exact(s, 1) == _ACK_BYTE:
+                        present.append(p)
+            except OSError:
+                continue
+        if present or time.monotonic() >= deadline:
+            return sorted(present)
+        time.sleep(poll_s)
+
+
+def send_rejoin_invites(present: Sequence[int], candidates: Sequence[int], survivors: Sequence[int]) -> list[int]:
+    """Send each probed rejoiner the invitation: the roll call's candidates
+    and the current survivors, all it needs to enter the roll call the
+    survivors run next. Returns those that answered with the ACK byte; one
+    that died since the probe drops out of the roll call like any
+    unreachable candidate."""
+    payload = pickle.dumps({"candidates": [int(c) for c in sorted(candidates)],
+                            "survivors": [int(s) for s in sorted(survivors)]}, protocol=4)
+    invited: list[int] = []
+    for p in present:
+        try:
+            with socket.create_connection(_HOST_ADDRS[p], timeout=2.0) as s:
+                s.settimeout(5.0)
+                s.sendall(struct.pack("!i", _self_pid() | (_HELLO_INVITE << 16)))
+                s.sendall(struct.pack("!q", len(payload)))
+                s.sendall(payload)
+                if _recv_exact(s, 1) == _ACK_BYTE:
+                    invited.append(int(p))
+        except OSError:
+            continue
+    return invited
+
+
+def rejoin_wait(window_s: float | None = None) -> dict | None:
+    """A rejoiner's side of the rendezvous: listen at this process's
+    recorded address, answer probes and wait up to ``window_s`` (default
+    ``rejoin_window_s()``) for an invite. Returns the invite (``candidates``
+    and ``survivors``), or None when the window closes first.
+
+    A dial that is neither a probe nor an invite (a degrade roll call
+    racing this boot dials the same address) is closed unanswered: the
+    rejoiner must not wedge a mesh build it was not named in (that build
+    misses it and the roll call drops it for the round; a later boundary
+    invites it). As in a mesh build, only a recorded process, from its
+    recorded address, is heard (an invite is unpickled). The listener
+    closes before the return, so the rejoin roll call can bind the address
+    again."""
+    if _REJOIN_IDENTITY is None or _HOST_ADDRS is None:
+        raise RuntimeError("rejoin_wait outside a rejoin boot: call bootstrap_rejoin first")
+    if window_s is None:
+        window_s = rejoin_window_s()
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        srv.bind(_HOST_ADDRS[_self_pid()])
+        srv.listen(8)
+        deadline = time.monotonic() + max(window_s, 0.0)
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return None
+            srv.settimeout(min(remaining, 1.0))
+            try:
+                conn, addr = srv.accept()
+            except socket.timeout:
+                continue
+            try:
+                if addr[0] not in {ip for ip, _ in _HOST_ADDRS.values()}:
+                    continue
+                conn.settimeout(5.0)
+                src, kind = _decode_hello(struct.unpack("!i", _recv_exact(conn, 4))[0])
+                if src not in _HOST_ADDRS or addr[0] != _HOST_ADDRS[src][0]:
+                    continue
+                if kind == _HELLO_PROBE:
+                    conn.sendall(_ACK_BYTE)
+                    continue
+                if kind != _HELLO_INVITE:
+                    continue  # a mesh build's dial: closed unanswered
+                n = struct.unpack("!q", _recv_exact(conn, 8))[0]
+                payload = pickle.loads(_recv_exact(conn, n))
+                conn.sendall(_ACK_BYTE)
+                emit_event("rejoin_invited", inviter=int(src), candidates=payload.get("candidates"),
+                           survivors=payload.get("survivors"))
+                return payload
+            except OSError:
+                continue
+            finally:
+                _close_quietly(conn)
+    finally:
+        _close_quietly(srv)

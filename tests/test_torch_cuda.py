@@ -1183,3 +1183,19 @@ def test_faults_streamed_writer_kill_of_three_recovers_bitwise_on_the_card(dev, 
 
     _cuda.load()
     drill.check_streamed_peer_kill(tmp_path, device="cuda", killed=0, nproc=3, groups=True)
+
+
+def test_rejoin_after_kill_bitwise_with_four_processes_on_the_card(dev, tmp_path):
+    """The elastic-rejoin drill (``tests/test_torch_rejoin_drill.py``) with
+    its four processes on the card: process 3 killed at its second visit's
+    offsets send and re-exec'd 2 s later (the re-exec'd process on the card
+    too), admitted back at the first visit boundary after the degrade;
+    every model bitwise the uninterrupted four-process run on the card,
+    the counters and the fleet's rejoin records as on the CPU."""
+    import test_torch_rejoin_drill as rejoin
+
+    from photon_ml_tpu_torch.ops import _cuda
+
+    _cuda.load()
+    clean = rejoin.clean_run(tmp_path / "uninterrupted", device="cuda")
+    rejoin.check_rejoin(tmp_path / "rejoin", rejoin.KILL_AND_REJOIN, clean, device="cuda", telemetry=True)

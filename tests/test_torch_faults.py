@@ -12,9 +12,13 @@ threads (the reference's ``tests/test_faults.py``, run on both packages).
   degraded rank mapping;
 - a ring allgather over socket pairs in threads, with corrupt and delay
   specs; the healthy mesh's and gloo's hardening into ``PeerLost``;
-- the strict parses of ``PHOTON_RE_STRAGGLER`` and ``PHOTON_DESCENT_DEGRADE``,
-  and ``NotImplementedError`` naming 12d-v-b for ``PHOTON_REJOIN`` and the
-  ``rejoin`` op;
+- the strict parses of ``PHOTON_RE_STRAGGLER``, ``PHOTON_DESCENT_DEGRADE``,
+  the rejoin knobs and ``PHOTON_COORD_MAX_MISSING_HEARTBEATS``;
+- elastic rejoin: the ``rejoin`` op's re-exec, the mesh cache and the
+  rejoin boot, the probe / invite / wait rendezvous over loopback, the
+  quorum with rejoiners, and the streamed trainer's admission at a visit
+  boundary (re-anchoring, a dropped survivor, a vanished rejoiner) and its
+  rejoin guard, on the reference's cases;
 - the descent's degrade in place on a fake random-effect coordinate
   (rollback, flap bound, mesh blockers), held to the reference's descent on
   the same fake; fingerprint collections and the metadata peek.
@@ -146,20 +150,37 @@ def test_active_plan_caches_and_no_plan_is_none(monkeypatch):
         faults.active_plan()
 
 
-def test_rejoin_op_and_knob_name_the_rejoin_item(monkeypatch):
-    spec = faults.parse_plan(VALID_PLANS[3]).specs[0]
-    with pytest.raises(NotImplementedError, match="12d-v-b"):
-        faults.apply_send_fault(spec, [b"x"], FrameSock())
-    monkeypatch.setenv("PHOTON_REJOIN", "1")
-    with pytest.raises(NotImplementedError, match="12d-v-b"):
-        mh.rejoin_enabled()
-    with pytest.raises(NotImplementedError, match="12d-v-b"):
-        mh.initialize_multihost("127.0.0.1:1", 2, 0)
+def test_rejoin_knobs_and_op_parse_strictly_as_the_reference(monkeypatch):
+    """``PHOTON_REJOIN``, ``PHOTON_REJOIN_WINDOW_S`` and the ``rejoin`` op's
+    ``PHOTON_REJOIN_CMD`` read as the reference reads them: a typo raises,
+    nothing is refused."""
+    for v in ("0", "1", "2", ""):
+        monkeypatch.setenv("PHOTON_REJOIN", v)
+        assert mh.rejoin_enabled() == jmh.rejoin_enabled()
+    monkeypatch.delenv("PHOTON_REJOIN")
+    assert mh.rejoin_enabled() is jmh.rejoin_enabled() is False
     monkeypatch.setenv("PHOTON_REJOIN", "zz")
-    with pytest.raises(ValueError):
-        mh.rejoin_enabled()
-    monkeypatch.setenv("PHOTON_REJOIN", "0")
-    assert mh.rejoin_enabled() is False
+    for mod in (mh, jmh):
+        with pytest.raises(ValueError):
+            mod.rejoin_enabled()
+    monkeypatch.delenv("PHOTON_REJOIN_WINDOW_S", raising=False)
+    assert mh.rejoin_window_s() == jmh.rejoin_window_s() == 10.0
+    for v in ("2.5", "0", "-3"):
+        monkeypatch.setenv("PHOTON_REJOIN_WINDOW_S", v)
+        assert mh.rejoin_window_s() == jmh.rejoin_window_s()
+    monkeypatch.setenv("PHOTON_REJOIN_WINDOW_S", "soon")
+    for mod in (mh, jmh):
+        with pytest.raises(ValueError):
+            mod.rejoin_window_s()
+    monkeypatch.delenv("PHOTON_REJOIN_CMD", raising=False)
+    with pytest.raises(RuntimeError, match="PHOTON_REJOIN_CMD"):
+        faults.rejoin_command()
+    for bad in ('"python"', '[1, 2]', "[]"):
+        monkeypatch.setenv("PHOTON_REJOIN_CMD", bad)
+        with pytest.raises(RuntimeError, match="JSON list of strings"):
+            faults.rejoin_command()
+    monkeypatch.setenv("PHOTON_REJOIN_CMD", '["python", "-c", "pass"]')
+    assert faults.rejoin_command() == ["python", "-c", "pass"]
 
 
 # -- frames and payloads ---------------------------------------------------------
@@ -958,3 +979,364 @@ def test_descent_checkpoint_carries_the_current_iteration(tmp_path):
     for a, b in ((resumed.model.models["c"].coefficients, clean.model.models["c"].coefficients),
                  (resumed.training_scores["c"], clean.training_scores["c"])):
         assert a.numpy().tobytes() == b.numpy().tobytes()
+
+
+# -- elastic rejoin ---------------------------------------------------------------
+
+
+class TestRejoinSpecGrammar:
+    def test_parse_valid_rejoin_spec(self):
+        for mod in (faults, jfaults):
+            plan = mod.parse_plan('[{"op": "rejoin", "link": [3, 0], "seq": 5, "tag": "offsets", "delay_s": 2.0}]')
+            assert plan.specs[0].op == "rejoin" and plan.specs[0].delay_s == 2.0
+
+    def test_rejoin_requires_delay(self):
+        for mod in (faults, jfaults):
+            with pytest.raises(ValueError, match="rejoin requires delay_s"):
+                mod.parse_plan('[{"op": "rejoin", "link": [1, 0], "seq": 1}]')
+
+
+def test_rejoin_op_relaunches_the_command_as_a_boot_without_the_plan(tmp_path, monkeypatch):
+    """The ``rejoin`` op's child: ``PHOTON_REJOIN_CMD`` run after ``delay_s``
+    with ``PHOTON_REJOIN_BOOT`` the dying process's index and no fault plan
+    (the parent's exit, ``os._exit``, is not taken here)."""
+    import json
+    import sys
+
+    out = tmp_path / "child.json"
+    monkeypatch.setenv("PHOTON_REJOIN_CMD", json.dumps([
+        sys.executable, "-c", "import json, os, sys; json.dump({k: os.environ.get(k) for k in "
+        "('PHOTON_REJOIN_BOOT', 'PHOTON_FAULT_PLAN', 'MARK')}, open(sys.argv[1], 'w'))", str(out)]))
+    monkeypatch.setenv("PHOTON_FAULT_PLAN", VALID_PLANS[3])
+    monkeypatch.setenv("MARK", "inherited")
+    spec = faults.parse_plan('[{"op": "rejoin", "link": [2, 0], "seq": 1, "delay_s": 0.05}]').specs[0]
+    faults._spawn_rejoin_child(spec)
+    deadline = time.monotonic() + 30
+    while not out.exists() or not out.read_text():
+        assert time.monotonic() < deadline, "the relaunched command never ran"
+        time.sleep(0.05)
+    time.sleep(0.05)
+    assert json.loads(out.read_text()) == {"PHOTON_REJOIN_BOOT": "2", "PHOTON_FAULT_PLAN": None, "MARK": "inherited"}
+
+
+class TestRejoinQuorum:
+    def test_rejoiner_does_not_pad_quorum(self):
+        for mod in (mh, jmh):
+            assert not mod._fragment_may_proceed([2, 9], [0, 1, 2, 3])
+            assert mod._fragment_may_proceed([0, 1, 2, 9], [0, 1, 2])
+
+    def test_expanded_rejoin_set_proceeds(self):
+        for mod in (mh, jmh):
+            assert mod._fragment_may_proceed([0, 1, 2, 3], [0, 1, 2])
+
+
+def test_coordinator_heartbeats_parse_strictly_and_set_the_gloo_timeout(monkeypatch):
+    """``PHOTON_COORD_MAX_MISSING_HEARTBEATS``: a strict int, at least 1,
+    read before any work (a typo names the knob, not a cluster problem),
+    and the gloo group's timeout in 10 s heartbeats."""
+    seen = {}
+
+    def fake_init(backend, **kw):
+        seen.update(kw)
+        raise RuntimeError("no group here")
+
+    monkeypatch.setattr(mh.dist, "init_process_group", fake_init)
+    monkeypatch.delenv("PHOTON_COORD_MAX_MISSING_HEARTBEATS", raising=False)
+    assert mh.coord_max_missing_heartbeats() is None
+    with pytest.raises(RuntimeError, match="multihost initialization failed"):
+        mh.initialize_multihost("127.0.0.1:1", 2, 0, timeout_s=45)
+    assert seen["timeout"].total_seconds() == 45
+    monkeypatch.setenv("PHOTON_COORD_MAX_MISSING_HEARTBEATS", "36")
+    assert mh.coord_max_missing_heartbeats() == 36
+    with pytest.raises(RuntimeError, match="multihost initialization failed"):
+        mh.initialize_multihost("127.0.0.1:1", 2, 0, timeout_s=45)
+    assert seen["timeout"].total_seconds() == 360
+    for bad in ("zz", "1.5", "0", "-2"):
+        monkeypatch.setenv("PHOTON_COORD_MAX_MISSING_HEARTBEATS", bad)
+        with pytest.raises(ValueError):
+            mh.initialize_multihost("127.0.0.1:1", 2, 0)
+
+
+class TestMeshCacheAndRejoinBootstrap:
+    @pytest.fixture(autouse=True)
+    def _restore_identity(self, monkeypatch):
+        monkeypatch.setattr(mh, "_HOST_ADDRS", None)
+        monkeypatch.setattr(jmh, "_HOST_ADDRS", None)
+        yield
+        mh._REJOIN_IDENTITY = None
+        jmh._REJOIN_IDENTITY = None
+        mh._DEGRADED = None
+
+    def test_persist_and_bootstrap_roundtrip(self, tmp_path, monkeypatch):
+        path = str(tmp_path / "mesh.json")
+        addrs = {0: ("127.0.0.1", 4100), 1: ("127.0.0.1", 4101), 2: ("10.0.0.3", 4102)}
+        monkeypatch.setenv("PHOTON_MESH_CACHE", path)
+        monkeypatch.setattr(mh, "_HOST_ADDRS", dict(addrs))
+        with monkeypatch.context() as m:
+            m.setattr(mh, "_world_size", lambda: 3)
+            mh._maybe_persist_mesh_addrs()
+        # the reference writes the same document for the same table
+        monkeypatch.setattr(jmh, "_HOST_ADDRS", dict(addrs))
+        monkeypatch.setattr(jax, "process_count", lambda: 3)
+        monkeypatch.setenv("PHOTON_MESH_CACHE", str(tmp_path / "ref.json"))
+        jmh._maybe_persist_mesh_addrs()
+        assert (tmp_path / "ref.json").read_bytes() == (tmp_path / "mesh.json").read_bytes()
+        # a fresh interpreter (cleared globals) takes its original identity
+        monkeypatch.setattr(mh, "_HOST_ADDRS", None)
+        assert mh.bootstrap_rejoin(pid=2, path=path) == {"pid": 2, "world": 3}
+        assert mh._HOST_ADDRS[2] == ("10.0.0.3", 4102)
+        assert (mh.original_process_index(), mh.original_process_count()) == (2, 3)
+        # before admission it counts its original group, never a world of one
+        assert (mh.effective_process_index(), mh.effective_process_count()) == (2, 3)
+        assert not mh.is_output_process()
+        mh.require_process_group()  # it belongs to its group through the mesh
+        # an expanded group at the original size stays on the mesh
+        monkeypatch.setattr(mh, "_reset_host_links", lambda: None)
+        mh.set_degraded_group([0, 1, 2])
+        assert mh.degraded_group() == {"survivors": (0, 1, 2), "rank": 2}
+
+    def test_nothing_is_written_with_the_knob_unset(self, tmp_path, monkeypatch):
+        monkeypatch.delenv("PHOTON_MESH_CACHE", raising=False)
+        monkeypatch.chdir(tmp_path)
+        monkeypatch.setattr(mh, "_HOST_ADDRS", {0: ("127.0.0.1", 4100)})
+        mh._maybe_persist_mesh_addrs()
+        assert list(tmp_path.iterdir()) == []
+
+    def test_bootstrap_rejects_unknown_pid(self, tmp_path, monkeypatch):
+        path = str(tmp_path / "mesh.json")
+        monkeypatch.setenv("PHOTON_MESH_CACHE", path)
+        monkeypatch.setattr(mh, "_HOST_ADDRS", {0: ("127.0.0.1", 4100)})
+        mh._maybe_persist_mesh_addrs()
+        with pytest.raises(RuntimeError, match="no address for process 7"):
+            mh.bootstrap_rejoin(pid=7, path=path)
+
+    def test_bootstrap_requires_cache_path(self, monkeypatch):
+        monkeypatch.delenv("PHOTON_MESH_CACHE", raising=False)
+        with pytest.raises(RuntimeError, match="PHOTON_MESH_CACHE"):
+            mh.bootstrap_rejoin(pid=1)
+        monkeypatch.delenv("PHOTON_REJOIN_BOOT", raising=False)
+        with pytest.raises(RuntimeError, match="PHOTON_REJOIN_BOOT"):
+            mh.bootstrap_rejoin()
+
+    def test_sink_shard_index_follows_rejoin_identity(self, tmp_path, monkeypatch):
+        from photon_ml_tpu_torch.obs import sink as obs_sink
+
+        path = str(tmp_path / "mesh.json")
+        monkeypatch.setenv("PHOTON_MESH_CACHE", path)
+        monkeypatch.setattr(mh, "_HOST_ADDRS", {0: ("127.0.0.1", 4100), 1: ("127.0.0.1", 4101)})
+        with monkeypatch.context() as m:
+            m.setattr(mh, "_world_size", lambda: 2)
+            mh._maybe_persist_mesh_addrs()
+        monkeypatch.setenv("PHOTON_REJOIN_BOOT", "1")
+        mh.bootstrap_rejoin()
+        assert obs_sink._process_index() == 1
+        assert obs_sink._process_count() == 2
+
+
+class TestRejoinRendezvous:
+    """The probe, invite and wait over loopback sockets in one process: the
+    rejoiner answers probes, ignores a stray mesh hello (the degrade roll
+    call's race) and returns the invite."""
+
+    @pytest.fixture(autouse=True)
+    def _restore_identity(self, monkeypatch):
+        monkeypatch.setattr(mh, "_HOST_ADDRS", None)
+        yield
+        mh._REJOIN_IDENTITY = None
+
+    @staticmethod
+    def _closed_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def test_probe_invite_wait_roundtrip(self, monkeypatch):
+        port = self._closed_port()
+        monkeypatch.setattr(mh, "_HOST_ADDRS", {0: ("127.0.0.1", 1), 3: ("127.0.0.1", port)})
+        mh._REJOIN_IDENTITY = {"pid": 3, "world": 4}
+        out = {}
+        t = threading.Thread(target=lambda: out.update(invite=mh.rejoin_wait(window_s=10.0)))
+        t.start()
+        try:
+            deadline = time.monotonic() + 5
+            while True:
+                try:
+                    s = socket.create_connection(("127.0.0.1", port), timeout=0.5)
+                    break
+                except OSError:
+                    assert time.monotonic() < deadline
+                    time.sleep(0.02)
+            # a stray mesh hello first (a racing roll call's dial): ignored
+            s.sendall(struct.pack("!i", 0 | (1 << 16)))
+            s.close()
+            # the survivor's side: process 0 probes, then invites
+            present = []
+            with monkeypatch.context() as m:
+                m.setattr(mh, "_self_pid", lambda: 0)
+                while not present and time.monotonic() < deadline:
+                    present = mh.probe_rejoiners([3], window_s=0.0)
+                assert present == [3]
+                assert mh.send_rejoin_invites(present, candidates=[0, 1, 3], survivors=[0, 1]) == [3]
+        finally:
+            t.join(timeout=10)
+        assert out["invite"] == {"candidates": [0, 1, 3], "survivors": [0, 1]}
+
+    def test_wait_times_out_uninvited(self, monkeypatch):
+        monkeypatch.setattr(mh, "_HOST_ADDRS", {2: ("127.0.0.1", self._closed_port())})
+        mh._REJOIN_IDENTITY = {"pid": 2, "world": 3}
+        assert mh.rejoin_wait(window_s=0.2) is None
+
+    def test_wait_outside_a_rejoin_boot_raises(self):
+        with pytest.raises(RuntimeError, match="bootstrap_rejoin"):
+            mh.rejoin_wait(window_s=0.1)
+
+    def test_probe_refused_is_absent(self, monkeypatch):
+        monkeypatch.setattr(mh, "_HOST_ADDRS", {1: ("127.0.0.1", self._closed_port())})
+        assert mh.probe_rejoiners([1], window_s=0.0) == []
+
+
+class TestRejoinAdmission:
+    """``_maybe_admit_rejoin`` with the group's calls faked, the reference's
+    cases; then the rejoin guard of ``_load_resume_state``."""
+
+    @staticmethod
+    def _trainer(monkeypatch):
+        from photon_ml_tpu_torch.config import (GameTrainingConfig, OptimizationConfig, OptimizerConfig,
+                                                RandomEffectCoordinateConfig, RegularizationContext)
+        from photon_ml_tpu_torch.game.streaming import StreamedGameTrainer
+        from photon_ml_tpu_torch.types import RegularizationType, TaskType, VarianceComputationType
+
+        monkeypatch.setattr(mh, "require_process_group", lambda: None)
+        opt = OptimizationConfig(optimizer=OptimizerConfig(max_iterations=2, tolerance=1e-9),
+                                 regularization=RegularizationContext(RegularizationType.L2),
+                                 regularization_weight=1.0)
+        cfg = GameTrainingConfig(
+            task_type=TaskType.LOGISTIC_REGRESSION, coordinate_update_sequence=("per_entity",),
+            coordinate_descent_iterations=1, fixed_effect_coordinates={},
+            random_effect_coordinates={"per_entity": RandomEffectCoordinateConfig(
+                random_effect_type="eid", feature_shard_id="r", optimization=opt)},
+            variance_computation=VarianceComputationType.SIMPLE)
+        return StreamedGameTrainer(cfg, chunk_rows=64, multihost=True, num_entities={"eid": 4},
+                                   sharded_checkpoints=False, device="cpu")
+
+    @staticmethod
+    def _degraded(monkeypatch, rank=0, probed=(3,), agreed=(0, 1, 2, 3)):
+        monkeypatch.setenv("PHOTON_REJOIN", "1")
+        monkeypatch.setattr(mh, "degraded_group", lambda: {"survivors": (0, 1, 2), "rank": rank})
+        monkeypatch.setattr(mh, "original_process_count", lambda: 4)
+        monkeypatch.setattr(mh, "original_process_index", lambda: rank)
+        monkeypatch.setattr(mh, "rejoin_window_s", lambda: 0.0)
+        monkeypatch.setattr(mh, "effective_process_index", lambda: rank)
+        monkeypatch.setattr(mh, "effective_process_count", lambda: 3)
+        monkeypatch.setattr(mh, "probe_rejoiners", lambda lost, w: list(probed))
+        monkeypatch.setattr(mh, "broadcast_from_host0", lambda x: x)
+        monkeypatch.setattr(mh, "send_rejoin_invites", lambda *a, **kw: [3])
+        groups = []
+        monkeypatch.setattr(mh, "set_degraded_group", lambda s: groups.append(list(s)))
+        monkeypatch.setattr(mh, "roll_call", lambda **kw: list(agreed))
+        return groups
+
+    @staticmethod
+    def _counter(name) -> float:
+        from photon_ml_tpu_torch.obs.metrics import REGISTRY
+
+        return REGISTRY.snapshot().get("counters", {}).get(name, {}).get("value", 0.0)
+
+    def test_admitted_rejoin_reanchors_row_base(self, monkeypatch):
+        from photon_ml_tpu_torch.game.streaming import _RejoinResume
+
+        trainer = self._trainer(monkeypatch)
+        trainer._last_fingerprint = "degraded-layout"
+        trainer._last_row_base = 11
+        groups = self._degraded(monkeypatch)
+        sent = {}
+        monkeypatch.setattr(mh, "allgather_obj_p2p",
+                            lambda payload, tag=None, **kw: sent.update(tag=tag) or [payload, None, None, None])
+        before = self._counter("fleet.rejoins")
+        with pytest.raises(_RejoinResume):
+            trainer._maybe_admit_rejoin({}, iteration=1, ci=0)
+        # the survivor accepts what it sent, and its row base re-anchors to
+        # the degraded layout that wrote any checkpoint since the loss
+        assert "degraded-layout" in trainer.resume_fingerprints
+        assert trainer.resume_row_base == 11
+        assert groups == [[0, 1, 2, 3]] and sent["tag"] == "rejoin_ctrl"
+        assert self._counter("fleet.rejoins") == before + 1.0
+
+    def test_dropped_survivor_forces_replan_resume(self, monkeypatch):
+        from photon_ml_tpu_torch.game.streaming import _RejoinResume
+
+        trainer = self._trainer(monkeypatch)
+        trainer._last_fingerprint = "pre-shrink"
+        trainer._last_row_base = 7
+        # survivor 2 and the probed rejoiner both die before the roll call
+        groups = self._degraded(monkeypatch, agreed=(0, 1))
+        before = self._counter("fleet.recoveries")
+        with pytest.raises(_RejoinResume):
+            trainer._maybe_admit_rejoin({}, iteration=0, ci=0)
+        assert groups == [[0, 1]]
+        assert "pre-shrink" in trainer.resume_fingerprints and trainer.resume_row_base == 7
+        assert self._counter("fleet.recoveries") == before + 1.0
+
+    def test_admit_and_drop_in_one_round_roots_at_live_survivor(self, monkeypatch):
+        """Process 0 dies between the probe and the roll call, which admits 3
+        and drops 0 in one round: the anchors come from process 1, the
+        lowest survivor still in the group."""
+        from photon_ml_tpu_torch.game.streaming import _RejoinResume
+
+        trainer = self._trainer(monkeypatch)
+        trainer._last_fingerprint = "degraded-layout"
+        trainer._last_row_base = 5
+        self._degraded(monkeypatch, rank=1, probed=(), agreed=(1, 2, 3))
+        monkeypatch.setattr(mh, "broadcast_from_host0", lambda x: np.asarray([3], np.int64))
+        sent = {}
+
+        def fake_allgather(payload, tag=None, **kw):
+            sent["payload"] = payload
+            return [payload, None, None]
+
+        monkeypatch.setattr(mh, "allgather_obj_p2p", fake_allgather)
+        with pytest.raises(_RejoinResume):
+            trainer._maybe_admit_rejoin({}, iteration=2, ci=0)
+        assert sent["payload"]["fingerprints"] == ["degraded-layout"]
+        assert "degraded-layout" in trainer.resume_fingerprints and trainer.resume_row_base == 5
+
+    def test_vanished_rejoiner_alone_keeps_training(self, monkeypatch):
+        trainer = self._trainer(monkeypatch)
+        # the roll call agrees on the current group: training goes on in place
+        self._degraded(monkeypatch, agreed=(0, 1, 2))
+        assert trainer._maybe_admit_rejoin({}, iteration=0, ci=0) is None
+
+    def test_whole_group_and_knob_off_probe_nothing(self, monkeypatch):
+        trainer = self._trainer(monkeypatch)
+        self._degraded(monkeypatch)
+        monkeypatch.setattr(mh, "probe_rejoiners", lambda *a: pytest.fail("probed"))
+        monkeypatch.setenv("PHOTON_REJOIN", "0")
+        assert trainer._maybe_admit_rejoin({}, iteration=0, ci=0) is None
+        monkeypatch.setenv("PHOTON_REJOIN", "1")
+        monkeypatch.setattr(mh, "degraded_group", lambda: None)
+        assert trainer._maybe_admit_rejoin({}, iteration=0, ci=0) is None
+
+    def test_a_rejoiner_refuses_a_degraded_layout_s_gathered_checkpoint(self, monkeypatch, tmp_path):
+        """The rejoin guard: a gathered checkpoint of another layout (a
+        degraded group's, written after the loss) holds none of a
+        rejoiner's rows; any other process takes it as before."""
+        from types import SimpleNamespace
+
+        from photon_ml_tpu_torch.game import streaming
+
+        trainer = self._trainer(monkeypatch)
+        trainer.checkpoint_dir = str(tmp_path)
+        ckpt = SimpleNamespace(model=None, next_iteration=1, next_coordinate=0, fingerprint="degraded",
+                               scores={"per_entity": np.zeros(4, np.float32)}, total=np.zeros(4, np.float32))
+        monkeypatch.setattr(streaming.ckpt_io, "load_checkpoint", lambda *a, **kw: ckpt)
+        monkeypatch.setattr(mh, "broadcast_from_host0", lambda x: x)
+        monkeypatch.setattr(trainer, "_distributed", lambda: True)
+        trainer.resume_fingerprints = ["degraded"]
+        state = trainer._load_resume_state("expanded", "digest")
+        assert state["foreign"] and not state["scores_local"]
+        monkeypatch.setattr(mh, "rejoin_identity", lambda: {"pid": 3, "world": 4})
+        with pytest.raises(RuntimeError, match="degraded layout"):
+            trainer._load_resume_state("expanded", "digest")
+        ckpt.fingerprint = "expanded"  # the checkpoint written before the loss: taken
+        assert not trainer._load_resume_state("expanded", "digest")["foreign"]
+

@@ -15,6 +15,10 @@ import io
 import json
 import logging
 import os
+import shutil
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -298,7 +302,7 @@ def test_corrupt_file_raises_not_falls_back(tmp_path):
 
 def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     """No silent fallback: a build that fails raises, and so does the read."""
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setenv("PHOTON_ML_TPU_CACHE", str(tmp_path / "_build"))
     monkeypatch.setattr(build, "_lib", None)
     monkeypatch.setattr(build, "CXX_FLAGS", build.CXX_FLAGS + ("-DPHOTON_BROKEN", "-include", "no_such_header.h"))
     path = str(tmp_path / "one.avro")
@@ -313,11 +317,61 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
         build.build()
 
 
-def test_the_library_builds_from_the_ports_own_source():
+def test_the_library_builds_from_the_ports_own_source(monkeypatch, tmp_path):
+    """The port's source, built where the reference builds its library:
+    under ``PHOTON_ML_TPU_CACHE``, else under the temporary directory."""
     assert [s.relative_to(build._PKG.parent).as_posix() for s in build.SOURCES] == [
         "photon_ml_tpu_torch/native/avro_ingest.cc"]
-    assert build.library_path().parent == build._PKG / "_build"
+    monkeypatch.delenv("PHOTON_ML_TPU_CACHE", raising=False)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    assert build.library_path().parent == tmp_path / "photon_ml_tpu_torch_native"
+    monkeypatch.setenv("PHOTON_ML_TPU_CACHE", "")  # empty: unset, as in the reference
+    assert build.library_path().parent == tmp_path / "photon_ml_tpu_torch_native"
     assert build.library_path().name.startswith("libphoton_native_")
+
+
+def _package_files() -> set[str]:
+    return {os.path.relpath(os.path.join(d, f), build._PKG) for d, _, fs in os.walk(build._PKG) for f in fs
+            if "__pycache__" not in d}
+
+
+def test_the_cache_knob_takes_the_build_out_of_the_package(monkeypatch, tmp_path):
+    """``PHOTON_ML_TPU_CACHE`` set: the library is compiled under it and
+    loads from there, and not one file is added to the package."""
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("PHOTON_ML_TPU_CACHE", str(cache))
+    before = _package_files()
+    out = build.build()
+    assert out.parent == cache and out.exists() and out.name.startswith("libphoton_native_")
+    assert [p.name for p in cache.iterdir()] == [out.name]  # the temporary name was renamed away
+    assert _package_files() == before
+    assert build.build() == out  # built once: the second call finds it
+
+
+def test_the_cache_knob_builds_from_a_read_only_package(tmp_path):
+    """A copy of the native package made read-only, as an installed one may
+    be: with the knob set, a fresh interpreter builds and loads the library
+    from it into the cache, and the package's directory keeps its files."""
+    pkg = tmp_path / "site" / "photon_ml_tpu_torch"
+    shutil.copytree(build._PKG / "native", pkg / "native", ignore=shutil.ignore_patterns("__pycache__"))
+    (pkg / "__init__.py").write_text("")
+    for d in (pkg / "native", pkg):
+        os.chmod(d, 0o555)
+    listing = sorted(str(p.relative_to(pkg)) for p in pkg.rglob("*"))
+    cache = tmp_path / "cache"
+    script = ("import sys; sys.path.insert(0, sys.argv[1]); "
+              "from photon_ml_tpu_torch.native import build; print(build.load() is not None, build.library_path())")
+    try:
+        env = dict(os.environ, PHOTON_ML_TPU_CACHE=str(cache), PYTHONDONTWRITEBYTECODE="1")
+        proc = subprocess.run([sys.executable, "-c", script, str(tmp_path / "site")], capture_output=True, text=True,
+                              env=env, timeout=120)
+    finally:
+        for d in (pkg, pkg / "native"):
+            os.chmod(d, 0o755)
+    assert proc.returncode == 0, proc.stderr
+    loaded, path = proc.stdout.split()
+    assert loaded == "True" and os.path.dirname(path) == str(cache) and os.path.exists(path)
+    assert sorted(str(p.relative_to(pkg)) for p in pkg.rglob("*")) == listing
 
 
 def test_decode_file_columns(tmp_path):

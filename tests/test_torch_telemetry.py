@@ -587,6 +587,13 @@ ALLOWED = {
                                "(game/descent.py _degrade_in_place)",
     "descent_retry": "the reference's record of a descent iteration re-run after a link flap "
                      "(game/descent.py _degrade_in_place)",
+    "fleet.rejoins": "the reference's counter beside the rejoin record its report reads "
+                     "(game/streaming.py _join_as_rejoiner, _maybe_admit_rejoin); its gate reads fleet/rejoins "
+                     "off the records",
+    "rejoin_boot": "the reference's record of a rejoin boot (multihost.bootstrap_rejoin)",
+    "rejoin_invited": "the reference's record of a rejoiner's invite (multihost.rejoin_wait)",
+    "mesh_cache_write_failed": "the reference's record of a mesh-cache write that failed "
+                               "(multihost._maybe_persist_mesh_addrs)",
 }
 _METRIC_CALLS = {"counter_inc", "gauge_set", "timer_add", "histogram_observe"}
 
