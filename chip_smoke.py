@@ -16,7 +16,8 @@ Run from the root of a checkout. It builds the CUDA kernels from
 1. device: the card's name and power limit;
 2. build: the kernels compiled with nvcc for sm_90a (one nvcc per source,
    started together), with the spill lines of each source's report, and
-   beside them the native Avro decoder with g++;
+   beside them the native library (the Avro decoder, the index store)
+   with g++;
 3. parity: K1 (fused value+gradient) and K2 (fused Hessian-vector)
    against their plain PyTorch versions on the card, at the headline shape
    (n = 2^20, d = 512, bfloat16 X), config B's (n = 2^20, d = 256,
@@ -380,6 +381,25 @@ Run from the root of a checkout. It builds the CUDA kernels from
    Phase 18c's uninterrupted run wrote a canonical file and a ``.p1``
    shard of one run id, both valid. Each telemetry-on wall beside its
    telemetry-off twin's and each file's bytes are printed;
+18e. main_tools: the tools and the run report through the umbrella
+   ``photon-ml-tpu-torch`` (``cli.main.main``), once phases 16-18d have
+   ended, so nothing runs beside them. ``name-term-bags`` and
+   ``index-features`` over phase 16's training files (2^18 records, two
+   parts; the native decoder), then phase 16's 2-iteration command with
+   ``--index-maps``: its files equal to phase 16's record for record, none
+   added, K1 once a fixed-effect pass and nothing else. A
+   ``NativeIndexStore`` of every shard map: ``lookup_all`` over every key
+   equal to the map's indices, an unknown key -1. ``report --json`` (and
+   ``--export-trace``) over phase 18d's GAME run (phases ingest, train,
+   descent) and over phase 18c's fleet run (game, ingest, descent): each
+   summary's ``compile_s`` 0, as the kernels were built before these runs
+   (the card test ``-k tools`` reads a run that builds them);
+   ``--diff`` of the GAME and score runs, ``report validate``, ``report
+   fleet`` naming processes 0 and 1; ``report gate`` writing a baseline,
+   passing against it, and failing (exit 1) against a copy with ``wall_s``
+   halved under a wall tier of rel 0.5, the same for ``--fleet``. Each
+   command's exit code read from ``SystemExit`` against the one expected,
+   its seconds, the tools' ms a record;
 19. main_f: logistic at config A's width in float32, 2^22 rows (8 GiB) in
    16 host chunks of 2^18 rows drawn on the card, ``train_glm_streamed``
    with host L-BFGS (10 iterations at tolerance 0, lambda = 1) in three
@@ -440,7 +460,7 @@ Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
 E on L-BFGS, E projected, the GAME drivers, the six out-of-core
 phases, the eight data-parallel ones, the five out-of-core ones across
-processes, main_faults and main_telemetry, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
+processes, main_faults, main_telemetry and main_tools, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
 ``at_streamed_game_chunk_shape`` K1's at main_e_streamed's), the line
@@ -451,7 +471,9 @@ without CUDA or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import multiprocessing
 import os
@@ -468,6 +490,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.cli import main as cli_main
 from photon_ml_tpu_torch.cli import score as cli_score
 from photon_ml_tpu_torch.cli import train as cli_train
 from photon_ml_tpu_torch.cli import train_glm as cli_train_glm
@@ -513,9 +536,10 @@ from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader
 from photon_ml_tpu_torch.io.model_io import load_game_model, load_glm
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+from photon_ml_tpu_torch.native import NativeIndexStore
 from photon_ml_tpu_torch.native import build as native_build
 from photon_ml_tpu_torch.obs import REGISTRY
-from photon_ml_tpu_torch.obs.report import load_run, validate_run
+from photon_ml_tpu_torch.obs.report import fleet_run_paths, latest_run, load_run, validate_run
 from photon_ml_tpu_torch.ops import _cuda, fused, prefetch, tile_cache
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
@@ -2440,6 +2464,24 @@ def recording_decoders():
         yield seen
     finally:
         AvroDataReader.read = read
+
+
+@contextmanager
+def recording_native_index_passes():
+    """How many index-map passes the native decoder made (the reader's
+    streaming pass falls back to the Python codec without one)."""
+    seen = []
+    native = AvroDataReader._streaming_stats_native
+
+    def recorded(self, plans):
+        seen.append(len(plans))
+        return native(self, plans)
+
+    AvroDataReader._streaming_stats_native = recorded
+    try:
+        yield seen
+    finally:
+        AvroDataReader._streaming_stats_native = native
 
 
 def _same_dataset(a, b) -> bool:
@@ -5307,6 +5349,171 @@ def run_telemetry(dev, data: GameCliData, cli: dict, glm_streamed: dict) -> dict
     )
 
 
+# ---------------------------------------------------------------------------
+# the tools and the run report: main_tools
+# ---------------------------------------------------------------------------
+TOOLS_BAGS = ("features", *GAME_CLI_BAGS.values())
+# a wall tier that a baseline with its wall halved fails (the defaults,
+# rel 1 and 10 s, pass it)
+TIGHT_WALL = json.dumps({"wall_s": {"rel": 0.5, "abs": 0.0}})
+
+
+def umbrella(argv: list[str]) -> tuple[int, str, float]:
+    """One umbrella command in this process: its exit code (read from
+    ``SystemExit``; 0 when it returns), its standard output, its seconds."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli_main.main(argv)
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+    return code, buf.getvalue(), time.perf_counter() - t0
+
+
+def run_tools(dev, data: GameCliData, card: str) -> dict:
+    """main_tools: (a) ``name-term-bags`` and ``index-features`` over
+    main_game_cli's training files, each timed alone, then its 2-iteration
+    training command with ``--index-maps`` (K1 counted from 0), its files
+    against ``out-2it``; (b) a ``NativeIndexStore`` of every shard map;
+    (c) ``report`` over main_telemetry's GAME, score and fleet runs;
+    (d) ``report gate`` and its baselines."""
+    work, n_tr = data.work, data.n_train
+    cfg2, train, val = (os.path.join(work, f) for f in ("config-2.json", "train", "val"))
+    bags_dir, index_dir = os.path.join(work, "bags"), os.path.join(work, "index")
+    tool_s, tool_codes = {}, {}
+    with recording_native_index_passes() as native_passes:
+        for argv in (["name-term-bags", "--data", train, "--bags", *TOOLS_BAGS, "--output-dir", bags_dir],
+                     ["index-features", "--data", train, "--config", cfg2, "--output-dir", index_dir]):
+            tool_codes[argv[0]], _, tool_s[argv[0]] = umbrella(argv)
+    bags = {}
+    for bag in TOOLS_BAGS:
+        with open(os.path.join(bags_dir, f"{bag}.json")) as f:
+            bags[bag] = len(json.load(f))
+    with open(os.path.join(index_dir, "_sizes.json")) as f:
+        sizes = json.load(f)
+    maps = {fn[:-4]: IndexMap.load(os.path.join(index_dir, fn)) for fn in sorted(os.listdir(index_dir))
+            if fn.endswith(".npz")}
+    with open(os.path.join(bags_dir, "photon.log")) as f:
+        # name-term-bags logs a fall-back to the Python codec
+        tools_native = "Python codec" not in f.read() and native_passes == [GAME_CLI["parts"]]
+
+    # (a) the 2-iteration command on the indexed maps, K1 counted from 0
+    out = os.path.join(work, "out-indexed")
+    with recording_fits() as fits:
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        torch.cuda.synchronize()
+        code_train, _, train_s = umbrella(["train", "--config", cfg2, "--train-data", train, "--validation-data",
+                                           val, "--output-dir", out, "--device", dev.type,
+                                           "--index-maps", index_dir])
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    batch, results = fits[0]
+    fixed_passes = sum(t.objective_passes for r in results for t in r.descent.trackers["fixed"])
+    with open(os.path.join(out, "photon.log")) as f:
+        loaded_maps = "loaded index maps" in f.read()
+    ref, got = decoded_outputs(os.path.join(work, "out-2it")), decoded_outputs(out)
+    extra_files = sorted(set(got) - set(ref))
+
+    # (b) the native store of every shard map
+    store = {}
+    for sid, imap in maps.items():
+        keys = [k for k, _ in imap.items()]
+        t0 = time.perf_counter()
+        s = NativeIndexStore.build(os.path.join(work, "stores", f"{sid}.pidx"), imap.items())
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        found = s.lookup_all(keys + ["\x00unknown\x01key"])
+        lookup_s = time.perf_counter() - t0
+        store[sid] = dict(keys=len(keys), build_s=build_s, lookup_s=lookup_s,
+                          bytes=os.path.getsize(s.path),
+                          ok=bool(np.array_equal(found[:-1], imap.lookup_all(np.array(keys))))
+                          and found[-1] == -1 and s.get("\x00unknown\x01key") == -1 and s.size == imap.size)
+        s.close()
+
+    # (c) the report over main_telemetry's runs
+    tel_game, tel_score = os.path.join(work, "telemetry-game"), os.path.join(work, "telemetry-score")
+    fleet_dir = os.path.join(work, "game_streamed_multihost", "telemetry")
+    runs = {"game": latest_run(tel_game), "score": latest_run(tel_score), "fleet": fleet_run_paths(fleet_dir)[0]}
+    codes, seconds, summaries = {}, {}, {}
+
+    def call(label: str, argv: list[str], expect: int) -> str:
+        code, text, sec = umbrella(["report", *argv])
+        codes[label], seconds[label] = [code, expect], sec
+        return text
+
+    trace = os.path.join(work, "game-trace.json")
+    for name, path in runs.items():
+        extra = ["--export-trace", trace] if name == "game" else []
+        text = call(f"summary_{name}", [path, "--json", *extra], 0)
+        summaries[name] = json.loads(text) if text.strip() else {}
+    with open(trace) as f:
+        trace_events = len(json.load(f)["traceEvents"])
+    diff = call("diff", [runs["game"], "--diff", runs["score"]], 0)
+    for name in runs:
+        call(f"validate_{name}", ["validate", runs[name]], 0)
+    fleet_text = call("fleet", ["fleet", fleet_dir], 0)
+    fleet_json = call("fleet_json", ["fleet", fleet_dir, "--json"], 0)
+    fleet_view = json.loads(fleet_json) if fleet_json.strip() else {}
+
+    # (d) the gate: write, pass, fail against a halved wall; the same on the fleet
+    gates_dir = os.path.join(work, "gate")
+    os.makedirs(gates_dir, exist_ok=True)
+    baselines = {}
+    for kind, run, flags in (("run", runs["game"], []), ("fleet", fleet_dir, ["--fleet"])):
+        base, doctored = (os.path.join(gates_dir, f"{kind}-{x}.json") for x in ("base", "halved"))
+        call(f"gate_{kind}_write", ["gate", run, *flags, "--write-baseline", base], 0)
+        call(f"gate_{kind}_pass", ["gate", run, *flags, "--baseline", base], 0)
+        with open(base) as f:
+            doc = json.load(f)
+        wall_key = "wall_s" if kind == "run" else "fleet/wall_s"
+        doc["metrics"][wall_key] /= 2
+        with open(doctored, "w") as f:
+            json.dump(doc, f)
+        call(f"gate_{kind}_halved_default_tiers", ["gate", run, *flags, "--baseline", doctored], 0)
+        call(f"gate_{kind}_halved_tight_wall", ["gate", run, *flags, "--baseline", doctored,
+                                                "--thresholds", TIGHT_WALL], 1)
+        call(f"gate_{kind}_update_and_verify", ["gate", run, *flags, "--baseline", base, "--write-baseline",
+                                                os.path.join(gates_dir, f"{kind}-updated.json")], 0)
+        baselines[kind] = dict(metrics=len(doc["metrics"]), wall_s=2 * doc["metrics"][wall_key])
+
+    game, fleet_sum = summaries["game"], summaries["fleet"]
+    compile_s = {name: summaries[name].get("compile_s") for name in runs}
+    nbytes = {name: os.path.getsize(path) for name, path in runs.items()}
+    gates = dict(
+        exit_codes=all(got == want for got, want in codes.values()) and code_train == 0
+        and all(c == 0 for c in tool_codes.values()),
+        tools_on_the_native_decoder=tools_native,
+        tool_outputs=bags == {"features": D_FIXED, **{GAME_CLI_BAGS[k]: w for k, (_, w) in data.effects.items()}}
+        and sizes == {"global": D_FIXED + 1, **{f"per_{k}": w for k, (_, w) in data.effects.items()}}
+        and set(maps) == set(sizes),
+        train_read_the_maps=loaded_maps,
+        outputs_bitwise_out_2it=bool(ref) and all(got.get(k) == v for k, v in ref.items()),
+        no_extra_files=extra_files == [],
+        store_lookups=bool(store) and all(r["ok"] for r in store.values()),
+        game_phases={"ingest", "train", "descent"} <= set(game.get("phases", {})),
+        fleet_run_phases={"game", "ingest", "descent"} <= set(fleet_sum.get("phases", {})),
+        # the kernels were built before these runs: no cuda.build_s in them
+        compile_s_zero_without_a_build=all(v == 0.0 for v in compile_s.values()),
+        diff=all(os.path.basename(runs[k]) in diff for k in ("game", "score"))
+        and all(any(line.split()[:1] == [row] for line in diff.splitlines()) for row in ("wall", "compile")),
+        fleet_names_processes=sorted(fleet_view.get("processes", {})) == ["0", "1"]
+        and " p0 " in fleet_text and " p1 " in fleet_text,
+        trace=trace_events > 0,
+    )
+    rows_s = {name: 1e3 * s / n_tr for name, s in tool_s.items()}
+    return dict(
+        card=card, records=n_tr, parts=GAME_CLI["parts"], avro_bytes=data.avro_bytes,
+        tool_s=tool_s, tool_ms_per_record=rows_s, bags=bags, index_sizes=sizes,
+        train_wall_s=train_s, launches=launches, fixed_objective_passes=fixed_passes,
+        extra_files=extra_files, store=store, report_s=seconds, run_bytes=nbytes, compile_s=compile_s,
+        phases={k: sorted(v.get("phases", {})) for k, v in summaries.items()}, baselines=baselines,
+        exit_codes={**codes, **{k: [v, 0] for k, v in tool_codes.items()}}, gates=gates,
+    )
+
+
 def _check_game_launches(phase: str, rec: dict) -> None:
     """Every fixed-effect objective pass ran on K1, and nothing else
     launched a kernel."""
@@ -5331,7 +5538,7 @@ def main() -> int:
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:  # g++ for the Avro decoder beside nvcc
+    with ThreadPoolExecutor(1) as pool:  # g++ for the native library beside nvcc
         native_lib = pool.submit(native_build.build)
         lib = _cuda.build()
         native_lib = native_lib.result()
@@ -5669,6 +5876,8 @@ def main() -> int:
         game_streamed_multi = run_game_cli_streamed_multihost(dev, data, smi)
         # the drivers again with run telemetry and the profiler on
         telemetry = run_telemetry(dev, data, cli, glm_streamed)
+        # the tools and the run report on those files and runs
+        tools = run_tools(dev, data, smi)
         del data
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -5763,6 +5972,11 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_telemetry failed: {failed}")
+    emit("main_tools", **tools)
+    _check_game_launches("main_tools", tools)
+    failed = [name for name, ok in tools["gates"].items() if not ok]
+    if failed:
+        raise AssertionError(f"main_tools failed: {failed}; exit codes {tools['exit_codes']}")
 
     # the out-of-core GLM path: the driver (above, on the GAME files), then
     # main_f, config B and config A2 streamed from host chunks
@@ -5860,7 +6074,7 @@ def main() -> int:
                                "main_game_cli_streamed_multihost": game_streamed_multi,
                                "main_a2_streamed_fe_shard": a2_fe, "main_faults": faults_rec}
     # the drivers with run telemetry on
-    telemetry_paths = {"main_telemetry": telemetry}
+    telemetry_paths = {"main_telemetry": telemetry, "main_tools": tools}
     # data parallel: row shards of the card, and two processes over gloo
     parallel_paths = {"main_a_sharded": a_sharded, "main_a2_sharded": a2_sharded,
                       "main_f_multihost": f_multi, "main_glm_multihost_cli": glm_multihost,

@@ -11,10 +11,13 @@ the high-dimensional sparse path (``ops/sparse_tiled.py``,
 (``game/``, ``estimators.py``, ``transformers.py``, damped Newton over
 entity lanes in ``optim/newton.py``); and the GAME train and score drivers
 on Avro files (``io/``, ``checkpoint.py``, ``cli/train.py``,
-``cli/score.py``).
+``cli/score.py``), with the tools around them (the feature indexing and
+name-term drivers, the native index store, the run report and its gate,
+and the umbrella command ``photon-ml-tpu-torch``, ``cli/main.py``).
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.
 """
 
 from photon_ml_tpu_torch import _device  # noqa: F401  (float32 precision policy)
+from photon_ml_tpu_torch.types import TaskType  # noqa: F401

@@ -1,0 +1,53 @@
+"""``photon-ml-tpu-torch`` umbrella entry point (console script; port of
+``photon_ml_tpu/cli/main.py``).
+
+Subcommand dispatch over the port's drivers — each stays runnable as
+``python -m photon_ml_tpu_torch.cli.<driver>`` too; this wrapper only maps
+``photon-ml-tpu-torch <subcommand> ...`` onto the same ``main(argv)``
+hooks. ``serve`` is named but not ported yet (ROADMAP queue 1 item 8).
+The reference's ``lint`` checks the reference's own source tree and has
+no counterpart here.
+"""
+
+from __future__ import annotations
+
+import sys
+
+SERVE_NOT_PORTED = "photon-ml-tpu-torch serve: online serving is not ported yet (ROADMAP queue 1 item 8)"
+
+
+def _commands() -> dict:
+    # lazy imports: printing the usage must not pay for (or fail on)
+    # torch or a driver's imports
+    return {
+        "train": "photon_ml_tpu_torch.cli.train",
+        "score": "photon_ml_tpu_torch.cli.score",
+        "train-glm": "photon_ml_tpu_torch.cli.train_glm",
+        "index-features": "photon_ml_tpu_torch.cli.index_features",
+        "name-term-bags": "photon_ml_tpu_torch.cli.name_term_bags",
+        "report": "photon_ml_tpu_torch.cli.report",
+        "serve": None,
+    }
+
+
+def main(argv: list[str] | None = None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    commands = _commands()
+    if not argv or argv[0] in ("-h", "--help"):
+        names = "  ".join(sorted(commands))
+        print(f"usage: photon-ml-tpu-torch <command> [args...]\ncommands: {names}")
+        raise SystemExit(0 if argv else 2)
+    cmd = argv[0]
+    if cmd not in commands:
+        raise SystemExit(
+            f"unknown command {cmd!r}; one of: {', '.join(sorted(commands))}"
+        )
+    if commands[cmd] is None:
+        raise NotImplementedError(SERVE_NOT_PORTED)
+    import importlib
+
+    importlib.import_module(commands[cmd]).main(argv[1:])
+
+
+if __name__ == "__main__":
+    main()

@@ -264,8 +264,8 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (CPU and CUDA) of the scoring pass into this directory")
     p.add_argument("--telemetry-dir", default=None,
-                   help="write the run's telemetry JSONL into this directory; read it with the "
-                        "reference's photon-ml-tpu report")
+                   help="write the run's telemetry JSONL into this directory; read it with "
+                        "photon-ml-tpu-torch report")
     p.add_argument("--multihost", action="store_true",
                    help="score across processes: run the same command in each with "
                         "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID set; each "

@@ -585,8 +585,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="write torch.profiler traces (CPU and CUDA) of the fit into this directory")
     p.add_argument("--telemetry-dir", default=None,
                    help="write the run's telemetry JSONL (spans, per-iteration optimizer records, the "
-                        "metrics registry) into this directory; read it with the reference's "
-                        "photon-ml-tpu report")
+                        "metrics registry) into this directory; read it with "
+                        "photon-ml-tpu-torch report")
     p.add_argument("--diagnostics", action="store_true",
                    help="write diagnostics.json and diagnostics.html beside the models")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

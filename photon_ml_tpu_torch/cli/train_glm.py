@@ -438,8 +438,8 @@ def main(argv: list[str] | None = None) -> None:
                    help="write torch.profiler traces (CPU and CUDA) of the λ sweep into this directory")
     p.add_argument("--telemetry-dir", default=None,
                    help="write the run's telemetry JSONL (spans, per-iteration optimizer records, the "
-                        "metrics registry) into this directory; read it with the reference's "
-                        "photon-ml-tpu report")
+                        "metrics registry) into this directory; read it with "
+                        "photon-ml-tpu-torch report")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output-dir", required=True)
     args = p.parse_args(argv)

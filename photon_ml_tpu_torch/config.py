@@ -2,7 +2,8 @@
 optimizer and regularization settings, the GAME coordinate configurations
 and ``GameTrainingConfig``, each a frozen dataclass that round-trips
 through JSON (``to_dict`` / ``parse_config``) with the reference's field
-names, values and defaults. ``MeshConfig`` waits for the multi-GPU slice."""
+names, values and defaults. The reference's ``MeshConfig``, which nothing
+reads, has no copy here: the port builds its meshes with ``parallel.mesh``."""
 
 from __future__ import annotations
 

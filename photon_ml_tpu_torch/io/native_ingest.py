@@ -129,11 +129,14 @@ def compile_program(
     tag_field: str | None,
     uid_field: str | None,
     non_nullable: frozenset[str] = frozenset(),
+    pair_keys: bool = False,
 ) -> Program:
     """The decoder's program for ``schema``; raises ``OutsideEnvelope``.
     ``non_nullable`` numeric fields must not be nullable in the schema: the
     decoder would put the default where the record holds null, and the
-    Python path raises on a null label instead."""
+    Python path raises on a null label instead. With ``pair_keys`` the bags'
+    keys are exact (name, term) pairs, read back by ``split_pair_key``,
+    in place of the feature keys."""
     if not isinstance(schema, dict) or schema.get("type") != "record":
         raise OutsideEnvelope(str(schema.get("name") if isinstance(schema, dict) else schema),
                               "the schema is not a record")
@@ -185,7 +188,8 @@ def compile_program(
             perm, value_is_float = ntv
             if is_bag:
                 bag_id = bags_found.setdefault(fname, len(bags_found))
-                c = (1 if value_is_float else 0) | (2 if flags & 1 else 0) | (4 if flags & 2 else 0)
+                c = (1 if value_is_float else 0) | (2 if flags & 1 else 0) | (4 if flags & 2 else 0) \
+                    | (8 if pair_keys else 0)
                 ops.append((_BAG, bag_id, perm, c))
             elif value_is_float or perm not in (0, 2) or flags:
                 # the generic skip takes an 8-byte value last in the record
@@ -217,6 +221,15 @@ def compile_program(
         # the decoder fills the uid arrays through the UID op alone
         capture_uid=uid_field is not None and uid_found,
     )
+
+
+def split_pair_key(key: str) -> tuple[str, str]:
+    """The (name, term) of a key decoded with ``pair_keys``: the name's
+    byte length in decimal, ':', the name, the term."""
+    sep = key.index(":")
+    rest = key[sep + 1:].encode("utf-8")
+    n = int(key[:sep])
+    return rest[:n].decode("utf-8"), rest[n:].decode("utf-8")
 
 
 def _strings(lib_blob, offsets: np.ndarray) -> list[str]:

@@ -46,5 +46,25 @@ class GeneralizedLinearModel:
         return self.loss.mean(self.score(batch))
 
 
+class LogisticRegressionModel(GeneralizedLinearModel):
+    def __init__(self, coefficients: Coefficients):
+        super().__init__(coefficients, TaskType.LOGISTIC_REGRESSION)
+
+
+class LinearRegressionModel(GeneralizedLinearModel):
+    def __init__(self, coefficients: Coefficients):
+        super().__init__(coefficients, TaskType.LINEAR_REGRESSION)
+
+
+class PoissonRegressionModel(GeneralizedLinearModel):
+    def __init__(self, coefficients: Coefficients):
+        super().__init__(coefficients, TaskType.POISSON_REGRESSION)
+
+
+class SmoothedHingeLossLinearSVMModel(GeneralizedLinearModel):
+    def __init__(self, coefficients: Coefficients):
+        super().__init__(coefficients, TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM)
+
+
 def model_for_task(task: TaskType, coefficients: Coefficients) -> GeneralizedLinearModel:
     return GeneralizedLinearModel(coefficients, task)

@@ -22,7 +22,8 @@
 //                 c=flags: bit0 nullable-union, bit1 null-is-second-branch
 //   3 BAG         a=bag_id, b=perm (index into the 6 permutations of
 //                 (name, term, value) field order), c=flags: bit0
-//                 value-is-float, bit1 nullable-union, bit2 null-second
+//                 value-is-float, bit1 nullable-union, bit2 null-second,
+//                 bit3 pair keys (see below)
 //   4 TAGMAP      c=flags (union bits as above); map<string> whose keys are
 //                 matched against the configured tag names
 //   5 UID         c=flags: bit0 nullable, bit2 has-long-branch
@@ -31,7 +32,10 @@
 //   6 SKIPOPT     a=kind, c=flags — nullable skip
 //
 // Feature key interning uses the same key convention as the Python side:
-// name + 0x01 + term when term is non-empty, else name alone.
+// name + 0x01 + term when term is non-empty, else name alone. With the
+// pair-keys flag a key is the name's byte length in decimal, ':', the name
+// and the term, so each distinct (name, term) pair is one key even where a
+// name holds 0x01 (the name-and-term bags tool reads these).
 
 #include <cstdint>
 #include <cstdio>
@@ -303,10 +307,19 @@ bool decode_record(Reader& r, const std::vector<Op>& ops, Handle* h,
               }
               if (!r.ok) return false;
               bag.keybuf.clear();
-              bag.keybuf.insert(bag.keybuf.end(), name, name + name_len);
-              if (term_len) {
-                bag.keybuf.push_back(kDelimiter);
+              if (op.c & 8) {  // pair keys
+                char len[24];
+                int w = std::snprintf(len, sizeof len, "%llu:",
+                                      static_cast<unsigned long long>(name_len));
+                bag.keybuf.insert(bag.keybuf.end(), len, len + w);
+                bag.keybuf.insert(bag.keybuf.end(), name, name + name_len);
                 bag.keybuf.insert(bag.keybuf.end(), term, term + term_len);
+              } else {
+                bag.keybuf.insert(bag.keybuf.end(), name, name + name_len);
+                if (term_len) {
+                  bag.keybuf.push_back(kDelimiter);
+                  bag.keybuf.insert(bag.keybuf.end(), term, term + term_len);
+                }
               }
               bag.ids.push_back(
                   bag.uniq.intern(bag.keybuf.data(), bag.keybuf.size()));

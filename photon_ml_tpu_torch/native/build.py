@@ -1,11 +1,12 @@
 """Build and load the port's native (C++) host library.
 
-``avro_ingest.cc`` is compiled at first use with the system ``g++``
+``index_store.cc`` (the mmap'd feature-index store) and ``avro_ingest.cc``
+(the columnar Avro decoder) are compiled together at first use with the system ``g++``
 (``-O2 -shared -fPIC -std=c++17``, linked against zlib) into the cache
 directory ``PHOTON_ML_TPU_CACHE``, or else ``photon_ml_tpu_torch_native``
 under the temporary directory (the reference's rule, read at call time:
 nothing is written into the package, which may be read-only), named by a
-hash of the source and the flags, so an edit rebuilds it. Concurrent builds
+hash of both sources and the flags, so an edit rebuilds it. Concurrent builds
 (test workers) each compile to their own temporary name and rename the
 result into place atomically. A failed build raises with the compiler's
 output: the readers never fall back to the Python codec because the
@@ -23,7 +24,7 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (Path(__file__).resolve().parent / "avro_ingest.cc",)
+SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("index_store.cc", "avro_ingest.cc"))
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 LIBS = ("-lz",)
@@ -91,6 +92,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i64p = ctypes.POINTER(ctypes.c_int64)
     f64p = ctypes.POINTER(ctypes.c_double)
     charp = ctypes.POINTER(ctypes.c_char)
+    # ---- the feature-index store (index_store.cc) ----
+    lib.pidx_build.argtypes = [ctypes.c_char_p, ctypes.c_char_p, u64p, ctypes.c_uint64, i64p]
+    lib.pidx_build.restype = ctypes.c_int
+    lib.pidx_open.argtypes = [ctypes.c_char_p]
+    lib.pidx_open.restype = ctypes.c_void_p
+    lib.pidx_close.argtypes = [ctypes.c_void_p]
+    lib.pidx_close.restype = None
+    lib.pidx_size.argtypes = [ctypes.c_void_p]
+    lib.pidx_size.restype = ctypes.c_uint64
+    lib.pidx_num_slots.argtypes = [ctypes.c_void_p]
+    lib.pidx_num_slots.restype = ctypes.c_uint64
+    lib.pidx_get.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32]
+    lib.pidx_get.restype = ctypes.c_int64
+    lib.pidx_get_many.argtypes = [ctypes.c_void_p, ctypes.c_char_p, u64p, ctypes.c_uint64, i64p]
+    lib.pidx_get_many.restype = None
+    lib.pidx_entry.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p, ctypes.c_uint64, i64p]
+    lib.pidx_entry.restype = ctypes.c_int64
+    # ---- the columnar Avro decoder (avro_ingest.cc) ----
     # path, ops, n_ops, defaults, n_slots, tags blob, tag lengths, n_tags,
     # n_bags, capture uid, error buffer, its length
     lib.pavro_ingest.argtypes = [

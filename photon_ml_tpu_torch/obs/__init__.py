@@ -19,8 +19,9 @@ Chrome-trace export and the kernels' analytic cost (port of
   memory watermarks.
 
 The names (span names, record kinds and fields, registry names, the
-schema version) are the reference's, so its ``photon-ml-tpu report``
-reads a port run. With no sink, spans are a shared no-op and an event is
+schema version) are the reference's, so ``obs.report`` (the
+``photon-ml-tpu-torch report`` command) and the reference's
+``photon-ml-tpu report`` both read a port run. With no sink, spans are a shared no-op and an event is
 one attribute check, so the instrumentation stays wired through the
 production paths.
 """

@@ -2,9 +2,11 @@
 ``photon_ml_tpu/obs/sink.py``).
 
 Every span, optimizer record, structured warning and metric snapshot of a
-run lands as one JSON line in one file, which the reference's ``report``
-(``photon-ml-tpu report``) summarizes, diffs and exports: the record kinds,
-field names and ``SCHEMA_VERSION`` are the reference's, letter for letter.
+run lands as one JSON line in one file, which ``obs.report``
+(``photon-ml-tpu-torch report``) summarizes, diffs and gates and
+``obs.export`` exports: the record kinds, field names and
+``SCHEMA_VERSION`` are the reference's, letter for letter, so the
+reference's ``photon-ml-tpu report`` reads the same file.
 
 Durability: the file on disk is always a complete, parseable run prefix.
 Buffered records are committed by atomic rotation: the accumulated content

@@ -1199,3 +1199,115 @@ def test_rejoin_after_kill_bitwise_with_four_processes_on_the_card(dev, tmp_path
     _cuda.load()
     clean = rejoin.clean_run(tmp_path / "uninterrupted", device="cuda")
     rejoin.check_rejoin(tmp_path / "rejoin", rejoin.KILL_AND_REJOIN, clean, device="cuda", telemetry=True)
+
+
+def _tools_files(tmp_path, n=4000, users=50, seed=9):
+    """Avro part files for the tools' card tests: 4 global and 2 per-user
+    features, a user id a row, two training parts."""
+    import json
+
+    from photon_ml_tpu_torch.io.avro import write_avro_file
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 4)).astype(np.float32)
+    U = rng.normal(size=(n, 2)).astype(np.float32)
+    ids = rng.integers(0, users, size=n)
+    y = rng.uniform(size=n) < 1 / (1 + np.exp(-(X @ rng.normal(size=4))))
+    schema = json.loads(json.dumps(TRAINING_EXAMPLE_SCHEMA))
+    schema["fields"].insert(5, {"name": "userFeatures", "type": {"type": "array", "items": "NameTermValueAvro"},
+                                "default": []})
+    train = tmp_path / "train"
+    train.mkdir()
+    for part, rows in enumerate((range(0, n // 2), range(n // 2, n))):
+        write_avro_file(str(train / f"part-{part:05d}.avro"), schema, [{
+            "uid": f"s{i}", "response": float(y[i]),
+            "features": [{"name": "g", "term": str(j), "value": float(X[i, j])} for j in range(4)],
+            "userFeatures": [{"name": "u", "term": str(j), "value": float(U[i, j])} for j in range(2)],
+            "metadataMap": {"userId": f"user_{ids[i]}"},
+        } for i in rows])
+    doc = _game_config(("userId",)).to_dict()
+    doc["feature_shards"] = {"global": {"feature_bags": ["features"], "has_intercept": True},
+                             "per_userId": {"feature_bags": ["userFeatures"], "has_intercept": False}}
+    cfg = tmp_path / "config.json"
+    cfg.write_text(json.dumps(doc))
+    return str(train), str(cfg)
+
+
+def test_tools_index_store_and_index_features_on_the_card_machine(dev, tmp_path):
+    """``index-features`` through the umbrella, then a ``NativeIndexStore``
+    of every shard map: its lookups are the map's, an unknown key -1."""
+    from photon_ml_tpu_torch.cli import main as umbrella
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.native import NativeIndexStore
+
+    train, cfg = _tools_files(tmp_path)
+    idx = tmp_path / "index"
+    umbrella.main(["index-features", "--data", train, "--config", cfg, "--output-dir", str(idx)])
+    maps = {p.stem: IndexMap.load(str(p)) for p in idx.glob("*.npz")}
+    assert set(maps) == {"global", "per_userId"} and maps["global"].size == 5
+    for sid, imap in maps.items():
+        keys = [k for k, _ in imap.items()]
+        store = NativeIndexStore.build(str(tmp_path / f"{sid}.pidx"), imap.items())
+        np.testing.assert_array_equal(store.lookup_all(keys + ["absent\x01key"]),
+                                      np.append(imap.lookup_all(np.array(keys)), -1))
+        assert store.get("absent\x01key") == -1 and store.size == imap.size
+
+
+def test_tools_train_with_index_maps_on_the_card_is_bitwise_without(dev, tmp_path):
+    """The umbrella's ``train --index-maps`` on the card against the same
+    train without the flag: the same model files, bit for bit, and the
+    same K1 launches."""
+    from photon_ml_tpu_torch.cli import main as umbrella
+    from photon_ml_tpu_torch.io.avro import read_avro_file
+
+    train, cfg = _tools_files(tmp_path)
+    idx = str(tmp_path / "index")
+    umbrella.main(["index-features", "--data", train, "--config", cfg, "--output-dir", idx])
+    got, launches = {}, {}
+    for name, extra in (("plain", []), ("indexed", ["--index-maps", idx])):
+        fused.reset_launch_counts()
+        umbrella.main(["train", "--config", cfg, "--train-data", train, "--output-dir", str(tmp_path / name),
+                       "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        launches[name] = dict(fused.launch_counts)
+        root = tmp_path / name
+        got[name] = {str(p.relative_to(root)): read_avro_file(str(p))[1] for p in root.rglob("*.avro")}
+        got[name].update({str(p.relative_to(root)): p.read_bytes() for p in root.rglob("*.json")})
+    assert got["plain"] and got["plain"] == got["indexed"]
+    assert launches["plain"] == launches["indexed"] and launches["plain"]["fused_value_grad"] > 0
+
+
+def test_tools_report_and_gate_of_a_card_run(dev, tmp_path, capsys, monkeypatch):
+    """``train --telemetry-dir`` on the card with the kernels built afresh
+    inside the run (a build directory of its own), then ``report --json``
+    and ``report gate`` through the umbrella: the summary's compile_s is
+    the run's cuda.build_s (nonzero, within the run's wall), and the run
+    passes a gate against itself."""
+    import json
+
+    from photon_ml_tpu_torch.cli import main as umbrella
+    from photon_ml_tpu_torch.obs.report import latest_run, load_run
+    from photon_ml_tpu_torch.ops import _cuda
+
+    train, cfg = _tools_files(tmp_path)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_cuda, "_lib", None)
+    tel = tmp_path / "telemetry"
+    umbrella.main(["train", "--config", cfg, "--train-data", train, "--output-dir", str(tmp_path / "out"),
+                   "--device", "cuda", "--telemetry-dir", str(tel)])
+    assert _cuda.library_path().exists()
+    capsys.readouterr()
+    umbrella.main(["report", str(tel), "--json"])
+    summary = json.loads(capsys.readouterr().out)
+    recs = load_run(latest_run(str(tel)))
+    build = recs[-1]["metrics"]["timers"]["cuda.build_s"]["seconds"] - recs[0].get(
+        "metrics_baseline", {}).get("timers", {}).get("cuda.build_s", {}).get("seconds", 0.0)
+    assert 0 < summary["compile_s"] == build < summary["wall_s"]
+    assert {"ingest", "train", "descent"} <= set(summary["phases"])
+    base = tmp_path / "base.json"
+    for argv, code in ((["gate", str(tel), "--write-baseline", str(base)], 0),
+                       (["gate", str(tel), "--baseline", str(base)], 0)):
+        with pytest.raises(SystemExit) as e:
+            umbrella.main(["report", *argv])
+        assert e.value.code == code

@@ -147,6 +147,10 @@ def test_parallel_reexports_the_references_names():
                      "owlqn_chunk_run", "owlqn_chunk_finalize")),
     ("optim.tron", ("tron_chunk_init", "tron_chunk_run", "tron_chunk_finalize")),
     ("parallel.placement", ("record_projection_metrics",)),
+    ("models", ("LogisticRegressionModel", "LinearRegressionModel", "PoissonRegressionModel",
+                "SmoothedHingeLossLinearSVMModel")),
+    ("supervised", ("cross_validate_glm", "CrossValidationResult")),
+    ("native", ("NativeIndexStore",)),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_port_defines_the_references_names_where_it_does(module, names):
     """The knob accessors and the names around them live in the port's
@@ -161,6 +165,20 @@ def test_port_defines_the_references_names_where_it_does(module, names):
     for name in names:
         assert hasattr(port, name), f"photon_ml_tpu_torch.{module} lacks {name}"
         assert name in ref_source, f"the reference's {module} has no {name}"
+
+
+def test_top_level_and_config_names_of_the_reference():
+    """``TaskType`` at the package's top and the per-task model classes
+    fixing their task, as in the reference."""
+    import photon_ml_tpu_torch as port
+    from photon_ml_tpu_torch.models import Coefficients, LinearRegressionModel, SmoothedHingeLossLinearSVMModel
+    from photon_ml_tpu_torch.types import TaskType
+
+    assert port.TaskType is TaskType
+    c = Coefficients(torch.zeros(3))
+    assert LinearRegressionModel(c).task_type is TaskType.LINEAR_REGRESSION
+    assert SmoothedHingeLossLinearSVMModel(c).task_type is TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM
+    assert "TaskType" in open(os.path.join(ROOT, "photon_ml_tpu", "__init__.py")).read()
 
 
 def test_import_sets_float32_matmul_precision():

@@ -318,10 +318,11 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
 
 
 def test_the_library_builds_from_the_ports_own_source(monkeypatch, tmp_path):
-    """The port's source, built where the reference builds its library:
+    """The port's sources (the index store and the decoder, one library as
+    in the reference), built where the reference builds its library:
     under ``PHOTON_ML_TPU_CACHE``, else under the temporary directory."""
     assert [s.relative_to(build._PKG.parent).as_posix() for s in build.SOURCES] == [
-        "photon_ml_tpu_torch/native/avro_ingest.cc"]
+        "photon_ml_tpu_torch/native/index_store.cc", "photon_ml_tpu_torch/native/avro_ingest.cc"]
     monkeypatch.delenv("PHOTON_ML_TPU_CACHE", raising=False)
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     assert build.library_path().parent == tmp_path / "photon_ml_tpu_torch_native"

@@ -20,8 +20,9 @@ CPU, held to the JAX package's ``photon_ml_tpu/obs``.
   shard, one run id) and the three drivers with ``--telemetry-dir`` and
   ``--profile-dir``.
 - The name check: every record kind and registry name the port emits is
-  one the reference's report or exporter reads, or is in ``ALLOWED`` with
-  its reason (the rule of the reference's ``analysis/telemetry_pass.py``).
+  one the reference's or the port's report or exporter reads, or is in
+  ``ALLOWED`` with its reason (the rule of the reference's
+  ``analysis/telemetry_pass.py``).
 """
 
 from __future__ import annotations
@@ -533,7 +534,6 @@ class TestParity:
 # the name check (the reference's telemetry lint rule, applied to the port)
 # ---------------------------------------------------------------------------
 ALLOWED = {
-    "cuda.build_s": "the port's kernel build timer, the counterpart of the reference's jax.compile_s",
     "optim.iterations": "the reference's host solvers record it (host_lbfgs.py, host_tron.py); "
                         "no report row reads it yet",
     "optim.reason.*": "as optim.iterations",
@@ -634,8 +634,9 @@ def _emitted_names() -> set[str]:
 
 
 def test_every_emitted_name_is_read_by_the_reference_or_allowed():
-    consumer_text = "".join(open(os.path.join(ROOT, "photon_ml_tpu", "obs", f)).read()
-                            for f in ("report.py", "export.py"))
+    # the consumers: the reference's report and exporter, and the port's own
+    consumer_text = "".join(open(os.path.join(ROOT, pkg, "obs", f)).read()
+                            for pkg in ("photon_ml_tpu", "photon_ml_tpu_torch") for f in ("report.py", "export.py"))
     names = _emitted_names()
     assert {"span", "run_start", "run_end", "optim_iter", "optim_result", "re_solve.launches",
             "stream.passes", "hbm_watermark", "executable_cost"} <= names
