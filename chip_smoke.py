@@ -92,6 +92,21 @@ Run from the root of a checkout. It builds the CUDA kernels from
    effect's objective passes, train AUC >= 0.95 x the generating model's;
    then K1 alone at that shape (10,000,054 x 65, float32, offsets read) as
    at D's; K1 must take its tiles layout at both shapes;
+12a. main_serve: main_e's model published (``publish_game_model``) and
+   served on the card: a parity set of 2,011 requests (rows of main_e's
+   batch, 11 with out-of-range ids, a last partial window) through the
+   micro-window server, bitwise ``GameModel.score`` on the rows each
+   window scores and within rtol = atol = 1e-5 of it on the whole set;
+   one user's refresh (L-BFGS and TRON) bitwise its offline solve;
+   ``photon-ml-tpu-torch serve`` with the driver's defaults (10,000
+   requests at 2,000 Hz offered, Zipf(1), the 25% hot budget, max batch
+   32, max wait 2 ms) and its telemetry: the hot set's hits and misses
+   equal to the reference's LRU rule replayed in numpy on the run's
+   windows; the report's serving section and a gate of the run against
+   itself; the same with ``--poll-every 2500`` while the refreshed model
+   is published, swapped in with the scores after the swap the new
+   snapshot's; and the reference bench's serving shape (S_serve_zipf:
+   1,024 members, 64 items), whose hit rate must reach 0.8;
 12b. main_e_sharded: main_e's batch and schedule over a data mesh of 4
    shards of the card (the fixed effect row-sharded, K1 once per shard a
    pass; each bucket's entity lanes split over the shards), then the same
@@ -524,9 +539,10 @@ from photon_ml_tpu_torch.game.data import (
     bucket_entities,
     capacity_classes,
     group_by_entity,
+    GameBatch,
     make_game_batch,
 )
-from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.game.models import GameModel, RandomEffectModel
 from photon_ml_tpu_torch.game import random_effect as game_random_effect
 from photon_ml_tpu_torch.game.projector import RandomProjector, class_activity, projection_ladder
 from photon_ml_tpu_torch.game.random_effect import train_random_effects
@@ -534,7 +550,7 @@ from photon_ml_tpu_torch.game.streaming import StreamedGameData, StreamedGameTra
 from photon_ml_tpu_torch.hyperparameter.tuning import tune_game_hyperparameters
 from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader
-from photon_ml_tpu_torch.io.model_io import load_game_model, load_glm
+from photon_ml_tpu_torch.io.model_io import load_game_model, load_glm, model_fingerprint, publish_game_model
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.native import NativeIndexStore
 from photon_ml_tpu_torch.native import build as native_build
@@ -564,6 +580,9 @@ from photon_ml_tpu_torch.parallel.multihost import (
 )
 from photon_ml_tpu_torch.parallel.placement import plan_entity_placement, plan_from_owner
 from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
+from photon_ml_tpu_torch.serve.refresh import entity_event_batch, refresh_entity, solve_entity_offline
+from photon_ml_tpu_torch.serve.router import MicroWindowServer, ScoreRequest
+from photon_ml_tpu_torch.serve.store import HotModelStore
 from photon_ml_tpu_torch.transformers import GameTransformer
 from photon_ml_tpu_torch.types import (
     ModelOutputMode,
@@ -5514,6 +5533,286 @@ def run_tools(dev, data: GameCliData, card: str) -> dict:
     )
 
 
+# main_serve: the serving driver's defaults (cli/serve.py), the parity set
+SERVE_REQUESTS, SERVE_RATE_HZ, SERVE_MAX_BATCH = 10_000, 2000.0, 32
+SERVE_PARITY_ROWS, SERVE_OUT_OF_RANGE = 2_000, 11
+SERVE_POLL_EVERY = 2_500
+SERVE_TOL = dict(rtol=1e-5, atol=1e-5)  # float32 scores of one model by two row groupings
+SERVE_BENCH_SHAPE = (1_024, 64, 16, 8)  # bench.py S_serve_zipf: members, items, d_fe, d_re
+SERVE_HIT_RATE_FLOOR = 0.8  # the reference's gated operating point (bench.py S_serve_zipf)
+
+
+def serve_windows(tel_dir: str) -> list[int]:
+    """The requests of each ``serve/window`` span of the run, in flush
+    order."""
+    return [r["attrs"]["requests"] for r in load_run(latest_run(tel_dir))
+            if r.get("event") == "span" and r.get("name") == "serve/window"]
+
+
+def summarize_serve(tel_dir: str) -> dict:
+    """The serving section of the run's report (``report RUN --json``);
+    empty when the report failed."""
+    code, text, _ = umbrella(["report", latest_run(tel_dir), "--json"])
+    return json.loads(text).get("serve", {}) if code == 0 else {}
+
+
+def lru_replay(model: GameModel, requests: list, windows: list[int], budget_bytes: int) -> dict:
+    """The reference's hot-set rule replayed in numpy: window by window,
+    each random effect in the model's order, its in-range ids in request
+    order, through an LRU of ``budget_bytes`` over rows of 4·d bytes.
+    Returns hits, misses and the first-touch bound 1 − distinct / lookups."""
+    from collections import OrderedDict
+
+    re = [(cid, sub.random_effect_type, sub.num_entities, 4 * sub.coefficients.shape[1])
+          for cid, sub in model.models.items() if isinstance(sub, RandomEffectModel)]
+    lru, used, hits, misses, lo = OrderedDict(), 0, 0, 0, 0
+    for w in windows:
+        for cid, tag, E, nbytes in re:
+            for r in requests[lo:lo + w]:
+                e = r.id_tags.get(tag, -1)
+                if not 0 <= e < E:
+                    continue
+                if (cid, e) in lru:
+                    hits += 1
+                    lru.move_to_end((cid, e))
+                    continue
+                misses += 1
+                if nbytes <= budget_bytes:
+                    lru[(cid, e)] = nbytes
+                    used += nbytes
+                    while used > budget_bytes:
+                        used -= lru.popitem(last=False)[1]
+        lo += w
+    assert lo == len(requests), (lo, len(requests))
+    lookups = hits + misses
+    distinct = len({(cid, r.id_tags[tag]) for cid, tag, E, _ in re for r in requests if 0 <= r.id_tags[tag] < E})
+    return dict(hits=hits, misses=misses, hit_rate=hits / lookups, first_touch_bound=1 - distinct / lookups)
+
+
+def serve_scores(store: HotModelStore, requests: list) -> np.ndarray:
+    out = []
+    server = MicroWindowServer(store, on_scores=lambda w, s: out.append(s), max_batch=SERVE_MAX_BATCH,
+                               max_wait_ms=1e9)
+    for r in requests:
+        server.submit(r)
+    server.drain()
+    return np.concatenate(out)
+
+
+def batch_scores(model: GameModel, requests: list, dev) -> np.ndarray:
+    """``GameModel.score`` over the requests' rows as one batch on the card."""
+    shards = list(requests[0].features)
+    tags = list(requests[0].id_tags)
+    batch = make_game_batch(np.zeros(len(requests), np.float32),
+                            {s: np.stack([r.features[s] for r in requests]) for s in shards},
+                            id_tags={t: np.asarray([r.id_tags[t] for r in requests], np.int64) for t in tags},
+                            offsets=np.asarray([r.offset for r in requests], np.float32), device=dev)
+    return model.score(batch).cpu().numpy()
+
+
+def window_shaped_scores(model: GameModel, requests: list, dev) -> np.ndarray:
+    """``GameModel.score`` on the rows each window scores: windows of the
+    max batch, each padded with zero rows of id -1."""
+    out = []
+    for lo in range(0, len(requests), SERVE_MAX_BATCH):
+        win = requests[lo:lo + SERVE_MAX_BATCH]
+        pad = [ScoreRequest(rid=-1, features={s: np.zeros_like(v) for s, v in win[0].features.items()},
+                            id_tags={t: -1 for t in win[0].id_tags}) for _ in range(SERVE_MAX_BATCH - len(win))]
+        out.append(batch_scores(model, win + pad, dev)[:len(win)])
+    return np.concatenate(out)
+
+
+def serve_gate(got: np.ndarray, model: GameModel, requests: list, dev) -> dict:
+    """Serve-path scores against the batch scorer: bitwise at the window
+    shape (the witness), and on the whole set bitwise or within
+    ``SERVE_TOL``."""
+    whole = batch_scores(model, requests, dev)
+    diff = np.abs(got - whole)
+    return dict(window_shape_bitwise=bool(np.array_equal(got.view(np.uint32),
+                                                         window_shaped_scores(model, requests, dev).view(np.uint32))),
+                whole_bitwise=bool(np.array_equal(got.view(np.uint32), whole.view(np.uint32))),
+                whole_rows_differing=int((diff > 0).sum()), whole_max_abs_diff=float(diff.max()),
+                whole_within_tol=bool(np.allclose(got, whole, **SERVE_TOL)))
+
+
+def run_serve(dev, batch, model: GameModel, card: str) -> tuple[dict, dict]:
+    """main_serve on main_e's model (see the module docstring, 12a).
+    Returns the record and its gates (name → passed)."""
+    import threading
+
+    from photon_ml_tpu_torch.cli import serve as serve_cli
+    from photon_ml_tpu_torch.convert import game_model_from_numpy
+
+    work = tempfile.mkdtemp(prefix="_serve-", dir=ROOT)
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    try:
+        root = os.path.join(work, "published")
+        t0 = time.perf_counter()
+        publish_game_model(model, root)
+        publish_s = time.perf_counter() - t0
+        ref = model.models
+        re_cids = [cid for cid, sub in ref.items() if isinstance(sub, RandomEffectModel)]
+
+        # (1) the parity set on the card, from the published root
+        t0 = time.perf_counter()
+        loaded, fingerprint = serve_cli._load(root, dev)
+        load_s = time.perf_counter() - t0
+        store = HotModelStore(loaded, device=dev)
+        gen = np.random.default_rng(23)
+        rows = np.sort(gen.choice(batch.num_rows, SERVE_PARITY_ROWS, replace=False))
+        rows_t = torch.as_tensor(rows, device=dev)
+        feats = {sid: f.X[rows_t].float().cpu().numpy() for sid, f in batch.features.items()}
+        tags = {t: v[rows_t].cpu().numpy() for t, v in batch.id_tags.items()}
+        offsets = (0.1 * gen.normal(size=SERVE_PARITY_ROWS)).astype(np.float32)
+        parity_reqs = [ScoreRequest(rid=i, features={s: feats[s][i] for s in feats},
+                                    id_tags={t: int(tags[t][i]) for t in tags}, offset=float(offsets[i]))
+                       for i in range(SERVE_PARITY_ROWS)]
+        for j in range(SERVE_OUT_OF_RANGE):  # ids below 0, at E and past it, on each effect in turn
+            src = parity_reqs[j]
+            tag = ref[re_cids[j % len(re_cids)]].random_effect_type
+            E = ref[re_cids[j % len(re_cids)]].num_entities
+            parity_reqs.append(ScoreRequest(rid=SERVE_PARITY_ROWS + j, features=src.features,
+                                            id_tags=dict(src.id_tags, **{tag: (-1, E, E + 7)[j % 3]}),
+                                            offset=src.offset))
+        t0 = time.perf_counter()
+        got = serve_scores(store, parity_reqs)
+        parity_s = time.perf_counter() - t0
+        parity = dict(requests=len(parity_reqs), last_window=len(parity_reqs) % SERVE_MAX_BATCH, seconds=parity_s,
+                      hot_rows_on=store.shard_for(re_cids[0], 0).device.type,
+                      fingerprint_equal=fingerprint == model_fingerprint(model),
+                      **serve_gate(got, model, parity_reqs, dev))
+
+        # (2) one user's refresh from half its rows: the most requested user of
+        # the serve trace among those with 16 rows or more in main_e's batch
+        trace = serve_cli._synthetic_requests(loaded, SERVE_REQUESTS, 1.0, 0)
+        user_cid = re_cids[0]
+        user_tag = ref[user_cid].random_effect_type
+        E_user = ref[user_cid].num_entities
+        rows_of = torch.bincount(batch.id_tags[user_tag], minlength=E_user).cpu().numpy()
+        asked = np.bincount([r.id_tags[user_tag] for r in trace], minlength=E_user)
+        head = int(next(e for e in np.argsort(-asked, kind="stable") if rows_of[e] >= 16))
+        mine = torch.nonzero(batch.id_tags[user_tag] == head).flatten()
+        mine = mine[: len(mine) // 2]
+        sub_batch = GameBatch(labels=batch.labels[mine], offsets=batch.offsets[mine], weights=batch.weights[mine],
+                              features={sid: f.take(mine) for sid, f in batch.features.items()},
+                              id_tags={t: v[mine] for t, v in batch.id_tags.items()})
+        others = sum(sub.score(sub_batch) for cid, sub in ref.items() if cid != user_cid)
+        events = entity_event_batch(sub_batch.features[ref[user_cid].feature_shard_id].X.float().cpu().numpy(),
+                                    sub_batch.labels.cpu().numpy(), offsets=others.cpu().numpy(), device=dev)
+        refresh, refreshed = {}, None
+        for name, solver in (("lbfgs", OptimizerType.LBFGS), ("tron", OptimizerType.TRON)):
+            cfg = OptimizerConfig(optimizer_type=solver, max_iterations=20, tolerance=1e-7)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            updated, res = refresh_entity(model, user_cid, head, events, cfg, l2_weight=1.0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            offline = solve_entity_offline(model[user_cid], head, events, cfg, l2_weight=1.0)
+            W0, W1 = model[user_cid].coefficients, updated[user_cid].coefficients
+            others_same = torch.equal(torch.cat([W0[:head], W0[head + 1:]]), torch.cat([W1[:head], W1[head + 1:]]))
+            refresh[name] = dict(seconds=seconds, iterations=int(res.iterations[0]),
+                                 bitwise_offline=bool(torch.equal(res.w, offline.w)), others_unchanged=others_same,
+                                 row_moved=float((W1[head] - W0[head]).abs().max()))
+            refreshed = refreshed or updated
+        refresh.update(entity=head, requests_in_trace=int(asked[head]), events=int(len(mine)),
+                       padded_rows=int(events.X.shape[0]))
+
+        # (3) the driver with its defaults, telemetry on
+        tel = os.path.join(work, "telemetry")
+        code, text, serve_s = umbrella(["serve", "--model-root", root, "--telemetry-dir", tel])
+        line = json.loads(text.strip().splitlines()[-1]) if code == 0 else {}
+        run_path = latest_run(tel)
+        windows = serve_windows(tel)
+        replay = lru_replay(loaded, trace, windows, line.get("hot_budget_bytes", 0))
+        section = summarize_serve(tel)
+        base = os.path.join(work, "serve-baseline.json")
+        gate_codes = [umbrella(["report", "gate", run_path, "--write-baseline", base])[0],
+                      umbrella(["report", "gate", run_path, "--baseline", base])[0]]
+        row_bytes = 4 * ref[user_cid].coefficients.shape[1]
+        served = dict(
+            code=code, seconds=serve_s, line=line, windows_in_telemetry=len(windows),
+            offered_hz=SERVE_RATE_HZ, achieved_hz=line.get("requests", 0) / max(line.get("elapsed_s", 0.0), 1e-9),
+            hits=section.get("hot_hit_bytes", 0) / row_bytes, misses=section.get("hot_miss_bytes", 0) / row_bytes,
+            replay=replay, total_re_bytes=store.total_re_bytes, report_serve=section, gate_codes=gate_codes)
+
+        # (4) a hot swap: the refreshed model published while the driver polls
+        def publish_later():
+            time.sleep(0.5)
+            publish_game_model(refreshed, root)
+
+        publisher = threading.Thread(target=publish_later)
+        t0 = time.perf_counter()
+        publisher.start()
+        with contextlib.redirect_stdout(io.StringIO()):
+            swap = serve_cli.run(root, poll_every=SERVE_POLL_EVERY, device=dev)
+        publisher.join()
+        swap_s = time.perf_counter() - t0
+        at = swap["swap_at"][0] if swap["swap_at"] else len(trace)
+        swap_scores = np.asarray([swap["scores"][r.rid] for r in trace], np.float32)
+        before = np.abs(swap_scores[:at] - batch_scores(model, trace[:at], dev)) if at else np.zeros(1)
+        after_reqs = trace[at:]
+        after_new = batch_scores(refreshed, after_reqs, dev) if after_reqs else np.zeros(0)
+        after_old = batch_scores(model, after_reqs, dev) if after_reqs else np.zeros(0)
+        head_after = np.asarray([r.id_tags[user_tag] == head for r in after_reqs], bool)
+        hot_swap = dict(
+            seconds=swap_s, snapshot_swaps=swap["snapshot_swaps"], swap_at=swap["swap_at"],
+            fingerprint_new=swap["fingerprint"] == model_fingerprint(refreshed),
+            before_within_tol=bool(np.allclose(swap_scores[:at], batch_scores(model, trace[:at], dev), **SERVE_TOL))
+            if at else True,
+            before_max_abs_diff=float(before.max()),
+            after_within_tol_of_new=bool(np.allclose(swap_scores[at:], after_new, **SERVE_TOL)),
+            head_requests_after=int(head_after.sum()),
+            head_moved_after=float(np.abs(after_new - after_old)[head_after].max()) if head_after.any() else 0.0)
+
+        # (5) the reference bench's serving shape, where the 0.8 hit-rate line was drawn
+        members, items, d_fe, d_re = SERVE_BENCH_SHAPE
+        g = np.random.default_rng(13)
+        bench_model = game_model_from_numpy({
+            "fixed": {"feature_shard_id": "global", "means": (g.normal(size=d_fe) * 0.5).astype(np.float32)},
+            "per_member": {"feature_shard_id": "member_f", "random_effect_type": "member",
+                           "coefficients": (g.normal(size=(members, d_re)) * 0.5).astype(np.float32)},
+            "per_item": {"feature_shard_id": "item_f", "random_effect_type": "item",
+                         "coefficients": (g.normal(size=(items, d_re)) * 0.5).astype(np.float32)},
+        }, TaskType.LOGISTIC_REGRESSION, device=dev)
+        root_b, tel_b = os.path.join(work, "published-bench"), os.path.join(work, "telemetry-bench")
+        publish_game_model(bench_model, root_b)
+        bcode, btext, bench_s = umbrella(["serve", "--model-root", root_b, "--telemetry-dir", tel_b])
+        bline = json.loads(btext.strip().splitlines()[-1]) if bcode == 0 else {}
+        bsection = summarize_serve(tel_b)
+        bench_point = dict(code=bcode, seconds=bench_s, line=bline, report_serve=bsection,
+                           replay=lru_replay(serve_cli._load(root_b, dev)[0],
+                                             serve_cli._synthetic_requests(bench_model, SERVE_REQUESTS, 1.0, 0),
+                                             serve_windows(tel_b), bline.get("hot_budget_bytes", 0)),
+                           hits=bsection.get("hot_hit_bytes", 0) / (4 * d_re),
+                           misses=bsection.get("hot_miss_bytes", 0) / (4 * d_re))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec = dict(card=card, publish_s=publish_s, load_s=load_s, parity=parity, refresh=refresh, serve=served,
+               hot_swap=hot_swap, bench_point=bench_point, launches=launch_counts())
+    gates = {
+        "fingerprint": parity["fingerprint_equal"],
+        "hot_rows_on_the_card": parity["hot_rows_on"] == "cuda",
+        "parity_window_shape_bitwise": parity["window_shape_bitwise"],
+        "parity_whole_set": parity["whole_bitwise"] or parity["whole_within_tol"],
+        "refresh_bitwise": all(refresh[k]["bitwise_offline"] and refresh[k]["others_unchanged"]
+                               and refresh[k]["row_moved"] > 0 for k in ("lbfgs", "tron")),
+        "serve_ran": code == 0 and line.get("requests") == SERVE_REQUESTS and line.get("device") == "cuda"
+        and served["windows_in_telemetry"] == line.get("windows"),
+        "hit_rate_equals_replay": (served["hits"], served["misses"]) == (replay["hits"], replay["misses"]),
+        "report_serving_section": all(section.get(k) is not None for k in (
+            "latency_p50_ms", "latency_p99_ms", "hot_hit_rate", "window_occupancy_mean"))
+        and section.get("requests") == SERVE_REQUESTS,
+        "report_gate_self": gate_codes == [0, 0],
+        "hot_swap": hot_swap["snapshot_swaps"] >= 1 and hot_swap["fingerprint_new"]
+        and hot_swap["before_within_tol"] and hot_swap["after_within_tol_of_new"],
+        "bench_point_hit_rate": bcode == 0 and bench_point["line"].get("hot_hit_rate", 0.0) >= SERVE_HIT_RATE_FLOOR
+        and (bench_point["hits"], bench_point["misses"]) == (bench_point["replay"]["hits"],
+                                                             bench_point["replay"]["misses"]),
+    }
+    return rec, gates
+
+
 def _check_game_launches(phase: str, rec: dict) -> None:
     """Every fixed-effect objective pass ran on K1, and nothing else
     launched a kernel."""
@@ -5655,6 +5954,12 @@ def main() -> int:
     if not (e_rec["quality_ok"] and e_rec["k1"]["ok"] and e_rec["k1"]["layout"] == "tiles"):
         raise AssertionError(f"config E: AUC {e_rec['train_auc']} against "
                              f"{e_rec['auc_generating_model']}; K1 ok {e_rec['k1']['ok']}")
+    # online serving of main_e's model, published and served on the card
+    serve_rec, serve_gates = run_serve(dev, e_batch, e_model, smi)
+    emit("main_serve", **serve_rec, gates=serve_gates)
+    failed = [name for name, ok in serve_gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"main_serve failed: {failed}")
     # main_e over 4 shards of the card, then over two processes of 2 shards each
     e_sharded, e_sharded_model = run_e_sharded(dev, e_batch, e_data, e_rec, e_model)
     emit("main_e_sharded", **e_sharded)
@@ -6087,7 +6392,8 @@ def main() -> int:
     by_path = {
         k: {"main_a": a["launches"][k], "main_a_sweep": sweep["launches"][k],
             "main_b": b["launches"][k], "main_d": d_rec["launches"][k],
-            "main_e": e_rec["launches"][k], "main_e_lbfgs": e_lbfgs["launches"][k],
+            "main_e": e_rec["launches"][k], "main_serve": serve_rec["launches"][k],
+            "main_e_lbfgs": e_lbfgs["launches"][k],
             "main_e_lbfgs_compact": e_compact["launches"][k],
             "main_e_streamed_compact": e_streamed_compact["launches"][k],
             **{f"re_skew[{name}]": r["launches"][k] for name, r in re_skew["bench_depth"].items()},

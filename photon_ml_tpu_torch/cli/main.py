@@ -4,16 +4,13 @@
 Subcommand dispatch over the port's drivers — each stays runnable as
 ``python -m photon_ml_tpu_torch.cli.<driver>`` too; this wrapper only maps
 ``photon-ml-tpu-torch <subcommand> ...`` onto the same ``main(argv)``
-hooks. ``serve`` is named but not ported yet (ROADMAP queue 1 item 8).
-The reference's ``lint`` checks the reference's own source tree and has
+hooks. The reference's ``lint`` checks the reference's own source tree and has
 no counterpart here.
 """
 
 from __future__ import annotations
 
 import sys
-
-SERVE_NOT_PORTED = "photon-ml-tpu-torch serve: online serving is not ported yet (ROADMAP queue 1 item 8)"
 
 
 def _commands() -> dict:
@@ -26,7 +23,7 @@ def _commands() -> dict:
         "index-features": "photon_ml_tpu_torch.cli.index_features",
         "name-term-bags": "photon_ml_tpu_torch.cli.name_term_bags",
         "report": "photon_ml_tpu_torch.cli.report",
-        "serve": None,
+        "serve": "photon_ml_tpu_torch.cli.serve",
     }
 
 
@@ -42,8 +39,6 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit(
             f"unknown command {cmd!r}; one of: {', '.join(sorted(commands))}"
         )
-    if commands[cmd] is None:
-        raise NotImplementedError(SERVE_NOT_PORTED)
     import importlib
 
     importlib.import_module(commands[cmd]).main(argv[1:])

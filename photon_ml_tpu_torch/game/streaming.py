@@ -1194,6 +1194,7 @@ class StreamedGameTrainer:
 
         accounting = DeferredLaunchAccounting()
         pending = None
+        prefetch.require_stream_executor_off("re_gather")
         for i, put in enumerate(prefetch.prefetch_iter(len(units), gather)):
             members, ent_ids, _, cols, spec, pad = units[i]
             dev = unit_dev[i]
@@ -1263,6 +1264,7 @@ class StreamedGameTrainer:
             return w_rows, feat
 
         outs = []
+        prefetch.require_stream_executor_off("re_scores")
         for w_rows, feat in prefetch.prefetch_iter(len(ranges), prepare):
             prefetch.wait(w_rows, consumer)
             prefetch.wait(feat, consumer)

@@ -16,8 +16,15 @@ synthetic names ``f<index>``, parsed back on load. A model that either
 package saves, the other loads with equal coefficients.
 
 Each model tensor is read back from the device once and each loaded matrix
-copied to it once; the per-entity work is host numpy. The published-model
-manifest (``publish_game_model``) is ROADMAP queue 1 item 14.
+copied to it once; the per-entity work is host numpy.
+
+A published model (the serving side's snapshot pointer) is a root holding
+``snapshots/snap-NNNNNN/`` (each a ``save_game_model`` directory) and
+``MANIFEST.json``, which names the current snapshot, its sequence number
+and its ``model_fingerprint``. ``publish_game_model`` writes the snapshot
+whole before it moves the pointer, through an atomic replace, so a reader
+sees the previous snapshot or the new one and never a part of either. A
+root either package publishes, the other loads with the same fingerprint.
 """
 
 from __future__ import annotations
@@ -288,6 +295,81 @@ def model_fingerprint(model: GameModel) -> str:
             add(sub.coefficients)
             add(sub.variances)
     return h.hexdigest()
+
+
+MODEL_MANIFEST = "MANIFEST.json"
+MANIFEST_SCHEMA_VERSION = 1
+
+
+def publish_game_model(
+    model: GameModel,
+    root: str,
+    index_maps: Mapping[str, IndexMap] | None = None,
+    entity_names: Mapping[str, Sequence[str]] | None = None,
+    sparsity_threshold: float = 0.0,
+) -> str:
+    """Write ``model`` as the next snapshot under ``root``, then commit the
+    manifest pointer atomically. Returns the snapshot directory. A crash at
+    any point leaves the manifest on a complete snapshot; a snapshot
+    directory left by a crash before the commit is inert, and the next
+    publish writes over it."""
+    from photon_ml_tpu_torch.utils.atomic_io import atomic_replace_bytes
+
+    manifest = read_model_manifest(root)
+    seq = int(manifest["seq"]) + 1 if manifest else 1
+    rel = os.path.join("snapshots", f"snap-{seq:06d}")
+    snap_dir = os.path.join(root, rel)
+    save_game_model(model, snap_dir, index_maps=index_maps, entity_names=entity_names,
+                    sparsity_threshold=sparsity_threshold)
+    doc = {
+        "schema_version": MANIFEST_SCHEMA_VERSION,
+        "seq": seq,
+        "snapshot": rel,
+        "fingerprint": model_fingerprint(model),
+        "task_type": model.task_type.value,
+    }
+    atomic_replace_bytes(root, os.path.join(root, MODEL_MANIFEST), (json.dumps(doc, indent=2) + "\n").encode())
+    return snap_dir
+
+
+def read_model_manifest(root: str) -> dict | None:
+    """The manifest under ``root``, or None when nothing is published. A
+    manifest of a later schema than this reader's raises ``ValueError``."""
+    path = os.path.join(root, MODEL_MANIFEST)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        doc = json.load(f)
+    version = int(doc.get("schema_version", 0))
+    if version > MANIFEST_SCHEMA_VERSION:
+        raise ValueError(
+            f"{path}: manifest schema v{version} is newer than this reader (v{MANIFEST_SCHEMA_VERSION})"
+        )
+    return doc
+
+
+def peek_published_fingerprint(root: str) -> str | None:
+    """The published snapshot's fingerprint, read from the manifest alone
+    (no model array is loaded): the server's hot-swap poll."""
+    manifest = read_model_manifest(root)
+    return manifest.get("fingerprint") if manifest else None
+
+
+def load_published_model(
+    root: str,
+    index_maps: Mapping[str, IndexMap] | None = None,
+    entity_ids: Mapping[str, Mapping[str, int]] | None = None,
+    device=None,
+) -> tuple[GameModel, dict]:
+    """``(model, manifest)`` of the snapshot the manifest names, on
+    ``device`` (CUDA unless the caller asks for another). Raises
+    ``FileNotFoundError`` when nothing is published."""
+    manifest = read_model_manifest(root)
+    if manifest is None:
+        raise FileNotFoundError(f"{os.path.join(root, MODEL_MANIFEST)}: no published model")
+    model = load_game_model(os.path.join(root, manifest["snapshot"]), index_maps=index_maps,
+                            entity_ids=entity_ids, device=device)
+    return model, manifest
 
 
 def load_game_model(

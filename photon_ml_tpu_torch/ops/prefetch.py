@@ -127,6 +127,18 @@ def prefetch_depth() -> int:
     return max(int(env), 0) if env else _DEFAULT_PREFETCH_DEPTH
 
 
+def require_stream_executor_off(consumer: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP queue 1 item 9 when
+    ``PHOTON_STREAM_EXECUTOR`` is on (a strict int parse, as the
+    reference's). The reference routes ``consumer``'s prefetch through its
+    stream executor then; with the knob off every consumer keeps its
+    pre-executor branch, which is the one the port runs."""
+    env = os.environ.get("PHOTON_STREAM_EXECUTOR")
+    if env is not None and env != "" and int(env):
+        raise NotImplementedError(f"PHOTON_STREAM_EXECUTOR={env} ({consumer}): the stream executor is not "
+                                  "ported yet (ROADMAP queue 1 item 9)")
+
+
 def chunk_cache_budget_bytes(device=None) -> int:
     """The device tier's byte budget, read at call time: the environment,
     else a quarter of ``device``'s memory (2 GB without CUDA)."""

@@ -453,6 +453,7 @@ class StreamingGLMObjective:
         """One pass: ``kernel(batch, chunk index)`` on every chunk in order,
         folded by ``accumulate``. ``cost_label`` records the first chunk's
         analytic work (``cost(batch)``) under device-cost capture."""
+        prefetch.require_stream_executor_off("objective")
         acc = init
         if not self.chunks:  # a process without rows streams nothing
             return acc
@@ -572,6 +573,7 @@ class StreamingGLMObjective:
         reference: scoring rows needs no collective. Sharded, ``w`` is the
         range segment and the scores are the combined margins, the same on
         every process (a collective)."""
+        prefetch.require_stream_executor_off("scores")
         w = self._w(w)
         if self._fe_range is not None:
             if not self.chunks:
@@ -720,6 +722,7 @@ def stream_scores(chunks: Sequence[dict], w, num_rows: int, num_features: int | 
     ``num_features``) ``w`` is the full vector, each process scores its
     range, and the margins are summed over the processes: a collective,
     the same scores on every process."""
+    prefetch.require_stream_executor_off("scores")
     dev = resolve_device(device)
     if not chunks:
         return np.zeros(num_rows, np.float32)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -114,6 +115,14 @@ def select_minimize_fn(
     if l1_weight > 0.0:
         return owlqn_fn, {"l1_weight": l1_weight}
     return lbfgs_fn, {}
+
+
+def make_optimizer(config: OptimizerConfig, l1_weight: float = 0.0) -> Callable:
+    """``minimize(objective, w0)`` with ``config`` bound: the solver that
+    ``select_minimize_fn`` picks (serving's refresh and its offline
+    comparator)."""
+    fn, kwargs = select_minimize_fn(config, l1_weight)
+    return partial(fn, config=config, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -115,6 +115,7 @@ def cross_validate_glm(
             return _ingest_training_batch(_row_select(batch, train_rows))
 
     # one fold ahead at most: each item is a near-full training batch
+    prefetch.require_stream_executor_off("cv")
     for i, train_batch in enumerate(
         prefetch.prefetch_iter(len(folds), ingest_fold, depth=min(prefetch.prefetch_depth(), 1))
     ):

@@ -1311,3 +1311,78 @@ def test_tools_report_and_gate_of_a_card_run(dev, tmp_path, capsys, monkeypatch)
         with pytest.raises(SystemExit) as e:
             umbrella.main(["report", *argv])
         assert e.value.code == code
+
+
+# ---------------------------------------------------------------------------
+# online serving (ROADMAP queue 1 item 8): the hot rows on the card
+# ---------------------------------------------------------------------------
+def test_serve_window_scores_on_the_card(dev):
+    """Windows scored from CUDA hot rows: bitwise the batch scorer on the
+    card on the rows each window scores (padding included, out-of-range ids
+    masked), within rtol = atol = 1e-5 of it on the whole set (cuBLAS sums
+    a row's dot product in another order at another row count: on the H100
+    1,085 of 2,011 main_serve rows differ, by up to 1.9e-6)."""
+    import test_torch_serve as ts
+
+    from photon_ml_tpu_torch.serve.store import HotModelStore
+
+    for d_fe in (4, 65):
+        model = ts._port_model(ts._arrays(E=300, d_fe=d_fe, d_re=8), "cuda")
+        ents = np.random.default_rng(4).integers(-2, 302, size=2011)
+        reqs = ts._requests(model, 2011, seed=4, entities=ents)
+        store = HotModelStore(model, budget_bytes=300 * 8 * 4 // 4, device=dev)
+        assert store.shard_for("per_member", 3).device.type == "cuda"
+        got = ts._serve(store, reqs, 32)
+        ts._assert_window_parity(model, reqs, got, 32, tol=1e-5)
+        assert 0.0 < store.hit_rate() < 1.0
+
+
+@pytest.mark.parametrize("case", ["lbfgs", "owlqn", "tron", "newton"])
+def test_serve_refresh_bitwise_offline_on_the_card(dev, case):
+    """The chunked refresh of one entity on the card is bitwise the one-shot
+    offline solve of the same bucket (both one lane of the same shapes)."""
+    import test_torch_serve as ts
+
+    from photon_ml_tpu_torch.config import OptimizerConfig
+    from photon_ml_tpu_torch.serve.refresh import entity_event_batch, refresh_entity, solve_entity_offline
+
+    solver, l1 = ts.SOLVER_CASES[case]
+    model = ts._port_model(ts._arrays(E=16, d_re=3, seed=5), "cuda")
+    X, y = ts._events(k=40, seed=6)
+    batch = entity_event_batch(X, y, device=dev)
+    cfg = OptimizerConfig(optimizer_type=solver, max_iterations=40, tolerance=1e-7)
+    updated, res = refresh_entity(model, "per_member", 6, batch, cfg, l2_weight=1.0, l1_weight=l1, chunk=3)
+    offline = solve_entity_offline(model["per_member"], 6, batch, cfg, l2_weight=1.0, l1_weight=l1)
+    assert res.w.device.type == "cuda" and torch.equal(res.w, offline.w)
+    assert torch.equal(updated["per_member"].coefficients[6], res.w[0])
+
+
+def test_serve_two_process_collective_step_on_the_card(dev):
+    """The two-process serving drill (``tests/test_torch_serve.py``) with
+    both processes' hot rows on the card: cross-owner routing, a peer killed
+    mid-step, the survivor's degrade and retried step."""
+    import test_torch_serve as ts
+
+    results = ts.run_serve_drill("cuda")
+    assert results[0]["mm1"] == 0 and results[1]["mm1"] == 0
+    assert results[0]["forwarded"] + results[1]["forwarded"] > 0
+    assert results[0]["peer_lost"] is True and results[0]["survivors"] == [0]
+    assert results[0]["mm2"] == 0 and results[0]["owner_all_zero"]
+
+
+def test_serve_driver_runs_on_the_card_by_default(dev, tmp_path, capsys):
+    """``photon-ml-tpu-torch serve`` with no ``--device`` serves on CUDA from
+    a published root."""
+    import json
+
+    import test_torch_serve as ts
+
+    from photon_ml_tpu_torch.cli import main as umbrella
+    from photon_ml_tpu_torch.io.model_io import model_fingerprint, publish_game_model
+
+    model = ts._port_model(ts._arrays(E=500, d_fe=6, d_re=8, seed=3), "cuda")
+    publish_game_model(model, str(tmp_path / "pub"))
+    umbrella.main(["serve", "--model-root", str(tmp_path / "pub"), "--requests", "2000", "--rate-hz", "4000"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["device"] == "cuda" and line["requests"] == 2000
+    assert line["fingerprint"] == model_fingerprint(model) and 0.0 < line["hot_hit_rate"] < 1.0

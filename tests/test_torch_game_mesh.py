@@ -134,14 +134,18 @@ def _data(seed=0, n=600, d_fixed=5, effects=EFFECTS):
         data.y, feats, id_tags=tags, device="cpu")
 
 
-# The random effects' solver tolerance in the comparison with the
-# reference's mesh fit: at 1e-7 the Newton lanes' stops sit on the float32
-# floor (the GLMM fixture's, which this one is: ROADMAP queue 3,
-# test_torch_game.py::test_newton_lane_floor_is_float32_rounding).
+# The solver tolerances in the comparison with the reference's mesh fit:
+# at 1e-7 the random effects' Newton lanes stop on the float32 floor, and
+# at 1e-7 (or 1e-3) the fixed effect's warm-started second visit does,
+# on torch's AVX-512 kernels (this is the GLMM fixture: ROADMAP queue 3,
+# test_torch_game.py::test_newton_lane_floor_is_float32_rounding and
+# ::test_glmm_warm_started_fixed_effect_floor_is_float32_rounding).
 ABOVE_FLOOR = 1e-3
+ABOVE_FLOOR_FIXED = 1e-2
 
 
-def _config(m, effects=EFFECTS, re_solver="NEWTON_CHOLESKY", iterations=2, re_tolerance=1e-7, **kw):
+def _config(m, effects=EFFECTS, re_solver="NEWTON_CHOLESKY", iterations=2, re_tolerance=1e-7,
+            fixed_tolerance=1e-7, **kw):
     T = jtypes if m is jcfg else ttypes
 
     def opt(solver, lam, tolerance=1e-7):
@@ -156,7 +160,7 @@ def _config(m, effects=EFFECTS, re_solver="NEWTON_CHOLESKY", iterations=2, re_to
         coordinate_update_sequence=("fixed", *(f"per_{k}" for k in effects)),
         coordinate_descent_iterations=iterations,
         fixed_effect_coordinates={"fixed": m.FixedEffectCoordinateConfig(
-            "global", kw.pop("fixed_opt", opt("LBFGS", 0.0)))},
+            "global", kw.pop("fixed_opt", opt("LBFGS", 0.0, fixed_tolerance)))},
         random_effect_coordinates={
             f"per_{k}": m.RandomEffectCoordinateConfig(k, f"shard_{k}", opt(re_solver, 1.0, re_tolerance),
                                                        bucket_target_count=8, bucket_max_padded_ratio=0.5,
@@ -179,14 +183,16 @@ def _assert_fits_agree(a, b, fixed_tol=dict(rtol=1e-3, atol=1e-4)):
 def reference_mesh_fit():
     data, jb, tb = _data()
     intercepts = {"global": data.intercept_index}
-    jres = JEstimator(_config(jcfg, re_tolerance=ABOVE_FLOOR), mesh=j_data_mesh(8), intercept_indices=intercepts).fit(
+    jres = JEstimator(_config(jcfg, re_tolerance=ABOVE_FLOOR, fixed_tolerance=ABOVE_FLOOR_FIXED),
+                      mesh=j_data_mesh(8), intercept_indices=intercepts).fit(
         jb, validation_batch=jb)[0]
     return data, tb, jres
 
 
 def test_estimator_over_a_mesh_matches_the_reference_mesh_fit(reference_mesh_fit):
     data, tb, jres = reference_mesh_fit
-    tres = GameEstimator(_config(tcfg, re_tolerance=ABOVE_FLOOR), intercept_indices={"global": data.intercept_index},
+    tres = GameEstimator(_config(tcfg, re_tolerance=ABOVE_FLOOR, fixed_tolerance=ABOVE_FLOOR_FIXED),
+                         intercept_indices={"global": data.intercept_index},
                          device="cpu",
                          mesh=CPU4).fit(tb, validation_batch=tb)[0]
     _assert_fits_agree(tres.model, jres.model)

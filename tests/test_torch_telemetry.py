@@ -448,7 +448,16 @@ def parity_runs(tmp_path_factory):
     from photon_ml_tpu import obs as jobs
     from photon_ml_tpu.game.streaming import StreamedGameData, StreamedGameTrainer
 
+    from photon_ml_tpu.ops import prefetch as jprefetch
+    from photon_ml_tpu_torch.ops import prefetch
+
     work = tmp_path_factory.mktemp("telemetry_parity")
+    # each package quotes its chunk cache's device budget once a process (a
+    # memo) and records the quote as an hbm_budget event under the sink of
+    # the moment: quote both here, outside any sink, so the record kinds do
+    # not depend on whether an earlier test of this process streamed first
+    jprefetch.chunk_cache_budget_bytes()
+    prefetch.chunk_cache_budget_bytes(torch.device("cpu"))
     X, Xr, ids, y = _fixture_arrays()
     data = StreamedGameData(labels=y, features={"g": X, "r": Xr}, id_tags={"uid": ids})
     val = StreamedGameData(labels=y[:80], features={"g": X[:80], "r": Xr[:80]}, id_tags={"uid": ids[:80]})
@@ -999,3 +1008,93 @@ def test_glm_driver_telemetry_and_profile(tmp_path):
     records = load_run(str(tmp_path / "tel" / run))
     assert validate_run(records) == []
     assert [s["attrs"]["weight"] for s in _spans(records) if s["name"] == "glm/lambda"] == [0.1, 1.0]
+
+
+# ---------------------------------------------------------------------------
+# serving's names and its report section
+# ---------------------------------------------------------------------------
+SERVE_NAMES = {"serve.requests", "serve.windows", "serve.window_s", "serve.window.occupancy", "serve.forwarded",
+               "serve.hot.hit_bytes", "serve.hot.miss_bytes", "serve.hot.evictions", "serve.refresh.count",
+               "serve.refresh_s", "serve.replan.count", "serve.replan.migrations", "serve.latency_p50_ms",
+               "serve.latency_p99_ms", "serve.hot.hit_rate", "serve.window.occupancy_mean"}
+
+
+def test_serving_emits_the_references_names():
+    """Every name the reference's serving emits, the port's emits, and no
+    other serve.* name; its one span is the reference's."""
+    names = _emitted_names()
+    assert {n for n in names if n.startswith("serve.")} == SERVE_NAMES
+    ref_serve = "".join(open(os.path.join(ROOT, "photon_ml_tpu", "serve", f)).read()
+                        for f in ("store.py", "router.py", "refresh.py", "loadgen.py"))
+    assert all(f'"{n}"' in ref_serve for n in SERVE_NAMES)
+    port_serve = "".join(open(os.path.join(PORT, "serve", f)).read() for f in ("router.py", "refresh.py"))
+    assert '"serve/window"' in port_serve and '"serve/refresh"' in port_serve
+
+
+def _serve_trace_run(pkg: str, tel_dir: str) -> dict:
+    """One simulated-clock serving trace and one refresh in ``pkg`` ("port"
+    or "reference") under that package's sink; its report's serve section.
+    The package's ``serve.*`` registry entries start from nothing (other
+    tests of the process serve too), and its watermark sampler's last
+    sample is forgotten after the run, so the next sink's first root span
+    samples as in a fresh process."""
+    import test_torch_serve as ts
+
+    arrays = ts._arrays(E=40, d_fe=5, d_re=4, seed=8)
+    ents = ts.zipf_entity_trace(40, 300, rng=np.random.default_rng(3))
+    X, y = ts._events(k=9, d=4, seed=4)
+    if pkg == "port":
+        from photon_ml_tpu_torch.obs import devcost
+        from photon_ml_tpu_torch.obs.metrics import REGISTRY
+        from photon_ml_tpu_torch.obs.report import latest_run, summarize_run
+        from photon_ml_tpu_torch.serve import loadgen, refresh, store
+
+        sink, model = obs, ts._port_model(arrays)
+        make_store = lambda m: store.HotModelStore(m, budget_bytes=10 * 16, device="cpu")  # noqa: E731
+        reqs = ts._requests(model, 300, seed=5, entities=ents)
+        event_batch = lambda: refresh.entity_event_batch(X, y, device="cpu")  # noqa: E731
+        cfg = tcfg.OptimizerConfig(max_iterations=10)
+    else:
+        from photon_ml_tpu import obs as sink
+        from photon_ml_tpu.config import OptimizerConfig
+        from photon_ml_tpu.obs import devcost
+        from photon_ml_tpu.obs.metrics import REGISTRY
+        from photon_ml_tpu.obs.report import latest_run, summarize_run
+        from photon_ml_tpu.serve import loadgen, refresh, store
+        from photon_ml_tpu.serve.router import ScoreRequest
+
+        model = ts._jax_model(arrays)
+        make_store = lambda m: store.HotModelStore(m, budget_bytes=10 * 16)  # noqa: E731
+        reqs = ts._requests(ts._port_model(arrays), 300, seed=5, entities=ents, cls=ScoreRequest)
+        event_batch = lambda: refresh.entity_event_batch(X, y)  # noqa: E731
+        cfg = OptimizerConfig(max_iterations=10)
+    for i, r in enumerate(reqs):
+        r.arrival_s = 0.0004 * i
+    clock = ts._FakeClock()
+
+    def sleep(s):
+        clock.t += s
+
+    sink.shutdown()
+    REGISTRY.reset("serve.")
+    sink.configure(tel_dir, run_id="serve")
+    try:
+        loadgen.run_serve_trace(make_store(model), reqs, max_batch=8, max_wait_ms=2.0, clock=clock, sleep=sleep)
+        refresh.refresh_entity(model, "per_member", 3, event_batch(), cfg, l2_weight=1.0)
+    finally:
+        sink.shutdown()
+        devcost._last_wm_sample[0] = float("-inf")
+    return summarize_run(latest_run(tel_dir))["serve"]
+
+
+def test_serve_run_report_section_equals_the_references(tmp_path):
+    """The same trace and refresh through each package's serving, each run
+    summarized by its own package's report: the same serving section, but
+    for the wall-clock numbers (latency gauges from the injected clock
+    match too; the window and refresh seconds are host time)."""
+    got = _serve_trace_run("port", str(tmp_path / "port"))
+    want = _serve_trace_run("reference", str(tmp_path / "ref"))
+    assert got.keys() == want.keys()
+    wall = {"window_s", "refresh_s"}
+    assert {k: v for k, v in got.items() if k not in wall} == {k: v for k, v in want.items() if k not in wall}
+    assert got["requests"] == 300 and got["refreshes"] == 1 and 0.0 < got["hot_hit_rate"] < 1.0

@@ -21,6 +21,7 @@ import json
 import os
 
 import numpy as np
+import torch
 import pytest
 
 from photon_ml_tpu.cli import index_features as ref_index_features
@@ -396,8 +397,11 @@ def test_umbrella_unknown_command():
                        "score, serve, train, train-glm")
 
 
-def test_umbrella_serve_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+def test_umbrella_serve_is_not_ported_yet(monkeypatch):
+    """``serve`` is ported (ROADMAP queue 1 item 8): the command reaches the
+    serving driver, which runs on CUDA unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         umbrella.main(["serve", "--model-root", "x"])
 
 
@@ -406,6 +410,7 @@ def test_umbrella_serve_is_not_ported_yet():
     ("train-glm", "photon_ml_tpu_torch.cli.train_glm"),
     ("index-features", "photon_ml_tpu_torch.cli.index_features"),
     ("name-term-bags", "photon_ml_tpu_torch.cli.name_term_bags"), ("report", "photon_ml_tpu_torch.cli.report"),
+    ("serve", "photon_ml_tpu_torch.cli.serve"),
 ])
 def test_umbrella_dispatches_to_the_drivers_main(command, module, monkeypatch):
     import importlib
