@@ -303,9 +303,12 @@ Run from the root of a checkout. It builds the CUDA kernels from
 16. main_game_cli: config E at its bench depth (64 global features, 8 per
    user and 8 per item, 20,000 users and 4,000 items, Zipf 1.5; 2^18
    training and 2^16 validation rows), generated on the card and written as
-   Avro part files (two each) with the port's codec; one training part read
-   on the host by the native decoder and by the Python codec (its plain
-   version), equal bit for bit, each with its ms a record; then the drivers
+   Avro part files (two each) with the port's codec by four forked
+   processes while agreement_e_solvers, re_skew, main_e_streamed_compact
+   and main_re_project run (after main_faults); one training part read on the host
+   by the native decoder and by the Python codec (its plain version), in a
+   forked process beside the drivers, equal bit for bit, each with its ms
+   a record; then the drivers
    driven as a user drives them, every read on the native decoder:
    ``cli.train.main`` (the fixed effect on L-BFGS over the grid lambda in
    {0.1, 1}, the random effects on L-BFGS, 20 iterations at 1e-7, L2 1; 2
@@ -436,6 +439,28 @@ Run from the root of a checkout. It builds the CUDA kernels from
    the two processes' coefficients bitwise equal, K1 = 8 x passes in each,
    against main_f |dAUC| <= 0.005 and relative d(objective) <= 1e-3, the
    seconds in collectives per pass;
+19a. main_stream_executor: every streamed consumer with
+   ``PHOTON_STREAM_EXECUTOR`` off, then on, both caches emptied before
+   each arm: (a) host L-BFGS (10 iterations, tolerance 0, lambda = 1)
+   over main_f's first 4 chunks (2 GiB) with the value of a validation
+   objective over a loader's own copies of those chunks (fresh host
+   arrays, equal content) taken at every iteration: final coefficients
+   and every validation value bitwise, the on arm's copied bytes below
+   the off arm's (``stream.cache.miss_bytes`` against
+   ``prefetch.cache.miss_bytes``), K1 on each chunk of every training
+   pass, and the seconds of the content fingerprint's first sight of a
+   fresh 512 MiB chunk; (b) A2 in main_a2_streamed's chunks, tiled for
+   K3: the streamed objective's value, gradient, Hessian diagonal and
+   scores, and the module scorer, bitwise, K3's launches by direction;
+   (c) config E at bench depth out of core as main_e_streamed_compact
+   runs it: the model and its scores bitwise, ``stream.re_gather.items``
+   and the hit and miss bytes of ``re_scores``; (d)
+   ``cross_validate_glm`` (k = 2, lambda = 1, L-BFGS 20 iterations) at
+   config D's shape: the metric values and the refit bitwise; (e)
+   main_serve's published model: 1,000 requests through the micro-window
+   server while a second thread refreshes 16 users
+   (``refresh_stream``): the scores and the refreshed rows bitwise, and
+   ``stream.refresh.yields`` (timing-dependent, not gated);
 20. main_b_streamed: config B in 8 host chunks of 2^17 rows with host TRON
    (15 iterations): K1 on each chunk of every value-and-gradient pass and
    K2 on each chunk of every Hessian-vector pass; against main_b relative
@@ -473,8 +498,8 @@ result; a child process that fails or outlives its time (then killed)
 fails its phase. The kernels are built once, before any child starts.
 Its last lines are the smoke's wall, the kernel table as one JSON object (K1's
 ``launches`` adds up its launches on the main paths A, the sweep, B, D, E,
-E on L-BFGS, E projected, the GAME drivers, the six out-of-core
-phases, the eight data-parallel ones, the five out-of-core ones across
+E on L-BFGS, E projected, the GAME drivers, the seven out-of-core
+phases (main_stream_executor's K3 launches too), the eight data-parallel ones, the five out-of-core ones across
 processes, main_faults, main_telemetry and main_tools, which ``launches_by_path`` lists one by one; ``at_main_d_shape``
 and ``at_main_e_shape`` give its times at GAME's widths,
 ``at_streamed_chunk_shape`` each kernel's at its streamed chunk and
@@ -486,6 +511,7 @@ without CUDA or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import hashlib
 import io
@@ -556,7 +582,7 @@ from photon_ml_tpu_torch.native import NativeIndexStore
 from photon_ml_tpu_torch.native import build as native_build
 from photon_ml_tpu_torch.obs import REGISTRY
 from photon_ml_tpu_torch.obs.report import fleet_run_paths, latest_run, load_run, validate_run
-from photon_ml_tpu_torch.ops import _cuda, fused, prefetch, tile_cache
+from photon_ml_tpu_torch.ops import _cuda, fused, prefetch, stream_executor, tile_cache
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
 from photon_ml_tpu_torch.ops.glm import compute_variances, make_objective
@@ -564,7 +590,7 @@ from photon_ml_tpu_torch.ops.losses import LOSSES
 from photon_ml_tpu_torch.data.index_map import plan_feature_ranges
 from photon_ml_tpu_torch.ops import streaming
 from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks, stream_scores
-from photon_ml_tpu_torch.optim import lbfgs_minimize, select_minimize_fn
+from photon_ml_tpu_torch.optim import host_lbfgs_minimize, lbfgs_minimize, select_minimize_fn
 from photon_ml_tpu_torch.parallel import DistributedTrainer, data_mesh, sharded_objective
 from photon_ml_tpu_torch.parallel.distributed import reduction_stats
 from photon_ml_tpu_torch.parallel.mesh import process_mesh
@@ -580,7 +606,7 @@ from photon_ml_tpu_torch.parallel.multihost import (
 )
 from photon_ml_tpu_torch.parallel.placement import plan_entity_placement, plan_from_owner
 from photon_ml_tpu_torch.supervised.training import train_glm, train_glm_streamed
-from photon_ml_tpu_torch.serve.refresh import entity_event_batch, refresh_entity, solve_entity_offline
+from photon_ml_tpu_torch.serve.refresh import entity_event_batch, refresh_entity, refresh_stream, solve_entity_offline
 from photon_ml_tpu_torch.serve.router import MicroWindowServer, ScoreRequest
 from photon_ml_tpu_torch.serve.store import HotModelStore
 from photon_ml_tpu_torch.transformers import GameTransformer
@@ -2088,7 +2114,9 @@ def profile_e(batch, effects: dict, dev, re_solver: str = "NEWTON_CHOLESKY") -> 
     launches, and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # the card's activity alone: the host's ops are not read, and parsing
+    # them took seconds a trace
+    acts = [ProfilerActivity.CUDA]
     # steps: 0 the ingest, 1-3 iteration 0's visits, 4-6 iteration 1's
     with profile(activities=acts, schedule=schedule(wait=3, warmup=1, active=3, repeat=1)) as prof:
         fit = fit_game(batch, game_config(effects, 2, re_solver=re_solver), dev, on_mark=prof.step)
@@ -2416,18 +2444,30 @@ class GameCliData:
     avro_bytes: int
 
 
-def _write_game_cli_part(path: str, schema: dict, host: dict, lo: int, hi: int) -> None:
+def _write_game_cli_part(path: str, schema: dict, host: dict, lo: int, hi: int) -> float:
     """One part file of rows [lo, hi) (``host``'s arrays hold those rows
-    only): a worker process's share of ``game_cli_data``'s writing."""
+    only): a worker process's share of ``game_cli_data``'s writing. Returns
+    its seconds."""
+    t0 = time.perf_counter()
     rows = dict(X=host["X"].tolist(), y=host["y"].tolist(), ids=host["ids"],
                 Xe={k: v.tolist() for k, v in host["Xe"].items()})
     write_avro_file(path, schema, game_cli_records(rows, lo, hi))
+    return time.perf_counter() - t0
 
 
 def game_cli_data(dev, work: str, sizes: dict = GAME_CLI) -> GameCliData:
     """Config E's rows drawn on the card and written as Avro part files with
-    the port's codec, one worker process a part file (all started
-    together; the codec is pure Python)."""
+    the port's codec (``start_game_cli_data``, then
+    ``finish_game_cli_data``)."""
+    return finish_game_cli_data(start_game_cli_data(dev, work, sizes))
+
+
+def start_game_cli_data(dev, work: str, sizes: dict = GAME_CLI) -> dict:
+    """``game_cli_data``'s first half: config E's rows drawn on the card and
+    their part files being written with the port's codec, one worker
+    process a part file (all started together, forked from
+    ``start_forkserver``'s server where it runs; the codec is pure Python). The caller
+    goes on meanwhile; ``finish_game_cli_data`` waits for the files."""
     effects, n_tr, n_va = sizes["effects"], sizes["train"], sizes["val"]
     data = synthetic_game_data(7, n_tr + n_va, D_FIXED, effects, device=dev)
     host = dict(X=data.X.cpu().numpy(), y=data.y.cpu().numpy(),
@@ -2443,18 +2483,28 @@ def game_cli_data(dev, work: str, sizes: dict = GAME_CLI) -> GameCliData:
         os.makedirs(os.path.join(work, split), exist_ok=True)
         parts += [(os.path.join(work, split, f"part-{p:05d}.avro"), lo + p * step, lo + (p + 1) * step)
                   for p in range(sizes["parts"])]
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(len(parts), mp_context=multiprocessing.get_context("spawn")) as pool:
-        for f in [pool.submit(_write_game_cli_part, path, schema,
-                              dict(X=host["X"][a:b], y=host["y"][a:b],
-                                   ids={k: v[a:b] for k, v in host["ids"].items()},
-                                   Xe={k: v[a:b] for k, v in host["Xe"].items()}), a, b)
-                  for path, a, b in parts]:
-            f.result()
-    write_s = time.perf_counter() - t0
+    pool = ProcessPoolExecutor(len(parts), mp_context=multiprocessing.get_context(
+        "forkserver" if start_forkserver() else "spawn"))
+    futures = [pool.submit(_write_game_cli_part, path, schema,
+                           dict(X=host["X"][a:b], y=host["y"][a:b], ids={k: v[a:b] for k, v in host["ids"].items()},
+                                Xe={k: v[a:b] for k, v in host["Xe"].items()}), a, b)
+               for path, a, b in parts]
+    return dict(dev=dev, work=work, sizes=sizes, data=data, ids=host["ids"], pool=pool, futures=futures)
+
+
+def finish_game_cli_data(pending: dict) -> GameCliData:
+    """``game_cli_data``'s second half: the part files waited for, and the
+    arrays the library is held to on the card. ``write_s`` is the slowest
+    writer's own seconds (the four write at once)."""
+    try:
+        write_s = max(f.result() for f in pending["futures"])
+    finally:
+        pending["pool"].shutdown(cancel_futures=True)
+    dev, work, data, sizes = pending["dev"], pending["work"], pending["data"], pending["sizes"]
+    effects, n_tr, n_va = sizes["effects"], sizes["train"], sizes["val"]
     avro_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(work) for f in fs)
 
-    ids = {k: first_seen(v, n_tr) for k, v in host["ids"].items()}
+    ids = {k: first_seen(v, n_tr) for k, v in pending["ids"].items()}
     feats = {"global": data.X, **{f"per_{k}": data.entity_X[k] for k in effects}}
     arrays = [make_game_batch(data.y[rows], {s: f[rows] for s, f in feats.items()},
                               id_tags={k: v[rows] for k, v in ids.items()}, device=dev)
@@ -2518,13 +2568,14 @@ def _same_dataset(a, b) -> bool:
     return all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in cols)
 
 
-def native_read_parity(data: GameCliData) -> dict:
-    """One training part file read on the host by the native decoder and by
-    the Python codec (its plain version): equal bit for bit; each one's ms
-    a record."""
-    shards = game_cli_config(data.effects, 1).feature_shards
+def native_read_parity(work: str, effects: dict) -> dict:
+    """One training part file of ``work`` read on the host by the native
+    decoder and by the Python codec (its plain version): equal bit for bit;
+    each one's ms a record. The smoke runs it in a forked child beside the
+    drivers (mode ``native_read_parity``): it does not touch the card."""
+    shards = game_cli_config(effects, 1).feature_shards
     reader = AvroDataReader(shards)
-    path = os.path.join(data.work, "train", "part-00000.avro")
+    path = os.path.join(work, "train", "part-00000.avro")
     tags = tuple(GAME_CLI_BAGS)
     out = {}
     for use_native in (True, False):
@@ -3151,6 +3202,278 @@ def run_a2_streamed(dev, a2: dict, card: str) -> dict:
     return rec
 
 
+# main_stream_executor: every arm runs with PHOTON_STREAM_EXECUTOR off, then on
+STREAM_EXECUTOR_ARMS = ("0", "1")
+SX_CHUNKS = range(4)  # (a): main_f's first 4 chunks, 4 x 2^18 x 512 float32 = 2 GiB
+SX_ITERATIONS = 10
+SX_SERVE_REQUESTS, SX_REFRESH_ENTITIES = 1_000, 16
+SX_CV_ROWS = 1 << 18  # (d): config D's rows
+
+
+def _stream_counters() -> dict:
+    """The executor's and the chunk cache's registry counters."""
+    snap = REGISTRY.snapshot()
+    out = {k: v["value"] for k, v in snap["counters"].items() if k.startswith(("stream.", "prefetch.cache."))}
+    out["prefetch.consumer_wait_s"] = snap["timers"].get("prefetch.consumer_wait_s", {}).get("seconds", 0.0)
+    return out
+
+
+@contextmanager
+def executor_arm(knob: str):
+    """One arm of main_stream_executor: the knob set, both caches empty,
+    every kernel's launch count and the stage timers zeroed just before;
+    yields a dict that holds, after the block, the arm's counter deltas,
+    wall and launches."""
+    out = {}
+    with environment({"PHOTON_STREAM_EXECUTOR": knob}):
+        prefetch.clear_cache()
+        stream_executor.clear()
+        prefetch.reset_stage_seconds()
+        fused.reset_launch_counts()
+        st.reset_launch_counts()
+        before = _stream_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield out
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        after = _stream_counters()
+        out["counters"] = {k: v - before.get(k, 0.0) for k, v in after.items() if v != before.get(k, 0.0)}
+        out["launches"] = launch_counts()
+        out["stream_cache"] = stream_executor.cache_stats()
+    prefetch.clear_cache()
+    stream_executor.clear()
+
+
+def _bits(*tensors) -> list:
+    return [t.detach().cpu().numpy().tobytes() if isinstance(t, torch.Tensor) else np.asarray(t).tobytes()
+            for t in tensors]
+
+
+def sx_dedup(dev) -> dict:
+    """(a) A validation loader's own copies of the training chunks: host
+    L-BFGS (10 iterations, tolerance 0, λ = 1) over main_f's first 4
+    chunks, the validation objective's value over content-equal fresh
+    host arrays taken at every iteration (bench.py ``bench_x_stream``'s
+    design at config A's width)."""
+    t0 = time.perf_counter()
+    chunks = f_chunks(dev, keep=SX_CHUNKS)
+    val_chunks = [{k: np.array(v) for k, v in c.items()} for c in chunks]
+    data_s = time.perf_counter() - t0
+    loss, cfg = LOSSES["logistic"], OptimizerConfig(max_iterations=SX_ITERATIONS, tolerance=0.0)
+    rec = dict(n=F_CHUNK * len(chunks), d=F_D, chunks=len(chunks), host_bytes=sum(
+        a.nbytes for c in chunks for a in c.values()), data_s=data_s, arms={})
+    outs = {}
+    for knob in STREAM_EXECUTOR_ARMS:
+        with executor_arm(knob) as arm:
+            train = StreamingGLMObjective(chunks, loss, F_D, l2_weight=1.0, intercept_index=F_D - 1, device=dev)
+            val = StreamingGLMObjective(val_chunks, loss, F_D, l2_weight=1.0, intercept_index=F_D - 1, device=dev)
+            visits = []
+            res = host_lbfgs_minimize(train, np.zeros(F_D), cfg,
+                                      iteration_callback=lambda it, w, v: visits.append(val.value(w)))
+            del train, val
+        key = "stream.cache.miss_bytes" if knob == "1" else "prefetch.cache.miss_bytes"
+        c = arm["counters"]
+        outs[knob] = _bits(res.w, *visits)
+        rec["arms"][knob] = dict(
+            wall_s=arm["wall_s"], iterations=res.iterations, objective_passes=res.objective_passes,
+            validation_values=len(visits), transfer_bytes=c.get(key, 0.0),
+            hit_bytes=c.get("stream.cache.hit_bytes", 0.0),
+            shared_hit_bytes=c.get("stream.cache.shared_hit_bytes", 0.0),
+            consumer_wait_s=c.get("prefetch.consumer_wait_s", 0.0), counters=c, launches=arm["launches"],
+            k1_launches=arm["launches"]["fused_value_grad"], stream_cache=arm["stream_cache"])
+    off, on = rec["arms"]["0"], rec["arms"]["1"]
+    rec["bitwise"] = outs["0"] == outs["1"] and len(outs["0"]) == SX_ITERATIONS + 1
+    rec["on_over_off_transfer"] = on["transfer_bytes"] / off["transfer_bytes"]
+    # K1 runs the training passes (value and gradient); a validation value is a matrix-vector product
+    rec["k1_launches_ok"] = all(a["k1_launches"] == len(chunks) * a["objective_passes"] > 0
+                                for a in rec["arms"].values())
+    # the content fingerprint's first sight of a fresh 512 MiB chunk (the
+    # memo makes every later pass free): one core, warm host memory
+    fresh = np.array(chunks[0]["X"])
+    t0 = time.perf_counter()
+    stream_executor._content_fingerprint(fresh)
+    fp_s = time.perf_counter() - t0
+    rec["fingerprint"] = dict(bytes=fresh.nbytes, seconds=fp_s, gb_s=fresh.nbytes / fp_s / 1e9)
+    stream_executor.clear()
+    return rec
+
+
+def sx_sparse(dev) -> dict:
+    """(b) A2's data in main_a2_streamed's chunks (2^16 rows, tiled for
+    K3): the streamed objective's value and gradient, its Hessian
+    diagonal and its scores, and the module scorer."""
+    n, d, k = A2
+    batch, _ = sparse_problem(dev, n, d, k, seed=1)
+    chunks = sparse_chunks(batch.indices.to(torch.int32).cpu().numpy(), batch.values.cpu().numpy(),
+                           batch.labels.cpu().numpy(), A2_CHUNK)
+    del batch
+    w = np.random.default_rng(5).normal(size=d).astype(np.float32) * 0.1
+    tile_cache.clear()
+    rec, outs = dict(n=n, d=d, chunks=len(chunks), chunk_rows=A2_CHUNK, arms={}), {}
+    for knob in STREAM_EXECUTOR_ARMS:
+        with executor_arm(knob) as arm:
+            obj = StreamingGLMObjective(chunks, LOSSES["logistic"], d, device=dev)
+            v, g = obj.value_and_grad(w)
+            outs[knob] = _bits(v, g, obj.hessian_diag(w), obj.stream_scores(w, n),
+                               stream_scores(chunks, w, n, num_features=d, device=dev))
+            tiled = obj.tiled
+            del obj
+        rec["arms"][knob] = dict(wall_s=arm["wall_s"], tiled=tiled, launches=arm["launches"], counters=arm["counters"],
+                                 k3_launches={dname: arm["launches"][f"sparse_{dname}"] for dname in st.DIRECTIONS})
+    tile_cache.clear()
+    rec["bitwise"] = outs["0"] == outs["1"]
+    k3 = [a["k3_launches"] for a in rec["arms"].values()]
+    rec["k3_launches_ok"] = (all(a["tiled"] for a in rec["arms"].values()) and k3[0] == k3[1]
+                             and min(k3[0].values()) >= len(chunks))
+    return rec
+
+
+def sx_game(dev) -> dict:
+    """(c) Config E at bench depth out of core (as main_e_streamed_compact
+    runs it: L-BFGS random effects, 2 outer iterations): the fixed
+    effect's passes ("objective"), the bucket gathers ("re_gather") and the
+    per-visit scoring ("re_scores")."""
+    n, effects = E_STREAMED_COMPACT
+    batch, _ = game_problem(dev, n, effects, seed=4)
+    host = streamed_game_data(batch)
+    del batch
+    config = game_config(effects, 2, re_solver="LBFGS")
+    rec, fits = dict(n=n, effects={k: list(v) for k, v in effects.items()}, arms={}), {}
+    for knob in STREAM_EXECUTOR_ARMS:
+        with executor_arm(knob) as arm:
+            fit = fit_streamed(host, config, dev)
+            scores = score_streamed(fit["model"], host, dev)
+        c = arm["counters"]
+        fits[knob] = (fit, scores)
+        rec["arms"][knob] = dict(
+            wall_s=arm["wall_s"], launches=fit["launches"], fixed_objective_passes=fit["fixed_objective_passes"],
+            re_gather_items=c.get("stream.re_gather.items", 0.0),
+            re_scores_hit_bytes=c.get("stream.re_scores.hit_bytes", 0.0),
+            re_scores_miss_bytes=c.get("stream.re_scores.miss_bytes", 0.0), counters=c)
+    (f0, s0), (f1, s1) = fits["0"], fits["1"]
+    rec["models"] = models_agree(f1["model"], f0["model"])
+    rec["bitwise"] = rec["models"]["bitwise"] and torch.equal(s0, s1)
+    rec["k1_launches_ok"] = all(a["launches"]["fused_value_grad"] == a["fixed_objective_passes"] > 0
+                                for a in rec["arms"].values())
+    prefetch.clear_cache()
+    return rec
+
+
+def sx_cv(dev) -> dict:
+    """(d) ``cross_validate_glm`` with k = 2 at config D's shape (2^18 x 65,
+    logistic, L-BFGS 20 iterations, λ = 1): the folds' ingest ("cv")."""
+    from photon_ml_tpu_torch.supervised.cross_validation import cross_validate_glm
+
+    batch, _ = game_problem(dev, SX_CV_ROWS, {}, seed=4)
+    glm = batch.batch_for("global")
+    rec, outs = dict(n=glm.num_rows, d=D_FIXED + 1, k=2, arms={}), {}
+    for knob in STREAM_EXECUTOR_ARMS:
+        with executor_arm(knob) as arm:
+            res = cross_validate_glm(glm, TaskType.LOGISTIC_REGRESSION, k=2, regularization_weights=[1.0],
+                                     optimizer_config=OptimizerConfig(max_iterations=20, tolerance=1e-7),
+                                     intercept_index=D_FIXED, device=dev)
+        outs[knob] = (res.metric_values, _bits(res.final.models[1.0].coefficients.means))
+        rec["arms"][knob] = dict(wall_s=arm["wall_s"], metric_values=res.metric_values[1.0],
+                                 launches=arm["launches"], cv_items=arm["counters"].get("stream.cv.items", 0.0))
+    rec["bitwise"] = outs["0"] == outs["1"]
+    rec["k1_launches_ok"] = all(a["launches"]["fused_value_grad"] > 0 for a in rec["arms"].values())
+    return rec
+
+
+def serve_with_refresh(dev, model: GameModel, requests: list, items: list) -> tuple[np.ndarray, dict, float]:
+    """The requests through a ``MicroWindowServer`` on this thread while a
+    second thread runs ``refresh_stream`` over ``items``: (scores, the
+    refreshed random-effect coefficients, the refresh's seconds)."""
+    import threading
+
+    out, refreshed, errors, seconds = [], {}, [], [0.0]
+
+    def refresh():
+        try:
+            t0 = time.perf_counter()
+            m, _ = refresh_stream(model, items, OptimizerConfig(max_iterations=20, tolerance=1e-7), l2_weight=1.0,
+                                  device=dev)
+            torch.cuda.synchronize()
+            seconds[0] = time.perf_counter() - t0
+            refreshed.update({cid: sub.coefficients for cid, sub in m.models.items()
+                              if isinstance(sub, RandomEffectModel)})
+        except BaseException as e:  # raised again on this thread
+            errors.append(e)
+
+    server = MicroWindowServer(HotModelStore(model, device=dev), on_scores=lambda w, s: out.append(s),
+                               max_batch=SERVE_MAX_BATCH, max_wait_ms=1e9)
+    worker = threading.Thread(target=refresh)
+    worker.start()
+    for r in requests:
+        server.submit(r)
+    server.drain()
+    worker.join()
+    if errors:
+        raise errors[0]
+    return np.concatenate(out), refreshed, seconds[0]
+
+
+def sx_serve(dev, serve_root: str) -> dict:
+    """(e) main_serve's published model: 1,000 requests through the
+    micro-window server while a second thread refreshes 16 users
+    (``refresh_stream``, "refresh", priority 10 under the serve windows'
+    100)."""
+    from photon_ml_tpu_torch.cli import serve as serve_cli
+
+    model, _ = serve_cli._load(serve_root, dev)
+    requests = serve_cli._synthetic_requests(model, SX_SERVE_REQUESTS, 1.0, 0)
+    user_cid = next(cid for cid, sub in model.models.items() if isinstance(sub, RandomEffectModel))
+    d_re = model[user_cid].coefficients.shape[1]
+    gen = np.random.default_rng(31)
+    items = []
+    for e in range(SX_REFRESH_ENTITIES):
+        k = 8 + e
+        items.append((user_cid, 97 * e, gen.normal(size=(k, d_re)).astype(np.float32),
+                      (gen.uniform(size=k) < 0.5).astype(np.float32), 0.1 * gen.normal(size=k).astype(np.float32),
+                      None))
+    rec, outs = dict(requests=len(requests), entities=len(items), arms={}), {}
+    for knob in STREAM_EXECUTOR_ARMS:
+        with executor_arm(knob) as arm:
+            scores, refreshed, refresh_s = serve_with_refresh(dev, model, requests, items)
+        outs[knob] = (scores.tobytes(), _bits(*(refreshed[c] for c in sorted(refreshed))))
+        rec["arms"][knob] = dict(wall_s=arm["wall_s"], refresh_s=refresh_s, launches=arm["launches"],
+                                 refresh_yields=arm["counters"].get("stream.refresh.yields", 0.0),
+                                 refresh_items=arm["counters"].get("stream.refresh.items", 0.0))
+    rec["bitwise"] = outs["0"] == outs["1"]
+    return rec
+
+
+def run_stream_executor(dev, card: str, serve_root: str) -> dict:
+    """main_stream_executor: arms (a)-(e), each knob off then on."""
+    rec = dict(card=card)
+    for name, fn in (("dedup", lambda: sx_dedup(dev)), ("sparse", lambda: sx_sparse(dev)),
+                     ("game", lambda: sx_game(dev)), ("cv", lambda: sx_cv(dev)),
+                     ("serve_refresh", lambda: sx_serve(dev, serve_root))):
+        t0 = time.perf_counter()
+        rec[name] = fn()
+        rec[name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    arms = [a for part in ("dedup", "sparse", "game", "cv", "serve_refresh") for a in rec[part]["arms"].values()]
+    rec["launches"] = {k: sum(a["launches"][k] for a in arms) for k in launch_counts()}
+    rec["gates"] = {
+        "dedup_bitwise": rec["dedup"]["bitwise"],
+        "dedup_fewer_bytes": rec["dedup"]["arms"]["1"]["transfer_bytes"] < rec["dedup"]["arms"]["0"]["transfer_bytes"],
+        "dedup_k1_launches": rec["dedup"]["k1_launches_ok"],
+        "sparse_bitwise": rec["sparse"]["bitwise"],
+        "sparse_k3_launches": rec["sparse"]["k3_launches_ok"],
+        "game_bitwise": rec["game"]["bitwise"],
+        "game_k1_launches": rec["game"]["k1_launches_ok"],
+        "game_executor_ran": rec["game"]["arms"]["1"]["re_gather_items"] > 0
+        and rec["game"]["arms"]["1"]["re_scores_hit_bytes"] > 0,
+        "cv_bitwise": rec["cv"]["bitwise"] and rec["cv"]["arms"]["1"]["cv_items"] == 2,
+        "cv_k1_launches": rec["cv"]["k1_launches_ok"],
+        "serve_refresh_bitwise": rec["serve_refresh"]["bitwise"]
+        and rec["serve_refresh"]["arms"]["1"]["refresh_items"] == SX_REFRESH_ENTITIES,
+    }
+    return rec
+
+
 # main_a2_streamed_fe_shard: the children's arms, by process count
 A2_FE_ITERATIONS = 10
 A2_FE_CHILD_ARMS = {2: {"nnz": {}, "width": {"PHOTON_FE_SPLIT_WEIGHT": "width"}}, 4: {"nnz": {}}}
@@ -3556,8 +3879,10 @@ def start_children(mode: str, work: str, args: dict, dev, env: dict | None = Non
                    ports: int = 1, allow_kill: tuple = (), timeout_s: float = CHILD_TIMEOUT_S,
                    rejoin: bool = False) -> dict:
     """``run_children``'s first half: the children started, not waited on
-    (their limit counts from here). ``join_children`` waits for them.
-    ``rejoin``: each child's ``PHOTON_REJOIN_CMD`` is its own command, so a
+    (their limit counts from here). ``join_children`` waits for them. Each
+    child forks from ``start_forkserver``'s server where it runs, its output
+    in a ``_child_logs-*`` directory of the checkout. ``rejoin``: each child is
+    the ``--child`` command instead, and its ``PHOTON_REJOIN_CMD``, so a
     plan's ``rejoin`` op re-execs it; a child in ``allow_kill`` then leaves
     the record of its re-exec'd process, which holds its pipes."""
     _cuda.load()
@@ -3568,14 +3893,101 @@ def start_children(mode: str, work: str, args: dict, dev, env: dict | None = Non
     child_env.update(env or {})
     fresh = [_free_port() for _ in range(ports)]
     spec = json.dumps(dict(args, work=work, port=fresh[0], ports=fresh, processes=n, device=dev.type))
+    logs = tempfile.mkdtemp(prefix="_child_logs-", dir=ROOT)
     procs = []
     for r in range(n):
         argv = [sys.executable, os.path.abspath(__file__), "--child", mode, str(r), spec]
-        procs.append(subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
-                                      env=dict(child_env, PHOTON_REJOIN_CMD=json.dumps(argv)) if rejoin
-                                      else child_env))
+        if rejoin or not start_forkserver():
+            # a command: a rejoin plan re-execs it, and the rejoiner inherits its pipes
+            procs.append(subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                          cwd=ROOT, env=dict(child_env, PHOTON_REJOIN_CMD=json.dumps(argv)) if rejoin
+                                          else child_env))
+        else:
+            procs.append(_ForkedChild(mode, r, json.loads(spec), child_env,
+                                      (os.path.join(logs, f"{r}.out"), os.path.join(logs, f"{r}.err"))))
     return dict(mode=mode, work=work, n=n, procs=procs, allow_kill=allow_kill, timeout_s=timeout_s,
-                deadline=time.monotonic() + timeout_s, rejoin=rejoin)
+                deadline=time.monotonic() + timeout_s, rejoin=rejoin, logs=logs)
+
+
+_FORKSERVER: bool | None = None  # whether the server runs; None: not started yet
+
+
+def start_forkserver() -> bool:
+    """Start the server that forks every ``start_children`` child: it imports
+    this script once (torch and the port: 11 s on the card's host), in the
+    background, and never touches the card, so each child forks ready and
+    only makes its own CUDA context. False, for the whole run, where it
+    cannot start (its socket's path under ``TMPDIR`` too long for a Unix
+    socket): children are then the ``--child`` command and the writers
+    spawned processes, as slow as before it."""
+    global _FORKSERVER
+    if _FORKSERVER is None:
+        from multiprocessing import forkserver
+
+        try:
+            multiprocessing.get_context("forkserver").set_forkserver_preload(
+                [os.path.splitext(os.path.basename(__file__))[0]])
+            forkserver.ensure_running()
+            _FORKSERVER = True
+        except OSError as e:
+            print(f"chip_smoke: no forkserver ({e}); children start as commands", file=sys.stderr)
+            _FORKSERVER = False
+    return _FORKSERVER
+
+
+def _forked_child(mode: str, rank: int, spec: dict, env: dict, logs: tuple[str, str]) -> None:
+    """A forked child's body: its standard output and error to ``logs``, the
+    environment the ``--child`` command would get (torch's thread count
+    from its ``OMP_NUM_THREADS``, which OpenMP read when the server loaded
+    it), then ``_child``."""
+    for fd, path in zip((1, 2), logs):
+        f = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(f, fd)
+        os.close(f)
+    os.environ.clear()
+    os.environ.update(env)
+    if env.get("OMP_NUM_THREADS"):
+        torch.set_num_threads(int(env["OMP_NUM_THREADS"]))
+    os.chdir(ROOT)
+    if torch.cuda._is_in_bad_fork():
+        raise RuntimeError("the forkserver touched CUDA before it forked this child")
+    sys.exit(_child(mode, rank, spec))
+
+
+class _ForkedChild:
+    """One ``--child`` process forked from ``start_forkserver``'s server,
+    with the part of ``subprocess.Popen`` that ``join_children`` reads: its
+    exit code (a negative signal number when killed) and its output."""
+
+    def __init__(self, mode: str, rank: int, spec: dict, env: dict, logs: tuple[str, str]):
+        import importlib
+
+        ctx = multiprocessing.get_context("forkserver")
+        # by the module's name, so the server's import of it runs the child
+        target = importlib.import_module(os.path.splitext(os.path.basename(__file__))[0])._forked_child
+        self.logs = logs
+        self.proc = ctx.Process(target=target, args=(mode, rank, spec, env, logs), name=f"{mode}-{rank}")
+        self.proc.start()
+
+    @property
+    def returncode(self) -> int | None:
+        return self.proc.exitcode
+
+    def poll(self) -> int | None:
+        return self.proc.exitcode
+
+    def kill(self) -> None:
+        self.proc.kill()
+
+    def communicate(self, timeout: float | None = None) -> tuple[str, str]:
+        self.proc.join(timeout)
+        if self.proc.exitcode is None:
+            raise subprocess.TimeoutExpired(self.proc.name, timeout)
+        out = []
+        for path in self.logs:
+            with open(path, errors="replace") as f:
+                out.append(f.read())
+        return tuple(out)
 
 
 def join_children(kids: dict) -> list[dict]:
@@ -3595,6 +4007,7 @@ def join_children(kids: dict) -> list[dict]:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+        shutil.rmtree(kids["logs"], ignore_errors=True)
         pid_file = os.path.join(kids["work"], "rejoiner.pid")
         if kids.get("rejoin") and os.path.exists(pid_file):
             try:
@@ -3621,7 +4034,8 @@ def join_children(kids: dict) -> list[dict]:
 
 def run_children(mode: str, work: str, args: dict, dev, env: dict | None = None, n: int = 2,
                  ports: int = 1, allow_kill: tuple = (), timeout_s: float = CHILD_TIMEOUT_S) -> list[dict]:
-    """``n`` processes of this script in ``--child`` mode, one gloo group on
+    """``n`` processes of this script's ``_child`` (forked ready from
+    ``start_forkserver``'s server), one gloo group on
     a fresh loopback port (``ports`` fresh ports for children that form a
     group several times, in the spec's ``ports``); each writes
     ``work/rank<r>.json``. The kernels are built by the parent before
@@ -3983,6 +4397,8 @@ def _child(mode: str, rank: int, spec: dict) -> int:
                    launches=launch_counts(), counters={k: v["value"] for k, v in counters.items()},
                    fixed_objective_passes=sum(t.objective_passes for t in res.trackers["fixed"]),
                    times=dict(times))
+    elif mode == "native_read_parity":  # host only
+        out.update(native_read_parity(spec["data_work"], GAME_CLI["effects"]))
     else:
         raise ValueError(f"unknown child mode {mode!r}")
     shutdown_multihost()
@@ -4501,7 +4917,7 @@ def profile_streamed(data: StreamedGameData, config: GameTrainingConfig, dev) ->
     ``profile_e`` reads it."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]  # the card's activity alone, as profile_e
     # steps: 0-2 iteration 0's visits (set-up in step 0), 3-5 iteration 1's
     with profile(activities=acts, schedule=schedule(wait=2, warmup=1, active=3, repeat=1)) as prof:
         fit = fit_streamed(data, config, dev, on_mark=prof.step)
@@ -5830,6 +6246,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    start_forkserver()  # its import of this script runs beside the build
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     name, power_limit = [s.strip() for s in smi.split(",", 1)]
@@ -5960,6 +6377,9 @@ def main() -> int:
     failed = [name for name, ok in serve_gates.items() if not ok]
     if failed:
         raise AssertionError(f"main_serve failed: {failed}")
+    # main_serve's model, published for main_stream_executor's serving arm
+    sx_work = tempfile.mkdtemp(prefix="_stream_executor-", dir=ROOT)
+    publish_game_model(e_model, os.path.join(sx_work, "published"))
     # main_e over 4 shards of the card, then over two processes of 2 shards each
     e_sharded, e_sharded_model = run_e_sharded(dev, e_batch, e_data, e_rec, e_model)
     emit("main_e_sharded", **e_sharded)
@@ -6116,6 +6536,12 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_faults failed: {failed}")
+    # the GAME drivers' part files, written by four host processes beside
+    # the in-process phases up to the drivers block (none of them times a
+    # collective against a timeout, as main_faults does)
+    work = tempfile.mkdtemp(prefix="_game_cli-", dir=ROOT)
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    pending_cli = start_game_cli_data(dev, work)
     solvers, solver_models = agreement_e_solvers(dev, agree_e["fused"])
     emit("agreement_e_solvers", **solvers)
     ev = solvers["lbfgs"]["evaluators"]
@@ -6159,13 +6585,15 @@ def main() -> int:
 
     # main path GAME CLI: the train and score drivers on Avro part files,
     # every read on the native decoder; then the drivers with every option
-    work = tempfile.mkdtemp(prefix="_game_cli-", dir=ROOT)
     try:
-        data = game_cli_data(dev, work)
-        native = native_read_parity(data)
+        data = finish_game_cli_data(pending_cli)
+        # the native decoder against the Python codec, in a forked process
+        # beside the drivers
+        parity_kids = start_children("native_read_parity", os.path.join(work, "native_read"), {"data_work": work},
+                                     dev, n=1)
         with recording_decoders() as decoders:
             cli = run_game_cli(dev, data)
-        cli.update(native_read=native, decoders=decoders)
+        cli["decoders"] = decoders
         with recording_decoders() as decoders:
             full = run_game_cli_full(dev, data, os.path.join(work, "glm", "best", "model.avro"))
         full["decoders"] = decoders
@@ -6183,6 +6611,7 @@ def main() -> int:
         telemetry = run_telemetry(dev, data, cli, glm_streamed)
         # the tools and the run report on those files and runs
         tools = run_tools(dev, data, smi)
+        native = cli["native_read"] = join_children(parity_kids)[0]
         del data
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6318,6 +6747,15 @@ def main() -> int:
     ) if not ok]
     if failed:
         raise AssertionError(f"main_f failed: {failed}")
+    # every streamed consumer with PHOTON_STREAM_EXECUTOR off, then on
+    try:
+        sx = run_stream_executor(dev, smi, os.path.join(sx_work, "published"))
+    finally:
+        shutil.rmtree(sx_work, ignore_errors=True)
+    emit("main_stream_executor", **sx)
+    failed = [name for name, ok in sx["gates"].items() if not ok]
+    if failed:
+        raise AssertionError(f"main_stream_executor failed: {failed}")
     f_multi = run_f_multihost(dev, f_rec, smi)
     emit("main_f_multihost", **f_multi)
     failed = [name for name, ok in (
@@ -6371,7 +6809,7 @@ def main() -> int:
         raise AssertionError(f"main_a2_streamed_fe_shard failed: {failed}")
     streamed_paths = {"main_f": f_rec, "main_b_streamed": b_streamed, "main_a2_streamed": a2_streamed,
                       "main_glm_streamed_cli": glm_streamed, "main_e_streamed": e_streamed,
-                      "main_game_cli_streamed": game_streamed}
+                      "main_game_cli_streamed": game_streamed, "main_stream_executor": sx}
     # out of core across processes
     parallel_streamed_paths = {"main_e_streamed_multihost": e_streamed_multi,
                                "main_e_streamed_multihost_re_shard": e_streamed_rs,

@@ -170,7 +170,7 @@ from photon_ml_tpu_torch.game.random_effect import (
 )
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.obs import REGISTRY, emit_event, span
-from photon_ml_tpu_torch.ops import prefetch
+from photon_ml_tpu_torch.ops import prefetch, stream_executor
 from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, sparse_chunks, stream_scores
@@ -1194,8 +1194,11 @@ class StreamedGameTrainer:
 
         accounting = DeferredLaunchAccounting()
         pending = None
-        prefetch.require_stream_executor_off("re_gather")
-        for i, put in enumerate(prefetch.prefetch_iter(len(units), gather)):
+        # under the executor the gathers are scheduled only: each visit's
+        # offsets are new, so caching a bucket by content would not pay
+        units_iter = (stream_executor.stream("re_gather", len(units), gather)
+                      if stream_executor.stream_executor_enabled() else prefetch.prefetch_iter(len(units), gather))
+        for i, put in enumerate(units_iter):
             members, ent_ids, _, cols, spec, pad = units[i]
             dev = unit_dev[i]
             hashed = spec is not None and spec.hash_dim is not None
@@ -1246,7 +1249,9 @@ class StreamedGameTrainer:
         """Scores w_{e(i)}·x_i of the shard's rows, chunk by chunk (one
         gathered (c, d) block of coefficient rows on the card at a time).
         The feature slices are the same storage every visit and come
-        through the chunk cache; the gathered rows are copied afresh."""
+        through the chunk cache (the executor's arbiter, stream
+        "re_scores", under ``PHOTON_STREAM_EXECUTOR=1``); the gathered rows
+        are copied afresh."""
         m = len(shard.ent_local)
         if m == 0:
             return np.zeros(0, np.float32)
@@ -1257,15 +1262,20 @@ class StreamedGameTrainer:
         dev = self.device
         consumer = prefetch.consumer_stream(dev)
 
+        executor = stream_executor.stream_executor_enabled()
+
         def prepare(i):
             lo, hi = ranges[i]
             w_rows = prefetch.device_put({"W": W[shard.ent_local[lo:hi]]}, dev, consumer)
-            feat = prefetch.cached_device_put({k: v[lo:hi] for k, v in cols.items()}, dev, consumer)
+            slices = {k: v[lo:hi] for k, v in cols.items()}
+            feat = (stream_executor.cached_device_put("re_scores", slices, dev, consumer) if executor
+                    else prefetch.cached_device_put(slices, dev, consumer))
             return w_rows, feat
 
         outs = []
-        prefetch.require_stream_executor_off("re_scores")
-        for w_rows, feat in prefetch.prefetch_iter(len(ranges), prepare):
+        items = (stream_executor.stream("re_scores", len(ranges), prepare) if executor
+                 else prefetch.prefetch_iter(len(ranges), prepare))
+        for w_rows, feat in items:
             prefetch.wait(w_rows, consumer)
             prefetch.wait(feat, consumer)
             if dense:

@@ -487,6 +487,14 @@ def read_avro_schema(path: str) -> dict:
 
 def read_avro_file(path: str) -> tuple[dict, list[dict]]:
     """Read an Avro object container file → (schema, records)."""
+    schema, blocks = _avro_blocks(path)
+    return schema, [rec for block in blocks for rec in block]
+
+
+def _avro_blocks(path: str) -> tuple[dict, Iterator[list[dict]]]:
+    """An Avro object container file's schema (its header read and checked
+    at once) and its records one block at a time: each block decoded, then
+    its sync marker checked."""
     with open(path, "rb") as f:
         data = f.read()
     meta, pos = _read_header(path, data)
@@ -499,24 +507,26 @@ def read_avro_file(path: str) -> tuple[dict, list[dict]]:
         raise EOFError("truncated Avro data")
     read = _compile(schema, _reader)
 
-    records: list[dict] = []
-    while pos < len(data):
-        count, pos = _read_long(data, pos)
-        size, pos = _read_long(data, pos)
-        end = pos + size
-        if end + SYNC_SIZE > len(data):
-            raise EOFError("truncated Avro data")
-        block = data[pos:end]
-        if codec == "deflate":
-            block = zlib.decompress(block, wbits=-15)
-        p = 0
-        for _ in range(count):
-            rec, p = read(block, p)
-            records.append(rec)
-        if data[end:end + SYNC_SIZE] != sync:
-            raise ValueError(f"{path}: sync marker mismatch (corrupt file)")
-        pos = end + SYNC_SIZE
-    return schema, records
+    def blocks(pos: int) -> Iterator[list[dict]]:
+        while pos < len(data):
+            count, pos = _read_long(data, pos)
+            size, pos = _read_long(data, pos)
+            end = pos + size
+            if end + SYNC_SIZE > len(data):
+                raise EOFError("truncated Avro data")
+            block = data[pos:end]
+            if codec == "deflate":
+                block = zlib.decompress(block, wbits=-15)
+            records, p = [], 0
+            for _ in range(count):
+                rec, p = read(block, p)
+                records.append(rec)
+            if data[end:end + SYNC_SIZE] != sync:
+                raise ValueError(f"{path}: sync marker mismatch (corrupt file)")
+            yield records
+            pos = end + SYNC_SIZE
+
+    return schema, blocks(pos)
 
 
 def list_avro_files(path: str) -> list[str]:
@@ -534,4 +544,6 @@ def iter_avro_directory(path: str) -> Iterator[dict]:
     """Every record of ``path``: a file or a directory of part files (like
     the reference's HDFS output directories)."""
     for p in list_avro_files(path):
-        yield from read_avro_file(p)[1]
+        # a block at a time, so a reader that stops early decodes no more
+        for block in _avro_blocks(p)[1]:
+            yield from block

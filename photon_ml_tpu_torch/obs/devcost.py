@@ -107,7 +107,11 @@ def _knob_raw_state() -> tuple:
     import photon_ml_tpu_torch.game.random_effect as re_mod
     import photon_ml_tpu_torch.ops.prefetch as pf
     import photon_ml_tpu_torch.ops.sparse_tiled as st
+    import photon_ml_tpu_torch.ops.stream_executor as se
     import photon_ml_tpu_torch.parallel.placement as pl
+    import photon_ml_tpu_torch.serve.refresh as sv_refresh
+    import photon_ml_tpu_torch.serve.router as sv_router
+    import photon_ml_tpu_torch.serve.store as sv_store
 
     env = os.environ
     return (
@@ -120,6 +124,12 @@ def _knob_raw_state() -> tuple:
         env.get("PHOTON_RE_COMBINE"), env.get("PHOTON_RE_SPLIT"), env.get("PHOTON_RE_DEVICE_SPLIT"),
         env.get("PHOTON_RE_SPLIT_WEIGHT"), re_mod.RE_COMBINE, pl.RE_SPLIT, pl.RE_DEVICE_SPLIT, pl.RE_SPLIT_WEIGHT,
         env.get("PHOTON_FE_SHARD"), env.get("PHOTON_FE_SPLIT_WEIGHT"), im.FE_SHARD, im.FE_SPLIT_WEIGHT,
+        env.get("PHOTON_RE_REPLAN_IMBALANCE"), pl.REPLAN_IMBALANCE,
+        env.get("PHOTON_SERVE_HOT_BYTES"), env.get("PHOTON_SERVE_MAX_BATCH"), env.get("PHOTON_SERVE_MAX_WAIT_MS"),
+        env.get("PHOTON_SERVE_REFRESH_EVERY"), sv_store.SERVE_HOT_BYTES, sv_router.SERVE_MAX_BATCH,
+        sv_router.SERVE_MAX_WAIT_MS, sv_refresh.SERVE_REFRESH_EVERY,
+        env.get("PHOTON_STREAM_EXECUTOR"), env.get("PHOTON_STREAM_PRIORITY"), env.get("PHOTON_STREAM_SHARE"),
+        se.STREAM_EXECUTOR, se.STREAM_PRIORITY, se.STREAM_SHARE,
     )
 
 

@@ -466,7 +466,7 @@ def summarize_run(path: str, records: list[dict] | None = None) -> dict:
                 "serve.replan.migrations"
             )
     # streaming executor (stream.cache.* / stream.<consumer>.*,
-    # ROADMAP queue 1 item 9): the multi-tenant arbiter's byte traffic —
+    # ops/stream_executor.py): the multi-tenant arbiter's byte traffic —
     # "stream.cache.hit_bytes" / "stream.cache.miss_bytes" /
     # "stream.cache.shared_hit_bytes" (hits on entries ANOTHER consumer
     # admitted: the cross-stream dedup) / "stream.cache.evictions" — and

@@ -254,6 +254,15 @@ def _shutdown_locked() -> None:
         record["chunk_cache"] = prefetch.cache_stats()
     except Exception:
         pass
+    try:
+        from photon_ml_tpu_torch.ops import stream_executor
+
+        # only once a stream went through the arbiter: an executor-off
+        # run's run_end record keeps its keys
+        if stream_executor.traffic_seen():
+            record["stream_cache"] = stream_executor.cache_stats()
+    except Exception:
+        pass
     sink.emit(record)
     sink.close()
 
@@ -265,9 +274,11 @@ def _knob_snapshot() -> dict:
     (``PHOTON_DISABLE_FUSED``), K1's layout rule (the widths up to which
     it takes the tiles layout), K3's tile size, and the random-effect
     knobs under the reference's names (the schedule knobs, the projection,
-    entity sharding, the split, its weight, the device split and the
-    combine), and the fixed effect's feature-range sharding and its
-    split axis."""
+    entity sharding, the split, its weight, the re-plan threshold, the
+    device split and the combine), the fixed effect's feature-range
+    sharding and its split axis, the serving knobs (the hot set's budget,
+    the window's batch and wait, the refresh trigger) and the stream
+    executor's switch, priorities and shares."""
     knobs: dict = {}
     try:
         from photon_ml_tpu_torch.ops import prefetch
@@ -314,6 +325,7 @@ def _knob_snapshot() -> dict:
 
         knobs["re_shard"] = int(bool(placement.re_shard_enabled()))
         knobs["re_split"] = int(placement.re_split_factor())
+        knobs["re_replan_imbalance"] = float(placement.replan_imbalance_threshold())
         knobs["re_device_split"] = int(bool(placement.re_device_split_enabled()))
         knobs["re_split_weight"] = str(placement.re_split_weight())
     except Exception:
@@ -323,6 +335,25 @@ def _knob_snapshot() -> dict:
 
         knobs["fe_shard"] = int(bool(index_map.fe_shard_enabled()))
         knobs["fe_split_weight"] = str(index_map.fe_split_weight())
+    except Exception:
+        pass
+    try:
+        from photon_ml_tpu_torch.serve import refresh as serve_refresh
+        from photon_ml_tpu_torch.serve import router as serve_router
+        from photon_ml_tpu_torch.serve import store as serve_store
+
+        knobs["serve_hot_bytes"] = int(serve_store.serve_hot_budget_bytes())
+        knobs["serve_max_batch"] = int(serve_router.serve_max_batch())
+        knobs["serve_max_wait_ms"] = float(serve_router.serve_max_wait_ms())
+        knobs["serve_refresh_every"] = int(serve_refresh.serve_refresh_every())
+    except Exception:
+        pass
+    try:
+        from photon_ml_tpu_torch.ops import stream_executor
+
+        knobs["stream_executor"] = int(bool(stream_executor.stream_executor_enabled()))
+        knobs["stream_priority"] = str(stream_executor.stream_priority_spec())
+        knobs["stream_share"] = str(stream_executor.stream_share_spec())
     except Exception:
         pass
     return knobs

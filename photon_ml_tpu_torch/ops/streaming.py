@@ -63,7 +63,7 @@ from photon_ml_tpu_torch.data.index_map import FeatureRangePlan, fe_shard_enable
 from photon_ml_tpu_torch.obs import devcost
 from photon_ml_tpu_torch.normalization import NormalizationContext, no_normalization
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
-from photon_ml_tpu_torch.ops import prefetch, tile_cache
+from photon_ml_tpu_torch.ops import prefetch, stream_executor, tile_cache
 from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch, SparseBatch, densify
 from photon_ml_tpu_torch.ops.fused import supports_fused
 from photon_ml_tpu_torch.ops.glm import GLMObjective, fused_disabled, reg_curvature, reg_delta, reg_term
@@ -433,18 +433,28 @@ class StreamingGLMObjective:
     def _slim(self, c: dict) -> dict:
         return {k: c[k] for k in _TILED_STREAM_KEYS} if self._tile_layouts is not None else c
 
-    def _batches(self):
+    def _batches(self, consumer_name: str = "objective"):
         """Each chunk's batch on the card, in order, with its copies waited
         for on the calling thread's stream. The chunks come through the
         chunk cache at every prefetch depth; depth 0 prepares each one on
-        this thread."""
+        this thread. With ``PHOTON_STREAM_EXECUTOR=1`` they come through
+        the executor's stream ``consumer_name`` and its arbiter, keyed by
+        content and the feature range, so another stream's resident copy
+        of the same content serves them."""
         src, dev = self._source(), self.device
         consumer = prefetch.consumer_stream(dev)
+        if stream_executor.stream_executor_enabled():
+            def prepare(i):
+                return stream_executor.cached_device_put(consumer_name, self._slim(src[i]), dev, consumer,
+                                                         context=self._fe_range)
 
-        def prepare(i):
-            return prefetch.cached_device_put(self._slim(src[i]), dev, consumer)
+            items = stream_executor.stream(consumer_name, len(src), prepare)
+        else:
+            def prepare(i):
+                return prefetch.cached_device_put(self._slim(src[i]), dev, consumer)
 
-        for i, cur in enumerate(prefetch.prefetch_iter(len(src), prepare)):
+            items = prefetch.prefetch_iter(len(src), prepare)
+        for i, cur in enumerate(items):
             prefetch.wait(cur, consumer)
             yield self._chunk_batch(cur, i)
 
@@ -453,7 +463,6 @@ class StreamingGLMObjective:
         """One pass: ``kernel(batch, chunk index)`` on every chunk in order,
         folded by ``accumulate``. ``cost_label`` records the first chunk's
         analytic work (``cost(batch)``) under device-cost capture."""
-        prefetch.require_stream_executor_off("objective")
         acc = init
         if not self.chunks:  # a process without rows streams nothing
             return acc
@@ -573,13 +582,12 @@ class StreamingGLMObjective:
         reference: scoring rows needs no collective. Sharded, ``w`` is the
         range segment and the scores are the combined margins, the same on
         every process (a collective)."""
-        prefetch.require_stream_executor_off("scores")
         w = self._w(w)
         if self._fe_range is not None:
             if not self.chunks:
                 return np.zeros(num_rows, np.float32)
             return self._fe_combine_margins((w,))[0].cpu().numpy()[:num_rows]
-        outs = [b.matvec(w) for b in self._batches()]
+        outs = [b.matvec(w) for b in self._batches("scores")]
         if not outs:
             return np.zeros(num_rows, np.float32)
         return torch.cat(outs).cpu().numpy()[:num_rows]
@@ -721,8 +729,10 @@ def stream_scores(chunks: Sequence[dict], w, num_rows: int, num_features: int | 
     process-wide cache. Under ``PHOTON_FE_SHARD`` (sparse chunks with
     ``num_features``) ``w`` is the full vector, each process scores its
     range, and the margins are summed over the processes: a collective,
-    the same scores on every process."""
-    prefetch.require_stream_executor_off("scores")
+    the same scores on every process. With ``PHOTON_STREAM_EXECUTOR=1``
+    raw chunks come through the executor's arbiter (stream "scores"),
+    where another stream's resident copy of the same content serves them;
+    tiled chunks keep the layout cache."""
     dev = resolve_device(device)
     if not chunks:
         return np.zeros(num_rows, np.float32)
@@ -741,11 +751,15 @@ def stream_scores(chunks: Sequence[dict], w, num_rows: int, num_features: int | 
         w = (w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w))[lo:hi]
     w = torch.as_tensor(w, dtype=torch.float32, device=dev)
     consumer = prefetch.consumer_stream(dev)
+    executor = stream_executor.stream_executor_enabled()
 
     def prepare(i):
         c = chunks[i]
         if not tiled:
-            put = prefetch.device_put(prefetch.pack_host_chunk(c), dev, consumer)
+            if executor:
+                put = stream_executor.cached_device_put("scores", c, dev, consumer, context=fe_range)
+            else:
+                put = prefetch.device_put(prefetch.pack_host_chunk(c), dev, consumer)
             return _to_batch(put, num_features), put
         shape, h_idx, h_val = _chunk_structure_fingerprint(c["indices"], c["values"])
         tb = tile_cache.tiled_layout_for(_host_sparse_batch(c, num_features),
@@ -754,7 +768,9 @@ def stream_scores(chunks: Sequence[dict], w, num_rows: int, num_features: int | 
         return tb, None
 
     outs = []
-    for b, put in prefetch.prefetch_iter(len(chunks), prepare):
+    items = (stream_executor.stream("scores", len(chunks), prepare) if executor
+             else prefetch.prefetch_iter(len(chunks), prepare))
+    for b, put in items:
         prefetch.wait(put, consumer)  # scoring stays on this thread, in chunk order
         outs.append(b.matvec(w))
     scores = torch.cat(outs).cpu().numpy()

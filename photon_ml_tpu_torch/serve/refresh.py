@@ -39,7 +39,7 @@ from photon_ml_tpu_torch.config import OptimizerConfig
 from photon_ml_tpu_torch.game.models import GameModel, RandomEffectModel
 from photon_ml_tpu_torch.obs import span
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
-from photon_ml_tpu_torch.ops import prefetch
+from photon_ml_tpu_torch.ops import prefetch, stream_executor
 from photon_ml_tpu_torch.ops.batch import DenseBatch
 from photon_ml_tpu_torch.ops.glm import make_lane_objective
 from photon_ml_tpu_torch.ops.losses import loss_for_task
@@ -64,6 +64,9 @@ def _next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length() if n > 1 else 1
 
 
+_EVENT_KEYS = ("X", "labels", "offsets", "weights")  # DenseBatch's field order
+
+
 def entity_event_batch(X: np.ndarray, labels: np.ndarray, offsets: np.ndarray | None = None,
                        weights: np.ndarray | None = None, device=None) -> DenseBatch:
     """One entity's event rows as a bucket, padded to a power of two with
@@ -71,6 +74,12 @@ def entity_event_batch(X: np.ndarray, labels: np.ndarray, offsets: np.ndarray | 
     the caller asks for another): the tensor both the refresh and its
     offline comparator solve."""
     dev = resolve_device(device)
+    host = _event_arrays(X, labels, offsets, weights)
+    return DenseBatch(*(torch.from_numpy(host[k]).to(dev) for k in _EVENT_KEYS))
+
+
+def _event_arrays(X, labels, offsets, weights) -> dict:
+    """``entity_event_batch``'s padded host arrays."""
     X = np.asarray(X, np.float32)
     n, d = X.shape
     C = _next_pow2(n)
@@ -81,7 +90,7 @@ def entity_event_batch(X: np.ndarray, labels: np.ndarray, offsets: np.ndarray | 
     if offsets is not None:
         op[:n] = np.asarray(offsets, np.float32)
     wp[:n] = 1.0 if weights is None else np.asarray(weights, np.float32)
-    return DenseBatch(*(torch.from_numpy(a).to(dev) for a in (Xp, yp, op, wp)))
+    return dict(zip(_EVENT_KEYS, (Xp, yp, op, wp)))
 
 
 def _lane_problem(re_model: RandomEffectModel, entity: int, batch: DenseBatch, l2_weight: float):
@@ -152,12 +161,32 @@ def refresh_stream(model: GameModel, items: list, config: OptimizerConfig, l2_we
     ``RefreshBuffer`` reported ready this window). The model threads
     through the items in order, so the result is the per-item
     ``refresh_entity`` loop's. Returns ``(updated_model, [result, ...])``.
-    ``PHOTON_STREAM_EXECUTOR=1`` (the reference's executor-prefetched
-    variant) raises: ROADMAP queue 1 item 9."""
-    prefetch.require_stream_executor_off("refresh")
+
+    With ``PHOTON_STREAM_EXECUTOR=1`` the items are the executor's stream
+    "refresh" (priority 10: an active serve window holds it to one item
+    ahead): a worker pads item i+k on the host and issues its copy on the
+    copy stream, and the solve waits for that copy's event; solves stay on
+    this thread in item order, so the model is the loop's, bit for bit."""
+    if not stream_executor.stream_executor_enabled():
+        batches = (entity_event_batch(X, y, offsets=off, weights=w, device=device)
+                   for _, _, X, y, off, w in items)
+    else:
+        dev = resolve_device(device)
+        consumer = prefetch.consumer_stream(dev)
+
+        def prepare(i):
+            _, _, X, y, off, w = items[i]
+            return prefetch.device_put(_event_arrays(X, y, off, w), dev, consumer)
+
+        def waited(puts):
+            for put in puts:
+                prefetch.wait(put, consumer)
+                yield DenseBatch(*(put[k] for k in _EVENT_KEYS))
+
+        batches = waited(stream_executor.stream("refresh", len(items), prepare))
     results = []
-    for cid, entity, X, y, off, w in items:
-        batch = entity_event_batch(X, y, offsets=off, weights=w, device=device)
+    for i, batch in enumerate(batches):
+        cid, entity = items[i][0], items[i][1]
         model, res = refresh_entity(model, cid, entity, batch, config, l2_weight=l2_weight, l1_weight=l1_weight,
                                     chunk=chunk)
         results.append(res)

@@ -30,11 +30,13 @@ the scores travel home the same way. A peer lost mid-step raises
 Telemetry: counters ``serve.requests``, ``serve.windows`` and
 ``serve.forwarded``, timer ``serve.window_s``, histogram
 ``serve.window.occupancy`` (the fill of each window), span
-``serve/window`` a flush.
+``serve/window`` a flush. With ``PHOTON_STREAM_EXECUTOR=1`` a flush
+scores inside ``stream_executor.active_stream("serve")``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -45,7 +47,7 @@ import torch
 from photon_ml_tpu_torch.game.models import FixedEffectModel, RandomEffectModel
 from photon_ml_tpu_torch.obs import span
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
-from photon_ml_tpu_torch.ops import prefetch
+from photon_ml_tpu_torch.ops import stream_executor
 from photon_ml_tpu_torch.ops.batch import DenseBatch
 from photon_ml_tpu_torch.serve.store import HotModelStore
 
@@ -182,10 +184,14 @@ class MicroWindowServer:
         return self._occupancy_sum / self.windows if self.windows else 0.0
 
     def _flush(self, window: list[ScoreRequest]) -> None:
-        prefetch.require_stream_executor_off("serve")
         del self._pending[: len(window)]
         t0 = self._clock()
-        with span("serve/window", requests=len(window)):
+        # under the executor the serve stream is active while the window
+        # scores: a stream of lower priority preparing meanwhile (a
+        # refresh, a background scorer) tops up to depth 1 until it lands
+        marker = (stream_executor.active_stream("serve") if stream_executor.stream_executor_enabled()
+                  else contextlib.nullcontext())
+        with marker, span("serve/window", requests=len(window)):
             scores = _score_window(self.store, window, self.max_batch())
         dt = self._clock() - t0
         occupancy = len(window) / self.max_batch()

@@ -8,7 +8,8 @@ from the batch on its device (one row gather per fold), through
 ``ops/prefetch.py`` at depth at most 1: the next fold's gather and layout
 run on a worker thread while this fold trains, and training and scoring
 stay on the calling thread in fold order, so the result is bitwise the
-synchronous one.
+synchronous one. With ``PHOTON_STREAM_EXECUTOR=1`` the stream executor
+schedules the ingest (stream "cv", the same depth).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from photon_ml_tpu_torch._device import check_device
 from photon_ml_tpu_torch.config import OptimizerConfig, RegularizationContext
 from photon_ml_tpu_torch.evaluation import DEFAULT_EVALUATOR_BY_TASK, make_evaluator
 from photon_ml_tpu_torch.obs import span
-from photon_ml_tpu_torch.ops import prefetch
+from photon_ml_tpu_torch.ops import prefetch, stream_executor
 from photon_ml_tpu_torch.ops.batch import Batch, DenseBatch, SparseBatch, optimize_batch_layout
 from photon_ml_tpu_torch.supervised.training import GLMTrainingResult, train_glm
 from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
@@ -114,11 +115,13 @@ def cross_validate_glm(
             train_rows = np.setdiff1d(perm, folds[i], assume_unique=True)
             return _ingest_training_batch(_row_select(batch, train_rows))
 
-    # one fold ahead at most: each item is a near-full training batch
-    prefetch.require_stream_executor_off("cv")
-    for i, train_batch in enumerate(
-        prefetch.prefetch_iter(len(folds), ingest_fold, depth=min(prefetch.prefetch_depth(), 1))
-    ):
+    # one fold ahead at most: each item is a near-full training batch. The
+    # executor schedules the ingest only: a fold's batch is new, nothing to cache
+    cv_depth = min(prefetch.prefetch_depth(), 1)
+    fold_iter = (stream_executor.stream("cv", len(folds), ingest_fold, depth=cv_depth)
+                 if stream_executor.stream_executor_enabled()
+                 else prefetch.prefetch_iter(len(folds), ingest_fold, depth=cv_depth))
+    for i, train_batch in enumerate(fold_iter):
         with span("cv/fold", fold=i, k=k):
             result = train_glm(
                 train_batch, task, optimizer_config=optimizer_config, regularization=regularization,

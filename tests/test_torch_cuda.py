@@ -1386,3 +1386,156 @@ def test_serve_driver_runs_on_the_card_by_default(dev, tmp_path, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["device"] == "cuda" and line["requests"] == 2000
     assert line["fingerprint"] == model_fingerprint(model) and 0.0 < line["hot_hit_rate"] < 1.0
+
+
+# ---------------------------------------------------------------------------
+# the stream executor (PHOTON_STREAM_EXECUTOR=1): its arbiter on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def stream_executor_clean(dev, monkeypatch):
+    from photon_ml_tpu_torch.ops import prefetch
+    from photon_ml_tpu_torch.ops import stream_executor as se
+
+    monkeypatch.setenv("PHOTON_CHUNK_CACHE_BUDGET", str(1 << 30))
+    monkeypatch.delenv("PHOTON_STREAM_SHARE", raising=False)
+    prefetch.clear_cache()
+    se.clear()
+    yield se
+    prefetch.clear_cache()
+    se.clear()
+
+
+def test_stream_executor_shared_entry_outlives_its_release_on_a_second_stream(dev, stream_executor_clean):
+    """A second consumer's shared hit is read by a kernel on its own stream
+    while both holders release the entry and the copy stream allocates the
+    same bytes and overwrites them: the kernel still reads the chunk
+    (``record_stream`` of the hit), bitwise the run with no release."""
+    from photon_ml_tpu_torch.ops import prefetch
+
+    se = stream_executor_clean
+    X = np.random.default_rng(0).normal(size=(1 << 14, 512)).astype(np.float32)  # 32 MiB
+
+    def read(release: bool):
+        se.clear()
+        mine, other = torch.cuda.Stream(device=dev), torch.cuda.Stream(device=dev)
+        with torch.cuda.stream(mine):
+            first = se.cached_device_put("objective", {"X": X}, dev, mine)
+            prefetch.wait(first, mine)
+        with torch.cuda.stream(other):
+            hit = se.cached_device_put("scores", {"X": np.array(X)}, dev, other)  # fresh copy: a shared hit
+            prefetch.wait(hit, other)
+            assert se.cache_stats()["shared_hits"] == 1 and hit["X"] is first["X"]
+            torch.cuda._sleep(200_000_000)  # the read waits behind a long kernel
+            got = hit["X"].sum(dim=0)
+        junk = None
+        if release:
+            del first, hit
+            se.drop_entries()
+            with torch.cuda.stream(prefetch._copy_stream(dev)):  # the next chunk's copy: the same bytes
+                junk = torch.empty((1 << 14, 512), device=dev).fill_(float("nan"))
+        torch.cuda.synchronize()
+        return got, junk
+
+    held, _ = read(False)
+    released, junk = read(True)
+    assert torch.equal(released, held) and not torch.isnan(held).any() and bool(torch.isnan(junk).all())
+
+
+def test_stream_executor_devices_are_kept_apart(dev, stream_executor_clean):
+    """The same content on the card and on the CPU: two entries, each
+    charged to its device; "cuda" and "cuda:<index>" name one card."""
+    se = stream_executor_clean
+    a = np.arange(4096, dtype=np.float32)
+    on_card = se.cached_device_put("re_scores", {"X": a}, "cuda")
+    on_cpu = se.cached_device_put("re_scores", {"X": a}, "cpu")
+    again = se.cached_device_put("re_scores", {"X": np.array(a)}, f"cuda:{torch.cuda.current_device()}")
+    torch.cuda.synchronize()
+    assert on_card["X"].device.type == "cuda" and on_cpu["X"].device.type == "cpu"
+    assert again["X"] is on_card["X"]
+    s = se.cache_stats()
+    assert (s["entries"], s["misses"], s["hits"], s["bytes"]) == (2, 2, 1, 2 * a.nbytes)
+    assert {k[-1] for k in se._entries} == {"cpu", f"cuda:{torch.cuda.current_device()}"}
+
+
+def test_stream_executor_quiesce_leaves_the_arbiter_empty(dev, stream_executor_clean):
+    from photon_ml_tpu_torch.ops import prefetch
+    from photon_ml_tpu_torch.ops.losses import loss_for_task
+    from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks
+    from photon_ml_tpu_torch.types import TaskType
+
+    se = stream_executor_clean
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(4096, 65)).astype(np.float32)
+    y = (rng.uniform(size=4096) < 0.5).astype(np.float32)
+    import os
+
+    os.environ["PHOTON_STREAM_EXECUTOR"] = "1"
+    try:
+        obj = StreamingGLMObjective(dense_chunks(X, y, 1024), loss_for_task(TaskType.LOGISTIC_REGRESSION), 65,
+                                    device=dev)
+        v1 = obj.value(np.zeros(65, np.float32))
+        assert se.cache_stats()["entries"] > 0
+        prefetch.quiesce()
+        s = se.cache_stats()
+        assert (s["entries"], s["bytes"], s["charges"]) == (0, 0, {})
+        assert se.priority_of("objective") == 50
+        assert torch.equal(obj.value(np.zeros(65, np.float32)), v1)  # refilled after the quiesce
+    finally:
+        del os.environ["PHOTON_STREAM_EXECUTOR"]
+
+
+def serve_and_refresh(dev, model, requests: list, items: list, max_batch: int = 32):
+    """Requests through a ``MicroWindowServer`` on this thread while a
+    second thread runs ``refresh_stream`` over ``items``: (scores, the
+    refreshed model's random-effect coefficients)."""
+    import threading
+
+    from photon_ml_tpu_torch.config import OptimizerConfig
+    from photon_ml_tpu_torch.serve.refresh import refresh_stream
+    from photon_ml_tpu_torch.serve.router import MicroWindowServer
+    from photon_ml_tpu_torch.serve.store import HotModelStore
+
+    out, refreshed, errors = [], {}, []
+
+    def refresh():
+        try:
+            m, _ = refresh_stream(model, items, OptimizerConfig(max_iterations=20, tolerance=1e-7), l2_weight=1.0,
+                                  device=dev)
+            refreshed.update({cid: sub.coefficients for cid, sub in m.models.items() if hasattr(sub, "num_entities")})
+        except BaseException as e:  # raised again on this thread
+            errors.append(e)
+
+    server = MicroWindowServer(HotModelStore(model, device=dev), on_scores=lambda w, s: out.append(s),
+                               max_batch=max_batch, max_wait_ms=1e9)
+    worker = threading.Thread(target=refresh)
+    worker.start()
+    for r in requests:
+        server.submit(r)
+    server.drain()
+    worker.join()
+    if errors:
+        raise errors[0]
+    return np.concatenate(out), refreshed
+
+
+def test_stream_executor_serve_and_refresh_at_once(dev, stream_executor_clean, monkeypatch):
+    """Windows scored while a refresh stream prepares on the executor's
+    workers: knob on bitwise knob off, scores and refreshed rows."""
+    import test_torch_serve as ts
+
+    model = ts._port_model(ts._arrays(E=300, d_fe=65, d_re=8, seed=2), "cuda")
+    reqs = ts._requests(model, 1000, seed=3)
+    rng = np.random.default_rng(4)
+    items = []
+    for e in range(16):
+        X, y = ts._events(k=8 + e, d=8, seed=40 + e)
+        items.append(("per_member", 7 * e, X, y, rng.normal(size=8 + e).astype(np.float32), None))
+    arms = {}
+    for knob in ("0", "1"):
+        monkeypatch.setenv("PHOTON_STREAM_EXECUTOR", knob)
+        monkeypatch.setenv("PHOTON_PREFETCH_DEPTH", "2")
+        arms[knob] = serve_and_refresh(dev, model, reqs, items)
+    (s0, m0), (s1, m1) = arms["0"], arms["1"]
+    assert np.array_equal(s0.view(np.uint32), s1.view(np.uint32))
+    assert m0.keys() == m1.keys() == {"per_member"}
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)

@@ -142,6 +142,25 @@ class TestCapture:
         assert [r["knobs"]["kernel_dtype"] for r in recs] == ["f32", "bf16"]
         assert recs[0]["arg_sig"] == recs[1]["arg_sig"]
 
+    @pytest.mark.parametrize("env,value,key,want", [
+        ("PHOTON_RE_REPLAN_IMBALANCE", "1.5", "re_replan_imbalance", 1.5),
+        ("PHOTON_SERVE_HOT_BYTES", "4096", "serve_hot_bytes", 4096),
+        ("PHOTON_SERVE_MAX_BATCH", "7", "serve_max_batch", 7),
+        ("PHOTON_SERVE_MAX_WAIT_MS", "0.5", "serve_max_wait_ms", 0.5),
+        ("PHOTON_SERVE_REFRESH_EVERY", "3", "serve_refresh_every", 3),
+        ("PHOTON_STREAM_EXECUTOR", "1", "stream_executor", 1),
+        ("PHOTON_STREAM_PRIORITY", "refresh=5", "stream_priority", "refresh=5"),
+        ("PHOTON_STREAM_SHARE", "serve=0.5", "stream_share", "serve=0.5"),
+    ])
+    def test_serve_replan_and_stream_knobs_key_the_memo(self, env, value, key, want, monkeypatch):
+        """A flip of any of these knobs changes the memo's key and the knobs
+        a capture records."""
+        monkeypatch.delenv(env, raising=False)
+        before, knobs = devcost._knob_raw_state(), devcost.knob_key()
+        monkeypatch.setenv(env, value)
+        assert devcost._knob_raw_state() != before
+        assert devcost.knob_key()[key] == want != knobs[key]
+
     def test_gating_env_overrides_sink(self, tmp_path, monkeypatch):
         devcost.reset()
         X, y, off, w, u = _k1_inputs()

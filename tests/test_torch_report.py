@@ -10,7 +10,10 @@ its ``TelemetrySink`` for hand-made records), then read by both packages:
   rebuilt here, plus one run and one fleet that fill every section of the
   summary and of the fleet view (serving, the stream executor, placement,
   projection, re-planning, device cost, memory, recovery);
-- a run the port's own streamed GAME trainer writes.
+- a run the port's own streamed GAME trainer writes;
+- a stream-executor run of each package on the same chunks, whose stream
+  sections (arbiter bytes, entries, charges, each consumer's counters)
+  are equal.
 
 ``summarize_run``, ``summarize_fleet`` and every gate-metric extractor give
 the reference's values exactly, as plain Python values; ``format_summary``
@@ -315,6 +318,65 @@ def _write_full_fleet(directory, run_id="G1", processes=3):
                      {"event": "rejoin", "t": T0 + 2.9, "iteration": 2, "rejoined": [3], "group": [0, 1, 2, 3],
                       "migrated": {"per_user": 11}, "role": "survivor"}]
         _write(directory, recs + [end], run_id, shard=pidx or None)
+
+
+def _executor_run(directory, pkg: str) -> str:
+    """One run of ``pkg``'s stream executor on a fixed chunk set: a
+    streamed objective's two passes (the first chunks evicted by the
+    budget), a scorer over fresh copies of the chunks (shared hits) and a
+    refresh stream held to depth 1 under an active serve window (yields).
+    Depth 0 for the puts keeps the arbiter's order, so its counts, the
+    run's knob-on deterministic."""
+    import importlib
+
+    se = importlib.import_module(f"{pkg}.ops.stream_executor")
+    pf = importlib.import_module(f"{pkg}.ops.prefetch")
+    st = importlib.import_module(f"{pkg}.ops.streaming")
+    tel = importlib.import_module(f"{pkg}.obs")
+    task = importlib.import_module(f"{pkg}.types").TaskType.LOGISTIC_REGRESSION
+    loss = importlib.import_module(f"{pkg}.ops.losses").loss_for_task(task)
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(300, 6)).astype(np.float32)
+    y = (rng.uniform(size=300) < 0.5).astype(np.float32)
+    chunks = st.dense_chunks(X, y, 64)
+    copies = [{k: np.array(v) for k, v in c.items()} for c in chunks]
+    w = np.full(6, 0.1, np.float32)
+    kw = {"device": "cpu"} if pkg == "photon_ml_tpu_torch" else {}
+    pf.clear_cache()
+    se.clear()
+    tel.REGISTRY.reset(prefix="stream")
+    path = tel.configure(str(directory / pkg), run_id="X_" + pkg)
+    try:
+        obj = st.StreamingGLMObjective(chunks, loss, 6, **kw)
+        obj.value(w)
+        obj.value(w)
+        st.stream_scores(copies, w, 300, **kw)
+        with se.active_stream("serve"):
+            list(se.stream("refresh", 6, lambda i: i, depth=2))
+    finally:
+        tel.shutdown()
+        pf.clear_cache()
+        se.clear()
+    return path
+
+
+def test_stream_section_of_a_port_run_equals_the_references_run(tmp_path, monkeypatch):
+    monkeypatch.setenv("PHOTON_STREAM_EXECUTOR", "1")
+    monkeypatch.setenv("PHOTON_PREFETCH_DEPTH", "0")
+    monkeypatch.setenv("PHOTON_CHUNK_CACHE_BUDGET", "8192")
+    port, ref = _executor_run(tmp_path, "photon_ml_tpu_torch"), _executor_run(tmp_path, "photon_ml_tpu")
+    ps, _ = _summaries(port)
+    rs = R.summarize_run(ref)
+
+    def timeless(section):  # wait seconds are the one measured value
+        return dict(section, consumers={k: {m: v for m, v in c.items() if m != "wait_s"}
+                                        for k, c in section["consumers"].items()})
+
+    assert timeless(ps["stream"]) == timeless(rs["stream"])
+    st = ps["stream"]
+    assert st["cache_evictions"] > 0 and st["cache_shared_hit_bytes"] > 0 and st["cache_entries"] > 0
+    assert st["consumers"]["refresh"]["yields"] > 0 and "wait_s" in st["consumers"]["refresh"]
+    assert "stream" in P.format_summary(ps)
 
 
 # ---------------------------------------------------------------------------

@@ -29,9 +29,9 @@ Held to:
   fingerprints;
 - the driver: its JSON line (the reference's keys), a bare model
   directory, a hot swap, CUDA unless the CPU is asked for;
-- ``PHOTON_STREAM_EXECUTOR=1`` raises naming ROADMAP queue 1 item 9 at
-  every consumer the reference routes through its executor; ``0`` gives
-  the unset bits;
+- ``PHOTON_STREAM_EXECUTOR``: ``0`` gives the unset bits at every
+  consumer the reference routes through its executor, and the knob
+  parses strictly (knob on: ``tests/test_torch_stream_executor.py``);
 - two gloo processes: cross-owner requests over the exchange, then a
   peer killed mid-step, the survivor's degrade and retried step, scores
   bitwise the batch scorer at the window shape throughout.
@@ -739,7 +739,7 @@ class TestDriver:
 
 
 # ---------------------------------------------------------------------------
-# PHOTON_STREAM_EXECUTOR: the reference's executor branches, not ported
+# PHOTON_STREAM_EXECUTOR off: the pre-executor branches, the unset bits
 # ---------------------------------------------------------------------------
 def _executor_consumers():
     """Each consumer the reference routes through its stream executor,
@@ -782,14 +782,6 @@ def _executor_consumers():
     }
 
 
-@pytest.mark.parametrize("consumer", ["objective", "objective_scores", "scores", "cv", "serve", "refresh"])
-def test_stream_executor_on_raises_item_9(consumer, monkeypatch):
-    calls = _executor_consumers()
-    monkeypatch.setenv("PHOTON_STREAM_EXECUTOR", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        calls[consumer]()
-
-
 def _bits(out):
     if isinstance(out, torch.Tensor):
         return [out.numpy().tobytes()]
@@ -814,13 +806,15 @@ def test_stream_executor_off_is_bitwise_unset(consumer, monkeypatch):
 
 
 def test_stream_executor_knob_parses_strictly(monkeypatch):
-    from photon_ml_tpu_torch.ops.prefetch import require_stream_executor_off
+    from photon_ml_tpu_torch.ops.stream_executor import stream_executor_enabled
 
     monkeypatch.setenv("PHOTON_STREAM_EXECUTOR", "yes")
     with pytest.raises(ValueError):
-        require_stream_executor_off("serve")
+        stream_executor_enabled()
     monkeypatch.setenv("PHOTON_STREAM_EXECUTOR", "")
-    require_stream_executor_off("serve")
+    assert stream_executor_enabled() is False
+    monkeypatch.setenv("PHOTON_STREAM_EXECUTOR", "1")
+    assert stream_executor_enabled() is True
 
 
 # ---------------------------------------------------------------------------

@@ -143,6 +143,93 @@ class TestSinkAndSchema:
         assert knobs["k1_tiles_max_features_f32"] == 124 and knobs["fused"] == 1
         assert "groups_per_step" not in knobs  # the TPU kernel's schedule is not the port's
 
+    def test_run_start_knobs_carry_the_references_keys(self, telemetry, tmp_path, monkeypatch):
+        """A port run's knobs are a reference run's, less the TPU kernel's
+        schedule constants, plus the port's own kernel knobs."""
+        from photon_ml_tpu import obs as jobs
+        from photon_ml_tpu.obs.report import load_run as jload_run
+
+        def knobs_of(configure, shutdown, load, name):
+            path = configure(str(tmp_path / name))
+            shutdown()
+            return load(path)[0]["knobs"]
+
+        obs.shutdown()
+        port_keys = set(knobs_of(obs.configure, obs.shutdown, load_run, "port"))
+        ref_keys = set(knobs_of(jobs.configure, jobs.shutdown, jload_run, "ref"))
+        tpu_schedule = {"groups_per_step", "segments_per_dma", "groups_per_run", "pipeline_segments"}
+        port_only = {"k3_tile_nnz", "fused", "k1_tiles_max_features_f32", "k1_tiles_max_features_bf16"}
+        assert port_keys - port_only == ref_keys - tpu_schedule
+        assert {"re_replan_imbalance", "serve_hot_bytes", "serve_max_batch", "serve_max_wait_ms",
+                "serve_refresh_every", "stream_executor", "stream_priority", "stream_share"} <= port_keys
+        monkeypatch.setenv("PHOTON_SERVE_MAX_BATCH", "7")
+        monkeypatch.setenv("PHOTON_RE_REPLAN_IMBALANCE", "1.5")
+        monkeypatch.setenv("PHOTON_STREAM_EXECUTOR", "1")
+        monkeypatch.setenv("PHOTON_STREAM_SHARE", "serve=0.5")
+        knobs = knobs_of(obs.configure, obs.shutdown, load_run, "port2")
+        assert (knobs["serve_max_batch"], knobs["re_replan_imbalance"]) == (7, 1.5)
+        assert (knobs["stream_executor"], knobs["stream_share"]) == (1, "serve=0.5")
+
+    @pytest.mark.parametrize("executor", ["0", "1"])
+    def test_stream_executor_names_equal_the_references(self, executor, tmp_path, monkeypatch):
+        """One streamed run in each package: the executor's spans and
+        ``stream.*`` names are the reference's; with the knob off neither
+        run_end has ``stream_cache``."""
+        from photon_ml_tpu import obs as jobs
+        from photon_ml_tpu.obs.metrics import REGISTRY as JREGISTRY
+        from photon_ml_tpu.obs.report import load_run as jload_run
+        from photon_ml_tpu.ops import prefetch as jprefetch
+        from photon_ml_tpu.ops import stream_executor as jse
+        from photon_ml_tpu.ops.losses import loss_for_task as jloss
+        from photon_ml_tpu.ops.streaming import StreamingGLMObjective as JObjective
+        from photon_ml_tpu.ops.streaming import stream_scores as jscores
+        from photon_ml_tpu.types import TaskType as JTask
+        from photon_ml_tpu_torch.ops import prefetch, stream_executor
+        from photon_ml_tpu_torch.ops.losses import loss_for_task
+        from photon_ml_tpu_torch.ops.streaming import StreamingGLMObjective, dense_chunks, stream_scores
+
+        X, y = _glm_arrays()
+        chunks = dense_chunks(X, y, 64)
+        copies = [{k: np.array(v) for k, v in c.items()} for c in chunks]
+        w = np.full(X.shape[1], 0.1, np.float32)
+        monkeypatch.setenv("PHOTON_STREAM_EXECUTOR", executor)
+        monkeypatch.setenv("PHOTON_PREFETCH_DEPTH", "2")
+        monkeypatch.setenv("PHOTON_CHUNK_CACHE_BUDGET", str(1 << 20))
+
+        def run(configure, shutdown, registry, pf, se, objective, scores, loss, load):
+            pf.clear_cache()
+            se.clear()
+            registry.reset(prefix="stream")
+            path = configure(str(tmp_path / loss.__class__.__module__.split(".")[0]))
+            try:
+                obj = objective(chunks, loss, X.shape[1], **({"device": "cpu"} if pf is prefetch else {}))
+                obj.value(w)
+                obj.value(w)
+                scores(copies, w, len(y), **({"device": "cpu"} if pf is prefetch else {}))
+                with se.active_stream("serve"):
+                    list(se.stream("refresh", 6, lambda i: i))
+            finally:
+                shutdown()
+            records = load(path)
+            end = records[-1]
+            metric = {kind: sorted(k for k in end["metrics"][kind] if k.startswith("stream."))
+                      for kind in ("counters", "gauges", "timers")}
+            spans = sorted({r["name"] for r in records if r["event"] == "span" and r["name"].startswith("stream/")})
+            return metric, spans, end.get("stream_cache")
+
+        obs.shutdown()
+        got = run(obs.configure, obs.shutdown, obs.REGISTRY, prefetch, stream_executor, StreamingGLMObjective,
+                  stream_scores, loss_for_task(ttypes.TaskType.LOGISTIC_REGRESSION), load_run)
+        want = run(jobs.configure, jobs.shutdown, JREGISTRY, jprefetch, jse, JObjective, jscores,
+                   jloss(JTask.LOGISTIC_REGRESSION), jload_run)
+        assert got[:2] == want[:2]
+        if executor == "0":
+            assert got[2] is None and want[2] is None and got[1] == ["stream/refresh"]
+        else:
+            assert got[2] == want[2] and got[2]["shared_hits"] > 0
+            assert {"stream/objective", "stream/scores", "stream/refresh"} == set(got[1])
+            assert "stream.refresh.yields" in got[0]["counters"]
+
     def test_nonfinite_floats_stay_strict_json(self, telemetry):
         with obs.span("optim/diverged", loss=float("nan")):
             obs.emit_event("optim_iter", it=1, loss=float("nan"), grad_norm=float("inf"), step=-float("inf"))
