@@ -17,7 +17,13 @@ Run from the root of a checkout. It builds the CUDA kernels from
 2. build: the kernels compiled with nvcc for sm_90a (one nvcc per source,
    started together), with the spill lines of each source's report, and
    beside them the native library (the Avro decoder, the index store)
-   with g++;
+   with g++; then main_lint: ``photon-ml-tpu-torch lint`` over this
+   checkout (exit 0 with its baseline, no finding; the suppressed and
+   waived counts printed), the live knob snapshot's keys against the
+   registry's, and each snapshot knob set to a valid non-default value,
+   which must move ``devcost._knob_raw_state()`` and the snapshot (each
+   variable restored after), with the phase's seconds beside the card's
+   name and power limit;
 3. parity: K1 (fused value+gradient) and K2 (fused Hessian-vector)
    against their plain PyTorch versions on the card, at the headline shape
    (n = 2^20, d = 512, bfloat16 X), config B's (n = 2^20, d = 256,
@@ -580,7 +586,10 @@ from photon_ml_tpu_torch.io.model_io import load_game_model, load_glm, model_fin
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.native import NativeIndexStore
 from photon_ml_tpu_torch.native import build as native_build
-from photon_ml_tpu_torch.obs import REGISTRY
+from photon_ml_tpu_torch.analysis import registry as lint_registry
+from photon_ml_tpu_torch.analysis import runner as lint_runner
+from photon_ml_tpu_torch.obs import REGISTRY, devcost
+from photon_ml_tpu_torch.obs import sink as obs_sink
 from photon_ml_tpu_torch.obs.report import fleet_run_paths, latest_run, load_run, validate_run
 from photon_ml_tpu_torch.ops import _cuda, fused, prefetch, stream_executor, tile_cache
 from photon_ml_tpu_torch.ops import sparse_tiled as st
@@ -670,6 +679,53 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def run_lint(smi: str) -> dict:
+    """main_lint: the port's static analysis over this checkout must exit
+    0 with no finding; then, live on the card, the knob snapshot's keys
+    must be the registry's (each snapshot knob's key and the declared
+    constants), and each snapshot knob set to its registered non-default
+    value must move both ``devcost._knob_raw_state()`` and its snapshot
+    key (the variable restored after)."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isfile(os.path.join(root, "photon_ml_tpu_torch", "__init__.py")):
+        raise AssertionError(f"main_lint: {root} holds no photon_ml_tpu_torch/ to lint")
+    doc = lint_runner.lint(root)
+    if doc["baseline"] != "lint_baseline_torch.json":
+        raise AssertionError(f"main_lint: {root} holds no lint_baseline_torch.json")
+    if doc["exit"] != 0 or doc["findings"]:
+        raise AssertionError("main_lint: photon-ml-tpu-torch lint found "
+                             + "; ".join(f"{f['file']}:{f['line']} [{f['code']}] {f['scope']}"
+                                         for f in doc["findings"][:20]))
+    base = obs_sink._knob_snapshot()
+    if set(base) != lint_registry.sink_keys():
+        raise AssertionError(f"main_lint: snapshot keys {sorted(set(base) ^ lint_registry.sink_keys())} differ "
+                             "from the registry's")
+    stuck = []
+    for k in lint_registry.KNOBS:
+        if k.sink_key is None:
+            continue
+        old = os.environ.get(k.name)
+        raw = devcost._knob_raw_state()
+        os.environ[k.name] = k.alt
+        try:
+            if devcost._knob_raw_state() == raw or obs_sink._knob_snapshot().get(k.sink_key) == base[k.sink_key]:
+                stuck.append(k.name)
+        finally:
+            if old is None:
+                del os.environ[k.name]
+            else:
+                os.environ[k.name] = old
+    if stuck:
+        raise AssertionError(f"main_lint: setting {stuck} did not move both the devcost fingerprint and the snapshot")
+    if obs_sink._knob_snapshot() != base:
+        raise AssertionError("main_lint: the snapshot did not come back with the variables restored")
+    return dict(findings=len(doc["findings"]), suppressed=doc["suppressed"], waived=doc["waived"],
+                passes=doc["passes"], baseline=doc["baseline"], snapshot_keys=len(base),
+                knobs_moved=sum(1 for k in lint_registry.KNOBS if k.sink_key), seconds=time.perf_counter() - t0,
+                device=smi)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -6265,6 +6321,7 @@ def main() -> int:
     }
     emit("build", seconds=time.perf_counter() - t0, library=lib.name, spill_lines=spills,
          native_library=native_lib.name)
+    emit("main_lint", **run_lint(smi))
 
     parity(dev)
     k3_err = parity_k3(dev)

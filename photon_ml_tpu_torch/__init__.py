@@ -13,7 +13,9 @@ entity lanes in ``optim/newton.py``); and the GAME train and score drivers
 on Avro files (``io/``, ``checkpoint.py``, ``cli/train.py``,
 ``cli/score.py``), with the tools around them (the feature indexing and
 name-term drivers, the native index store, the run report and its gate,
-and the umbrella command ``photon-ml-tpu-torch``, ``cli/main.py``).
+and the umbrella command ``photon-ml-tpu-torch``, ``cli/main.py``), and
+the static analysis of the port's own tree (``analysis/``,
+``photon-ml-tpu-torch lint``).
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.

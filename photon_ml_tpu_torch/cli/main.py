@@ -4,8 +4,8 @@
 Subcommand dispatch over the port's drivers — each stays runnable as
 ``python -m photon_ml_tpu_torch.cli.<driver>`` too; this wrapper only maps
 ``photon-ml-tpu-torch <subcommand> ...`` onto the same ``main(argv)``
-hooks. The reference's ``lint`` checks the reference's own source tree and has
-no counterpart here.
+hooks. The commands are the reference's: ``lint`` runs the port's own
+checker (``photon_ml_tpu_torch/analysis``) over the port's tree.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ def _commands() -> dict:
         "index-features": "photon_ml_tpu_torch.cli.index_features",
         "name-term-bags": "photon_ml_tpu_torch.cli.name_term_bags",
         "report": "photon_ml_tpu_torch.cli.report",
+        "lint": "photon_ml_tpu_torch.cli.lint",
         "serve": "photon_ml_tpu_torch.cli.serve",
     }
 

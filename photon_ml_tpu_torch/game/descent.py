@@ -141,21 +141,21 @@ class CoordinateDescent:
             return self._run(update_sequence, num_iterations, initial_model, checkpoint_dir,
                              checkpoint_fingerprint, resume_fingerprints)
         except mh.PeerLost as e:
-            self._raise_peer_lost(e, checkpoint_dir)
+            raise self._peer_lost_error(e, checkpoint_dir) from e
 
     @staticmethod
-    def _raise_peer_lost(e: "mh.PeerLost", checkpoint_dir) -> None:
-        """The abort on a loss the descent does not degrade around: an
-        instruction to restart on the survivors from the per-iteration
-        checkpoint, in place of a timeout."""
+    def _peer_lost_error(e: "mh.PeerLost", checkpoint_dir) -> RuntimeError:
+        """The abort on a loss the descent does not degrade around (after
+        its ``peer_lost`` event): an instruction to restart on the survivors
+        from the per-iteration checkpoint, in place of a timeout."""
         emit_event("peer_lost", peer=int(e.peer), error=str(e))
         hint = (f"resume from the last per-iteration checkpoint in {checkpoint_dir!r} by restarting on the "
                 "surviving hosts" if checkpoint_dir is not None else
                 "re-run with checkpoint_dir set to make the restart resume instead of retrain")
-        raise RuntimeError(
+        return RuntimeError(
             f"in-memory coordinate descent lost process {e.peer}: the mesh-spanning executables cannot degrade "
             f"in place — {hint} (set PHOTON_DESCENT_DEGRADE=1 with owned random-effect buckets to degrade in "
-            "place; the streamed trainer recovers from its checkpoint)") from e
+            "place; the streamed trainer recovers from its checkpoint)")
 
     def _run(self, update_sequence, num_iterations, initial_model, checkpoint_dir, checkpoint_fingerprint,
              resume_fingerprints) -> CoordinateDescentResult:

@@ -1588,6 +1588,7 @@ class StreamedGameTrainer:
                     return None
                 scores = {k[len("s__"):]: np.asarray(z[k], np.float32) for k in z.files if k.startswith("s__")}
                 return scores, np.asarray(z["total"], np.float32)
+        # lint: waive(except-swallow) an absent/torn scores shard is a cache miss: the caller recomputes from data, never serves partial scores
         except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
             return None
 
@@ -1693,11 +1694,13 @@ class StreamedGameTrainer:
             while True:
                 try:
                     return self._fit(data, validation, initial_model)
+                # lint: waive(except-swallow) handled by delegation: _prepare_recovery runs the roll-call recovery and emits peer_lost/recovery telemetry
                 except mh.PeerLost as e:
                     # checkpoint-anchored recovery: confirm the loss, shrink
                     # the group and fit again over the survivors from the
                     # last checkpoint
                     self._prepare_recovery(e)
+                # lint: waive(except-swallow) control-flow resume: the rejoin roll call already emitted the rejoin event before raising
                 except _RejoinResume:
                     # the group changed at a visit boundary (rejoiners
                     # admitted, or a survivor dropped): fit again over it

@@ -137,7 +137,7 @@ def chunk_cache_budget_bytes(device=None) -> int:
     if key not in _device_budget_memo:
         from photon_ml_tpu_torch.ops.streaming import device_hbm_budget_bytes
 
-        # an idempotent memo of a fixed quantity: a racing write stores the same value
+        # lint: waive(conc-unlocked-mutation) memoize-once of an immutable backend quote (per device): racing writes store the same value
         _device_budget_memo[key] = int(
             device_hbm_budget_bytes(default=2e9, fraction=_DEFAULT_HBM_FRACTION, device=device)
         )

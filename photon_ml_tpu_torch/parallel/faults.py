@@ -175,6 +175,7 @@ def apply_send_fault(spec: FaultSpec, frames: list, sock) -> tuple[list | None, 
     if spec.op == "close":
         try:
             sock.close()
+        # lint: waive(except-swallow) the close IS the injected fault; a double-close error is the drill succeeding
         except OSError:  # a second close: the fault has happened either way
             pass
         return frames, False  # the next send on the closed socket raises

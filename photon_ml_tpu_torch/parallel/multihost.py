@@ -77,6 +77,7 @@ from __future__ import annotations
 
 import io
 import json
+import logging
 import os
 import pickle
 import selectors
@@ -105,18 +106,32 @@ DEFAULT_TIMEOUT_S = 600.0
 # one heartbeat of PHOTON_COORD_MAX_MISSING_HEARTBEATS, in seconds
 HEARTBEAT_S = 10.0
 
+_log = logging.getLogger(__name__)
+
 # the process group's collective timeout
 _TIMEOUT_S = [DEFAULT_TIMEOUT_S]
 # the coordinator's address as given to initialize_multihost
 _COORDINATOR = [""]
 
 # seconds, calls and bytes gathered by the host collectives since the last
-# ``reset_collective_stats``
+# ``reset_collective_stats``; ``_count_collective`` adds under the lock
 collective_stats: dict = {"seconds": 0.0, "calls": 0, "bytes": 0}
+_STATS_LOCK = threading.Lock()
 
 
 def reset_collective_stats() -> None:
-    collective_stats.update(seconds=0.0, calls=0, bytes=0)
+    with _STATS_LOCK:
+        collective_stats.update(seconds=0.0, calls=0, bytes=0)
+
+
+def _count_collective(t0: float, nbytes: int) -> None:
+    """Book one host collective begun at ``t0`` (``time.perf_counter``)
+    that moved ``nbytes``: a read-modify-write of process-wide books, so
+    under the lock, where a second thread's booking loses no update."""
+    with _STATS_LOCK:
+        collective_stats["seconds"] += time.perf_counter() - t0
+        collective_stats["calls"] += 1
+        collective_stats["bytes"] += nbytes
 
 
 def _init_error(detail: str) -> RuntimeError:
@@ -166,6 +181,7 @@ def initialize_multihost(
         raise _init_error(f"process id {process_id} outside [0, {num_processes})")
     if dist.is_initialized():
         raise _init_error("this process already belongs to a process group")
+    # lint: waive(conc-unlocked-mutation) set once at init, before any exchange worker
     _TIMEOUT_S[0] = float(timeout_s)
     try:
         dist.init_process_group(
@@ -174,6 +190,7 @@ def initialize_multihost(
         )
     except (ValueError, RuntimeError) as e:
         raise _init_error(str(e)) from e
+    # lint: waive(conc-unlocked-mutation) set once at init, before any exchange worker
     _COORDINATOR[0] = str(coordinator_address)
     if num_processes > 1 and _p2p_retries() > 0:
         _bootstrap_link_addrs()
@@ -317,6 +334,7 @@ def sync_processes(tag: str = "photon-ml-barrier") -> None:
     barrier than the rest raises instead of pairing with the wrong one."""
     if process_count() <= 1:
         return
+    # lint: waive(conc-unlocked-mutation) barriers run on the calling thread only
     _BARRIER_SEQ[0] += 1
     key = f"{tag}#{_BARRIER_SEQ[0]}"
     keys = _gather_bytes(key.encode(), tag="barrier")
@@ -332,9 +350,7 @@ def _gather_bytes(payload: bytes, group=None, tag: str = "host_collective") -> l
     p = process_count()
     if _DEGRADED is not None:
         out = [np.asarray(v).tobytes() for v in _p2p_allgather_obj(np.frombuffer(payload, np.uint8), tag=tag)]
-        collective_stats["seconds"] += time.perf_counter() - t0
-        collective_stats["calls"] += 1
-        collective_stats["bytes"] += sum(len(b) for b in out)
+        _count_collective(t0, sum(len(b) for b in out))
         return out
     size = torch.tensor([len(payload)], dtype=torch.int64)
     sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(p)]
@@ -345,9 +361,7 @@ def _gather_bytes(payload: bytes, group=None, tag: str = "host_collective") -> l
         buf[: len(payload)] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     outs = [torch.empty_like(buf) for _ in range(p)]
     _gloo(lambda: dist.all_gather(outs, buf, group=group), tag)
-    collective_stats["seconds"] += time.perf_counter() - t0
-    collective_stats["calls"] += 1
-    collective_stats["bytes"] += p * buf.numel()
+    _count_collective(t0, p * buf.numel())
     return [bytes(o[: int(s)].numpy()) for o, s in zip(outs, sizes)]
 
 
@@ -391,9 +405,7 @@ def _gather_same(arrays: Sequence[np.ndarray], group=None, tag: str = "host_coll
         buf[: len(payload)] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     outs = [torch.empty_like(buf) for _ in range(process_count())]
     _gloo(lambda: dist.all_gather(outs, buf, group=group), tag)
-    collective_stats["seconds"] += time.perf_counter() - t0
-    collective_stats["calls"] += 1
-    collective_stats["bytes"] += len(outs) * buf.numel()
+    _count_collective(t0, len(outs) * buf.numel())
     out = []
     for o in outs:
         blob, parts, pos = o.numpy(), [], 0
@@ -443,9 +455,7 @@ def allgather_concat(array: np.ndarray) -> np.ndarray:
         return array
     t0 = time.perf_counter()
     out = np.concatenate([np.asarray(p) for p in allgather_obj_p2p(array, tag="fe_gather")])
-    collective_stats["seconds"] += time.perf_counter() - t0
-    collective_stats["calls"] += 1
-    collective_stats["bytes"] += out.nbytes
+    _count_collective(t0, out.nbytes)
     return out
 
 
@@ -579,9 +589,7 @@ def exchange_rows(arrays, dest: np.ndarray, tag: str = "") -> dict:
                         lambda: {"flops": 0.0, "bytes_accessed": float(send.numel() + recv.numel()),
                                  "memory": {"argument_size_in_bytes": send.numel(),
                                             "output_size_in_bytes": recv.numel()}})
-    collective_stats["seconds"] += time.perf_counter() - t0
-    collective_stats["calls"] += 1
-    collective_stats["bytes"] += stats["bytes_sent"]
+    _count_collective(t0, stats["bytes_sent"])
     LAST_EXCHANGE_STATS.update(stats)
     return out
 
@@ -981,6 +989,7 @@ def _coordinator_is_loopback(host: str) -> bool:
         return True
     try:
         return _is_loopback(socket.gethostbyname(host))
+    # lint: waive(except-swallow) an unresolved name is not loopback
     except OSError:
         return False
 
@@ -1009,6 +1018,7 @@ def _local_ip() -> str:
             if not _is_loopback(ip):
                 return ip
             last = ip
+        # lint: waive(except-swallow) falls through to the next address source; loopback-only raises below
         except OSError:
             pass
     try:
@@ -1016,6 +1026,7 @@ def _local_ip() -> str:
         if not _is_loopback(ip):
             return ip
         last = ip
+    # lint: waive(except-swallow) falls through to the next address source; loopback-only raises below
     except OSError:
         pass
     if _world_size() > 1:
@@ -1169,6 +1180,7 @@ def _decode_hello(raw: int) -> tuple[int, int]:
 def _close_quietly(sock) -> None:
     try:
         sock.close()
+    # lint: waive(except-swallow) closing is best effort on a torn mesh
     except OSError:  # closing is best effort on a torn mesh
         pass
 
@@ -1250,8 +1262,15 @@ def _build_host_links(peers: list[int], timeout_s, srv=None) -> dict:
                 if addr[0] not in peer_ips:
                     _close_quietly(conn)
                     continue
-                _configure_link_socket(conn)
-                src, proto = _decode_hello(struct.unpack("!i", _recv_exact(conn, 4))[0])
+                try:
+                    _configure_link_socket(conn)
+                    src, proto = _decode_hello(struct.unpack("!i", _recv_exact(conn, 4))[0])
+                except OSError as e:
+                    # a dial torn before its hello (a peer's aborted earlier
+                    # attempt): drop it and keep accepting, the peer re-dials
+                    _log.warning("mesh build: dropped a connection from %s torn before its hello: %s", addr, e)
+                    _close_quietly(conn)
+                    continue
                 if src not in others or addr[0] != _HOST_ADDRS[src][0]:
                     _close_quietly(conn)
                     continue
@@ -1260,6 +1279,7 @@ def _build_host_links(peers: list[int], timeout_s, srv=None) -> dict:
                     _close_quietly(recv_socks[src])
                 recv_socks[src] = conn
                 recv_protos[src] = proto
+        # lint: waive(except-swallow) thread hand-off: chained into the incomplete-mesh error
         except BaseException as e:
             accept_err.append(e)
 
@@ -1289,10 +1309,12 @@ def _build_host_links(peers: list[int], timeout_s, srv=None) -> dict:
         if acceptor.is_alive() or len(recv_socks) != len(others):
             missing = sorted(set(others) - set(recv_socks))
             msg = (f"host exchange mesh incomplete: accepted {len(recv_socks)} of {len(others)} peers"
-                   + (f" (missing {missing})" if missing else ""))
+                   + (f" (missing {missing})" if missing else "")
+                   + (f"; the acceptor stopped on {accept_err[0]!r}" if accept_err else ""))
             # name the lowest missing peer: the retry and roll-call tier
             # needs one suspect to treat the failure as transient
-            raise PeerUnreachable(missing[0], msg, missing) if missing else RuntimeError(msg)
+            raise (PeerUnreachable(missing[0], msg, missing) if missing else RuntimeError(msg)) from (
+                accept_err[0] if accept_err else None)
     except BaseException as e:
         # closing the listener unblocks a live acceptor, so the join cannot hang
         srv.close()
@@ -1377,6 +1399,7 @@ def _ring_allgather(links: dict, ordered_pids: list[int], rank: int, obj, tag: s
                 _send_frame_parts(links["send"][peer_pid], wire_parts, total,
                                   protos.get(peer_pid, 0) >= _FRAME_PROTO_CRC, peer_pid, tag, heartbeat,
                                   corrupt_wire=corrupt_wire)
+        # lint: waive(except-swallow) thread hand-off: re-raised after the join
         except BaseException as e:
             e.peer = getattr(e, "peer", peer_pid)
             err.append(e)
@@ -1512,6 +1535,7 @@ def roll_call(window_s: float | None = None, candidates: Sequence[int] | None = 
         while len(candidates) > 1:
             try:
                 links = _build_host_links(candidates, probe_timeout)
+            # lint: waive(except-swallow) the census: a silent peer is dropped; roll_call records it
             except PeerUnreachable as e:
                 now = time.monotonic()
                 heard.update((p, now) for p in getattr(e, "heard", ()))
@@ -1529,6 +1553,7 @@ def roll_call(window_s: float | None = None, candidates: Sequence[int] | None = 
                 else:
                     time.sleep(probe_timeout / 2.0)
                 continue
+            # lint: waive(except-swallow) a build race: retried until the give-up
             except (OSError, RuntimeError) as e:
                 # a build race (two peers mid-rebuild): retry until the give-up
                 heard.update((p, time.monotonic()) for p in getattr(e, "heard", ()))
@@ -1540,6 +1565,7 @@ def roll_call(window_s: float | None = None, candidates: Sequence[int] | None = 
             try:
                 views = _ring_allgather(links, candidates, candidates.index(pid), list(candidates), "rollcall",
                                         None)
+            # lint: waive(except-swallow) the agreement raced a failing build: retried until the give-up
             except OSError:
                 # the agreement raced a peer whose own build failed after ours
                 # succeeded: rebuild and agree again
@@ -1670,6 +1696,7 @@ def _host_p2p_exchange_impl(arrays, order, starts, counts_matrix, transport: str
                     emit_event("p2p_send", peer=o_peer, bytes=peer_bytes, rows=int(starts[peer + 1] - starts[peer]),
                                dur_s=time.perf_counter() - t0, t_start=t_start, corr=f"p2p:{o_pid}>{o_peer}#{seq}",
                                tag=tag, transport=transport)
+        # lint: waive(except-swallow) thread hand-off: re-raised after the join
         except BaseException as e:  # surfaced after the join
             send_err.append(e)
 
@@ -1752,9 +1779,12 @@ _EXCHANGE_TOTALS = {"exchange_s": 0.0, "wait_s": 0.0}
 
 
 def _exchange_pool() -> ThreadPoolExecutor:
-    if _EXCHANGE_POOL[0] is None:
-        _EXCHANGE_POOL[0] = ThreadPoolExecutor(max_workers=1, thread_name_prefix="photon-exchange")
-    return _EXCHANGE_POOL[0]
+    # created under the lock: two first uses at once must not start two
+    # workers, which would run exchanges out of program order
+    with _EXCHANGE_LOCK:
+        if _EXCHANGE_POOL[0] is None:
+            _EXCHANGE_POOL[0] = ThreadPoolExecutor(max_workers=1, thread_name_prefix="photon-exchange")
+        return _EXCHANGE_POOL[0]
 
 
 def _record_overlap(kind: str, seconds: float) -> None:
@@ -1940,9 +1970,11 @@ def reset_async_exchanges() -> None:
 def _stop_exchange_worker() -> None:
     """Drain, stop the worker and forget the books (at shutdown)."""
     drain_async_exchanges()
-    if _EXCHANGE_POOL[0] is not None:
-        _EXCHANGE_POOL[0].shutdown(wait=True)
-        _EXCHANGE_POOL[0] = None
+    with _EXCHANGE_LOCK:
+        pool, _EXCHANGE_POOL[0] = _EXCHANGE_POOL[0], None
+    if pool is not None:
+        # outside the lock: a finishing exchange books its overlap under it
+        pool.shutdown(wait=True)
     with _EXCHANGE_LOCK:
         _PENDING_EXCHANGES.clear()
         _EXCHANGE_TOTALS.update(exchange_s=0.0, wait_s=0.0)
@@ -2070,6 +2102,7 @@ def probe_rejoiners(lost: Sequence[int], window_s: float = 0.0, poll_s: float = 
                     s.sendall(struct.pack("!i", _self_pid() | (_HELLO_PROBE << 16)))
                     if _recv_exact(s, 1) == _ACK_BYTE:
                         present.append(p)
+            # lint: waive(except-swallow) a probe: no answer means not present
             except OSError:
                 continue
         if present or time.monotonic() >= deadline:
@@ -2095,6 +2128,7 @@ def send_rejoin_invites(present: Sequence[int], candidates: Sequence[int], survi
                 s.sendall(payload)
                 if _recv_exact(s, 1) == _ACK_BYTE:
                     invited.append(int(p))
+        # lint: waive(except-swallow) an invite not ACKed: the returned list omits it
         except OSError:
             continue
     return invited
@@ -2131,6 +2165,7 @@ def rejoin_wait(window_s: float | None = None) -> dict | None:
             srv.settimeout(min(remaining, 1.0))
             try:
                 conn, addr = srv.accept()
+            # lint: waive(except-swallow) the accept timeout is the window's poll tick
             except socket.timeout:
                 continue
             try:
@@ -2151,6 +2186,7 @@ def rejoin_wait(window_s: float | None = None) -> dict | None:
                 emit_event("rejoin_invited", inviter=int(src), candidates=payload.get("candidates"),
                            survivors=payload.get("survivors"))
                 return payload
+            # lint: waive(except-swallow) a torn or foreign connection is dropped
             except OSError:
                 continue
             finally:
