@@ -519,6 +519,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -552,6 +553,7 @@ from photon_ml_tpu_torch.config import (
 )
 from photon_ml_tpu_torch.data.index_map import IndexMap
 from photon_ml_tpu_torch.data.synthetic import synthetic_game_data, synthetic_glm_data
+from photon_ml_tpu_torch import estimators as estimators_mod
 from photon_ml_tpu_torch.estimators import GameEstimator
 from photon_ml_tpu_torch.evaluation import (
     auc_roc,
@@ -563,6 +565,7 @@ from photon_ml_tpu_torch.evaluation import (
 from photon_ml_tpu_torch.game import coordinate as game_coordinate
 from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
 from photon_ml_tpu_torch.checkpoint import peek_fingerprint
+from photon_ml_tpu_torch.game import descent as game_descent
 from photon_ml_tpu_torch.game.descent import CoordinateDescent
 from photon_ml_tpu_torch.game.data import (
     DenseFeatures,
@@ -591,7 +594,7 @@ from photon_ml_tpu_torch.analysis import runner as lint_runner
 from photon_ml_tpu_torch.obs import REGISTRY, devcost
 from photon_ml_tpu_torch.obs import sink as obs_sink
 from photon_ml_tpu_torch.obs.report import fleet_run_paths, latest_run, load_run, validate_run
-from photon_ml_tpu_torch.ops import _cuda, fused, prefetch, stream_executor, tile_cache
+from photon_ml_tpu_torch.ops import _cuda, fused, graphs, prefetch, stream_executor, tile_cache
 from photon_ml_tpu_torch.ops import sparse_tiled as st
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch, hbm_budget_bytes, optimize_batch_layout
 from photon_ml_tpu_torch.ops.glm import compute_variances, make_objective
@@ -1555,6 +1558,48 @@ def recording_visits():
         RandomEffectCoordinate.train = train
 
 
+@contextmanager
+def recording_chunks(reads: list):
+    """Every fused chunk of outer iterations (``game/descent.py``
+    ``_FusedOuter``) while active: its iterations, its wall seconds (the
+    card synchronized at both ends), the read-backs it made
+    (``counting_readbacks``' count ``reads``) and, where it captured the
+    outer iteration, the capture's seconds and the graph's nodes."""
+    chunks = []
+    call = game_descent._FusedOuter.__call__
+
+    def recorded(self, model, total, scores, r):
+        torch.cuda.synchronize()
+        had, warm, before, t0 = self._graph is not None, self._warm, reads[0], time.perf_counter()
+        out = call(self, model, total, scores, r)
+        torch.cuda.synchronize()
+        # a chunk's first iteration is the warm-up where nothing ran before
+        rec = dict(iterations=r, wall_s=time.perf_counter() - t0, readbacks=reads[0] - before,
+                   replays=r - (0 if had or warm else 1))
+        if not had and self._graph is not None:
+            rec.update(capture_s=self.capture_s, graph_nodes=self._graph.nodes)
+        chunks.append(rec)
+        return out
+
+    game_descent._FusedOuter.__call__ = recorded
+    try:
+        yield chunks
+    finally:
+        game_descent._FusedOuter.__call__ = call
+
+
+@contextmanager
+def eager_descents():
+    """``GameEstimator`` fits on the eager visit loop while active (the
+    descent's private ``_fused=False``)."""
+    cls = estimators_mod.CoordinateDescent
+    estimators_mod.CoordinateDescent = functools.partial(CoordinateDescent, _fused=False)
+    try:
+        yield
+    finally:
+        estimators_mod.CoordinateDescent = cls
+
+
 def _exchange_snapshot() -> dict:
     """The host collectives' running totals a data-mesh fit reads per visit:
     the shard reductions (``reduction_s``), every gloo collective
@@ -1588,7 +1633,7 @@ def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None, validation=No
     st.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with counting_readbacks() as reads:
+    with counting_readbacks() as reads, recording_chunks(reads) as chunks:
         est = GameEstimator(config, intercept_indices={"global": D_FIXED}, logger=mark, device=dev, mesh=mesh)
         best = est.select_best(est.fit(batch, validation_batch=validation))
     torch.cuda.synchronize()
@@ -1603,8 +1648,10 @@ def fit_game(batch, config: GameTrainingConfig, dev, on_mark=None, validation=No
         prev, prev_reads, prev_x = t, n_reads, x
     iters = [sum(v["wall_s"] for v in visits if v["iteration"] == i)
              for i in range(config.coordinate_descent_iterations)]
+    if chunks:  # the fused path: a chunk's iterations share its wall
+        iters = [c["wall_s"] / c["iterations"] for c in chunks for _ in range(c["iterations"])]
     fixed = best.descent.trackers["fixed"]
-    return dict(best=best, wall_s=wall, ingest_s=marks[0][0] - t0, visits=visits,
+    return dict(best=best, wall_s=wall, ingest_s=marks[0][0] - t0, visits=visits, fused_chunks=chunks,
                 iteration_wall_s=iters, launches=launch_counts(),
                 fixed_objective_passes=sum(t.objective_passes for t in fixed),
                 fixed_iterations=[t.iterations for t in fixed], fixed_objective=float(fixed[-1].value))
@@ -1652,17 +1699,33 @@ def bucket_report(fit: dict, batch, effects: dict, solver: str = "newton") -> di
 
 
 def _game_record(fit: dict, warmup: int = 0) -> dict:
-    timed = fit["iteration_wall_s"][warmup:]
-    per_visit, reads = {}, {}
-    for v in fit["visits"]:
-        if v["iteration"] >= warmup:
-            per_visit.setdefault(v["coordinate"], []).append(v["wall_s"])
-            reads.setdefault(v["coordinate"], []).append(v["readbacks"])
+    """A fit's walls and read-backs over its timed iterations (from
+    ``warmup`` on). On the fused path the timed iterations are those of the
+    chunks that start at ``warmup`` or later (a chunk has no visit
+    boundaries: its walls and read-backs are per chunk)."""
+    if fit.get("fused_chunks"):
+        first, timed_chunks = 0, []
+        for c in fit["fused_chunks"]:
+            if first >= warmup:
+                timed_chunks.append(c)
+            first += c["iterations"]
+        timed_chunks = timed_chunks or fit["fused_chunks"][-1:]
+        timed = [c["wall_s"] / c["iterations"] for c in timed_chunks for _ in range(c["iterations"])]
+        per_visit = reads_per_visit = None
+    else:
+        timed = fit["iteration_wall_s"][warmup:]
+        per_visit, reads = {}, {}
+        for v in fit["visits"]:
+            if v["iteration"] >= warmup:
+                per_visit.setdefault(v["coordinate"], []).append(v["wall_s"])
+                reads.setdefault(v["coordinate"], []).append(v["readbacks"])
+        per_visit = {c: sum(w) / len(w) for c, w in per_visit.items()}
+        reads_per_visit = {c: sum(r) / len(r) for c, r in reads.items()}
     return dict(wall_s=fit["wall_s"], ingest_s=fit["ingest_s"],
-                iteration_wall_s=fit["iteration_wall_s"],
+                iteration_wall_s=fit["iteration_wall_s"], fused_chunks=fit.get("fused_chunks", []),
                 timed_wall_s_per_outer_iteration=sum(timed) / len(timed),
-                timed_wall_s_per_visit={c: sum(w) / len(w) for c, w in per_visit.items()},
-                timed_readbacks_per_visit={c: sum(r) / len(r) for c, r in reads.items()},
+                timed_wall_s_per_visit=per_visit,
+                timed_readbacks_per_visit=reads_per_visit,
                 launches=fit["launches"], fixed_objective_passes=fit["fixed_objective_passes"],
                 fixed_iterations=fit["fixed_iterations"], fixed_objective=fit["fixed_objective"])
 
@@ -1733,6 +1796,143 @@ def run_e(dev) -> tuple[dict, object, object, GameModel]:
     rec["k1"] = k1_at(batch.features["global"].X, 0.1 * torch.randn(n, generator=gen, device=dev),
                       batch.labels, dev)
     return rec, batch, data, model
+
+
+def fused_pair(batch, effects: dict, solvers: tuple) -> dict:
+    """Config E's coordinates (``game_config``) over ``batch``, built once:
+    for each random-effect solver in ``solvers`` two descents over the same
+    coordinates (``with_config``: the random effects share their prepared
+    buckets), the fused path and the eager visit loop (the descent's
+    private ``_fused=False``), and the update sequence."""
+    out, base = {}, None
+    for solver in solvers:
+        cfg = game_config(effects, 1, re_solver=solver)
+        if base is None:
+            base = {"fixed": FixedEffectCoordinate(
+                coordinate_id="fixed", batch=batch, feature_shard_id="global",
+                config=cfg.fixed_effect_coordinates["fixed"].optimization, task_type=cfg.task_type,
+                intercept_index=D_FIXED)}
+            for cid, c in cfg.random_effect_coordinates.items():
+                ids = batch.id_tags[c.random_effect_type].cpu().numpy()
+                grouping = group_by_entity(ids, num_entities=int(ids.max()) + 1)
+                base[cid] = RandomEffectCoordinate(
+                    coordinate_id=cid, batch=batch, feature_shard_id=c.feature_shard_id,
+                    random_effect_type=c.random_effect_type, config=c.optimization, grouping=grouping,
+                    buckets=bucket_entities(grouping, c.sample_bucket_sizes, target_buckets=c.bucket_target_count,
+                                            max_padded_ratio=c.bucket_max_padded_ratio),
+                    task_type=cfg.task_type, num_entities=grouping.num_entities)
+        coords = {cid: c if cid == "fixed" else c.with_config(cfg.random_effect_coordinates[cid].optimization)
+                  for cid, c in base.items()}
+        out[solver] = (CoordinateDescent(coords, batch, cfg.task_type),
+                       CoordinateDescent(coords, batch, cfg.task_type, _fused=False),
+                       list(cfg.coordinate_update_sequence))
+    return out
+
+
+def k1_captured(X, labels, offsets, dev) -> dict:
+    """K1 at a main-path shape captured into a graph (``graphs.capture``,
+    after a warm-up on the capture stream) and replayed once, against the
+    same call made eagerly: bitwise, and the launch the replay counted on
+    the device (a comparison launch: taken out of the counts again)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    d = X.shape[1]
+    u = 0.5 * torch.randn(d, generator=gen, device=dev) / d**0.5
+    c = torch.tensor(0.1, device=dev)
+    saved = dict(fused.launch_counts)
+
+    def call():
+        return fused.fused_value_grad(X, labels, offsets, None, u, c, loss=LOSSES["logistic"])
+
+    eager = call()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph, got = graphs.capture(call, dev, stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    counted = sum(int(t) for t, _ in graphs.take_device_counts())
+    graphs.zero_device_counts()
+    fused.launch_counts.update(saved)
+    return dict(bitwise=all(torch.equal(a, b) for a, b in zip(got, eager)), graph_nodes=graph.nodes,
+                device_counted_launches=counted)
+
+
+def _descents_bitwise(a, b, seq) -> bool:
+    return all(torch.equal(a.model[cid].coefficient_means, b.model[cid].coefficient_means)
+               and torch.equal(a.training_scores[cid], b.training_scores[cid]) for cid in seq)
+
+
+def run_e_fused(dev, batch, data, card: str) -> dict:
+    """main_e_fused: main_e's batch (ML-10M), one outer iteration on the
+    eager visit loop beside the fused path, for Newton lanes and then for
+    L-BFGS lanes. Each descent runs from the same cold start every time.
+    The fused descent's first run is its warm-up (eager, on its capture
+    stream), its second captures the outer iteration and replays it, its
+    third replays it alone; then a chunk of 4 replays. Gates: the replayed
+    iteration's coefficients and scores bitwise the eager loop's; no host
+    read of a CUDA tensor between the chunk's first replay and its last; K1
+    counted inside the replays (the chunk's K1 launches equal its fixed
+    objective passes); K1 captured bitwise K1 eager on one pass. Reports
+    the capture's seconds and nodes, the walls per outer iteration (eager,
+    a replay, a chunk of 4), read-backs and the fused replay's busy share
+    (the eager loop's is ``main_e``'s and ``main_e_lbfgs``' profile), with
+    the card."""
+    n, effects = E_ML10M
+    out = dict(card=card, n=n, effects={k: list(v) for k, v in effects.items()})
+    pairs = fused_pair(batch, effects, ("NEWTON_CHOLESKY", "LBFGS"))
+    for name, solver in (("newton", "NEWTON_CHOLESKY"), ("lbfgs", "LBFGS")):
+        fused_d, eager_d, seq = pairs.pop(solver)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            with counting_readbacks() as reads:
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                return res, time.perf_counter() - t0, reads[0]
+
+        # the eager loop's first-call costs were paid by main_e's profile
+        eager, eager_s, eager_reads = timed(lambda: eager_d.run(seq, 1))
+        _, warm_s, _ = timed(lambda: fused_d.run(seq, 1))
+        first, capture_and_replay_s, _ = timed(lambda: fused_d.run(seq, 1))
+        (outer,) = fused_d._fused_outer_cache.values()
+        fused.reset_launch_counts()
+        replayed, replay_s, replay_reads = timed(lambda: fused_d.run(seq, 1))
+        one_k1 = fused.launch_counts["fused_value_grad"]
+        replay_marks = []
+        replay = graphs.LoopGraph.replay
+        with counting_readbacks() as reads:
+            graphs.LoopGraph.replay = lambda self: replay_marks.append(reads[0]) or replay(self)
+            try:
+                fused.reset_launch_counts()
+                chunk, chunk_s, chunk_reads = timed(lambda: fused_d.run(seq, 4))
+            finally:
+                graphs.LoopGraph.replay = replay
+        chunk_k1 = fused.launch_counts["fused_value_grad"]
+        chunk_passes = sum(t.objective_passes for t in chunk.trackers["fixed"])
+        busy_fused = busy_share(lambda: fused_d.run(seq, 1))
+        out[name] = dict(
+            capture_s=outer.capture_s, graph_nodes=outer._graph.nodes,
+            eager_wall_s=eager_s, warmup_wall_s=warm_s, capture_and_replay_wall_s=capture_and_replay_s,
+            replay_wall_s=replay_s, chunk_of_4_wall_s_per_iteration=chunk_s / 4,
+            eager_readbacks=eager_reads, replay_readbacks=replay_reads, chunk_of_4_readbacks=chunk_reads,
+            replays_in_chunk=len(replay_marks), no_read_inside_chunk=len(replay_marks) == 4
+            and len(set(replay_marks)) == 1,
+            k1_launches_one_iteration=one_k1, k1_launches_chunk=chunk_k1, fixed_passes_chunk=chunk_passes,
+            k1_counted_ok=chunk_k1 == chunk_passes > 0,
+            bitwise_replay_vs_eager=_descents_bitwise(replayed, eager, seq),
+            bitwise_captured_run_vs_eager=_descents_bitwise(first, eager, seq),
+            max_abs_diff_vs_eager=max(float((replayed.model[c].coefficient_means
+                                             - eager.model[c].coefficient_means).abs().max()) for c in seq),
+            busy_fused=busy_fused)
+        del fused_d, eager_d, outer, eager, first, replayed, chunk
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out["k1_captured"] = k1_captured(batch.features["global"].X, batch.labels,
+                                     0.1 * torch.randn(n, generator=gen, device=dev), dev)
+    return out
 
 
 def fit_lane_counted(batch, config: GameTrainingConfig, dev) -> dict:
@@ -2163,9 +2363,10 @@ def run_re_project(dev) -> dict:
 
 
 def profile_e(batch, effects: dict, dev, re_solver: str = "NEWTON_CHOLESKY") -> dict:
-    """``torch.profiler`` over config E's second outer iteration (a fit of
-    2; the profiler steps at every visit mark, so it records exactly the
-    three visits of iteration 1): the card's busy share of that window's
+    """``torch.profiler`` over config E's second outer iteration on the
+    eager visit loop (a fit of 2; the profiler steps at every visit mark,
+    so it records exactly the three visits of iteration 1): the card's busy
+    share of that window's
     wall time (kernel time summed over the window, one stream), the kernel
     launches, and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -2174,7 +2375,10 @@ def profile_e(batch, effects: dict, dev, re_solver: str = "NEWTON_CHOLESKY") -> 
     # them took seconds a trace
     acts = [ProfilerActivity.CUDA]
     # steps: 0 the ingest, 1-3 iteration 0's visits, 4-6 iteration 1's
-    with profile(activities=acts, schedule=schedule(wait=3, warmup=1, active=3, repeat=1)) as prof:
+    # on the eager loop: its visit marks step the profiler (main_e_fused
+    # measures the fused path's busy share)
+    with profile(activities=acts, schedule=schedule(wait=3, warmup=1, active=3, repeat=1)) as prof, \
+            eager_descents():
         fit = fit_game(batch, game_config(effects, 2, re_solver=re_solver), dev, on_mark=prof.step)
     window = sum(v["wall_s"] for v in fit["visits"] if v["iteration"] == 1)
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
@@ -6423,6 +6627,20 @@ def main() -> int:
     e_rec, e_batch, e_data, e_model = run_e(dev)
     emit("main_e", **e_rec)
     _check_game_launches("main_e", e_rec)
+    if not e_rec["fused_chunks"]:
+        raise AssertionError("main_e did not take the fused path")
+    fused.reset_launch_counts()
+    st.reset_launch_counts()
+    e_fused = run_e_fused(dev, e_batch, e_data, smi)
+    e_fused["launches"] = launch_counts()
+    emit("main_e_fused", **e_fused)
+    failed = [f"{arm}.{gate}" for arm in ("newton", "lbfgs") for gate in (
+        "bitwise_replay_vs_eager", "bitwise_captured_run_vs_eager", "no_read_inside_chunk", "k1_counted_ok")
+        if not e_fused[arm][gate]]
+    if not e_fused["k1_captured"]["bitwise"]:
+        failed.append("k1_captured")
+    if failed:
+        raise AssertionError(f"main_e_fused failed: {failed}")
     if not (d_rec["k1"]["ok"] and d_rec["k1"]["layout"] == "tiles"):
         raise AssertionError(f"K1 at D's shape: {d_rec['k1']}")
     if not (e_rec["quality_ok"] and e_rec["k1"]["ok"] and e_rec["k1"]["layout"] == "tiles"):
@@ -6887,7 +7105,8 @@ def main() -> int:
     by_path = {
         k: {"main_a": a["launches"][k], "main_a_sweep": sweep["launches"][k],
             "main_b": b["launches"][k], "main_d": d_rec["launches"][k],
-            "main_e": e_rec["launches"][k], "main_serve": serve_rec["launches"][k],
+            "main_e": e_rec["launches"][k], "main_e_fused": e_fused["launches"][k],
+            "main_serve": serve_rec["launches"][k],
             "main_e_lbfgs": e_lbfgs["launches"][k],
             "main_e_lbfgs_compact": e_compact["launches"][k],
             "main_e_streamed_compact": e_streamed_compact["launches"][k],

@@ -14,8 +14,17 @@ residual offsets with ``train(offsets, initial)`` and ``score(model)``.
 A random effect may solve in a per-entity subspace
 (``features_to_samples_ratio``) or over a shared random projection of its
 shard (``projector``), as the reference's ``IndexMapProjection`` and
-``RandomProjection`` do. The reference's one-launch fused visit (ROADMAP
-queue 1 item 10a.6) is not ported.
+``RandomProjection`` do.
+
+Each coordinate also offers its visit as parts the descent's fused outer
+iteration chains (``_fused_visit_parts``, ``FusedVisitParts``): a visit
+body that runs the eager visit's own arithmetic (``train`` then
+``score``) warm-started from a static coefficient buffer, which it
+advances in place, and reads nothing back inside a deferred run
+(``ops/graphs.py``), so it can be captured as a CUDA graph and replayed.
+``visit`` runs one visit through the parts. They are None where the
+reference's are (a mesh, a down-sampled fixed effect, lane compaction)
+and for TRON, whose device-driven solver is not ported yet.
 
 With a data mesh (``parallel/mesh.py``, one process or several) the batch
 is every process's replicated copy (on the host or a card) and each
@@ -35,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import Any, Protocol
+from typing import Any, Callable, NamedTuple, Protocol
 
 import torch
 
@@ -53,14 +62,16 @@ from photon_ml_tpu_torch.game.random_effect import (
     RandomEffectTrainingResult,
     _fusion_units,
     _parent_units,
+    compact_every,
     fuse_buckets,
+    iter_accounting_enabled,
     prepare_buckets,
     train_prepared,
 )
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.normalization import NormalizationContext, require_intercept_for_shifts
 from photon_ml_tpu_torch.ops.batch import DenseBatch, hbm_budget_bytes, optimize_batch_layout
-from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_objective
+from photon_ml_tpu_torch.ops.glm import GaussianPrior, auto_fused, compute_variances, make_objective
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optim.common import OptimizationResult, select_minimize_fn
 from photon_ml_tpu_torch.parallel.distributed import (
@@ -72,7 +83,7 @@ from photon_ml_tpu_torch.parallel.distributed import (
 from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, effective_mesh, shard_extent
 from photon_ml_tpu_torch.parallel.multihost import allgather_rows
 from photon_ml_tpu_torch.parallel.placement import re_shard_enabled
-from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
+from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
 
 Tensor = torch.Tensor
 
@@ -140,6 +151,52 @@ def _require_prior_l2(config: OptimizationConfig) -> None:
             "incremental training (prior_model) requires a positive L2 "
             "regularization weight: the prior's pull is l2_weight * (1/prior_variance)"
         )
+
+
+class FusedVisitParts(NamedTuple):
+    """A coordinate's visit as the fused outer iteration chains it
+    (``game/descent.py``):
+
+    - ``make_static(initial)``: a tensor of its own holding the warm-start
+      coefficients (zeros for a cold start), which the chain keeps;
+    - ``apply(static, total, own_score)`` → (aux, new score, new total):
+      the visit (residual offsets, solve, score), aux = (sub-model,
+      tracker), run eagerly or inside a capture, reading nothing back
+      under ``graphs.deferring``;
+    - ``postprocess(aux, build_model)`` → (sub-model or None, tracker);
+    - ``advance(aux, static)``: writes this visit's coefficients into
+      ``static`` in place, the next visit's warm start;
+    - ``key``: everything a capture of ``apply`` bakes in; ``keep``: the
+      objects whose identity the key names, held alive with it."""
+
+    make_static: Callable
+    apply: Callable
+    postprocess: Callable
+    advance: Callable
+    key: tuple
+    keep: tuple
+
+
+def _postprocess(aux, build_model: bool = True):
+    model, tracker = aux
+    return (model if build_model else None), tracker
+
+
+def _is_tron(config: OptimizationConfig) -> bool:
+    return config.optimizer.optimizer_type is OptimizerType.TRON
+
+
+def _visit(coord, total: Tensor, own_score: Tensor | None, initial):
+    parts = coord._fused_visit_parts()
+    if parts is None:
+        offsets = total - own_score if own_score is not None else total
+        sub_model, tracker = coord.train(offsets, initial)
+        new_score = coord.score(sub_model)
+        return sub_model, tracker, new_score, offsets + new_score
+    aux, new_score, new_total = parts.apply(parts.make_static(initial), total,
+                                            torch.zeros_like(total) if own_score is None else own_score)
+    model, tracker = parts.postprocess(aux)
+    return model, tracker, new_score, new_total
 
 
 @dataclass(frozen=True)
@@ -230,6 +287,13 @@ class FixedEffectCoordinate:
     def train(
         self, offsets: Tensor, initial: GameSubModel | None = None
     ) -> tuple[FixedEffectModel, OptimizationResult]:
+        return self._train(offsets, initial)
+
+    def _train(self, offsets: Tensor, initial: GameSubModel | None, data_hints: tuple[bool, bool] | None = None
+               ) -> tuple[FixedEffectModel, OptimizationResult]:
+        """``train``; ``data_hints`` (offsets all zero, weights all one) spare
+        the objective its scan of the batch (the fused visit, which no
+        host read may interrupt, passes them)."""
         dev = self._device()
         norm = self.normalization
         prior = None
@@ -259,7 +323,7 @@ class FixedEffectCoordinate:
         else:
             obj = make_objective(
                 self._training_batch(offsets), loss, l2_weight=l2, norm=norm,
-                intercept_index=self.intercept_index, prior=prior, device=dev,
+                intercept_index=self.intercept_index, prior=prior, device=dev, data_hints=data_hints,
             )
         result = minimize_fn(obj, w0, opt.optimizer, **extra)
         w = result.w
@@ -296,10 +360,10 @@ class FixedEffectCoordinate:
 
 
     def _reset_compiled_state(self) -> None:
-        """Drop the cached layouts and shards, so the next visit builds them
-        again from the batch (the descent's degrade in place calls it after
-        the group shrinks)."""
-        for key in ("_mesh_cached", "_mesh_rows", "_layout_cached"):
+        """Drop the cached layouts, shards and visit hints, so the next
+        visit builds them again from the batch (the descent's degrade in
+        place calls it after the group shrinks)."""
+        for key in ("_mesh_cached", "_mesh_rows", "_layout_cached", "_visit_hints"):
             self.__dict__.pop(key, None)
 
     def _degrade_blocker(self) -> str | None:
@@ -309,6 +373,63 @@ class FixedEffectCoordinate:
         if self.mesh is not None:
             return f"fixed-effect coordinate {self.coordinate_id!r} solves over the full device mesh"
         return None
+
+    def _fused_visit_parts(self) -> FusedVisitParts | None:
+        """The visit as parts the fused outer iteration chains
+        (``FusedVisitParts``), or None where a visit needs host staging: a
+        mesh, a down-sampled row set (``train_rows``), or TRON, whose
+        solver has no device-driven loop yet. The layout is staged here,
+        before any capture, and so is the weights hint K1's objective takes
+        (the offsets hint is "not all zero": the residual changes every
+        visit, and one captured program serves them all)."""
+        if self.mesh is not None or self.train_rows is not None or _is_tron(self.config):
+            return None
+        batch = self._training_batch(self.batch.offsets)  # makes the layout decision at the first call
+        hints = self.__dict__.get("_visit_hints")
+        if hints is None:
+            hints = (False, bool(torch.all(self.batch.weights == 1.0)))
+            object.__setattr__(self, "_visit_hints", hints)
+        # built per call, not kept: a closure over the coordinate kept on it
+        # would hold its staged tensors in a reference cycle
+        run = self._build_visit_fn(hints)
+        d = self.batch.features[self.feature_shard_id].num_features
+        dev = self._device()
+
+        def make_static(initial: FixedEffectModel | None) -> Tensor:
+            if initial is None:
+                return torch.zeros((d,), dtype=torch.float32, device=dev)
+            return torch.as_tensor(initial.model.coefficients.means, dtype=torch.float32, device=dev).clone()
+
+        def advance(aux, static: Tensor) -> None:
+            # the next visit warm-starts from this visit's coefficients
+            static.copy_(aux[0].model.coefficients.means)
+
+        layout = self.__dict__.get("_layout_cached")
+        key = ("fixed", id(self), id(layout), repr(self.config), hints, auto_fused(batch))
+        return FusedVisitParts(make_static, run, _postprocess, advance, key, (self, layout))
+
+    def visit(self, total: Tensor, own_score: Tensor | None, initial: GameSubModel | None = None):
+        """One descent visit: residual offsets → solve → score → new total.
+        Returns (sub-model, tracker, new own score, new total);
+        ``own_score=None`` means the coordinate has not scored yet. Runs
+        the fused visit's parts where they apply (``_fused_visit_parts``),
+        else ``train`` and ``score``."""
+        return _visit(self, total, own_score, initial)
+
+    def _build_visit_fn(self, data_hints: tuple[bool, bool]):
+        """The visit body ``run(static, total, own_score)`` → ((sub-model,
+        tracker), new score, new total): the eager visit's own arithmetic,
+        warm-started from the coefficients in ``static``."""
+
+        def run(static: Tensor, total: Tensor, own_score: Tensor):
+            offsets = total - own_score
+            initial = FixedEffectModel(model=GeneralizedLinearModel(Coefficients(static, None), self.task_type),
+                                       feature_shard_id=self.feature_shard_id)
+            model, tracker = self._train(offsets, initial, data_hints=data_hints)
+            new_score = self.score(model)
+            return (model, tracker), new_score, offsets + new_score
+
+        return run
 
 
 @dataclass(frozen=True)
@@ -488,6 +609,59 @@ class RandomEffectCoordinate:
         return (f"random-effect coordinate {self.coordinate_id!r} is lane-sharded over the full device mesh "
                 "(enable PHOTON_RE_SHARD=1 owned-bucket placement — with the PHOTON_RE_COMBINE=segments "
                 "host-collective combine — for a degradable in-memory solve)")
+
+    def _fused_visit_parts(self) -> FusedVisitParts | None:
+        """See ``FixedEffectCoordinate._fused_visit_parts``: None over a
+        mesh, under lane compaction (``PHOTON_RE_COMPACT_EVERY`` > 0, whose
+        chunks read the lanes back between them) and for TRON. The buckets
+        and the launch units are staged here, before any capture, and the
+        knobs the visit reads (``PHOTON_RE_FUSE_BUCKETS``, the iteration
+        accounting) are in the key."""
+        if self.mesh is not None or compact_every() > 0 or _is_tron(self.config):
+            return None
+        prepared, units = self._prepared, self._staged_fusion_units()
+        run = self._build_visit_fn()  # per call (``FixedEffectCoordinate._fused_visit_parts``)
+        d = self.batch.features[self.feature_shard_id].num_features
+        dev = self.batch.device
+
+        def make_static(initial: RandomEffectModel | None) -> Tensor:
+            if initial is None:
+                return torch.zeros((self.num_entities, d), dtype=torch.float32, device=dev)
+            W0 = initial.coefficients
+            if W0.shape[0] != self.num_entities:
+                raise ValueError(f"warm-start entity count {W0.shape[0]} != {self.num_entities}")
+            return torch.as_tensor(W0, dtype=torch.float32, device=dev).clone()
+
+        def advance(aux, static: Tensor) -> None:
+            # the next visit warm-starts from this visit's original-space
+            # coefficients; with a projector ``train`` maps them back to the
+            # projected space itself, as the eager loop's next visit does
+            static.copy_(aux[0].coefficients)
+
+        key = ("random", id(self), id(prepared), id(units), repr(self.config), fuse_buckets(),
+               iter_accounting_enabled())
+        return FusedVisitParts(make_static, run, _postprocess, advance, key, (self, prepared, units))
+
+    def visit(self, total: Tensor, own_score: Tensor | None, initial: GameSubModel | None = None):
+        """See ``FixedEffectCoordinate.visit``."""
+        return _visit(self, total, own_score, initial)
+
+    def _build_visit_fn(self):
+        """The visit body (``FixedEffectCoordinate._build_visit_fn``): every
+        bucket's solve chained by ``train_prepared``, the solutions scattered
+        into the (E, d) matrix on the device, the per-entity diagnostics
+        left there, and the launch accounting deferred."""
+
+        def run(static: Tensor, total: Tensor, own_score: Tensor):
+            offsets = total - own_score
+            initial = RandomEffectModel(coefficients=static, variances=None,
+                                        random_effect_type=self.random_effect_type,
+                                        feature_shard_id=self.feature_shard_id, task_type=self.task_type)
+            model, tracker = self.train(offsets, initial)
+            new_score = self.score(model)
+            return (model, tracker), new_score, offsets + new_score
+
+        return run
 
     def score(self, model: RandomEffectModel) -> Tensor:
         if self.mesh is None:

@@ -1,5 +1,5 @@
-"""Coordinate descent over GAME coordinates (port of the eager visit loop
-of ``photon_ml_tpu/game/descent.py``).
+"""Coordinate descent over GAME coordinates (port of
+``photon_ml_tpu/game/descent.py``).
 
 The loop keeps ``total = offsets + Σ coordinate scores`` and trains each
 coordinate on ``total − its own score`` (its residual), then swaps its new
@@ -10,17 +10,33 @@ every visit. With a checkpoint directory the model, the scores and the
 total are saved after every outer iteration (``checkpoint.py``), and a
 rerun resumes at the next one.
 
-Telemetry (``obs``; no-ops with no sink): spans ``descent/iter`` →
-``descent/visit``, ``descent/validation`` and ``descent/checkpoint``, and
-a ``descent_iteration`` record after every outer iteration.
+Two paths, chosen as the reference chooses. Without validation run by
+evaluators, and where every coordinate offers ``_fused_visit_parts``
+(``game/coordinate.py``: not over a mesh, with down-sampling, under lane
+compaction, or on TRON, whose device-driven solver is not ported yet),
+the fused path runs: every coordinate's visit chained into one outer
+iteration over static buffers (``_FusedOuter``), the outer iterations in
+power-of-two chunks, largest first, at most ``_MAX_FUSED_CHUNK`` (1 with
+a checkpoint directory). On the card the first outer iteration is an
+eager warm-up on a side stream, the next is captured once as a CUDA graph
+whose solver loops the device decides (``ops/graphs.py``), and every later
+one, in any chunk or later ``run``, replays it; a chunk reads back once,
+at its end. On the CPU the same chain runs eagerly, bitwise the eager
+loop. Otherwise the eager visit loop runs, one coordinate at a time
+(``CoordinateDescent(..., _fused=False)`` forces it).
+
+Telemetry (``obs``; no-ops with no sink): on the eager loop spans
+``descent/iter`` → ``descent/visit``, ``descent/validation``; on the fused
+path one ``descent/fused-outer`` span a chunk (``first_iteration``,
+``iterations``); on both ``descent/checkpoint`` and a
+``descent_iteration`` record after every outer iteration.
 
 With a data mesh (``parallel/mesh.py``) the coordinates solve and score
 over it, the (n,) vectors live on the mesh's head device, and validation
 takes the evaluators' sharded forms (``evaluate_all(mesh=)``). Across
 processes process 0 alone writes checkpoints and reads them for a
 resume; every process adopts the bytes it broadcasts, so all make the same
-decision. The reference's one-program fused outer iteration waits
-(ROADMAP queue 1 item 10a.6).
+decision.
 
 Peer loss (ROADMAP 12d-v-a). Each outer iteration is a transaction: a
 ``multihost.PeerLost`` inside it either aborts ``run`` with the
@@ -40,7 +56,9 @@ checkpoint of the layout before the loss.
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping, Sequence
 
@@ -52,11 +70,192 @@ from photon_ml_tpu_torch.game.data import GameBatch
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.obs import emit_event, span
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
+from photon_ml_tpu_torch.ops import graphs
+from photon_ml_tpu_torch.optim.common import OptimizationResult
 from photon_ml_tpu_torch.parallel import multihost as mh
 from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, effective_mesh
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
+
+# chunk cap: bounds the per-iteration results a chunk keeps (R × each
+# visit's coefficients, trackers and deferred reads) while still spreading
+# the chunk's one read over R iterations
+_MAX_FUSED_CHUNK = 16
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(x, 1).bit_length() - 1)
+
+
+def _map_tensors(obj, fn):
+    """``obj`` (tuples, lists, dataclasses of tensors) with every tensor
+    replaced by ``fn(tensor)``."""
+    if isinstance(obj, Tensor):
+        return fn(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(x, fn) for x in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _map_tensors(getattr(obj, f.name), fn)
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def _device_counts(tracker) -> tuple[str, ...]:
+    """The single-GLM tracker fields a deferred solve left on the device
+    (``optim/lbfgs.py``, ``optim/newton.py``)."""
+    if not isinstance(tracker, OptimizationResult):
+        return ()
+    return tuple(f for f in ("iterations", "reason", "objective_passes")
+                 if isinstance(getattr(tracker, f), Tensor) and getattr(tracker, f).dim() == 0)
+
+
+class _FusedOuter:
+    """Every coordinate's visit of one outer iteration chained (each
+    ``FusedVisitParts.apply``, then its ``advance``) over static buffers:
+    the running total, each coordinate's own score and warm start. A chunk
+    of R outer iterations loads the buffers once, runs the outer iteration R
+    times over them and reads back once, at the chunk's end, everything the
+    trackers, the launch accounting and the launch counts need.
+
+    On the CPU each outer iteration runs eagerly (the solvers' eager
+    drivers). On the card the first outer iteration this object runs is a
+    warm-up, run eagerly on a side stream; the next captures the outer
+    iteration once (``graphs.capture``: the solvers' loops become WHILE
+    nodes the device decides) and every later one, in this chunk and in
+    later chunks and ``run`` calls, replays it: no host read between a
+    chunk's first replay and its last. Each replay's results (the visits'
+    sub-models and trackers, written by the graph into the same tensors
+    every time) are copied on the device before the next one."""
+
+    def __init__(self, seq: tuple, parts: list, device: torch.device):
+        self.seq, self.parts, self.device = seq, parts, device
+        self._total = self._owns = self._statics = None
+        self._graph = self._template = None
+        self._warm = False
+        self.capture_s = None  # the capture's wall seconds, once captured
+
+    def _load(self, model: GameModel, total: Tensor, scores: dict) -> None:
+        if self._total is None:
+            self._total = torch.empty_like(total)
+            self._owns = [torch.empty_like(total) for _ in self.seq]
+            self._statics = [p.make_static(model.models.get(cid)) for p, cid in zip(self.parts, self.seq)]
+        else:
+            for p, cid, st in zip(self.parts, self.seq, self._statics):
+                sub = model.models.get(cid)
+                if sub is None:
+                    st.zero_()
+                else:
+                    st.copy_(p.make_static(sub))
+        self._total.copy_(total)
+        for own, cid in zip(self._owns, self.seq):
+            if cid in scores:
+                own.copy_(scores[cid])
+            else:
+                own.zero_()
+
+    def _iteration(self) -> list:
+        aux = []
+        for p, own, static in zip(self.parts, self._owns, self._statics):
+            a, new_score, new_total = p.apply(static, self._total, own)
+            own.copy_(new_score)
+            self._total.copy_(new_total)
+            p.advance(a, static)
+            aux.append(a)
+        return aux
+
+    def _deferred_iteration(self) -> tuple[list, list]:
+        with graphs.deferring() as regs:
+            aux = self._iteration()
+        return aux, regs
+
+    def _run_one(self) -> tuple[list, list]:
+        """One outer iteration: eagerly, as the warm-up, by a capture and
+        its first replay, or by a replay (class docstring)."""
+        if self.device.type != "cuda":
+            return self._deferred_iteration()
+        cur = torch.cuda.current_stream(self.device)
+        if self._graph is None:
+            side = graphs.capture_stream(self.device)
+            side.wait_stream(cur)
+            if not self._warm:
+                with torch.cuda.stream(side):
+                    out = self._deferred_iteration()
+                cur.wait_stream(side)
+                self._warm = True
+                return out
+            t0 = time.perf_counter()
+            self._graph, self._template = graphs.capture(self._deferred_iteration, self.device, side)
+            cur.wait_stream(side)
+            self.capture_s = time.perf_counter() - t0
+        self._graph.replay()
+        aux, regs = self._template
+        return (_map_tensors(aux, torch.Tensor.clone),
+                [(tuple(t.clone() for t in ts), fn) for ts, fn in regs])
+
+    def __call__(self, model: GameModel, total: Tensor, scores: dict, r: int):
+        """R outer iterations from (model, total, scores): returns the model,
+        total and scores after the last, and each iteration's trackers."""
+        self._load(model, total, scores)
+        runs = [self._run_one() for _ in range(r)]
+        # the chunk's one read: the single-GLM trackers' counts, the deferred
+        # launch accounting and the kernels' device launch counts
+        reads = []
+        for aux, regs in runs:
+            for _, tracker in aux:
+                for name in _device_counts(tracker):
+                    reads.append(getattr(tracker, name))
+            for ts, fn in regs:
+                reads.extend(ts)
+        counters = graphs.take_device_counts()
+        reads.extend(t for t, _ in counters)
+        host = iter(graphs.read_all(reads))
+        trackers_per_iter = []
+        for j, (aux, regs) in enumerate(runs):
+            iter_trackers = {}
+            for cid, p, a in zip(self.seq, self.parts, aux):
+                sub, tracker = p.postprocess(a, build_model=j == r - 1)
+                fields = _device_counts(tracker)
+                if fields:
+                    tracker = dataclasses.replace(tracker, **{f: int(next(host)) for f in fields})
+                iter_trackers[cid] = tracker
+                if sub is not None:
+                    model = model.updated(cid, sub)
+            for ts, fn in regs:
+                fn([next(host) for _ in ts])
+            trackers_per_iter.append(iter_trackers)
+        for t, sink in counters:
+            sink(int(next(host)))
+        if counters:
+            graphs.zero_device_counts()
+        scores = dict(scores)
+        for cid, own in zip(self.seq, self._owns):
+            scores[cid] = own.clone()
+        return model, self._total.clone(), scores, trackers_per_iter
+
+
+def _build_fused_outer(coordinates: Mapping[str, Any], seq: Sequence[str], device: torch.device,
+                       cache: dict) -> _FusedOuter | None:
+    """The fused outer iteration (``_FusedOuter``) over ``seq``, or None
+    when a coordinate needs host staging per visit (its
+    ``_fused_visit_parts`` is None: a mesh, down-sampling, lane
+    compaction, TRON). Kept in ``cache`` under everything a capture of it
+    bakes in: the sequence, the device and each coordinate's key (its
+    staged tensors, its solver configuration and the knobs its visit
+    reads), so a second ``run`` replays what the first captured and a
+    changed knob captures anew."""
+    parts = []
+    for cid in seq:
+        get = getattr(coordinates[cid], "_fused_visit_parts", None)
+        p = get() if get is not None else None
+        if p is None:
+            return None
+        parts.append(p)
+    key = (tuple(seq), str(device), tuple(p.key for p in parts))
+    if key not in cache:
+        cache[key] = _FusedOuter(tuple(seq), parts, device)
+    return cache[key]
+
 
 # in-place degrade of the descent on a peer loss (``PHOTON_DESCENT_DEGRADE``;
 # the environment wins over this module value, read at call time)
@@ -108,6 +307,7 @@ class CoordinateDescent:
         evaluators: Sequence[str] = (),
         logger: Callable[[str], None] | None = None,
         mesh: Mesh | ProcessMesh | None = None,
+        _fused: bool = True,
     ):
         self.coordinates = dict(coordinates)
         self.batch = batch
@@ -116,6 +316,11 @@ class CoordinateDescent:
         self.evaluators = list(evaluators)
         self._log = logger or (lambda msg: None)
         self.mesh = None if mesh is None else as_process_mesh(mesh)
+        # False keeps the eager visit loop wherever the fused path applies
+        # (tests and the smoke compare the two)
+        self._fused = _fused
+        # fused outer iterations (and their captured graphs) by key
+        self._fused_outer_cache: dict[tuple, _FusedOuter] = {}
 
     def run(
         self,
@@ -203,6 +408,15 @@ class CoordinateDescent:
             for s in scores.values():
                 total = total + s
 
+        fused_outer = None
+        if self._fused and not (self.validation_batch is not None and self.evaluators):
+            fused_outer = _build_fused_outer(self.coordinates, update_sequence, total.device,
+                                             self._fused_outer_cache)
+        if fused_outer is not None:
+            return self._run_fused(fused_outer, update_sequence, num_iterations, start_iteration, model, scores,
+                                   total, trackers, validation_history, checkpoint_dir, checkpoint_fingerprint,
+                                   digest)
+
         it = start_iteration
         flap_retries = 0
         while it < num_iterations:
@@ -238,6 +452,56 @@ class CoordinateDescent:
             training_scores=scores,
         )
 
+    def _run_fused(self, fused_outer: _FusedOuter, update_sequence, num_iterations, start_iteration, model,
+                   scores, total, trackers, validation_history, checkpoint_dir, checkpoint_fingerprint,
+                   digest) -> CoordinateDescentResult:
+        """The fused path: outer iterations in power-of-two chunks, largest
+        first, at most ``_MAX_FUSED_CHUNK`` (1 with a checkpoint directory:
+        a checkpoint follows every outer iteration), one
+        ``descent/fused-outer`` span a chunk; then, per logical iteration,
+        the trackers, the log lines, the ``descent_iteration`` record and
+        the checkpoint, in the eager loop's order."""
+        cap = 1 if checkpoint_dir is not None else _MAX_FUSED_CHUNK
+        it = start_iteration
+        while it < num_iterations:
+            r = min(_pow2_floor(num_iterations - it), cap)
+            # one span a chunk: its iterations have no host boundaries
+            with span("descent/fused-outer", first_iteration=it, iterations=r):
+                model, total, scores, trackers_per_iter = fused_outer(model, total, scores, r)
+            for j in range(r):
+                for cid in update_sequence:
+                    self._append_tracker(trackers, cid, trackers_per_iter[j][cid])
+                    self._log(f"iter {it + j} coordinate {cid}: trained")
+                self._end_of_iteration(it + j, {}, model, scores, total, validation_history, checkpoint_dir,
+                                       checkpoint_fingerprint, digest)
+            it += r
+        return CoordinateDescentResult(
+            model=model, validation_history=validation_history, trackers=trackers, training_scores=scores,
+        )
+
+    @staticmethod
+    def _append_tracker(trackers: dict, cid: str, tracker) -> None:
+        if trackers[cid]:
+            # keep per-entity diagnostics of the latest visit only
+            release = getattr(trackers[cid][-1], "release_device_diagnostics", None)
+            if release is not None:
+                release()
+        trackers[cid].append(tracker)
+
+    def _end_of_iteration(self, it, iter_validation, model, scores, total, validation_history, checkpoint_dir,
+                          checkpoint_fingerprint, digest) -> None:
+        validation_history.append(iter_validation)
+        emit_event("descent_iteration", iteration=it)
+        if checkpoint_dir is not None and mh.is_output_process():
+            from photon_ml_tpu_torch.checkpoint import save_checkpoint
+
+            with span("descent/checkpoint", iteration=it):
+                save_checkpoint(
+                    checkpoint_dir, model, next_iteration=it + 1,
+                    fingerprint=checkpoint_fingerprint,
+                    scores=scores, total=total, data_digest=digest,
+                )
+
     def _run_one_iteration(self, it, update_sequence, model, scores, total, trackers, validation_history,
                            checkpoint_dir, checkpoint_fingerprint, digest):
         """One outer iteration, the unit the degrade in place rolls back:
@@ -254,12 +518,7 @@ class CoordinateDescent:
                     total = offsets + new_score
                     scores[cid] = new_score
                     model = model.updated(cid, sub_model)
-                    if trackers[cid]:
-                        # keep per-entity diagnostics of the latest visit only
-                        release = getattr(trackers[cid][-1], "release_device_diagnostics", None)
-                        if release is not None:
-                            release()
-                    trackers[cid].append(tracker)
+                    self._append_tracker(trackers, cid, tracker)
                 if validate:
                     vb = self.validation_batch
                     with span("descent/validation", iteration=it, coordinate=cid):
@@ -271,17 +530,8 @@ class CoordinateDescent:
                     self._log(f"iter {it} coordinate {cid}: {res}")
                 else:
                     self._log(f"iter {it} coordinate {cid}: trained")
-            validation_history.append(iter_validation)
-            emit_event("descent_iteration", iteration=it)
-            if checkpoint_dir is not None and mh.is_output_process():
-                from photon_ml_tpu_torch.checkpoint import save_checkpoint
-
-                with span("descent/checkpoint", iteration=it):
-                    save_checkpoint(
-                        checkpoint_dir, model, next_iteration=it + 1,
-                        fingerprint=checkpoint_fingerprint,
-                        scores=scores, total=total, data_digest=digest,
-                    )
+            self._end_of_iteration(it, iter_validation, model, scores, total, validation_history, checkpoint_dir,
+                                   checkpoint_fingerprint, digest)
         return model, scores, total
 
     def _degrade_in_place(self, err, iteration: int) -> bool:
@@ -311,6 +561,8 @@ class CoordinateDescent:
         mh.set_degraded_group(survivors)
         if self.mesh is not None:
             self.mesh = effective_mesh(self.mesh)
+        # the fused outer iterations hold the old preparation's tensors
+        self._fused_outer_cache.clear()
         for coord in self.coordinates.values():
             reset = getattr(coord, "_reset_compiled_state", None)
             if reset is not None:

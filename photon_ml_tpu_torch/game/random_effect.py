@@ -137,8 +137,9 @@ from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.obs import sink as obs_sink
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.obs.spans import emit_event
+from photon_ml_tpu_torch.ops import graphs
 from photon_ml_tpu_torch.ops.batch import DenseBatch, SparseBatch
-from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, make_lane_objective
+from photon_ml_tpu_torch.ops.glm import GaussianPrior, compute_variances, device_scalar, make_lane_objective
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.optim.common import (
     hash_expand_coefficients,
@@ -607,7 +608,7 @@ def train_prepared(
         prior_mu, prior_var = prior.means, prior.variances
     compute_variance = variance_computation is not VarianceComputationType.NONE
     V = torch.zeros((E, d), dtype=torch.float32, device=dev) if compute_variance else None
-    l2 = torch.as_tensor(l2_weight, dtype=torch.float32, device=dev)
+    l2 = device_scalar(l2_weight, dev)
 
     kw = dict(loss=loss, config=config, intercept_index=intercept_index,
               variance_computation=variance_computation, minimize_fn=minimize_fn, minimize_kwargs=extra)
@@ -688,7 +689,7 @@ def _scatter_lanes(W: Tensor, V: Tensor | None, ids: Tensor, columns: Tensor | N
         if columns is None:
             M[ids] = lanes
         else:
-            M[ids] = 0.0
+            M.index_fill_(0, ids, 0.0)
             M[ids[:, None], columns] = lanes
 
 
@@ -1274,14 +1275,22 @@ class DeferredLaunchAccounting:
     has waited for its last solve anyway, and adds executed (lanes × the
     slowest lane's iterations: the lanes step in lock step) and useful (Σ
     iterations) entity iterations to ``launch_counts`` and the registry
-    (``re_solve.*``, with the ``re_solve.active_lane_fraction`` gauge)."""
+    (``re_solve.*``, with the ``re_solve.active_lane_fraction`` gauge).
+    Inside a deferred run (``graphs.deferring``: a fused outer iteration,
+    captured or not) ``add`` defers the launch and its iterations to that
+    run's one read at its end, once per run of the visit."""
 
     def __init__(self) -> None:
         self._pending: list[tuple[Tensor, int]] = []
 
     def add(self, it_lane: Tensor, lanes: int) -> None:
+        accounting = iter_accounting_enabled()
+        if graphs.is_deferring():
+            graphs.defer((it_lane,) if accounting else (),
+                         functools.partial(_deferred_launch, lanes=int(lanes)))
+            return
         _count_launch()
-        if iter_accounting_enabled():
+        if accounting:
             self._pending.append((it_lane, int(lanes)))
 
     def flush(self) -> None:
@@ -1293,13 +1302,24 @@ class DeferredLaunchAccounting:
         lo = 0
         for it, lanes in self._pending:
             n = torch.as_tensor(it).numel()
-            part = its[lo:lo + n]
+            _count_lane_iterations(its[lo:lo + n], lanes)
             lo += n
-            executed, useful = int(part.max(initial=0)) * lanes, int(part.sum())
-            _count_iterations(executed, useful)
-            if executed:
-                REGISTRY.gauge_set("re_solve.active_lane_fraction", useful / executed)
         self._pending.clear()
+
+
+def _count_lane_iterations(its: np.ndarray, lanes: int) -> None:
+    executed, useful = int(its.max(initial=0)) * lanes, int(its.sum())
+    _count_iterations(executed, useful)
+    if executed:
+        REGISTRY.gauge_set("re_solve.active_lane_fraction", useful / executed)
+
+
+def _deferred_launch(host: list, lanes: int) -> None:
+    """A deferred run's launch, and its lanes' iterations where they were
+    kept (``DeferredLaunchAccounting.add``)."""
+    _count_launch()
+    if host:
+        _count_lane_iterations(np.asarray(host[0], np.int64).reshape(-1), lanes)
 
 
 def _count_launch() -> None:

@@ -1,6 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every source under ``csrc/`` has a plain C interface. At first use each is
+Every source under ``csrc/`` (the kernels, ``SOURCES``) and
+``csrc/graphs/`` (the CUDA graph helpers of ``ops/graphs.py``,
+``GRAPH_SOURCES``) has a plain C interface. At first use each is
 compiled with ``nvcc`` for ``sm_90a`` into an object, all at once in
 parallel, and the objects are linked into one shared library under
 ``photon_ml_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
@@ -28,6 +30,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+GRAPH_SOURCES = tuple(sorted((_PKG / "csrc" / "graphs").glob("*.cu")))
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -51,7 +54,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES + HEADERS:
+    for src in SOURCES + GRAPH_SOURCES + HEADERS:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libphoton_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -75,16 +78,17 @@ def build() -> Path:
     procs: list[subprocess.Popen] = []
     try:
         nvcc = _nvcc()
-        objects = [tmp / f"{src.stem}.o" for src in SOURCES]
-        logs = [tmp / f"{src.stem}.log" for src in SOURCES]
-        for src, obj, log in zip(SOURCES, objects, logs):
+        sources = SOURCES + GRAPH_SOURCES
+        objects = [tmp / f"{src.stem}.o" for src in sources]
+        logs = [tmp / f"{src.stem}.log" for src in sources]
+        for src, obj, log in zip(sources, objects, logs):
             with open(log, "w") as f:  # the child keeps its own descriptor
                 procs.append(subprocess.Popen(
                     [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                     stdout=f, stderr=subprocess.STDOUT,
                 ))
         codes = [p.wait() for p in procs]
-        for src, code, log in zip(SOURCES, codes, logs):
+        for src, code, log in zip(sources, codes, logs):
             if code != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{log.read_text()}")
         linked = tmp / out.name
@@ -94,7 +98,7 @@ def build() -> Path:
         )
         if link.returncode != 0:
             raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
-        for src, log in zip(SOURCES, logs):
+        for src, log in zip(sources, logs):
             os.replace(log, log_path(out, src))
         os.replace(linked, out)
     finally:
@@ -130,5 +134,16 @@ def load() -> ctypes.CDLL:
         # write_len, nnz, tile_write, carry, square, out, stream
         lib.photon_sparse_apply.argtypes = [p, p, p, i, p, ll, p, ll, ll, ll, p, p, i, p, p]
         lib.photon_sparse_apply.restype = i
+        # csrc/graphs/while_loops.cu: graphs, nodes and execs pass as void pointers
+        pp, ull = ctypes.POINTER(ctypes.c_void_p), ctypes.c_ulonglong
+        for name, args in (("photon_graph_create", [pp]), ("photon_graph_destroy", [p]),
+                           ("photon_graph_node_count", [p, ctypes.POINTER(ull)]),
+                           ("photon_graph_add_child", [p, p, p, pp]),
+                           ("photon_graph_add_while", [p, p, p, pp, pp, ctypes.POINTER(ull)]),
+                           ("photon_graph_add_set", [p, p, ull, p, pp]),
+                           ("photon_graph_instantiate", [p, pp]), ("photon_graph_launch", [p, p]),
+                           ("photon_graph_exec_destroy", [p])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i
         _lib = lib
     return _lib

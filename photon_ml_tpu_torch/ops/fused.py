@@ -38,7 +38,10 @@ is read there, a Python number passes by value), allocates its output,
 and reuses the blocks' float64 partials, kept per device and stream.
 
 ``launch_counts`` counts the calls that launched each kernel (plain
-integers; ``reset_launch_counts`` zeroes them). While device-cost capture
+integers; ``reset_launch_counts`` zeroes them). A call made while a CUDA
+graph is captured (``ops/graphs.py``) counts on the device instead, once
+for each launch a replay makes, and the owner of the replays adds those
+counts here after its one read. While device-cost capture
 is on (``obs/devcost``: a telemetry sink, or ``PHOTON_DEVCOST=1``), each
 wrapper records its call signature's analytic work once
 (``value_grad_cost`` / ``hvp_cost``: the bytes and operations the bound
@@ -47,13 +50,14 @@ divides), on the card and on the CPU alike.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from photon_ml_tpu_torch.obs import devcost
-from photon_ml_tpu_torch.ops import _cuda
+from photon_ml_tpu_torch.ops import _cuda, graphs
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
 Tensor = torch.Tensor
@@ -142,6 +146,10 @@ def inputs_aligned(*tensors: Tensor | None) -> bool:
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def _count(name: str, n: int) -> None:
+    launch_counts[name] += n
 
 
 def _cost(n: int, d: int, x_itemsize: int, row_vectors: int, in_vectors: int, outputs: int,
@@ -345,7 +353,7 @@ def _value_grad(X, labels, offsets, weights, u, c, loss, layout: int | None):
     else:
         rc = lib.photon_fused_vg_layout(*args, layout)
     _raise_on(rc, "fused_value_grad")
-    launch_counts["fused_value_grad"] += 1
+    graphs.count_launch("fused_value_grad", device, functools.partial(_count, "fused_value_grad"))
     return out[d], out[:d], out[d + 1]
 
 
@@ -375,5 +383,5 @@ def fused_hvp(X, labels, offsets, weights, u, v, c, cv, *, loss: PointwiseLoss):
         max_grid, part, out.data_ptr(), stream,
     )
     _raise_on(rc, "fused_hvp")
-    launch_counts["fused_hvp"] += 1
+    graphs.count_launch("fused_hvp", device, functools.partial(_count, "fused_hvp"))
     return out[:d], out[d]

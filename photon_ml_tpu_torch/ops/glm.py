@@ -297,6 +297,24 @@ class GaussianPrior:
         return cls(means=mu, variances=var)
 
 
+def reg_mask(d: int, intercept_index: int | None, device) -> Tensor:
+    """(d,) float32: 1 on every regularized coordinate, 0 on the intercept;
+    made on the device by kernels alone (a captured visit builds it)."""
+    mask = torch.ones(d, dtype=torch.float32, device=device)
+    if intercept_index is not None:
+        mask.index_fill_(0, torch.full((1,), intercept_index, dtype=torch.int64, device=device), 0.0)
+    return mask
+
+
+def device_scalar(x: float | Tensor, device, dtype=torch.float32) -> Tensor:
+    """A 0-d tensor of ``x`` on ``device``: a tensor converted where it
+    lies, a Python number written by a fill on the device (never a copy
+    from the host, which a captured CUDA graph cannot hold)."""
+    if isinstance(x, Tensor):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    return torch.full((), float(x), dtype=dtype, device=device)
+
+
 def compute_variances(obj, w: Tensor, variance_type: VarianceComputationType) -> Tensor | None:
     """Coefficient variances from the Hessian at the optimum: SIMPLE
     inverts its diagonal, FULL takes the diagonal of its inverse. For a
@@ -331,9 +349,7 @@ def make_objective(
     dev = check_device(batch.device, device)
     d = batch.num_features
     norm = no_normalization(d, intercept_index, device=dev) if norm is None else norm.to(dev)
-    mask = torch.ones(d, dtype=torch.float32, device=dev)
-    if intercept_index is not None:
-        mask[intercept_index] = 0.0
+    mask = reg_mask(d, intercept_index, dev)
     if fused is None:
         fused = auto_fused(batch)
     offsets_zero = weights_one = False
@@ -344,7 +360,7 @@ def make_objective(
     return GLMObjective(
         batch=batch,
         norm=norm,
-        l2_weight=torch.as_tensor(l2_weight, dtype=torch.float32, device=dev),
+        l2_weight=device_scalar(l2_weight, dev),
         reg_mask=mask,
         loss=loss,
         fused=bool(fused),
@@ -568,16 +584,14 @@ def make_lane_objective(
         )
     dev = batch.device
     d = batch.num_features
-    mask = torch.ones(d, dtype=torch.float32, device=dev)
-    if intercept_index is not None:
-        mask[intercept_index] = 0.0
+    mask = reg_mask(d, intercept_index, dev)
     prec = None
     if prior_mean is not None and prior_variances is not None:
         prec = GaussianPrior(means=prior_mean, variances=prior_variances).precisions
     return LaneGLMObjective(
         batch=batch,
         norm=None if norm is None else norm.to(dev),
-        l2_weight=torch.as_tensor(l2_weight, dtype=torch.float32, device=dev),
+        l2_weight=device_scalar(l2_weight, dev),
         reg_mask=mask,
         loss=loss,
         prior_mean=prior_mean,

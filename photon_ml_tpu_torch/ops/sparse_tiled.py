@@ -52,12 +52,14 @@ signature's analytic work once (``tiled_apply_cost``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from dataclasses import dataclass
 
 import torch
 
 from photon_ml_tpu_torch.obs import devcost
+from photon_ml_tpu_torch.ops import graphs
 
 Tensor = torch.Tensor
 
@@ -451,5 +453,10 @@ def sparse_apply(layout: SparseLayout, src: Tensor, square: bool = False,
     )
     if rc != 0:
         raise RuntimeError(f"sparse_apply kernel launch failed: cudaError {rc}")
-    launch_counts[direction] += 1
+    # on the device while a CUDA graph is captured (ops/graphs.py)
+    graphs.count_launch(f"sparse_apply.{direction}", src.device, functools.partial(_count, direction))
     return out
+
+
+def _count(direction: str, n: int) -> None:
+    launch_counts[direction] += n

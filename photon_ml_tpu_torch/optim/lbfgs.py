@@ -1,18 +1,21 @@
 """L-BFGS and OWL-QN (port of ``photon_ml_tpu/optim/lbfgs.py``).
 
 The reference runs the whole solve as one ``lax.while_loop`` on the device.
-Here the loop runs on the host over tensors on the objective's device, with
-the same stopping rules, line search and ``objective_passes`` count: every
-vector stays on the device and the host reads one boolean per test
-(line-search step, acceptance, convergence). The history is the same
-fixed ``(m, d)`` ring buffer.
+Here the iteration and the line-search trial are each one body over state
+tensors on the objective's device, written in place, with the same
+stopping rules, line search and ``objective_passes`` count; the pair
+count, the iteration and trial counts and the stopping reason stay on the
+device, and the two-loop recursion runs all m ring slots, masked past the
+count. ``ops/graphs.py``'s ``loop`` runs each body: it reads one flag a
+trip on the host, or, inside a captured CUDA graph, leaves the trips to
+the device. The history is the same fixed ``(m, d)`` ring buffer.
 
 With a (k, d) start on a ``LaneGLMObjective`` (a random-effect bucket of k
 entities) both solvers run over the lanes in lock step, as the reference's
 loop does under ``jax.vmap`` (``_lbfgs_lanes``): every lane keeps its own
 history ring, line search, acceptance and stopping reason, done lanes are
-frozen with ``torch.where``, and the host reads back one boolean per
-line-search step and one per iteration for the whole bucket. The lane loop
+frozen under their masks, and the eager loop reads one flag a line-search
+trial and one an iteration for the whole bucket. The lane loop
 is three pieces, a state (``LbfgsLaneState``), ``init``, ``run`` to an
 iteration bound and ``finalize``: the one-shot lane solve runs them once,
 and lane compaction runs them in chunks through the public twins
@@ -21,19 +24,16 @@ and lane compaction runs them in chunks through the public twins
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
 from photon_ml_tpu_torch.config import OptimizerConfig
-from photon_ml_tpu_torch.ops.glm import LaneGLMObjective
-from photon_ml_tpu_torch.optim.common import (
-    ConvergenceReason,
-    LaneState,
-    OptimizationResult,
-    grad_converged,
-)
+from photon_ml_tpu_torch.ops import graphs
+from photon_ml_tpu_torch.ops.glm import LaneGLMObjective, device_scalar
+from photon_ml_tpu_torch.optim.common import ConvergenceReason, LaneState, OptimizationResult
 
 Tensor = torch.Tensor
 
@@ -51,36 +51,45 @@ def _pseudo_gradient(w: Tensor, g: Tensor, l1w: Tensor) -> Tensor:
     return torch.where(w > 0.0, gp, torch.where(w < 0.0, gm, at_zero))
 
 
-def _two_loop(pg: Tensor, S: Tensor, Y: Tensor, rho: Tensor, count: int, m: int) -> Tensor:
+def _two_loop(pg: Tensor, S: Tensor, Y: Tensor, rho: Tensor, count: Tensor, m: int, steps: int) -> Tensor:
     """Two-loop recursion: r ≈ H⁻¹·pg from the ring-buffer history (the
-    newest ``min(count, m)`` pairs)."""
-    valid_n = min(count, m)
+    newest ``min(count, m)`` pairs), with the pair count on the device: the
+    ring is gathered newest first (slot (count − 1 − j) mod m at step j)
+    and ``steps`` (≥ min(count, m)) steps run, each masked where
+    j ≥ min(count, m), so a masked step leaves q and r exactly as they
+    were; γ is 1 while count is 0."""
+    j = torch.arange(m, device=pg.device)
+    valid = j < torch.clamp_max(count, m)
+    newest_first = torch.remainder(count - 1 - j, m)
+    S_o, Y_o, rho_o = S[newest_first], Y[newest_first], rho[newest_first]
     q = pg
-    alpha = [None] * m
-    for i in range(valid_n):  # newest to oldest
-        slot = (count - 1 - i) % m
-        a = rho[slot] * torch.dot(S[slot], q)
-        q = q - a * Y[slot]
-        alpha[slot] = a
-    if count > 0:
-        newest = (count - 1) % m
-        yy = torch.dot(Y[newest], Y[newest])
-        gamma = torch.dot(S[newest], Y[newest]) / torch.clamp_min(yy, 1e-30)
-        r = gamma * q
-    else:
-        r = q
-    for i in range(valid_n):  # oldest to newest
-        slot = (count - valid_n + i) % m
-        beta = rho[slot] * torch.dot(Y[slot], r)
-        r = r + (alpha[slot] - beta) * S[slot]
+    alpha = []
+    for i in range(steps):  # newest to oldest
+        a = rho_o[i] * torch.dot(S_o[i], q)
+        q = torch.where(valid[i], q - a * Y_o[i], q)
+        alpha.append(a)
+    yy = torch.dot(Y_o[0], Y_o[0])
+    gamma = torch.where(count > 0, torch.dot(S_o[0], Y_o[0]) / torch.clamp_min(yy, 1e-30), 1.0)
+    r = gamma * q
+    for i in reversed(range(steps)):  # oldest to newest
+        beta = rho_o[i] * torch.dot(Y_o[i], r)
+        r = torch.where(valid[i], r + (alpha[i] - beta) * S_o[i], r)
     return r
 
 
 def _lbfgs_impl(
     objective: Any, w0: Tensor, config: OptimizerConfig, l1w: Tensor | None
 ) -> OptimizationResult:
+    """One GLM's solve. Its iteration and its line-search trial are bodies
+    over state tensors written in place, run by ``graphs.loop``: the eager
+    driver reads one flag before each iteration and each trial, and inside
+    a capture the device decides. The pair count, the iteration and trial
+    counts and the stopping reason live on the device; the result's counts
+    are read once at the end (under ``graphs.deferring`` they stay tensors
+    for the deferred run's one read)."""
     m = config.history_length
     T = config.max_iterations
+    max_ls = config.max_line_search_steps
     use_l1 = l1w is not None
     fused_eval = bool(
         getattr(objective, "one_pass_value_grad", getattr(objective, "fused", False))
@@ -103,22 +112,30 @@ def _lbfgs_impl(
 
     d = w0.shape[0]
     dtype, dev = w0.dtype, w0.device
-    w = w0
-    f, g, pg = value_and_grads(w0)
-    g0_norm = torch.linalg.norm(pg)
+    f0, g0, pg0 = value_and_grads(w0)
+    g0_norm = torch.linalg.norm(pg0)
+    g_tol = config.tolerance * torch.clamp_min(g0_norm, 1.0)
+    # the state, written in place by each iteration
+    w, f, g, pg = w0.clone(), f0.clone(), g0.clone(), pg0.clone()
     S = torch.zeros((m, d), dtype=dtype, device=dev)
     Y = torch.zeros((m, d), dtype=dtype, device=dev)
     rho = torch.zeros((m,), dtype=dtype, device=dev)
-    count = 0
-    it = 0
-    evals = 1  # the initial value_and_grads
-    reason = ConvergenceReason.MAX_ITERATIONS
-    done = grad_converged(g0_norm, g0_norm, config.tolerance)
-    loss_hist = [f]
-    gnorm_hist = [g0_norm]
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    evals = torch.ones((), dtype=torch.int64, device=dev)  # the initial value_and_grads
+    reason = torch.full((), int(ConvergenceReason.MAX_ITERATIONS), dtype=torch.int64, device=dev)
+    done = g0_norm <= g_tol
+    go = ~done
+    loss_hist = torch.full((T + 1,), float("nan"), dtype=dtype, device=dev)
+    gnorm_hist = torch.full((T + 1,), float("nan"), dtype=dtype, device=dev)
+    loss_hist[0] = f0
+    gnorm_hist[0] = g0_norm
+    slots = torch.arange(m, device=dev)
 
-    while it < T and not done:
-        p = -_two_loop(pg, S, Y, rho, count, m)
+    def iteration(trip: int | None) -> None:
+        # the pairs held are at most the iterations run (the trip's index);
+        # inside a capture all m slots run, masked
+        p = -_two_loop(pg, S, Y, rho, count, m, m if trip is None else min(trip, m))
         if use_l1:
             # constrain the search direction to the descent orthant
             p = torch.where(p * (-pg) > 0.0, p, torch.zeros_like(p))
@@ -128,37 +145,34 @@ def _lbfgs_impl(
         if use_l1:
             xi = torch.where(w != 0.0, torch.sign(w), torch.sign(-pg))
 
-            def trial_point(t, w=w, p=p, xi=xi):
+            def trial_point(t):
                 x = w + t * p
                 return torch.where(torch.sign(x) == xi, x, torch.zeros_like(x))
 
         else:
 
-            def trial_point(t, w=w, p=p):
+            def trial_point(t):
                 return w + t * p
 
         # First iteration: the Hessian guess is the identity, so scale the
         # initial step to unit length.
         p_norm = torch.linalg.norm(p)
-        t = 1.0 / torch.clamp_min(p_norm, 1.0) if count == 0 else torch.ones_like(p_norm)
+        t = torch.where(count == 0, 1.0 / torch.clamp_min(p_norm, 1.0), torch.ones_like(p_norm))
 
-        def armijo_rhs(w_new, f=f, w=w, pg=pg):
+        def armijo_rhs(w_new):
             return f + _ARMIJO_C1 * torch.dot(pg, w_new - w)
 
-        def hopeless(w_new, f=f, w=w, pg=pg):
+        def hopeless(w_new):
             # achievable decrease below the f32 resolution of f: no
             # representable improvement is possible
             return torch.abs(torch.dot(pg, w_new - w)) < 1e-7 * torch.abs(f)
 
-        def ls_should_continue(f_new, w_new, k) -> bool:
-            insufficient = (f_new > armijo_rhs(w_new)) | torch.isnan(f_new)
-            return k < config.max_line_search_steps and bool(
-                insufficient & ~hopeless(w_new)
-            )
+        def insufficient(f_new, w_new):
+            return ((f_new > armijo_rhs(w_new)) | torch.isnan(f_new)) & ~hopeless(w_new)
 
         slope0 = torch.dot(pg, p)  # directional derivative at t = 0
 
-        def next_t(t, f_t, f=f, slope0=slope0):
+        def next_t(f_t):
             # safeguarded quadratic interpolation through f(0), f'(0), f(t),
             # clamped to [t/10, t/2]
             denom = 2.0 * (f_t - f - slope0 * t)
@@ -167,65 +181,84 @@ def _lbfgs_impl(
             return torch.minimum(torch.maximum(t_q, 0.1 * t), 0.5 * t)
 
         w_new = trial_point(t)
-        ls_k = 0
+        ls_k = torch.zeros((), dtype=torch.int64, device=dev)
         if fused_eval:
             # value_and_grad costs one X read, like value alone: each trial
             # evaluates both and an accepted step needs no extra pass
-            f2, g2, pg2 = value_and_grads(w_new)
-            while ls_should_continue(f2, w_new, ls_k):
-                t = next_t(t, f2)
-                w_new = trial_point(t)
-                f2, g2, pg2 = value_and_grads(w_new)
-                ls_k += 1
-            evals += 1 + ls_k
+            f2, g2, pg2 = (v.clone() for v in value_and_grads(w_new))
+            searching = insufficient(f2, w_new)
+
+            def trial(_trip) -> None:
+                t.copy_(next_t(f2))
+                w_new.copy_(trial_point(t))
+                for buf, v in zip((f2, g2, pg2), value_and_grads(w_new)):
+                    buf.copy_(v)
+                ls_k.add_(1)
+                searching.copy_(insufficient(f2, w_new))
+
+            graphs.loop(max_ls, searching, trial)
+            evals.add_(1 + ls_k)
         else:
             f_new = full_value(w_new)
-            while ls_should_continue(f_new, w_new, ls_k):
-                t = next_t(t, f_new)
-                w_new = trial_point(t)
-                f_new = full_value(w_new)
-                ls_k += 1
+            searching = insufficient(f_new, w_new)
+
+            def trial(_trip) -> None:
+                t.copy_(next_t(f_new))
+                w_new.copy_(trial_point(t))
+                f_new.copy_(full_value(w_new))
+                ls_k.add_(1)
+                searching.copy_(insufficient(f_new, w_new))
+
+            graphs.loop(max_ls, searching, trial)
             f2, g2, pg2 = value_and_grads(w_new)
-            evals += 2 + ls_k
+            evals.add_(2 + ls_k)
 
         # Armijo acceptance, except the degenerate terminal case: a
         # fully-backtracked below-resolution step that does not decrease f
         # means converged within arithmetic precision (LINE_SEARCH_FAILED).
         degenerate = hopeless(w_new) & (f2 >= f)
-        ls_ok = bool((f2 <= armijo_rhs(w_new)) & ~degenerate & ~torch.isnan(f2))
-        if ls_ok:
-            s = w_new - w
-            y = g2 - g
-            sy = torch.dot(s, y)
-            if bool(sy > _CURVATURE_EPS):
-                slot = count % m
-                S[slot] = s
-                Y[slot] = y
-                rho[slot] = 1.0 / torch.clamp_min(sy, _CURVATURE_EPS)
-                count += 1
-            w, f, g, pg = w_new, f2, g2, pg2
-            g2_norm = torch.linalg.norm(pg2)
-            if grad_converged(g2_norm, g0_norm, config.tolerance):
-                reason, done = ConvergenceReason.GRADIENT_CONVERGED, True
-        else:
-            # keep the old iterate and stop
-            reason, done = ConvergenceReason.LINE_SEARCH_FAILED, True
-        it += 1
-        loss_hist.append(f)
-        gnorm_hist.append(torch.linalg.norm(pg))
+        ls_ok = (f2 <= armijo_rhs(w_new)) & ~degenerate & ~torch.isnan(f2)
+        s = w_new - w
+        y = g2 - g
+        sy = torch.dot(s, y)
+        store = ls_ok & (sy > _CURVATURE_EPS)
+        put = (slots == torch.remainder(count, m)) & store
+        S.copy_(torch.where(put.unsqueeze(-1), s, S))
+        Y.copy_(torch.where(put.unsqueeze(-1), y, Y))
+        rho.copy_(torch.where(put, 1.0 / torch.clamp_min(sy, _CURVATURE_EPS), rho))
+        count.add_(store.to(count.dtype))
+        # a failed search keeps the old iterate and stops
+        w.copy_(torch.where(ls_ok, w_new, w))
+        f.copy_(torch.where(ls_ok, f2, f))
+        g.copy_(torch.where(ls_ok, g2, g))
+        pg.copy_(torch.where(ls_ok, pg2, pg))
+        converged = torch.linalg.norm(pg2) <= g_tol
+        reason.copy_(torch.where(
+            ls_ok,
+            torch.where(converged, int(ConvergenceReason.GRADIENT_CONVERGED), reason),
+            int(ConvergenceReason.LINE_SEARCH_FAILED),
+        ))
+        done.copy_(~ls_ok | converged)
+        loss_hist.index_copy_(0, (it + 1).view(1), f.view(1))
+        gnorm_hist.index_copy_(0, (it + 1).view(1), torch.linalg.norm(pg).view(1))
+        it.add_(1)
+        go.copy_(~done)
 
-    if it == 0 and done:
-        # the initial point already satisfied the test
-        reason = ConvergenceReason.GRADIENT_CONVERGED
+    graphs.loop(T, go, iteration)
+    # the initial point already satisfied the test
+    reason = torch.where((it == 0) & done, int(ConvergenceReason.GRADIENT_CONVERGED), reason)
+    counts = it, reason, evals
+    if not graphs.is_deferring():  # a deferred run reads them at its end
+        counts = tuple(int(c) for c in graphs.read_all([torch.stack(counts)])[0])
     return OptimizationResult(
         w=w,
         value=f,
         grad_norm=torch.linalg.norm(pg),
-        iterations=it,
-        reason=int(reason),
-        loss_history=_history(loss_hist, T, dtype, dev),
-        grad_norm_history=_history(gnorm_hist, T, dtype, dev),
-        objective_passes=evals,
+        iterations=counts[0],
+        reason=counts[1],
+        loss_history=loss_hist,
+        grad_norm_history=gnorm_hist,
+        objective_passes=counts[2],
     )
 
 
@@ -236,21 +269,16 @@ def _history(values: list, T: int, dtype, device) -> Tensor:
     return out
 
 
-def _lane_two_loop(
-    pg: Tensor, S: Tensor, Y: Tensor, rho: Tensor, count: Tensor, m: int, bound: int
-) -> Tensor:
+def _lane_two_loop(pg: Tensor, S: Tensor, Y: Tensor, rho: Tensor, count: Tensor, m: int, steps: int) -> Tensor:
     """``_two_loop`` per lane: (k, d) r ≈ H⁻¹·pg from each lane's newest
     min(count, m) pairs of its (k, m, d) ring, gathered newest first (slot
-    (count − 1 − j) mod m at step j). α and β are masked where
-    j ≥ min(count, m), and γ is 1 where count = 0; the forward loop walks
-    the steps back, so each lane meets its unused steps first, adds 0 for
-    them, then its pairs oldest to newest, as the reference's loop does.
-    ``bound`` is a host-side upper bound on every lane's count (the
-    iterations run so far): the loops take min(bound, m) steps and read
-    nothing back."""
-    steps = min(bound, m)
-    if steps == 0:
-        return pg  # no pairs in any lane: γ = 1, r = pg
+    (count − 1 − j) mod m at step j). ``steps`` (≥ every lane's
+    min(count, m)) steps run, each masked where j ≥ min(count, m), so a
+    masked step leaves a lane's q and r exactly as they were, and γ is 1
+    where count = 0; the forward loop walks the steps back, so each lane
+    meets its unused steps first, then its pairs oldest to newest, as the
+    reference's loop does. Nothing is read back: the counts stay on the
+    device."""
     k, _, d = S.shape
     j = torch.arange(m, device=pg.device)
     valid = j < torch.clamp_max(count, m).unsqueeze(-1)  # (k, m)
@@ -270,7 +298,7 @@ def _lane_two_loop(
     r = gamma.unsqueeze(-1) * q
     for i in reversed(range(steps)):
         beta = rho_o[:, i] * torch.sum(Y_o[:, i] * r, dim=-1)
-        r = r + torch.where(valid[:, i], alpha[i] - beta, 0.0).unsqueeze(-1) * S_o[:, i]
+        r = torch.where(valid[:, i].unsqueeze(-1), r + (alpha[i] - beta).unsqueeze(-1) * S_o[:, i], r)
     return r
 
 
@@ -280,7 +308,8 @@ class LbfgsLaneState(LaneState):
     its margins, value, gradient and (pseudo-)gradient, each lane's
     gradient tolerance, its (m, d) history ring with ρ and pair count,
     iterations, objective passes, stopping reason, done flag and
-    (T + 1) histories; ``step`` is the shared iteration count."""
+    (T + 1) histories; ``step`` is the shared iteration count. A run
+    writes the tensors in place."""
 
     w: Tensor
     mg: Tensor
@@ -310,7 +339,7 @@ def _l1_terms(l1w: Tensor | None, f: Tensor, g: Tensor, w: Tensor) -> tuple[Tens
 def _lbfgs_lane_init(obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig,
                      l1w: Tensor | None) -> LbfgsLaneState:
     """The lane state at the (k, d) start ``w0`` (one value-and-gradient
-    pass)."""
+    pass), in tensors of its own."""
     m = config.history_length
     T = config.max_iterations
     k, d = w0.shape
@@ -325,7 +354,7 @@ def _lbfgs_lane_init(obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig,
     loss_hist[:, 0] = f
     gnorm_hist[:, 0] = g0_norm
     return LbfgsLaneState(
-        w=w0, mg=mg, f=f, g=g, pg=pg, g_tol=g_tol,
+        w=w0.clone(), mg=mg, f=f, g=g, pg=pg.clone() if pg is g else pg, g_tol=g_tol,
         S=torch.zeros((k, m, d), dtype=dtype, device=dev),
         Y=torch.zeros((k, m, d), dtype=dtype, device=dev),
         rho=torch.zeros((k, m), dtype=dtype, device=dev),
@@ -341,7 +370,8 @@ def _lbfgs_lane_init(obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig,
 def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: OptimizerConfig, it_bound: int,
                     l1w: Tensor | None) -> LbfgsLaneState:
     """Step the lanes in lock step until every lane is done or the shared
-    step reaches min(``it_bound``, max_iterations).
+    step reaches min(``it_bound``, max_iterations), writing ``st``'s
+    tensors in place.
 
     Each lane follows the reference's loop under ``vmap``: its own
     curvature pairs (a pair with sᵀy ≤ 1e-10 is skipped, so ``count`` is
@@ -355,7 +385,9 @@ def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: Optimizer
     per trial); OWL-QN's orthant projection is not linear in t, so each of
     its trials takes a matvec. ``objective_passes`` is the reference's count
     for a lane objective, which is not one-pass: 1 + Σ (2 + line-search
-    steps)."""
+    steps). The iteration and the trial are bodies run by ``graphs.loop``
+    (one flag read each under the eager driver); inside a capture the
+    returned state's ``step`` is the bound (the device decided the trips)."""
     m = config.history_length
     bound = min(int(it_bound), config.max_iterations)
     max_ls = config.max_line_search_steps
@@ -366,14 +398,16 @@ def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: Optimizer
     S, Y, rho, count, it, evals, reason, done = st.S, st.Y, st.rho, st.count, st.it, st.evals, st.reason, st.done
     loss_hist, gnorm_hist = st.loss_hist, st.gnorm_hist
     slots = torch.arange(m, device=dev)
+    # every active lane has taken exactly `step` iterations, so the history
+    # column below is the same for each lane in any front
+    step = torch.full((k, 1), st.step, dtype=torch.int64, device=dev)
+    go = ~done.all()
 
-    step = st.step
-    while step < bound and not bool(done.all()):
+    def iteration(trip: int | None) -> None:
         active = ~done
-        # every active lane has taken exactly `step` iterations, so the
-        # two-loop bound and the history column below are the same for
-        # each lane in any front
-        p = -_lane_two_loop(pg, S, Y, rho, count, m, step)
+        # every lane holds at most `st.step + trip` pairs; inside a capture
+        # all m slots run, masked
+        p = -_lane_two_loop(pg, S, Y, rho, count, m, m if trip is None else min(st.step + trip, m))
         if use_l1:
             # constrain the search direction to the descent orthant
             p = torch.where(p * (-pg) > 0.0, p, 0.0)
@@ -386,7 +420,7 @@ def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: Optimizer
         if use_l1:
             xi = torch.where(w != 0.0, torch.sign(w), torch.sign(-pg))
 
-            def trial(t, w=w, p=p, xi=xi):
+            def trial(t):
                 x = w + t.unsqueeze(-1) * p
                 w_t = torch.where(torch.sign(x) == xi, x, 0.0)
                 m_t = obj.margins(w_t)
@@ -396,19 +430,19 @@ def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: Optimizer
         else:
             dm = obj.direction_margins(p)
 
-            def trial(t, w=w, p=p, dm=dm, mg=mg):
+            def trial(t):
                 w_t = w + t.unsqueeze(-1) * p
                 m_t = mg + t.unsqueeze(-1) * dm
                 return w_t, m_t, obj.value_from_margins(m_t, w_t)
 
-        def decrease(w_t, w=w, pg=pg):
+        def decrease(w_t):
             return torch.sum(pg * (w_t - w), dim=-1)
 
-        def hopeless(dec, f=f):
+        def hopeless(dec):
             # achievable decrease below the f32 resolution of f
             return torch.abs(dec) < 1e-7 * torch.abs(f)
 
-        def keep_searching(f_t, w_t, f=f):
+        def keep_searching(f_t, w_t):
             dec = decrease(w_t)
             insufficient = (f_t > f + _ARMIJO_C1 * dec) | torch.isnan(f_t)
             return insufficient & ~hopeless(dec)
@@ -416,22 +450,25 @@ def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: Optimizer
         w_t, m_t, f_t = trial(t)
         ls_k = torch.zeros(k, dtype=torch.int64, device=dev)
         searching = active & keep_searching(f_t, w_t)
-        n = 0
-        while n < max_ls and bool(searching.any()):
+        any_searching = searching.any()
+
+        def line_search_trial(_trip) -> None:
             # safeguarded quadratic interpolation through f(0), f'(0), f(t),
             # clamped to [t/10, t/2], per lane
             denom = 2.0 * (f_t - f - slope0 * t)
             t_q = -slope0 * t * t / torch.where(denom != 0.0, denom, 1.0)
             t_q = torch.where(torch.isfinite(t_q) & (denom > 0.0), t_q, 0.5 * t)
-            t = torch.where(searching, torch.minimum(torch.maximum(t_q, 0.1 * t), 0.5 * t), t)
+            t.copy_(torch.where(searching, torch.minimum(torch.maximum(t_q, 0.1 * t), 0.5 * t), t))
             w_n, m_n, f_n = trial(t)
             lane = searching.unsqueeze(-1)
-            w_t = torch.where(lane, w_n, w_t)
-            m_t = torch.where(lane, m_n, m_t)
-            f_t = torch.where(searching, f_n, f_t)
-            ls_k = ls_k + searching.to(ls_k.dtype)
-            n += 1
-            searching = searching & keep_searching(f_t, w_t)
+            w_t.copy_(torch.where(lane, w_n, w_t))
+            m_t.copy_(torch.where(lane, m_n, m_t))
+            f_t.copy_(torch.where(searching, f_n, f_t))
+            ls_k.add_(searching.to(ls_k.dtype))
+            searching.copy_(searching & keep_searching(f_t, w_t))
+            any_searching.copy_(searching.any())
+
+        graphs.loop(max_ls, any_searching, line_search_trial)
 
         f2, g2 = obj.value_and_grad_from_margins(m_t, w_t)
         f2, pg2 = _l1_terms(l1w, f2, g2, w_t)
@@ -445,19 +482,19 @@ def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: Optimizer
         sy = torch.sum(s * y, dim=-1)
         store = active & ls_ok & (sy > _CURVATURE_EPS)
         put = (slots == torch.remainder(count, m).unsqueeze(-1)) & store.unsqueeze(-1)  # (k, m)
-        S = torch.where(put.unsqueeze(-1), s.unsqueeze(1), S)
-        Y = torch.where(put.unsqueeze(-1), y.unsqueeze(1), Y)
-        rho = torch.where(put, (1.0 / torch.clamp_min(sy, _CURVATURE_EPS)).unsqueeze(-1), rho)
-        count = count + store.to(count.dtype)
+        S.copy_(torch.where(put.unsqueeze(-1), s.unsqueeze(1), S))
+        Y.copy_(torch.where(put.unsqueeze(-1), y.unsqueeze(1), Y))
+        rho.copy_(torch.where(put, (1.0 / torch.clamp_min(sy, _CURVATURE_EPS)).unsqueeze(-1), rho))
+        count.add_(store.to(count.dtype))
 
         converged = torch.linalg.norm(pg2, dim=-1) <= g_tol
         take = active & ls_ok  # a failed search keeps the old iterate; done lanes stay frozen
         lane = take.unsqueeze(-1)
-        w = torch.where(lane, w_t, w)
-        mg = torch.where(lane, m_t, mg)
-        g = torch.where(lane, g2, g)
-        pg = torch.where(lane, pg2, pg)
-        f = torch.where(take, f2, f)
+        w.copy_(torch.where(lane, w_t, w))
+        mg.copy_(torch.where(lane, m_t, mg))
+        g.copy_(torch.where(lane, g2, g))
+        pg.copy_(torch.where(lane, pg2, pg))
+        f.copy_(torch.where(take, f2, f))
         new_reason = torch.where(
             ~ls_ok,
             int(ConvergenceReason.LINE_SEARCH_FAILED),
@@ -467,19 +504,19 @@ def _lbfgs_lane_run(obj: LaneGLMObjective, st: LbfgsLaneState, config: Optimizer
                 int(ConvergenceReason.MAX_ITERATIONS),
             ),
         )
-        reason = torch.where(active, new_reason, reason)
-        done = done | (active & (~ls_ok | converged))
-        it = it + active.to(it.dtype)
-        evals = evals + active.to(evals.dtype) * (2 + ls_k)
-        loss_hist[:, step + 1] = torch.where(active, f, loss_hist[:, step + 1])
-        gnorm_hist[:, step + 1] = torch.where(
-            active, torch.linalg.norm(pg, dim=-1), gnorm_hist[:, step + 1]
-        )
-        step += 1
+        reason.copy_(torch.where(active, new_reason, reason))
+        done.copy_(done | (active & (~ls_ok | converged)))
+        it.add_(active.to(it.dtype))
+        evals.add_(active.to(evals.dtype) * (2 + ls_k))
+        col = step + 1
+        loss_hist.scatter_(1, col, torch.where(active, f, loss_hist.gather(1, col).squeeze(1)).unsqueeze(1))
+        gnorm_hist.scatter_(1, col, torch.where(
+            active, torch.linalg.norm(pg, dim=-1), gnorm_hist.gather(1, col).squeeze(1)).unsqueeze(1))
+        step.add_(1)
+        go.copy_(~done.all())
 
-    return LbfgsLaneState(w=w, mg=mg, f=f, g=g, pg=pg, g_tol=g_tol, S=S, Y=Y, rho=rho, count=count, it=it,
-                          evals=evals, reason=reason, done=done, loss_hist=loss_hist, gnorm_hist=gnorm_hist,
-                          step=step)
+    trips = graphs.loop(bound - st.step, go, iteration)
+    return dataclasses.replace(st, step=bound if trips is None else st.step + trips)
 
 
 def _lbfgs_lane_result(st: LbfgsLaneState) -> OptimizationResult:
@@ -524,7 +561,7 @@ def lbfgs_chunk_finalize(state: LbfgsLaneState) -> OptimizationResult:
 
 
 def _owlqn_l1w(objective: LaneGLMObjective, dtype, l1_weight) -> Tensor:
-    return torch.as_tensor(l1_weight, dtype=dtype, device=objective.reg_mask.device) * objective.reg_mask
+    return device_scalar(l1_weight, objective.reg_mask.device, dtype) * objective.reg_mask
 
 
 def owlqn_chunk_init(objective: LaneGLMObjective, w0: Tensor, config: OptimizerConfig,
@@ -568,7 +605,7 @@ def owlqn_minimize(
     """Minimize objective(w) + λ₁·Σ|wⱼ| (over the objective's regularized
     coordinates) with OWL-QN. Requires ``objective.reg_mask``; with a
     (k, d) ``w0`` the objective is a ``LaneGLMObjective``."""
-    l1w = torch.as_tensor(l1_weight, dtype=w0.dtype, device=w0.device) * objective.reg_mask
+    l1w = device_scalar(l1_weight, w0.device, w0.dtype) * objective.reg_mask
     if _lanes(objective, w0):
         return _lbfgs_lanes(objective, w0, config, l1w)
     return _lbfgs_impl(objective, w0, config, l1w)

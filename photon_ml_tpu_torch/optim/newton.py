@@ -2,13 +2,15 @@
 (port of ``photon_ml_tpu/optim/newton.py``).
 
 The reference runs one ``lax.while_loop`` per GLM and ``jax.vmap``s it over
-a bucket's entity lanes. Here one host loop steps all k lanes in lockstep:
-each iteration builds every lane's (d, d) Hessian with one batched product,
-factors them with one batched ``torch.linalg.cholesky_ex``, evaluates the
-whole K-step Armijo ladder from stored margins, and freezes the lanes that
-are done with ``torch.where``, as the vmapped loop does. The loop ends when
-every lane is done or T iterations have run; it reads back one boolean per
-iteration. Each lane keeps the reference's per-lane results: iterations,
+a bucket's entity lanes. Here one loop steps all k lanes in lockstep: each
+iteration builds every lane's (d, d) Hessian with one batched product,
+factors them with one batched ``torch.linalg.cholesky_ex`` and solves by
+two batched triangular solves, evaluates the whole K-step Armijo ladder
+from stored margins, and writes the new state in place under the lanes'
+masks (done lanes stay frozen, as under vmap). The loop ends when every
+lane is done or T iterations have run; the iteration is one body run by
+``ops/graphs.py``'s ``loop``, which reads one flag a trip on the host, or,
+inside a captured CUDA graph, leaves the trips to the device. Each lane keeps the reference's per-lane results: iterations,
 reason, ``loss_history`` / ``grad_norm_history`` (NaN past the lane's last
 iterate) and ``objective_passes`` (1 + 3 per iteration: the Hessian
 contraction, the direction's matvec and the gradient's contraction; the
@@ -31,6 +33,7 @@ from typing import Any
 import torch
 
 from photon_ml_tpu_torch.config import OptimizerConfig
+from photon_ml_tpu_torch.ops import graphs
 from photon_ml_tpu_torch.ops.glm import FULL_HESSIAN_NEEDS_DENSE, LaneGLMObjective, lanes_of
 from photon_ml_tpu_torch.optim.common import ConvergenceReason, OptimizationResult
 
@@ -49,11 +52,14 @@ def newton_minimize(objective: Any, w0: Tensor, config: OptimizerConfig) -> Opti
     (d,) ``w``)."""
     if w0.dim() == 1:
         res = _newton_lanes(lanes_of(objective), w0.unsqueeze(0), config)
+        counts = res.iterations[0], res.reason[0], res.objective_passes[0]
+        if not graphs.is_deferring():  # a deferred run reads them at its end
+            counts = tuple(int(c) for c in graphs.read_all([torch.stack(counts)])[0])
         return OptimizationResult(
             w=res.w[0], value=res.value[0], grad_norm=res.grad_norm[0],
-            iterations=int(res.iterations[0]), reason=int(res.reason[0]),
+            iterations=counts[0], reason=counts[1],
             loss_history=res.loss_history[0], grad_norm_history=res.grad_norm_history[0],
-            objective_passes=int(res.objective_passes[0]),
+            objective_passes=counts[2],
         )
     if not isinstance(objective, LaneGLMObjective):
         raise TypeError("a (k, d) start needs a LaneGLMObjective")
@@ -71,7 +77,8 @@ def _newton_lanes(obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig) ->
     eye = torch.eye(d, dtype=dtype, device=dev)
     tol = config.tolerance
 
-    w = w0
+    # the state, written in place by each iteration (``ops/graphs.py``)
+    w = w0.clone()
     m = obj.margins(w)
     f, g = obj.value_and_grad_from_margins(m, w)
     g0_norm = torch.linalg.norm(g, dim=-1)
@@ -83,13 +90,15 @@ def _newton_lanes(obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig) ->
     it = torch.zeros(k, dtype=torch.int64, device=dev)
     reason = torch.full((k,), int(ConvergenceReason.MAX_ITERATIONS), dtype=torch.int64, device=dev)
     done = g0_norm <= g_tol
+    step = torch.zeros((k, 1), dtype=torch.int64, device=dev)  # the shared iteration count, per lane
+    go = ~done.all()
 
-    step = 0
-    while step < T and not bool(done.all()):
+    def iteration(_trip) -> None:
         active = ~done
         H = obj.hessian_from_margins(m, w) + _JITTER * eye
         L, info = torch.linalg.cholesky_ex(H)
-        p = -torch.cholesky_solve(g.unsqueeze(-1), L).squeeze(-1)
+        z = torch.linalg.solve_triangular(L, g.unsqueeze(-1), upper=False)
+        p = -torch.linalg.solve_triangular(L.transpose(-2, -1), z, upper=True).squeeze(-1)
         # a failed factorization falls back to steepest descent
         bad = (info != 0) | ~torch.isfinite(p).all(dim=-1)
         p = torch.where(bad.unsqueeze(-1), -g, p)
@@ -108,10 +117,10 @@ def _newton_lanes(obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig) ->
         f_new, g_new = obj.value_and_grad_from_margins(m_new, w_new)
 
         take = ok_any & active  # done lanes stay frozen, as under vmap
-        w = torch.where(take.unsqueeze(-1), w_new, w)
-        m = torch.where(take.unsqueeze(-1), m_new, m)
-        f = torch.where(take, f_new, f)
-        g = torch.where(take.unsqueeze(-1), g_new, g)
+        w.copy_(torch.where(take.unsqueeze(-1), w_new, w))
+        m.copy_(torch.where(take.unsqueeze(-1), m_new, m))
+        f.copy_(torch.where(take, f_new, f))
+        g.copy_(torch.where(take.unsqueeze(-1), g_new, g))
         g_norm = torch.linalg.norm(g, dim=-1)
         converged = g_norm <= g_tol
         new_reason = torch.where(
@@ -127,14 +136,17 @@ def _newton_lanes(obj: LaneGLMObjective, w0: Tensor, config: OptimizerConfig) ->
                 ),
             ),
         )
-        reason = torch.where(active, new_reason, reason)
-        it = it + active.to(it.dtype)
+        reason.copy_(torch.where(active, new_reason, reason))
+        it.add_(active.to(it.dtype))
         # every lane still active has taken exactly `step` iterations
-        loss_hist[:, step + 1] = torch.where(active, f, loss_hist[:, step + 1])
-        gnorm_hist[:, step + 1] = torch.where(active, g_norm, gnorm_hist[:, step + 1])
-        done = done | (active & (~ok_any | converged | plateau))
-        step += 1
+        col = step + 1
+        loss_hist.scatter_(1, col, torch.where(active, f, loss_hist.gather(1, col).squeeze(1)).unsqueeze(1))
+        gnorm_hist.scatter_(1, col, torch.where(active, g_norm, gnorm_hist.gather(1, col).squeeze(1)).unsqueeze(1))
+        done.copy_(done | (active & (~ok_any | converged | plateau)))
+        step.add_(1)
+        go.copy_(~done.all())
 
+    graphs.loop(T, go, iteration)
     # a lane whose initial point already passed the gradient test
     reason = torch.where((it == 0) & done, int(ConvergenceReason.GRADIENT_CONVERGED), reason)
     return OptimizationResult(

@@ -1539,3 +1539,104 @@ def test_stream_executor_serve_and_refresh_at_once(dev, stream_executor_clean, m
     assert np.array_equal(s0.view(np.uint32), s1.view(np.uint32))
     assert m0.keys() == m1.keys() == {"per_member"}
     assert all(torch.equal(m0[k], m1[k]) for k in m0)
+
+
+# ---------------------------------------------------------------------------
+# GAME's fused outer iteration on the card: captured once, replayed
+# ---------------------------------------------------------------------------
+def _fused_pair(dev, solver: str, l1: float = 0.0):
+    """Config E's coordinates on ``_game_batches``' card batch, in a fused
+    descent and an eager one."""
+    from photon_ml_tpu_torch import config as c
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.data import bucket_entities, group_by_entity
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+    from photon_ml_tpu_torch.types import OptimizerType, RegularizationType, TaskType
+
+    data, (gpu, _) = _game_batches(dev)
+    task = TaskType.LOGISTIC_REGRESSION
+    re_opt = c.OptimizationConfig(
+        optimizer=c.OptimizerConfig(optimizer_type=OptimizerType(solver), max_iterations=20, tolerance=1e-3),
+        regularization=c.RegularizationContext(RegularizationType.ELASTIC_NET if l1 else RegularizationType.L2,
+                                               alpha=0.5),
+        regularization_weight=1.0)
+    fe_opt = c.OptimizationConfig(optimizer=c.OptimizerConfig(max_iterations=20, tolerance=1e-7))
+
+    def coords():
+        out = {"fixed": FixedEffectCoordinate("fixed", gpu, "global", fe_opt, task,
+                                              intercept_index=data.intercept_index)}
+        for k in ("userId", "itemId"):
+            g = group_by_entity(data.entity_ids[k])
+            out[f"per_{k}"] = RandomEffectCoordinate(f"per_{k}", gpu, f"per_{k}", k, re_opt, g,
+                                                     bucket_entities(g, target_buckets=8, max_padded_ratio=0.5),
+                                                     task, g.num_entities)
+        return out
+
+    seq = ["fixed", "per_userId", "per_itemId"]
+    return (CoordinateDescent(coords(), gpu, task), CoordinateDescent(coords(), gpu, task, _fused=False), seq)
+
+
+@pytest.mark.parametrize("solver,l1", [("NEWTON_CHOLESKY", 0.0), ("LBFGS", 0.0), ("LBFGS", 0.5)],
+                         ids=["newton", "lbfgs", "owlqn"])
+def test_fused_descent_replays_bitwise_the_eager_loop_on_the_card(dev, solver, l1):
+    """Three outer iterations (a chunk of 2, then 1): the first runs eagerly
+    as the warm-up, the second is captured and replayed, the third
+    replayed; the model, the scores and every fixed-effect tracker are the
+    eager loop's bit for bit, and K1's launches (counted on the device
+    inside the replays) are the fixed effect's objective passes."""
+    fused_d, eager_d, seq = _fused_pair(dev, solver, l1)
+    out = {}
+    for name, d in (("fused", fused_d), ("eager", eager_d)):
+        fused.reset_launch_counts()
+        res = d.run(seq, 3)
+        torch.cuda.synchronize()
+        out[name] = (res, dict(fused.launch_counts))
+    (f, f_counts), (e, e_counts) = out["fused"], out["eager"]
+    for cid in seq:
+        assert torch.equal(f.model[cid].coefficient_means, e.model[cid].coefficient_means), cid
+        assert torch.equal(f.training_scores[cid], e.training_scores[cid]), cid
+    for a, b in zip(f.trackers["fixed"], e.trackers["fixed"]):
+        assert (a.iterations, a.reason, a.objective_passes) == (b.iterations, b.reason, b.objective_passes)
+    passes = sum(t.objective_passes for t in f.trackers["fixed"])
+    assert f_counts == e_counts == {"fused_value_grad": passes, "fused_hvp": 0}
+    (outer,) = fused_d._fused_outer_cache.values()
+    assert outer._graph is not None and outer._graph.nodes > 0
+
+
+def test_fused_descent_reads_nothing_between_replays_and_captures_once(dev, monkeypatch):
+    """A second ``run`` replays the first's graph (no capture), and no
+    host read of a CUDA tensor happens between a chunk's first replay and
+    its last (``chip_smoke.counting_readbacks``)."""
+    from chip_smoke import counting_readbacks
+    from photon_ml_tpu_torch.ops import graphs
+
+    fused_d, _, seq = _fused_pair(dev, "LBFGS")
+    fused_d.run(seq, 2)  # the warm-up, then the capture and its replay
+    captures, replays = [], []
+    real_capture, real_replay = graphs.capture, graphs.LoopGraph.replay
+    monkeypatch.setattr(graphs, "capture", lambda *a, **k: captures.append(1) or real_capture(*a, **k))
+    with counting_readbacks() as reads:
+        monkeypatch.setattr(graphs.LoopGraph, "replay", lambda self: replays.append(reads[0]) or real_replay(self))
+        fused_d.run(seq, 4)
+        torch.cuda.synchronize()
+    assert not captures and len(replays) == 4 and len(set(replays)) == 1
+
+
+def test_a_failed_capture_raises(dev, monkeypatch):
+    """A visit that reads the card while it is captured fails the run: the
+    capture raises, and nothing falls back to the eager loop."""
+    from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
+    from photon_ml_tpu_torch.ops import graphs
+
+    fused_d, _, seq = _fused_pair(dev, "NEWTON_CHOLESKY")
+    score = RandomEffectCoordinate.score
+
+    def reading(self, model):
+        out = score(self, model)
+        if graphs.capturing():
+            float(out.sum())
+        return out
+
+    monkeypatch.setattr(RandomEffectCoordinate, "score", reading)
+    with pytest.raises(RuntimeError, match="capturing a CUDA graph failed"):
+        fused_d.run(seq, 2)

@@ -174,7 +174,15 @@ class TestSinkAndSchema:
     def test_stream_executor_names_equal_the_references(self, executor, tmp_path, monkeypatch):
         """One streamed run in each package: the executor's spans and
         ``stream.*`` names are the reference's; with the knob off neither
-        run_end has ``stream_cache``."""
+        run_end has ``stream_cache``. Each arbiter copies a miss outside its
+        lock, so two prefetch workers missing one content at once both count
+        a miss, and the second is served the first's entry (a racing miss,
+        by design in both packages: ``scripts/stream_cache_races.py``
+        counts them); a racing miss is a hit that came a moment early. So
+        ``stream_cache`` is held equal with the racing misses (misses less
+        the entries each arbiter created, counted here) counted as the hits
+        they stand for: hits + racing, misses − racing, the rest as
+        written."""
         from photon_ml_tpu import obs as jobs
         from photon_ml_tpu.obs.metrics import REGISTRY as JREGISTRY
         from photon_ml_tpu.obs.report import load_run as jload_run
@@ -200,6 +208,16 @@ class TestSinkAndSchema:
             pf.clear_cache()
             se.clear()
             registry.reset(prefix="stream")
+            created = [0]
+
+            class Counted(se._Entry):  # the entries the arbiter creates
+                __slots__ = ()
+
+                def __init__(self, *a, **k):
+                    created[0] += 1
+                    super().__init__(*a, **k)
+
+            monkeypatch.setattr(se, "_Entry", Counted)
             path = configure(str(tmp_path / loss.__class__.__module__.split(".")[0]))
             try:
                 obj = objective(chunks, loss, X.shape[1], **({"device": "cpu"} if pf is prefetch else {}))
@@ -215,7 +233,12 @@ class TestSinkAndSchema:
             metric = {kind: sorted(k for k in end["metrics"][kind] if k.startswith("stream."))
                       for kind in ("counters", "gauges", "timers")}
             spans = sorted({r["name"] for r in records if r["event"] == "span" and r["name"].startswith("stream/")})
-            return metric, spans, end.get("stream_cache")
+            cache = end.get("stream_cache")
+            if cache is not None:
+                racing = cache["misses"] - created[0]
+                assert racing >= 0
+                cache = dict(cache, hits=cache["hits"] + racing, misses=cache["misses"] - racing)
+            return metric, spans, cache
 
         obs.shutdown()
         got = run(obs.configure, obs.shutdown, obs.REGISTRY, prefetch, stream_executor, StreamingGLMObjective,
