@@ -97,7 +97,13 @@ Run from the root of a checkout. It builds the CUDA kernels from
    buckets and their Newton iterations, K1's launches against the fixed
    effect's objective passes, train AUC >= 0.95 x the generating model's;
    then K1 alone at that shape (10,000,054 x 65, float32, offsets read) as
-   at D's; K1 must take its tiles layout at both shapes;
+   at D's; K1 must take its tiles layout at both shapes; then
+   main_e_fused on main_e's batch: one outer iteration on the eager visit
+   loop beside the fused path (a warm-up, a capture, replays, a chunk of
+   4) for Newton lanes, L-BFGS lanes and TRON (lanes and the fixed
+   effect), bitwise, with no host read inside the chunk and K1 + K2
+   counted on the card inside the replays against the fixed passes; then
+   K2 alone at E's fixed-effect shape (offsets read) as K1 at D's;
 12a. main_serve: main_e's model published (``publish_game_model``) and
    served on the card: a parity set of 2,011 requests (rows of main_e's
    batch, 11 with out-of-range ids, a last partial window) through the
@@ -1803,7 +1809,10 @@ def fused_pair(batch, effects: dict, solvers: tuple) -> dict:
     for each random-effect solver in ``solvers`` two descents over the same
     coordinates (``with_config``: the random effects share their prepared
     buckets), the fused path and the eager visit loop (the descent's
-    private ``_fused=False``), and the update sequence."""
+    private ``_fused=False``), and the update sequence. Under TRON the
+    fixed effect is on TRON too (E's fixed configuration otherwise: 20
+    iterations, tolerance 1e-7, unregularized), a coordinate of its own
+    beside the shared L-BFGS one."""
     out, base = {}, None
     for solver in solvers:
         cfg = game_config(effects, 1, re_solver=solver)
@@ -1823,6 +1832,12 @@ def fused_pair(batch, effects: dict, solvers: tuple) -> dict:
                     task_type=cfg.task_type, num_entities=grouping.num_entities)
         coords = {cid: c if cid == "fixed" else c.with_config(cfg.random_effect_coordinates[cid].optimization)
                   for cid, c in base.items()}
+        if solver == "TRON":
+            coords["fixed"] = FixedEffectCoordinate(
+                coordinate_id="fixed", batch=batch, feature_shard_id="global",
+                config=OptimizationConfig(optimizer=OptimizerConfig(optimizer_type=OptimizerType.TRON,
+                                                                    max_iterations=20, tolerance=1e-7)),
+                task_type=cfg.task_type, intercept_index=D_FIXED)
         out[solver] = (CoordinateDescent(coords, batch, cfg.task_type),
                        CoordinateDescent(coords, batch, cfg.task_type, _fused=False),
                        list(cfg.coordinate_update_sequence))
@@ -1864,25 +1879,31 @@ def _descents_bitwise(a, b, seq) -> bool:
                and torch.equal(a.training_scores[cid], b.training_scores[cid]) for cid in seq)
 
 
+FUSED_ARMS = (("newton", "NEWTON_CHOLESKY"), ("lbfgs", "LBFGS"), ("tron", "TRON"))
+
+
 def run_e_fused(dev, batch, data, card: str) -> dict:
     """main_e_fused: main_e's batch (ML-10M), one outer iteration on the
-    eager visit loop beside the fused path, for Newton lanes and then for
-    L-BFGS lanes. Each descent runs from the same cold start every time.
-    The fused descent's first run is its warm-up (eager, on its capture
-    stream), its second captures the outer iteration and replays it, its
-    third replays it alone; then a chunk of 4 replays. Gates: the replayed
-    iteration's coefficients and scores bitwise the eager loop's; no host
-    read of a CUDA tensor between the chunk's first replay and its last; K1
-    counted inside the replays (the chunk's K1 launches equal its fixed
-    objective passes); K1 captured bitwise K1 eager on one pass. Reports
-    the capture's seconds and nodes, the walls per outer iteration (eager,
-    a replay, a chunk of 4), read-backs and the fused replay's busy share
-    (the eager loop's is ``main_e``'s and ``main_e_lbfgs``' profile), with
-    the card."""
+    eager visit loop beside the fused path, for Newton lanes, L-BFGS lanes
+    and TRON (lanes and the fixed effect: ``fused_pair``). Each descent
+    runs from the same cold start every time. The fused descent's first
+    run is its warm-up (eager, on its capture stream), its second captures
+    the outer iteration and replays it, its third replays it alone; then a
+    chunk of 4 replays. Gates: the replayed iteration's coefficients and
+    scores bitwise the eager loop's; no host read of a CUDA tensor between
+    the chunk's first replay and its last; the kernels counted inside the
+    replays (the chunk's K1 + K2 launches equal its fixed objective passes:
+    K1 once a visit and once an iteration on TRON, whose CG steps are K2's,
+    every pass on L-BFGS); K1 captured bitwise K1 eager on one pass; K2
+    alone at E's fixed-effect shape against its plain version. Reports the
+    capture's seconds and nodes, the walls per outer iteration (eager, a
+    replay, a chunk of 4), read-backs and the fused replay's busy share
+    (the eager loop's: ``main_e``'s and ``main_e_lbfgs``' profile; TRON's
+    eager busy share is measured here), with the card."""
     n, effects = E_ML10M
     out = dict(card=card, n=n, effects={k: list(v) for k, v in effects.items()})
-    pairs = fused_pair(batch, effects, ("NEWTON_CHOLESKY", "LBFGS"))
-    for name, solver in (("newton", "NEWTON_CHOLESKY"), ("lbfgs", "LBFGS")):
+    pairs = fused_pair(batch, effects, tuple(solver for _, solver in FUSED_ARMS))
+    for name, solver in FUSED_ARMS:
         fused_d, eager_d, seq = pairs.pop(solver)
 
         def timed(fn):
@@ -1900,7 +1921,7 @@ def run_e_fused(dev, batch, data, card: str) -> dict:
         (outer,) = fused_d._fused_outer_cache.values()
         fused.reset_launch_counts()
         replayed, replay_s, replay_reads = timed(lambda: fused_d.run(seq, 1))
-        one_k1 = fused.launch_counts["fused_value_grad"]
+        one_k1, one_k2 = fused.launch_counts["fused_value_grad"], fused.launch_counts["fused_hvp"]
         replay_marks = []
         replay = graphs.LoopGraph.replay
         with counting_readbacks() as reads:
@@ -1910,9 +1931,13 @@ def run_e_fused(dev, batch, data, card: str) -> dict:
                 chunk, chunk_s, chunk_reads = timed(lambda: fused_d.run(seq, 4))
             finally:
                 graphs.LoopGraph.replay = replay
-        chunk_k1 = fused.launch_counts["fused_value_grad"]
+        chunk_k1, chunk_k2 = fused.launch_counts["fused_value_grad"], fused.launch_counts["fused_hvp"]
         chunk_passes = sum(t.objective_passes for t in chunk.trackers["fixed"])
+        # K1 runs once a visit and once an iteration; TRON's other passes are CG steps on K2
+        chunk_k1_want = (sum(1 + t.iterations for t in chunk.trackers["fixed"]) if solver == "TRON"
+                         else chunk_passes)
         busy_fused = busy_share(lambda: fused_d.run(seq, 1))
+        busy_eager = busy_share(lambda: eager_d.run(seq, 1)) if solver == "TRON" else None
         out[name] = dict(
             capture_s=outer.capture_s, graph_nodes=outer._graph.nodes,
             eager_wall_s=eager_s, warmup_wall_s=warm_s, capture_and_replay_wall_s=capture_and_replay_s,
@@ -1921,17 +1946,23 @@ def run_e_fused(dev, batch, data, card: str) -> dict:
             replays_in_chunk=len(replay_marks), no_read_inside_chunk=len(replay_marks) == 4
             and len(set(replay_marks)) == 1,
             k1_launches_one_iteration=one_k1, k1_launches_chunk=chunk_k1, fixed_passes_chunk=chunk_passes,
-            k1_counted_ok=chunk_k1 == chunk_passes > 0,
+            k2_launches_one_iteration=one_k2, k2_launches_chunk=chunk_k2,
+            fixed_iterations_chunk=[t.iterations for t in chunk.trackers["fixed"]],
+            k1_counted_ok=chunk_k1 == chunk_k1_want > 0,
+            k2_counted_ok=chunk_k1 + chunk_k2 == chunk_passes and (chunk_k2 > 0) == (solver == "TRON"),
             bitwise_replay_vs_eager=_descents_bitwise(replayed, eager, seq),
             bitwise_captured_run_vs_eager=_descents_bitwise(first, eager, seq),
             max_abs_diff_vs_eager=max(float((replayed.model[c].coefficient_means
                                              - eager.model[c].coefficient_means).abs().max()) for c in seq),
-            busy_fused=busy_fused)
+            busy_fused=busy_fused, **({} if busy_eager is None else {"busy_eager": busy_eager}))
         del fused_d, eager_d, outer, eager, first, replayed, chunk
         torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(12)
-    out["k1_captured"] = k1_captured(batch.features["global"].X, batch.labels,
-                                     0.1 * torch.randn(n, generator=gen, device=dev), dev)
+    offsets = 0.1 * torch.randn(n, generator=gen, device=dev)
+    out["k1_captured"] = k1_captured(batch.features["global"].X, batch.labels, offsets, dev)
+    saved = dict(fused.launch_counts)  # comparison launches: not the main path's
+    out["k2_at_e"] = k2_at(batch.features["global"].X, batch.labels, offsets, None, "logistic")
+    fused.launch_counts.update(saved)
     return out
 
 
@@ -3273,18 +3304,16 @@ def busy_share(fn) -> dict:
                 kernel_busy_share=union_s(kernels) / wall, busy_share=union_s(everything) / wall)
 
 
-def k2_at(X, labels) -> dict:
-    """K2 alone at a streamed chunk's shape (squared loss, offsets and
-    weights read as the streamed objective reads them): ``k2_time``'s
-    record."""
-    n, d = X.shape
+def k2_at(X, labels, offsets, weights, loss: str) -> dict:
+    """K2 alone at a main-path shape, on these offsets and weights (None:
+    not read): ``k2_time``'s record."""
+    d = X.shape[1]
     dev = X.device
     gen = torch.Generator(device=dev).manual_seed(12)
     u = 0.5 * torch.randn(d, generator=gen, device=dev) / d**0.5
     v = torch.randn(d, generator=gen, device=dev) / d**0.5
-    off, wt = torch.zeros(n, device=dev), torch.ones(n, device=dev)
-    return k2_time(X, labels, off, wt, u, v, torch.tensor(0.1, device=dev), torch.tensor(-0.05, device=dev),
-                   LOSSES["squared"])
+    return k2_time(X, labels, offsets, weights, u, v, torch.tensor(0.1, device=dev),
+                   torch.tensor(-0.05, device=dev), LOSSES[loss])
 
 
 def k1_at_b_chunk(X, labels) -> dict:
@@ -3411,7 +3440,9 @@ def run_b_streamed(dev, b: dict, card: str) -> dict:
                   cache=prefetch.cache_stats(), stage_seconds=REGISTRY.timer_snapshot("prefetch."))
     rec["launches_ok"] = (launches["fused_value_grad"] == len(chunks) * vg_passes
                           and launches["fused_hvp"] == len(chunks) * hvp_passes and hvp_passes > 0)
-    rec["k2_at_chunk"] = k2_at(batch.X[:B_CHUNK], batch.labels[:B_CHUNK])
+    # offsets and weights read as the streamed objective reads them
+    rec["k2_at_chunk"] = k2_at(batch.X[:B_CHUNK], batch.labels[:B_CHUNK], torch.zeros(B_CHUNK, device=dev),
+                               torch.ones(B_CHUNK, device=dev), "squared")
     rec["k1_at_chunk"] = k1_at_b_chunk(batch.X[:B_CHUNK], batch.labels[:B_CHUNK])
     rec["rel_d_rmse_vs_main_b"] = abs(train_rmse - b["train_rmse"]) / b["train_rmse"]
     rec["rel_d_objective_vs_main_b"] = abs(rec["objective"] - b["objective"]) / abs(b["objective"])
@@ -6634,11 +6665,13 @@ def main() -> int:
     e_fused = run_e_fused(dev, e_batch, e_data, smi)
     e_fused["launches"] = launch_counts()
     emit("main_e_fused", **e_fused)
-    failed = [f"{arm}.{gate}" for arm in ("newton", "lbfgs") for gate in (
-        "bitwise_replay_vs_eager", "bitwise_captured_run_vs_eager", "no_read_inside_chunk", "k1_counted_ok")
-        if not e_fused[arm][gate]]
+    failed = [f"{arm}.{gate}" for arm, _ in FUSED_ARMS for gate in (
+        "bitwise_replay_vs_eager", "bitwise_captured_run_vs_eager", "no_read_inside_chunk", "k1_counted_ok",
+        "k2_counted_ok") if not e_fused[arm][gate]]
     if not e_fused["k1_captured"]["bitwise"]:
         failed.append("k1_captured")
+    if not e_fused["k2_at_e"]["ok"]:
+        failed.append("k2_at_e")
     if failed:
         raise AssertionError(f"main_e_fused failed: {failed}")
     if not (d_rec["k1"]["ok"] and d_rec["k1"]["layout"] == "tiles"):
@@ -7135,9 +7168,8 @@ def main() -> int:
                      ("at_streamed_game_chunk_shape", e_streamed["k1_at_chunk"])):
         # a time the profiler did not read (None) is left out, not written as 0
         kernels[0][key] = {k: rec[k] for k in at_shape_keys if rec.get(k) is not None}
-    k2_chunk = b_streamed["k2_at_chunk"]
-    kernels[1]["at_streamed_chunk_shape"] = {k: k2_chunk[k] for k in at_shape_keys
-                                             if k2_chunk.get(k) is not None}
+    for key, rec in (("at_main_e_shape", e_fused["k2_at_e"]), ("at_streamed_chunk_shape", b_streamed["k2_at_chunk"])):
+        kernels[1][key] = {k: rec[k] for k in at_shape_keys if rec.get(k) is not None}
     k3_paths = {**streamed_paths, **parallel_paths, **parallel_streamed_paths, **telemetry_paths}
     k3_kernels = [  # K3 at A2 on the f32 rung, one row per direction; launches over A2's paths and the rest
         dict(name=f"sparse_apply[{direction}]", route="cuda", **K3_ROW,

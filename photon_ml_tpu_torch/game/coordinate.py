@@ -23,8 +23,7 @@ body that runs the eager visit's own arithmetic (``train`` then
 advances in place, and reads nothing back inside a deferred run
 (``ops/graphs.py``), so it can be captured as a CUDA graph and replayed.
 ``visit`` runs one visit through the parts. They are None where the
-reference's are (a mesh, a down-sampled fixed effect, lane compaction)
-and for TRON, whose device-driven solver is not ported yet.
+reference's are: a mesh, a down-sampled fixed effect, lane compaction.
 
 With a data mesh (``parallel/mesh.py``, one process or several) the batch
 is every process's replicated copy (on the host or a card) and each
@@ -83,7 +82,7 @@ from photon_ml_tpu_torch.parallel.distributed import (
 from photon_ml_tpu_torch.parallel.mesh import Mesh, ProcessMesh, as_process_mesh, effective_mesh, shard_extent
 from photon_ml_tpu_torch.parallel.multihost import allgather_rows
 from photon_ml_tpu_torch.parallel.placement import re_shard_enabled
-from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
+from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
 Tensor = torch.Tensor
 
@@ -180,10 +179,6 @@ class FusedVisitParts(NamedTuple):
 def _postprocess(aux, build_model: bool = True):
     model, tracker = aux
     return (model if build_model else None), tracker
-
-
-def _is_tron(config: OptimizationConfig) -> bool:
-    return config.optimizer.optimizer_type is OptimizerType.TRON
 
 
 def _visit(coord, total: Tensor, own_score: Tensor | None, initial):
@@ -377,12 +372,11 @@ class FixedEffectCoordinate:
     def _fused_visit_parts(self) -> FusedVisitParts | None:
         """The visit as parts the fused outer iteration chains
         (``FusedVisitParts``), or None where a visit needs host staging: a
-        mesh, a down-sampled row set (``train_rows``), or TRON, whose
-        solver has no device-driven loop yet. The layout is staged here,
-        before any capture, and so is the weights hint K1's objective takes
-        (the offsets hint is "not all zero": the residual changes every
+        mesh or a down-sampled row set (``train_rows``). The layout is
+        staged here, before any capture, and so is the weights hint K1's
+        objective takes (the offsets hint is "not all zero": the residual changes every
         visit, and one captured program serves them all)."""
-        if self.mesh is not None or self.train_rows is not None or _is_tron(self.config):
+        if self.mesh is not None or self.train_rows is not None:
             return None
         batch = self._training_batch(self.batch.offsets)  # makes the layout decision at the first call
         hints = self.__dict__.get("_visit_hints")
@@ -612,12 +606,12 @@ class RandomEffectCoordinate:
 
     def _fused_visit_parts(self) -> FusedVisitParts | None:
         """See ``FixedEffectCoordinate._fused_visit_parts``: None over a
-        mesh, under lane compaction (``PHOTON_RE_COMPACT_EVERY`` > 0, whose
-        chunks read the lanes back between them) and for TRON. The buckets
+        mesh and under lane compaction (``PHOTON_RE_COMPACT_EVERY`` > 0,
+        whose chunks read the lanes back between them). The buckets
         and the launch units are staged here, before any capture, and the
         knobs the visit reads (``PHOTON_RE_FUSE_BUCKETS``, the iteration
         accounting) are in the key."""
-        if self.mesh is not None or compact_every() > 0 or _is_tron(self.config):
+        if self.mesh is not None or compact_every() > 0:
             return None
         prepared, units = self._prepared, self._staged_fusion_units()
         run = self._build_visit_fn()  # per call (``FixedEffectCoordinate._fused_visit_parts``)

@@ -12,18 +12,18 @@ rerun resumes at the next one.
 
 Two paths, chosen as the reference chooses. Without validation run by
 evaluators, and where every coordinate offers ``_fused_visit_parts``
-(``game/coordinate.py``: not over a mesh, with down-sampling, under lane
-compaction, or on TRON, whose device-driven solver is not ported yet),
-the fused path runs: every coordinate's visit chained into one outer
-iteration over static buffers (``_FusedOuter``), the outer iterations in
-power-of-two chunks, largest first, at most ``_MAX_FUSED_CHUNK`` (1 with
-a checkpoint directory). On the card the first outer iteration is an
-eager warm-up on a side stream, the next is captured once as a CUDA graph
-whose solver loops the device decides (``ops/graphs.py``), and every later
-one, in any chunk or later ``run``, replays it; a chunk reads back once,
-at its end. On the CPU the same chain runs eagerly, bitwise the eager
-loop. Otherwise the eager visit loop runs, one coordinate at a time
-(``CoordinateDescent(..., _fused=False)`` forces it).
+(``game/coordinate.py``: not over a mesh, with down-sampling or under
+lane compaction), the fused path runs: every coordinate's visit chained
+into one outer iteration over static buffers (``_FusedOuter``), the outer
+iterations in power-of-two chunks, largest first, at most
+``_MAX_FUSED_CHUNK`` (1 with a checkpoint directory). On the card the
+first outer iteration is an eager warm-up on a side stream, the next is
+captured once as a CUDA graph whose solver loops the device decides
+(``ops/graphs.py``), and every later one, in any chunk or later ``run``,
+replays it; a chunk reads back once, at its end. On the CPU the same
+chain runs eagerly, bitwise the eager loop. Otherwise the eager visit
+loop runs, one coordinate at a time (``CoordinateDescent(...,
+_fused=False)`` forces it).
 
 Telemetry (``obs``; no-ops with no sink): on the eager loop spans
 ``descent/iter`` → ``descent/visit``, ``descent/validation``; on the fused
@@ -239,7 +239,7 @@ def _build_fused_outer(coordinates: Mapping[str, Any], seq: Sequence[str], devic
     """The fused outer iteration (``_FusedOuter``) over ``seq``, or None
     when a coordinate needs host staging per visit (its
     ``_fused_visit_parts`` is None: a mesh, down-sampling, lane
-    compaction, TRON). Kept in ``cache`` under everything a capture of it
+    compaction). Kept in ``cache`` under everything a capture of it
     bakes in: the sequence, the device and each coordinate's key (its
     staged tensors, its solver configuration and the knobs its visit
     reads), so a second ``run`` replays what the first captured and a

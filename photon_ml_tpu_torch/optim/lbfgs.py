@@ -262,13 +262,6 @@ def _lbfgs_impl(
     )
 
 
-def _history(values: list, T: int, dtype, device) -> Tensor:
-    """(T + 1,) history: the recorded values, NaN after the last iterate."""
-    out = torch.full((T + 1,), float("nan"), dtype=dtype, device=device)
-    out[: len(values)] = torch.stack(values).to(dtype)
-    return out
-
-
 def _lane_two_loop(pg: Tensor, S: Tensor, Y: Tensor, rho: Tensor, count: Tensor, m: int, steps: int) -> Tensor:
     """``_two_loop`` per lane: (k, d) r ≈ H⁻¹·pg from each lane's newest
     min(count, m) pairs of its (k, m, d) ring, gathered newest first (slot

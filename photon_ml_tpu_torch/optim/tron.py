@@ -3,9 +3,17 @@
 An outer trust-radius loop around an inner conjugate-gradient solve of
 ``H·s = -g`` truncated at the trust boundary, with LIBLINEAR's η/σ
 radius-update constants. The reference compiles both loops into one
-``lax.while_loop`` program; here they run on the host over tensors on the
-objective's device, with the same stopping rules and pass count. Each CG
-step is one ``objective.hvp`` (the fused Hv kernel on a dense CUDA batch).
+``lax.while_loop`` program with a nested CG ``while_loop``. Here the
+iteration and the CG step are each one body over state tensors on the
+objective's device, written in place, with the same stopping rules and
+pass count: the CG body takes the boundary step in the reference's masked
+form (the step τ where the full step leaves the region, the direction kept
+there, and the CG stop flag set), and the radius, acceptance and stopping
+reason are device ``where``s. ``ops/graphs.py``'s ``loop`` runs each body
+(the CG loop nested in the iteration): it reads one flag a trip on the
+host, or, inside a captured CUDA graph, leaves the trips to the device.
+Each CG step is one ``objective.hvp`` (the fused Hv kernel on a dense
+CUDA batch).
 
 With a (k, d) start on a ``LaneGLMObjective`` (a random-effect bucket) the
 solve runs over the lanes in lock step, as the reference's loop does under
@@ -13,27 +21,24 @@ solve runs over the lanes in lock step, as the reference's loop does under
 stopping reason, and one truncated-CG loop for the bucket in which each
 lane stops on its own (residual below ξ·‖g‖, or the boundary step with its
 own τ). Each CG step is one lane ``hvp`` from the margins stored at the
-iterate; the host reads one boolean per CG step and one per iteration.
-The lane loop is a state (``TronLaneState``), ``init``, ``run`` to an
-iteration bound and ``finalize``, which lane compaction runs in chunks
-(``tron_chunk_*``).
+iterate; the eager driver reads one flag a CG step and one an iteration
+for the whole bucket. The lane loop is a state (``TronLaneState``),
+``init``, ``run`` to an iteration bound and ``finalize``, which lane
+compaction runs in chunks (``tron_chunk_*``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from photon_ml_tpu_torch.config import OptimizerConfig
-from photon_ml_tpu_torch.optim.common import (
-    ConvergenceReason,
-    LaneState,
-    OptimizationResult,
-    grad_converged,
-)
-from photon_ml_tpu_torch.optim.lbfgs import _history, _lanes
+from photon_ml_tpu_torch.ops import graphs
+from photon_ml_tpu_torch.optim.common import ConvergenceReason, LaneState, OptimizationResult
+from photon_ml_tpu_torch.optim.lbfgs import _lanes
 
 Tensor = torch.Tensor
 
@@ -43,43 +48,161 @@ _SIGMA1, _SIGMA2, _SIGMA3 = 0.25, 0.5, 4.0
 _CG_XI = 0.1  # inner CG relative residual tolerance
 
 
-def _trcg(hvp, g: Tensor, delta: Tensor, max_cg: int) -> tuple[Tensor, Tensor, int]:
-    """Truncated CG for H·s = -g within ‖s‖ ≤ delta. Returns (s, r, cg_iters)
-    with r the final residual -g - H·s."""
-    r = -g
+def _boundary_step(s: Tensor, d: Tensor, delta: Tensor, dot: Callable[[Tensor, Tensor], Tensor]) -> Tensor:
+    """τ ≥ 0 with ‖s + τ·d‖ = delta (the boundary intersection)."""
+    std, dd, ss = dot(s, d), dot(d, d), dot(s, s)
+    rad = torch.sqrt(torch.clamp_min(std * std + dd * (delta * delta - ss), 0.0))
+    return torch.where(
+        std >= 0.0,
+        (delta * delta - ss) / torch.clamp_min(std + rad, 1e-30),
+        (rad - std) / torch.clamp_min(dd, 1e-30),
+    )
+
+
+def _radius(delta: Tensor, actred: Tensor, prered: Tensor, gs: Tensor, f_new: Tensor, f: Tensor,
+            snorm: Tensor) -> Tensor:
+    """LIBLINEAR's radius update from the interpolated step scale."""
+    denom = f_new - f - gs
+    alpha = torch.where(denom <= 0.0, _SIGMA3, torch.clamp_min(-0.5 * gs / denom, _SIGMA1))
+    return torch.where(
+        actred < _ETA0 * prered,
+        torch.minimum(torch.clamp_min(alpha, _SIGMA1) * snorm, _SIGMA2 * delta),
+        torch.where(
+            actred < _ETA1 * prered,
+            torch.maximum(_SIGMA1 * delta, torch.minimum(alpha * snorm, _SIGMA2 * delta)),
+            torch.where(
+                actred < _ETA2 * prered,
+                torch.maximum(_SIGMA1 * delta, torch.minimum(alpha * snorm, _SIGMA3 * delta)),
+                torch.maximum(delta, torch.minimum(alpha * snorm, _SIGMA3 * delta)),
+            ),
+        ),
+    )
+
+
+def _stalled(actred: Tensor, prered: Tensor, f: Tensor) -> Tensor:
+    """LIBLINEAR's stagnation guard at the old value ``f``: no progress
+    possible."""
+    tiny = 1e-12 * torch.abs(f)
+    return ((torch.abs(actred) <= 0.0) & (prered <= 0.0)) | (
+        (torch.abs(actred) <= tiny) & (torch.abs(prered) <= tiny)
+    )
+
+
+def _reason(converged: Tensor, stopped: Tensor) -> Tensor:
+    return torch.where(
+        converged,
+        int(ConvergenceReason.GRADIENT_CONVERGED),
+        torch.where(stopped, int(ConvergenceReason.OBJECTIVE_CONVERGED), int(ConvergenceReason.MAX_ITERATIONS)),
+    )
+
+
+def _trcg(hvp, g: Tensor, delta: Tensor, max_cg: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Truncated CG for H·s = -g within ‖s‖ ≤ delta: one body a CG step
+    over state tensors made here, run by ``graphs.loop`` while the step
+    stays inside the region and the residual is above ξ·‖g‖. Returns
+    (s, r, CG steps) with r the final residual -g - H·s and the steps a
+    0-d device count."""
     cg_tol = _CG_XI * torch.linalg.norm(g)
+    r = -g
     s = torch.zeros_like(g)
-    d = r
+    d = r.clone()
     rtr = torch.dot(r, r)
-    k = 0
-    while k < max_cg and bool(torch.sqrt(rtr) > cg_tol):
+    k = torch.zeros((), dtype=torch.int64, device=g.device)
+    cg_go = torch.sqrt(rtr) > cg_tol
+
+    def cg_step(_trip) -> None:
         hd = hvp(d)
-        dhd = torch.dot(d, hd)
-        alpha = rtr / torch.clamp_min(dhd, 1e-30)
-        outside = bool(torch.linalg.norm(s + alpha * d) > delta)
-        if outside:
-            # boundary intersection: τ ≥ 0 with ‖s + τ·d‖ = delta
-            std = torch.dot(s, d)
-            dd = torch.dot(d, d)
-            ss = torch.dot(s, s)
-            rad = torch.sqrt(torch.clamp_min(std * std + dd * (delta * delta - ss), 0.0))
-            step = torch.where(
-                std >= 0.0,
-                (delta * delta - ss) / torch.clamp_min(std + rad, 1e-30),
-                (rad - std) / torch.clamp_min(dd, 1e-30),
-            )
-        else:
-            step = alpha
-        s = s + step * d
-        r = r - step * hd
-        rtr_new = torch.dot(r, r)
-        if not outside:
-            d = r + (rtr_new / torch.clamp_min(rtr, 1e-30)) * d
-        rtr = rtr_new
-        k += 1
-        if outside:
-            break
+        alpha = rtr / torch.clamp_min(torch.dot(d, hd), 1e-30)
+        outside = torch.linalg.norm(s + alpha * d) > delta
+        step = torch.where(outside, _boundary_step(s, d, delta, torch.dot), alpha)
+        s_new = s + step * d
+        r_new = r - step * hd
+        rtr_new = torch.dot(r_new, r_new)
+        d_new = torch.where(outside, d, r_new + (rtr_new / torch.clamp_min(rtr, 1e-30)) * d)
+        s.copy_(s_new)
+        r.copy_(r_new)
+        d.copy_(d_new)
+        rtr.copy_(rtr_new)
+        k.add_(1)
+        cg_go.copy_(~outside & (torch.sqrt(rtr) > cg_tol))
+
+    graphs.loop(max_cg, cg_go, cg_step)
     return s, r, k
+
+
+def _tron_impl(objective: Any, w0: Tensor, config: OptimizerConfig) -> OptimizationResult:
+    """One GLM's solve. Its iteration and its CG step are bodies over
+    state tensors written in place, run by ``graphs.loop`` (module
+    docstring). The iteration and pass counts and the stopping reason live
+    on the device; the result's counts are read once at the end (under
+    ``graphs.deferring`` they stay tensors for the deferred run's one
+    read)."""
+    T = config.max_iterations
+    dtype, dev = w0.dtype, w0.device
+    f0, g0 = objective.value_and_grad(w0)
+    g0_norm = torch.linalg.norm(g0)
+    g_tol = config.tolerance * torch.clamp_min(g0_norm, 1.0)
+    # the state, written in place by each iteration
+    w, f, g, delta = w0.clone(), f0.clone(), g0.clone(), g0_norm.clone()
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    passes = torch.ones((), dtype=torch.int64, device=dev)  # the initial value_and_grad
+    reason = torch.full((), int(ConvergenceReason.MAX_ITERATIONS), dtype=torch.int64, device=dev)
+    done = g0_norm <= g_tol
+    go = ~done
+    loss_hist = torch.full((T + 1,), float("nan"), dtype=dtype, device=dev)
+    gnorm_hist = torch.full((T + 1,), float("nan"), dtype=dtype, device=dev)
+    loss_hist[0] = f0
+    gnorm_hist[0] = g0_norm
+
+    def iteration(_trip) -> None:
+        s, r, cg_k = _trcg(lambda v: objective.hvp(w, v), g, delta, config.max_cg_iterations)
+        gs = torch.dot(g, s)
+        # r = -g - H·s ⇒ sᵀHs = -gs - s·r ⇒ predicted reduction:
+        prered = -0.5 * (gs - torch.dot(s, r))
+        w_new = w + s
+        # one pass: the value feeds the acceptance ratio, the gradient is
+        # used iff the step is accepted
+        f_new, g_new = objective.value_and_grad(w_new)
+        actred = f - f_new
+        snorm = torch.linalg.norm(s)
+        # first-iteration radius calibration (LIBLINEAR)
+        rad = torch.where(it == 0, torch.minimum(delta, snorm), delta)
+        accept = actred > _ETA0 * prered
+        # the guards and the radius read the old value; then the state moves
+        stalled = _stalled(actred, prered, f)
+        delta.copy_(_radius(rad, actred, prered, gs, f_new, f, snorm))
+        w.copy_(torch.where(accept, w_new, w))
+        f.copy_(torch.where(accept, f_new, f))
+        g.copy_(torch.where(accept, g_new, g))
+        g_norm = torch.linalg.norm(g)
+        converged = accept & (g_norm <= g_tol)
+        stopped = stalled | (f < -1e32)  # unbounded at the new value
+        reason.copy_(_reason(converged, stopped))
+        done.copy_(converged | stopped)
+        # each CG step is one Hv pass over the data; the acceptance
+        # value_and_grad is one more
+        passes.add_(cg_k + 1)
+        loss_hist.index_copy_(0, (it + 1).view(1), f.view(1))
+        gnorm_hist.index_copy_(0, (it + 1).view(1), g_norm.view(1))
+        it.add_(1)
+        go.copy_(~done)
+
+    graphs.loop(T, go, iteration)
+    # the initial point already satisfied the test
+    reason = torch.where((it == 0) & done, int(ConvergenceReason.GRADIENT_CONVERGED), reason)
+    counts = it, reason, passes
+    if not graphs.is_deferring():  # a deferred run reads them at its end
+        counts = tuple(int(c) for c in graphs.read_all([torch.stack(counts)])[0])
+    return OptimizationResult(
+        w=w,
+        value=f,
+        grad_norm=torch.linalg.norm(g),
+        iterations=counts[0],
+        reason=counts[1],
+        loss_history=loss_hist,
+        grad_norm_history=gnorm_hist,
+        objective_passes=counts[2],
+    )
 
 
 def tron_minimize(objective: Any, w0: Tensor, config: OptimizerConfig) -> OptimizationResult:
@@ -89,139 +212,47 @@ def tron_minimize(objective: Any, w0: Tensor, config: OptimizerConfig) -> Optimi
     solved lane by lane."""
     if _lanes(objective, w0):
         return _tron_lanes(objective, w0, config)
-    T = config.max_iterations
-    dtype, dev = w0.dtype, w0.device
-    w = w0
-    f, g = objective.value_and_grad(w0)
-    g0_norm = torch.linalg.norm(g)
-    delta = g0_norm
-    it = 0
-    passes = 1  # the initial value_and_grad
-    reason = ConvergenceReason.MAX_ITERATIONS
-    done = grad_converged(g0_norm, g0_norm, config.tolerance)
-    loss_hist = [f]
-    gnorm_hist = [g0_norm]
+    return _tron_impl(objective, w0, config)
 
-    while it < T and not done:
-        f_old = f
-        s, r, cg_k = _trcg(lambda v, w=w: objective.hvp(w, v), g, delta, config.max_cg_iterations)
-        gs = torch.dot(g, s)
-        # r = -g - H·s ⇒ sᵀHs = -gs - s·r ⇒ predicted reduction:
-        prered = -0.5 * (gs - torch.dot(s, r))
-        w_new = w + s
-        # one pass: the value feeds the acceptance ratio, the gradient is
-        # used iff the step is accepted
-        f_new, g_new = objective.value_and_grad(w_new)
-        actred = f_old - f_new
-        snorm = torch.linalg.norm(s)
 
-        # first-iteration radius calibration (LIBLINEAR)
-        if it == 0:
-            delta = torch.minimum(delta, snorm)
-
-        # interpolated step scale
-        denom = f_new - f_old - gs
-        alpha = torch.where(
-            denom <= 0.0,
-            torch.full_like(denom, _SIGMA3),
-            torch.clamp_min(-0.5 * gs / denom, _SIGMA1),
-        )
-        delta = torch.where(
-            actred < _ETA0 * prered,
-            torch.minimum(torch.clamp_min(alpha, _SIGMA1) * snorm, _SIGMA2 * delta),
-            torch.where(
-                actred < _ETA1 * prered,
-                torch.maximum(_SIGMA1 * delta, torch.minimum(alpha * snorm, _SIGMA2 * delta)),
-                torch.where(
-                    actred < _ETA2 * prered,
-                    torch.maximum(_SIGMA1 * delta, torch.minimum(alpha * snorm, _SIGMA3 * delta)),
-                    torch.maximum(delta, torch.minimum(alpha * snorm, _SIGMA3 * delta)),
-                ),
-            ),
-        )
-
-        accept = bool(actred > _ETA0 * prered)
-        if accept:
-            w, f, g = w_new, f_new, g_new
-        g_norm = torch.linalg.norm(g)
-        converged = accept and grad_converged(g_norm, g0_norm, config.tolerance)
-
-        # stagnation guards (LIBLINEAR): no progress possible
-        tiny = 1e-12 * torch.abs(f_old)
-        stalled = bool(
-            ((torch.abs(actred) <= 0.0) & (prered <= 0.0))
-            | ((torch.abs(actred) <= tiny) & (torch.abs(prered) <= tiny))
-        )
-        unbounded = bool(f < -1e32)
-        if converged:
-            reason = ConvergenceReason.GRADIENT_CONVERGED
-        elif stalled or unbounded:
-            reason = ConvergenceReason.OBJECTIVE_CONVERGED
-        else:
-            reason = ConvergenceReason.MAX_ITERATIONS
-        done = converged or stalled or unbounded
-
-        it += 1
-        # each CG step is one Hv pass over the data; the acceptance
-        # value_and_grad is one more
-        passes += cg_k + 1
-        loss_hist.append(f)
-        gnorm_hist.append(g_norm)
-
-    if it == 0 and done:
-        reason = ConvergenceReason.GRADIENT_CONVERGED
-    return OptimizationResult(
-        w=w,
-        value=f,
-        grad_norm=torch.linalg.norm(g),
-        iterations=it,
-        reason=int(reason),
-        loss_history=_history(loss_hist, T, dtype, dev),
-        grad_norm_history=_history(gnorm_hist, T, dtype, dev),
-        objective_passes=passes,
-    )
+def _lane_dot(a: Tensor, b: Tensor) -> Tensor:
+    return torch.sum(a * b, dim=-1)
 
 
 def _lane_trcg(hvp, g: Tensor, delta: Tensor, max_cg: int, active: Tensor):
     """``_trcg`` per lane: (k, d) s and r, (k,) CG steps. A lane runs while
     it is active, not stopped at the boundary and its residual is above
-    ξ·‖g‖; the others keep their state."""
-    r = -g
+    ξ·‖g‖; the others keep their state. The loop goes on while any lane
+    runs."""
     cg_tol = _CG_XI * torch.linalg.norm(g, dim=-1)
+    r = -g
     s = torch.zeros_like(g)
-    d = r
-    rtr = torch.sum(r * r, dim=-1)
+    d = r.clone()
+    rtr = _lane_dot(r, r)
     steps = torch.zeros(g.shape[0], dtype=torch.int64, device=g.device)
     running = active & (torch.sqrt(rtr) > cg_tol)
-    n = 0
-    while n < max_cg and bool(running.any()):
+    any_running = running.any()
+
+    def cg_step(_trip) -> None:
         hd = hvp(d)
-        alpha = rtr / torch.clamp_min(torch.sum(d * hd, dim=-1), 1e-30)
+        alpha = rtr / torch.clamp_min(_lane_dot(d, hd), 1e-30)
         outside = torch.linalg.norm(s + alpha.unsqueeze(-1) * d, dim=-1) > delta
-        # boundary intersection: τ ≥ 0 with ‖s + τ·d‖ = delta
-        std = torch.sum(s * d, dim=-1)
-        dd = torch.sum(d * d, dim=-1)
-        ss = torch.sum(s * s, dim=-1)
-        rad = torch.sqrt(torch.clamp_min(std * std + dd * (delta * delta - ss), 0.0))
-        tau = torch.where(
-            std >= 0.0,
-            (delta * delta - ss) / torch.clamp_min(std + rad, 1e-30),
-            (rad - std) / torch.clamp_min(dd, 1e-30),
-        )
-        step = torch.where(outside, tau, alpha).unsqueeze(-1)
+        step = torch.where(outside, _boundary_step(s, d, delta, _lane_dot), alpha).unsqueeze(-1)
         s_new = s + step * d
         r_new = r - step * hd
-        rtr_new = torch.sum(r_new * r_new, dim=-1)
+        rtr_new = _lane_dot(r_new, r_new)
         beta = rtr_new / torch.clamp_min(rtr, 1e-30)
         d_new = torch.where(outside.unsqueeze(-1), d, r_new + beta.unsqueeze(-1) * d)
         lane = running.unsqueeze(-1)
-        s = torch.where(lane, s_new, s)
-        r = torch.where(lane, r_new, r)
-        d = torch.where(lane, d_new, d)
-        rtr = torch.where(running, rtr_new, rtr)
-        steps = steps + running.to(steps.dtype)
-        n += 1
-        running = running & ~outside & (torch.sqrt(rtr) > cg_tol)
+        s.copy_(torch.where(lane, s_new, s))
+        r.copy_(torch.where(lane, r_new, r))
+        d.copy_(torch.where(lane, d_new, d))
+        rtr.copy_(torch.where(running, rtr_new, rtr))
+        steps.add_(running.to(steps.dtype))
+        running.copy_(running & ~outside & (torch.sqrt(rtr) > cg_tol))
+        any_running.copy_(running.any())
+
+    graphs.loop(max_cg, any_running, cg_step)
     return s, r, steps
 
 
@@ -230,7 +261,8 @@ class TronLaneState(LaneState):
     """The TRON lane loop's state between chunks: the iterate, its
     margins, value and gradient, each lane's gradient tolerance and trust
     radius, iterations, objective passes, stopping reason, done flag and
-    (T + 1) histories; ``step`` is the shared iteration count."""
+    (T + 1) histories; ``step`` is the shared iteration count. A run
+    writes the tensors in place."""
 
     w: Tensor
     mg: Tensor
@@ -248,6 +280,8 @@ class TronLaneState(LaneState):
 
 
 def _tron_lane_init(obj, w0: Tensor, config: OptimizerConfig) -> TronLaneState:
+    """The lane state at the (k, d) start ``w0`` (one value-and-gradient
+    pass), in tensors of its own."""
     T = config.max_iterations
     k = w0.shape[0]
     dtype, dev = w0.dtype, w0.device
@@ -260,7 +294,7 @@ def _tron_lane_init(obj, w0: Tensor, config: OptimizerConfig) -> TronLaneState:
     loss_hist[:, 0] = f
     gnorm_hist[:, 0] = g0_norm
     return TronLaneState(
-        w=w0, mg=mg, f=f, g=g, g_tol=g_tol, delta=g0_norm,
+        w=w0.clone(), mg=mg, f=f, g=g, g_tol=g_tol, delta=g0_norm.clone(),
         it=torch.zeros(k, dtype=torch.int64, device=dev),
         passes=torch.ones(k, dtype=torch.int64, device=dev),  # the initial value_and_grad
         reason=torch.full((k,), int(ConvergenceReason.MAX_ITERATIONS), dtype=torch.int64, device=dev),
@@ -270,87 +304,68 @@ def _tron_lane_init(obj, w0: Tensor, config: OptimizerConfig) -> TronLaneState:
 
 def _tron_lane_run(obj, st: TronLaneState, config: OptimizerConfig, it_bound: int) -> TronLaneState:
     """TRON over k lanes in lock step until every lane is done or the
-    shared step reaches min(``it_bound``, max_iterations); per-lane
-    iterations, reason, histories and ``objective_passes`` (1 + Σ (CG
-    steps + 1)) as the reference's loop gives them under ``vmap``."""
+    shared step reaches min(``it_bound``, max_iterations), writing ``st``'s
+    tensors in place; per-lane iterations, reason, histories and
+    ``objective_passes`` (1 + Σ (CG steps + 1)) as the reference's loop
+    gives them under ``vmap``. The iteration and the CG step are bodies
+    run by ``graphs.loop`` (one flag read each under the eager driver);
+    inside a capture the returned state's ``step`` is the bound (the
+    device decided the trips)."""
     bound = min(int(it_bound), config.max_iterations)
+    k = st.w.shape[0]
     w, mg, f, g, g_tol, delta = st.w, st.mg, st.f, st.g, st.g_tol, st.delta
     it, passes, reason, done = st.it, st.passes, st.reason, st.done
     loss_hist, gnorm_hist = st.loss_hist, st.gnorm_hist
+    # every active lane has taken exactly `step` iterations, so the history
+    # column and the first-iteration test below are the same for each lane
+    step = torch.full((k, 1), st.step, dtype=torch.int64, device=st.w.device)
+    go = ~done.all()
 
-    step = st.step
-    while step < bound and not bool(done.all()):
+    def iteration(_trip) -> None:
         active = ~done
-        s, r, cg_k = _lane_trcg(
-            lambda v, mg=mg: obj.hvp_from_margins(mg, v), g, delta, config.max_cg_iterations, active
-        )
-        gs = torch.sum(g * s, dim=-1)
+        s, r, cg_k = _lane_trcg(lambda v: obj.hvp_from_margins(mg, v), g, delta, config.max_cg_iterations,
+                                active)
+        gs = _lane_dot(g, s)
         # r = -g - H·s ⇒ sᵀHs = -gs - s·r ⇒ predicted reduction:
-        prered = -0.5 * (gs - torch.sum(s * r, dim=-1))
+        prered = -0.5 * (gs - _lane_dot(s, r))
         w_new = w + s
         m_new = obj.margins(w_new)
         f_new, g_new = obj.value_and_grad_from_margins(m_new, w_new)
         actred = f - f_new
         snorm = torch.linalg.norm(s, dim=-1)
-        # first-iteration radius calibration (LIBLINEAR); every active lane
-        # has taken exactly `step` iterations
-        rad = torch.minimum(delta, snorm) if step == 0 else delta
-        denom = f_new - f - gs
-        alpha = torch.where(denom <= 0.0, _SIGMA3, torch.clamp_min(-0.5 * gs / denom, _SIGMA1))
-        rad = torch.where(
-            actred < _ETA0 * prered,
-            torch.minimum(torch.clamp_min(alpha, _SIGMA1) * snorm, _SIGMA2 * rad),
-            torch.where(
-                actred < _ETA1 * prered,
-                torch.maximum(_SIGMA1 * rad, torch.minimum(alpha * snorm, _SIGMA2 * rad)),
-                torch.where(
-                    actred < _ETA2 * prered,
-                    torch.maximum(_SIGMA1 * rad, torch.minimum(alpha * snorm, _SIGMA3 * rad)),
-                    torch.maximum(rad, torch.minimum(alpha * snorm, _SIGMA3 * rad)),
-                ),
-            ),
-        )
-        delta = torch.where(active, rad, delta)
-
+        # first-iteration radius calibration (LIBLINEAR)
+        rad = torch.where(step.squeeze(-1) == 0, torch.minimum(delta, snorm), delta)
         accept = actred > _ETA0 * prered
         take = active & accept
         lane = take.unsqueeze(-1)
-        # stagnation guards (LIBLINEAR): no progress possible
-        tiny = 1e-12 * torch.abs(f)
-        stalled = ((torch.abs(actred) <= 0.0) & (prered <= 0.0)) | (
-            (torch.abs(actred) <= tiny) & (torch.abs(prered) <= tiny)
-        )
-        w = torch.where(lane, w_new, w)
-        mg = torch.where(lane, m_new, mg)
-        g = torch.where(lane, g_new, g)
-        f = torch.where(take, f_new, f)
+        # the guards and the radius read the old value; then the state moves
+        stalled = _stalled(actred, prered, f)
+        delta.copy_(torch.where(active, _radius(rad, actred, prered, gs, f_new, f, snorm), delta))
+        w.copy_(torch.where(lane, w_new, w))
+        mg.copy_(torch.where(lane, m_new, mg))
+        g.copy_(torch.where(lane, g_new, g))
+        f.copy_(torch.where(take, f_new, f))
         g_norm = torch.linalg.norm(g, dim=-1)
         converged = accept & (g_norm <= g_tol)
-        unbounded = f < -1e32
-        new_reason = torch.where(
-            converged,
-            int(ConvergenceReason.GRADIENT_CONVERGED),
-            torch.where(
-                stalled | unbounded,
-                int(ConvergenceReason.OBJECTIVE_CONVERGED),
-                int(ConvergenceReason.MAX_ITERATIONS),
-            ),
-        )
-        reason = torch.where(active, new_reason, reason)
-        done = done | (active & (converged | stalled | unbounded))
-        it = it + active.to(it.dtype)
+        stopped = stalled | (f < -1e32)  # unbounded at the new value
+        reason.copy_(torch.where(active, _reason(converged, stopped), reason))
+        done.copy_(done | (active & (converged | stopped)))
+        it.add_(active.to(it.dtype))
         # each CG step is one Hv pass over the data; the acceptance
         # value_and_grad is one more
-        passes = passes + active.to(passes.dtype) * (cg_k + 1)
-        loss_hist[:, step + 1] = torch.where(active, f, loss_hist[:, step + 1])
-        gnorm_hist[:, step + 1] = torch.where(active, g_norm, gnorm_hist[:, step + 1])
-        step += 1
+        passes.add_(active.to(passes.dtype) * (cg_k + 1))
+        col = step + 1
+        loss_hist.scatter_(1, col, torch.where(active, f, loss_hist.gather(1, col).squeeze(1)).unsqueeze(1))
+        gnorm_hist.scatter_(1, col, torch.where(active, g_norm, gnorm_hist.gather(1, col).squeeze(1)).unsqueeze(1))
+        step.add_(1)
+        go.copy_(~done.all())
 
-    return TronLaneState(w=w, mg=mg, f=f, g=g, g_tol=g_tol, delta=delta, it=it, passes=passes, reason=reason,
-                         done=done, loss_hist=loss_hist, gnorm_hist=gnorm_hist, step=step)
+    trips = graphs.loop(bound - st.step, go, iteration)
+    return dataclasses.replace(st, step=bound if trips is None else st.step + trips)
 
 
 def _tron_lane_result(st: TronLaneState) -> OptimizationResult:
+    # a lane whose initial point already passed the gradient test
     reason = torch.where((st.it == 0) & st.done, int(ConvergenceReason.GRADIENT_CONVERGED), st.reason)
     return OptimizationResult(
         w=st.w,

@@ -1544,9 +1544,9 @@ def test_stream_executor_serve_and_refresh_at_once(dev, stream_executor_clean, m
 # ---------------------------------------------------------------------------
 # GAME's fused outer iteration on the card: captured once, replayed
 # ---------------------------------------------------------------------------
-def _fused_pair(dev, solver: str, l1: float = 0.0):
+def _fused_pair(dev, solver: str, l1: float = 0.0, fixed_solver: str = "LBFGS"):
     """Config E's coordinates on ``_game_batches``' card batch, in a fused
-    descent and an eager one."""
+    descent and an eager one; ``fixed_solver`` is the fixed effect's."""
     from photon_ml_tpu_torch import config as c
     from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
     from photon_ml_tpu_torch.game.data import bucket_entities, group_by_entity
@@ -1560,7 +1560,8 @@ def _fused_pair(dev, solver: str, l1: float = 0.0):
         regularization=c.RegularizationContext(RegularizationType.ELASTIC_NET if l1 else RegularizationType.L2,
                                                alpha=0.5),
         regularization_weight=1.0)
-    fe_opt = c.OptimizationConfig(optimizer=c.OptimizerConfig(max_iterations=20, tolerance=1e-7))
+    fe_opt = c.OptimizationConfig(optimizer=c.OptimizerConfig(optimizer_type=OptimizerType(fixed_solver),
+                                                              max_iterations=20, tolerance=1e-7))
 
     def coords():
         out = {"fixed": FixedEffectCoordinate("fixed", gpu, "global", fe_opt, task,
@@ -1576,15 +1577,18 @@ def _fused_pair(dev, solver: str, l1: float = 0.0):
     return (CoordinateDescent(coords(), gpu, task), CoordinateDescent(coords(), gpu, task, _fused=False), seq)
 
 
-@pytest.mark.parametrize("solver,l1", [("NEWTON_CHOLESKY", 0.0), ("LBFGS", 0.0), ("LBFGS", 0.5)],
-                         ids=["newton", "lbfgs", "owlqn"])
-def test_fused_descent_replays_bitwise_the_eager_loop_on_the_card(dev, solver, l1):
+@pytest.mark.parametrize("solver,l1,fixed_solver", [
+    ("NEWTON_CHOLESKY", 0.0, "LBFGS"), ("LBFGS", 0.0, "LBFGS"), ("LBFGS", 0.5, "LBFGS"), ("TRON", 0.0, "LBFGS"),
+    ("TRON", 0.0, "TRON")], ids=["newton", "lbfgs", "owlqn", "tron", "tron_fixed"])
+def test_fused_descent_replays_bitwise_the_eager_loop_on_the_card(dev, solver, l1, fixed_solver):
     """Three outer iterations (a chunk of 2, then 1): the first runs eagerly
     as the warm-up, the second is captured and replayed, the third
     replayed; the model, the scores and every fixed-effect tracker are the
-    eager loop's bit for bit, and K1's launches (counted on the device
-    inside the replays) are the fixed effect's objective passes."""
-    fused_d, eager_d, seq = _fused_pair(dev, solver, l1)
+    eager loop's bit for bit, and the kernels' launches (counted on the
+    device inside the replays) are the fixed effect's objective passes: K1
+    alone on L-BFGS; on TRON K1 once a visit and once an iteration, K2
+    once a CG step."""
+    fused_d, eager_d, seq = _fused_pair(dev, solver, l1, fixed_solver)
     out = {}
     for name, d in (("fused", fused_d), ("eager", eager_d)):
         fused.reset_launch_counts()
@@ -1598,19 +1602,21 @@ def test_fused_descent_replays_bitwise_the_eager_loop_on_the_card(dev, solver, l
     for a, b in zip(f.trackers["fixed"], e.trackers["fixed"]):
         assert (a.iterations, a.reason, a.objective_passes) == (b.iterations, b.reason, b.objective_passes)
     passes = sum(t.objective_passes for t in f.trackers["fixed"])
-    assert f_counts == e_counts == {"fused_value_grad": passes, "fused_hvp": 0}
+    if fixed_solver == "TRON":
+        value_grads = sum(1 + t.iterations for t in f.trackers["fixed"])
+        assert f_counts == e_counts == {"fused_value_grad": value_grads, "fused_hvp": passes - value_grads}
+        assert f_counts["fused_hvp"] > 0
+    else:
+        assert f_counts == e_counts == {"fused_value_grad": passes, "fused_hvp": 0}
     (outer,) = fused_d._fused_outer_cache.values()
     assert outer._graph is not None and outer._graph.nodes > 0
 
 
-def test_fused_descent_reads_nothing_between_replays_and_captures_once(dev, monkeypatch):
-    """A second ``run`` replays the first's graph (no capture), and no
-    host read of a CUDA tensor happens between a chunk's first replay and
-    its last (``chip_smoke.counting_readbacks``)."""
+def _reads_nothing_between_replays(dev, monkeypatch, solver: str, fixed_solver: str = "LBFGS") -> None:
     from chip_smoke import counting_readbacks
     from photon_ml_tpu_torch.ops import graphs
 
-    fused_d, _, seq = _fused_pair(dev, "LBFGS")
+    fused_d, _, seq = _fused_pair(dev, solver, fixed_solver=fixed_solver)
     fused_d.run(seq, 2)  # the warm-up, then the capture and its replay
     captures, replays = [], []
     real_capture, real_replay = graphs.capture, graphs.LoopGraph.replay
@@ -1620,6 +1626,19 @@ def test_fused_descent_reads_nothing_between_replays_and_captures_once(dev, monk
         fused_d.run(seq, 4)
         torch.cuda.synchronize()
     assert not captures and len(replays) == 4 and len(set(replays)) == 1
+
+
+def test_fused_descent_reads_nothing_between_replays_and_captures_once(dev, monkeypatch):
+    """A second ``run`` replays the first's graph (no capture), and no
+    host read of a CUDA tensor happens between a chunk's first replay and
+    its last (``chip_smoke.counting_readbacks``)."""
+    _reads_nothing_between_replays(dev, monkeypatch, "LBFGS")
+
+
+def test_fused_descent_on_tron_reads_nothing_between_replays_and_captures_once(dev, monkeypatch):
+    """The same with TRON on every coordinate: the CG loops nested in the
+    iterations, lanes and fixed effect, are WHILE nodes the device runs."""
+    _reads_nothing_between_replays(dev, monkeypatch, "TRON", fixed_solver="TRON")
 
 
 def test_a_failed_capture_raises(dev, monkeypatch):

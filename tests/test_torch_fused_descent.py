@@ -8,11 +8,11 @@ fixtures, within the tolerances ``tests/test_torch_game.py`` states
 visit loop bit for bit (coefficients, variances, training scores, every
 tracker's iterations, reasons and objective passes, the last visit's
 per-entity diagnostics, and the checkpoints written after every outer
-iteration), for Newton, L-BFGS and OWL-QN lanes, a random projector, a
-locked coordinate, a warm start and 1, 3 and 5 outer iterations (chunks
-of 1; 2 + 1; 4 + 1); the reference's selection rule, case by case, with
-TRON kept on the eager loop until its device-driven solver is ported; and
-the reference's span and record names. The card's twins (a captured
+iteration), for Newton, L-BFGS, OWL-QN and TRON lanes, a fixed effect
+on TRON, a random projector, a locked coordinate, a warm start and 1, 3
+and 5 outer iterations (chunks of 1; 2 + 1; 4 + 1); the reference's
+selection rule, case by case (TRON takes the fused path, as the
+reference's does); and the reference's span and record names. The card's twins (a captured
 replay against the eager loop, no host read inside a chunk, a second run
 that captures nothing, a failed capture that raises) are in
 ``tests/test_torch_cuda.py``."""
@@ -54,6 +54,14 @@ def _re_config(cfg, **changes):
     """``cfg`` with every random effect's coordinate config changed."""
     return cfg.replace(random_effect_coordinates={
         cid: rc.replace(**changes) for cid, rc in cfg.random_effect_coordinates.items()})
+
+
+def _fixed_tron(cfg):
+    """``cfg`` with the fixed effect on TRON (its CG steps are Hv passes)."""
+    fe = cfg.fixed_effect_coordinates["fixed"]
+    opt = fe.optimization
+    return cfg.replace(fixed_effect_coordinates={"fixed": fe.replace(optimization=opt.replace(
+        optimizer=opt.optimizer.replace(optimizer_type=ttypes.OptimizerType.TRON)))})
 
 
 def _elastic_net(cfg):
@@ -106,6 +114,10 @@ CASES = {
     "lbfgs_lanes": dict(iterations=2, re_solver="LBFGS", re_tolerance=1e-3),
     "owlqn_lanes": dict(iterations=2, re_solver="LBFGS", re_tolerance=1e-3, elastic_net=True),
     "projector": dict(iterations=2, re_solver="LBFGS", re_tolerance=1e-3, projection=2),
+    "tron_lanes_1": dict(iterations=1, re_solver="TRON", re_tolerance=1e-3),
+    "tron_lanes_3": dict(iterations=3, re_solver="TRON", re_tolerance=1e-3),
+    "tron_fixed_and_lanes_1": dict(iterations=1, re_solver="TRON", re_tolerance=1e-3, fixed_tron=True),
+    "tron_fixed_and_lanes_3": dict(iterations=3, re_solver="TRON", re_tolerance=1e-3, fixed_tron=True),
 }
 
 
@@ -121,9 +133,12 @@ def test_fused_descent_is_bitwise_the_eager_loop(glmm, case):
     data, _, tb = glmm
     kw = {**GLMM_TOLERANCES, **CASES[case]}
     elastic, projection = kw.pop("elastic_net", False), kw.pop("projection", None)
+    fixed_tron = kw.pop("fixed_tron", False)
     cfg = _config(tcfg, **kw)
     if elastic:
         cfg = _elastic_net(cfg)
+    if fixed_tron:
+        cfg = _fixed_tron(cfg)
     if projection is not None:
         cfg = _re_config(cfg, random_projection_dim=projection)
     fused, eager = _fit(cfg, tb, data, True), _fit(cfg, tb, data, False)
@@ -227,6 +242,16 @@ def test_fused_lbfgs_lanes_match_the_reference():
     _assert_models_agree(jres.model, tres.model, jb, tb)
 
 
+def test_fused_tron_lanes_match_the_reference():
+    """TRON lanes (one outer iteration, tolerance 1e-3), fused in both
+    packages: coefficients and scores within atol 1e-3."""
+    data, jb, tb = _data(seed=1, n=500)
+    kw = dict(buckets=(1, 1e6), re_solver="TRON", re_tolerance=1e-3, iterations=1)
+    jres = JEstimator(_config(jcfg, **kw), intercept_indices={"global": data.intercept_index}).fit(jb)[0]
+    tres = _fit(_config(tcfg, **kw), tb, data, True)
+    _assert_models_agree(jres.model, tres.model, jb, tb)
+
+
 def _takes_fused(monkeypatch, run) -> bool:
     called = []
     real = CoordinateDescent._run_fused
@@ -244,8 +269,8 @@ def _takes_fused(monkeypatch, run) -> bool:
 def test_selection_rule(glmm, monkeypatch, case):
     """The reference's rule: the fused path unless validation runs with
     evaluators, or a coordinate needs host staging per visit (a mesh,
-    down-sampling, lane compaction). TRON takes the eager loop as well:
-    its device-driven solver is not ported yet."""
+    down-sampling, lane compaction). TRON lanes take the fused path, as
+    the reference's do."""
     data, _, tb = glmm
     cfg = _config(tcfg, **GLMM_TOLERANCES, iterations=1)
     fit_kw = {}
@@ -273,7 +298,7 @@ def test_selection_rule(glmm, monkeypatch, case):
             coords, tb, ttypes.TaskType.LOGISTIC_REGRESSION, mesh=mesh).run(["fixed"], 1))
     else:
         taken = _takes_fused(monkeypatch, lambda: _fit(cfg, tb, data, True, **fit_kw))
-    assert taken is (case == "default")
+    assert taken is (case in ("default", "tron"))
 
 
 def test_spans_and_records_are_the_references(glmm, tmp_path):

@@ -24,6 +24,8 @@ and dense lanes as between the port and the reference (ROADMAP queue 3)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,9 +121,9 @@ def _config(task: TaskType, solver: str, history: int = 10) -> dict:
                 history_length=history)
 
 
-def _jax_lanes(task, solver, v):
+def _jax_lanes(task, solver, v, **overrides):
     j_fn, _, extra = SOLVERS[solver]
-    cfg = _config(task, solver, v["history"])
+    cfg = {**_config(task, solver, v["history"]), **overrides}
     jcfg = JConfig(**{**cfg, "optimizer_type": JOpt(cfg["optimizer_type"])})
     loss = j_loss_for_task(JTask(task.value))
     norm = None if v["norm"] is None else JNorm(jnp.asarray(v["norm"][0]), jnp.asarray(v["norm"][1]),
@@ -221,6 +223,34 @@ def test_lanes_match_vmapped_reference(reference, solver, variant, task):
 def _port_config(task, solver, history: int = 10) -> OptimizerConfig:
     cfg = _config(task, solver, history)
     return OptimizerConfig(**{**cfg, "optimizer_type": OptimizerType(cfg["optimizer_type"])})
+
+
+LANE_TRIP_BOUNDS = {
+    # the inner CG trip bound hit
+    "max_cg_2": dict(max_cg_iterations=2),
+    # the outer trip bound hit before the lanes converge
+    "max_iterations_2": dict(max_iterations=2, tolerance=1e-7),
+}
+
+
+@pytest.mark.parametrize("task", TASKS)
+@pytest.mark.parametrize("bound", list(LANE_TRIP_BOUNDS))
+def test_tron_lane_trip_bounds_match_vmapped_reference(task, bound):
+    """TRON lanes where a trip bound, not the flags, ends the CG or the
+    iteration loop, against the vmapped reference (``_assert_lanes_agree``);
+    at the outer bound every real lane stops after 2 iterations."""
+    v = _variant(task, "cold")
+    over = LANE_TRIP_BOUNDS[bound]
+    cfg = dataclasses.replace(_port_config(task, "TRON"), **over)
+    tres = tron_minimize(_lane_objective(task, v), torch.as_tensor(v["w0"]), cfg)
+    jres = _jax_lanes(task, "TRON", v, **over)
+    _assert_lanes_agree(jres, tres)
+    if bound == "max_iterations_2":
+        assert tres.iterations[:-1].tolist() == [2] * 5 and int(tres.iterations.max()) == 2
+        np.testing.assert_array_equal(tres.objective_passes.numpy(), np.asarray(jres.objective_passes))
+    else:
+        it = tres.iterations.numpy()
+        assert np.all(tres.objective_passes.numpy() <= 1 + 3 * it)
 
 
 @pytest.mark.parametrize("history", [10, 2])

@@ -102,6 +102,34 @@ def test_fused_objective_solves_like_the_pallas_path(solver):
     assert rt.objective_passes == int(rj.objective_passes)
 
 
+TRIP_BOUNDS = {
+    # the inner CG trip bound hit on most iterations
+    "max_cg_2": dict(max_iterations=60, max_cg_iterations=2),
+    # the outer trip bound hit before the gradient test passes
+    "max_iterations_2": dict(max_iterations=2, tolerance=1e-7),
+}
+
+
+@pytest.mark.parametrize("bound", list(TRIP_BOUNDS))
+@pytest.mark.parametrize("task", list(TOLERANCE))
+def test_tron_trip_bounds_match_reference(task, bound):
+    """TRON's iteration and CG bodies where a trip bound, not a flag, ends
+    the loop: the same reason, iterations within ±1 (equal, and equal
+    passes, where the outer bound ends it), w within 1e-4."""
+    jobj, tobj, d = _objectives(task, 1)
+    kw = {"tolerance": TOLERANCE[task], **TRIP_BOUNDS[bound]}
+    rj = j_tron(jobj, jnp.zeros(d, jnp.float32), JConfig(**kw))
+    rt = tron_minimize(tobj, torch.zeros(d), OptimizerConfig(**kw))
+    _assert_same_solve(rj, rt)
+    assert type(rt.iterations) is int and type(rt.objective_passes) is int
+    if bound == "max_cg_2":
+        # every iteration takes at most 2 CG steps and one acceptance pass
+        assert rt.iterations + 1 < rt.objective_passes <= 1 + 3 * rt.iterations
+    else:
+        assert rt.iterations == int(rj.iterations) == 2 and rt.reason == ConvergenceReason.MAX_ITERATIONS
+        assert rt.objective_passes == int(rj.objective_passes)
+
+
 def test_converged_at_start_reports_gradient_converged():
     _, tobj, d = _objectives(TaskType.LINEAR_REGRESSION, 1)
     w = lbfgs_minimize(tobj, torch.zeros(d), OptimizerConfig(tolerance=1e-5)).w
